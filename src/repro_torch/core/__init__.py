@@ -1,0 +1,49 @@
+"""The targetDP core on PyTorch: descriptors, the launch path, executors and
+step graphs (single device)."""
+from .api import (
+    LaunchPlan,
+    gather_neighbors,
+    halo_extend,
+    launch,
+    launch_plan,
+    pad_sites,
+)
+from .lattice import (
+    D3Q19_VELOCITIES,
+    STENCIL_D3Q19_PULL,
+    STENCIL_GRAD_19PT,
+    STENCIL_GRAD_6PT,
+    Lattice,
+    Stencil,
+)
+from .memory import TargetConst
+from .program import (
+    CompiledProgram,
+    Program,
+    ProgramPlan,
+    Stage,
+    program,
+    resolve_stage_target,
+    stage,
+)
+from .registry import (
+    executor_tunables,
+    executor_wants,
+    register_executor,
+    registry_version,
+    unregister_executor,
+)
+from .spec import FieldSpec, KernelSpec, field, kernel
+from .state import validate_field
+from .target import Target, as_target, default_vvl
+
+__all__ = [
+    "CompiledProgram", "D3Q19_VELOCITIES", "FieldSpec", "KernelSpec",
+    "LaunchPlan", "Lattice", "Program", "ProgramPlan", "STENCIL_D3Q19_PULL",
+    "STENCIL_GRAD_19PT", "STENCIL_GRAD_6PT", "Stage", "Stencil", "Target",
+    "TargetConst", "as_target", "default_vvl", "executor_tunables",
+    "executor_wants", "field", "gather_neighbors", "halo_extend", "kernel",
+    "launch", "launch_plan", "pad_sites", "program", "register_executor",
+    "registry_version", "resolve_stage_target", "stage", "unregister_executor",
+    "validate_field",
+]

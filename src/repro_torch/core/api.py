@@ -1,0 +1,558 @@
+"""The unified targetDP launch: ``launch(spec, target, *tensors)``.
+
+The :class:`~repro_torch.core.spec.KernelSpec` declares *what* (kernel body,
+field roles, stencils, outputs), the :class:`~repro_torch.core.target.Target`
+declares *where/how* (executor, VVL), and this module owns the single shared
+path every launch takes:
+
+1. **validation** — field roles vs tensor ranks/extents, stencil geometry
+   vs lattice + halo, const names;
+2. **const unwrapping** — ``TargetConst`` → host values, content-hashed
+   into the cache key;
+3. **plan caching** — plans keyed on ``(spec, target, resolved VVL,
+   lattice, halo, out, consts, registry version)``, so a re-registered
+   executor can never be served from a stale plan;
+4. **the neighbour prologue** — *capability-aware*: executors declaring
+   ``wants="gathered"`` get the periodic-roll / ghost-window gather into
+   ``(noffsets, ncomp, nsites)`` stacks; executors declaring
+   ``wants="halo_extended"`` get each stencil field **once**, as a
+   halo-extended ``(ncomp, *ext_shape)`` grid (:func:`halo_extend`);
+5. **dispatch** — through the executor registry
+   (:mod:`repro_torch.core.registry`).
+
+Built-in executors registered here: ``"torch"`` (each site body called once
+over all sites — the oracle and the CPU path), ``"cuda"`` (the gathered
+CUDA kernel, :mod:`repro_torch.kernels.tdp_pointwise`) and
+``"cuda_windowed"`` (the gather-free CUDA stencil kernel,
+:mod:`repro_torch.kernels.tdp_windowed`).  The kernel modules are imported
+at first dispatch.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Mapping, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .lattice import Lattice, Stencil
+from .memory import TargetConst
+from .registry import (
+    get_executor_entry,
+    register_executor,
+    registry_version,
+)
+from .spec import KernelSpec
+from .target import Target, as_target
+
+
+# ---------------------------------------------------------------------------
+# shared helpers (padding, gathering, const handling)
+# ---------------------------------------------------------------------------
+
+def pad_sites(x: torch.Tensor, vvl: int) -> torch.Tensor:
+    """Zero-pad the trailing site axis up to a VVL multiple (paper §III-C:
+    the TLP loop strides in whole chunks)."""
+    n = x.shape[-1]
+    n_pad = -(-n // vvl) * vvl
+    if n_pad == n:
+        return x
+    return F.pad(x, (0, n_pad - n))
+
+
+def _prod_shape(shape) -> int:
+    out = 1
+    for s in shape:
+        out *= int(s)
+    return out
+
+
+def shifted_grid(grid: torch.Tensor, shape: tuple[int, ...],
+                 halo: tuple[int, ...], offset) -> torch.Tensor:
+    """The ``(ncomp, *shape)`` interior of ``grid`` (``(ncomp, *(shape +
+    2·halo))``) read at ``site + offset``: dimensions with ``halo[d] == 0``
+    wrap periodically (``torch.roll``), those with ``halo[d] > 0`` read the
+    caller-supplied ghost planes (a window into the extended extent)."""
+    g = grid
+    shifts, dims = [], []
+    for d, o in enumerate(offset):
+        if halo[d]:
+            g = g.narrow(d + 1, halo[d] + o, shape[d])
+        elif o:
+            shifts.append(-o)
+            dims.append(d + 1)
+    if dims:
+        g = torch.roll(g, shifts, dims)
+    return g
+
+
+def gather_neighbors(x: torch.Tensor, shape: tuple[int, ...],
+                     halo: tuple[int, ...], stencil: Stencil) -> torch.Tensor:
+    """``(ncomp, nsites_ext)`` → ``(noffsets, ncomp, nsites)`` neighbour
+    stack over the interior sites (slot ``i`` = the field at ``site +
+    stencil.offsets[i]``)."""
+    ext = tuple(s + 2 * h for s, h in zip(shape, halo))
+    ncomp = x.shape[0]
+    grid = x.reshape(ncomp, *ext)
+    out = torch.empty((stencil.noffsets, ncomp, _prod_shape(shape)),
+                      dtype=x.dtype, device=x.device)
+    for i, off in enumerate(stencil.offsets):
+        out[i].view(ncomp, *shape).copy_(shifted_grid(grid, shape, halo, off))
+    return out
+
+
+def halo_extend(x: torch.Tensor, shape: tuple[int, ...],
+                halo: tuple[int, ...], stencil: Stencil) -> torch.Tensor:
+    """``(ncomp, nsites_ext)`` → halo-extended grid ``(ncomp, *ext)`` with
+    exactly ``stencil.radius_per_dim()`` ghost layers per dimension.
+
+    The gather-free prologue for ``wants="halo_extended"`` executors: the
+    field is padded **once** so every neighbour of every interior site is
+    addressable by a fixed shift.  Dimensions with ``halo[d] == 0`` wrap
+    periodically (``F.pad(mode="circular")`` on a ``(1, ncomp, *ext)``
+    view); dimensions with ``halo[d] > 0`` reuse the caller-supplied ghost
+    planes, trimmed down to the stencil radius.
+    """
+    r = stencil.radius_per_dim()
+    ext_in = tuple(s + 2 * h for s, h in zip(shape, halo))
+    g = x.reshape(x.shape[0], *ext_in)
+    pads = []
+    for d, (h, rd, s) in enumerate(zip(halo, r, shape)):
+        if h:
+            if h > rd:       # caller ghost wider than needed: trim
+                g = g.narrow(d + 1, h - rd, s + 2 * rd)
+            pads.append(0)
+        else:
+            if rd > s:
+                raise ValueError(
+                    f"stencil {stencil.name!r} radius {rd} in dim {d} "
+                    f"exceeds the periodic extent {s}; refusing to "
+                    f"wrap-pad more than one full period — supply "
+                    f">= {rd} exchanged ghost planes in dim {d} "
+                    f"(halo > 0) or enlarge the dimension")
+            pads.append(rd)
+    if any(pads):
+        if len(shape) > 3:
+            raise ValueError(
+                f"periodic halo extension supports 1-3 grid dimensions, "
+                f"got {len(shape)}")
+        flat = []
+        for p in reversed(pads):      # F.pad lists the last dim first
+            flat += [p, p]
+        g = F.pad(g[None], flat, mode="circular")[0]
+    return g.contiguous()
+
+
+def _unwrap_consts(consts: Mapping[str, object]) -> dict:
+    return {k: v.value if isinstance(v, TargetConst) else v
+            for k, v in consts.items()}
+
+
+def _consts_cache_key(consts: Mapping[str, object]):
+    items = []
+    for k in sorted(consts):
+        v = consts[k]
+        if isinstance(v, (TargetConst, int, float, bool, str)):
+            items.append((k, v))
+        else:
+            # host arrays hash by content through TargetConst semantics
+            items.append((k, TargetConst(v)))
+    return tuple(items)
+
+
+def _normalize_halo(halo, ndim) -> tuple[int, ...]:
+    if halo is None:
+        return (0,) * ndim
+    if isinstance(halo, int):
+        return (int(halo),) * ndim
+    h = tuple(int(x) for x in halo)
+    if len(h) != ndim:
+        raise ValueError(f"halo {h} does not match lattice ndim {ndim}")
+    return h
+
+
+# ---------------------------------------------------------------------------
+# launch plan — what an executor receives
+# ---------------------------------------------------------------------------
+
+class LaunchPlan:
+    """Everything an executor needs to map one kernel over the sites.
+
+    Built (and cached) by :func:`launch`; executors are called as
+    ``executor(plan, prepared, out)`` (see :mod:`repro_torch.core.registry`).
+    ``shape``/``halo``/``stencils`` carry the launch geometry (``None`` /
+    all-``None`` for pure pointwise launches), so capability-declaring
+    executors can resolve neighbour offsets themselves and so the
+    :meth:`hbm_bytes_estimate` memory model is derivable from the plan.
+    """
+
+    __slots__ = ("kernel", "name", "vvl", "out_ncomp", "consts", "target",
+                 "shape", "halo", "stencils", "field_ncomp", "wants")
+
+    def __init__(self, *, kernel, name, vvl, out_ncomp, consts, target,
+                 shape=None, halo=None,
+                 stencils=None, field_ncomp=None, wants="gathered"):
+        self.kernel = kernel
+        self.name = name
+        self.vvl = vvl
+        self.out_ncomp = out_ncomp
+        self.consts = consts
+        self.target = target
+        self.shape = shape
+        self.halo = halo
+        self.stencils = tuple(stencils) if stencils is not None else None
+        self.field_ncomp = (tuple(field_ncomp)
+                            if field_ncomp is not None else None)
+        self.wants = wants
+
+    def _fields(self):
+        if self.field_ncomp is None:
+            raise ValueError(
+                f"plan {self.name!r} carries no field metadata; build it "
+                f"through launch / launch_plan")
+        stencils = self.stencils or (None,) * len(self.field_ncomp)
+        return tuple(zip(self.field_ncomp, stencils))
+
+    def _ext_shape(self, stencil):
+        r = stencil.radius_per_dim()
+        return tuple(s + 2 * rd for s, rd in zip(self.shape, r))
+
+    def hbm_bytes_estimate(self, itemsize: int = 4) -> int:
+        """Device-memory footprint of the executor's prepared operands plus
+        outputs (excluding the caller's own input tensors).
+
+        The gathered path materialises ``noffsets_i`` copies of every
+        stencil field; the halo-extended path pays only the ghost-layer
+        overhead ``prod(shape + 2·radius) / prod(shape)``.
+        """
+        if self.shape is None:
+            raise ValueError("hbm_bytes_estimate needs a lattice shape")
+        n = _prod_shape(self.shape)
+        total = sum(self.out_ncomp) * n
+        for c, s in self._fields():
+            if s is None:
+                total += c * n
+            elif self.wants == "halo_extended":
+                total += c * _prod_shape(self._ext_shape(s))
+            else:
+                total += c * s.noffsets * n
+        return total * itemsize
+
+    def __repr__(self):
+        return (f"LaunchPlan({self.name!r}, executor={self.target.executor!r}"
+                f", vvl={self.vvl}, out={self.out_ncomp}, "
+                f"wants={self.wants!r})")
+
+
+# ---------------------------------------------------------------------------
+# validation
+# ---------------------------------------------------------------------------
+
+def _validate_arrays(spec: KernelSpec, arrays, lattice, halo):
+    if len(arrays) != len(spec.fields):
+        raise ValueError(
+            f"kernel {spec.name!r} declares {len(spec.fields)} field(s) "
+            f"but got {len(arrays)} array(s)")
+    for i, (x, fs) in enumerate(zip(arrays, spec.fields)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(
+                f"{fs.label(i)} of kernel {spec.name!r} must be a "
+                f"torch.Tensor, got {type(x).__name__}")
+        if x.ndim != 2:
+            raise ValueError(
+                f"{fs.label(i)} of kernel {spec.name!r} has role "
+                f"{fs.role!r} and must be an SoA array of shape "
+                f"(ncomp, nsites); got rank {x.ndim} array")
+        if fs.ncomp is not None and int(x.shape[0]) != fs.ncomp:
+            raise ValueError(
+                f"{fs.label(i)} of kernel {spec.name!r} declares "
+                f"ncomp={fs.ncomp} but the array has {x.shape[0]} "
+                f"component(s)")
+    devices = {x.device for x in arrays}
+    if len(devices) != 1:
+        raise ValueError(f"inputs of kernel {spec.name!r} lie on different "
+                         f"devices: {sorted(map(str, devices))}")
+
+    if spec.has_stencil:
+        if lattice is None:
+            raise ValueError(
+                f"kernel {spec.name!r} has stencil input(s) but the launch "
+                f"is missing a lattice (neighbour geometry needs the shape)")
+        h = _normalize_halo(halo, lattice.ndim)
+        n_ext = _prod_shape(tuple(s + 2 * hh
+                                  for s, hh in zip(lattice.shape, h)))
+        for i, (x, fs) in enumerate(zip(arrays, spec.fields)):
+            s = fs.stencil
+            want = n_ext if s is not None else lattice.nsites
+            if int(x.shape[-1]) != want:
+                raise ValueError(
+                    f"{fs.label(i)} extent {x.shape[-1]} != expected {want} "
+                    f"({'extended' if s is not None else 'interior'}; "
+                    f"shape={lattice.shape}, halo={h})")
+            if s is None:
+                continue
+            if s.ndim != lattice.ndim:
+                raise ValueError(
+                    f"stencil {s.name!r} is {s.ndim}-D on a "
+                    f"{lattice.ndim}-D lattice")
+            for d, r in enumerate(s.radius_per_dim()):
+                if h[d] and h[d] < r:
+                    raise ValueError(
+                        f"halo {h[d]} in dim {d} < stencil {s.name!r} "
+                        f"radius {r}")
+            if fs.halo == "periodic" and any(h):
+                raise ValueError(
+                    f"{fs.label(i)} declares halo policy 'periodic' but "
+                    f"the launch supplies ghost planes (halo={h})")
+            if fs.halo == "ghost" and not all(
+                    h[d] >= r for d, r in enumerate(s.radius_per_dim())
+                    if r):
+                raise ValueError(
+                    f"{fs.label(i)} declares halo policy 'ghost' but the "
+                    f"launch halo {h} does not cover stencil "
+                    f"{s.name!r} radius {s.radius_per_dim()}")
+        return h
+
+    # pure pointwise launch
+    if halo is not None:
+        hseq = (halo,) if isinstance(halo, int) else tuple(halo)
+        if any(int(x) for x in hseq):
+            raise ValueError("halo is only meaningful for stencil launches")
+    nsite_set = {int(x.shape[-1]) for x in arrays}
+    if len(nsite_set) != 1:
+        raise ValueError(f"inputs disagree on site extent: "
+                         f"{sorted(nsite_set)}")
+    if lattice is not None:
+        n = nsite_set.pop()
+        if n not in (lattice.nsites, lattice.nsites_with_halo):
+            raise ValueError(
+                f"site extent {n} matches neither interior "
+                f"({lattice.nsites}) nor halo-padded "
+                f"({lattice.nsites_with_halo}) lattice")
+    return None
+
+
+def _validate_wrap_extents(spec: KernelSpec, lattice, halo):
+    """Plan-build guard for :func:`halo_extend`'s periodic path: refuse a
+    ``wants="halo_extended"`` launch whose stencil radius exceeds a
+    periodic extent, naming the dim/radius/extent before any work runs."""
+    if lattice is None or not spec.has_stencil:
+        return
+    h = halo if halo is not None else (0,) * lattice.ndim
+    for i, fs in enumerate(spec.fields):
+        s = fs.stencil
+        if s is None:
+            continue
+        for d, r in enumerate(s.radius_per_dim()):
+            if r and h[d] == 0 and r > lattice.shape[d]:
+                raise ValueError(
+                    f"{fs.label(i)} of kernel {spec.name!r}: stencil "
+                    f"{s.name!r} radius {r} in dim {d} exceeds the "
+                    f"periodic extent {lattice.shape[d]} (halo_extend "
+                    f"cannot wrap-pad a dimension thinner than the "
+                    f"stencil radius); supply >= {r} ghost planes in "
+                    f"dim {d} or enlarge it")
+
+
+# ---------------------------------------------------------------------------
+# the launch itself
+# ---------------------------------------------------------------------------
+
+def _make_plan(spec: KernelSpec, target: Target, vvl: int,
+               out_ncomp: tuple[int, ...], lattice: Lattice | None,
+               halo: tuple[int, ...] | None, consts: dict,
+               wants: str) -> LaunchPlan:
+    return LaunchPlan(
+        kernel=spec.fn, name=spec.name, vvl=vvl, out_ncomp=out_ncomp,
+        consts=consts, target=target,
+        shape=lattice.shape if lattice is not None else None, halo=halo,
+        stencils=spec.stencils,
+        field_ncomp=tuple(fs.ncomp if fs.ncomp is not None else 1
+                          for fs in spec.fields),
+        wants=wants)
+
+
+@functools.lru_cache(maxsize=4096)
+def _build_plan(spec: KernelSpec, target: Target, vvl: int,
+                out_ncomp: tuple[int, ...], lattice: Lattice | None,
+                halo: tuple[int, ...] | None, const_key,
+                _registry_version):
+    consts = _unwrap_consts(dict(const_key))
+    entry = get_executor_entry(target.executor)
+    executor = entry.fn
+    plan = _make_plan(spec, target, vvl, out_ncomp, lattice, halo, consts,
+                      entry.wants)
+    stencils = spec.stencils
+    shape = lattice.shape if lattice is not None else None
+    n_out = len(out_ncomp)
+    prologue = (halo_extend if entry.wants == "halo_extended"
+                else gather_neighbors)
+
+    def run(arrays, out):
+        prepared = tuple(x if s is None else prologue(x, shape, halo, s)
+                         for x, s in zip(arrays, stencils))
+        outs = executor(plan, prepared, out)
+        outs = (outs,) if not isinstance(outs, (tuple, list)) else tuple(outs)
+        if len(outs) != n_out:
+            raise ValueError(
+                f"executor {target.executor!r} returned {len(outs)} "
+                f"output(s) for kernel {spec.name!r}; plan declares "
+                f"{n_out}")
+        return outs
+
+    return run
+
+
+def _check_out(spec, out, out_ncomp, arrays, nsites):
+    out = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    if len(out) != len(out_ncomp):
+        raise ValueError(f"kernel {spec.name!r} has {len(out_ncomp)} "
+                         f"output(s), got {len(out)} out buffer(s)")
+    x0 = arrays[0]
+    for o, c in zip(out, out_ncomp):
+        if (tuple(o.shape) != (c, nsites) or o.dtype != x0.dtype
+                or o.device != x0.device or not o.is_contiguous()):
+            raise ValueError(
+                f"out buffer of kernel {spec.name!r} must be a contiguous "
+                f"{x0.dtype} tensor of shape {(c, nsites)} on {x0.device}; "
+                f"got {o.dtype} {tuple(o.shape)} on {o.device}")
+    return out
+
+
+def launch(spec: KernelSpec, target: Target | str | None = None, /,
+           *arrays, lattice: Lattice | None = None,
+           halo: int | Sequence[int] | None = None,
+           consts: Mapping[str, object] | None = None,
+           out=None, **kw_consts):
+    """Launch a declared kernel over the lattice (``TARGET_LAUNCH``).
+
+    Args:
+      spec: the :class:`KernelSpec`.
+      target: a :class:`Target`, a backend-name string, or ``None`` for the
+        default ``"cuda"`` target.  The CUDA executors launch their kernels
+        on CUDA tensors and run the plain version on CPU tensors; the data's
+        device is the caller's choice.
+      *arrays: one SoA tensor per declared field — ``(ncomp, nsites)``;
+        stencil fields span the halo-extended extent when ``halo`` is
+        non-zero.
+      lattice: grid descriptor.  Required when any field carries a stencil.
+      halo: per-dimension ghost width already present in stencil inputs
+        (``0`` → periodic wrap).
+      consts / **kw_consts: ``TARGET_CONST`` parameters (``TargetConst``,
+        host arrays or scalars).  ``lattice``, ``halo``, ``consts`` and
+        ``out`` are reserved keyword names — pass consts with those names
+        through the ``consts=`` mapping.
+      out: optional preallocated output tensor(s), contiguous
+        ``(ncomp_o, nsites)``, written in place and returned.
+
+    Returns one ``(ncomp_o, nsites)`` tensor per declared output (a bare
+    tensor for single-output kernels).
+    """
+    if not isinstance(spec, KernelSpec):
+        raise TypeError(f"launch expects a KernelSpec as first argument, "
+                        f"got {type(spec).__name__}")
+    tgt = as_target(target)
+    entry = get_executor_entry(tgt.executor)
+    if entry.wants == "halo_extended" and not spec.has_stencil:
+        raise ValueError(
+            f"executor {tgt.executor!r} declares wants='halo_extended' "
+            f"(gather-free stencil windows) but kernel {spec.name!r} has "
+            f"no stencil-carrying fields; use a 'gathered' executor such "
+            f"as 'torch' or 'cuda' for pointwise kernels")
+    arrays = tuple(arrays)
+    if not arrays:
+        raise ValueError("launch requires at least one input field")
+    all_consts = dict(consts or {})
+    all_consts.update(kw_consts)
+    if spec.consts is not None:
+        unknown = sorted(set(all_consts) - set(spec.consts))
+        if unknown:
+            raise ValueError(
+                f"kernel {spec.name!r} does not declare const(s) "
+                f"{unknown}; declared: {sorted(spec.consts)}")
+    h = _validate_arrays(spec, arrays, lattice, halo)
+    if entry.wants == "halo_extended":
+        _validate_wrap_extents(spec, lattice, h)
+    out_ncomp = spec.out if spec.out is not None else (int(arrays[0].shape[0]),)
+    if out is not None:
+        nsites = (lattice.nsites if spec.has_stencil
+                  else int(arrays[0].shape[-1]))
+        out = _check_out(spec, out, out_ncomp, arrays, nsites)
+    run = _build_plan(spec, tgt, tgt.resolve_vvl(), out_ncomp, lattice, h,
+                      _consts_cache_key(all_consts), registry_version())
+    outs = run(arrays, out)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def launch_plan(spec: KernelSpec, target: Target | str | None = None, *,
+                lattice: Lattice | None = None,
+                halo: int | Sequence[int] | None = None,
+                consts: Mapping[str, object] | None = None) -> LaunchPlan:
+    """Build (without launching) the :class:`LaunchPlan` a launch of
+    ``spec`` under ``target`` would dispatch with — the introspection
+    surface for :meth:`LaunchPlan.hbm_bytes_estimate`, and the handle the
+    chip smoke test uses to call one executor directly."""
+    if not isinstance(spec, KernelSpec):
+        raise TypeError(f"launch_plan expects a KernelSpec, got "
+                        f"{type(spec).__name__}")
+    tgt = as_target(target)
+    entry = get_executor_entry(tgt.executor)
+    if entry.wants == "halo_extended" and not spec.has_stencil:
+        raise ValueError(
+            f"executor {tgt.executor!r} declares wants='halo_extended' but "
+            f"kernel {spec.name!r} has no stencil-carrying fields")
+    if spec.has_stencil and lattice is None:
+        raise ValueError(f"kernel {spec.name!r} has stencil input(s); "
+                         f"launch_plan needs the lattice")
+    h = (_normalize_halo(halo, lattice.ndim)
+         if lattice is not None and spec.has_stencil else None)
+    if entry.wants == "halo_extended":
+        _validate_wrap_extents(spec, lattice, h)
+    if spec.out is not None:
+        out_ncomp = spec.out
+    elif spec.fields[0].ncomp is not None:
+        out_ncomp = (spec.fields[0].ncomp,)
+    else:
+        raise ValueError(
+            f"kernel {spec.name!r} declares neither out= nor an ncomp for "
+            f"field 0 — its output count is only known at launch time, so "
+            f"launch_plan cannot build a faithful plan")
+    return _make_plan(spec, tgt, tgt.resolve_vvl(), tuple(out_ncomp),
+                      lattice, h, _unwrap_consts(dict(consts or {})),
+                      entry.wants)
+
+
+# ---------------------------------------------------------------------------
+# built-in executors
+# ---------------------------------------------------------------------------
+
+def torch_executor(plan: LaunchPlan, gathered, out=None):
+    """The plain executor: the site body called **once** over all sites.
+
+    Every targetDP site kernel is independent per site, so the VVL chunk
+    loop of the reference's ``"xla"`` executor collapses to one call over
+    the whole trailing site axis; ``plan.vvl`` is carried but not used.
+    """
+    outs = plan.kernel(*gathered, **plan.consts)
+    outs = (outs,) if not isinstance(outs, tuple) else outs
+    if out is None:
+        return outs
+    for o, v in zip(out, outs):
+        o.copy_(v)
+    return out
+
+
+def _cuda_executor(plan: LaunchPlan, gathered, out=None):
+    from repro_torch.kernels.tdp_pointwise import cuda_execute
+    return cuda_execute(plan, gathered, out)
+
+
+def _cuda_windowed_executor(plan: LaunchPlan, extended, out=None):
+    from repro_torch.kernels.tdp_windowed import windowed_execute
+    return windowed_execute(plan, extended, out)
+
+
+register_executor("torch", torch_executor)
+register_executor("cuda", _cuda_executor)
+register_executor("cuda_windowed", _cuda_windowed_executor,
+                  wants="halo_extended")

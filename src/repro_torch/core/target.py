@@ -1,0 +1,115 @@
+"""Target descriptors — *where and how* a kernel launch executes.
+
+:class:`Target` is a small frozen value object naming the executor, carrying
+the tunable VVL (sites per thread on the card, chunk width elsewhere), the
+memory layout, and an executor-specific ``tuning`` mapping.  Being frozen
+and hashable, a Target participates directly in the launch plan cache key.
+
+Executors of this package: ``"torch"`` (plain PyTorch, the oracle and CPU
+path), ``"cuda"`` (the gathered CUDA kernel) and ``"cuda_windowed"`` (the
+gather-free CUDA stencil kernel, ``wants="halo_extended"``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Mapping
+
+#: Process default VVL for targets with ``vvl=None`` (the chunk width of the
+#: reference's default).  The CUDA executors resolve ``None`` to 1 instead:
+#: one site per thread is the coalesced mapping on the card.
+_DEFAULT_VVL = 128
+
+
+def default_vvl() -> int:
+    return _DEFAULT_VVL
+
+
+def _freeze_tuning(tuning) -> tuple[tuple[str, Any], ...]:
+    if isinstance(tuning, Mapping):
+        items = sorted(tuning.items())
+    else:
+        items = sorted(tuple(kv) for kv in tuning)
+    for k, v in items:
+        if not isinstance(k, str):
+            raise TypeError(f"tuning keys must be strings, got {k!r}")
+        hash(v)  # tuning participates in the plan cache key
+    return tuple((k, v) for k, v in items)
+
+
+@dataclass(frozen=True)
+class Target:
+    """Execution target descriptor.
+
+    Args:
+      backend: executor name in the registry (``"torch"``, ``"cuda"``,
+        ``"cuda_windowed"``, or any registered name).
+      vvl: virtual vector length.  ``None`` → the executor's default.
+      layout: ``"soa"`` (sites contiguous per component).  ``"aosoa"`` is
+        a valid layout of the targetDP model but is not ported yet
+        (ROADMAP, queue A: ``core/layout.py``), so it raises
+        ``NotImplementedError``.
+      tuning: executor/op-specific knobs, stored as a sorted tuple of
+        pairs so the Target stays hashable.
+    """
+
+    backend: str = "cuda"
+    vvl: int | None = None
+    layout: str = "soa"
+    tuning: tuple[tuple[str, Any], ...] = field(default=())
+
+    def __post_init__(self):
+        if not isinstance(self.backend, str) or not self.backend:
+            raise ValueError(f"backend must be a non-empty string, got "
+                             f"{self.backend!r}")
+        if self.vvl is not None:
+            if int(self.vvl) <= 0:
+                raise ValueError(f"vvl must be positive, got {self.vvl}")
+            object.__setattr__(self, "vvl", int(self.vvl))
+        if self.layout not in ("soa", "aosoa"):
+            raise ValueError(
+                f"layout must be 'soa' or 'aosoa', got {self.layout!r} "
+                f"(the AoSoA inner width is the separate vvl field)")
+        if self.layout == "aosoa":
+            raise NotImplementedError(
+                "layout='aosoa' is not ported yet: it waits for the port of "
+                "core/layout.py (ROADMAP, queue A, item 'AoSoA layout.py')")
+        object.__setattr__(self, "tuning", _freeze_tuning(self.tuning))
+
+    @property
+    def executor(self) -> str:
+        """Registry name this target dispatches to."""
+        return self.backend
+
+    def resolve_vvl(self) -> int:
+        """The VVL this target launches with (explicit value, else the
+        process default)."""
+        return self.vvl if self.vvl is not None else _DEFAULT_VVL
+
+    def with_(self, **updates) -> "Target":
+        """Functional update (``dataclasses.replace`` with dict-friendly
+        ``tuning``)."""
+        if "tuning" in updates:
+            updates["tuning"] = _freeze_tuning(updates["tuning"])
+        return dataclasses.replace(self, **updates)
+
+
+def as_target(target: "Target | str | None" = None, *,
+              vvl: int | None = None) -> Target:
+    """Coerce the accepted spellings to a :class:`Target`.
+
+    ``None`` → the default (``"cuda"``) target; a string →
+    ``Target(backend=string)``; a Target passes through.  ``vvl`` (if
+    given) overrides the target's.
+    """
+    if target is None:
+        target = Target()
+    elif isinstance(target, str):
+        target = Target(backend=target)
+    elif not isinstance(target, Target):
+        raise TypeError(
+            f"expected a Target, backend-name string, or None; got "
+            f"{type(target).__name__}: {target!r}")
+    if vvl is not None:
+        target = target.with_(vvl=vvl)
+    return target

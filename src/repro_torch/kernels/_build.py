@@ -1,0 +1,120 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` and load them.
+
+Each ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc``
+process — all started together — into a shared library with a plain C
+interface, loaded with :mod:`ctypes`::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
+
+Output goes to ``build/repro_torch/<digest>/`` at the repository root,
+keyed by a hash of every source and the flags, so an edited source always
+rebuilds.  ``<name>.log`` beside each library keeps ``ptxas``'s register,
+shared-memory and spill report.  A missing or failing ``nvcc`` raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("tdp_gathered", "tdp_windowed", "lb_collision")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Site functions in the order of the C enum ``tdp::SiteId``.
+SITES = ("stream", "grad6", "moment", "collide", "fused", "phi_stream",
+         "fused_two")
+SITE_ID = {name: i for i, name in enumerate(SITES)}
+
+#: ``tdp::ERR_*`` return codes of the C entries (cudaError_t values are >= 0).
+_ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}"}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
+            "CUDA kernels of repro_torch are built from source at first use")
+    return path
+
+
+def build_dir() -> Path:
+    """The build directory for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> dict[str, Path]:
+    """Compile every source that is not built yet, in parallel; return
+    ``{name: library path}``."""
+    out = build_dir()
+    libs = {name: out / f"lib{name}.so" for name in SOURCES}
+    todo = [name for name in SOURCES if not libs[name].exists()]
+    if not todo:
+        return libs
+    nvcc = _nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    procs = []
+    try:
+        for name in todo:
+            log = open(out / f"{name}.log.{tag}", "w")
+            tmp = out / f"lib{name}.so.{tag}"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs.append((name, tmp, log,
+                          subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT)))
+        failed = []
+        for name, tmp, log, proc in procs:
+            proc.wait()
+            log.close()
+            os.replace(log.name, out / f"{name}.log")
+            if proc.returncode:
+                failed.append(name)
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, libs[name])
+    finally:
+        for _, _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        report = "\n".join(f"--- {n}.cu ---\n{(out / f'{n}.log').read_text()}"
+                           for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{report}")
+    return libs
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` (built on first call)."""
+    return ctypes.CDLL(str(build()[name]))
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry returned anything but 0."""
+    if rc == 0:
+        return
+    if rc in _ERRORS:
+        raise ValueError(f"{what}: {_ERRORS[rc]}")
+    raise RuntimeError(f"{what}: the launch failed with cudaError_t {rc}")
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current stream on ``device``, as the int a C entry takes."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

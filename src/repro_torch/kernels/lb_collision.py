@@ -1,0 +1,182 @@
+"""D3Q19 binary-fluid lattice-Boltzmann collision — the paper's benchmark.
+
+This is the "binary collision" kernel of §IV: a BGK collision of two
+distributions (f for the fluid, g for the composition order parameter φ)
+with a free-energy force, site-local over 19+19+5 components per site.
+
+* moments:        ρ = Σᵢ fᵢ,   ρu = Σᵢ fᵢcᵢ + F/2,   φ = Σᵢ gᵢ
+* free energy:    μ = -A φ + B φ³ - κ ∇²φ
+* force:          F = μ ∇φ
+* equilibria:     fᵢᵉq = wᵢ ρ (1 + 3cᵢ·u + 9/2 (cᵢ·u)² - 3/2 u²)
+                  gᵢᵉq = wᵢ (3Γμ + 3φ cᵢ·u)  (i≥1);  g₀ᵉq = φ - Σ_{i≥1} gᵢᵉq
+* collision:      fᵢ' = fᵢ - (fᵢ - fᵢᵉq)/τ + (1 - 1/2τ) wᵢ (3(cᵢ-u) + 9cᵢ(cᵢ·u))·F
+                  gᵢ' = gᵢ - (gᵢ - gᵢᵉq)/τ_φ
+
+Two realisations of one function:
+
+* :func:`collision_site_kernel` — the plain site kernel (torch ops over the
+  trailing site axis), run by the ``"torch"`` executor and, on CPU tensors,
+  by every wrapper;
+* :func:`lb_collision` — the wrapper of the hand-written CUDA kernel
+  ``csrc/lb_collision.cu`` (the port of ``lb_collision_pallas``), which runs
+  the same arithmetic as ``collide_core`` in ``csrc/lb_sites.cuh``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+# index 0: rest; 1..6: axis vectors; 7..18: face diagonals.
+CV = np.array(
+    [[0, 0, 0],
+     [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1],
+     [1, 1, 0], [1, -1, 0], [-1, 1, 0], [-1, -1, 0],
+     [1, 0, 1], [1, 0, -1], [-1, 0, 1], [-1, 0, -1],
+     [0, 1, 1], [0, 1, -1], [0, -1, 1], [0, -1, -1]],
+    dtype=np.float64,
+)
+WEIGHTS = np.array([1.0 / 3.0] + [1.0 / 18.0] * 6 + [1.0 / 36.0] * 12,
+                   dtype=np.float64)
+NVEL = 19
+NDIM = 3
+
+#: the physics scalars and their defaults (a symmetric quench)
+PHYS_DEFAULTS = dict(A=0.0625, B=0.0625, kappa=0.04, tau=1.0, tau_phi=1.0,
+                     gamma=1.0)
+
+#: kernel launches of the CUDA wrapper, by site function
+launches = {"collide": 0}
+
+
+def collision_site_kernel(f, g, phi, gradphi, del2phi, *,
+                          w=None, c=None, A=0.0625, B=0.0625, kappa=0.04,
+                          tau=1.0, tau_phi=1.0, gamma=1.0):
+    """Binary collision over the trailing site axis (plain version).
+
+    Args:
+      f: (19, n) fluid distribution.
+      g: (19, n) order-parameter distribution.
+      phi: (1, n) order parameter (Σg, precomputed by the moment pass).
+      gradphi: (3, n) ∇φ (stencil pass).
+      del2phi: (1, n) ∇²φ (stencil pass).
+      w, c: TARGET_CONST weight vector (19,) and velocity set (19, 3).
+      A, B, kappa, tau, tau_phi, gamma: scalar TARGET_CONSTs.
+
+    Returns ``(f', g')``, both (19, n).
+    """
+    dt, dev = f.dtype, f.device
+    w = torch.as_tensor(w, dtype=dt, device=dev)[:, None]      # (19, 1)
+    c = torch.as_tensor(c, dtype=dt, device=dev)               # (19, 3)
+    phi_ = phi[0]
+    d2 = del2phi[0]
+
+    mu = -A * phi_ + B * phi_ * phi_ * phi_ - kappa * d2
+    force = mu[None, :] * gradphi                              # (3, n)
+
+    rho = f.sum(0)
+    mom = torch.einsum("qd,qv->dv", c, f)
+    u = (mom + 0.5 * force) / rho[None, :]
+
+    cu = torch.einsum("qd,dv->qv", c, u)                       # (19, n)
+    usq = (u * u).sum(0)
+    feq = w * rho[None, :] * (1.0 + 3.0 * cu + 4.5 * cu * cu
+                              - 1.5 * usq[None, :])
+
+    cf = torch.einsum("qd,dv->qv", c, force)
+    uf = (u * force).sum(0)
+    fterm = (1.0 - 0.5 / tau) * w * (3.0 * (cf - uf[None, :]) + 9.0 * cu * cf)
+    f_out = f - (f - feq) / tau + fterm
+
+    gt = w * (3.0 * gamma * mu[None, :] + 3.0 * phi_[None, :] * cu)
+    g0 = phi_ - (gt.sum(0) - gt[0])                            # rest population
+    geq = torch.cat([g0[None, :], gt[1:]], dim=0)
+    g_out = g - (g - geq) / tau_phi
+    return f_out, g_out
+
+
+collision_site_kernel.__cuda_site__ = "collide"
+
+
+def check_d3q19_consts(consts: dict, what: str) -> None:
+    """The CUDA kernels compile D3Q19's weights and velocities in; refuse
+    ``w``/``c`` consts that differ from them."""
+    for name, table in (("w", WEIGHTS), ("c", CV)):
+        if name not in consts:
+            continue
+        got = np.asarray(consts[name], dtype=np.float32)
+        if got.shape != table.shape or not np.array_equal(
+                got, table.astype(np.float32)):
+            raise ValueError(
+                f"{what}: const {name!r} differs from the D3Q19 table the "
+                f"CUDA kernel is compiled with")
+
+
+def cuda_vvl(vvl: int | None) -> int:
+    """The sites per thread of a CUDA launch: ``None`` → 1."""
+    vvl = 1 if vvl is None else int(vvl)
+    if vvl not in (1, 2, 4, 8):
+        raise ValueError(f"the CUDA kernels take vvl in (1, 2, 4, 8), got {vvl}")
+    return vvl
+
+
+def check_cuda_tensors(tensors, shapes, what: str) -> None:
+    """Device, dtype, shape and contiguity checks before a C entry gets the
+    pointers."""
+    dev = tensors[0].device
+    for i, (x, shape) in enumerate(zip(tensors, shapes)):
+        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(
+                f"{what}: operand {i} must be a contiguous float32 tensor on "
+                f"{dev}; got {x.dtype} on {x.device}, contiguous="
+                f"{x.is_contiguous()}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{what}: operand {i} has shape "
+                             f"{tuple(x.shape)}, expected {tuple(shape)}")
+
+
+def _lib():
+    lib = _build.load("lb_collision")
+    fn = lib.lb_collision_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lb_collision(f, g, phi, gradphi, del2phi, *, vvl: int | None = None,
+                 **phys):
+    """Binary collision over SoA tensors ``(ncomp, nsites)``.
+
+    CUDA tensors launch ``csrc/lb_collision.cu`` (``vvl`` sites per thread,
+    ``None`` → 1) or raise; CPU tensors run :func:`collision_site_kernel`.
+    """
+    unknown = sorted(set(phys) - set(PHYS_DEFAULTS))
+    if unknown:
+        raise TypeError(f"lb_collision got unknown physics parameter(s) "
+                        f"{unknown}; accepted: {sorted(PHYS_DEFAULTS)}")
+    p = {**PHYS_DEFAULTS, **phys}
+    vvl = cuda_vvl(vvl)
+    if f.device.type == "cpu":
+        return collision_site_kernel(f, g, phi, gradphi, del2phi,
+                                     w=WEIGHTS, c=CV, **p)
+    if f.device.type != "cuda":
+        raise ValueError(f"lb_collision runs on CUDA or CPU tensors, got "
+                         f"{f.device}")
+    n = int(f.shape[-1])
+    ins = (f, g, phi, gradphi, del2phi)
+    check_cuda_tensors(ins, [(NVEL, n), (NVEL, n), (1, n), (NDIM, n), (1, n)],
+                       "lb_collision")
+    fo, go = torch.empty_like(f), torch.empty_like(g)
+    fn = _lib()
+    with torch.cuda.device(f.device):
+        rc = fn(*(x.data_ptr() for x in ins), fo.data_ptr(), go.data_ptr(),
+                n, vvl, *(float(p[k]) for k in PHYS_DEFAULTS),
+                _build.stream_handle(f.device))
+    _build.check(rc, "lb_collision")
+    launches["collide"] += 1
+    return fo, go

@@ -1,0 +1,210 @@
+"""Binary-fluid simulation — the end-to-end Ludwig-style application.
+
+One timestep:
+  1. moment pass:   φ = Σ_i g_i                      (site-local)
+  2. stencil pass:  ∇φ, ∇²φ                          (nearest-neighbour)
+  3. collision:     (f, g, φ, ∇φ, ∇²φ) → (f', g')     ← hot spot
+  4. streaming:     f'_q(x+c_q) ← f'_q(x)
+
+The step shapes live in :mod:`repro_torch.lb.programs` as declarative stage
+graphs; :class:`~repro_torch.core.program.Program` owns the per-stage
+executor routing and the ping-pong stepping.
+
+``fused`` selects the hot-loop fusion strategy (all trajectories agree
+state-for-state within float32 rounding):
+
+* ``False`` — the 4-launch unfused pipeline above (one 5-stage Program).
+* ``"one_launch"`` (or ``True``) — one stencil stage per step over the
+  radius-2 composed g-neighbourhood.
+* ``"two_launch"`` — launch A streams g's moments into a 1-component φ
+  intermediate, launch B (radius-1 stencils only) streams/collides
+  against it.
+
+In every fused mode the iterated state is the pre-stream populations
+w = collide(u), since (stream∘collide)ⁿ = stream ∘ (collide∘stream)ⁿ⁻¹ ∘
+collide — the prologue (collide) and epilogue (stream) run once as their
+own Programs.
+
+Device and executors: with no ``device=`` the simulation runs on ``cuda``
+and raises ``RuntimeError`` when no card is present.  On the card the
+default backend is ``"cuda"`` (unfused) or ``"cuda_windowed"`` (fused) at
+``vvl=1``; on the CPU it is ``"torch"`` at the process default VVL.  A
+CUDA backend defaults to ``vvl=1`` on either device (on CPU tensors it runs
+the plain versions).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core import Target, as_target, default_vvl, executor_wants
+from repro_torch.kernels.lb_collision import NVEL, WEIGHTS
+from repro_torch.kernels.ops import resolve_device
+from . import programs as lbp
+from .params import LBParams
+
+_FUSED_MODES = (False, "one_launch", "two_launch")
+
+
+@dataclass
+class LBState:
+    f: torch.Tensor          # (19, X, Y, Z)
+    g: torch.Tensor          # (19, X, Y, Z)
+    step: int = 0
+
+    @property
+    def grid_shape(self) -> tuple[int, int, int]:
+        return tuple(self.f.shape[1:])
+
+
+def from_reference(f, g, params: dict, *, device=None):
+    """The port's ``(LBState, LBParams)`` from the reference's state:
+    ``f``/``g`` as numpy ``(19, X, Y, Z)`` arrays and its ``LBParams`` as a
+    plain dict (``dataclasses.asdict``).  The bits are kept as they are."""
+    dev = resolve_device(device)
+    state = LBState(torch.tensor(np.asarray(f), device=dev),
+                    torch.tensor(np.asarray(g), device=dev))
+    return state, LBParams(**params)
+
+
+class BinaryFluidSim:
+    """Spinodal-decomposition / droplet simulation of a binary mixture.
+
+    The compiled step graphs are exposed as ``sim.programs`` — a dict of
+    :class:`~repro_torch.core.program.CompiledProgram`: ``{"step": ...}``
+    for the unfused regime, ``{"collide": ..., "fused": ..., "stream": ...}``
+    for the fused ones (prologue / hot-loop body / epilogue).
+    """
+
+    def __init__(self, grid_shape=(32, 32, 32), params: LBParams | None = None,
+                 *, target: Target | str | None = None,
+                 backend: str | None = None, vvl: int | None = None,
+                 fused: bool | str = False, device=None):
+        self.grid_shape = tuple(int(s) for s in grid_shape)
+        self.params = params or LBParams()
+        self.device = resolve_device(device)
+        if fused is True:
+            fused = "one_launch"
+        if fused not in _FUSED_MODES:
+            raise ValueError(f"fused must be one of {_FUSED_MODES} (or "
+                             f"True ≡ 'one_launch'), got {fused!r}")
+        self.fused = fused
+        on_card = self.device.type == "cuda"
+        if target is None:
+            if backend is None:
+                backend = (("cuda_windowed" if fused else "cuda") if on_card
+                           else "torch")
+            if vvl is None:
+                vvl = 1 if backend.startswith("cuda") else default_vvl()
+            target = Target(backend, vvl=vvl)
+        else:
+            target = as_target(target, vvl=vvl)
+        self.target = target
+        # Program compilation routes pointwise stages away from a
+        # stencil-only target, but the *unfused* pipeline is
+        # pointwise-dominated (collision) — requesting a stencil-only
+        # executor for it would quietly measure another one, so fail fast.
+        stencil_only = executor_wants(target.executor) == "halo_extended"
+        if stencil_only and not fused:
+            raise ValueError(
+                f"target executor {target.executor!r} is stencil-only "
+                f"(wants='halo_extended'); it only runs the fused stencil "
+                f"launches — pass fused='one_launch' or 'two_launch'")
+        self.backend = target.executor
+        self.vvl = target.vvl
+
+        consts = lbp.collision_consts(dtype=np.float32,
+                                      **self.params.as_kwargs())
+        kw = dict(grid_shape=self.grid_shape)
+        if fused:
+            self.programs = {
+                "collide": lbp.collide_program(consts).compile(target, **kw),
+                "fused": lbp.fused_program(fused, consts).compile(target,
+                                                                  **kw),
+                "stream": lbp.stream_program().compile(target, **kw),
+            }
+        else:
+            self.programs = {
+                "step": lbp.unfused_step_program(consts).compile(target,
+                                                                 **kw),
+            }
+
+    # -- initialisation ----------------------------------------------------
+
+    def init_spinodal(self, seed: int = 0, noise: float = 0.05) -> LBState:
+        """Symmetric quench: φ = small random noise, fluid at rest (the
+        reference's numpy draws, so both packages start from the same
+        bits)."""
+        rng = np.random.default_rng(seed)
+        phi0 = noise * (2.0 * rng.random(self.grid_shape) - 1.0)
+        return self._equilibrium_state(phi0)
+
+    def init_droplet(self, radius: float | None = None) -> LBState:
+        """A φ=+1 droplet in a φ=-1 bath (surface-tension/Laplace tests)."""
+        gs = self.grid_shape
+        radius = radius or min(gs) / 4.0
+        axes = [np.arange(s) - s / 2.0 + 0.5 for s in gs]
+        r = np.sqrt(sum(a ** 2 for a in np.meshgrid(*axes, indexing="ij")))
+        width = self.params.interface_width
+        phi0 = np.tanh((radius - r) / width)
+        return self._equilibrium_state(phi0)
+
+    def _equilibrium_state(self, phi0: np.ndarray) -> LBState:
+        w = WEIGHTS.reshape(NVEL, 1, 1, 1)
+        f0 = (w * self.params.rho0 * np.ones_like(phi0)[None]).astype(np.float32)
+        g0 = (w * phi0[None]).astype(np.float32)
+        return LBState(torch.from_numpy(f0).to(self.device),
+                       torch.from_numpy(g0).to(self.device))
+
+    # -- stepping ------------------------------------------------------------
+
+    def step(self, state: LBState, nsteps: int = 1) -> LBState:
+        """``nsteps`` steps, one Program step per iteration (fresh output
+        tensors each step; the same arithmetic as :meth:`run`)."""
+        if nsteps <= 0:
+            return state
+        s = {"f": state.f, "g": state.g}
+        if self.fused:
+            s = self.programs["collide"].step(s)
+            for _ in range(nsteps - 1):
+                s = self.programs["fused"].step(s)
+            s = self.programs["stream"].step(s)
+        else:
+            for _ in range(nsteps):
+                s = self.programs["step"].step(s)
+        return LBState(s["f"], s["g"], state.step + nsteps)
+
+    def run(self, state: LBState, nsteps: int) -> LBState:
+        """``nsteps`` steps with the hot loop on two preallocated ping-pong
+        state buffers (:meth:`CompiledProgram.run`); the input state is
+        not written."""
+        if nsteps <= 0:
+            return state
+        s = {"f": state.f, "g": state.g}
+        if self.fused:
+            s = self.programs["collide"].step(s)
+            s = self.programs["fused"].run(s, nsteps - 1)
+            s = self.programs["stream"].step(s)
+        else:
+            s = self.programs["step"].run(s, nsteps)
+        return LBState(s["f"], s["g"], state.step + nsteps)
+
+    # -- observables ---------------------------------------------------------
+
+    def observables(self, state: LBState) -> dict:
+        """Mass, φ statistics and a NaN flag, summed in float64 (at 128³ a
+        float32 sum drifts by more than the conservation being checked)."""
+        f, g = state.f.double(), state.g.double()
+        phi = g.sum(0)
+        rho = f.sum(0)
+        return {
+            "mass": float(rho.sum()),
+            "phi_total": float(phi.sum()),
+            "phi_min": float(phi.min()),
+            "phi_max": float(phi.max()),
+            "phi_var": float(phi.var(unbiased=False)),
+            "rho_min": float(rho.min()),
+            "nan": bool(torch.isnan(f).any() | torch.isnan(g).any()),
+        }
