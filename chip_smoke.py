@@ -9,22 +9,35 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    the plain versions;
 2. build — every ``csrc/*.cu`` by its own ``nvcc``, in parallel; the
    register and spill report of ``ptxas``;
-3. kernels against plain versions — every kernel × site function at 64³
+3. kernels against plain versions — every LB kernel × site function at 64³
    (plus a ragged 64³ + 37-site pointwise case), VVL 1, 2, 4 and 8, on
    the same inputs as the plain PyTorch version, at the tests' tolerances;
-4. main path at 128³ — ``BinaryFluidSim`` 20 steps in the unfused,
+   then the LM kernels at ``rtol=2e-4, atol=2e-4`` (the reference's own,
+   ``tests/test_kernels.py``): ``flash_attention`` on the reference tests'
+   shapes, the smoke shape (Dh 16), a ragged Sq = Sk = 1000, rows with no
+   live key and the full-width gemma2 prefill shapes (``local`` and
+   ``attn``); ``rmsnorm`` and the ``gated``/``act`` site functions (all five
+   kinds) at VVL 1, 2, 4 and 8 at full width;
+4. main path — ``BinaryFluidSim`` 20 steps at 128³ in the unfused,
    ``one_launch`` and ``two_launch`` regimes from one spinodal state, then
    ``ops.lb_collision`` and ``ops.lb_fused_step`` (windowed and gathered)
-   on its result, each path with every launch counter set to 0 just before
-   it and read just after; checks NaN-free states, float64 mass
-   conservation, pairwise agreement of the regimes, a launch of every
-   kernel × site function, and a 16³ trajectory against the plain path on
-   the CPU;
-5. times at 128³ — each kernel × site function, held once more to its
-   plain version at this size, then timed (median of 20 launches, CUDA
-   events) beside its plain version, its bound and, where one PyTorch
-   call computes the same function (``library_call``), that call, itself
-   held to the plain version first; MLUPS per regime.
+   on its result; then gemma2-2b served at full width (seeded random
+   weights, 2 prompts × 4608 tokens, 16 greedy decode steps) through
+   ``build_serve_steps`` on the kernels, and an ungated ``ops.gated_act``;
+   each path with every launch counter set to 0 just before it and read
+   just after.  Checks NaN-free states, float64 mass conservation, pairwise
+   agreement of the regimes, a 16³ trajectory against the plain path on
+   the CPU, a launch of every kernel × site function, the serving path's
+   launch counts per prefill and per decode step, and the served logits
+   and greedy tokens against the same weights and prompts through the
+   plain path (``backend="torch"``) on the card;
+5. times — each LB kernel × site function at 128³ and each LM kernel at its
+   full-width shapes, held once more to its plain version, then timed
+   (median of 20 launches, CUDA events) beside its plain version, its
+   bound and, where one PyTorch call computes the same function
+   (``library_call``, ``lm_library_call``), that call, itself held to the
+   plain version first; MLUPS per regime; prefill ms, decode ms per step
+   and tokens/s of the serving path, on the kernels and on the plain path.
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -62,6 +75,17 @@ FLOPS_PER_SITE = {"collide": 593, "fused": 732, "fused_two": 606,
 KERNELS = {
     "tdp_gathered": dict(source="src/repro_torch/csrc/tdp_gathered.cu",
                          replaces="src/repro/kernels/tdp_pointwise.py:76"),
+    "tdp_gathered.rmsnorm": dict(
+        source="src/repro_torch/csrc/tdp_gathered_lm.cu",
+        replaces="src/repro/kernels/lm.py:54"),
+    "tdp_gathered.gated": dict(
+        source="src/repro_torch/csrc/tdp_gathered_lm.cu",
+        replaces="src/repro/kernels/lm.py:89"),
+    "tdp_gathered.act": dict(
+        source="src/repro_torch/csrc/tdp_gathered_lm.cu",
+        replaces="src/repro/kernels/lm.py:95"),
+    "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:94"),
     "tdp_windowed": dict(source="src/repro_torch/csrc/tdp_windowed.cu",
                          replaces="src/repro/kernels/tdp_windowed.py:77"),
     "lb_collision": dict(source="src/repro_torch/csrc/lb_collision.cu",
@@ -76,6 +100,29 @@ STEPS = 20
 #: at the H100's clocks, longer than the host takes to enqueue 20 launches of
 #: the slowest plain version.
 HOLD_CYCLES = 2_000_000_000
+
+#: The LM kernels' bar against their plain versions: the reference's own
+#: (tests/test_kernels.py:105).
+LM_TOL = dict(rtol=2e-4, atol=2e-4)
+#: gemma2-2b served at full width: 2 prompts of 4608 tokens (longer than the
+#: 4096 window, so the local mask bites), 16 greedy decode steps.
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 2, 4608, 16
+#: Served logits, kernels against the plain path on the card: float32
+#: through 26 layers, the two differing in summation order only.
+SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
+#: flash_attention checks: (B, Hq, Hkv, Sq, Sk, Dh, causal, window, softcap)
+ATTN_CASES = [(2, 4, 4, 128, 128, 32, c, 0, 0.0) for c in (True, False)] + [
+    (2, 8, 2, 128, 128, 64, c, 0, 0.0) for c in (True, False)] + [
+    (2, 4, 1, 256, 256, 32, c, 0, 0.0) for c in (True, False)] + [
+    (1, 2, 2, 128, 128, 32, True, 16, 0.0),
+    (1, 2, 2, 128, 128, 32, True, 64, 0.0),
+    (1, 2, 2, 64, 64, 32, True, 0, 30.0),
+    (2, 4, 2, 16, 16, 16, True, 8, 50.0),          # the smoke config
+    (1, 8, 4, 1000, 1000, 256, True, 100, 50.0),   # ragged Sq = Sk
+    (1, 2, 2, 40, 20, 32, False, 5, 0.0),          # rows with no live key
+    (2, 8, 4, 4608, 4608, 256, True, 4096, 50.0),  # gemma2 local layer
+    (2, 8, 4, 4608, 4608, 256, True, 0, 50.0),     # gemma2 global layer
+]
 
 
 def log(msg: str) -> None:
@@ -98,11 +145,22 @@ def ptxas_report(logs: dict) -> list[dict]:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 name = m.group(1)
-                site = re.search(r"tdp(?:\d+)(\w+?)Site", name)
-                vvl = re.search(r"Li(\d+)E", name)
-                entry = {"lib": lib,
-                         "site": site.group(1) if site else "collide",
-                         "vvl": int(vvl.group(1)) if vvl else None}
+                if lib == "flash_attention":
+                    dh = re.search(r"flash_fwd_kernelILi(\d+)E", name)
+                    entry = {"lib": lib, "site": "flash_attention",
+                             "head_dim": int(dh.group(1)) if dh else None}
+                elif lib == "tdp_gathered_lm":
+                    m = re.search(r"lm\d+(\w+?)Site(?:ILi(\d+)EE)?ELi(\d+)E",
+                                  name)
+                    entry = {"lib": lib, "site": m.group(1).lower(),
+                             "act": int(m.group(2)) if m.group(2) else None,
+                             "vvl": int(m.group(3))} if m else {"lib": lib}
+                else:
+                    site = re.search(r"tdp(?:\d+)(\w+?)Site", name)
+                    vvl = re.search(r"Li(\d+)E", name)
+                    entry = {"lib": lib,
+                             "site": site.group(1) if site else "collide",
+                             "vvl": int(vvl.group(1)) if vvl else None}
                 rows.append(entry)
                 continue
             if entry is None:
@@ -222,6 +280,210 @@ def library_call(kernel: str, site: str, prepared, n: int):
     return None
 
 
+def attn_live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs live under the masks — the work the inputs need."""
+    q = np.arange(sq)
+    hi = np.minimum(q + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attn_bound(b, hq, hkv, sq, sk, dh, causal, window) -> tuple[float, str]:
+    """4·Dh float32 operations per live pair (q·k and p·v) against the fp32
+    peak, q/k/v read and o written once against the memory rate."""
+    flops = 4 * dh * b * hq * attn_live_pairs(sq, sk, causal, window)
+    nbytes = 4 * dh * (2 * b * hq * sq + 2 * b * hkv * sk)
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lm_library_call(name: str, xs, consts):
+    """One PyTorch call computing the LM kernel ``name`` on the kernel's own
+    inputs, as ``(call, to_kernel_layout)``; ``None`` where none does.
+    ``F.rms_norm`` reduces over the last axis, so it takes the (tokens, d)
+    view of the kernel's (d, tokens) input, with the weight ``w + offset``
+    formed once outside the timed call."""
+    import torch.nn.functional as F
+    if name == "tdp_gathered.rmsnorm":
+        x = xs[0]
+        w1 = consts["weight"] + consts["scale_offset"]
+        return ((lambda: F.rms_norm(x.T, (x.shape[0],), weight=w1,
+                                    eps=consts["eps"])),
+                (lambda o: (o.T,)))
+    if name == "tdp_gathered.act":
+        return ((lambda: F.gelu(xs[0], approximate="tanh")),
+                (lambda o: (o,)))
+    return None
+
+
+def lm_checks(problems: list, max_err: dict) -> None:
+    """Phase 3, LM half: each LM kernel against its plain version."""
+    from repro_torch.kernels import flash_attention, ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    err = 0.0
+    for case in ATTN_CASES:
+        b, hq, hkv, sq, sk, dh, causal, window, softcap = case
+        q = torch.randn(b, hq, sq, dh, device=dev, generator=g)
+        k = torch.randn(b, hkv, sk, dh, device=dev, generator=g)
+        v = torch.randn(b, hkv, sk, dh, device=dev, generator=g)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = flash_attention.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, **kw)
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        if not (torch.isfinite(got).all() and torch.allclose(got, want, **LM_TOL)):
+            problems.append(f"flash_attention {case}: max |kernel - plain| = {e}")
+        log(f"phase 3: flash_attention {case} max_abs_err={e}")
+        del q, k, v, got, want
+    max_err["flash_attention"] = err
+    torch.cuda.empty_cache()
+
+    for n, d in ((SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64)):
+        x = torch.randn(n, d, device=dev, generator=g)
+        w = torch.randn(d, device=dev, generator=g)
+        want = ref.rmsnorm_ref(x, w, scale_offset=1.0)
+        for vvl in (1, 2, 4, 8):
+            got = ops.rmsnorm(x, w, vvl=vvl, scale_offset=1.0)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            max_err["tdp_gathered.rmsnorm"] = max(
+                max_err.get("tdp_gathered.rmsnorm", 0.0), e)
+            if not torch.allclose(got, want, **LM_TOL):
+                problems.append(f"rmsnorm ({n}, {d}) vvl={vvl}: {e}")
+    u = 3.0 * torch.randn(SERVE_BATCH * SERVE_PROMPT, 9216, device=dev, generator=g)
+    v = torch.randn_like(u)
+    for kind in ("swiglu", "silu", "geglu", "gelu", "relu2"):
+        for gated in (True, False):
+            name = "tdp_gathered.gated" if gated else "tdp_gathered.act"
+            want = ref.gated_act_ref(u, v if gated else None, kind=kind)
+            for vvl in (1, 2, 4, 8):
+                got = ops.gated_act(u, v if gated else None, kind=kind, vvl=vvl)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                max_err[name] = max(max_err.get(name, 0.0), e)
+                if not torch.allclose(got, want, **LM_TOL):
+                    problems.append(f"{name} {kind} vvl={vvl}: {e}")
+                del got
+            del want
+    log(f"phase 3: LM site functions max_abs_err={max_err}")
+    del u, v
+    torch.cuda.empty_cache()
+
+
+def serve_run(params, cfg, backend: str, tokens, drive=None):
+    """Prefill + ``SERVE_DECODE`` greedy decode steps through
+    ``build_serve_steps``; returns tokens, the logits of every step, and
+    the host times (each ending in ``torch.cuda.synchronize()``).  With
+    ``drive``, the prefill and the decode steps each run as one counted
+    path of the main path."""
+    from repro_torch.models.context import ExecContext
+    from repro_torch.runtime.steps import build_serve_steps
+
+    pre, dec = build_serve_steps(cfg, ExecContext(backend=backend),
+                                 max_len=SERVE_PROMPT + SERVE_DECODE)
+    drive = drive or (lambda path, fn: fn())
+    out = {"tokens": [], "logits": []}
+
+    def prefill():
+        return pre(params, {"tokens": tokens})
+
+    def decode(state):
+        tok, caches, length = state
+        for _ in range(SERVE_DECODE):
+            tok, caches, length, logits = dec(params, tok, caches, length)
+            out["tokens"].append(tok)
+            out["logits"].append(logits[:, -1])
+        return tok
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches, length, logits = drive(f"serve prefill ({backend})", prefill)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["tokens"].append(tok)
+        out["logits"].append(logits[:, -1])
+        drive(f"serve decode x{SERVE_DECODE} ({backend})",
+              lambda: decode((tok, caches, length)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out["prefill_ms"] = (t1 - t0) * 1e3
+    out["decode_ms_per_step"] = (t2 - t1) * 1e3 / SERVE_DECODE
+    return out
+
+
+def compare_serving(kern: dict, plain: dict, problems: list) -> dict:
+    """Logits of every step within ``SERVE_TOL`` while the token streams
+    agree; greedy tokens equal wherever the plain path's top-2 margin
+    exceeds the tolerance (a near-tie may go either way: random weights)."""
+    steps = []
+    for i, (lk, lp, tk, tp) in enumerate(zip(kern["logits"], plain["logits"],
+                                             kern["tokens"], plain["tokens"])):
+        top2 = torch.topk(lp.float(), 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu()
+        diff = float((lk - lp).abs().max())
+        # the largest difference the tolerance admits at this step
+        tol = SERVE_TOL["atol"] + SERVE_TOL["rtol"] * float(lp.abs().max())
+        same = (tk.cpu() == tp.cpu()).reshape(-1)
+        steps.append({"step": i, "max_abs_logit_diff": diff,
+                      "min_top2_margin": float(margin.min()),
+                      "tokens_equal": bool(same.all())})
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            problems.append(f"serving step {i}: non-finite logits")
+        if not torch.allclose(lk, lp, **SERVE_TOL):
+            problems.append(f"serving step {i}: logits differ by {diff}")
+        if bool((~same & (margin > 2 * tol)).any()):
+            problems.append(f"serving step {i}: greedy tokens differ where "
+                            f"the margin exceeds {2 * tol}")
+        if not bool(same.all()):
+            break      # the streams parted at a near-tie: stop comparing
+    return {"tolerance": SERVE_TOL, "steps": steps}
+
+
+def lm_row(name, kernel_info, launch_key, kern, plain, lib, bound_ms_by,
+           launches, launches_by_path, max_err, problems, record, *,
+           max_err_key=None) -> dict:
+    """Phase 5 for one LM kernel: held to its plain version (and the library
+    call to the plain version), then timed beside both and its bound."""
+    got, want = kern(), plain()
+    got = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+    want = (want,) if isinstance(want, torch.Tensor) else tuple(want)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    if not all(torch.isfinite(a).all() and torch.allclose(a, b, **LM_TOL)
+               for a, b in zip(got, want)):
+        problems.append(f"{name} full width: max |kernel - plain| = {err}")
+    key = max_err_key or name
+    max_err[key] = max(max_err.get(key, 0.0), err)
+    library_ms = lib_err = None
+    if lib is not None:
+        lib_out = lib[1](lib[0]())
+        torch.cuda.synchronize()
+        lib_err = max_abs(lib_out, want)
+        if not all(torch.allclose(a, b, **LM_TOL) for a, b in zip(lib_out, want)):
+            problems.append(f"library call for {name}: max |library - plain| "
+                            f"= {lib_err}")
+        del lib_out
+    del got, want
+    torch.cuda.empty_cache()
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    if lib is not None:
+        library_ms = time_ms(lib[0])
+    b_ms, b_by = bound_ms_by
+    record.setdefault("checks_full_width", {})[name] = {
+        "max_abs_err": err, "library_max_abs_err": lib_err}
+    log(f"phase 5: {name} ms={ms:.4f} plain={plain_ms:.4f} library={library_ms}"
+        f" bound={b_ms:.4f} err={err} library_err={lib_err}")
+    return {"name": name, "route": "cuda", **kernel_info,
+            "launches": launches[launch_key],
+            "launches_by_path": launches_by_path[launch_key],
+            "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -229,8 +491,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import Lattice, Target, gather_neighbors, halo_extend
     from repro_torch.core.api import launch_plan, torch_executor
-    from repro_torch.kernels import _build, lb_collision, ops
-    from repro_torch.kernels import tdp_pointwise, tdp_windowed
+    from repro_torch import configs
+    from repro_torch.kernels import _build, flash_attention, lb_collision, lm
+    from repro_torch.kernels import ops, ref, tdp_pointwise, tdp_windowed
+    from repro_torch.models import params as model_params
     from repro_torch.lb import programs, stencil
     from repro_torch.lb.params import LBParams
     from repro_torch.lb.sim import BinaryFluidSim
@@ -263,7 +527,10 @@ def main() -> int:
 
     counters = {"tdp_gathered": tdp_pointwise.launches,
                 "tdp_windowed": tdp_windowed.launches,
-                "lb_collision": lb_collision.launches}
+                "lb_collision": lb_collision.launches,
+                "flash_attention": flash_attention.launches}
+    lm_entries = [("tdp_gathered", s) for s in _build.LM_SITES] + [
+        ("flash_attention", "flash_attention")]
 
     def entries():
         for site in _build.SITES:
@@ -334,6 +601,7 @@ def main() -> int:
         max_err[(kernel, site)] = err
         log(f"phase 3: {kernel}.{site} max_abs_err={err}")
     torch.cuda.empty_cache()
+    lm_checks(problems, max_err)
 
     # -- 4. main path at 128^3 -----------------------------------------------
     params = LBParams(**PARAMS)
@@ -342,6 +610,7 @@ def main() -> int:
     st0 = sims[False].init_spinodal(seed=0, noise=0.05)
     obs0 = sims[False].observables(st0)
     by_path: dict = {}
+    all_entries = list(entries()) + lm_entries
 
     def drive(path, fn):
         """Run one path of the main path with every launch counter set to
@@ -351,7 +620,7 @@ def main() -> int:
                 c[k] = 0
         out = fn()
         torch.cuda.synchronize()
-        by_path[path] = {(k, s): counters[k][s] for k, s in entries()
+        by_path[path] = {(k, s): counters[k][s] for k, s in all_entries
                          if counters[k][s]}
         return out
 
@@ -373,14 +642,6 @@ def main() -> int:
                 lambda mode=mode, tgt=tgt: ops.lb_fused_step(
                     f2, g2, grid_shape=GRID, mode=mode, target=Target(tgt),
                     **params.as_kwargs()))
-    launches = {e: sum(p.get(e, 0) for p in by_path.values())
-                for e in entries()}
-    launches_by_path = {e: {path: p[e] for path, p in by_path.items() if e in p}
-                        for e in entries()}
-
-    for (k, s), n in launches.items():
-        if n == 0:
-            problems.append(f"{k}.{s} was not launched on the main path")
     for regime, st in finals.items():
         obs = sims[regime].observables(st)
         record.setdefault("observables", {})[str(regime)] = obs
@@ -423,13 +684,73 @@ def main() -> int:
                    for a, b in zip(*outs)):
             problems.append(f"16^3 regime {regime}: card vs CPU plain path "
                             f"differ by {err}")
+    del finals, fo, go, fused_ops, grad, lap, phi, final, f2, g2
+    torch.cuda.empty_cache()
+
+    # gemma2-2b served at full width, through the kernels (counted), again
+    # through the plain path and once more through the kernels, warm (timed)
+    cfg = configs.get_config("gemma2-2b")
+    t0 = time.perf_counter()
+    mparams = model_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+    served = serve_run(mparams, cfg, "cuda", prompts, drive=drive)
+    plain_served = serve_run(mparams, cfg, "torch", prompts, drive=drive)
+    warm = serve_run(mparams, cfg, "cuda", prompts)
+    serving = compare_serving(served, plain_served, problems)
+    serving["params"] = cfg.num_params()
+    serving["init_params_s"] = init_s
+    for name, run in (("kernels_first_run", served), ("kernels_warm", warm),
+                      ("plain", plain_served)):
+        serving[name] = {
+            "prefill_ms": run["prefill_ms"],
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / run["prefill_ms"] * 1e3,
+            "decode_ms_per_step": run["decode_ms_per_step"],
+            "decode_tokens_per_s": SERVE_BATCH / run["decode_ms_per_step"] * 1e3}
+    if warm["tokens"] and not all(torch.equal(a, b) for a, b in
+                                  zip(warm["tokens"], served["tokens"])):
+        problems.append("serving: the warm run's tokens differ from the first")
+    n_layers = cfg.n_layers
+    expected = {"serve prefill (cuda)": {("flash_attention", "flash_attention"): n_layers,
+                                      ("tdp_gathered", "rmsnorm"): 2 * n_layers + 1,
+                                      ("tdp_gathered", "gated"): n_layers},
+            f"serve decode x{SERVE_DECODE} (cuda)": {
+                ("tdp_gathered", "rmsnorm"): (2 * n_layers + 1) * SERVE_DECODE,
+                ("tdp_gathered", "gated"): n_layers * SERVE_DECODE},
+            "serve prefill (torch)": {},
+            f"serve decode x{SERVE_DECODE} (torch)": {}}
+    for path, counts in expected.items():
+        if by_path.get(path) != counts:
+            problems.append(f"{path}: launches {by_path.get(path)}, "
+                            f"expected {counts}")
+    del mparams, served, plain_served, warm
+    torch.cuda.empty_cache()
+    h = torch.randn(SERVE_BATCH * SERVE_PROMPT, cfg.d_ff, device=dev)
+    act_out = drive("ops.gated_act ungated gelu",
+                    lambda: ops.gated_act(h, None, kind="gelu"))
+    if not torch.allclose(act_out, ref.gated_act_ref(h, kind="gelu"), **LM_TOL):
+        problems.append("ops.gated_act ungated: kernel and plain disagree")
+    del h, act_out
+    torch.cuda.empty_cache()
+    record["serving"] = serving
+    print(json.dumps({"serving": {k: v for k, v in serving.items()
+                                  if k != "steps"}}), flush=True)
+
+    launches = {e: sum(p.get(e, 0) for p in by_path.values())
+                for e in all_entries}
+    launches_by_path = {e: {path: p[e] for path, p in by_path.items() if e in p}
+                        for e in all_entries}
+    for (k, s), n in launches.items():
+        if n == 0:
+            problems.append(f"{k}.{s} was not launched on the main path")
     per_path = {path: {f"{k}.{s}": n for (k, s), n in p.items()}
                 for path, p in by_path.items()}
     record["main_path"] = {"launches_by_path": per_path,
                            "card_vs_cpu_16cubed_max_abs": small}
     print(json.dumps({"main_path_launches_by_path": per_path}), flush=True)
-    del finals, fo, go, fused_ops, grad, lap, phi, final, f2, g2
-    torch.cuda.empty_cache()
 
     # -- 5. times at 128^3 -----------------------------------------------------
     # Each kernel is also held to its plain version once more here, at the
@@ -503,6 +824,57 @@ def main() -> int:
         del xs, lib
         prepared = None
         torch.cuda.empty_cache()
+
+    # LM kernels at the full-width shapes of the serving path
+    g = torch.Generator(device=dev).manual_seed(12)
+    ntok, d, nff = SERVE_BATCH * SERVE_PROMPT, cfg.d_model, cfg.d_ff
+    for name, spec, xs, consts, nbytes, flops in (
+            ("tdp_gathered.rmsnorm", lm.rmsnorm_spec(d),
+             [torch.randn(d, ntok, device=dev, generator=g)],
+             {"weight": torch.randn(d, device=dev, generator=g), "eps": 1e-6,
+              "scale_offset": 1.0}, 8 * d * ntok + 4 * d, 5 * d * ntok),
+            ("tdp_gathered.gated", lm.gated_act_spec("geglu", True),
+             [3.0 * torch.randn(1, ntok * nff, device=dev, generator=g),
+              torch.randn(1, ntok * nff, device=dev, generator=g)], {},
+             12 * ntok * nff, 10 * ntok * nff),
+            ("tdp_gathered.act", lm.gated_act_spec("gelu", False),
+             [3.0 * torch.randn(1, ntok * nff, device=dev, generator=g)], {},
+             8 * ntok * nff, 9 * ntok * nff)):
+        plan = launch_plan(spec, Target("cuda", vvl=1), consts=consts)
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_PER_S * 1e3
+        rows.append(lm_row(
+            name, KERNELS[name], ("tdp_gathered", name.split(".")[1]),
+            lambda plan=plan, xs=xs: tdp_pointwise.cuda_execute(plan, xs),
+            lambda plan=plan, xs=xs: torch_executor(plan, xs),
+            lm_library_call(name, xs, consts),
+            (t_b, "bytes") if t_b >= t_o else (t_o, "operations"),
+            launches, launches_by_path, max_err, problems, record))
+        del xs
+        torch.cuda.empty_cache()
+    a = cfg.attn
+    q = torch.randn(SERVE_BATCH, a.n_heads, SERVE_PROMPT, a.head_dim,
+                    device=dev, generator=g)
+    k, v = (torch.randn(SERVE_BATCH, a.n_kv_heads, SERVE_PROMPT, a.head_dim,
+                        device=dev, generator=g) for _ in range(2))
+    import torch.nn.functional as F
+    for variant, window, softcap in (("local", a.window, a.softcap),
+                                     ("attn", 0, a.softcap), ("causal", 0, 0.0)):
+        kw = dict(causal=True, window=window, softcap=softcap)
+        lib = None
+        if variant == "causal":
+            lib = ((lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)), (lambda o: (o,)))
+        rows.append(lm_row(
+            f"flash_attention.{variant}", KERNELS["flash_attention"],
+            ("flash_attention", "flash_attention"),
+            lambda kw=kw: flash_attention.flash_attention(q, k, v, **kw),
+            lambda kw=kw: ref.attention_ref(q, k, v, **kw), lib,
+            attn_bound(SERVE_BATCH, a.n_heads, a.n_kv_heads, SERVE_PROMPT,
+                       SERVE_PROMPT, a.head_dim, True, window),
+            launches, launches_by_path, max_err, problems, record,
+            max_err_key="flash_attention"))
+        torch.cuda.empty_cache()
+    del q, k, v
 
     mlups = {}
     for regime, sim in sims.items():

@@ -7,11 +7,15 @@ path every launch takes:
 
 1. **validation** — field roles vs tensor ranks/extents, stencil geometry
    vs lattice + halo, const names;
-2. **const unwrapping** — ``TargetConst`` → host values, content-hashed
-   into the cache key;
+2. **const splitting** — *static* consts (``TargetConst``, host arrays,
+   scalars) are unwrapped to host values and content-hashed into the cache
+   key; *dynamic* consts (``torch.Tensor``, e.g. a per-layer norm weight
+   on the card) are per-call operands, keyed only by ``(name, shape,
+   dtype)``;
 3. **plan caching** — plans keyed on ``(spec, target, resolved VVL,
-   lattice, halo, out, consts, registry version)``, so a re-registered
-   executor can never be served from a stale plan;
+   lattice, halo, out, static consts, dynamic-const signature, registry
+   version)``, so a re-registered executor can never be served from a
+   stale plan;
 4. **the neighbour prologue** — *capability-aware*: executors declaring
    ``wants="gathered"`` get the periodic-roll / ghost-window gather into
    ``(noffsets, ncomp, nsites)`` stacks; executors declaring
@@ -160,6 +164,19 @@ def _consts_cache_key(consts: Mapping[str, object]):
     return tuple(items)
 
 
+def _split_consts(consts: Mapping[str, object]):
+    """Partition launch consts into *static* values (hashable, in the plan
+    cache key by content) and *dynamic* ones (``torch.Tensor``s: per-call
+    operands the plan hands to the executor at each launch; the cache key
+    carries only their ``(name, shape, dtype)`` signature).  A tensor on
+    the card never goes through a host copy, and a new value of the same
+    shape reuses the plan."""
+    static, dyn = {}, {}
+    for k, v in consts.items():
+        (dyn if isinstance(v, torch.Tensor) else static)[k] = v
+    return static, dyn
+
+
 def _normalize_halo(halo, ndim) -> tuple[int, ...]:
     if halo is None:
         return (0,) * ndim
@@ -204,6 +221,15 @@ class LaunchPlan:
         self.field_ncomp = (tuple(field_ncomp)
                             if field_ncomp is not None else None)
         self.wants = wants
+
+    def with_consts(self, consts: dict) -> "LaunchPlan":
+        """A copy of this plan with ``consts`` — how a launch's dynamic
+        consts reach the executor without touching the cached plan."""
+        return LaunchPlan(
+            kernel=self.kernel, name=self.name, vvl=self.vvl,
+            out_ncomp=self.out_ncomp, consts=consts, target=self.target,
+            shape=self.shape, halo=self.halo, stencils=self.stencils,
+            field_ncomp=self.field_ncomp, wants=self.wants)
 
     def _fields(self):
         if self.field_ncomp is None:
@@ -375,9 +401,10 @@ def _make_plan(spec: KernelSpec, target: Target, vvl: int,
 @functools.lru_cache(maxsize=4096)
 def _build_plan(spec: KernelSpec, target: Target, vvl: int,
                 out_ncomp: tuple[int, ...], lattice: Lattice | None,
-                halo: tuple[int, ...] | None, const_key,
+                halo: tuple[int, ...] | None, const_key, dyn_sig,
                 _registry_version):
     consts = _unwrap_consts(dict(const_key))
+    dyn_names = tuple(k for k, _, _ in dyn_sig)
     entry = get_executor_entry(target.executor)
     executor = entry.fn
     plan = _make_plan(spec, target, vvl, out_ncomp, lattice, halo, consts,
@@ -388,10 +415,14 @@ def _build_plan(spec: KernelSpec, target: Target, vvl: int,
     prologue = (halo_extend if entry.wants == "halo_extended"
                 else gather_neighbors)
 
-    def run(arrays, out):
+    def run(arrays, out, dyn_values=()):
+        p = plan
+        if dyn_names:
+            p = plan.with_consts({**plan.consts,
+                                  **dict(zip(dyn_names, dyn_values))})
         prepared = tuple(x if s is None else prologue(x, shape, halo, s)
                          for x, s in zip(arrays, stencils))
-        outs = executor(plan, prepared, out)
+        outs = executor(p, prepared, out)
         outs = (outs,) if not isinstance(outs, (tuple, list)) else tuple(outs)
         if len(outs) != n_out:
             raise ValueError(
@@ -438,10 +469,12 @@ def launch(spec: KernelSpec, target: Target | str | None = None, /,
       lattice: grid descriptor.  Required when any field carries a stencil.
       halo: per-dimension ghost width already present in stencil inputs
         (``0`` → periodic wrap).
-      consts / **kw_consts: ``TARGET_CONST`` parameters (``TargetConst``,
-        host arrays or scalars).  ``lattice``, ``halo``, ``consts`` and
-        ``out`` are reserved keyword names — pass consts with those names
-        through the ``consts=`` mapping.
+      consts / **kw_consts: ``TARGET_CONST`` parameters: ``TargetConst``,
+        host arrays or scalars (static, in the plan cache key by content)
+        or ``torch.Tensor``s (dynamic, passed to the executor per call and
+        keyed by name, shape and dtype only).  ``lattice``, ``halo``,
+        ``consts`` and ``out`` are reserved keyword names — pass consts
+        with those names through the ``consts=`` mapping.
       out: optional preallocated output tensor(s), contiguous
         ``(ncomp_o, nsites)``, written in place and returned.
 
@@ -478,9 +511,13 @@ def launch(spec: KernelSpec, target: Target | str | None = None, /,
         nsites = (lattice.nsites if spec.has_stencil
                   else int(arrays[0].shape[-1]))
         out = _check_out(spec, out, out_ncomp, arrays, nsites)
+    static, dyn = _split_consts(all_consts)
+    dyn_names = tuple(sorted(dyn))
+    dyn_sig = tuple((k, tuple(int(n) for n in dyn[k].shape), str(dyn[k].dtype))
+                    for k in dyn_names)
     run = _build_plan(spec, tgt, tgt.resolve_vvl(), out_ncomp, lattice, h,
-                      _consts_cache_key(all_consts), registry_version())
-    outs = run(arrays, out)
+                      _consts_cache_key(static), dyn_sig, registry_version())
+    outs = run(arrays, out, tuple(dyn[k] for k in dyn_names))
     return outs[0] if len(outs) == 1 else outs
 
 

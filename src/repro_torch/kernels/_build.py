@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("tdp_gathered", "tdp_windowed", "lb_collision")
+SOURCES = ("tdp_gathered", "tdp_windowed", "lb_collision", "tdp_gathered_lm",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,8 +34,17 @@ SITES = ("stream", "grad6", "moment", "collide", "fused", "phi_stream",
          "fused_two")
 SITE_ID = {name: i for i, name in enumerate(SITES)}
 
-#: ``tdp::ERR_*`` return codes of the C entries (cudaError_t values are >= 0).
-_ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}"}
+#: LM site functions (``csrc/lm_sites.cuh``) in the order of the C enum
+#: ``tdp::lm::SiteId``, and their activations in that of ``tdp::lm::ActId``.
+LM_SITES = ("rmsnorm", "gated", "act")
+LM_SITE_ID = {name: i for i, name in enumerate(LM_SITES)}
+LM_ACTS = ("silu", "gelu_tanh", "relu2")
+LM_ACT_ID = {name: i for i, name in enumerate(LM_ACTS)}
+
+#: ``ERR_*`` return codes of the C entries (cudaError_t values are >= 0).
+_ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
+           -3: "head_dim not instantiated (16, 32, 64, 128, 256)",
+           -4: "Hq is not a multiple of Hkv"}
 
 
 def _nvcc() -> str:

@@ -1,4 +1,4 @@
-"""Public wrappers for the lattice-Boltzmann kernels, Target-dispatched.
+"""Public wrappers for the kernels, Target-dispatched.
 
 Every op takes a ``target=`` (a :class:`~repro_torch.core.Target` or an
 executor name) and a ``device=``.  With no ``device=`` the op runs on
@@ -8,7 +8,12 @@ carries on quietly on the CPU.  The default target follows the device:
 * ``lb_collision`` — ``"cuda"`` (the dedicated kernel ``csrc/lb_collision.cu``)
   on the card, ``"torch"`` (the plain oracle) on the CPU;
 * ``lb_fused_step`` — ``"cuda_windowed"`` on the card, ``"torch"`` on the
-  CPU.
+  CPU;
+* ``rmsnorm``, ``gated_act`` — ``"cuda"`` (the gathered executor running the
+  LM site functions of ``csrc/lm_sites.cuh``) on the card, ``"torch"`` on
+  the CPU, both through ``tdp.launch``;
+* ``flash_attention`` — ``"cuda"`` (``csrc/flash_attention.cu``) on the card,
+  ``"torch"`` (:func:`~repro_torch.kernels.ref.attention_ref`) on the CPU.
 
 A CUDA target resolves ``vvl=None`` to 1 site per thread.
 """
@@ -19,8 +24,11 @@ import torch
 
 from repro_torch.core import Target, as_target
 from repro_torch.core.api import _normalize_halo
+from repro_torch.core.api import launch as _tdp_launch
 
+from . import flash_attention as _fa
 from . import lb_collision as _lb
+from . import lm as _lm
 from . import ref as _ref
 
 
@@ -82,3 +90,73 @@ def lb_fused_step(f, g, *, grid_shape, halo=0, mode="one_launch",
                        grid_shape=shape, halo=h)
     return (out["f"].reshape(_lb.NVEL, -1),
             out["g"].reshape(_lb.NVEL, -1))
+
+
+def _lm_target(target, vvl, dev) -> Target:
+    t = _op_target(target, vvl, "cuda" if dev.type == "cuda" else "torch")
+    if t.executor not in ("torch", "cuda"):
+        raise ValueError(f"the LM ops run under the 'torch' or 'cuda' "
+                         f"executor, got {t.executor!r}")
+    return t
+
+
+def rmsnorm(x, weight, *, target=None, vvl=None, eps=1e-6, scale_offset=0.0,
+            device=None):
+    """RMSNorm of ``x: (tokens, d)`` with ``weight: (d,)`` through
+    ``tdp.launch`` — site = token, features on the component axis
+    (:func:`repro_torch.kernels.lm.rmsnorm_spec`); ``x`` goes in as the
+    contiguous ``(d, tokens)`` SoA field and the result comes back as its
+    ``(tokens, d)`` view.  ``scale_offset=1.0`` gives the Gemma convention
+    ``x · rms · (1 + w)``.  The weight is a dynamic const: a tensor on the
+    launch's device, never copied to the host."""
+    dev = resolve_device(device)
+    t = _lm_target(target, vvl, dev)
+    x = torch.as_tensor(x, device=dev)
+    weight = torch.as_tensor(weight, device=dev)
+    spec = _lm.rmsnorm_spec(int(x.shape[-1]))
+    out = _tdp_launch(spec, t, x.T.contiguous(),
+                      consts={"weight": weight, "eps": float(eps),
+                              "scale_offset": float(scale_offset)})
+    return out.T
+
+
+def gated_act(u, v=None, *, kind="swiglu", target=None, vvl=None,
+              device=None):
+    """Gated activation ``act(u) · v`` (or plain ``act(u)`` when ``v`` is
+    ``None``) through ``tdp.launch`` — site = flattened element
+    (:func:`repro_torch.kernels.lm.gated_act_spec`)."""
+    dev = resolve_device(device)
+    t = _lm_target(target, vvl, dev)
+    u = torch.as_tensor(u, device=dev)
+    spec = _lm.gated_act_spec(str(kind), v is not None)
+    args = (u.reshape(1, -1),)
+    if v is not None:
+        args += (torch.as_tensor(v, device=dev).reshape(1, -1),)
+    return _tdp_launch(spec, t, *args).reshape(u.shape)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None, target=None, device=None, impl="ref",
+                    q_offset=0):
+    """Attention of ``q (B, Hq, Sq, Dh)`` over ``k, v (B, Hkv, Sk, Dh)``:
+    the CUDA kernel under ``"cuda"``, the whole-score oracle under
+    ``"torch"``.  The reference's memory-bounded ``impl="chunked"`` oracle
+    and ``q_offset`` serve its sequence-parallel attention, which is not
+    ported (ROADMAP, queue A, LM stack: sequence-sharded attention)."""
+    if impl != "ref" or q_offset:
+        raise NotImplementedError(
+            "flash_attention: impl='chunked' and q_offset serve sequence-"
+            "parallel attention, which is not ported yet (ROADMAP, queue A, "
+            "LM stack: sequence-sharded attention)")
+    dev = resolve_device(device)
+    t = _op_target(target, None, "cuda" if dev.type == "cuda" else "torch")
+    q, k, v = (torch.as_tensor(x, device=dev) for x in (q, k, v))
+    _fa.check_shapes(q, k, v)
+    if t.executor == "torch":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
+    if t.executor == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    raise ValueError(f"flash_attention runs under the 'torch' or 'cuda' "
+                     f"executor, got {t.executor!r}")

@@ -1,12 +1,13 @@
 """Plain PyTorch oracles for the kernels.
 
-Only the lattice-Boltzmann collision oracle is ported so far; the LM
-oracles (attention, RMSNorm, Mamba scan) wait for their kernels (ROADMAP,
-queue A).
+The lattice-Boltzmann collision, RMSNorm, the gated activations and
+attention; the Mamba scan oracle waits for its kernel (ROADMAP, queue B,
+kernel 2a).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .lb_collision import CV, WEIGHTS
 
@@ -42,3 +43,66 @@ def lb_collision_ref(f, g, phi, gradphi, del2phi, *,
     geq = torch.cat([g0[None, :], gt[1:]], dim=0)
     g_out = g - (g - geq) / tau_phi
     return f_out, g_out
+
+
+# ---------------------------------------------------------------------------
+# LM pointwise
+# ---------------------------------------------------------------------------
+
+def rmsnorm_ref(x, weight, *, eps=1e-6, scale_offset=0.0):
+    """RMSNorm of ``x (..., d)`` with ``weight (d,)``."""
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * inv * (weight.float() + scale_offset)).to(x.dtype)
+
+
+def gated_act_ref(u, v=None, *, kind="swiglu"):
+    """``act(u) · v`` (or ``act(u)``) for the kinds of
+    :data:`repro_torch.kernels.lm.GATED_KINDS`."""
+    uf = u.float()
+    if kind in ("swiglu", "silu"):
+        a = uf * torch.sigmoid(uf)
+    elif kind in ("geglu", "gelu"):
+        a = F.gelu(uf, approximate="tanh")
+    elif kind == "relu2":
+        r = torch.clamp_min(uf, 0.0)
+        a = r * r
+    else:
+        raise ValueError(kind)
+    out = a if v is None else a * v.float()
+    return out.to(u.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
+                  kv_len=None):
+    """Oracle attention: q (B,Hq,Sq,Dh), k/v (B,Hkv,Sk,Dh).  The whole
+    (Sq, Sk) score matrix per head; softcap before the mask; rows with no
+    live key give zero."""
+    b, hq, sq, dh = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    kv_len = sk if kv_len is None else kv_len
+
+    kr = torch.repeat_interleave(k, group, dim=1)
+    vr = torch.repeat_interleave(v, group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = k_pos < kv_len
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window > 0:
+        mask = mask & (k_pos > q_pos - window)
+    s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    # rows with no live keys: softmax of all -1e30 is uniform; zero them.
+    alive = mask.any(-1)[None, None, :, None]
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr.float())
+    return torch.where(alive, out, torch.zeros_like(out)).to(q.dtype)

@@ -9,10 +9,15 @@ sites, one thread per strip of ``Target.vvl`` consecutive sites (``None``
 → 1; any value outside {1, 2, 4, 8} raises).
 
 The site function is the one the spec's plain body names in its
-``__cuda_site__`` attribute (``csrc/lb_sites.cuh`` holds them all); a spec
-whose body has none raises ``NotImplementedError``.  CUDA tensors launch the
-kernel or raise; CPU tensors run the plain body through the ``"torch"``
-executor.  :data:`launches` counts kernel launches per site function.
+``__cuda_site__`` attribute; a spec whose body has none raises
+``NotImplementedError``.  The D3Q19 site functions (``csrc/lb_sites.cuh``)
+launch through ``csrc/tdp_gathered.cu``, the LM ones (``rmsnorm``, ``gated``,
+``act``; ``csrc/lm_sites.cuh``) through ``csrc/tdp_gathered_lm.cu``, which
+takes a runtime component count, a weight tensor and ``(eps,
+scale_offset)``.  Each site function checks its own fields and consts.  CUDA
+tensors launch the kernel or raise; CPU tensors run the plain body through
+the ``"torch"`` executor.  :data:`launches` counts kernel launches per site
+function.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from . import _build
 from .lb_collision import PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts, cuda_vvl
 
 #: kernel launches of this executor, by site function
-launches = dict.fromkeys(_build.SITES, 0)
+launches = dict.fromkeys(_build.SITES + _build.LM_SITES, 0)
 
 _POINT = None
 #: The field and output signature of each C site function
@@ -42,15 +47,42 @@ SITE_FIELDS = {
 }
 
 
+def _lm_fields(site: str, plan):
+    """The LM site functions' signatures: ``rmsnorm`` takes one pointwise
+    field of any ncomp d and gives d components; ``gated`` takes two
+    1-component fields, ``act`` one, and both give one."""
+    if site == "rmsnorm":
+        d = plan.field_ncomp[0] if plan.field_ncomp else None
+        return ((d, None),), (d,)
+    return ((1, None),) * (2 if site == "gated" else 1), (1,)
+
+
+def _check_lm_consts(site: str, plan) -> None:
+    what = f"kernel {plan.name!r}"
+    if site == "rmsnorm":
+        missing = {"weight", "eps", "scale_offset"} - set(plan.consts)
+        if missing:
+            raise ValueError(f"{what}: the CUDA site function 'rmsnorm' "
+                             f"needs const(s) {sorted(missing)}")
+    elif getattr(plan.kernel, "__cuda_act__", None) not in _build.LM_ACT_ID:
+        raise ValueError(f"{what}: activation "
+                         f"{getattr(plan.kernel, '__cuda_act__', None)!r} "
+                         f"is none of the CUDA ones {_build.LM_ACTS}")
+
+
 def cuda_site(plan) -> str:
     """The C site function behind ``plan``'s kernel, checked against the
-    plan's field roles; ``NotImplementedError`` if the body has none."""
+    plan's field roles and consts; ``NotImplementedError`` if the body has
+    none."""
     site = getattr(plan.kernel, "__cuda_site__", None)
     if site is None:
         raise NotImplementedError(
             f"kernel {plan.name!r} has no CUDA site function (its body sets "
             f"no __cuda_site__); run it under Target('torch')")
-    fields, out = SITE_FIELDS[site]
+    if site in _build.LM_SITE_ID:
+        fields, out = _lm_fields(site, plan)
+    else:
+        fields, out = SITE_FIELDS[site]
     got = tuple((c, None if s is None else s.name)
                 for c, s in plan._fields())
     if got != fields or tuple(plan.out_ncomp) != out:
@@ -58,7 +90,10 @@ def cuda_site(plan) -> str:
             f"kernel {plan.name!r}: fields {got} -> {tuple(plan.out_ncomp)} "
             f"do not match the CUDA site function {site!r} "
             f"({fields} -> {out})")
-    check_d3q19_consts(plan.consts, f"kernel {plan.name!r}")
+    if site in _build.LM_SITE_ID:
+        _check_lm_consts(site, plan)
+    else:
+        check_d3q19_consts(plan.consts, f"kernel {plan.name!r}")
     return site
 
 
@@ -92,6 +127,48 @@ def _lib():
     return fn
 
 
+def _lm_lib():
+    fn = _build.load("tdp_gathered_lm").tdp_gathered_lm_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lm_execute(plan, site, vvl, fields, out):
+    """Launch an LM site function on CUDA tensors."""
+    x0 = fields[0]
+    ncomp, n = (int(s) for s in x0.shape)
+    check_cuda_tensors(fields, [(ncomp, n)] * len(fields),
+                       f"kernel {plan.name!r}")
+    weight = None
+    if site == "rmsnorm":
+        weight = plan.consts["weight"]
+        if not isinstance(weight, torch.Tensor):
+            raise ValueError(f"kernel {plan.name!r}: const 'weight' must be a "
+                             f"tensor on {x0.device} for the CUDA site "
+                             f"function, got {type(weight).__name__}")
+        check_cuda_tensors([x0, weight], [(ncomp, n), (ncomp,)],
+                           f"kernel {plan.name!r} (x, weight)")
+    outs = alloc_outputs(plan, x0, n, out)
+    check_cuda_tensors(outs, [(c, n) for c in plan.out_ncomp],
+                       f"kernel {plan.name!r} (out)")
+    act = _build.LM_ACT_ID.get(getattr(plan.kernel, "__cuda_act__", None), 0)
+    with torch.cuda.device(x0.device):
+        rc = _lm_lib()(
+            _build.LM_SITE_ID[site], act, vvl, x0.data_ptr(),
+            fields[1].data_ptr() if len(fields) > 1 else None,
+            None if weight is None else weight.data_ptr(), outs[0].data_ptr(),
+            n, ncomp, float(plan.consts.get("eps", 0.0)),
+            float(plan.consts.get("scale_offset", 0.0)),
+            _build.stream_handle(x0.device))
+    _build.check(rc, f"tdp_gathered_lm {site}")
+    launches[site] += 1
+    return outs
+
+
 def cuda_execute(plan, gathered, out=None):
     """Registry executor entry (see :mod:`repro_torch.core.registry`)."""
     from repro_torch.core.api import torch_executor
@@ -104,6 +181,8 @@ def cuda_execute(plan, gathered, out=None):
     if x0.device.type != "cuda":
         raise ValueError(f"executor 'cuda' runs on CUDA or CPU tensors, got "
                          f"{x0.device}")
+    if site in _build.LM_SITE_ID:
+        return _lm_execute(plan, site, vvl, gathered, out)
     n = int(x0.shape[-1])
     shapes = [(c, n) if s is None else (s.noffsets, c, n)
               for c, s in plan._fields()]

@@ -1,0 +1,43 @@
+"""Block-level forward: one dispatch for prefill and decode.
+
+Port of ``repro/models/blocks.py`` for the dense attention blocks: ``attn``
+(global causal attention + MLP) and ``local`` (sliding-window causal
+attention + MLP).  The presence of ``cache`` selects decode over
+full-sequence mode.  Every other block type (MoE, MLA, SSM, cross-attention,
+encoder, shared) raises ``NotImplementedError`` until its slice (ROADMAP,
+queue A).
+"""
+from __future__ import annotations
+
+from . import attention, layers
+from .config import ModelConfig
+from .context import ExecContext
+
+
+def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
+                rope=None, cache=None, length=None):
+    """Apply one block; returns (x, cache) — the new cache ``{"k", "v"}``
+    (B, Hkv, S, dh) in full-sequence mode, the cache written in place in
+    decode mode."""
+    if btype not in ("attn", "local") or cfg.mla is not None:
+        raise NotImplementedError(
+            f"block type {btype!r}{' with MLA' if cfg.mla else ''} is not "
+            f"ported yet: only attn/local blocks with standard attention run "
+            f"(ROADMAP, queue A, LM stack)")
+    a = cfg.attn
+    window = a.window if btype == "local" else 0
+
+    h = layers.norm(bp["norm1"], x, cfg, ctx)
+    if cache is None:
+        out, (k, v) = attention.full_attention(
+            bp["attn"], h, a, ctx, rope=rope, causal=True, window=window)
+        new_cache = {"k": k.transpose(1, 2).contiguous(),
+                     "v": v.transpose(1, 2).contiguous()}
+    else:
+        out, new_cache = attention.decode_attention(
+            bp["attn"], h, a, ctx, cache, length, rope=rope, window=window)
+    x = x + out
+
+    h = layers.norm(bp["norm2"], x, cfg, ctx)
+    x = x + layers.mlp(bp["mlp"], h, cfg, ctx)
+    return x, new_cache

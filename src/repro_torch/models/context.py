@@ -1,0 +1,27 @@
+"""Execution context: which executor the model's kernel ops run under.
+
+The targetDP contract at framework scale: model code is written once and
+the :class:`ExecContext` decides how it runs.  The port has no mesh yet
+(ROADMAP, queue A), so the context holds the executor and the VVL only.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ExecContext:
+    """``backend``: ``"cuda"`` (the hand-written kernels; on CPU tensors
+    their plain versions run) or ``"torch"`` (the plain PyTorch versions
+    everywhere — the oracle).  ``vvl``: sites per thread of the gathered
+    executor's LM site functions.  The reference's default of 256 is the
+    width of a Pallas chunk; on the card a thread covers 1, 2, 4 or 8
+    sites, and 1 is the coalesced mapping, so the port defaults to 1."""
+
+    backend: str = "cuda"
+    vvl: int = 1
+
+    def __post_init__(self):
+        if self.backend not in ("cuda", "torch"):
+            raise ValueError(f"backend must be 'cuda' or 'torch', got "
+                             f"{self.backend!r}")

@@ -1,0 +1,104 @@
+"""Model-level forwards for serving: cache init, prefill, decode.
+
+Port of the serving half of ``repro/models/lm.py``.  Batch dict:
+``tokens (B, S)`` integer, optionally ``positions (B, S)`` (default
+``arange``).  The reference runs its layer program as ``lax.scan`` groups to
+keep its HLO small; PyTorch runs eagerly, so :func:`_apply_stack` is a plain
+loop over the layers.  The training loss, the encoder, the modality stubs
+and multi-token prediction wait for their slices (ROADMAP, queue A).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import blocks, layers
+from .config import ModelConfig
+from .context import ExecContext
+
+
+def embed_inputs(params, batch, cfg: ModelConfig, ctx: ExecContext):
+    if cfg.vision_stub or cfg.pos_embed == "learned":
+        raise NotImplementedError(
+            f"{cfg.name}: the vision stub and learned position embeddings "
+            f"are not ported yet (ROADMAP, queue A, LM stack)")
+    return layers.embed_tokens(params, batch["tokens"], cfg)
+
+
+def _rope_for(batch, cfg: ModelConfig, seq_len: int, *, positions=None):
+    """The cos/sin table for the arch; None when unused."""
+    a = cfg.attn
+    if a is None or cfg.pos_embed not in ("rope", "mrope"):
+        return None
+    if cfg.pos_embed == "mrope" or a.rope_theta_local:
+        raise NotImplementedError(
+            "M-RoPE (qwen2-vl) and a separate local-layer theta (gemma3) are "
+            "not ported yet (ROADMAP, queue A, LM stack)")
+    if positions is None:
+        positions = batch.get("positions")
+        if positions is None:
+            tokens = batch["tokens"]
+            positions = torch.arange(seq_len, dtype=torch.int32,
+                                     device=tokens.device)[None].expand(
+                                         tokens.shape[0], seq_len)
+    return layers.rope_tables(positions, a.head_dim, a.rope_theta)
+
+
+def _apply_stack(layer_params, program, x, cfg: ModelConfig,
+                 ctx: ExecContext, *, rope, caches=None, length=None):
+    """Run the whole layer program; returns (x, per-layer caches)."""
+    caches_out = []
+    for i, btype in enumerate(program):
+        x, c = blocks.apply_block(
+            btype, layer_params[i], x, cfg=cfg, ctx=ctx, rope=rope,
+            cache=None if caches is None else caches[i], length=length)
+        caches_out.append(c)
+    return x, caches_out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               dtype=torch.float32, device="cuda", local_ring: bool = False):
+    """Zeroed per-layer caches ``[{"k", "v"}: (B, Hkv, S, dh)]``.
+
+    ``local_ring``: sliding-window (``local``) layers allocate only
+    ``window`` slots, written modulo the window at decode time (ring
+    buffer)."""
+    a = cfg.attn
+    out = []
+    for btype in cfg.layer_program:
+        blen = max_len
+        if local_ring and btype == "local" and a.window > 0:
+            blen = min(max_len, a.window)
+        shape = (batch, a.n_kv_heads, blen, a.head_dim)
+        out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return out
+
+
+def prefill(params, batch, cfg: ModelConfig, ctx: ExecContext):
+    """Full forward that also builds the KV cache.
+
+    Returns (last-token logits (B, 1, V), caches); the caches' sequence
+    extent is the prompt length (pad them for a decode budget with
+    :func:`repro_torch.runtime.steps._pad_caches`)."""
+    seq_len = batch["tokens"].shape[1]
+    x = embed_inputs(params, batch, cfg, ctx)
+    rope = _rope_for(batch, cfg, seq_len)
+    x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
+                             ctx, rope=rope)
+    h = layers.norm(params["final_norm"], x[:, -1:], cfg, ctx)
+    return layers.logits_from_hidden(params, h, cfg), caches
+
+
+def decode_step(params, token, caches, length: int, cfg: ModelConfig,
+                ctx: ExecContext):
+    """One-token decode.  token: (B, 1) integer; length: current cache fill
+    (a Python int).  Returns (logits (B, 1, V), caches written in place)."""
+    batch = {"tokens": token}
+    x = embed_inputs(params, batch, cfg, ctx)
+    b = token.shape[0]
+    pos = torch.full((b, 1), length, dtype=torch.int32, device=token.device)
+    rope = _rope_for(batch, cfg, 1, positions=pos)
+    x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
+                             ctx, rope=rope, caches=caches, length=length)
+    h = layers.norm(params["final_norm"], x, cfg, ctx)
+    return layers.logits_from_hidden(params, h, cfg), caches

@@ -1,0 +1,191 @@
+"""Parameter initialisation, and the carry-across from the JAX package.
+
+The port's parameters are plain dictionaries::
+
+    {"embed": (padded_vocab, d), "final_norm": (d,),
+     "layers": [{"norm1": (d,), "attn": {"wq", "wk", "wv", "wo"},
+                 "norm2": (d,), "mlp": {"w_up", "w_gate"?, "w_down"}}, ...]}
+
+one entry of ``"layers"`` per layer of ``cfg.layer_program``, with the leaf
+names and shapes of ``repro/models/params.py``.  The reference stacks each
+leaf per scan group (``groups[i][position]`` with a leading repeat axis);
+:func:`from_reference` unstacks that into the per-layer list.  Only
+``attn``/``local`` blocks with a dense MLP and tied or untied embeddings
+are supported; other block types raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .config import ModelConfig, SSMConfig, plan_layer_groups
+
+#: block types whose parameters the port builds
+DENSE_BLOCKS = ("attn", "local")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    other = sorted(set(cfg.layer_program) - set(DENSE_BLOCKS))
+    if other or cfg.mla is not None or cfg.is_encdec or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: only attn/local blocks with a dense MLP are ported "
+            f"(found block types {other}, mla={cfg.mla is not None}, "
+            f"encoder={cfg.is_encdec}, mtp_depth={cfg.mtp_depth}); the "
+            f"rest waits for its slice (ROADMAP, queue A, LM stack)")
+    if cfg.pos_embed == "learned":
+        raise NotImplementedError(
+            f"{cfg.name}: learned position embeddings are not ported yet "
+            f"(ROADMAP, queue A, LM stack)")
+
+
+def _dense(gen, shape, device, fan_in=None):
+    fan_in = fan_in if fan_in is not None else shape[0]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    return torch.randn(shape, generator=gen, device=device) * scale
+
+
+def _block_params(cfg: ModelConfig, gen, device) -> dict:
+    a, d, f = cfg.attn, cfg.d_model, cfg.d_ff
+    attn = {"wq": _dense(gen, (d, a.n_heads * a.head_dim), device),
+            "wk": _dense(gen, (d, a.n_kv_heads * a.head_dim), device),
+            "wv": _dense(gen, (d, a.n_kv_heads * a.head_dim), device),
+            "wo": _dense(gen, (a.n_heads * a.head_dim, d), device)}
+    mlp = {"w_up": _dense(gen, (d, f), device)}
+    if cfg.act in ("swiglu", "geglu"):
+        mlp["w_gate"] = _dense(gen, (d, f), device)
+    mlp["w_down"] = _dense(gen, (f, d), device)
+    return {"norm1": torch.zeros(d, device=device), "attn": attn,
+            "norm2": torch.zeros(d, device=device), "mlp": mlp}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> dict:
+    """Random float32 parameters from ``generator`` (whose device must be
+    ``device``): projections ~ N(0, 1/fan_in), the embedding ~ N(0, 0.02²),
+    norm weights 0 (the ``(1 + w)`` convention).  The same distributions
+    as the reference's ``init_params``; not the same numbers (a
+    ``torch.Generator`` is not a JAX key)."""
+    _check_supported(cfg)
+    d = cfg.d_model
+    params = {"embed": _dense(generator, (cfg.padded_vocab, d), device,
+                              fan_in=1) * 0.02}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _dense(generator, (d, cfg.padded_vocab), device)
+    params["layers"] = [_block_params(cfg, generator, device)
+                        for _ in cfg.layer_program]
+    params["final_norm"] = torch.zeros(d, device=device)
+    return params
+
+
+def _to_torch(tree, device, index=None):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if index is not None:
+        a = a[index]
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def from_reference(np_params: dict, cfg: ModelConfig, device="cpu") -> dict:
+    """The port's parameters from the JAX package's ``init_params`` pytree
+    (leaves as numpy arrays or anything ``np.asarray`` takes).
+
+    The reference stores each scan group ``(unit, k)`` of
+    :func:`plan_layer_groups` as ``groups[g][j]`` with every leaf stacked
+    to a leading extent ``k``: layer ``offset + r·len(unit) + j`` is
+    repeat ``r`` of unit position ``j``."""
+    _check_supported(cfg)
+    out = {"embed": _to_torch(np_params["embed"], device)}
+    if "lm_head" in np_params:
+        out["lm_head"] = _to_torch(np_params["lm_head"], device)
+    layers = [None] * cfg.n_layers
+    offset = 0
+    for g, (unit, k) in enumerate(plan_layer_groups(cfg.layer_program)):
+        for r in range(k):
+            for j in range(len(unit)):
+                layers[offset + r * len(unit) + j] = _to_torch(
+                    np_params["groups"][g][j], device, index=r)
+        offset += k * len(unit)
+    out["layers"] = layers
+    out["final_norm"] = _to_torch(np_params["final_norm"], device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter counts (a copy of the reference's, for every block type)
+# ---------------------------------------------------------------------------
+
+def _ssm_dims(cfg: ModelConfig):
+    s: SSMConfig = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    dt_rank = s.dt_rank or -(-cfg.d_model // 16)
+    return s, d_inner, dt_rank
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    d = cfg.d_model
+    gated = cfg.act in ("swiglu", "geglu")
+
+    def attn_count():
+        if cfg.mla is not None:
+            m, h = cfg.mla, cfg.attn.n_heads
+            qk = m.nope_head_dim + m.rope_head_dim
+            return (d * m.q_lora_rank + m.q_lora_rank * h * qk
+                    + d * m.kv_lora_rank + d * m.rope_head_dim
+                    + m.kv_lora_rank * h * (m.nope_head_dim + m.v_head_dim)
+                    + h * m.v_head_dim * d)
+        a = cfg.attn
+        return d * a.head_dim * (a.n_heads * 2 + a.n_kv_heads * 2)
+
+    def mlp_count(f):
+        return d * f * (3 if gated else 2)
+
+    def moe_count():
+        mo = cfg.moe
+        e = mo.top_k if active_only else mo.num_experts
+        total = d * mo.num_experts  # router always loaded
+        total += e * mo.d_expert * d * (3 if gated else 2)
+        if mo.num_shared:
+            total += mlp_count(mo.d_expert * mo.num_shared)
+        return total
+
+    def ssm_count(kind):
+        s, di, dtr = _ssm_dims(cfg)
+        n, g = s.d_state, s.n_groups
+        if kind == "mamba1":
+            return (d * 2 * di + s.d_conv * di + di
+                    + di * (dtr + 2 * n) + dtr * di + di + di * n + di
+                    + di * d)
+        heads = di // s.head_dim
+        return (d * (2 * di + 2 * g * n + heads)
+                + s.d_conv * (di + 2 * g * n) + di + 2 * g * n
+                + 3 * heads + di + di * d)
+
+    per_block = {
+        "attn": lambda: attn_count() + mlp_count(cfg.d_ff) + 2 * d,
+        "local": lambda: attn_count() + mlp_count(cfg.d_ff) + 2 * d,
+        "attn_dense": lambda: attn_count() + mlp_count(cfg.d_ff) + 2 * d,
+        "attn_moe": lambda: attn_count() + (moe_count() if cfg.moe else 0) + 2 * d,
+        "mamba1": lambda: ssm_count("mamba1") + d if cfg.ssm else 0,
+        "mamba2": lambda: ssm_count("mamba2") + d if cfg.ssm else 0,
+        "shared_attn": lambda: 0,  # counted once below
+        "xattn": lambda: 2 * attn_count() + mlp_count(cfg.d_ff) + 3 * d,
+        "enc": lambda: attn_count() + mlp_count(cfg.d_ff) + 2 * d,
+    }
+    total = sum(per_block[b]() for b in cfg.layer_program)
+    if "shared_attn" in cfg.layer_program:
+        total += attn_count() + mlp_count(cfg.d_ff) + 2 * d
+    total += cfg.padded_vocab * d  # embed
+    if not cfg.tie_embeddings:
+        total += cfg.padded_vocab * d
+    if cfg.pos_embed == "learned":
+        total += cfg.max_position * d
+    if cfg.is_encdec:
+        total += cfg.encoder.n_layers * per_block["enc"]()
+        total += cfg.encoder.n_frames * d + d
+    if cfg.mtp_depth:
+        total += cfg.mtp_depth * (per_block[cfg.layer_program[-1]]() + 2 * d * d + d)
+    total += d  # final norm
+    return int(total)

@@ -190,7 +190,11 @@ class TestImportHygiene:
     def test_import_leaves_jax_out(self):
         code = ("import sys, repro_torch.lb.sim, repro_torch.kernels.ops, "
                 "repro_torch.kernels.tdp_pointwise, "
-                "repro_torch.kernels.tdp_windowed; "
+                "repro_torch.kernels.tdp_windowed, "
+                "repro_torch.kernels.flash_attention, "
+                "repro_torch.models.lm, repro_torch.models.params, "
+                "repro_torch.runtime.steps, repro_torch.launch.serve, "
+                "repro_torch.configs.gemma2_2b; "
                 "assert 'jax' not in sys.modules, 'jax imported'; "
                 "assert 'repro' not in sys.modules, 'repro imported'")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,0 +1,258 @@
+"""The LM site functions and the attention row update, checked without a card.
+
+``csrc/lm_sites.cuh`` (rmsnorm, gated and act site functions with the
+strip-of-VVL thread mapping) and ``csrc/flash_attention.cuh`` (the per-row
+online-softmax update and the dead-tile key range) are ``__host__
+__device__``, so the host C++ compiler builds them into a small library.
+Its ``host_lm`` entry has the signature of ``tdp_gathered_lm_launch`` and
+loops over the threads one by one; ``host_attention`` runs the kernel's
+tile loop — query tiles of 32 rows, key tiles of 32 keys from
+``key_range``, the lane reductions done in order — through the same row
+functions.  Both are held to the plain PyTorch twins at the tests' bar,
+``rtol=2e-4, atol=2e-4``, at every VVL and on ragged extents.
+"""
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import lm as tlm
+from repro_torch.kernels import ref as tref
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+HARNESS = r"""
+#include <vector>
+
+#include "flash_attention.cuh"
+#include "lm_sites.cuh"
+
+namespace {
+template <class Site, int VVL>
+struct LmLoop {
+  static int run(const tdp::lm::LmIO& io, void*) {
+    for (int64_t t = 0, nt = tdp::lm::lm_threads<VVL>(io); t < nt; ++t)
+      tdp::lm::lm_thread<Site, VVL>(io, t);
+    return 0;
+  }
+};
+}  // namespace
+
+extern "C" int host_lm(int site, int act, int vvl, const void* x, const void* v,
+                       const void* weight, void* out, long long n, int ncomp,
+                       float eps, float scale_offset, void* stream) {
+  tdp::lm::LmIO io{};
+  io.in[0] = static_cast<const float*>(x);
+  io.in[1] = static_cast<const float*>(v);
+  io.out = static_cast<float*>(out);
+  io.weight = static_cast<const float*>(weight);
+  io.n = n;
+  io.ncomp = ncomp;
+  io.eps = eps;
+  io.scale_offset = scale_offset;
+  return tdp::lm::dispatch_site<LmLoop>(site, act, vvl, io, stream);
+}
+
+extern "C" void host_attention(const float* q, const float* k, const float* v,
+                               float* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                               int Dh, float scale, float softcap, int causal,
+                               int window) {
+  using namespace tdp::attn;
+  const int BQ = 32, BK = 32;
+  const Params p{scale, softcap, causal, window, Sk};
+  for (int b = 0; b < B; ++b)
+    for (int h = 0; h < Hq; ++h) {
+      const int hk = h / (Hq / Hkv);
+      const float* kg = k + (long)(b * Hkv + hk) * Sk * Dh;
+      const float* vg = v + (long)(b * Hkv + hk) * Sk * Dh;
+      for (int q0 = 0; q0 < Sq; q0 += BQ) {
+        int lo, hi;
+        key_range(p, q0, (q0 + BQ < Sq ? q0 + BQ : Sq) - 1, BK, lo, hi);
+        for (int qi = q0; qi < q0 + BQ && qi < Sq; ++qi) {
+          const float* qr = q + ((long)(b * Hq + h) * Sq + qi) * Dh;
+          RowState st = row_init();
+          std::vector<float> acc(Dh, 0.0f);
+          for (int kt = lo; kt < hi; kt += BK) {
+            float s[BK], pw[BK];
+            bool lv[BK];
+            float tmax = -INFINITY, tsum = 0.0f;
+            for (int j = 0; j < BK; ++j) {
+              float dot = 0.0f;
+              if (kt + j < Sk)
+                for (int d = 0; d < Dh; ++d) dot += qr[d] * kg[(long)(kt + j) * Dh + d];
+              s[j] = logit(p, dot);
+              lv[j] = live(p, qi, kt + j);
+              if (lv[j]) tmax = s[j] > tmax ? s[j] : tmax;
+            }
+            const float alpha = row_rescale(st, tmax);
+            for (int j = 0; j < BK; ++j) {
+              pw[j] = row_weight(st, s[j], lv[j]);
+              tsum += pw[j];
+            }
+            row_sum(st, alpha, tsum);
+            for (int d = 0; d < Dh; ++d) {
+              acc[d] *= alpha;
+              for (int j = 0; j < BK && kt + j < Sk; ++j)
+                acc[d] += pw[j] * vg[(long)(kt + j) * Dh + d];
+            }
+          }
+          float* orow = o + ((long)(b * Hq + h) * Sq + qi) * Dh;
+          for (int d = 0; d < Dh; ++d) orow[d] = row_out(st, acc[d]);
+        }
+      }
+    }
+}
+
+extern "C" void host_key_range(int sk, int causal, int window, int q0, int q_last,
+                               int bk, int* lo, int* hi) {
+  const tdp::attn::Params p{1.0f, 0.0f, causal, window, sk};
+  tdp::attn::key_range(p, q0, q_last, bk, *lo, *hi);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the site functions with")
+    d = tmp_path_factory.mktemp("lm_csrc_host")
+    src = d / "harness.cpp"
+    src.write_text(HARNESS)
+    lib = d / "libharness.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", f"-I{_build.CSRC}", "-o",
+                    str(lib), str(src)], check=True, timeout=300)
+    so = ctypes.CDLL(str(lib))
+    so.host_lm.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                           + [ctypes.c_longlong, ctypes.c_int]
+                           + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    so.host_lm.restype = ctypes.c_int
+    so.host_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
+    so.host_attention.restype = None
+    so.host_key_range.argtypes = ([ctypes.c_int] * 6
+                                  + [ctypes.POINTER(ctypes.c_int)] * 2)
+    return so
+
+
+def _rand(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+
+
+def _lm(so, site, act, vvl, x, v, w, out, eps=1e-6, scale_offset=0.0):
+    ncomp, n = x.shape
+    return so.host_lm(_build.LM_SITE_ID[site], act, vvl, x.data_ptr(),
+                      None if v is None else v.data_ptr(),
+                      None if w is None else w.data_ptr(), out.data_ptr(), n,
+                      ncomp, eps, scale_offset, None)
+
+
+@pytest.mark.parametrize("d,n", [(64, 37), (2304, 9)])
+def test_rmsnorm_site_matches_plain(host_lib, d, n):
+    x, w = _rand(0, (d, n)), _rand(1, (d,))
+    want = tref.rmsnorm_ref(x.T, w, scale_offset=1.0).T
+    for vvl in (1, 2, 4, 8):
+        out = torch.full((d, n), float("nan"))
+        assert _lm(host_lib, "rmsnorm", 0, vvl, x, None, w, out,
+                   scale_offset=1.0) == 0
+        torch.testing.assert_close(out, want, **TOL)
+
+
+@pytest.mark.parametrize("kind", tlm.GATED_KINDS)
+@pytest.mark.parametrize("gated", [True, False])
+def test_gated_and_act_sites_match_plain(host_lib, kind, gated):
+    n = 8 * 37 + 5                       # ragged for every VVL > 1
+    u = _rand(2, (1, n), 3.0)
+    v = _rand(3, (1, n)) if gated else None
+    want = tref.gated_act_ref(u, v, kind=kind)
+    act = _build.LM_ACT_ID[tlm.ACT_OF_KIND[kind]]
+    for vvl in (1, 2, 4, 8):
+        out = torch.full((1, n), float("nan"))
+        assert _lm(host_lib, "gated" if gated else "act", act, vvl, u, v, None,
+                   out) == 0
+        torch.testing.assert_close(out, want, **TOL)
+
+
+def test_bad_lm_site_act_and_vvl_codes(host_lib):
+    x = torch.zeros(1, 8)
+    assert _lm(host_lib, "gated", 7, 1, x, x, None, x) == -1
+    assert _lm(host_lib, "rmsnorm", 0, 3, x, None, torch.zeros(1), x) == -2
+    assert host_lib.host_lm(9, 0, 1, x.data_ptr(), None, None, x.data_ptr(), 8,
+                            1, 0.0, 0.0, None) == -1
+
+
+_ATTN = {
+    "gqa_causal": ((2, 4, 2, 70, 70, 32), dict(causal=True)),
+    "mqa_window_softcap": ((1, 4, 1, 100, 100, 16), dict(causal=True, window=40,
+                                                         softcap=5.0)),
+    "noncausal": ((1, 2, 2, 45, 45, 32), dict(causal=False)),
+    "masked_rows": ((1, 2, 2, 40, 20, 16), dict(causal=False, window=5)),
+    "scale": ((1, 2, 1, 33, 33, 64), dict(causal=True, scale=0.07)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN))
+def test_attention_row_update_matches_plain(host_lib, case):
+    (b, hq, hkv, sq, sk, dh), kw = _ATTN[case]
+    q, k, v = _rand(4, (b, hq, sq, dh)), _rand(5, (b, hkv, sk, dh)), _rand(
+        6, (b, hkv, sk, dh))
+    scale = kw.get("scale", dh ** -0.5)
+    o = torch.full_like(q, float("nan"))
+    host_lib.host_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), b, hq, hkv, sq, sk, dh, scale,
+                            kw.get("softcap", 0.0), int(kw["causal"]),
+                            kw.get("window", 0))
+    want = tref.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, want, **TOL)
+
+
+def test_key_range_skips_only_dead_tiles(host_lib):
+    """Every live key of the query rows lies in [lo, hi); the tiles before
+    lo and from hi on hold none; lo is tile-aligned."""
+    lo, hi = ctypes.c_int(), ctypes.c_int()
+    for sk, causal, window, q0 in [(4608, 1, 4096, 4576), (4608, 1, 0, 64),
+                                   (100, 0, 5, 32), (20, 0, 5, 32),
+                                   (1000, 1, 100, 960)]:
+        q_last = min(q0 + 32, 4608) - 1
+        host_lib.host_key_range(sk, causal, window, q0, q_last, 32,
+                                ctypes.byref(lo), ctypes.byref(hi))
+        ks = np.arange(sk)
+        live = np.zeros(sk, bool)
+        for q in range(q0, q_last + 1):
+            m = np.ones(sk, bool)
+            if causal:
+                m &= ks <= q
+            if window:
+                m &= ks > q - window
+            live |= m
+        assert lo.value % 32 == 0
+        assert not live[:lo.value].any() and not live[max(hi.value, 0):].any()
+        if live.any():
+            first = int(np.argmax(live))
+            assert lo.value > first - 32
+
+
+def test_error_codes_match_the_sources():
+    """The C entries' error codes are the ones ``_build.check`` names."""
+    lb = (_build.CSRC / "lb_sites.cuh").read_text()
+    lm = (_build.CSRC / "lm_sites.cuh").read_text()
+    fa = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "ERR_BAD_SITE = -1" in lb and "ERR_BAD_VVL = -2" in lb
+    assert "ERR_BAD_HEAD_DIM = -3" in fa and "ERR_BAD_GROUP = -4" in fa
+    assert re.findall(r"SITE_(\w+) = (\d+)", lm) == [
+        (s.upper(), str(i)) for s, i in _build.LM_SITE_ID.items()]
+    assert re.findall(r"ACT_(\w+) = (\d+)", lm) == [
+        (a.upper(), str(i)) for a, i in _build.LM_ACT_ID.items()]
+    heads = re.findall(r"case (\d+): return launch<", fa)
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert tuple(int(h) for h in heads) == HEAD_DIMS
+    for code in (-3, -4):
+        with pytest.raises(ValueError):
+            _build.check(code, "x")

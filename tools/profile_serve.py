@@ -1,0 +1,131 @@
+"""Where the time of serving gemma2-2b goes on the card.
+
+    python3 tools/profile_serve.py [--batch 2] [--prompt-len 4608] [--decode 16]
+
+Builds gemma2-2b at full width with seeded random float32 weights, serves
+``--batch`` random prompts once to warm up, then traces the prefill and the
+``--decode`` greedy decode steps with ``torch.profiler`` (two traces).  For
+each it reports the host wall time (ending in ``torch.cuda.synchronize()``),
+the device time summed over kernels, the device's busy share of the wall
+time and of the traced span, and the device time per kernel name, split
+into the port's own CUDA kernels (``flash_fwd_kernel``, ``lm_kernel``) and
+PyTorch's (matrix products, copies, the plain decode attention).  Needs one
+CUDA card; prints the card's name and power limit first and writes the full
+table to ``chiprun_out/profile_serve.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_KERNELS = ("flash_fwd_kernel", "lm_kernel")
+
+
+def summarize(prof, wall_s: float, per: int) -> dict:
+    """Device time by kernel name (per ``per`` units of work) and the busy
+    shares of one trace."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) if kernels else 0.0
+    port_us = sum(v for k, v in by_name.items()
+                  if any(p in k for p in PORT_KERNELS))
+    return {
+        "wall_ms": wall_s * 1e3 / per,
+        "device_ms": busy_us / 1e3 / per,
+        "port_kernels_ms": port_us / 1e3 / per,
+        "torch_ops_ms": (busy_us - port_us) / 1e3 / per,
+        "device_busy_share_of_wall": busy_us / 1e6 / wall_s if wall_s else None,
+        "device_busy_share_of_span": busy_us / span_us if span_us else None,
+        "kernels_traced": len(kernels),
+        "by_kernel_ms": {k: v / 1e3 / per for k, v in
+                         sorted(by_name.items(), key=lambda kv: -kv[1])},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=4608)
+    ap.add_argument("--decode", type=int, default=16)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_serve: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.models import params as model_params
+    from repro_torch.models.context import ExecContext
+    from repro_torch.runtime.steps import build_serve_steps
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = configs.get_config("gemma2-2b")
+    params = model_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    pre, dec = build_serve_steps(cfg, ExecContext(backend="cuda"),
+                                 max_len=args.prompt_len + args.decode)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def decode_all(tok, caches, length):
+        for _ in range(args.decode):
+            tok, caches, length, _ = dec(params, tok, caches, length)
+        return tok
+
+    def trace():
+        return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    with torch.inference_mode():
+        tok, caches, length, _ = pre(params, {"tokens": prompts})   # warm-up
+        decode_all(tok, caches, length)
+        with trace() as p_pre:
+            (tok, caches, length, _), t_pre = timed(
+                lambda: pre(params, {"tokens": prompts}))
+        with trace() as p_dec:
+            _, t_dec = timed(lambda: decode_all(tok, caches, length))
+    traced = {"prefill": (p_pre, t_pre), "decode": (p_dec, t_dec)}
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "batch": args.batch, "prompt_len": args.prompt_len,
+              "decode_steps": args.decode,
+              "prefill": summarize(*traced["prefill"], per=1),
+              "decode_per_step": summarize(*traced["decode"], per=args.decode)}
+    for phase in ("prefill", "decode_per_step"):
+        row = result[phase]
+        top = dict(list(row["by_kernel_ms"].items())[:8])
+        print(json.dumps({"phase": phase, **{k: v for k, v in row.items()
+                                              if k != "by_kernel_ms"},
+                          "top_kernels_ms": top}), flush=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "profile_serve.json").write_text(
+        json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
