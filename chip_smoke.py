@@ -17,27 +17,35 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    shapes, the smoke shape (Dh 16), a ragged Sq = Sk = 1000, rows with no
    live key and the full-width gemma2 prefill shapes (``local`` and
    ``attn``); ``rmsnorm`` and the ``gated``/``act`` site functions (all five
-   kinds) at VVL 1, 2, 4 and 8 at full width;
+   kinds) at VVL 1, 2, 4 and 8 at full width; the ``mamba`` site function
+   (``ops.mamba_scan``) at VVL 1, 2, 4 and 8 on the reference tests'
+   shapes, a ragged 1000 channels and falcon-mamba-7b's full-width prefill
+   shape (2, 4096, 8192, 16);
 4. main path — ``BinaryFluidSim`` 20 steps at 128³ in the unfused,
    ``one_launch`` and ``two_launch`` regimes from one spinodal state, then
    ``ops.lb_collision`` and ``ops.lb_fused_step`` (windowed and gathered)
    on its result; then gemma2-2b served at full width (seeded random
    weights, 2 prompts × 4608 tokens, 16 greedy decode steps) through
    ``build_serve_steps`` on the kernels, and an ungated ``ops.gated_act``;
-   each path with every launch counter set to 0 just before it and read
-   just after.  Checks NaN-free states, float64 mass conservation, pairwise
+   then falcon-mamba-7b served at full width (64 Mamba-1 layers, seeded
+   random weights, 29.1 GB, 2 prompts × 4096 tokens, 16 greedy decode
+   steps) the same way; each path with every launch counter set to 0 just
+   before it and read just after.  Checks NaN-free states, float64 mass conservation, pairwise
    agreement of the regimes, a 16³ trajectory against the plain path on
    the CPU, a launch of every kernel × site function, the serving path's
    launch counts per prefill and per decode step, and the served logits
    and greedy tokens against the same weights and prompts through the
-   plain path (``backend="torch"``) on the card;
+   plain path (``backend="torch"``) on the card, for both models;
 5. times — each LB kernel × site function at 128³ and each LM kernel at its
    full-width shapes, held once more to its plain version, then timed
    (median of 20 launches, CUDA events) beside its plain version, its
    bound and, where one PyTorch call computes the same function
    (``library_call``, ``lm_library_call``), that call, itself held to the
-   plain version first; MLUPS per regime; prefill ms, decode ms per step
-   and tokens/s of the serving path, on the kernels and on the plain path.
+   plain version first (the ``mamba`` site function's plain version, a
+   host-bound Python loop over 4096 steps, is timed by wall clock over
+   ``MAMBA_PLAIN_REPS`` calls, and the kernel also at VVL 2, 4 and 8);
+   MLUPS per regime; prefill ms, decode ms per step and
+   tokens/s of both serving paths, on the kernels and on the plain path.
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -63,6 +71,10 @@ OUT_DIR = ROOT / "chiprun_out"
 #: tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+#: Exponentials per second on the special-function units: 16 per clock per
+#: SM (Hopper architecture white paper: 4 SFUs in each of an SM's four
+#: partitions) × 132 SMs × the 1.98 GHz boost clock of the SXM part.
+PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 
 #: Bytes each site function must move per site (inputs read once, outputs
 #: written once, float32) and its float32 operations per site, counted by
@@ -84,6 +96,9 @@ KERNELS = {
     "tdp_gathered.act": dict(
         source="src/repro_torch/csrc/tdp_gathered_lm.cu",
         replaces="src/repro/kernels/lm.py:95"),
+    "tdp_gathered.mamba": dict(
+        source="src/repro_torch/csrc/tdp_gathered_lm.cu",
+        replaces="src/repro/kernels/lm.py:120"),
     "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:94"),
     "tdp_windowed": dict(source="src/repro_torch/csrc/tdp_windowed.cu",
@@ -98,7 +113,9 @@ GRID = (128, 128, 128)
 STEPS = 20
 #: Clock cycles the spin kernel of time_ms() holds the stream: about a second
 #: at the H100's clocks, longer than the host takes to enqueue 20 launches of
-#: the slowest plain version.
+#: any function time_ms() times.  The mamba site function's plain version (a
+#: Python loop of some 33 000 PyTorch calls per launch) is host-bound and is
+#: timed by wall_ms() instead.
 HOLD_CYCLES = 2_000_000_000
 
 #: The LM kernels' bar against their plain versions: the reference's own
@@ -108,8 +125,19 @@ LM_TOL = dict(rtol=2e-4, atol=2e-4)
 #: 4096 window, so the local mask bites), 16 greedy decode steps.
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 2, 4608, 16
 #: Served logits, kernels against the plain path on the card: float32
-#: through 26 layers, the two differing in summation order only.
+#: through 26 (gemma2) or 64 (falcon-mamba) layers, the two differing in
+#: summation order only.
 SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
+#: falcon-mamba-7b served at full width: 2 prompts of 4096 tokens.
+MAMBA_PROMPT = 4096
+#: ops.mamba_scan checks, (batch, L, d_inner, N): the reference tests'
+#: shapes (tests/test_kernels.py:140), a ragged channel count and the
+#: full-width falcon-mamba-7b prefill.
+MAMBA_CASES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 77, 1000, 16),
+               (SERVE_BATCH, MAMBA_PROMPT, 8192, 16)]
+#: Calls the mamba site function's plain version (a Python loop over 4096
+#: steps) is timed over, by wall clock; the kernel over 20 launches.
+MAMBA_PLAIN_REPS = 3
 #: flash_attention checks: (B, Hq, Hkv, Sq, Sk, Dh, causal, window, softcap)
 ATTN_CASES = [(2, 4, 4, 128, 128, 32, c, 0, 0.0) for c in (True, False)] + [
     (2, 8, 2, 128, 128, 64, c, 0, 0.0) for c in (True, False)] + [
@@ -152,9 +180,15 @@ def ptxas_report(logs: dict) -> list[dict]:
                 elif lib == "tdp_gathered_lm":
                     m = re.search(r"lm\d+(\w+?)Site(?:ILi(\d+)EE)?ELi(\d+)E",
                                   name)
-                    entry = {"lib": lib, "site": m.group(1).lower(),
-                             "act": int(m.group(2)) if m.group(2) else None,
-                             "vvl": int(m.group(3))} if m else {"lib": lib}
+                    entry = {"lib": lib}
+                    if m:
+                        site = m.group(1).lower()
+                        # the template argument is the activation, or the
+                        # mamba site function's d_state
+                        entry.update({"site": site,
+                                      "nstate" if site == "mamba" else "act":
+                                      int(m.group(2)) if m.group(2) else None,
+                                      "vvl": int(m.group(3))})
                 else:
                     site = re.search(r"tdp(?:\d+)(\w+?)Site", name)
                     vvl = re.search(r"Li(\d+)E", name)
@@ -196,6 +230,22 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b)
                              for a, b in zip(events, events[1:]))
+
+
+def wall_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    """Median wall time of one call of ``fn`` over ``reps`` calls, each
+    between two ``torch.cuda.synchronize()``: for a host-bound function
+    whose Python dispatch no spin kernel can cover."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def max_abs(got, want) -> float:
@@ -372,6 +422,32 @@ def lm_checks(problems: list, max_err: dict) -> None:
     del u, v
     torch.cuda.empty_cache()
 
+    err = 0.0
+    for case in MAMBA_CASES:
+        b, length, di, n = case
+        x = torch.randn(b, length, di, device=dev, generator=g)
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, length, di, device=dev, generator=g))
+        bb, cc = (torch.randn(b, length, n, device=dev, generator=g)
+                  for _ in range(2))
+        a = -torch.exp(torch.randn(di, n, device=dev, generator=g))
+        d = torch.ones(di, device=dev)
+        want = ops.mamba_scan(x, dt, bb, cc, a, d, target="torch")
+        for vvl in (1, 2, 4, 8):
+            got = ops.mamba_scan(x, dt, bb, cc, a, d, vvl=vvl)
+            torch.cuda.synchronize()
+            e = max_abs(got, want)
+            err = max(err, e)
+            if not all(torch.isfinite(o).all() and torch.allclose(o, w, **LM_TOL)
+                       for o, w in zip(got, want)):
+                problems.append(f"mamba {case} vvl={vvl}: max |kernel - plain| "
+                                f"= {e}")
+            del got
+        log(f"phase 3: mamba {case} max_abs_err={err}")
+        del x, dt, bb, cc, a, d, want
+    max_err["tdp_gathered.mamba"] = err
+    torch.cuda.empty_cache()
+
 
 def serve_run(params, cfg, backend: str, tokens, drive=None):
     """Prefill + ``SERVE_DECODE`` greedy decode steps through
@@ -383,7 +459,7 @@ def serve_run(params, cfg, backend: str, tokens, drive=None):
     from repro_torch.runtime.steps import build_serve_steps
 
     pre, dec = build_serve_steps(cfg, ExecContext(backend=backend),
-                                 max_len=SERVE_PROMPT + SERVE_DECODE)
+                                 max_len=int(tokens.shape[1]) + SERVE_DECODE)
     drive = drive or (lambda path, fn: fn())
     out = {"tokens": [], "logits": []}
 
@@ -401,12 +477,13 @@ def serve_run(params, cfg, backend: str, tokens, drive=None):
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok, caches, length, logits = drive(f"serve prefill ({backend})", prefill)
+        tok, caches, length, logits = drive(f"{cfg.name} prefill ({backend})",
+                                            prefill)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out["tokens"].append(tok)
         out["logits"].append(logits[:, -1])
-        drive(f"serve decode x{SERVE_DECODE} ({backend})",
+        drive(f"{cfg.name} decode x{SERVE_DECODE} ({backend})",
               lambda: decode((tok, caches, length)))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -415,7 +492,8 @@ def serve_run(params, cfg, backend: str, tokens, drive=None):
     return out
 
 
-def compare_serving(kern: dict, plain: dict, problems: list) -> dict:
+def compare_serving(kern: dict, plain: dict, problems: list,
+                    what: str) -> dict:
     """Logits of every step within ``SERVE_TOL`` while the token streams
     agree; greedy tokens equal wherever the plain path's top-2 margin
     exceeds the tolerance (a near-tie may go either way: random weights)."""
@@ -432,22 +510,67 @@ def compare_serving(kern: dict, plain: dict, problems: list) -> dict:
                       "min_top2_margin": float(margin.min()),
                       "tokens_equal": bool(same.all())})
         if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-            problems.append(f"serving step {i}: non-finite logits")
+            problems.append(f"{what} step {i}: non-finite logits")
         if not torch.allclose(lk, lp, **SERVE_TOL):
-            problems.append(f"serving step {i}: logits differ by {diff}")
+            problems.append(f"{what} step {i}: logits differ by {diff}")
         if bool((~same & (margin > 2 * tol)).any()):
-            problems.append(f"serving step {i}: greedy tokens differ where "
+            problems.append(f"{what} step {i}: greedy tokens differ where "
                             f"the margin exceeds {2 * tol}")
         if not bool(same.all()):
             break      # the streams parted at a near-tie: stop comparing
     return {"tolerance": SERVE_TOL, "steps": steps}
 
 
+def serve_model(arch: str, prompt_len: int, drive, problems: list) -> dict:
+    """Phase 4 for one model: built at full width from seeded random float32
+    weights, served through the kernels (counted), again through the plain
+    path (counted) and once more through the kernels, warm (timed); the
+    logits and tokens compared; weights and caches freed after."""
+    from repro_torch import configs
+    from repro_torch.models import params as model_params
+    dev = torch.device("cuda")
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    mparams = model_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, prompt_len))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_run(mparams, cfg, "cuda", prompts, drive=drive)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain_served = serve_run(mparams, cfg, "torch", prompts, drive=drive)
+    warm = serve_run(mparams, cfg, "cuda", prompts)
+    serving = compare_serving(served, plain_served, problems, cfg.name)
+    serving.update(params=cfg.num_params(), init_params_s=init_s,
+                   prompt=[SERVE_BATCH, prompt_len], decode_steps=SERVE_DECODE,
+                   peak_memory_gb_kernels=peak_gb)
+    for name, run in (("kernels_first_run", served), ("kernels_warm", warm),
+                      ("plain", plain_served)):
+        serving[name] = {
+            "prefill_ms": run["prefill_ms"],
+            "prefill_tokens_per_s": SERVE_BATCH * prompt_len / run["prefill_ms"] * 1e3,
+            "decode_ms_per_step": run["decode_ms_per_step"],
+            "decode_tokens_per_s": SERVE_BATCH / run["decode_ms_per_step"] * 1e3}
+    if warm["tokens"] and not all(torch.equal(a, b) for a, b in
+                                  zip(warm["tokens"], served["tokens"])):
+        problems.append(f"{cfg.name}: the warm run's tokens differ from the "
+                        f"first")
+    del mparams, served, plain_served, warm, prompts
+    torch.cuda.empty_cache()
+    print(json.dumps({"serving": {cfg.name: {k: v for k, v in serving.items()
+                                             if k != "steps"}}}), flush=True)
+    return serving
+
+
 def lm_row(name, kernel_info, launch_key, kern, plain, lib, bound_ms_by,
            launches, launches_by_path, max_err, problems, record, *,
-           max_err_key=None) -> dict:
+           max_err_key=None, plain_reps=20, plain_wall=False) -> dict:
     """Phase 5 for one LM kernel: held to its plain version (and the library
-    call to the plain version), then timed beside both and its bound."""
+    call to the plain version), then timed beside both and its bound; the
+    plain version over ``plain_reps`` launches, by device time or, with
+    ``plain_wall``, by wall clock (``plain_timing`` in the row)."""
     got, want = kern(), plain()
     got = (got,) if isinstance(got, torch.Tensor) else tuple(got)
     want = (want,) if isinstance(want, torch.Tensor) else tuple(want)
@@ -469,7 +592,9 @@ def lm_row(name, kernel_info, launch_key, kern, plain, lib, bound_ms_by,
         del lib_out
     del got, want
     torch.cuda.empty_cache()
-    ms, plain_ms = time_ms(kern), time_ms(plain)
+    ms = time_ms(kern)
+    plain_ms = (wall_ms(plain, reps=plain_reps) if plain_wall else
+                time_ms(plain, reps=plain_reps, warmup=min(3, plain_reps)))
     if lib is not None:
         library_ms = time_ms(lib[0])
     b_ms, b_by = bound_ms_by
@@ -481,7 +606,10 @@ def lm_row(name, kernel_info, launch_key, kern, plain, lib, bound_ms_by,
             "launches": launches[launch_key],
             "launches_by_path": launches_by_path[launch_key],
             "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "plain_reps": plain_reps,
+            "plain_timing": "wall" if plain_wall else "device",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -494,7 +622,6 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.kernels import _build, flash_attention, lb_collision, lm
     from repro_torch.kernels import ops, ref, tdp_pointwise, tdp_windowed
-    from repro_torch.models import params as model_params
     from repro_torch.lb import programs, stencil
     from repro_torch.lb.params import LBParams
     from repro_torch.lb.sim import BinaryFluidSim
@@ -529,7 +656,7 @@ def main() -> int:
                 "tdp_windowed": tdp_windowed.launches,
                 "lb_collision": lb_collision.launches,
                 "flash_attention": flash_attention.launches}
-    lm_entries = [("tdp_gathered", s) for s in _build.LM_SITES] + [
+    lm_entries = [("tdp_gathered", s) for s in tdp_pointwise.LM_SITES] + [
         ("flash_attention", "flash_attention")]
 
     def entries():
@@ -687,47 +814,10 @@ def main() -> int:
     del finals, fo, go, fused_ops, grad, lap, phi, final, f2, g2
     torch.cuda.empty_cache()
 
-    # gemma2-2b served at full width, through the kernels (counted), again
-    # through the plain path and once more through the kernels, warm (timed)
+    # gemma2-2b, then falcon-mamba-7b, served at full width
     cfg = configs.get_config("gemma2-2b")
-    t0 = time.perf_counter()
-    mparams = model_params.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
-    served = serve_run(mparams, cfg, "cuda", prompts, drive=drive)
-    plain_served = serve_run(mparams, cfg, "torch", prompts, drive=drive)
-    warm = serve_run(mparams, cfg, "cuda", prompts)
-    serving = compare_serving(served, plain_served, problems)
-    serving["params"] = cfg.num_params()
-    serving["init_params_s"] = init_s
-    for name, run in (("kernels_first_run", served), ("kernels_warm", warm),
-                      ("plain", plain_served)):
-        serving[name] = {
-            "prefill_ms": run["prefill_ms"],
-            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / run["prefill_ms"] * 1e3,
-            "decode_ms_per_step": run["decode_ms_per_step"],
-            "decode_tokens_per_s": SERVE_BATCH / run["decode_ms_per_step"] * 1e3}
-    if warm["tokens"] and not all(torch.equal(a, b) for a, b in
-                                  zip(warm["tokens"], served["tokens"])):
-        problems.append("serving: the warm run's tokens differ from the first")
-    n_layers = cfg.n_layers
-    expected = {"serve prefill (cuda)": {("flash_attention", "flash_attention"): n_layers,
-                                      ("tdp_gathered", "rmsnorm"): 2 * n_layers + 1,
-                                      ("tdp_gathered", "gated"): n_layers},
-            f"serve decode x{SERVE_DECODE} (cuda)": {
-                ("tdp_gathered", "rmsnorm"): (2 * n_layers + 1) * SERVE_DECODE,
-                ("tdp_gathered", "gated"): n_layers * SERVE_DECODE},
-            "serve prefill (torch)": {},
-            f"serve decode x{SERVE_DECODE} (torch)": {}}
-    for path, counts in expected.items():
-        if by_path.get(path) != counts:
-            problems.append(f"{path}: launches {by_path.get(path)}, "
-                            f"expected {counts}")
-    del mparams, served, plain_served, warm
-    torch.cuda.empty_cache()
+    record["serving"] = {"gemma2-2b": serve_model("gemma2-2b", SERVE_PROMPT,
+                                                  drive, problems)}
     h = torch.randn(SERVE_BATCH * SERVE_PROMPT, cfg.d_ff, device=dev)
     act_out = drive("ops.gated_act ungated gelu",
                     lambda: ops.gated_act(h, None, kind="gelu"))
@@ -735,9 +825,31 @@ def main() -> int:
         problems.append("ops.gated_act ungated: kernel and plain disagree")
     del h, act_out
     torch.cuda.empty_cache()
-    record["serving"] = serving
-    print(json.dumps({"serving": {k: v for k, v in serving.items()
-                                  if k != "steps"}}), flush=True)
+    mcfg = configs.get_config("falcon-mamba-7b")
+    record["serving"]["falcon-mamba-7b"] = serve_model(
+        "falcon-mamba-7b", MAMBA_PROMPT, drive, problems)
+    g_layers, m_layers = cfg.n_layers, mcfg.n_layers
+    decode = f"decode x{SERVE_DECODE}"
+    expected = {
+        f"{cfg.name} prefill (cuda)": {
+            ("flash_attention", "flash_attention"): g_layers,
+            ("tdp_gathered", "rmsnorm"): 2 * g_layers + 1,
+            ("tdp_gathered", "gated"): g_layers},
+        f"{cfg.name} {decode} (cuda)": {
+            ("tdp_gathered", "rmsnorm"): (2 * g_layers + 1) * SERVE_DECODE,
+            ("tdp_gathered", "gated"): g_layers * SERVE_DECODE},
+        f"{mcfg.name} prefill (cuda)": {
+            ("tdp_gathered", "mamba"): SERVE_BATCH * m_layers,
+            ("tdp_gathered", "rmsnorm"): m_layers + 1},
+        f"{mcfg.name} {decode} (cuda)": {
+            ("tdp_gathered", "rmsnorm"): (m_layers + 1) * SERVE_DECODE}}
+    for name in (cfg.name, mcfg.name):
+        expected[f"{name} prefill (torch)"] = {}
+        expected[f"{name} {decode} (torch)"] = {}
+    for path, counts in expected.items():
+        if by_path.get(path) != counts:
+            problems.append(f"{path}: launches {by_path.get(path)}, "
+                            f"expected {counts}")
 
     launches = {e: sum(p.get(e, 0) for p in by_path.values())
                 for e in all_entries}
@@ -875,6 +987,45 @@ def main() -> int:
             max_err_key="flash_attention"))
         torch.cuda.empty_cache()
     del q, k, v
+
+    # the mamba site function at falcon-mamba-7b's full-width prefill shape:
+    # one launch = one batch row
+    length, nstate = MAMBA_PROMPT, mcfg.ssm.d_state
+    n = mcfg.ssm.expand * mcfg.d_model
+    xs = [torch.randn(length, n, device=dev, generator=g),
+          torch.nn.functional.softplus(torch.randn(length, n, device=dev,
+                                                   generator=g)),
+          -torch.exp(torch.randn(nstate, n, device=dev, generator=g)),
+          torch.ones(1, n, device=dev)]
+    consts = {"b": torch.randn(length, nstate, device=dev, generator=g),
+              "c": torch.randn(length, nstate, device=dev, generator=g)}
+    plan = launch_plan(lm.mamba_scan_spec(length, nstate), Target("cuda", vvl=1),
+                       consts=consts)
+    # x, dt read and y written per (step, channel); a, d, b, c read and h
+    # written once.  L·n·N exponentials on the SFUs, 6 float32 operations per
+    # (step, channel, state) and 3 per (step, channel) on the CUDA cores.
+    nbytes = 4 * (3 * length * n + 2 * nstate * n + n + 2 * length * nstate)
+    bounds = [(nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+              (length * n * nstate / PEAK_SFU_PER_S * 1e3, "operations"),
+              ((6 * nstate + 3) * length * n / PEAK_F32_PER_S * 1e3,
+               "operations")]
+    rows.append(lm_row(
+        "tdp_gathered.mamba", KERNELS["tdp_gathered.mamba"],
+        ("tdp_gathered", "mamba"),
+        lambda: tdp_pointwise.cuda_execute(plan, xs),
+        lambda: torch_executor(plan, xs), None, max(bounds),
+        launches, launches_by_path, max_err, problems, record,
+        plain_reps=MAMBA_PLAIN_REPS, plain_wall=True))
+    # every VVL, timed only (phase 3 held each to the plain version)
+    ms_by_vvl = {}
+    for vvl in (1, 2, 4, 8):
+        p = launch_plan(lm.mamba_scan_spec(length, nstate),
+                        Target("cuda", vvl=vvl), consts=consts)
+        ms_by_vvl[vvl] = time_ms(lambda p=p: tdp_pointwise.cuda_execute(p, xs))
+    rows[-1]["ms_by_vvl"] = ms_by_vvl
+    log(f"phase 5: tdp_gathered.mamba ms by VVL {rows[-1]['ms_by_vvl']}")
+    del xs, consts, plan
+    torch.cuda.empty_cache()
 
     mlups = {}
     for regime, sim in sims.items():

@@ -12,10 +12,11 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("gemma2_2b",)
+ARCHS = ("gemma2_2b", "falcon_mamba_7b")
 
 # brief ids ↔ module names
-ALIASES = {"gemma2-2b": "gemma2_2b"}
+ALIASES = {"gemma2-2b": "gemma2_2b",
+           "falcon-mamba-7b": "falcon_mamba_7b"}
 
 
 def _module(arch: str):

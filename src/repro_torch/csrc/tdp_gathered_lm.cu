@@ -2,7 +2,8 @@
 //
 // Replaces: the Pallas executor src/repro/kernels/tdp_pointwise.py:_run_pallas
 // running the LM site bodies of src/repro/kernels/lm.py (rmsnorm_site :54,
-// gated_site :89, act_site :95) — the sites kernel 2 runs on the serving path.
+// gated_site :89, act_site :95, mamba_site :120) — the sites kernel 2 runs
+// on the serving paths.
 //
 // Design: the thread mapping of tdp_gathered.cu (one thread per strip of VVL
 // consecutive sites, VVL in {1, 2, 4, 8} as a template parameter, the ragged
@@ -15,6 +16,15 @@
 // token's x twice (sum of squares, then scale), and the second read hits L2
 // only while a warp's 32 tokens x d_model floats stay resident there.  gated
 // moves 12 bytes per element (u, v read, out written), act 8.
+//
+// mamba (entry tdp_gathered_mamba_launch, one launch per batch row): x and dt
+// read once and y written once, 12 bytes per (step, channel); L·n·N
+// exponentials on the SFU.  At falcon-mamba-7b's full width (L 4096, n 8192,
+// N 16) that is 403 MB (0.120 ms at 3.35 TB/s) and 5.4e8 exp.  But the
+// recurrence is sequential in L and parallel only over the n = 8192
+// channels: at VVL 1, 64 blocks of 128 threads on 132 SMs, each thread
+// walking a 4096-step chain, so the simple design is latency-bound.  b[t] and
+// c[t] are warp-uniform loads that L1 serves as broadcasts.
 #include <cuda_runtime.h>
 
 #include "lm_sites.cuh"
@@ -28,6 +38,23 @@ __global__ void __launch_bounds__(kBlock)
     lm_kernel(const __grid_constant__ tdp::lm::LmIO io) {
   tdp::lm::lm_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
 }
+
+template <class Site, int VVL>
+__global__ void __launch_bounds__(kBlock)
+    mamba_kernel(const __grid_constant__ tdp::lm::MambaIO io) {
+  tdp::lm::mamba_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <class Site, int VVL>
+struct MambaLaunch {
+  static int run(const tdp::lm::MambaIO& io, void* stream) {
+    const int64_t threads = tdp::lm::lm_threads<VVL>(io);
+    if (threads == 0 || io.L == 0) return 0;
+    const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
+    mamba_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(io);
+    return (int)cudaGetLastError();
+  }
+};
 
 template <class Site, int VVL>
 struct Launch {
@@ -60,4 +87,28 @@ extern "C" int tdp_gathered_lm_launch(int site, int act, int vvl, const void* x,
   io.eps = eps;
   io.scale_offset = scale_offset;
   return tdp::lm::dispatch_site<Launch>(site, act, vvl, io, stream);
+}
+
+// The selective scan of one batch row.  x, dt, y: (L, n); a: (N, n); d: (1,
+// n); b, c: (L, N); h: (N, n) — device pointers, float32, contiguous.
+// Returns 0, a cudaError_t, tdp::ERR_BAD_VVL or tdp::lm::ERR_BAD_NSTATE (N
+// not in {8, 16}).
+extern "C" int tdp_gathered_mamba_launch(int nstate, int vvl, const void* x,
+                                         const void* dt, const void* a,
+                                         const void* d, const void* b,
+                                         const void* c, void* y, void* h,
+                                         long long L, long long n,
+                                         void* stream) {
+  tdp::lm::MambaIO io{};
+  io.x = static_cast<const float*>(x);
+  io.dt = static_cast<const float*>(dt);
+  io.a = static_cast<const float*>(a);
+  io.d = static_cast<const float*>(d);
+  io.b = static_cast<const float*>(b);
+  io.c = static_cast<const float*>(c);
+  io.y = static_cast<float*>(y);
+  io.h = static_cast<float*>(h);
+  io.L = L;
+  io.n = n;
+  return tdp::lm::dispatch_mamba<MambaLaunch>(nstate, vvl, io, stream);
 }

@@ -36,15 +36,21 @@ SITE_ID = {name: i for i, name in enumerate(SITES)}
 
 #: LM site functions (``csrc/lm_sites.cuh``) in the order of the C enum
 #: ``tdp::lm::SiteId``, and their activations in that of ``tdp::lm::ActId``.
+#: The ``mamba`` site function has an entry of its own
+#: (``tdp_gathered_mamba_launch``) and so no id.
 LM_SITES = ("rmsnorm", "gated", "act")
 LM_SITE_ID = {name: i for i, name in enumerate(LM_SITES)}
 LM_ACTS = ("silu", "gelu_tanh", "relu2")
 LM_ACT_ID = {name: i for i, name in enumerate(LM_ACTS)}
 
+#: The d_state values the ``mamba`` site function is instantiated for.
+MAMBA_NSTATES = (8, 16)
+
 #: ``ERR_*`` return codes of the C entries (cudaError_t values are >= 0).
 _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
            -3: "head_dim not instantiated (16, 32, 64, 128, 256)",
-           -4: "Hq is not a multiple of Hkv"}
+           -4: "Hq is not a multiple of Hkv",
+           -5: f"d_state not instantiated {MAMBA_NSTATES}"}
 
 
 def _nvcc() -> str:

@@ -1,4 +1,4 @@
-"""LM site functions on the targetDP core — rmsnorm and gated activations.
+"""LM site functions on the targetDP core — rmsnorm, gated activations, mamba.
 
 Port of ``repro/kernels/lm.py``: the "site" is whatever axis the op is
 independent over, so the same :class:`~repro_torch.core.KernelSpec` rides
@@ -10,11 +10,15 @@ every executor of the registry.
   a dynamic tensor const (a per-call operand, never a host copy).
 * **gated activations** — site = flattened element: ``(tokens, d_ff)``
   flattens to one 1-component field of ``tokens·d_ff`` sites.
+* **mamba selective scan** — site = channel (``d_inner``).  The scan is
+  sequential in time but independent per channel, so time lives on the
+  component axis (``(L, channels)`` fields) and the recurrence is a loop
+  inside the body; ``B``/``C`` have no channel axis and are dynamic tensor
+  consts.
 
 Each plain body names its CUDA site function in ``__cuda_site__``
 (``csrc/lm_sites.cuh``); the gated ones also name the activation in
-``__cuda_act__``.  The mamba scan (``mamba_scan_spec``) is not ported yet
-(ROADMAP, queue B, kernel 2a).
+``__cuda_act__``.
 
 Specs are built per shape signature and cached, so the launch-plan cache
 keys stay stable across calls.
@@ -86,3 +90,34 @@ def gated_act_spec(kind: str, gated: bool) -> KernelSpec:
 
     return KernelSpec(fn, fields=fields, out=(1,),
                       name=f"gated_{kind}{'' if gated else '_ungated'}")
+
+
+@functools.lru_cache(maxsize=None)
+def mamba_scan_spec(length: int, nstate: int) -> KernelSpec:
+    """Selective state-space scan, site = channel.
+
+    Fields ``x``/``dt`` ``(L, n)``, ``a`` ``(N, n)``, ``d`` ``(1, n)``;
+    ``b``/``c`` are ``(L, N)`` dynamic tensor consts.  Outputs ``y (L, n)``
+    and the final state ``h (N, n)``.  The plain body is a loop over time
+    in the reference's arithmetic order: ``h = h·exp(dt·a) + (dt·x)·b``,
+    ``y = Σ_k h·c + d·x``."""
+
+    def mamba_site(x, dt, a, d, *, b, c):
+        xf, dtf, af, df = (t.float() for t in (x, dt, a, d))
+        bf, cf = b.float(), c.float()
+        h = torch.zeros(nstate, xf.shape[-1], dtype=torch.float32,
+                        device=xf.device)
+        ys = []
+        for t in range(length):
+            decay = torch.exp(dtf[t][None, :] * af)                 # (N, n)
+            h = h * decay + (dtf[t] * xf[t])[None, :] * bf[t][:, None]
+            ys.append((h * cf[t][:, None]).sum(0) + df[0] * xf[t])
+        return torch.stack(ys).to(x.dtype), h
+
+    mamba_site.__cuda_site__ = "mamba"
+    return KernelSpec(
+        mamba_site,
+        fields=(FieldSpec(length, name="x"), FieldSpec(length, name="dt"),
+                FieldSpec(nstate, name="a"), FieldSpec(1, name="d")),
+        out=(length, nstate), consts=("b", "c"),
+        name=f"mamba_scan_L{length}_n{nstate}")

@@ -9,9 +9,9 @@ carries on quietly on the CPU.  The default target follows the device:
   on the card, ``"torch"`` (the plain oracle) on the CPU;
 * ``lb_fused_step`` — ``"cuda_windowed"`` on the card, ``"torch"`` on the
   CPU;
-* ``rmsnorm``, ``gated_act`` — ``"cuda"`` (the gathered executor running the
-  LM site functions of ``csrc/lm_sites.cuh``) on the card, ``"torch"`` on
-  the CPU, both through ``tdp.launch``;
+* ``rmsnorm``, ``gated_act``, ``mamba_scan`` — ``"cuda"`` (the gathered
+  executor running the LM site functions of ``csrc/lm_sites.cuh``) on the
+  card, ``"torch"`` on the CPU, both through ``tdp.launch``;
 * ``flash_attention`` — ``"cuda"`` (``csrc/flash_attention.cu``) on the card,
   ``"torch"`` (:func:`~repro_torch.kernels.ref.attention_ref`) on the CPU.
 
@@ -133,6 +133,36 @@ def gated_act(u, v=None, *, kind="swiglu", target=None, vvl=None,
     if v is not None:
         args += (torch.as_tensor(v, device=dev).reshape(1, -1),)
     return _tdp_launch(spec, t, *args).reshape(u.shape)
+
+
+def mamba_scan(x, dt, b, c, a, d, *, target=None, vvl=None, device=None):
+    """Selective state-space scan through ``tdp.launch`` — site = channel,
+    time on the component axis (:func:`repro_torch.kernels.lm.mamba_scan_spec`),
+    one launch per batch row as in the reference.
+
+    Shapes: ``x``/``dt`` ``(batch, L, d_inner)``, ``b``/``c``
+    ``(batch, L, N)``, ``a`` ``(d_inner, N)``, ``d`` ``(d_inner,)``.
+    Returns ``(y (batch, L, d_inner), h_final (batch, d_inner, N))``.
+    The ``"cuda"`` site function takes d_state 8 or 16 and raises
+    ``ValueError`` for any other."""
+    dev = resolve_device(device)
+    t = _lm_target(target, vvl, dev)
+    x, dt, b, c, a, d = (torch.as_tensor(v, device=dev)
+                         for v in (x, dt, b, c, a, d))
+    batch, length, d_inner = (int(s) for s in x.shape)
+    nstate = int(a.shape[-1])
+    spec = _lm.mamba_scan_spec(length, nstate)
+    a_soa = a.T.contiguous()                       # (N, d_inner)
+    d_soa = d.reshape(1, d_inner).contiguous()
+    ys, hs = [], []
+    for i in range(batch):
+        y_i, h_i = _tdp_launch(spec, t, x[i].contiguous(), dt[i].contiguous(),
+                               a_soa, d_soa,
+                               consts={"b": b[i].contiguous(),
+                                       "c": c[i].contiguous()})
+        ys.append(y_i)
+        hs.append(h_i.T)                           # (d_inner, N)
+    return torch.stack(ys), torch.stack(hs)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,

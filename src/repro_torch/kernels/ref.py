@@ -1,8 +1,7 @@
 """Plain PyTorch oracles for the kernels.
 
-The lattice-Boltzmann collision, RMSNorm, the gated activations and
-attention; the Mamba scan oracle waits for its kernel (ROADMAP, queue B,
-kernel 2a).
+The lattice-Boltzmann collision, RMSNorm, the gated activations,
+attention and the Mamba selective scan.
 """
 from __future__ import annotations
 
@@ -106,3 +105,24 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
     alive = mask.any(-1)[None, None, :, None]
     out = torch.einsum("bhqk,bhkd->bhqd", p, vr.float())
     return torch.where(alive, out, torch.zeros_like(out)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# mamba selective scan
+# ---------------------------------------------------------------------------
+
+def mamba_scan_ref(x, dt, b, c, a, d):
+    """Step-by-step oracle: ``x``/``dt`` ``(batch, L, d_inner)``, ``b``/``c``
+    ``(batch, L, N)``, ``a`` ``(d_inner, N)``, ``d`` ``(d_inner,)``.  Returns
+    ``(y (batch, L, d_inner), h_final (batch, d_inner, N))``; the state is
+    float32."""
+    batch, length, d_inner = x.shape
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b, c))
+    h = torch.zeros(batch, d_inner, a.shape[-1], dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(length):
+        decay = torch.exp(dtf[:, t, :, None] * a[None])   # (batch, d_inner, N)
+        h = h * decay + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append((h * cf[:, t, None, :]).sum(-1) + d[None] * xf[:, t])
+    return torch.stack(ys, 1).to(x.dtype), h

@@ -12,9 +12,12 @@ The site function is the one the spec's plain body names in its
 ``__cuda_site__`` attribute; a spec whose body has none raises
 ``NotImplementedError``.  The D3Q19 site functions (``csrc/lb_sites.cuh``)
 launch through ``csrc/tdp_gathered.cu``, the LM ones (``rmsnorm``, ``gated``,
-``act``; ``csrc/lm_sites.cuh``) through ``csrc/tdp_gathered_lm.cu``, which
-takes a runtime component count, a weight tensor and ``(eps,
-scale_offset)``.  Each site function checks its own fields and consts.  CUDA
+``act``, ``mamba``; ``csrc/lm_sites.cuh``) through
+``csrc/tdp_gathered_lm.cu``: ``rmsnorm``/``gated``/``act`` through one entry
+that takes a runtime component count, a weight tensor and ``(eps,
+scale_offset)``, ``mamba`` (the selective scan, site = channel) through one
+of its own that takes four fields, the ``(L, N)`` tensor consts ``b``/``c``
+and two outputs.  Each site function checks its own fields and consts.  CUDA
 tensors launch the kernel or raise; CPU tensors run the plain body through
 the ``"torch"`` executor.  :data:`launches` counts kernel launches per site
 function.
@@ -28,8 +31,12 @@ import torch
 from . import _build
 from .lb_collision import PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts, cuda_vvl
 
+#: The LM site functions: those of the shared LM entry, and the selective
+#: scan with its own.
+LM_SITES = _build.LM_SITES + ("mamba",)
+
 #: kernel launches of this executor, by site function
-launches = dict.fromkeys(_build.SITES + _build.LM_SITES, 0)
+launches = dict.fromkeys(_build.SITES + LM_SITES, 0)
 
 _POINT = None
 #: The field and output signature of each C site function
@@ -50,16 +57,46 @@ SITE_FIELDS = {
 def _lm_fields(site: str, plan):
     """The LM site functions' signatures: ``rmsnorm`` takes one pointwise
     field of any ncomp d and gives d components; ``gated`` takes two
-    1-component fields, ``act`` one, and both give one."""
+    1-component fields, ``act`` one, and both give one; ``mamba`` takes
+    ``x``/``dt`` of L components, ``a`` of N and ``d`` of 1, and gives
+    ``y`` (L) and ``h`` (N)."""
+    nc = plan.field_ncomp or ()
     if site == "rmsnorm":
-        d = plan.field_ncomp[0] if plan.field_ncomp else None
+        d = nc[0] if nc else None
         return ((d, None),), (d,)
+    if site == "mamba":
+        length, nstate = (nc[0], nc[2]) if len(nc) == 4 else (None, None)
+        return (((length, None),) * 2 + ((nstate, None), (1, None)),
+                (length, nstate))
     return ((1, None),) * (2 if site == "gated" else 1), (1,)
+
+
+def _check_mamba_consts(plan) -> None:
+    """``b``/``c`` are ``(L, N)`` tensors (dynamic consts, never hashed
+    through the host), and N is one the site function is instantiated
+    for."""
+    what = f"kernel {plan.name!r}"
+    length, nstate = plan.out_ncomp
+    if nstate not in _build.MAMBA_NSTATES:
+        raise ValueError(f"{what}: the CUDA site function 'mamba' is "
+                         f"instantiated for d_state in "
+                         f"{_build.MAMBA_NSTATES}, got {nstate}")
+    for k in ("b", "c"):
+        v = plan.consts.get(k)
+        if not isinstance(v, torch.Tensor):
+            raise ValueError(f"{what}: the CUDA site function 'mamba' needs "
+                             f"const {k!r} as a tensor, got "
+                             f"{type(v).__name__}")
+        if tuple(v.shape) != (length, nstate):
+            raise ValueError(f"{what}: const {k!r} has shape "
+                             f"{tuple(v.shape)}, expected {(length, nstate)}")
 
 
 def _check_lm_consts(site: str, plan) -> None:
     what = f"kernel {plan.name!r}"
-    if site == "rmsnorm":
+    if site == "mamba":
+        _check_mamba_consts(plan)
+    elif site == "rmsnorm":
         missing = {"weight", "eps", "scale_offset"} - set(plan.consts)
         if missing:
             raise ValueError(f"{what}: the CUDA site function 'rmsnorm' "
@@ -79,7 +116,7 @@ def cuda_site(plan) -> str:
         raise NotImplementedError(
             f"kernel {plan.name!r} has no CUDA site function (its body sets "
             f"no __cuda_site__); run it under Target('torch')")
-    if site in _build.LM_SITE_ID:
+    if site in LM_SITES:
         fields, out = _lm_fields(site, plan)
     else:
         fields, out = SITE_FIELDS[site]
@@ -90,7 +127,7 @@ def cuda_site(plan) -> str:
             f"kernel {plan.name!r}: fields {got} -> {tuple(plan.out_ncomp)} "
             f"do not match the CUDA site function {site!r} "
             f"({fields} -> {out})")
-    if site in _build.LM_SITE_ID:
+    if site in LM_SITES:
         _check_lm_consts(site, plan)
     else:
         check_d3q19_consts(plan.consts, f"kernel {plan.name!r}")
@@ -137,6 +174,38 @@ def _lm_lib():
     return fn
 
 
+def _mamba_lib():
+    fn = _build.load("tdp_gathered_lm").tdp_gathered_mamba_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _mamba_execute(plan, vvl, fields, out):
+    """Launch the selective scan on CUDA tensors: one batch row."""
+    x0 = fields[0]
+    length, nstate = plan.out_ncomp
+    n = int(x0.shape[-1])
+    b, c = plan.consts["b"], plan.consts["c"]
+    check_cuda_tensors([*fields, b, c],
+                       [(length, n), (length, n), (nstate, n), (1, n),
+                        (length, nstate), (length, nstate)],
+                       f"kernel {plan.name!r} (x, dt, a, d, b, c)")
+    outs = alloc_outputs(plan, x0, n, out)
+    check_cuda_tensors(outs, [(length, n), (nstate, n)],
+                       f"kernel {plan.name!r} (out)")
+    with torch.cuda.device(x0.device):
+        rc = _mamba_lib()(nstate, vvl, *[t.data_ptr() for t in fields],
+                          b.data_ptr(), c.data_ptr(), outs[0].data_ptr(),
+                          outs[1].data_ptr(), length, n,
+                          _build.stream_handle(x0.device))
+    _build.check(rc, "tdp_gathered_lm mamba")
+    launches["mamba"] += 1
+    return outs
+
+
 def _lm_execute(plan, site, vvl, fields, out):
     """Launch an LM site function on CUDA tensors."""
     x0 = fields[0]
@@ -181,6 +250,8 @@ def cuda_execute(plan, gathered, out=None):
     if x0.device.type != "cuda":
         raise ValueError(f"executor 'cuda' runs on CUDA or CPU tensors, got "
                          f"{x0.device}")
+    if site == "mamba":
+        return _mamba_execute(plan, vvl, gathered, out)
     if site in _build.LM_SITE_ID:
         return _lm_execute(plan, site, vvl, gathered, out)
     n = int(x0.shape[-1])

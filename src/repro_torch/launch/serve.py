@@ -1,8 +1,11 @@
-"""Serving launcher: batched prefill + greedy decode with a KV cache.
+"""Serving launcher: batched prefill + greedy decode with a KV cache (or,
+for falcon-mamba, the recurrent SSM state).
 
     python -m repro_torch.launch.serve --arch gemma2-2b --batch 2 \\
         --prompt-len 4608 --gen 16
-    python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --batch 2 \\
+        --prompt-len 4096 --gen 16
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke --device cpu
 
 Runs on the card (``--device cuda``, the default; it raises without one)
 through the hand-written kernels; ``--device cpu`` runs the plain PyTorch

@@ -1,29 +1,35 @@
 """Block-level forward: one dispatch for prefill and decode.
 
-Port of ``repro/models/blocks.py`` for the dense attention blocks: ``attn``
+Port of ``repro/models/blocks.py`` for the dense attention blocks, ``attn``
 (global causal attention + MLP) and ``local`` (sliding-window causal
-attention + MLP).  The presence of ``cache`` selects decode over
-full-sequence mode.  Every other block type (MoE, MLA, SSM, cross-attention,
-encoder, shared) raises ``NotImplementedError`` until its slice (ROADMAP,
-queue A).
+attention + MLP), and the ``mamba1`` block (norm, Mamba-1 mixer, residual;
+no MLP).  The presence of ``cache`` selects decode over full-sequence mode.
+Every other block type (MoE, MLA, Mamba-2, cross-attention, encoder,
+shared) raises ``NotImplementedError`` until its slice (ROADMAP, queue A).
 """
 from __future__ import annotations
 
-from . import attention, layers
+from . import attention, layers, ssm
 from .config import ModelConfig
 from .context import ExecContext
 
 
 def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
                 rope=None, cache=None, length=None):
-    """Apply one block; returns (x, cache) — the new cache ``{"k", "v"}``
-    (B, Hkv, S, dh) in full-sequence mode, the cache written in place in
-    decode mode."""
+    """Apply one block; returns (x, cache) — for attention the new cache
+    ``{"k", "v"}`` (B, Hkv, S, dh) in full-sequence mode, the cache written
+    in place in decode mode; for ``mamba1`` the new ``{"conv", "ssm"}``
+    state."""
+    if btype == "mamba1":
+        h = layers.norm(bp["norm1"], x, cfg, ctx)
+        out, new_cache = ssm.mamba1_mixer(bp["mixer"], h, cfg, ctx,
+                                          cache=cache, length=length)
+        return x + out, new_cache
     if btype not in ("attn", "local") or cfg.mla is not None:
         raise NotImplementedError(
             f"block type {btype!r}{' with MLA' if cfg.mla else ''} is not "
-            f"ported yet: only attn/local blocks with standard attention run "
-            f"(ROADMAP, queue A, LM stack)")
+            f"ported yet: only attn/local blocks with standard attention and "
+            f"mamba1 blocks run (ROADMAP, queue A, LM stack)")
     a = cfg.attn
     window = a.window if btype == "local" else 0
 

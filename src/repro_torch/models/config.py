@@ -19,9 +19,9 @@ Block types:
   ``xattn``        decoder block with self- + cross-attention (whisper)
   ``enc``          bidirectional encoder block (whisper encoder)
 
-Only ``attn`` and ``local`` blocks run in the port so far
-(:mod:`repro_torch.models.blocks`); the MLA, MoE, SSM and encoder configs
-are kept as dataclasses for the later slices (ROADMAP, queue A).
+Only ``attn``, ``local`` and ``mamba1`` blocks run in the port so far
+(:mod:`repro_torch.models.blocks`); the MLA, MoE, Mamba-2 and encoder
+configs are kept as dataclasses for the later slices (ROADMAP, queue A).
 """
 from __future__ import annotations
 
@@ -162,6 +162,15 @@ class ModelConfig:
     def active_params(self) -> int:
         from . import params as _p
         return _p.count_params(self, active_only=True)
+
+
+def ssm_dims(cfg: ModelConfig) -> tuple[SSMConfig, int, int]:
+    """``(ssm config, d_inner, dt_rank)``: the shapes a Mamba layer's
+    parameters, cache and mixer share."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    dt_rank = s.dt_rank or -(-cfg.d_model // 16)
+    return s, d_inner, dt_rank
 
 
 def repeat_program(pattern: tuple[str, ...], n_layers: int) -> tuple[str, ...]:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import blocks, layers
-from .config import ModelConfig
+from .config import ModelConfig, ssm_dims
 from .context import ExecContext
 
 
@@ -57,7 +57,9 @@ def _apply_stack(layer_params, program, x, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.float32, device="cuda", local_ring: bool = False):
-    """Zeroed per-layer caches ``[{"k", "v"}: (B, Hkv, S, dh)]``.
+    """Zeroed per-layer caches: ``{"k", "v"}: (B, Hkv, S, dh)`` for an
+    attention layer, ``{"conv": (B, d_conv-1, di), "ssm": (B, di, N)
+    float32}`` for a ``mamba1`` layer.
 
     ``local_ring``: sliding-window (``local``) layers allocate only
     ``window`` slots, written modulo the window at decode time (ring
@@ -65,6 +67,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     a = cfg.attn
     out = []
     for btype in cfg.layer_program:
+        if btype == "mamba1":
+            s, di, _ = ssm_dims(cfg)
+            out.append({"conv": torch.zeros((batch, s.d_conv - 1, di),
+                                            dtype=dtype, device=device),
+                        "ssm": torch.zeros((batch, di, s.d_state),
+                                           dtype=torch.float32,
+                                           device=device)})
+            continue
         blen = max_len
         if local_ring and btype == "local" and a.window > 0:
             blen = min(max_len, a.window)
@@ -75,9 +85,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def prefill(params, batch, cfg: ModelConfig, ctx: ExecContext):
-    """Full forward that also builds the KV cache.
+    """Full forward that also builds the caches (KV, or the SSM state).
 
-    Returns (last-token logits (B, 1, V), caches); the caches' sequence
+    Returns (last-token logits (B, 1, V), caches); the KV caches' sequence
     extent is the prompt length (pad them for a decode budget with
     :func:`repro_torch.runtime.steps._pad_caches`)."""
     seq_len = batch["tokens"].shape[1]

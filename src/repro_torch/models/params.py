@@ -7,11 +7,14 @@ The port's parameters are plain dictionaries::
                  "norm2": (d,), "mlp": {"w_up", "w_gate"?, "w_down"}}, ...]}
 
 one entry of ``"layers"`` per layer of ``cfg.layer_program``, with the leaf
-names and shapes of ``repro/models/params.py``.  The reference stacks each
-leaf per scan group (``groups[i][position]`` with a leading repeat axis);
-:func:`from_reference` unstacks that into the per-layer list.  Only
-``attn``/``local`` blocks with a dense MLP and tied or untied embeddings
-are supported; other block types raise ``NotImplementedError``.
+names and shapes of ``repro/models/params.py``; a ``mamba1`` layer is
+``{"norm1": (d,), "mixer": {"w_xm", "w_z", "conv_w", "conv_b", "w_x",
+"w_dt", "dt_bias", "a_log", "d_skip", "w_out"}}``.  The reference stacks
+each leaf per scan group (``groups[i][position]`` with a leading repeat
+axis); :func:`from_reference` unstacks that into the per-layer list.  Only
+``attn``/``local`` blocks with a dense MLP and ``mamba1`` blocks, with tied
+or untied embeddings, are supported; other block types raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,17 +23,18 @@ import math
 import numpy as np
 import torch
 
-from .config import ModelConfig, SSMConfig, plan_layer_groups
+from .config import ModelConfig, plan_layer_groups, ssm_dims
 
 #: block types whose parameters the port builds
-DENSE_BLOCKS = ("attn", "local")
+SUPPORTED_BLOCKS = ("attn", "local", "mamba1")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    other = sorted(set(cfg.layer_program) - set(DENSE_BLOCKS))
+    other = sorted(set(cfg.layer_program) - set(SUPPORTED_BLOCKS))
     if other or cfg.mla is not None or cfg.is_encdec or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: only attn/local blocks with a dense MLP are ported "
+            f"{cfg.name}: only attn/local blocks with a dense MLP and mamba1 "
+            f"blocks are ported "
             f"(found block types {other}, mla={cfg.mla is not None}, "
             f"encoder={cfg.is_encdec}, mtp_depth={cfg.mtp_depth}); the "
             f"rest waits for its slice (ROADMAP, queue A, LM stack)")
@@ -60,21 +64,46 @@ def _block_params(cfg: ModelConfig, gen, device) -> dict:
             "norm2": torch.zeros(d, device=device), "mlp": mlp}
 
 
+def _mamba1_params(cfg: ModelConfig, gen, device) -> dict:
+    """The Mamba-1 mixer: split (not fused) projections, ``dt_bias`` the
+    softplus-inverse of a log-uniform ``dt`` in [1e-3, 1e-1], ``a_log =
+    log(1..N)`` per channel, ``d_skip = 1``."""
+    s, di, dtr = ssm_dims(cfg)
+    d, n = cfg.d_model, s.d_state
+    u = torch.rand(di, generator=gen, device=device)
+    dt_init = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+    return {"w_xm": _dense(gen, (d, di), device),
+            "w_z": _dense(gen, (d, di), device),
+            "conv_w": _dense(gen, (s.d_conv, di), device, fan_in=s.d_conv),
+            "conv_b": torch.zeros(di, device=device),
+            "w_x": _dense(gen, (di, dtr + 2 * n), device),
+            "w_dt": _dense(gen, (dtr, di), device),
+            "dt_bias": torch.log(torch.expm1(dt_init)),
+            "a_log": torch.log(a).repeat(di, 1),
+            "d_skip": torch.ones(di, device=device),
+            "w_out": _dense(gen, (di, d), device)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random float32 parameters from ``generator`` (whose device must be
     ``device``): projections ~ N(0, 1/fan_in), the embedding ~ N(0, 0.02²),
-    norm weights 0 (the ``(1 + w)`` convention).  The same distributions
-    as the reference's ``init_params``; not the same numbers (a
-    ``torch.Generator`` is not a JAX key)."""
+    norm weights 0 (the ``(1 + w)`` convention), the Mamba-1 mixer as
+    :func:`_mamba1_params`.  The same distributions as the reference's
+    ``init_params``; not the same numbers (a ``torch.Generator`` is not a
+    JAX key)."""
     _check_supported(cfg)
     d = cfg.d_model
     params = {"embed": _dense(generator, (cfg.padded_vocab, d), device,
                               fan_in=1) * 0.02}
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense(generator, (d, cfg.padded_vocab), device)
-    params["layers"] = [_block_params(cfg, generator, device)
-                        for _ in cfg.layer_program]
+    params["layers"] = [
+        {"norm1": torch.zeros(d, device=device),
+         "mixer": _mamba1_params(cfg, generator, device)}
+        if btype == "mamba1" else _block_params(cfg, generator, device)
+        for btype in cfg.layer_program]
     params["final_norm"] = torch.zeros(d, device=device)
     return params
 
@@ -117,13 +146,6 @@ def from_reference(np_params: dict, cfg: ModelConfig, device="cpu") -> dict:
 # analytic parameter counts (a copy of the reference's, for every block type)
 # ---------------------------------------------------------------------------
 
-def _ssm_dims(cfg: ModelConfig):
-    s: SSMConfig = cfg.ssm
-    d_inner = s.expand * cfg.d_model
-    dt_rank = s.dt_rank or -(-cfg.d_model // 16)
-    return s, d_inner, dt_rank
-
-
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     d = cfg.d_model
     gated = cfg.act in ("swiglu", "geglu")
@@ -152,7 +174,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         return total
 
     def ssm_count(kind):
-        s, di, dtr = _ssm_dims(cfg)
+        s, di, dtr = ssm_dims(cfg)
         n, g = s.d_state, s.n_groups
         if kind == "mamba1":
             return (d * 2 * di + s.d_conv * di + di

@@ -2,8 +2,9 @@
 
 Port of the serving half of ``repro/runtime/steps.py``.  ``jax.random``
 keys become an explicit ``torch.Generator``; greedy sampling needs none.
-The caches are per-layer ``{"k", "v"}`` tensors; the decode step writes
-them in place and ``length`` is a Python int.
+The caches are per-layer dicts: ``{"k", "v"}`` for attention, which the
+decode step writes in place, or ``{"conv", "ssm"}`` for Mamba-1, which it
+replaces; ``length`` is a Python int.
 """
 from __future__ import annotations
 
@@ -32,11 +33,14 @@ def sample_logits(logits, generator: torch.Generator | None = None, *,
 
 
 def _pad_caches(caches, cfg: ModelConfig, max_len: int):
-    """Grow every cache's sequence extent to ``max_len`` (zero-filled)."""
-    def pad(t):
-        s = t.shape[2]
-        return t if s >= max_len else F.pad(t, (0, 0, 0, max_len - s))
-    return [{k: pad(v) for k, v in c.items()} for c in caches]
+    """Grow every sequence-extent leaf (``k``/``v``: (B, Hkv, S, dh)) to
+    ``max_len``, zero-filled; the fixed-size ``conv``/``ssm`` state stays
+    as it is."""
+    def pad(name, t):
+        if name not in ("k", "v") or t.shape[2] >= max_len:
+            return t
+        return F.pad(t, (0, 0, 0, max_len - t.shape[2]))
+    return [{k: pad(k, v) for k, v in c.items()} for c in caches]
 
 
 def build_serve_steps(cfg: ModelConfig, ctx: ExecContext, *, max_len: int,

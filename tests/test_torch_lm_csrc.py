@@ -1,11 +1,12 @@
 """The LM site functions and the attention row update, checked without a card.
 
-``csrc/lm_sites.cuh`` (rmsnorm, gated and act site functions with the
+``csrc/lm_sites.cuh`` (rmsnorm, gated, act and mamba site functions with the
 strip-of-VVL thread mapping) and ``csrc/flash_attention.cuh`` (the per-row
 online-softmax update and the dead-tile key range) are ``__host__
 __device__``, so the host C++ compiler builds them into a small library.
-Its ``host_lm`` entry has the signature of ``tdp_gathered_lm_launch`` and
-loops over the threads one by one; ``host_attention`` runs the kernel's
+Its ``host_lm`` and ``host_mamba`` entries have the signatures of
+``tdp_gathered_lm_launch`` and ``tdp_gathered_mamba_launch`` and loop over
+the threads one by one; ``host_attention`` runs the kernel's
 tile loop — query tiles of 32 rows, key tiles of 32 keys from
 ``key_range``, the lane reductions done in order — through the same row
 functions.  Both are held to the plain PyTorch twins at the tests' bar,
@@ -56,6 +57,35 @@ extern "C" int host_lm(int site, int act, int vvl, const void* x, const void* v,
   io.eps = eps;
   io.scale_offset = scale_offset;
   return tdp::lm::dispatch_site<LmLoop>(site, act, vvl, io, stream);
+}
+
+namespace {
+template <class Site, int VVL>
+struct MambaLoop {
+  static int run(const tdp::lm::MambaIO& io, void*) {
+    for (int64_t t = 0, nt = tdp::lm::lm_threads<VVL>(io); t < nt; ++t)
+      tdp::lm::mamba_thread<Site, VVL>(io, t);
+    return 0;
+  }
+};
+}  // namespace
+
+extern "C" int host_mamba(int nstate, int vvl, const void* x, const void* dt,
+                          const void* a, const void* d, const void* b,
+                          const void* c, void* y, void* h, long long L,
+                          long long n, void* stream) {
+  tdp::lm::MambaIO io{};
+  io.x = static_cast<const float*>(x);
+  io.dt = static_cast<const float*>(dt);
+  io.a = static_cast<const float*>(a);
+  io.d = static_cast<const float*>(d);
+  io.b = static_cast<const float*>(b);
+  io.c = static_cast<const float*>(c);
+  io.y = static_cast<float*>(y);
+  io.h = static_cast<float*>(h);
+  io.L = L;
+  io.n = n;
+  return tdp::lm::dispatch_mamba<MambaLoop>(nstate, vvl, io, stream);
 }
 
 extern "C" void host_attention(const float* q, const float* k, const float* v,
@@ -133,6 +163,9 @@ def host_lib(tmp_path_factory):
                            + [ctypes.c_longlong, ctypes.c_int]
                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     so.host_lm.restype = ctypes.c_int
+    so.host_mamba.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                              + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+    so.host_mamba.restype = ctypes.c_int
     so.host_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
     so.host_attention.restype = None
@@ -178,6 +211,48 @@ def test_gated_and_act_sites_match_plain(host_lib, kind, gated):
         assert _lm(host_lib, "gated" if gated else "act", act, vvl, u, v, None,
                    out) == 0
         torch.testing.assert_close(out, want, **TOL)
+
+
+def _mamba(so, nstate, vvl, fields, b, c, y, h):
+    x, dt, a, d = fields
+    length, n = x.shape
+    return so.host_mamba(nstate, vvl, *[t.data_ptr() for t in (x, dt, a, d, b,
+                                                                c, y, h)],
+                         length, n, None)
+
+
+@pytest.mark.parametrize("nstate", _build.MAMBA_NSTATES)
+def test_mamba_site_matches_plain(host_lib, nstate):
+    """``MambaSite<N>`` on the host at every VVL, 8·37 + 5 channels (ragged
+    for every VVL > 1) over 50 steps, against the plain body with the
+    reference test's inputs: dt = softplus(·), a = −exp(·)."""
+    length, n = 50, 8 * 37 + 5
+    x = _rand(7, (length, n))
+    dt = torch.nn.functional.softplus(_rand(8, (length, n)))
+    a = -torch.exp(_rand(9, (nstate, n)))
+    d = _rand(10, (1, n))
+    b, c = _rand(11, (length, nstate)), _rand(12, (length, nstate))
+    want_y, want_h = tlm.mamba_scan_spec(length, nstate).fn(x, dt, a, d, b=b,
+                                                             c=c)
+    for vvl in (1, 2, 4, 8):
+        y = torch.full((length, n), float("nan"))
+        h = torch.full((nstate, n), float("nan"))
+        assert _mamba(host_lib, nstate, vvl, (x, dt, a, d), b, c, y, h) == 0
+        torch.testing.assert_close(y, want_y, **TOL)
+        torch.testing.assert_close(h, want_h, **TOL)
+
+
+def test_bad_mamba_nstate_and_vvl_codes(host_lib):
+    f = [torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(4, 8),
+         torch.zeros(1, 8)]
+    bc = torch.zeros(4, 4)
+    out = [torch.zeros(4, 8), torch.zeros(4, 8)]
+    assert _mamba(host_lib, 4, 1, f, bc, bc, *out) == -5
+    f[2] = torch.zeros(8, 8)
+    bc = torch.zeros(4, 8)
+    out[1] = torch.zeros(8, 8)
+    assert _mamba(host_lib, 8, 3, f, bc, bc, *out) == -2
+    assert _mamba(host_lib, 8, 2, f, bc, bc, *out) == 0
 
 
 def test_bad_lm_site_act_and_vvl_codes(host_lib):
@@ -245,6 +320,9 @@ def test_error_codes_match_the_sources():
     lm = (_build.CSRC / "lm_sites.cuh").read_text()
     fa = (_build.CSRC / "flash_attention.cu").read_text()
     assert "ERR_BAD_SITE = -1" in lb and "ERR_BAD_VVL = -2" in lb
+    assert "ERR_BAD_NSTATE = -5" in lm
+    assert re.findall(r"case (\d+): return tdp::dispatch_vvl<Launch, "
+                      r"MambaSite<", lm) == [str(n) for n in _build.MAMBA_NSTATES]
     assert "ERR_BAD_HEAD_DIM = -3" in fa and "ERR_BAD_GROUP = -4" in fa
     assert re.findall(r"SITE_(\w+) = (\d+)", lm) == [
         (s.upper(), str(i)) for s, i in _build.LM_SITE_ID.items()]
@@ -253,6 +331,6 @@ def test_error_codes_match_the_sources():
     heads = re.findall(r"case (\d+): return launch<", fa)
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     assert tuple(int(h) for h in heads) == HEAD_DIMS
-    for code in (-3, -4):
+    for code in (-3, -4, -5):
         with pytest.raises(ValueError):
             _build.check(code, "x")

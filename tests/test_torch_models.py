@@ -210,12 +210,12 @@ def test_unported_blocks_and_features_raise():
     from repro_torch.models import blocks, layers
     cfg = TC.get_smoke("gemma2_2b")
     with pytest.raises(NotImplementedError, match="attn/local"):
-        blocks.apply_block("mamba1", {}, torch.zeros(1, 2, cfg.d_model),
+        blocks.apply_block("mamba2", {}, torch.zeros(1, 2, cfg.d_model),
                            cfg=cfg, ctx=ExecContext())
     with pytest.raises(NotImplementedError, match="M-RoPE"):
         layers.rope_tables(torch.zeros(1, 2), 16, 1e4, mrope_sections=(2, 3, 3))
-    hybrid = dataclasses.replace(cfg, layer_program=("attn", "mamba1") * 2,
-                                 ssm=SSMConfig())
+    hybrid = dataclasses.replace(cfg, layer_program=("attn", "mamba2") * 2,
+                                 ssm=SSMConfig(kind="mamba2"))
     with pytest.raises(NotImplementedError, match="only attn/local"):
         tparams.init_params(hybrid, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="local-layer theta"):
@@ -226,6 +226,6 @@ def test_unported_blocks_and_features_raise():
         layers.norm(torch.zeros(cfg.d_model), torch.zeros(1, cfg.d_model),
                     dataclasses.replace(cfg, norm="layernorm"), ExecContext())
     with pytest.raises(KeyError, match="not yet ported"):
-        TC.get_config("falcon-mamba-7b")
+        TC.get_config("zamba2-2.7b")
     with pytest.raises(ValueError, match="backend"):
         ExecContext(backend="xla")

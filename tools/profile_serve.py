@@ -1,17 +1,21 @@
-"""Where the time of serving gemma2-2b goes on the card.
+"""Where the time of serving an LM goes on the card.
 
-    python3 tools/profile_serve.py [--batch 2] [--prompt-len 4608] [--decode 16]
+    python3 tools/profile_serve.py [--arch gemma2-2b] [--batch 2] \
+        [--prompt-len 4608] [--decode 16]
+    python3 tools/profile_serve.py --arch falcon-mamba-7b   # prompt 4096
 
-Builds gemma2-2b at full width with seeded random float32 weights, serves
+Builds ``--arch`` (gemma2-2b by default, or falcon-mamba-7b) at full width
+with seeded random float32 weights, serves
 ``--batch`` random prompts once to warm up, then traces the prefill and the
 ``--decode`` greedy decode steps with ``torch.profiler`` (two traces).  For
 each it reports the host wall time (ending in ``torch.cuda.synchronize()``),
 the device time summed over kernels, the device's busy share of the wall
 time and of the traced span, and the device time per kernel name, split
-into the port's own CUDA kernels (``flash_fwd_kernel``, ``lm_kernel``) and
-PyTorch's (matrix products, copies, the plain decode attention).  Needs one
-CUDA card; prints the card's name and power limit first and writes the full
-table to ``chiprun_out/profile_serve.json``.
+into the port's own CUDA kernels (``flash_fwd_kernel``, ``lm_kernel``,
+``mamba_kernel``) and PyTorch's (matrix products, copies, the plain decode
+attention, the Mamba glue).  Needs one CUDA card; prints the card's name and
+power limit first and writes the full table to
+``chiprun_out/profile_serve_<arch>.json``.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_KERNELS = ("flash_fwd_kernel", "lm_kernel")
+PORT_KERNELS = ("flash_fwd_kernel", "lm_kernel", "mamba_kernel")
+#: the prompt length each arch is served at by default (chip_smoke.py's)
+DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096}
 
 
 def summarize(prof, wall_s: float, per: int) -> dict:
@@ -57,10 +63,13 @@ def summarize(prof, wall_s: float, per: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma2-2b", choices=sorted(DEFAULT_PROMPT))
     ap.add_argument("--batch", type=int, default=2)
-    ap.add_argument("--prompt-len", type=int, default=4608)
+    ap.add_argument("--prompt-len", type=int, default=None)
     ap.add_argument("--decode", type=int, default=16)
     args = ap.parse_args(argv)
+    if args.prompt_len is None:
+        args.prompt_len = DEFAULT_PROMPT[args.arch]
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device is available", file=sys.stderr)
         return 1
@@ -78,7 +87,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = configs.get_config("gemma2-2b")
+    cfg = configs.get_config(args.arch)
     params = model_params.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
@@ -111,7 +120,7 @@ def main(argv=None) -> int:
             _, t_dec = timed(lambda: decode_all(tok, caches, length))
     traced = {"prefill": (p_pre, t_pre), "decode": (p_dec, t_dec)}
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "batch": args.batch, "prompt_len": args.prompt_len,
+              "arch": args.arch, "batch": args.batch, "prompt_len": args.prompt_len,
               "decode_steps": args.decode,
               "prefill": summarize(*traced["prefill"], per=1),
               "decode_per_step": summarize(*traced["decode"], per=args.decode)}
@@ -122,7 +131,7 @@ def main(argv=None) -> int:
                                               if k != "by_kernel_ms"},
                           "top_kernels_ms": top}), flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "profile_serve.json").write_text(
+    (ROOT / "chiprun_out" / f"profile_serve_{args.arch}.json").write_text(
         json.dumps(result, indent=1))
     return 0
 
