@@ -20,7 +20,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    kinds) at VVL 1, 2, 4 and 8 at full width; the ``mamba`` site function
    (``ops.mamba_scan``) at VVL 1, 2, 4 and 8 on the reference tests'
    shapes, a ragged 1000 channels and falcon-mamba-7b's full-width prefill
-   shape (2, 4096, 8192, 16);
+   shape (2, 4096, 8192, 16); the calibration kernels (``calibrate.add``
+   exactly, ``calibrate.fma`` at ``FMA_RTOL``) on the reference's (16384,)
+   shape at k = 8, on a misaligned view and at the calibration sizes;
 4. main path — ``BinaryFluidSim`` 20 steps at 128³ in the unfused,
    ``one_launch`` and ``two_launch`` regimes from one spinodal state, then
    ``ops.lb_collision`` and ``ops.lb_fused_step`` (windowed and gathered)
@@ -29,8 +31,13 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    ``build_serve_steps`` on the kernels, and an ungated ``ops.gated_act``;
    then falcon-mamba-7b served at full width (64 Mamba-1 layers, seeded
    random weights, 29.1 GB, 2 prompts × 4096 tokens, 16 greedy decode
-   steps) the same way; each path with every launch counter set to 0 just
-   before it and read just after.  Checks NaN-free states, float64 mass conservation, pairwise
+   steps) the same way; the tuning path at full size: ``calibrate()`` on the
+   card, ``predict`` for every stage of the three LB regimes, ``autotune``
+   of the 128³ fused program (then again from its cache, with no
+   measurement), 20 ``one_launch`` steps under the tuned target against the
+   default target's, and ``autotune`` of rmsnorm at gemma2's prefill shape;
+   each path with every launch counter set to 0 just before it and read
+   just after.  Checks NaN-free states, float64 mass conservation, pairwise
    agreement of the regimes, a 16³ trajectory against the plain path on
    the CPU, a launch of every kernel × site function, the serving path's
    launch counts per prefill and per decode step, and the served logits
@@ -45,7 +52,8 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    host-bound Python loop over 4096 steps, is timed by wall clock over
    ``MAMBA_PLAIN_REPS`` calls, and the kernel also at VVL 2, 4 and 8);
    MLUPS per regime; prefill ms, decode ms per step and
-   tokens/s of both serving paths, on the kernels and on the plain path.
+   tokens/s of both serving paths, on the kernels and on the plain path;
+   the calibration kernels at the calibration sizes beside ``torch.add``.
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -105,6 +113,10 @@ KERNELS = {
                          replaces="src/repro/kernels/tdp_windowed.py:77"),
     "lb_collision": dict(source="src/repro_torch/csrc/lb_collision.cu",
                          replaces="src/repro/kernels/lb_collision.py:136"),
+    "calibrate.add": dict(source="src/repro_torch/csrc/calibrate.cu",
+                          replaces="src/repro/core/costmodel.py:190"),
+    "calibrate.fma": dict(source="src/repro_torch/csrc/calibrate.cu",
+                          replaces="src/repro/core/costmodel.py:202"),
 }
 STENCIL_SITES = ("stream", "grad6", "fused", "phi_stream", "fused_two")
 PARAMS = dict(A=0.125, B=0.125, kappa=0.02)
@@ -177,6 +189,9 @@ def ptxas_report(logs: dict) -> list[dict]:
                     dh = re.search(r"flash_fwd_kernelILi(\d+)E", name)
                     entry = {"lib": lib, "site": "flash_attention",
                              "head_dim": int(dh.group(1)) if dh else None}
+                elif lib == "calibrate":
+                    entry = {"lib": lib, "site": "add" if "stream_add" in name
+                             else "fma"}
                 elif lib == "tdp_gathered_lm":
                     m = re.search(r"lm\d+(\w+?)Site(?:ILi(\d+)EE)?ELi(\d+)E",
                                   name)
@@ -612,6 +627,257 @@ def lm_row(name, kernel_info, launch_key, kern, plain, lib, bound_ms_by,
             "library_ms": library_ms}
 
 
+def fma_chain_rounded(x, k: int):
+    """k rungs of fmaf with one rounding each: acc·v + v in float64 (exact
+    for v in [1/4, 1): a 48-bit product plus v spans at most 50 bits), then
+    rounded to float32."""
+    acc, v = x, x.double()
+    for _ in range(int(k)):
+        acc = (acc.double() * v + v).float()
+    return acc
+
+
+def calibrate_checks(problems: list, max_err: dict) -> None:
+    """Phase 3, calibration kernels: ``stream_add`` equal to ``x + y`` and
+    ``fma_chain`` within ``FMA_RTOL`` of its plain version, on the
+    reference's (16384,) shape at k = 8, on a misaligned view (the scalar
+    path) and at the calibration sizes.  At the calibration size the chain
+    also runs on v in [1 - 2⁻¹⁰, 1), where it has not converged by k = 1024:
+    there it must equal the k-rung fmaf chain bit for bit while one rung
+    fewer moves every element by more than ``FMA_RTOL``, so the profile's
+    2·k·n flops were all done."""
+    from repro_torch.core.costmodel import CUDA_SIZES
+    from repro_torch.kernels import calibrate as cal
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    err = 0.0
+    for n in (1 << 14, CUDA_SIZES["add_n"]):
+        x, y = (torch.empty(n, device=dev).uniform_(0.25, 0.75, generator=g)
+                for _ in range(2))
+        for a, b in ((x, y), (x[1:], y[1:])):
+            got = cal.stream_add(a, b)
+            torch.cuda.synchronize()
+            want = cal.stream_add_plain(a, b)
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                problems.append(f"calibrate.add n={a.numel()}: not equal to "
+                                f"x + y")
+        del x, y, got, want
+    max_err["calibrate.add"] = err
+    err = 0.0
+    for n, k in ((1 << 14, 8), (CUDA_SIZES["fma_n"], CUDA_SIZES["fma_k"])):
+        x = torch.empty(n, device=dev).uniform_(0.25, 0.75, generator=g)
+        got = cal.fma_chain(x, k)
+        torch.cuda.synchronize()
+        want = cal.fma_chain_plain(x, k)
+        err = max(err, float((got - want).abs().max()))
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got, want, rtol=cal.FMA_RTOL, atol=0)):
+            problems.append(f"calibrate.fma n={n} k={k}: max |kernel - plain|"
+                            f" = {err}")
+    n, k = CUDA_SIZES["fma_n"], CUDA_SIZES["fma_k"]
+    x = torch.empty(n, device=dev).uniform_(1 - 2.0 ** -10, 1.0, generator=g)
+    got = cal.fma_chain(x, k)
+    torch.cuda.synchronize()
+    fewer = fma_chain_rounded(x, k - 1)
+    want = (fewer.double() * x.double() + x.double()).float()  # rung k
+    step = float(((want - fewer).abs() / want.abs()).min())
+    if not torch.equal(got, want):
+        problems.append(f"calibrate.fma n={n} k={k} near 1: kernel differs "
+                        f"from the k-rung fmaf chain by "
+                        f"{float((got - want).abs().max())}")
+    if not step > cal.FMA_RTOL:
+        problems.append(f"calibrate.fma near 1: one rung fewer moves the "
+                        f"result by only {step} (relative)")
+    log(f"phase 3: calibrate.fma near 1 equals the {k}-rung chain; one rung "
+        f"fewer moves it by >= {step:.3g} (relative)")
+    del x, got, want, fewer
+    max_err["calibrate.fma"] = err
+    log(f"phase 3: calibration kernels max_abs_err add="
+        f"{max_err['calibrate.add']} fma={max_err['calibrate.fma']}")
+    torch.cuda.empty_cache()
+
+
+def tuning_path(drive, sims, st0, final_default, params, problems) -> dict:
+    """Phase 4, the tuning path at full size: calibrate the card, predict
+    every stage of the three LB regimes, tune the 128³ fused program (then
+    hit the cache with no measurement), step 20 ``one_launch`` steps under
+    the tuned target against the default target's, and tune rmsnorm at
+    gemma2's prefill shape.  Returns the record printed as ``{"tuning":
+    ...}``."""
+    import shutil
+    import tempfile
+    from repro_torch.core import Lattice, Target, autotune, costmodel, predict
+    from repro_torch.core.autotune import wall_clock_timer
+    from repro_torch.kernels import lm
+    from repro_torch.lb.sim import BinaryFluidSim
+    dev = torch.device("cuda")
+    prof = drive("costmodel.calibrate", costmodel.calibrate)
+    sheet = costmodel.MachineProfile.default(prof.device)
+    out = {"profile": prof.as_dict(), "data_sheet": sheet.as_dict(),
+           "hbm_bw_of_data_sheet": prof.hbm_bw / sheet.hbm_bw,
+           "peak_flops_of_data_sheet": prof.peak_flops / sheet.peak_flops}
+    log(f"phase 4: calibrated {prof.hbm_bw / 1e12:.3f} TB/s, "
+        f"{prof.peak_flops / 1e12:.2f} TFLOP/s")
+    out["predictions"] = {
+        f"fused={regime}/{name}": predict(exe, profile=prof).as_dict()
+        for regime, sim in sims.items() for name, exe in sim.programs.items()}
+
+    def reduce(rep):
+        return {"best": rep.best.label, "cache_hit": rep.cache_hit,
+                "default_median_s": rep.default_median_s,
+                "rank_correlation": rep.rank_correlation,
+                "candidates": [{"label": r.candidate.label,
+                                "median_s": r.median_s,
+                                "predicted_s": r.predicted_s,
+                                "predicted_vs_measured":
+                                    r.predicted_vs_measured}
+                               for r in rep.results],
+                "pruned": [{"label": lab, "reason": why}
+                           for lab, why in rep.pruned]}
+
+    calls = {"n": 0}
+
+    def counting_timer(tgt, run):
+        calls["n"] += 1
+        return wall_clock_timer(tgt, run)
+
+    fused = sims["one_launch"].programs["fused"]
+    state = {"f": st0.f, "g": st0.g}
+    cache = tempfile.mkdtemp(prefix="tuning-")
+    try:
+        def tune_fused():
+            return autotune(fused, example_state=state, top_k=3,
+                            measure_steps=1, reps=3, warmup=1,
+                            timer=counting_timer, profile=prof,
+                            cache_dir=cache)
+
+        tuned, rep = drive("autotune lb_fused_one 128^3", tune_fused)
+        measured = calls["n"]
+        tuned2, rep2 = drive("autotune lb_fused_one 128^3 (cache)", tune_fused)
+        if not rep2.cache_hit or calls["n"] != measured or tuned2 != tuned:
+            problems.append(f"autotune cache: hit={rep2.cache_hit}, timer "
+                            f"calls {measured} then {calls['n']}")
+        out["lb_fused_one"] = {**reduce(rep), "tuned_target": repr(tuned),
+                               "timer_calls": measured,
+                               "second_call": {"cache_hit": rep2.cache_hit,
+                                               "timer_calls": calls["n"]
+                                               - measured}}
+        # how many measured candidates step bit-identically to the base
+        ref = fused.run(state, 1)
+        same = []
+        for r in rep.results:
+            exe = fused.program.compile(r.candidate.target_from(fused.target),
+                                        grid_shape=GRID)
+            got = exe.run(state, 1)
+            same.append(all(torch.equal(got[k], ref[k]) for k in ref))
+        out["lb_fused_one"]["bit_identical_to_base"] = sum(same)
+        log(f"phase 4: tuned {tuned}; {sum(same)} of {len(same)} measured "
+            f"candidates bit-identical to the base")
+        del ref, got
+
+        if tuned.executor != fused.target.executor:
+            problems.append(f"tuned target {tuned} leaves the "
+                            f"{fused.target.executor!r} kernels")
+        sim_t = BinaryFluidSim(GRID, params, fused="one_launch", target=tuned)
+        st_t = drive("BinaryFluidSim one_launch tuned",
+                     lambda: sim_t.run(st0, STEPS))
+        obs_t, obs_d = (sim_t.observables(s) for s in (st_t, final_default))
+        err = max(float((getattr(st_t, k) - getattr(final_default, k))
+                        .abs().max()) for k in ("f", "g"))
+        out["tuned_vs_default_max_abs"] = err
+        if obs_t["nan"] or not all(
+                torch.allclose(getattr(st_t, k), getattr(final_default, k),
+                               rtol=2e-4, atol=2e-5) for k in ("f", "g")):
+            problems.append(f"tuned one_launch run differs from the default's "
+                            f"by {err}")
+        if not np.isclose(obs_t["mass"], obs_d["mass"], rtol=1e-5, atol=0):
+            problems.append(f"tuned run mass {obs_t['mass']} vs "
+                            f"{obs_d['mass']}")
+        # MLUPS in turns: default, tuned, tuned, default
+        nsites = int(np.prod(GRID))
+        mlups = {"default": [], "tuned": []}
+        for which in ("default", "tuned", "tuned", "default"):
+            sim = sims["one_launch"] if which == "default" else sim_t
+            sim.run(st0, 2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sim.run(st0, STEPS)
+            torch.cuda.synchronize()
+            mlups[which].append(nsites * STEPS / (time.perf_counter() - t) / 1e6)
+        out["mlups_one_launch"] = mlups
+        del st_t, sim_t
+
+        # rmsnorm over "cuda" x VVL at gemma2's prefill shape
+        d, ntok = 2304, SERVE_BATCH * SERVE_PROMPT
+        g = torch.Generator(device=dev).manual_seed(13)
+        x = torch.randn(d, ntok, device=dev, generator=g)
+        consts = {"weight": torch.randn(d, device=dev, generator=g),
+                  "eps": 1e-6, "scale_offset": 1.0}
+        rtuned, rrep = drive("autotune rmsnorm_d2304", lambda: autotune(
+            lm.rmsnorm_spec(d), Target("cuda", vvl=1), [x],
+            lattice=Lattice((ntok,)), consts=consts, executors=("cuda",),
+            measure_steps=10, reps=5, warmup=1, profile=prof,
+            cache_dir=cache))
+        out["rmsnorm_d2304"] = {**reduce(rrep), "tuned_target": repr(rtuned)}
+        del x
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def calibrate_rows(launches, launches_by_path, max_err, problems) -> list:
+    """Phase 5, calibration kernels at the calibration sizes: held to their
+    plain versions (and ``torch.add`` to the add's), then timed beside
+    both and the bound."""
+    from repro_torch.core.costmodel import CUDA_SIZES
+    from repro_torch.kernels import calibrate as cal
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    n, nf, k = CUDA_SIZES["add_n"], CUDA_SIZES["fma_n"], CUDA_SIZES["fma_k"]
+    x, y = (torch.empty(n, device=dev).uniform_(0.25, 0.75, generator=g)
+            for _ in range(2))
+    v = torch.empty(nf, device=dev).uniform_(0.25, 0.75, generator=g)
+    rows = []
+    for name, kern, plain, lib, nbytes, flops, plain_reps in (
+            ("calibrate.add", lambda: cal.stream_add(x, y),
+             lambda: cal.stream_add_plain(x, y), lambda: torch.add(x, y),
+             12 * n, n, 20),
+            ("calibrate.fma", lambda: cal.fma_chain(v, k),
+             lambda: cal.fma_chain_plain(v, k), None, 8 * nf, 2 * k * nf, 5)):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = (torch.equal(got, want) if name == "calibrate.add" else
+              torch.allclose(got, want, rtol=cal.FMA_RTOL, atol=0))
+        if not ok:
+            problems.append(f"{name} calibration size: max |kernel - plain| "
+                            f"= {err}")
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        if lib is not None and not torch.equal(lib(), want):
+            problems.append(f"library call for {name} differs from plain")
+        del got, want
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=plain_reps, warmup=1)
+        library_ms = time_ms(lib) if lib is not None else None
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_PER_S * 1e3
+        b_ms, b_by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+        key = ("calibrate", name.split(".")[1])
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": launches[key],
+                     "launches_by_path": launches_by_path[key],
+                     "max_abs_err": max_err[name], "ms": ms,
+                     "plain_ms": plain_ms, "plain_reps": plain_reps,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms})
+        log(f"phase 5: {name} ms={ms:.4f} plain={plain_ms:.4f} "
+            f"library={library_ms} bound={b_ms:.4f} err={err}")
+    del x, y, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -620,7 +886,8 @@ def main() -> int:
     from repro_torch.core import Lattice, Target, gather_neighbors, halo_extend
     from repro_torch.core.api import launch_plan, torch_executor
     from repro_torch import configs
-    from repro_torch.kernels import _build, flash_attention, lb_collision, lm
+    from repro_torch.kernels import _build, calibrate, flash_attention
+    from repro_torch.kernels import lb_collision, lm
     from repro_torch.kernels import ops, ref, tdp_pointwise, tdp_windowed
     from repro_torch.lb import programs, stencil
     from repro_torch.lb.params import LBParams
@@ -655,9 +922,11 @@ def main() -> int:
     counters = {"tdp_gathered": tdp_pointwise.launches,
                 "tdp_windowed": tdp_windowed.launches,
                 "lb_collision": lb_collision.launches,
-                "flash_attention": flash_attention.launches}
+                "flash_attention": flash_attention.launches,
+                "calibrate": calibrate.launches}
     lm_entries = [("tdp_gathered", s) for s in tdp_pointwise.LM_SITES] + [
         ("flash_attention", "flash_attention")]
+    cal_entries = [("calibrate", "add"), ("calibrate", "fma")]
 
     def entries():
         for site in _build.SITES:
@@ -729,6 +998,7 @@ def main() -> int:
         log(f"phase 3: {kernel}.{site} max_abs_err={err}")
     torch.cuda.empty_cache()
     lm_checks(problems, max_err)
+    calibrate_checks(problems, max_err)
 
     # -- 4. main path at 128^3 -----------------------------------------------
     params = LBParams(**PARAMS)
@@ -737,7 +1007,7 @@ def main() -> int:
     st0 = sims[False].init_spinodal(seed=0, noise=0.05)
     obs0 = sims[False].observables(st0)
     by_path: dict = {}
-    all_entries = list(entries()) + lm_entries
+    all_entries = list(entries()) + lm_entries + cal_entries
 
     def drive(path, fn):
         """Run one path of the main path with every launch counter set to
@@ -811,7 +1081,12 @@ def main() -> int:
                    for a, b in zip(*outs)):
             problems.append(f"16^3 regime {regime}: card vs CPU plain path "
                             f"differ by {err}")
-    del finals, fo, go, fused_ops, grad, lap, phi, final, f2, g2
+    del fo, go, fused_ops, grad, lap, phi, final, f2, g2
+    torch.cuda.empty_cache()
+    record["tuning"] = tuning_path(drive, sims, st0, finals["one_launch"],
+                                   params, problems)
+    print(json.dumps({"tuning": record["tuning"]}, default=str), flush=True)
+    del finals
     torch.cuda.empty_cache()
 
     # gemma2-2b, then falcon-mamba-7b, served at full width
@@ -842,10 +1117,17 @@ def main() -> int:
             ("tdp_gathered", "mamba"): SERVE_BATCH * m_layers,
             ("tdp_gathered", "rmsnorm"): m_layers + 1},
         f"{mcfg.name} {decode} (cuda)": {
-            ("tdp_gathered", "rmsnorm"): (m_layers + 1) * SERVE_DECODE}}
+            ("tdp_gathered", "rmsnorm"): (m_layers + 1) * SERVE_DECODE},
+        # calibrate(reps=5): one warm-up and five timed launches of each
+        "costmodel.calibrate": {("calibrate", "add"): 6,
+                                ("calibrate", "fma"): 6}}
     for name in (cfg.name, mcfg.name):
         expected[f"{name} prefill (torch)"] = {}
         expected[f"{name} {decode} (torch)"] = {}
+    expected["autotune lb_fused_one 128^3 (cache)"] = {}
+    # the tuned run launches the default run's kernels, at its own VVL
+    expected["BinaryFluidSim one_launch tuned"] = by_path.get(
+        "BinaryFluidSim fused=one_launch")
     for path, counts in expected.items():
         if by_path.get(path) != counts:
             problems.append(f"{path}: launches {by_path.get(path)}, "
@@ -1026,6 +1308,7 @@ def main() -> int:
     log(f"phase 5: tdp_gathered.mamba ms by VVL {rows[-1]['ms_by_vvl']}")
     del xs, consts, plan
     torch.cuda.empty_cache()
+    rows += calibrate_rows(launches, launches_by_path, max_err, problems)
 
     mlups = {}
     for regime, sim in sims.items():

@@ -1,5 +1,6 @@
-"""The targetDP core on PyTorch: descriptors, the launch path, executors and
-step graphs (single device)."""
+"""The targetDP core on PyTorch: descriptors, the launch path, executors,
+step graphs (single device) and the tuning layer."""
+from . import costmodel
 from .api import (
     LaunchPlan,
     gather_neighbors,
@@ -8,6 +9,8 @@ from .api import (
     launch_plan,
     pad_sites,
 )
+from .autotune import Candidate, TuneReport, autotune, default_space
+from .costmodel import CostEstimate, MachineProfile, machine_profile, predict
 from .lattice import (
     D3Q19_VELOCITIES,
     STENCIL_D3Q19_PULL,
@@ -27,7 +30,9 @@ from .program import (
     stage,
 )
 from .registry import (
+    compatible_executors,
     executor_tunables,
+    executor_vvls,
     executor_wants,
     register_executor,
     registry_version,
@@ -38,12 +43,15 @@ from .state import validate_field
 from .target import Target, as_target, default_vvl
 
 __all__ = [
-    "CompiledProgram", "D3Q19_VELOCITIES", "FieldSpec", "KernelSpec",
-    "LaunchPlan", "Lattice", "Program", "ProgramPlan", "STENCIL_D3Q19_PULL",
-    "STENCIL_GRAD_19PT", "STENCIL_GRAD_6PT", "Stage", "Stencil", "Target",
-    "TargetConst", "as_target", "default_vvl", "executor_tunables",
-    "executor_wants", "field", "gather_neighbors", "halo_extend", "kernel",
-    "launch", "launch_plan", "pad_sites", "program", "register_executor",
-    "registry_version", "resolve_stage_target", "stage", "unregister_executor",
-    "validate_field",
+    "Candidate", "CompiledProgram", "CostEstimate", "D3Q19_VELOCITIES",
+    "FieldSpec", "KernelSpec", "LaunchPlan", "Lattice", "MachineProfile",
+    "Program", "ProgramPlan", "STENCIL_D3Q19_PULL", "STENCIL_GRAD_19PT",
+    "STENCIL_GRAD_6PT", "Stage", "Stencil", "Target", "TargetConst",
+    "TuneReport", "as_target", "autotune", "compatible_executors",
+    "costmodel", "default_space", "default_vvl", "executor_tunables",
+    "executor_vvls", "executor_wants", "field", "gather_neighbors",
+    "halo_extend", "kernel", "launch", "launch_plan", "machine_profile",
+    "pad_sites", "predict", "program", "register_executor",
+    "registry_version", "resolve_stage_target", "stage",
+    "unregister_executor", "validate_field",
 ]

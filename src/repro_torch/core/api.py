@@ -47,7 +47,7 @@ from .registry import (
     registry_version,
 )
 from .spec import KernelSpec
-from .target import Target, as_target
+from .target import CUDA_VVLS, Target, as_target
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +590,6 @@ def _cuda_windowed_executor(plan: LaunchPlan, extended, out=None):
 
 
 register_executor("torch", torch_executor)
-register_executor("cuda", _cuda_executor)
+register_executor("cuda", _cuda_executor, vvls=CUDA_VVLS)
 register_executor("cuda_windowed", _cuda_windowed_executor,
-                  wants="halo_extended")
+                  wants="halo_extended", vvls=CUDA_VVLS)

@@ -421,6 +421,14 @@ class Program:
                 f"queue A, 'Decompositions')")
         return CompiledProgram(self, target, grid_shape)
 
+    def autotune(self, target: Target | str | None,
+                 example_state: Mapping[str, torch.Tensor], **kw):
+        """Tune the executor, VVL and ``Target.tuning`` for this program —
+        the front end of :func:`repro_torch.core.autotune.autotune` (which
+        see for the keywords).  Returns ``(tuned_target, report)``."""
+        from .autotune import autotune as _autotune
+        return _autotune(self, target, example_state, **kw)
+
     def plan(self, target: Target | str | None = None, *,
              grid_shape: Sequence[int]) -> "ProgramPlan":
         """Aggregate the per-launch memory models across the step without

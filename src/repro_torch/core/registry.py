@@ -49,12 +49,14 @@ EXECUTOR_WANTS = ("gathered", "halo_extended")
 
 class ExecutorEntry(NamedTuple):
     """One registry row: the executor callable plus its declared input
-    capability (see ``EXECUTOR_WANTS``) and the ``Target.tuning`` keys it
-    consults (``tunables`` — the sweep surface)."""
+    capability (see ``EXECUTOR_WANTS``), the ``Target.tuning`` keys it
+    consults (``tunables`` — the sweep surface) and the VVLs it launches
+    with (``vvls``; ``None``: any positive VVL)."""
 
     fn: Callable
     wants: str
     tunables: tuple[str, ...] = ()
+    vvls: tuple[int, ...] | None = None
 
 
 _EXECUTORS: dict[str, ExecutorEntry] = {}
@@ -63,7 +65,8 @@ _VERSION = 0
 
 def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
                       wants: str = "gathered",
-                      tunables: tuple[str, ...] = ()) -> None:
+                      tunables: tuple[str, ...] = (),
+                      vvls: tuple[int, ...] | None = None) -> None:
     """Register ``fn`` as the executor behind ``Target(backend=name)``.
 
     ``wants`` declares the input capability: ``"gathered"`` (default)
@@ -73,6 +76,9 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
 
     ``tunables`` declares the ``Target.tuning`` keys the executor actually
     consults — the surface a sweep or tuner builds candidate spaces from.
+    ``vvls`` lists the VVLs the executor's kernels are built for (the
+    autotuner's VVL axis; the first is what ``vvl=None`` resolves to);
+    ``None`` means any positive VVL.
 
     Raises ``ValueError`` on duplicate names unless ``overwrite=True``.
     """
@@ -86,11 +92,13 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
         raise ValueError(f"executor capability must be one of "
                          f"{EXECUTOR_WANTS}, got {wants!r}")
     tunables = tuple(str(t) for t in tunables)
+    if vvls is not None:
+        vvls = tuple(int(v) for v in vvls)
     if name in _EXECUTORS and not overwrite:
         raise ValueError(
             f"executor {name!r} is already registered; pass overwrite=True "
             f"to replace it")
-    _EXECUTORS[name] = ExecutorEntry(fn, wants, tunables)
+    _EXECUTORS[name] = ExecutorEntry(fn, wants, tunables, vvls)
     _VERSION += 1
 
 
@@ -121,6 +129,24 @@ def executor_wants(name: str) -> str:
 def executor_tunables(name: str) -> tuple[str, ...]:
     """The ``Target.tuning`` keys a registered executor consults."""
     return get_executor_entry(name).tunables
+
+
+def executor_vvls(name: str) -> tuple[int, ...] | None:
+    """The VVLs a registered executor launches with (``None``: any)."""
+    return get_executor_entry(name).vvls
+
+
+def compatible_executors(*, stencil: bool) -> tuple[str, ...]:
+    """Registered executor names able to run a launch of the given shape.
+
+    A stencil-carrying spec can run on every capability (the prologue
+    adapts: gather vs halo-extend); a pure pointwise spec has nothing to
+    window, so ``wants="halo_extended"`` executors are excluded — the same
+    rule :func:`repro_torch.core.api.launch` enforces at dispatch.  This is
+    the executor axis of the autotuner's candidate space."""
+    return tuple(sorted(
+        name for name, entry in _EXECUTORS.items()
+        if stencil or entry.wants != "halo_extended"))
 
 
 def registry_version() -> int:

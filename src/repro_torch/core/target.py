@@ -20,6 +20,10 @@ from typing import Any, Mapping
 #: one site per thread is the coalesced mapping on the card.
 _DEFAULT_VVL = 128
 
+#: Sites per thread the CUDA kernels are instantiated for; ``None`` resolves
+#: to the first.
+CUDA_VVLS = (1, 2, 4, 8)
+
 
 def default_vvl() -> int:
     return _DEFAULT_VVL
@@ -85,6 +89,15 @@ class Target:
         """The VVL this target launches with (explicit value, else the
         process default)."""
         return self.vvl if self.vvl is not None else _DEFAULT_VVL
+
+    def with_tuning(self, updates: Mapping[str, Any] | None = None,
+                    **kw) -> "Target":
+        """Merge knobs into ``tuning``, keeping the unrelated ones (unlike
+        ``with_(tuning=...)``, which replaces the whole mapping)."""
+        merged = dict(self.tuning)
+        merged.update(updates or {})
+        merged.update(kw)
+        return self.with_(tuning=merged)
 
     def with_(self, **updates) -> "Target":
         """Functional update (``dataclasses.replace`` with dict-friendly

@@ -28,6 +28,8 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core.target import CUDA_VVLS
+
 from . import _build
 
 # index 0: rest; 1..6: axis vectors; 7..18: face diagonals.
@@ -117,9 +119,9 @@ def check_d3q19_consts(consts: dict, what: str) -> None:
 
 def cuda_vvl(vvl: int | None) -> int:
     """The sites per thread of a CUDA launch: ``None`` → 1."""
-    vvl = 1 if vvl is None else int(vvl)
-    if vvl not in (1, 2, 4, 8):
-        raise ValueError(f"the CUDA kernels take vvl in (1, 2, 4, 8), got {vvl}")
+    vvl = CUDA_VVLS[0] if vvl is None else int(vvl)
+    if vvl not in CUDA_VVLS:
+        raise ValueError(f"the CUDA kernels take vvl in {CUDA_VVLS}, got {vvl}")
     return vvl
 
 

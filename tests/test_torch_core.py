@@ -194,7 +194,8 @@ class TestImportHygiene:
                 "repro_torch.kernels.flash_attention, "
                 "repro_torch.models.lm, repro_torch.models.params, "
                 "repro_torch.runtime.steps, repro_torch.launch.serve, "
-                "repro_torch.configs.gemma2_2b; "
+                "repro_torch.configs.gemma2_2b, repro_torch.core.autotune, "
+                "repro_torch.core.costmodel, repro_torch.kernels.calibrate; "
                 "assert 'jax' not in sys.modules, 'jax imported'; "
                 "assert 'repro' not in sys.modules, 'repro imported'")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
