@@ -16,8 +16,11 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    ``tests/test_kernels.py``): ``flash_attention`` on the reference tests'
    shapes, the smoke shape (Dh 16), a ragged Sq = Sk = 1000, rows with no
    live key and the full-width gemma2 prefill shapes (``local`` and
-   ``attn``); ``rmsnorm`` and the ``gated``/``act`` site functions (all five
-   kinds) at VVL 1, 2, 4 and 8 at full width; the ``mamba`` site function
+   ``attn``); ``rmsnorm`` at VVL 1, 2, 4 and 8 at gemma2's and
+   falcon-mamba-7b's prefill and decode shapes and a ragged (37, 64), the
+   ``gated``/``act`` site functions (all five kinds) at VVL 1, 2, 4 and 8
+   at full width and on operands at a storage offset of one element (the
+   unaligned path, a ragged extent); the ``mamba`` site function
    (``ops.mamba_scan``) at VVL 1, 2, 4 and 8 on the reference tests'
    shapes, a ragged 1000 channels and falcon-mamba-7b's full-width prefill
    shape (2, 4096, 8192, 16); the calibration kernels (``calibrate.add``
@@ -50,7 +53,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    (``library_call``, ``lm_library_call``), that call, itself held to the
    plain version first (the ``mamba`` site function's plain version, a
    host-bound Python loop over 4096 steps, is timed by wall clock over
-   ``MAMBA_PLAIN_REPS`` calls, and the kernel also at VVL 2, 4 and 8);
+   ``MAMBA_PLAIN_REPS`` calls); ``rmsnorm`` also at the decode shapes
+   (2304, 2), (4096, 2) and falcon-mamba-7b's prefill (4096, 8192); the
+   ``rmsnorm``, ``gated``, ``act`` and ``mamba`` kernels also at VVL 2, 4
+   and 8 (``ms_by_vvl``);
    MLUPS per regime; prefill ms, decode ms per step and
    tokens/s of both serving paths, on the kernels and on the plain path;
    the calibration kernels at the calibration sizes beside ``torch.add``.
@@ -147,6 +153,12 @@ MAMBA_PROMPT = 4096
 #: full-width falcon-mamba-7b prefill.
 MAMBA_CASES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 77, 1000, 16),
                (SERVE_BATCH, MAMBA_PROMPT, 8192, 16)]
+#: rmsnorm checks, (tokens, d): gemma2-2b's prefill and decode, a ragged
+#: small case, falcon-mamba-7b's decode and prefill.
+RMS_CHECKS = [(SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64),
+              (SERVE_BATCH, 4096), (SERVE_BATCH * MAMBA_PROMPT, 4096)]
+#: Elements of the unaligned gated/act check: not a multiple of 4.
+UNALIGNED_N = 1_000_003
 #: Calls the mamba site function's plain version (a Python loop over 4096
 #: steps) is timed over, by wall clock; the kernel over 20 launches.
 MAMBA_PLAIN_REPS = 3
@@ -196,6 +208,11 @@ def ptxas_report(logs: dict) -> list[dict]:
                     m = re.search(r"lm\d+(\w+?)Site(?:ILi(\d+)EE)?ELi(\d+)E",
                                   name)
                     entry = {"lib": lib}
+                    # rmsnorm has two mappings: tiled (per VVL) and few-token
+                    if "rms_few" in name:
+                        entry.update({"site": "rmsnorm", "mapping": "few"})
+                    elif "rms_tiled" in name:
+                        entry["mapping"] = "tiled"
                     if m:
                         site = m.group(1).lower()
                         # the template argument is the activation, or the
@@ -370,7 +387,7 @@ def lm_library_call(name: str, xs, consts):
     view of the kernel's (d, tokens) input, with the weight ``w + offset``
     formed once outside the timed call."""
     import torch.nn.functional as F
-    if name == "tdp_gathered.rmsnorm":
+    if name.startswith("tdp_gathered.rmsnorm"):
         x = xs[0]
         w1 = consts["weight"] + consts["scale_offset"]
         return ((lambda: F.rms_norm(x.T, (x.shape[0],), weight=w1,
@@ -406,7 +423,7 @@ def lm_checks(problems: list, max_err: dict) -> None:
     max_err["flash_attention"] = err
     torch.cuda.empty_cache()
 
-    for n, d in ((SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64)):
+    for n, d in RMS_CHECKS:
         x = torch.randn(n, d, device=dev, generator=g)
         w = torch.randn(d, device=dev, generator=g)
         want = ref.rmsnorm_ref(x, w, scale_offset=1.0)
@@ -433,8 +450,28 @@ def lm_checks(problems: list, max_err: dict) -> None:
                     problems.append(f"{name} {kind} vvl={vvl}: {e}")
                 del got
             del want
-    log(f"phase 3: LM site functions max_abs_err={max_err}")
     del u, v
+    # operands at a storage offset of one element (only 4-byte aligned) and
+    # a ragged extent: the scalar path of the elementwise kernel
+    n = UNALIGNED_N
+    ub, vb = (torch.randn(n + 1, device=dev, generator=g) for _ in range(2))
+    u, v = ub[1:].mul_(3.0), vb[1:]
+    if u.data_ptr() % 16 == 0 or v.data_ptr() % 16 == 0:
+        problems.append("the unaligned gated/act case is aligned")
+    for kind in ("swiglu", "silu", "geglu", "gelu", "relu2"):
+        for gated in (True, False):
+            name = "tdp_gathered.gated" if gated else "tdp_gathered.act"
+            want = ref.gated_act_ref(u, v if gated else None, kind=kind)
+            for vvl in (1, 2, 4, 8):
+                got = ops.gated_act(u, v if gated else None, kind=kind, vvl=vvl)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                max_err[name] = max(max_err.get(name, 0.0), e)
+                if not torch.allclose(got, want, **LM_TOL):
+                    problems.append(f"{name} {kind} unaligned n={n} "
+                                    f"vvl={vvl}: {e}")
+    log(f"phase 3: LM site functions max_abs_err={max_err}")
+    del u, v, ub, vb
     torch.cuda.empty_cache()
 
     err = 0.0
@@ -977,6 +1014,15 @@ def main() -> int:
         return (tdp_pointwise.cuda_execute(plan, prepared),
                 torch_executor(plan, prepared))
 
+    def ms_by_vvl(spec, xs, consts):
+        """The gathered LM kernel's time at every VVL, on the same inputs
+        (phase 3 held each VVL to the plain version)."""
+        out = {}
+        for vvl in (1, 2, 4, 8):
+            p = launch_plan(spec, Target("cuda", vvl=vvl), consts=consts)
+            out[vvl] = time_ms(lambda p=p: tdp_pointwise.cuda_execute(p, xs))
+        return out
+
     # -- 3. kernels against plain versions ----------------------------------
     shape64 = (64, 64, 64)
     max_err: dict = {}
@@ -1219,30 +1265,48 @@ def main() -> int:
         prepared = None
         torch.cuda.empty_cache()
 
-    # LM kernels at the full-width shapes of the serving path
+    # LM kernels at the full-width shapes of the serving path: rmsnorm at
+    # both models' prefill and decode shapes (one row each), gated and act
+    # over gemma2's MLP activations
     g = torch.Generator(device=dev).manual_seed(12)
     ntok, d, nff = SERVE_BATCH * SERVE_PROMPT, cfg.d_model, cfg.d_ff
-    for name, spec, xs, consts, nbytes, flops in (
-            ("tdp_gathered.rmsnorm", lm.rmsnorm_spec(d),
-             [torch.randn(d, ntok, device=dev, generator=g)],
-             {"weight": torch.randn(d, device=dev, generator=g), "eps": 1e-6,
-              "scale_offset": 1.0}, 8 * d * ntok + 4 * d, 5 * d * ntok),
-            ("tdp_gathered.gated", lm.gated_act_spec("geglu", True),
+
+    def rms_case(suffix, d, ntok):
+        name = "tdp_gathered.rmsnorm" + suffix
+        return (name, "tdp_gathered.rmsnorm", lm.rmsnorm_spec(d),
+                [torch.randn(d, ntok, device=dev, generator=g)],
+                {"weight": torch.randn(d, device=dev, generator=g),
+                 "eps": 1e-6, "scale_offset": 1.0},
+                8 * d * ntok + 4 * d, 5 * d * ntok)
+
+    md = mcfg.d_model
+    for name, kernel, spec, xs, consts, nbytes, flops in (
+            rms_case("", d, ntok),
+            rms_case(".decode_d2304", d, SERVE_BATCH),
+            rms_case(".decode_d4096", md, SERVE_BATCH),
+            rms_case(".prefill_d4096", md, SERVE_BATCH * MAMBA_PROMPT),
+            ("tdp_gathered.gated", "tdp_gathered.gated",
+             lm.gated_act_spec("geglu", True),
              [3.0 * torch.randn(1, ntok * nff, device=dev, generator=g),
               torch.randn(1, ntok * nff, device=dev, generator=g)], {},
              12 * ntok * nff, 10 * ntok * nff),
-            ("tdp_gathered.act", lm.gated_act_spec("gelu", False),
+            ("tdp_gathered.act", "tdp_gathered.act",
+             lm.gated_act_spec("gelu", False),
              [3.0 * torch.randn(1, ntok * nff, device=dev, generator=g)], {},
              8 * ntok * nff, 9 * ntok * nff)):
         plan = launch_plan(spec, Target("cuda", vvl=1), consts=consts)
         t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_PER_S * 1e3
         rows.append(lm_row(
-            name, KERNELS[name], ("tdp_gathered", name.split(".")[1]),
+            name, KERNELS[kernel], ("tdp_gathered", kernel.split(".")[1]),
             lambda plan=plan, xs=xs: tdp_pointwise.cuda_execute(plan, xs),
             lambda plan=plan, xs=xs: torch_executor(plan, xs),
             lm_library_call(name, xs, consts),
             (t_b, "bytes") if t_b >= t_o else (t_o, "operations"),
-            launches, launches_by_path, max_err, problems, record))
+            launches, launches_by_path, max_err, problems, record,
+            max_err_key=kernel))
+        rows[-1]["shape"] = list(xs[0].shape)
+        rows[-1]["ms_by_vvl"] = ms_by_vvl(spec, xs, consts)
+        log(f"phase 5: {name} ms by VVL {rows[-1]['ms_by_vvl']}")
         del xs
         torch.cuda.empty_cache()
     a = cfg.attn
@@ -1298,13 +1362,8 @@ def main() -> int:
         lambda: torch_executor(plan, xs), None, max(bounds),
         launches, launches_by_path, max_err, problems, record,
         plain_reps=MAMBA_PLAIN_REPS, plain_wall=True))
-    # every VVL, timed only (phase 3 held each to the plain version)
-    ms_by_vvl = {}
-    for vvl in (1, 2, 4, 8):
-        p = launch_plan(lm.mamba_scan_spec(length, nstate),
-                        Target("cuda", vvl=vvl), consts=consts)
-        ms_by_vvl[vvl] = time_ms(lambda p=p: tdp_pointwise.cuda_execute(p, xs))
-    rows[-1]["ms_by_vvl"] = ms_by_vvl
+    rows[-1]["ms_by_vvl"] = ms_by_vvl(lm.mamba_scan_spec(length, nstate), xs,
+                                      consts)
     log(f"phase 5: tdp_gathered.mamba ms by VVL {rows[-1]['ms_by_vvl']}")
     del xs, consts, plan
     torch.cuda.empty_cache()

@@ -385,7 +385,7 @@ def cache_key(program_or_spec, target: Target, grid: tuple[int, ...],
               device=None) -> str:
     """``<name>-<subject digest>-g<grid>-<base executor>-<device kind>``,
     filesystem-safe; ``device`` is the torch device measured on (``None``:
-    the card when present).  The tuning values searched are not in the
+    the card, ``RuntimeError`` where none is present).  The tuning values searched are not in the
     key: the key names the question, the file holds the answer."""
     name, digest = _subject_digest(program_or_spec)
     grid_s = "x".join(str(int(s)) for s in grid)

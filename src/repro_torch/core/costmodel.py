@@ -107,7 +107,9 @@ class MachineProfile:
 
     @classmethod
     def default(cls, device: str | None = None) -> "MachineProfile":
-        """The table profile for ``device`` (the current device if None)."""
+        """The table profile for ``device``, a device kind such as
+        ``"cpu:cpu"`` (``None``: the card's, ``RuntimeError`` where none
+        is present)."""
         dev = device if device is not None else _device_kind()
         return cls(device=dev, source="default",
                    **_DEFAULT_RATES[_rates_row(dev)])
@@ -129,14 +131,16 @@ class MachineProfile:
 
 
 def _torch_device(device=None) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The rule of :func:`repro_torch.kernels.ops.resolve_device`: ``None``
+    is the card, and a card asked for where none is present raises
+    ``RuntimeError``."""
+    from repro_torch.kernels.ops import resolve_device   # kernels imports core
+    return resolve_device(device)
 
 
 def _device_kind(device=None) -> str:
     """``"cuda:<name>"`` for a card, ``"<type>:<type>"`` otherwise; ``None``
-    is the card when one is present, else the CPU."""
+    is the card (``RuntimeError`` where none is present)."""
     dev = _torch_device(device)
     if dev.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(dev)}"
@@ -214,11 +218,10 @@ def calibrate(device=None, *, reps: int = 5) -> MachineProfile:
     plain versions by wall clock.  Shared memory and link rates keep their
     table values.
 
-    ``device=None`` is the card; with no card present it returns the table
-    profile of the CPU.  A build or launch failure raises."""
-    if device is None and not torch.cuda.is_available():
-        return MachineProfile.default(_device_kind("cpu"))
-    dev = _torch_device(device if device is not None else "cuda")
+    ``device=None`` is the card; with no card present it raises
+    ``RuntimeError`` (pass ``device="cpu"`` for the CPU).  A build or
+    launch failure raises."""
+    dev = _torch_device(device)
     base = MachineProfile.default(_device_kind(dev))
     return dataclasses.replace(base, source="calibrated",
                                **_measure_rates(dev, max(1, int(reps))))
@@ -282,9 +285,9 @@ def machine_profile(device=None, *, cache_dir: str = DEFAULT_CACHE_DIR,
                     store: bool = False) -> MachineProfile:
     """In-process memo → on-disk cache → :func:`calibrate` → table.
 
-    ``device`` is a torch device (``None``: the card when present, else the
-    CPU, whose plain versions are then timed).  ``store=True`` persists a
-    freshly calibrated profile."""
+    ``device`` is a torch device (``None``: the card, ``RuntimeError``
+    where none is present; ``"cpu"`` times the CPU's plain versions).
+    ``store=True`` persists a freshly calibrated profile."""
     kind = _device_kind(device)
     memo_key = (kind, cache_dir)
     prof = _PROFILE_MEMO.get(memo_key) or load_profile(cache_dir, kind)
@@ -536,8 +539,8 @@ def predict(subject, target=None, profile: MachineProfile | None = None, *,
         :class:`~repro_torch.core.program.CompiledProgram` (its own plan).
       target: the target to plan a bare ``Program`` under.
       profile: the :class:`MachineProfile`; ``None`` is
-        :func:`machine_profile` of the current device.  A profile with
-        ``interpret=True`` raises ``ValueError``.
+        :func:`machine_profile` of the card (``RuntimeError`` where none is
+        present).  A profile with ``interpret=True`` raises ``ValueError``.
       grid_shape: required for a bare ``Program``.
       source: ``"analytic"`` (plan memory models and traced FLOPs).
         ``"hlo"`` raises ``NotImplementedError``: it walks XLA's compiled

@@ -5,17 +5,29 @@
 // gated_site :89, act_site :95, mamba_site :120) — the sites kernel 2 runs
 // on the serving paths.
 //
-// Design: the thread mapping of tdp_gathered.cu (one thread per strip of VVL
-// consecutive sites, VVL in {1, 2, 4, 8} as a template parameter, the ragged
-// last strip masked, no shared memory), with an entry of its own because the
-// LM sites take what the LB entry cannot: a runtime component count (d_model),
-// a weight pointer and (eps, scale_offset) instead of six LB physics floats.
+// One entry, tdp_gathered_lm_launch, takes what the LB entry cannot: a
+// runtime component count (d_model), a weight pointer and (eps,
+// scale_offset).  Behind it, three kernels (mappings in lm_sites.cuh):
 //
-// Bound on the H100 (3.35 TB/s): device-memory bytes.  rmsnorm moves 8 bytes
-// per element at best (x read once, y written once); this kernel reads each
-// token's x twice (sum of squares, then scale), and the second read hits L2
-// only while a warp's 32 tokens x d_model floats stay resident there.  gated
-// moves 12 bytes per element (u, v read, out written), act 8.
+// ew_kernel (gated, act): bound by bytes on the H100 (3.35 TB/s): gated
+// moves 12 bytes per element (u, v read, out written), act 8; gelu's tanhf
+// is ~30 float32 operations, under a tenth of the time the bytes take.  A
+// grid that covers the work, 16-byte loads and stores where u, v and out
+// are aligned (scalars in the same thread otherwise), 32-bit offsets in a
+// block: the mapping of calibrate.cu's stream_add, which reached 3.07 TB/s.
+// One scalar per thread over 64-bit indices ran act at 0.405 ms for 84.9 M
+// elements, twice its bound.
+//
+// rms_tiled_kernel (rmsnorm, n >= 32 tokens): bound by bytes, 8 per element
+// (x read once, y written once).  A block of 16 warps covers 32·VVL tokens:
+// coalesced rows, the d components split over the warps, the sum of squares
+// combined in shared memory, then a second read of x to scale it, which
+// comes from L2 while the block's tile (32·VVL·d·4 bytes: 295 KB at VVL 1
+// and d 2304) stays resident.  rms_few_kernel (rmsnorm, n < 32 tokens,
+// decode): one block of up to 1024 threads sweeps the whole (d, n) array
+// and meets in a shared-memory tree; at 2 tokens the work is 16–32 KB, so
+// launch latency bounds it.  One thread per token ran 115–206 µs per decode
+// launch.
 //
 // mamba (entry tdp_gathered_mamba_launch, one launch per batch row): x and dt
 // read once and y written once, 12 bytes per (step, channel); L·n·N
@@ -27,16 +39,44 @@
 // c[t] are warp-uniform loads that L1 serves as broadcasts.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "lm_sites.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
+using tdp::lm::LmIO;
+
+constexpr int kBlock = 128;  // mamba
 
 template <class Site, int VVL>
-__global__ void __launch_bounds__(kBlock)
-    lm_kernel(const __grid_constant__ tdp::lm::LmIO io) {
-  tdp::lm::lm_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+__global__ void __launch_bounds__(tdp::lm::EW_BLOCK)
+    ew_kernel(const __grid_constant__ LmIO io) {
+  tdp::lm::ew_thread<Site, VVL>(io, blockIdx.x, threadIdx.x);
+}
+
+template <class Site, int VVL>
+__global__ void __launch_bounds__(tdp::lm::RMS_THREADS)
+    rms_tiled_kernel(const __grid_constant__ LmIO io) {
+  __shared__ float red[tdp::lm::RMS_WARPS * 32 * VVL];
+  __shared__ float inv[32 * VVL];
+  tdp::lm::rms_tiled_partial<VVL>(io, blockIdx.x, threadIdx.x, red);
+  __syncthreads();
+  tdp::lm::rms_tiled_combine<VVL>(io, threadIdx.x, red, inv);
+  __syncthreads();
+  tdp::lm::rms_tiled_scale<VVL>(io, blockIdx.x, threadIdx.x, inv);
+}
+
+__global__ void __launch_bounds__(tdp::lm::RMS_FEW_THREADS)
+    rms_few_kernel(const __grid_constant__ LmIO io, int group) {
+  __shared__ float red[tdp::lm::RMS_FEW_THREADS];
+  tdp::lm::rms_few_partial(io, group, threadIdx.x, red);
+  __syncthreads();
+  for (int h = group / 2; h > 0; h >>= 1) {
+    tdp::lm::rms_few_tree(io, h, threadIdx.x, red);
+    __syncthreads();
+  }
+  tdp::lm::rms_few_scale(io, group, threadIdx.x, red);
 }
 
 template <class Site, int VVL>
@@ -56,13 +96,26 @@ struct MambaLaunch {
   }
 };
 
+// rmsnorm: the few-token or the tiled kernel, chosen by n; gated and act:
+// the elementwise kernel.
 template <class Site, int VVL>
 struct Launch {
-  static int run(const tdp::lm::LmIO& io, void* stream) {
-    const int64_t threads = tdp::lm::lm_threads<VVL>(io);
-    if (threads == 0) return 0;
-    const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
-    lm_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(io);
+  static int run(const LmIO& io, void* stream) {
+    if (io.n <= 0) return 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if constexpr (std::is_same<Site, tdp::lm::RmsnormSite>::value) {
+      if (io.n < tdp::lm::RMS_FEW) {
+        const int group = tdp::lm::rms_few_group(io.n);
+        rms_few_kernel<<<1, (unsigned)(io.n * group), 0, s>>>(io, group);
+      } else {
+        rms_tiled_kernel<Site, VVL>
+            <<<(unsigned)tdp::lm::rms_tiled_blocks<VVL>(io.n), tdp::lm::RMS_THREADS,
+               0, s>>>(io);
+      }
+    } else {
+      ew_kernel<Site, VVL>
+          <<<(unsigned)tdp::lm::ew_blocks<VVL>(io.n), tdp::lm::EW_BLOCK, 0, s>>>(io);
+    }
     return (int)cudaGetLastError();
   }
 };

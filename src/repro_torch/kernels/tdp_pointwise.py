@@ -17,7 +17,11 @@ launch through ``csrc/tdp_gathered.cu``, the LM ones (``rmsnorm``, ``gated``,
 that takes a runtime component count, a weight tensor and ``(eps,
 scale_offset)``, ``mamba`` (the selective scan, site = channel) through one
 of its own that takes four fields, the ``(L, N)`` tensor consts ``b``/``c``
-and two outputs.  Each site function checks its own fields and consts.  CUDA
+and two outputs.  ``gated``/``act`` map ``Target.vvl`` 16-byte groups to a
+thread (scalars where an operand is not 16-byte aligned, as a view at a
+storage offset may be); ``rmsnorm`` maps it to the tokens of a lane, a
+block of warps sharing each token's components (one block sweeping the
+array below 32 tokens).  Each site function checks its own fields and consts.  CUDA
 tensors launch the kernel or raise; CPU tensors run the plain body through
 the ``"torch"`` executor.  :data:`launches` counts kernel launches per site
 function.

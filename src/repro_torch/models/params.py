@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import resolve_device
+
 from .config import ModelConfig, plan_layer_groups, ssm_dims
 
 #: block types whose parameters the port builds
@@ -117,14 +119,17 @@ def _to_torch(tree, device, index=None):
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
-def from_reference(np_params: dict, cfg: ModelConfig, device="cpu") -> dict:
+def from_reference(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     """The port's parameters from the JAX package's ``init_params`` pytree
-    (leaves as numpy arrays or anything ``np.asarray`` takes).
+    (leaves as numpy arrays or anything ``np.asarray`` takes), on
+    ``device`` (``None``: the card, ``RuntimeError`` where none is
+    present).
 
     The reference stores each scan group ``(unit, k)`` of
     :func:`plan_layer_groups` as ``groups[g][j]`` with every leaf stacked
     to a leading extent ``k``: layer ``offset + r·len(unit) + j`` is
     repeat ``r`` of unit position ``j``."""
+    device = resolve_device(device)
     _check_supported(cfg)
     out = {"embed": _to_torch(np_params["embed"], device)}
     if "lm_head" in np_params:

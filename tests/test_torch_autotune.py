@@ -283,6 +283,13 @@ class TestCache:
         assert k == cache_key(fused_prog(), BASE, (8, 8, 8), "cpu")
         assert k.endswith("-torch-cpu:cpu")
 
+    def test_cache_key_without_a_device_is_the_card(self, monkeypatch):
+        """``device=None`` names the card, and raises where none is
+        present instead of keying the CPU."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cache_key(fused_prog(), BASE, (8, 8, 8))
+
     def test_corrupt_cache_entry_is_a_miss(self, tmp_path):
         _, rep = tune(tmp_path)
         path = tmp_path / f"{rep.cache_key}.json"

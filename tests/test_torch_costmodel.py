@@ -435,8 +435,24 @@ class TestMachineProfile:
         assert prof.peak_flops > 0 and prof.hbm_bw > 0
         assert prof.vmem_bytes == tcm.MachineProfile.default("cpu:cpu").vmem_bytes
 
-    def test_calibrate_without_a_card_is_the_table(self):
-        if torch.cuda.is_available():
-            pytest.skip("a card is present: calibrate() measures it")
-        prof = tcm.calibrate()
-        assert prof == tcm.MachineProfile.default("cpu:cpu")
+    def test_calibrate_without_a_card_raises(self, monkeypatch):
+        """``device=None`` is the card; with none present ``calibrate``
+        raises instead of measuring the CPU."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcm.calibrate()
+
+    @pytest.mark.parametrize("entry", ["machine_profile", "default",
+                                       "predict"])
+    def test_no_device_means_the_card(self, monkeypatch, tmp_path, entry):
+        """``machine_profile()``, ``MachineProfile.default()`` and
+        ``predict`` without a profile resolve ``None`` to the card, and
+        raise where none is present."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        plan = TPROGS["one_launch"].plan("torch", grid_shape=GRID)
+        call = {"machine_profile": lambda: tcm.machine_profile(
+                    cache_dir=str(tmp_path)),
+                "default": tcm.MachineProfile.default,
+                "predict": lambda: tcm.predict(plan)}[entry]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -1,16 +1,22 @@
 """The LM site functions and the attention row update, checked without a card.
 
-``csrc/lm_sites.cuh`` (rmsnorm, gated, act and mamba site functions with the
-strip-of-VVL thread mapping) and ``csrc/flash_attention.cuh`` (the per-row
-online-softmax update and the dead-tile key range) are ``__host__
-__device__``, so the host C++ compiler builds them into a small library.
-Its ``host_lm`` and ``host_mamba`` entries have the signatures of
-``tdp_gathered_lm_launch`` and ``tdp_gathered_mamba_launch`` and loop over
-the threads one by one; ``host_attention`` runs the kernel's
-tile loop — query tiles of 32 rows, key tiles of 32 keys from
+``csrc/lm_sites.cuh`` (the elementwise ``gated``/``act`` thread, the tiled
+and few-token ``rmsnorm`` phases and the ``mamba`` strip) and
+``csrc/flash_attention.cuh`` (the per-row online-softmax update and the
+dead-tile key range) are ``__host__ __device__``, so the host C++ compiler
+builds them into a small library.  Its ``host_lm`` and ``host_mamba``
+entries have the signatures of ``tdp_gathered_lm_launch`` and
+``tdp_gathered_mamba_launch`` and run each launch's own decomposition:
+the same choice of mapping and grid as ``csrc/tdp_gathered_lm.cu``, block by
+block, and inside a block each phase thread by thread (warp by warp, lane
+by lane) with the kernel's barriers between phases, so rmsnorm's partial
+sums meet in the kernel's combine order; the vector and scalar paths are
+chosen from the pointers as on the card.  ``host_attention`` runs the
+kernel's tile loop — query tiles of 32 rows, key tiles of 32 keys from
 ``key_range``, the lane reductions done in order — through the same row
-functions.  Both are held to the plain PyTorch twins at the tests' bar,
-``rtol=2e-4, atol=2e-4``, at every VVL and on ragged extents.
+functions.  All are held to the plain PyTorch twins at the tests' bar,
+``rtol=2e-4, atol=2e-4``, at every VVL, on ragged extents and on
+unaligned views.
 """
 import ctypes
 import re
@@ -28,17 +34,42 @@ from repro_torch.kernels import ref as tref
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 HARNESS = r"""
+#include <type_traits>
 #include <vector>
 
 #include "flash_attention.cuh"
 #include "lm_sites.cuh"
 
 namespace {
+using namespace tdp::lm;
+
+// Launch<Site, VVL> of tdp_gathered_lm.cu, one block after another; a
+// barrier of the kernel is the end of a loop over the block's threads.
 template <class Site, int VVL>
 struct LmLoop {
-  static int run(const tdp::lm::LmIO& io, void*) {
-    for (int64_t t = 0, nt = tdp::lm::lm_threads<VVL>(io); t < nt; ++t)
-      tdp::lm::lm_thread<Site, VVL>(io, t);
+  static int run(const LmIO& io, void*) {
+    if (io.n <= 0) return 0;
+    if constexpr (std::is_same<Site, RmsnormSite>::value) {
+      if (io.n < RMS_FEW) {
+        const int group = rms_few_group(io.n), threads = (int)io.n * group;
+        std::vector<float> red(threads);
+        for (int t = 0; t < threads; ++t) rms_few_partial(io, group, t, red.data());
+        for (int h = group / 2; h > 0; h >>= 1)
+          for (int t = 0; t < threads; ++t) rms_few_tree(io, h, t, red.data());
+        for (int t = 0; t < threads; ++t) rms_few_scale(io, group, t, red.data());
+        return 0;
+      }
+      std::vector<float> red(RMS_WARPS * 32 * VVL), inv(32 * VVL);
+      for (int64_t b = 0, nb = rms_tiled_blocks<VVL>(io.n); b < nb; ++b) {
+        for (int t = 0; t < RMS_THREADS; ++t) rms_tiled_partial<VVL>(io, b, t, red.data());
+        for (int t = 0; t < RMS_THREADS; ++t)
+          rms_tiled_combine<VVL>(io, t, red.data(), inv.data());
+        for (int t = 0; t < RMS_THREADS; ++t) rms_tiled_scale<VVL>(io, b, t, inv.data());
+      }
+    } else {
+      for (int64_t b = 0, nb = ew_blocks<VVL>(io.n); b < nb; ++b)
+        for (int t = 0; t < EW_BLOCK; ++t) ew_thread<Site, VVL>(io, b, t);
+    }
     return 0;
   }
 };
@@ -187,30 +218,56 @@ def _lm(so, site, act, vvl, x, v, w, out, eps=1e-6, scale_offset=0.0):
                       ncomp, eps, scale_offset, None)
 
 
-@pytest.mark.parametrize("d,n", [(64, 37), (2304, 9)])
+def _at_offset(t, offset):
+    """``t`` copied into a buffer at a storage offset of ``offset``
+    elements: a view whose data pointer is only 4-byte aligned."""
+    buf = torch.zeros(t.numel() + offset)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].reshape(t.shape)
+
+
+#: (d, n): both mappings (few tokens below 32, tiled from 32), n ragged for
+#: every VVL > 1 and a multiple of 8 (the vector rows), d = 100 not a
+#: multiple of the 16 warps, d = 2304 gemma2's width.
+RMS_CASES = [(d, n) for d in (64, 100, 2304) for n in (1, 2, 3, 37, 64, 130)]
+
+
+@pytest.mark.parametrize("d,n", RMS_CASES + [(2304, 9)])
 def test_rmsnorm_site_matches_plain(host_lib, d, n):
     x, w = _rand(0, (d, n)), _rand(1, (d,))
     want = tref.rmsnorm_ref(x.T, w, scale_offset=1.0).T
     for vvl in (1, 2, 4, 8):
-        out = torch.full((d, n), float("nan"))
-        assert _lm(host_lib, "rmsnorm", 0, vvl, x, None, w, out,
-                   scale_offset=1.0) == 0
-        torch.testing.assert_close(out, want, **TOL)
+        # then x and out at a storage offset of one element: scalar rows
+        for offset in (0, 1):
+            out = _at_offset(torch.full((d, n), float("nan")), offset)
+            assert _lm(host_lib, "rmsnorm", 0, vvl, _at_offset(x, offset),
+                       None, w, out, scale_offset=1.0) == 0
+            torch.testing.assert_close(out, want, **TOL)
 
 
 @pytest.mark.parametrize("kind", tlm.GATED_KINDS)
 @pytest.mark.parametrize("gated", [True, False])
 def test_gated_and_act_sites_match_plain(host_lib, kind, gated):
-    n = 8 * 37 + 5                       # ragged for every VVL > 1
-    u = _rand(2, (1, n), 3.0)
-    v = _rand(3, (1, n)) if gated else None
-    want = tref.gated_act_ref(u, v, kind=kind)
+    """Every VVL over: 8·37 + 5 elements (ragged for every VVL > 1, not a
+    multiple of 4), several blocks of 16-byte groups with a 3-element tail,
+    and n = 1; each with every operand aligned, then with u, v or out at a
+    storage offset of one element (the scalar path)."""
     act = _build.LM_ACT_ID[tlm.ACT_OF_KIND[kind]]
-    for vvl in (1, 2, 4, 8):
-        out = torch.full((1, n), float("nan"))
-        assert _lm(host_lib, "gated" if gated else "act", act, vvl, u, v, None,
-                   out) == 0
-        torch.testing.assert_close(out, want, **TOL)
+    site = "gated" if gated else "act"
+    for n in (8 * 37 + 5, 3 * 8192 + 4 * 5 + 3, 1):
+        u = _rand(2, (1, n), 3.0)
+        v = _rand(3, (1, n)) if gated else None
+        want = tref.gated_act_ref(u, v, kind=kind)
+        for moved in (None, "u", "v", "out"):
+            if moved == "v" and not gated:
+                continue
+            uu = _at_offset(u, 1) if moved == "u" else u
+            vv = _at_offset(v, 1) if moved == "v" else v
+            for vvl in (1, 2, 4, 8):
+                out = _at_offset(torch.full((1, n), float("nan")),
+                                 1 if moved == "out" else 0)
+                assert _lm(host_lib, site, act, vvl, uu, vv, None, out) == 0
+                torch.testing.assert_close(out, want, **TOL)
 
 
 def _mamba(so, nstate, vvl, fields, b, c, y, h):

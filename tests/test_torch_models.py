@@ -40,7 +40,8 @@ def smoke():
     params_j, _ = jparams.init_params(cfg_j, jax.random.PRNGKey(0),
                                       jnp.float32)
     np_params = jax.tree.map(np.asarray, params_j)
-    return cfg_j, cfg_t, params_j, tparams.from_reference(np_params, cfg_t)
+    return cfg_j, cfg_t, params_j, tparams.from_reference(np_params, cfg_t,
+                                                       device="cpu")
 
 
 def _tokens(cfg, b, s, seed):
@@ -75,6 +76,15 @@ def test_from_reference_unstacks_layers(smoke):
         np.testing.assert_array_equal(
             params_t["layers"][layer]["mlp"]["w_gate"].numpy(),
             np.asarray(g[j]["mlp"]["w_gate"][r]))
+
+
+def test_from_reference_without_a_device_is_the_card(monkeypatch):
+    """``device=None`` is the card, as in ``lb.sim.from_reference``: with
+    none present the weights are not quietly put on the CPU."""
+    cfg_t = TC.get_smoke("gemma2_2b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tparams.from_reference({}, cfg_t)
 
 
 def test_init_params_shapes_and_scale():

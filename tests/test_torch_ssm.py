@@ -158,7 +158,8 @@ def smoke():
     params_j, _ = jparams.init_params(cfg_j, jax.random.PRNGKey(0),
                                       jnp.float32)
     np_params = jax.tree.map(np.asarray, params_j)
-    return cfg_j, cfg_t, params_j, tparams.from_reference(np_params, cfg_t)
+    return cfg_j, cfg_t, params_j, tparams.from_reference(np_params, cfg_t,
+                                                       device="cpu")
 
 
 def _tokens(cfg, b, s, seed):

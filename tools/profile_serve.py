@@ -11,8 +11,8 @@ with seeded random float32 weights, serves
 each it reports the host wall time (ending in ``torch.cuda.synchronize()``),
 the device time summed over kernels, the device's busy share of the wall
 time and of the traced span, and the device time per kernel name, split
-into the port's own CUDA kernels (``flash_fwd_kernel``, ``lm_kernel``,
-``mamba_kernel``) and PyTorch's (matrix products, copies, the plain decode
+into the port's own CUDA kernels (``flash_fwd_kernel``, ``ew_kernel``,
+``rms_tiled_kernel``, ``rms_few_kernel``, ``mamba_kernel``) and PyTorch's (matrix products, copies, the plain decode
 attention, the Mamba glue).  Needs one CUDA card; prints the card's name and
 power limit first and writes the full table to
 ``chiprun_out/profile_serve_<arch>.json``.
@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_KERNELS = ("flash_fwd_kernel", "lm_kernel", "mamba_kernel")
+PORT_KERNELS = ("flash_fwd_kernel", "ew_kernel", "rms_tiled_kernel",
+                "rms_few_kernel", "mamba_kernel")
 #: the prompt length each arch is served at by default (chip_smoke.py's)
 DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096}
 
