@@ -9,9 +9,13 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    the plain versions;
 2. build — every ``csrc/*.cu`` by its own ``nvcc``, in parallel; the
    register and spill report of ``ptxas``;
-3. kernels against plain versions — every LB kernel × site function at 64³
-   (plus a ragged 64³ + 37-site pointwise case), VVL 1, 2, 4 and 8, on
-   the same inputs as the plain PyTorch version, at the tests' tolerances;
+3. kernels against plain versions — every LB kernel × site function, VVL
+   1, 2, 4 and 8, on the same inputs as the plain PyTorch version, at the
+   tests' tolerances: the stencil site functions of both executors at
+   128³, at a ragged 67 × 45 × 70 (every ``fused`` tile cut) and there with
+   caller ghost planes in one and in two dimensions, the windowed ``fused``
+   at the default ``plane_block`` and at 8; the pointwise ones at 128³
+   and at 128³ + 37 sites;
    then the LM kernels at ``rtol=2e-4, atol=2e-4`` (the reference's own,
    ``tests/test_kernels.py``): ``flash_attention`` on the reference tests'
    shapes, the smoke shape (Dh 16), a ragged Sq = Sk = 1000, rows with no
@@ -46,7 +50,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    launch counts per prefill and per decode step, and the served logits
    and greedy tokens against the same weights and prompts through the
    plain path (``backend="torch"``) on the card, for both models;
-5. times — each LB kernel × site function at 128³ and each LM kernel at its
+5. times — each LB kernel × site function at 128³ (the windowed ``fused``
+   at each ``PLANE_BLOCKS`` value too; beside each, its per-launch time
+   before the redesign, ``EARLIER_MS``) and each LM kernel at its
    full-width shapes, held once more to its plain version, then timed
    (median of 20 launches, CUDA events) beside its plain version, its
    bound and, where one PyTorch call computes the same function
@@ -125,6 +131,24 @@ KERNELS = {
                           replaces="src/repro/core/costmodel.py:202"),
 }
 STENCIL_SITES = ("stream", "grad6", "fused", "phi_stream", "fused_two")
+#: LB checks of phase 3 besides 128³: a size that cuts every fused tile
+#: (45 % 8, 70 % 32, 67 % plane_block) and ghost planes in one and in two
+#: dimensions there.
+LB_RAGGED = (67, 45, 70)
+LB_HALOS = ((2, 0, 0), (0, 2, 3))
+#: plane_block values the windowed fused is timed at in phase 5
+PLANE_BLOCKS = (1, 2, 4, 8)
+#: Per-launch ms at 128³, VVL 1, of the LB kernels before their redesign
+#: (PERF.md §6: this script's phase 5 on an NVIDIA H100 80GB HBM3 at 700 W),
+#: printed beside this run's times; the prologue each of them needed (a
+#: gather or a pad) is not in these figures.
+EARLIER_MS = {
+    "tdp_gathered.stream": 0.1163, "tdp_gathered.grad6": 0.0359,
+    "tdp_gathered.moment": 0.0606, "tdp_gathered.collide": 0.2458,
+    "tdp_gathered.fused": 0.5292, "tdp_gathered.phi_stream": 0.0608,
+    "tdp_gathered.fused_two": 0.2484, "tdp_windowed.stream": 0.1191,
+    "tdp_windowed.grad6": 0.0229, "tdp_windowed.fused": 0.4195,
+    "tdp_windowed.phi_stream": 0.0625, "tdp_windowed.fused_two": 0.2381}
 PARAMS = dict(A=0.125, B=0.125, kappa=0.02)
 PHYS = dict(A=0.125, B=0.11, kappa=0.02, tau=0.9, tau_phi=1.1, gamma=0.8)
 GRID = (128, 128, 128)
@@ -227,6 +251,8 @@ def ptxas_report(logs: dict) -> list[dict]:
                     entry = {"lib": lib,
                              "site": site.group(1) if site else "collide",
                              "vvl": int(vvl.group(1)) if vvl else None}
+                    if "fused_tile_kernel" in name:
+                        entry.update({"site": "Fused", "mapping": "tile"})
                 rows.append(entry)
                 continue
             if entry is None:
@@ -302,32 +328,32 @@ def bound(site: str, nsites: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_call(kernel: str, site: str, prepared, n: int):
-    """One PyTorch call that computes ``kernel.site`` on the kernel's own
-    prepared inputs, as ``(call, split)``: ``call()`` is what is timed and
-    ``split`` turns its result into the kernel's ``(ncomp, n)`` outputs for
-    the comparison.  ``None`` where no single call computes the function.
+def library_call(site: str, prepared, n: int):
+    """One PyTorch call that computes ``site`` on the kernels' own inputs,
+    as ``(call, split)``: ``call()`` is what is timed and ``split`` turns
+    its result into the kernel's ``(ncomp, n)`` outputs for the comparison.
+    ``None`` where no single call computes the function.
 
-    Gathered inputs are the ``(noffsets, ncomp, n)`` stacks, windowed ones
-    the halo-extended ``(ncomp, X+2, Y+2, Z+2)`` grids; the windowed
-    functions are 3×3×3 correlations with fixed one-hot or difference
-    filters (``F.conv3d``), the gathered grad6 a ``(4, 7)`` matrix product.
+    Both executors take a stencil field as its ``(ncomp, X, Y, Z)`` grid,
+    wrapped periodically: the stencil functions are 3×3×3 correlations with
+    fixed one-hot or difference filters, one ``nn.Conv3d`` with circular
+    padding each.
     """
-    import torch.nn.functional as F
     from repro_torch.kernels.lb_collision import CV
-    from repro_torch.lb.stencil import _DIRS, _PULL_IDX
 
     x = prepared[0]
     dev = x.device
     if site == "moment":
         return (lambda: x.sum(0)), (lambda o: (o.reshape(1, n),))
-    if kernel == "tdp_gathered" and site in ("stream", "phi_stream"):
-        if _PULL_IDX != tuple(range(len(_PULL_IDX))):
-            return None             # the diagonal is not the pull slot
-        if site == "stream":        # (n, 19): the same values, transposed
-            return ((lambda: torch.diagonal_copy(x, 0, 0, 1)),
-                    (lambda o: (o.t(),)))
-        return (lambda: torch.einsum("qqn->n", x)), (lambda o: (o.reshape(1, n),))
+
+    def conv(w, groups=1):
+        m = torch.nn.Conv3d(w.shape[1] * groups, w.shape[0], 3, padding=1,
+                            padding_mode="circular", bias=False,
+                            groups=groups).to(dev)
+        m.weight.data.copy_(torch.from_numpy(w))
+        m.requires_grad_(False)
+        return lambda: m(x[None])
+
     if site == "grad6":
         # rows ∇φ_x, ∇φ_y, ∇φ_z, ∇²φ over the 6-point star
         w = np.zeros((4, 3, 3, 3), np.float32)
@@ -337,28 +363,19 @@ def library_call(kernel: str, site: str, prepared, n: int):
             w[(d, *(1 - e))] = -0.5
             w[(3, *(1 + e))] = w[(3, *(1 - e))] = 1.0
         w[3, 1, 1, 1] = -6.0
+
         def split(o):
             o = o.reshape(4, n)
             return o[:3], o[3:]
-        if kernel == "tdp_gathered":
-            m = torch.from_numpy(np.stack(
-                [w[(slice(None), *(1 + np.asarray(o)))] for o in _DIRS], 1)
-            ).to(dev)
-            p = x.reshape(len(_DIRS), n)
-            return (lambda: m @ p), split
-        wt = torch.from_numpy(w[:, None]).to(dev)
-        return (lambda: F.conv3d(x[None], wt)), split
-    if kernel == "tdp_windowed" and site in ("stream", "phi_stream"):
+        return conv(w[:, None]), split
+    if site in ("stream", "phi_stream"):
         # population q at site x comes from x - c_q: tap 1 - c_q
         w = np.zeros((19, 3, 3, 3), np.float32)
         for q, c in enumerate(CV.astype(int)):
             w[(q, *(1 - c))] = 1.0
         if site == "stream":
-            wt = torch.from_numpy(w[:, None]).to(dev)
-            return ((lambda: F.conv3d(x[None], wt, groups=19)),
-                    (lambda o: (o.reshape(19, n),)))
-        wt = torch.from_numpy(w[None]).to(dev)
-        return (lambda: F.conv3d(x[None], wt)), (lambda o: (o.reshape(1, n),))
+            return conv(w[:, None], groups=19), (lambda o: (o.reshape(19, n),))
+        return conv(w[None]), (lambda o: (o.reshape(1, n),))
     return None
 
 
@@ -784,7 +801,7 @@ def tuning_path(drive, sims, st0, final_default, params, problems) -> dict:
     cache = tempfile.mkdtemp(prefix="tuning-")
     try:
         def tune_fused():
-            return autotune(fused, example_state=state, top_k=3,
+            return autotune(fused, example_state=state, top_k=6,
                             measure_steps=1, reps=3, warmup=1,
                             timer=counting_timer, profile=prof,
                             cache_dir=cache)
@@ -920,7 +937,7 @@ def main() -> int:
         log("chip_smoke: no CUDA device is available")
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import Lattice, Target, gather_neighbors, halo_extend
+    from repro_torch.core import Lattice, Target, field_view
     from repro_torch.core.api import launch_plan, torch_executor
     from repro_torch import configs
     from repro_torch.kernels import _build, calibrate, flash_attention
@@ -972,14 +989,19 @@ def main() -> int:
             yield "tdp_windowed", site
         yield "lb_collision", "collide"
 
-    def make_inputs(spec, n, *, seed):
+    def make_inputs(spec, shape, halo=(0, 0, 0), *, seed):
         """Random fields about a physical state: f = 1/19 + 0.01·N gives
         ρ = 1 ± 0.044, so no site of a 128³ grid comes near ρ = 0, where
-        u = j/ρ blows up and the comparison would hold nothing."""
+        u = j/ρ blows up and the comparison would hold nothing.  A stencil
+        field spans the lattice and its ghost planes (random too), a
+        pointwise one the interior."""
         r = np.random.default_rng(seed)
+        n = int(np.prod(shape))
+        n_ext = int(np.prod([s + 2 * h for s, h in zip(shape, halo)]))
         xs = []
         for fs in spec.fields:
-            x = r.standard_normal((fs.ncomp, n), dtype=np.float32)
+            x = r.standard_normal((fs.ncomp, n if fs.stencil is None
+                                   else n_ext), dtype=np.float32)
             if fs.name == "f":
                 x = 1.0 / 19.0 + 0.01 * x
             else:
@@ -987,32 +1009,39 @@ def main() -> int:
             xs.append(torch.from_numpy(x).to(dev))
         return xs
 
-    def prepare(kernel, spec, xs, shape):
-        """The executor's prologue: halo-extended grids for the windowed
-        kernel, gathered neighbour stacks for the gathered one."""
-        halo = (0,) * len(shape)
-        fn = halo_extend if kernel == "tdp_windowed" else gather_neighbors
-        return tuple(x if s is None else fn(x, shape, halo, s)
-                     for x, s in zip(xs, spec.stencils))
-
-    def run_pair(kernel, site, shape, vvl, xs):
-        """(kernel outputs, plain outputs) on the same prepared inputs."""
+    def lb_plan(kernel, site, shape, halo=None, vvl=1, plane_block=None):
         spec = stencil.SPECS[site]
         consts = programs.collision_consts(**PHYS) if spec.consts else {}
-        if kernel == "lb_collision":
-            got = lb_collision.lb_collision(*xs, vvl=vvl, **PHYS)
-            want = lb_collision.collision_site_kernel(
-                *xs, w=lb_collision.WEIGHTS, c=lb_collision.CV, **PHYS)
-            return got, want
-        exe = "cuda_windowed" if kernel == "tdp_windowed" else "cuda"
-        plan = launch_plan(spec, Target(exe, vvl=vvl), lattice=Lattice(shape),
+        tgt = Target("cuda_windowed" if kernel == "tdp_windowed" else "cuda",
+                     vvl=vvl)
+        if plane_block is not None:
+            tgt = tgt.with_tuning(plane_block=plane_block)
+        return launch_plan(spec, tgt, lattice=Lattice(shape)
+                           if spec.has_stencil else None,
+                           halo=halo if spec.has_stencil else None,
                            consts=consts)
-        prepared = prepare(kernel, spec, xs, shape)
+
+    def prepare(spec, xs, shape, halo=(0, 0, 0)):
+        """The executors' operands: each stencil field viewed over the
+        lattice and its ghost planes (no copy), pointwise ones as given."""
+        return tuple(x if s is None else field_view(x, shape, halo, s)
+                     for x, s in zip(xs, spec.stencils))
+
+    def execute(kernel, plan, prepared):
         if kernel == "tdp_windowed":
-            return (tdp_windowed.windowed_execute(plan, prepared),
-                    tdp_windowed.windowed_plain(plan, prepared))
-        return (tdp_pointwise.cuda_execute(plan, prepared),
-                torch_executor(plan, prepared))
+            return tdp_windowed.windowed_execute(plan, prepared)
+        return tdp_pointwise.cuda_execute(plan, prepared)
+
+    def lb_cases(kernel, site):
+        """(shape, halo, plane_blocks) of phase 3's checks."""
+        spec = stencil.SPECS[site]
+        pbs = ((tdp_windowed.DEFAULT_PLANE_BLOCK, 8)
+               if (kernel, site) == ("tdp_windowed", "fused") else (None,))
+        if not spec.has_stencil:
+            n = int(np.prod(GRID))
+            return [((n,), (0,), pbs), ((n + 37,), (0,), pbs)]
+        return ([(GRID, (0, 0, 0), pbs), (LB_RAGGED, (0, 0, 0), pbs)]
+                + [(LB_RAGGED, h, pbs) for h in LB_HALOS])
 
     def ms_by_vvl(spec, xs, consts):
         """The gathered LM kernel's time at every VVL, on the same inputs
@@ -1024,22 +1053,37 @@ def main() -> int:
         return out
 
     # -- 3. kernels against plain versions ----------------------------------
-    shape64 = (64, 64, 64)
     max_err: dict = {}
     for kernel, site in entries():
         spec = stencil.SPECS[site]
-        cases = [(shape64, 64 ** 3)]
-        if not spec.has_stencil:
-            cases.append(((64 ** 3 + 37,), 64 ** 3 + 37))
         err = 0.0
-        for shape, n in cases:
-            xs = make_inputs(spec, n, seed=_build.SITE_ID[site])
+        if kernel == "lb_collision":
+            for n in (int(np.prod(GRID)), int(np.prod(GRID)) + 37):
+                xs = make_inputs(spec, (n,), (0,), seed=_build.SITE_ID[site])
+                want = lb_collision.collision_site_kernel(
+                    *xs, w=lb_collision.WEIGHTS, c=lb_collision.CV, **PHYS)
+                for vvl in (1, 2, 4, 8):
+                    got = lb_collision.lb_collision(*xs, vvl=vvl, **PHYS)
+                    torch.cuda.synchronize()
+                    compare(site, got, want, f"{kernel}.{site} vvl={vvl} "
+                            f"n={n}", problems)
+                    err = max(err, max_abs(got, want))
+        for shape, halo, pbs in ([] if kernel == "lb_collision"
+                                 else lb_cases(kernel, site)):
+            xs = make_inputs(spec, shape, halo, seed=_build.SITE_ID[site])
+            prepared = prepare(spec, xs, shape, halo)
+            want = tdp_pointwise.fields_plain(
+                lb_plan(kernel, site, shape, halo), prepared)
             for vvl in (1, 2, 4, 8):
-                got, want = run_pair(kernel, site, shape, vvl, xs)
-                torch.cuda.synchronize()
-                compare(site, got, want, f"{kernel}.{site} vvl={vvl} n={n}",
-                        problems)
-                err = max(err, max_abs(got, want))
+                for pb in pbs:
+                    got = execute(kernel, lb_plan(kernel, site, shape, halo,
+                                                  vvl, pb), prepared)
+                    torch.cuda.synchronize()
+                    compare(site, got, want, f"{kernel}.{site} vvl={vvl} "
+                            f"plane_block={pb} shape={shape} halo={halo}",
+                            problems)
+                    err = max(err, max_abs(got, want))
+            del xs, prepared, want
         max_err[(kernel, site)] = err
         log(f"phase 3: {kernel}.{site} max_abs_err={err}")
     torch.cuda.empty_cache()
@@ -1199,8 +1243,10 @@ def main() -> int:
     rows = []
     for kernel, site in entries():
         spec = stencil.SPECS[site]
-        xs = make_inputs(spec, nsites, seed=100 + _build.SITE_ID[site])
-        consts = programs.collision_consts(**PHYS) if spec.consts else {}
+        shape = GRID if spec.has_stencil else (nsites,)
+        xs = make_inputs(spec, shape, (0,) * len(shape),
+                         seed=100 + _build.SITE_ID[site])
+        prepared = prepare(spec, xs, shape, (0,) * len(shape))
         if kernel == "lb_collision":
             def kern():
                 return lb_collision.lb_collision(*xs, **PHYS)
@@ -1209,29 +1255,20 @@ def main() -> int:
                 return lb_collision.collision_site_kernel(
                     *xs, w=lb_collision.WEIGHTS, c=lb_collision.CV, **PHYS)
         else:
-            exe = "cuda_windowed" if kernel == "tdp_windowed" else "cuda"
-            plan = launch_plan(spec, Target(exe, vvl=1), lattice=Lattice(GRID),
-                               consts=consts)
-            prepared = prepare(kernel, spec, xs, GRID)
-            if kernel == "tdp_windowed":
-                def kern():
-                    return tdp_windowed.windowed_execute(plan, prepared)
+            plan = lb_plan(kernel, site, shape)
 
-                def plain():
-                    return tdp_windowed.windowed_plain(plan, prepared)
-            else:
-                def kern():
-                    return tdp_pointwise.cuda_execute(plan, prepared)
+            def kern():
+                return execute(kernel, plan, prepared)
 
-                def plain():
-                    return torch_executor(plan, prepared)
+            def plain():
+                return tdp_pointwise.fields_plain(plan, prepared)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         compare(site, got, want, f"{kernel}.{site} 128^3", problems)
         err128 = max_abs(got, want)
         max_err[(kernel, site)] = max(max_err[(kernel, site)], err128)
         lib = (None if kernel == "lb_collision"
-               else library_call(kernel, site, prepared, nsites))
+               else library_call(site, prepared, nsites))
         library_ms = lib_err = None
         if lib is not None:
             call, split = lib
@@ -1249,16 +1286,26 @@ def main() -> int:
         plain_ms = time_ms(plain)
         if lib is not None:
             library_ms = time_ms(lib[0])
+        name = f"{kernel}.{site}"
+        if (kernel, site) == ("tdp_windowed", "fused"):
+            record["fused_ms_by_plane_block"] = {
+                pb: time_ms(lambda pb=pb: execute(kernel, lb_plan(
+                    kernel, site, shape, plane_block=pb), prepared))
+                for pb in PLANE_BLOCKS}
+            log(f"phase 5: {name} ms by plane_block "
+                f"{record['fused_ms_by_plane_block']}")
+        record.setdefault("earlier_ms", {})[name] = EARLIER_MS.get(name)
         b_ms, b_by = bound(site, nsites)
-        rows.append({"name": f"{kernel}.{site}", "route": "cuda",
+        rows.append({"name": name, "route": "cuda",
                      **KERNELS[kernel], "launches": launches[(kernel, site)],
                      "launches_by_path": launches_by_path[(kernel, site)],
                      "max_abs_err": max_err[(kernel, site)], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms})
-        record.setdefault("checks_128cubed", {})[f"{kernel}.{site}"] = {
+        record.setdefault("checks_128cubed", {})[name] = {
             "max_abs_err": err128, "library_max_abs_err": lib_err}
-        log(f"phase 5: {kernel}.{site} ms={ms:.4f} plain={plain_ms:.4f} "
+        log(f"phase 5: {name} ms={ms:.4f} (before the redesign "
+            f"{EARLIER_MS.get(name)}) plain={plain_ms:.4f} "
             f"library={library_ms} bound={b_ms:.4f} err128={err128} "
             f"library_err={lib_err}")
         del xs, lib

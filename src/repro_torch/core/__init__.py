@@ -3,6 +3,8 @@ step graphs (single device) and the tuning layer."""
 from . import costmodel
 from .api import (
     LaunchPlan,
+    WindowVmemError,
+    field_view,
     gather_neighbors,
     halo_extend,
     launch,
@@ -47,9 +49,10 @@ __all__ = [
     "FieldSpec", "KernelSpec", "LaunchPlan", "Lattice", "MachineProfile",
     "Program", "ProgramPlan", "STENCIL_D3Q19_PULL", "STENCIL_GRAD_19PT",
     "STENCIL_GRAD_6PT", "Stage", "Stencil", "Target", "TargetConst",
-    "TuneReport", "as_target", "autotune", "compatible_executors",
-    "costmodel", "default_space", "default_vvl", "executor_tunables",
-    "executor_vvls", "executor_wants", "field", "gather_neighbors",
+    "TuneReport", "WindowVmemError", "as_target", "autotune",
+    "compatible_executors", "costmodel", "default_space", "default_vvl",
+    "executor_tunables", "executor_vvls", "executor_wants", "field",
+    "field_view", "gather_neighbors",
     "halo_extend", "kernel", "launch", "launch_plan", "machine_profile",
     "pad_sites", "predict", "program", "register_executor",
     "registry_version", "resolve_stage_target", "stage",

@@ -21,15 +21,19 @@ path every launch takes:
    ``(noffsets, ncomp, nsites)`` stacks; executors declaring
    ``wants="halo_extended"`` get each stencil field **once**, as a
    halo-extended ``(ncomp, *ext_shape)`` grid (:func:`halo_extend`);
+   executors registered with ``takes_fields=True`` (the card's) get no
+   prologue: each stencil field is the caller's own array, viewed as
+   ``(ncomp, *(shape + 2·halo))`` (:func:`field_view`), and the kernel
+   wraps and reads ghost planes itself;
 5. **dispatch** — through the executor registry
    (:mod:`repro_torch.core.registry`).
 
 Built-in executors registered here: ``"torch"`` (each site body called once
-over all sites — the oracle and the CPU path), ``"cuda"`` (the gathered
-CUDA kernel, :mod:`repro_torch.kernels.tdp_pointwise`) and
-``"cuda_windowed"`` (the gather-free CUDA stencil kernel,
-:mod:`repro_torch.kernels.tdp_windowed`).  The kernel modules are imported
-at first dispatch.
+over all sites — the oracle and the CPU path), ``"cuda"`` (the targetDP
+site-kernel executor on the card, :mod:`repro_torch.kernels.tdp_pointwise`)
+and ``"cuda_windowed"`` (its stencil-only partner with the tiled fused
+step, :mod:`repro_torch.kernels.tdp_windowed`); both take fields.  The
+kernel modules are imported at first dispatch.
 """
 from __future__ import annotations
 
@@ -105,6 +109,15 @@ def gather_neighbors(x: torch.Tensor, shape: tuple[int, ...],
     return out
 
 
+def field_view(x: torch.Tensor, shape: tuple[int, ...],
+               halo: tuple[int, ...], stencil: Stencil) -> torch.Tensor:
+    """``(ncomp, nsites_ext)`` → the same storage viewed as ``(ncomp,
+    *(shape + 2·halo))``: the prologue of ``takes_fields`` executors, which
+    copies nothing (``stencil`` is unused; the signature is the other
+    prologues')."""
+    return x.view(x.shape[0], *(s + 2 * h for s, h in zip(shape, halo)))
+
+
 def halo_extend(x: torch.Tensor, shape: tuple[int, ...],
                 halo: tuple[int, ...], stencil: Stencil) -> torch.Tensor:
     """``(ncomp, nsites_ext)`` → halo-extended grid ``(ncomp, *ext)`` with
@@ -145,6 +158,32 @@ def halo_extend(x: torch.Tensor, shape: tuple[int, ...],
             flat += [p, p]
         g = F.pad(g[None], flat, mode="circular")[0]
     return g.contiguous()
+
+
+class WindowVmemError(ValueError):
+    """A launch whose kernel's shared-memory tile cannot fit in a block.
+
+    Raised when :func:`launch` builds its plan, before anything launches,
+    if :meth:`LaunchPlan.vmem_bytes_estimate` exceeds the
+    :data:`~repro_torch.core.costmodel.DEFAULT_VMEM_LIMIT` bytes a block may
+    hold on the card (227 KB on the H100): ``"cuda_windowed"``'s fused tile
+    is ``plane_block + 2`` x-planes deep.  ``autotune`` prunes candidates
+    past its ``vmem_limit`` before measuring; shrinking ``plane_block`` is
+    the fix.  The reference's error of the same name guards its VMEM
+    window (``repro/core/api.py``)."""
+
+
+def _check_window_vmem(plan: "LaunchPlan") -> None:
+    from .costmodel import DEFAULT_VMEM_LIMIT
+
+    total = plan.vmem_bytes_estimate()
+    if total > DEFAULT_VMEM_LIMIT:
+        p = dict(plan.target.tuning).get("plane_block")
+        raise WindowVmemError(
+            f"kernel {plan.name!r} under executor "
+            f"{plan.target.executor!r}: its tile (plane_block={p}) needs "
+            f"{total} bytes of shared memory, more than the "
+            f"{DEFAULT_VMEM_LIMIT} a block may hold — shrink plane_block")
 
 
 def _unwrap_consts(consts: Mapping[str, object]) -> dict:
@@ -243,13 +282,22 @@ class LaunchPlan:
         r = stencil.radius_per_dim()
         return tuple(s + 2 * rd for s, rd in zip(self.shape, r))
 
+    def vmem_bytes_estimate(self) -> int:
+        """Shared memory, in bytes, one block of the executor's kernel holds
+        for this launch (the registry entry's ``smem_bytes``; 0 for an
+        executor that declares none)."""
+        fn = get_executor_entry(self.target.executor).smem_bytes
+        return 0 if fn is None else int(fn(self))
+
     def hbm_bytes_estimate(self, itemsize: int = 4) -> int:
         """Device-memory footprint of the executor's prepared operands plus
         outputs (excluding the caller's own input tensors).
 
         The gathered path materialises ``noffsets_i`` copies of every
         stencil field; the halo-extended path pays only the ghost-layer
-        overhead ``prod(shape + 2·radius) / prod(shape)``.
+        overhead ``prod(shape + 2·radius) / prod(shape)``.  This is the
+        reference's model, keyed on ``wants``: it does not know that the
+        card's executors read their fields in place.
         """
         if self.shape is None:
             raise ValueError("hbm_bytes_estimate needs a lattice shape")
@@ -359,9 +407,10 @@ def _validate_arrays(spec: KernelSpec, arrays, lattice, halo):
 
 
 def _validate_wrap_extents(spec: KernelSpec, lattice, halo):
-    """Plan-build guard for :func:`halo_extend`'s periodic path: refuse a
-    ``wants="halo_extended"`` launch whose stencil radius exceeds a
-    periodic extent, naming the dim/radius/extent before any work runs."""
+    """Plan-build guard for the periodic wrap of :func:`halo_extend` and of
+    the card's kernels: refuse a ``wants="halo_extended"`` or
+    ``takes_fields`` launch whose stencil radius exceeds a periodic extent,
+    naming the dim/radius/extent before any work runs."""
     if lattice is None or not spec.has_stencil:
         return
     h = halo if halo is not None else (0,) * lattice.ndim
@@ -409,11 +458,16 @@ def _build_plan(spec: KernelSpec, target: Target, vvl: int,
     executor = entry.fn
     plan = _make_plan(spec, target, vvl, out_ncomp, lattice, halo, consts,
                       entry.wants)
+    _check_window_vmem(plan)
     stencils = spec.stencils
     shape = lattice.shape if lattice is not None else None
     n_out = len(out_ncomp)
-    prologue = (halo_extend if entry.wants == "halo_extended"
-                else gather_neighbors)
+    if entry.takes_fields:
+        prologue = field_view
+    elif entry.wants == "halo_extended":
+        prologue = halo_extend
+    else:
+        prologue = gather_neighbors
 
     def run(arrays, out, dyn_values=()):
         p = plan
@@ -504,7 +558,7 @@ def launch(spec: KernelSpec, target: Target | str | None = None, /,
                 f"kernel {spec.name!r} does not declare const(s) "
                 f"{unknown}; declared: {sorted(spec.consts)}")
     h = _validate_arrays(spec, arrays, lattice, halo)
-    if entry.wants == "halo_extended":
+    if entry.wants == "halo_extended" or entry.takes_fields:
         _validate_wrap_extents(spec, lattice, h)
     out_ncomp = spec.out if spec.out is not None else (int(arrays[0].shape[0]),)
     if out is not None:
@@ -543,7 +597,7 @@ def launch_plan(spec: KernelSpec, target: Target | str | None = None, *,
                          f"launch_plan needs the lattice")
     h = (_normalize_halo(halo, lattice.ndim)
          if lattice is not None and spec.has_stencil else None)
-    if entry.wants == "halo_extended":
+    if entry.wants == "halo_extended" or entry.takes_fields:
         _validate_wrap_extents(spec, lattice, h)
     if spec.out is not None:
         out_ncomp = spec.out
@@ -579,17 +633,24 @@ def torch_executor(plan: LaunchPlan, gathered, out=None):
     return out
 
 
-def _cuda_executor(plan: LaunchPlan, gathered, out=None):
+def _cuda_executor(plan: LaunchPlan, fields, out=None):
     from repro_torch.kernels.tdp_pointwise import cuda_execute
-    return cuda_execute(plan, gathered, out)
+    return cuda_execute(plan, fields, out)
 
 
-def _cuda_windowed_executor(plan: LaunchPlan, extended, out=None):
+def _cuda_windowed_executor(plan: LaunchPlan, fields, out=None):
     from repro_torch.kernels.tdp_windowed import windowed_execute
-    return windowed_execute(plan, extended, out)
+    return windowed_execute(plan, fields, out)
+
+
+def _cuda_windowed_smem(plan: LaunchPlan) -> int:
+    from repro_torch.kernels.tdp_windowed import tile_smem_bytes
+    return tile_smem_bytes(plan)
 
 
 register_executor("torch", torch_executor)
-register_executor("cuda", _cuda_executor, vvls=CUDA_VVLS)
+register_executor("cuda", _cuda_executor, vvls=CUDA_VVLS, takes_fields=True)
 register_executor("cuda_windowed", _cuda_windowed_executor,
-                  wants="halo_extended", vvls=CUDA_VVLS)
+                  wants="halo_extended", tunables=("plane_block",),
+                  vvls=CUDA_VVLS, takes_fields=True,
+                  smem_bytes=_cuda_windowed_smem)

@@ -9,9 +9,11 @@ arXiv:1609.01479) says those knobs must be re-chosen on each device.
 
 1. **enumerates** a space of :class:`Candidate` assignments
    (:func:`default_space`): the base target first, the executor axis
-   (:func:`repro_torch.core.registry.compatible_executors`) and the VVLs
-   each executor's kernels are built for;
-2. **prunes**, with ``top_k``, all but the K points the roofline model
+   (:func:`repro_torch.core.registry.compatible_executors`), the VVLs
+   each executor's kernels are built for and, where a kernel of the
+   subject holds a shared-memory tile, the ``plane_block`` sweep;
+2. **prunes** the points whose tile exceeds ``vmem_limit`` and, with
+   ``top_k``, all but the K points the roofline model
    (:mod:`repro_torch.core.costmodel`) ranks best;
 3. **measures** each survivor with a pluggable ``timer`` (median of
    ``reps`` calls of a ``measure_steps``-step run);
@@ -24,12 +26,18 @@ Candidates change how the same launches run, never what they compute;
 bit for bit, to the base target's.  The base target is always candidate 0,
 so the tuned median never exceeds the default median.
 
-Not ported: the ``plane_block`` sweep and per-stage assignments (the
-reserved ``"stage:<name>"`` tuning keys), the shared-memory prune
-(``vmem_limit``), the AoSoA layout axis and the pointwise block knobs.  No
-kernel of this package has plane blocking, shared-memory tiles, an AoSoA
-layout or a block knob yet (ROADMAP, queue A item 2 and queue B kernel 1);
-each axis comes back with the kernel that can take it.
+``predicted_vs_measured`` compares the prediction, which is for one step
+or launch, with the measured median over ``measure_steps`` of them, divided
+by ``measure_steps``.  The reference divides by the whole median
+(``repro/core/autotune.py``), which reads −(1 − 1/measure_steps) for a
+model exact per launch; a report replayed from a cache keeps the ratio it
+was stored with.
+
+Not ported: per-stage ``plane_block`` assignments (the reserved
+``"stage:<name>"`` tuning keys), the AoSoA layout axis and the pointwise
+block knobs.  No kernel of this package has an AoSoA layout or a block
+knob yet (ROADMAP, queue A item 3); the one-stage programs the tile runs
+in need no per-stage split.
 """
 from __future__ import annotations
 
@@ -46,10 +54,10 @@ import torch
 from . import costmodel as _costmodel
 from .api import launch as _launch
 from .api import launch_plan as _launch_plan
-from .costmodel import DEFAULT_CACHE_DIR
+from .costmodel import DEFAULT_CACHE_DIR, DEFAULT_VMEM_LIMIT
 from .lattice import Lattice
 from .program import CompiledProgram, Program
-from .registry import compatible_executors, executor_vvls
+from .registry import compatible_executors, executor_tunables, executor_vvls
 from .spec import KernelSpec
 from .target import Target, as_target
 
@@ -177,8 +185,15 @@ def _effective_vvl(target: Target) -> int:
     return target.resolve_vvl()
 
 
+def _divisors(n: int) -> list[int]:
+    return [d for d in range(1, int(n) + 1) if n % d == 0]
+
+
 def default_space(program_or_spec, target: Target | str | None = None, *,
-                  executors: Sequence[str] | None = None):
+                  executors: Sequence[str] | None = None,
+                  grid_shape: Sequence[int] | None = None,
+                  lattice: Lattice | None = None, halo=None, consts=None,
+                  vmem_limit: int = DEFAULT_VMEM_LIMIT):
     """The default candidate space for :func:`autotune`.
 
     Axes:
@@ -191,10 +206,18 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
     * per executor, the **VVL axis**: the VVLs its kernels are built for
       (:func:`~repro_torch.core.registry.executor_vvls`; the CUDA
       executors: 1, 2, 4, 8 sites per thread).  An executor that declares
-      none (``"torch"`` ignores the VVL) is one point.
+      none (``"torch"`` ignores the VVL) is one point;
+    * per executor that declares the ``plane_block`` tunable, when the
+      geometry is given (``grid_shape`` for a Program, ``lattice`` for a
+      spec) and a kernel of the subject holds a shared-memory tile under
+      it (:meth:`~repro_torch.core.api.LaunchPlan.vmem_bytes_estimate`
+      > 0), the **plane_block axis**: the divisors of the x extent, at the
+      base VVL.  A point whose tile exceeds ``vmem_limit`` bytes is pruned
+      ("vmem estimate ... > limit ...").
 
     Returns ``(candidates, pruned)``; ``pruned`` lists ``(label, reason)``
-    for the executors the launch cannot take.
+    for the executors the launch cannot take and the tiles that do not
+    fit.
     """
     base = as_target(target)
     if isinstance(program_or_spec, Program):
@@ -217,6 +240,15 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
             seen.add(c.label)
             candidates.append(c)
 
+    def vmem(tgt: Target) -> int:
+        if isinstance(program_or_spec, Program):
+            return program_or_spec.plan(
+                tgt, grid_shape=grid_shape).vmem_bytes_estimate()
+        return _launch_plan(program_or_spec, tgt, lattice=lattice, halo=halo,
+                            consts=consts).vmem_bytes_estimate()
+
+    x_extent = (grid_shape[0] if grid_shape is not None
+                else lattice.shape[0] if lattice is not None else None)
     for n in dict.fromkeys(names):
         if n not in ok:
             reason = ("not registered"
@@ -226,10 +258,26 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
             pruned.append((n, reason))
             continue
         add(Candidate(n))
-        eff = _effective_vvl(base.with_(backend=n))
+        probe = base.with_(backend=n)
+        eff = _effective_vvl(probe)
         for v in executor_vvls(n) or ():
             if v != eff:                   # ≡ the bare executor candidate
                 add(Candidate(n, vvl=v))
+        if "plane_block" not in executor_tunables(n) or x_extent is None:
+            continue
+        own = vmem(probe)
+        if own == 0:
+            continue                           # no kernel holds a tile
+        for p in _divisors(x_extent):
+            need = vmem(probe.with_tuning(plane_block=p))
+            if need == own:
+                continue                       # ≡ the bare candidate
+            c = Candidate(n, tuning=(("plane_block", p),))
+            if need > vmem_limit:
+                pruned.append((c.label, f"vmem estimate {need} > limit "
+                                        f"{vmem_limit}"))
+            else:
+                add(c)
     return candidates, pruned
 
 
@@ -268,7 +316,8 @@ def wall_clock_timer(candidate: Target, run: Callable[[], Any]) -> float:
 class CandidateResult(NamedTuple):
     """One measured point: its median, the raw samples and, when a scorer
     ran, the model's prediction with ``predicted_vs_measured`` =
-    (predicted − measured) / measured."""
+    (predicted − measured) / measured, where measured is the median per
+    step (``median_s / measure_steps``)."""
 
     candidate: Candidate
     median_s: float
@@ -501,6 +550,7 @@ def autotune(program_or_spec, target: Target | str | None = None,
              scorer: Callable[[Target], float | None] | None = None,
              top_k: int | None = None,
              profile=None,
+             vmem_limit: int = DEFAULT_VMEM_LIMIT,
              cache_dir: str | None = DEFAULT_CACHE_DIR) -> TuneResult:
     """Choose the executor, VVL and ``Target.tuning`` by measurement.
 
@@ -521,7 +571,9 @@ def autotune(program_or_spec, target: Target | str | None = None,
         :func:`wall_clock_timer`.
       grid_shape / lattice / halo / consts: launch geometry (programs take
         ``grid_shape`` from ``example_state``).
-      executors: forwarded to :func:`default_space`.
+      executors / vmem_limit: forwarded to :func:`default_space` (a
+        ``plane_block`` point whose tile needs more than ``vmem_limit``
+        bytes of shared memory is pruned before any measurement).
       check_identical: run every candidate once more and prune any whose
         outputs are not equal (``torch.equal``) to the base target's.
       scorer: ``(candidate_target) -> predicted seconds | None``; defaults
@@ -577,8 +629,10 @@ def autotune(program_or_spec, target: Target | str | None = None,
             return TuneResult(cached.best.target_from(base), cached)
 
     if space is None:
-        candidates, pruned = default_space(program_or_spec, base,
-                                           executors=executors)
+        candidates, pruned = default_space(
+            program_or_spec, base, executors=executors,
+            grid_shape=grid if is_program else None, lattice=lattice,
+            halo=halo, consts=consts, vmem_limit=vmem_limit)
     else:
         pruned = []
         base_cand = Candidate.of(base)
@@ -664,7 +718,9 @@ def autotune(program_or_spec, target: Target | str | None = None,
         if i == 0:
             default_median = median
         predicted = scores.get(cand.label)
-        pvm = ((predicted - median) / median
+        # the model predicts one step (or launch); a timed call runs n_steps
+        per_step = median / n_steps
+        pvm = ((predicted - per_step) / per_step
                if predicted is not None and median > 0 else None)
         results.append(CandidateResult(cand, median, times, predicted, pvm))
 

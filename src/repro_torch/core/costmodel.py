@@ -47,10 +47,16 @@ from torch.utils._python_dispatch import TorchDispatchMode
 DEFAULT_CACHE_DIR = str(Path(__file__).resolve().parents[3] / "build"
                         / "repro_torch" / "tuning")
 
+#: Shared memory, in bytes, one block may hold on the H100 (227 KB): the cap
+#: of :class:`repro_torch.core.api.WindowVmemError` and the default
+#: ``vmem_limit`` of :func:`repro_torch.core.autotune.autotune`.
+DEFAULT_VMEM_LIMIT = 232_448
+
 __all__ = [
     "MachineProfile", "CostEstimate", "predict", "roofline_seconds",
     "kernel_flops", "calibrate", "machine_profile", "load_profile",
     "store_profile", "profile_path", "DEFAULT_CACHE_DIR",
+    "DEFAULT_VMEM_LIMIT",
 ]
 
 
@@ -67,7 +73,7 @@ __all__ = [
 _DEFAULT_RATES: dict[str, dict] = {
     "h100": dict(peak_flops=67e12, hbm_bw=3.35e12, link_bw=450e9,
                  dcn_bw=50e9, hbm_bytes=80 * 10 ** 9,
-                 vmem_bytes=232_448),
+                 vmem_bytes=DEFAULT_VMEM_LIMIT),
     "gpu": dict(peak_flops=60e12, hbm_bw=1500e9, link_bw=25e9,
                 dcn_bw=12.5e9, hbm_bytes=40 * 2 ** 30, vmem_bytes=49_152),
     "cpu": dict(peak_flops=1e11, hbm_bw=2e10, link_bw=1e10,

@@ -31,8 +31,8 @@ c. **ping-pong buffers** — :meth:`CompiledProgram.run` steps ``nsteps``
    field's final writer launches straight into the idle buffer (the
    reference's ``lax.scan`` with donated buffers);
 d. **aggregated memory models** — :meth:`Program.plan` builds one
-   :class:`~repro_torch.core.api.LaunchPlan` per stage and sums their
-   ``hbm_bytes_estimate``.
+   :class:`~repro_torch.core.api.LaunchPlan` per stage, sums their
+   ``hbm_bytes_estimate`` and takes the largest ``vmem_bytes_estimate``.
 
 Domain decompositions (a ``mesh``) are not ported yet: see ROADMAP,
 queue A, "Decompositions".
@@ -563,11 +563,18 @@ class ProgramPlan:
     def hbm_bytes_estimate(self, itemsize: int = 4) -> int:
         return sum(p.hbm_bytes_estimate(itemsize) for _, p in self.stages)
 
+    def vmem_bytes_estimate(self) -> int:
+        """The largest shared-memory tile any stage's kernel holds (stages
+        run one after another)."""
+        return max((p.vmem_bytes_estimate() for _, p in self.stages),
+                   default=0)
+
     def per_stage(self, itemsize: int = 4) -> list[dict]:
-        """One row per stage — executor, capability, memory model."""
+        """One row per stage — executor, capability, memory models."""
         return [{"stage": name, "executor": p.target.executor,
                  "wants": p.wants,
-                 "hbm_bytes_estimate": p.hbm_bytes_estimate(itemsize)}
+                 "hbm_bytes_estimate": p.hbm_bytes_estimate(itemsize),
+                 "vmem_bytes_estimate": p.vmem_bytes_estimate()}
                 for name, p in self.stages]
 
     def __repr__(self):

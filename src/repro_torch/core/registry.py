@@ -21,6 +21,14 @@ an executor only maps a prepared plan over prepared site arrays:
         #               dimension (periodic dims wrap-padded, caller
         #               ghost planes trimmed to the radius);
         #               the executor resolves offsets itself, in-kernel.
+        #             takes_fields=True      — no prologue at all (the
+        #               card's executors): each stencil field arrives as
+        #               the caller's own array viewed as (ncomp,
+        #               *(shape + 2·halo)); the kernel wraps periodic
+        #               dimensions (halo 0) and reads the caller's ghost
+        #               planes (halo > 0) itself.  ``wants`` then only
+        #               says whether the executor takes pointwise
+        #               launches ("halo_extended": stencil launches only).
         # out:      None, or one preallocated contiguous (ncomp_o, nsites)
         #           tensor per output to write into (the ping-pong
         #           buffers of CompiledProgram.run)
@@ -30,6 +38,7 @@ an executor only maps a prepared plan over prepared site arrays:
 
     register_executor("my_backend", my_executor)                 # gathered
     register_executor("my_windowed", my_win, wants="halo_extended")
+    register_executor("my_card", my_card, takes_fields=True)
     launch(spec, Target("my_backend"), *arrays)
 
 Registering a new architecture is *one* ``register_executor`` call — the
@@ -50,13 +59,18 @@ EXECUTOR_WANTS = ("gathered", "halo_extended")
 class ExecutorEntry(NamedTuple):
     """One registry row: the executor callable plus its declared input
     capability (see ``EXECUTOR_WANTS``), the ``Target.tuning`` keys it
-    consults (``tunables`` — the sweep surface) and the VVLs it launches
-    with (``vvls``; ``None``: any positive VVL)."""
+    consults (``tunables`` — the sweep surface), the VVLs it launches
+    with (``vvls``; ``None``: any positive VVL), whether it reads stencil
+    fields in place (``takes_fields``) and its shared-memory estimate
+    (``smem_bytes``: ``plan -> bytes`` a block of its kernel holds;
+    ``None``: none)."""
 
     fn: Callable
     wants: str
     tunables: tuple[str, ...] = ()
     vvls: tuple[int, ...] | None = None
+    takes_fields: bool = False
+    smem_bytes: Callable | None = None
 
 
 _EXECUTORS: dict[str, ExecutorEntry] = {}
@@ -66,7 +80,9 @@ _VERSION = 0
 def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
                       wants: str = "gathered",
                       tunables: tuple[str, ...] = (),
-                      vvls: tuple[int, ...] | None = None) -> None:
+                      vvls: tuple[int, ...] | None = None,
+                      takes_fields: bool = False,
+                      smem_bytes: Callable | None = None) -> None:
     """Register ``fn`` as the executor behind ``Target(backend=name)``.
 
     ``wants`` declares the input capability: ``"gathered"`` (default)
@@ -79,6 +95,12 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
     ``vvls`` lists the VVLs the executor's kernels are built for (the
     autotuner's VVL axis; the first is what ``vvl=None`` resolves to);
     ``None`` means any positive VVL.
+
+    ``takes_fields=True`` skips the prologue: each stencil field reaches
+    the executor as the caller's own array viewed as ``(ncomp, *(shape +
+    2·halo))``, and its kernel resolves neighbours, periodic wrap
+    included, in place.  ``smem_bytes(plan)`` estimates the shared memory
+    a block of its kernel holds (:meth:`LaunchPlan.vmem_bytes_estimate`).
 
     Raises ``ValueError`` on duplicate names unless ``overwrite=True``.
     """
@@ -98,7 +120,8 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
         raise ValueError(
             f"executor {name!r} is already registered; pass overwrite=True "
             f"to replace it")
-    _EXECUTORS[name] = ExecutorEntry(fn, wants, tunables, vvls)
+    _EXECUTORS[name] = ExecutorEntry(fn, wants, tunables, vvls,
+                                     bool(takes_fields), smem_bytes)
     _VERSION += 1
 
 

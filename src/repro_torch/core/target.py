@@ -6,8 +6,10 @@ memory layout, and an executor-specific ``tuning`` mapping.  Being frozen
 and hashable, a Target participates directly in the launch plan cache key.
 
 Executors of this package: ``"torch"`` (plain PyTorch, the oracle and CPU
-path), ``"cuda"`` (the gathered CUDA kernel) and ``"cuda_windowed"`` (the
-gather-free CUDA stencil kernel, ``wants="halo_extended"``).
+path), ``"cuda"`` (the CUDA site-kernel executor) and ``"cuda_windowed"``
+(its stencil-only partner, ``wants="halo_extended"``, whose fused step runs
+in shared-memory tiles ``plane_block`` x-planes deep); both CUDA executors
+read stencil fields in place.
 """
 from __future__ import annotations
 

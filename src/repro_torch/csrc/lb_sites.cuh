@@ -4,27 +4,30 @@
 // (stream, grad6, moment, collide, fused, phi_stream, fused_two) as
 // templates over a *neighbour accessor*: a site function reads
 // nb.at(field, slot, comp, lane) and writes nb.put(out, comp, lane, value),
-// and never sees the memory layout.  Two launchers instantiate them and
-// differ only in the accessor they pass:
+// and never sees the memory layout.  One accessor, FieldNb, serves both
+// launchers: a stencil field is the caller's own (ncomp, X+2hx, Y+2hy,
+// Z+2hz) array, read in place; a dimension with no ghost planes (h == 0)
+// wraps periodically inside the accessor, one with h > 0 reads the
+// caller's ghost planes.  No neighbour stack and no padded copy exists.
 //
-//   tdp_gathered.cu  GatheredNb  — (noffsets, ncomp, n) neighbour stacks
-//                                  and (ncomp, n) pointwise arrays;
-//   tdp_windowed.cu  WindowedNb  — halo-extended (ncomp, X+2r, Y+2r, Z+2r)
-//                                  grids, offsets resolved in the kernel.
+//   tdp_gathered.cu  every site function, one thread per VVL z-sites;
+//   tdp_windowed.cu  the stencil site functions the same way, except
+//                    `fused`, which runs in shared-memory tiles
+//                    (fused_tile_phi / fused_tile_collide below).
 //
 // lb_collision.cu runs collide_core() over plain SoA arrays.
 //
 // One thread covers VVL consecutive sites (the paper's TARGET_TLP strip,
-// TARGET_ILP lanes); the per-thread bodies gathered_thread() and
-// windowed_thread() are __host__ __device__, so the same code runs in a
-// host loop for testing on a machine without a card.
+// TARGET_ILP lanes); the per-thread body field_thread() and the tile phases
+// are __host__ __device__, so the same code runs in a host loop for testing
+// on a machine without a card.
 //
 // The velocity set, weights and stencil slot tables are compile-time, so
 // products with c = 0 and c = ±1 fold away.  Arithmetic keeps the plain
 // version's association order (cu*cu, phi*phi*phi, ascending-q phi sums,
 // the grad6 Laplacian order); FMA contraction still changes rounding, so
-// the card is held to tolerances, not to bit-identity.  Every index is
-// 64-bit: the one-launch g-stack at 128^3 has 57*19*2^21 > INT_MAX entries.
+// the card is held to tolerances, not to bit-identity.  Component strides
+// are 64-bit.
 #pragma once
 
 #include <cstdint>
@@ -53,6 +56,8 @@ constexpr int MAX_OUT = 2;
 // Error codes of the C entries besides cudaError_t values (all positive).
 constexpr int ERR_BAD_SITE = -1;
 constexpr int ERR_BAD_VVL = -2;
+constexpr int ERR_GEOMETRY = -6;
+constexpr int ERR_PLANE_BLOCK = -7;
 
 enum SiteId : int {
   SITE_STREAM = 0,
@@ -225,6 +230,7 @@ __host__ __device__ __forceinline__ void grad6_from_p(const float (&p)[7],
 
 struct StreamSite {
   static constexpr int NIN = 1, NOUT = 1;
+  static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int) { return ST_PULL; }
   template <class Nb>
@@ -236,6 +242,7 @@ struct StreamSite {
 
 struct Grad6Site {
   static constexpr int NIN = 1, NOUT = 2;
+  static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int) { return 1; }
   __host__ __device__ static constexpr int stencil(int) { return ST_GRAD6; }
   template <class Nb>
@@ -252,6 +259,7 @@ struct Grad6Site {
 
 struct MomentSite {
   static constexpr int NIN = 1, NOUT = 1;
+  static constexpr int RADIUS = 0;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int) { return ST_POINT; }
   template <class Nb>
@@ -276,6 +284,7 @@ __host__ __device__ __forceinline__ void put_fg(const Nb& nb, int lane,
 
 struct CollideSite {  // fields: f, g, phi, gradphi, del2phi (all pointwise)
   static constexpr int NIN = 5, NOUT = 2;
+  static constexpr int RADIUS = 0;
   __host__ __device__ static constexpr int ncomp_in(int i) {
     return i < 2 ? NVEL : (i == 3 ? 3 : 1);
   }
@@ -295,15 +304,30 @@ struct CollideSite {  // fields: f, g, phi, gradphi, del2phi (all pointwise)
   }
 };
 
+// The fused site function's tail: grad(phi) and lap(phi) from phi at the 7
+// grad-star slots, then the collision of the pulled f and g.
+template <class Nb>
+__host__ __device__ __forceinline__ void fused_tail(const Nb& nb, int lane,
+                                                    const float (&f)[NVEL],
+                                                    const float (&g)[NVEL],
+                                                    const float (&ph)[7],
+                                                    const Phys& p) {
+  float grad[3], lap, fo[NVEL], go[NVEL];
+  grad6_from_p(ph, grad, lap);
+  collide_core(f, g, ph[0], grad, lap, p, fo, go);
+  put_fg(nb, lane, fo, go);
+}
+
 struct FusedSite {  // fields: f (pull), g (fused_g, radius 2)
   static constexpr int NIN = 2, NOUT = 2;
+  static constexpr int RADIUS = 2;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int i) {
     return i == 0 ? ST_PULL : ST_FUSED_G;
   }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys& p) {
-    float f[NVEL], g[NVEL], ph[7], grad[3], lap, fo[NVEL], go[NVEL];
+    float f[NVEL], g[NVEL], ph[7];
 #pragma unroll
     for (int q = 0; q < NVEL; ++q) {
       f[q] = nb.at(0, pull_idx(q), q, lane);
@@ -321,14 +345,13 @@ struct FusedSite {  // fields: f (pull), g (fused_g, radius 2)
       for (int q = 1; q < NVEL; ++q) acc = acc + nb.at(1, fused_g_idx(d, q), q, lane);
       ph[d] = acc;
     }
-    grad6_from_p(ph, grad, lap);
-    collide_core(f, g, ph[0], grad, lap, p, fo, go);
-    put_fg(nb, lane, fo, go);
+    fused_tail(nb, lane, f, g, ph, p);
   }
 };
 
 struct PhiStreamSite {  // field: g (pull)
   static constexpr int NIN = 1, NOUT = 1;
+  static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int) { return ST_PULL; }
   template <class Nb>
@@ -342,6 +365,7 @@ struct PhiStreamSite {  // field: g (pull)
 
 struct FusedTwoSite {  // fields: f (pull), g (pull), phi_streamed (grad6)
   static constexpr int NIN = 3, NOUT = 2;
+  static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int i) { return i < 2 ? NVEL : 1; }
   __host__ __device__ static constexpr int stencil(int i) {
     return i < 2 ? ST_PULL : ST_GRAD6;
@@ -363,71 +387,76 @@ struct FusedTwoSite {  // fields: f (pull), g (pull), phi_streamed (grad6)
 };
 
 // ---------------------------------------------------------------------------
-// accessors and per-thread bodies
+// the neighbour accessor and the per-thread body
 // ---------------------------------------------------------------------------
 
-// Gathered operands: stencil field f is a (noffsets, ncomp, n) stack, a
-// pointwise field a (ncomp, n) array; outputs are (ncomp, n).
-struct GatheredIO {
-  const float* in[MAX_IN];
-  float* out[MAX_OUT];
-  int64_t n;
-  Phys phys;
-};
-
-template <class Site>
-struct GatheredNb {
-  const GatheredIO& io;
-  int64_t site0;
-  __host__ __device__ __forceinline__ float at(int f, int slot, int c, int lane) const {
-    return ldg(io.in[f] + ((int64_t)slot * Site::ncomp_in(f) + c) * io.n + site0 + lane);
-  }
-  __host__ __device__ __forceinline__ void put(int k, int c, int lane, float v) const {
-    io.out[k][(int64_t)c * io.n + site0 + lane] = v;
-  }
-};
-
-// Thread t covers sites [t*VVL, t*VVL + VVL); the ragged last strip is masked.
-template <class Site, int VVL>
-__host__ __device__ __forceinline__ void gathered_thread(const GatheredIO& io, int64_t t) {
-  const int64_t site0 = t * VVL;
-  if (site0 >= io.n) return;
-  const GatheredNb<Site> nb{io, site0};
-#pragma unroll
-  for (int l = 0; l < VVL; ++l)
-    if (site0 + l < io.n) Site::run(nb, l, io.phys);
-}
-
-template <int VVL>
-__host__ __device__ __forceinline__ int64_t gathered_threads(const GatheredIO& io) {
-  return (io.n + VVL - 1) / VVL;
-}
-
-// Halo-extended operands: stencil field f is a (ncomp, X+2r, Y+2r, Z+2r)
-// grid with r = st_radius(Site::stencil(f)); pointwise fields and outputs
-// are (ncomp, X*Y*Z) over the interior.
-struct WindowedIO {
+// Field operands, one form for both launchers: stencil field i is the
+// caller's own (ncomp, X+2hx, Y+2hy, Z+2hz) array, read in place; a
+// pointwise field and every output are (ncomp, X*Y*Z) over the interior.
+// A launch with no stencil field passes (1, 1, n) and no ghost planes.
+struct FieldIO {
   const float* in[MAX_IN];
   float* out[MAX_OUT];
   int X, Y, Z;
+  int hx, hy, hz;
   int64_t n;
   Phys phys;
 };
 
-template <class Site>
-struct WindowedNb {
-  const WindowedIO& io;
-  int x, y, z0;
-  int64_t site0;
+// Where site coordinate c + o lies along a dimension of interior extent s
+// stored with h ghost planes on each side: wrapped periodically when h == 0
+// (one correction suffices while |o| <= s and -1 <= c <= s, which
+// check_geometry() ensures), on the caller's ghost planes when h > 0.
+__host__ __device__ __forceinline__ int wrap(int c, int o, int s, int h) {
+  if (h) return c + o + h;
+  const int v = c + o;
+  return v < 0 ? v + s : (v >= s ? v - s : v);
+}
+
+// 0, or ERR_GEOMETRY when a stencil of radius r cannot be served: r above a
+// periodic extent (h == 0), or fewer ghost planes than r (h > 0).
+inline int check_geometry(const FieldIO& io, int r) {
+  const int s[3] = {io.X, io.Y, io.Z}, h[3] = {io.hx, io.hy, io.hz};
+  for (int d = 0; d < 3; ++d)
+    if (r && (h[d] ? h[d] < r : r > s[d])) return ERR_GEOMETRY;
+  return 0;
+}
+
+// The neighbour accessor of VVL consecutive z-sites (x, y, z0 .. z0+VVL-1).
+// The wrapped coordinate of every offset value -R..R the site function's
+// stencils can name (R = Site::RADIUS) is worked out once, at construction,
+// as an element offset per dimension: ox[o + R], oy[o + R] and, for lane l,
+// oz[l + o + R].  A read then adds three of them, picked at compile time
+// from the stencil tables.  Offsets within one component are 32-bit (the
+// wrapper checks that a component of an extended field has fewer than 2^31
+// elements).
+template <class Site, int VVL>
+struct FieldNb {
+  static constexpr int R = Site::RADIUS;
+  const FieldIO& io;
+  int64_t site0;  // flat interior index of lane 0
+  int64_t cs;     // component stride of a stencil field
+  int ox[2 * R + 1], oy[2 * R + 1], oz[2 * R + VVL];
+
+  __host__ __device__ __forceinline__ FieldNb(const FieldIO& io_, int x, int y, int z0)
+      : io(io_), site0(((int64_t)x * io_.Y + y) * io_.Z + z0), cs(0) {
+    if constexpr (R > 0) {
+      const int ze = io.Z + 2 * io.hz, yze = (io.Y + 2 * io.hy) * ze;
+      cs = (int64_t)(io.X + 2 * io.hx) * yze;
+#pragma unroll
+      for (int o = -R; o <= R; ++o) {
+        ox[o + R] = wrap(x, o, io.X, io.hx) * yze;
+        oy[o + R] = wrap(y, o, io.Y, io.hy) * ze;
+      }
+#pragma unroll
+      for (int k = 0; k < 2 * R + VVL; ++k) oz[k] = wrap(z0, k - R, io.Z, io.hz);
+    }
+  }
   __host__ __device__ __forceinline__ float at(int f, int slot, int c, int lane) const {
     const int st = Site::stencil(f);
     if (st == ST_POINT) return ldg(io.in[f] + (int64_t)c * io.n + site0 + lane);
-    const int r = st_radius(st);
-    const int64_t ye = io.Y + 2 * r, ze = io.Z + 2 * r;
-    const int64_t xx = x + r + st_off(st, slot, 0);
-    const int64_t yy = y + r + st_off(st, slot, 1);
-    const int64_t zz = z0 + lane + r + st_off(st, slot, 2);
-    return ldg(io.in[f] + (((int64_t)c * (io.X + 2 * r) + xx) * ye + yy) * ze + zz);
+    return ldg(io.in[f] + c * cs + (ox[st_off(st, slot, 0) + R] + oy[st_off(st, slot, 1) + R]
+                                    + oz[lane + st_off(st, slot, 2) + R]));
   }
   __host__ __device__ __forceinline__ void put(int k, int c, int lane, float v) const {
     io.out[k][(int64_t)c * io.n + site0 + lane] = v;
@@ -435,24 +464,152 @@ struct WindowedNb {
 };
 
 // Thread t covers VVL consecutive z-sites of one (x, y) row of the interior,
-// so neighbouring threads read neighbouring addresses.
+// so neighbouring threads read neighbouring addresses; the ragged end of a
+// row is masked.  A site function with no stencil field takes the sites as
+// one flat row.  The thread count is below 2^31 (the wrapper bounds a
+// component of a field), so the index arithmetic is 32-bit.
 template <class Site, int VVL>
-__host__ __device__ __forceinline__ void windowed_thread(const WindowedIO& io, int64_t t) {
+__host__ __device__ __forceinline__ void field_thread(const FieldIO& io, int64_t t64) {
   const int nzb = (io.Z + VVL - 1) / VVL;
-  if (t >= (int64_t)io.X * io.Y * nzb) return;
-  const int zb = (int)(t % nzb);
-  const int64_t xy = t / nzb;
-  const int y = (int)(xy % io.Y), x = (int)(xy / io.Y);
-  const int z0 = zb * VVL;
-  const WindowedNb<Site> nb{io, x, y, z0, ((int64_t)x * io.Y + y) * io.Z + z0};
+  if (t64 >= (int64_t)io.X * io.Y * nzb) return;
+  const int t = (int)t64;
+  int x = 0, y = 0, z0 = t * VVL, zend = (int)io.n;
+  if constexpr (Site::RADIUS > 0) {
+    const int xy = t / nzb;
+    y = xy % io.Y;
+    x = xy / io.Y;
+    z0 = (t % nzb) * VVL;
+    zend = io.Z;
+  }
+  const FieldNb<Site, VVL> nb(io, x, y, z0);
 #pragma unroll
   for (int l = 0; l < VVL; ++l)
-    if (z0 + l < io.Z) Site::run(nb, l, io.phys);
+    if (z0 + l < zend) Site::run(nb, l, io.phys);
 }
 
 template <int VVL>
-__host__ __device__ __forceinline__ int64_t windowed_threads(const WindowedIO& io) {
+__host__ __device__ __forceinline__ int64_t field_threads(const FieldIO& io) {
   return (int64_t)io.X * io.Y * ((io.Z + VVL - 1) / VVL);
+}
+
+// ---------------------------------------------------------------------------
+// the fused site function in shared-memory tiles (tdp_windowed.cu)
+// ---------------------------------------------------------------------------
+//
+// A block takes P x-planes (P = plane_block) by a TILE_Y x TILE_Z patch of
+// sites, and a rim of one site around it.  Phase 1 sums the streamed phi,
+// phi(s) = sum_q g_q(s - c_q), of every site of tile and rim into shared
+// memory; phase 2 gives each site of the tile its 7 grad-star phi from
+// there and collides its pulled f and g (read once per component).  The
+// untiled FusedSite sums the 6 neighbours' phi again at every site: 133 g
+// reads a site, against 19 per site of tile and rim here.  Both phases are
+// functions of (block, thread, shared array): the kernel runs them with a
+// barrier between, the host harness block by block.
+
+constexpr int TILE_Y = 8, TILE_Z = 32;
+constexpr int RIM_Y = TILE_Y + 2, RIM_Z = TILE_Z + 2;
+// Shared memory a block may hold on the H100 (227 KB).
+constexpr int64_t SMEM_LIMIT = 232448;
+
+template <int VVL>
+__host__ __device__ constexpr int tile_threads() { return TILE_Y * TILE_Z / VVL; }
+
+__host__ __device__ inline int64_t tile_smem_bytes(int P) {
+  return ((int64_t)P + 2) * RIM_Y * RIM_Z * (int64_t)sizeof(float);
+}
+
+// 0, or ERR_PLANE_BLOCK when P is not positive or the tile does not fit.
+inline int check_tile(int P) {
+  return P <= 0 || tile_smem_bytes(P) > SMEM_LIMIT ? ERR_PLANE_BLOCK : 0;
+}
+
+__host__ __device__ inline int64_t tile_blocks(const FieldIO& io, int P) {
+  return (int64_t)((io.X + P - 1) / P) * ((io.Y + TILE_Y - 1) / TILE_Y) *
+         ((io.Z + TILE_Z - 1) / TILE_Z);
+}
+
+// Block b's tile corner; z-tiles vary fastest, then y, then x, so blocks in
+// flight together share their rims in L2.
+struct TileCorner {
+  int x0, y0, z0;
+};
+
+__host__ __device__ inline TileCorner tile_corner(const FieldIO& io, int P, int64_t b) {
+  const int nz = (io.Z + TILE_Z - 1) / TILE_Z, ny = (io.Y + TILE_Y - 1) / TILE_Y;
+  const int bz = (int)(b % nz);
+  b /= nz;
+  return {(int)(b / ny) * P, (int)(b % ny) * TILE_Y, bz * TILE_Z};
+}
+
+// Pull-only field access of the tile's sites (f and g, radius 1).
+struct TileSite {
+  static constexpr int NIN = 2, NOUT = 2;
+  static constexpr int RADIUS = 1;
+  __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
+  __host__ __device__ static constexpr int stencil(int) { return ST_PULL; }
+};
+
+// Phase 1: thread tid sums phi at rim-box sites tid, tid + threads, ... of
+// the (P+2) x RIM_Y x RIM_Z box with corner (x0-1, y0-1, z0-1), z fastest,
+// into phi[site].  Box sites past the far rim of the lattice (x > X, ...)
+// belong to no tile site's star and are skipped.
+template <int VVL>
+__host__ __device__ __forceinline__ void fused_tile_phi(const FieldIO& io, int P,
+                                                        int64_t block, int tid,
+                                                        float* phi) {
+  const TileCorner t = tile_corner(io, P, block);
+  const float* g = io.in[1];
+  const int ze = io.Z + 2 * io.hz, yze = (io.Y + 2 * io.hy) * ze;
+  const int64_t cs = (int64_t)(io.X + 2 * io.hx) * yze;
+  const int nbox = (P + 2) * RIM_Y * RIM_Z;
+  for (int s = tid; s < nbox; s += tile_threads<VVL>()) {
+    const int x = t.x0 - 1 + s / (RIM_Y * RIM_Z);
+    const int y = t.y0 - 1 + (s / RIM_Z) % RIM_Y;
+    const int z = t.z0 - 1 + s % RIM_Z;
+    if (x > io.X || y > io.Y || z > io.Z) continue;
+    int ix[3], iy[3], iz[3];
+#pragma unroll
+    for (int o = -1; o <= 1; ++o) {
+      ix[o + 1] = wrap(x, o, io.X, io.hx) * yze;
+      iy[o + 1] = wrap(y, o, io.Y, io.hy) * ze;
+      iz[o + 1] = wrap(z, o, io.Z, io.hz);
+    }
+    float acc = ldg(g + (ix[1] + iy[1] + iz[1]));
+#pragma unroll
+    for (int q = 1; q < NVEL; ++q)
+      acc = acc + ldg(g + q * cs + (ix[1 - cv(q, 0)] + iy[1 - cv(q, 1)] + iz[1 - cv(q, 2)]));
+    phi[s] = acc;
+  }
+}
+
+// Phase 2: thread tid takes row y0 + tid / (TILE_Z/VVL) and the VVL z-sites
+// from z0 + (tid % (TILE_Z/VVL))·VVL, at each of the tile's P planes.
+template <int VVL>
+__host__ __device__ __forceinline__ void fused_tile_collide(const FieldIO& io, int P,
+                                                            int64_t block, int tid,
+                                                            const float* phi) {
+  constexpr int ZT = TILE_Z / VVL;
+  constexpr int PX = RIM_Y * RIM_Z;
+  const TileCorner t = tile_corner(io, P, block);
+  const int j = tid / ZT, zl = (tid % ZT) * VVL;
+  const int y = t.y0 + j, z0 = t.z0 + zl;
+  if (y >= io.Y || z0 >= io.Z) return;
+  for (int i = 0; i < P && t.x0 + i < io.X; ++i) {
+    const FieldNb<TileSite, VVL> nb(io, t.x0 + i, y, z0);
+#pragma unroll
+    for (int l = 0; l < VVL; ++l) {
+      if (z0 + l >= io.Z) break;
+      const float* c = phi + ((i + 1) * RIM_Y + j + 1) * RIM_Z + zl + l + 1;
+      const float ph[7] = {c[0], c[PX], c[-PX], c[RIM_Z], c[-RIM_Z], c[1], c[-1]};
+      float f[NVEL], g[NVEL];
+#pragma unroll
+      for (int q = 0; q < NVEL; ++q) {
+        f[q] = nb.at(0, pull_idx(q), q, l);
+        g[q] = nb.at(1, pull_idx(q), q, l);
+      }
+      fused_tail(nb, l, f, g, ph, io.phys);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

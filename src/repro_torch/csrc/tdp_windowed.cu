@@ -5,24 +5,31 @@
 // halo-extended field DMA'd into VMEM, neighbour offsets resolved in the
 // kernel).
 //
-// Design: each stencil field arrives once, halo-extended by its stencil
-// radius (the PyTorch prologue's circular pad); one thread covers VVL
-// consecutive z-sites of one (x, y) row, VVL in {1, 2, 4, 8}, and resolves
-// every neighbour offset at compile time from the site function's stencil
-// tables — the (noffsets, ncomp, n) stack never exists in device memory.
-// Neighbouring threads read neighbouring addresses, so each of the
-// noffsets*ncomp reads of a warp is one coalesced line; reuse between
-// neighbouring sites is left to L1/L2 (no shared-memory window, no y/z
-// tiles yet).
+// Design: each stencil field arrives as the caller's own (ncomp, X+2hx,
+// Y+2hy, Z+2hz) array; periodic dimensions (h == 0) wrap inside the
+// neighbour accessor (FieldNb, lb_sites.cuh), so no halo-extended copy is
+// made.  stream, grad6, phi_stream and fused_two run one thread per VVL
+// consecutive z-sites of one (x, y) row, as the gathered launcher does.
+// fused runs in tiles (fused_tile_kernel): a block of 256/VVL threads
+// takes plane_block x-planes by an 8 x 32 (y, z) patch plus a one-site
+// rim, sums the streamed phi of tile and rim into shared memory (phase
+// 1), then collides each tile site with its 7 grad-star phi from there and
+// its pulled f and g (phase 2).  The reference's VMEM window becomes this
+// tile: plane_block is its depth, and a tile past the 227 KB a block may
+// hold is refused.
 //
-// Bound on the H100 (3.35 TB/s): device-memory bytes.  The function's
-// minimum per site is its inputs read once and outputs written once: fused
-// 304, fused_two 308, stream 152, phi_stream 80, grad6 20 bytes.  The
-// kernel issues noffsets reads per input component (19 per population for
-// stream, 7*19 for the fused g-field); they reach device memory only as
-// often as L1/L2 miss, which is what keeps this executor near the byte
-// bound where the gathered one pays the noffsets-fold stack.
+// Bound on the H100 (3.35 TB/s): device-memory bytes, each input read once
+// and each output written once: fused 304, fused_two 308, stream 152,
+// phi_stream 80, grad6 20 bytes/site.  The untiled fused read g at 133
+// (slot, component) addresses a site; the tile reads it at 19 a site of
+// tile and rim ((P+2)·10·34 / (P·8·32) of the tile's sites) plus 19 in
+// phase 2, and its rims are shared in L2 by blocks in flight together.
+// Loads go through the read-only cache (ldg), 19 independent ones a site
+// in each phase; no cp.async or TMA, since the rim wraps and a box copy
+// does not.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "lb_sites.cuh"
 
@@ -30,40 +37,85 @@ namespace {
 
 constexpr int kBlock = 128;
 
+struct WindowedArgs {
+  tdp::FieldIO io;
+  int plane_block;
+};
+
 template <class Site, int VVL>
 __global__ void __launch_bounds__(kBlock)
-    windowed_kernel(const __grid_constant__ tdp::WindowedIO io) {
-  tdp::windowed_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+    field_kernel(const __grid_constant__ tdp::FieldIO io) {
+  tdp::field_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+// 16 warps an SM at least: at most 128 registers a thread.
+template <int VVL>
+__global__ void __launch_bounds__(tdp::tile_threads<VVL>(), 512 / tdp::tile_threads<VVL>())
+    fused_tile_kernel(const __grid_constant__ tdp::FieldIO io, int P) {
+  extern __shared__ float phi[];
+  tdp::fused_tile_phi<VVL>(io, P, blockIdx.x, threadIdx.x, phi);
+  __syncthreads();
+  tdp::fused_tile_collide<VVL>(io, P, blockIdx.x, threadIdx.x, phi);
+}
+
+template <int VVL>
+int launch_tiled(const tdp::FieldIO& io, int P, void* stream) {
+  if (const int rc = tdp::check_tile(P)) return rc;
+  const int64_t smem = tdp::tile_smem_bytes(P);
+  const int64_t blocks = tdp::tile_blocks(io, P);
+  if (blocks == 0) return 0;
+  static bool granted = false;  // dynamic shared memory above 48 KB
+  if (smem > 48 * 1024 && !granted) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        fused_tile_kernel<VVL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tdp::SMEM_LIMIT);
+    if (rc != cudaSuccess) return (int)rc;
+    granted = true;
+  }
+  fused_tile_kernel<VVL><<<(unsigned)blocks, tdp::tile_threads<VVL>(), (size_t)smem,
+                           (cudaStream_t)stream>>>(io, P);
+  return (int)cudaGetLastError();
 }
 
 template <class Site, int VVL>
 struct Launch {
-  static int run(const tdp::WindowedIO& io, void* stream) {
-    const int64_t threads = tdp::windowed_threads<VVL>(io);
-    if (threads == 0) return 0;
-    const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
-    windowed_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(io);
-    return (int)cudaGetLastError();
+  static int run(const WindowedArgs& a, void* stream) {
+    if (const int rc = tdp::check_geometry(a.io, Site::RADIUS)) return rc;
+    if constexpr (std::is_same_v<Site, tdp::FusedSite>) {
+      return launch_tiled<VVL>(a.io, a.plane_block, stream);
+    } else {
+      const int64_t threads = tdp::field_threads<VVL>(a.io);
+      if (threads == 0) return 0;
+      const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
+      field_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a.io);
+      return (int)cudaGetLastError();
+    }
   }
 };
 
 }  // namespace
 
-// in[i]: halo-extended (ncomp, X+2r, Y+2r, Z+2r) grid of stencil field i or
-// (ncomp, X*Y*Z) pointwise array; out[k]: (ncomp, X*Y*Z).  float32,
-// contiguous.  Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE /
-// tdp::ERR_BAD_VVL.
-extern "C" int tdp_windowed_launch(int site, int vvl, const void* const* in,
-                                   void* const* out, int X, int Y, int Z,
+// in[i]: the (ncomp, X+2hx, Y+2hy, Z+2hz) array of stencil field i or the
+// (ncomp, X*Y*Z) array of a pointwise one; out[k]: (ncomp, X*Y*Z).
+// float32, contiguous.  plane_block: the x-depth of fused's tiles.
+// Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE / ERR_BAD_VVL /
+// ERR_GEOMETRY / ERR_PLANE_BLOCK.
+extern "C" int tdp_windowed_launch(int site, int vvl, int plane_block,
+                                   const void* const* in, void* const* out,
+                                   int X, int Y, int Z, int hx, int hy, int hz,
                                    float A, float B, float kappa, float tau,
                                    float tau_phi, float gamma, void* stream) {
-  tdp::WindowedIO io{};
-  for (int i = 0; i < tdp::MAX_IN; ++i) io.in[i] = static_cast<const float*>(in[i]);
-  for (int k = 0; k < tdp::MAX_OUT; ++k) io.out[k] = static_cast<float*>(out[k]);
-  io.X = X;
-  io.Y = Y;
-  io.Z = Z;
-  io.n = (int64_t)X * Y * Z;
-  io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
-  return tdp::dispatch_site<Launch>(site, vvl, io, stream);
+  WindowedArgs a{};
+  for (int i = 0; i < tdp::MAX_IN; ++i) a.io.in[i] = static_cast<const float*>(in[i]);
+  for (int k = 0; k < tdp::MAX_OUT; ++k) a.io.out[k] = static_cast<float*>(out[k]);
+  a.io.X = X;
+  a.io.Y = Y;
+  a.io.Z = Z;
+  a.io.hx = hx;
+  a.io.hy = hy;
+  a.io.hz = hz;
+  a.io.n = (int64_t)X * Y * Z;
+  a.io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
+  a.plane_block = plane_block;
+  return tdp::dispatch_site<Launch>(site, vvl, a, stream);
 }

@@ -50,7 +50,11 @@ MAMBA_NSTATES = (8, 16)
 _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
            -3: "head_dim not instantiated (16, 32, 64, 128, 256)",
            -4: "Hq is not a multiple of Hkv",
-           -5: f"d_state not instantiated {MAMBA_NSTATES}"}
+           -5: f"d_state not instantiated {MAMBA_NSTATES}",
+           -6: "a stencil radius exceeds a periodic extent or the ghost "
+               "planes",
+           -7: "plane_block must be positive and its tile fit the 227 KB a "
+               "block may hold"}
 
 
 def _nvcc() -> str:

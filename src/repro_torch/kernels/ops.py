@@ -9,7 +9,7 @@ carries on quietly on the CPU.  The default target follows the device:
   on the card, ``"torch"`` (the plain oracle) on the CPU;
 * ``lb_fused_step`` — ``"cuda_windowed"`` on the card, ``"torch"`` on the
   CPU;
-* ``rmsnorm``, ``gated_act``, ``mamba_scan`` — ``"cuda"`` (the gathered
+* ``rmsnorm``, ``gated_act``, ``mamba_scan`` — ``"cuda"`` (the site-kernel
   executor running the LM site functions of ``csrc/lm_sites.cuh``) on the
   card, ``"torch"`` on the CPU, both through ``tdp.launch``;
 * ``flash_attention`` — ``"cuda"`` (``csrc/flash_attention.cu``) on the card,

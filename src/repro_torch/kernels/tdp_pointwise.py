@@ -1,12 +1,16 @@
-"""The ``"cuda"`` executor — the gathered targetDP executor on Hopper.
+"""The ``"cuda"`` executor — the targetDP site-kernel executor on Hopper.
 
 Port of the Pallas executor ``repro/kernels/tdp_pointwise.py:_run_pallas``.
-The launch prologue (:func:`repro_torch.core.api.gather_neighbors`, in
-PyTorch as the reference's stays in XLA) hands it one ``(noffsets, ncomp,
-n)`` neighbour stack per stencil field and one ``(ncomp, n)`` array per
-pointwise field.  ``csrc/tdp_gathered.cu`` maps the site function over the
-sites, one thread per strip of ``Target.vvl`` consecutive sites (``None``
-→ 1; any value outside {1, 2, 4, 8} raises).
+Where the reference's prologue gathers a ``(noffsets, ncomp, n)``
+neighbour stack for each stencil field, this executor is registered with
+``takes_fields=True``: it gets each stencil field as the caller's own
+array, viewed as ``(ncomp, *(shape + 2·halo))``, and each pointwise field
+as ``(ncomp, n)``.  ``csrc/tdp_gathered.cu`` maps the D3Q19 site function
+over the sites, one thread per ``Target.vvl`` consecutive z-sites of a row
+(``None`` → 1; any value outside {1, 2, 4, 8} raises), and reads each
+neighbour in place: periodic dimensions (halo 0) wrap inside the kernel,
+the others read the caller's ghost planes.  A launch with no stencil field
+runs as one row of ``n`` sites.
 
 The site function is the one the spec's plain body names in its
 ``__cuda_site__`` attribute; a spec whose body has none raises
@@ -21,10 +25,11 @@ and two outputs.  ``gated``/``act`` map ``Target.vvl`` 16-byte groups to a
 thread (scalars where an operand is not 16-byte aligned, as a view at a
 storage offset may be); ``rmsnorm`` maps it to the tokens of a lane, a
 block of warps sharing each token's components (one block sweeping the
-array below 32 tokens).  Each site function checks its own fields and consts.  CUDA
-tensors launch the kernel or raise; CPU tensors run the plain body through
-the ``"torch"`` executor.  :data:`launches` counts kernel launches per site
-function.
+array below 32 tokens).  Each site function checks its own fields and
+consts.  CUDA tensors launch the kernel or raise; CPU tensors run the plain
+version (:func:`fields_plain`: each stencil field's neighbours gathered by
+:func:`repro_torch.core.api.gather_neighbors`, then the plain body).
+:data:`launches` counts kernel launches per site function.
 """
 from __future__ import annotations
 
@@ -143,6 +148,53 @@ def phys_args(consts) -> list[float]:
     return [float(consts.get(k, v)) for k, v in PHYS_DEFAULTS.items()]
 
 
+def lb_geometry(plan, fields) -> tuple[int, ...]:
+    """``(X, Y, Z, hx, hy, hz)`` of an LB launch for the C entries: the
+    lattice and its ghost planes when a field carries a stencil, one row of
+    ``n`` sites otherwise.  Checks each field's shape, and that a
+    component of a field has fewer than 2³¹ elements (the kernels'
+    in-component offsets and thread indices are 32-bit)."""
+    if not any(s is not None for s in plan.stencils or ()):
+        n = int(fields[0].shape[-1])
+        if n >= 2 ** 31:
+            raise ValueError(f"kernel {plan.name!r}: {n} sites is 2^31 or "
+                             f"more")
+        check_cuda_tensors(fields, [(c, n) for c, _ in plan._fields()],
+                           f"kernel {plan.name!r}")
+        return (1, 1, n, 0, 0, 0)
+    if plan.shape is None or len(plan.shape) != 3:
+        raise ValueError(f"kernel {plan.name!r}: the D3Q19 site functions "
+                         f"need a 3-D lattice, got shape {plan.shape}")
+    halo = tuple(plan.halo or (0, 0, 0))
+    ext = tuple(s + 2 * h for s, h in zip(plan.shape, halo))
+    if ext[0] * ext[1] * ext[2] >= 2 ** 31:
+        raise ValueError(f"kernel {plan.name!r}: an extended grid of {ext} "
+                         f"sites has 2^31 or more per component")
+    n = plan.shape[0] * plan.shape[1] * plan.shape[2]
+    check_cuda_tensors(fields, [(c, n) if s is None else (c, *ext)
+                                for c, s in plan._fields()],
+                       f"kernel {plan.name!r}")
+    return (*plan.shape, *halo)
+
+
+def fields_plain(plan, fields, out=None):
+    """Plain version on the kernels' own operands: each stencil field
+    (``(ncomp, *(shape + 2·halo))``) gathered into its neighbour stack by
+    :func:`repro_torch.core.api.gather_neighbors` — the roll wraps
+    periodic dimensions, the ghost planes serve the others — then the
+    plain body once over all sites."""
+    from repro_torch.core.api import gather_neighbors, torch_executor
+
+    if not any(s is not None for s in plan.stencils or ()):
+        return torch_executor(plan, fields, out)
+    halo = tuple(plan.halo or (0,) * len(plan.shape))
+    prepared = tuple(
+        x if s is None else gather_neighbors(x.reshape(x.shape[0], -1),
+                                             plan.shape, halo, s)
+        for x, s in zip(fields, plan.stencils))
+    return torch_executor(plan, prepared, out)
+
+
 def pointer_arrays(ins, outs):
     """``(const void* in[5], void* out[2])`` for a C entry."""
     in_arr = (ctypes.c_void_p * 5)(*[x.data_ptr() for x in ins])
@@ -162,7 +214,7 @@ def _lib():
     fn = _build.load("tdp_gathered").tdp_gathered_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_longlong]
+                        ctypes.c_void_p] + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -242,30 +294,27 @@ def _lm_execute(plan, site, vvl, fields, out):
     return outs
 
 
-def cuda_execute(plan, gathered, out=None):
-    """Registry executor entry (see :mod:`repro_torch.core.registry`)."""
-    from repro_torch.core.api import torch_executor
-
+def cuda_execute(plan, fields, out=None):
+    """Registry executor entry (``takes_fields=True`` — see
+    :mod:`repro_torch.core.registry`)."""
     site = cuda_site(plan)
     vvl = cuda_vvl(plan.target.vvl)
-    x0 = gathered[0]
+    x0 = fields[0]
     if x0.device.type == "cpu":
-        return torch_executor(plan, gathered, out)
+        return fields_plain(plan, fields, out)
     if x0.device.type != "cuda":
         raise ValueError(f"executor 'cuda' runs on CUDA or CPU tensors, got "
                          f"{x0.device}")
     if site == "mamba":
-        return _mamba_execute(plan, vvl, gathered, out)
+        return _mamba_execute(plan, vvl, fields, out)
     if site in _build.LM_SITE_ID:
-        return _lm_execute(plan, site, vvl, gathered, out)
-    n = int(x0.shape[-1])
-    shapes = [(c, n) if s is None else (s.noffsets, c, n)
-              for c, s in plan._fields()]
-    check_cuda_tensors(gathered, shapes, f"kernel {plan.name!r}")
+        return _lm_execute(plan, site, vvl, fields, out)
+    geom = lb_geometry(plan, fields)
+    n = geom[0] * geom[1] * geom[2]
     outs = alloc_outputs(plan, x0, n, out)
-    in_arr, out_arr = pointer_arrays(gathered, outs)
+    in_arr, out_arr = pointer_arrays(fields, outs)
     with torch.cuda.device(x0.device):
-        rc = _lib()(_build.SITE_ID[site], vvl, in_arr, out_arr, n,
+        rc = _lib()(_build.SITE_ID[site], vvl, in_arr, out_arr, *geom,
                     *phys_args(plan.consts), _build.stream_handle(x0.device))
     _build.check(rc, f"tdp_gathered {site}")
     launches[site] += 1

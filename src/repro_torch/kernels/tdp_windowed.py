@@ -1,17 +1,28 @@
 """The ``"cuda_windowed"`` executor — the gather-free stencil executor.
 
 Port of the Pallas executor ``repro/kernels/tdp_windowed.py:
-windowed_execute``.  It declares ``wants="halo_extended"``, so the launch
-prologue (:func:`repro_torch.core.api.halo_extend`) hands it each stencil
-field **once**, as a halo-extended ``(ncomp, X+2r₀, Y+2r₁, Z+2r₂)`` grid,
-and ``csrc/tdp_windowed.cu`` resolves every neighbour offset in the kernel:
-the ``(noffsets, ncomp, n)`` stack of the gathered path never exists in
-device memory.  One thread covers ``Target.vvl`` consecutive z-sites
-(``None`` → 1; outside {1, 2, 4, 8} raises).
+windowed_execute``.  It declares ``wants="halo_extended"`` (stencil launches
+only; pointwise stages route to ``"cuda"``) and ``takes_fields=True``: each
+stencil field arrives as the caller's own array, viewed as ``(ncomp,
+*(shape + 2·halo))``, with no padded copy, and ``csrc/tdp_windowed.cu``
+resolves every neighbour offset in the kernel, wrapping periodic
+dimensions (halo 0) itself.  ``stream``, ``grad6``, ``phi_stream`` and
+``fused_two`` run one thread per ``Target.vvl`` consecutive z-sites
+(``None`` → 1; outside {1, 2, 4, 8} raises).  ``fused`` runs in tiles of
+``plane_block`` x-planes by 8 × 32 (y, z) sites: a block sums the streamed
+φ of its tile and a one-site rim into shared memory, then collides each
+site of the tile with its gradient neighbours' φ from there.
+
+Tuning (``Target.tuning``): ``plane_block`` — the tile's depth in x, the
+reference's knob (default :data:`DEFAULT_PLANE_BLOCK`).  A tile holds
+:func:`tile_smem_bytes` of shared memory; past the 227 KB a block may hold
+the launch raises :class:`~repro_torch.core.api.WindowVmemError` when its
+plan is built.
 
 CUDA tensors launch the kernel or raise; CPU tensors run the plain version
-(:func:`windowed_plain`: the same offsets read by slicing, then the plain
-body).  :data:`launches` counts kernel launches per site function.
+(:func:`windowed_plain`: the neighbours gathered by slicing and rolling,
+then the plain body).  :data:`launches` counts kernel launches per site
+function.
 """
 from __future__ import annotations
 
@@ -20,65 +31,76 @@ import ctypes
 import torch
 
 from . import _build
-from .lb_collision import check_cuda_tensors, cuda_vvl
-from .tdp_pointwise import alloc_outputs, cuda_site, phys_args, pointer_arrays
+from .lb_collision import cuda_vvl
+from .tdp_pointwise import (alloc_outputs, cuda_site, fields_plain,
+                            lb_geometry, phys_args, pointer_arrays)
 
 #: kernel launches of this executor, by site function
 launches = dict.fromkeys(_build.SITES, 0)
 
+#: x-planes of a ``fused`` tile when ``Target.tuning`` sets none: the
+#: fastest at 128³ on the H100 (PERF.md §6), by 0.5 % over 4
+DEFAULT_PLANE_BLOCK = 2
+#: (y, z) sites of a ``fused`` tile (``TILE_Y``, ``TILE_Z`` of
+#: ``csrc/lb_sites.cuh``)
+TILE_YZ = (8, 32)
 
-def windowed_plain(plan, extended, out=None):
-    """Plain version: read each offset of each halo-extended field by
-    slicing (:func:`repro_torch.core.api.gather_neighbors` with the stencil
-    radius as ghost width), then run the plain body once over all sites."""
-    from repro_torch.core.api import gather_neighbors, torch_executor
 
-    prepared = tuple(
-        x if s is None else gather_neighbors(x.reshape(x.shape[0], -1),
-                                             plan.shape, s.radius_per_dim(), s)
-        for x, s in zip(extended, plan.stencils))
-    return torch_executor(plan, prepared, out)
+def plane_block(plan) -> int:
+    """The ``plane_block`` of ``plan``'s target (a positive int)."""
+    p = dict(plan.target.tuning).get("plane_block", DEFAULT_PLANE_BLOCK)
+    if isinstance(p, bool) or not isinstance(p, int) or p <= 0:
+        raise ValueError(f"plane_block must be a positive int, got {p!r}")
+    return p
+
+
+def tile_smem_bytes(plan) -> int:
+    """Shared memory of one block of ``plan``'s kernel: the ``fused`` tile's
+    φ over ``plane_block + 2`` x-planes by ``(8 + 2) × (32 + 2)`` sites,
+    float32; 0 for the other site functions, which stage nothing."""
+    if getattr(plan.kernel, "__cuda_site__", None) != "fused":
+        return 0
+    ty, tz = TILE_YZ
+    return 4 * (plane_block(plan) + 2) * (ty + 2) * (tz + 2)
+
+
+def windowed_plain(plan, fields, out=None):
+    """Plain version on the kernel's own operands (the ``"cuda"``
+    executor's :func:`~repro_torch.kernels.tdp_pointwise.fields_plain`)."""
+    return fields_plain(plan, fields, out)
 
 
 def _lib():
     fn = _build.load("tdp_windowed").tdp_windowed_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p] + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_float] * 6
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def windowed_execute(plan, extended, out=None):
-    """Registry executor entry (``wants="halo_extended"`` — see
-    :mod:`repro_torch.core.registry`)."""
+def windowed_execute(plan, fields, out=None):
+    """Registry executor entry (``wants="halo_extended"``,
+    ``takes_fields=True`` — see :mod:`repro_torch.core.registry`)."""
     if plan.shape is None or len(plan.shape) != 3:
         raise ValueError(
             f"executor 'cuda_windowed' needs a 3-D lattice; kernel "
             f"{plan.name!r} was launched with shape {plan.shape}")
     site = cuda_site(plan)
     vvl = cuda_vvl(plan.target.vvl)
-    x0 = extended[0]
+    p = plane_block(plan)
+    x0 = fields[0]
     if x0.device.type == "cpu":
-        return windowed_plain(plan, extended, out)
+        return windowed_plain(plan, fields, out)
     if x0.device.type != "cuda":
         raise ValueError(f"executor 'cuda_windowed' runs on CUDA or CPU "
                          f"tensors, got {x0.device}")
-    X, Y, Z = plan.shape
-    n = X * Y * Z
-    shapes = []
-    for c, s in plan._fields():
-        if s is None:
-            shapes.append((c, n))
-        else:
-            r = s.radius_per_dim()
-            shapes.append((c, *(e + 2 * rd for e, rd in zip(plan.shape, r))))
-    check_cuda_tensors(extended, shapes, f"kernel {plan.name!r}")
-    outs = alloc_outputs(plan, x0, n, out)
-    in_arr, out_arr = pointer_arrays(extended, outs)
+    geom = lb_geometry(plan, fields)
+    outs = alloc_outputs(plan, x0, geom[0] * geom[1] * geom[2], out)
+    in_arr, out_arr = pointer_arrays(fields, outs)
     with torch.cuda.device(x0.device):
-        rc = _lib()(_build.SITE_ID[site], vvl, in_arr, out_arr, X, Y, Z,
+        rc = _lib()(_build.SITE_ID[site], vvl, p, in_arr, out_arr, *geom,
                     *phys_args(plan.consts), _build.stream_handle(x0.device))
     _build.check(rc, f"tdp_windowed {site}")
     launches[site] += 1

@@ -155,6 +155,32 @@ class TestSpace:
         assert all(c.layout is None for c in cands)
         assert pruned == []
 
+    def test_fused_tile_brings_the_plane_block_axis(self):
+        """One-launch programs hold ``fused``'s shared-memory tile, so
+        ``"cuda_windowed"`` sweeps its depth: the divisors of the x extent
+        at the base VVL, the default's own value excepted."""
+        cands, pruned = default_space(fused_prog("one_launch"),
+                                      Target("cuda_windowed"),
+                                      executors=["cuda_windowed"],
+                                      grid_shape=GRID)
+        labels = [c.label for c in cands]
+        assert labels == [
+            "cuda_windowed", "cuda_windowed[vvl=2]", "cuda_windowed[vvl=4]",
+            "cuda_windowed[vvl=8]", "cuda_windowed[plane_block=1]",
+            "cuda_windowed[plane_block=4]", "cuda_windowed[plane_block=8]"]
+        assert pruned == []
+
+    def test_vmem_limit_prunes_deep_tiles(self):
+        cands, pruned = default_space(fused_prog("one_launch"),
+                                      Target("cuda_windowed"),
+                                      executors=["cuda_windowed"],
+                                      grid_shape=GRID,
+                                      vmem_limit=4 * 5 * 10 * 34)
+        assert [c.label for c in cands][-1] == "cuda_windowed[plane_block=1]"
+        assert pruned == [(f"cuda_windowed[plane_block={p}]",
+                           f"vmem estimate {4 * (p + 2) * 10 * 34} > limit "
+                           f"{4 * 5 * 10 * 34}") for p in (4, 8)]
+
     def test_torch_executor_is_one_point(self):
         """The plain executor ignores the VVL, so it gets no VVL sweep."""
         assert executor_vvls("torch") is None
@@ -496,6 +522,18 @@ class TestPredictorGuided:
         back = TuneReport.from_dict(rep.as_dict(), cache_hit=True)
         assert back.results == rep.results
         assert back.rank_correlation == pytest.approx(rep.rank_correlation)
+
+    @pytest.mark.parametrize("steps", [1, 3, 10])
+    def test_prediction_is_held_to_the_median_per_step(self, tmp_path, steps):
+        """A model exact per step reads 0.0 whatever ``measure_steps`` is:
+        each timed call runs ``steps`` steps of 2 ms."""
+        timer = lambda tgt, run: steps * 0.002  # noqa: E731
+        _, rep = tune(tmp_path, timer, target=SWEEP, measure_steps=steps,
+                      scorer=lambda tgt: 0.002)
+        assert rep.measure_steps == steps
+        for r in rep.results:
+            assert r.median_s == pytest.approx(steps * 0.002)
+            assert r.predicted_vs_measured == pytest.approx(0.0, abs=1e-12)
 
     def test_perfect_scorer_gives_rank_correlation_one(self, tmp_path):
         costs = {"vvl=8]": 0.01, "vvl=4]": 0.02, "vvl=2]": 0.5}

@@ -1,13 +1,20 @@
 """The CUDA site functions, checked without a card.
 
-``csrc/lb_sites.cuh`` keeps every site function and both per-thread bodies
-(``gathered_thread``, ``windowed_thread``) ``__host__ __device__``, so the
-host C++ compiler builds them into a small library whose C entries have the
-signatures of the ``.cu`` launchers and loop over the threads one by one.
-That library runs through the port's own pointer marshalling and is held to
-the plain PyTorch versions at every VVL and on ragged extents — the same
-bar as the card: ``STREAM`` bit-exact, the rest ``rtol=1e-5, atol=1e-6``.
-The kernels' compile-time tables are held to the port's descriptors
+``csrc/lb_sites.cuh`` keeps every site function, the neighbour accessor
+(``FieldNb``), the per-thread body (``field_thread``) and the two phases of
+the tiled ``fused`` kernel (``fused_tile_phi``, ``fused_tile_collide``)
+``__host__ __device__``, so the host C++ compiler builds them into a small
+library whose C entries have the signatures of the ``.cu`` launchers:
+``host_gathered`` loops over the threads one by one, ``host_windowed`` runs
+``fused`` as ``tdp_windowed.cu`` does, block by block, each phase over all
+the block's threads before the next (the kernel's barrier), on a shared
+array that starts as NaN.  That library runs through the port's own
+pointer marshalling and is held to the plain PyTorch versions at every
+VVL: on ragged sizes whose tiles are cut, on extents of 2 and 3 against a
+stencil radius of 2 (the wrap), and with caller ghost planes in one and in
+two dimensions.  The bar is the card's: ``STREAM`` bit-exact, the rest
+``rtol=1e-5, atol=1e-6``; the tiled ``fused`` is bit-equal to the untiled
+one.  The kernels' compile-time tables are held to the port's descriptors
 exactly.
 """
 import ctypes
@@ -19,66 +26,113 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Lattice, Target, gather_neighbors, halo_extend
+from repro_torch.core import Lattice, Target
 from repro_torch.core import lattice as tlat
-from repro_torch.core.api import launch_plan, torch_executor
-from repro_torch.kernels import _build
+from repro_torch.core.api import launch_plan
+from repro_torch.kernels import _build, tdp_windowed
 from repro_torch.kernels.lb_collision import CV
-from repro_torch.kernels.tdp_pointwise import phys_args, pointer_arrays
+from repro_torch.kernels.tdp_pointwise import (fields_plain, phys_args,
+                                               pointer_arrays)
 from repro_torch.lb import programs as tprog
 from repro_torch.lb import stencil as tst
 
 HEADER = _build.CSRC / "lb_sites.cuh"
 SHAPE = (6, 5, 7)          # 210 sites: ragged for VVL 4 and 8, Z ragged too
+RAGGED = (7, 11, 37)       # two (y, z) tiles of 8 x 32 each way, cut; and
+                           # x cut by plane_block 2-4
 PHYS = dict(A=0.125, B=0.11, kappa=0.02, tau=0.8, tau_phi=1.2, gamma=0.9)
+VVLS = (1, 2, 4, 8)
+STENCIL_SITES = tuple(n for n in _build.SITES if tst.SPECS[n].has_stencil)
 
 HARNESS = r"""
 #include "lb_sites.cuh"
 
+#include <algorithm>
+#include <cmath>
+#include <type_traits>
+#include <vector>
+
 namespace {
 template <class Site, int VVL>
-struct GatheredLoop {
-  static int run(const tdp::GatheredIO& io, void*) {
-    for (int64_t t = 0, nt = tdp::gathered_threads<VVL>(io); t < nt; ++t)
-      tdp::gathered_thread<Site, VVL>(io, t);
+struct FieldLoop {
+  static int run(const tdp::FieldIO& io, void*) {
+    if (const int rc = tdp::check_geometry(io, Site::RADIUS)) return rc;
+    for (int64_t t = 0, nt = tdp::field_threads<VVL>(io); t < nt; ++t)
+      tdp::field_thread<Site, VVL>(io, t);
     return 0;
   }
 };
+
+struct WindowedArgs {
+  tdp::FieldIO io;
+  int plane_block;
+};
+
+// tdp_windowed.cu's Launch: fused in tiles, each phase of a block over all
+// its threads before the next; the shared array starts as NaN.
 template <class Site, int VVL>
 struct WindowedLoop {
-  static int run(const tdp::WindowedIO& io, void*) {
-    for (int64_t t = 0, nt = tdp::windowed_threads<VVL>(io); t < nt; ++t)
-      tdp::windowed_thread<Site, VVL>(io, t);
-    return 0;
+  static int run(const WindowedArgs& a, void* stream) {
+    if (const int rc = tdp::check_geometry(a.io, Site::RADIUS)) return rc;
+    if constexpr (std::is_same_v<Site, tdp::FusedSite>) {
+      const int P = a.plane_block;
+      if (const int rc = tdp::check_tile(P)) return rc;
+      std::vector<float> phi(tdp::tile_smem_bytes(P) / sizeof(float));
+      for (int64_t b = 0, nb = tdp::tile_blocks(a.io, P); b < nb; ++b) {
+        std::fill(phi.begin(), phi.end(), NAN);
+        for (int t = 0; t < tdp::tile_threads<VVL>(); ++t)
+          tdp::fused_tile_phi<VVL>(a.io, P, b, t, phi.data());
+        for (int t = 0; t < tdp::tile_threads<VVL>(); ++t)
+          tdp::fused_tile_collide<VVL>(a.io, P, b, t, phi.data());
+      }
+      return 0;
+    } else {
+      return FieldLoop<Site, VVL>::run(a.io, stream);
+    }
   }
 };
-}  // namespace
 
-extern "C" int host_gathered(int site, int vvl, const void* const* in,
-                             void* const* out, long long n, float A, float B,
-                             float kappa, float tau, float tau_phi,
-                             float gamma, void* stream) {
-  tdp::GatheredIO io{};
-  for (int i = 0; i < tdp::MAX_IN; ++i) io.in[i] = static_cast<const float*>(in[i]);
-  for (int k = 0; k < tdp::MAX_OUT; ++k) io.out[k] = static_cast<float*>(out[k]);
-  io.n = n;
-  io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
-  return tdp::dispatch_site<GatheredLoop>(site, vvl, io, stream);
-}
-
-extern "C" int host_windowed(int site, int vvl, const void* const* in,
-                             void* const* out, int X, int Y, int Z, float A,
-                             float B, float kappa, float tau, float tau_phi,
-                             float gamma, void* stream) {
-  tdp::WindowedIO io{};
+tdp::FieldIO make_io(const void* const* in, void* const* out, int X, int Y,
+                     int Z, int hx, int hy, int hz, float A, float B,
+                     float kappa, float tau, float tau_phi, float gamma) {
+  tdp::FieldIO io{};
   for (int i = 0; i < tdp::MAX_IN; ++i) io.in[i] = static_cast<const float*>(in[i]);
   for (int k = 0; k < tdp::MAX_OUT; ++k) io.out[k] = static_cast<float*>(out[k]);
   io.X = X;
   io.Y = Y;
   io.Z = Z;
+  io.hx = hx;
+  io.hy = hy;
+  io.hz = hz;
   io.n = (int64_t)X * Y * Z;
   io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
-  return tdp::dispatch_site<WindowedLoop>(site, vvl, io, stream);
+  return io;
+}
+}  // namespace
+
+extern "C" int host_gathered(int site, int vvl, const void* const* in,
+                             void* const* out, int X, int Y, int Z, int hx,
+                             int hy, int hz, float A, float B, float kappa,
+                             float tau, float tau_phi, float gamma,
+                             void* stream) {
+  const tdp::FieldIO io = make_io(in, out, X, Y, Z, hx, hy, hz, A, B, kappa,
+                                  tau, tau_phi, gamma);
+  return tdp::dispatch_site<FieldLoop>(site, vvl, io, stream);
+}
+
+extern "C" int host_windowed(int site, int vvl, int plane_block,
+                             const void* const* in, void* const* out, int X,
+                             int Y, int Z, int hx, int hy, int hz, float A,
+                             float B, float kappa, float tau, float tau_phi,
+                             float gamma, void* stream) {
+  const WindowedArgs a{make_io(in, out, X, Y, Z, hx, hy, hz, A, B, kappa, tau,
+                               tau_phi, gamma),
+                       plane_block};
+  return tdp::dispatch_site<WindowedLoop>(site, vvl, a, stream);
+}
+
+extern "C" long long host_tile_smem(int plane_block) {
+  return tdp::tile_smem_bytes(plane_block);
 }
 """
 
@@ -97,25 +151,82 @@ def host_lib(tmp_path_factory):
                     str(lib), str(src)], check=True, timeout=300)
     so = ctypes.CDLL(str(lib))
     so.host_gathered.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-                                 + [ctypes.c_longlong] + [ctypes.c_float] * 6
+                                 + [ctypes.c_int] * 6 + [ctypes.c_float] * 6
                                  + [ctypes.c_void_p])
-    so.host_windowed.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-                                 + [ctypes.c_int] * 3 + [ctypes.c_float] * 6
+    so.host_windowed.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                                 + [ctypes.c_int] * 6 + [ctypes.c_float] * 6
                                  + [ctypes.c_void_p])
     so.host_gathered.restype = so.host_windowed.restype = ctypes.c_int
+    so.host_tile_smem.argtypes = [ctypes.c_int]
+    so.host_tile_smem.restype = ctypes.c_longlong
     return so
 
 
-def _inputs(spec, seed):
+def _fields(spec, shape, halo, seed):
+    """The kernels' operands: a stencil field as its ``(ncomp, *(shape +
+    2·halo))`` array (ghost planes random too), a pointwise one as
+    ``(ncomp, n)``."""
     rng = np.random.default_rng(seed)
-    n = int(np.prod(SHAPE))
+    ext = tuple(s + 2 * h for s, h in zip(shape, halo))
     xs = []
     for fs in spec.fields:
-        x = 0.05 * rng.normal(size=(fs.ncomp, n))
+        dims = ext if fs.stencil is not None else (int(np.prod(shape)),)
+        x = 0.05 * rng.normal(size=(fs.ncomp, *dims))
         if fs.name == "f":
             x = x + 1.0 / 19.0
         xs.append(torch.tensor(x, dtype=torch.float32))
     return xs
+
+
+def _plan(name, windowed, shape, halo, vvl=1, plane_block=None):
+    spec = tst.SPECS[name]
+    consts = tprog.collision_consts(**PHYS) if spec.consts else {}
+    tuning = {} if plane_block is None else {"plane_block": plane_block}
+    tgt = Target("cuda_windowed" if windowed else "cuda", vvl=vvl,
+                 tuning=tuning)
+    return launch_plan(spec, tgt, lattice=Lattice(shape), halo=halo,
+                       consts=consts)
+
+
+def _host_run(host_lib, name, windowed, shape, halo, xs, vvl,
+              plane_block=tdp_windowed.DEFAULT_PLANE_BLOCK):
+    """(rc, outputs) of the host harness on ``xs``; outputs start as NaN."""
+    spec = tst.SPECS[name]
+    n = int(np.prod(shape))
+    outs = tuple(torch.full((c, n), float("nan")) for c in spec.out)
+    ins, outp = pointer_arrays(xs, outs)
+    consts = tprog.collision_consts(**PHYS) if spec.consts else {}
+    geom = ((*shape, *halo) if spec.has_stencil else (1, 1, n, 0, 0, 0))
+    if windowed:
+        rc = host_lib.host_windowed(_build.SITE_ID[name], vvl, plane_block,
+                                    ins, outp, *geom, *phys_args(consts), None)
+    else:
+        rc = host_lib.host_gathered(_build.SITE_ID[name], vvl, ins, outp,
+                                    *geom, *phys_args(consts), None)
+    return rc, outs
+
+
+def _assert_matches(name, got, want, what):
+    for o, w in zip(got, want):
+        if name == "stream":
+            assert torch.equal(o, w), what
+        else:
+            torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-6, msg=what)
+
+
+def _check_all_vvls(host_lib, name, windowed, shape, halo, seed,
+                    plane_blocks=(None,)):
+    spec = tst.SPECS[name]
+    xs = _fields(spec, shape, halo, seed)
+    want = fields_plain(_plan(name, windowed, shape, halo), xs)
+    for vvl in VVLS:
+        for p in plane_blocks:
+            kw = {} if p is None else {"plane_block": p}
+            rc, got = _host_run(host_lib, name, windowed, shape, halo, xs,
+                                vvl, **kw)
+            assert rc == 0
+            _assert_matches(name, got, want,
+                            f"{name} {shape} halo={halo} vvl={vvl} P={p}")
 
 
 _CASES = [(name, windowed) for name in _build.SITES
@@ -125,42 +236,98 @@ _CASES = [(name, windowed) for name in _build.SITES
 
 @pytest.mark.parametrize("name,windowed", _CASES)
 def test_site_function_matches_plain(host_lib, name, windowed):
-    spec = tst.SPECS[name]
-    consts = tprog.collision_consts(**PHYS) if spec.consts else {}
-    lat = Lattice(SHAPE)
-    plan = launch_plan(spec, Target("cuda_windowed" if windowed else "cuda"),
-                       lattice=lat, consts=consts)
-    xs = _inputs(spec, _build.SITE_ID[name])
-    halo = (0, 0, 0)
-    gathered = tuple(x if s is None else gather_neighbors(x, SHAPE, halo, s)
-                     for x, s in zip(xs, spec.stencils))
-    prepared = (tuple(x if s is None else halo_extend(x, SHAPE, halo, s)
-                      for x, s in zip(xs, spec.stencils))
-                if windowed else gathered)
-    want = torch_executor(plan, gathered)
-    for vvl in (1, 2, 4, 8):
-        outs = tuple(torch.full((c, lat.nsites), float("nan"))
-                     for c in spec.out)
-        ins, outp = pointer_arrays(prepared, outs)
-        if windowed:
-            rc = host_lib.host_windowed(_build.SITE_ID[name], vvl, ins, outp,
-                                        *SHAPE, *phys_args(consts), None)
-        else:
-            rc = host_lib.host_gathered(_build.SITE_ID[name], vvl, ins, outp,
-                                        lat.nsites, *phys_args(consts), None)
+    _check_all_vvls(host_lib, name, windowed, SHAPE, (0, 0, 0),
+                    _build.SITE_ID[name])
+
+
+@pytest.mark.parametrize("plane_block", [1, 2, 3, 4, 8])
+def test_tiled_fused_on_ragged_tiles(host_lib, plane_block):
+    """At 7 x 11 x 37 the last tile in y and in z is cut, and in x unless
+    plane_block is 1 or 7+; the tiled kernel equals the plain version
+    and, bit for bit, the untiled fused site function."""
+    xs = _fields(tst.FUSED_SPEC, RAGGED, (0, 0, 0), 21)
+    want = fields_plain(_plan("fused", True, RAGGED, (0, 0, 0)), xs)
+    for vvl in VVLS:
+        rc, untiled = _host_run(host_lib, "fused", False, RAGGED, (0, 0, 0),
+                                xs, vvl)
         assert rc == 0
-        for o, w in zip(outs, want):
-            if name == "stream":
-                assert torch.equal(o, w), vvl
-            else:
-                torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-6)
+        rc, tiled = _host_run(host_lib, "fused", True, RAGGED, (0, 0, 0), xs,
+                              vvl, plane_block)
+        assert rc == 0
+        _assert_matches("fused", tiled, want, f"vvl={vvl}")
+        for a, b in zip(tiled, untiled):
+            assert torch.equal(a, b), vvl
+
+
+_THIN = [(2, 3, 5), (3, 2, 2), (5, 3, 2)]
+
+
+@pytest.mark.parametrize("shape", _THIN, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", STENCIL_SITES)
+@pytest.mark.parametrize("windowed", [False, True])
+def test_thin_periodic_extents(host_lib, name, windowed, shape):
+    """Extents of 2 and 3 against the radius-2 fused g stencil and the
+    radius-1 ones: the accessor's wrap and the tile rim's."""
+    _check_all_vvls(host_lib, name, windowed, shape, (0, 0, 0), 5,
+                    plane_blocks=(1, 2) if windowed and name == "fused"
+                    else (None,))
+
+
+_HALOS = [(2, 0, 0), (0, 2, 3)]
+
+
+@pytest.mark.parametrize("halo", _HALOS, ids=lambda h: "h" + "".join(map(str, h)))
+@pytest.mark.parametrize("name", STENCIL_SITES)
+@pytest.mark.parametrize("windowed", [False, True])
+def test_caller_ghost_planes(host_lib, name, windowed, halo):
+    """Ghost planes of the caller (random values) in one and in two
+    dimensions, the third wrapping: read where the plain version's
+    ``gather_neighbors`` reads them."""
+    _check_all_vvls(host_lib, name, windowed, RAGGED, halo, 9,
+                    plane_blocks=(1, 3) if windowed and name == "fused"
+                    else (None,))
+
+
+def test_geometry_and_plane_block_codes(host_lib):
+    xs = _fields(tst.FUSED_SPEC, (1, 4, 4), (0, 0, 0), 0)
+    for windowed in (False, True):
+        # radius 2 over a periodic extent of 1
+        assert _host_run(host_lib, "fused", windowed, (1, 4, 4), (0, 0, 0),
+                         xs, 1)[0] == -6
+    xs = _fields(tst.FUSED_SPEC, (4, 4, 4), (1, 0, 0), 0)
+    # one ghost plane against a radius of 2
+    assert _host_run(host_lib, "fused", True, (4, 4, 4), (1, 0, 0), xs,
+                     1)[0] == -6
+    xs = _fields(tst.FUSED_SPEC, (4, 4, 4), (0, 0, 0), 0)
+    for p in (0, -1, 169):
+        assert _host_run(host_lib, "fused", True, (4, 4, 4), (0, 0, 0), xs,
+                         1, p)[0] == -7
+    assert _host_run(host_lib, "fused", True, (4, 4, 4), (0, 0, 0), xs,
+                     1, 168)[0] == 0
+    with pytest.raises(ValueError, match="periodic extent"):
+        _build.check(-6, "x")
+    with pytest.raises(ValueError, match="plane_block"):
+        _build.check(-7, "x")
+
+
+@pytest.mark.parametrize("plane_block", [1, 4, 168, 169])
+def test_tile_smem_estimate_is_the_kernels(host_lib, plane_block):
+    plan = _plan("fused", True, (8, 8, 8), (0, 0, 0), plane_block=plane_block)
+    assert (tdp_windowed.tile_smem_bytes(plan)
+            == host_lib.host_tile_smem(plane_block))
+    assert tdp_windowed.tile_smem_bytes(
+        _plan("fused_two", True, (8, 8, 8), (0, 0, 0),
+              plane_block=plane_block)) == 0
 
 
 def test_bad_site_and_vvl_codes(host_lib):
     x = torch.zeros(8)
     ins, outs = pointer_arrays([x], [x])
-    assert host_lib.host_gathered(99, 1, ins, outs, 8, *[1.0] * 6, None) == -1
-    assert host_lib.host_gathered(0, 3, ins, outs, 8, *[1.0] * 6, None) == -2
+    geom = (1, 1, 8, 0, 0, 0)
+    assert host_lib.host_gathered(99, 1, ins, outs, *geom, *[1.0] * 6,
+                                  None) == -1
+    assert host_lib.host_gathered(0, 3, ins, outs, *geom, *[1.0] * 6,
+                                  None) == -2
     with pytest.raises(ValueError, match="unknown site"):
         _build.check(-1, "x")
     with pytest.raises(ValueError, match="VVL"):
@@ -196,3 +363,18 @@ class TestCompiledTables:
         enum = re.findall(r"SITE_(\w+) = (\d+),", text)
         assert [(n.lower(), int(i)) for n, i in enum] == [
             (n, _build.SITE_ID[n]) for n in _build.SITES]
+
+    def test_tile_shape(self):
+        m = re.search(r"constexpr int TILE_Y = (\d+), TILE_Z = (\d+);",
+                      HEADER.read_text())
+        assert tuple(map(int, m.groups())) == tdp_windowed.TILE_YZ
+
+    def test_site_radii(self):
+        text = HEADER.read_text()
+        for name in _build.SITES:
+            cls = "".join(w.title() for w in name.split("_")) + "Site"
+            m = re.search(rf"struct {cls} \{{[^}}]*?RADIUS = (\d+);", text)
+            spec = tst.SPECS[name]
+            want = max((max(s.radius_per_dim()) for s in spec.stencils
+                        if s is not None), default=0)
+            assert int(m.group(1)) == want, name

@@ -206,3 +206,85 @@ class TestNoFallback:
         _port("stream", "cuda")
         _port("stream", "cuda_windowed")
         assert (tdp_pointwise.launches, tdp_windowed.launches) == before
+
+
+class TestFieldContract:
+    """The card's executors (``takes_fields=True``) get the caller's own
+    stencil fields, viewed over the lattice and its ghost planes: no
+    gather, no padded copy, and the same periodic-extent guard as
+    ``halo_extend``."""
+
+    @pytest.mark.parametrize("halo", [(0, 0, 0), (2, 0, 3)])
+    def test_executor_sees_the_callers_storage(self, halo):
+        from repro_torch.core import register_executor, unregister_executor
+
+        seen = []
+
+        def spy(plan, fields, out=None):
+            seen.append(fields)
+            return tdp_pointwise.fields_plain(plan, fields, out)
+
+        register_executor("_spy_fields", spy, takes_fields=True)
+        try:
+            ext = tuple(s + 2 * h for s, h in zip(SHAPE, halo))
+            rng = np.random.default_rng(3)
+            xs = [torch.tensor(rng.normal(size=(19, int(np.prod(ext)))),
+                               dtype=torch.float32) for _ in range(2)]
+            got = launch(tst.FUSED_SPEC, "_spy_fields", *xs,
+                         lattice=Lattice(SHAPE), halo=halo,
+                         consts=tprog.collision_consts(**PHYS))
+            want = launch(tst.FUSED_SPEC, "torch", *xs,
+                          lattice=Lattice(SHAPE), halo=halo,
+                          consts=tprog.collision_consts(**PHYS))
+        finally:
+            unregister_executor("_spy_fields")
+        (fields,) = seen
+        for x, f in zip(xs, fields):
+            assert f.shape == (19, *ext)
+            assert f.data_ptr() == x.data_ptr()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("backend", ["cuda", "cuda_windowed"])
+    def test_radius_past_a_periodic_extent_raises(self, backend):
+        xs = [torch.zeros((19, 4 * 1 * 4)) for _ in range(2)]
+        with pytest.raises(ValueError, match="exceeds the periodic extent"):
+            launch(tst.FUSED_SPEC, backend, *xs, lattice=Lattice((4, 1, 4)),
+                   consts=tprog.collision_consts(**PHYS))
+
+    def test_tile_past_the_block_raises_window_vmem_error(self):
+        from repro_torch.core import WindowVmemError
+        from repro_torch.core.costmodel import DEFAULT_VMEM_LIMIT
+
+        lat = Lattice((200, 8, 8))
+        consts = tprog.collision_consts(**PHYS)
+        tgt = Target("cuda_windowed", tuning={"plane_block": 169})
+        plan = launch_plan(tst.FUSED_SPEC, tgt, lattice=lat, consts=consts)
+        assert plan.vmem_bytes_estimate() == 4 * 171 * 10 * 34
+        assert plan.vmem_bytes_estimate() > DEFAULT_VMEM_LIMIT
+        xs = [torch.zeros((19, lat.nsites)) for _ in range(2)]
+        with pytest.raises(WindowVmemError, match="plane_block=169"):
+            launch(tst.FUSED_SPEC, tgt, *xs, lattice=lat, consts=consts)
+        ok = tgt.with_tuning(plane_block=168)
+        assert launch_plan(tst.FUSED_SPEC, ok, lattice=lat,
+                           consts=consts).vmem_bytes_estimate() \
+            <= DEFAULT_VMEM_LIMIT
+        # the other site functions stage nothing, whatever plane_block says
+        assert launch_plan(tst.STREAM_SPEC, tgt,
+                           lattice=lat).vmem_bytes_estimate() == 0
+        assert launch_plan(tst.FUSED_SPEC, "cuda", lattice=lat,
+                           consts=consts).vmem_bytes_estimate() == 0
+
+    @pytest.mark.parametrize("bad", [0, -2, 2.5, True])
+    def test_plane_block_must_be_a_positive_int(self, bad):
+        tgt = Target("cuda_windowed", tuning={"plane_block": bad})
+        xs = [torch.zeros((19, 512)) for _ in range(2)]
+        with pytest.raises(ValueError, match="plane_block"):
+            launch(tst.FUSED_SPEC, tgt, *xs, lattice=Lattice(SHAPE),
+                   consts=tprog.collision_consts(**PHYS))
+
+    def test_plane_block_is_a_declared_tunable(self):
+        from repro_torch.core import executor_tunables
+
+        assert executor_tunables("cuda_windowed") == ("plane_block",)
+        assert executor_tunables("cuda") == ()

@@ -1,15 +1,22 @@
 """Where the time of one ``BinaryFluidSim`` step goes on the card.
 
-    python3 tools/profile_lb_step.py [--grid 128] [--steps 10]
+    python3 tools/profile_lb_step.py [--grid 128] [--steps 10] [--src DIR]
+                                     [--tag NAME]
 
 For each regime (unfused, ``one_launch``, ``two_launch``) it runs
-``BinaryFluidSim.run`` once to warm up, then traces ``--steps`` steps with
-``torch.profiler`` and reports, per regime: the host wall time per step
+``BinaryFluidSim.run`` once to warm up, times ``--steps`` steps three times
+without the profiler (the median gives MLUPS and the unprofiled wall time
+per step), then traces ``--steps`` steps with ``torch.profiler`` and
+reports, per regime: the host wall time per step under the profiler
 (ending in ``torch.cuda.synchronize()``), the device time per step summed
 over kernels, the device's busy share of the traced span, and the device
 time per kernel name, split into the port's own CUDA kernels and PyTorch's
-(the gather/pad prologue and copies).  Needs one CUDA card; writes the full
-table to ``chiprun_out/profile_lb_step.json``.
+(a gather or pad prologue, copies), and the number of PyTorch kernels per
+step.  ``--src`` may point at another checkout's ``src`` (one unpacked with
+``git archive``), so two versions compare within one call: run the script
+once per version, in turns.  Needs one CUDA card; prints the card's name
+and power limit and writes the full table to
+``chiprun_out/profile_lb_step_<tag>.json``.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ import time
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_KERNELS = ("gathered_kernel", "windowed_kernel", "lb_collision_kernel")
+#: Kernel names of the port's LB libraries, this version's and earlier ones'
+PORT_KERNELS = ("field_kernel", "fused_tile_kernel", "gathered_kernel",
+                "windowed_kernel", "lb_collision_kernel")
 
 
 def profile_regime(sim, state, steps: int) -> dict:
@@ -30,6 +39,15 @@ def profile_regime(sim, state, steps: int) -> dict:
 
     sim.run(state, 2)
     torch.cuda.synchronize()
+    walls = []                      # unprofiled, for MLUPS
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sim.run(state, steps)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    nsites = 1
+    for s in sim.grid_shape:
+        nsites *= s
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.run(state, steps)
@@ -43,10 +61,12 @@ def profile_regime(sim, state, steps: int) -> dict:
     busy_us = sum(by_name.values())
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) if kernels else 0.0
-    port_us = sum(v for k, v in by_name.items()
-                  if any(p in k for p in PORT_KERNELS))
+    port = {k for k in by_name if any(p in k for p in PORT_KERNELS)}
+    port_us = sum(by_name[k] for k in port)
     return {
         "steps": steps,
+        "mlups_unprofiled": nsites * steps / sorted(walls)[1] / 1e6,
+        "wall_ms_per_step_unprofiled": sorted(walls)[1] / steps * 1e3,
         "wall_ms_per_step": wall / steps * 1e3,
         "device_ms_per_step": busy_us / steps / 1e3,
         "port_kernels_ms_per_step": port_us / steps / 1e3,
@@ -54,6 +74,8 @@ def profile_regime(sim, state, steps: int) -> dict:
         "device_busy_share_of_span": busy_us / span_us if span_us else None,
         "device_busy_share_of_wall": busy_us / 1e6 / wall,
         "kernels_traced": len(kernels),
+        "torch_kernels_per_step": sum(1 for e in kernels
+                                      if e.name not in port) / steps,
         "by_kernel_ms_per_step": {
             k: v / steps / 1e3
             for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])},
@@ -64,17 +86,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grid", type=int, default=128)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--tag", default="tree")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_lb_step: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    src = pathlib.Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    sys.path.insert(1, str(ROOT))
+    import repro_torch
+    from chip_smoke import nvidia_smi
     from repro_torch.lb.params import LBParams
     from repro_torch.lb.sim import BinaryFluidSim
+    if not pathlib.Path(repro_torch.__file__).resolve().is_relative_to(src):
+        raise RuntimeError(f"imported {repro_torch.__file__}, not {src}")
 
+    smi = nvidia_smi()
+    print(smi, flush=True)
     grid = (args.grid,) * 3
     params = LBParams(A=0.125, B=0.125, kappa=0.02)
-    out = {"device": torch.cuda.get_device_name(0), "grid": grid,
+    out = {"tag": args.tag, "src": str(src), "nvidia_smi": smi,
+           "device": torch.cuda.get_device_name(0), "grid": grid,
            "regimes": {}}
     state = None
     for regime in (False, "one_launch", "two_launch"):
@@ -88,7 +121,7 @@ def main(argv=None) -> int:
             k: v for k, v in row.items() if k != "by_kernel_ms_per_step"},
             "top_kernels_ms_per_step": top}), flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "profile_lb_step.json").write_text(
+    (ROOT / "chiprun_out" / f"profile_lb_step_{args.tag}.json").write_text(
         json.dumps(out, indent=1))
     return 0
 
