@@ -19,15 +19,18 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    then the LM kernels at ``rtol=2e-4, atol=2e-4`` (the reference's own,
    ``tests/test_kernels.py``): ``flash_attention`` on the reference tests'
    shapes, the smoke shape (Dh 16), a ragged Sq = Sk = 1000, rows with no
-   live key and the full-width gemma2 prefill shapes (``local`` and
-   ``attn``); ``rmsnorm`` at VVL 1, 2, 4 and 8 at gemma2's and
+   live key, the full-width gemma2 prefill shapes (``local`` and
+   ``attn``), Sq and Sk that cut the query and key tiles at Dh 64 and 128,
+   a query tile with no live key, and (B, S, H, Dh) tensors seen as (B, H,
+   S, Dh) (``ATTN_VIEW_CASES``); ``rmsnorm`` at VVL 1, 2, 4 and 8 at gemma2's and
    falcon-mamba-7b's prefill and decode shapes and a ragged (37, 64), the
    ``gated``/``act`` site functions (all five kinds) at VVL 1, 2, 4 and 8
    at full width and on operands at a storage offset of one element (the
    unaligned path, a ragged extent); the ``mamba`` site function
-   (``ops.mamba_scan``) at VVL 1, 2, 4 and 8 on the reference tests'
-   shapes, a ragged 1000 channels and falcon-mamba-7b's full-width prefill
-   shape (2, 4096, 8192, 16); the calibration kernels (``calibrate.add``
+   (``ops.mamba_scan``, every batch row in one launch) at VVL 1, 2, 4 and 8
+   on the reference tests' shapes, a ragged 1000 channels, falcon-mamba-7b's
+   full-width prefill shape (2, 4096, 8192, 16) and shapes that cut the
+   chunks and channel blocks at batch 1 and 3; the calibration kernels (``calibrate.add``
    exactly, ``calibrate.fma`` at ``FMA_RTOL``) on the reference's (16384,)
    shape at k = 8, on a misaligned view and at the calibration sizes;
 4. main path — ``BinaryFluidSim`` 20 steps at 128³ in the unfused,
@@ -53,7 +56,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
 5. times — each LB kernel × site function at 128³ (the windowed ``fused``
    at each ``PLANE_BLOCKS`` value too; beside each, its per-launch time
    before the redesign, ``EARLIER_MS``) and each LM kernel at its
-   full-width shapes, held once more to its plain version, then timed
+   full-width shapes (``flash_attention`` and ``mamba`` beside their times
+   before their redesign, ``EARLIER_LM_MS``, kept in the record, not in the
+   kernels line), held once more to its plain version, then timed
    (median of 20 launches, CUDA events) beside its plain version, its
    bound and, where one PyTorch call computes the same function
    (``library_call``, ``lm_library_call``), that call, itself held to the
@@ -91,6 +96,8 @@ OUT_DIR = ROOT / "chiprun_out"
 #: tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+#: TF32 on the tensor cores, dense (data sheet).
+PEAK_TF32_PER_S = 495e12
 #: Exponentials per second on the special-function units: 16 per clock per
 #: SM (Hopper architecture white paper: 4 SFUs in each of an SM's four
 #: partitions) × 132 SMs × the 1.98 GHz boost clock of the SXM part.
@@ -176,7 +183,11 @@ MAMBA_PROMPT = 4096
 #: shapes (tests/test_kernels.py:140), a ragged channel count and the
 #: full-width falcon-mamba-7b prefill.
 MAMBA_CASES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 77, 1000, 16),
-               (SERVE_BATCH, MAMBA_PROMPT, 8192, 16)]
+               (SERVE_BATCH, MAMBA_PROMPT, 8192, 16),
+               # cutting the new tiles: L not a multiple of any chunk (32,
+               # 16, 8 or 4 steps), batch 1 and 3, ragged channel blocks,
+               # n not a multiple of 4 (the 4-byte copies)
+               (3, 45, 300, 8), (1, 333, 520, 16), (3, 101, 301, 16)]
 #: rmsnorm checks, (tokens, d): gemma2-2b's prefill and decode, a ragged
 #: small case, falcon-mamba-7b's decode and prefill.
 RMS_CHECKS = [(SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64),
@@ -198,7 +209,27 @@ ATTN_CASES = [(2, 4, 4, 128, 128, 32, c, 0, 0.0) for c in (True, False)] + [
     (1, 2, 2, 40, 20, 32, False, 5, 0.0),          # rows with no live key
     (2, 8, 4, 4608, 4608, 256, True, 4096, 50.0),  # gemma2 local layer
     (2, 8, 4, 4608, 4608, 256, True, 0, 50.0),     # gemma2 global layer
+    # Sq, Sk not multiples of the 128 query rows or the key tile (64 keys at
+    # Dh 64, 32 at Dh 128)
+    (1, 4, 2, 100, 100, 64, True, 0, 0.0),
+    (2, 4, 1, 200, 333, 64, False, 0, 0.0),
+    (1, 4, 2, 130, 130, 128, True, 50, 50.0),
+    (1, 2, 2, 77, 300, 128, False, 0, 0.0),
+    # query tiles 2 and 3 (rows 128..299) see no key: k > q - 30 >= 98, k < 40
+    (1, 2, 2, 300, 40, 128, False, 30, 0.0),
 ]
+#: ATTN_CASES entries also run on (B, S, H, Dh) tensors seen as (B, H, S,
+#: Dh): the layout the model hands the kernel.
+ATTN_VIEW_CASES = [(2, 8, 4, 300, 300, 256, True, 100, 50.0),
+                   (1, 4, 2, 130, 130, 128, True, 0, 0.0)]
+#: Per-launch ms of the LM kernels this PR redesigns, before it (PERF.md §6:
+#: this script's phase 5 on an NVIDIA H100 80GB HBM3 at 700 W): flash at
+#: gemma2-2b's prefill shape, and the mamba site function at falcon-mamba-7b's
+#: full width, one launch per batch row then (4.768 ms each), so a layer's
+#: two rows took twice that.  Printed beside this run's times.
+EARLIER_LM_MS = {"flash_attention.local": 8.664, "flash_attention.attn": 8.786,
+                 "flash_attention.causal": 8.614,
+                 "tdp_gathered.mamba": 2 * 4.768}
 
 
 def log(msg: str) -> None:
@@ -387,12 +418,16 @@ def attn_live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def attn_bound(b, hq, hkv, sq, sk, dh, causal, window) -> tuple[float, str]:
-    """4·Dh float32 operations per live pair (q·k and p·v) against the fp32
-    peak, q/k/v read and o written once against the memory rate."""
+def attn_bound(b, hq, hkv, sq, sk, dh, causal, window, *,
+               split=None) -> tuple[float, str]:
+    """4·Dh operations per live pair (q·k and p·v): against the float32
+    peak of the CUDA cores, or with ``split`` as that many TF32 products on
+    the tensor cores (3 for 3xTF32); q/k/v read and o written once against
+    the memory rate."""
     flops = 4 * dh * b * hq * attn_live_pairs(sq, sk, causal, window)
     nbytes = 4 * dh * (2 * b * hq * sq + 2 * b * hkv * sk)
-    t_ops = flops / PEAK_F32_PER_S * 1e3
+    t_ops = (flops / PEAK_F32_PER_S if split is None
+             else split * flops / PEAK_TF32_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -422,11 +457,17 @@ def lm_checks(problems: list, max_err: dict) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     err = 0.0
-    for case in ATTN_CASES:
-        b, hq, hkv, sq, sk, dh, causal, window, softcap = case
-        q = torch.randn(b, hq, sq, dh, device=dev, generator=g)
-        k = torch.randn(b, hkv, sk, dh, device=dev, generator=g)
-        v = torch.randn(b, hkv, sk, dh, device=dev, generator=g)
+    for case in ATTN_CASES + [("views", c) for c in ATTN_VIEW_CASES]:
+        views = case[0] == "views"
+        b, hq, hkv, sq, sk, dh, causal, window, softcap = case[-1] if views else case
+        if views:   # (B, S, H, Dh) tensors seen as (B, H, S, Dh)
+            q = torch.randn(b, sq, hq, dh, device=dev, generator=g).transpose(1, 2)
+            k, v = (torch.randn(b, sk, hkv, dh, device=dev,
+                                generator=g).transpose(1, 2) for _ in range(2))
+        else:
+            q = torch.randn(b, hq, sq, dh, device=dev, generator=g)
+            k = torch.randn(b, hkv, sk, dh, device=dev, generator=g)
+            v = torch.randn(b, hkv, sk, dh, device=dev, generator=g)
         kw = dict(causal=causal, window=window, softcap=softcap)
         got = flash_attention.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -435,6 +476,9 @@ def lm_checks(problems: list, max_err: dict) -> None:
         err = max(err, e)
         if not (torch.isfinite(got).all() and torch.allclose(got, want, **LM_TOL)):
             problems.append(f"flash_attention {case}: max |kernel - plain| = {e}")
+        if got.stride() != q.stride():
+            problems.append(f"flash_attention {case}: o has strides "
+                            f"{got.stride()}, q {q.stride()}")
         log(f"phase 3: flash_attention {case} max_abs_err={e}")
         del q, k, v, got, want
     max_err["flash_attention"] = err
@@ -1089,6 +1133,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_checks(problems, max_err)
     calibrate_checks(problems, max_err)
+    record["phase3_max_abs_err"] = {str(k): v for k, v in max_err.items()}
 
     # -- 4. main path at 128^3 -----------------------------------------------
     params = LBParams(**PARAMS)
@@ -1204,7 +1249,7 @@ def main() -> int:
             ("tdp_gathered", "rmsnorm"): (2 * g_layers + 1) * SERVE_DECODE,
             ("tdp_gathered", "gated"): g_layers * SERVE_DECODE},
         f"{mcfg.name} prefill (cuda)": {
-            ("tdp_gathered", "mamba"): SERVE_BATCH * m_layers,
+            ("tdp_gathered", "mamba"): m_layers,
             ("tdp_gathered", "rmsnorm"): m_layers + 1},
         f"{mcfg.name} {decode} (cuda)": {
             ("tdp_gathered", "rmsnorm"): (m_layers + 1) * SERVE_DECODE},
@@ -1369,38 +1414,50 @@ def main() -> int:
         if variant == "causal":
             lib = ((lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)), (lambda o: (o,)))
+        shape = (SERVE_BATCH, a.n_heads, a.n_kv_heads, SERVE_PROMPT,
+                 SERVE_PROMPT, a.head_dim, True, window)
+        name = f"flash_attention.{variant}"
+        # bound_ms: the kernel's own work, TF32_SPLIT products on the tensor
+        # cores; the float32 CUDA-core bound beside it, in the record
         rows.append(lm_row(
-            f"flash_attention.{variant}", KERNELS["flash_attention"],
+            name, KERNELS["flash_attention"],
             ("flash_attention", "flash_attention"),
             lambda kw=kw: flash_attention.flash_attention(q, k, v, **kw),
             lambda kw=kw: ref.attention_ref(q, k, v, **kw), lib,
-            attn_bound(SERVE_BATCH, a.n_heads, a.n_kv_heads, SERVE_PROMPT,
-                       SERVE_PROMPT, a.head_dim, True, window),
+            attn_bound(*shape, split=flash_attention.TF32_SPLIT),
             launches, launches_by_path, max_err, problems, record,
             max_err_key="flash_attention"))
+        record.setdefault("earlier_ms", {})[name] = EARLIER_LM_MS[name]
+        record.setdefault("bound_fp32_ms", {})[name] = attn_bound(*shape)[0]
+        log(f"phase 5: {name} (before the redesign {EARLIER_LM_MS[name]}) "
+            f"bound on the CUDA cores in float32 "
+            f"{record['bound_fp32_ms'][name]:.4f} ms")
         torch.cuda.empty_cache()
     del q, k, v
 
     # the mamba site function at falcon-mamba-7b's full-width prefill shape:
-    # one launch = one batch row
+    # one launch = one layer, both batch rows
     length, nstate = MAMBA_PROMPT, mcfg.ssm.d_state
     n = mcfg.ssm.expand * mcfg.d_model
-    xs = [torch.randn(length, n, device=dev, generator=g),
-          torch.nn.functional.softplus(torch.randn(length, n, device=dev,
+    rows_ = SERVE_BATCH * length
+    xs = [torch.randn(rows_, n, device=dev, generator=g),
+          torch.nn.functional.softplus(torch.randn(rows_, n, device=dev,
                                                    generator=g)),
           -torch.exp(torch.randn(nstate, n, device=dev, generator=g)),
           torch.ones(1, n, device=dev)]
-    consts = {"b": torch.randn(length, nstate, device=dev, generator=g),
-              "c": torch.randn(length, nstate, device=dev, generator=g)}
-    plan = launch_plan(lm.mamba_scan_spec(length, nstate), Target("cuda", vvl=1),
-                       consts=consts)
-    # x, dt read and y written per (step, channel); a, d, b, c read and h
-    # written once.  L·n·N exponentials on the SFUs, 6 float32 operations per
-    # (step, channel, state) and 3 per (step, channel) on the CUDA cores.
-    nbytes = 4 * (3 * length * n + 2 * nstate * n + n + 2 * length * nstate)
+    consts = {"b": torch.randn(rows_, nstate, device=dev, generator=g),
+              "c": torch.randn(rows_, nstate, device=dev, generator=g)}
+    spec = lm.mamba_scan_spec(length, nstate, SERVE_BATCH)
+    plan = launch_plan(spec, Target("cuda", vvl=1), consts=consts)
+    # x, dt read and y written per (step, channel); a, d read once; b, c
+    # read and h written once per row.  L·n·N exponentials a row on the
+    # SFUs, 6 float32 operations per (step, channel, state) and 3 per (step,
+    # channel) on the CUDA cores.
+    nbytes = 4 * (3 * rows_ * n + nstate * n + n
+                  + SERVE_BATCH * (nstate * n + 2 * length * nstate))
     bounds = [(nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
-              (length * n * nstate / PEAK_SFU_PER_S * 1e3, "operations"),
-              ((6 * nstate + 3) * length * n / PEAK_F32_PER_S * 1e3,
+              (rows_ * n * nstate / PEAK_SFU_PER_S * 1e3, "operations"),
+              ((6 * nstate + 3) * rows_ * n / PEAK_F32_PER_S * 1e3,
                "operations")]
     rows.append(lm_row(
         "tdp_gathered.mamba", KERNELS["tdp_gathered.mamba"],
@@ -1409,9 +1466,13 @@ def main() -> int:
         lambda: torch_executor(plan, xs), None, max(bounds),
         launches, launches_by_path, max_err, problems, record,
         plain_reps=MAMBA_PLAIN_REPS, plain_wall=True))
-    rows[-1]["ms_by_vvl"] = ms_by_vvl(lm.mamba_scan_spec(length, nstate), xs,
-                                      consts)
-    log(f"phase 5: tdp_gathered.mamba ms by VVL {rows[-1]['ms_by_vvl']}")
+    rows[-1]["shape"] = [SERVE_BATCH, length, n, nstate]
+    record.setdefault("earlier_ms", {})["tdp_gathered.mamba"] = \
+        EARLIER_LM_MS["tdp_gathered.mamba"]
+    rows[-1]["ms_by_vvl"] = ms_by_vvl(spec, xs, consts)
+    log(f"phase 5: tdp_gathered.mamba (before the redesign "
+        f"{EARLIER_LM_MS['tdp_gathered.mamba']}) ms by VVL "
+        f"{rows[-1]['ms_by_vvl']}")
     del xs, consts, plan
     torch.cuda.empty_cache()
     rows += calibrate_rows(launches, launches_by_path, max_err, problems)

@@ -1,4 +1,5 @@
-// flash_attention.cu — blocked (flash) attention forward on Hopper.
+// flash_attention.cu — blocked (flash) attention forward on Hopper's tensor
+// cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_pallas (the
 // Pallas kernel, body _attn_body): q (B, Hq, Sq, Dh), k/v (B, Hkv, Sk, Dh),
@@ -6,25 +7,46 @@
 // mask (k < Sk, causal k <= q, window k > q - W), online softmax with float32
 // running max, sum and accumulator, zero output for a row with no live key.
 //
-// Design (simple first version; tensor cores, TMA and bf16 are later work):
-// one block of 8 warps per (b*Hq + h, tile of BQ = 32 query rows); each warp
-// owns 4 rows.  The block walks the key tiles of BK = 32 keys that can hold a
-// live key for its rows — tiles wholly dead under the causal mask or the
-// window are never loaded — staging each K and V tile in shared memory
-// (K rows padded by 4 floats so lane j's float4 reads of row j hit distinct
-// banks).  Scores: lane j forms the dot products of key j with the warp's 4
-// query rows (Q tile broadcast from shared memory), on the CUDA cores in
-// float32.  The online-softmax update of each row is flash_attention.cuh's,
-// with the tile's max and sum taken by warp shuffles.  P.V: lane l owns
-// dimensions l, l+32, ... of each of its warp's rows, p_j broadcast from
-// lane j by shuffle.  The ragged tail of Sq and Sk is masked in the kernel,
-// not padded; every offset is 64-bit.
+// Bound on the H100: the products.  4·Dh flops per live (q, k) pair (q·k and
+// p·v); q, k, v read and o written once are ~20x less time at the gemma2
+// prefill shape (S 4608, Dh 256).  On the CUDA cores (fp32, 67 TFLOP/s) the
+// local layer's 1.7e11 flops take 2.565 ms; the first port of this kernel, scalar
+// fp32 FMAs with each 32-key tile loaded synchronously between two barriers,
+// took 8.664 ms (local) and 8.786 ms (global layer), 0.30 of that bound.
+// The TF32 tensor cores do the same products at 495 TFLOP/s: 0.35 ms in one
+// TF32 product, 1.04 ms in the three of 3xTF32.
 //
-// Bound on the H100: float32 operations.  4*Dh flops per live (q, k) pair
-// (q.k and p.v) against 67 TFLOP/s, versus q, k, v read and o written once
-// against 3.35 TB/s; at the gemma2 prefill shape (S 4608, Dh 256) the flops
-// bound is ~20x the bytes bound.  Shared memory per block: (32*Dh + 32*(Dh+4)
-// + 32*Dh) * 4 bytes, 97.5 KB at Dh 256, so two blocks fit on an SM.
+// Design.  A block of 8 warps takes 128 query rows of one (batch, head), a
+// warp 16 of them.  S = Q·Kᵀ and O += P·V run as mma.sync.m16n8k8 with TF32
+// operands and fp32 accumulators.  One TF32 product per product misses the
+// reference's bar of 2e-4 (measured once on the card: error up to 1.4e-3,
+// 3.38 ms for the local layer; PERF.md §6), so each operand is split into
+// a TF32 high part and the rest (3xTF32: error ~8e-6).  The online
+// softmax runs on the accumulator fragments (flash_attention.cuh: a row's
+// max and sum over its quad of lanes by two shuffles).  P·V runs transposed,
+// Oᵀ += Vᵀ·Pᵀ, so S's C fragment is Pᵀ's B fragment as it is and P never
+// leaves registers.  The data behind each k slot and row of the fragments
+// is chosen so that a lane's Q, K and Vᵀ operands sit side by side: one
+// 16-byte shared-memory load for four of them, conflict-free (rows padded
+// to ≡ 16 floats mod 32 for Q and K, ≡ 4 for V).  The fp32 O accumulator
+// is Dh/2 registers a lane (128 at Dh 256), so Q lives in shared memory,
+// staged once.  One stage each of K and V (BK keys: 32 at Dh >= 128, 64
+// below) by 16-byte cp.async: K of tile j + 1 lands while the block works
+// on the softmax and P·V of tile j, V of tile j + 1 while it works on S of
+// tile j + 1.  Tiles wholly dead under the causal mask or the window are
+// never loaded (key_range); the ragged tails of Sq and Sk are masked
+// (zero-filled rows, live()), not padded.  Query tiles run last first, so
+// the longest causal rows start first.  Shared memory at Dh 256: 207 KB
+// (one block, two warps a scheduler, 246 registers, no spill).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): 4.99 ms local,
+// 5.17 ms global at gemma2-2b's prefill, ~5x its 3xTF32 bound; scratch
+// variants point at latency (~0.2 instructions a cycle a scheduler) as
+// what holds it there, not L2 or the masks (PERF.md §7).
+//
+// Each operand is addressed by (batch, head, row) strides in floats with
+// rows of Dh contiguous floats, 16-byte aligned, so the model's (B, S, H, Dh)
+// projections come in as transposed views, and o goes out in q's layout.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -34,13 +56,10 @@
 namespace {
 
 using tdp::attn::Params;
-using tdp::attn::RowState;
+using tdp::attn::Tf32;
 
-constexpr int kWarps = 8;
-constexpr int kRows = 4;                // query rows per warp
-constexpr int kBQ = kWarps * kRows;     // query rows per block
-constexpr int kBK = 32;                 // keys per tile: one per lane
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = tdp::attn::FLASH_THREADS;
+constexpr int kBQ = tdp::attn::FLASH_BQ;  // query rows of a block
 constexpr unsigned kFull = 0xffffffffu;
 
 // Error codes besides cudaError_t values (all positive).
@@ -52,145 +71,188 @@ struct AttnIO {
   const float* k;
   const float* v;
   float* o;
+  int64_t sq[3], sk[3], sv[3], so[3];  // (batch, head, row) strides, floats
   int B, Hq, Hkv, Sq, Sk;
   Params p;
 };
 
-template <int DH>
-struct Tile {
-  static constexpr int D4 = DH / 4;            // float4s per row
-  static constexpr int KSTRIDE = DH + 4;       // padded K row, in floats
-  static constexpr int NDL = (DH + 31) / 32;   // P.V dimensions per lane
-  static constexpr size_t SMEM =
-      (size_t)(kBQ * DH + kBK * KSTRIDE + kBK * DH) * sizeof(float);
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
+// The kernel's operands: 3xTF32 (flash_attention.cuh: tf32_split).
+using Op = Tf32<3>;
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+__device__ __forceinline__ Op split(float x) { return tdp::attn::tf32_split<3>(x); }
+
+// d += a·b in 3xTF32: the small terms first, then hi·hi.
+__device__ __forceinline__ void mma(float (&d)[4], const Op (&a)[4], const Op (&b)[2]) {
+  mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
 }
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __grid_constant__ AttnIO io) {
-  using T = Tile<DH>;
+  using T = tdp::attn::FlashTile<DH>;
+  using namespace tdp::attn;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // (kBQ, DH)
-  float* Ks = Qs + kBQ * DH;                      // (kBK, KSTRIDE)
-  float* Vs = Ks + kBK * T::KSTRIDE;              // (kBK, DH)
+  float* Qs = reinterpret_cast<float*>(smem4);  // (kBQ, SQK)
+  float* Ks = Qs + T::K;                         // (BK, SQK)
+  float* Vs = Qs + T::V;                         // (BK, SV)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y;
   const int b = bh / io.Hq, h = bh % io.Hq;
   const int hk = h / (io.Hq / io.Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const float* qg = io.q + (int64_t)bh * io.Sq * DH;
-  const float* kg = io.k + (int64_t)(b * io.Hkv + hk) * io.Sk * DH;
-  const float* vg = io.v + (int64_t)(b * io.Hkv + hk) * io.Sk * DH;
+  const int q0 = (int)(gridDim.x - 1 - blockIdx.x) * kBQ;
+  const float* qg = io.q + b * io.sq[0] + h * io.sq[1];
+  const float* kg = io.k + b * io.sk[0] + hk * io.sk[1];
+  const float* vg = io.v + b * io.sv[0] + hk * io.sv[1];
+  float* og = io.o + b * io.so[0] + h * io.so[1];
 
-  for (int i = tid; i < kBQ * T::D4; i += kThreads) {
-    const int r = i / T::D4, c = i % T::D4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < io.Sq) x = ldg4(qg + (int64_t)(q0 + r) * DH + 4 * c);
-    reinterpret_cast<float4*>(Qs)[i] = x;
-  }
-
+  // copy groups, in order: Q with K of the first tile, V of the first tile;
+  // then per tile K, V of the next (empty past the last), so "all but the
+  // newest group landed" is the tile's K before S and its V before P·V.  A
+  // query tile with no live key copies nothing: its rows are zero, and no
+  // copy is left in flight when the block exits
   int k_lo, k_hi;
-  tdp::attn::key_range(io.p, q0, min(q0 + kBQ, io.Sq) - 1, kBK, k_lo, k_hi);
-
-  const int r0 = warp * kRows;
-  RowState st[kRows];
-  float acc[kRows][T::NDL];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    st[r] = tdp::attn::row_init();
-#pragma unroll
-    for (int i = 0; i < T::NDL; ++i) acc[r][i] = 0.0f;
+  key_range(io.p, q0, min(q0 + kBQ, io.Sq) - 1, T::BK, k_lo, k_hi);
+  if (k_lo < k_hi) {
+    stage_rows<DH>(Qs, T::SQK, qg, io.sq[2], q0, kBQ, io.Sq, tid, kThreads);
+    stage_rows<DH>(Ks, T::SQK, kg, io.sk[2], k_lo, T::BK, io.Sk, tid, kThreads);
   }
+  tdp::cp_async_commit();
+  if (k_lo < k_hi)
+    stage_rows<DH>(Vs, T::SV, vg, io.sv[2], k_lo, T::BK, io.Sk, tid, kThreads);
+  tdp::cp_async_commit();
 
-  for (int kt = k_lo; kt < k_hi; kt += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBK * T::D4; i += kThreads) {
-      const int r = i / T::D4, c = i % T::D4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (kt + r < io.Sk) {
-        kx = ldg4(kg + (int64_t)(kt + r) * DH + 4 * c);
-        vx = ldg4(vg + (int64_t)(kt + r) * DH + 4 * c);
+  const int r0 = 16 * warp;
+  float o[T::NP][T::NT][2][4];  // Oᵀ fragments (query rows 2·tig + ..., see .cuh)
+#pragma unroll
+  for (int p = 0; p < T::NP; ++p)
+#pragma unroll
+    for (int t = 0; t < T::NT; ++t)
+#pragma unroll
+      for (int nr = 0; nr < 2; ++nr)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[p][t][nr][i] = 0.0f;
+  RowState st[2] = {row_init(), row_init()};
+
+  for (int kt = k_lo; kt < k_hi; kt += T::BK) {
+    const bool more = kt + T::BK < k_hi;
+    tdp::cp_async_wait<1>();  // this tile's K (and Q) landed: this thread's copies
+    __syncthreads();          // ... every thread's
+
+    // S = Q·Kᵀ: one accumulator per fragment and k-step parity, so 2·NJ
+    // chains of products are in flight
+    float s2[2][T::NJ][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < T::NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s2[hh][j][i] = 0.0f;
+#pragma unroll 2
+    for (int kp = 0; kp < T::NKP; ++kp) {
+      float af[2][4];
+      load_a_q(Qs, T::SQK, r0, kp, lane, af);
+      Op a[2][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[hh][i] = split(af[hh][i]);
+#pragma unroll
+      for (int j = 0; j < T::NJ; ++j) {
+        float bf[2][2];
+        load_b_k(Ks, T::SQK, j, kp, lane, bf);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const Op bb[2] = {split(bf[hh][0]), split(bf[hh][1])};
+          mma(s2[hh][j], a[hh], bb);
+        }
       }
-      *reinterpret_cast<float4*>(Ks + r * T::KSTRIDE + 4 * c) = kx;
-      reinterpret_cast<float4*>(Vs)[i] = vx;
     }
+    float s[T::NJ][4];
+#pragma unroll
+    for (int j = 0; j < T::NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = s2[0][j][i] + s2[1][j][i];
+    __syncthreads();  // every warp is done with this tile's K
+    if (more) stage_rows<DH>(Ks, T::SQK, kg, io.sk[2], kt + T::BK, T::BK, io.Sk, tid, kThreads);
+    tdp::cp_async_commit();
+
+    float mx[2], alpha[2], sum[2];
+    frag_logits<T::NJ>(io.p, q0 + r0, kt, lane, s, mx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(kFull, mx[hh], quad_xor(r)));
+    frag_weights<T::NJ>(st, mx, s, alpha, sum);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        sum[hh] += __shfl_xor_sync(kFull, sum[hh], quad_xor(r));
+    frag_rows(st, alpha, sum);
+    // O's rows only move when some row's running max moved (x 1.0 is exact)
+    if (__any_sync(kFull, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+      float f[2][2];
+#pragma unroll
+      for (int nr = 0; nr < 2; ++nr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) f[nr][e] = __shfl_sync(kFull, alpha[nr], o_src(lane, e));
+      frag_rescale<T::NP, T::NT>(o, f);
+    }
+
+    tdp::cp_async_wait<1>();  // this tile's V landed
     __syncthreads();
-
-    // q.k_j for the warp's rows, key j = kt + lane
-    float dot[kRows];
+    // Oᵀ += Vᵀ·Pᵀ: Pᵀ's B fragments are S's C fragments as they are
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) dot[r] = 0.0f;
-    const float4* krow = reinterpret_cast<const float4*>(Ks + lane * T::KSTRIDE);
-#pragma unroll 4
-    for (int c = 0; c < T::D4; ++c) {
-      const float4 kx = krow[c];
+    for (int j = 0; j < T::NJ; ++j) {
+      Op pb[2][2];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qx = reinterpret_cast<const float4*>(Qs + (r0 + r) * DH)[c];
-        dot[r] = fmaf(qx.x, kx.x, dot[r]);
-        dot[r] = fmaf(qx.y, kx.y, dot[r]);
-        dot[r] = fmaf(qx.z, kx.z, dot[r]);
-        dot[r] = fmaf(qx.w, kx.w, dot[r]);
+      for (int nr = 0; nr < 2; ++nr)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) pb[nr][i] = split(s[j][2 * nr + i]);
+#pragma unroll
+      for (int p = 0; p < T::NP; ++p) {
+        float vf[T::NT][4];
+        load_a_v<T::W>(Vs, T::SV, j, p, lane, vf);
+#pragma unroll
+        for (int t = 0; t < T::NT; ++t) {
+          Op va[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) va[i] = split(vf[t][i]);
+#pragma unroll
+          for (int nr = 0; nr < 2; ++nr) mma(o[p][t][nr], va, pb[nr]);
+        }
       }
     }
-
-    float pw[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool lv = tdp::attn::live(io.p, q0 + r0 + r, kt + lane);
-      const float s = tdp::attn::logit(io.p, dot[r]);
-      const float alpha = tdp::attn::row_rescale(st[r], warp_max(lv ? s : -INFINITY));
-      pw[r] = tdp::attn::row_weight(st[r], s, lv);
-      tdp::attn::row_sum(st[r], alpha, warp_sum(pw[r]));
-#pragma unroll
-      for (int i = 0; i < T::NDL; ++i) acc[r][i] *= alpha;
-    }
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vd[T::NDL];
-#pragma unroll
-      for (int i = 0; i < T::NDL; ++i) {
-        const int d = lane + 32 * i;
-        vd[i] = d < DH ? Vs[j * DH + d] : 0.0f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(kFull, pw[r], j);
-#pragma unroll
-        for (int i = 0; i < T::NDL; ++i) acc[r][i] = fmaf(pj, vd[i], acc[r][i]);
-      }
-    }
+    __syncthreads();  // every warp is done with this tile's V
+    if (more) stage_rows<DH>(Vs, T::SV, vg, io.sv[2], kt + T::BK, T::BK, io.Sk, tid, kThreads);
+    tdp::cp_async_commit();
   }
 
+  // row 8·nr + 2·tig + e: its sum from o_src
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int q = q0 + r0 + r;
-    if (q >= io.Sq) continue;
-    float* orow = io.o + ((int64_t)bh * io.Sq + q) * DH;
+  for (int nr = 0; nr < 2; ++nr)
 #pragma unroll
-    for (int i = 0; i < T::NDL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < DH) orow[d] = tdp::attn::row_out(st[r], acc[r][i]);
+    for (int e = 0; e < 2; ++e) {
+      RowState rs = row_init();
+      rs.l = __shfl_sync(kFull, st[nr].l, o_src(lane, e));
+      const int q = q0 + r0 + 8 * nr + 2 * (lane & 3) + e;
+      if (q < io.Sq)
+        store_o_row<T::NP, T::NT, T::W>(og + (int64_t)q * io.so[2], lane, o, nr, e, rs);
     }
-  }
 }
 
 template <int DH>
@@ -199,27 +261,40 @@ int launch(const AttnIO& io, void* stream) {
   // above 48 KB of shared memory only after opting in (per device, so per call)
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tile<DH>::SMEM);
+      (int)tdp::attn::FlashTile<DH>::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((io.Sq + kBQ - 1) / kBQ), (unsigned)(io.B * io.Hq));
-  flash_fwd_kernel<DH><<<grid, kThreads, Tile<DH>::SMEM, (cudaStream_t)stream>>>(io);
+  flash_fwd_kernel<DH>
+      <<<grid, kThreads, tdp::attn::FlashTile<DH>::SMEM, (cudaStream_t)stream>>>(io);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Hq, Sq, Dh), k/v (B, Hkv, Sk, Dh), o (B, Hq, Sq, Dh): device pointers,
-// float32, contiguous, 16-byte aligned.  Returns 0, a cudaError_t,
-// ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 128, 256}) or ERR_BAD_GROUP
-// (Hq not a multiple of Hkv).
+// float32; strides[12] the (batch, head, row) strides of q, k, v and o in
+// floats, each a multiple of 4, rows of Dh contiguous floats, every pointer
+// 16-byte aligned.  Returns 0, a cudaError_t, ERR_BAD_HEAD_DIM (Dh not in
+// {16, 32, 64, 128, 256}) or ERR_BAD_GROUP (Hq not a multiple of Hkv).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int B, int Hq, int Hkv, int Sq,
-                                      int Sk, int Dh, float scale, float softcap,
-                                      int causal, int window, void* stream) {
+                                      void* o, const long long* strides, int B,
+                                      int Hq, int Hkv, int Sq, int Sk, int Dh,
+                                      float scale, float softcap, int causal,
+                                      int window, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return ERR_BAD_GROUP;
-  AttnIO io{static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<float*>(o),
-            B, Hq, Hkv, Sq, Sk, Params{scale, softcap, causal, window, Sk}};
+  AttnIO io{};
+  io.q = static_cast<const float*>(q);
+  io.k = static_cast<const float*>(k);
+  io.v = static_cast<const float*>(v);
+  io.o = static_cast<float*>(o);
+  for (int i = 0; i < 3; ++i) {
+    io.sq[i] = strides[i];
+    io.sk[i] = strides[3 + i];
+    io.sv[i] = strides[6 + i];
+    io.so[i] = strides[9 + i];
+  }
+  io.B = B, io.Hq = Hq, io.Hkv = Hkv, io.Sq = Sq, io.Sk = Sk;
+  io.p = Params{scale, softcap, causal, window, Sk};
   switch (Dh) {
     case 16: return launch<16>(io, stream);
     case 32: return launch<32>(io, stream);

@@ -39,17 +39,26 @@
 //              in a shared-memory tree (h = J/2, ..., 1).  VVL does not
 //              change this mapping.
 //   mamba    site = channel: the selective scan, sequential in time.  x, dt
-//            and y are (L, n), a is (N, n), d is (1, n), b and c are (L, N)
-//            (no channel axis: every thread reads the same b[t], c[t], a
-//            broadcast), the final state h is (N, n).  Thread t covers the
-//            VVL consecutive channels [t*VVL, t*VVL + VVL), the ragged last
-//            strip masked, and walks them together in time, so at each step
-//            a warp reads 32·VVL neighbouring floats of x and dt —
-//            coalesced — and the strip's states h[VVL][N] and rates
-//            a[VVL][N] stay in registers (N is a template parameter: 8 and
-//            16 are instantiated).  It has an entry of its own,
-//            tdp_gathered_mamba_launch, since it takes six inputs and gives
-//            two outputs.
+//            and y are (L, n) per batch row, a is (N, n), d is (1, n), b and
+//            c are (L, N) per row (no channel axis), the final state h is
+//            (N, n) per row; one launch covers every row (grid.y).  A
+//            channel's N states are split over MAMBA_LANES = 4 lanes (a lane
+//            group), lane g holding states g·N/4 ... g·N/4 + N/4 - 1 (N is a
+//            template parameter: 8 and 16 are instantiated), and VVL is the
+//            channels of a lane group: a block of 128 threads = 32 groups
+//            covers 32·VVL channels, group j the channels j, j + 32, ...
+//            (interleaved, so a warp's 8 groups read 8 neighbouring floats).
+//            The block stages chunks of T = 1024 / (32·VVL) steps — x and dt
+//            of its channels, b and c whole — into shared memory by
+//            cp.async, double-buffered: chunk q + 1 is in flight while the
+//            lanes walk chunk q, so the chain reads only shared memory and
+//            registers.  Per step a lane takes exp(dt·a) as exp2(dt·a·log2 e)
+//            (one MUFU.EX2), updates its states, sums h·c over them in state
+//            order, and the group's four shares meet by shuffles, xor 1 then
+//            xor 2: y = (p0 + p1) + (p2 + p3) + d·x, written by lane 0.  The
+//            ragged last block and chunk are masked, not padded.  It has an
+//            entry of its own, tdp_gathered_mamba_launch, since it takes six
+//            inputs and gives two outputs.
 //
 // The activation (silu, gelu with the tanh approximation, relu^2) is a
 // template parameter.  Arithmetic keeps the plain version's order where it
@@ -63,7 +72,8 @@
 
 #include <cstdint>
 
-#include "lb_sites.cuh"  // tdp::ldg, tdp::ERR_*, tdp::dispatch_vvl
+#include "async_copy.cuh"  // tdp::copy16, copy4, cp_async_*, ld_shared
+#include "lb_sites.cuh"     // tdp::ldg, tdp::ERR_*, tdp::dispatch_vvl
 
 namespace tdp {
 namespace lm {
@@ -415,89 +425,220 @@ __host__ __device__ __forceinline__ void rms_few_scale(const LmIO& io, int J,
 }
 
 // ---------------------------------------------------------------------------
-// mamba: the selective scan, site = channel
+// mamba: the selective scan, site = channel, a channel's states over lanes
 // ---------------------------------------------------------------------------
-
-// Threads of a launch over io.n sites, VVL per thread.
-template <int VVL, class IO>
-__host__ __device__ __forceinline__ int64_t lm_threads(const IO& io) {
-  return (io.n + VVL - 1) / VVL;
-}
 
 // d_state not instantiated (8 and 16 are): the mamba entry's return code
 constexpr int ERR_BAD_NSTATE = -5;
 
-// Operands of one mamba launch (one batch row).
+constexpr int MAMBA_LANES = 4;       // lanes sharing one channel's N states
+constexpr int MAMBA_ROUNDS = 2;      // shuffle rounds over them: log2(MAMBA_LANES)
+constexpr int MAMBA_THREADS = 128;   // threads of a block
+constexpr int MAMBA_GROUPS = MAMBA_THREADS / MAMBA_LANES;  // lane groups
+constexpr int MAMBA_TILE = 1024;     // floats of x (and of dt) a chunk stages
+constexpr float MAMBA_LOG2E = 1.4426950408889634f;
+
+// Operands of one mamba launch: `rows` batch rows, row r's operands at
+// r·L·n (x, dt, y), r·L·N (b, c) and r·N·n (h) floats from the pointers.
 struct MambaIO {
-  const float* x;   // (L, n)
-  const float* dt;  // (L, n)
+  const float* x;   // (rows·L, n)
+  const float* dt;  // (rows·L, n)
   const float* a;   // (N, n)
   const float* d;   // (1, n)
-  const float* b;   // (L, N)
-  const float* c;   // (L, N)
-  float* y;         // (L, n)
-  float* h;         // (N, n): the state after the last step
+  const float* b;   // (rows·L, N)
+  const float* c;   // (rows·L, N)
+  float* y;         // (rows·L, n)
+  float* h;         // (rows·N, n): each row's state after its last step
   int64_t L, n;
+  int rows;
 };
 
+// The site function's tag for dispatch_mamba: d_state N.
 template <int N>
 struct MambaSite {
-  // Channels [site0, site0 + VVL), the first nv of them live.  Per step t:
-  // h[k] = h[k]·exp(dt·a[k]) + (dt·x)·b[k], y = Σ_k h[k]·c[k] + d·x — the
-  // plain body's order (kernels/lm.py:mamba_site).
-  template <int VVL>
-  __host__ __device__ static void run_strip(const MambaIO& io, int64_t site0,
-                                            int nv) {
-    float h[VVL][N], a[VVL][N], d[VVL];
-#pragma unroll
-    for (int l = 0; l < VVL; ++l) {
-      d[l] = l < nv ? ldg(io.d + site0 + l) : 0.0f;
-#pragma unroll
-      for (int k = 0; k < N; ++k) {
-        h[l][k] = 0.0f;
-        a[l][k] = l < nv ? ldg(io.a + (int64_t)k * io.n + site0 + l) : 0.0f;
-      }
-    }
-    for (int64_t t = 0; t < io.L; ++t) {
-      float bt[N], ct[N];
-#pragma unroll
-      for (int k = 0; k < N; ++k) {
-        bt[k] = ldg(io.b + t * N + k);
-        ct[k] = ldg(io.c + t * N + k);
-      }
-      const int64_t row = t * io.n + site0;
-#pragma unroll
-      for (int l = 0; l < VVL; ++l) {
-        if (l >= nv) continue;
-        const float xv = ldg(io.x + row + l);
-        const float dtv = ldg(io.dt + row + l);
-        const float dx = dtv * xv;
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          h[l][k] = h[l][k] * expf(dtv * a[l][k]) + dx * bt[k];
-          acc += h[l][k] * ct[k];
-        }
-        io.y[row + l] = acc + d[l] * xv;
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < VVL; ++l) {
-      if (l >= nv) continue;
-#pragma unroll
-      for (int k = 0; k < N; ++k) io.h[(int64_t)k * io.n + site0 + l] = h[l][k];
-    }
-  }
+  static constexpr int kN = N;
 };
 
-// Thread t covers the VVL channels from t*VVL, the ragged last strip
-// masked; the strip's channels advance in time together.
-template <class Site, int VVL>
-__host__ __device__ __forceinline__ void mamba_thread(const MambaIO& io, int64_t t) {
-  const int64_t site0 = t * VVL;
-  if (site0 >= io.n) return;
-  const int64_t left = io.n - site0;
-  Site::template run_strip<VVL>(io, site0, left < VVL ? (int)left : VVL);
+// A block's tile: C channels, T steps a chunk; one stage of shared memory
+// holds x[T][C], dt[T][C], b[T][N] and c[T][N] from float X, DT, B, CC.
+template <int N, int VVL>
+struct MambaTile {
+  static constexpr int S = N / MAMBA_LANES;     // states of a lane
+  static constexpr int C = MAMBA_GROUPS * VVL;  // channels of a block
+  static constexpr int T = MAMBA_TILE / C;      // steps of a chunk
+  static constexpr int X = 0, DT = T * C, B = 2 * T * C, CC = 2 * T * C + T * N;
+  static constexpr int FLOATS = 2 * T * C + 2 * T * N;  // one stage
+};
+
+// Lane g of a group holds states mamba_state(g, 0 .. S-1) of its channels.
+template <int N>
+__host__ __device__ constexpr int mamba_state(int g, int s) {
+  return g * (N / MAMBA_LANES) + s;
+}
+
+// Channel slot v of lane group j in block blk: the block's VVL·32 channels
+// are interleaved, so a warp's 8 groups read 8 neighbouring floats of x.
+__host__ __device__ __forceinline__ int mamba_slot(int j, int v) {
+  return v * MAMBA_GROUPS + j;
+}
+
+// Shuffle round r of the sum of y over a group's lanes: xor 1, then xor 2.
+__host__ __device__ constexpr int mamba_xor(int r) { return 1 << r; }
+
+template <int N, int VVL>
+__host__ __device__ __forceinline__ int64_t mamba_blocks(int64_t n) {
+  return (n + MambaTile<N, VVL>::C - 1) / MambaTile<N, VVL>::C;
+}
+
+template <int N, int VVL>
+__host__ __device__ __forceinline__ int64_t mamba_chunks(int64_t L) {
+  return (L + MambaTile<N, VVL>::T - 1) / MambaTile<N, VVL>::T;
+}
+
+// What a lane keeps in registers over the whole scan.
+template <int N, int VVL>
+struct MambaLane {
+  static constexpr int S = MambaTile<N, VVL>::S;
+  float h[VVL][S];   // the states
+  float a2[VVL][S];  // a·log2(e): the decay exp(dt·a) is exp2(dt·a2)
+  float d[VVL];
+};
+
+// exp2 by one MUFU.EX2 on the card (ex2.approx, ~2 ulp); exp2f on the host.
+__host__ __device__ __forceinline__ float fast_exp2(float x) {
+#if defined(__CUDA_ARCH__)
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return exp2f(x);
+#endif
+}
+
+template <int N, int VVL>
+__host__ __device__ __forceinline__ void mamba_lane_init(const MambaIO& io,
+                                                         int64_t blk, int tid,
+                                                         MambaLane<N, VVL>& ln) {
+  constexpr int S = MambaTile<N, VVL>::S;
+  const int j = tid / MAMBA_LANES, g = tid % MAMBA_LANES;
+#pragma unroll
+  for (int v = 0; v < VVL; ++v) {
+    const int64_t ch = blk * MambaTile<N, VVL>::C + mamba_slot(j, v);
+    const bool live = ch < io.n;
+    ln.d[v] = live ? ldg(io.d + ch) : 0.0f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      ln.h[v][s] = 0.0f;
+      ln.a2[v][s] =
+          live ? ldg(io.a + (int64_t)mamba_state<N>(g, s) * io.n + ch) * MAMBA_LOG2E
+               : 0.0f;
+    }
+  }
+}
+
+// Thread `tid` copies its share of chunk q of row `row` into the stage at
+// buf: the chunk's live steps of x and dt over the block's live channels
+// (16-byte copies where n % 4 == 0 and x, dt are 16-byte aligned, else
+// 4-byte ones), and of b and c, T·N contiguous floats each.  Slots past the
+// ragged last block or chunk are left as they were: no live lane reads them.
+template <int N, int VVL>
+__host__ __device__ __forceinline__ void mamba_stage(const MambaIO& io, int row,
+                                                     int64_t blk, int64_t q, int tid,
+                                                     float* buf) {
+  using Tl = MambaTile<N, VVL>;
+  const int64_t t0 = q * Tl::T;
+  const int steps = io.L - t0 < Tl::T ? (int)(io.L - t0) : Tl::T;
+  const int64_t c0 = blk * Tl::C;
+  const int cl = io.n - c0 < Tl::C ? (int)(io.n - c0) : Tl::C;
+  const int64_t base = ((int64_t)row * io.L + t0) * io.n + c0;
+  if (io.n % 4 == 0 && aligned16(io.x) && aligned16(io.dt)) {
+    constexpr int C4 = Tl::C / 4;
+    for (int i = tid; i < steps * C4; i += MAMBA_THREADS) {
+      const int t = i / C4, c = 4 * (i % C4);
+      if (c >= cl) continue;
+      copy16(buf + Tl::X + t * Tl::C + c, io.x + base + t * io.n + c);
+      copy16(buf + Tl::DT + t * Tl::C + c, io.dt + base + t * io.n + c);
+    }
+  } else {
+    for (int i = tid; i < steps * Tl::C; i += MAMBA_THREADS) {
+      const int t = i / Tl::C, c = i % Tl::C;
+      if (c >= cl) continue;
+      copy4(buf + Tl::X + i, io.x + base + t * io.n + c);
+      copy4(buf + Tl::DT + i, io.dt + base + t * io.n + c);
+    }
+  }
+  const int64_t bbase = ((int64_t)row * io.L + t0) * N;
+  const int nb = steps * N;
+  if (aligned16(io.b) && aligned16(io.c)) {
+    for (int i = 4 * tid; i < nb; i += 4 * MAMBA_THREADS) {
+      copy16(buf + Tl::B + i, io.b + bbase + i);
+      copy16(buf + Tl::CC + i, io.c + bbase + i);
+    }
+  } else {
+    for (int i = tid; i < nb; i += MAMBA_THREADS) {
+      copy4(buf + Tl::B + i, io.b + bbase + i);
+      copy4(buf + Tl::CC + i, io.c + bbase + i);
+    }
+  }
+}
+
+// Step s of the staged chunk, channel slot v: lane (j, g) advances its S
+// states, h = h·exp(dt·a) + (dt·x)·b — the plain body's order
+// (kernels/lm.py:mamba_site) — and returns its share of y, Σ h·c over its
+// states in state order.
+template <int N, int VVL>
+__host__ __device__ __forceinline__ float mamba_partial(const float* buf, int s,
+                                                        int v, int tid,
+                                                        MambaLane<N, VVL>& ln) {
+  using Tl = MambaTile<N, VVL>;
+  constexpr int S = Tl::S;
+  const int j = tid / MAMBA_LANES, g = tid % MAMBA_LANES;
+  const int slot = s * Tl::C + mamba_slot(j, v);
+  const float xv = buf[Tl::X + slot], dtv = buf[Tl::DT + slot];
+  const float dx = dtv * xv;
+  float bt[S], ct[S];
+  ld_shared<S>(buf + Tl::B + s * N + mamba_state<N>(g, 0), bt);
+  ld_shared<S>(buf + Tl::CC + s * N + mamba_state<N>(g, 0), ct);
+  float p = 0.0f;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    ln.h[v][k] = fmaf(ln.h[v][k], fast_exp2(dtv * ln.a2[v][k]), dx * bt[k]);
+    p = fmaf(ln.h[v][k], ct[k], p);
+  }
+  return p;
+}
+
+// y of step s (chunk q), slot v, from the group's summed share: the group's
+// lane 0 writes y = Σ_k h·c + d·x for a live channel.
+template <int N, int VVL>
+__host__ __device__ __forceinline__ void mamba_out(const MambaIO& io, const float* buf,
+                                                   int row, int64_t blk, int64_t q,
+                                                   int s, int v, int tid,
+                                                   const MambaLane<N, VVL>& ln,
+                                                   float sum) {
+  using Tl = MambaTile<N, VVL>;
+  const int j = tid / MAMBA_LANES;
+  const int64_t ch = blk * Tl::C + mamba_slot(j, v);
+  if (tid % MAMBA_LANES != 0 || ch >= io.n) return;
+  const float xv = buf[Tl::X + s * Tl::C + mamba_slot(j, v)];
+  io.y[((int64_t)row * io.L + q * Tl::T + s) * io.n + ch] = sum + ln.d[v] * xv;
+}
+
+// The final state of each live channel's states.
+template <int N, int VVL>
+__host__ __device__ __forceinline__ void mamba_final(const MambaIO& io, int row,
+                                                     int64_t blk, int tid,
+                                                     const MambaLane<N, VVL>& ln) {
+  constexpr int S = MambaTile<N, VVL>::S;
+  const int j = tid / MAMBA_LANES, g = tid % MAMBA_LANES;
+#pragma unroll
+  for (int v = 0; v < VVL; ++v) {
+    const int64_t ch = blk * MambaTile<N, VVL>::C + mamba_slot(j, v);
+    if (ch >= io.n) continue;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      io.h[((int64_t)row * N + mamba_state<N>(g, s)) * io.n + ch] = ln.h[v][s];
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -29,14 +29,25 @@
 // launch latency bounds it.  One thread per token ran 115–206 µs per decode
 // launch.
 //
-// mamba (entry tdp_gathered_mamba_launch, one launch per batch row): x and dt
-// read once and y written once, 12 bytes per (step, channel); L·n·N
-// exponentials on the SFU.  At falcon-mamba-7b's full width (L 4096, n 8192,
-// N 16) that is 403 MB (0.120 ms at 3.35 TB/s) and 5.4e8 exp.  But the
-// recurrence is sequential in L and parallel only over the n = 8192
-// channels: at VVL 1, 64 blocks of 128 threads on 132 SMs, each thread
-// walking a 4096-step chain, so the simple design is latency-bound.  b[t] and
-// c[t] are warp-uniform loads that L1 serves as broadcasts.
+// mamba (entry tdp_gathered_mamba_launch, one launch for all batch rows):
+// x and dt read once and y written once, 12 bytes per (step, channel); L·n·N
+// exponentials on the SFUs (16 a clock per SM).  At falcon-mamba-7b's full
+// width (L 4096, n 8192, N 16) that is 403 MB a row (0.120 ms at 3.35 TB/s)
+// and 5.4e8 exp (0.128 ms): the bound, per row, is the SFUs'.  The first
+// port gave each thread one channel and all 16 of its states, so
+// a row was 64 blocks of 128 threads on 132 SMs, and each thread's 4096-step
+// chain waited on fresh global loads of x[t], dt[t], b[t], c[t] every step:
+// 4.768 ms a row, ~2300 cycles a step, memory latency exposed once a step.
+// The recurrence's only true dependency is one FMA a state a step (h =
+// h·decay + u; decay and u depend on no earlier step), so this design
+// (mapping in lm_sites.cuh) fills the card and takes the loads off the
+// chain: a channel's states over a group of 4 lanes (4× the warps; both
+// rows in one launch, grid.y), chunks of steps staged into shared memory by
+// cp.async one chunk ahead, the decay by one MUFU.EX2, y summed over the
+// group by two shuffles.  Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+// §6): a layer, both rows, 0.849 ms at VVL 1 and 0.646 ms at VVL 2
+// (3.3x and 2.5x its 0.257 ms bound), against 2 x 4.768 ms before; 2 or 8
+// lanes a channel were slower at their best VVL (0.778 and 0.755 ms).
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -46,8 +57,6 @@
 namespace {
 
 using tdp::lm::LmIO;
-
-constexpr int kBlock = 128;  // mamba
 
 template <class Site, int VVL>
 __global__ void __launch_bounds__(tdp::lm::EW_BLOCK)
@@ -79,19 +88,54 @@ __global__ void __launch_bounds__(tdp::lm::RMS_FEW_THREADS)
   tdp::lm::rms_few_scale(io, group, threadIdx.x, red);
 }
 
+// Block (blockIdx.x, row blockIdx.y): the lanes' states in registers, the
+// chunks of the row's steps through two stages of shared memory.
 template <class Site, int VVL>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(tdp::lm::MAMBA_THREADS)
     mamba_kernel(const __grid_constant__ tdp::lm::MambaIO io) {
-  tdp::lm::mamba_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  using namespace tdp::lm;
+  constexpr int N = Site::kN;
+  using Tl = MambaTile<N, VVL>;
+  __shared__ __align__(16) float smem[2][Tl::FLOATS];
+  const int row = blockIdx.y, tid = threadIdx.x;
+  const int64_t blk = blockIdx.x;
+  MambaLane<N, VVL> ln;
+  mamba_lane_init<N, VVL>(io, blk, tid, ln);
+  const int64_t nq = mamba_chunks<N, VVL>(io.L);
+  mamba_stage<N, VVL>(io, row, blk, 0, tid, smem[0]);
+  tdp::cp_async_commit();
+  for (int64_t q = 0; q < nq; ++q) {
+    // stage (q + 1) & 1 was last read for chunk q - 1, before its barrier
+    if (q + 1 < nq) mamba_stage<N, VVL>(io, row, blk, q + 1, tid, smem[(q + 1) & 1]);
+    tdp::cp_async_commit();
+    tdp::cp_async_wait<1>();  // chunk q has landed (this thread's copies)
+    __syncthreads();          // ... and every thread's
+    const float* buf = smem[q & 1];
+    const int steps = io.L - q * Tl::T < Tl::T ? (int)(io.L - q * Tl::T) : Tl::T;
+#pragma unroll 4
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+      for (int v = 0; v < VVL; ++v) {
+        float p = mamba_partial<N, VVL>(buf, s, v, tid, ln);
+#pragma unroll
+        for (int r = 0; r < MAMBA_ROUNDS; ++r)
+          p += __shfl_xor_sync(0xffffffffu, p, mamba_xor(r));
+        mamba_out<N, VVL>(io, buf, row, blk, q, s, v, tid, ln, p);
+      }
+    }
+    __syncthreads();  // every lane is done with stage q & 1
+  }
+  mamba_final<N, VVL>(io, row, blk, tid, ln);
 }
 
 template <class Site, int VVL>
 struct MambaLaunch {
   static int run(const tdp::lm::MambaIO& io, void* stream) {
-    const int64_t threads = tdp::lm::lm_threads<VVL>(io);
-    if (threads == 0 || io.L == 0) return 0;
-    const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
-    mamba_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(io);
+    if (io.n == 0 || io.L == 0 || io.rows == 0) return 0;
+    const dim3 grid((unsigned)tdp::lm::mamba_blocks<Site::kN, VVL>(io.n),
+                    (unsigned)io.rows);
+    mamba_kernel<Site, VVL>
+        <<<grid, tdp::lm::MAMBA_THREADS, 0, (cudaStream_t)stream>>>(io);
     return (int)cudaGetLastError();
   }
 };
@@ -142,15 +186,15 @@ extern "C" int tdp_gathered_lm_launch(int site, int act, int vvl, const void* x,
   return tdp::lm::dispatch_site<Launch>(site, act, vvl, io, stream);
 }
 
-// The selective scan of one batch row.  x, dt, y: (L, n); a: (N, n); d: (1,
-// n); b, c: (L, N); h: (N, n) — device pointers, float32, contiguous.
-// Returns 0, a cudaError_t, tdp::ERR_BAD_VVL or tdp::lm::ERR_BAD_NSTATE (N
-// not in {8, 16}).
+// The selective scan of `rows` batch rows.  x, dt, y: (rows·L, n); a: (N,
+// n); d: (1, n); b, c: (rows·L, N); h: (rows·N, n) — device pointers,
+// float32, contiguous.  Returns 0, a cudaError_t, tdp::ERR_BAD_VVL or
+// tdp::lm::ERR_BAD_NSTATE (N not in {8, 16}).
 extern "C" int tdp_gathered_mamba_launch(int nstate, int vvl, const void* x,
                                          const void* dt, const void* a,
                                          const void* d, const void* b,
                                          const void* c, void* y, void* h,
-                                         long long L, long long n,
+                                         long long L, long long n, int rows,
                                          void* stream) {
   tdp::lm::MambaIO io{};
   io.x = static_cast<const float*>(x);
@@ -163,5 +207,6 @@ extern "C" int tdp_gathered_mamba_launch(int nstate, int vvl, const void* x,
   io.h = static_cast<float*>(h);
   io.L = L;
   io.n = n;
+  io.rows = rows;
   return tdp::lm::dispatch_mamba<MambaLaunch>(nstate, vvl, io, stream);
 }

@@ -5,14 +5,19 @@ flash_attention_pallas``: ``q (B, Hq, Sq, Dh)``, ``k, v (B, Hkv, Sk, Dh)`` →
 ``(B, Hq, Sq, Dh)``, with GQA (kv head = q head // (Hq / Hkv)), causal and
 sliding-window masks, logit soft-capping before the mask, an arbitrary
 softmax scale, float32 online-softmax state and zero output for a row with
-no live key.  The kernel masks the ragged tail itself (the Pallas wrapper
-pads), and skips key tiles that are wholly dead under the causal mask or the
-window.
+no live key.  The kernel runs both products on the TF32 tensor cores, each
+operand split into a TF32 high and low part (3xTF32, :data:`TF32_SPLIT`),
+masks the ragged tail itself (the Pallas wrapper pads), and skips key
+tiles that are wholly dead under the causal mask or the window.
 
-CUDA tensors launch the kernel (float32, head_dim in :data:`HEAD_DIMS`) or
-raise; CPU tensors run the plain version
-:func:`repro_torch.kernels.ref.attention_ref`.  :data:`launches` counts
-kernel launches.
+The kernel takes each operand by its (batch, head, row) strides: any
+layout whose rows are ``Dh`` contiguous float32 values, 16-byte aligned —
+a contiguous tensor, or the ``(B, S, H, Dh)`` projections of a model
+transposed to ``(B, H, S, Dh)`` with no copy; the output takes ``q``'s
+layout.  CUDA tensors launch the kernel (float32, head_dim in
+:data:`HEAD_DIMS`) or raise ``ValueError`` on any other; CPU tensors run
+the plain version :func:`repro_torch.kernels.ref.attention_ref`.
+:data:`launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -26,6 +31,10 @@ from .ref import attention_ref
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
+#: TF32 products the kernel runs per product of float32 operands (3xTF32;
+#: one TF32 product misses the reference's bar of 2e-4)
+TF32_SPLIT = 3
+
 #: kernel launches of the CUDA wrapper
 launches = {"flash_attention": 0}
 
@@ -33,7 +42,7 @@ launches = {"flash_attention": 0}
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -55,6 +64,24 @@ def check_shapes(q, k, v):
         raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq} % {k.shape[1]}")
 
 
+def row_strides(name, x, device) -> list[int]:
+    """The (batch, head, row) strides of ``x`` in floats, as the kernel takes
+    them; ``ValueError`` unless ``x`` is float32 on ``device`` with rows of
+    contiguous floats, 16-byte aligned (a dimension of extent 1 has no
+    stride to check and gets 0)."""
+    strides = [x.stride(i) if x.shape[i] > 1 else 0 for i in range(3)]
+    if (x.device != device or x.dtype != torch.float32
+            or (x.shape[3] > 1 and x.stride(3) != 1)
+            or any(s % 4 for s in strides) or x.data_ptr() % 16):
+        raise ValueError(
+            f"flash_attention: {name} must be a float32 tensor on {device} "
+            f"whose rows are contiguous and 16-byte aligned (strides a "
+            f"multiple of 4 floats); got {x.dtype} on {x.device}, strides "
+            f"{tuple(x.stride())}, data pointer {x.data_ptr()} mod 16 = "
+            f"{x.data_ptr() % 16}")
+    return strides
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
     """Attention of ``q (B, Hq, Sq, Dh)`` over ``k, v (B, Hkv, Sk, Dh)``.
@@ -73,19 +100,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the CUDA kernel is instantiated "
                          f"for head_dim in {HEAD_DIMS}, got {dh}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if (x.device != q.device or x.dtype != torch.float32
-                or not x.is_contiguous() or x.data_ptr() % 16):
-            raise ValueError(
-                f"flash_attention: {name} must be a contiguous, 16-byte "
-                f"aligned float32 tensor on {q.device}; got {x.dtype} on "
-                f"{x.device}, contiguous={x.is_contiguous()}")
-    o = torch.empty_like(q)
+    strides = [s for name, x in (("q", q), ("k", k), ("v", v))
+               for s in row_strides(name, x, q.device)]
+    o = torch.empty_like(q)            # q's layout (a dense permutation kept)
+    strides += row_strides("o", o, q.device)
     scale = float(scale) if scale is not None else dh ** -0.5
     with torch.cuda.device(q.device):
         rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    b, hq, hkv, sq, sk, dh, scale, float(softcap),
-                    int(bool(causal)), int(window),
+                    (ctypes.c_longlong * 12)(*strides), b, hq, hkv, sq, sk, dh,
+                    scale, float(softcap), int(bool(causal)), int(window),
                     _build.stream_handle(q.device))
     _build.check(rc, "flash_attention")
     launches["flash_attention"] += 1

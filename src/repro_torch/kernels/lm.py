@@ -12,9 +12,9 @@ every executor of the registry.
   flattens to one 1-component field of ``tokens·d_ff`` sites.
 * **mamba selective scan** — site = channel (``d_inner``).  The scan is
   sequential in time but independent per channel, so time lives on the
-  component axis (``(L, channels)`` fields) and the recurrence is a loop
-  inside the body; ``B``/``C`` have no channel axis and are dynamic tensor
-  consts.
+  component axis (``(batch·L, channels)`` fields, the batch rows one after
+  another) and the recurrence is a loop inside the body; ``B``/``C`` have
+  no channel axis and are dynamic tensor consts.
 
 Each plain body names its CUDA site function in ``__cuda_site__``
 (``csrc/lm_sites.cuh``); the gated ones also name the activation in
@@ -93,31 +93,37 @@ def gated_act_spec(kind: str, gated: bool) -> KernelSpec:
 
 
 @functools.lru_cache(maxsize=None)
-def mamba_scan_spec(length: int, nstate: int) -> KernelSpec:
-    """Selective state-space scan, site = channel.
+def mamba_scan_spec(length: int, nstate: int, batch: int = 1) -> KernelSpec:
+    """Selective state-space scan, site = channel, over ``batch`` rows.
 
-    Fields ``x``/``dt`` ``(L, n)``, ``a`` ``(N, n)``, ``d`` ``(1, n)``;
-    ``b``/``c`` are ``(L, N)`` dynamic tensor consts.  Outputs ``y (L, n)``
-    and the final state ``h (N, n)``.  The plain body is a loop over time
-    in the reference's arithmetic order: ``h = h·exp(dt·a) + (dt·x)·b``,
-    ``y = Σ_k h·c + d·x``."""
+    Fields ``x``/``dt`` ``(batch·L, n)`` (row r's steps at ``r·L``),
+    ``a`` ``(N, n)``, ``d`` ``(1, n)``; ``b``/``c`` are ``(batch·L, N)``
+    dynamic tensor consts.  Outputs ``y (batch·L, n)`` and the final states
+    ``h (batch·N, n)``.  The plain body is a loop over rows and time in the
+    reference's arithmetic order: ``h = h·exp(dt·a) + (dt·x)·b``,
+    ``y = Σ_k h·c + d·x``.  The body's ``__cuda_batch__`` tells the CUDA
+    site function how many rows one launch covers."""
 
     def mamba_site(x, dt, a, d, *, b, c):
         xf, dtf, af, df = (t.float() for t in (x, dt, a, d))
         bf, cf = b.float(), c.float()
-        h = torch.zeros(nstate, xf.shape[-1], dtype=torch.float32,
-                        device=xf.device)
-        ys = []
-        for t in range(length):
-            decay = torch.exp(dtf[t][None, :] * af)                 # (N, n)
-            h = h * decay + (dtf[t] * xf[t])[None, :] * bf[t][:, None]
-            ys.append((h * cf[t][:, None]).sum(0) + df[0] * xf[t])
-        return torch.stack(ys).to(x.dtype), h
+        ys, hs = [], []
+        for r in range(batch):
+            h = torch.zeros(nstate, xf.shape[-1], dtype=torch.float32,
+                            device=xf.device)
+            for t in range(r * length, (r + 1) * length):
+                decay = torch.exp(dtf[t][None, :] * af)             # (N, n)
+                h = h * decay + (dtf[t] * xf[t])[None, :] * bf[t][:, None]
+                ys.append((h * cf[t][:, None]).sum(0) + df[0] * xf[t])
+            hs.append(h)
+        return torch.stack(ys).to(x.dtype), torch.cat(hs)
 
     mamba_site.__cuda_site__ = "mamba"
+    mamba_site.__cuda_batch__ = batch
+    rows = batch * length
     return KernelSpec(
         mamba_site,
-        fields=(FieldSpec(length, name="x"), FieldSpec(length, name="dt"),
+        fields=(FieldSpec(rows, name="x"), FieldSpec(rows, name="dt"),
                 FieldSpec(nstate, name="a"), FieldSpec(1, name="d")),
-        out=(length, nstate), consts=("b", "c"),
-        name=f"mamba_scan_L{length}_n{nstate}")
+        out=(rows, batch * nstate), consts=("b", "c"),
+        name=f"mamba_scan_B{batch}_L{length}_n{nstate}")

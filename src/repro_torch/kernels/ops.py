@@ -138,12 +138,13 @@ def gated_act(u, v=None, *, kind="swiglu", target=None, vvl=None,
 def mamba_scan(x, dt, b, c, a, d, *, target=None, vvl=None, device=None):
     """Selective state-space scan through ``tdp.launch`` — site = channel,
     time on the component axis (:func:`repro_torch.kernels.lm.mamba_scan_spec`),
-    one launch per batch row as in the reference.
+    every batch row in one launch: ``x``/``dt``/``b``/``c`` go in as their
+    ``(batch·L, ·)`` views, so contiguous operands are not copied.
 
     Shapes: ``x``/``dt`` ``(batch, L, d_inner)``, ``b``/``c``
     ``(batch, L, N)``, ``a`` ``(d_inner, N)``, ``d`` ``(d_inner,)``.
-    Returns ``(y (batch, L, d_inner), h_final (batch, d_inner, N))``.
-    The ``"cuda"`` site function takes d_state 8 or 16 and raises
+    Returns ``(y (batch, L, d_inner), h_final (batch, d_inner, N))``.  The
+    ``"cuda"`` site function takes d_state 8 or 16 and raises
     ``ValueError`` for any other."""
     dev = resolve_device(device)
     t = _lm_target(target, vvl, dev)
@@ -151,18 +152,17 @@ def mamba_scan(x, dt, b, c, a, d, *, target=None, vvl=None, device=None):
                          for v in (x, dt, b, c, a, d))
     batch, length, d_inner = (int(s) for s in x.shape)
     nstate = int(a.shape[-1])
-    spec = _lm.mamba_scan_spec(length, nstate)
-    a_soa = a.T.contiguous()                       # (N, d_inner)
-    d_soa = d.reshape(1, d_inner).contiguous()
-    ys, hs = [], []
-    for i in range(batch):
-        y_i, h_i = _tdp_launch(spec, t, x[i].contiguous(), dt[i].contiguous(),
-                               a_soa, d_soa,
-                               consts={"b": b[i].contiguous(),
-                                       "c": c[i].contiguous()})
-        ys.append(y_i)
-        hs.append(h_i.T)                           # (d_inner, N)
-    return torch.stack(ys), torch.stack(hs)
+    spec = _lm.mamba_scan_spec(length, nstate, batch)
+    rows = batch * length
+    y, h = _tdp_launch(spec, t, x.reshape(rows, d_inner).contiguous(),
+                       dt.reshape(rows, d_inner).contiguous(),
+                       a.T.contiguous(), d.reshape(1, d_inner).contiguous(),
+                       consts={"b": b.reshape(rows, nstate).contiguous(),
+                               "c": c.reshape(rows, nstate).contiguous()})
+    # h contiguous as (batch, d_inner, N): decode's elementwise updates keep
+    # their operand's layout, so a transposed view would slow every step
+    return (y.reshape(batch, length, d_inner),
+            h.reshape(batch, nstate, d_inner).transpose(1, 2).contiguous())
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,

@@ -20,10 +20,11 @@ launch through ``csrc/tdp_gathered.cu``, the LM ones (``rmsnorm``, ``gated``,
 ``csrc/tdp_gathered_lm.cu``: ``rmsnorm``/``gated``/``act`` through one entry
 that takes a runtime component count, a weight tensor and ``(eps,
 scale_offset)``, ``mamba`` (the selective scan, site = channel) through one
-of its own that takes four fields, the ``(L, N)`` tensor consts ``b``/``c``
-and two outputs.  ``gated``/``act`` map ``Target.vvl`` 16-byte groups to a
-thread (scalars where an operand is not 16-byte aligned, as a view at a
-storage offset may be); ``rmsnorm`` maps it to the tokens of a lane, a
+of its own that takes four fields, the ``(batch·L, N)`` tensor consts
+``b``/``c`` and two outputs, every batch row in one launch.
+``gated``/``act`` map ``Target.vvl`` 16-byte groups to a thread (scalars
+where an operand is not 16-byte aligned, as a view at a storage offset may
+be); ``rmsnorm`` maps it to the tokens of a lane, a
 block of warps sharing each token's components (one block sweeping the
 array below 32 tokens).  Each site function checks its own fields and
 consts.  CUDA tensors launch the kernel or raise; CPU tensors run the plain
@@ -74,18 +75,26 @@ def _lm_fields(site: str, plan):
         d = nc[0] if nc else None
         return ((d, None),), (d,)
     if site == "mamba":
-        length, nstate = (nc[0], nc[2]) if len(nc) == 4 else (None, None)
-        return (((length, None),) * 2 + ((nstate, None), (1, None)),
-                (length, nstate))
+        rows, nstate = (nc[0], nc[2]) if len(nc) == 4 else (None, None)
+        batch = mamba_batch(plan)
+        return (((rows, None),) * 2 + ((nstate, None), (1, None)),
+                (rows, None if nstate is None else batch * nstate))
     return ((1, None),) * (2 if site == "gated" else 1), (1,)
 
 
+def mamba_batch(plan) -> int:
+    """The batch rows one launch of the ``mamba`` site function covers
+    (its body's ``__cuda_batch__``)."""
+    return int(getattr(plan.kernel, "__cuda_batch__", 1))
+
+
 def _check_mamba_consts(plan) -> None:
-    """``b``/``c`` are ``(L, N)`` tensors (dynamic consts, never hashed
-    through the host), and N is one the site function is instantiated
-    for."""
+    """``b``/``c`` are ``(batch·L, N)`` tensors (dynamic consts, never
+    hashed through the host), and N is one the site function is
+    instantiated for."""
     what = f"kernel {plan.name!r}"
-    length, nstate = plan.out_ncomp
+    rows = plan.out_ncomp[0]
+    nstate = plan.out_ncomp[1] // mamba_batch(plan)
     if nstate not in _build.MAMBA_NSTATES:
         raise ValueError(f"{what}: the CUDA site function 'mamba' is "
                          f"instantiated for d_state in "
@@ -96,9 +105,9 @@ def _check_mamba_consts(plan) -> None:
             raise ValueError(f"{what}: the CUDA site function 'mamba' needs "
                              f"const {k!r} as a tensor, got "
                              f"{type(v).__name__}")
-        if tuple(v.shape) != (length, nstate):
+        if tuple(v.shape) != (rows, nstate):
             raise ValueError(f"{what}: const {k!r} has shape "
-                             f"{tuple(v.shape)}, expected {(length, nstate)}")
+                             f"{tuple(v.shape)}, expected {(rows, nstate)}")
 
 
 def _check_lm_consts(site: str, plan) -> None:
@@ -234,28 +243,32 @@ def _mamba_lib():
     fn = _build.load("tdp_gathered_lm").tdp_gathered_mamba_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _mamba_execute(plan, vvl, fields, out):
-    """Launch the selective scan on CUDA tensors: one batch row."""
+    """Launch the selective scan on CUDA tensors: every batch row in one
+    launch."""
     x0 = fields[0]
-    length, nstate = plan.out_ncomp
+    rows, nstate_rows = plan.out_ncomp
+    batch = mamba_batch(plan)
+    nstate, length = nstate_rows // batch, rows // batch
     n = int(x0.shape[-1])
     b, c = plan.consts["b"], plan.consts["c"]
     check_cuda_tensors([*fields, b, c],
-                       [(length, n), (length, n), (nstate, n), (1, n),
-                        (length, nstate), (length, nstate)],
+                       [(rows, n), (rows, n), (nstate, n), (1, n),
+                        (rows, nstate), (rows, nstate)],
                        f"kernel {plan.name!r} (x, dt, a, d, b, c)")
     outs = alloc_outputs(plan, x0, n, out)
-    check_cuda_tensors(outs, [(length, n), (nstate, n)],
+    check_cuda_tensors(outs, [(rows, n), (nstate_rows, n)],
                        f"kernel {plan.name!r} (out)")
     with torch.cuda.device(x0.device):
         rc = _mamba_lib()(nstate, vvl, *[t.data_ptr() for t in fields],
                           b.data_ptr(), c.data_ptr(), outs[0].data_ptr(),
-                          outs[1].data_ptr(), length, n,
+                          outs[1].data_ptr(), length, n, batch,
                           _build.stream_handle(x0.device))
     _build.check(rc, "tdp_gathered_lm mamba")
     launches["mamba"] += 1

@@ -55,8 +55,10 @@ def full_attention(p, x, a: AttnConfig, ctx: ExecContext, *, rope=None,
     Returns (out (B,S,D), (k, v)) with k/v (B,S,Hkv,dh) so prefill can
     seed the cache."""
     q, k, v = project_qkv(p, x, a, ctx, rope=rope)
-    qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    o = ops.flash_attention(qT, kT, vT, causal=causal, window=window,
+    # (B, H, S, dh) views of the (B, S, H, dh) projections: the kernel takes
+    # them by strides and writes o in q's layout, so neither side copies
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window,
                             softcap=a.softcap, scale=a.scale,
                             target=ctx.backend, device=x.device)
     b, s = x.shape[:2]

@@ -1,21 +1,29 @@
-"""The LM site functions and the attention row update, checked without a card.
+"""The LM site functions and the attention kernel, checked without a card.
 
 ``csrc/lm_sites.cuh`` (the elementwise ``gated``/``act`` thread, the tiled
-and few-token ``rmsnorm`` phases and the ``mamba`` strip) and
-``csrc/flash_attention.cuh`` (the per-row online-softmax update and the
-dead-tile key range) are ``__host__ __device__``, so the host C++ compiler
-builds them into a small library.  Its ``host_lm`` and ``host_mamba``
-entries have the signatures of ``tdp_gathered_lm_launch`` and
-``tdp_gathered_mamba_launch`` and run each launch's own decomposition:
-the same choice of mapping and grid as ``csrc/tdp_gathered_lm.cu``, block by
-block, and inside a block each phase thread by thread (warp by warp, lane
-by lane) with the kernel's barriers between phases, so rmsnorm's partial
-sums meet in the kernel's combine order; the vector and scalar paths are
-chosen from the pointers as on the card.  ``host_attention`` runs the
-kernel's tile loop — query tiles of 32 rows, key tiles of 32 keys from
-``key_range``, the lane reductions done in order — through the same row
-functions.  All are held to the plain PyTorch twins at the tests' bar,
-``rtol=2e-4, atol=2e-4``, at every VVL, on ragged extents and on
+and few-token ``rmsnorm`` phases and the ``mamba`` lane-group scan) and
+``csrc/flash_attention.cuh`` (the per-row online-softmax update, the
+dead-tile key range and the tensor-core tile's fragment maps, loads and
+fragment-level row update) are ``__host__ __device__``, so the host C++
+compiler builds them into a small library.  Its ``host_lm`` and
+``host_mamba`` entries have the signatures of ``tdp_gathered_lm_launch``
+and ``tdp_gathered_mamba_launch`` and run each launch's own
+decomposition: the same choice of mapping and grid as
+``csrc/tdp_gathered_lm.cu``, block by block, and inside a block each phase
+thread by thread (warp by warp, lane by lane) with the kernel's barriers
+between phases, on shared memory filled with NaN, so rmsnorm's partial sums
+meet in the kernel's combine order and mamba's lane shares in its shuffle
+order; the vector and scalar paths are chosen from the pointers as on the
+card.  ``host_flash`` has the signature of ``flash_attention_launch``, plus
+the TF32 split it emulates (the kernel's 3, or one TF32 product to compare
+with), and runs ``flash_fwd_kernel``'s tile loop the same way, each
+``mma.sync.m16n8k8`` emulated on the host from the lanes' registers through
+the fragment maps (a TF32 operand's top 19 bits, 3xTF32's split as the
+kernel splits).  ``host_attention`` runs the first kernel's row update
+(query tiles of 32 rows, key tiles of 32 keys from ``key_range``, the lane
+reductions done in order) through the same row functions.  All are held to
+the plain PyTorch twins at the tests' bar, ``rtol=2e-4, atol=2e-4`` (one
+TF32 product at a TF32 tolerance), at every VVL, on ragged extents and on
 unaligned views.
 """
 import ctypes
@@ -34,6 +42,8 @@ from repro_torch.kernels import ref as tref
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 HARNESS = r"""
+#include <algorithm>
+#include <cmath>
 #include <type_traits>
 #include <vector>
 
@@ -91,11 +101,47 @@ extern "C" int host_lm(int site, int act, int vvl, const void* x, const void* v,
 }
 
 namespace {
+// MambaLaunch of tdp_gathered_lm.cu: block by block over (channel block,
+// row); in a block, each phase over all its threads before the next (the
+// kernel's barriers), on two stages of shared memory filled with NaN; per
+// step and channel slot, the lanes' shares of y summed in the kernel's
+// shuffle rounds, each lane adding its partner's value of the round before.
 template <class Site, int VVL>
 struct MambaLoop {
-  static int run(const tdp::lm::MambaIO& io, void*) {
-    for (int64_t t = 0, nt = tdp::lm::lm_threads<VVL>(io); t < nt; ++t)
-      tdp::lm::mamba_thread<Site, VVL>(io, t);
+  static int run(const MambaIO& io, void*) {
+    constexpr int N = Site::kN;
+    using Tl = MambaTile<N, VVL>;
+    if (io.n == 0 || io.L == 0 || io.rows == 0) return 0;
+    const int64_t nq = mamba_chunks<N, VVL>(io.L);
+    std::vector<float> smem(2 * Tl::FLOATS);
+    std::vector<MambaLane<N, VVL>> lanes(MAMBA_THREADS);
+    float p[MAMBA_THREADS], sum[MAMBA_THREADS];
+    for (int row = 0; row < io.rows; ++row)
+      for (int64_t blk = 0, nb = mamba_blocks<N, VVL>(io.n); blk < nb; ++blk) {
+        std::fill(smem.begin(), smem.end(), NAN);
+        float* stage[2] = {smem.data(), smem.data() + Tl::FLOATS};
+        for (int t = 0; t < MAMBA_THREADS; ++t) mamba_lane_init<N, VVL>(io, blk, t, lanes[t]);
+        for (int t = 0; t < MAMBA_THREADS; ++t) mamba_stage<N, VVL>(io, row, blk, 0, t, stage[0]);
+        for (int64_t q = 0; q < nq; ++q) {
+          if (q + 1 < nq)
+            for (int t = 0; t < MAMBA_THREADS; ++t)
+              mamba_stage<N, VVL>(io, row, blk, q + 1, t, stage[(q + 1) & 1]);
+          const float* buf = stage[q & 1];
+          const int steps = io.L - q * Tl::T < Tl::T ? (int)(io.L - q * Tl::T) : Tl::T;
+          for (int s = 0; s < steps; ++s)
+            for (int v = 0; v < VVL; ++v) {
+              for (int t = 0; t < MAMBA_THREADS; ++t)
+                p[t] = mamba_partial<N, VVL>(buf, s, v, t, lanes[t]);
+              for (int r = 0; r < MAMBA_ROUNDS; ++r) {
+                for (int t = 0; t < MAMBA_THREADS; ++t) sum[t] = p[t] + p[t ^ mamba_xor(r)];
+                std::copy(sum, sum + MAMBA_THREADS, p);
+              }
+              for (int t = 0; t < MAMBA_THREADS; ++t)
+                mamba_out<N, VVL>(io, buf, row, blk, q, s, v, t, lanes[t], p[t]);
+            }
+        }
+        for (int t = 0; t < MAMBA_THREADS; ++t) mamba_final<N, VVL>(io, row, blk, t, lanes[t]);
+      }
     return 0;
   }
 };
@@ -104,7 +150,7 @@ struct MambaLoop {
 extern "C" int host_mamba(int nstate, int vvl, const void* x, const void* dt,
                           const void* a, const void* d, const void* b,
                           const void* c, void* y, void* h, long long L,
-                          long long n, void* stream) {
+                          long long n, int rows, void* stream) {
   tdp::lm::MambaIO io{};
   io.x = static_cast<const float*>(x);
   io.dt = static_cast<const float*>(dt);
@@ -116,6 +162,7 @@ extern "C" int host_mamba(int nstate, int vvl, const void* x, const void* dt,
   io.h = static_cast<float*>(h);
   io.L = L;
   io.n = n;
+  io.rows = rows;
   return tdp::lm::dispatch_mamba<MambaLoop>(nstate, vvl, io, stream);
 }
 
@@ -169,6 +216,234 @@ extern "C" void host_attention(const float* q, const float* k, const float* v,
     }
 }
 
+namespace {
+using namespace tdp::attn;
+
+// One warp's mma.sync.m16n8k8, emulated: each lane's registers placed by the
+// fragment maps, each operand's top 19 bits (what the tensor core reads of
+// a TF32 operand), the products summed in double onto the accumulator,
+// rounded to float once.
+void emu_mma(float (&d)[32][4], const uint32_t (&a)[32][4], const uint32_t (&b)[32][2]) {
+  double A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    for (int i = 0; i < 4; ++i) {
+      int r, c;
+      frag_a(l, i, r, c);
+      A[r][c] = bits_float(a[l][i] & 0xffffe000u);
+    }
+    for (int i = 0; i < 2; ++i) {
+      int k, n;
+      frag_b(l, i, k, n);
+      B[k][n] = bits_float(b[l][i] & 0xffffe000u);
+    }
+  }
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < 4; ++i) {
+      int r, c;
+      frag_c(l, i, r, c);
+      double acc = d[l][i];
+      for (int k = 0; k < 8; ++k) acc += A[r][k] * B[k][c];
+      d[l][i] = (float)acc;
+    }
+}
+
+// The kernel's mma<SPLIT> on a warp's float operands: split as the kernel
+// splits them; 3xTF32's small terms first, then hi·hi.
+template <int SPLIT>
+void emu_mma_split(float (&d)[32][4], const float (&af)[32][4], const float (&bf)[32][2]) {
+  uint32_t ah[32][4], al[32][4], bh[32][2], bl[32][2];
+  for (int l = 0; l < 32; ++l) {
+    for (int i = 0; i < 4; ++i) {
+      const Tf32<SPLIT> t = tf32_split<SPLIT>(af[l][i]);
+      ah[l][i] = t.hi, al[l][i] = t.lo;
+    }
+    for (int i = 0; i < 2; ++i) {
+      const Tf32<SPLIT> t = tf32_split<SPLIT>(bf[l][i]);
+      bh[l][i] = t.hi, bl[l][i] = t.lo;
+    }
+  }
+  if (SPLIT == 3) {
+    emu_mma(d, al, bh);
+    emu_mma(d, ah, bl);
+  }
+  emu_mma(d, ah, bh);
+}
+
+// The quad reduction of a value per lane and row half: round r, each lane
+// combines its own with its xor-partner's value of the round before.
+template <class Op>
+void quad_reduce(float (&x)[32][2], Op op) {
+  for (int r = 0; r < 2; ++r) {
+    float y[32][2];
+    for (int l = 0; l < 32; ++l)
+      for (int h = 0; h < 2; ++h) y[l][h] = op(x[l][h], x[l ^ quad_xor(r)][h]);
+    std::copy(&y[0][0], &y[0][0] + 64, &x[0][0]);
+  }
+}
+
+struct FlashArgs {
+  const float *q, *k, *v;
+  float* o;
+  long long s[12];
+  int B, Hq, Hkv, Sq, Sk;
+  Params p;
+};
+
+// flash_fwd_kernel<DH, SPLIT> of flash_attention.cu, block by block (query
+// tiles last first, as the grid runs them), each phase over all the block's
+// threads or a warp's lanes (shuffles read the partner's value of the step
+// before), shared memory filled with NaN.
+template <int DH, int SPLIT>
+int flash_host(const FlashArgs& a) {
+  using T = FlashTile<DH>;
+  constexpr int NT = FLASH_THREADS;
+  std::vector<float> smem(T::V + T::BK * T::SV);
+  float* Qs = smem.data();
+  float* Ks = Qs + T::K;
+  float* Vs = Qs + T::V;
+  const int nqt = (a.Sq + FLASH_BQ - 1) / FLASH_BQ;
+  static float o[FLASH_WARPS][32][T::NP][T::NT][2][4];
+  static RowState st[FLASH_WARPS][32][2];
+  static float s[FLASH_WARPS][32][T::NJ][4];
+  for (int bh = 0; bh < a.B * a.Hq; ++bh)
+    for (int bx = 0; bx < nqt; ++bx) {
+      const int b = bh / a.Hq, h = bh % a.Hq, hk = h / (a.Hq / a.Hkv);
+      const int q0 = (nqt - 1 - bx) * FLASH_BQ;
+      const float* qg = a.q + b * a.s[0] + h * a.s[1];
+      const float* kg = a.k + b * a.s[3] + hk * a.s[4];
+      const float* vg = a.v + b * a.s[6] + hk * a.s[7];
+      float* og = a.o + b * a.s[9] + h * a.s[10];
+      std::fill(smem.begin(), smem.end(), NAN);
+      int lo, hi;
+      key_range(a.p, q0, std::min(q0 + FLASH_BQ, a.Sq) - 1, T::BK, lo, hi);
+      for (int t = 0; t < NT && lo < hi; ++t) {  // no live key: no copy
+        stage_rows<DH>(Qs, T::SQK, qg, a.s[2], q0, FLASH_BQ, a.Sq, t, NT);
+        stage_rows<DH>(Ks, T::SQK, kg, a.s[5], lo, T::BK, a.Sk, t, NT);
+        stage_rows<DH>(Vs, T::SV, vg, a.s[8], lo, T::BK, a.Sk, t, NT);
+      }
+      for (int w = 0; w < FLASH_WARPS; ++w)
+        for (int l = 0; l < 32; ++l) {
+          std::fill(&o[w][l][0][0][0][0], &o[w][l][0][0][0][0] + T::NP * T::NT * 8, 0.0f);
+          st[w][l][0] = st[w][l][1] = row_init();
+        }
+      for (int kt = lo; kt < hi; kt += T::BK) {
+        const bool more = kt + T::BK < hi;
+        for (int w = 0; w < FLASH_WARPS; ++w) {  // S = Q·Kᵀ
+          float s2[2][T::NJ][32][4] = {};
+          for (int kp = 0; kp < T::NKP; ++kp) {
+            float af[32][2][4], bf[32][2][2], a1[32][4], b1[32][2];
+            for (int l = 0; l < 32; ++l) load_a_q(Qs, T::SQK, 16 * w, kp, l, af[l]);
+            for (int j = 0; j < T::NJ; ++j) {
+              for (int l = 0; l < 32; ++l) load_b_k(Ks, T::SQK, j, kp, l, bf[l]);
+              for (int hh = 0; hh < 2; ++hh) {
+                for (int l = 0; l < 32; ++l) {
+                  std::copy(af[l][hh], af[l][hh] + 4, a1[l]);
+                  std::copy(bf[l][hh], bf[l][hh] + 2, b1[l]);
+                }
+                emu_mma_split<SPLIT>(s2[hh][j], a1, b1);
+              }
+            }
+          }
+          for (int l = 0; l < 32; ++l)
+            for (int j = 0; j < T::NJ; ++j)
+              for (int i = 0; i < 4; ++i) s[w][l][j][i] = s2[0][j][l][i] + s2[1][j][l][i];
+        }
+        if (more)  // every warp is done with K: the next tile's K
+          for (int t = 0; t < NT; ++t)
+            stage_rows<DH>(Ks, T::SQK, kg, a.s[5], kt + T::BK, T::BK, a.Sk, t, NT);
+        for (int w = 0; w < FLASH_WARPS; ++w) {  // the row update
+          float mx[32][2], alpha[32][2], sum[32][2];
+          for (int l = 0; l < 32; ++l) frag_logits<T::NJ>(a.p, q0 + 16 * w, kt, l, s[w][l], mx[l]);
+          quad_reduce(mx, [](float x, float y) { return fmaxf(x, y); });
+          for (int l = 0; l < 32; ++l)
+            frag_weights<T::NJ>(st[w][l], mx[l], s[w][l], alpha[l], sum[l]);
+          quad_reduce(sum, [](float x, float y) { return x + y; });
+          for (int l = 0; l < 32; ++l) {
+            frag_rows(st[w][l], alpha[l], sum[l]);
+            float f[2][2];
+            for (int nr = 0; nr < 2; ++nr)
+              for (int e = 0; e < 2; ++e) f[nr][e] = alpha[o_src(l, e)][nr];
+            frag_rescale<T::NP, T::NT>(o[w][l], f);
+          }
+        }
+        for (int w = 0; w < FLASH_WARPS; ++w)  // Oᵀ += Vᵀ·Pᵀ
+          for (int j = 0; j < T::NJ; ++j) {
+            float pb[2][32][2];
+            for (int l = 0; l < 32; ++l)
+              for (int nr = 0; nr < 2; ++nr)
+                for (int i = 0; i < 2; ++i) pb[nr][l][i] = s[w][l][j][2 * nr + i];
+            for (int p = 0; p < T::NP; ++p) {
+              float vf[32][T::NT][4];
+              for (int l = 0; l < 32; ++l) load_a_v<T::W>(Vs, T::SV, j, p, l, vf[l]);
+              for (int t = 0; t < T::NT; ++t) {
+                float va[32][4];
+                for (int l = 0; l < 32; ++l) std::copy(vf[l][t], vf[l][t] + 4, va[l]);
+                for (int nr = 0; nr < 2; ++nr) {
+                  float d[32][4];
+                  for (int l = 0; l < 32; ++l) std::copy(o[w][l][p][t][nr], o[w][l][p][t][nr] + 4, d[l]);
+                  emu_mma_split<SPLIT>(d, va, pb[nr]);
+                  for (int l = 0; l < 32; ++l) std::copy(d[l], d[l] + 4, o[w][l][p][t][nr]);
+                }
+              }
+            }
+          }
+        if (more)  // every warp is done with V: the next tile's V
+          for (int t = 0; t < NT; ++t)
+            stage_rows<DH>(Vs, T::SV, vg, a.s[8], kt + T::BK, T::BK, a.Sk, t, NT);
+      }
+      for (int w = 0; w < FLASH_WARPS; ++w)
+        for (int l = 0; l < 32; ++l)
+          for (int nr = 0; nr < 2; ++nr)
+            for (int e = 0; e < 2; ++e) {
+              const int qi = q0 + 16 * w + 8 * nr + 2 * (l % 4) + e;
+              if (qi < a.Sq)
+                store_o_row<T::NP, T::NT, T::W>(og + (long long)qi * a.s[11], l, o[w][l],
+                                                nr, e, st[w][o_src(l, e)][nr]);
+            }
+    }
+  return 0;
+}
+
+template <int DH>
+int flash_split(const FlashArgs& a, int split) {
+  return split == 1 ? flash_host<DH, 1>(a) : flash_host<DH, 3>(a);
+}
+}  // namespace
+
+// The signature of flash_attention_launch, on host pointers, and the TF32
+// split to emulate: 1, or the kernel's 3 (any other value).
+extern "C" int host_flash(const float* q, const float* k, const float* v, float* o,
+                          const long long* strides, int B, int Hq, int Hkv, int Sq,
+                          int Sk, int Dh, float scale, float softcap, int causal,
+                          int window, int split) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return -4;
+  FlashArgs a{q, k, v, o, {}, B, Hq, Hkv, Sq, Sk, Params{scale, softcap, causal, window, Sk}};
+  std::copy(strides, strides + 12, a.s);
+  switch (Dh) {
+    case 16: return flash_split<16>(a, split);
+    case 32: return flash_split<32>(a, split);
+    case 64: return flash_split<64>(a, split);
+    case 128: return flash_split<128>(a, split);
+    case 256: return flash_split<256>(a, split);
+    default: return -3;
+  }
+}
+
+// Which (row, col) register i of lane l holds in fragment `which` (0 A, 1 B,
+// 2 C), and P·V's key order.
+extern "C" void host_frag(int which, int lane, int i, int* row, int* col) {
+  if (which == 0) frag_a(lane, i, *row, *col);
+  else if (which == 1) frag_b(lane, i, *row, *col);
+  else frag_c(lane, i, *row, *col);
+}
+
+extern "C" int host_qk_dim(int kp, int h, int kslot) { return qk_dim(kp, h, kslot); }
+extern "C" int host_pv_key(int kslot) { return pv_key(kslot); }
+extern "C" int host_pv_dim(int w, int p, int t, int s) {
+  return w == 16 ? pv_dim<16>(p, t, s) : pv_dim<32>(p, t, s);
+}
+extern "C" int host_o_src(int lane, int e) { return o_src(lane, e); }
+
 extern "C" void host_key_range(int sk, int causal, int window, int q0, int q_last,
                                int bk, int* lo, int* hi) {
   const tdp::attn::Params p{1.0f, 0.0f, causal, window, sk};
@@ -195,13 +470,19 @@ def host_lib(tmp_path_factory):
                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     so.host_lm.restype = ctypes.c_int
     so.host_mamba.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                              + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                              + [ctypes.c_longlong] * 2
+                              + [ctypes.c_int, ctypes.c_void_p])
     so.host_mamba.restype = ctypes.c_int
     so.host_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
     so.host_attention.restype = None
     so.host_key_range.argtypes = ([ctypes.c_int] * 6
                                   + [ctypes.POINTER(ctypes.c_int)] * 2)
+    so.host_flash.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                              + [ctypes.c_float] * 2 + [ctypes.c_int] * 3)
+    so.host_flash.restype = ctypes.c_int
+    so.host_frag.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    so.host_frag.restype = None
     return so
 
 
@@ -270,12 +551,12 @@ def test_gated_and_act_sites_match_plain(host_lib, kind, gated):
                 torch.testing.assert_close(out, want, **TOL)
 
 
-def _mamba(so, nstate, vvl, fields, b, c, y, h):
+def _mamba(so, nstate, vvl, fields, b, c, y, h, rows=1):
     x, dt, a, d = fields
-    length, n = x.shape
+    length, n = x.shape[0] // rows, x.shape[1]
     return so.host_mamba(nstate, vvl, *[t.data_ptr() for t in (x, dt, a, d, b,
                                                                 c, y, h)],
-                         length, n, None)
+                         length, n, rows, None)
 
 
 @pytest.mark.parametrize("nstate", _build.MAMBA_NSTATES)
@@ -391,3 +672,217 @@ def test_error_codes_match_the_sources():
     for code in (-3, -4, -5):
         with pytest.raises(ValueError):
             _build.check(code, "x")
+
+
+@pytest.mark.parametrize("nstate", _build.MAMBA_NSTATES)
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("n", [300, 301])
+def test_mamba_launch_rows_and_copy_paths(host_lib, nstate, rows, n):
+    """The launch over ``rows`` batch rows at every VVL against the plain
+    body of ``mamba_scan_spec(L, N, rows)``: L = 45 leaves a ragged last
+    chunk at every VVL (chunks of 32, 16, 8, 4 steps), both n leave a
+    ragged last block; n = 300 stages x and dt by 16-byte copies, n = 301
+    (not a multiple of 4) by 4-byte ones."""
+    length = 45
+    x = _rand(20, (rows * length, n))
+    dt = torch.nn.functional.softplus(_rand(21, (rows * length, n)))
+    a = -torch.exp(_rand(22, (nstate, n)))
+    d = _rand(23, (1, n))
+    b, c = _rand(24, (rows * length, nstate)), _rand(25, (rows * length, nstate))
+    want_y, want_h = tlm.mamba_scan_spec(length, nstate, rows).fn(
+        x, dt, a, d, b=b, c=c)
+    for vvl in (1, 2, 4, 8):
+        y = torch.full((rows * length, n), float("nan"))
+        h = torch.full((rows * nstate, n), float("nan"))
+        assert _mamba(host_lib, nstate, vvl, (x, dt, a, d), b, c, y, h,
+                      rows=rows) == 0
+        torch.testing.assert_close(y, want_y, **TOL)
+        torch.testing.assert_close(h, want_h, **TOL)
+
+
+@pytest.mark.parametrize("nstate", _build.MAMBA_NSTATES)
+def test_mamba_y_sums_lane_shares_in_shuffle_order(host_lib, nstate):
+    """y, bit for bit, in the kernel's order: lane g of a group sums h·c over
+    its states g·N/4 ... in state order, then the shares meet by xor 1, then
+    xor 2: (p0 + p1) + (p2 + p3).  With a = 0, dt = x = c = 1 and d = 0
+    every step is exact but for those sums, h_t = h_{t-1} + b_t, and b's
+    magnitudes (1e-4 to 1e8) make any other order or lane split round
+    differently."""
+    length, n = 40, 70
+    rng = np.random.default_rng(30)
+    b = (rng.standard_normal((length, nstate))
+         * 10.0 ** rng.uniform(-4, 8, (length, nstate))).astype(np.float32)
+    h = np.cumsum(b, axis=0, dtype=np.float32)        # sequential, float32
+    s = nstate // 4
+    shares = []
+    for g in range(4):
+        p = np.zeros(length, np.float32)
+        for k in range(g * s, (g + 1) * s):
+            p = (p + h[:, k]).astype(np.float32)
+        shares.append(p)
+    want = (shares[0] + shares[1]) + (shares[2] + shares[3])
+    ones = torch.ones(length, n)
+    fields = (ones, ones, torch.zeros(nstate, n), torch.zeros(1, n))
+    for vvl in (1, 2, 4, 8):
+        y = torch.full((length, n), float("nan"))
+        hh = torch.full((nstate, n), float("nan"))
+        assert _mamba(host_lib, nstate, vvl, fields, torch.from_numpy(b),
+                      torch.ones(length, nstate), y, hh) == 0
+        assert torch.equal(y, torch.from_numpy(want)[:, None].expand(length, n))
+        assert torch.equal(hh, torch.from_numpy(h[-1])[:, None].expand(nstate, n))
+
+
+def _flash(so, q, k, v, o, split, causal=True, window=0, softcap=0.0,
+           scale=None):
+    """``host_flash`` on torch tensors of any row-contiguous layout."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 12)(*[x.stride(i) for x in (q, k, v, o)
+                                         for i in range(3)])
+    return so.host_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), strides, b, hq, hkv, sq, sk, dh,
+                         dh ** -0.5 if scale is None else scale, softcap,
+                         int(causal), window, split)
+
+
+#: The tensor-core tile's cases: every head dim (tiles of 64 keys below Dh
+#: 128, 32 from it), Sq and Sk not multiples of the 128 query rows or the key
+#: tile, GQA and MQA, softcap, windows, a custom scale and rows with no live
+#: key, and a whole query tile with none.
+_FLASH = {
+    "gqa_causal_dh32": ((2, 4, 2, 70, 70, 32), dict(causal=True)),
+    "mqa_window_softcap_dh16": ((1, 4, 1, 100, 100, 16),
+                                dict(causal=True, window=40, softcap=5.0)),
+    "noncausal_ragged_dh64": ((1, 2, 2, 45, 77, 64), dict(causal=False)),
+    "masked_rows_dh16": ((1, 2, 2, 40, 20, 16), dict(causal=False, window=5)),
+    # query rows 128.. (the second tile) see no key: k > q - 30 >= 98, k < 40
+    "dead_query_tile_dh32": ((1, 2, 2, 200, 40, 32),
+                             dict(causal=False, window=30)),
+    "scale_dh64": ((1, 2, 1, 130, 130, 64), dict(causal=True, scale=0.07)),
+    "window_softcap_dh128": ((1, 2, 1, 100, 100, 128),
+                             dict(causal=True, window=33, softcap=50.0)),
+    "gqa_dh256": ((1, 4, 2, 70, 70, 256), dict(causal=True, softcap=50.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FLASH))
+def test_flash_tile_matches_plain(host_lib, case):
+    """The kernel's tile, 3xTF32 (its default), run lane by lane through the
+    emulated mma against ``attention_ref`` at the reference's bar."""
+    from repro_torch.kernels.flash_attention import TF32_SPLIT
+    (b, hq, hkv, sq, sk, dh), kw = _FLASH[case]
+    q, k, v = (_rand(40, (b, hq, sq, dh)), _rand(41, (b, hkv, sk, dh)),
+               _rand(42, (b, hkv, sk, dh)))
+    o = torch.full_like(q, float("nan"))
+    assert _flash(host_lib, q, k, v, o, TF32_SPLIT, **kw) == 0
+    torch.testing.assert_close(o, tref.attention_ref(q, k, v, **kw), **TOL)
+
+
+def test_flash_tile_takes_transposed_views(host_lib):
+    """q, k, v as (B, H, S, Dh) views of (B, S, H, Dh) tensors, o in q's
+    layout: the strides the model hands the kernel."""
+    b, hq, hkv, s, dh = 2, 4, 2, 70, 32
+    q = _rand(43, (b, s, hq, dh)).transpose(1, 2)
+    k = _rand(44, (b, s, hkv, dh)).transpose(1, 2)
+    v = _rand(45, (b, s, hkv, dh)).transpose(1, 2)
+    o = torch.full((b, s, hq, dh), float("nan")).transpose(1, 2)
+    assert _flash(host_lib, q, k, v, o, 3, causal=True, softcap=30.0) == 0
+    torch.testing.assert_close(o, tref.attention_ref(q, k, v, causal=True,
+                                                     softcap=30.0), **TOL)
+
+
+#: One TF32 product keeps 10 mantissa bits (2^-11 ≈ 4.9e-4 relative per
+#: operand), so the single-product tile is held at a TF32 tolerance.
+TF32_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("case", ["gqa_causal_dh32", "window_softcap_dh128",
+                                  "gqa_dh256"])
+def test_flash_tile_single_tf32(host_lib, case):
+    """One TF32 product (SPLIT 1) at the TF32 tolerance, and 3xTF32 closer
+    to the plain version than it on the same inputs."""
+    (b, hq, hkv, sq, sk, dh), kw = _FLASH[case]
+    q, k, v = (_rand(46, (b, hq, sq, dh)), _rand(47, (b, hkv, sk, dh)),
+               _rand(48, (b, hkv, sk, dh)))
+    want = tref.attention_ref(q, k, v, **kw)
+    err = {}
+    for split in (1, 3):
+        o = torch.full_like(q, float("nan"))
+        assert _flash(host_lib, q, k, v, o, split, **kw) == 0
+        torch.testing.assert_close(o, want, **(TF32_TOL if split == 1 else TOL))
+        err[split] = float((o - want).abs().max())
+    assert err[3] < err[1] / 10
+
+
+def test_flash_fragment_maps(host_lib):
+    """Each fragment map puts the 32 lanes' registers on every element of
+    its tile once; the data each register stands for is the element the
+    kernel's 16-byte loads give it: Q and K at dimension 16·kp + 4·tig +
+    2·h + c for k slot tig + 4·c of step h, Vᵀ's A register i at key 2·tig
+    + (i >> 1) and dimension W·p + (W/8)·grp + 2·t + (i & 1); Pᵀ's B
+    register i of rows 8·nr .. is S's C register 2·nr + i (same row, same
+    key); o_src names a lane holding the Oᵀ row's softmax row."""
+    r, c = ctypes.c_int(), ctypes.c_int()
+
+    def frag(which, lane, i):
+        host_lib.host_frag(which, lane, i, ctypes.byref(r), ctypes.byref(c))
+        return r.value, c.value
+
+    for which, (rows, cols, regs) in enumerate([(16, 8, 4), (8, 8, 2),
+                                                (16, 8, 4)]):
+        seen = {frag(which, lane, i) for lane in range(32) for i in range(regs)}
+        assert len(seen) == rows * cols
+        assert all(0 <= a < rows and 0 <= b < cols for a, b in seen)
+    for kp in range(3):
+        assert sorted(host_lib.host_qk_dim(kp, h, k) for h in (0, 1)
+                      for k in range(8)) == list(range(16 * kp, 16 * kp + 16))
+    assert sorted(host_lib.host_pv_key(k) for k in range(8)) == list(range(8))
+    for w in (16, 32):
+        assert sorted(host_lib.host_pv_dim(w, 1, t, s) for t in range(w // 16)
+                      for s in range(16)) == list(range(w, 2 * w))
+    for lane in range(32):
+        grp, tig = divmod(lane, 4)
+        for i in range(4):                      # Q's A: row, then dimension
+            row, kslot = frag(0, lane, i)
+            assert row == grp + 8 * (i & 1)
+            for h in (0, 1):
+                assert host_lib.host_qk_dim(2, h, kslot) == 32 + 4 * tig + 2 * h + (i >> 1)
+        for i in range(2):                      # K's B
+            kslot, n = frag(1, lane, i)
+            assert n == grp
+            for h in (0, 1):
+                assert host_lib.host_qk_dim(2, h, kslot) == 32 + 4 * tig + 2 * h + i
+        for w in (16, 32):                      # Vᵀ's A
+            for t in range(w // 16):
+                for i in range(4):
+                    mslot, kslot = frag(0, lane, i)
+                    assert host_lib.host_pv_key(kslot) == 2 * tig + (i >> 1)
+                    assert host_lib.host_pv_dim(w, 1, t, mslot) == (
+                        w + (w // 8) * grp + 2 * t + (i & 1))
+        for nr in (0, 1):                       # Pᵀ's B is S's C
+            for i in range(2):
+                kslot, n = frag(1, lane, i)
+                row, col = frag(2, lane, 2 * nr + i)
+                assert (n + 8 * nr, host_lib.host_pv_key(kslot)) == (row, col)
+        for e in (0, 1):                        # Oᵀ's rows
+            assert host_lib.host_o_src(lane, e) // 4 == 2 * tig + e
+
+
+def test_flash_row_strides():
+    """The strides the kernel takes: (batch, head, row) in floats, rows
+    contiguous and 16-byte aligned, an extent-1 dimension's stride 0; any
+    other layout raises ``ValueError`` before a launch."""
+    from repro_torch.kernels.flash_attention import row_strides
+    cpu = torch.device("cpu")
+    q = torch.zeros(2, 3, 5, 16)
+    assert row_strides("q", q, cpu) == [240, 80, 16]
+    view = torch.zeros(2, 5, 3, 16).transpose(1, 2)       # (B, S, H, Dh) seen
+    assert row_strides("q", view, cpu) == [240, 16, 48]   # as (B, H, S, Dh)
+    assert row_strides("q", torch.zeros(1, 1, 5, 16), cpu) == [0, 0, 16]
+    bad = [torch.zeros(2, 3, 16, 5).transpose(2, 3),      # rows not contiguous
+           torch.zeros(2, 3, 5, 18)[..., :16],           # rows 18 floats apart
+           _at_offset(torch.zeros(2, 3, 5, 16), 1),       # 4-byte aligned
+           torch.zeros(2, 3, 5, 16, dtype=torch.float64)]
+    for x in bad:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            row_strides("q", x, cpu)

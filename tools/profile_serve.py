@@ -1,7 +1,7 @@
 """Where the time of serving an LM goes on the card.
 
     python3 tools/profile_serve.py [--arch gemma2-2b] [--batch 2] \
-        [--prompt-len 4608] [--decode 16]
+        [--prompt-len 4608] [--decode 16] [--src DIR] [--tag NAME]
     python3 tools/profile_serve.py --arch falcon-mamba-7b   # prompt 4096
 
 Builds ``--arch`` (gemma2-2b by default, or falcon-mamba-7b) at full width
@@ -15,7 +15,9 @@ into the port's own CUDA kernels (``flash_fwd_kernel``, ``ew_kernel``,
 ``rms_tiled_kernel``, ``rms_few_kernel``, ``mamba_kernel``) and PyTorch's (matrix products, copies, the plain decode
 attention, the Mamba glue).  Needs one CUDA card; prints the card's name and
 power limit first and writes the full table to
-``chiprun_out/profile_serve_<arch>.json``.
+``chiprun_out/profile_serve_<arch>[_<tag>].json``.  ``--src`` may point at
+another checkout's ``src`` (one unpacked with ``git archive``), so two
+versions compare within one call, run in turns.
 """
 from __future__ import annotations
 
@@ -68,19 +70,25 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=None)
     ap.add_argument("--decode", type=int, default=16)
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
     if args.prompt_len is None:
         args.prompt_len = DEFAULT_PROMPT[args.arch]
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    src = pathlib.Path(args.src).resolve()
+    sys.path.insert(0, str(src))
     from torch.profiler import ProfilerActivity, profile
 
+    import repro_torch
     from repro_torch import configs
     from repro_torch.models import params as model_params
     from repro_torch.models.context import ExecContext
     from repro_torch.runtime.steps import build_serve_steps
+    if not pathlib.Path(repro_torch.__file__).resolve().is_relative_to(src):
+        raise RuntimeError(f"imported {repro_torch.__file__}, not {src}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -121,7 +129,8 @@ def main(argv=None) -> int:
             _, t_dec = timed(lambda: decode_all(tok, caches, length))
     traced = {"prefill": (p_pre, t_pre), "decode": (p_dec, t_dec)}
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "arch": args.arch, "batch": args.batch, "prompt_len": args.prompt_len,
+              "src": str(src), "tag": args.tag, "arch": args.arch,
+              "batch": args.batch, "prompt_len": args.prompt_len,
               "decode_steps": args.decode,
               "prefill": summarize(*traced["prefill"], per=1),
               "decode_per_step": summarize(*traced["decode"], per=args.decode)}
@@ -132,7 +141,8 @@ def main(argv=None) -> int:
                                               if k != "by_kernel_ms"},
                           "top_kernels_ms": top}), flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / f"profile_serve_{args.arch}.json").write_text(
+    tag = f"_{args.tag}" if args.tag else ""
+    (ROOT / "chiprun_out" / f"profile_serve_{args.arch}{tag}.json").write_text(
         json.dumps(result, indent=1))
     return 0
 

@@ -1,6 +1,7 @@
-"""Time the gathered LM kernels (rmsnorm, gated, act) on one card.
+"""Time the LM kernels (rmsnorm, gated, act, mamba, flash) on one card.
 
-    python3 tools/time_lm_kernels.py [--src DIR] [--tag NAME]
+    python3 tools/time_lm_kernels.py [--src DIR] [--tag NAME] \
+        [--kernels rmsnorm,gated,act,mamba,flash]
 
 Builds the CUDA sources of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``) and, on seeded random float32 inputs,
@@ -14,7 +15,17 @@ written once, at 3.35 TB/s):
   (4096, 8192) and decode (2304, 2), (4096, 2) shapes, against
   ``F.rms_norm``;
 * ``gated`` (geglu) and ``act`` (gelu, against ``F.gelu``) over gemma2-2b's
-  2 × 4608 × 9216 MLP activations.
+  2 × 4608 × 9216 MLP activations;
+* ``mamba``: one falcon-mamba-7b layer's selective scan, both batch rows
+  (2, 4096, 8192, N 16), through ``ops.mamba_scan`` at each VVL (the public
+  entry, which any version of the package has, however many launches it
+  makes of it), held to the step oracle; bound: the larger of its bytes and
+  its L·n·N exponentials on the SFUs;
+* ``flash``: ``flash_attention`` at gemma2-2b's prefill shape (2, 8, 4,
+  4608, 4608, 256), its local (window 4096, softcap 50), global (softcap
+  50) and plain causal layers, the last beside
+  ``scaled_dot_product_attention``; bounds: float32 on the CUDA cores and
+  TF32 on the tensor cores (one TF32 product and 3xTF32).
 
 ``--src`` may point at another checkout's ``src`` (one unpacked with ``git
 archive``), so two versions of the kernels compare within one call: run
@@ -36,8 +47,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (LM_TOL, PEAK_BYTES_PER_S, nvidia_smi,  # noqa: E402
-                        ptxas_report, time_ms)
+from chip_smoke import (LM_TOL, PEAK_BYTES_PER_S,  # noqa: E402
+                        PEAK_SFU_PER_S, attn_bound, nvidia_smi, ptxas_report,
+                        time_ms)
 
 VVLS = (1, 2, 4, 8)
 #: rmsnorm shapes (d, tokens) of the two serving paths
@@ -46,13 +58,23 @@ RMS_SHAPES = {"gemma2 prefill": (2304, 2 * 4608), "gemma2 decode": (2304, 2),
               "falcon-mamba decode": (4096, 2)}
 #: elements of gemma2-2b's MLP activations at 2 prompts of 4608 tokens
 EW_N = 2 * 4608 * 9216
+#: falcon-mamba-7b's scan per layer: (batch, L, d_inner, N)
+MAMBA_SHAPE = (2, 4096, 8192, 16)
+#: gemma2-2b's prefill attention: (B, Hq, Hkv, S, Dh), window, softcap
+ATTN_SHAPE = (2, 8, 4, 4608, 256)
+ATTN_VARIANTS = {"local": (4096, 50.0), "attn": (0, 50.0), "causal": (0, 0.0)}
+KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     args = ap.parse_args(argv)
+    todo = set(args.kernels.split(","))
+    if todo - set(KERNELS):
+        ap.error(f"--kernels takes some of {KERNELS}")
     if not torch.cuda.is_available():
         print("time_lm_kernels: no CUDA device is available", file=sys.stderr)
         return 1
@@ -63,7 +85,8 @@ def main(argv=None) -> int:
     import repro_torch
     from repro_torch.core import Target
     from repro_torch.core.api import launch_plan, torch_executor
-    from repro_torch.kernels import _build, lm, tdp_pointwise
+    from repro_torch.kernels import _build, flash_attention, lm, ops, ref
+    from repro_torch.kernels import tdp_pointwise
     if not pathlib.Path(repro_torch.__file__).resolve().is_relative_to(src):
         raise RuntimeError(f"imported {repro_torch.__file__}, not {src}")
 
@@ -73,7 +96,8 @@ def main(argv=None) -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_report(
-        {"tdp_gathered_lm": _build.build_dir() / "tdp_gathered_lm.log"})
+        {lib: _build.build_dir() / f"{lib}.log"
+         for lib in ("tdp_gathered_lm", "flash_attention")})
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     problems: list[str] = []
@@ -103,6 +127,8 @@ def main(argv=None) -> int:
 
     rows = []
     for label, (d, n) in RMS_SHAPES.items():
+        if "rmsnorm" not in todo:
+            break
         x = torch.randn(d, n, device=dev, generator=g)
         w = torch.randn(d, device=dev, generator=g)
         consts = {"weight": w, "eps": 1e-6, "scale_offset": 1.0}
@@ -112,13 +138,99 @@ def main(argv=None) -> int:
                         lambda x=x, w1=w1: F.rms_norm(x.T, (x.shape[0],),
                                                       weight=w1, eps=1e-6)))
         del x
-    u = 3.0 * torch.randn(1, EW_N, device=dev, generator=g)
-    v = torch.randn(1, EW_N, device=dev, generator=g)
-    rows.append(row("gated geglu", lm.gated_act_spec("geglu", True), [u, v],
-                    {}, 12 * EW_N, None))
-    del v
-    rows.append(row("act gelu", lm.gated_act_spec("gelu", False), [u], {},
-                    8 * EW_N, lambda: F.gelu(u, approximate="tanh")))
+    if todo & {"gated", "act"}:
+        u = 3.0 * torch.randn(1, EW_N, device=dev, generator=g)
+        v = torch.randn(1, EW_N, device=dev, generator=g)
+        if "gated" in todo:
+            rows.append(row("gated geglu", lm.gated_act_spec("geglu", True),
+                            [u, v], {}, 12 * EW_N, None))
+        del v
+        if "act" in todo:
+            rows.append(row("act gelu", lm.gated_act_spec("gelu", False), [u],
+                            {}, 8 * EW_N, lambda: F.gelu(u, approximate="tanh")))
+        del u
+    torch.cuda.empty_cache()
+
+    if "mamba" in todo:
+        b, length, n, nstate = MAMBA_SHAPE
+        x = torch.randn(b, length, n, device=dev, generator=g)
+        dt = F.softplus(torch.randn(b, length, n, device=dev, generator=g))
+        bb, cc = (torch.randn(b, length, nstate, device=dev, generator=g)
+                  for _ in range(2))
+        a = -torch.exp(torch.randn(n, nstate, device=dev, generator=g))
+        d = torch.ones(n, device=dev)
+        t0 = time.perf_counter()
+        want = ref.mamba_scan_ref(x, dt, bb, cc, a, d)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        ms, err = {}, 0.0
+        for vvl in VVLS:
+            def call(vvl=vvl):
+                return ops.mamba_scan(x, dt, bb, cc, a, d, vvl=vvl)
+            before = tdp_pointwise.launches["mamba"]
+            got = call()
+            torch.cuda.synchronize()
+            calls = tdp_pointwise.launches["mamba"] - before
+            e = max(float((o - w).abs().max()) for o, w in zip(got, want))
+            err = max(err, e)
+            if not all(torch.isfinite(o).all() and torch.allclose(o, w, **LM_TOL)
+                       for o, w in zip(got, want)):
+                problems.append(f"mamba vvl={vvl}: max |kernel - plain| = {e}")
+            del got
+            ms[vvl] = time_ms(call)
+        nbytes = 4 * (3 * b * length * n + (b + 1) * nstate * n + n
+                      + 2 * b * length * nstate)
+        out = {"name": "mamba layer (ops.mamba_scan)",
+               "shape": list(MAMBA_SHAPE), "ms_by_vvl": ms,
+               "launches_per_layer": calls,
+               "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
+                               b * length * n * nstate / PEAK_SFU_PER_S) * 1e3,
+               "plain_oracle_wall_s": plain_s, "library_ms": None,
+               "max_abs_err": err}
+        print(json.dumps(out), file=sys.stderr, flush=True)
+        rows.append(out)
+        del x, dt, bb, cc, a, d, want
+        torch.cuda.empty_cache()
+
+    if "flash" in todo:
+        b, hq, hkv, s_len, dh = ATTN_SHAPE
+        q = torch.randn(b, hq, s_len, dh, device=dev, generator=g)
+        k, v = (torch.randn(b, hkv, s_len, dh, device=dev, generator=g)
+                for _ in range(2))
+        for variant, (window, softcap) in ATTN_VARIANTS.items():
+            kw = dict(causal=True, window=window, softcap=softcap)
+            want = ref.attention_ref(q, k, v, **kw)
+            out = {"name": f"flash {variant}",
+                   "shape": [b, hq, hkv, s_len, s_len, dh],
+                   "window": window, "softcap": softcap,
+                   "plain_ms": time_ms(lambda kw=kw: ref.attention_ref(
+                       q, k, v, **kw), reps=5),
+                   "bound_fp32_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                               True, window)[0],
+                   "bound_tf32x1_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                                 True, window, split=1)[0],
+                   "bound_tf32x3_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                                 True, window, split=3)[0]}
+
+            def call(kw=kw):
+                return flash_attention.flash_attention(q, k, v, **kw)
+            got = call()
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            out["max_abs_err"] = e
+            out["within_bar"] = bool(torch.allclose(got, want, **LM_TOL))
+            if not out["within_bar"]:
+                problems.append(f"flash {variant}: max |kernel - plain| = {e}")
+            del got
+            out["ms"] = time_ms(call)
+            out["library_ms"] = (time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+                if variant == "causal" else None)
+            print(json.dumps(out), file=sys.stderr, flush=True)
+            rows.append(out)
+            del want
+            torch.cuda.empty_cache()
+        del q, k, v
     result = {"tag": args.tag, "src": str(src), "nvidia_smi": smi,
               "device": torch.cuda.get_device_name(0), "build_s": build_s,
               "ptxas": ptxas, "rows": rows, "problems": problems}
