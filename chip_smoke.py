@@ -46,6 +46,25 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    of the 128³ fused program (then again from its cache, with no
    measurement), 20 ``one_launch`` steps under the tuned target against the
    default target's, and ``autotune`` of rmsnorm at gemma2's prefill shape;
+   the tdp surface (``tdp_surface``) at Ludwig's 128³: the paper's §III-C
+   sequence through ``repro_torch.tdp`` (``target_malloc``,
+   ``copy_to_target``, ``copy_constant_to_target``, the ``scale``,
+   ``saxpy`` and ``site_pos`` site functions of kernel 2 at VVL 1, 2, 4
+   and 8 on a (3, 128³) field, each against its plain body: bit-exact,
+   ``saxpy`` at ``rtol=1e-6``; ``sync_target``, ``copy_from_target``),
+   ``reduce`` sum / max / min on the card (max and min exact, the sum
+   within 1e-5·Σ|x| of numpy's float64 sum), ``launch_stencil`` of
+   ``stream`` and ``grad6`` on the card, the masked copies of the
+   19-component f over the grid's six faces (4.6 % of the sites) against a
+   full copy, ``target_free`` (``memory_allocated`` drops by the field's
+   bytes; a later copy raises), the paper's Fig. 1 (``collide_aos`` /
+   ``stream_aos``, plain PyTorch on AoS (128, 128, 128, 19), against the
+   SoA kernel-2 ``collide`` / ``stream`` and the plain SoA body; times
+   printed as ``{"fig1_128cubed_ms": ...}``) and
+   ``repro_torch.examples.lb_spinodal`` at 128³, 200 steps in chunks of
+   50, unfused and in both fused regimes (mass drift ≤ 1e-5, φ variance
+   grows, φ total conserved and the regimes' φ totals within 1e-5·Σ|φ| and
+   φ variances within 1e-3 relative), printed as ``{"tdp_surface": ...}``;
    each path with every launch counter set to 0 just before it and read
    just after.  Checks NaN-free states, float64 mass conservation, pairwise
    agreement of the regimes, a 16³ trajectory against the plain path on
@@ -70,7 +89,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    and 8 (``ms_by_vvl``);
    MLUPS per regime; prefill ms, decode ms per step and
    tokens/s of both serving paths, on the kernels and on the plain path;
-   the calibration kernels at the calibration sizes beside ``torch.add``.
+   the calibration kernels at the calibration sizes beside ``torch.add``;
+   the example site functions at (3, 128³) beside ``torch.mul`` /
+   ``torch.add(y, x, alpha=a)`` (at every VVL too), and ``reduce``'s map
+   plus ``torch.sum`` beside ``x.sum(-1)``.
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -136,6 +158,9 @@ KERNELS = {
                           replaces="src/repro/core/costmodel.py:190"),
     "calibrate.fma": dict(source="src/repro_torch/csrc/calibrate.cu",
                           replaces="src/repro/core/costmodel.py:202"),
+    "tdp_gathered.example": dict(
+        source="src/repro_torch/csrc/tdp_gathered_example.cu",
+        replaces="src/repro/kernels/tdp_pointwise.py:76"),
 }
 STENCIL_SITES = ("stream", "grad6", "fused", "phi_stream", "fused_two")
 #: LB checks of phase 3 besides 128³: a size that cuts every fused tile
@@ -166,6 +191,14 @@ STEPS = 20
 #: Python loop of some 33 000 PyTorch calls per launch) is host-bound and is
 #: timed by wall_ms() instead.
 HOLD_CYCLES = 2_000_000_000
+#: The hold for the tdp surface's rows: about 0.1 s, longer than 20 launches
+#: of any of them take to enqueue (the AoS collision is ~40 PyTorch calls).
+SHORT_HOLD = 200_000_000
+#: The tdp surface phase: a 3-component field of 128³ sites (the paper's
+#: §III-C example at Ludwig's size a device), scaled by 2.0; the spinodal
+#: example's steps and chunk.
+TDP_NCOMP, TDP_A = 3, 2.0
+SPINODAL_STEPS, SPINODAL_CHUNK = 200, 50
 
 #: The LM kernels' bar against their plain versions: the reference's own
 #: (tests/test_kernels.py:105).
@@ -256,6 +289,11 @@ def ptxas_report(logs: dict) -> list[dict]:
                     dh = re.search(r"flash_fwd_kernelILi(\d+)E", name)
                     entry = {"lib": lib, "site": "flash_attention",
                              "head_dim": int(dh.group(1)) if dh else None}
+                elif lib == "tdp_gathered_example":
+                    site = re.search(r"ex\d+(\w+?)Site", name)
+                    vvl = re.search(r"Li(\d+)E", name)
+                    entry = {"lib": lib, "site": site and site.group(1),
+                             "vvl": int(vvl.group(1)) if vvl else None}
                 elif lib == "calibrate":
                     entry = {"lib": lib, "site": "add" if "stream_add" in name
                              else "fma"}
@@ -299,7 +337,8 @@ def ptxas_report(logs: dict) -> list[dict]:
     return rows
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3,
+            hold: int = HOLD_CYCLES) -> float:
     """Median device time of one launch of ``fn`` over ``reps`` launches,
     each between two CUDA events.
 
@@ -311,7 +350,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(HOLD_CYCLES)
+    torch.cuda._sleep(hold)
     events[0].record()
     for i in range(reps):
         fn()
@@ -976,6 +1015,363 @@ def calibrate_rows(launches, launches_by_path, max_err, problems) -> list:
     return rows
 
 
+def face_mask(n: int) -> np.ndarray:
+    """The six boundary faces of an n³ grid, flattened: n³ - (n-2)³ sites,
+    the halo a decomposed run exchanges (the paper's masked-copy use)."""
+    m = np.ones((n,) * 3, bool)
+    m[1:-1, 1:-1, 1:-1] = False
+    return m.reshape(-1)
+
+
+def tdp_surface(drive, problems: list) -> dict:
+    """Phase 4, the tdp surface at Ludwig's 128³ a device: the paper's
+    §III-C call sequence through ``repro_torch.tdp`` (``scale`` at every
+    VVL, ``saxpy``, ``site_pos``), ``reduce``, ``launch_stencil`` on the
+    card, the masked copies of the 19-component f over the grid's six
+    faces, ``target_free``, the Fig. 1 comparison (AoS ``collide_aos`` /
+    ``stream_aos`` in plain PyTorch against the SoA kernels and plain
+    bodies) and the spinodal example in its three regimes.  Returns the
+    record printed as ``{"tdp_surface": ...}``."""
+    from repro_torch import tdp
+    from repro_torch.examples import lb_spinodal
+    from repro_torch.kernels import example_sites as ex
+    from repro_torch.lb import baseline, programs, stencil
+    from repro_torch.lb.params import LBParams
+    from repro_torch.core.target import CUDA_VVLS
+    n = int(np.prod(GRID))
+    lat = tdp.Lattice(GRID)
+    rng = np.random.default_rng(31)
+    out: dict = {}
+
+    # the §III-C sequence: target_malloc → copy_to_target →
+    # copy_constant_to_target → TARGET_LAUNCH(scale) → sync_target →
+    # copy_from_target
+    host_x = tdp.Field(lat, TDP_NCOMP, np.float32)
+    host_x.data[...] = rng.standard_normal(host_x.array_shape,
+                                           dtype=np.float32)
+    host_y = tdp.field_like(host_x, rng.standard_normal(
+        host_x.array_shape, dtype=np.float32))
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+
+    def sequence():
+        t_out = tdp.target_malloc((TDP_NCOMP, n))
+        t_x, t_y = tdp.copy_to_target(host_x), tdp.copy_to_target(host_y)
+        a = tdp.copy_constant_to_target(TDP_A)
+        errs = {"saxpy": 0.0}
+        for vvl in CUDA_VVLS:
+            tgt = tdp.Target("cuda", vvl=vvl)
+            tdp.launch(ex.SCALE_SPEC, tgt, t_x, lattice=lat, a=a, out=t_out)
+            tdp.sync_target(t_out)
+            if not torch.equal(t_out, ex.scale_site(t_x, TDP_A)):
+                problems.append(f"tdp scale vvl={vvl}: not the plain body's "
+                                f"bits")
+            s = tdp.launch(ex.SAXPY_SPEC, tgt, t_x, t_y, a=a)
+            want = ex.saxpy_site(t_x, t_y, TDP_A)
+            errs["saxpy"] = max(errs["saxpy"], max_abs((s,), (want,)))
+            if not torch.allclose(s, want, rtol=1e-6, atol=0):
+                problems.append(f"tdp saxpy vvl={vvl}: max |kernel - plain| "
+                                f"= {max_abs((s,), (want,))}")
+            pos = tdp.launch(ex.SITE_POS_SPEC, tgt, t_x)
+            if not torch.equal(pos, ex.site_pos_site(t_x, idx)):
+                problems.append(f"tdp site_pos vvl={vvl}: not the plain "
+                                f"body's bits")
+        back = tdp.copy_from_target(t_out)
+        if not np.array_equal(back, TDP_A * host_x.data):
+            problems.append("tdp copy_from_target: not 2·x")
+        return t_x, t_y, t_out, errs
+
+    t_x, t_y, t_out, errs = drive("tdp surface: III-C sequence", sequence)
+    out["saxpy_max_abs_err"] = errs["saxpy"]
+
+    def reductions():
+        return {op: tdp.reduce(ex.SCALE_SPEC, lat, [t_x],
+                               consts={"a": TDP_A}, op=op,
+                               target=tdp.Target("cuda"))
+                for op in ("sum", "max", "min")}
+
+    red = drive("tdp surface: reduce", reductions)
+    y64 = (TDP_A * host_x.data).astype(np.float64)
+    for op, want in (("max", y64.max(-1)), ("min", y64.min(-1))):
+        if not np.array_equal(red[op].cpu().numpy().astype(np.float64), want):
+            problems.append(f"tdp reduce {op}: {red[op].tolist()} vs {want}")
+    s_err = np.abs(red["sum"].cpu().numpy() - y64.sum(-1))
+    out["reduce_sum_err_of_sum_abs"] = (s_err / np.abs(y64).sum(-1)).tolist()
+    if not (s_err <= 1e-5 * np.abs(y64).sum(-1)).all():
+        problems.append(f"tdp reduce sum: error {s_err.tolist()}")
+
+    # launch_stencil on the card goes through kernel 2
+    f_soa = torch.from_numpy(1.0 / 19.0 + 0.01 * rng.standard_normal(
+        (19, n), dtype=np.float32)).cuda()
+    phi = f_soa[:1].contiguous()
+
+    def legacy_stencils():
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            st = tdp.launch_stencil(stencil.stream_site_kernel, lat, [f_soa],
+                                    stencil=tdp.STENCIL_D3Q19_PULL,
+                                    out_ncomp=19, backend="cuda")
+            gr = tdp.launch_stencil(stencil.grad6_site_kernel, lat, [phi],
+                                    stencil=tdp.STENCIL_GRAD_6PT,
+                                    out_ncomp=(3, 1), backend="cuda")
+        return st, gr
+
+    st_k, gr_k = drive("tdp surface: launch_stencil", legacy_stencils)
+    if not torch.equal(st_k, tdp.launch(stencil.STREAM_SPEC, "torch", f_soa,
+                                        lattice=lat)):
+        problems.append("tdp launch_stencil stream: not the plain bits")
+    for got, want in zip(gr_k, tdp.launch(stencil.GRAD6_SPEC, "torch", phi,
+                                          lattice=lat)):
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            problems.append("tdp launch_stencil grad6 differs from plain")
+    del st_k, gr_k, phi
+
+    # masked copies of f over the six faces against a full copy
+    mask = face_mask(GRID[0])
+    nsel = int(mask.sum())
+    t_f = tdp.copy_to_target(f_soa.cpu().numpy())
+    full = tdp.copy_from_target(t_f)
+    packed = tdp.copy_from_target_masked(t_f, mask)
+    if not np.array_equal(packed, full[:, mask]):
+        problems.append("copy_from_target_masked: not the selected columns")
+    upd = rng.standard_normal((19, n), dtype=np.float32)
+    tdp.copy_to_target_masked(t_f, upd, mask)
+    after = tdp.copy_from_target(t_f)
+    if not (np.array_equal(after[:, mask], upd[:, mask])
+            and np.array_equal(after[:, ~mask], full[:, ~mask])):
+        problems.append("copy_to_target_masked: unselected sites changed or "
+                        "selected ones not written")
+    del after
+    out["masked"] = {
+        "sites": nsel, "share": nsel / n,
+        "packed_bytes": 19 * nsel * 4, "full_bytes": 19 * n * 4,
+        "copy_from_target_ms": wall_ms(lambda: tdp.copy_from_target(t_f)),
+        "copy_from_target_masked_ms": wall_ms(
+            lambda: tdp.copy_from_target_masked(t_f, mask)),
+        "copy_to_target_ms": wall_ms(lambda: tdp.copy_to_target(full)),
+        "copy_to_target_masked_ms": wall_ms(
+            lambda: tdp.copy_to_target_masked(t_f, upd, mask))}
+    log(f"phase 4: tdp masked copies {out['masked']}")
+
+    # target_free gives the block back
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tdp.target_free(t_f)
+    freed = before - torch.cuda.memory_allocated()
+    out["target_free_bytes"] = freed
+    if not 19 * n * 4 <= freed < 19 * n * 4 + 2 ** 21:
+        problems.append(f"target_free released {freed} bytes, not "
+                        f"{19 * n * 4}")
+    try:
+        tdp.copy_from_target(t_f)
+        problems.append("copy_from_target of a freed target did not raise")
+    except RuntimeError:
+        pass
+    for t in (t_x, t_y, t_out):
+        tdp.target_free(t)
+    del full, packed, upd
+
+    # Fig. 1: the AoS baseline (plain PyTorch) against the SoA kernel-2
+    # collide and stream and their plain bodies, on one state
+    params = LBParams(**PHYS)
+    consts = programs.collision_consts(**PHYS)
+    r2 = np.random.default_rng(32)
+    f_a = torch.from_numpy(1.0 / 19.0 + 0.01 * r2.standard_normal(
+        (*GRID, 19), dtype=np.float32)).cuda()
+    g_a = torch.from_numpy(0.05 * r2.standard_normal(
+        (*GRID, 19), dtype=np.float32)).cuda()
+    phi_a = g_a.sum(-1)
+    gp_a, d2_a = (torch.from_numpy(0.01 * r2.standard_normal(
+        shape, dtype=np.float32)).cuda() for shape in ((*GRID, 3), GRID))
+
+    def soa(x):
+        return x.reshape(n, -1).T.contiguous()
+
+    soa_in = [soa(x) for x in (f_a, g_a, phi_a, gp_a, d2_a)]
+    f_s = soa(f_a).reshape(19, *GRID)
+
+    def aos_collide():
+        return baseline.collide_aos(f_a, g_a, phi_a, gp_a, d2_a, params)
+
+    def soa_collide(backend):
+        return tdp.launch(stencil.COLLIDE_SPEC, backend, *soa_in, **consts)
+
+    fk = drive("tdp surface: Fig. 1 SoA kernels", lambda: (
+        soa_collide("cuda"), stencil.stream(f_s, target="cuda")))
+    fa = aos_collide()
+    fp = soa_collide("torch")
+    fig1_err = 0.0
+    for got, base, plain in zip(fk[0], fa, fp):
+        base_soa = soa(base)
+        fig1_err = max(fig1_err, max_abs((got,), (base_soa,)))
+        if not (torch.allclose(got, base_soa, rtol=1e-5, atol=1e-6)
+                and torch.allclose(got, plain, rtol=1e-5, atol=1e-6)):
+            problems.append(f"Fig. 1 collide: SoA kernel vs AoS baseline "
+                            f"{max_abs((got,), (base_soa,))}")
+    if not torch.equal(torch.movedim(baseline.stream_aos(f_a), -1, 0), fk[1]):
+        problems.append("Fig. 1 stream: AoS baseline and SoA kernel differ")
+    del fk, fa, fp
+    torch.cuda.empty_cache()
+    out["fig1"] = {
+        "collide_max_abs_err": fig1_err,
+        "collide_aos_ms": time_ms(aos_collide, hold=SHORT_HOLD),
+        "collide_soa_kernel_ms": time_ms(lambda: soa_collide("cuda"),
+                                         hold=SHORT_HOLD),
+        "collide_soa_plain_ms": time_ms(lambda: soa_collide("torch"),
+                                        hold=SHORT_HOLD),
+        "stream_aos_ms": time_ms(lambda: baseline.stream_aos(f_a),
+                                 hold=SHORT_HOLD),
+        "stream_soa_kernel_ms": time_ms(
+            lambda: stencil.stream(f_s, target="cuda"), hold=SHORT_HOLD)}
+    print(json.dumps({"fig1_128cubed_ms": out["fig1"]}), flush=True)
+    del f_a, g_a, phi_a, gp_a, d2_a, soa_in, f_s, f_soa
+    torch.cuda.empty_cache()
+
+    # the spinodal example, three regimes
+    runs = {}
+    for regime, flags in (("cuda", []),
+                          ("one_launch", ["--backend", "cuda_windowed",
+                                          "--fused", "one_launch"]),
+                          ("two_launch", ["--backend", "cuda_windowed",
+                                          "--fused", "two_launch"])):
+        argv = ["--grid", str(GRID[0]), "--steps", str(SPINODAL_STEPS),
+                "--chunk", str(SPINODAL_CHUNK), *flags]
+        r = drive(f"tdp surface: lb_spinodal {regime}",
+                  lambda argv=argv: lb_spinodal.main(argv))
+        phi_end = r["state"].g.double().sum(0)
+        runs[regime] = {"mass_drift": r["mass_drift"],
+                        "phi_total": r["last"]["phi_total"],
+                        "phi_total_0": r["first"]["phi_total"],
+                        "phi_abs": float(phi_end.abs().sum()),
+                        "phi_var_0": r["first"]["phi_var"],
+                        "phi_var": r["last"]["phi_var"],
+                        "msites_per_s": r["msites_per_s"],
+                        "executors": r["executors"]}
+        run = runs[regime]
+        if run["mass_drift"] > 1e-5 or r["last"]["nan"]:
+            problems.append(f"lb_spinodal {regime}: mass drift "
+                            f"{run['mass_drift']} or NaN")
+        if not run["phi_var"] > run["phi_var_0"]:
+            problems.append(f"lb_spinodal {regime}: φ variance did not grow")
+        if abs(run["phi_total"] - run["phi_total_0"]) > 1e-5 * run["phi_abs"]:
+            problems.append(f"lb_spinodal {regime}: φ total drifted")
+        del r, phi_end
+    base = runs["cuda"]
+    for regime, run in runs.items():
+        if (abs(run["phi_total"] - base["phi_total"]) > 1e-5 * base["phi_abs"]
+                or abs(run["phi_var"] - base["phi_var"])
+                > 1e-3 * base["phi_var"]):
+            problems.append(f"lb_spinodal {regime} vs unfused: φ total "
+                            f"{run['phi_total']} / {base['phi_total']}, φ "
+                            f"variance {run['phi_var']} / {base['phi_var']}")
+    out["lb_spinodal"] = runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def tdp_rows(launches, launches_by_path, max_err, problems) -> list:
+    """Phase 5, the example site functions of kernel 2 at (3, 128³): held to
+    their plain bodies (and the library call to the plain body), then timed
+    beside both and the bound; ``reduce`` (the ``scale`` map plus
+    ``torch.sum``) beside ``x.sum(-1)``."""
+    import dataclasses
+    from repro_torch.core import Target
+    from repro_torch.core.api import launch_plan, torch_executor
+    from repro_torch.core.execute import reduce
+    from repro_torch.core.target import CUDA_VVLS
+    from repro_torch.kernels import example_sites as ex
+    from repro_torch.kernels import tdp_pointwise
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(33)
+    n = int(np.prod(GRID))
+    x, y = (torch.randn(TDP_NCOMP, n, device=dev, generator=g)
+            for _ in range(2))
+    ins = {"scale": [x], "saxpy": [x, y], "site_pos": [x]}
+    libs = {"scale": lambda: torch.mul(x, TDP_A),
+            "saxpy": lambda: torch.add(y, x, alpha=TDP_A), "site_pos": None}
+    rows = []
+    for site in ex.SPECS:
+        spec = dataclasses.replace(ex.SPECS[site], out=TDP_NCOMP)
+        consts = {} if site == "site_pos" else {"a": TDP_A}
+        plans = {v: launch_plan(spec, Target("cuda", vvl=v), consts=consts)
+                 for v in CUDA_VVLS}
+        xs = ins[site]
+
+        def kern(p=plans[1], xs=xs):
+            return tdp_pointwise.cuda_execute(p, xs)[0]
+
+        def plain(p=plans[1], xs=xs):
+            return torch_executor(p, xs)[0]
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs((got,), (want,))
+        key = ("tdp_gathered", site)
+        max_err[key] = max(max_err.get(key, 0.0), err)
+        if not torch.equal(got, want) and not (
+                site == "saxpy" and torch.allclose(got, want, rtol=1e-6,
+                                                   atol=0)):
+            problems.append(f"tdp_gathered.{site} (3, 128^3): max |kernel - "
+                            f"plain| = {err}")
+        lib = libs[site]
+        if lib is not None and not torch.allclose(lib(), want, rtol=1e-6,
+                                                  atol=1e-6):
+            problems.append(f"library call for tdp_gathered.{site} differs "
+                            f"from plain")
+        del got, want
+        nbytes = (8 + 4 * (len(xs) - 1)) * TDP_NCOMP * n
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        row = {"name": f"tdp_gathered.{site}", "route": "cuda",
+               **KERNELS["tdp_gathered.example"],
+               "launches": launches[key],
+               "launches_by_path": launches_by_path[key],
+               "max_abs_err": max_err[key],
+               "ms": time_ms(kern, hold=SHORT_HOLD),
+               "plain_ms": time_ms(plain, hold=SHORT_HOLD),
+               "bound_ms": b_ms, "bound_by": "bytes",
+               "library_ms": (None if lib is None
+                              else time_ms(lib, hold=SHORT_HOLD)),
+               "shape": [TDP_NCOMP, n],
+               "ms_by_vvl": {v: time_ms(
+                   lambda p=p, xs=xs: tdp_pointwise.cuda_execute(p, xs),
+                   hold=SHORT_HOLD) for v, p in plans.items()}}
+        rows.append(row)
+        log(f"phase 5: {row['name']} ms={row['ms']:.4f} plain="
+            f"{row['plain_ms']:.4f} library={row['library_ms']} bound="
+            f"{b_ms:.4f} by VVL {row['ms_by_vvl']} err={err}")
+    # reduce(sum) of scale with a = 1: the map on the card, torch.sum after
+    spec = dataclasses.replace(ex.SCALE_SPEC, out=TDP_NCOMP)
+
+    def red(backend):
+        return reduce(spec, None, [x], consts={"a": 1.0}, op="sum",
+                      target=Target(backend))
+
+    got, want, lib = red("cuda"), red("torch"), x.sum(-1)
+    err = max_abs((got,), (want,))
+    if not (torch.allclose(got, want, rtol=1e-6, atol=1e-6)
+            and torch.allclose(lib, want, rtol=1e-6, atol=1e-6)):
+        problems.append(f"reduce(sum) of scale: kernel {got.tolist()}, plain "
+                        f"{want.tolist()}, x.sum(-1) {lib.tolist()}")
+    key = ("tdp_gathered", "scale")
+    path = "tdp surface: reduce"
+    rows.append({"name": "reduce.sum(tdp_gathered.scale)", "route": "cuda",
+                 **KERNELS["tdp_gathered.example"],
+                 "launches": launches_by_path[key].get(path, 0),
+                 "launches_by_path": {path: launches_by_path[key].get(path, 0)},
+                 "max_abs_err": err,
+                 "ms": time_ms(lambda: red("cuda"), hold=SHORT_HOLD),
+                 "plain_ms": time_ms(lambda: red("torch"), hold=SHORT_HOLD),
+                 "bound_ms": 4 * TDP_NCOMP * n / PEAK_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes",
+                 "library_ms": time_ms(lambda: x.sum(-1), hold=SHORT_HOLD),
+                 "shape": [TDP_NCOMP, n]})
+    log(f"phase 5: {rows[-1]['name']} ms={rows[-1]['ms']:.4f} "
+        f"library={rows[-1]['library_ms']:.4f}")
+    del x, y
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -1024,6 +1420,7 @@ def main() -> int:
                 "calibrate": calibrate.launches}
     lm_entries = [("tdp_gathered", s) for s in tdp_pointwise.LM_SITES] + [
         ("flash_attention", "flash_attention")]
+    ex_entries = [("tdp_gathered", s) for s in _build.EXAMPLE_SITES]
     cal_entries = [("calibrate", "add"), ("calibrate", "fma")]
 
     def entries():
@@ -1142,7 +1539,7 @@ def main() -> int:
     st0 = sims[False].init_spinodal(seed=0, noise=0.05)
     obs0 = sims[False].observables(st0)
     by_path: dict = {}
-    all_entries = list(entries()) + lm_entries + cal_entries
+    all_entries = list(entries()) + lm_entries + cal_entries + ex_entries
 
     def drive(path, fn):
         """Run one path of the main path with every launch counter set to
@@ -1223,6 +1620,11 @@ def main() -> int:
     print(json.dumps({"tuning": record["tuning"]}, default=str), flush=True)
     del finals
     torch.cuda.empty_cache()
+    t_tdp = time.perf_counter()
+    record["tdp_surface"] = tdp_surface(drive, problems)
+    record["tdp_surface"]["phase_s"] = time.perf_counter() - t_tdp
+    print(json.dumps({"tdp_surface": record["tdp_surface"]}, default=str),
+          flush=True)
 
     # gemma2-2b, then falcon-mamba-7b, served at full width
     cfg = configs.get_config("gemma2-2b")
@@ -1260,6 +1662,20 @@ def main() -> int:
         expected[f"{name} prefill (torch)"] = {}
         expected[f"{name} {decode} (torch)"] = {}
     expected["autotune lb_fused_one 128^3 (cache)"] = {}
+    nv = 4   # the sequence launches each example site function at VVL 1-8
+    expected["tdp surface: III-C sequence"] = {
+        ("tdp_gathered", s): nv for s in _build.EXAMPLE_SITES}
+    expected["tdp surface: reduce"] = {("tdp_gathered", "scale"): 3}
+    expected["tdp surface: launch_stencil"] = {("tdp_gathered", "stream"): 1,
+                                               ("tdp_gathered", "grad6"): 1}
+    expected["tdp surface: Fig. 1 SoA kernels"] = {
+        ("tdp_gathered", "collide"): 1, ("tdp_gathered", "stream"): 1}
+    for regime, kernel in (("cuda", "tdp_gathered"),
+                           ("one_launch", "tdp_windowed"),
+                           ("two_launch", "tdp_windowed")):
+        counts = by_path.get(f"tdp surface: lb_spinodal {regime}", {})
+        if kernel not in {k for k, _ in counts}:
+            problems.append(f"lb_spinodal {regime}: launches {counts}")
     # the tuned run launches the default run's kernels, at its own VVL
     expected["BinaryFluidSim one_launch tuned"] = by_path.get(
         "BinaryFluidSim fused=one_launch")
@@ -1476,6 +1892,9 @@ def main() -> int:
     del xs, consts, plan
     torch.cuda.empty_cache()
     rows += calibrate_rows(launches, launches_by_path, max_err, problems)
+    t_tdp = time.perf_counter()
+    rows += tdp_rows(launches, launches_by_path, max_err, problems)
+    record["tdp_surface"]["rows_s"] = time.perf_counter() - t_tdp
 
     mlups = {}
     for regime, sim in sims.items():

@@ -1,5 +1,24 @@
-"""The targetDP core on PyTorch: descriptors, the launch path, executors,
-step graphs (single device) and the tuning layer."""
+"""The targetDP core on PyTorch: descriptors, the memory model, the launch
+path, executors, step graphs (single device) and the tuning layer.
+
+Public surface (paper → here), as the reference's ``repro.core``:
+
+* lattice/fields: :class:`Lattice`, :func:`token_lattice`, :class:`Field`
+  (SoA mandated, AoS kept as the Fig. 1 baseline layout), :class:`Stencil`;
+* memory model: :func:`target_malloc`, :func:`copy_to_target`,
+  :func:`copy_from_target`, the masked variants, :class:`TargetConst`,
+  :func:`sync_target`, :func:`target_free`;
+* execution model: :class:`KernelSpec` + :func:`kernel`, :class:`Target`,
+  :func:`tdp_launch` (also exported as ``launch``) dispatching through
+  :func:`register_executor`'s table, and :func:`reduce`;
+* legacy surface: :func:`site_kernel`, :func:`launch_stencil` and the
+  ``launch(kernel, lattice, inputs)`` shim, which is
+  :func:`repro_torch.core.execute.launch`.  Unlike the reference, whose
+  ``repro.core.launch`` is that shim, ``repro_torch.core.launch`` is the
+  declarative entry point the port's modules have called since it began.
+
+The ergonomic import is ``from repro_torch import tdp``.
+"""
 from . import costmodel
 from .api import (
     LaunchPlan,
@@ -11,8 +30,24 @@ from .api import (
     launch_plan,
     pad_sites,
 )
-from .autotune import Candidate, TuneReport, autotune, default_space
-from .costmodel import CostEstimate, MachineProfile, machine_profile, predict
+from .api import launch as tdp_launch
+from .autotune import (
+    Candidate,
+    TuneReport,
+    TuneResult,
+    autotune,
+    default_space,
+    wall_clock_timer,
+)
+from .costmodel import (
+    CostEstimate,
+    MachineProfile,
+    machine_profile,
+    predict,
+    roofline_seconds,
+)
+from .execute import launch_stencil, reduce, site_kernel
+from .field import Field, field_like
 from .lattice import (
     D3Q19_VELOCITIES,
     STENCIL_D3Q19_PULL,
@@ -20,8 +55,20 @@ from .lattice import (
     STENCIL_GRAD_6PT,
     Lattice,
     Stencil,
+    token_lattice,
 )
-from .memory import TargetConst
+from .memory import (
+    TargetConst,
+    copy_constant_to_target,
+    copy_from_target,
+    copy_from_target_masked,
+    copy_to_target,
+    copy_to_target_masked,
+    sync_target,
+    target_free,
+    target_malloc,
+    target_malloc_like,
+)
 from .program import (
     CompiledProgram,
     Program,
@@ -36,25 +83,33 @@ from .registry import (
     executor_tunables,
     executor_vvls,
     executor_wants,
+    get_executor,
+    get_executor_entry,
+    list_executors,
     register_executor,
     registry_version,
     unregister_executor,
 )
 from .spec import FieldSpec, KernelSpec, field, kernel
 from .state import validate_field
-from .target import Target, as_target, default_vvl
+from .target import Target, as_target, default_vvl, set_default_vvl
 
 __all__ = [
     "Candidate", "CompiledProgram", "CostEstimate", "D3Q19_VELOCITIES",
-    "FieldSpec", "KernelSpec", "LaunchPlan", "Lattice", "MachineProfile",
-    "Program", "ProgramPlan", "STENCIL_D3Q19_PULL", "STENCIL_GRAD_19PT",
-    "STENCIL_GRAD_6PT", "Stage", "Stencil", "Target", "TargetConst",
-    "TuneReport", "WindowVmemError", "as_target", "autotune",
-    "compatible_executors", "costmodel", "default_space", "default_vvl",
-    "executor_tunables", "executor_vvls", "executor_wants", "field",
-    "field_view", "gather_neighbors",
-    "halo_extend", "kernel", "launch", "launch_plan", "machine_profile",
-    "pad_sites", "predict", "program", "register_executor",
-    "registry_version", "resolve_stage_target", "stage",
-    "unregister_executor", "validate_field",
+    "Field", "FieldSpec", "KernelSpec", "LaunchPlan", "Lattice",
+    "MachineProfile", "Program", "ProgramPlan", "STENCIL_D3Q19_PULL",
+    "STENCIL_GRAD_19PT", "STENCIL_GRAD_6PT", "Stage", "Stencil", "Target",
+    "TargetConst", "TuneReport", "TuneResult", "WindowVmemError", "as_target", "autotune",
+    "compatible_executors", "copy_constant_to_target", "copy_from_target",
+    "copy_from_target_masked", "copy_to_target", "copy_to_target_masked",
+    "costmodel", "default_space", "default_vvl", "executor_tunables",
+    "executor_vvls", "executor_wants", "field", "field_like", "field_view",
+    "gather_neighbors", "get_executor", "get_executor_entry", "halo_extend",
+    "kernel", "launch", "launch_plan", "launch_stencil", "list_executors",
+    "machine_profile", "pad_sites", "predict", "program", "reduce",
+    "register_executor", "registry_version", "resolve_stage_target",
+    "roofline_seconds",
+    "set_default_vvl", "site_kernel", "stage", "sync_target", "target_free",
+    "target_malloc", "target_malloc_like", "tdp_launch", "token_lattice",
+    "unregister_executor", "validate_field", "wall_clock_timer",
 ]

@@ -187,8 +187,15 @@ def _check_window_vmem(plan: "LaunchPlan") -> None:
 
 
 def _unwrap_consts(consts: Mapping[str, object]) -> dict:
-    return {k: v.value if isinstance(v, TargetConst) else v
-            for k, v in consts.items()}
+    """Static consts as the site bodies take them: a ``TargetConst``'s host
+    array, a 0-d one as its Python scalar (``copy_constant_to_target(2.0)``
+    multiplies a tensor as ``2.0`` does)."""
+    out = {}
+    for k, v in consts.items():
+        if isinstance(v, TargetConst):
+            v = v.value.item() if v.value.ndim == 0 else v.value
+        out[k] = v
+    return out
 
 
 def _consts_cache_key(consts: Mapping[str, object]):
@@ -243,11 +250,13 @@ class LaunchPlan:
     """
 
     __slots__ = ("kernel", "name", "vvl", "out_ncomp", "consts", "target",
-                 "shape", "halo", "stencils", "field_ncomp", "wants")
+                 "shape", "halo", "stencils", "field_ncomp", "wants",
+                 "site_index")
 
     def __init__(self, *, kernel, name, vvl, out_ncomp, consts, target,
                  shape=None, halo=None,
-                 stencils=None, field_ncomp=None, wants="gathered"):
+                 stencils=None, field_ncomp=None, wants="gathered",
+                 site_index=False):
         self.kernel = kernel
         self.name = name
         self.vvl = vvl
@@ -260,6 +269,7 @@ class LaunchPlan:
         self.field_ncomp = (tuple(field_ncomp)
                             if field_ncomp is not None else None)
         self.wants = wants
+        self.site_index = site_index
 
     def with_consts(self, consts: dict) -> "LaunchPlan":
         """A copy of this plan with ``consts`` — how a launch's dynamic
@@ -268,7 +278,8 @@ class LaunchPlan:
             kernel=self.kernel, name=self.name, vvl=self.vvl,
             out_ncomp=self.out_ncomp, consts=consts, target=self.target,
             shape=self.shape, halo=self.halo, stencils=self.stencils,
-            field_ncomp=self.field_ncomp, wants=self.wants)
+            field_ncomp=self.field_ncomp, wants=self.wants,
+            site_index=self.site_index)
 
     def _fields(self):
         if self.field_ncomp is None:
@@ -444,7 +455,7 @@ def _make_plan(spec: KernelSpec, target: Target, vvl: int,
         stencils=spec.stencils,
         field_ncomp=tuple(fs.ncomp if fs.ncomp is not None else 1
                           for fs in spec.fields),
-        wants=wants)
+        wants=wants, site_index=spec.site_index)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -617,14 +628,31 @@ def launch_plan(spec: KernelSpec, target: Target | str | None = None, *,
 # built-in executors
 # ---------------------------------------------------------------------------
 
+def site_indices(n: int, device) -> torch.Tensor:
+    """The global index of each of ``n`` sites, ``int32`` on ``device`` —
+    what a ``site_index=True`` spec gets as its last positional argument.
+    Indices stay 32-bit, as in the card's kernels: 2³¹ sites or more
+    raise."""
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} sites is 2^31 or more: site indices are "
+                         f"32-bit")
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
 def torch_executor(plan: LaunchPlan, gathered, out=None):
     """The plain executor: the site body called **once** over all sites.
 
     Every targetDP site kernel is independent per site, so the VVL chunk
     loop of the reference's ``"xla"`` executor collapses to one call over
     the whole trailing site axis; ``plan.vvl`` is carried but not used.
+    A ``site_index`` plan's body also gets :func:`site_indices` of the
+    output sites (the interior ones for a stencil launch).
     """
-    outs = plan.kernel(*gathered, **plan.consts)
+    args = tuple(gathered)
+    if plan.site_index:
+        x = args[0]
+        args += (site_indices(int(x.shape[-1]), x.device),)
+    outs = plan.kernel(*args, **plan.consts)
     outs = (outs,) if not isinstance(outs, tuple) else outs
     if out is None:
         return outs

@@ -414,6 +414,8 @@ def _spec_digest(spec: KernelSpec) -> str:
     """Cross-process identity of a spec's launch shape (roles, stencil
     geometry, outputs, const names); the body is identified by name."""
     parts = [spec.name, repr(spec.out), repr(spec.consts)]
+    if spec.site_index:
+        parts.append("site_index")
     for fs in spec.fields:
         parts.append(f"{fs.ncomp}|{fs.halo}|{_stencil_sig(fs.stencil)}")
     return hashlib.sha256("&".join(parts).encode()).hexdigest()[:16]

@@ -466,7 +466,8 @@ def kernel_flops(plan) -> float:
 
     The plain body is traced once over one VVL chunk on ``meta`` tensors —
     stencil fields as ``(noffsets, ncomp, VVL)``, pointwise fields as
-    ``(ncomp, VVL)``, tensor consts as meta tensors of their shape — under
+    ``(ncomp, VVL)``, the site indices of a ``site_index`` plan as an
+    ``int32`` ``(VVL,)``, tensor consts as meta tensors of their shape — under
     a dispatch mode that charges each ATen op: elementwise ops from the
     reference's table, ``mm``/``bmm``/``addmm`` 2·M·N·K, reductions their
     input size.  The count is scaled by ``nsites / VVL``.
@@ -483,6 +484,8 @@ def kernel_flops(plan) -> float:
                         else (int(s.noffsets), int(c or 1), vvl),
                         device="meta")
             for c, s in zip(plan.field_ncomp, stencils)]
+    if plan.site_index:
+        args.append(torch.empty((vvl,), dtype=torch.int32, device="meta"))
     consts = {k: _meta(v) for k, v in (plan.consts or {}).items()}
     try:
         with torch.no_grad(), _FlopCounter() as counter:

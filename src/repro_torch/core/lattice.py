@@ -67,6 +67,21 @@ class Lattice:
             raise ValueError("vvl must be positive")
         return math.ceil(self.nsites / vvl) * vvl
 
+    def nchunks(self, vvl: int) -> int:
+        """Number of VVL chunks covering the sites."""
+        return self.padded_nsites(vvl) // vvl
+
+    def interior_slices(self) -> tuple[slice, ...]:
+        """Slices selecting the interior of a halo-padded array."""
+        if self.halo == 0:
+            return tuple(slice(None) for _ in self.shape)
+        return tuple(slice(self.halo, self.halo + s) for s in self.shape)
+
+
+def token_lattice(batch: int, seq: int) -> Lattice:
+    """The LM token lattice: one site per (batch, position) pair."""
+    return Lattice(shape=(batch, seq), halo=0)
+
 
 @dataclass(frozen=True)
 class Stencil:

@@ -134,6 +134,11 @@ def unregister_executor(name: str) -> None:
     _VERSION += 1
 
 
+def get_executor(name: str) -> Callable:
+    """The executor callable registered under ``name``."""
+    return get_executor_entry(name).fn
+
+
 def get_executor_entry(name: str) -> ExecutorEntry:
     """The full registry row — callable plus declared capability."""
     try:
@@ -170,6 +175,11 @@ def compatible_executors(*, stencil: bool) -> tuple[str, ...]:
     return tuple(sorted(
         name for name, entry in _EXECUTORS.items()
         if stencil or entry.wants != "halo_extended"))
+
+
+def list_executors() -> tuple[str, ...]:
+    """Every registered executor name, sorted."""
+    return tuple(sorted(_EXECUTORS))
 
 
 def registry_version() -> int:

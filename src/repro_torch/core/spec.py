@@ -5,7 +5,8 @@ A :class:`KernelSpec` is the declarative form of the paper's
 input field, its *role* — pointwise (``(ncomp, nsites)``), or
 stencil-carrying (``(noffsets, ncomp, nsites)`` neighbour stacks, with the
 :class:`~repro_torch.core.lattice.Stencil` and halo policy) — plus the
-output component counts.
+output component counts and whether the kernel wants the global site index
+(``site_index=True``, the position-dependent-kernel role).
 
 Specs are frozen and hashable: together with the :class:`Target` they key
 the launch-plan cache in :mod:`repro_torch.core.api`.
@@ -100,6 +101,9 @@ class KernelSpec:
         stencil field, an int means a pointwise field of that ncomp,
         ``None`` means unconstrained pointwise).
       out: output component count(s); ``None`` → infer from input 0.
+      site_index: pass the global site indices, an ``int32`` tensor of
+        shape ``(nsites,)``, as the last positional kernel argument (the
+        paper's ``TARGET_ILP`` offset + base index).
       consts: optionally, the accepted ``TARGET_CONST`` names — launches
         passing an undeclared const name fail fast.
       name: display name (defaults to ``fn.__name__``).
@@ -108,6 +112,7 @@ class KernelSpec:
     fn: Callable
     fields: tuple[FieldSpec, ...]
     out: tuple[int, ...] | None = None
+    site_index: bool = False
     consts: tuple[str, ...] | None = None
     name: str = ""
 
@@ -119,6 +124,7 @@ class KernelSpec:
             raise ValueError("a KernelSpec needs at least one input field")
         object.__setattr__(self, "fields", fields)
         object.__setattr__(self, "out", _normalize_out(self.out))
+        object.__setattr__(self, "site_index", bool(self.site_index))
         if self.consts is not None:
             object.__setattr__(self, "consts",
                                tuple(str(c) for c in self.consts))
@@ -139,7 +145,7 @@ class KernelSpec:
         return self.fn(*args, **kwargs)
 
 
-def kernel(fields: Sequence, out=None, *,
+def kernel(fields: Sequence, out=None, *, site_index: bool = False,
            consts: Sequence[str] | None = None,
            name: str | None = None) -> Callable[[Callable], KernelSpec]:
     """Decorator form of :class:`KernelSpec`::
@@ -151,7 +157,7 @@ def kernel(fields: Sequence, out=None, *,
     ``spec.fn`` and the spec itself remains callable.
     """
     def deco(fn: Callable) -> KernelSpec:
-        return KernelSpec(fn, tuple(fields), out=out,
+        return KernelSpec(fn, tuple(fields), out=out, site_index=site_index,
                           consts=tuple(consts) if consts is not None else None,
                           name=name or getattr(fn, "__name__", ""))
     return deco

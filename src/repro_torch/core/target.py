@@ -31,6 +31,25 @@ def default_vvl() -> int:
     return _DEFAULT_VVL
 
 
+def set_default_vvl(vvl: int) -> None:
+    """Change the process-wide default VVL.
+
+    Targets with ``vvl=None`` resolve this value *at launch time*, and the
+    resolved VVL is part of the plan cache key, so flipping the default
+    between two launches always rebuilds the plan.  The default is the
+    chunk width of executors that declare no VVLs (``"torch"`` and any
+    executor registered without ``vvls=``).  The CUDA executors do not read
+    it: their kernels are built for :data:`CUDA_VVLS` only, and a target
+    with ``vvl=None`` launches them at one site a thread whatever the
+    default is, so no default can turn such a launch into an error.  An
+    explicit ``Target.vvl`` always wins.
+    """
+    global _DEFAULT_VVL
+    if int(vvl) <= 0:
+        raise ValueError("vvl must be positive")
+    _DEFAULT_VVL = int(vvl)
+
+
 def _freeze_tuning(tuning) -> tuple[tuple[str, Any], ...]:
     if isinstance(tuning, Mapping):
         items = sorted(tuning.items())
@@ -92,6 +111,16 @@ class Target:
         process default)."""
         return self.vvl if self.vvl is not None else _DEFAULT_VVL
 
+    def tuning_dict(self) -> dict[str, Any]:
+        return dict(self.tuning)
+
+    def tune(self, key: str, default: Any = None) -> Any:
+        """The ``tuning`` value of ``key``, else ``default``."""
+        for k, v in self.tuning:
+            if k == key:
+                return v
+        return default
+
     def with_tuning(self, updates: Mapping[str, Any] | None = None,
                     **kw) -> "Target":
         """Merge knobs into ``tuning``, keeping the unrelated ones (unlike
@@ -107,6 +136,9 @@ class Target:
         if "tuning" in updates:
             updates["tuning"] = _freeze_tuning(updates["tuning"])
         return dataclasses.replace(self, **updates)
+
+    # ``with_`` under its dataclasses spelling, as in the reference.
+    replace = with_
 
 
 def as_target(target: "Target | str | None" = None, *,

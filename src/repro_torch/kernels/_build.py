@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("tdp_gathered", "tdp_windowed", "lb_collision", "tdp_gathered_lm",
-           "flash_attention", "calibrate")
+           "flash_attention", "calibrate", "tdp_gathered_example")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,11 @@ LM_SITES = ("rmsnorm", "gated", "act")
 LM_SITE_ID = {name: i for i, name in enumerate(LM_SITES)}
 LM_ACTS = ("silu", "gelu_tanh", "relu2")
 LM_ACT_ID = {name: i for i, name in enumerate(LM_ACTS)}
+
+#: The paper's example site functions (``csrc/example_sites.cuh``) in the
+#: order of the C enum ``tdp::ex::SiteId``.
+EXAMPLE_SITES = ("scale", "saxpy", "site_pos")
+EXAMPLE_SITE_ID = {name: i for i, name in enumerate(EXAMPLE_SITES)}
 
 #: The d_state values the ``mamba`` site function is instantiated for.
 MAMBA_NSTATES = (8, 16)

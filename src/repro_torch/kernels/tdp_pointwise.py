@@ -21,7 +21,14 @@ launch through ``csrc/tdp_gathered.cu``, the LM ones (``rmsnorm``, ``gated``,
 that takes a runtime component count, a weight tensor and ``(eps,
 scale_offset)``, ``mamba`` (the selective scan, site = channel) through one
 of its own that takes four fields, the ``(batch·L, N)`` tensor consts
-``b``/``c`` and two outputs, every batch row in one launch.
+``b``/``c`` and two outputs, every batch row in one launch.  The paper's
+example site functions (``scale``, ``saxpy``, ``site_pos``;
+``csrc/example_sites.cuh``, plain bodies in
+:mod:`repro_torch.kernels.example_sites`) launch through
+``csrc/tdp_gathered_example.cu``: pointwise fields of a runtime component
+count, the scalar const ``a``, one thread per ``Target.vvl`` sites, and
+``site_pos`` gets each site's global index (a ``site_index`` spec; every
+other site function refuses one).
 ``gated``/``act`` map ``Target.vvl`` 16-byte groups to a thread (scalars
 where an operand is not 16-byte aligned, as a view at a storage offset may
 be); ``rmsnorm`` maps it to the tokens of a lane, a
@@ -46,7 +53,7 @@ from .lb_collision import PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts,
 LM_SITES = _build.LM_SITES + ("mamba",)
 
 #: kernel launches of this executor, by site function
-launches = dict.fromkeys(_build.SITES + LM_SITES, 0)
+launches = dict.fromkeys(_build.SITES + LM_SITES + _build.EXAMPLE_SITES, 0)
 
 _POINT = None
 #: The field and output signature of each C site function
@@ -125,6 +132,26 @@ def _check_lm_consts(site: str, plan) -> None:
                          f"is none of the CUDA ones {_build.LM_ACTS}")
 
 
+def _check_example(site: str, plan) -> None:
+    """The example site functions take pointwise fields (two for
+    ``saxpy``), give one output, take the site index exactly when they are
+    ``site_pos``, and a scalar ``a``."""
+    what = f"kernel {plan.name!r}"
+    nin = 2 if site == "saxpy" else 1
+    if (len(plan.field_ncomp or ()) != nin or len(plan.out_ncomp) != 1
+            or any(s is not None for s in plan.stencils or ())):
+        raise ValueError(f"{what}: the CUDA site function {site!r} takes "
+                         f"{nin} pointwise field(s) and gives one output")
+    if plan.site_index != (site == "site_pos"):
+        raise ValueError(f"{what}: the CUDA site function {site!r} "
+                         f"{'needs a' if site == 'site_pos' else 'takes no'} "
+                         f"site index")
+    a = plan.consts.get("a", 1.0)
+    if isinstance(a, torch.Tensor) or not isinstance(a, (int, float)):
+        raise ValueError(f"{what}: the CUDA site function {site!r} takes "
+                         f"const 'a' as a scalar, got {type(a).__name__}")
+
+
 def cuda_site(plan) -> str:
     """The C site function behind ``plan``'s kernel, checked against the
     plan's field roles and consts; ``NotImplementedError`` if the body has
@@ -134,6 +161,12 @@ def cuda_site(plan) -> str:
         raise NotImplementedError(
             f"kernel {plan.name!r} has no CUDA site function (its body sets "
             f"no __cuda_site__); run it under Target('torch')")
+    if site in _build.EXAMPLE_SITES:
+        _check_example(site, plan)
+        return site
+    if plan.site_index:
+        raise ValueError(f"kernel {plan.name!r}: the CUDA site function "
+                         f"{site!r} takes no site index")
     if site in LM_SITES:
         fields, out = _lm_fields(site, plan)
     else:
@@ -249,6 +282,40 @@ def _mamba_lib():
     return fn
 
 
+def _example_lib():
+    fn = _build.load("tdp_gathered_example").tdp_gathered_example_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _example_execute(plan, site, vvl, fields, out):
+    """Launch an example site function on CUDA tensors."""
+    what = f"kernel {plan.name!r}"
+    x0 = fields[0]
+    ncomp, n = (int(s) for s in x0.shape)
+    if n >= 2 ** 31:
+        raise ValueError(f"{what}: {n} sites is 2^31 or more: site indices "
+                         f"are 32-bit")
+    check_cuda_tensors(fields, [(ncomp, n)] * len(fields), what)
+    if tuple(plan.out_ncomp) != (ncomp,):
+        raise ValueError(f"{what}: the CUDA site function {site!r} gives "
+                         f"{ncomp} component(s), the plan {plan.out_ncomp}")
+    outs = alloc_outputs(plan, x0, n, out)
+    check_cuda_tensors(outs, [(ncomp, n)], f"{what} (out)")
+    with torch.cuda.device(x0.device):
+        rc = _example_lib()(
+            _build.EXAMPLE_SITE_ID[site], vvl, x0.data_ptr(),
+            fields[1].data_ptr() if len(fields) > 1 else None,
+            outs[0].data_ptr(), n, ncomp, float(plan.consts.get("a", 1.0)),
+            _build.stream_handle(x0.device))
+    _build.check(rc, f"tdp_gathered_example {site}")
+    launches[site] += 1
+    return outs
+
+
 def _mamba_execute(plan, vvl, fields, out):
     """Launch the selective scan on CUDA tensors: every batch row in one
     launch."""
@@ -320,6 +387,8 @@ def cuda_execute(plan, fields, out=None):
                          f"{x0.device}")
     if site == "mamba":
         return _mamba_execute(plan, vvl, fields, out)
+    if site in _build.EXAMPLE_SITE_ID:
+        return _example_execute(plan, site, vvl, fields, out)
     if site in _build.LM_SITE_ID:
         return _lm_execute(plan, site, vvl, fields, out)
     geom = lb_geometry(plan, fields)

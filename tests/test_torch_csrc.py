@@ -15,7 +15,10 @@ stencil radius of 2 (the wrap), and with caller ghost planes in one and in
 two dimensions.  The bar is the card's: ``STREAM`` bit-exact, the rest
 ``rtol=1e-5, atol=1e-6``; the tiled ``fused`` is bit-equal to the untiled
 one.  The kernels' compile-time tables are held to the port's descriptors
-exactly.
+exactly.  ``csrc/example_sites.cuh`` (``scale``, ``saxpy``, ``site_pos``)
+builds into a harness of its own, ``host_example``, which runs
+``tdp_gathered_example.cu``'s mapping thread by thread; it is bit-equal to
+the plain bodies.
 """
 import ctypes
 import re
@@ -27,6 +30,7 @@ import pytest
 import torch
 
 from repro_torch.core import Lattice, Target
+from repro_torch.core import launch as tdp_launch
 from repro_torch.core import lattice as tlat
 from repro_torch.core.api import launch_plan
 from repro_torch.kernels import _build, tdp_windowed
@@ -378,3 +382,100 @@ class TestCompiledTables:
             want = max((max(s.radius_per_dim()) for s in spec.stencils
                         if s is not None), default=0)
             assert int(m.group(1)) == want, name
+
+
+# ---------------------------------------------------------------------------
+# the paper's example site functions (csrc/example_sites.cuh)
+# ---------------------------------------------------------------------------
+
+EX_HEADER = _build.CSRC / "example_sites.cuh"
+EX_HARNESS = r"""
+#include "example_sites.cuh"
+
+namespace {
+// tdp_gathered_example.cu's Launch, thread by thread.
+template <class Site, int VVL>
+struct ExampleLoop {
+  static int run(const tdp::ex::ExampleIO& io, void*) {
+    if (io.ncomp <= 0) return 0;
+    for (int64_t t = 0, nt = tdp::ex::example_threads<VVL>(io); t < nt; ++t)
+      tdp::ex::example_thread<Site, VVL>(io, t);
+    return 0;
+  }
+};
+}  // namespace
+
+extern "C" int host_example(int site, int vvl, const void* x, const void* y,
+                            void* out, int n, int ncomp, float a) {
+  tdp::ex::ExampleIO io{};
+  io.in[0] = static_cast<const float*>(x);
+  io.in[1] = static_cast<const float*>(y);
+  io.out = static_cast<float*>(out);
+  io.n = n;
+  io.ncomp = ncomp;
+  io.a = a;
+  return tdp::ex::dispatch_site<ExampleLoop>(site, vvl, io, nullptr);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def example_lib(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the site functions with")
+    d = tmp_path_factory.mktemp("csrc_example")
+    src = d / "harness.cpp"
+    src.write_text(EX_HARNESS)
+    lib = d / "libexample.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", f"-I{_build.CSRC}", "-o",
+                    str(lib), str(src)], check=True, timeout=300)
+    so = ctypes.CDLL(str(lib))
+    so.host_example.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                                + [ctypes.c_int] * 2 + [ctypes.c_float])
+    so.host_example.restype = ctypes.c_int
+    return so
+
+
+def _example_run(lib, site, vvl, xs, a):
+    """(rc, output) of the host harness; the output starts as NaN, so a
+    site the mapping misses stays NaN."""
+    ncomp, n = xs[0].shape
+    out = torch.full((ncomp, n), float("nan"))
+    rc = lib.host_example(_build.EXAMPLE_SITE_ID[site], vvl,
+                          xs[0].data_ptr(),
+                          xs[1].data_ptr() if len(xs) > 1 else None,
+                          out.data_ptr(), n, ncomp, a)
+    return rc, out
+
+
+@pytest.mark.parametrize("site", _build.EXAMPLE_SITES)
+@pytest.mark.parametrize("vvl", VVLS)
+@pytest.mark.parametrize("ncomp,n", [(3, 42), (1, 1), (2, 9)])
+def test_example_site_matches_plain(example_lib, site, vvl, ncomp, n):
+    """Each example site function, thread by thread, bit-equal to its plain
+    body through the ``"torch"`` executor, the ragged end at every VVL."""
+    from repro_torch.kernels import example_sites as ex
+
+    rng = np.random.default_rng(_build.EXAMPLE_SITE_ID[site] + 10 * vvl)
+    spec = ex.SPECS[site]
+    xs = [torch.tensor(rng.normal(size=(ncomp, n)), dtype=torch.float32)
+          for _ in spec.fields]
+    consts = {} if site == "site_pos" else {"a": -1.7}
+    want = tdp_launch(spec, Target("torch"), *xs, **consts)
+    rc, got = _example_run(example_lib, site, vvl, xs, consts.get("a", 1.0))
+    assert rc == 0
+    assert torch.equal(got, want), (site, vvl, ncomp, n)
+
+
+def test_example_codes_and_enum(example_lib):
+    x = torch.zeros(1, 8)
+    assert example_lib.host_example(7, 1, x.data_ptr(), None, x.data_ptr(),
+                                    8, 1, 1.0) == -1
+    assert example_lib.host_example(0, 16, x.data_ptr(), None, x.data_ptr(),
+                                    8, 1, 1.0) == -2
+    enum = re.findall(r"SITE_(\w+) = (\d+)", EX_HEADER.read_text())
+    assert [(n.lower(), int(i)) for n, i in enum] == [
+        (n, _build.EXAMPLE_SITE_ID[n]) for n in _build.EXAMPLE_SITES]
+    assert "tdp_gathered_example" in _build.SOURCES
