@@ -92,7 +92,23 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    the calibration kernels at the calibration sizes beside ``torch.add``;
    the example site functions at (3, 128³) beside ``torch.mul`` /
    ``torch.add(y, x, alpha=a)`` (at every VVL too), and ``reduce``'s map
-   plus ``torch.sum`` beside ``x.sum(-1)``.
+   plus ``torch.sum`` beside ``x.sum(-1)``;
+6. the AoSoA layout (``Target(layout="aosoa")``, ``aosoa_phase``): every
+   LB site function of both executors at 128³ and the example sites at (3,
+   128³) at AoSoA widths 8, 32 and 128, ``rmsnorm`` at both prefill shapes
+   (W 32), ``gated``/``act`` at 84.9 M elements (W 96) and one
+   falcon-mamba-7b layer's ``mamba`` (W 16), each held to the SoA launch of
+   its executor (its difference printed where it is not bit-equal) and to
+   its plain version (the transforms plus the plain body); its main path,
+   each path with the counters at 0: ``BinaryFluidSim`` at 128³, 20 steps,
+   the three regimes at W 32 on their own executors, held to the SoA runs
+   (``rtol=2e-4, atol=2e-5``, Σf and Σg to 1e-5 of Σ|f| and Σ|g|), MLUPS
+   beside SoA's, ``ops.lb_fused_step``, ``stencil.gradients``,
+   ``tdp.launch`` of the examples, ``ops.rmsnorm``/``gated_act``/
+   ``mamba_scan``; a row per AoSoA kernel: ms on operands already in AoSoA,
+   ms with the boundary transforms, the plain version, the bound, the SoA
+   row's ms and library call; the phase's seconds.  Phase 4's ``one_launch``
+   tune sweeps the AoSoA axis too (candidate and pruned counts printed).
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -161,6 +177,17 @@ KERNELS = {
     "tdp_gathered.example": dict(
         source="src/repro_torch/csrc/tdp_gathered_example.cu",
         replaces="src/repro/kernels/tdp_pointwise.py:76"),
+    # the AoSoA branches of TPU kernels 1 and 2
+    "tdp_gathered_aosoa": dict(source="src/repro_torch/csrc/tdp_gathered.cu",
+                               replaces="src/repro/kernels/tdp_pointwise.py:96"),
+    "tdp_windowed_aosoa": dict(source="src/repro_torch/csrc/tdp_windowed.cu",
+                               replaces="src/repro/kernels/tdp_windowed.py:102"),
+    "tdp_gathered_aosoa.example": dict(
+        source="src/repro_torch/csrc/tdp_gathered_example.cu",
+        replaces="src/repro/kernels/tdp_pointwise.py:96"),
+    "tdp_gathered_aosoa.lm": dict(
+        source="src/repro_torch/csrc/tdp_gathered_lm.cu",
+        replaces="src/repro/kernels/tdp_pointwise.py:96"),
 }
 STENCIL_SITES = ("stream", "grad6", "fused", "phi_stream", "fused_two")
 #: LB checks of phase 3 besides 128³: a size that cuts every fused tile
@@ -181,6 +208,12 @@ EARLIER_MS = {
     "tdp_gathered.fused_two": 0.2484, "tdp_windowed.stream": 0.1191,
     "tdp_windowed.grad6": 0.0229, "tdp_windowed.fused": 0.4195,
     "tdp_windowed.phi_stream": 0.0625, "tdp_windowed.fused_two": 0.2381}
+#: AoSoA block widths of phase 6's LB and example checks (each divides the
+#: 128² sites of an x-plane), and the widths of its main path: the LB
+#: trajectories, rmsnorm and the timed LB and example rows; gated/act;
+#: mamba (a multiple of 4).
+AOSOA_WIDTHS = (8, 32, 128)
+AOSOA_W, AOSOA_W_EW, AOSOA_W_MAMBA = 32, 96, 16
 PARAMS = dict(A=0.125, B=0.125, kappa=0.02)
 PHYS = dict(A=0.125, B=0.11, kappa=0.02, tau=0.9, tau_phi=1.1, gamma=0.8)
 GRID = (128, 128, 128)
@@ -849,6 +882,7 @@ def tuning_path(drive, sims, st0, final_default, params, problems) -> dict:
     from repro_torch.kernels import lm
     from repro_torch.lb.sim import BinaryFluidSim
     dev = torch.device("cuda")
+    t_phase = time.perf_counter()
     prof = drive("costmodel.calibrate", costmodel.calibrate)
     sheet = costmodel.MachineProfile.default(prof.device)
     out = {"profile": prof.as_dict(), "data_sheet": sheet.as_dict(),
@@ -895,7 +929,15 @@ def tuning_path(drive, sims, st0, final_default, params, problems) -> dict:
         if not rep2.cache_hit or calls["n"] != measured or tuned2 != tuned:
             problems.append(f"autotune cache: hit={rep2.cache_hit}, timer "
                             f"calls {measured} then {calls['n']}")
+        space = {"candidates": len(rep.results) + len(rep.pruned),
+                 "measured": len(rep.results), "pruned": len(rep.pruned),
+                 "aosoa_candidates": sum(
+                     "layout=aosoa" in lab for lab in
+                     [r.candidate.label for r in rep.results]
+                     + [lab for lab, _ in rep.pruned])}
+        log(f"phase 4: lb_fused_one space {space}")
         out["lb_fused_one"] = {**reduce(rep), "tuned_target": repr(tuned),
+                               "layout": tuned.layout, "space": space,
                                "timer_calls": measured,
                                "second_call": {"cache_hit": rep2.cache_hit,
                                                "timer_calls": calls["n"]
@@ -961,6 +1003,8 @@ def tuning_path(drive, sims, st0, final_default, params, problems) -> dict:
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 4: the tuning path {out['phase_s']:.1f} s")
     return out
 
 
@@ -1372,6 +1416,352 @@ def tdp_rows(launches, launches_by_path, max_err, problems) -> list:
     return rows
 
 
+def aosoa_phase(drive, by_path, make_inputs, prepare, soa_finals, st0,
+                soa_rows, params, problems) -> tuple[list, dict]:
+    """Phase 6, the AoSoA layout (``Target(layout="aosoa")``) on the card:
+    every AoSoA kernel checked against the SoA launch of its executor and
+    its plain version (the transforms plus the plain body) — the LB site
+    functions at 128³ on both executors and the example sites at (3, 128³)
+    at each ``AOSOA_WIDTHS`` width, ``rmsnorm`` at both prefill shapes,
+    ``gated``/``act`` at 84.9 M elements, one falcon-mamba-7b layer's
+    ``mamba``; then its main path, each path driven with the counts at 0:
+    ``BinaryFluidSim`` 128³, 20 steps, three regimes at W = ``AOSOA_W``
+    held to the SoA runs with Σf and Σg conserved, ``ops.lb_fused_step``,
+    ``stencil.gradients``, ``tdp.launch`` of the examples and the LM ops;
+    MLUPS beside SoA's in the same call; and one row per AoSoA kernel: ms
+    on operands already in AoSoA, ms with the boundary transforms, the
+    plain version, the bound and the SoA row's library call.  Returns
+    ``(rows, record)``."""
+    import dataclasses
+    from repro_torch import tdp
+    from repro_torch.core import Lattice, Target
+    from repro_torch.core.api import launch_plan, torch_executor
+    from repro_torch.kernels import _build, lm, ops
+    from repro_torch.kernels import example_sites as ex
+    from repro_torch.kernels import tdp_pointwise as tp
+    from repro_torch.kernels import tdp_windowed as tw
+    from repro_torch.lb import programs, stencil
+    from repro_torch.lb.sim import BinaryFluidSim
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    nsites = int(np.prod(GRID))
+    soa_by_name = {r["name"]: r for r in soa_rows}
+    out: dict = {"bit_equal_to_soa": {}, "max_abs_vs_soa": {}}
+    rows = []
+
+    def hold(kind, got, soa, plain, what, tol=None):
+        """Held to the SoA launch (bit-equal expected; the difference is
+        printed and must lie within the tolerance where it is not) and to
+        the plain version."""
+        got = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+        soa = (soa,) if isinstance(soa, torch.Tensor) else tuple(soa)
+        plain = (plain,) if isinstance(plain, torch.Tensor) else tuple(plain)
+        torch.cuda.synchronize()
+        bit = all(torch.equal(a, b) for a, b in zip(got, soa))
+        d = max_abs(got, soa)
+        out["bit_equal_to_soa"][what] = bit
+        if not bit:
+            out["max_abs_vs_soa"][what] = d
+            log(f"phase 6: {what} differs from SoA by {d}")
+        for ref, against in ((soa, "SoA"), (plain, "plain")):
+            if tol is None:
+                compare(kind, got, ref, f"{what} vs {against}", problems)
+            elif not all(torch.isfinite(a).all() and torch.allclose(a, b, **tol)
+                         for a, b in zip(got, ref)):
+                problems.append(f"{what} vs {against}: max diff "
+                                f"{max_abs(got, ref)}")
+        return max_abs(got, plain), bit
+
+    def row(name, kind, err, bit, alone, with_t, plain, b_ms_by, soa_name,
+            **extra):
+        b_ms, b_by = b_ms_by
+        soa = soa_by_name.get(soa_name, {})
+        r = {"name": name, "route": "cuda", **KERNELS[kind],
+             "launches": 0, "max_abs_err": err, "ms": alone,
+             "ms_with_transforms": with_t, "plain_ms": plain,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": soa.get("library_ms"), "soa_ms": soa.get("ms"),
+             "bit_equal_to_soa": bit, **extra}
+        log(f"phase 6: {name} ms={alone:.4f} with transforms={with_t:.4f} "
+            f"(SoA {r['soa_ms']}) plain={plain:.4f} bound={b_ms:.4f} "
+            f"err={err} bit-equal to SoA: {bit}")
+        rows.append(r)
+
+    def quick(fn, reps=10):
+        return time_ms(fn, reps=reps, warmup=2, hold=SHORT_HOLD)
+
+    # -- LB site functions at 128^3, both executors --------------------------
+    for kernel in ("tdp_gathered", "tdp_windowed"):
+        windowed = kernel == "tdp_windowed"
+        backend = "cuda_windowed" if windowed else "cuda"
+        execute = tw.windowed_execute if windowed else tp.cuda_execute
+        launch_fn = tw._aosoa_launch if windowed else tp._aosoa_launch
+        for site in (STENCIL_SITES if windowed else _build.SITES):
+            spec = stencil.SPECS[site]
+            shape = GRID if spec.has_stencil else (nsites,)
+            halo = (0,) * len(shape)
+            xs = make_inputs(spec, shape, halo, seed=300 + _build.SITE_ID[site])
+            prepared = prepare(spec, xs, shape, halo)
+            consts = programs.collision_consts(**PHYS) if spec.consts else {}
+            kw = dict(lattice=Lattice(shape) if spec.has_stencil else None,
+                      halo=halo if spec.has_stencil else None, consts=consts)
+            soa_plan = launch_plan(spec, Target(backend), **kw)
+            soa = execute(soa_plan, prepared)
+            plain = tp.fields_plain(soa_plan, prepared)
+            err, bits = 0.0, True
+            for w in AOSOA_WIDTHS:
+                plan = launch_plan(spec, Target(backend, vvl=w,
+                                                layout="aosoa"), **kw)
+                e, bit = hold(site, execute(plan, prepared), soa, plain,
+                              f"{kernel}_aosoa.{site} W={w}")
+                err, bits = max(err, e), bits and bit
+            del soa, plain
+            plan = launch_plan(spec, Target(backend, vvl=AOSOA_W,
+                                            layout="aosoa"), **kw)
+            blocks = tp.aosoa_operands(plan, prepared, windowed)
+            geom = tp.lb_geometry(plan, prepared)
+            row(f"{kernel}_aosoa.{site}", f"{kernel}_aosoa", err, bits,
+                quick(lambda: launch_fn(plan, site, blocks, nsites, geom)),
+                quick(lambda: execute(plan, prepared)),
+                quick(lambda: tp.aosoa_plain(plan, tp.aosoa_operands(
+                    plan, prepared, windowed), nsites, windowed), reps=3),
+                bound(site, nsites), f"{kernel}.{site}", W=AOSOA_W)
+            del xs, prepared, blocks
+            torch.cuda.empty_cache()
+
+    # -- the example site functions at (3, 128^3) ----------------------------
+    g = torch.Generator(device=dev).manual_seed(34)
+    x, y = (torch.randn(TDP_NCOMP, nsites, device=dev, generator=g)
+            for _ in range(2))
+    for site in ex.SPECS:
+        spec = dataclasses.replace(ex.SPECS[site], out=TDP_NCOMP)
+        xs = [x, y] if site == "saxpy" else [x]
+        consts = {} if site == "site_pos" else {"a": TDP_A}
+        soa = tp.cuda_execute(launch_plan(spec, Target("cuda"),
+                                          consts=consts), xs)
+        err, bits = 0.0, True
+        for w in AOSOA_WIDTHS:
+            plan = launch_plan(spec, Target("cuda", vvl=w, layout="aosoa"),
+                               consts=consts)
+            got = tp.cuda_execute(plan, xs)
+            e, bit = hold("stream" if site != "saxpy" else site, got, soa,
+                          torch_executor(plan, xs),
+                          f"tdp_gathered_aosoa.{site} W={w}")
+            err, bits = max(err, e), bits and bit
+        plan = launch_plan(spec, Target("cuda", vvl=AOSOA_W, layout="aosoa"),
+                           consts=consts)
+        blocks = tp.aosoa_operands(plan, xs)
+        nbytes = (8 + 4 * (len(xs) - 1)) * TDP_NCOMP * nsites
+        row(f"tdp_gathered_aosoa.{site}", "tdp_gathered_aosoa.example", err,
+            bits, quick(lambda: tp._aosoa_launch(plan, site, blocks, nsites,
+                                                 None)),
+            quick(lambda: tp.cuda_execute(plan, xs)),
+            quick(lambda: torch_executor(plan, xs)),
+            (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+            f"tdp_gathered.{site}", W=AOSOA_W)
+    del x, y, blocks
+
+    # -- the LM site functions at the serving shapes -------------------------
+    def lm_case(name, spec, xs, consts, w, soa_vvl, nbytes, flops,
+                plain_wall=False, more_widths=(), sfu_ops=0):
+        plan = launch_plan(spec, Target("cuda", vvl=w, layout="aosoa"),
+                           consts=consts)
+        soa = tp.cuda_execute(launch_plan(spec, Target("cuda", vvl=soa_vvl),
+                                          consts=consts), xs)
+        t0 = time.perf_counter()
+        plain = torch_executor(plan, xs)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err, bit = hold(name, tp.cuda_execute(plan, xs), soa, plain, name,
+                        tol=LM_TOL)
+        del soa, plain
+        blocks = tp.aosoa_operands(plan, xs)
+        n = int(xs[0].shape[-1])
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_o = max(flops / PEAK_F32_PER_S, sfu_ops / PEAK_SFU_PER_S) * 1e3
+        site = spec.fn.__cuda_site__
+        by_width = {}
+        for w2 in more_widths:
+            p2 = launch_plan(spec, Target("cuda", vvl=w2, layout="aosoa"),
+                             consts=consts)
+            b2 = tp.aosoa_operands(p2, xs)
+            by_width[w2] = quick(lambda: tp._aosoa_launch(p2, site, b2, n,
+                                                           None))
+            del b2
+        row(f"tdp_gathered_aosoa.{name}", "tdp_gathered_aosoa.lm", err, bit,
+            quick(lambda: tp._aosoa_launch(plan, site, blocks, n, None)),
+            quick(lambda: tp.cuda_execute(plan, xs)),
+            plain_s * 1e3 if plain_wall else quick(
+                lambda: torch_executor(plan, xs), reps=3),
+            max((t_b, "bytes"), (t_o, "operations")),
+            f"tdp_gathered.{name}", W=w, plain_timing="wall, one call"
+            if plain_wall else "device", shape=list(xs[0].shape),
+            ms_by_width=by_width)
+        del blocks
+        torch.cuda.empty_cache()
+
+    cfg_d, mcfg_d = 2304, 4096
+    for suffix, d, ntok in (("rmsnorm", cfg_d, SERVE_BATCH * SERVE_PROMPT),
+                            ("rmsnorm.prefill_d4096", mcfg_d,
+                             SERVE_BATCH * MAMBA_PROMPT)):
+        xs = [torch.randn(d, ntok, device=dev, generator=g)]
+        consts = {"weight": torch.randn(d, device=dev, generator=g),
+                  "eps": 1e-6, "scale_offset": 1.0}
+        lm_case(suffix, lm.rmsnorm_spec(d), xs, consts, AOSOA_W, 1,
+                8 * d * ntok + 4 * d, 5 * d * ntok)
+    nel = SERVE_BATCH * SERVE_PROMPT * 9216
+    u = 3.0 * torch.randn(1, nel, device=dev, generator=g)
+    v = torch.randn(1, nel, device=dev, generator=g)
+    lm_case("gated", lm.gated_act_spec("geglu", True), [u, v], {},
+            AOSOA_W_EW, 1, 12 * nel, 10 * nel)
+    lm_case("act", lm.gated_act_spec("gelu", False), [u], {}, AOSOA_W_EW, 1,
+            8 * nel, 9 * nel)
+    del u, v
+    length, nstate, n = MAMBA_PROMPT, 16, 8192
+    rws = SERVE_BATCH * length
+    xs = [torch.randn(rws, n, device=dev, generator=g),
+          torch.nn.functional.softplus(torch.randn(rws, n, device=dev,
+                                                   generator=g)),
+          -torch.exp(torch.randn(nstate, n, device=dev, generator=g)),
+          torch.ones(1, n, device=dev)]
+    consts = {"b": torch.randn(rws, nstate, device=dev, generator=g),
+              "c": torch.randn(rws, nstate, device=dev, generator=g)}
+    nbytes = 4 * (3 * rws * n + nstate * n + n
+                  + SERVE_BATCH * (nstate * n + 2 * length * nstate))
+    lm_case("mamba", lm.mamba_scan_spec(length, nstate, SERVE_BATCH), xs,
+            consts, AOSOA_W_MAMBA, tp.MAMBA_AOSOA_VVL, nbytes,
+            (6 * nstate + 3) * rws * n, plain_wall=True, more_widths=(64,),
+            sfu_ops=rws * n * nstate)
+    del xs, consts
+    torch.cuda.empty_cache()
+
+    # -- the main path under AoSoA --------------------------------------------
+    paths = []
+
+    def adrive(path, fn):
+        paths.append(path)
+        return drive(path, fn)
+
+    sims, finals, mlups = {}, {}, {}
+    # Σf and Σg conserved to 1e-5 of Σ|f| and Σ|g| (Σg is near 0)
+    mass0 = {k: (float(getattr(st0, k).double().sum()),
+                 float(getattr(st0, k).double().abs().sum()))
+             for k in ("f", "g")}
+    for regime in (False, "one_launch", "two_launch"):
+        backend = "cuda_windowed" if regime else "cuda"
+        sims[regime] = BinaryFluidSim(
+            GRID, params, fused=regime,
+            target=Target(backend, vvl=AOSOA_W, layout="aosoa"))
+        finals[regime] = adrive(f"AoSoA BinaryFluidSim fused={regime}",
+                                lambda: sims[regime].run(st0, STEPS))
+        for k in ("f", "g"):
+            a, b = getattr(finals[regime], k), getattr(soa_finals[regime], k)
+            if not torch.allclose(a, b, rtol=2e-4, atol=2e-5):
+                problems.append(f"AoSoA regime {regime}: {k} differs from "
+                                f"SoA by {float((a - b).abs().max())}")
+            m = float(a.double().sum())
+            if abs(m - mass0[k][0]) > 1e-5 * mass0[k][1]:
+                problems.append(f"AoSoA regime {regime}: sum of {k} {m} vs "
+                                f"{mass0[k][0]}")
+        out.setdefault("max_abs_vs_soa_128cubed", {})[str(regime)] = max(
+            float((getattr(finals[regime], k) - getattr(soa_finals[regime], k))
+                  .abs().max()) for k in ("f", "g"))
+        soa_sim = BinaryFluidSim(GRID, params, fused=regime)
+        mlups[str(regime)] = {}
+        for which, sim in (("soa", soa_sim), ("aosoa", sims[regime])):
+            sim.run(st0, 2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sim.run(st0, STEPS)
+            torch.cuda.synchronize()
+            mlups[str(regime)][which] = (nsites * STEPS
+                                         / (time.perf_counter() - t) / 1e6)
+    out["mlups_128cubed_20_steps"] = mlups
+    f2 = soa_finals["two_launch"].f.reshape(19, -1)
+    g2 = soa_finals["two_launch"].g.reshape(19, -1)
+    for mode in ("one_launch", "two_launch"):
+        for backend in ("cuda_windowed", "cuda"):
+            want = ops.lb_fused_step(f2, g2, grid_shape=GRID, mode=mode,
+                                     target=Target(backend),
+                                     **params.as_kwargs())
+            got = adrive(f"AoSoA ops.lb_fused_step {mode} {backend}",
+                         lambda: ops.lb_fused_step(
+                             f2, g2, grid_shape=GRID, mode=mode,
+                             target=Target(backend, vvl=AOSOA_W,
+                                           layout="aosoa"),
+                             **params.as_kwargs()))
+            compare("fused", got, want, f"AoSoA lb_fused_step {mode} "
+                    f"{backend}", problems)
+    phi = g2.sum(0).reshape(GRID)
+    want = stencil.gradients(phi, target=Target("cuda_windowed"))
+    got = adrive("AoSoA stencil.gradients cuda_windowed",
+                 lambda: stencil.gradients(phi, target=Target(
+                     "cuda_windowed", vvl=AOSOA_W, layout="aosoa")))
+    compare("grad6", got, want, "AoSoA gradients", problems)
+    x, y = (torch.randn(TDP_NCOMP, nsites, device=dev, generator=g)
+            for _ in range(2))
+    t_ex = Target("cuda", vvl=AOSOA_W, layout="aosoa")
+    for site, args, kw in (("scale", [x], {"a": TDP_A}),
+                           ("saxpy", [x, y], {"a": TDP_A}),
+                           ("site_pos", [x], {})):
+        got = adrive(f"AoSoA tdp.launch {site}",
+                     lambda: tdp.launch(ex.SPECS[site], t_ex, *args, **kw))
+        want = tdp.launch(ex.SPECS[site], Target("cuda"), *args, **kw)
+        if not torch.equal(got, want):
+            problems.append(f"AoSoA tdp.launch {site} differs from SoA")
+    del x, y, f2, g2, phi
+    h = torch.randn(SERVE_BATCH * 64, cfg_d, device=dev, generator=g)
+    wgt = torch.randn(cfg_d, device=dev, generator=g)
+    got = adrive("AoSoA ops.rmsnorm", lambda: ops.rmsnorm(
+        h, wgt, scale_offset=1.0, target=Target("cuda", vvl=AOSOA_W,
+                                                layout="aosoa")))
+    if not torch.allclose(got, ops.rmsnorm(h, wgt, scale_offset=1.0),
+                          **LM_TOL):
+        problems.append("AoSoA ops.rmsnorm differs from SoA")
+    t_ew = Target("cuda", vvl=AOSOA_W_EW, layout="aosoa")
+    for kind, gate in (("geglu", h), ("gelu", None)):
+        got = adrive(f"AoSoA ops.gated_act {kind}", lambda: ops.gated_act(
+            h, gate, kind=kind, target=t_ew))
+        if not torch.equal(got, ops.gated_act(h, gate, kind=kind)):
+            problems.append(f"AoSoA ops.gated_act {kind} differs from SoA")
+    bm, lm_, dm, nm = 2, 64, 1024, 16
+    args = [torch.randn(bm, lm_, dm, device=dev, generator=g),
+            torch.nn.functional.softplus(torch.randn(bm, lm_, dm, device=dev,
+                                                     generator=g)),
+            torch.randn(bm, lm_, nm, device=dev, generator=g),
+            torch.randn(bm, lm_, nm, device=dev, generator=g),
+            -torch.exp(torch.randn(dm, nm, device=dev, generator=g)),
+            torch.randn(dm, device=dev, generator=g)]
+    got = adrive("AoSoA ops.mamba_scan", lambda: ops.mamba_scan(
+        *args, target=Target("cuda", vvl=AOSOA_W_MAMBA, layout="aosoa")))
+    want = ops.mamba_scan(*args, target=Target("cuda",
+                                                vvl=tp.MAMBA_AOSOA_VVL))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        problems.append("AoSoA ops.mamba_scan differs from SoA")
+    del h, args, finals, sims
+    torch.cuda.empty_cache()
+
+    # launches per AoSoA kernel on its main path
+    counts = {}
+    for path in paths:
+        for (k, s), c in by_path.get(path, {}).items():
+            if k.endswith("_aosoa"):
+                counts.setdefault((k, s), {})[path] = c
+    for r in rows:
+        k, s = r["name"].split(".", 1)
+        s = {"rmsnorm.prefill_d4096": "rmsnorm"}.get(s, s)
+        r["launches_by_path"] = counts.get((k, s), {})
+        r["launches"] = sum(r["launches_by_path"].values())
+        if r["launches"] == 0:
+            problems.append(f"{k}.{s} was not launched on the AoSoA main path")
+    out["launches_by_path"] = {path: {f"{k}.{s}": c for (k, s), c in
+                                      by_path.get(path, {}).items()}
+                               for path in paths}
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"phase 6: AoSoA phase {out['phase_s']:.1f} s; MLUPS {mlups}")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -1415,6 +1805,8 @@ def main() -> int:
 
     counters = {"tdp_gathered": tdp_pointwise.launches,
                 "tdp_windowed": tdp_windowed.launches,
+                "tdp_gathered_aosoa": tdp_pointwise.aosoa_launches,
+                "tdp_windowed_aosoa": tdp_windowed.aosoa_launches,
                 "lb_collision": lb_collision.launches,
                 "flash_attention": flash_attention.launches,
                 "calibrate": calibrate.launches}
@@ -1422,6 +1814,8 @@ def main() -> int:
         ("flash_attention", "flash_attention")]
     ex_entries = [("tdp_gathered", s) for s in _build.EXAMPLE_SITES]
     cal_entries = [("calibrate", "add"), ("calibrate", "fma")]
+    aosoa_entries = [("tdp_gathered_aosoa", s) for s in tdp_pointwise.launches
+                     ] + [("tdp_windowed_aosoa", s) for s in STENCIL_SITES]
 
     def entries():
         for site in _build.SITES:
@@ -1549,7 +1943,8 @@ def main() -> int:
                 c[k] = 0
         out = fn()
         torch.cuda.synchronize()
-        by_path[path] = {(k, s): counters[k][s] for k, s in all_entries
+        by_path[path] = {(k, s): counters[k][s]
+                         for k, s in all_entries + aosoa_entries
                          if counters[k][s]}
         return out
 
@@ -1618,7 +2013,6 @@ def main() -> int:
     record["tuning"] = tuning_path(drive, sims, st0, finals["one_launch"],
                                    params, problems)
     print(json.dumps({"tuning": record["tuning"]}, default=str), flush=True)
-    del finals
     torch.cuda.empty_cache()
     t_tdp = time.perf_counter()
     record["tdp_surface"] = tdp_surface(drive, problems)
@@ -1676,9 +2070,13 @@ def main() -> int:
         counts = by_path.get(f"tdp surface: lb_spinodal {regime}", {})
         if kernel not in {k for k, _ in counts}:
             problems.append(f"lb_spinodal {regime}: launches {counts}")
-    # the tuned run launches the default run's kernels, at its own VVL
-    expected["BinaryFluidSim one_launch tuned"] = by_path.get(
-        "BinaryFluidSim fused=one_launch")
+    # the tuned run launches the default run's kernels, at its own VVL, or
+    # their AoSoA twins if the tuner chose that layout
+    expected["BinaryFluidSim one_launch tuned"] = {
+        (k + ("_aosoa" if record["tuning"]["lb_fused_one"]["layout"]
+              == "aosoa" else ""), s): n
+        for (k, s), n in by_path.get("BinaryFluidSim fused=one_launch",
+                                     {}).items()}
     for path, counts in expected.items():
         if by_path.get(path) != counts:
             problems.append(f"{path}: launches {by_path.get(path)}, "
@@ -1895,6 +2293,17 @@ def main() -> int:
     t_tdp = time.perf_counter()
     rows += tdp_rows(launches, launches_by_path, max_err, problems)
     record["tdp_surface"]["rows_s"] = time.perf_counter() - t_tdp
+
+    # -- 6. the AoSoA layout ---------------------------------------------------
+    aosoa_rows, record["aosoa"] = aosoa_phase(
+        drive, by_path, make_inputs, prepare, finals, st0, rows, params,
+        problems)
+    rows += aosoa_rows
+    del finals
+    torch.cuda.empty_cache()
+    print(json.dumps({"aosoa": {k: record["aosoa"][k] for k in (
+        "phase_s", "mlups_128cubed_20_steps", "max_abs_vs_soa",
+        "max_abs_vs_soa_128cubed")}}, default=str), flush=True)
 
     mlups = {}
     for regime, sim in sims.items():

@@ -8,6 +8,8 @@ Public surface (paper → here), as the reference's ``repro.core``:
 * memory model: :func:`target_malloc`, :func:`copy_to_target`,
   :func:`copy_from_target`, the masked variants, :class:`TargetConst`,
   :func:`sync_target`, :func:`target_free`;
+* layout: :data:`LAYOUTS`, :func:`soa_to_aosoa`, :func:`aosoa_to_soa`,
+  :func:`aosoa_nblocks` (``Target(layout="aosoa")``);
 * execution model: :class:`KernelSpec` + :func:`kernel`, :class:`Target`,
   :func:`tdp_launch` (also exported as ``launch``) dispatching through
   :func:`register_executor`'s table, and :func:`reduce`;
@@ -57,6 +59,7 @@ from .lattice import (
     Stencil,
     token_lattice,
 )
+from .layout import LAYOUTS, aosoa_nblocks, aosoa_to_soa, soa_to_aosoa
 from .memory import (
     TargetConst,
     copy_constant_to_target,
@@ -96,10 +99,11 @@ from .target import Target, as_target, default_vvl, set_default_vvl
 
 __all__ = [
     "Candidate", "CompiledProgram", "CostEstimate", "D3Q19_VELOCITIES",
-    "Field", "FieldSpec", "KernelSpec", "LaunchPlan", "Lattice",
+    "Field", "FieldSpec", "KernelSpec", "LAYOUTS", "LaunchPlan", "Lattice",
     "MachineProfile", "Program", "ProgramPlan", "STENCIL_D3Q19_PULL",
     "STENCIL_GRAD_19PT", "STENCIL_GRAD_6PT", "Stage", "Stencil", "Target",
-    "TargetConst", "TuneReport", "TuneResult", "WindowVmemError", "as_target", "autotune",
+    "TargetConst", "TuneReport", "TuneResult", "WindowVmemError",
+    "aosoa_nblocks", "aosoa_to_soa", "as_target", "autotune",
     "compatible_executors", "copy_constant_to_target", "copy_from_target",
     "copy_from_target_masked", "copy_to_target", "copy_to_target_masked",
     "costmodel", "default_space", "default_vvl", "executor_tunables",
@@ -109,7 +113,8 @@ __all__ = [
     "machine_profile", "pad_sites", "predict", "program", "reduce",
     "register_executor", "registry_version", "resolve_stage_target",
     "roofline_seconds",
-    "set_default_vvl", "site_kernel", "stage", "sync_target", "target_free",
+    "set_default_vvl", "site_kernel", "soa_to_aosoa", "stage", "sync_target",
+    "target_free",
     "target_malloc", "target_malloc_like", "tdp_launch", "token_lattice",
     "unregister_executor", "validate_field", "wall_clock_timer",
 ]

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from .lattice import Lattice, Stencil
+from .layout import aosoa_gather, soa_to_aosoa
 from .memory import TargetConst
 from .registry import (
     get_executor_entry,
@@ -247,6 +248,8 @@ class LaunchPlan:
     all-``None`` for pure pointwise launches), so capability-declaring
     executors can resolve neighbour offsets themselves and so the
     :meth:`hbm_bytes_estimate` memory model is derivable from the plan.
+    :attr:`layout` is the target's: under ``"aosoa"``, :attr:`vvl` is the
+    width of the AoSoA site block.
     """
 
     __slots__ = ("kernel", "name", "vvl", "out_ncomp", "consts", "target",
@@ -281,6 +284,11 @@ class LaunchPlan:
             field_ncomp=self.field_ncomp, wants=self.wants,
             site_index=self.site_index)
 
+    @property
+    def layout(self) -> str:
+        """``"soa"`` or ``"aosoa"``: the target's operand layout."""
+        return self.target.layout
+
     def _fields(self):
         if self.field_ncomp is None:
             raise ValueError(
@@ -309,6 +317,14 @@ class LaunchPlan:
         overhead ``prod(shape + 2·radius) / prod(shape)``.  This is the
         reference's model, keyed on ``wants``: it does not know that the
         card's executors read their fields in place.
+
+        ``layout="aosoa"`` doubles the estimate, as the reference's does:
+        the SoA↔AoSoA boundary transforms write every operand and output
+        once more.  On the card's executors, which read SoA fields in place
+        and so have no prepared copy to speak of under SoA, the doubled
+        figure stands for those transforms: each field is copied into its
+        AoSoA buffer before the kernel and each gathered output back out of
+        it after, one extra round trip per byte the kernel moves.
         """
         if self.shape is None:
             raise ValueError("hbm_bytes_estimate needs a lattice shape")
@@ -321,6 +337,8 @@ class LaunchPlan:
                 total += c * _prod_shape(self._ext_shape(s))
             else:
                 total += c * s.noffsets * n
+        if self.layout == "aosoa":
+            total *= 2
         return total * itemsize
 
     def __repr__(self):
@@ -438,6 +456,31 @@ def _validate_wrap_extents(spec: KernelSpec, lattice, halo):
                     f"cannot wrap-pad a dimension thinner than the "
                     f"stencil radius); supply >= {r} ghost planes in "
                     f"dim {d} or enlarge it")
+
+
+def _validate_layout(spec: KernelSpec, target: Target,
+                     lattice: Lattice | None, wants: str) -> None:
+    """Plan-build validation of the AoSoA layout axis (the reference's
+    ``repro/core/api.py:_validate_layout``).  Gathered executors pad
+    remainder sites, so any vvl is valid there; the *windowed* AoSoA path
+    groups each x-plane into vvl blocks and has no remainder blocks over
+    the interior — vvl must divide the interior plane's site count.  (The
+    halo-widened planes of a stencil field are zero-padded to a vvl
+    multiple by the executor, so only the interior constrains vvl.)"""
+    if target.layout != "aosoa" or wants != "halo_extended":
+        return
+    if lattice is None:
+        return
+    vvl = target.resolve_vvl()
+    shape = lattice.shape
+    rest_n = _prod_shape(shape[1:]) if len(shape) > 1 else 1
+    if rest_n % vvl:
+        raise ValueError(
+            f"kernel {spec.name!r} with layout='aosoa' under executor "
+            f"{target.executor!r}: vvl={vvl} does not divide the "
+            f"interior plane extent {rest_n} (= prod{tuple(shape[1:])}) "
+            f"— the windowed AoSoA path groups whole x-planes into "
+            f"vvl-site blocks; pick a vvl dividing the plane site count")
 
 
 # ---------------------------------------------------------------------------
@@ -571,6 +614,7 @@ def launch(spec: KernelSpec, target: Target | str | None = None, /,
     h = _validate_arrays(spec, arrays, lattice, halo)
     if entry.wants == "halo_extended" or entry.takes_fields:
         _validate_wrap_extents(spec, lattice, h)
+    _validate_layout(spec, tgt, lattice, entry.wants)
     out_ncomp = spec.out if spec.out is not None else (int(arrays[0].shape[0]),)
     if out is not None:
         nsites = (lattice.nsites if spec.has_stencil
@@ -610,6 +654,7 @@ def launch_plan(spec: KernelSpec, target: Target | str | None = None, *,
          if lattice is not None and spec.has_stencil else None)
     if entry.wants == "halo_extended" or entry.takes_fields:
         _validate_wrap_extents(spec, lattice, h)
+    _validate_layout(spec, tgt, lattice, entry.wants)
     if spec.out is not None:
         out_ncomp = spec.out
     elif spec.fields[0].ncomp is not None:
@@ -628,6 +673,14 @@ def launch_plan(spec: KernelSpec, target: Target | str | None = None, *,
 # built-in executors
 # ---------------------------------------------------------------------------
 
+def aosoa_read(blocks: torch.Tensor, shape) -> torch.Tensor:
+    """The SoA tensor of ``shape`` (``(..., n)``) whose rows the AoSoA
+    ``(nblk, rows, vvl)`` buffer holds, read through the index map."""
+    n = int(shape[-1])
+    got = aosoa_gather(blocks, torch.arange(n, device=blocks.device))
+    return got.reshape(shape)
+
+
 def site_indices(n: int, device) -> torch.Tensor:
     """The global index of each of ``n`` sites, ``int32`` on ``device`` —
     what a ``site_index=True`` spec gets as its last positional argument.
@@ -644,14 +697,37 @@ def torch_executor(plan: LaunchPlan, gathered, out=None):
 
     Every targetDP site kernel is independent per site, so the VVL chunk
     loop of the reference's ``"xla"`` executor collapses to one call over
-    the whole trailing site axis; ``plan.vvl`` is carried but not used.
-    A ``site_index`` plan's body also gets :func:`site_indices` of the
-    output sites (the interior ones for a stencil launch).
+    the whole trailing site axis; under SoA ``plan.vvl`` is carried but not
+    used.  A ``site_index`` plan's body also gets :func:`site_indices` of
+    the output sites (the interior ones for a stencil launch).
+
+    ``plan.layout == "aosoa"`` is the counterpart of the reference's
+    AoSoA branch: every operand goes to AoSoA blocks of ``plan.vvl`` sites
+    (:func:`~repro_torch.core.layout.soa_to_aosoa`) and the body reads its
+    sites from the blocks through the AoSoA index map
+    (:func:`~repro_torch.core.layout.aosoa_gather`), one call over all of
+    them; outputs are SoA.  The reference maps its body over the blocks;
+    here the body still makes one call over all sites, because PyTorch's
+    CPU reductions pick their summation order by tensor shape, and a
+    body mapped over ``(ncomp, vvl)`` tiles would round its sums
+    differently from the SoA call.  So the AoSoA result equals the SoA one
+    bit for bit.
     """
     args = tuple(gathered)
+    if plan.layout == "aosoa":
+        args = tuple(aosoa_read(soa_to_aosoa(x.reshape(-1, x.shape[-1]),
+                                             plan.vvl), x.shape)
+                     for x in args)
+    return call_body(plan, args, out)
+
+
+def call_body(plan: LaunchPlan, args, out=None):
+    """The plan's body called once over SoA operands (``(ncomp, n)``
+    fields, ``(noffsets, ncomp, n)`` neighbour stacks), plus the site
+    index of a ``site_index`` plan; written into ``out`` when given."""
     if plan.site_index:
         x = args[0]
-        args += (site_indices(int(x.shape[-1]), x.device),)
+        args = tuple(args) + (site_indices(int(x.shape[-1]), x.device),)
     outs = plan.kernel(*args, **plan.consts)
     outs = (outs,) if not isinstance(outs, tuple) else outs
     if out is None:

@@ -10,8 +10,9 @@ arXiv:1609.01479) says those knobs must be re-chosen on each device.
 1. **enumerates** a space of :class:`Candidate` assignments
    (:func:`default_space`): the base target first, the executor axis
    (:func:`repro_torch.core.registry.compatible_executors`), the VVLs
-   each executor's kernels are built for and, where a kernel of the
-   subject holds a shared-memory tile, the ``plane_block`` sweep;
+   each executor's kernels are built for, the AoSoA layout at the
+   reference's block widths and, where a kernel of the subject holds a
+   shared-memory tile, the ``plane_block`` sweep;
 2. **prunes** the points whose tile exceeds ``vmem_limit`` and, with
    ``top_k``, all but the K points the roofline model
    (:mod:`repro_torch.core.costmodel`) ranks best;
@@ -34,16 +35,16 @@ model exact per launch; a report replayed from a cache keeps the ratio it
 was stored with.
 
 Not ported: per-stage ``plane_block`` assignments (the reserved
-``"stage:<name>"`` tuning keys), the AoSoA layout axis and the pointwise
-block knobs.  No kernel of this package has an AoSoA layout or a block
-knob yet (ROADMAP, queue A item 3); the one-stage programs the tile runs
-in need no per-stage split.
+``"stage:<name>"`` tuning keys) and the pointwise block knobs.  No kernel
+of this package has a block knob; the one-stage programs the tile runs in
+need no per-stage split.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import time
 from typing import Any, Callable, Mapping, NamedTuple, Sequence
@@ -57,7 +58,8 @@ from .api import launch_plan as _launch_plan
 from .costmodel import DEFAULT_CACHE_DIR, DEFAULT_VMEM_LIMIT
 from .lattice import Lattice
 from .program import CompiledProgram, Program
-from .registry import compatible_executors, executor_tunables, executor_vvls
+from .registry import (compatible_executors, executor_tunables,
+                       executor_vvls, executor_wants)
 from .spec import KernelSpec
 from .target import Target, as_target
 
@@ -177,22 +179,49 @@ class Candidate:
 
 
 def _effective_vvl(target: Target) -> int:
-    """The VVL ``target`` launches with: an executor with declared VVLs
-    resolves ``None`` to its first."""
+    """The VVL ``target`` launches with: under SoA an executor with
+    declared VVLs resolves ``None`` to its first; the AoSoA block width is
+    the process default."""
     declared = executor_vvls(target.executor)
-    if target.vvl is None and declared is not None:
+    if target.vvl is None and declared is not None and target.layout == "soa":
         return declared[0]
     return target.resolve_vvl()
 
 
 def _divisors(n: int) -> list[int]:
-    return [d for d in range(1, int(n) + 1) if n % d == 0]
+    n = int(n)
+    small, large = [], []
+    for d in range(1, math.isqrt(n) + 1):
+        if n % d == 0:
+            small.append(d)
+            if d != n // d:
+                large.append(n // d)
+    return small + large[::-1]
+
+
+def _vvl_values(n: int, *, lo: int = 8, hi: int = 8192,
+                max_values: int = 6) -> list[int]:
+    """The AoSoA block widths for a launch over ``n`` sites (or, for the
+    windowed executor, ``n`` sites an x-plane): the reference's rule —
+    divisors of ``n`` in ``[lo, hi]``, thinned to at most ``max_values``
+    evenly spaced points (the extremes kept); ``[n]`` when ``n < lo``."""
+    n = int(n)
+    if n <= 0:
+        return []
+    vals = [d for d in _divisors(n) if lo <= d <= hi]
+    if not vals:
+        return [n] if n < lo else []
+    if len(vals) > max_values:
+        idx = np.linspace(0, len(vals) - 1, max_values).round().astype(int)
+        vals = sorted({vals[i] for i in idx})
+    return vals
 
 
 def default_space(program_or_spec, target: Target | str | None = None, *,
                   executors: Sequence[str] | None = None,
                   grid_shape: Sequence[int] | None = None,
                   lattice: Lattice | None = None, halo=None, consts=None,
+                  site_count: int | None = None,
                   vmem_limit: int = DEFAULT_VMEM_LIMIT):
     """The default candidate space for :func:`autotune`.
 
@@ -207,6 +236,14 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
       (:func:`~repro_torch.core.registry.executor_vvls`; the CUDA
       executors: 1, 2, 4, 8 sites per thread).  An executor that declares
       none (``"torch"`` ignores the VVL) is one point;
+    * per executor, the **layout axis** (the reference's rule): one
+      ``layout="aosoa"`` point per block width of :func:`_vvl_values` —
+      over the launch's sites (``grid_shape`` for a Program, ``lattice``
+      or ``site_count`` for a spec) for a gathered executor, over the gcd
+      of the windowed stages' interior plane site counts for a
+      ``halo_extended`` one, whose width must divide them; a point whose
+      plan cannot be built or whose tile exceeds ``vmem_limit`` is
+      pruned;
     * per executor that declares the ``plane_block`` tunable, when the
       geometry is given (``grid_shape`` for a Program, ``lattice`` for a
       spec) and a kernel of the subject holds a shared-memory tile under
@@ -249,6 +286,22 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
 
     x_extent = (grid_shape[0] if grid_shape is not None
                 else lattice.shape[0] if lattice is not None else None)
+    geometry = (tuple(grid_shape) if grid_shape is not None
+                else lattice.shape if lattice is not None else None)
+    nsites = (math.prod(int(s) for s in geometry) if geometry is not None
+              else None if site_count is None else int(site_count))
+
+    def plane_counts(tgt: Target) -> list[int]:
+        """Interior site counts of an x-plane of each windowed launch."""
+        if geometry is None:
+            return []
+        if isinstance(program_or_spec, Program):
+            pplan = program_or_spec.plan(tgt, grid_shape=grid_shape)
+            shapes = [p.shape for _, p in pplan.stages
+                      if p.wants == "halo_extended" and p.shape is not None]
+        else:
+            shapes = [lattice.shape] if lattice is not None else []
+        return [math.prod(int(s) for s in sh[1:]) for sh in shapes]
     for n in dict.fromkeys(names):
         if n not in ok:
             reason = ("not registered"
@@ -260,9 +313,27 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
         add(Candidate(n))
         probe = base.with_(backend=n)
         eff = _effective_vvl(probe)
+        soa = None if base.layout == "soa" else "soa"
         for v in executor_vvls(n) or ():
-            if v != eff:                   # ≡ the bare executor candidate
-                add(Candidate(n, vvl=v))
+            if soa is not None or v != eff:  # ≡ the bare executor candidate
+                add(Candidate(n, vvl=v, layout=soa))
+        if executor_wants(n) == "halo_extended":
+            counts = [c for c in plane_counts(probe) if c > 0]
+            widths = _vvl_values(math.gcd(*counts)) if counts else []
+        else:
+            widths = _vvl_values(nsites) if nsites is not None else []
+        for v in widths:
+            c = Candidate(n, vvl=v, layout="aosoa")
+            try:
+                need = vmem(c.target_from(base))
+            except ValueError as e:         # an unplannable width
+                pruned.append((c.label, f"error: {e}"))
+                continue
+            if need > vmem_limit:
+                pruned.append((c.label, f"vmem estimate {need} > limit "
+                                        f"{vmem_limit}"))
+            else:
+                add(c)
         if "plane_block" not in executor_tunables(n) or x_extent is None:
             continue
         own = vmem(probe)
@@ -634,7 +705,9 @@ def autotune(program_or_spec, target: Target | str | None = None,
         candidates, pruned = default_space(
             program_or_spec, base, executors=executors,
             grid_shape=grid if is_program else None, lattice=lattice,
-            halo=halo, consts=consts, vmem_limit=vmem_limit)
+            halo=halo, consts=consts,
+            site_count=None if is_program or lattice is not None else grid[0],
+            vmem_limit=vmem_limit)
     else:
         pruned = []
         base_cand = Candidate.of(base)

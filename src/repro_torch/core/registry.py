@@ -92,9 +92,11 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
 
     ``tunables`` declares the ``Target.tuning`` keys the executor actually
     consults — the surface a sweep or tuner builds candidate spaces from.
-    ``vvls`` lists the VVLs the executor's kernels are built for (the
-    autotuner's VVL axis; the first is what ``vvl=None`` resolves to);
-    ``None`` means any positive VVL.
+    ``vvls`` lists the VVLs the executor's kernels are built for under
+    ``layout="soa"`` (the autotuner's VVL axis; the first is what
+    ``vvl=None`` resolves to); ``None`` means any positive VVL.  Under
+    ``layout="aosoa"`` the VVL is the AoSoA block width, which the
+    declaration does not bound.
 
     ``takes_fields=True`` skips the prologue: each stencil field reaches
     the executor as the caller's own array viewed as ``(ncomp, *(shape +
@@ -160,7 +162,8 @@ def executor_tunables(name: str) -> tuple[str, ...]:
 
 
 def executor_vvls(name: str) -> tuple[int, ...] | None:
-    """The VVLs a registered executor launches with (``None``: any)."""
+    """The VVLs a registered executor launches with under SoA (``None``:
+    any)."""
     return get_executor_entry(name).vvls
 
 

@@ -1,8 +1,8 @@
 """Target descriptors — *where and how* a kernel launch executes.
 
 :class:`Target` is a small frozen value object naming the executor, carrying
-the tunable VVL (sites per thread on the card, chunk width elsewhere), the
-memory layout, and an executor-specific ``tuning`` mapping.  Being frozen
+the tunable VVL (under SoA: sites per thread on the card, chunk width
+elsewhere; under AoSoA: the width of a site block), the memory layout, and an executor-specific ``tuning`` mapping.  Being frozen
 and hashable, a Target participates directly in the launch plan cache key.
 
 Executors of this package: ``"torch"`` (plain PyTorch, the oracle and CPU
@@ -38,11 +38,12 @@ def set_default_vvl(vvl: int) -> None:
     resolved VVL is part of the plan cache key, so flipping the default
     between two launches always rebuilds the plan.  The default is the
     chunk width of executors that declare no VVLs (``"torch"`` and any
-    executor registered without ``vvls=``).  The CUDA executors do not read
-    it: their kernels are built for :data:`CUDA_VVLS` only, and a target
-    with ``vvl=None`` launches them at one site a thread whatever the
-    default is, so no default can turn such a launch into an error.  An
-    explicit ``Target.vvl`` always wins.
+    executor registered without ``vvls=``) and the AoSoA block width of
+    every executor.  The CUDA executors' SoA launches do not read it: their
+    kernels are built for :data:`CUDA_VVLS` only, and a SoA target with
+    ``vvl=None`` launches them at one site a thread whatever the default
+    is, so no default can turn such a launch into an error.  An explicit
+    ``Target.vvl`` always wins.
     """
     global _DEFAULT_VVL
     if int(vvl) <= 0:
@@ -69,11 +70,18 @@ class Target:
     Args:
       backend: executor name in the registry (``"torch"``, ``"cuda"``,
         ``"cuda_windowed"``, or any registered name).
-      vvl: virtual vector length.  ``None`` → the executor's default.
-      layout: ``"soa"`` (sites contiguous per component).  ``"aosoa"`` is
-        a valid layout of the targetDP model but is not ported yet
-        (ROADMAP, queue A: ``core/layout.py``), so it raises
-        ``NotImplementedError``.
+      vvl: virtual vector length.  Under ``layout="soa"`` it is the sites
+        per thread of the CUDA executors (one of :data:`CUDA_VVLS`;
+        ``None`` → 1) and the chunk width elsewhere.  Under
+        ``layout="aosoa"`` it is the width ``W`` of the AoSoA site block
+        (``None`` → the process default, :func:`default_vvl`): any ``W >=
+        1`` on ``"torch"`` and ``"cuda"`` (remainder sites zero-padded), a
+        divisor of the interior x-plane's site count on
+        ``"cuda_windowed"``.
+      layout: ``"soa"`` (sites contiguous per component) or ``"aosoa"``
+        (blocks of ``vvl`` sites outermost, then components, then the
+        sites of a block; :mod:`repro_torch.core.layout`).  Outputs are
+        SoA under both.
       tuning: executor/op-specific knobs, stored as a sorted tuple of
         pairs so the Target stays hashable.
     """
@@ -95,10 +103,6 @@ class Target:
             raise ValueError(
                 f"layout must be 'soa' or 'aosoa', got {self.layout!r} "
                 f"(the AoSoA inner width is the separate vvl field)")
-        if self.layout == "aosoa":
-            raise NotImplementedError(
-                "layout='aosoa' is not ported yet: it waits for the port of "
-                "core/layout.py (ROADMAP, queue A, item 'AoSoA layout.py')")
         object.__setattr__(self, "tuning", _freeze_tuning(self.tuning))
 
     @property
@@ -142,12 +146,13 @@ class Target:
 
 
 def as_target(target: "Target | str | None" = None, *,
-              vvl: int | None = None) -> Target:
+              vvl: int | None = None,
+              layout: str | None = None) -> Target:
     """Coerce the accepted spellings to a :class:`Target`.
 
     ``None`` → the default (``"cuda"``) target; a string →
-    ``Target(backend=string)``; a Target passes through.  ``vvl`` (if
-    given) overrides the target's.
+    ``Target(backend=string)``; a Target passes through.  ``vvl`` /
+    ``layout`` (if given) override the target's.
     """
     if target is None:
         target = Target()
@@ -159,4 +164,6 @@ def as_target(target: "Target | str | None" = None, *,
             f"{type(target).__name__}: {target!r}")
     if vvl is not None:
         target = target.with_(vvl=vvl)
+    if layout is not None:
+        target = target.with_(layout=layout)
     return target

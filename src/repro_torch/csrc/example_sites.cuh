@@ -15,6 +15,12 @@
 // s, the counterpart of `base + iota` in the Pallas executor
 // (src/repro/kernels/tdp_pointwise.py:122-125).
 //
+// AoSoA (Target(layout="aosoa"), example_aosoa_thread): x, y' and out are
+// blocks of W sites, (ceil(n / W), ncomp, W), site s of component c at
+// tdp::aosoa_index (lb_sites.cuh).  Thread t takes site t, every component,
+// so a block's W sites sit on consecutive lanes; site_pos gets t, the SoA
+// index; the pad lanes (t >= n) are neither read nor written.
+//
 // The arithmetic is rounded as the plain version's is: saxpy's a·x and + y
 // are two roundings (__fmul_rn, __fadd_rn: no FMA contraction), so every
 // site function is bit-equal to its plain body.  Everything a thread runs
@@ -94,6 +100,35 @@ __host__ __device__ __forceinline__ void example_thread(const ExampleIO& io,
       const int64_t s = s0 + v;
       if (s < io.n) out[s] = Site::at(ldg(x + s), y ? ldg(y + s) : 0.0f, io.a, (int)s);
     }
+  }
+}
+
+// Operands of one AoSoA launch.
+struct ExampleAosoaIO {
+  ExampleIO io;
+  AosoaMap map;
+};
+
+template <class Site>
+__host__ __device__ __forceinline__ void example_aosoa_thread(const ExampleAosoaIO& a,
+                                                              int64_t t) {
+  const ExampleIO& io = a.io;
+  if (t >= io.n) return;
+  for (int c = 0; c < io.ncomp; ++c) {
+    const int64_t i = aosoa_index(a.map, (int)t, io.ncomp, c);
+    io.out[i] = Site::at(ldg(io.in[0] + i), io.in[1] ? ldg(io.in[1] + i) : 0.0f, io.a,
+                         (int)t);
+  }
+}
+
+// (site id) -> Launch<Site>::run(io, stream)
+template <template <class> class Launch, class IO>
+int dispatch_site_aosoa(int site, const IO& io, void* stream) {
+  switch (site) {
+    case SITE_SCALE: return Launch<ScaleSite>::run(io, stream);
+    case SITE_SAXPY: return Launch<SaxpySite>::run(io, stream);
+    case SITE_SITE_POS: return Launch<SitePosSite>::run(io, stream);
+    default: return ERR_BAD_SITE;
   }
 }
 

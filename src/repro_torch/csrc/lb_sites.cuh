@@ -232,6 +232,7 @@ struct StreamSite {
   static constexpr int NIN = 1, NOUT = 1;
   static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
+  __host__ __device__ static constexpr int ncomp_out(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int) { return ST_PULL; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys&) {
@@ -244,6 +245,7 @@ struct Grad6Site {
   static constexpr int NIN = 1, NOUT = 2;
   static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int) { return 1; }
+  __host__ __device__ static constexpr int ncomp_out(int k) { return k == 0 ? 3 : 1; }
   __host__ __device__ static constexpr int stencil(int) { return ST_GRAD6; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys&) {
@@ -261,6 +263,7 @@ struct MomentSite {
   static constexpr int NIN = 1, NOUT = 1;
   static constexpr int RADIUS = 0;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
+  __host__ __device__ static constexpr int ncomp_out(int) { return 1; }
   __host__ __device__ static constexpr int stencil(int) { return ST_POINT; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys&) {
@@ -288,6 +291,7 @@ struct CollideSite {  // fields: f, g, phi, gradphi, del2phi (all pointwise)
   __host__ __device__ static constexpr int ncomp_in(int i) {
     return i < 2 ? NVEL : (i == 3 ? 3 : 1);
   }
+  __host__ __device__ static constexpr int ncomp_out(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int) { return ST_POINT; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys& p) {
@@ -322,6 +326,7 @@ struct FusedSite {  // fields: f (pull), g (fused_g, radius 2)
   static constexpr int NIN = 2, NOUT = 2;
   static constexpr int RADIUS = 2;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
+  __host__ __device__ static constexpr int ncomp_out(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int i) {
     return i == 0 ? ST_PULL : ST_FUSED_G;
   }
@@ -353,6 +358,7 @@ struct PhiStreamSite {  // field: g (pull)
   static constexpr int NIN = 1, NOUT = 1;
   static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
+  __host__ __device__ static constexpr int ncomp_out(int) { return 1; }
   __host__ __device__ static constexpr int stencil(int) { return ST_PULL; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys&) {
@@ -367,6 +373,7 @@ struct FusedTwoSite {  // fields: f (pull), g (pull), phi_streamed (grad6)
   static constexpr int NIN = 3, NOUT = 2;
   static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int i) { return i < 2 ? NVEL : 1; }
+  __host__ __device__ static constexpr int ncomp_out(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int i) {
     return i < 2 ? ST_PULL : ST_GRAD6;
   }
@@ -493,6 +500,119 @@ __host__ __device__ __forceinline__ int64_t field_threads(const FieldIO& io) {
 }
 
 // ---------------------------------------------------------------------------
+// the AoSoA layout: a second accessor over the same site functions
+// ---------------------------------------------------------------------------
+//
+// Under Target(layout="aosoa") every operand arrives as contiguous blocks of
+// W sites (W = Target.vvl, any W >= 1): site e, component c of a buffer of
+// ncomp components at (e / W)·ncomp·W + c·W + e % W, the last block
+// zero-padded (repro_torch/core/layout.py).  A pointwise field's blocks run
+// over the interior sites, a stencil field's over its flat extended grid
+// whose x-planes hold `plane` sites each: the extended plane's own count
+// for the gathered launcher, that count padded to a multiple of W for the
+// windowed one, which groups each x-plane into whole blocks.  AosoaNb
+// resolves a neighbour's flat index exactly as FieldNb does (the wrap, the
+// ghost planes) and then maps it; its outputs are AoSoA over the interior
+// (gathered) or SoA (windowed, as the reference's are).
+//
+// Mapping: one thread per site, so a block's W sites sit on consecutive
+// lanes and a warp's load of one component is ceil(32 / W) runs of W
+// contiguous floats (whole 32-byte sectors for W >= 8).  A thread over VVL
+// sites would stride its lanes' loads across blocks once VVL > W.
+
+// The block width W of an AoSoA buffer, with the multiplier and shift that
+// divide by it: for 0 <= e < 2^31, e / W = (e · magic) >> shift, where shift
+// = 31 + ceil(log2 W) and magic = ceil(2^shift / W) < 2^32 (Granlund and
+// Montgomery, PLDI 1994: magic·W - 2^shift < W <= 2^(shift - 31)).  One
+// 32 x 32 -> 64-bit multiply and a shift, the same code for every W, with
+// no branch among a site function's unrolled loads.
+struct AosoaMap {
+  int W;
+  unsigned magic;
+  int shift;
+};
+
+inline AosoaMap make_aosoa_map(int W) {
+  int l = 0;
+  while ((1ll << l) < W) ++l;
+  const int shift = 31 + l;
+  return AosoaMap{W, (unsigned)(((1ull << shift) + W - 1) / W), shift};
+}
+
+// Offset of (site e, component c) in a buffer of ncomp components: block b
+// = e / W, lane e - b·W, at (b·ncomp + c)·W + lane.  Site indices and the
+// row index b·ncomp + c are 32-bit (the wrappers refuse 2^31 sites, or
+// 2^31 rows of W in a buffer), the offset 64.
+__host__ __device__ __forceinline__ int64_t aosoa_index(const AosoaMap& m, int e,
+                                                        int ncomp, int c) {
+  const int b = (int)(((uint64_t)(unsigned)e * m.magic) >> m.shift);
+  return (int64_t)(b * ncomp + c) * m.W + (e - b * m.W);
+}
+
+// AoSoA operands of one LB launch.
+struct AosoaIO {
+  FieldIO io;     // pointers to the AoSoA buffers, geometry, physics
+  AosoaMap map;
+  int plane;      // sites of an x-plane of a stencil field's buffer
+  bool soa_out;   // outputs SoA (windowed) instead of AoSoA
+};
+
+// The neighbour accessor of one site (x, y, z): the wrapped coordinate of
+// every offset -R..R is worked out once, as in FieldNb, as flat-index
+// parts ox (x-planes of `plane` sites), oy and oz.  `lane` is always 0.
+template <class Site>
+struct AosoaNb {
+  static constexpr int R = Site::RADIUS;
+  const AosoaIO& a;
+  int site;  // flat interior index
+  int ox[2 * R + 1], oy[2 * R + 1], oz[2 * R + 1];
+
+  __host__ __device__ __forceinline__ AosoaNb(const AosoaIO& a_, int x, int y, int z)
+      : a(a_), site((x * a_.io.Y + y) * a_.io.Z + z) {
+    if constexpr (R > 0) {
+      const FieldIO& io = a.io;
+      const int ze = io.Z + 2 * io.hz;
+#pragma unroll
+      for (int o = -R; o <= R; ++o) {
+        ox[o + R] = wrap(x, o, io.X, io.hx) * a.plane;
+        oy[o + R] = wrap(y, o, io.Y, io.hy) * ze;
+        oz[o + R] = wrap(z, o, io.Z, io.hz);
+      }
+    }
+  }
+  __host__ __device__ __forceinline__ float at(int f, int slot, int c, int) const {
+    const int st = Site::stencil(f);
+    if (st == ST_POINT) return ldg(a.io.in[f] + aosoa_index(a.map, site, Site::ncomp_in(f), c));
+    const int e = ox[st_off(st, slot, 0) + R] + oy[st_off(st, slot, 1) + R] +
+                  oz[st_off(st, slot, 2) + R];
+    return ldg(a.io.in[f] + aosoa_index(a.map, e, Site::ncomp_in(f), c));
+  }
+  __host__ __device__ __forceinline__ void put(int k, int c, int, float v) const {
+    if (a.soa_out)
+      a.io.out[k][(int64_t)c * a.io.n + site] = v;
+    else
+      a.io.out[k][aosoa_index(a.map, site, Site::ncomp_out(k), c)] = v;
+  }
+};
+
+// Thread t takes interior site t (x, y, z from it; a site function with no
+// stencil field takes the sites as one flat row); t >= n is masked.
+template <class Site>
+__host__ __device__ __forceinline__ void aosoa_thread(const AosoaIO& a, int64_t t) {
+  const FieldIO& io = a.io;
+  if (t >= io.n) return;
+  int x = 0, y = 0, z = (int)t;
+  if constexpr (Site::RADIUS > 0) {
+    const int xy = (int)(t / io.Z);
+    z = (int)(t - (int64_t)xy * io.Z);
+    y = xy % io.Y;
+    x = xy / io.Y;
+  }
+  const AosoaNb<Site> nb(a, x, y, z);
+  Site::run(nb, 0, io.phys);
+}
+
+// ---------------------------------------------------------------------------
 // the fused site function in shared-memory tiles (tdp_windowed.cu)
 // ---------------------------------------------------------------------------
 //
@@ -523,6 +643,28 @@ inline int check_tile(int P) {
   return P <= 0 || tile_smem_bytes(P) > SMEM_LIMIT ? ERR_PLANE_BLOCK : 0;
 }
 
+// The tile phases run over SoA fields (FieldIO, read in place by FieldNb)
+// or AoSoA ones (AosoaIO, one site a thread: VVL 1); these pick the pieces.
+__host__ __device__ __forceinline__ const FieldIO& field_io(const FieldIO& io) { return io; }
+__host__ __device__ __forceinline__ const FieldIO& field_io(const AosoaIO& a) { return a.io; }
+
+// Flat-index stride of an x-plane of a stencil field.
+__host__ __device__ __forceinline__ int tile_plane(const FieldIO& io) {
+  return (io.Y + 2 * io.hy) * (io.Z + 2 * io.hz);
+}
+__host__ __device__ __forceinline__ int tile_plane(const AosoaIO& a) { return a.plane; }
+
+// Component q of g (19 components, component stride cs under SoA) at flat
+// index e.
+__host__ __device__ __forceinline__ float tile_g(const FieldIO&, const float* g, int64_t cs,
+                                                 int e, int q) {
+  return ldg(g + q * cs + e);
+}
+__host__ __device__ __forceinline__ float tile_g(const AosoaIO& a, const float* g, int64_t,
+                                                 int e, int q) {
+  return ldg(g + aosoa_index(a.map, e, NVEL, q));
+}
+
 __host__ __device__ inline int64_t tile_blocks(const FieldIO& io, int P) {
   return (int64_t)((io.X + P - 1) / P) * ((io.Y + TILE_Y - 1) / TILE_Y) *
          ((io.Z + TILE_Z - 1) / TILE_Z);
@@ -546,20 +688,33 @@ struct TileSite {
   static constexpr int NIN = 2, NOUT = 2;
   static constexpr int RADIUS = 1;
   __host__ __device__ static constexpr int ncomp_in(int) { return NVEL; }
+  __host__ __device__ static constexpr int ncomp_out(int) { return NVEL; }
   __host__ __device__ static constexpr int stencil(int) { return ST_PULL; }
+};
+
+// The tile's accessor of f and g: FieldNb over SoA fields, AosoaNb over
+// AoSoA ones.
+template <class IO, int VVL>
+struct TileNb {
+  using type = FieldNb<TileSite, VVL>;
+};
+template <>
+struct TileNb<AosoaIO, 1> {
+  using type = AosoaNb<TileSite>;
 };
 
 // Phase 1: thread tid sums phi at rim-box sites tid, tid + threads, ... of
 // the (P+2) x RIM_Y x RIM_Z box with corner (x0-1, y0-1, z0-1), z fastest,
 // into phi[site].  Box sites past the far rim of the lattice (x > X, ...)
 // belong to no tile site's star and are skipped.
-template <int VVL>
-__host__ __device__ __forceinline__ void fused_tile_phi(const FieldIO& io, int P,
+template <int VVL, class IO>
+__host__ __device__ __forceinline__ void fused_tile_phi(const IO& lay, int P,
                                                         int64_t block, int tid,
                                                         float* phi) {
+  const FieldIO& io = field_io(lay);
   const TileCorner t = tile_corner(io, P, block);
   const float* g = io.in[1];
-  const int ze = io.Z + 2 * io.hz, yze = (io.Y + 2 * io.hy) * ze;
+  const int ze = io.Z + 2 * io.hz, yze = tile_plane(lay);
   const int64_t cs = (int64_t)(io.X + 2 * io.hx) * yze;
   const int nbox = (P + 2) * RIM_Y * RIM_Z;
   for (int s = tid; s < nbox; s += tile_threads<VVL>()) {
@@ -574,28 +729,29 @@ __host__ __device__ __forceinline__ void fused_tile_phi(const FieldIO& io, int P
       iy[o + 1] = wrap(y, o, io.Y, io.hy) * ze;
       iz[o + 1] = wrap(z, o, io.Z, io.hz);
     }
-    float acc = ldg(g + (ix[1] + iy[1] + iz[1]));
+    float acc = tile_g(lay, g, cs, ix[1] + iy[1] + iz[1], 0);
 #pragma unroll
     for (int q = 1; q < NVEL; ++q)
-      acc = acc + ldg(g + q * cs + (ix[1 - cv(q, 0)] + iy[1 - cv(q, 1)] + iz[1 - cv(q, 2)]));
+      acc = acc + tile_g(lay, g, cs, ix[1 - cv(q, 0)] + iy[1 - cv(q, 1)] + iz[1 - cv(q, 2)], q);
     phi[s] = acc;
   }
 }
 
 // Phase 2: thread tid takes row y0 + tid / (TILE_Z/VVL) and the VVL z-sites
 // from z0 + (tid % (TILE_Z/VVL))·VVL, at each of the tile's P planes.
-template <int VVL>
-__host__ __device__ __forceinline__ void fused_tile_collide(const FieldIO& io, int P,
+template <int VVL, class IO>
+__host__ __device__ __forceinline__ void fused_tile_collide(const IO& lay, int P,
                                                             int64_t block, int tid,
                                                             const float* phi) {
   constexpr int ZT = TILE_Z / VVL;
   constexpr int PX = RIM_Y * RIM_Z;
+  const FieldIO& io = field_io(lay);
   const TileCorner t = tile_corner(io, P, block);
   const int j = tid / ZT, zl = (tid % ZT) * VVL;
   const int y = t.y0 + j, z0 = t.z0 + zl;
   if (y >= io.Y || z0 >= io.Z) return;
   for (int i = 0; i < P && t.x0 + i < io.X; ++i) {
-    const FieldNb<TileSite, VVL> nb(io, t.x0 + i, y, z0);
+    const typename TileNb<IO, VVL>::type nb(lay, t.x0 + i, y, z0);
 #pragma unroll
     for (int l = 0; l < VVL; ++l) {
       if (z0 + l >= io.Z) break;
@@ -624,6 +780,22 @@ int dispatch_vvl(int vvl, const IO& io, void* stream) {
     case 4: return Launch<Site, 4>::run(io, stream);
     case 8: return Launch<Site, 8>::run(io, stream);
     default: return ERR_BAD_VVL;
+  }
+}
+
+// (site id) -> Launch<Site>::run(io, stream): the AoSoA launchers, one site
+// a thread.
+template <template <class> class Launch, class IO>
+int dispatch_site_aosoa(int site, const IO& io, void* stream) {
+  switch (site) {
+    case SITE_STREAM: return Launch<StreamSite>::run(io, stream);
+    case SITE_GRAD6: return Launch<Grad6Site>::run(io, stream);
+    case SITE_MOMENT: return Launch<MomentSite>::run(io, stream);
+    case SITE_COLLIDE: return Launch<CollideSite>::run(io, stream);
+    case SITE_FUSED: return Launch<FusedSite>::run(io, stream);
+    case SITE_PHI_STREAM: return Launch<PhiStreamSite>::run(io, stream);
+    case SITE_FUSED_TWO: return Launch<FusedTwoSite>::run(io, stream);
+    default: return ERR_BAD_SITE;
   }
 }
 

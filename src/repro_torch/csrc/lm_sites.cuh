@@ -60,6 +60,29 @@
 //            entry of its own, tdp_gathered_mamba_launch, since it takes six
 //            inputs and gives two outputs.
 //
+// AoSoA (Target(layout="aosoa"), W = Target.vvl; lb_sites.cuh: aosoa_index):
+//
+//   gated, act  every operand is (ceil(n / W), 1, W), one layout for all, so
+//            ew_kernel over the nblk·W elements of the blocks is the AoSoA
+//            kernel (the pad lanes are zeros in, ignored out).
+//   rmsnorm  x and out are (ceil(n / W), d, W), component c of token s at
+//            (s / W)·d·W + c·W + s % W.  A block of RMS_THREADS threads takes
+//            Wc = min(W, RMS_THREADS) tokens of one AoSoA block, thread t the
+//            token t % Wc and the components g, g + G, ... (g = t / Wc, G =
+//            RMS_THREADS / Wc groups), so consecutive threads read
+//            consecutive floats: a warp's load is one contiguous run when W
+//            <= 32.  The groups' partials meet in shared memory in group
+//            order.  At W = 32 this is the tiled mapping at VVL 1 (16
+//            groups of 32 tokens, the same order of every sum).
+//   mamba    x, dt, y are (ceil(n / W), batch·L, W), a (.., N, W), d (.., 1,
+//            W), h (.., batch·N, W): step k of channel ch at (ch / W)·K·W +
+//            k·W + ch % W (K the component count).  The scan is the SoA one
+//            at MAMBA_AOSOA_VVL channels a lane group; only the chunk stage,
+//            the loads of a and the stores of y and h take the index map.
+//            The stage copies 4 channels at a time (16 bytes), so W must be a
+//            multiple of MAMBA_AOSOA_ALIGN = 4: a copy then never straddles
+//            two blocks.
+//
 // The activation (silu, gelu with the tanh approximation, relu^2) is a
 // template parameter.  Arithmetic keeps the plain version's order where it
 // is elementwise (x * rsqrt(mean(x*x) + eps) * (w + offset); u * sigmoid(u);
@@ -424,6 +447,107 @@ __host__ __device__ __forceinline__ void rms_few_scale(const LmIO& io, int J,
     io.out[i] = ldg(io.in[0] + i) * inv * (ldg(io.weight + c) + io.scale_offset);
 }
 
+// AoSoA rmsnorm (see the header): the tokens a block covers.
+__host__ __device__ __forceinline__ int rms_aosoa_width(const AosoaMap& m) {
+  return m.W < RMS_THREADS ? m.W : RMS_THREADS;
+}
+
+__host__ __device__ __forceinline__ int64_t rms_aosoa_blocks(const LmIO& io,
+                                                             const AosoaMap& m) {
+  const int wc = rms_aosoa_width(m);
+  return (io.n + m.W - 1) / m.W * ((m.W + wc - 1) / wc);
+}
+
+// Thread `tid` of CUDA block `block`: its token's offset in x and out (-1
+// when the thread has no live token) and its first component.
+struct RmsAosoaThread {
+  int64_t base;  // offset of component 0 of the token
+  int g, G, wc;
+};
+
+__host__ __device__ __forceinline__ RmsAosoaThread rms_aosoa_thread(const LmIO& io,
+                                                                    const AosoaMap& m,
+                                                                    int64_t block,
+                                                                    int tid) {
+  RmsAosoaThread r;
+  r.wc = rms_aosoa_width(m);
+  r.G = RMS_THREADS / r.wc;
+  r.g = tid / r.wc;
+  const int64_t parts = (m.W + r.wc - 1) / r.wc;
+  const int64_t b = block / parts;
+  const int l = (int)(block % parts) * r.wc + tid % r.wc;
+  const bool live = r.g < r.G && l < m.W && b * m.W + l < io.n;
+  r.base = live ? b * io.ncomp * m.W + l : -1;
+  return r;
+}
+
+// Phase 1: red[tid] = the sum of squares over components g, g + G, ...,
+// in that order, rms_unroll<1>() rows loaded before they are added (as the
+// tiled SoA kernel does at VVL 1).
+__host__ __device__ __forceinline__ void rms_aosoa_partial(const LmIO& io,
+                                                           const AosoaMap& m,
+                                                           int64_t block, int tid,
+                                                           float* red) {
+  constexpr int U = rms_unroll<1>();
+  const RmsAosoaThread r = rms_aosoa_thread(io, m, block, tid);
+  float ss = 0.0f;
+  if (r.base >= 0) {
+    const int64_t step = (int64_t)r.G * m.W;
+    const float* p = io.in[0] + r.base + (int64_t)r.g * m.W;
+    int c = r.g;
+    for (; c + (U - 1) * r.G < io.ncomp; c += U * r.G, p += U * step) {
+      float v[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) v[k] = ldg(p + k * step);
+#pragma unroll
+      for (int k = 0; k < U; ++k) ss += v[k] * v[k];
+    }
+    for (; c < io.ncomp; c += r.G, p += step) {
+      const float v = ldg(p);
+      ss += v * v;
+    }
+  }
+  red[tid] = ss;
+}
+
+// Phase 2: thread t < wc adds token t's partials in group order.
+__host__ __device__ __forceinline__ void rms_aosoa_combine(const LmIO& io,
+                                                           const AosoaMap& m, int tid,
+                                                           const float* red,
+                                                           float* inv) {
+  const int wc = rms_aosoa_width(m);
+  if (tid >= wc) return;
+  float ss = 0.0f;
+  for (int g = 0; g < RMS_THREADS / wc; ++g) ss += red[g * wc + tid];
+  inv[tid] = rms_inv(ss, io);
+}
+
+// Phase 3: the thread scales its token over its components.
+__host__ __device__ __forceinline__ void rms_aosoa_scale(const LmIO& io,
+                                                         const AosoaMap& m,
+                                                         int64_t block, int tid,
+                                                         const float* inv) {
+  constexpr int U = rms_unroll<1>();
+  const RmsAosoaThread r = rms_aosoa_thread(io, m, block, tid);
+  if (r.base < 0) return;
+  const float iv = inv[tid % r.wc];
+  const int64_t step = (int64_t)r.G * m.W;
+  int64_t i = r.base + (int64_t)r.g * m.W;
+  int c = r.g;
+  for (; c + (U - 1) * r.G < io.ncomp; c += U * r.G, i += U * step) {
+    float v[U], wt[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      v[k] = ldg(io.in[0] + i + k * step);
+      wt[k] = ldg(io.weight + c + k * r.G) + io.scale_offset;
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) io.out[i + k * step] = v[k] * iv * wt[k];
+  }
+  for (; c < io.ncomp; c += r.G, i += step)
+    io.out[i] = ldg(io.in[0] + i) * iv * (ldg(io.weight + c) + io.scale_offset);
+}
+
 // ---------------------------------------------------------------------------
 // mamba: the selective scan, site = channel, a channel's states over lanes
 // ---------------------------------------------------------------------------
@@ -437,6 +561,8 @@ constexpr int MAMBA_THREADS = 128;   // threads of a block
 constexpr int MAMBA_GROUPS = MAMBA_THREADS / MAMBA_LANES;  // lane groups
 constexpr int MAMBA_TILE = 1024;     // floats of x (and of dt) a chunk stages
 constexpr float MAMBA_LOG2E = 1.4426950408889634f;
+constexpr int MAMBA_AOSOA_VVL = 2;    // channels of a lane group under AoSoA
+constexpr int MAMBA_AOSOA_ALIGN = 4;  // W must be a multiple of it
 
 // Operands of one mamba launch: `rows` batch rows, row r's operands at
 // r·L·n (x, dt, y), r·L·N (b, c) and r·N·n (h) floats from the pointers.
@@ -451,7 +577,17 @@ struct MambaIO {
   float* h;         // (rows·N, n): each row's state after its last step
   int64_t L, n;
   int rows;
+  AosoaMap map;     // the AoSoA launch's blocks (unused under SoA)
 };
+
+// Offset of component k (of K) of channel ch in a field: SoA k·n + ch, AoSoA
+// the index map.
+template <bool AOSOA>
+__host__ __device__ __forceinline__ int64_t mamba_at(const MambaIO& io, int64_t K,
+                                                     int64_t k, int64_t ch) {
+  if constexpr (AOSOA) return aosoa_index(io.map, (int)ch, (int)K, (int)k);
+  return k * io.n + ch;
+}
 
 // The site function's tag for dispatch_mamba: d_state N.
 template <int N>
@@ -502,6 +638,7 @@ struct MambaLane {
   float h[VVL][S];   // the states
   float a2[VVL][S];  // a·log2(e): the decay exp(dt·a) is exp2(dt·a2)
   float d[VVL];
+  int64_t y0[VVL];   // AoSoA: offset of step 0 of the slot's channel in y
 };
 
 // exp2 by one MUFU.EX2 on the card (ex2.approx, ~2 ulp); exp2f on the host.
@@ -515,7 +652,7 @@ __host__ __device__ __forceinline__ float fast_exp2(float x) {
 #endif
 }
 
-template <int N, int VVL>
+template <int N, int VVL, bool AOSOA = false>
 __host__ __device__ __forceinline__ void mamba_lane_init(const MambaIO& io,
                                                          int64_t blk, int tid,
                                                          MambaLane<N, VVL>& ln) {
@@ -525,12 +662,13 @@ __host__ __device__ __forceinline__ void mamba_lane_init(const MambaIO& io,
   for (int v = 0; v < VVL; ++v) {
     const int64_t ch = blk * MambaTile<N, VVL>::C + mamba_slot(j, v);
     const bool live = ch < io.n;
-    ln.d[v] = live ? ldg(io.d + ch) : 0.0f;
+    ln.d[v] = live ? ldg(io.d + mamba_at<AOSOA>(io, 1, 0, ch)) : 0.0f;
+    ln.y0[v] = AOSOA && live ? mamba_at<AOSOA>(io, (int64_t)io.rows * io.L, 0, ch) : 0;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       ln.h[v][s] = 0.0f;
       ln.a2[v][s] =
-          live ? ldg(io.a + (int64_t)mamba_state<N>(g, s) * io.n + ch) * MAMBA_LOG2E
+          live ? ldg(io.a + mamba_at<AOSOA>(io, N, mamba_state<N>(g, s), ch)) * MAMBA_LOG2E
                : 0.0f;
     }
   }
@@ -541,7 +679,9 @@ __host__ __device__ __forceinline__ void mamba_lane_init(const MambaIO& io,
 // (16-byte copies where n % 4 == 0 and x, dt are 16-byte aligned, else
 // 4-byte ones), and of b and c, T·N contiguous floats each.  Slots past the
 // ragged last block or chunk are left as they were: no live lane reads them.
-template <int N, int VVL>
+// Under AoSoA the x and dt copies go through the index map (16-byte copies
+// of 4 channels, which W % 4 == 0 keeps inside one block).
+template <int N, int VVL, bool AOSOA = false>
 __host__ __device__ __forceinline__ void mamba_stage(const MambaIO& io, int row,
                                                      int64_t blk, int64_t q, int tid,
                                                      float* buf) {
@@ -551,7 +691,24 @@ __host__ __device__ __forceinline__ void mamba_stage(const MambaIO& io, int row,
   const int64_t c0 = blk * Tl::C;
   const int cl = io.n - c0 < Tl::C ? (int)(io.n - c0) : Tl::C;
   const int64_t base = ((int64_t)row * io.L + t0) * io.n + c0;
-  if (io.n % 4 == 0 && aligned16(io.x) && aligned16(io.dt)) {
+  if constexpr (AOSOA) {
+    const int64_t K = (int64_t)io.rows * io.L, k0 = (int64_t)row * io.L + t0;
+    const bool vec = aligned16(io.x) && aligned16(io.dt);
+    const int width = vec ? 4 : 1;
+    const int CW = Tl::C / width;
+    for (int i = tid; i < steps * CW; i += MAMBA_THREADS) {
+      const int t = i / CW, c = width * (i % CW);
+      if (c >= cl) continue;
+      const int64_t off = mamba_at<true>(io, K, k0 + t, c0 + c);
+      if (vec) {
+        copy16(buf + Tl::X + t * Tl::C + c, io.x + off);
+        copy16(buf + Tl::DT + t * Tl::C + c, io.dt + off);
+      } else {
+        copy4(buf + Tl::X + t * Tl::C + c, io.x + off);
+        copy4(buf + Tl::DT + t * Tl::C + c, io.dt + off);
+      }
+    }
+  } else if (io.n % 4 == 0 && aligned16(io.x) && aligned16(io.dt)) {
     constexpr int C4 = Tl::C / 4;
     for (int i = tid; i < steps * C4; i += MAMBA_THREADS) {
       const int t = i / C4, c = 4 * (i % C4);
@@ -610,7 +767,7 @@ __host__ __device__ __forceinline__ float mamba_partial(const float* buf, int s,
 
 // y of step s (chunk q), slot v, from the group's summed share: the group's
 // lane 0 writes y = Σ_k h·c + d·x for a live channel.
-template <int N, int VVL>
+template <int N, int VVL, bool AOSOA = false>
 __host__ __device__ __forceinline__ void mamba_out(const MambaIO& io, const float* buf,
                                                    int row, int64_t blk, int64_t q,
                                                    int s, int v, int tid,
@@ -621,11 +778,13 @@ __host__ __device__ __forceinline__ void mamba_out(const MambaIO& io, const floa
   const int64_t ch = blk * Tl::C + mamba_slot(j, v);
   if (tid % MAMBA_LANES != 0 || ch >= io.n) return;
   const float xv = buf[Tl::X + s * Tl::C + mamba_slot(j, v)];
-  io.y[((int64_t)row * io.L + q * Tl::T + s) * io.n + ch] = sum + ln.d[v] * xv;
+  const int64_t k = (int64_t)row * io.L + q * Tl::T + s;
+  // AoSoA: step k of the channel lies k·W past its step 0
+  io.y[AOSOA ? ln.y0[v] + k * io.map.W : k * io.n + ch] = sum + ln.d[v] * xv;
 }
 
 // The final state of each live channel's states.
-template <int N, int VVL>
+template <int N, int VVL, bool AOSOA = false>
 __host__ __device__ __forceinline__ void mamba_final(const MambaIO& io, int row,
                                                      int64_t blk, int tid,
                                                      const MambaLane<N, VVL>& ln) {
@@ -637,7 +796,8 @@ __host__ __device__ __forceinline__ void mamba_final(const MambaIO& io, int row,
     if (ch >= io.n) continue;
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      io.h[((int64_t)row * N + mamba_state<N>(g, s)) * io.n + ch] = ln.h[v][s];
+      io.h[mamba_at<AOSOA>(io, (int64_t)io.rows * N, (int64_t)row * N + mamba_state<N>(g, s),
+                           ch)] = ln.h[v][s];
   }
 }
 
@@ -661,6 +821,16 @@ int dispatch_mamba(int nstate, int vvl, const MambaIO& io, void* stream) {
   switch (nstate) {
     case 8: return tdp::dispatch_vvl<Launch, MambaSite<8>>(vvl, io, stream);
     case 16: return tdp::dispatch_vvl<Launch, MambaSite<16>>(vvl, io, stream);
+    default: return ERR_BAD_NSTATE;
+  }
+}
+
+// (d_state) -> Launch<MambaSite<N>>::run(io, stream): the AoSoA scan
+template <template <class> class Launch>
+int dispatch_mamba_aosoa(int nstate, const MambaIO& io, void* stream) {
+  switch (nstate) {
+    case 8: return Launch<MambaSite<8>>::run(io, stream);
+    case 16: return Launch<MambaSite<16>>::run(io, stream);
     default: return ERR_BAD_NSTATE;
   }
 }

@@ -20,6 +20,14 @@
 // kernel issues one load per (offset, component) a site function names (19
 // for stream, 7·19 for fused's g); neighbouring threads read neighbouring
 // addresses, and reuse between neighbouring sites is left to L1/L2.
+//
+// The AoSoA branch (Target(layout="aosoa"), the reference's :96-170):
+// tdp_gathered_aosoa_launch runs the same seven site functions through
+// AosoaNb (lb_sites.cuh) over AoSoA blocks of W sites, one thread per site,
+// and writes AoSoA outputs (the wrapper turns them back into SoA).  The
+// operands are the wrapper's AoSoA copies of the fields, so the kernel's
+// bytes are those of the SoA kernel; the two boundary transforms move the
+// fields' and outputs' bytes once more each.
 #include <cuda_runtime.h>
 
 #include "lb_sites.cuh"
@@ -42,6 +50,23 @@ struct Launch {
     if (threads == 0) return 0;
     const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
     field_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(io);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class Site>
+__global__ void __launch_bounds__(kBlock)
+    aosoa_kernel(const __grid_constant__ tdp::AosoaIO a) {
+  tdp::aosoa_thread<Site>(a, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <class Site>
+struct AosoaLaunch {
+  static int run(const tdp::AosoaIO& a, void* stream) {
+    if (const int rc = tdp::check_geometry(a.io, Site::RADIUS)) return rc;
+    if (a.io.n == 0) return 0;
+    const unsigned blocks = (unsigned)((a.io.n + kBlock - 1) / kBlock);
+    aosoa_kernel<Site><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
 };
@@ -69,4 +94,32 @@ extern "C" int tdp_gathered_launch(int site, int vvl, const void* const* in,
   io.n = (int64_t)X * Y * Z;
   io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
   return tdp::dispatch_site<Launch>(site, vvl, io, stream);
+}
+
+// The AoSoA launch: in[i] is field i's AoSoA buffer, blocks of W sites over
+// a pointwise field's X*Y*Z sites or a stencil field's flat extended grid
+// (x-planes of `plane` sites); out[k] is AoSoA over the interior.  W >= 1.
+// Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE / ERR_BAD_VVL (W < 1) /
+// ERR_GEOMETRY.
+extern "C" int tdp_gathered_aosoa_launch(int site, int W, const void* const* in,
+                                         void* const* out, int X, int Y, int Z,
+                                         int hx, int hy, int hz, int plane,
+                                         float A, float B, float kappa, float tau,
+                                         float tau_phi, float gamma, void* stream) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  tdp::AosoaIO a{};
+  for (int i = 0; i < tdp::MAX_IN; ++i) a.io.in[i] = static_cast<const float*>(in[i]);
+  for (int k = 0; k < tdp::MAX_OUT; ++k) a.io.out[k] = static_cast<float*>(out[k]);
+  a.io.X = X;
+  a.io.Y = Y;
+  a.io.Z = Z;
+  a.io.hx = hx;
+  a.io.hy = hy;
+  a.io.hz = hz;
+  a.io.n = (int64_t)X * Y * Z;
+  a.io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
+  a.map = tdp::make_aosoa_map(W);
+  a.plane = plane;
+  a.soa_out = false;
+  return tdp::dispatch_site_aosoa<AosoaLaunch>(site, a, stream);
 }

@@ -48,6 +48,15 @@
 // §6): a layer, both rows, 0.849 ms at VVL 1 and 0.646 ms at VVL 2
 // (3.3x and 2.5x its 0.257 ms bound), against 2 x 4.768 ms before; 2 or 8
 // lanes a channel were slower at their best VVL (0.778 and 0.755 ms).
+//
+// The AoSoA branch (Target(layout="aosoa"), W = Target.vvl; mappings in
+// lm_sites.cuh): tdp_gathered_rmsnorm_aosoa_launch (rms_aosoa_kernel, one
+// block per W tokens or per 512 of them) and tdp_gathered_mamba_aosoa_launch
+// (mamba_kernel at MAMBA_AOSOA_VVL channels a lane group, its stage reading
+// the blocks through the index map).  gated and act under AoSoA are
+// ew_kernel over the padded blocks, launched by the wrapper through
+// tdp_gathered_lm_launch: every operand shares one layout, so no other
+// kernel is needed.  The bytes are the SoA launches'.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -88,9 +97,20 @@ __global__ void __launch_bounds__(tdp::lm::RMS_FEW_THREADS)
   tdp::lm::rms_few_scale(io, group, threadIdx.x, red);
 }
 
+__global__ void __launch_bounds__(tdp::lm::RMS_THREADS)
+    rms_aosoa_kernel(const __grid_constant__ LmIO io, const tdp::AosoaMap m) {
+  __shared__ float red[tdp::lm::RMS_THREADS];
+  __shared__ float inv[tdp::lm::RMS_THREADS];
+  tdp::lm::rms_aosoa_partial(io, m, blockIdx.x, threadIdx.x, red);
+  __syncthreads();
+  tdp::lm::rms_aosoa_combine(io, m, threadIdx.x, red, inv);
+  __syncthreads();
+  tdp::lm::rms_aosoa_scale(io, m, blockIdx.x, threadIdx.x, inv);
+}
+
 // Block (blockIdx.x, row blockIdx.y): the lanes' states in registers, the
 // chunks of the row's steps through two stages of shared memory.
-template <class Site, int VVL>
+template <class Site, int VVL, bool AOSOA = false>
 __global__ void __launch_bounds__(tdp::lm::MAMBA_THREADS)
     mamba_kernel(const __grid_constant__ tdp::lm::MambaIO io) {
   using namespace tdp::lm;
@@ -100,13 +120,13 @@ __global__ void __launch_bounds__(tdp::lm::MAMBA_THREADS)
   const int row = blockIdx.y, tid = threadIdx.x;
   const int64_t blk = blockIdx.x;
   MambaLane<N, VVL> ln;
-  mamba_lane_init<N, VVL>(io, blk, tid, ln);
+  mamba_lane_init<N, VVL, AOSOA>(io, blk, tid, ln);
   const int64_t nq = mamba_chunks<N, VVL>(io.L);
-  mamba_stage<N, VVL>(io, row, blk, 0, tid, smem[0]);
+  mamba_stage<N, VVL, AOSOA>(io, row, blk, 0, tid, smem[0]);
   tdp::cp_async_commit();
   for (int64_t q = 0; q < nq; ++q) {
     // stage (q + 1) & 1 was last read for chunk q - 1, before its barrier
-    if (q + 1 < nq) mamba_stage<N, VVL>(io, row, blk, q + 1, tid, smem[(q + 1) & 1]);
+    if (q + 1 < nq) mamba_stage<N, VVL, AOSOA>(io, row, blk, q + 1, tid, smem[(q + 1) & 1]);
     tdp::cp_async_commit();
     tdp::cp_async_wait<1>();  // chunk q has landed (this thread's copies)
     __syncthreads();          // ... and every thread's
@@ -120,12 +140,12 @@ __global__ void __launch_bounds__(tdp::lm::MAMBA_THREADS)
 #pragma unroll
         for (int r = 0; r < MAMBA_ROUNDS; ++r)
           p += __shfl_xor_sync(0xffffffffu, p, mamba_xor(r));
-        mamba_out<N, VVL>(io, buf, row, blk, q, s, v, tid, ln, p);
+        mamba_out<N, VVL, AOSOA>(io, buf, row, blk, q, s, v, tid, ln, p);
       }
     }
     __syncthreads();  // every lane is done with stage q & 1
   }
-  mamba_final<N, VVL>(io, row, blk, tid, ln);
+  mamba_final<N, VVL, AOSOA>(io, row, blk, tid, ln);
 }
 
 template <class Site, int VVL>
@@ -135,6 +155,18 @@ struct MambaLaunch {
     const dim3 grid((unsigned)tdp::lm::mamba_blocks<Site::kN, VVL>(io.n),
                     (unsigned)io.rows);
     mamba_kernel<Site, VVL>
+        <<<grid, tdp::lm::MAMBA_THREADS, 0, (cudaStream_t)stream>>>(io);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class Site>
+struct MambaAosoaLaunch {
+  static int run(const tdp::lm::MambaIO& io, void* stream) {
+    constexpr int V = tdp::lm::MAMBA_AOSOA_VVL;
+    if (io.n == 0 || io.L == 0 || io.rows == 0) return 0;
+    const dim3 grid((unsigned)tdp::lm::mamba_blocks<Site::kN, V>(io.n), (unsigned)io.rows);
+    mamba_kernel<Site, V, true>
         <<<grid, tdp::lm::MAMBA_THREADS, 0, (cudaStream_t)stream>>>(io);
     return (int)cudaGetLastError();
   }
@@ -209,4 +241,53 @@ extern "C" int tdp_gathered_mamba_launch(int nstate, int vvl, const void* x,
   io.n = n;
   io.rows = rows;
   return tdp::lm::dispatch_mamba<MambaLaunch>(nstate, vvl, io, stream);
+}
+
+// rmsnorm over AoSoA: x, out (ceil(n / W), ncomp, W) blocks of W >= 1 tokens,
+// weight ncomp floats.  Returns 0, a cudaError_t or tdp::ERR_BAD_VVL (W < 1).
+extern "C" int tdp_gathered_rmsnorm_aosoa_launch(int W, const void* x, const void* weight,
+                                                 void* out, long long n, int ncomp,
+                                                 float eps, float scale_offset,
+                                                 void* stream) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  tdp::lm::LmIO io{};
+  io.in[0] = static_cast<const float*>(x);
+  io.out = static_cast<float*>(out);
+  io.weight = static_cast<const float*>(weight);
+  io.n = n;
+  io.ncomp = ncomp;
+  io.eps = eps;
+  io.scale_offset = scale_offset;
+  if (n <= 0) return 0;
+  const tdp::AosoaMap m = tdp::make_aosoa_map(W);
+  rms_aosoa_kernel<<<(unsigned)tdp::lm::rms_aosoa_blocks(io, m), tdp::lm::RMS_THREADS, 0,
+                     (cudaStream_t)stream>>>(io, m);
+  return (int)cudaGetLastError();
+}
+
+// The selective scan over AoSoA: x, dt, y (ceil(n / W), rows·L, W); a (.., N,
+// W); d (.., 1, W); h (.., rows·N, W); b, c (rows·L, N) as under SoA.
+// Returns 0, a cudaError_t, tdp::ERR_BAD_VVL (W not a positive multiple of
+// 4) or tdp::lm::ERR_BAD_NSTATE.
+extern "C" int tdp_gathered_mamba_aosoa_launch(int nstate, int W, const void* x,
+                                               const void* dt, const void* a,
+                                               const void* d, const void* b,
+                                               const void* c, void* y, void* h,
+                                               long long L, long long n, int rows,
+                                               void* stream) {
+  if (W < 1 || W % tdp::lm::MAMBA_AOSOA_ALIGN) return tdp::ERR_BAD_VVL;
+  tdp::lm::MambaIO io{};
+  io.x = static_cast<const float*>(x);
+  io.dt = static_cast<const float*>(dt);
+  io.a = static_cast<const float*>(a);
+  io.d = static_cast<const float*>(d);
+  io.b = static_cast<const float*>(b);
+  io.c = static_cast<const float*>(c);
+  io.y = static_cast<float*>(y);
+  io.h = static_cast<float*>(h);
+  io.L = L;
+  io.n = n;
+  io.rows = rows;
+  io.map = tdp::make_aosoa_map(W);
+  return tdp::lm::dispatch_mamba_aosoa<MambaAosoaLaunch>(nstate, io, stream);
 }

@@ -27,6 +27,15 @@
 // Loads go through the read-only cache (ldg), 19 independent ones a site
 // in each phase; no cp.async or TMA, since the rim wraps and a box copy
 // does not.
+//
+// The AoSoA branch (Target(layout="aosoa"), the reference's :41-56 and
+// :102-206): tdp_windowed_aosoa_launch takes each field as AoSoA blocks of W
+// sites, every x-plane in whole blocks (a stencil field's halo-widened
+// planes zero-padded to a multiple of W), and writes SoA outputs, as the
+// reference does.  stream, grad6, phi_stream and fused_two run one thread
+// per site through AosoaNb; fused keeps its tile, 256 threads of one site
+// each, whose phase 1 reads g from the AoSoA planes into the same
+// shared-memory phi array and whose phase 2 reads f and g through AosoaNb.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -49,31 +58,32 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 // 16 warps an SM at least: at most 128 registers a thread.
-template <int VVL>
+// IO: tdp::FieldIO (SoA fields, VVL sites a thread) or tdp::AosoaIO (VVL 1).
+template <int VVL, class IO>
 __global__ void __launch_bounds__(tdp::tile_threads<VVL>(), 512 / tdp::tile_threads<VVL>())
-    fused_tile_kernel(const __grid_constant__ tdp::FieldIO io, int P) {
+    fused_tile_kernel(const __grid_constant__ IO io, int P) {
   extern __shared__ float phi[];
   tdp::fused_tile_phi<VVL>(io, P, blockIdx.x, threadIdx.x, phi);
   __syncthreads();
   tdp::fused_tile_collide<VVL>(io, P, blockIdx.x, threadIdx.x, phi);
 }
 
-template <int VVL>
-int launch_tiled(const tdp::FieldIO& io, int P, void* stream) {
+template <int VVL, class IO>
+int launch_tiled(const IO& io, int P, void* stream) {
   if (const int rc = tdp::check_tile(P)) return rc;
   const int64_t smem = tdp::tile_smem_bytes(P);
-  const int64_t blocks = tdp::tile_blocks(io, P);
+  const int64_t blocks = tdp::tile_blocks(tdp::field_io(io), P);
   if (blocks == 0) return 0;
   static bool granted = false;  // dynamic shared memory above 48 KB
   if (smem > 48 * 1024 && !granted) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        fused_tile_kernel<VVL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_tile_kernel<VVL, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)tdp::SMEM_LIMIT);
     if (rc != cudaSuccess) return (int)rc;
     granted = true;
   }
-  fused_tile_kernel<VVL><<<(unsigned)blocks, tdp::tile_threads<VVL>(), (size_t)smem,
-                           (cudaStream_t)stream>>>(io, P);
+  fused_tile_kernel<VVL, IO><<<(unsigned)blocks, tdp::tile_threads<VVL>(), (size_t)smem,
+                               (cudaStream_t)stream>>>(io, P);
   return (int)cudaGetLastError();
 }
 
@@ -88,6 +98,32 @@ struct Launch {
       if (threads == 0) return 0;
       const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
       field_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a.io);
+      return (int)cudaGetLastError();
+    }
+  }
+};
+
+struct WindowedAosoaArgs {
+  tdp::AosoaIO a;
+  int plane_block;
+};
+
+template <class Site>
+__global__ void __launch_bounds__(kBlock)
+    aosoa_kernel(const __grid_constant__ tdp::AosoaIO a) {
+  tdp::aosoa_thread<Site>(a, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <class Site>
+struct AosoaLaunch {
+  static int run(const WindowedAosoaArgs& w, void* stream) {
+    if (const int rc = tdp::check_geometry(w.a.io, Site::RADIUS)) return rc;
+    if constexpr (std::is_same_v<Site, tdp::FusedSite>) {
+      return launch_tiled<1>(w.a, w.plane_block, stream);
+    } else {
+      if (w.a.io.n == 0) return 0;
+      const unsigned blocks = (unsigned)((w.a.io.n + kBlock - 1) / kBlock);
+      aosoa_kernel<Site><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(w.a);
       return (int)cudaGetLastError();
     }
   }
@@ -118,4 +154,36 @@ extern "C" int tdp_windowed_launch(int site, int vvl, int plane_block,
   a.io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
   a.plane_block = plane_block;
   return tdp::dispatch_site<Launch>(site, vvl, a, stream);
+}
+
+// The AoSoA launch: in[i] is field i's AoSoA buffer, blocks of W sites, each
+// x-plane in whole blocks: a pointwise field's planes of Y*Z sites (W must
+// divide Y*Z), a stencil field's extended planes padded to `plane` sites (a
+// multiple of W).  out[k]: SoA (ncomp, X*Y*Z).  Returns 0, a cudaError_t, or
+// tdp::ERR_BAD_SITE / ERR_BAD_VVL (W < 1, or W not dividing Y*Z or `plane`)
+// / ERR_GEOMETRY / ERR_PLANE_BLOCK.
+extern "C" int tdp_windowed_aosoa_launch(int site, int W, int plane_block,
+                                         const void* const* in, void* const* out,
+                                         int X, int Y, int Z, int hx, int hy, int hz,
+                                         int plane, float A, float B, float kappa,
+                                         float tau, float tau_phi, float gamma,
+                                         void* stream) {
+  if (W < 1 || ((int64_t)Y * Z) % W || plane % W) return tdp::ERR_BAD_VVL;
+  WindowedAosoaArgs w{};
+  tdp::FieldIO& io = w.a.io;
+  for (int i = 0; i < tdp::MAX_IN; ++i) io.in[i] = static_cast<const float*>(in[i]);
+  for (int k = 0; k < tdp::MAX_OUT; ++k) io.out[k] = static_cast<float*>(out[k]);
+  io.X = X;
+  io.Y = Y;
+  io.Z = Z;
+  io.hx = hx;
+  io.hy = hy;
+  io.hz = hz;
+  io.n = (int64_t)X * Y * Z;
+  io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
+  w.a.map = tdp::make_aosoa_map(W);
+  w.a.plane = plane;
+  w.a.soa_out = true;
+  w.plane_block = plane_block;
+  return tdp::dispatch_site_aosoa<AosoaLaunch>(site, w, stream);
 }

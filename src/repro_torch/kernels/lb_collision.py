@@ -118,10 +118,15 @@ def check_d3q19_consts(consts: dict, what: str) -> None:
 
 
 def cuda_vvl(vvl: int | None) -> int:
-    """The sites per thread of a CUDA launch: ``None`` → 1."""
+    """The sites per thread of a SoA CUDA launch: ``None`` → 1."""
     vvl = CUDA_VVLS[0] if vvl is None else int(vvl)
     if vvl not in CUDA_VVLS:
-        raise ValueError(f"the CUDA kernels take vvl in {CUDA_VVLS}, got {vvl}")
+        raise ValueError(
+            f"the CUDA kernels take vvl in {CUDA_VVLS} under layout='soa', "
+            f"where it is the sites a thread covers; got {vvl}.  Under "
+            f"layout='aosoa' vvl is the width of the AoSoA site block, any "
+            f"value >= 1 (on 'cuda_windowed' a divisor of the x-plane's "
+            f"sites)")
     return vvl
 
 

@@ -38,12 +38,30 @@ consts.  CUDA tensors launch the kernel or raise; CPU tensors run the plain
 version (:func:`fields_plain`: each stencil field's neighbours gathered by
 :func:`repro_torch.core.api.gather_neighbors`, then the plain body).
 :data:`launches` counts kernel launches per site function.
+
+``Target(layout="aosoa")``: ``Target.vvl`` is the width ``W`` of the AoSoA
+site block (any ``W >= 1``; ``None`` → the process default).  Every operand
+goes through the boundary transform (:func:`aosoa_operands`): a stencil
+field's flat extended grid, a pointwise field's sites, each into ``(nblk,
+ncomp, W)`` blocks, the last zero-padded.  The AoSoA kernels read those
+blocks themselves, one thread per site, and write AoSoA outputs, which
+come back SoA through :func:`~repro_torch.core.layout.aosoa_to_soa`, as in
+the reference.  ``gated``/``act`` are elementwise and every operand shares
+one layout, so their AoSoA kernel is ``ew_kernel`` run over the padded
+blocks.  ``mamba`` needs ``W`` a multiple of 4 (its chunk stage copies 4
+channels at a time, and a copy may not straddle two blocks).  On CPU
+tensors the plain version (:func:`aosoa_plain`) reads every operand through
+the same index map, then runs the plain body.  :data:`aosoa_launches`
+counts the AoSoA kernel launches per site function.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.layout import aosoa_gather, aosoa_to_soa, soa_to_aosoa
 
 from . import _build
 from .lb_collision import PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts, cuda_vvl
@@ -54,6 +72,13 @@ LM_SITES = _build.LM_SITES + ("mamba",)
 
 #: kernel launches of this executor, by site function
 launches = dict.fromkeys(_build.SITES + LM_SITES + _build.EXAMPLE_SITES, 0)
+#: AoSoA kernel launches of this executor, by site function
+aosoa_launches = dict.fromkeys(launches, 0)
+#: the channels ``mamba``'s chunk stage copies at a time: the AoSoA width
+#: must be a multiple of it
+MAMBA_AOSOA_ALIGN = 4
+#: the channels of a lane group of the AoSoA ``mamba`` kernel (its SoA VVL)
+MAMBA_AOSOA_VVL = 2
 
 _POINT = None
 #: The field and output signature of each C site function
@@ -378,6 +403,8 @@ def cuda_execute(plan, fields, out=None):
     """Registry executor entry (``takes_fields=True`` — see
     :mod:`repro_torch.core.registry`)."""
     site = cuda_site(plan)
+    if plan.layout == "aosoa":
+        return aosoa_execute(plan, site, fields, out)
     vvl = cuda_vvl(plan.target.vvl)
     x0 = fields[0]
     if x0.device.type == "cpu":
@@ -401,3 +428,233 @@ def cuda_execute(plan, fields, out=None):
     _build.check(rc, f"tdp_gathered {site}")
     launches[site] += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# layout="aosoa"
+# ---------------------------------------------------------------------------
+
+def aosoa_plane_sites(plan, windowed: bool) -> int:
+    """Sites of one x-plane of a stencil field's AoSoA operand: the
+    extended plane's, padded to a multiple of ``W`` for the windowed
+    executor (each plane in whole blocks), as they are for the gathered
+    one (the blocks run over the flat extended grid)."""
+    halo = tuple(plan.halo or (0,) * len(plan.shape))
+    ps = 1
+    for s, h in zip(plan.shape[1:], halo[1:]):
+        ps *= s + 2 * h
+    return -(-ps // plan.vvl) * plan.vvl if windowed else ps
+
+
+def aosoa_operands(plan, fields, windowed: bool = False):
+    """The boundary transform: each field into contiguous ``(nblk, ncomp,
+    W)`` AoSoA blocks.  A pointwise field's blocks run over its sites; a
+    stencil field's over its flat extended grid, each x-plane padded to
+    :func:`aosoa_plane_sites` under the windowed executor."""
+    ops = []
+    for x, s in zip(fields, plan.stencils or (None,) * len(fields)):
+        x = x.reshape(x.shape[0], -1) if s is None else x
+        if s is not None:
+            ps = aosoa_plane_sites(plan, windowed)
+            x = x.reshape(x.shape[0], x.shape[1], -1)
+            if ps != x.shape[-1]:
+                x = F.pad(x, (0, ps - x.shape[-1]))
+            x = x.reshape(x.shape[0], -1)
+        ops.append(soa_to_aosoa(x, plan.vvl))
+    return tuple(ops)
+
+
+def neighbor_sites(plan, stencil, plane_sites: int, device=None
+                   ) -> torch.Tensor:
+    """``(noffsets, n)``: the flat index, in a stencil field's extended
+    grid laid out with ``plane_sites`` sites an x-plane, of each interior
+    site's neighbour at each offset — the wrap and the ghost planes of the
+    kernels' accessor (``csrc/lb_sites.cuh``: ``wrap``)."""
+    shape = plan.shape
+    halo = tuple(plan.halo or (0,) * len(shape))
+    ext = [s + 2 * h for s, h in zip(shape, halo)]
+    strides = [plane_sites] + [1] * (len(shape) - 1)
+    for d in range(len(shape) - 2, 0, -1):
+        strides[d] = strides[d + 1] * ext[d + 1]
+    coords = torch.meshgrid(*[torch.arange(s, device=device) for s in shape],
+                            indexing="ij")
+    rows = []
+    for off in stencil.offsets:
+        e = torch.zeros(shape, dtype=torch.int64, device=device)
+        for c, o, s, h, st in zip(coords, off, shape, halo, strides):
+            e += ((c + o + h) if h else (c + o) % s) * st
+        rows.append(e.reshape(-1))
+    return torch.stack(rows)
+
+
+def aosoa_plain(plan, ops, n: int, windowed: bool = False):
+    """Plain version on the AoSoA operands: every operand read through the
+    index map (:func:`~repro_torch.core.layout.aosoa_gather`) — a stencil
+    field at each interior site's neighbours (:func:`neighbor_sites`) —
+    then the plain body once over the ``n`` sites.  Returns SoA
+    outputs."""
+    from repro_torch.core.api import call_body
+
+    args = []
+    for a, s in zip(ops, plan.stencils or (None,) * len(ops)):
+        if s is None:
+            args.append(aosoa_gather(a, torch.arange(n, device=a.device)))
+        else:
+            e = neighbor_sites(plan, s, aosoa_plane_sites(plan, windowed),
+                               a.device)
+            args.append(aosoa_gather(a, e).transpose(0, 1).contiguous())
+    return call_body(plan, args)
+
+
+def _aosoa_lib():
+    fn = _build.load("tdp_gathered").tdp_gathered_aosoa_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p] + [ctypes.c_int] * 7
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _example_aosoa_lib():
+    fn = _build.load(
+        "tdp_gathered_example").tdp_gathered_example_aosoa_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _rmsnorm_aosoa_lib():
+    fn = _build.load("tdp_gathered_lm").tdp_gathered_rmsnorm_aosoa_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _mamba_aosoa_lib():
+    fn = _build.load("tdp_gathered_lm").tdp_gathered_mamba_aosoa_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _aosoa_launch(plan, site, ops, n, geom):
+    """Launch the AoSoA kernel of ``site`` on the card's AoSoA operands;
+    returns its AoSoA outputs."""
+    W = plan.vvl
+    x0 = ops[0]
+    outs = tuple(torch.empty((-(-n // W), c, W), dtype=x0.dtype,
+                             device=x0.device) for c in plan.out_ncomp)
+    stream = _build.stream_handle(x0.device)
+    with torch.cuda.device(x0.device):
+        if site == "mamba":
+            rows, nstate_rows = plan.out_ncomp
+            batch = mamba_batch(plan)
+            b, c = plan.consts["b"], plan.consts["c"]
+            nstate = nstate_rows // batch
+            check_cuda_tensors([b, c], [(rows, nstate)] * 2,
+                               f"kernel {plan.name!r} (b, c)")
+            rc = _mamba_aosoa_lib()(
+                nstate, W, *[t.data_ptr() for t in ops], b.data_ptr(),
+                c.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                rows // batch, n, batch, stream)
+        elif site in _build.EXAMPLE_SITE_ID:
+            rc = _example_aosoa_lib()(
+                _build.EXAMPLE_SITE_ID[site], W, x0.data_ptr(),
+                ops[1].data_ptr() if len(ops) > 1 else None,
+                outs[0].data_ptr(), n, int(x0.shape[1]),
+                float(plan.consts.get("a", 1.0)), stream)
+        elif site == "rmsnorm":
+            weight = plan.consts["weight"]
+            if not isinstance(weight, torch.Tensor):
+                raise ValueError(f"kernel {plan.name!r}: const 'weight' must "
+                                 f"be a tensor on {x0.device} for the CUDA "
+                                 f"site function, got "
+                                 f"{type(weight).__name__}")
+            check_cuda_tensors([x0, weight], [tuple(x0.shape),
+                                              (int(x0.shape[1]),)],
+                               f"kernel {plan.name!r} (x, weight)")
+            rc = _rmsnorm_aosoa_lib()(
+                W, x0.data_ptr(), weight.data_ptr(), outs[0].data_ptr(), n,
+                int(x0.shape[1]), float(plan.consts.get("eps", 0.0)),
+                float(plan.consts.get("scale_offset", 0.0)), stream)
+        elif site in _build.LM_SITE_ID:
+            # gated/act: every operand in one layout, so the elementwise
+            # kernel over the padded blocks is the AoSoA kernel
+            act = _build.LM_ACT_ID[plan.kernel.__cuda_act__]
+            rc = _lm_lib()(
+                _build.LM_SITE_ID[site], act, 1, x0.data_ptr(),
+                ops[1].data_ptr() if len(ops) > 1 else None, None,
+                outs[0].data_ptr(), x0.numel(), 1, 0.0, 0.0, stream)
+        else:
+            in_arr, out_arr = pointer_arrays(ops, outs)
+            rc = _aosoa_lib()(_build.SITE_ID[site], W, in_arr, out_arr, *geom,
+                              aosoa_plane_sites(plan, False)
+                              if plan.shape else 1,
+                              *phys_args(plan.consts), stream)
+    _build.check(rc, f"tdp_gathered AoSoA {site}")
+    aosoa_launches[site] += 1
+    return outs
+
+
+def aosoa_sites(plan, fields) -> int:
+    """The interior sites of a launch: the lattice's for a stencil launch,
+    the fields' otherwise."""
+    if any(s is not None for s in plan.stencils or ()):
+        n = 1
+        for s in plan.shape:
+            n *= int(s)
+        return n
+    return int(fields[0].shape[-1])
+
+
+def aosoa_execute(plan, site, fields, out=None, *, windowed=False,
+                  launch=None):
+    """A ``layout="aosoa"`` launch: the boundary transform, the AoSoA
+    kernel on CUDA tensors (``launch(plan, site, ops, n, geom)``, by
+    default the gathered executor's; it returns AoSoA outputs, or SoA
+    ones when ``windowed``) or :func:`aosoa_plain` on CPU tensors, and
+    SoA outputs."""
+    W = plan.vvl
+    x0 = fields[0]
+    if site == "mamba" and W % MAMBA_AOSOA_ALIGN:
+        raise ValueError(
+            f"kernel {plan.name!r}: the CUDA site function 'mamba' under "
+            f"layout='aosoa' needs vvl (the AoSoA block width) to be a "
+            f"multiple of {MAMBA_AOSOA_ALIGN}, the channels its chunk stage "
+            f"copies at a time; got vvl={W}")
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the CUDA executors run on CUDA or CPU tensors, "
+                         f"got {x0.device}")
+    n = aosoa_sites(plan, fields)
+    on_card = x0.device.type == "cuda"
+    geom = (lb_geometry(plan, fields) if on_card and site in _build.SITE_ID
+            else None)
+    ops = aosoa_operands(plan, fields, windowed)
+    for a in ops:
+        if max(a.shape[0] * W, a.shape[0] * a.shape[1]) >= 2 ** 31:
+            raise ValueError(
+                f"kernel {plan.name!r}: an AoSoA operand of {tuple(a.shape)} "
+                f"has 2^31 or more sites or rows of W: the AoSoA kernels "
+                f"index them in 32 bits")
+    if not on_card:
+        outs = aosoa_plain(plan, ops, n, windowed)
+    else:
+        check_cuda_tensors(ops, [tuple(a.shape) for a in ops],
+                           f"kernel {plan.name!r}")
+        outs = (launch or _aosoa_launch)(plan, site, ops, n, geom)
+        if not windowed:
+            outs = tuple(aosoa_to_soa(o, n) for o in outs)
+    if out is None:
+        return outs
+    for o, v in zip(out, outs):
+        o.copy_(v)
+    return tuple(out)

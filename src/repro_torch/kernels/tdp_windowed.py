@@ -23,6 +23,19 @@ CUDA tensors launch the kernel or raise; CPU tensors run the plain version
 (:func:`windowed_plain`: the neighbours gathered by slicing and rolling,
 then the plain body).  :data:`launches` counts kernel launches per site
 function.
+
+``Target(layout="aosoa")`` (the reference's AoSoA branch,
+``repro/kernels/tdp_windowed.py:102-206``): ``Target.vvl`` is the block
+width ``W``, which must divide the interior plane's site count ``Y·Z``
+(checked when the plan is built).  Each x-plane of every operand is grouped
+into ``W``-site blocks, a stencil field's halo-widened planes zero-padded
+to a multiple of ``W``
+(:func:`~repro_torch.kernels.tdp_pointwise.aosoa_operands`); the kernels
+read those blocks, one thread per site, and write SoA outputs, as the
+reference's do.  ``fused`` keeps its tile: the same shared-memory φ array,
+filled from the AoSoA planes, so ``plane_block`` and
+:func:`tile_smem_bytes` keep their meaning.  :data:`aosoa_launches`
+counts those launches.
 """
 from __future__ import annotations
 
@@ -32,11 +45,14 @@ import torch
 
 from . import _build
 from .lb_collision import cuda_vvl
-from .tdp_pointwise import (alloc_outputs, cuda_site, fields_plain,
-                            lb_geometry, phys_args, pointer_arrays)
+from .tdp_pointwise import (alloc_outputs, aosoa_execute, aosoa_plane_sites,
+                            cuda_site, fields_plain, lb_geometry, phys_args,
+                            pointer_arrays)
 
 #: kernel launches of this executor, by site function
 launches = dict.fromkeys(_build.SITES, 0)
+#: AoSoA kernel launches of this executor, by site function
+aosoa_launches = dict.fromkeys(_build.SITES, 0)
 
 #: x-planes of a ``fused`` tile when ``Target.tuning`` sets none: the
 #: fastest at 128³ on the H100 (PERF.md §6), by 0.5 % over 4
@@ -88,8 +104,11 @@ def windowed_execute(plan, fields, out=None):
             f"executor 'cuda_windowed' needs a 3-D lattice; kernel "
             f"{plan.name!r} was launched with shape {plan.shape}")
     site = cuda_site(plan)
-    vvl = cuda_vvl(plan.target.vvl)
     p = plane_block(plan)
+    if plan.layout == "aosoa":
+        return aosoa_execute(plan, site, fields, out, windowed=True,
+                             launch=_aosoa_launch)
+    vvl = cuda_vvl(plan.target.vvl)
     x0 = fields[0]
     if x0.device.type == "cpu":
         return windowed_plain(plan, fields, out)
@@ -104,4 +123,30 @@ def windowed_execute(plan, fields, out=None):
                     *phys_args(plan.consts), _build.stream_handle(x0.device))
     _build.check(rc, f"tdp_windowed {site}")
     launches[site] += 1
+    return outs
+
+
+def _aosoa_lib():
+    fn = _build.load("tdp_windowed").tdp_windowed_aosoa_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _aosoa_launch(plan, site, ops, n, geom):
+    """Launch the windowed AoSoA kernel of ``site``; SoA outputs."""
+    x0 = ops[0]
+    outs = alloc_outputs(plan, x0, n, None)
+    in_arr, out_arr = pointer_arrays(ops, outs)
+    with torch.cuda.device(x0.device):
+        rc = _aosoa_lib()(_build.SITE_ID[site], plan.vvl, plane_block(plan),
+                          in_arr, out_arr, *geom,
+                          aosoa_plane_sites(plan, True),
+                          *phys_args(plan.consts),
+                          _build.stream_handle(x0.device))
+    _build.check(rc, f"tdp_windowed AoSoA {site}")
+    aosoa_launches[site] += 1
     return outs

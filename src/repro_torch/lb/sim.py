@@ -30,7 +30,9 @@ and raises ``RuntimeError`` when no card is present.  On the card the
 default backend is ``"cuda"`` (unfused) or ``"cuda_windowed"`` (fused) at
 ``vvl=1``; on the CPU it is ``"torch"`` at the process default VVL.  A
 CUDA backend defaults to ``vvl=1`` on either device (on CPU tensors it runs
-the plain versions).
+the plain versions).  A ``target`` with ``layout="aosoa"`` runs every regime
+on AoSoA operands (its ``vvl`` the block width; on ``"cuda_windowed"`` a
+divisor of the grid's ``Y·Z``).
 """
 from __future__ import annotations
 

@@ -29,6 +29,11 @@ paper                 here
                       ``csrc/tdp_windowed.cu``)
 ``TARGET_ILP``        ``Target.vvl`` sites a thread, in {1, 2, 4, 8}
                       (:data:`CUDA_VVLS`); ``vvl=None`` is 1 on the card
+``VVL`` AoSoA site    ``Target(layout="aosoa")``: the executors' operands
+ordering              in blocks of ``vvl`` sites (:func:`soa_to_aosoa`,
+                      :func:`aosoa_to_soa`, :data:`LAYOUTS`,
+                      :func:`aosoa_nblocks`), read by AoSoA kernels one
+                      site a thread; outputs SoA
 ``TARGET_CONST``      :class:`TargetConst` / launch ``**consts``
                       (:func:`copy_constant_to_target`)
 C-vs-CUDA switch      ``Target("torch")`` (plain PyTorch: the CPU build and
@@ -51,9 +56,7 @@ Entry points that allocate run on the card unless the caller passes
 where its tensors lie (the ``"cuda"`` executors run their plain versions on
 CPU tensors).
 
-Not ported yet, each with its ROADMAP item (queue A): ``LAYOUTS``,
-``aosoa_nblocks``, ``aosoa_to_soa``, ``soa_to_aosoa`` and
-``Target(layout="aosoa")`` (item 3, the AoSoA layout);
+Not ported yet, each with its ROADMAP item (queue A):
 ``exchange_ghosts``, ``exchange_stats`` and ``compile(mesh=)`` (item 4,
 decompositions); ``fleet``, ``FleetProgram``, ``FleetDriver``, ``Ticket``,
 ``health``, ``HealthPolicy``, ``HealthError``, ``Diagnosis``, ``faults``,
@@ -98,6 +101,12 @@ from repro_torch.core.lattice import (  # noqa: F401
     Lattice,
     Stencil,
     token_lattice,
+)
+from repro_torch.core.layout import (  # noqa: F401
+    LAYOUTS,
+    aosoa_nblocks,
+    aosoa_to_soa,
+    soa_to_aosoa,
 )
 from repro_torch.core.memory import (  # noqa: F401
     TargetConst,
@@ -164,4 +173,5 @@ __all__ = [
     "copy_from_target", "copy_to_target_masked", "copy_from_target_masked",
     "sync_target", "target_free", "target_malloc", "target_malloc_like",
     "validate_field",
+    "LAYOUTS", "aosoa_nblocks", "aosoa_to_soa", "soa_to_aosoa",
 ]

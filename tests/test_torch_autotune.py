@@ -54,7 +54,7 @@ from repro_torch.core.autotune import (
     load_cached,
     store_cached,
 )
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.calibrate import FMA_RTOL, fma_chain
 from repro_torch.kernels.lb_collision import cuda_vvl
 from repro_torch.lb import programs as lbp
@@ -93,7 +93,9 @@ class ScriptedTimer:
 
     def __call__(self, target, run):
         label = Candidate(target.backend, vvl=target.vvl,
-                          tuning=target.tuning).label
+                          tuning=target.tuning,
+                          layout=target.layout if target.layout == "aosoa"
+                          else None).label
         self.calls.append(label)
         for key, cost in self.costs.items():
             if key in label:
@@ -147,18 +149,11 @@ class TestSpace:
         assert "plane_block" not in knobs
         assert not any("plane_block" in label for label, _ in pruned)
 
-    @pytest.mark.parametrize("base", [BASE, SWEEP, Target("cuda_windowed")])
-    def test_no_aosoa_points(self, base):
-        """AoSoA is not ported: the space holds no point the card cannot
-        take, so nothing lands in ``pruned`` for it either."""
-        cands, pruned = default_space(fused_prog(), base)
-        assert all(c.layout is None for c in cands)
-        assert pruned == []
-
     def test_fused_tile_brings_the_plane_block_axis(self):
         """One-launch programs hold ``fused``'s shared-memory tile, so
         ``"cuda_windowed"`` sweeps its depth: the divisors of the x extent
-        at the base VVL, the default's own value excepted."""
+        at the base VVL, the default's own value excepted.  The AoSoA
+        widths (divisors of the 64-site plane from 8) come before it."""
         cands, pruned = default_space(fused_prog("one_launch"),
                                       Target("cuda_windowed"),
                                       executors=["cuda_windowed"],
@@ -166,8 +161,10 @@ class TestSpace:
         labels = [c.label for c in cands]
         assert labels == [
             "cuda_windowed", "cuda_windowed[vvl=2]", "cuda_windowed[vvl=4]",
-            "cuda_windowed[vvl=8]", "cuda_windowed[plane_block=1]",
-            "cuda_windowed[plane_block=4]", "cuda_windowed[plane_block=8]"]
+            "cuda_windowed[vvl=8]"] + [
+            f"cuda_windowed[layout=aosoa,vvl={w}]" for w in (8, 16, 32, 64)
+        ] + ["cuda_windowed[plane_block=1]",
+             "cuda_windowed[plane_block=4]", "cuda_windowed[plane_block=8]"]
         assert pruned == []
 
     def test_vmem_limit_prunes_deep_tiles(self):
@@ -227,7 +224,8 @@ class TestSelection:
 
     def test_base_target_always_candidate_zero(self, tmp_path):
         tuned, rep = tune(tmp_path, target=SWEEP)
-        assert len(rep.results) == 5
+        # cuda at 4 VVLs, torch, and 6 AoSoA widths of the 512 sites each
+        assert len(rep.results) == 5 + 2 * 6
         assert rep.results[0].candidate.label == "cuda"
         assert tuned == SWEEP                    # flat costs: ties go to 0
 
@@ -445,8 +443,16 @@ class TestReferenceReplay:
         assert got is not None and want is not None
         assert got.as_dict() == want.as_dict()
         assert got.best.layout == "aosoa"
-        with pytest.raises(NotImplementedError):
-            got.best.target_from(BASE)        # AoSoA is not ported
+        # the reference's "xla" is the port's "torch": the entry replays to
+        # an AoSoA target that runs here and computes what SoA does
+        tgt = got.best.target_from(BASE).with_(backend="torch")
+        assert tgt.layout == "aosoa" and tgt.vvl == got.best.vvl
+        x = torch.randn(300, 1024, generator=torch.Generator().manual_seed(0))
+        w = torch.randn(1024, generator=torch.Generator().manual_seed(1))
+        want = ops.rmsnorm(x, w, target="torch", device="cpu")
+        for backend in ("torch", "cuda"):
+            assert torch.equal(ops.rmsnorm(x, w, target=tgt.with_(
+                backend=backend), device="cpu"), want)
 
     def test_interpreted_reference_entry_is_a_miss(self):
         """The reference's committed windowed entry was measured under its
@@ -471,7 +477,9 @@ class TestReferenceReplay:
 
 def scripted_scorer(costs, default=0.05):
     def scorer(target):
-        label = Candidate(target.backend, vvl=target.vvl).label
+        label = Candidate(target.backend, vvl=target.vvl,
+                          layout=target.layout if target.layout == "aosoa"
+                          else None).label
         for key, cost in costs.items():
             if key in label:
                 return cost
@@ -481,7 +489,7 @@ def scripted_scorer(costs, default=0.05):
 
 class TestPredictorGuided:
     def test_top_k_measures_at_most_k_plus_one(self, tmp_path):
-        scorer = scripted_scorer({"vvl=8]": 0.001, "vvl=4]": 0.002})
+        scorer = scripted_scorer({"[vvl=8]": 0.001, "[vvl=4]": 0.002})
         _, rep = tune(tmp_path, target=SWEEP, scorer=scorer, top_k=2)
         measured = [r.candidate.label for r in rep.results]
         assert measured == ["cuda", "cuda[vvl=4]", "cuda[vvl=8]"]
@@ -496,9 +504,12 @@ class TestPredictorGuided:
 
     def test_model_pruned_candidates_recorded_with_reason(self, tmp_path):
         _, rep = tune(tmp_path, target=SWEEP,
-                      scorer=scripted_scorer({"vvl=8]": 0.001}), top_k=1)
+                      scorer=scripted_scorer({"[vvl=8]": 0.001}), top_k=1)
         mp = [why for _, why in rep.pruned if why.startswith("model-pruned")]
-        assert len(mp) == 3 and all("predicted rank" in why for why in mp)
+        cands, _ = default_space(fused_prog(), SWEEP, grid_shape=GRID)
+        # every candidate but the base and the one kept
+        assert len(mp) == len(cands) - 2 == 15
+        assert all("predicted rank" in why for why in mp)
 
     def test_unscored_candidates_pruned_not_crashed(self, tmp_path):
         def flaky(target):

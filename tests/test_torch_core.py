@@ -85,10 +85,6 @@ class TestTargetAndRegistry:
         assert Target().executor == "cuda"
         assert as_target("torch", vvl=8) == Target("torch", vvl=8)
 
-    def test_aosoa_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Target("cuda", layout="aosoa")
-
     def test_register_and_version(self):
         assert executor_wants("torch") == "gathered"
         assert executor_wants("cuda") == "gathered"

@@ -35,7 +35,10 @@ from repro_torch.core import lattice as tlat
 from repro_torch.core.api import launch_plan
 from repro_torch.kernels import _build, tdp_windowed
 from repro_torch.kernels.lb_collision import CV
-from repro_torch.kernels.tdp_pointwise import (fields_plain, phys_args,
+from repro_torch.core.layout import aosoa_offsets, aosoa_to_soa, soa_to_aosoa
+from repro_torch.kernels.tdp_pointwise import (aosoa_operands,
+                                               aosoa_plane_sites,
+                                               fields_plain, phys_args,
                                                pointer_arrays)
 from repro_torch.lb import programs as tprog
 from repro_torch.lb import stencil as tst
@@ -138,6 +141,84 @@ extern "C" int host_windowed(int site, int vvl, int plane_block,
 extern "C" long long host_tile_smem(int plane_block) {
   return tdp::tile_smem_bytes(plane_block);
 }
+
+// The AoSoA launchers: tdp_gathered.cu's AosoaLaunch thread by thread, and
+// tdp_windowed.cu's, whose fused runs in tiles of one site a thread.
+namespace {
+template <class Site>
+struct AosoaLoop {
+  static int run(const tdp::AosoaIO& a, void*) {
+    if (const int rc = tdp::check_geometry(a.io, Site::RADIUS)) return rc;
+    for (int64_t t = 0; t < a.io.n; ++t) tdp::aosoa_thread<Site>(a, t);
+    return 0;
+  }
+};
+
+struct WindowedAosoaArgs {
+  tdp::AosoaIO a;
+  int plane_block;
+};
+
+template <class Site>
+struct WindowedAosoaLoop {
+  static int run(const WindowedAosoaArgs& w, void* stream) {
+    if (const int rc = tdp::check_geometry(w.a.io, Site::RADIUS)) return rc;
+    if constexpr (std::is_same_v<Site, tdp::FusedSite>) {
+      const int P = w.plane_block;
+      if (const int rc = tdp::check_tile(P)) return rc;
+      std::vector<float> phi(tdp::tile_smem_bytes(P) / sizeof(float));
+      for (int64_t b = 0, nb = tdp::tile_blocks(w.a.io, P); b < nb; ++b) {
+        std::fill(phi.begin(), phi.end(), NAN);
+        for (int t = 0; t < tdp::tile_threads<1>(); ++t)
+          tdp::fused_tile_phi<1>(w.a, P, b, t, phi.data());
+        for (int t = 0; t < tdp::tile_threads<1>(); ++t)
+          tdp::fused_tile_collide<1>(w.a, P, b, t, phi.data());
+      }
+      return 0;
+    } else {
+      return AosoaLoop<Site>::run(w.a, stream);
+    }
+  }
+};
+
+tdp::AosoaIO make_aosoa(const tdp::FieldIO& io, int W, int plane, bool soa_out) {
+  tdp::AosoaIO a{};
+  a.io = io;
+  a.map = tdp::make_aosoa_map(W);
+  a.plane = plane;
+  a.soa_out = soa_out;
+  return a;
+}
+}  // namespace
+
+extern "C" long long host_aosoa_index(int W, int e, int ncomp, int c) {
+  return tdp::aosoa_index(tdp::make_aosoa_map(W), e, ncomp, c);
+}
+
+extern "C" int host_gathered_aosoa(int site, int W, const void* const* in,
+                                   void* const* out, int X, int Y, int Z, int hx,
+                                   int hy, int hz, int plane, float A, float B,
+                                   float kappa, float tau, float tau_phi,
+                                   float gamma, void* stream) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  const tdp::AosoaIO a = make_aosoa(make_io(in, out, X, Y, Z, hx, hy, hz, A, B,
+                                            kappa, tau, tau_phi, gamma),
+                                    W, plane, false);
+  return tdp::dispatch_site_aosoa<AosoaLoop>(site, a, stream);
+}
+
+extern "C" int host_windowed_aosoa(int site, int W, int plane_block,
+                                   const void* const* in, void* const* out, int X,
+                                   int Y, int Z, int hx, int hy, int hz, int plane,
+                                   float A, float B, float kappa, float tau,
+                                   float tau_phi, float gamma, void* stream) {
+  if (W < 1 || ((int64_t)Y * Z) % W || plane % W) return tdp::ERR_BAD_VVL;
+  const WindowedAosoaArgs w{make_aosoa(make_io(in, out, X, Y, Z, hx, hy, hz, A, B,
+                                               kappa, tau, tau_phi, gamma),
+                                       W, plane, true),
+                            plane_block};
+  return tdp::dispatch_site_aosoa<WindowedAosoaLoop>(site, w, stream);
+}
 """
 
 
@@ -163,6 +244,20 @@ def host_lib(tmp_path_factory):
     so.host_gathered.restype = so.host_windowed.restype = ctypes.c_int
     so.host_tile_smem.argtypes = [ctypes.c_int]
     so.host_tile_smem.restype = ctypes.c_longlong
+    so.host_gathered_aosoa.argtypes = ([ctypes.c_int] * 2
+                                       + [ctypes.c_void_p] * 2
+                                       + [ctypes.c_int] * 7
+                                       + [ctypes.c_float] * 6
+                                       + [ctypes.c_void_p])
+    so.host_windowed_aosoa.argtypes = ([ctypes.c_int] * 3
+                                       + [ctypes.c_void_p] * 2
+                                       + [ctypes.c_int] * 7
+                                       + [ctypes.c_float] * 6
+                                       + [ctypes.c_void_p])
+    so.host_gathered_aosoa.restype = ctypes.c_int
+    so.host_aosoa_index.argtypes = [ctypes.c_int] * 4
+    so.host_aosoa_index.restype = ctypes.c_longlong
+    so.host_windowed_aosoa.restype = ctypes.c_int
     return so
 
 
@@ -182,12 +277,13 @@ def _fields(spec, shape, halo, seed):
     return xs
 
 
-def _plan(name, windowed, shape, halo, vvl=1, plane_block=None):
+def _plan(name, windowed, shape, halo, vvl=1, plane_block=None,
+          layout="soa"):
     spec = tst.SPECS[name]
     consts = tprog.collision_consts(**PHYS) if spec.consts else {}
     tuning = {} if plane_block is None else {"plane_block": plane_block}
     tgt = Target("cuda_windowed" if windowed else "cuda", vvl=vvl,
-                 tuning=tuning)
+                 tuning=tuning, layout=layout)
     return launch_plan(spec, tgt, lattice=Lattice(shape), halo=halo,
                        consts=consts)
 
@@ -290,6 +386,139 @@ def test_caller_ghost_planes(host_lib, name, windowed, halo):
     _check_all_vvls(host_lib, name, windowed, RAGGED, halo, 9,
                     plane_blocks=(1, 3) if windowed and name == "fused"
                     else (None,))
+
+
+# ---------------------------------------------------------------------------
+# the AoSoA layout: AosoaNb, aosoa_thread and the tile phases over AoSoA
+# ---------------------------------------------------------------------------
+
+def _aosoa_host_run(host_lib, name, windowed, shape, halo, xs, W,
+                    plane_block=tdp_windowed.DEFAULT_PLANE_BLOCK):
+    """(rc, SoA outputs) of the AoSoA harness.  The operands go through the
+    executor's own boundary transform (``aosoa_operands``) and their pad
+    lanes are set to NaN; the outputs start as NaN, and the pad lanes of
+    AoSoA outputs must stay NaN (no thread writes them)."""
+    spec = tst.SPECS[name]
+    n = int(np.prod(shape))
+    plan = _plan(name, windowed, shape, halo, vvl=W, layout="aosoa")
+    ext = tuple(s + 2 * h for s, h in zip(shape, halo))
+    views = [x if s is None else x.view(x.shape[0], *ext)
+             for x, s in zip(xs, spec.stencils)]
+    ops = aosoa_operands(plan, views, windowed)
+    live = aosoa_operands(plan, [torch.ones_like(v) for v in views], windowed)
+    for o, m in zip(ops, live):
+        o[m == 0] = float("nan")
+    if windowed:
+        outs = tuple(torch.full((c, n), float("nan")) for c in spec.out)
+    else:
+        nblk = -(-n // W)
+        outs = tuple(torch.full((nblk, c, W), float("nan")) for c in spec.out)
+    ins, outp = pointer_arrays(ops, outs)
+    consts = tprog.collision_consts(**PHYS) if spec.consts else {}
+    geom = ((*shape, *halo) if spec.has_stencil else (1, 1, n, 0, 0, 0))
+    plane = aosoa_plane_sites(plan, windowed) if spec.has_stencil else 1
+    if windowed:
+        rc = host_lib.host_windowed_aosoa(
+            _build.SITE_ID[name], W, plane_block, ins, outp, *geom, plane,
+            *phys_args(consts), None)
+        return rc, outs
+    rc = host_lib.host_gathered_aosoa(_build.SITE_ID[name], W, ins, outp,
+                                      *geom, plane, *phys_args(consts), None)
+    pad = torch.arange(n, -(-n // W) * W)
+    for o in outs:
+        assert o.reshape(-1)[aosoa_offsets(pad, o.shape[1], W)].isnan().all()
+    return rc, tuple(aosoa_to_soa(o, n) for o in outs)
+
+
+def _check_aosoa(host_lib, name, windowed, shape, halo, seed, widths,
+                 plane_blocks=(None,)):
+    """Every width and plane_block: bit-equal to the SoA harness at VVL 1
+    (the same site arithmetic, other addresses) and held to the plain
+    version."""
+    spec = tst.SPECS[name]
+    xs = _fields(spec, shape, halo, seed)
+    want = fields_plain(_plan(name, windowed, shape, halo), xs)
+    rc, soa = _host_run(host_lib, name, windowed, shape, halo, xs, 1)
+    assert rc == 0
+    for W in widths:
+        for p in plane_blocks:
+            kw = {} if p is None else {"plane_block": p}
+            rc, got = _aosoa_host_run(host_lib, name, windowed, shape, halo,
+                                      xs, W, **kw)
+            what = f"{name} {shape} halo={halo} W={W} P={p}"
+            assert rc == 0, what
+            for a, b in zip(got, soa):
+                assert torch.equal(a, b), what
+            _assert_matches(name, got, want, what)
+
+
+@pytest.mark.parametrize("name,windowed", _CASES)
+def test_aosoa_site_function_matches_soa(host_lib, name, windowed):
+    """Gathered: any width, one block wider than the lattice included;
+    windowed: the divisors of the 32-site plane, ``fused`` at three tile
+    depths."""
+    if windowed:
+        _check_aosoa(host_lib, name, True, (6, 4, 8), (0, 0, 0),
+                     _build.SITE_ID[name], (1, 4, 8, 32),
+                     (1, 2, 4) if name == "fused" else (None,))
+    else:
+        _check_aosoa(host_lib, name, False, SHAPE, (0, 0, 0),
+                     _build.SITE_ID[name], (1, 3, 8, 32, 256))
+
+
+@pytest.mark.parametrize("shape,widths", [((2, 3, 5), (3, 15)),
+                                          ((5, 3, 2), (2, 6))],
+                         ids=["2x3x5", "5x3x2"])
+@pytest.mark.parametrize("name", STENCIL_SITES)
+@pytest.mark.parametrize("windowed", [False, True])
+def test_aosoa_thin_periodic_extents(host_lib, name, windowed, shape, widths):
+    """The wrap of AosoaNb and of the tile rim over AoSoA planes."""
+    _check_aosoa(host_lib, name, windowed, shape, (0, 0, 0), 5, widths,
+                 (1, 2) if windowed and name == "fused" else (None,))
+
+
+@pytest.mark.parametrize("halo", _HALOS, ids=lambda h: "h" + "".join(map(str, h)))
+@pytest.mark.parametrize("name", STENCIL_SITES)
+@pytest.mark.parametrize("windowed", [False, True])
+def test_aosoa_caller_ghost_planes(host_lib, name, windowed, halo):
+    """Ghost planes under AoSoA: the windowed executor's halo-widened
+    planes are padded to whole blocks (NaN in the pad lanes here)."""
+    _check_aosoa(host_lib, name, windowed, RAGGED, halo, 9,
+                 (11, 37) if windowed else (5, 16),
+                 (1, 3) if windowed and name == "fused" else (None,))
+
+
+def test_aosoa_index_map_divides_exactly(host_lib):
+    """The kernels' branch-free division by W (a multiply and a shift) over
+    every W to 4096 and the extremes of the 31-bit site range, wherever the
+    buffer's rows of W fit in 31 bits (the wrappers' bound)."""
+    rng = np.random.default_rng(12)
+    widths = list(range(1, 4097)) + [8191, 8192, 65535, 2 ** 20, 2 ** 30 - 1,
+                                     2 ** 30, 2 ** 31 - 1]
+    for W in widths:
+        top = (2 ** 31 - 1) // W * W
+        es = {0, 1, W - 1, W, 2 ** 31 - 1, top, top - 1,
+              *map(int, rng.integers(0, 2 ** 31, 4))}
+        for e in es:
+            for ncomp, c in ((1, 0), (19, 18)):
+                if (e // W + 1) * ncomp > 2 ** 31:
+                    continue
+                want = ((e // W) * ncomp + c) * W + e % W
+                assert host_lib.host_aosoa_index(W, e, ncomp, c) == want, (
+                    W, e, ncomp, c)
+
+
+def test_aosoa_codes(host_lib):
+    x = torch.zeros(19 * 64)
+    ins, outs = pointer_arrays([x, x], [x, x])
+    args = (4, 4, 4, 0, 0, 0, 16, *[1.0] * 6, None)
+    assert host_lib.host_gathered_aosoa(0, 0, ins, outs, *args) == -2
+    assert host_lib.host_gathered_aosoa(99, 8, ins, outs, *args) == -1
+    for W in (0, 3):        # W must divide the 16-site plane
+        assert host_lib.host_windowed_aosoa(0, W, 1, ins, outs, *args) == -2
+    assert host_lib.host_windowed_aosoa(4, 8, 0, ins, outs, *args) == -7
+    assert host_lib.host_gathered_aosoa(
+        4, 8, ins, outs, 1, 4, 4, 0, 0, 0, 16, *[1.0] * 6, None) == -6
 
 
 def test_geometry_and_plane_block_codes(host_lib):
@@ -405,6 +634,31 @@ struct ExampleLoop {
 };
 }  // namespace
 
+// tdp_gathered_example.cu's AosoaLaunch, thread by thread.
+namespace {
+template <class Site>
+struct ExampleAosoaLoop {
+  static int run(const tdp::ex::ExampleAosoaIO& a, void*) {
+    for (int64_t t = 0; t < a.io.n; ++t) tdp::ex::example_aosoa_thread<Site>(a, t);
+    return 0;
+  }
+};
+}  // namespace
+
+extern "C" int host_example_aosoa(int site, int W, const void* x, const void* y,
+                                  void* out, int n, int ncomp, float a) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  tdp::ex::ExampleAosoaIO io{};
+  io.io.in[0] = static_cast<const float*>(x);
+  io.io.in[1] = static_cast<const float*>(y);
+  io.io.out = static_cast<float*>(out);
+  io.io.n = n;
+  io.io.ncomp = ncomp;
+  io.io.a = a;
+  io.map = tdp::make_aosoa_map(W);
+  return tdp::ex::dispatch_site_aosoa<ExampleAosoaLoop>(site, io, nullptr);
+}
+
 extern "C" int host_example(int site, int vvl, const void* x, const void* y,
                             void* out, int n, int ncomp, float a) {
   tdp::ex::ExampleIO io{};
@@ -435,6 +689,8 @@ def example_lib(tmp_path_factory):
     so.host_example.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
                                 + [ctypes.c_int] * 2 + [ctypes.c_float])
     so.host_example.restype = ctypes.c_int
+    so.host_example_aosoa.argtypes = so.host_example.argtypes
+    so.host_example_aosoa.restype = ctypes.c_int
     return so
 
 
@@ -479,3 +735,35 @@ def test_example_codes_and_enum(example_lib):
     assert [(n.lower(), int(i)) for n, i in enum] == [
         (n, _build.EXAMPLE_SITE_ID[n]) for n in _build.EXAMPLE_SITES]
     assert "tdp_gathered_example" in _build.SOURCES
+
+
+@pytest.mark.parametrize("site", _build.EXAMPLE_SITES)
+@pytest.mark.parametrize("W", [1, 5, 32, 64])
+@pytest.mark.parametrize("ncomp,n", [(3, 42), (2, 9)])
+def test_example_aosoa_matches_plain(example_lib, site, W, ncomp, n):
+    """Each example site function over AoSoA blocks (pad lanes NaN),
+    thread by thread: bit-equal to its plain body, ``site_pos`` with the
+    SoA index, and the output's pad lanes never written."""
+    from repro_torch.kernels import example_sites as ex
+
+    rng = np.random.default_rng(_build.EXAMPLE_SITE_ID[site] + 10 * W)
+    spec = ex.SPECS[site]
+    xs = [torch.tensor(rng.normal(size=(ncomp, n)), dtype=torch.float32)
+          for _ in spec.fields]
+    consts = {} if site == "site_pos" else {"a": -1.7}
+    want = tdp_launch(spec, Target("torch"), *xs, **consts)
+    nblk = -(-n // W)
+    pad = torch.arange(n, nblk * W)
+    ops = [soa_to_aosoa(x, W) for x in xs]
+    for o in ops:
+        o.reshape(-1)[aosoa_offsets(pad, ncomp, W)] = float("nan")
+    out = torch.full((nblk, ncomp, W), float("nan"))
+    rc = example_lib.host_example_aosoa(
+        _build.EXAMPLE_SITE_ID[site], W, ops[0].data_ptr(),
+        ops[1].data_ptr() if len(ops) > 1 else None, out.data_ptr(), n,
+        ncomp, consts.get("a", 1.0))
+    assert rc == 0
+    assert torch.equal(aosoa_to_soa(out, n), want), (site, W, ncomp, n)
+    assert out.reshape(-1)[aosoa_offsets(pad, ncomp, W)].isnan().all()
+    assert example_lib.host_example_aosoa(0, 0, ops[0].data_ptr(), None,
+                                          out.data_ptr(), n, ncomp, 1.0) == -2

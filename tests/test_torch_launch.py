@@ -182,12 +182,6 @@ class TestNoFallback:
             launch(spec, "cuda", x)
 
     @pytest.mark.parametrize("backend", ["cuda", "cuda_windowed"])
-    def test_aosoa_under_cuda_raises(self, backend):
-        with pytest.raises(NotImplementedError, match="aosoa"):
-            launch(tst.STREAM_SPEC, Target(backend, layout="aosoa"),
-                   torch.zeros((19, 512)), lattice=Lattice(SHAPE))
-
-    @pytest.mark.parametrize("backend", ["cuda", "cuda_windowed"])
     def test_vvl_outside_kernel_set_raises(self, backend):
         with pytest.raises(ValueError, match="vvl"):
             launch(tst.STREAM_SPEC, Target(backend, vvl=16),

@@ -35,8 +35,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.layout import aosoa_offsets, aosoa_to_soa, soa_to_aosoa
 from repro_torch.kernels import _build
 from repro_torch.kernels import lm as tlm
+from repro_torch.kernels import tdp_pointwise as tpw
 from repro_torch.kernels import ref as tref
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -106,8 +108,8 @@ namespace {
 // kernel's barriers), on two stages of shared memory filled with NaN; per
 // step and channel slot, the lanes' shares of y summed in the kernel's
 // shuffle rounds, each lane adding its partner's value of the round before.
-template <class Site, int VVL>
-struct MambaLoop {
+template <class Site, int VVL, bool AOSOA>
+struct MambaLoopT {
   static int run(const MambaIO& io, void*) {
     constexpr int N = Site::kN;
     using Tl = MambaTile<N, VVL>;
@@ -120,12 +122,14 @@ struct MambaLoop {
       for (int64_t blk = 0, nb = mamba_blocks<N, VVL>(io.n); blk < nb; ++blk) {
         std::fill(smem.begin(), smem.end(), NAN);
         float* stage[2] = {smem.data(), smem.data() + Tl::FLOATS};
-        for (int t = 0; t < MAMBA_THREADS; ++t) mamba_lane_init<N, VVL>(io, blk, t, lanes[t]);
-        for (int t = 0; t < MAMBA_THREADS; ++t) mamba_stage<N, VVL>(io, row, blk, 0, t, stage[0]);
+        for (int t = 0; t < MAMBA_THREADS; ++t)
+          mamba_lane_init<N, VVL, AOSOA>(io, blk, t, lanes[t]);
+        for (int t = 0; t < MAMBA_THREADS; ++t)
+          mamba_stage<N, VVL, AOSOA>(io, row, blk, 0, t, stage[0]);
         for (int64_t q = 0; q < nq; ++q) {
           if (q + 1 < nq)
             for (int t = 0; t < MAMBA_THREADS; ++t)
-              mamba_stage<N, VVL>(io, row, blk, q + 1, t, stage[(q + 1) & 1]);
+              mamba_stage<N, VVL, AOSOA>(io, row, blk, q + 1, t, stage[(q + 1) & 1]);
           const float* buf = stage[q & 1];
           const int steps = io.L - q * Tl::T < Tl::T ? (int)(io.L - q * Tl::T) : Tl::T;
           for (int s = 0; s < steps; ++s)
@@ -137,15 +141,71 @@ struct MambaLoop {
                 std::copy(sum, sum + MAMBA_THREADS, p);
               }
               for (int t = 0; t < MAMBA_THREADS; ++t)
-                mamba_out<N, VVL>(io, buf, row, blk, q, s, v, t, lanes[t], p[t]);
+                mamba_out<N, VVL, AOSOA>(io, buf, row, blk, q, s, v, t, lanes[t], p[t]);
             }
         }
-        for (int t = 0; t < MAMBA_THREADS; ++t) mamba_final<N, VVL>(io, row, blk, t, lanes[t]);
+        for (int t = 0; t < MAMBA_THREADS; ++t)
+          mamba_final<N, VVL, AOSOA>(io, row, blk, t, lanes[t]);
       }
     return 0;
   }
 };
+
+template <class Site, int VVL>
+struct MambaLoop : MambaLoopT<Site, VVL, false> {};
+
+// MambaAosoaLaunch of tdp_gathered_lm.cu
+template <class Site>
+struct MambaAosoaLoop : MambaLoopT<Site, MAMBA_AOSOA_VVL, true> {};
 }  // namespace
+
+// tdp_gathered_rmsnorm_aosoa_launch: block by block, each phase over all
+// the block's threads before the next, on NaN-filled shared arrays.
+extern "C" int host_rmsnorm_aosoa(int W, const void* x, const void* weight, void* out,
+                                  long long n, int ncomp, float eps,
+                                  float scale_offset) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  tdp::lm::LmIO io{};
+  io.in[0] = static_cast<const float*>(x);
+  io.out = static_cast<float*>(out);
+  io.weight = static_cast<const float*>(weight);
+  io.n = n;
+  io.ncomp = ncomp;
+  io.eps = eps;
+  io.scale_offset = scale_offset;
+  if (n <= 0) return 0;
+  const tdp::AosoaMap m = tdp::make_aosoa_map(W);
+  std::vector<float> red(RMS_THREADS), inv(RMS_THREADS);
+  for (int64_t b = 0, nb = rms_aosoa_blocks(io, m); b < nb; ++b) {
+    std::fill(red.begin(), red.end(), NAN);
+    std::fill(inv.begin(), inv.end(), NAN);
+    for (int t = 0; t < RMS_THREADS; ++t) rms_aosoa_partial(io, m, b, t, red.data());
+    for (int t = 0; t < RMS_THREADS; ++t) rms_aosoa_combine(io, m, t, red.data(), inv.data());
+    for (int t = 0; t < RMS_THREADS; ++t) rms_aosoa_scale(io, m, b, t, inv.data());
+  }
+  return 0;
+}
+
+extern "C" int host_mamba_aosoa(int nstate, int W, const void* x, const void* dt,
+                                const void* a, const void* d, const void* b,
+                                const void* c, void* y, void* h, long long L,
+                                long long n, int rows) {
+  if (W < 1 || W % MAMBA_AOSOA_ALIGN) return tdp::ERR_BAD_VVL;
+  tdp::lm::MambaIO io{};
+  io.x = static_cast<const float*>(x);
+  io.dt = static_cast<const float*>(dt);
+  io.a = static_cast<const float*>(a);
+  io.d = static_cast<const float*>(d);
+  io.b = static_cast<const float*>(b);
+  io.c = static_cast<const float*>(c);
+  io.y = static_cast<float*>(y);
+  io.h = static_cast<float*>(h);
+  io.L = L;
+  io.n = n;
+  io.rows = rows;
+  io.map = tdp::make_aosoa_map(W);
+  return tdp::lm::dispatch_mamba_aosoa<MambaAosoaLoop>(nstate, io, nullptr);
+}
 
 extern "C" int host_mamba(int nstate, int vvl, const void* x, const void* dt,
                           const void* a, const void* d, const void* b,
@@ -473,6 +533,13 @@ def host_lib(tmp_path_factory):
                               + [ctypes.c_longlong] * 2
                               + [ctypes.c_int, ctypes.c_void_p])
     so.host_mamba.restype = ctypes.c_int
+    so.host_rmsnorm_aosoa.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                                      + [ctypes.c_longlong, ctypes.c_int]
+                                      + [ctypes.c_float] * 2)
+    so.host_rmsnorm_aosoa.restype = ctypes.c_int
+    so.host_mamba_aosoa.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                                    + [ctypes.c_longlong] * 2 + [ctypes.c_int])
+    so.host_mamba_aosoa.restype = ctypes.c_int
     so.host_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
     so.host_attention.restype = None
@@ -886,3 +953,111 @@ def test_flash_row_strides():
     for x in bad:
         with pytest.raises(ValueError, match="16-byte aligned"):
             row_strides("q", x, cpu)
+
+
+# ---------------------------------------------------------------------------
+# the AoSoA layout (lm_sites.cuh: rms_aosoa_*, mamba_* with AOSOA)
+# ---------------------------------------------------------------------------
+
+def _blocks(x, W):
+    """``x`` in AoSoA blocks of ``W`` sites, the pad lanes NaN."""
+    n = x.shape[-1]
+    y = soa_to_aosoa(x, W)
+    y.reshape(-1)[aosoa_offsets(torch.arange(n, y.shape[0] * W),
+                                x.shape[0], W)] = float("nan")
+    return y
+
+
+def _nan_blocks(ncomp, n, W):
+    return torch.full((-(-n // W), ncomp, W), float("nan"))
+
+
+def _pads_untouched(o, n):
+    nblk, ncomp, W = o.shape
+    pad = torch.arange(n, nblk * W)
+    return bool(o.reshape(-1)[aosoa_offsets(pad, ncomp, W)].isnan().all())
+
+
+@pytest.mark.parametrize("d,n", [(64, 1), (64, 37), (100, 130), (2304, 64)])
+def test_rmsnorm_aosoa_matches_plain(host_lib, d, n):
+    """Over AoSoA blocks of any width (W above the 512 threads of a block
+    splits it), pad lanes NaN in and untouched out; at W = 32 bit-equal to
+    the tiled SoA kernel at VVL 1, whose sums it repeats."""
+    x, w = _rand(40, (d, n)), _rand(41, (d,))
+    want = tref.rmsnorm_ref(x.T, w, scale_offset=1.0).T
+    soa = torch.full((d, n), float("nan"))
+    assert _lm(host_lib, "rmsnorm", 0, 1, x, None, w, soa,
+               scale_offset=1.0) == 0
+    for W in (1, 7, 32, 96, 600):
+        xb, out = _blocks(x, W), _nan_blocks(d, n, W)
+        assert host_lib.host_rmsnorm_aosoa(W, xb.data_ptr(), w.data_ptr(),
+                                           out.data_ptr(), n, d, 1e-6,
+                                           1.0) == 0
+        got = aosoa_to_soa(out, n)
+        torch.testing.assert_close(got, want, **TOL)
+        assert _pads_untouched(out, n), W
+        if W == 32 and n >= 32:
+            assert torch.equal(got, soa)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_gated_act_over_aosoa_blocks(host_lib, gated):
+    """Under AoSoA ``gated``/``act`` are the elementwise kernel over the
+    padded blocks: bit-equal to the SoA launch on the live lanes."""
+    n, W = 8 * 37 + 5, 96
+    u, v = _rand(42, (1, n), 3.0), _rand(43, (1, n)) if gated else None
+    site = "gated" if gated else "act"
+    soa = torch.full((1, n), float("nan"))
+    assert _lm(host_lib, site, 1, 1, u, v, None, soa) == 0
+    ub = soa_to_aosoa(u, W).reshape(1, -1)
+    vb = None if v is None else soa_to_aosoa(v, W).reshape(1, -1)
+    out = torch.full_like(ub, float("nan"))
+    assert _lm(host_lib, site, 1, 1, ub, vb, None, out) == 0
+    assert torch.equal(aosoa_to_soa(out.reshape(-1, 1, W), n), soa)
+
+
+@pytest.mark.parametrize("nstate", _build.MAMBA_NSTATES)
+@pytest.mark.parametrize("rows", [1, 3])
+def test_mamba_aosoa_matches_plain(host_lib, nstate, rows):
+    """The AoSoA scan (lane groups of ``MAMBA_AOSOA_VVL`` channels) over
+    blocks of W = 4, 16, 64 channels, 301 channels (a ragged last block),
+    45 steps a row (a ragged last chunk); pad lanes NaN in and untouched
+    out.  Held to the plain body, and bit-equal to the SoA scan at the same
+    VVL: only the addresses differ."""
+    length, n = 45, 301
+    x = _rand(44, (rows * length, n))
+    dt = torch.nn.functional.softplus(_rand(45, (rows * length, n)))
+    a = -torch.exp(_rand(46, (nstate, n)))
+    d = _rand(47, (1, n))
+    b, c = _rand(48, (rows * length, nstate)), _rand(49, (rows * length, nstate))
+    want_y, want_h = tlm.mamba_scan_spec(length, nstate, rows).fn(
+        x, dt, a, d, b=b, c=c)
+    y0 = torch.full((rows * length, n), float("nan"))
+    h0 = torch.full((rows * nstate, n), float("nan"))
+    assert _mamba(host_lib, nstate, tpw.MAMBA_AOSOA_VVL, (x, dt, a, d), b, c,
+                  y0, h0, rows=rows) == 0
+    for W in (4, 16, 64):
+        ops = [_blocks(t, W) for t in (x, dt, a, d)]
+        y, h = _nan_blocks(rows * length, n, W), _nan_blocks(rows * nstate, n, W)
+        assert host_lib.host_mamba_aosoa(
+            nstate, W, *[t.data_ptr() for t in (*ops, b, c, y, h)], length, n,
+            rows) == 0
+        assert _pads_untouched(y, n) and _pads_untouched(h, n), W
+        ys, hs = aosoa_to_soa(y, n), aosoa_to_soa(h, n)
+        torch.testing.assert_close(ys, want_y, **TOL)
+        torch.testing.assert_close(hs, want_h, **TOL)
+        assert torch.equal(ys, y0) and torch.equal(hs, h0), W
+
+
+def test_aosoa_lm_codes(host_lib):
+    x = torch.zeros(64)
+    assert host_lib.host_rmsnorm_aosoa(0, x.data_ptr(), x.data_ptr(),
+                                       x.data_ptr(), 4, 4, 1e-6, 0.0) == -2
+    ptrs = [x.data_ptr()] * 8
+    for W in (0, 6):
+        assert host_lib.host_mamba_aosoa(8, W, *ptrs, 1, 4, 1) == -2
+    assert host_lib.host_mamba_aosoa(4, 8, *ptrs, 1, 4, 1) == -5
+    text = (_build.CSRC / "lm_sites.cuh").read_text()
+    assert (f"constexpr int MAMBA_AOSOA_ALIGN = {tpw.MAMBA_AOSOA_ALIGN};"
+            in text)
+    assert f"constexpr int MAMBA_AOSOA_VVL = {tpw.MAMBA_AOSOA_VVL};" in text

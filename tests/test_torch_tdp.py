@@ -42,9 +42,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 BACKENDS = ("torch", "cuda")          # "cuda" on CPU tensors: the plain body
 VVLS = (1, 2, 4, 8)
 
-#: names of the reference's surface that wait for a later slice (ROADMAP A3-A5)
-NOT_PORTED = ("LAYOUTS", "aosoa_nblocks", "aosoa_to_soa", "soa_to_aosoa",
-              "exchange_ghosts", "exchange_stats", "fleet", "FleetProgram",
+#: names of the reference's surface that wait for a later slice (ROADMAP A4-A5)
+NOT_PORTED = ("exchange_ghosts", "exchange_stats", "fleet", "FleetProgram",
               "FleetDriver", "Ticket", "health", "faults", "HealthPolicy",
               "HealthError", "Diagnosis", "InjectedFault", "ProgramState",
               "BatchedConst")
