@@ -52,8 +52,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    ``saxpy`` and ``site_pos`` site functions of kernel 2 at VVL 1, 2, 4
    and 8 on a (3, 128³) field, each against its plain body: bit-exact,
    ``saxpy`` at ``rtol=1e-6``; ``sync_target``, ``copy_from_target``),
-   ``reduce`` sum / max / min on the card (max and min exact, the sum
-   within 1e-5·Σ|x| of numpy's float64 sum), ``launch_stencil`` of
+   ``reduce`` sum / max / min on the card, one launch each of the one-pass
+   map-and-reduce kernel (max and min exact, the sum within 1e-5·Σ|x| of
+   numpy's float64 sum), ``launch_stencil`` of
    ``stream`` and ``grad6`` on the card, the masked copies of the
    19-component f over the grid's six faces (4.6 % of the sites) against a
    full copy, ``target_free`` (``memory_allocated`` drops by the field's
@@ -90,9 +91,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    MLUPS per regime; prefill ms, decode ms per step and
    tokens/s of both serving paths, on the kernels and on the plain path;
    the calibration kernels at the calibration sizes beside ``torch.add``;
-   the example site functions at (3, 128³) beside ``torch.mul`` /
-   ``torch.add(y, x, alpha=a)`` (at every VVL too), and ``reduce``'s map
-   plus ``torch.sum`` beside ``x.sum(-1)``;
+   the example site functions at (3, 128³), each held to its plain body
+   bit for bit at every VVL and on operands at a storage offset of one
+   float (the scalar path), beside ``torch.mul`` / ``torch.add(y, x,
+   alpha=a)`` (at every VVL too), and the one-pass ``reduce`` (sum, max,
+   min; the sum at every VVL) beside ``x.sum(-1)`` / ``amax`` / ``amin``
+   and beside the map plus ``torch.sum`` it replaces; their times before
+   the redesign (``EARLIER_EXAMPLE_MS``) go to the record and the log, not
+   to the kernels line;
 6. the AoSoA layout (``Target(layout="aosoa")``, ``aosoa_phase``): every
    LB site function of both executors at 128³ and the example sites at (3,
    128³) at AoSoA widths 8, 32 and 128, ``rmsnorm`` at both prefill shapes
@@ -105,7 +111,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    (``rtol=2e-4, atol=2e-5``, Σf and Σg to 1e-5 of Σ|f| and Σ|g|), MLUPS
    beside SoA's, ``ops.lb_fused_step``, ``stencil.gradients``,
    ``tdp.launch`` of the examples, ``ops.rmsnorm``/``gated_act``/
-   ``mamba_scan``; a row per AoSoA kernel: ms on operands already in AoSoA,
+   ``mamba_scan``; the example sites also on AoSoA operands at a storage
+   offset of one float (one lane a thread: the same bits) and timed at
+   every width; a row per AoSoA kernel: ms on operands already in AoSoA,
    ms with the boundary transforms, the plain version, the bound, the SoA
    row's ms and library call; the phase's seconds.  Phase 4's ``one_launch``
    tune sweeps the AoSoA axis too (candidate and pruned counts printed).
@@ -177,6 +185,10 @@ KERNELS = {
     "tdp_gathered.example": dict(
         source="src/repro_torch/csrc/tdp_gathered_example.cu",
         replaces="src/repro/kernels/tdp_pointwise.py:76"),
+    # the reference's reduce: kernel 2's map, then jnp.sum outside it
+    "tdp_gathered.reduce": dict(
+        source="src/repro_torch/csrc/tdp_gathered_example.cu",
+        replaces="src/repro/kernels/tdp_pointwise.py:76"),
     # the AoSoA branches of TPU kernels 1 and 2
     "tdp_gathered_aosoa": dict(source="src/repro_torch/csrc/tdp_gathered.cu",
                                replaces="src/repro/kernels/tdp_pointwise.py:96"),
@@ -208,6 +220,15 @@ EARLIER_MS = {
     "tdp_gathered.fused_two": 0.2484, "tdp_windowed.stream": 0.1191,
     "tdp_windowed.grad6": 0.0229, "tdp_windowed.fused": 0.4195,
     "tdp_windowed.phi_stream": 0.0625, "tdp_windowed.fused_two": 0.2381}
+#: Per-launch ms at (3, 128³), VVL 1, of kernel 2's example entry and
+#: reduce before their redesign (PERF.md §6: this script's phases 5 and 6
+#: on an NVIDIA H100 80GB HBM3 at 700 W); reduce was the scale map plus
+#: torch.sum.  Printed beside this run's times.
+EARLIER_EXAMPLE_MS = {
+    "tdp_gathered.scale": 0.0255, "tdp_gathered.saxpy": 0.0327,
+    "tdp_gathered.site_pos": 0.0254, "tdp_gathered.reduce": 0.0375,
+    "tdp_gathered_aosoa.scale": 0.0264, "tdp_gathered_aosoa.saxpy": 0.0335,
+    "tdp_gathered_aosoa.site_pos": 0.0264}
 #: AoSoA block widths of phase 6's LB and example checks (each divides the
 #: 128² sites of an x-plane), and the widths of its main path: the LB
 #: trajectories, rmsnorm and the timed LB and example rows; gated/act;
@@ -325,8 +346,13 @@ def ptxas_report(logs: dict) -> list[dict]:
                 elif lib == "tdp_gathered_example":
                     site = re.search(r"ex\d+(\w+?)Site", name)
                     vvl = re.search(r"Li(\d+)E", name)
+                    op = re.search(r"\d(Sum|Max|Min)Op", name)
                     entry = {"lib": lib, "site": site and site.group(1),
-                             "vvl": int(vvl.group(1)) if vvl else None}
+                             "vvl": int(vvl.group(1)) if vvl else None,
+                             "mapping": "reduce" if op else "aosoa"
+                             if "aosoa" in name else "soa"}
+                    if op:
+                        entry["op"] = op.group(1).lower()
                 elif lib == "calibrate":
                     entry = {"lib": lib, "site": "add" if "stream_add" in name
                              else "fma"}
@@ -407,6 +433,16 @@ def wall_ms(fn, reps: int = 3, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous tensor at a storage offset of one
+    float, as a slice of a larger buffer is: its rows fit no vector access,
+    so a kernel takes its scalar path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def max_abs(got, want) -> float:
@@ -1314,14 +1350,23 @@ def tdp_surface(drive, problems: list) -> dict:
 
 
 def tdp_rows(launches, launches_by_path, max_err, problems) -> list:
-    """Phase 5, the example site functions of kernel 2 at (3, 128³): held to
-    their plain bodies (and the library call to the plain body), then timed
-    beside both and the bound; ``reduce`` (the ``scale`` map plus
-    ``torch.sum``) beside ``x.sum(-1)``."""
+    """Phase 5, kernel 2's example entry at (3, 128³): each site function
+    held to its plain body bit for bit at every VVL, also on operands at a
+    storage offset of one float (the scalar path), and the library call to
+    the plain body; then timed at VVL 1 and every VVL beside both, the bound
+    and its time before the redesign.  Then the one-pass reduce of ``scale``
+    (a = 1): max and min exact against the plain route (``reduce(...,
+    target="torch")``); the sum, which accumulates in double, within
+    ``rtol=1e-6, atol=1e-6`` of the float64 sum of the plain map's values
+    and, as the plain route and ``x.sum(-1)`` are, within 1e-5·Σ|x| of it;
+    the same bits on the offset operand and from call to call; timed per op
+    and, the sum, at every VVL, beside ``x.sum(-1)`` (the library call),
+    ``x.sum(-1, dtype=torch.float64)``, ``amax`` / ``amin`` and beside the
+    map plus ``torch.sum`` it replaces (``map_sum_ms``)."""
     import dataclasses
     from repro_torch.core import Target
     from repro_torch.core.api import launch_plan, torch_executor
-    from repro_torch.core.execute import reduce
+    from repro_torch.core.execute import _map_reduce, reduce
     from repro_torch.core.target import CUDA_VVLS
     from repro_torch.kernels import example_sites as ex
     from repro_torch.kernels import tdp_pointwise
@@ -1330,6 +1375,7 @@ def tdp_rows(launches, launches_by_path, max_err, problems) -> list:
     n = int(np.prod(GRID))
     x, y = (torch.randn(TDP_NCOMP, n, device=dev, generator=g)
             for _ in range(2))
+    x_off, y_off = offset_copy(x), offset_copy(y)
     ins = {"scale": [x], "saxpy": [x, y], "site_pos": [x]}
     libs = {"scale": lambda: torch.mul(x, TDP_A),
             "saxpy": lambda: torch.add(y, x, alpha=TDP_A), "site_pos": None}
@@ -1340,6 +1386,7 @@ def tdp_rows(launches, launches_by_path, max_err, problems) -> list:
         plans = {v: launch_plan(spec, Target("cuda", vvl=v), consts=consts)
                  for v in CUDA_VVLS}
         xs = ins[site]
+        xs_off = [x_off, y_off][:len(xs)]
 
         def kern(p=plans[1], xs=xs):
             return tdp_pointwise.cuda_execute(p, xs)[0]
@@ -1347,25 +1394,30 @@ def tdp_rows(launches, launches_by_path, max_err, problems) -> list:
         def plain(p=plans[1], xs=xs):
             return torch_executor(p, xs)[0]
 
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = max_abs((got,), (want,))
+        want = plain()
         key = ("tdp_gathered", site)
-        max_err[key] = max(max_err.get(key, 0.0), err)
-        if not torch.equal(got, want) and not (
-                site == "saxpy" and torch.allclose(got, want, rtol=1e-6,
-                                                   atol=0)):
-            problems.append(f"tdp_gathered.{site} (3, 128^3): max |kernel - "
-                            f"plain| = {err}")
+        for v, p in plans.items():
+            for operands, what in ((xs, ""), (xs_off, " offset by a float")):
+                got = tdp_pointwise.cuda_execute(p, operands)[0]
+                torch.cuda.synchronize()
+                err = max_abs((got,), (want,))
+                max_err[key] = max(max_err.get(key, 0.0), err)
+                if not torch.equal(got, want) and not (
+                        site == "saxpy" and torch.allclose(got, want,
+                                                           rtol=1e-6, atol=0)):
+                    problems.append(f"tdp_gathered.{site} (3, 128^3) vvl={v}"
+                                    f"{what}: max |kernel - plain| = {err}")
+                del got
         lib = libs[site]
         if lib is not None and not torch.allclose(lib(), want, rtol=1e-6,
                                                   atol=1e-6):
             problems.append(f"library call for tdp_gathered.{site} differs "
                             f"from plain")
-        del got, want
+        del want
         nbytes = (8 + 4 * (len(xs) - 1)) * TDP_NCOMP * n
         b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        row = {"name": f"tdp_gathered.{site}", "route": "cuda",
+        name = f"tdp_gathered.{site}"
+        row = {"name": name, "route": "cuda",
                **KERNELS["tdp_gathered.example"],
                "launches": launches[key],
                "launches_by_path": launches_by_path[key],
@@ -1380,38 +1432,85 @@ def tdp_rows(launches, launches_by_path, max_err, problems) -> list:
                    lambda p=p, xs=xs: tdp_pointwise.cuda_execute(p, xs),
                    hold=SHORT_HOLD) for v, p in plans.items()}}
         rows.append(row)
-        log(f"phase 5: {row['name']} ms={row['ms']:.4f} plain="
-            f"{row['plain_ms']:.4f} library={row['library_ms']} bound="
-            f"{b_ms:.4f} by VVL {row['ms_by_vvl']} err={err}")
-    # reduce(sum) of scale with a = 1: the map on the card, torch.sum after
+        log(f"phase 5: {name} ms={row['ms']:.4f} (before the redesign "
+            f"{EARLIER_EXAMPLE_MS[name]}) plain={row['plain_ms']:.4f} library="
+            f"{row['library_ms']} bound={b_ms:.4f} by VVL {row['ms_by_vvl']} "
+            f"err={max_err[key]}")
+
+    # the one-pass reduce of scale with a = 1
     spec = dataclasses.replace(ex.SCALE_SPEC, out=TDP_NCOMP)
 
-    def red(backend):
-        return reduce(spec, None, [x], consts={"a": 1.0}, op="sum",
-                      target=Target(backend))
+    def red(op, backend="cuda", vvl=None, field=x):
+        return reduce(spec, None, [field], consts={"a": 1.0}, op=op,
+                      target=Target(backend, vvl=vvl))
 
-    got, want, lib = red("cuda"), red("torch"), x.sum(-1)
-    err = max_abs((got,), (want,))
-    if not (torch.allclose(got, want, rtol=1e-6, atol=1e-6)
-            and torch.allclose(lib, want, rtol=1e-6, atol=1e-6)):
-        problems.append(f"reduce(sum) of scale: kernel {got.tolist()}, plain "
-                        f"{want.tolist()}, x.sum(-1) {lib.tolist()}")
-    key = ("tdp_gathered", "scale")
-    path = "tdp surface: reduce"
-    rows.append({"name": "reduce.sum(tdp_gathered.scale)", "route": "cuda",
-                 **KERNELS["tdp_gathered.example"],
-                 "launches": launches_by_path[key].get(path, 0),
-                 "launches_by_path": {path: launches_by_path[key].get(path, 0)},
-                 "max_abs_err": err,
-                 "ms": time_ms(lambda: red("cuda"), hold=SHORT_HOLD),
-                 "plain_ms": time_ms(lambda: red("torch"), hold=SHORT_HOLD),
-                 "bound_ms": 4 * TDP_NCOMP * n / PEAK_BYTES_PER_S * 1e3,
-                 "bound_by": "bytes",
-                 "library_ms": time_ms(lambda: x.sum(-1), hold=SHORT_HOLD),
-                 "shape": [TDP_NCOMP, n]})
-    log(f"phase 5: {rows[-1]['name']} ms={rows[-1]['ms']:.4f} "
-        f"library={rows[-1]['library_ms']:.4f}")
-    del x, y
+    key = ("tdp_gathered", "reduce")
+    # the kernel's sum accumulates in double and rounds once: it is held to
+    # the float64 sum of the plain map's values; the plain route's
+    # torch.sum and the library call x.sum(-1) are float32 throughout and
+    # held to 1e-5·Σ|x| of that sum, as the kernel is
+    map64 = torch_executor(launch_plan(spec, Target("torch"),
+                                       consts={"a": 1.0}), [x])[0].double()
+    sum64, abs64 = map64.sum(-1), map64.abs().sum(-1)
+    del map64
+    libs = {"sum": lambda: x.sum(-1), "max": lambda: x.amax(-1),
+            "min": lambda: x.amin(-1)}
+    err, sum_err, route_err = 0.0, None, None
+    for op, lib in libs.items():
+        got, want = red(op), red(op, "torch")
+        again, off = red(op), red(op, field=x_off)
+        if op == "sum":
+            s_err = (got.double() - sum64).abs()
+            sum_err = (s_err / abs64).tolist()
+            route_err = max_abs((got,), (want,))
+            err = max(err, float(s_err.max()))
+            ok = (torch.allclose(got.double(), sum64, rtol=1e-6, atol=1e-6)
+                  and all(bool(((v.double() - sum64).abs()
+                                <= 1e-5 * abs64).all())
+                          for v in (got, want, lib())))
+        else:
+            err = max(err, max_abs((got,), (want,)))
+            ok = torch.equal(got, want) and torch.equal(lib(), want)
+        if not (ok and torch.equal(again, got) and torch.equal(off, got)):
+            problems.append(f"reduce({op}) of scale: kernel {got.tolist()} "
+                            f"(again {again.tolist()}, offset operand "
+                            f"{off.tolist()}), plain route {want.tolist()}, "
+                            f"float64 sum {sum64.tolist()}, library "
+                            f"{lib().tolist()}")
+    max_err[key] = max(max_err.get(key, 0.0), err)
+    ms_by_op = {op: time_ms(lambda op=op: red(op), hold=SHORT_HOLD)
+                for op in libs}
+    row = {"name": "tdp_gathered.reduce", "route": "cuda",
+           **KERNELS["tdp_gathered.reduce"], "site": "scale", "op": "sum",
+           "launches": launches[key],
+           "launches_by_path": launches_by_path[key],
+           "max_abs_err": max_err[key], "ms": ms_by_op["sum"],
+           "plain_ms": time_ms(lambda: red("sum", "torch"), hold=SHORT_HOLD),
+           "bound_ms": 4 * TDP_NCOMP * n / PEAK_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "library_ms": time_ms(libs["sum"], hold=SHORT_HOLD),
+           "library_float64_ms": time_ms(
+               lambda: x.sum(-1, dtype=torch.float64), hold=SHORT_HOLD),
+           "map_sum_ms": time_ms(lambda: _map_reduce(
+               spec, Target("cuda"), [x], None, {"a": 1.0}, "sum"),
+               hold=SHORT_HOLD),
+           "ms_by_op": ms_by_op,
+           "library_ms_by_op": {op: time_ms(lib, hold=SHORT_HOLD)
+                                for op, lib in libs.items()},
+           "ms_by_vvl": {v: time_ms(lambda v=v: red("sum", vvl=v),
+                                    hold=SHORT_HOLD) for v in CUDA_VVLS},
+           "sum_err_of_sum_abs": sum_err,
+           "max_abs_err_sum_vs_plain_route": route_err,
+           "shape": [TDP_NCOMP, n]}
+    rows.append(row)
+    log(f"phase 5: {row['name']} sum ms={row['ms']:.4f} (before the redesign, "
+        f"map + torch.sum: {EARLIER_EXAMPLE_MS['tdp_gathered.reduce']}; this "
+        f"run's map + torch.sum {row['map_sum_ms']:.4f}) library="
+        f"{row['library_ms']:.4f} (x.sum(-1, dtype=torch.float64) "
+        f"{row['library_float64_ms']:.4f}) by op {ms_by_op} by VVL "
+        f"{row['ms_by_vvl']} err={err} sum vs the plain route's float32 "
+        f"torch.sum {route_err}")
+    del x, y, x_off, y_off
     torch.cuda.empty_cache()
     return rows
 
@@ -1548,17 +1647,35 @@ def aosoa_phase(drive, by_path, make_inputs, prepare, soa_finals, st0,
                           torch_executor(plan, xs),
                           f"tdp_gathered_aosoa.{site} W={w}")
             err, bits = max(err, e), bits and bit
+        by_width = {}
+        for w in AOSOA_WIDTHS:
+            plan = launch_plan(spec, Target("cuda", vvl=w, layout="aosoa"),
+                               consts=consts)
+            blocks = tp.aosoa_operands(plan, xs)
+            # the same blocks at a storage offset of one float: one lane a
+            # thread instead of 4, the same bits
+            off = tp._aosoa_launch(plan, site, [offset_copy(b) for b in blocks],
+                                   nsites, None)[0]
+            if not torch.equal(tp.aosoa_to_soa(off, nsites), soa[0]):
+                problems.append(f"tdp_gathered_aosoa.{site} W={w} on operands "
+                                f"offset by a float: not the SoA bits")
+            by_width[w] = quick(lambda: tp._aosoa_launch(plan, site, blocks,
+                                                         nsites, None))
+            del off
         plan = launch_plan(spec, Target("cuda", vvl=AOSOA_W, layout="aosoa"),
                            consts=consts)
         blocks = tp.aosoa_operands(plan, xs)
         nbytes = (8 + 4 * (len(xs) - 1)) * TDP_NCOMP * nsites
-        row(f"tdp_gathered_aosoa.{site}", "tdp_gathered_aosoa.example", err,
+        name = f"tdp_gathered_aosoa.{site}"
+        row(name, "tdp_gathered_aosoa.example", err,
             bits, quick(lambda: tp._aosoa_launch(plan, site, blocks, nsites,
                                                  None)),
             quick(lambda: tp.cuda_execute(plan, xs)),
             quick(lambda: torch_executor(plan, xs)),
             (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
-            f"tdp_gathered.{site}", W=AOSOA_W)
+            f"tdp_gathered.{site}", W=AOSOA_W, ms_by_width=by_width)
+        log(f"phase 6: {name} before the redesign {EARLIER_EXAMPLE_MS[name]}")
+        del soa
     del x, y, blocks
 
     # -- the LM site functions at the serving shapes -------------------------
@@ -1812,7 +1929,8 @@ def main() -> int:
                 "calibrate": calibrate.launches}
     lm_entries = [("tdp_gathered", s) for s in tdp_pointwise.LM_SITES] + [
         ("flash_attention", "flash_attention")]
-    ex_entries = [("tdp_gathered", s) for s in _build.EXAMPLE_SITES]
+    ex_entries = [("tdp_gathered", s)
+                  for s in _build.EXAMPLE_SITES + ("reduce",)]
     cal_entries = [("calibrate", "add"), ("calibrate", "fma")]
     aosoa_entries = [("tdp_gathered_aosoa", s) for s in tdp_pointwise.launches
                      ] + [("tdp_windowed_aosoa", s) for s in STENCIL_SITES]
@@ -2059,7 +2177,8 @@ def main() -> int:
     nv = 4   # the sequence launches each example site function at VVL 1-8
     expected["tdp surface: III-C sequence"] = {
         ("tdp_gathered", s): nv for s in _build.EXAMPLE_SITES}
-    expected["tdp surface: reduce"] = {("tdp_gathered", "scale"): 3}
+    # sum, max and min: one launch of the one-pass reduce each
+    expected["tdp surface: reduce"] = {("tdp_gathered", "reduce"): 3}
     expected["tdp surface: launch_stencil"] = {("tdp_gathered", "stream"): 1,
                                                ("tdp_gathered", "grad6"): 1}
     expected["tdp surface: Fig. 1 SoA kernels"] = {
@@ -2292,6 +2411,7 @@ def main() -> int:
     rows += calibrate_rows(launches, launches_by_path, max_err, problems)
     t_tdp = time.perf_counter()
     rows += tdp_rows(launches, launches_by_path, max_err, problems)
+    record.setdefault("earlier_ms", {}).update(EARLIER_EXAMPLE_MS)
     record["tdp_surface"]["rows_s"] = time.perf_counter() - t_tdp
 
     # -- 6. the AoSoA layout ---------------------------------------------------

@@ -17,6 +17,7 @@ meets that function's signature under ``backend="cuda"``.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Callable, Mapping, Sequence
 
@@ -128,7 +129,36 @@ def launch_stencil(kernel: Callable, lattice: Lattice,
 # reductions — the paper's §V "planned extension", implemented
 # ---------------------------------------------------------------------------
 
+#: The plain reductions over the site axis.
 _REDUCERS = {"sum": torch.sum, "max": torch.amax, "min": torch.amin}
+
+
+def _map_reduce(spec, tgt, inputs, lattice, consts, op):
+    """Map with :func:`~repro_torch.core.api.launch`, then reduce each
+    output over its sites with :data:`_REDUCERS`."""
+    mapped = _api.launch(spec, tgt, *inputs, lattice=lattice, consts=consts)
+    mapped = (mapped,) if isinstance(mapped, torch.Tensor) else mapped
+    return tuple(_REDUCERS[op](m, dim=-1) for m in mapped)
+
+
+def _fused_reduce(spec, tgt, inputs, lattice, consts, op):
+    """One launch of the example site function's map-and-reduce kernel
+    (:func:`repro_torch.kernels.tdp_pointwise.example_reduce`)."""
+    from repro_torch.kernels.tdp_pointwise import example_reduce
+    out = spec.out or (int(inputs[0].shape[0]),)
+    plan = _api.launch_plan(dataclasses.replace(spec, out=out), tgt,
+                            lattice=lattice, consts=consts)
+    return (example_reduce(plan, op, inputs),)
+
+
+def reduce_route(spec: KernelSpec, target, device) -> Callable:
+    """The route :func:`reduce` takes: :func:`_fused_reduce` where the
+    card's executor can map and reduce in one launch
+    (:func:`repro_torch.kernels.tdp_pointwise.fused_reduce_ok`),
+    :func:`_map_reduce` otherwise."""
+    from repro_torch.kernels.tdp_pointwise import fused_reduce_ok
+    return (_fused_reduce if fused_reduce_ok(spec, target, device)
+            else _map_reduce)
 
 
 def reduce(kernel: Callable | KernelSpec, lattice: Lattice | None,
@@ -146,11 +176,22 @@ def reduce(kernel: Callable | KernelSpec, lattice: Lattice | None,
     one call and the kernels mask their ragged end), so the body is mapped
     over exactly ``n`` sites and no identity mask is needed: a
     :class:`KernelSpec` launches as it is, and a site body of a CUDA site
-    function (``__cuda_site__``) keeps it, so ``target="cuda"`` launches
-    kernel 2.  The reduction is ``torch.sum`` / ``amax`` / ``amin`` over the
-    site axis, outside the kernel, as the reference's ``jnp.sum`` is outside
-    Pallas.  The target is a ``Target``, or the legacy ``backend=`` string
-    (default ``"torch"``).
+    function (``__cuda_site__``) keeps it.  The target is a ``Target``, or
+    the legacy ``backend=`` string (default ``"torch"``).
+
+    Two routes (:func:`reduce_route`):
+
+    * under ``target="cuda"``, SoA, on CUDA tensors, a body that is one of
+      the paper's example site functions (``scale``, ``saxpy``,
+      ``site_pos``) is mapped and reduced in **one** kernel launch, which
+      reads each input once and writes only the result (the sum
+      accumulates in double and rounds once to the input's dtype; max and
+      min are exact);
+    * every other case — the ``"torch"`` target, CPU tensors, the AoSoA
+      layout, the LB and LM site functions, any other body — maps with
+      :func:`~repro_torch.core.api.launch` and reduces with ``torch.sum``
+      / ``amax`` / ``amin`` over the site axis, outside the kernel, as the
+      reference's ``jnp.sum`` is outside Pallas (:data:`_REDUCERS`).
     """
     if op not in _REDUCERS:
         raise ValueError(f"op must be one of {sorted(_REDUCERS)}")
@@ -162,7 +203,6 @@ def reduce(kernel: Callable | KernelSpec, lattice: Lattice | None,
                           out=_normalize_out_ncomp(out_ncomp, inputs))
     tgt = as_target(target if target is not None else (backend or "torch"),
                     vvl=vvl)
-    mapped = _api.launch(spec, tgt, *inputs, lattice=lattice, consts=consts)
-    mapped = (mapped,) if isinstance(mapped, torch.Tensor) else mapped
-    red = tuple(_REDUCERS[op](m, dim=-1) for m in mapped)
+    route = reduce_route(spec, tgt, inputs[0].device)
+    red = route(spec, tgt, inputs, lattice, consts, op)
     return red[0] if len(red) == 1 else red

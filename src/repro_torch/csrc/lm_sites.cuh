@@ -96,7 +96,7 @@
 #include <cstdint>
 
 #include "async_copy.cuh"  // tdp::copy16, copy4, cp_async_*, ld_shared
-#include "lb_sites.cuh"     // tdp::ldg, tdp::ERR_*, tdp::dispatch_vvl
+#include "lb_sites.cuh"     // tdp::ldg, load_row, store_row, ERR_*, dispatch_vvl
 
 namespace tdp {
 namespace lm {
@@ -124,67 +124,6 @@ __host__ __device__ __forceinline__ float act(float u) {
   }
   const float r = u > 0.0f ? u : 0.0f;
   return r * r;
-}
-
-// ---------------------------------------------------------------------------
-// rows of V consecutive floats: one vector load or store where aligned
-// ---------------------------------------------------------------------------
-
-// p is aligned for the V-float vector access (V 1, 2, 4; 8 is two float4).
-template <int V>
-__host__ __device__ __forceinline__ bool vec_aligned(const void* p) {
-  constexpr uintptr_t kAlign = V >= 4 ? 16 : 4 * V;
-  return ((uintptr_t)p & (kAlign - 1)) == 0;
-}
-
-// r = p[0, V): vector loads when vec (then nv == V), else the first nv as
-// scalars and the rest 0.
-template <int V>
-__host__ __device__ __forceinline__ void load_row(const float* p, bool vec,
-                                                  int nv, float (&r)[V]) {
-#if defined(__CUDA_ARCH__)
-  if (V > 1 && vec) {
-    if constexpr (V == 2) {
-      const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-      r[0] = a.x;
-      r[1] = a.y;
-    } else {
-#pragma unroll
-      for (int h = 0; h < V / 4; ++h) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(p) + h);
-        r[4 * h] = a.x;
-        r[4 * h + 1] = a.y;
-        r[4 * h + 2] = a.z;
-        r[4 * h + 3] = a.w;
-      }
-    }
-    return;
-  }
-#endif
-#pragma unroll
-  for (int l = 0; l < V; ++l) r[l] = l < nv ? ldg(p + l) : 0.0f;
-}
-
-// p[0, nv) = r: vector stores when vec (then nv == V), else scalars.
-template <int V>
-__host__ __device__ __forceinline__ void store_row(float* p, bool vec, int nv,
-                                                   const float (&r)[V]) {
-#if defined(__CUDA_ARCH__)
-  if (V > 1 && vec) {
-    if constexpr (V == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
-    } else {
-#pragma unroll
-      for (int h = 0; h < V / 4; ++h)
-        reinterpret_cast<float4*>(p)[h] =
-            make_float4(r[4 * h], r[4 * h + 1], r[4 * h + 2], r[4 * h + 3]);
-    }
-    return;
-  }
-#endif
-#pragma unroll
-  for (int l = 0; l < V; ++l)
-    if (l < nv) p[l] = r[l];
 }
 
 // ---------------------------------------------------------------------------

@@ -47,6 +47,13 @@ LM_ACT_ID = {name: i for i, name in enumerate(LM_ACTS)}
 #: order of the C enum ``tdp::ex::SiteId``.
 EXAMPLE_SITES = ("scale", "saxpy", "site_pos")
 EXAMPLE_SITE_ID = {name: i for i, name in enumerate(EXAMPLE_SITES)}
+#: The reductions of ``tdp_gathered_example_reduce_launch`` in the order of
+#: the C enum ``tdp::ex::ReduceOpId``, and the blocks per component group
+#: it uses at most (``EX_RED_MAX_BLOCKS``: its scratch is ``ncomp`` times
+#: that many doubles).
+REDUCE_OPS = ("sum", "max", "min")
+REDUCE_OP_ID = {name: i for i, name in enumerate(REDUCE_OPS)}
+REDUCE_MAX_BLOCKS = 1024
 
 #: The d_state values the ``mamba`` site function is instantiated for.
 MAMBA_NSTATES = (8, 16)
@@ -59,7 +66,8 @@ _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
            -6: "a stencil radius exceeds a periodic extent or the ghost "
                "planes",
            -7: "plane_block must be positive and its tile fit the 227 KB a "
-               "block may hold"}
+               "block may hold",
+           -8: f"reduction op not in {REDUCE_OPS}"}
 
 
 def _nvcc() -> str:

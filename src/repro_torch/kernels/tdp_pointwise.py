@@ -26,9 +26,13 @@ example site functions (``scale``, ``saxpy``, ``site_pos``;
 ``csrc/example_sites.cuh``, plain bodies in
 :mod:`repro_torch.kernels.example_sites`) launch through
 ``csrc/tdp_gathered_example.cu``: pointwise fields of a runtime component
-count, the scalar const ``a``, one thread per ``Target.vvl`` sites, and
-``site_pos`` gets each site's global index (a ``site_index`` spec; every
-other site function refuses one).
+count, the scalar const ``a``, one thread per ``Target.vvl`` sites moved
+as one vector access per component (scalars where an operand's rows are
+not aligned to it), and ``site_pos`` gets each site's global index (a
+``site_index`` spec; every other site function refuses one).
+:func:`example_reduce` maps one of them and reduces it over the sites in
+one launch, the route :func:`repro_torch.core.execute.reduce` takes on the
+card.
 ``gated``/``act`` map ``Target.vvl`` 16-byte groups to a thread (scalars
 where an operand is not 16-byte aligned, as a view at a storage offset may
 be); ``rmsnorm`` maps it to the tokens of a lane, a
@@ -70,8 +74,11 @@ from .lb_collision import PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts,
 #: scan with its own.
 LM_SITES = _build.LM_SITES + ("mamba",)
 
-#: kernel launches of this executor, by site function
-launches = dict.fromkeys(_build.SITES + LM_SITES + _build.EXAMPLE_SITES, 0)
+#: kernel launches of this executor, by site function; ``"reduce"`` counts
+#: the one-pass map-and-reduce of an example site function
+#: (:func:`example_reduce`)
+launches = dict.fromkeys(_build.SITES + LM_SITES + _build.EXAMPLE_SITES
+                         + ("reduce",), 0)
 #: AoSoA kernel launches of this executor, by site function
 aosoa_launches = dict.fromkeys(launches, 0)
 #: the channels ``mamba``'s chunk stage copies at a time: the AoSoA width
@@ -316,11 +323,12 @@ def _example_lib():
     return fn
 
 
-def _example_execute(plan, site, vvl, fields, out):
-    """Launch an example site function on CUDA tensors."""
+def _example_shape(plan, site, fields) -> tuple[int, int]:
+    """``(ncomp, n)`` of an example launch on CUDA tensors, its operands
+    checked: fewer than 2³¹ sites (their indices are 32-bit), every field
+    ``(ncomp, n)``, one output of ``ncomp`` components."""
     what = f"kernel {plan.name!r}"
-    x0 = fields[0]
-    ncomp, n = (int(s) for s in x0.shape)
+    ncomp, n = (int(s) for s in fields[0].shape)
     if n >= 2 ** 31:
         raise ValueError(f"{what}: {n} sites is 2^31 or more: site indices "
                          f"are 32-bit")
@@ -328,6 +336,14 @@ def _example_execute(plan, site, vvl, fields, out):
     if tuple(plan.out_ncomp) != (ncomp,):
         raise ValueError(f"{what}: the CUDA site function {site!r} gives "
                          f"{ncomp} component(s), the plan {plan.out_ncomp}")
+    return ncomp, n
+
+
+def _example_execute(plan, site, vvl, fields, out):
+    """Launch an example site function on CUDA tensors."""
+    what = f"kernel {plan.name!r}"
+    x0 = fields[0]
+    ncomp, n = _example_shape(plan, site, fields)
     outs = alloc_outputs(plan, x0, n, out)
     check_cuda_tensors(outs, [(ncomp, n)], f"{what} (out)")
     with torch.cuda.device(x0.device):
@@ -339,6 +355,77 @@ def _example_execute(plan, site, vvl, fields, out):
     _build.check(rc, f"tdp_gathered_example {site}")
     launches[site] += 1
     return outs
+
+
+def _example_reduce_lib():
+    fn = _build.load("tdp_gathered_example").tdp_gathered_example_reduce_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+#: The block counter of the reduce kernel on each (device, stream): the
+#: last block of every launch returns it to 0, so launches in one stream
+#: share it.
+_reduce_counters: dict = {}
+
+
+def _reduce_counter(device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _reduce_counters:
+        _reduce_counters[key] = torch.zeros(1, dtype=torch.int32,
+                                            device=device)
+    return _reduce_counters[key]
+
+
+def fused_reduce_ok(spec, target, device) -> bool:
+    """Whether :func:`example_reduce` takes ``spec`` under ``target`` on
+    ``device``: a ``"cuda"`` target in the SoA layout, a CUDA device, and a
+    body that is an example site function (``__cuda_site__`` in
+    ``_build.EXAMPLE_SITES``)."""
+    return (target.executor == "cuda" and target.layout == "soa"
+            and torch.device(device).type == "cuda"
+            and getattr(spec.fn, "__cuda_site__", None)
+            in _build.EXAMPLE_SITES)
+
+
+def example_reduce(plan, op: str, fields) -> torch.Tensor:
+    """``op`` (``"sum"``, ``"max"``, ``"min"``) over the sites of the
+    example site function of a SoA ``plan`` on CUDA ``fields``: the
+    ``(ncomp,)`` result, from one launch of
+    ``tdp_gathered_example_reduce_launch``, which maps and reduces in one
+    pass and writes only the result.  Its plain version is ``reduce(...,
+    target="torch")``."""
+    site = cuda_site(plan)
+    what = f"kernel {plan.name!r}"
+    if site not in _build.EXAMPLE_SITE_ID or plan.layout != "soa":
+        raise ValueError(f"{what}: the one-pass reduce takes an example site "
+                         f"function {_build.EXAMPLE_SITES} under layout "
+                         f"'soa', got {site!r} under {plan.layout!r}")
+    if op not in _build.REDUCE_OP_ID:
+        raise ValueError(f"op must be one of {_build.REDUCE_OPS}, got {op!r}")
+    vvl = cuda_vvl(plan.target.vvl)
+    x0 = fields[0]
+    if x0.device.type != "cuda":
+        raise ValueError(f"{what}: the one-pass reduce runs on CUDA tensors, "
+                         f"got {x0.device}")
+    ncomp, n = _example_shape(plan, site, fields)
+    out = torch.empty(ncomp, dtype=x0.dtype, device=x0.device)
+    partial = torch.empty(ncomp * _build.REDUCE_MAX_BLOCKS,
+                          dtype=torch.float64, device=x0.device)
+    stream = _build.stream_handle(x0.device)
+    with torch.cuda.device(x0.device):
+        rc = _example_reduce_lib()(
+            _build.EXAMPLE_SITE_ID[site], _build.REDUCE_OP_ID[op], vvl,
+            x0.data_ptr(), fields[1].data_ptr() if len(fields) > 1 else None,
+            out.data_ptr(), partial.data_ptr(),
+            _reduce_counter(x0.device, stream).data_ptr(), n, ncomp,
+            float(plan.consts.get("a", 1.0)), stream)
+    _build.check(rc, f"tdp_gathered_example reduce {op} of {site}")
+    launches["reduce"] += 1
+    return out
 
 
 def _mamba_execute(plan, vvl, fields, out):

@@ -621,54 +621,175 @@ EX_HEADER = _build.CSRC / "example_sites.cuh"
 EX_HARNESS = r"""
 #include "example_sites.cuh"
 
+#include <algorithm>
+#include <cmath>
+#include <vector>
+
+using namespace tdp::ex;
+
 namespace {
 // tdp_gathered_example.cu's Launch, thread by thread.
 template <class Site, int VVL>
 struct ExampleLoop {
-  static int run(const tdp::ex::ExampleIO& io, void*) {
-    if (io.ncomp <= 0) return 0;
-    for (int64_t t = 0, nt = tdp::ex::example_threads<VVL>(io); t < nt; ++t)
-      tdp::ex::example_thread<Site, VVL>(io, t);
+  static int run(const ExampleIO& io0, void*) {
+    if (io0.ncomp <= 0) return 0;
+    ExampleIO io = io0;
+    io.vec = example_vec<VVL>(io0);
+    for (int64_t t = 0, nt = example_threads<Site, VVL>(io); t < nt; ++t)
+      example_thread<Site, VVL>(io, t);
     return 0;
   }
 };
-}  // namespace
 
 // tdp_gathered_example.cu's AosoaLaunch, thread by thread.
-namespace {
 template <class Site>
 struct ExampleAosoaLoop {
-  static int run(const tdp::ex::ExampleAosoaIO& a, void*) {
-    for (int64_t t = 0; t < a.io.n; ++t) tdp::ex::example_aosoa_thread<Site>(a, t);
+  template <int L>
+  static int go(const ExampleAosoaIO& a) {
+    for (int64_t t = 0, nt = ((int64_t)a.io.n + L - 1) / L; t < nt; ++t)
+      example_aosoa_thread<Site, L>(a, t);
     return 0;
   }
-};
-}  // namespace
 
-extern "C" int host_example_aosoa(int site, int W, const void* x, const void* y,
-                                  void* out, int n, int ncomp, float a) {
-  if (W < 1) return tdp::ERR_BAD_VVL;
-  tdp::ex::ExampleAosoaIO io{};
-  io.io.in[0] = static_cast<const float*>(x);
-  io.io.in[1] = static_cast<const float*>(y);
-  io.io.out = static_cast<float*>(out);
-  io.io.n = n;
-  io.io.ncomp = ncomp;
-  io.io.a = a;
-  io.map = tdp::make_aosoa_map(W);
-  return tdp::ex::dispatch_site_aosoa<ExampleAosoaLoop>(site, io, nullptr);
+  static int run(const ExampleAosoaIO& a, void*) {
+    if (a.io.n <= 0 || a.io.ncomp <= 0) return 0;
+    return example_aosoa_lanes(a) == 4 ? go<4>(a) : go<1>(a);
+  }
+};
+
+// The kernel's shuffle rounds over a block's lanes: in round i each lane
+// combines its value with its partner's (lane ^ red_xor(i)) of the round
+// before.
+template <class Op>
+void host_warps(std::vector<typename Op::T>& v) {
+  for (int i = 0; i < 5; ++i) {
+    const std::vector<typename Op::T> prev = v;
+    for (int t = 0; t < EX_BLOCK; ++t)
+      v[t] = Op::f(prev[t], prev[(t & ~31) | ((t & 31) ^ red_xor(i))]);
+  }
 }
 
-extern "C" int host_example(int site, int vvl, const void* x, const void* y,
-                            void* out, int n, int ncomp, float a) {
-  tdp::ex::ExampleIO io{};
+// tdp_gathered_example.cu's ReduceLaunch and example_reduce_kernel, block by
+// block, each phase over all a block's threads before the next (the
+// kernel's barriers), the shared array NaN at the start of each block; the
+// blocks in grid order, the last of them the last to count itself.
+// r.blocks comes in as the resident blocks of the card.
+template <class Site, int VVL>
+struct ReduceLoop {
+  template <class Op>
+  static int go(const ReduceIO& r0, void*) {
+    using T = typename Op::T;
+    ReduceIO r = r0;
+    r.io.vec = example_vec<VVL>(r0.io);
+    r.blocks = reduce_blocks<VVL>(r0.io.n, r0.io.ncomp, r0.blocks);
+    const int groups = reduce_groups(r.io.ncomp);
+    const T nan = (T)NAN;
+    std::vector<T> red(EX_CG * EX_WARPS), v(EX_BLOCK);
+    std::vector<T> acc(EX_BLOCK * EX_CG);
+    for (int gy = 0; gy < groups; ++gy) {
+      for (int b = 0; b < r.blocks; ++b) {
+        std::fill(red.begin(), red.end(), nan);
+        for (int t = 0; t < EX_BLOCK; ++t)
+          reduce_thread<Site, Op, VVL>(
+              r, b, gy, t, *reinterpret_cast<T(*)[EX_CG]>(&acc[t * EX_CG]));
+        for (int k = 0; k < EX_CG; ++k) {
+          for (int t = 0; t < EX_BLOCK; ++t) v[t] = acc[t * EX_CG + k];
+          host_warps<Op>(v);
+          for (int w = 0; w < EX_WARPS; ++w) red[k * EX_WARPS + w] = v[32 * w];
+        }
+        for (int k = 0; k < EX_CG && gy * EX_CG + k < r.io.ncomp; ++k)
+          r.partial[(int64_t)(gy * EX_CG + k) * r.blocks + b] =
+              (double)block_combine<Op>(red.data(), k);
+        if ((*r.count)++ != (unsigned)(r.blocks * groups - 1)) continue;
+        for (int c = 0; c < r.io.ncomp; ++c) {
+          for (int t = 0; t < EX_BLOCK; ++t) v[t] = final_thread<Op>(r, c, t);
+          host_warps<Op>(v);
+          std::fill(red.begin(), red.end(), nan);
+          for (int w = 0; w < EX_WARPS; ++w) red[w] = v[32 * w];
+          r.io.out[c] = (float)block_combine<Op>(red.data(), 0);
+        }
+        *r.count = 0;
+      }
+    }
+    return 0;
+  }
+
+  static int run(const ReduceIO& r, void*) {
+    if (r.io.ncomp <= 0) return 0;
+    return dispatch_op<ReduceLoop>(r, nullptr);
+  }
+};
+
+ExampleIO io_of(const void* x, const void* y, void* out, int n, int ncomp, float a) {
+  ExampleIO io{};
   io.in[0] = static_cast<const float*>(x);
   io.in[1] = static_cast<const float*>(y);
   io.out = static_cast<float*>(out);
   io.n = n;
   io.ncomp = ncomp;
   io.a = a;
-  return tdp::ex::dispatch_site<ExampleLoop>(site, vvl, io, nullptr);
+  return io;
+}
+}  // namespace
+
+extern "C" int host_example_aosoa(int site, int W, const void* x, const void* y,
+                                  void* out, int n, int ncomp, float a) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  ExampleAosoaIO io{};
+  io.io = io_of(x, y, out, n, ncomp, a);
+  io.map = tdp::make_aosoa_map(W);
+  return dispatch_site_aosoa<ExampleAosoaLoop>(site, io, nullptr);
+}
+
+extern "C" int host_example(int site, int vvl, const void* x, const void* y,
+                            void* out, int n, int ncomp, float a) {
+  return dispatch_site<ExampleLoop>(site, vvl, io_of(x, y, out, n, ncomp, a),
+                                    nullptr);
+}
+
+extern "C" int host_example_reduce(int site, int op, int vvl, const void* x,
+                                   const void* y, void* out, void* partial,
+                                   void* count, int n, int ncomp, float a,
+                                   int resident) {
+  ReduceIO r{};
+  r.io = io_of(x, y, out, n, ncomp, a);
+  r.partial = static_cast<double*>(partial);
+  r.count = static_cast<unsigned*>(count);
+  r.blocks = resident;
+  r.op = op;
+  return dispatch_site<ReduceLoop>(site, vvl, r, nullptr);
+}
+
+// The example threads' vector path and the reduce's blocks, as the
+// launchers choose them.
+extern "C" int host_example_vec(int vvl, const void* x, const void* y,
+                                const void* out, int n) {
+  const ExampleIO io = io_of(x, y, const_cast<void*>(out), n, 1, 1.0f);
+  switch (vvl) {
+    case 1: return example_vec<1>(io);
+    case 2: return example_vec<2>(io);
+    case 4: return example_vec<4>(io);
+    case 8: return example_vec<8>(io);
+    default: return -1;
+  }
+}
+
+extern "C" int host_aosoa_lanes(int W, const void* x, const void* y,
+                                const void* out) {
+  ExampleAosoaIO a{};
+  a.io = io_of(x, y, const_cast<void*>(out), 1, 1, 1.0f);
+  a.map = tdp::make_aosoa_map(W);
+  return example_aosoa_lanes(a);
+}
+
+extern "C" int host_reduce_blocks(int vvl, int n, int ncomp, int resident) {
+  switch (vvl) {
+    case 1: return reduce_blocks<1>(n, ncomp, resident);
+    case 2: return reduce_blocks<2>(n, ncomp, resident);
+    case 4: return reduce_blocks<4>(n, ncomp, resident);
+    case 8: return reduce_blocks<8>(n, ncomp, resident);
+    default: return -1;
+  }
 }
 """
 
@@ -691,6 +812,18 @@ def example_lib(tmp_path_factory):
     so.host_example.restype = ctypes.c_int
     so.host_example_aosoa.argtypes = so.host_example.argtypes
     so.host_example_aosoa.restype = ctypes.c_int
+    so.host_example_reduce.argtypes = ([ctypes.c_int] * 3
+                                       + [ctypes.c_void_p] * 5
+                                       + [ctypes.c_int] * 2
+                                       + [ctypes.c_float, ctypes.c_int])
+    so.host_example_reduce.restype = ctypes.c_int
+    so.host_example_vec.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                                    + [ctypes.c_int])
+    so.host_example_vec.restype = ctypes.c_int
+    so.host_aosoa_lanes.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    so.host_aosoa_lanes.restype = ctypes.c_int
+    so.host_reduce_blocks.argtypes = [ctypes.c_int] * 4
+    so.host_reduce_blocks.restype = ctypes.c_int
     return so
 
 
@@ -767,3 +900,203 @@ def test_example_aosoa_matches_plain(example_lib, site, W, ncomp, n):
     assert out.reshape(-1)[aosoa_offsets(pad, ncomp, W)].isnan().all()
     assert example_lib.host_example_aosoa(0, 0, ops[0].data_ptr(), None,
                                           out.data_ptr(), n, ncomp, 1.0) == -2
+
+
+# ---------------------------------------------------------------------------
+# the example launchers' vector and scalar paths, and the one-pass reduce
+# ---------------------------------------------------------------------------
+
+def _offset(x, k):
+    """``x``'s values in a contiguous tensor at a storage offset of ``k``
+    floats (a view, as a slice of a larger buffer is)."""
+    buf = torch.full((x.numel() + k,), float("nan"))
+    view = buf[k:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _example_inputs(site, ncomp, n, seed):
+    from repro_torch.kernels import example_sites as ex
+
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(ncomp, n)), dtype=torch.float32)
+            for _ in ex.SPECS[site].fields]
+
+
+def _example_plain(site, xs, a):
+    from repro_torch.kernels import example_sites as ex
+
+    consts = {} if site == "site_pos" else {"a": a}
+    return tdp_launch(ex.SPECS[site], Target("torch"), *xs, **consts)
+
+
+@pytest.mark.parametrize("site", _build.EXAMPLE_SITES)
+@pytest.mark.parametrize("vvl", VVLS)
+@pytest.mark.parametrize("ncomp,n,offset", [
+    (5, 64, 0), (3, 16, 0), (5, 64, 1), (3, 42, 1), (2, 3, 0), (6, 40, 2)])
+def test_example_vector_and_scalar_paths(example_lib, site, vvl, ncomp, n,
+                                         offset):
+    """The launcher's path choice (the vector path exactly where every
+    operand's rows start on a VVL-float boundary) and both paths,
+    thread by thread, bit-equal to the plain body: more components than a
+    thread holds at once, n a multiple of VVL or not, n < VVL, operands at
+    a storage offset of one and two floats."""
+    xs = [_offset(x, offset) for x in
+          _example_inputs(site, ncomp, n, 7 * vvl + n)]
+    want = _example_plain(site, xs, -1.3)
+    out = _offset(torch.full((ncomp, n), float("nan")), offset)
+    vec = example_lib.host_example_vec(
+        vvl, xs[0].data_ptr(), xs[1].data_ptr() if len(xs) > 1 else None,
+        out.data_ptr(), n)
+    aligned = offset % (4 if vvl >= 4 else vvl) == 0
+    assert vec == int(n % vvl == 0 and aligned), (vvl, n, offset)
+    rc = example_lib.host_example(
+        _build.EXAMPLE_SITE_ID[site], vvl, xs[0].data_ptr(),
+        xs[1].data_ptr() if len(xs) > 1 else None, out.data_ptr(), n, ncomp,
+        -1.3)
+    assert rc == 0
+    assert torch.equal(out, want), (site, vvl, ncomp, n, offset)
+
+
+@pytest.mark.parametrize("site", _build.EXAMPLE_SITES)
+@pytest.mark.parametrize("W", [1, 8, 32, 64])
+@pytest.mark.parametrize("ncomp,n,offset", [(5, 70, 0), (3, 64, 0),
+                                            (5, 70, 1), (2, 3, 0)])
+def test_example_aosoa_vector_and_scalar_paths(example_lib, site, W, ncomp,
+                                               n, offset):
+    """The AoSoA launcher at W 1, 8, 32 and 64: 4 lanes a thread (W a
+    multiple of 32, operands 16-byte aligned) or one, the last group of 4
+    ragged, a block's operand at a storage offset of one float; bit-equal
+    to the plain body, pad lanes neither read (NaN in) nor written."""
+    xs = _example_inputs(site, ncomp, n, 11 * W + n)
+    want = _example_plain(site, xs, 0.7)
+    nblk = -(-n // W)
+    pad = torch.arange(n, nblk * W)
+    ops = []
+    for x in xs:
+        o = soa_to_aosoa(x, W)
+        o.reshape(-1)[aosoa_offsets(pad, ncomp, W)] = float("nan")
+        ops.append(_offset(o, offset))
+    out = _offset(torch.full((nblk, ncomp, W), float("nan")), offset)
+    lanes = example_lib.host_aosoa_lanes(
+        W, ops[0].data_ptr(), ops[1].data_ptr() if len(ops) > 1 else None,
+        out.data_ptr())
+    assert lanes == (4 if W % 32 == 0 and offset % 4 == 0 else 1)
+    rc = example_lib.host_example_aosoa(
+        _build.EXAMPLE_SITE_ID[site], W, ops[0].data_ptr(),
+        ops[1].data_ptr() if len(ops) > 1 else None, out.data_ptr(), n,
+        ncomp, 0.7)
+    assert rc == 0
+    assert torch.equal(aosoa_to_soa(out, n), want), (site, W, ncomp, n)
+    assert out.reshape(-1)[aosoa_offsets(pad, ncomp, W)].isnan().all()
+
+
+#: sites one reduce block covers in a round at every VVL (EX_BLOCK threads ×
+#: EX_RED_SITES sites)
+RED_BLOCK_SITES = 256 * 8
+
+
+def _reduce_run(lib, site, op, vvl, xs, a, resident):
+    """(rc, result, partial scratch, counter) of the host reduce; the
+    scratch starts as NaN."""
+    ncomp, n = xs[0].shape
+    out = torch.full((ncomp,), float("nan"))
+    partial = torch.full((ncomp * _build.REDUCE_MAX_BLOCKS,), float("nan"),
+                         dtype=torch.float64)
+    count = torch.zeros(1, dtype=torch.int32)
+    rc = lib.host_example_reduce(
+        _build.EXAMPLE_SITE_ID[site], _build.REDUCE_OP_ID[op], vvl,
+        xs[0].data_ptr(), xs[1].data_ptr() if len(xs) > 1 else None,
+        out.data_ptr(), partial.data_ptr(), count.data_ptr(), n, ncomp, a,
+        resident)
+    return rc, out, partial, int(count)
+
+
+def _hold_reduce(site, op, got, xs, a):
+    """max and min exact against the plain body's; the sum within
+    1e-5·Σ|y| of the float64 sum of the plain body's values."""
+    y = _example_plain(site, xs, a)
+    if op == "sum":
+        y64 = y.double()
+        err = (got.double() - y64.sum(-1)).abs()
+        assert (err <= 1e-5 * y64.abs().sum(-1)).all(), (err, site)
+    else:
+        want = y.amax(-1) if op == "max" else y.amin(-1)
+        assert torch.equal(got, want), (op, got, want)
+
+
+@pytest.mark.parametrize("site", _build.EXAMPLE_SITES)
+@pytest.mark.parametrize("op", _build.REDUCE_OPS)
+@pytest.mark.parametrize("vvl", VVLS)
+@pytest.mark.parametrize("ncomp,n,offset,resident", [
+    (3, 42, 0, 132), (1, 1, 0, 132), (5, RED_BLOCK_SITES + 1, 0, 3),
+    (2, 3 * RED_BLOCK_SITES + 9, 1, 4), (6, 5000, 0, 1),
+    (1, 300 * RED_BLOCK_SITES - 5, 0, 1056)])
+def test_example_reduce_matches_plain(example_lib, site, op, vvl, ncomp, n,
+                                      offset, resident):
+    """The reduce's phases, block by block on NaN-filled shared arrays and
+    scratch, in the kernel's combine order: more components than a block
+    holds (two groups), n one past a block's sites, several rounds a thread
+    (a small grid), more blocks than a block has threads (the last block's
+    threads take several partials each), an operand at a storage offset
+    (the scalar path).  The
+    counter is back at 0 and no block's partial is left unwritten."""
+    xs = [_offset(x, offset) for x in
+          _example_inputs(site, ncomp, n, 3 * vvl + n)]
+    rc, got, partial, count = _reduce_run(example_lib, site, op, vvl, xs,
+                                          1.9, resident)
+    assert rc == 0 and count == 0
+    _hold_reduce(site, op, got, xs, 1.9)
+    blocks = example_lib.host_reduce_blocks(vvl, n, ncomp, resident)
+    used = partial[:ncomp * blocks]
+    assert not used.isnan().any() and partial[ncomp * blocks:].isnan().all()
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("vvl", VVLS)
+@pytest.mark.parametrize("n", [1, 7, RED_BLOCK_SITES + 1])
+def test_example_reduce_identity_ends(example_lib, op, vvl, n):
+    """Sites past n and threads with no site contribute the op's identity:
+    the max of an all-negative field and the min of an all-positive one
+    are the field's own, not 0, at n = 1, n ragged against VVL and n one
+    past a block (a second block with one site)."""
+    rng = np.random.default_rng(n + vvl)
+    x = torch.tensor(1.0 + np.abs(rng.normal(size=(2, n))),
+                     dtype=torch.float32)
+    x = -x if op == "max" else x
+    rc, got, _, count = _reduce_run(example_lib, "scale", op, vvl, [x], 1.0,
+                                    132)
+    assert rc == 0 and count == 0
+    want = x.amax(-1) if op == "max" else x.amin(-1)
+    assert torch.equal(got, want), (op, vvl, n)
+
+
+def test_example_reduce_nan_and_blocks(example_lib):
+    """max and min propagate a NaN site, as ``torch.amax`` does; the grid
+    is one resident wave, at least one block a component group, at most
+    ``REDUCE_MAX_BLOCKS``; a bad op is ``ERR_BAD_OP``."""
+    x = torch.arange(40, dtype=torch.float32).reshape(2, 20)
+    x[1, 13] = float("nan")
+    for op in ("max", "min"):
+        rc, got, _, _ = _reduce_run(example_lib, "scale", op, 1, [x], 1.0, 8)
+        assert rc == 0 and not got[0].isnan() and got[1].isnan()
+    for vvl in VVLS:
+        assert example_lib.host_reduce_blocks(vvl, 2 ** 31 - 1, 3, 10 ** 6) \
+            == _build.REDUCE_MAX_BLOCKS
+        assert example_lib.host_reduce_blocks(vvl, 2 ** 24, 9, 1056) == 352
+        assert example_lib.host_reduce_blocks(vvl, 5, 9, 2) == 1
+    out = torch.zeros(2)
+    assert example_lib.host_example_reduce(
+        0, 3, 1, x.data_ptr(), None, out.data_ptr(), None, None, 20, 2, 1.0,
+        8) == -8
+    assert "ERR_BAD_OP = -8" in HEADER.read_text()
+    assert -8 in _build._ERRORS
+    text = EX_HEADER.read_text()
+    enum = re.findall(r"\bRED_(\w+) = (\d+)", text)
+    assert [(n.lower(), int(i)) for n, i in enum] == [
+        (n, _build.REDUCE_OP_ID[n]) for n in _build.REDUCE_OPS]
+    m = re.search(r"constexpr int EX_RED_MAX_BLOCKS = (\d+);", text)
+    assert int(m.group(1)) == _build.REDUCE_MAX_BLOCKS
+    m = re.search(r"constexpr int EX_BLOCK = (\d+);.*?EX_RED_SITES = (\d+);",
+                  text, re.S)
+    assert int(m.group(1)) * int(m.group(2)) == RED_BLOCK_SITES

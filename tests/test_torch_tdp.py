@@ -567,6 +567,70 @@ class TestExecution:
         assert torch.equal(got, (2.0 * x).amax(-1))
         assert tdp_pointwise.launches == before
 
+    @pytest.mark.parametrize("site", ["scale", "saxpy"])
+    @pytest.mark.parametrize("op", ["sum", "max", "min"])
+    def test_reduce_cuda_target_on_cpu_matches_reference(self, site, op,
+                                                         rng):
+        """``reduce`` under ``Target("cuda")`` on CPU tensors, and the
+        one-pass reduce's plain version (``reduce(..., target="torch")``,
+        the map plus a torch reduction), against
+        ``repro.core.execute.reduce`` on 2053 sites: ragged against every
+        block the kernel uses (256 threads × 8 sites a round) and every
+        VVL.  The fields are all negative for max and all positive for
+        min, so an identity of 0 at the ragged end would show.  The
+        one-pass kernel itself takes only CUDA tensors."""
+        n, sign = 2053, {"sum": 0.0, "max": -1.0, "min": 1.0}[op]
+        pairs = []
+        for _ in range(2 if site == "saxpy" else 1):
+            x = rng.normal(size=(3, n)).astype(np.float32)
+            if sign:
+                x = sign * (1.0 + np.abs(x))
+            pairs.append((jnp.asarray(x), torch.from_numpy(x.copy())))
+        jxs, xs = [p[0] for p in pairs], [p[1] for p in pairs]
+        jfn = jscale if site == "scale" else jsaxpy
+        want = np.asarray(jcore.reduce(jfn, None, jxs, consts={"a": 0.5},
+                                       op=op, vvl=16))
+        spec = ex.SPECS[site]
+        got = tdp.reduce(spec, None, xs, consts={"a": 0.5}, op=op,
+                         target=tdp.Target("cuda", vvl=4))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+        plain = tdp.reduce(spec, None, xs, consts={"a": 0.5}, op=op,
+                           target="torch")
+        mapped = texe._map_reduce(spec, tdp.Target("cuda", vvl=2), xs, None,
+                                  {"a": 0.5}, op)[0]
+        for p in (plain, mapped):
+            np.testing.assert_allclose(p.numpy(), want, rtol=1e-5)
+        if op != "sum":
+            assert torch.equal(got, plain) and torch.equal(mapped, plain)
+            assert (got * sign > 0).all()
+        plan = tapi.launch_plan(dataclasses.replace(spec, out=3),
+                                tdp.Target("cuda"), consts={"a": 0.5})
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tdp_pointwise.example_reduce(plan, op, xs)
+
+    def test_reduce_route_follows_the_rule(self):
+        """The one-pass kernel exactly under a ``"cuda"`` target, SoA, on
+        CUDA tensors, for an example site function; map plus a torch
+        reduction for every other case (no card needed: the route is
+        chosen from the device's type)."""
+        cuda, cpu = torch.device("cuda"), torch.device("cpu")
+        fused, mapped = texe._fused_reduce, texe._map_reduce
+        route = texe.reduce_route
+        for spec in ex.SPECS.values():
+            assert route(spec, tdp.Target("cuda"), cuda) is fused
+            assert route(spec, tdp.Target("cuda", vvl=8), "cuda:0") is fused
+            assert route(spec, tdp.Target("cuda"), cpu) is mapped
+            assert route(spec, tdp.Target("torch"), cuda) is mapped
+            assert route(spec, tdp.Target("cuda", vvl=32, layout="aosoa"),
+                         cuda) is mapped
+        plain_body = tdp.KernelSpec(ex.scale_site, fields=(3,))
+        assert route(plain_body, tdp.Target("cuda"), cuda) is fused
+        for spec in (tst.STREAM_SPEC, tst.GRAD6_SPEC,
+                     tdp.KernelSpec(lambda x: x, fields=(1,))):
+            assert route(spec, tdp.Target("cuda"), cuda) is mapped
+        assert route(tst.STREAM_SPEC, tdp.Target("cuda_windowed"),
+                     cuda) is mapped
+
 
 # ---------------------------------------------------------------------------
 # the deprecated shims
