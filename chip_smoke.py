@@ -13,7 +13,8 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    1, 2, 4 and 8, on the same inputs as the plain PyTorch version, at the
    tests' tolerances: the stencil site functions of both executors at
    128³, at a ragged 67 × 45 × 70 (every ``fused`` tile cut) and there with
-   caller ghost planes in one and in two dimensions, the windowed ``fused``
+   caller ghost planes in one, two and three dimensions (``LB_HALOS``; the
+   last as a block decomposition reads them), the windowed ``fused``
    at the default ``plane_block`` and at 8; the pointwise ones at 128³
    and at 128³ + 37 sites;
    then the LM kernels at ``rtol=2e-4, atol=2e-4`` (the reference's own,
@@ -116,7 +117,22 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    every width; a row per AoSoA kernel: ms on operands already in AoSoA,
    ms with the boundary transforms, the plain version, the bound, the SoA
    row's ms and library call; the phase's seconds.  Phase 4's ``one_launch``
-   tune sweeps the AoSoA axis too (candidate and pruned counts printed).
+   tune sweeps the AoSoA axis too (candidate and pruned counts printed);
+7. the domain decompositions (``decomposition_phase``): a one-rank NCCL
+   process group over a file store in a temporary directory, then
+   ``BinaryFluidSim`` at 128³, 20 steps from phase 4's state, in the three
+   regimes × slab ``(1,)``, pencil ``(1, 1)`` and block ``(1, 1, 1)``
+   meshes × overlap off and on, each path with the counters at 0: every
+   field's ghost planes filled by the rank's own collectives (one
+   ``all_to_all_single`` per exchange, counted) and read by the kernels
+   where the no-mesh run wraps.  Each run is held to phase 4's no-mesh
+   state (its max |difference| printed, bit-equality expected; the run
+   fails past ``rtol=1e-5, atol=1e-6``), its collectives to
+   ``comm_stats()`` (over the run and a step of the hot loop), its kernel
+   launches to the no-mesh run's; printed as one ``{"decomposition": ...}``
+   line a run with ``exchanged_bytes_per_step``, MLUPS beside the no-mesh
+   MLUPS of this process, and the exchange round's and the hot loop
+   step's device ms (CUDA events) beside the no-mesh step's.
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -124,6 +140,7 @@ Long output goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import pathlib
 import re
@@ -203,10 +220,17 @@ KERNELS = {
 }
 STENCIL_SITES = ("stream", "grad6", "fused", "phi_stream", "fused_two")
 #: LB checks of phase 3 besides 128³: a size that cuts every fused tile
-#: (45 % 8, 70 % 32, 67 % plane_block) and ghost planes in one and in two
-#: dimensions there.
+#: (45 % 8, 70 % 32, 67 % plane_block) and ghost planes in one, two and
+#: three dimensions there (a block decomposition's), each where it covers
+#: the site function's stencil radius (``fused`` reads g at radius 2).
 LB_RAGGED = (67, 45, 70)
-LB_HALOS = ((2, 0, 0), (0, 2, 3))
+LB_HALOS = ((2, 0, 0), (0, 2, 3), (1, 1, 1), (2, 2, 2))
+#: Phase 7's meshes, one rank each: mesh axis k shards grid dim k.
+DECOMPOSITIONS = {"slab": ("px",), "pencil": ("px", "py"),
+                  "block": ("px", "py", "pz")}
+#: Phase 7's timed launches and hold (about 0.25 s: longer than the host
+#: takes to enqueue 10 decomposed steps, collectives included).
+PHASE7_REPS, PHASE7_HOLD = 10, 500_000_000
 #: plane_block values the windowed fused is timed at in phase 5
 PLANE_BLOCKS = (1, 2, 4, 8)
 #: Per-launch ms at 128³, VVL 1, of the LB kernels before their redesign
@@ -1879,6 +1903,144 @@ def aosoa_phase(drive, by_path, make_inputs, prepare, soa_finals, st0,
     return rows, out
 
 
+def decomposition_phase(drive, by_path, sims, finals, st0, params,
+                        problems) -> dict:
+    """Phase 7, the domain decompositions on one card: a one-rank NCCL
+    process group (a file store under a temporary directory, no network),
+    then ``BinaryFluidSim`` at 128³, 20 steps from phase 4's spinodal
+    state, in each regime × slab ``(1,)``, pencil ``(1, 1)`` and block
+    ``(1, 1, 1)`` meshes × overlap off and on, each run driven with the
+    counts at 0.  The ranks' own exchanges fill every ghost plane, so a
+    run launches the no-mesh run's kernels with ghosts read where they
+    wrapped: its gathered state is held to phase 4's no-mesh state of the
+    regime (its difference printed; bit-equal expected), its collectives
+    counted to ``comm_stats()``, its kernel launches to the no-mesh run's
+    (the same counts unsplit, every kernel under overlap).  Beside each:
+    MLUPS and the no-mesh MLUPS of this process (host clock, median of
+    three), the exchange round's device ms a step (CUDA events around
+    ``CompiledProgram.exchange``) and the hot loop's step, decomposed and
+    not.  One JSON line per run."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.lb.sim import BinaryFluidSim
+
+    prog = importlib.import_module("repro_torch.core.program")
+    t_start = time.perf_counter()
+    nsites = int(np.prod(GRID))
+    out: dict = {"runs": []}
+
+    def mlups(sim):
+        rates = []
+        sim.run(st0, 2)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sim.run(st0, STEPS)
+            torch.cuda.synchronize()
+            rates.append(nsites * STEPS / (time.perf_counter() - t) / 1e6)
+        return statistics.median(rates)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            meshes = {kind: make_mesh((1,) * len(axes), axes)
+                      for kind, axes in DECOMPOSITIONS.items()}
+            for regime in (False, "one_launch", "two_launch"):
+                hot_name = "fused" if regime else "step"
+                base = sims[regime]
+                want = finals[regime]
+                base_counts = by_path[f"BinaryFluidSim fused={regime}"]
+                state = {"f": st0.f, "g": st0.g}
+                base_mlups = mlups(base)
+                kernels_ms = time_ms(
+                    lambda: base.programs[hot_name].step(state),
+                    reps=PHASE7_REPS, hold=PHASE7_HOLD)
+                for kind, mesh in meshes.items():
+                    for overlap in (False, True):
+                        sim = BinaryFluidSim(
+                            GRID, params, fused=regime, mesh=mesh,
+                            shard_axis=mesh.mesh_dim_names, overlap=overlap)
+                        path = (f"phase 7 BinaryFluidSim fused={regime} "
+                                f"{kind} overlap={overlap}")
+                        # drive() sets the collectives' count to 0 too
+                        st = drive(path, lambda: sim.run(st0, STEPS))
+                        counted = prog.collectives["all_to_all_single"]
+                        pp = {k: exe.comm_stats()["ppermutes_per_step"]
+                              for k, exe in sim.programs.items()}
+                        expected = (pp["collide"] + (STEPS - 1) * pp["fused"]
+                                    + pp["stream"] if regime
+                                    else STEPS * pp["step"])
+                        full = sim.gather(st)
+                        diff = {k: float((getattr(full, k) - getattr(want, k))
+                                         .abs().max()) for k in ("f", "g")}
+                        same = all(torch.equal(getattr(full, k),
+                                               getattr(want, k))
+                                   for k in ("f", "g"))
+                        hot = sim.programs[hot_name]
+                        cs = hot.comm_stats()
+                        prog.collectives["all_to_all_single"] = 0
+                        hot.run(state, STEPS)
+                        torch.cuda.synchronize()
+                        per_step = (prog.collectives["all_to_all_single"]
+                                    / STEPS)
+                        row = {
+                            "regime": str(regime), "decomposition": kind,
+                            "mesh": list(mesh.shape), "overlap": hot.overlap,
+                            "max_abs_vs_no_mesh": diff, "bit_equal": same,
+                            "collectives": counted,
+                            "collectives_expected": expected,
+                            "collectives_per_step": per_step,
+                            "ppermutes_per_step": cs["ppermutes_per_step"],
+                            "exchanged_bytes_per_step":
+                                cs["exchanged_bytes_per_step"],
+                            "interior_fraction": cs["interior_fraction"],
+                            "mlups": mlups(sim), "no_mesh_mlups": base_mlups,
+                            "exchange_ms_per_step": time_ms(
+                                lambda: hot.exchange(state),
+                                reps=PHASE7_REPS, hold=PHASE7_HOLD),
+                            "step_ms": time_ms(
+                                lambda: hot.step(state), reps=PHASE7_REPS,
+                                hold=PHASE7_HOLD),
+                            "no_mesh_step_ms": kernels_ms,
+                            "launches": {f"{k}.{s}": c for (k, s), c in
+                                         by_path[path].items()},
+                        }
+                        out["runs"].append(row)
+                        print(json.dumps({"decomposition": row}), flush=True)
+                        what = f"phase 7 {regime} {kind} overlap={overlap}"
+                        if (counted, per_step) != (
+                                expected, cs["ppermutes_per_step"]):
+                            problems.append(
+                                f"{what}: {counted} collectives in the run, "
+                                f"{per_step} a step; comm_stats says "
+                                f"{expected}, {cs['ppermutes_per_step']}")
+                        if not all(torch.allclose(getattr(full, k),
+                                                  getattr(want, k),
+                                                  rtol=1e-5, atol=1e-6)
+                                   for k in ("f", "g")):
+                            problems.append(f"{what}: differs from the "
+                                            f"no-mesh run by {diff}")
+                        counts = by_path[path]
+                        if (counts != base_counts if not overlap else
+                                set(counts) != set(base_counts)
+                                or any(counts[e] < n
+                                       for e, n in base_counts.items())):
+                            problems.append(f"{what}: launches {counts}, the "
+                                            f"no-mesh run {base_counts}")
+                        del sim, st, full
+                        torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"phase 7: decompositions {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -1920,7 +2082,9 @@ def main() -> int:
     print(json.dumps({"build_s": round(build_s, 3), "kernels_compiled":
                       len(ptxas), "spilling": spills}), flush=True)
 
-    counters = {"tdp_gathered": tdp_pointwise.launches,
+    counters = {"exchange": importlib.import_module(
+                    "repro_torch.core.program").collectives,
+                "tdp_gathered": tdp_pointwise.launches,
                 "tdp_windowed": tdp_windowed.launches,
                 "tdp_gathered_aosoa": tdp_pointwise.aosoa_launches,
                 "tdp_windowed_aosoa": tdp_windowed.aosoa_launches,
@@ -1993,8 +2157,12 @@ def main() -> int:
         if not spec.has_stencil:
             n = int(np.prod(GRID))
             return [((n,), (0,), pbs), ((n + 37,), (0,), pbs)]
+        radius = [max(r) for r in zip(*(st.radius_per_dim()
+                                        for st in spec.stencils
+                                        if st is not None))]
         return ([(GRID, (0, 0, 0), pbs), (LB_RAGGED, (0, 0, 0), pbs)]
-                + [(LB_RAGGED, h, pbs) for h in LB_HALOS])
+                + [(LB_RAGGED, h, pbs) for h in LB_HALOS
+                   if all(hh == 0 or hh >= r for hh, r in zip(h, radius))])
 
     def ms_by_vvl(spec, xs, consts):
         """The gathered LM kernel's time at every VVL, on the same inputs
@@ -2419,6 +2587,10 @@ def main() -> int:
         drive, by_path, make_inputs, prepare, finals, st0, rows, params,
         problems)
     rows += aosoa_rows
+
+    # -- 7. the domain decompositions ------------------------------------------
+    record["decompositions"] = decomposition_phase(
+        drive, by_path, sims, finals, st0, params, problems)
     del finals
     torch.cuda.empty_cache()
     print(json.dumps({"aosoa": {k: record["aosoa"][k] for k in (

@@ -1,5 +1,6 @@
 """The targetDP core on PyTorch: descriptors, the memory model, the launch
-path, executors, step graphs (single device) and the tuning layer.
+path, executors, step graphs (with their domain decompositions) and the
+tuning layer.
 
 Public surface (paper → here), as the reference's ``repro.core``:
 
@@ -39,6 +40,7 @@ from .autotune import (
     TuneResult,
     autotune,
     default_space,
+    plane_block_candidates,
     wall_clock_timer,
 )
 from .costmodel import (
@@ -77,6 +79,8 @@ from .program import (
     Program,
     ProgramPlan,
     Stage,
+    exchange_ghosts,
+    exchange_stats,
     program,
     resolve_stage_target,
     stage,
@@ -106,11 +110,13 @@ __all__ = [
     "aosoa_nblocks", "aosoa_to_soa", "as_target", "autotune",
     "compatible_executors", "copy_constant_to_target", "copy_from_target",
     "copy_from_target_masked", "copy_to_target", "copy_to_target_masked",
-    "costmodel", "default_space", "default_vvl", "executor_tunables",
+    "costmodel", "default_space", "default_vvl", "exchange_ghosts",
+    "exchange_stats", "executor_tunables",
     "executor_vvls", "executor_wants", "field", "field_like", "field_view",
     "gather_neighbors", "get_executor", "get_executor_entry", "halo_extend",
     "kernel", "launch", "launch_plan", "launch_stencil", "list_executors",
-    "machine_profile", "pad_sites", "predict", "program", "reduce",
+    "machine_profile", "pad_sites", "plane_block_candidates", "predict",
+    "program", "reduce",
     "register_executor", "registry_version", "resolve_stage_target",
     "roofline_seconds",
     "set_default_vvl", "site_kernel", "soa_to_aosoa", "stage", "sync_target",

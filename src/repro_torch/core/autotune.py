@@ -34,10 +34,18 @@ by ``measure_steps``.  The reference divides by the whole median
 model exact per launch; a report replayed from a cache keeps the ratio it
 was stored with.
 
-Not ported: per-stage ``plane_block`` assignments (the reserved
-``"stage:<name>"`` tuning keys) and the pointwise block knobs.  No kernel
-of this package has a block knob; the one-stage programs the tile runs in
-need no per-stage split.
+**Per-stage tuning** (``per_stage=True``): program-level candidates may
+assign a distinct ``plane_block`` to each windowed stage that holds a
+shared-memory tile, through the reserved ``Target.tuning`` keys
+``"stage:<name>"`` (a frozen tuple of ``(knob, value)`` pairs, merged over
+the flat tuning by
+:func:`repro_torch.core.program.resolve_stage_target`).  The axis needs
+two such stages: with one, per-stage is the global sweep.  Of the LB
+programs only ``one_launch``'s ``fused`` holds a tile (``two_launch``'s two
+windowed stages, ``phi_stream`` and ``fused_two``, hold none), so it
+emits no candidate for them.
+
+Not ported: the pointwise block knobs; no kernel of this package has one.
 """
 from __future__ import annotations
 
@@ -217,12 +225,43 @@ def _vvl_values(n: int, *, lo: int = 8, hi: int = 8192,
     return vals
 
 
+def plane_block_candidates(spec: KernelSpec, target: Target | str | None,
+                           lattice: Lattice, *, halo=None, consts=None,
+                           vmem_limit: int = DEFAULT_VMEM_LIMIT):
+    """The ``plane_block`` axis for one ``wants="halo_extended"`` launch.
+
+    Emits the divisors of the launch's x-plane count (``plan.shape[0]`` —
+    for a Program stage that is the *extended* plane count, interior plus
+    recompute ring, as under a decomposition) whose shared-memory tile fits
+    ``vmem_limit``.  Divisors, not every integer: the last tile of a
+    non-divisor is cut, wasting part of a block's planes.
+
+    Returns ``(feasible, pruned)`` — ``feasible`` the surviving
+    ``plane_block`` values, ``pruned`` a list of ``(value, reason)``.
+    """
+    tgt = as_target(target)
+    feasible: list[int] = []
+    pruned: list[tuple[int, str]] = []
+    base_plan = _launch_plan(spec, tgt, lattice=lattice, halo=halo,
+                             consts=consts)
+    for p in _divisors(base_plan.shape[0]):
+        vmem = _launch_plan(spec, tgt.with_tuning(plane_block=p),
+                            lattice=lattice, halo=halo,
+                            consts=consts).vmem_bytes_estimate()
+        if vmem <= vmem_limit:
+            feasible.append(p)
+        else:
+            pruned.append((p, f"vmem estimate {vmem} > limit {vmem_limit}"))
+    return feasible, pruned
+
+
 def default_space(program_or_spec, target: Target | str | None = None, *,
                   executors: Sequence[str] | None = None,
                   grid_shape: Sequence[int] | None = None,
                   lattice: Lattice | None = None, halo=None, consts=None,
                   site_count: int | None = None,
-                  vmem_limit: int = DEFAULT_VMEM_LIMIT):
+                  vmem_limit: int = DEFAULT_VMEM_LIMIT,
+                  per_stage: bool = False):
     """The default candidate space for :func:`autotune`.
 
     Axes:
@@ -250,7 +289,12 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
       it (:meth:`~repro_torch.core.api.LaunchPlan.vmem_bytes_estimate`
       > 0), the **plane_block axis**: the divisors of the x extent, at the
       base VVL.  A point whose tile exceeds ``vmem_limit`` bytes is pruned
-      ("vmem estimate ... > limit ...").
+      ("vmem estimate ... > limit ...");
+    * with ``per_stage=True``, for a Program with **more than one** windowed
+      stage holding a tile, a per-stage ``plane_block`` sweep: one
+      candidate per (stage, divisor of that stage's extended plane count)
+      under the reserved tuning key ``"stage:<name>"``, VMEM-filtered, the
+      default plane_block left out.
 
     Returns ``(candidates, pruned)``; ``pruned`` lists ``(label, reason)``
     for the executors the launch cannot take and the tiles that do not
@@ -349,7 +393,39 @@ def default_space(program_or_spec, target: Target | str | None = None, *,
                                         f"{vmem_limit}"))
             else:
                 add(c)
+        if per_stage and isinstance(program_or_spec, Program):
+            for c, need in _stage_candidates(program_or_spec, probe,
+                                             grid_shape):
+                if need > vmem_limit:
+                    pruned.append((c.label, f"vmem estimate {need} > "
+                                            f"limit {vmem_limit}"))
+                else:
+                    add(c)
     return candidates, pruned
+
+
+def _stage_candidates(program: Program, probe: Target, grid_shape):
+    """``(candidate, vmem)`` of the per-stage ``plane_block`` axis: every
+    divisor of each tiled windowed stage's extended plane count under its
+    ``"stage:<name>"`` key, but the default plane_block; none unless two
+    stages or more hold a tile."""
+    tiled = [(name, p.shape[0], p.vmem_bytes_estimate())
+             for name, p in program.plan(probe, grid_shape=grid_shape).stages
+             if p.wants == "halo_extended" and p.vmem_bytes_estimate() > 0]
+    if len(tiled) < 2:
+        return []
+    out = []
+    for name, count, own in tiled:
+        key = f"stage:{name}"
+        for v in _divisors(count):
+            nested = (("plane_block", int(v)),)
+            pplan = program.plan(probe.with_tuning({key: nested}),
+                                 grid_shape=grid_shape)
+            stage_vmem = dict(pplan.stages)[name].vmem_bytes_estimate()
+            if stage_vmem != own:              # ≡ the default plane_block
+                out.append((Candidate(probe.backend, tuning=((key, nested),)),
+                            pplan.vmem_bytes_estimate()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -624,6 +700,7 @@ def autotune(program_or_spec, target: Target | str | None = None,
              top_k: int | None = None,
              profile=None,
              vmem_limit: int = DEFAULT_VMEM_LIMIT,
+             per_stage: bool = False,
              cache_dir: str | None = DEFAULT_CACHE_DIR) -> TuneResult:
     """Choose the executor, VVL and ``Target.tuning`` by measurement.
 
@@ -644,9 +721,10 @@ def autotune(program_or_spec, target: Target | str | None = None,
         :func:`wall_clock_timer`.
       grid_shape / lattice / halo / consts: launch geometry (programs take
         ``grid_shape`` from ``example_state``).
-      executors / vmem_limit: forwarded to :func:`default_space` (a
-        ``plane_block`` point whose tile needs more than ``vmem_limit``
-        bytes of shared memory is pruned before any measurement).
+      executors / vmem_limit / per_stage: forwarded to
+        :func:`default_space` (a ``plane_block`` point whose tile needs more
+        than ``vmem_limit`` bytes of shared memory is pruned before any
+        measurement; ``per_stage`` adds the ``"stage:<name>"`` axis).
       check_identical: run every candidate once more and prune any whose
         outputs are not equal (``torch.equal``) to the base target's.
       scorer: ``(candidate_target) -> predicted seconds | None``; defaults
@@ -707,7 +785,7 @@ def autotune(program_or_spec, target: Target | str | None = None,
             grid_shape=grid if is_program else None, lattice=lattice,
             halo=halo, consts=consts,
             site_count=None if is_program or lattice is not None else grid[0],
-            vmem_limit=vmem_limit)
+            vmem_limit=vmem_limit, per_stage=per_stage)
     else:
         pruned = []
         base_cand = Candidate.of(base)

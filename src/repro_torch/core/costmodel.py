@@ -16,14 +16,15 @@ performance, and this module turns it into numbers:
   hbm_bytes / bw)``, summed over the step.  FLOPs come from tracing the
   plan's plain PyTorch body on ``meta`` tensors (:func:`kernel_flops`);
   bytes from the plan memory models.  :func:`roofline_seconds` keeps the
-  reference's spill and communication terms, but :func:`predict` charges
-  neither: no kernel of this package stages a window in shared memory, and
-  the port runs on one device.
+  reference's spill and communication terms; :func:`predict` charges the
+  communication term (a decomposed step's exchanged bytes over the
+  profile's ``link_bw``) and not the spill: no kernel of this package
+  stages a window larger than shared memory.
 
 Left out: the reference's second backend, ``source="hlo"``, and its HLO
 walker (``analyze``, ``parse_module``, ``collective_bytes``,
 ``dryrun_record_terms``): they read XLA's compiled HLO text, which PyTorch
-does not produce (ROADMAP, queue A, item 10).
+does not produce (ROADMAP, queue A, item 8).
 
 :func:`repro_torch.core.autotune.autotune` uses :func:`predict` to rank its
 candidates and measure only the top K.
@@ -66,9 +67,11 @@ __all__ = [
 
 #: table rates per device family.  ``h100``: NVIDIA's H100 SXM data sheet —
 #: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM3, 80 GB,
-#: NVLink 450 GB/s each way, one 400 Gb/s NIC per card; 227 KB of shared
-#: memory per block.  ``gpu``: the reference's generic row (not the H100's)
-#: for any other CUDA card, with 48 KB of static shared memory per block.
+#: NVLink 450 GB/s each way (``link_bw``: the data sheet's figure, not a
+#: calibration — :func:`calibrate` measures no link), one 400 Gb/s NIC per
+#: card; 227 KB of shared memory per block.  ``gpu``: the reference's
+#: generic row (not the H100's) for any other CUDA card, with 48 KB of
+#: static shared memory per block.
 #: ``cpu``: the reference's conservative laptop-class row.
 _DEFAULT_RATES: dict[str, dict] = {
     "h100": dict(peak_flops=67e12, hbm_bw=3.35e12, link_bw=450e9,
@@ -513,7 +516,8 @@ def _resolve_profile(profile: MachineProfile | None) -> MachineProfile:
     return profile
 
 
-def _predict_stages(stages, profile) -> CostEstimate:
+def _predict_stages(stages, profile, comm=None) -> CostEstimate:
+    comm_bytes = float((comm or {}).get("exchanged_bytes_per_step", 0))
     rows = []
     t_c = t_h = flops = hbm = 0.0
     for sname, p in stages:
@@ -529,15 +533,21 @@ def _predict_stages(stages, profile) -> CostEstimate:
         t_h += est.t_hbm
         flops += est.flops
         hbm += est.hbm_bytes
+    t_x = comm_bytes / profile.link_bw
+    if t_x > max(t_c, t_h):
+        bottleneck = "comm"
+    else:
+        bottleneck = "compute" if t_c >= t_h else "hbm"
     return CostEstimate(
-        seconds=sum(r["seconds"] for r in rows), t_compute=t_c, t_hbm=t_h,
-        t_comm=0.0, flops=flops, hbm_bytes=hbm, vmem_bytes=0.0,
-        comm_bytes=0.0, bottleneck="compute" if t_c >= t_h else "hbm",
-        source="analytic", device=profile.device, per_stage=tuple(rows))
+        seconds=sum(r["seconds"] for r in rows) + t_x, t_compute=t_c,
+        t_hbm=t_h, t_comm=t_x, flops=flops, hbm_bytes=hbm, vmem_bytes=0.0,
+        comm_bytes=comm_bytes, bottleneck=bottleneck, source="analytic",
+        device=profile.device, per_stage=tuple(rows))
 
 
 def predict(subject, target=None, profile: MachineProfile | None = None, *,
-            grid_shape=None, source: str = "analytic") -> CostEstimate:
+            grid_shape=None, source: str = "analytic",
+            comm=None) -> CostEstimate:
     """Predict the per-step cost of ``subject`` on float32 fields.
 
     Args:
@@ -545,7 +555,8 @@ def predict(subject, target=None, profile: MachineProfile | None = None, *,
         :class:`~repro_torch.core.program.ProgramPlan`,
         :class:`~repro_torch.core.program.Program` (planned under
         ``target`` at ``grid_shape``) or
-        :class:`~repro_torch.core.program.CompiledProgram` (its own plan).
+        :class:`~repro_torch.core.program.CompiledProgram` (its own plan
+        and :meth:`~repro_torch.core.program.CompiledProgram.comm_stats`).
       target: the target to plan a bare ``Program`` under.
       profile: the :class:`MachineProfile`; ``None`` is
         :func:`machine_profile` of the card (``RuntimeError`` where none is
@@ -553,7 +564,11 @@ def predict(subject, target=None, profile: MachineProfile | None = None, *,
       grid_shape: required for a bare ``Program``.
       source: ``"analytic"`` (plan memory models and traced FLOPs).
         ``"hlo"`` raises ``NotImplementedError``: it walks XLA's compiled
-        HLO, which PyTorch does not produce (ROADMAP, queue A, item 10).
+        HLO, which PyTorch does not produce (ROADMAP, queue A, item 8).
+      comm: the communication stats (any mapping with
+        ``exchanged_bytes_per_step``), charged at the profile's
+        ``link_bw``; defaults to the subject's ``comm_stats()`` when it
+        has one, else no communication term.
     """
     from .api import LaunchPlan
     from .program import CompiledProgram, Program, ProgramPlan
@@ -563,9 +578,11 @@ def predict(subject, target=None, profile: MachineProfile | None = None, *,
     if source == "hlo":
         raise NotImplementedError(
             "source='hlo' walks XLA's compiled HLO, which PyTorch does not "
-            "produce; it is not ported (ROADMAP, queue A, item 10) — use "
+            "produce; it is not ported (ROADMAP, queue A, item 8) — use "
             "source='analytic'")
     if isinstance(subject, CompiledProgram):
+        if comm is None:
+            comm = subject.comm_stats()
         subject = subject.plan()
     elif isinstance(subject, Program):
         if grid_shape is None:
@@ -578,4 +595,4 @@ def predict(subject, target=None, profile: MachineProfile | None = None, *,
     else:
         raise TypeError(f"predict expects a LaunchPlan, ProgramPlan, Program "
                         f"or CompiledProgram; got {type(subject).__name__}")
-    return _predict_stages(stages, _resolve_profile(profile))
+    return _predict_stages(stages, _resolve_profile(profile), comm)

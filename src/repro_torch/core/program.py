@@ -32,17 +32,36 @@ c. **ping-pong buffers** — :meth:`CompiledProgram.run` steps ``nsteps``
    reference's ``lax.scan`` with donated buffers);
 d. **aggregated memory models** — :meth:`Program.plan` builds one
    :class:`~repro_torch.core.api.LaunchPlan` per stage, sums their
-   ``hbm_bytes_estimate`` and takes the largest ``vmem_bytes_estimate``.
-
-Domain decompositions (a ``mesh``) are not ported yet: see ROADMAP,
-queue A, "Decompositions".
+   ``hbm_bytes_estimate`` and takes the largest ``vmem_bytes_estimate``;
+e. **slab, pencil and block decompositions with comm/compute overlap** —
+   a ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh`) may shard up to
+   ``ndim`` grid dimensions (mesh axis *k* ↔ grid dim *k*; one axis = slab,
+   two = pencil, three = block).  Each rank steps its own block of the
+   grid: every field is copied once a step into a buffer with room for its
+   ghost planes, which the exchange fills in **ordered per-dimension
+   sweeps** (dim 0 first): the dim-1 exchange transfers planes that span
+   the dim-0 ghosts already received, so edge and corner ghosts arrive
+   through the orthogonal neighbour, with no diagonal transfer.  Each of
+   the reference's ``ppermute``\\ s is one ``all_to_all_single`` over the
+   mesh axis's process group (one non-zero split each way; self pairs
+   included, so a one-rank mesh runs the same collectives), counted in
+   :data:`collectives`.  The in-place executors then read the ghost planes
+   where a periodic launch wraps.  With ``overlap=True`` the first swept
+   dimension's exchanges are posted asynchronously, the **interior**
+   region (:func:`_overlap_regions`) launches on the raw local fields
+   while they are in flight, and the **boundary** slabs launch on the
+   exchanged fields after the wait (:func:`_run_region`).
+   :meth:`CompiledProgram.comm_stats` reports the analytic exchange budget
+   per step.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from .api import _normalize_halo
 from .api import launch as _launch
@@ -57,6 +76,11 @@ from .target import Target, as_target
 #: the gathered executor a pointwise stage routes to under it.  A pointwise
 #: stage under a stencil-only executor missing here raises.
 _POINTWISE_PARTNER = {"cuda_windowed": "cuda"}
+
+#: collectives the compiled steps' ghost exchanges issue: one
+#: ``all_to_all_single`` per reference ``ppermute``, counted where it is
+#: posted
+collectives = {"all_to_all_single": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -161,18 +185,32 @@ def _grid_trim(arr: torch.Tensor, shape: tuple[int, ...],
     return arr
 
 
-def resolve_stage_target(target: Target | str | None,
-                         spec: KernelSpec) -> Target:
+def resolve_stage_target(target: Target | str | None, spec: KernelSpec,
+                         stage_name: str | None = None) -> Target:
     """Per-stage target routing: stencil stages keep the requested target;
     pointwise stages under a stencil-only (``wants="halo_extended"``)
     executor route to its pointwise partner at the same VVL — ``"cuda"``
     under ``"cuda_windowed"``, so the fused regime's prologue runs the
     gathered CUDA kernel on the card and not the plain version.
 
+    Per-stage tuning: ``Target.tuning`` keys of the reserved form
+    ``"stage:<name>"`` hold a nested ``((knob, value), ...)`` assignment for
+    that stage only (:func:`repro_torch.core.autotune.default_space` with
+    ``per_stage=True`` emits them).  Every ``stage:*`` key is stripped from
+    the flat tuning, then the entry of ``stage_name`` is merged over it, so
+    a stage never sees another stage's knobs and its own value overrides
+    the program-wide one.
+
     Raises ``ValueError`` for an unregistered executor and
     ``NotImplementedError`` for a stencil-only executor with no pointwise
     partner — never a quiet detour through the plain version."""
     tgt = as_target(target)
+    if any(k.startswith("stage:") for k, _ in tgt.tuning):
+        flat = {k: v for k, v in tgt.tuning if not k.startswith("stage:")}
+        if stage_name is not None:
+            flat.update(dict(dict(tgt.tuning).get(f"stage:{stage_name}",
+                                                  ())))
+        tgt = tgt.with_(tuning=flat)
     if spec.has_stencil or executor_wants(tgt.executor) != "halo_extended":
         return tgt
     partner = _POINTWISE_PARTNER.get(tgt.executor)
@@ -357,7 +395,10 @@ class Program:
                 want = (e_out if s is None
                         else tuple(e + hh for e, hh in zip(e_out, h)))
                 arr = _grid_trim(arr, shape, ext, want)
-                arrays.append(arr.reshape(arr.shape[0], -1))
+                # a trimmed field is a strided view and the executors take
+                # contiguous fields: staged here, where a decomposed step
+                # reads a field at less than its exchange width
+                arrays.append(arr.contiguous().view(arr.shape[0], -1))
             bufs = None
             if out is not None and i in self._final_writers and not any(e_out):
                 bufs = tuple(out[w].view(out[w].shape[0], -1)
@@ -388,7 +429,7 @@ class Program:
         h0 = _normalize_halo(halo, ndim)
         open_mask = tuple(hh > 0 for hh in h0)
         widths, geo = self.schedule(ndim, open_mask)
-        stage_targets = tuple(resolve_stage_target(target, st.spec)
+        stage_targets = tuple(resolve_stage_target(target, st.spec, st.name)
                               for st in self.stages)
         env = {}
         for f in self.fields:
@@ -410,16 +451,18 @@ class Program:
     # -- binding -------------------------------------------------------------
 
     def compile(self, target: Target | str | None = None, *,
-                grid_shape: Sequence[int], mesh=None) -> "CompiledProgram":
+                grid_shape: Sequence[int], mesh=None,
+                shard_axis: str | Sequence[str] | None = None,
+                overlap: bool | None = None) -> "CompiledProgram":
         """Bind to one target and grid (see :class:`CompiledProgram`).
-        ``mesh`` is reserved for domain decompositions, which are not
-        ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"program {self.name!r}: a mesh= compile needs the domain "
-                f"decompositions, which are not ported yet (ROADMAP, "
-                f"queue A, 'Decompositions')")
-        return CompiledProgram(self, target, grid_shape)
+        ``mesh``/``shard_axis`` default to the target's hints; with a mesh,
+        mesh axis *k* shards grid dim *k* (one name = slab, two = pencil,
+        three = block), each rank steps its own block of ``grid_shape``,
+        and every field exchanges its ghost planes once a step per sharded
+        dim.  ``overlap=True`` opts into the comm/compute overlap schedule
+        (the interior launched while the first exchanges are in flight)."""
+        return CompiledProgram(self, target, grid_shape, mesh=mesh,
+                               shard_axis=shard_axis, overlap=overlap)
 
     def autotune(self, target: Target | str | None,
                  example_state: Mapping[str, torch.Tensor], **kw):
@@ -432,70 +475,524 @@ class Program:
     def plan(self, target: Target | str | None = None, *,
              grid_shape: Sequence[int]) -> "ProgramPlan":
         """Aggregate the per-launch memory models across the step without
-        launching (single-device periodic geometry)."""
+        launching (single-device periodic geometry; for a decomposition's
+        local geometry use :meth:`CompiledProgram.plan`)."""
         shape = tuple(int(s) for s in grid_shape)
         _, geo = self.schedule(len(shape), (False,) * len(shape))
-        stage_targets = tuple(resolve_stage_target(target, st.spec)
+        stage_targets = tuple(resolve_stage_target(target, st.spec, st.name)
                               for st in self.stages)
         return _build_program_plan(self, stage_targets, shape, geo)
+
+
+# ---------------------------------------------------------------------------
+# the ghost exchange
+# ---------------------------------------------------------------------------
+
+def _shard_axes(shard_axis) -> tuple[str, ...]:
+    """Normalise a ``shard_axis`` argument (name or sequence of names) to
+    the ordered tuple of mesh axis names; axis *k* shards grid dim *k*."""
+    if shard_axis is None:
+        return ()
+    if isinstance(shard_axis, str):
+        return (shard_axis,)
+    return tuple(str(a) for a in shard_axis)
+
+
+def _mesh_axis_sizes(mesh) -> dict[str, int]:
+    """Axis name → size: a ``DeviceMesh`` (``mesh_dim_names`` beside its
+    ``shape`` tuple) or any object whose ``shape`` maps names to sizes, as
+    the reference's ``Mesh.shape`` does."""
+    shape = getattr(mesh, "shape", None)
+    if isinstance(shape, Mapping):
+        return {str(k): int(v) for k, v in shape.items()}
+    names = getattr(mesh, "mesh_dim_names", None)
+    if shape is None or not names:
+        raise ValueError(f"expected a mesh with named axes "
+                         f"(repro_torch.launch.mesh.make_mesh(shape, axes)), "
+                         f"got {type(mesh).__name__}")
+    return dict(zip(names, (int(s) for s in shape)))
+
+
+def _exchange_hops(width: int, local_extent: int) -> list[tuple[int, int]]:
+    """Hop plan for a ``width``-plane ghost exchange across shards of
+    ``local_extent`` planes: ``[(hop, take), ...]`` — hop *j* transfers
+    the ``take`` boundary planes of the rank ``±j`` neighbour.  One hop
+    when the neighbour covers the width; one extra hop per additional
+    shard when ``width > local_extent`` (a 1-plane slab feeding a radius-2
+    schedule reads from ranks ±2)."""
+    hops = -(-width // local_extent)         # ceil: shards per side
+    return [(j, min(local_extent, width - (j - 1) * local_extent))
+            for j in range(1, hops + 1)]
+
+
+def _hop_pairs(hop: int, nranks: int) -> list[tuple[int, int]]:
+    """``(src, dst)`` pairs of a ``ppermute`` shifting by ``hop`` ranks."""
+    return [(i, (i + hop) % nranks) for i in range(nranks)]
+
+
+def _ghost_moves(ext: torch.Tensor, dim: int, width: int):
+    """The transfers of one ``width``-plane exchange along grid dim ``dim``
+    of ``ext`` (``(ncomp, ...)`` with ``width`` planes of room on each side
+    of the shard's own in that dim): ``[(source, ghost, hop), ...]``,
+    views of ``ext``.  Hop *j*'s left ghosts come from rank −j's last planes
+    (a shift by +j) and sit left of hop *j*−1's; the right ghosts mirror
+    them (a shift by −j).  Sources are own planes and ghosts are not, so
+    the moves never overlap."""
+    ax = dim + 1                             # grid dim d is tensor axis d+1
+    xl = ext.shape[ax] - 2 * width
+    lo, hi = width, width + xl
+    moves = []
+    for j, t in _exchange_hops(width, xl):
+        moves.append((ext.narrow(ax, width + xl - t, t),
+                      ext.narrow(ax, lo - t, t), j))
+        moves.append((ext.narrow(ax, width, t), ext.narrow(ax, hi, t), -j))
+        lo, hi = lo - t, hi + t
+    return moves
+
+
+def exchange_ghosts(arr: torch.Tensor, dim: int, width: int, nranks: int,
+                    permute) -> torch.Tensor:
+    """Extend a local shard ``(ncomp, *local)`` by ``width`` exchanged
+    ghost planes on each side of grid dimension ``dim``.
+
+    The transfer set is exactly the boundary planes (the paper's
+    masked-copy idea), placed in global-coordinate order: the hop-j left
+    ghosts sit left of the hop-(j-1) ones, mirroring on the right.
+    ``permute(x, pairs)`` is the rank-permutation primitive — the
+    ``all_to_all_single`` of a mesh axis in a compiled step; tests inject a
+    stacked-shard fake to hold the hop plan to a global roll.
+    """
+    ax = dim + 1
+    shape = list(arr.shape)
+    shape[ax] += 2 * width
+    ext = arr.new_empty(shape)
+    ext.narrow(ax, width, arr.shape[ax]).copy_(arr)
+    for src, ghost, hop in _ghost_moves(ext, dim, width):
+        ghost.copy_(permute(src, _hop_pairs(hop, nranks)))
+    return ext
+
+
+class _AxisPermute:
+    """The ``ppermute`` of one mesh axis: one ``all_to_all_single`` over the
+    axis's process group, with one non-zero split each way.  The planes
+    are staged contiguously (a ghost slab of a multi-component field is
+    not) and received into a buffer of their own."""
+
+    def __init__(self, mesh, axis_name: str):
+        self.group = mesh.get_group(axis_name)
+        self.nranks = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+
+    def post(self, x: torch.Tensor, pairs, *, async_op: bool):
+        """Send ``x`` along ``pairs``; returns ``(work, received)``, the
+        latter valid once ``work`` is waited on (``None`` when not async)."""
+        dst = next(d for s, d in pairs if s == self.rank)
+        src = next(s for s, d in pairs if d == self.rank)
+        send = x.contiguous()
+        recv = torch.empty_like(send)
+        n = send.numel()
+        ins, outs = [0] * self.nranks, [0] * self.nranks
+        ins[dst], outs[src] = n, n
+        work = dist.all_to_all_single(recv.view(-1), send.view(-1), outs,
+                                      ins, group=self.group,
+                                      async_op=async_op)
+        collectives["all_to_all_single"] += 1
+        return work, recv
+
+    def __call__(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        return self.post(x, pairs, async_op=False)[1]
+
+
+def _exchange_dim(arr: torch.Tensor, axis_name: str, width: int, dim: int,
+                  *, mesh) -> torch.Tensor:
+    """:func:`exchange_ghosts` over ``mesh``: its axis ``axis_name`` shards
+    grid dim ``dim``."""
+    permute = _AxisPermute(mesh, axis_name)
+    return exchange_ghosts(arr, dim, width, permute.nranks, permute)
+
+
+def exchange_stats(widths: Mapping[str, Sequence[int]],
+                   ncomp: Mapping[str, int | None],
+                   local: Sequence[int], shard_dims: Sequence[int],
+                   itemsize: int = 4) -> dict:
+    """Analytic per-rank cost of one step's exchange round.
+
+    Mirrors the compiled sweep exactly: fields exchange dim by dim in
+    ``shard_dims`` order, and a later dim's planes span the earlier dims'
+    already-extended extents (that is how corner and edge ghosts travel),
+    so its per-plane byte count grows accordingly.  Returns ``per_field``
+    rows plus the step totals ``exchanged_bytes_per_step`` (bytes each rank
+    sends, each way counted) and ``ppermutes_per_step`` (the collectives a
+    compiled step posts: :data:`collectives` counts them).
+    """
+    per_field = {}
+    total_bytes = total_pp = 0
+    for f, w in widths.items():
+        c = int(ncomp.get(f) or 1)
+        ext = list(int(s) for s in local)
+        fbytes = fpp = 0
+        sched = {}
+        for d in shard_dims:
+            wd = int(w[d])
+            if not wd:
+                continue
+            plane = 1
+            for dd, e in enumerate(ext):
+                if dd != d:
+                    plane *= e
+            fbytes += 2 * wd * plane * c * itemsize
+            fpp += 2 * len(_exchange_hops(wd, int(local[d])))
+            sched[d] = wd
+            ext[d] += 2 * wd
+        per_field[f] = {"widths": sched, "bytes": fbytes, "ppermutes": fpp}
+        total_bytes += fbytes
+        total_pp += fpp
+    return {"per_field": per_field,
+            "exchanged_bytes_per_step": total_bytes,
+            "ppermutes_per_step": total_pp}
+
+
+def _overlap_regions(local: Sequence[int], W: Sequence[int],
+                     shard_dims: Sequence[int]):
+    """The comm/compute-overlap partition of the local domain.
+
+    ``W[d]`` is the step's largest exchange width in dim ``d``.  Returns
+    ``(interior, boundaries)`` where every region is ``(start, shape)`` in
+    local interior coordinates:
+
+    * ``interior`` — the block at distance ≥ ``W[d]`` from every exchanged
+      face: computable from local data alone, so it launches while the
+      exchanges are in flight;
+    * ``boundaries`` — ``[(dim, lo_region, hi_region), ...]``, two
+      ``W[d]``-thick slabs per exchanged dim, launched on the exchanged
+      fields.  The dim-*d* slabs span the *interior* extent in exchanged
+      dims < *d* and the full local extent in dims > *d*, so the regions
+      tile the local domain exactly once (corners belong to the lowest
+      exchanged dim's slabs).
+    """
+    ndim = len(local)
+    active = [d for d in shard_dims if W[d] > 0]
+    i_start = tuple(W[d] if d in active else 0 for d in range(ndim))
+    i_shape = tuple(local[d] - 2 * W[d] if d in active else local[d]
+                    for d in range(ndim))
+    bounds = []
+    for d in active:
+        start = tuple(W[dd] if (dd in active and dd < d) else 0
+                      for dd in range(ndim))
+        shape = tuple(W[d] if dd == d
+                      else (local[dd] - 2 * W[dd]
+                            if (dd in active and dd < d) else local[dd])
+                      for dd in range(ndim))
+        hi_start = tuple(local[d] - W[d] if dd == d else start[dd]
+                         for dd in range(ndim))
+        bounds.append((d, (start, shape), (hi_start, shape)))
+    return (i_start, i_shape), bounds
+
+
+def _region(arr: torch.Tensor, start: Sequence[int],
+            shape: Sequence[int]) -> torch.Tensor:
+    """The view of ``arr`` (``(ncomp, *grid)``) over one region."""
+    for d, (lo, n) in enumerate(zip(start, shape)):
+        if lo != 0 or n != arr.shape[d + 1]:
+            arr = arr.narrow(d + 1, lo, n)
+    return arr
+
+
+def _run_region(program: Program, stage_targets, geo, widths, fields,
+                sources: Mapping[str, tuple[torch.Tensor, tuple[int, ...]]],
+                start: tuple[int, ...], shape: tuple[int, ...],
+                zeros: tuple[int, ...]) -> dict:
+    """Run the whole stage pipeline over one region of the local domain.
+
+    ``sources[f] = (tensor, src_ext)`` covers interior coordinates
+    ``[-src_ext[d], local[d] + src_ext[d])`` — raw local fields
+    (``src_ext = 0``, the interior region) or exchanged fields
+    (``src_ext = widths[f]``, boundary regions).  Each field is cut to the
+    region plus its own schedule width, so the region's launches see
+    exactly the ghost geometry of the whole-domain pipeline.  The cut is a
+    strided view and the executors take contiguous fields: it is staged
+    once here, explicitly, rather than at every stage that reads it.
+    """
+    env = {}
+    for f in fields:
+        a, src_ext = sources[f]
+        w = widths[f]
+        cut = _region(a, [lo - ww + e for lo, ww, e in zip(start, w, src_ext)],
+                      [n + 2 * ww for n, ww in zip(shape, w)])
+        env[f] = (cut if cut is a else cut.contiguous(), w)
+    env = program._run_stages(stage_targets, shape, geo, env)
+    return {f: _grid_trim(env[f][0], shape, env[f][1], zeros)
+            for f in fields}
 
 
 # ---------------------------------------------------------------------------
 # the compiled step
 # ---------------------------------------------------------------------------
 
-def _validate_decomposition(program: Program, grid_shape):
-    """Every stencil-read dimension wraps periodically inside each launch,
-    which is only meaningful while the extent covers the stencil radius —
-    a too-thin grid must fail at compile time, not inside a launch."""
+def _validate_decomposition(program: Program, grid_shape, open_mask):
+    """Compile-time guard: every stencil-read dimension left *unsharded*
+    wraps periodically inside each launch, which is only meaningful while
+    the extent covers the stencil radius — a pencil misconfiguration (a
+    radius-2 stencil on an unsharded extent-1 dim) must fail here, not
+    inside a launch."""
     for st in program.stages:
         for s in st.spec.stencils:
             if s is None:
                 continue
             for d, r in enumerate(s.radius_per_dim()):
-                if r > grid_shape[d]:
+                if r and not open_mask[d] and r > grid_shape[d]:
+                    sharded = [i for i, o in enumerate(open_mask) if o]
                     raise ValueError(
                         f"program {program.name!r} stage {st.name!r}: "
                         f"stencil {s.name!r} radius {r} in dim {d} "
-                        f"exceeds the periodic extent {grid_shape[d]} — "
+                        f"exceeds the unsharded (periodic) extent "
+                        f"{grid_shape[d]} — this decomposition (sharded "
+                        f"dims {sharded}) leaves dim {d} too thin to "
+                        f"wrap; shard dim {d} with a mesh axis or "
                         f"enlarge the grid")
 
 
 class CompiledProgram:
-    """A :class:`Program` bound to one target + grid (single device).
+    """A :class:`Program` bound to one target + geometry.
 
     * :meth:`step` — one step over the field mapping, fresh output tensors;
     * :meth:`run` — ``nsteps`` steps over two preallocated ping-pong state
       buffers;
-    * :meth:`plan` — the aggregated :class:`ProgramPlan`;
+    * :meth:`exchange` — one ghost-exchange round (decomposed compiles);
+    * :meth:`plan` — the aggregated :class:`ProgramPlan` of the local
+      geometry;
+    * :meth:`comm_stats` — the analytic exchange budget per step;
+    * ``local_shape`` — the block of the grid each rank steps (the grid on
+      one device); the state's fields are ``(ncomp, *local_shape)``;
+    * ``halo_schedule`` — field → dim-0 exchange width (decomposed compiles
+      only; the slab view of ``exchange_schedule``);
+    * ``exchange_schedule`` — field → ``{dim: width}`` over the sharded
+      dims with a non-zero width (one exchange round each per step);
+    * ``overlap`` — whether the step uses the interior/boundary split;
     * ``stage_targets`` — the per-stage routed targets.
     """
 
     def __init__(self, program: Program, target: Target | str | None,
-                 grid_shape: Sequence[int]):
+                 grid_shape: Sequence[int], *, mesh=None,
+                 shard_axis: str | Sequence[str] | None = None,
+                 overlap: bool | None = None):
         self.program = program
-        self.target = as_target(target)
+        tgt = as_target(target)
+        self.target = tgt
         self.grid_shape = tuple(int(s) for s in grid_shape)
         ndim = len(self.grid_shape)
-        self.stage_targets = tuple(resolve_stage_target(self.target, st.spec)
+        self.mesh = mesh if mesh is not None else tgt.mesh
+        self.shard_axis = (shard_axis if shard_axis is not None
+                           else (tgt.shard_axis or "data"))
+        self.shard_axes = (_shard_axes(self.shard_axis)
+                           if self.mesh is not None else ())
+        self.stage_targets = tuple(resolve_stage_target(tgt, st.spec,
+                                                        st.name)
                                    for st in program.stages)
-        _validate_decomposition(program, self.grid_shape)
-        _, self._geo = program.schedule(ndim, (False,) * ndim)
+        fields = program.fields
+        self.halo_schedule: dict[str, int] = {}
+        self.exchange_schedule: dict[str, dict[int, int]] = {}
+        self._shard_dims: tuple[int, ...] = ()
+        self.overlap = False
+        if self.mesh is None:
+            self.local_shape = self.grid_shape
+            open_mask = (False,) * ndim
+            _validate_decomposition(program, self.grid_shape, open_mask)
+            self._widths, self._geo = program.schedule(ndim, open_mask)
+            self._interior_shape = self.grid_shape
+            return
+
+        axes = self.shard_axes
+        if not axes:
+            raise ValueError(
+                f"program {program.name!r}: a mesh was given but "
+                f"shard_axis is empty — name the mesh axis(es) that shard "
+                f"grid dims 0..k")
+        if len(axes) != len(set(axes)):
+            raise ValueError(f"duplicate shard axes {axes}")
+        if len(axes) > ndim:
+            raise ValueError(
+                f"{len(axes)} shard axes {axes} for a {ndim}-D grid; mesh "
+                f"axis k shards grid dim k, so at most {ndim} axes apply")
+        sizes = _mesh_axis_sizes(self.mesh)
+        local = list(self.grid_shape)
+        for d, ax in enumerate(axes):
+            if ax not in sizes:
+                raise ValueError(f"shard axis {ax!r} is not a mesh axis "
+                                 f"(mesh has {tuple(sizes)})")
+            nsh = sizes[ax]
+            if self.grid_shape[d] % nsh != 0:
+                raise ValueError(
+                    f"{'XYZ'[d] if d < 3 else f'dim-{d}'} extent "
+                    f"{self.grid_shape[d]} not divisible by mesh axis "
+                    f"{ax}={nsh}")
+            local[d] = self.grid_shape[d] // nsh
+        self.local_shape = local = tuple(local)
+        self._mesh_sizes = tuple(sizes[a] for a in axes)
+        shard_dims = self._shard_dims = tuple(range(len(axes)))
+        open_mask = tuple(d < len(axes) for d in range(ndim))
+        widths, self._geo = program.schedule(ndim, open_mask)
+        self._widths = widths
+        self.halo_schedule = {f: widths[f][0] for f in fields}
+        self.exchange_schedule = {
+            f: {d: widths[f][d] for d in shard_dims if widths[f][d]}
+            for f in fields}
+        for d in shard_dims:
+            w_max = max((widths[f][d] for f in fields), default=0)
+            if w_max >= self.grid_shape[d]:
+                raise ValueError(
+                    f"program {program.name!r} needs a {w_max}-plane ghost "
+                    f"exchange in dim {d} but the global extent is only "
+                    f"{self.grid_shape[d]} plane(s)")
+        _validate_decomposition(program, self.grid_shape, open_mask)
+        # the interior must be non-empty in every exchanged dim (thin
+        # pencils where the exchange width swallows the shard stay unsplit)
+        W = tuple(max((widths[f][d] for f in fields), default=0)
+                  if open_mask[d] else 0 for d in range(ndim))
+        self._regions = _overlap_regions(local, W, shard_dims)
+        i_shape = self._regions[0][1]
+        self.overlap = bool(overlap) and any(W) and all(s > 0
+                                                        for s in i_shape)
+        self._interior_shape = i_shape if self.overlap else local
+        self._permutes = None          # built at the first exchange
+
+    # -- the exchange round ------------------------------------------------
+
+    def _check_device(self, arrays):
+        dev = arrays[0].device
+        if dev.type != self.mesh.device_type:
+            raise ValueError(
+                f"program {self.program.name!r}: the mesh is on "
+                f"{self.mesh.device_type!r} but the fields are on {dev}; "
+                f"build the mesh for the fields' device (fields are never "
+                f"staged through another device for an exchange)")
+
+    def _sweep_view(self, ext: torch.Tensor, f: str, d: int) -> torch.Tensor:
+        """``ext`` narrowed to what dim ``d``'s sweep exchanges: the ghost
+        room of dims ≤ d, the own planes of the dims after it."""
+        w = self._widths[f]
+        for dd in self._shard_dims:
+            if dd > d and w[dd]:
+                ext = ext.narrow(dd + 1, w[dd], self.local_shape[dd])
+        return ext
+
+    def _post(self, exts: dict, d: int, *, async_op: bool) -> list:
+        """Post every field's dim-``d`` transfers; returns the pending
+        ``(work, received, ghost)`` list for :meth:`_land`."""
+        if self._permutes is None:
+            self._permutes = [_AxisPermute(self.mesh, ax)
+                              for ax in self.shard_axes]
+        permute = self._permutes[d]
+        pending = []
+        for f, ext in exts.items():
+            w = self._widths[f][d]
+            if not w:
+                continue
+            for src, ghost, hop in _ghost_moves(self._sweep_view(ext, f, d),
+                                                d, w):
+                work, recv = permute.post(src, _hop_pairs(hop,
+                                                          permute.nranks),
+                                          async_op=async_op)
+                pending.append((work, recv, ghost))
+        return pending
+
+    @staticmethod
+    def _land(pending: list) -> None:
+        for work, recv, ghost in pending:
+            if work is not None:
+                work.wait()
+            ghost.copy_(recv)
+
+    def _exchange_all(self, arrays, *, post_first: bool = False):
+        """The ordered per-dim sweep: each field copied into a buffer with
+        room for its ghost planes, then its ghosts filled dim by dim, so a
+        later dim's planes carry the earlier dims' ghosts (edge and corner
+        ghosts arrive through the orthogonal neighbour).  With
+        ``post_first`` the first dim's transfers are only posted; returns
+        ``(exts, pending)`` and the caller finishes with
+        :meth:`_finish_exchange`."""
+        self._check_device(arrays)
+        exts = {}
+        for f, a in zip(self.program.fields, arrays):
+            w = self._widths[f]
+            ext = a.new_empty((a.shape[0], *(s + 2 * ww for s, ww
+                                              in zip(self.local_shape, w))))
+            _region(ext, w, self.local_shape).copy_(a)
+            exts[f] = ext
+        first, *rest = self._shard_dims
+        pending = self._post(exts, first, async_op=post_first)
+        if post_first:
+            return exts, pending
+        return self._finish_exchange(exts, pending, rest)
+
+    def _finish_exchange(self, exts, pending, rest=None) -> dict:
+        self._land(pending)
+        for d in (self._shard_dims[1:] if rest is None else rest):
+            self._land(self._post(exts, d, async_op=False))
+        return exts
+
+    def exchange(self, state: Mapping[str, torch.Tensor]) -> dict:
+        """One exchange round: ``{field: (ncomp, *(local + 2·width))}``,
+        each local block with its ghost planes filled from the neighbour
+        ranks (a decomposed compile only)."""
+        if self.mesh is None:
+            raise ValueError(f"program {self.program.name!r} was compiled "
+                             f"without a mesh: there is nothing to exchange")
+        return self._exchange_all(self._as_tuple(state))
+
+    # -- running -----------------------------------------------------------
 
     def _core(self, arrays, out=None) -> tuple[torch.Tensor, ...]:
         fields = self.program.fields
-        zeros = (0,) * len(self.grid_shape)
-        env = {f: (a, zeros) for f, a in zip(fields, arrays)}
+        local = self.local_shape
+        zeros = (0,) * len(local)
         bufs = dict(zip(fields, out)) if out is not None else None
-        env = self.program._run_stages(self.stage_targets, self.grid_shape,
-                                       self._geo, env, out=bufs)
-        res = tuple(env[f][0] for f in fields)
+        if self.mesh is None:
+            env = {f: (a, zeros) for f, a in zip(fields, arrays)}
+            env = self.program._run_stages(self.stage_targets, local,
+                                           self._geo, env, out=bufs)
+            res = {f: env[f][0] for f in fields}
+        elif not self.overlap:
+            exts = self._exchange_all(arrays)
+            env = {f: (exts[f], self._widths[f]) for f in fields}
+            env = self.program._run_stages(self.stage_targets, local,
+                                           self._geo, env, out=bufs)
+            res = {f: _grid_trim(env[f][0], local, env[f][1], zeros)
+                   for f in fields}
+        else:
+            res = self._overlapped(arrays, bufs)
         if out is None:
-            return res
-        for o, r in zip(out, res):
-            if o.data_ptr() != r.data_ptr():     # pass-through field
-                o.copy_(r)
+            return tuple(r.contiguous() for r in (res[f] for f in fields))
+        for f in fields:
+            if bufs[f].data_ptr() != res[f].data_ptr():   # pass-through
+                bufs[f].copy_(res[f])
         return tuple(out)
+
+    def _overlapped(self, arrays, bufs) -> dict:
+        """The overlap split: the interior on the raw local fields while
+        the first dim's exchanges are in flight, then the boundary slabs
+        on the exchanged fields, each region written into the result."""
+        fields = self.program.fields
+        zeros = (0,) * len(self.local_shape)
+        (i_start, i_shape), bounds = self._regions
+        exts, pending = self._exchange_all(arrays, post_first=True)
+        res = bufs or {f: a.new_empty((a.shape[0], *self.local_shape))
+                       for f, a in zip(fields, arrays)}
+        regions = [(i_start, i_shape, {f: (a, zeros)
+                                       for f, a in zip(fields, arrays)})]
+        for _, lo, hi in bounds:
+            regions += [(*lo, None), (*hi, None)]
+        for i, (start, shape, sources) in enumerate(regions):
+            if i == 1:
+                self._finish_exchange(exts, pending)
+            if sources is None:
+                sources = {f: (exts[f], self._widths[f]) for f in fields}
+            out = _run_region(self.program, self.stage_targets, self._geo,
+                              self._widths, fields, sources, start, shape,
+                              zeros)
+            for f in fields:
+                _region(res[f], start, shape).copy_(out[f])
+        return res
 
     def _as_tuple(self, state: Mapping[str, torch.Tensor]):
         arrays = []
@@ -506,7 +1003,7 @@ class CompiledProgram:
                     f"field {f!r}; present: {sorted(state)}")
             a = state[f]
             validate_field(f, a, ncomp=self.program.ncomp.get(f),
-                           grid_shape=self.grid_shape,
+                           grid_shape=self.local_shape,
                            program=self.program.name)
             arrays.append(a)
         return tuple(arrays)
@@ -535,14 +1032,46 @@ class CompiledProgram:
         return dict(zip(self.program.fields, src))
 
     def plan(self) -> "ProgramPlan":
-        """Aggregated memory models for this compile's geometry."""
+        """Aggregated memory models for this compile's local geometry."""
         return _build_program_plan(self.program, self.stage_targets,
-                                   self.grid_shape, self._geo)
+                                   self.local_shape, self._geo)
+
+    def comm_stats(self, itemsize: int = 4) -> dict:
+        """The analytic communication budget of one compiled step.
+
+        Per rank, per step: exchanged ghost bytes and collective count
+        (:func:`exchange_stats`; :data:`collectives` counts the collectives
+        posted), plus the decomposition's shape and the overlap split's
+        interior fraction (the share of local sites whose compute does not
+        wait on any exchange).  ``itemsize`` defaults to float32 fields.
+        """
+        if self.mesh is None:
+            return {"decomposition": "single", "shard_axes": (),
+                    "mesh_axis_sizes": (), "local_shape": self.local_shape,
+                    "exchange_schedule": {},
+                    "exchanged_bytes_per_step": 0,
+                    "ppermutes_per_step": 0, "per_field": {},
+                    "overlap": False, "interior_fraction": 1.0}
+        stats = exchange_stats(self._widths, self.program.ncomp,
+                               self.local_shape, self._shard_dims, itemsize)
+        kinds = {1: "slab", 2: "pencil", 3: "block"}
+        stats.update(
+            decomposition=kinds.get(len(self.shard_axes), "block"),
+            shard_axes=self.shard_axes,
+            mesh_axis_sizes=self._mesh_sizes,
+            local_shape=self.local_shape,
+            exchange_schedule=self.exchange_schedule,
+            overlap=self.overlap,
+            interior_fraction=(math.prod(self._interior_shape)
+                               / math.prod(self.local_shape)
+                               if self.overlap else 0.0))
+        return stats
 
     def __repr__(self):
         return (f"CompiledProgram({self.program.name!r}, "
                 f"target={self.target.executor!r}, "
-                f"grid={self.grid_shape})")
+                f"grid={self.grid_shape}, "
+                f"sharded={self.mesh is not None})")
 
 
 # ---------------------------------------------------------------------------

@@ -83,13 +83,26 @@ class Target:
         sites of a block; :mod:`repro_torch.core.layout`).  Outputs are
         SoA under both.
       tuning: executor/op-specific knobs, stored as a sorted tuple of
-        pairs so the Target stays hashable.
+        pairs so the Target stays hashable.  The reserved keys
+        ``"stage:<name>"`` hold a nested ``((knob, value), ...)``
+        assignment for one stage of a Program
+        (:func:`~repro_torch.core.program.resolve_stage_target`).
+      mesh / shard_axis: sharding hints for mesh-aware callers
+        (:meth:`~repro_torch.core.program.Program.compile`,
+        :class:`~repro_torch.lb.sim.BinaryFluidSim`); a launch does not act
+        on them, it only carries them.  ``mesh`` is a ``DeviceMesh``
+        (:func:`repro_torch.launch.mesh.make_mesh`) and stays out of the
+        Target's equality and hash, so plan and tuning caches never key on
+        it; ``shard_axis`` is one mesh axis name (slab) or a tuple of names
+        (pencil, block: axis *k* shards grid dim *k*).
     """
 
     backend: str = "cuda"
     vvl: int | None = None
     layout: str = "soa"
     tuning: tuple[tuple[str, Any], ...] = field(default=())
+    mesh: Any = field(default=None, compare=False)
+    shard_axis: str | tuple[str, ...] | None = None
 
     def __post_init__(self):
         if not isinstance(self.backend, str) or not self.backend:
@@ -103,6 +116,11 @@ class Target:
             raise ValueError(
                 f"layout must be 'soa' or 'aosoa', got {self.layout!r} "
                 f"(the AoSoA inner width is the separate vvl field)")
+        # one mesh axis name per sharded grid dim; frozen to a tuple so the
+        # Target stays hashable
+        if isinstance(self.shard_axis, (list, tuple)):
+            object.__setattr__(self, "shard_axis",
+                               tuple(str(a) for a in self.shard_axis))
         object.__setattr__(self, "tuning", _freeze_tuning(self.tuning))
 
     @property

@@ -33,13 +33,24 @@ CUDA backend defaults to ``vvl=1`` on either device (on CPU tensors it runs
 the plain versions).  A ``target`` with ``layout="aosoa"`` runs every regime
 on AoSoA operands (its ``vvl`` the block width; on ``"cuda_windowed"`` a
 divisor of the grid's ``Y·Z``).
+
+Decompositions: with a ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh`;
+or the target's hint), mesh axis *k* of ``shard_axis`` shards grid dim *k*
+(slab, pencil or block) and each rank holds and steps its own block of the
+grid (``local_shape``), the ghost planes exchanged over ``torch.distributed``
+once a step (:class:`~repro_torch.core.program.CompiledProgram`).  The
+initial states are built globally from the seed and cut to the rank's
+block, :meth:`BinaryFluidSim.observables` reduces over the mesh, and
+:meth:`BinaryFluidSim.gather` assembles the global fields on rank 0.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import Target, as_target, default_vvl, executor_wants
 from repro_torch.kernels.lb_collision import NVEL, WEIGHTS
@@ -83,6 +94,8 @@ class BinaryFluidSim:
     def __init__(self, grid_shape=(32, 32, 32), params: LBParams | None = None,
                  *, target: Target | str | None = None,
                  backend: str | None = None, vvl: int | None = None,
+                 mesh=None, shard_axis: str | tuple[str, ...] | None = None,
+                 overlap: bool | None = None,
                  fused: bool | str = False, device=None):
         self.grid_shape = tuple(int(s) for s in grid_shape)
         self.params = params or LBParams()
@@ -100,9 +113,18 @@ class BinaryFluidSim:
                            else "torch")
             if vvl is None:
                 vvl = 1 if backend.startswith("cuda") else default_vvl()
-            target = Target(backend, vvl=vvl)
+            target = Target(backend, vvl=vvl, mesh=mesh,
+                            shard_axis=shard_axis if mesh is not None
+                            else None)
         else:
             target = as_target(target, vvl=vvl)
+            if mesh is None:
+                mesh = target.mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh is on {mesh.device_type!r} but the simulation "
+                f"runs on {self.device}; build the mesh for that device")
+        self.mesh = mesh
         self.target = target
         # Program compilation routes pointwise stages away from a
         # stencil-only target, but the *unfused* pipeline is
@@ -119,7 +141,8 @@ class BinaryFluidSim:
 
         consts = lbp.collision_consts(dtype=np.float32,
                                       **self.params.as_kwargs())
-        kw = dict(grid_shape=self.grid_shape)
+        kw = dict(grid_shape=self.grid_shape, mesh=mesh,
+                  shard_axis=shard_axis, overlap=overlap)
         if fused:
             self.programs = {
                 "collide": lbp.collide_program(consts).compile(target, **kw),
@@ -132,6 +155,10 @@ class BinaryFluidSim:
                 "step": lbp.unfused_step_program(consts).compile(target,
                                                                  **kw),
             }
+        hot = self.programs["fused" if fused else "step"]
+        #: the block of the grid this rank holds (the grid without a mesh)
+        self.local_shape = hot.local_shape
+        self.shard_axes = hot.shard_axes
 
     # -- initialisation ----------------------------------------------------
 
@@ -154,11 +181,51 @@ class BinaryFluidSim:
         return self._equilibrium_state(phi0)
 
     def _equilibrium_state(self, phi0: np.ndarray) -> LBState:
+        phi0 = phi0[self._block()]
         w = WEIGHTS.reshape(NVEL, 1, 1, 1)
         f0 = (w * self.params.rho0 * np.ones_like(phi0)[None]).astype(np.float32)
         g0 = (w * phi0[None]).astype(np.float32)
         return LBState(torch.from_numpy(f0).to(self.device),
                        torch.from_numpy(g0).to(self.device))
+
+    def _coords(self, rank: int | None = None) -> tuple[int, ...]:
+        """The mesh coordinate of ``rank`` (this rank's by default) along
+        each shard axis."""
+        if rank is None:
+            return tuple(self.mesh.get_local_rank(a) for a in self.shard_axes)
+        where = (self.mesh.mesh == rank).nonzero()[0].tolist()
+        names = self.mesh.mesh_dim_names
+        return tuple(where[names.index(a)] for a in self.shard_axes)
+
+    def _block(self, rank: int | None = None) -> tuple[slice, ...]:
+        """The global grid's slices that ``rank`` holds (all of it without a
+        mesh)."""
+        if self.mesh is None:
+            return (slice(None),) * len(self.grid_shape)
+        coords = self._coords(rank)
+        return tuple(slice(c * n, (c + 1) * n) for c, n in
+                     zip(coords, self.local_shape)) + (slice(None),) * (
+            len(self.grid_shape) - len(coords))
+
+    def gather(self, state: LBState) -> LBState | None:
+        """The global state on rank 0 (``None`` on the other ranks): every
+        rank's block of ``f`` and ``g`` gathered over the mesh's process
+        group and placed at its coordinates.  Without a mesh, ``state``."""
+        if self.mesh is None:
+            return state
+        rank, world = dist.get_rank(), dist.get_world_size()
+        out = []
+        for x in (state.f, state.g):
+            x = x.contiguous()
+            parts = ([torch.empty_like(x) for _ in range(world)]
+                     if rank == 0 else None)
+            dist.gather(x, parts, dst=0)
+            if rank == 0:
+                full = x.new_empty((x.shape[0], *self.grid_shape))
+                for r, part in enumerate(parts):
+                    full[(slice(None),) + self._block(r)] = part
+                out.append(full)
+        return LBState(*out, state.step) if rank == 0 else None
 
     # -- stepping ------------------------------------------------------------
 
@@ -197,10 +264,15 @@ class BinaryFluidSim:
 
     def observables(self, state: LBState) -> dict:
         """Mass, φ statistics and a NaN flag, summed in float64 (at 128³ a
-        float32 sum drifts by more than the conservation being checked)."""
+        float32 sum drifts by more than the conservation being checked).
+        Under a mesh every rank gets the global values: sums, minima and
+        maxima reduced over the mesh, the variance taken about the global
+        mean."""
         f, g = state.f.double(), state.g.double()
         phi = g.sum(0)
         rho = f.sum(0)
+        if self.mesh is not None:
+            return self._mesh_observables(f, g, phi, rho)
         return {
             "mass": float(rho.sum()),
             "phi_total": float(phi.sum()),
@@ -209,4 +281,29 @@ class BinaryFluidSim:
             "phi_var": float(phi.var(unbiased=False)),
             "rho_min": float(rho.min()),
             "nan": bool(torch.isnan(f).any() | torch.isnan(g).any()),
+        }
+
+    def _mesh_observables(self, f, g, phi, rho) -> dict:
+        def reduce(values, op):
+            t = torch.tensor(values, dtype=torch.float64, device=phi.device)
+            dist.all_reduce(t, op=op)
+            return t.tolist()
+
+        nan = bool(torch.isnan(f).any() | torch.isnan(g).any())
+        mass, phi_total, nans = reduce(
+            [float(rho.sum()), float(phi.sum()), float(nan)],
+            dist.ReduceOp.SUM)
+        phi_min, rho_min, neg_phi_max = reduce(
+            [float(phi.min()), float(rho.min()), -float(phi.max())],
+            dist.ReduceOp.MIN)
+        mean = phi_total / math.prod(self.grid_shape)
+        (sq,) = reduce([float(((phi - mean) ** 2).sum())], dist.ReduceOp.SUM)
+        return {
+            "mass": mass,
+            "phi_total": phi_total,
+            "phi_min": phi_min,
+            "phi_max": -neg_phi_max,
+            "phi_var": sq / math.prod(self.grid_shape),
+            "rho_min": rho_min,
+            "nan": nans > 0,
         }

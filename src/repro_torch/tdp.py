@@ -46,9 +46,15 @@ C-vs-CUDA switch      ``Target("torch")`` (plain PyTorch: the CPU build and
 §V reductions         :func:`reduce`: the site body mapped over the
                       lattice, then summed or max/min over the sites
 host step glue        :func:`tdp.program` — multi-launch step graphs with
-                      ping-pong fields (single device)
+                      ping-pong fields
+MPI halo exchange     ``program.compile(mesh=...)``: slab, pencil and block
+                      decompositions over ``torch.distributed``
+                      (:func:`exchange_ghosts`, :func:`exchange_stats`;
+                      meshes from :func:`repro_torch.launch.mesh.make_mesh`)
 per-device tuning     :func:`tdp.autotune` over executor × VVL ×
-                      ``plane_block``, :mod:`tdp.costmodel`
+                      ``plane_block`` (:func:`plane_block_candidates`, the
+                      per-stage ``"stage:<name>"`` keys),
+                      :mod:`tdp.costmodel`
 ====================  ====================================================
 
 Entry points that allocate run on the card unless the caller passes
@@ -56,12 +62,11 @@ Entry points that allocate run on the card unless the caller passes
 where its tensors lie (the ``"cuda"`` executors run their plain versions on
 CPU tensors).
 
-Not ported yet, each with its ROADMAP item (queue A):
-``exchange_ghosts``, ``exchange_stats`` and ``compile(mesh=)`` (item 4,
-decompositions); ``fleet``, ``FleetProgram``, ``FleetDriver``, ``Ticket``,
-``health``, ``HealthPolicy``, ``HealthError``, ``Diagnosis``, ``faults``,
-``InjectedFault``, ``ProgramState`` and ``BatchedConst`` (item 5, ensembles
-and resilience).  The reference's ``xla_executor`` is
+Not ported yet, with its ROADMAP item (queue A): ``fleet``,
+``FleetProgram``, ``FleetDriver``, ``Ticket``, ``health``,
+``HealthPolicy``, ``HealthError``, ``Diagnosis``, ``faults``,
+``InjectedFault``, ``ProgramState`` and ``BatchedConst`` (item 5,
+ensembles and resilience).  The reference's ``xla_executor`` is
 :func:`torch_executor` here.
 """
 from repro_torch.core import costmodel  # noqa: F401  (module: tdp.costmodel)
@@ -82,6 +87,7 @@ from repro_torch.core.autotune import (  # noqa: F401
     TuneResult,
     autotune,
     default_space,
+    plane_block_candidates,
     wall_clock_timer,
 )
 from repro_torch.core.costmodel import (  # noqa: F401
@@ -125,6 +131,8 @@ from repro_torch.core.program import (  # noqa: F401
     Program,
     ProgramPlan,
     Stage,
+    exchange_ghosts,
+    exchange_stats,
     program,
     stage,
 )
@@ -161,8 +169,9 @@ __all__ = [
     "gather_neighbors", "halo_extend", "field_view", "pad_sites",
     "WindowVmemError",
     "Program", "CompiledProgram", "ProgramPlan", "Stage", "program", "stage",
-    "autotune", "default_space", "Candidate", "TuneReport", "TuneResult",
-    "wall_clock_timer",
+    "exchange_ghosts", "exchange_stats",
+    "autotune", "default_space", "plane_block_candidates", "Candidate",
+    "TuneReport", "TuneResult", "wall_clock_timer",
     "costmodel", "CostEstimate", "MachineProfile", "machine_profile",
     "predict", "roofline_seconds",
     "reduce", "site_kernel", "launch_stencil",

@@ -42,7 +42,9 @@ from repro_torch.core import (
     executor_vvls,
     field,
     kernel,
+    program,
     register_executor,
+    stage,
     unregister_executor,
 )
 from repro_torch.core.api import torch_executor
@@ -58,6 +60,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.calibrate import FMA_RTOL, fma_chain
 from repro_torch.kernels.lb_collision import cuda_vvl
 from repro_torch.lb import programs as lbp
+from repro_torch.lb.stencil import FUSED_SPEC
 from repro_torch.lb.params import LBParams
 from repro_torch.lb.sim import BinaryFluidSim
 
@@ -206,6 +209,101 @@ class TestSpace:
     def test_rejects_other_subjects(self):
         with pytest.raises(TypeError, match="Program or KernelSpec"):
             default_space(object(), BASE)
+
+
+def two_tile_prog():
+    """Two one-launch steps in one Program: two windowed stages that each
+    hold ``fused``'s tile (``two_launch``'s two windowed stages hold none)."""
+    consts = lbp.collision_consts(**LBParams(**PARAMS).as_kwargs())
+    return program("lb_fused_twice", [
+        stage(FUSED_SPEC, reads=("f", "g"), writes=("f1", "g1"),
+                  consts=consts, name="first"),
+        stage(FUSED_SPEC, reads=("f1", "g1"), writes=("f", "g"),
+                  consts=consts, name="second"),
+    ], fields=("f", "g"))
+
+
+class TestPerStage:
+    """The reserved ``"stage:<name>"`` tuning keys (the reference's
+    ``TestPerStage``): a per-stage ``plane_block`` axis over the windowed
+    stages that hold a tile."""
+
+    def test_space_gains_stage_candidates(self):
+        cands, pruned = default_space(two_tile_prog(),
+                                      Target("cuda_windowed"),
+                                      executors=["cuda_windowed"],
+                                      grid_shape=GRID, per_stage=True)
+        stage = [c for c in cands if any(k.startswith("stage:")
+                                         for k, _ in c.tuning)]
+        assert {k for c in stage for k, _ in c.tuning} == {
+            "stage:first", "stage:second"}
+        # the divisors of each stage's 8 planes but the default's 2
+        assert sorted(c.label for c in stage) == sorted(
+            f"cuda_windowed[stage:{n}{{plane_block={p}}}]"
+            for n in ("first", "second") for p in (1, 4, 8))
+        assert pruned == []
+        plain, _ = default_space(two_tile_prog(), Target("cuda_windowed"),
+                                 executors=["cuda_windowed"],
+                                 grid_shape=GRID)
+        assert len(cands) == len(plain) + len(stage)
+
+    @pytest.mark.parametrize("mode", ["one_launch", "two_launch"])
+    def test_no_axis_without_two_tiled_stages(self, mode):
+        """One tiled stage makes per-stage the global sweep; ``two_launch``
+        has two windowed stages but no tile."""
+        cands, _ = default_space(fused_prog(mode), Target("cuda_windowed"),
+                                 executors=["cuda_windowed"],
+                                 grid_shape=GRID, per_stage=True)
+        assert not any(k.startswith("stage:")
+                       for c in cands for k, _ in c.tuning)
+
+    def test_vmem_limit_prunes_stage_points(self):
+        limit = 4 * 5 * 10 * 34            # a tile 3 planes deep
+        _, pruned = default_space(two_tile_prog(), Target("cuda_windowed"),
+                                  executors=["cuda_windowed"],
+                                  grid_shape=GRID, per_stage=True,
+                                  vmem_limit=limit)
+        stage = sorted(label for label, _ in pruned if "stage:" in label)
+        assert stage == sorted(f"cuda_windowed[stage:{n}{{plane_block={p}}}]"
+                               for n in ("first", "second") for p in (4, 8))
+
+    def test_stage_key_reaches_only_its_stage(self):
+        from repro_torch.core.program import resolve_stage_target
+        tgt = Target("cuda_windowed").with_tuning(
+            {"stage:second": (("plane_block", 4),), "plane_block": 1})
+        plan = two_tile_prog().plan(tgt, grid_shape=GRID)
+        by_stage = {n: dict(p.target.tuning) for n, p in plan.stages}
+        assert by_stage == {"first": {"plane_block": 1},
+                            "second": {"plane_block": 4}}
+        assert resolve_stage_target(tgt, FUSED_SPEC).tuning == (
+            ("plane_block", 1),)
+
+    def test_per_stage_candidates_run_bit_identical(self):
+        state = lb_state()
+        base = two_tile_prog().compile("cuda_windowed", grid_shape=GRID)
+        ref = base.run(dict(state), 2)
+        for skey in ("stage:first", "stage:second"):
+            tgt = Target("cuda_windowed").with_tuning(
+                {skey: (("plane_block", 4),)})
+            out = two_tile_prog().compile(tgt, grid_shape=GRID).run(
+                dict(state), 2)
+            for k in ref:
+                assert torch.equal(ref[k], out[k]), (skey, k)
+
+    def test_autotune_round_trips_nested_tuning(self, tmp_path):
+        label = "stage:second{plane_block=4}"
+        tuned, rep = tune(tmp_path, ScriptedTimer({label: 0.01}),
+                          program=two_tile_prog(),
+                          target=Target("cuda_windowed"),
+                          executors=["cuda_windowed"], per_stage=True)
+        assert rep.best.label == f"cuda_windowed[{label}]"
+        assert dict(tuned.tuning)["stage:second"] == (("plane_block", 4),)
+        timer = ScriptedTimer({})
+        tuned2, rep2 = tune(tmp_path, timer, program=two_tile_prog(),
+                            target=Target("cuda_windowed"),
+                            executors=["cuda_windowed"], per_stage=True)
+        assert rep2.cache_hit and timer.calls == []
+        assert dict(tuned2.tuning)["stage:second"] == (("plane_block", 4),)
 
 
 # ---------------------------------------------------------------------------

@@ -275,7 +275,7 @@ class TestPredict:
 
     def test_sources(self):
         prog = TPROGS["one_launch"]
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 8"):
             tcm.predict(prog.compile("torch", grid_shape=GRID),
                         profile=TPROF, source="hlo")
         with pytest.raises(ValueError, match="source"):

@@ -189,9 +189,16 @@ class TestEntryPointGuards:
             ops.lb_collision(*_collision_inputs(8))
 
     def test_mesh_compile_raises(self):
+        """A mesh compile needs a mesh with named axes, one of them the
+        shard axis (the decompositions themselves: test_torch_decomp.py)."""
         prog = tprog.stream_program()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="named axes"):
             prog.compile("torch", grid_shape=(8, 8, 8), mesh=object())
+
+        class Mesh:
+            shape = {"px": 2}
+        with pytest.raises(ValueError, match="not a mesh axis"):
+            prog.compile("torch", grid_shape=(8, 8, 8), mesh=Mesh())
 
     def test_stencil_only_backend_refused_unfused(self):
         with pytest.raises(ValueError, match="stencil-only"):

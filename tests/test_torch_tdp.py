@@ -25,6 +25,7 @@ from repro import core as jcore
 from repro import tdp as jtdp
 from repro.configs import ludwig_lb as jludwig
 from repro.lb import params as jparams
+from repro.lb import programs as jlbp
 from repro.lb import sim as jsim
 from repro.lb import stencil as jst
 from repro_torch import tdp
@@ -34,6 +35,7 @@ from repro_torch.core import execute as texe
 from repro_torch.examples import lb_spinodal, quickstart
 from repro_torch.kernels import example_sites as ex
 from repro_torch.kernels import tdp_pointwise
+from repro_torch.lb import programs as tlbp
 from repro_torch.lb import stencil as tst
 from repro_torch.lb.params import LBParams
 from repro_torch.lb.sim import BinaryFluidSim, from_reference
@@ -43,10 +45,9 @@ BACKENDS = ("torch", "cuda")          # "cuda" on CPU tensors: the plain body
 VVLS = (1, 2, 4, 8)
 
 #: names of the reference's surface that wait for a later slice (ROADMAP A4-A5)
-NOT_PORTED = ("exchange_ghosts", "exchange_stats", "fleet", "FleetProgram",
-              "FleetDriver", "Ticket", "health", "faults", "HealthPolicy",
-              "HealthError", "Diagnosis", "InjectedFault", "ProgramState",
-              "BatchedConst")
+NOT_PORTED = ("fleet", "FleetProgram", "FleetDriver", "Ticket", "health",
+              "faults", "HealthPolicy", "HealthError", "Diagnosis",
+              "InjectedFault", "ProgramState", "BatchedConst")
 
 
 @jcore.site_kernel
@@ -720,13 +721,31 @@ class TestSurface:
             assert not hasattr(tdp, name), name
             assert name in tdp.__doc__, name
         missing = set(jtdp.__all__) - set(tdp.__all__) - set(NOT_PORTED)
-        assert missing == {"xla_executor", "plane_block_candidates"}
+        assert missing == {"xla_executor"}
+        # the plane_block axis of a windowed launch: the divisors of its
+        # x-plane count, the reference's candidates where both tiles fit
+        phys = dict(A=0.125, B=0.11, kappa=0.02, tau=0.9, tau_phi=1.1,
+                    gamma=0.8)
+        for spec, jspec in ((tst.STREAM_SPEC, jst.STREAM_SPEC),
+                            (tst.FUSED_SPEC, jst.FUSED_SPEC)):
+            consts = tlbp.collision_consts(**phys) if spec.consts else None
+            jconsts = jlbp.collision_consts(**phys) if jspec.consts else None
+            got = tdp.plane_block_candidates(
+                spec, "cuda_windowed", tdp.Lattice((12, 4, 4)),
+                consts=consts)
+            want = jtdp.plane_block_candidates(
+                jspec, "pallas_windowed", jtdp.Lattice((12, 4, 4)),
+                consts=jconsts)
+            assert got == want == ([1, 2, 3, 4, 6, 12], [])
 
     def test_core_exports_the_references_names(self):
         from repro_torch import core
         missing = set(jcore.__all__) - set(core.__all__) - set(NOT_PORTED)
-        assert missing == {"plane_block_candidates"}, missing
+        assert missing == set(), missing
         assert core.tdp_launch is tdp.launch
+        assert core.plane_block_candidates is tdp.plane_block_candidates
+        for name in ("exchange_ghosts", "exchange_stats"):
+            assert getattr(core, name) is getattr(tdp, name)
 
     @pytest.mark.parametrize("jax_state", ["unimportable", "importable"])
     def test_imports_leave_jax_out(self, jax_state):
@@ -820,10 +839,11 @@ class TestExamples:
     def test_spinodal_help_names_what_waits(self, capsys):
         with pytest.raises(SystemExit):
             lb_spinodal.parse_args(["--help"])
-        out = capsys.readouterr().out
-        assert "--donate has no PyTorch" in " ".join(out.split())
-        with pytest.raises(SystemExit):
-            lb_spinodal.parse_args(["--mesh", "2"])
+        out = " ".join(capsys.readouterr().out.split())
+        assert "--donate has no PyTorch" in out
+        assert "--mesh NxM[xK]" in out and "--overlap" in out
+        args = lb_spinodal.parse_args(["--mesh", "2x2", "--overlap"])
+        assert (args.mesh, args.overlap) == ("2x2", True)
 
     def test_ludwig_smoke_runs_as_configured(self):
         cfg = ludwig_lb.SMOKE

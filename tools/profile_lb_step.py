@@ -1,7 +1,7 @@
 """Where the time of one ``BinaryFluidSim`` step goes on the card.
 
     python3 tools/profile_lb_step.py [--grid 128] [--steps 10] [--src DIR]
-                                     [--tag NAME]
+                                     [--tag NAME] [--mesh 1x1x1 [--overlap]]
 
 For each regime (unfused, ``one_launch``, ``two_launch``) it runs
 ``BinaryFluidSim.run`` once to warm up, times ``--steps`` steps three times
@@ -14,9 +14,12 @@ time per kernel name, split into the port's own CUDA kernels and PyTorch's
 (a gather or pad prologue, copies), and the number of PyTorch kernels per
 step.  ``--src`` may point at another checkout's ``src`` (one unpacked with
 ``git archive``), so two versions compare within one call: run the script
-once per version, in turns.  Needs one CUDA card; prints the card's name
-and power limit and writes the full table to
-``chiprun_out/profile_lb_step_<tag>.json``.
+once per version, in turns.  ``--mesh`` runs every regime decomposed over a
+one-rank NCCL mesh (``1``, ``1x1``, ``1x1x1``: slab, pencil, block; a
+process group over a file store in a temporary directory), so the trace
+shows what the ghost exchange costs: its copies and its collectives.
+Needs one CUDA card; prints the card's name and power limit and writes the
+full table to ``chiprun_out/profile_lb_step_<tag>.json``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import argparse
 import json
 import pathlib
 import sys
+import tempfile
 import time
 
 import torch
@@ -88,6 +92,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--mesh", default=None, metavar="1[x1[x1]]")
+    ap.add_argument("--overlap", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_lb_step: no CUDA device is available", file=sys.stderr)
@@ -108,18 +114,36 @@ def main(argv=None) -> int:
     params = LBParams(A=0.125, B=0.125, kappa=0.02)
     out = {"tag": args.tag, "src": str(src), "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0), "grid": grid,
-           "regimes": {}}
-    state = None
-    for regime in (False, "one_launch", "two_launch"):
-        sim = BinaryFluidSim(grid, params, fused=regime)
-        if state is None:
-            state = sim.init_spinodal(seed=0, noise=0.05)
-        row = profile_regime(sim, state, args.steps)
-        out["regimes"][str(regime)] = row
-        top = dict(list(row["by_kernel_ms_per_step"].items())[:6])
-        print(json.dumps({"regime": str(regime), **{
-            k: v for k, v in row.items() if k != "by_kernel_ms_per_step"},
-            "top_kernels_ms_per_step": top}), flush=True)
+           "mesh": args.mesh, "overlap": args.overlap, "regimes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = {}
+        if args.mesh:
+            import torch.distributed as dist
+            from repro_torch.launch.mesh import make_mesh
+            shape = tuple(int(s) for s in args.mesh.split("x"))
+            axes = ("px", "py", "pz")[:len(shape)]
+            torch.cuda.set_device(0)
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                    rank=0, world_size=1,
+                                    device_id=torch.device("cuda", 0))
+            kw = dict(mesh=make_mesh(shape, axes), shard_axis=axes,
+                      overlap=args.overlap)
+        try:
+            state = None
+            for regime in (False, "one_launch", "two_launch"):
+                sim = BinaryFluidSim(grid, params, fused=regime, **kw)
+                if state is None:
+                    state = sim.init_spinodal(seed=0, noise=0.05)
+                row = profile_regime(sim, state, args.steps)
+                out["regimes"][str(regime)] = row
+                top = dict(list(row["by_kernel_ms_per_step"].items())[:6])
+                print(json.dumps({"regime": str(regime), **{
+                    k: v for k, v in row.items()
+                    if k != "by_kernel_ms_per_step"},
+                    "top_kernels_ms_per_step": top}), flush=True)
+        finally:
+            if args.mesh:
+                dist.destroy_process_group()
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / f"profile_lb_step_{args.tag}.json").write_text(
         json.dumps(out, indent=1))
