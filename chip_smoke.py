@@ -134,6 +134,23 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    MLUPS of this process, and the exchange round's and the hot loop
    step's device ms (CUDA events) beside the no-mesh step's.
 
+8. fleets (``fleet_phase``, ``tdp.fleet``): the ensemble entries of
+   kernels 1 and 2 (``tdp_gathered_ensemble_launch``,
+   ``tdp_windowed_ensemble_launch``: every member in one launch, the member
+   on ``blockIdx.y``, its physics from a device table) checked site
+   function by site function at 3 members with NaN between them, at 16³
+   and at phase 3's ragged shape and ghost planes, against the plain
+   version and each member's single launch; a 4-member ``tau_phi`` sweep
+   at 16³, 20 steps, bit-equal to batch-1 fleets and to solo runs with the
+   value static, and the fused regimes' fleets to solo runs; a fleet
+   step's launches against one member's; aggregate MLUPS of 64 members of
+   32³ (the sites of one 128³ run) per regime beside the same members run
+   one after another and phase 4's 128³ MLUPS, device ms a fleet step, and
+   512 members of 16³; the driver drill at 16³ (16 tickets, 40 steps: a
+   restore mid-run and a poisoned ticket quarantined, every other ticket
+   bit-equal to an uninterrupted run; a snapshot's seconds); a row per
+   ensemble entry at 64 × 32³ (printed as one ``{"fleet": ...}`` line).
+
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
 Long output goes to ``chiprun_out/chip_smoke.json``.
@@ -206,6 +223,14 @@ KERNELS = {
     "tdp_gathered.reduce": dict(
         source="src/repro_torch/csrc/tdp_gathered_example.cu",
         replaces="src/repro/kernels/tdp_pointwise.py:76"),
+    # the ensemble branches of TPU kernels 1 and 2 (the reference vmaps the
+    # compiled step, which adds a grid axis to their pallas_calls)
+    "tdp_gathered_ensemble": dict(
+        source="src/repro_torch/csrc/tdp_gathered.cu",
+        replaces="src/repro/kernels/tdp_pointwise.py:76"),
+    "tdp_windowed_ensemble": dict(
+        source="src/repro_torch/csrc/tdp_windowed.cu",
+        replaces="src/repro/kernels/tdp_windowed.py:77"),
     # the AoSoA branches of TPU kernels 1 and 2
     "tdp_gathered_aosoa": dict(source="src/repro_torch/csrc/tdp_gathered.cu",
                                replaces="src/repro/kernels/tdp_pointwise.py:96"),
@@ -233,6 +258,21 @@ DECOMPOSITIONS = {"slab": ("px",), "pencil": ("px", "py"),
 PHASE7_REPS, PHASE7_HOLD = 10, 500_000_000
 #: plane_block values the windowed fused is timed at in phase 5
 PLANE_BLOCKS = (1, 2, 4, 8)
+#: Phase 8, fleets.  The ensemble checks: (tau, tau_phi) of each of their 3
+#: members (a physics row each), FLEET_GAP floats of NaN between members.
+FLEET_TAUS = ((0.8, 1.2), (0.9, 0.933), (1.0, 1.067))
+FLEET_GAP = 61
+FLEET_SMALL = (16, 16, 16)
+#: tau_phi of the 4-member sweep held to batch-1 fleets and solo runs
+FLEET_SWEEP = (0.8, 0.933, 1.067, 1.2)
+#: the throughput fleet: 64 members of 32³, the sites of one 128³ run
+#: (2 097 152), and a wide one of 512 members of 16³
+FLEET_BIG = (64, (32, 32, 32))
+FLEET_WIDE = (512, FLEET_SMALL)
+FLEET_STEPS = 10
+#: the driver drill: tickets, member steps, the pump round of the restored
+#: snapshot and the member step the chaos drill poisons
+DRILL_TICKETS, DRILL_STEPS, DRILL_SNAPSHOT, DRILL_POISON = 16, 40, 18, 20
 #: Per-launch ms at 128³, VVL 1, of the LB kernels before their redesign
 #: (PERF.md §6: this script's phase 5 on an NVIDIA H100 80GB HBM3 at 700 W),
 #: printed beside this run's times; the prologue each of them needed (a
@@ -405,6 +445,11 @@ def ptxas_report(logs: dict) -> list[dict]:
                              "vvl": int(vvl.group(1)) if vvl else None}
                     if "fused_tile_kernel" in name:
                         entry.update({"site": "Fused", "mapping": "tile"})
+                    elif "fused_tile_ensemble_kernel" in name:
+                        entry.update({"site": "Fused",
+                                      "mapping": "tile_ensemble"})
+                    elif "ensemble_kernel" in name:
+                        entry["mapping"] = "ensemble"
                 rows.append(entry)
                 continue
             if entry is None:
@@ -491,7 +536,7 @@ def bound(site: str, nsites: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_call(site: str, prepared, n: int):
+def library_call(site: str, prepared, n: int, batch: int | None = None):
     """One PyTorch call that computes ``site`` on the kernels' own inputs,
     as ``(call, split)``: ``call()`` is what is timed and ``split`` turns
     its result into the kernel's ``(ncomp, n)`` outputs for the comparison.
@@ -500,14 +545,18 @@ def library_call(site: str, prepared, n: int):
     Both executors take a stencil field as its ``(ncomp, X, Y, Z)`` grid,
     wrapped periodically: the stencil functions are 3×3×3 correlations with
     fixed one-hot or difference filters, one ``nn.Conv3d`` with circular
-    padding each.
+    padding each.  With ``batch``, the operands of an ensemble launch
+    (``(batch, ncomp, ...)``): the convolution takes the members as its
+    batch, ``moment`` sums over axis 1, and the outputs are ``(batch,
+    ncomp, n)``.
     """
     from repro_torch.kernels.lb_collision import CV
 
     x = prepared[0]
     dev = x.device
+    lead = () if batch is None else (batch,)
     if site == "moment":
-        return (lambda: x.sum(0)), (lambda o: (o.reshape(1, n),))
+        return (lambda: x.sum(len(lead))), (lambda o: (o.reshape(*lead, 1, n),))
 
     def conv(w, groups=1):
         m = torch.nn.Conv3d(w.shape[1] * groups, w.shape[0], 3, padding=1,
@@ -515,7 +564,7 @@ def library_call(site: str, prepared, n: int):
                             groups=groups).to(dev)
         m.weight.data.copy_(torch.from_numpy(w))
         m.requires_grad_(False)
-        return lambda: m(x[None])
+        return lambda: m(x if lead else x[None])
 
     if site == "grad6":
         # rows ∇φ_x, ∇φ_y, ∇φ_z, ∇²φ over the 6-point star
@@ -528,8 +577,8 @@ def library_call(site: str, prepared, n: int):
         w[3, 1, 1, 1] = -6.0
 
         def split(o):
-            o = o.reshape(4, n)
-            return o[:3], o[3:]
+            o = o.reshape(*lead, 4, n)
+            return o[..., :3, :], o[..., 3:, :]
         return conv(w[:, None]), split
     if site in ("stream", "phi_stream"):
         # population q at site x comes from x - c_q: tap 1 - c_q
@@ -537,8 +586,9 @@ def library_call(site: str, prepared, n: int):
         for q, c in enumerate(CV.astype(int)):
             w[(q, *(1 - c))] = 1.0
         if site == "stream":
-            return conv(w[:, None], groups=19), (lambda o: (o.reshape(19, n),))
-        return conv(w[None]), (lambda o: (o.reshape(1, n),))
+            return conv(w[:, None], groups=19), (
+                lambda o: (o.reshape(*lead, 19, n),))
+        return conv(w[None]), (lambda o: (o.reshape(*lead, 1, n),))
     return None
 
 
@@ -2041,6 +2091,399 @@ def decomposition_phase(drive, by_path, sims, finals, st0, params,
     return out
 
 
+def fleet_phase(drive, by_path, make_inputs, prepare, lb_plan, lb_cases,
+                params, mlups128, problems) -> tuple[list, dict]:
+    """Phase 8, fleets (``tdp.fleet``): the ensemble branches of kernels 1
+    and 2 and the fleet service on the card.
+
+    Checks: every LB site function of both executors' ensemble entries at
+    3 members, each with its own (tau, tau_phi) row, NaN between members in
+    operands and outputs: at 16³ (VVL 1, 2, 4, 8) and at the ragged 67 × 45
+    × 70 with phase 3's ghost planes (VVL 1, 4; the windowed ``fused`` at
+    plane_block 2 and 8), each member held to its plain version and to its
+    single launch at the phase-3 bars (the largest difference from the
+    single launch printed by VVL), the gaps left NaN.  Bits, each path driven with the counts at 0: a 4-member unfused
+    fleet with a ``tau_phi`` sweep at 16³, 20 steps, against batch-1 fleets
+    and solo runs with ``tau_phi`` static; the ``one_launch`` and
+    ``two_launch`` regimes (prologue, hot loop, epilogue) as fleets under
+    ``cuda_windowed`` and ``cuda`` against solo runs; a fleet step's
+    launches against one member's step.  Throughput: 64 members of 32³ per
+    regime, aggregate MLUPS (host clock to a synchronize, median of three
+    10-step runs), device ms a fleet step (CUDA events), the same members
+    one after another through solo ``run``, and 512 members of 16³.  The
+    driver drill at 16³: 16 tickets, 40 steps, a ``tau_phi`` sweep; a
+    driver restored from a mid-run snapshot finishes every ticket bit-equal
+    to an uninterrupted one; one ticket poisoned under
+    ``HealthPolicy(fields=("g",), every=2)`` fails with a ``HealthError``
+    while the others stay bit-equal; the seconds a snapshot costs.  Then a
+    row per ensemble entry at 64 × 32³ for the kernels line."""
+    import tempfile
+
+    from repro_torch import tdp
+    from repro_torch.core import Target, faults
+    from repro_torch.core.api import Ensemble, member_by_member
+    from repro_torch.kernels import _build, tdp_pointwise, tdp_windowed
+    from repro_torch.lb import programs, stencil
+    from repro_torch.lb.sim import BinaryFluidSim
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    out: dict = {"checks": {}}
+    max_err: dict = {}
+    entries = ([("tdp_gathered", s) for s in _build.SITES]
+               + [("tdp_windowed", s) for s in STENCIL_SITES])
+    run_ens = {"tdp_gathered": tdp_pointwise.cuda_execute,
+               "tdp_windowed": tdp_windowed.windowed_execute}
+
+    def ens_plan(kernel, site, shape, halo, vvl=1, pb=None,
+                 taus=FLEET_TAUS):
+        plan = lb_plan(kernel, site, shape, halo, vvl, pb)
+        t = np.array(taus, np.float32)
+        swept = ({"tau": t[:, 0].copy(), "tau_phi": t[:, 1].copy()}
+                 if stencil.SPECS[site].consts else {})
+        return plan.with_consts(plan.consts, ensemble=Ensemble(len(t),
+                                                               swept))
+
+    def gapped(members, gap=FLEET_GAP):
+        """``(B, *shape)`` view of a buffer holding the members with
+        ``gap`` floats of NaN after each; ``(view, buffer)``."""
+        per = members[0].numel()
+        buf = torch.full((len(members), per + gap), float("nan"),
+                         device=dev)
+        view = buf[:, :per].view(len(members), *members[0].shape)
+        for i, m in enumerate(members):
+            view[i].copy_(m)
+        return view, buf
+
+    def ens_fields(spec, shape, halo, nmembers, seed, gap=FLEET_GAP):
+        per = [prepare(spec, make_inputs(spec, shape, halo, seed=seed + m),
+                       shape, halo) for m in range(nmembers)]
+        return tuple(gapped([p[i] for p in per], gap)[0]
+                     for i in range(len(spec.fields)))
+
+    # -- checks: every ensemble entry against its plain version ------------
+    for kernel, site in entries:
+        spec = stencil.SPECS[site]
+        pbs = ((tdp_windowed.DEFAULT_PLANE_BLOCK, 8)
+               if (kernel, site) == ("tdp_windowed", "fused") else (None,))
+        if spec.has_stencil:
+            cases = [(FLEET_SMALL, (0, 0, 0), (1, 2, 4, 8))] + [
+                (shape, halo, (1, 4)) for shape, halo, _ in
+                lb_cases(kernel, site) if shape == LB_RAGGED]
+        else:
+            cases = [((int(np.prod(FLEET_SMALL)),), (0,), (1, 2, 4, 8)),
+                     ((int(np.prod(LB_RAGGED)),), (0,), (1, 4))]
+        err, single = 0.0, {}
+        for shape, halo, vvls in cases:
+            B = len(FLEET_TAUS)
+            fields = ens_fields(spec, shape, halo, B,
+                                seed=200 + _build.SITE_ID[site])
+            n = int(np.prod(shape))
+            want = member_by_member(ens_plan(kernel, site, shape, halo),
+                                    fields, None, tdp_pointwise.fields_plain)
+            for vvl in vvls:
+                for pb in pbs:
+                    plan = ens_plan(kernel, site, shape, halo, vvl, pb)
+                    obufs = [gapped([torch.full((c, n), float("nan"),
+                                                device=dev)] * B)
+                             for c in spec.out]
+                    got = run_ens[kernel](plan, fields,
+                                          tuple(v for v, _ in obufs))
+                    torch.cuda.synchronize()
+                    what = (f"phase 8 {kernel}_ensemble.{site} vvl={vvl} "
+                            f"plane_block={pb} shape={shape} halo={halo}")
+                    for _, buf in obufs:
+                        if not buf[:, buf.shape[1] - FLEET_GAP:].isnan().all():
+                            problems.append(f"{what}: wrote between members")
+                    for m in range(B):
+                        gm = [g[m] for g in got]
+                        compare(site, gm, [w[m] for w in want],
+                                f"{what} member {m}", problems)
+                        err = max(err, max_abs(gm, [w[m] for w in want]))
+                        one = run_ens[kernel](plan.member_plan(m),
+                                              tuple(x[m] for x in fields))
+                        compare(site, gm, one, f"{what} member {m} against "
+                                f"its single launch", problems)
+                        single[vvl] = max(single.get(vvl, 0.0),
+                                          max_abs(gm, one))
+            del fields, want
+        max_err[(kernel, site)] = err
+        out["checks"][f"{kernel}_ensemble.{site}"] = {
+            "max_abs_err": err, "max_abs_vs_single_launch_by_vvl": single}
+        log(f"phase 8: {kernel}_ensemble.{site} max_abs_err={err} "
+            f"max |member - single launch| by VVL {single}")
+    torch.cuda.empty_cache()
+
+    # -- bits: fleets against batch-1 fleets and solo runs -----------------
+    def build_unfused(tau_phi):
+        phys = params.as_kwargs()
+        phys["tau_phi"] = tau_phi
+        return programs.unfused_step_program(
+            programs.collision_consts(np.float32, **phys))
+
+    def as_path(counts, suffix):
+        """``{site: launches}`` of one executor family in ``counts``."""
+        return {(k[:-len(suffix)] if k.endswith(suffix) else k, s): c
+                for (k, s), c in counts.items()}
+
+    sim16 = BinaryFluidSim(FLEET_SMALL, params)
+    ms = [{"f": st.f, "g": st.g}
+          for st in (sim16.init_spinodal(seed=s) for s in range(4))]
+    sweep = np.array(FLEET_SWEEP, np.float32)
+    cuda = Target("cuda")
+    fleet = build_unfused(tdp.BatchedConst(sweep)).compile(
+        cuda, grid_shape=FLEET_SMALL).vmap(4)
+    path = "phase 8 fleet unfused tau_phi sweep 16^3"
+    got = drive(path, lambda: fleet.run(tdp.ProgramState.stack(ms), STEPS))
+    bits = {"sweep_vs_batch1": [], "sweep_vs_solo_static": []}
+    for i in range(4):
+        f1 = build_unfused(tdp.BatchedConst(sweep[i:i + 1])).compile(
+            cuda, grid_shape=FLEET_SMALL).vmap(1)
+        r1 = f1.run({k: v[None] for k, v in ms[i].items()}, STEPS)
+        solo = build_unfused(tdp.TargetConst(sweep[i])).compile(
+            cuda, grid_shape=FLEET_SMALL)
+        spath = f"phase 8 solo unfused tau_phi={FLEET_SWEEP[i]} 16^3"
+        rs = drive(spath, lambda: solo.run(dict(ms[i]), STEPS))
+        bits["sweep_vs_batch1"].append(max(float(
+            (got[f][i] - r1[f][0]).abs().max()) for f in ("f", "g")))
+        bits["sweep_vs_solo_static"].append(max(float(
+            (got[f][i] - rs[f]).abs().max()) for f in ("f", "g")))
+        if as_path(by_path[path], "_ensemble") != by_path[spath]:
+            problems.append(f"{path}: launches {by_path[path]}, a member's "
+                            f"solo run {by_path[spath]}")
+    for k, diffs in bits.items():
+        if any(diffs):
+            problems.append(f"phase 8 {k}: members differ by {diffs}")
+    consts = programs.collision_consts(np.float32, **params.as_kwargs())
+    for mode in ("one_launch", "two_launch"):
+        for backend in ("cuda_windowed", "cuda"):
+            tgt = Target(backend)
+            seq = [programs.collide_program(consts),
+                   programs.fused_program(mode, consts),
+                   programs.stream_program()]
+            cps = [p.compile(tgt, grid_shape=FLEET_SMALL) for p in seq]
+            fleets = [cp.vmap(4) for cp in cps]
+            steps = (1, STEPS - 1, 1)
+
+            def regime_run(runs, state):
+                for r, n_ in zip(runs, steps):
+                    state = r.run(state, n_)
+                return state
+
+            path = f"phase 8 fleet {mode} {backend} 16^3"
+            gf = drive(path, lambda: regime_run(
+                fleets, tdp.ProgramState.stack(ms)))
+            spath = f"phase 8 solo {mode} {backend} 16^3"
+            diffs = []
+            for i in range(4):
+                rs = (drive(spath, lambda: regime_run(cps, dict(ms[i])))
+                      if i == 0 else regime_run(cps, dict(ms[i])))
+                diffs.append(max(float((gf[f][i] - rs[f]).abs().max())
+                                 for f in ("f", "g")))
+            bits[f"{mode}_{backend}_vs_solo"] = diffs
+            if any(diffs):
+                problems.append(f"{path}: members differ from solo runs by "
+                                f"{diffs}")
+            if as_path(by_path[path], "_ensemble") != by_path[spath]:
+                problems.append(f"{path}: launches {by_path[path]}, a "
+                                f"member's solo run {by_path[spath]}")
+    out["bits"] = bits
+    log(f"phase 8: bits {bits}")
+    del fleet, got, fleets, gf
+    torch.cuda.empty_cache()
+
+    # -- throughput ----------------------------------------------------------
+    def states(nmembers, grid):
+        sim = BinaryFluidSim(grid, params)
+        return tdp.ProgramState.stack([
+            {"f": st.f, "g": st.g}
+            for st in (sim.init_spinodal(seed=s) for s in range(nmembers))])
+
+    def rate(fn, sites):
+        rates = []
+        fn()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            rates.append(sites * FLEET_STEPS / (time.perf_counter() - t)
+                         / 1e6)
+        return statistics.median(rates)
+
+    regimes = {"unfused": (programs.unfused_step_program(consts), "cuda"),
+               "one_launch": (programs.fused_program("one_launch", consts),
+                              "cuda_windowed"),
+               "two_launch": (programs.fused_program("two_launch", consts),
+                              "cuda_windowed")}
+    thr = {}
+    for label, (B, grid) in (("64x32^3", FLEET_BIG), ("512x16^3",
+                                                      FLEET_WIDE)):
+        st = states(B, grid)
+        sites = B * int(np.prod(grid))
+        for regime, (prog, backend) in regimes.items():
+            cp = prog.compile(Target(backend), grid_shape=grid)
+            fl = cp.vmap(B)
+            row = {"members": B, "grid": list(grid), "sites": sites,
+                   "fleet_mlups": rate(lambda: fl.run(st, FLEET_STEPS),
+                                       sites),
+                   "fleet_step_ms": time_ms(lambda: fl.step(st), reps=10,
+                                            hold=SHORT_HOLD)}
+            if label == "64x32^3":
+                path = f"phase 8 fleet step {regime} {label}"
+                drive(path, lambda: fl.step(st))
+                spath = f"phase 8 solo step {regime} 32^3"
+                member0 = st.member(0)
+                drive(spath, lambda: cp.step(member0))
+                row["launches_per_fleet_step"] = {
+                    f"{k}.{s}": c for (k, s), c in by_path[path].items()}
+                row["launches_per_member_step"] = {
+                    f"{k}.{s}": c for (k, s), c in by_path[spath].items()}
+                if as_path(by_path[path], "_ensemble") != by_path[spath]:
+                    problems.append(f"{path}: launches {by_path[path]}, "
+                                    f"one member's {by_path[spath]}")
+                row["member_step_ms"] = time_ms(lambda: cp.step(member0),
+                                                reps=10, hold=SHORT_HOLD)
+                members = st.unstack()
+
+                def solo_loop():
+                    for m in members:
+                        cp.run(m, FLEET_STEPS)
+                row["solo_loop_mlups"] = rate(solo_loop, sites)
+                row["mlups_128cubed_phase4"] = mlups128.get(
+                    "False" if regime == "unfused" else regime)
+            thr[f"{regime} {label}"] = row
+            log(f"phase 8: throughput {regime} {label} {row}")
+        del st
+        torch.cuda.empty_cache()
+    out["throughput"] = thr
+
+    # -- the driver drill ----------------------------------------------------
+    prog = build_unfused(tdp.TargetConst(np.float32(1.0)))
+    taus = np.linspace(0.8, 1.2, DRILL_TICKETS).astype(np.float32)
+    ms16 = [{"f": st.f, "g": st.g} for st in
+            (sim16.init_spinodal(seed=100 + s) for s in range(DRILL_TICKETS))]
+
+    def submit_all(drv):
+        return [drv.submit(prog, {"state": ms16[i],
+                                  "consts": {"tau_phi": taus[i]}},
+                           DRILL_STEPS) for i in range(DRILL_TICKETS)]
+
+    drill: dict = {}
+    ref = tdp.FleetDriver(cuda, batch=DRILL_TICKETS)
+    ref_ts = submit_all(ref)
+    t = time.perf_counter()
+    want = drive("phase 8 driver 16 tickets 40 steps", ref.drain)
+    drill["uninterrupted_s"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as ck:
+        a = tdp.FleetDriver(cuda, batch=DRILL_TICKETS, checkpoint_dir=ck,
+                            checkpoint_every=4)
+        submit_all(a)
+        a.pump(DRILL_SNAPSHOT)
+        a._ckpt.wait()
+        t = time.perf_counter()
+        a.checkpoint(blocking=False)
+        drill["snapshot_host_copy_s"] = time.perf_counter() - t
+        a._ckpt.wait()
+        drill["snapshot_total_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        a.checkpoint(blocking=True)
+        drill["snapshot_blocking_s"] = time.perf_counter() - t
+        b = tdp.FleetDriver.restore(ck, prog, device=dev, target=cuda,
+                                    batch=DRILL_TICKETS)
+        steps_at = sorted({t_.step for t_ in b._tickets.values()})
+        got = b.drain()
+    drill["restored_at_steps"] = steps_at
+    drill["restored_equal"] = all(
+        torch.equal(got[t_.id][f], want[t_.id][f])
+        for t_ in ref_ts for f in ("f", "g"))
+    if not drill["restored_equal"] or steps_at != [DRILL_SNAPSHOT]:
+        problems.append(f"phase 8 restore: steps {steps_at}, equal "
+                        f"{drill['restored_equal']}")
+    c = tdp.FleetDriver(cuda, batch=DRILL_TICKETS,
+                        health=tdp.HealthPolicy(fields=("g",), every=2))
+    cts = submit_all(c)
+    c.inject(faults.nan_at_step(cts[1].id, "g", DRILL_POISON))
+    got = c.drain()
+    p = c.poll(cts[1])
+    drill["quarantined"] = {"status": p["status"], "error": str(p["error"])}
+    drill["others_equal"] = all(
+        torch.equal(got[t_.id][f], want[t_.id][f])
+        for t_ in cts if t_ is not cts[1] for f in ("f", "g"))
+    if p["status"] != "failed" or not isinstance(p["error"],
+                                                 tdp.HealthError) \
+            or not drill["others_equal"]:
+        problems.append(f"phase 8 chaos: {drill['quarantined']}, others "
+                        f"equal {drill['others_equal']}")
+    out["driver"] = drill
+    log(f"phase 8: driver drill {drill}")
+    del ref, a, b, c, got, want
+    torch.cuda.empty_cache()
+
+    # -- rows: each ensemble entry at 64 members of 32^3 ---------------------
+    launches = {e: sum(p.get((e[0] + "_ensemble", e[1]), 0)
+                       for name, p in by_path.items()
+                       if name.startswith("phase 8"))
+                for e in entries}
+    launches_by_path = {
+        e: {name: p[(e[0] + "_ensemble", e[1])] for name, p in by_path.items()
+            if (e[0] + "_ensemble", e[1]) in p} for e in entries}
+    B, grid = FLEET_BIG
+    n = int(np.prod(grid))
+    rows = []
+    for kernel, site in entries:
+        spec = stencil.SPECS[site]
+        shape = grid if spec.has_stencil else (n,)
+        halo = (0,) * len(shape)
+        fields = ens_fields(spec, shape, halo, B, seed=300, gap=0)
+        plan = ens_plan(kernel, site, shape, halo,
+                        taus=[FLEET_TAUS[m % len(FLEET_TAUS)]
+                              for m in range(B)])
+
+        def kern():
+            return run_ens[kernel](plan, fields)
+
+        def plain():
+            return member_by_member(plan, fields, None,
+                                    tdp_pointwise.fields_plain)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        what = f"phase 8 {kernel}_ensemble.{site} {B}x{grid}"
+        compare(site, got, want, what, problems)
+        name = (kernel, site)
+        max_err[name] = max(max_err[name], max_abs(got, want))
+        lib = library_call(site, fields, n, batch=B)
+        library_ms = None
+        if lib is not None:
+            lib_out = lib[1](lib[0]())
+            compare("library", lib_out, want, f"library for {what}",
+                    problems)
+            library_ms = time_ms(lib[0], hold=SHORT_HOLD)
+        del got, want
+        b_ms, b_by = bound(site, B * n)
+        rows.append({
+            "name": f"{kernel}_ensemble.{site}", "route": "cuda",
+            **KERNELS[f"{kernel}_ensemble"],
+            "launches": launches[name],
+            "launches_by_path": launches_by_path[name],
+            "max_abs_err": max_err[name],
+            "ms": time_ms(kern, hold=SHORT_HOLD),
+            "plain_ms": wall_ms(plain, reps=1, warmup=0), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": library_ms, "members": B, "grid": list(shape)})
+        log(f"phase 8: {rows[-1]['name']} ms={rows[-1]['ms']:.4f} "
+            f"plain={rows[-1]['plain_ms']:.3f} library={library_ms} "
+            f"bound={b_ms:.4f} launches={launches[name]}")
+        if launches[name] == 0:
+            problems.append(f"{kernel}_ensemble.{site} was not launched on "
+                            f"phase 8's main path")
+        del fields
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"phase 8: fleets {out['phase_s']:.1f} s")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -2088,6 +2531,8 @@ def main() -> int:
                 "tdp_windowed": tdp_windowed.launches,
                 "tdp_gathered_aosoa": tdp_pointwise.aosoa_launches,
                 "tdp_windowed_aosoa": tdp_windowed.aosoa_launches,
+                "tdp_gathered_ensemble": tdp_pointwise.ensemble_launches,
+                "tdp_windowed_ensemble": tdp_windowed.ensemble_launches,
                 "lb_collision": lb_collision.launches,
                 "flash_attention": flash_attention.launches,
                 "calibrate": calibrate.launches}
@@ -2098,6 +2543,8 @@ def main() -> int:
     cal_entries = [("calibrate", "add"), ("calibrate", "fma")]
     aosoa_entries = [("tdp_gathered_aosoa", s) for s in tdp_pointwise.launches
                      ] + [("tdp_windowed_aosoa", s) for s in STENCIL_SITES]
+    ens_entries = [("tdp_gathered_ensemble", s) for s in _build.SITES] + [
+        ("tdp_windowed_ensemble", s) for s in STENCIL_SITES]
 
     def entries():
         for site in _build.SITES:
@@ -2230,7 +2677,7 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         by_path[path] = {(k, s): counters[k][s]
-                         for k, s in all_entries + aosoa_entries
+                         for k, s in all_entries + aosoa_entries + ens_entries
                          if counters[k][s]}
         return out
 
@@ -2606,8 +3053,17 @@ def main() -> int:
         torch.cuda.synchronize()
         mlups[str(regime)] = nsites * STEPS / (time.perf_counter() - t) / 1e6
     record["mlups_128cubed_20_steps"] = mlups
-    record["kernels"] = rows
     print(json.dumps({"mlups_128cubed_20_steps": mlups}), flush=True)
+
+    # -- 8. fleets -------------------------------------------------------------
+    fleet_rows, record["fleet"] = fleet_phase(
+        drive, by_path, make_inputs, prepare, lb_plan, lb_cases, params,
+        mlups, problems)
+    rows += fleet_rows
+    print(json.dumps({"fleet": {k: record["fleet"][k] for k in (
+        "phase_s", "bits", "throughput", "driver")}}, default=str),
+        flush=True)
+    record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))
 

@@ -8,12 +8,17 @@ Public surface (paper → here), as the reference's ``repro.core``:
   (SoA mandated, AoS kept as the Fig. 1 baseline layout), :class:`Stencil`;
 * memory model: :func:`target_malloc`, :func:`copy_to_target`,
   :func:`copy_from_target`, the masked variants, :class:`TargetConst`,
-  :func:`sync_target`, :func:`target_free`;
+  :class:`BatchedConst`, :func:`sync_target`, :func:`target_free`;
 * layout: :data:`LAYOUTS`, :func:`soa_to_aosoa`, :func:`aosoa_to_soa`,
   :func:`aosoa_nblocks` (``Target(layout="aosoa")``);
 * execution model: :class:`KernelSpec` + :func:`kernel`, :class:`Target`,
   :func:`tdp_launch` (also exported as ``launch``) dispatching through
   :func:`register_executor`'s table, and :func:`reduce`;
+* ensembles and resilience: :class:`ProgramState`,
+  :class:`FleetProgram` (``CompiledProgram.vmap``), :class:`FleetDriver`,
+  :class:`Ticket`, :class:`HealthPolicy`, :class:`HealthError`,
+  :class:`Diagnosis`, the :mod:`fleet`, :mod:`health` and :mod:`faults`
+  modules (:class:`InjectedFault`), and ``repro_torch.checkpoint``;
 * legacy surface: :func:`site_kernel`, :func:`launch_stencil` and the
   ``launch(kernel, lattice, inputs)`` shim, which is
   :func:`repro_torch.core.execute.launch`.  Unlike the reference, whose
@@ -22,7 +27,7 @@ Public surface (paper → here), as the reference's ``repro.core``:
 
 The ergonomic import is ``from repro_torch import tdp``.
 """
-from . import costmodel
+from . import costmodel, faults, fleet, health
 from .api import (
     LaunchPlan,
     WindowVmemError,
@@ -30,6 +35,7 @@ from .api import (
     gather_neighbors,
     halo_extend,
     launch,
+    launch_ensemble,
     launch_plan,
     pad_sites,
 )
@@ -51,6 +57,9 @@ from .costmodel import (
     roofline_seconds,
 )
 from .execute import launch_stencil, reduce, site_kernel
+from .faults import InjectedFault
+from .fleet import FleetDriver, FleetProgram, Ticket
+from .health import Diagnosis, HealthError, HealthPolicy
 from .field import Field, field_like
 from .lattice import (
     D3Q19_VELOCITIES,
@@ -63,6 +72,7 @@ from .lattice import (
 )
 from .layout import LAYOUTS, aosoa_nblocks, aosoa_to_soa, soa_to_aosoa
 from .memory import (
+    BatchedConst,
     TargetConst,
     copy_constant_to_target,
     copy_from_target,
@@ -98,10 +108,13 @@ from .registry import (
     unregister_executor,
 )
 from .spec import FieldSpec, KernelSpec, field, kernel
-from .state import validate_field
+from .state import ProgramState, validate_field
 from .target import Target, as_target, default_vvl, set_default_vvl
 
 __all__ = [
+    "BatchedConst", "Diagnosis", "FleetDriver", "FleetProgram",
+    "HealthError", "HealthPolicy", "InjectedFault", "ProgramState", "Ticket",
+    "faults", "fleet", "health", "launch_ensemble",
     "Candidate", "CompiledProgram", "CostEstimate", "D3Q19_VELOCITIES",
     "Field", "FieldSpec", "KernelSpec", "LAYOUTS", "LaunchPlan", "Lattice",
     "MachineProfile", "Program", "ProgramPlan", "STENCIL_D3Q19_PULL",

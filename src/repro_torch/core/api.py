@@ -28,6 +28,13 @@ path every launch takes:
 5. **dispatch** — through the executor registry
    (:mod:`repro_torch.core.registry`).
 
+:func:`launch_ensemble` is the same path for a fleet
+(:mod:`repro_torch.core.fleet`): ``batch`` independent members, each
+operand and output with a leading member axis, one executor call for all
+of them.  Per-member const values (a ``BatchedConst`` sweep) ride on
+``plan.ensemble``; only executors registered with ``takes_ensemble=True``
+take it.
+
 Built-in executors registered here: ``"torch"`` (each site body called once
 over all sites — the oracle and the CPU path), ``"cuda"`` (the targetDP
 site-kernel executor on the card, :mod:`repro_torch.kernels.tdp_pointwise`)
@@ -38,14 +45,15 @@ kernel modules are imported at first dispatch.
 from __future__ import annotations
 
 import functools
-from typing import Mapping, Sequence
+from typing import Mapping, NamedTuple, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .lattice import Lattice, Stencil
 from .layout import aosoa_gather, soa_to_aosoa
-from .memory import TargetConst
+from .memory import BatchedConst, TargetConst
 from .registry import (
     get_executor_entry,
     register_executor,
@@ -217,9 +225,16 @@ def _split_consts(consts: Mapping[str, object]):
     operands the plan hands to the executor at each launch; the cache key
     carries only their ``(name, shape, dtype)`` signature).  A tensor on
     the card never goes through a host copy, and a new value of the same
-    shape reuses the plan."""
+    shape reuses the plan.  A ``BatchedConst`` (a per-member sweep) has no
+    meaning on a bare launch and raises."""
     static, dyn = {}, {}
     for k, v in consts.items():
+        if isinstance(v, BatchedConst):
+            raise ValueError(
+                f"const {k!r} is a BatchedConst (per-member ensemble "
+                f"sweep); a bare launch has no ensemble axis — bind it "
+                f"through a Program stage and compile a fleet with "
+                f"CompiledProgram.vmap(batch) (tdp.fleet)")
         (dyn if isinstance(v, torch.Tensor) else static)[k] = v
     return static, dyn
 
@@ -239,6 +254,14 @@ def _normalize_halo(halo, ndim) -> tuple[int, ...]:
 # launch plan — what an executor receives
 # ---------------------------------------------------------------------------
 
+class Ensemble(NamedTuple):
+    """The ensemble of an ensemble launch: ``batch`` members, and
+    ``consts``, the swept consts as host arrays with a leading ``(batch,)``
+    axis (member *i*'s value is row *i*)."""
+
+    batch: int
+    consts: Mapping[str, np.ndarray]
+
 class LaunchPlan:
     """Everything an executor needs to map one kernel over the sites.
 
@@ -249,17 +272,19 @@ class LaunchPlan:
     executors can resolve neighbour offsets themselves and so the
     :meth:`hbm_bytes_estimate` memory model is derivable from the plan.
     :attr:`layout` is the target's: under ``"aosoa"``, :attr:`vvl` is the
-    width of the AoSoA site block.
+    width of the AoSoA site block.  :attr:`ensemble` is ``None`` except on
+    the plan of an ensemble launch (:func:`launch_ensemble`), where it is an
+    :class:`Ensemble`.
     """
 
     __slots__ = ("kernel", "name", "vvl", "out_ncomp", "consts", "target",
                  "shape", "halo", "stencils", "field_ncomp", "wants",
-                 "site_index")
+                 "site_index", "ensemble")
 
     def __init__(self, *, kernel, name, vvl, out_ncomp, consts, target,
                  shape=None, halo=None,
                  stencils=None, field_ncomp=None, wants="gathered",
-                 site_index=False):
+                 site_index=False, ensemble=None):
         self.kernel = kernel
         self.name = name
         self.vvl = vvl
@@ -273,16 +298,26 @@ class LaunchPlan:
                             if field_ncomp is not None else None)
         self.wants = wants
         self.site_index = site_index
+        self.ensemble = ensemble
 
-    def with_consts(self, consts: dict) -> "LaunchPlan":
-        """A copy of this plan with ``consts`` — how a launch's dynamic
-        consts reach the executor without touching the cached plan."""
+    def with_consts(self, consts: dict, ensemble=None) -> "LaunchPlan":
+        """A copy of this plan with ``consts`` (and ``ensemble``) — how a
+        launch's dynamic consts and a fleet's member values reach the
+        executor without touching the cached plan."""
         return LaunchPlan(
             kernel=self.kernel, name=self.name, vvl=self.vvl,
             out_ncomp=self.out_ncomp, consts=consts, target=self.target,
             shape=self.shape, halo=self.halo, stencils=self.stencils,
             field_ncomp=self.field_ncomp, wants=self.wants,
-            site_index=self.site_index)
+            site_index=self.site_index, ensemble=ensemble)
+
+    def member_plan(self, i: int) -> "LaunchPlan":
+        """Member ``i``'s single-launch plan of an ensemble plan: its own
+        row of every swept const, unwrapped as a ``TargetConst`` of that
+        row would be, so member ``i`` runs exactly what a solo launch with
+        that value runs."""
+        row = {k: TargetConst(v[i]) for k, v in self.ensemble.consts.items()}
+        return self.with_consts({**self.consts, **_unwrap_consts(row)})
 
     @property
     def layout(self) -> str:
@@ -539,6 +574,7 @@ def _build_plan(spec: KernelSpec, target: Target, vvl: int,
                 f"{n_out}")
         return outs
 
+    run.plan, run.prologue = plan, prologue
     return run
 
 
@@ -630,6 +666,121 @@ def launch(spec: KernelSpec, target: Target | str | None = None, /,
     return outs[0] if len(outs) == 1 else outs
 
 
+def _check_ensemble_out(spec, out, out_ncomp, arrays, nsites, batch):
+    out = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    for o in out:
+        if o.ndim != 3 or int(o.shape[0]) != batch:
+            raise ValueError(f"out buffer of ensemble launch of kernel "
+                             f"{spec.name!r} must be (batch={batch}, ncomp, "
+                             f"nsites); got {tuple(o.shape)}")
+    _check_out(spec, tuple(o[0] for o in out), out_ncomp,
+               tuple(x[0] for x in arrays), nsites)
+    return out
+
+
+def _ensemble_prologue(prologue, x, shape, halo, stencil):
+    """The neighbour prologue of one ensemble operand ``(batch, ncomp,
+    nsites_ext)``: a view for ``takes_fields`` executors, else the single
+    prologue member by member, stacked."""
+    if prologue is field_view:
+        return x.view(x.shape[0], x.shape[1],
+                      *(s + 2 * h for s, h in zip(shape, halo)))
+    return torch.stack([prologue(m, shape, halo, stencil) for m in x])
+
+
+def launch_ensemble(spec: KernelSpec, target: Target | str | None = None, /,
+                    *arrays, batch: int, lattice: Lattice | None = None,
+                    halo: int | Sequence[int] | None = None,
+                    consts: Mapping[str, object] | None = None,
+                    member_consts: Mapping[str, object] | None = None,
+                    out=None):
+    """One launch of ``spec`` over ``batch`` independent members: a stage
+    of a fleet step (:mod:`repro_torch.core.fleet`).
+
+    Each array is ``(batch, ncomp, nsites)`` (a stencil field over its
+    halo-extended extent), each ``out`` buffer ``(batch, ncomp_o, nsites)``
+    with each member contiguous.  ``consts`` are shared by every member
+    (static: ``TargetConst``, host arrays, scalars); ``member_consts`` maps
+    a const name to a host array with a leading ``(batch,)`` axis, row *i*
+    being member *i*'s value (a ``BatchedConst`` sweep).  The executor,
+    which must be registered with ``takes_ensemble=True``, gets the plan
+    with :attr:`LaunchPlan.ensemble` set.  Returns one ``(batch, ncomp_o,
+    nsites)`` tensor per output (a bare tensor for single-output kernels).
+    """
+    if not isinstance(spec, KernelSpec):
+        raise TypeError(f"launch_ensemble expects a KernelSpec as first "
+                        f"argument, got {type(spec).__name__}")
+    tgt = as_target(target)
+    entry = get_executor_entry(tgt.executor)
+    if not entry.takes_ensemble:
+        raise NotImplementedError(
+            f"executor {tgt.executor!r} takes no ensemble launch (it is not "
+            f"registered with takes_ensemble=True); a fleet cannot run "
+            f"kernel {spec.name!r} under it")
+    if entry.wants == "halo_extended" and not spec.has_stencil:
+        raise ValueError(
+            f"executor {tgt.executor!r} declares wants='halo_extended' but "
+            f"kernel {spec.name!r} has no stencil-carrying fields")
+    batch = int(batch)
+    arrays = tuple(arrays)
+    if not arrays:
+        raise ValueError("launch_ensemble requires at least one input field")
+    for i, x in enumerate(arrays):
+        if not isinstance(x, torch.Tensor) or x.ndim != 3 \
+                or int(x.shape[0]) != batch:
+            raise ValueError(
+                f"operand {i} of the ensemble launch of kernel {spec.name!r} "
+                f"must be a (batch={batch}, ncomp, nsites) tensor, got "
+                f"{tuple(getattr(x, 'shape', ()))}")
+    shared = dict(consts or {})
+    member = {k: np.asarray(v) for k, v in (member_consts or {}).items()}
+    for k, v in member.items():
+        if v.ndim < 1 or int(v.shape[0]) != batch:
+            raise ValueError(
+                f"member const {k!r} of kernel {spec.name!r}: leading "
+                f"(ensemble) extent {v.shape[0] if v.ndim else '(scalar)'}, "
+                f"expected {batch}")
+    both = sorted(set(shared) & set(member))
+    if both:
+        raise ValueError(f"const(s) {both} of kernel {spec.name!r} are both "
+                         f"shared and per member")
+    if spec.consts is not None:
+        unknown = sorted((set(shared) | set(member)) - set(spec.consts))
+        if unknown:
+            raise ValueError(
+                f"kernel {spec.name!r} does not declare const(s) "
+                f"{unknown}; declared: {sorted(spec.consts)}")
+    h = _validate_arrays(spec, tuple(x[0] for x in arrays), lattice, halo)
+    if entry.wants == "halo_extended" or entry.takes_fields:
+        _validate_wrap_extents(spec, lattice, h)
+    _validate_layout(spec, tgt, lattice, entry.wants)
+    out_ncomp = spec.out if spec.out is not None else (int(arrays[0].shape[1]),)
+    if out is not None:
+        nsites = (lattice.nsites if spec.has_stencil
+                  else int(arrays[0].shape[-1]))
+        out = _check_ensemble_out(spec, out, out_ncomp, arrays, nsites, batch)
+    static, dyn = _split_consts(shared)
+    if dyn:
+        raise ValueError(
+            f"kernel {spec.name!r}: tensor const(s) {sorted(dyn)} on an "
+            f"ensemble launch; pass per-member values as member_consts")
+    run = _build_plan(spec, tgt, tgt.resolve_vvl(), out_ncomp, lattice, h,
+                      _consts_cache_key(static), (), registry_version())
+    plan = run.plan.with_consts(run.plan.consts,
+                                ensemble=Ensemble(batch, member))
+    shape = lattice.shape if lattice is not None else None
+    prepared = tuple(x if s is None else _ensemble_prologue(run.prologue, x,
+                                                            shape, h, s)
+                     for x, s in zip(arrays, spec.stencils))
+    outs = entry.fn(plan, prepared, out)
+    outs = (outs,) if not isinstance(outs, (tuple, list)) else tuple(outs)
+    if len(outs) != len(out_ncomp):
+        raise ValueError(
+            f"executor {tgt.executor!r} returned {len(outs)} output(s) for "
+            f"kernel {spec.name!r}; plan declares {len(out_ncomp)}")
+    return outs[0] if len(outs) == 1 else outs
+
+
 def launch_plan(spec: KernelSpec, target: Target | str | None = None, *,
                 lattice: Lattice | None = None,
                 halo: int | Sequence[int] | None = None,
@@ -712,13 +863,35 @@ def torch_executor(plan: LaunchPlan, gathered, out=None):
     body mapped over ``(ncomp, vvl)`` tiles would round its sums
     differently from the SoA call.  So the AoSoA result equals the SoA one
     bit for bit.
+
+    An ensemble plan (``plan.ensemble``) runs member by member
+    (:func:`member_by_member`), each member exactly as its solo launch.
     """
+    if plan.ensemble is not None:
+        return member_by_member(plan, gathered, out, torch_executor)
     args = tuple(gathered)
     if plan.layout == "aosoa":
         args = tuple(aosoa_read(soa_to_aosoa(x.reshape(-1, x.shape[-1]),
                                              plan.vvl), x.shape)
                      for x in args)
     return call_body(plan, args, out)
+
+
+def member_by_member(plan: LaunchPlan, operands, out, single):
+    """An ensemble launch as ``batch`` single launches: member *i*'s
+    operands (row *i* of each) through ``single(plan.member_plan(i),
+    operands_i, out_i)``, so each member gets the bits of its solo launch.
+    The plain version of the ensemble branches, and the ``"torch"``
+    executor's."""
+    results = []
+    for i in range(plan.ensemble.batch):
+        o_i = None if out is None else tuple(o[i] for o in out)
+        results.append(single(plan.member_plan(i),
+                              tuple(x[i] for x in operands), o_i))
+    if out is not None:
+        return tuple(out)
+    return tuple(torch.stack([r[k] for r in results])
+                 for k in range(len(plan.out_ncomp)))
 
 
 def call_body(plan: LaunchPlan, args, out=None):
@@ -752,9 +925,10 @@ def _cuda_windowed_smem(plan: LaunchPlan) -> int:
     return tile_smem_bytes(plan)
 
 
-register_executor("torch", torch_executor)
-register_executor("cuda", _cuda_executor, vvls=CUDA_VVLS, takes_fields=True)
+register_executor("torch", torch_executor, takes_ensemble=True)
+register_executor("cuda", _cuda_executor, vvls=CUDA_VVLS, takes_fields=True,
+                  takes_ensemble=True)
 register_executor("cuda_windowed", _cuda_windowed_executor,
                   wants="halo_extended", tunables=("plane_block",),
                   vvls=CUDA_VVLS, takes_fields=True,
-                  smem_bytes=_cuda_windowed_smem)
+                  smem_bytes=_cuda_windowed_smem, takes_ensemble=True)

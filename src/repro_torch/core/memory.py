@@ -24,7 +24,8 @@ paper                      this module
                            the compress/unpack scheme of the paper's CUDA
                            implementation)
 ``TARGET_CONST`` +         :class:`TargetConst` — small read-only parameters
-``copyConstant<X>ToTarget``  (:func:`copy_constant_to_target`)
+``copyConstant<X>ToTarget``  (:func:`copy_constant_to_target`);
+                           :class:`BatchedConst` — one row per fleet member
 ``syncTarget``             :func:`sync_target` (``torch.cuda.synchronize``)
 =========================  ====================================================
 
@@ -226,6 +227,44 @@ class TargetConst:
 
     def __repr__(self):
         return f"TargetConst(shape={self.value.shape}, dtype={self.value.dtype})"
+
+
+class BatchedConst(TargetConst):
+    """A :class:`TargetConst` with a leading **ensemble axis**: row *i* is
+    member *i*'s value of the constant (a parameter sweep — per-member
+    mobility, viscosity, ...).
+
+    A Program stage binding a ``BatchedConst`` runs only inside a fleet
+    (:meth:`repro_torch.core.program.CompiledProgram.vmap`): each ensemble
+    launch hands the executor every member's value, and the card's
+    executors read member *i*'s row from a device table
+    (:mod:`repro_torch.kernels.tdp_pointwise`), so one launch serves the
+    whole sweep.  Content hashing is inherited: two sweeps with equal
+    values are equal.
+    """
+
+    __slots__ = ()
+
+    def __init__(self, value: Any):
+        super().__init__(value)
+        if self.value.ndim < 1:
+            raise ValueError(
+                f"BatchedConst needs a leading ensemble axis; got a 0-d "
+                f"value (shape {self.value.shape}) — wrap a plain scalar in "
+                f"TargetConst instead")
+
+    @property
+    def batch(self) -> int:
+        """The ensemble extent (leading-axis length)."""
+        return int(self.value.shape[0])
+
+    def member_shape(self) -> tuple:
+        return tuple(self.value.shape[1:])
+
+    def __repr__(self):
+        return (f"BatchedConst(batch={self.batch}, "
+                f"member_shape={self.member_shape()}, "
+                f"dtype={self.value.dtype})")
 
 
 def copy_constant_to_target(value: Any) -> TargetConst:

@@ -52,7 +52,14 @@ e. **slab, pencil and block decompositions with comm/compute overlap** —
    while they are in flight, and the **boundary** slabs launch on the
    exchanged fields after the wait (:func:`_run_region`).
    :meth:`CompiledProgram.comm_stats` reports the analytic exchange budget
-   per step.
+   per step;
+f. **ensembles** — a stage may bind a
+   :class:`~repro_torch.core.memory.BatchedConst` (a per-member sweep);
+   :meth:`CompiledProgram.vmap` lifts the compiled step to a
+   :class:`~repro_torch.core.fleet.FleetProgram` whose every stage is one
+   ensemble launch (:func:`~repro_torch.core.api.launch_ensemble`) over a
+   leading member axis.  ``step``/``run`` of a single compile refuse a
+   program with a sweep.
 """
 from __future__ import annotations
 
@@ -65,11 +72,13 @@ import torch.distributed as dist
 
 from .api import _normalize_halo
 from .api import launch as _launch
+from .api import launch_ensemble as _launch_ensemble
 from .api import launch_plan as _launch_plan
 from .lattice import Lattice
+from .memory import BatchedConst
 from .registry import executor_wants
 from .spec import KernelSpec
-from .state import validate_field
+from .state import ProgramState, validate_field
 from .target import Target, as_target
 
 #: Pointwise partner of each stencil-only executor (``wants="halo_extended"``):
@@ -323,6 +332,27 @@ class Program:
             i for i, st in enumerate(self.stages)
             if all(w in self.fields and last[w] == i for w in st.writes))
 
+    def batched_consts(self) -> dict:
+        """The program's per-member ensemble sweeps: ordered mapping of
+        const name → :class:`~repro_torch.core.memory.BatchedConst` over
+        every stage binding one.  A name bound by several stages must bind
+        the *same* sweep (content equality): the fleet carries one value
+        per name through the whole step."""
+        out: dict[str, BatchedConst] = {}
+        for st in self.stages:
+            for k, v in st.consts:
+                if not isinstance(v, BatchedConst):
+                    continue
+                prev = out.get(k)
+                if prev is not None and prev != v:
+                    raise ValueError(
+                        f"program {self.name!r}: const {k!r} is bound to "
+                        f"two different BatchedConst sweeps (stage "
+                        f"{st.name!r} disagrees with an earlier stage); "
+                        f"every stage must share one sweep per name")
+                out[k] = v
+        return out
+
     def __repr__(self):
         return (f"Program({self.name!r}, stages="
                 f"{[st.name for st in self.stages]}, "
@@ -378,13 +408,20 @@ class Program:
     # -- stage execution core (shared by execute / compile) ----------------
 
     def _run_stages(self, stage_targets, shape: tuple[int, ...], geo,
-                    env: dict, out: Mapping[str, torch.Tensor] | None = None
-                    ) -> dict:
+                    env: dict, out: Mapping[str, torch.Tensor] | None = None,
+                    *, batch: int | None = None,
+                    dyn: Mapping[str, Any] | None = None) -> dict:
         """Run all stages over ``env`` (name → ``(grid_tensor, ext)``),
         mutating and returning it.  ``geo`` is :meth:`schedule`'s
         per-stage ``(ext_out, halo)`` list.  ``out`` optionally maps every
         field to a preallocated interior grid its final writer launches
-        into."""
+        into.
+
+        With ``batch``, every tensor carries a leading member axis (no
+        ghost planes: fleets run on one device) and each stage is one
+        ensemble launch; ``dyn`` maps a swept const's name to its ``(batch,
+        ...)`` host values (default: the ``BatchedConst``'s own)."""
+        lead = () if batch is None else (batch,)
         for i, (st, tgt, (e_out, h)) in enumerate(
                 zip(self.stages, stage_targets, geo)):
             lat_shape = tuple(s + 2 * e for s, e in zip(shape, e_out))
@@ -398,17 +435,30 @@ class Program:
                 # a trimmed field is a strided view and the executors take
                 # contiguous fields: staged here, where a decomposed step
                 # reads a field at less than its exchange width
-                arrays.append(arr.contiguous().view(arr.shape[0], -1))
+                arrays.append(arr.contiguous().view(
+                    *lead, arr.shape[len(lead)], -1))
             bufs = None
             if out is not None and i in self._final_writers and not any(e_out):
-                bufs = tuple(out[w].view(out[w].shape[0], -1)
+                bufs = tuple(out[w].view(*lead, out[w].shape[len(lead)], -1)
                              for w in st.writes)
-            outs = _launch(st.spec, tgt, *arrays, lattice=lat,
-                           halo=h if any(h) else None,
-                           consts=st.consts_dict(), out=bufs)
+            consts = st.consts_dict()
+            if batch is None:
+                outs = _launch(st.spec, tgt, *arrays, lattice=lat,
+                               halo=h if any(h) else None, consts=consts,
+                               out=bufs)
+            else:
+                member = {k: (dyn or {}).get(k, v.value)
+                          for k, v in consts.items()
+                          if isinstance(v, BatchedConst)}
+                outs = _launch_ensemble(
+                    st.spec, tgt, *arrays, batch=batch, lattice=lat,
+                    consts={k: v for k, v in consts.items()
+                            if k not in member},
+                    member_consts=member, out=bufs)
             outs = (outs,) if not isinstance(outs, tuple) else outs
             for w, o in zip(st.writes, outs):
-                env[w] = (o.reshape(o.shape[0], *lat_shape), e_out)
+                env[w] = (o.reshape(*lead, o.shape[len(lead)], *lat_shape),
+                          e_out)
         return env
 
     # -- eager execution with caller-managed ghosts ------------------------
@@ -752,6 +802,29 @@ def _validate_decomposition(program: Program, grid_shape, open_mask):
                         f"enlarge the grid")
 
 
+def ping_pong(core, arrays, nsteps: int, donate: bool = False, **kw):
+    """``nsteps`` applications of ``core(src, out, **kw)`` over two buffer
+    sets: step *i* reads one and writes the other.  The caller's ``arrays``
+    are never written unless ``donate``, when they are the second set.
+    Returns the final tensors (``arrays`` themselves when ``nsteps <= 0``)."""
+    if nsteps <= 0:
+        return tuple(arrays)
+
+    def fresh():
+        return tuple(torch.empty_like(a, memory_format=torch.contiguous_format)
+                     for a in arrays)
+
+    first = fresh()
+    second = (tuple(arrays) if donate and all(a.is_contiguous()
+                                              for a in arrays)
+              else (fresh() if nsteps > 1 else None))
+    bufs = (first, second)
+    src = tuple(arrays)
+    for i in range(nsteps):
+        src = core(src, bufs[i % 2], **kw)
+    return src
+
+
 class CompiledProgram:
     """A :class:`Program` bound to one target + geometry.
 
@@ -790,6 +863,9 @@ class CompiledProgram:
                                                         st.name)
                                    for st in program.stages)
         fields = program.fields
+        # per-member ensemble sweeps: a fleet (.vmap) carries their values
+        self.batched_consts = program.batched_consts()
+        self.dyn_names = tuple(self.batched_consts)
         self.halo_schedule: dict[str, int] = {}
         self.exchange_schedule: dict[str, dict[int, int]] = {}
         self._shard_dims: tuple[int, ...] = ()
@@ -942,7 +1018,11 @@ class CompiledProgram:
 
     # -- running -----------------------------------------------------------
 
-    def _core(self, arrays, out=None) -> tuple[torch.Tensor, ...]:
+    def _core(self, arrays, out=None, *, batch: int | None = None,
+              dyn=None) -> tuple[torch.Tensor, ...]:
+        """One step of the field tensors ``arrays`` (into ``out`` when
+        given).  With ``batch``, one fleet step: every tensor carries a
+        leading member axis and ``dyn`` the swept consts' values."""
         fields = self.program.fields
         local = self.local_shape
         zeros = (0,) * len(local)
@@ -950,7 +1030,8 @@ class CompiledProgram:
         if self.mesh is None:
             env = {f: (a, zeros) for f, a in zip(fields, arrays)}
             env = self.program._run_stages(self.stage_targets, local,
-                                           self._geo, env, out=bufs)
+                                           self._geo, env, out=bufs,
+                                           batch=batch, dyn=dyn)
             res = {f: env[f][0] for f in fields}
         elif not self.overlap:
             exts = self._exchange_all(arrays)
@@ -995,6 +1076,12 @@ class CompiledProgram:
         return res
 
     def _as_tuple(self, state: Mapping[str, torch.Tensor]):
+        if isinstance(state, ProgramState) and state.ensemble is not None:
+            raise ValueError(
+                f"program {self.program.name!r}: state carries an ensemble "
+                f"axis (ensemble={state.ensemble}) but this is a "
+                f"single-member compile — run it through a fleet "
+                f"(.vmap({state.ensemble})) or pass state.member(i)")
         arrays = []
         for f in self.program.fields:
             if f not in state:
@@ -1008,28 +1095,66 @@ class CompiledProgram:
             arrays.append(a)
         return tuple(arrays)
 
-    def step(self, state: Mapping[str, torch.Tensor]) -> dict:
-        """One step: field mapping in, ``{name: tensor}`` out."""
-        return dict(zip(self.program.fields,
-                        self._core(self._as_tuple(state))))
+    def _wrap(self, state, outs):
+        out = dict(zip(self.program.fields, outs))
+        return ProgramState(out) if isinstance(state, ProgramState) else out
 
-    def run(self, state: Mapping[str, torch.Tensor], nsteps: int) -> dict:
+    def _require_unbatched(self, what: str):
+        if self.dyn_names:
+            raise ValueError(
+                f"program {self.program.name!r} binds batched const(s) "
+                f"{list(self.dyn_names)} (per-member ensemble sweeps); "
+                f"{what} has no ensemble axis — compile a fleet with "
+                f".vmap(batch) (tdp.fleet) instead")
+
+    def step(self, state: Mapping[str, torch.Tensor]):
+        """One step: field mapping in (a dict or a single-member
+        :class:`~repro_torch.core.state.ProgramState`), the same kind out."""
+        self._require_unbatched("CompiledProgram.step")
+        return self._wrap(state, self._core(self._as_tuple(state)))
+
+    def run(self, state: Mapping[str, torch.Tensor], nsteps: int, *,
+            health=None):
         """``nsteps`` steps over two preallocated ping-pong buffers.
 
         Step *i* reads one buffer set and its final-writer stages launch
-        straight into the other; the caller's tensors are read by the
-        first step and never written.  The arithmetic is that of
-        :meth:`step`, so the two agree bit for bit.
+        straight into the other; the caller's tensors are read by the first
+        step and never written.  The arithmetic is that of :meth:`step`, so
+        the two agree bit for bit.  Accepts a plain mapping or a
+        :class:`~repro_torch.core.state.ProgramState`; returns the same
+        kind.
+
+        ``health``: an optional :class:`~repro_torch.core.health.
+        HealthPolicy` — the run splits into ``health.every``-step chunks
+        with a NaN/Inf/norm check between them (the trajectory is that of
+        an unguarded run); a violation raises
+        :class:`~repro_torch.core.health.HealthError` naming the field and
+        the step range.
         """
+        self._require_unbatched("CompiledProgram.run")
+        if health is not None:
+            from .health import check
+            health.select_fields(self.program.fields)   # fail fast on typos
+            done = 0
+            while done < nsteps:
+                chunk = min(health.every, nsteps - done)
+                state = self.run(state, chunk)
+                check(health, state, step_range=(done, done + chunk),
+                      where=f"program {self.program.name!r}")
+                done += chunk
+            return state
         arrays = self._as_tuple(state)
-        if nsteps <= 0:
-            return dict(zip(self.program.fields, arrays))
-        bufs = [tuple(torch.empty_like(a, memory_format=torch.contiguous_format)
-                      for a in arrays) for _ in range(2)]
-        src = arrays
-        for i in range(int(nsteps)):
-            src = self._core(src, bufs[i % 2])
-        return dict(zip(self.program.fields, src))
+        return self._wrap(state, ping_pong(self._core, arrays, int(nsteps)))
+
+    def vmap(self, batch: int):
+        """Lift this compiled step over a leading ensemble axis: a
+        :class:`~repro_torch.core.fleet.FleetProgram` stepping ``batch``
+        independent trajectories, one ensemble launch a stage.  Members
+        never interact, so each member's trajectory is that of its single
+        run.  A decomposed compile (a mesh) or ``layout="aosoa"`` raises
+        ``NotImplementedError`` (ROADMAP A5: sharded and AoSoA fleets)."""
+        from .fleet import FleetProgram
+        return FleetProgram(self, batch)
 
     def plan(self) -> "ProgramPlan":
         """Aggregated memory models for this compile's local geometry."""

@@ -34,6 +34,9 @@ an executor only maps a prepared plan over prepared site arrays:
         #           buffers of CompiledProgram.run)
         # returns:  tuple of (ncomp_o, nsites) outputs, one per
         #           plan.out_ncomp entry (``out`` itself when given)
+        # An executor registered with takes_ensemble=True also runs a
+        # fleet's ensemble launches: plan.ensemble is set and every
+        # operand and output carries a leading (batch,) member axis.
         ...
 
     register_executor("my_backend", my_executor)                 # gathered
@@ -63,7 +66,8 @@ class ExecutorEntry(NamedTuple):
     with (``vvls``; ``None``: any positive VVL), whether it reads stencil
     fields in place (``takes_fields``) and its shared-memory estimate
     (``smem_bytes``: ``plan -> bytes`` a block of its kernel holds;
-    ``None``: none)."""
+    ``None``: none) and whether it runs a fleet's ensemble launches
+    (``takes_ensemble``)."""
 
     fn: Callable
     wants: str
@@ -71,6 +75,7 @@ class ExecutorEntry(NamedTuple):
     vvls: tuple[int, ...] | None = None
     takes_fields: bool = False
     smem_bytes: Callable | None = None
+    takes_ensemble: bool = False
 
 
 _EXECUTORS: dict[str, ExecutorEntry] = {}
@@ -82,7 +87,8 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
                       tunables: tuple[str, ...] = (),
                       vvls: tuple[int, ...] | None = None,
                       takes_fields: bool = False,
-                      smem_bytes: Callable | None = None) -> None:
+                      smem_bytes: Callable | None = None,
+                      takes_ensemble: bool = False) -> None:
     """Register ``fn`` as the executor behind ``Target(backend=name)``.
 
     ``wants`` declares the input capability: ``"gathered"`` (default)
@@ -104,6 +110,12 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
     included, in place.  ``smem_bytes(plan)`` estimates the shared memory
     a block of its kernel holds (:meth:`LaunchPlan.vmem_bytes_estimate`).
 
+    ``takes_ensemble=True`` declares that the executor runs an ensemble
+    launch (:func:`repro_torch.core.api.launch_ensemble`): ``plan.ensemble``
+    is then set, every operand and output carries a leading member axis,
+    and the per-member const values ride on the plan.  A fleet
+    (``CompiledProgram.vmap``) refuses a target whose executor does not.
+
     Raises ``ValueError`` on duplicate names unless ``overwrite=True``.
     """
     global _VERSION
@@ -123,7 +135,8 @@ def register_executor(name: str, fn: Callable, *, overwrite: bool = False,
             f"executor {name!r} is already registered; pass overwrite=True "
             f"to replace it")
     _EXECUTORS[name] = ExecutorEntry(fn, wants, tunables, vvls,
-                                     bool(takes_fields), smem_bytes)
+                                     bool(takes_fields), smem_bytes,
+                                     bool(takes_ensemble))
     _VERSION += 1
 
 

@@ -15,6 +15,10 @@
 //                    `fused`, which runs in shared-memory tiles
 //                    (fused_tile_phi / fused_tile_collide below).
 //
+// Both also run an ensemble of B members in one launch (a fleet's stage):
+// member_io() below turns member blockIdx.y of an EnsembleIO into a
+// FieldIO, and the same bodies run on it.
+//
 // lb_collision.cu runs collide_core() over plain SoA arrays.
 //
 // One thread covers VVL consecutive sites (the paper's TARGET_TLP strip,
@@ -120,6 +124,7 @@ constexpr int ERR_BAD_VVL = -2;
 constexpr int ERR_GEOMETRY = -6;
 constexpr int ERR_PLANE_BLOCK = -7;
 constexpr int ERR_BAD_OP = -8;  // a reduction op outside {sum, max, min}
+constexpr int ERR_ENSEMBLE = -9;  // an ensemble extent outside 1..65535
 
 enum SiteId : int {
   SITE_STREAM = 0,
@@ -202,6 +207,16 @@ inline Phys make_phys(float A, float B, float kappa, float tau, float tau_phi,
                       float gamma) {
   return Phys{A, B, kappa, tau, tau_phi, gamma,
               (float)(1.0 - 0.5 / (double)tau), (float)(3.0 * (double)gamma)};
+}
+
+// The device table of an ensemble launch: row m = make_phys of consts[6m ..
+// 6m+5] = (A, B, kappa, tau, tau_phi, gamma), so a member computes with the
+// bits its single launch would.
+inline void make_phys_rows(int B, const float* consts, Phys* rows) {
+  for (int m = 0; m < B; ++m) {
+    const float* c = consts + 6 * (int64_t)m;
+    rows[m] = make_phys(c[0], c[1], c[2], c[3], c[4], c[5]);
+  }
 }
 
 // sum_d c_qd v_d with the zero terms dropped and the unit products folded
@@ -559,6 +574,66 @@ __host__ __device__ __forceinline__ void field_thread(const FieldIO& io, int64_t
 template <int VVL>
 __host__ __device__ __forceinline__ int64_t field_threads(const FieldIO& io) {
   return (int64_t)io.X * io.Y * ((io.Z + VVL - 1) / VVL);
+}
+
+// ---------------------------------------------------------------------------
+// ensembles: B independent members in one launch (a fleet's stage)
+// ---------------------------------------------------------------------------
+//
+// Member m's operands lie at in[i] + m·in_stride[i] and out[k] +
+// m·out_stride[k] (elements; each member contiguous, the members at any
+// 64-bit distance, so gaps between them are never touched), and its physics
+// is row m of a device table of B Phys rows (make_phys_rows).  Geometry is
+// shared.  The launchers put the member on blockIdx.y; member_io() turns the
+// ensemble into member m's FieldIO, and the single launchers' per-thread
+// bodies and tile phases run on it unchanged.
+
+struct EnsembleIO {
+  FieldIO io;  // member 0's pointers and the shared geometry
+  int64_t in_stride[MAX_IN];
+  int64_t out_stride[MAX_OUT];
+  const Phys* phys;  // B rows
+  int B;
+};
+
+__host__ __device__ __forceinline__ FieldIO member_io(const EnsembleIO& e, int m) {
+  FieldIO io = e.io;
+#pragma unroll
+  for (int i = 0; i < MAX_IN; ++i) io.in[i] += m * e.in_stride[i];
+#pragma unroll
+  for (int k = 0; k < MAX_OUT; ++k) io.out[k] += m * e.out_stride[k];
+  io.phys = e.phys[m];
+  return io;
+}
+
+// 0, or ERR_ENSEMBLE when B is not an extent blockIdx.y can take.
+inline int check_ensemble(int B) { return B < 1 || B > 65535 ? ERR_ENSEMBLE : 0; }
+
+// The C entries' arguments as an EnsembleIO (unused in/out slots are null
+// with stride 0).
+inline EnsembleIO make_ensemble_io(int B, const void* const* in, void* const* out,
+                                   const long long* in_stride,
+                                   const long long* out_stride, int X, int Y, int Z,
+                                   int hx, int hy, int hz, const void* phys) {
+  EnsembleIO e{};
+  for (int i = 0; i < MAX_IN; ++i) {
+    e.io.in[i] = static_cast<const float*>(in[i]);
+    e.in_stride[i] = in[i] ? in_stride[i] : 0;
+  }
+  for (int k = 0; k < MAX_OUT; ++k) {
+    e.io.out[k] = static_cast<float*>(out[k]);
+    e.out_stride[k] = out[k] ? out_stride[k] : 0;
+  }
+  e.io.X = X;
+  e.io.Y = Y;
+  e.io.Z = Z;
+  e.io.hx = hx;
+  e.io.hy = hy;
+  e.io.hz = hz;
+  e.io.n = (int64_t)X * Y * Z;
+  e.phys = static_cast<const Phys*>(phys);
+  e.B = B;
+  return e;
 }
 
 // ---------------------------------------------------------------------------

@@ -28,6 +28,14 @@
 // operands are the wrapper's AoSoA copies of the fields, so the kernel's
 // bytes are those of the SoA kernel; the two boundary transforms move the
 // fields' and outputs' bytes once more each.
+//
+// The ensemble branch (a fleet's stage; the reference vmaps the compiled
+// step, which adds a grid axis to this pallas_call): tdp_gathered_ensemble_
+// launch runs the same site functions over B members in one launch, member
+// on blockIdx.y, each member's operands at its own 64-bit offset
+// (EnsembleIO, lb_sites.cuh) and its physics from row blockIdx.y of a
+// device table built by make_phys_rows, so a member computes what its
+// single launch computes.  Bound: B times the single launch's bytes.
 #include <cuda_runtime.h>
 
 #include "lb_sites.cuh"
@@ -67,6 +75,25 @@ struct AosoaLaunch {
     if (a.io.n == 0) return 0;
     const unsigned blocks = (unsigned)((a.io.n + kBlock - 1) / kBlock);
     aosoa_kernel<Site><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class Site, int VVL>
+__global__ void __launch_bounds__(kBlock)
+    field_ensemble_kernel(const __grid_constant__ tdp::EnsembleIO e) {
+  const tdp::FieldIO io = tdp::member_io(e, (int)blockIdx.y);
+  tdp::field_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <class Site, int VVL>
+struct EnsembleLaunch {
+  static int run(const tdp::EnsembleIO& e, void* stream) {
+    if (const int rc = tdp::check_geometry(e.io, Site::RADIUS)) return rc;
+    const int64_t threads = tdp::field_threads<VVL>(e.io);
+    if (threads == 0) return 0;
+    const dim3 grid((unsigned)((threads + kBlock - 1) / kBlock), (unsigned)e.B);
+    field_ensemble_kernel<Site, VVL><<<grid, kBlock, 0, (cudaStream_t)stream>>>(e);
     return (int)cudaGetLastError();
   }
 };
@@ -122,4 +149,27 @@ extern "C" int tdp_gathered_aosoa_launch(int site, int W, const void* const* in,
   a.plane = plane;
   a.soa_out = false;
   return tdp::dispatch_site_aosoa<AosoaLaunch>(site, a, stream);
+}
+
+// The ensemble launch: B members (1 <= B <= 65535) of the single launch's
+// operands, member m's at in[i] + m*in_stride[i] and out[k] +
+// m*out_stride[k] (elements), its physics row m of `phys` (B tdp::Phys rows
+// on the device, from tdp_phys_rows).  Returns 0, a cudaError_t, or
+// tdp::ERR_BAD_SITE / ERR_BAD_VVL / ERR_GEOMETRY / ERR_ENSEMBLE.
+extern "C" int tdp_gathered_ensemble_launch(int site, int vvl, int B,
+                                            const void* const* in, void* const* out,
+                                            const long long* in_stride,
+                                            const long long* out_stride, int X, int Y,
+                                            int Z, int hx, int hy, int hz,
+                                            const void* phys, void* stream) {
+  if (const int rc = tdp::check_ensemble(B)) return rc;
+  const tdp::EnsembleIO e = tdp::make_ensemble_io(B, in, out, in_stride, out_stride, X,
+                                                  Y, Z, hx, hy, hz, phys);
+  return tdp::dispatch_site<EnsembleLaunch>(site, vvl, e, stream);
+}
+
+// The host side of an ensemble's physics table: rows[m] = make_phys of
+// consts[6m .. 6m+5] (A, B, kappa, tau, tau_phi, gamma), B rows of 8 floats.
+extern "C" void tdp_phys_rows(int B, const float* consts, void* rows) {
+  tdp::make_phys_rows(B, consts, static_cast<tdp::Phys*>(rows));
 }

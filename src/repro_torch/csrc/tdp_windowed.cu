@@ -36,6 +36,12 @@
 // per site through AosoaNb; fused keeps its tile, 256 threads of one site
 // each, whose phase 1 reads g from the AoSoA planes into the same
 // shared-memory phi array and whose phase 2 reads f and g through AosoaNb.
+//
+// The ensemble branch (a fleet's stage): tdp_windowed_ensemble_launch runs
+// B members in one launch, member on blockIdx.y (EnsembleIO, lb_sites.cuh):
+// stream, grad6, phi_stream and fused_two as above, fused in the same tiles
+// (fused_tile_ensemble_kernel), each member with its own physics row.
+// Bound: B times the single launch's bytes.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -98,6 +104,64 @@ struct Launch {
       if (threads == 0) return 0;
       const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
       field_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a.io);
+      return (int)cudaGetLastError();
+    }
+  }
+};
+
+struct WindowedEnsembleArgs {
+  tdp::EnsembleIO e;
+  int plane_block;
+};
+
+template <class Site, int VVL>
+__global__ void __launch_bounds__(kBlock)
+    field_ensemble_kernel(const __grid_constant__ tdp::EnsembleIO e) {
+  const tdp::FieldIO io = tdp::member_io(e, (int)blockIdx.y);
+  tdp::field_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <int VVL>
+__global__ void __launch_bounds__(tdp::tile_threads<VVL>(), 512 / tdp::tile_threads<VVL>())
+    fused_tile_ensemble_kernel(const __grid_constant__ tdp::EnsembleIO e, int P) {
+  extern __shared__ float phi[];
+  const tdp::FieldIO io = tdp::member_io(e, (int)blockIdx.y);
+  tdp::fused_tile_phi<VVL>(io, P, blockIdx.x, threadIdx.x, phi);
+  __syncthreads();
+  tdp::fused_tile_collide<VVL>(io, P, blockIdx.x, threadIdx.x, phi);
+}
+
+template <int VVL>
+int launch_tiled_ensemble(const tdp::EnsembleIO& e, int P, void* stream) {
+  if (const int rc = tdp::check_tile(P)) return rc;
+  const int64_t smem = tdp::tile_smem_bytes(P);
+  const int64_t blocks = tdp::tile_blocks(e.io, P);
+  if (blocks == 0) return 0;
+  static bool granted = false;  // dynamic shared memory above 48 KB
+  if (smem > 48 * 1024 && !granted) {
+    const cudaError_t rc = cudaFuncSetAttribute(fused_tile_ensemble_kernel<VVL>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)tdp::SMEM_LIMIT);
+    if (rc != cudaSuccess) return (int)rc;
+    granted = true;
+  }
+  const dim3 grid((unsigned)blocks, (unsigned)e.B);
+  fused_tile_ensemble_kernel<VVL><<<grid, tdp::tile_threads<VVL>(), (size_t)smem,
+                                    (cudaStream_t)stream>>>(e, P);
+  return (int)cudaGetLastError();
+}
+
+template <class Site, int VVL>
+struct EnsembleLaunch {
+  static int run(const WindowedEnsembleArgs& a, void* stream) {
+    if (const int rc = tdp::check_geometry(a.e.io, Site::RADIUS)) return rc;
+    if constexpr (std::is_same_v<Site, tdp::FusedSite>) {
+      return launch_tiled_ensemble<VVL>(a.e, a.plane_block, stream);
+    } else {
+      const int64_t threads = tdp::field_threads<VVL>(a.e.io);
+      if (threads == 0) return 0;
+      const dim3 grid((unsigned)((threads + kBlock - 1) / kBlock), (unsigned)a.e.B);
+      field_ensemble_kernel<Site, VVL><<<grid, kBlock, 0, (cudaStream_t)stream>>>(a.e);
       return (int)cudaGetLastError();
     }
   }
@@ -186,4 +250,22 @@ extern "C" int tdp_windowed_aosoa_launch(int site, int W, int plane_block,
   w.a.soa_out = true;
   w.plane_block = plane_block;
   return tdp::dispatch_site_aosoa<AosoaLaunch>(site, w, stream);
+}
+
+// The ensemble launch: B members (1 <= B <= 65535) of the single launch's
+// operands, member m's at in[i] + m*in_stride[i] and out[k] +
+// m*out_stride[k] (elements), its physics row m of `phys` (B tdp::Phys rows
+// on the device).  Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE /
+// ERR_BAD_VVL / ERR_GEOMETRY / ERR_PLANE_BLOCK / ERR_ENSEMBLE.
+extern "C" int tdp_windowed_ensemble_launch(int site, int vvl, int plane_block, int B,
+                                            const void* const* in, void* const* out,
+                                            const long long* in_stride,
+                                            const long long* out_stride, int X, int Y,
+                                            int Z, int hx, int hy, int hz,
+                                            const void* phys, void* stream) {
+  if (const int rc = tdp::check_ensemble(B)) return rc;
+  const WindowedEnsembleArgs a{tdp::make_ensemble_io(B, in, out, in_stride, out_stride,
+                                                     X, Y, Z, hx, hy, hz, phys),
+                               plane_block};
+  return tdp::dispatch_site<EnsembleLaunch>(site, vvl, a, stream);
 }

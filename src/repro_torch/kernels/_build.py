@@ -67,7 +67,8 @@ _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
                "planes",
            -7: "plane_block must be positive and its tile fit the 227 KB a "
                "block may hold",
-           -8: f"reduction op not in {REDUCE_OPS}"}
+           -8: f"reduction op not in {REDUCE_OPS}",
+           -9: "the ensemble extent must be in 1..65535 (blockIdx.y)"}
 
 
 def _nvcc() -> str:

@@ -57,11 +57,29 @@ channels at a time, and a copy may not straddle two blocks).  On CPU
 tensors the plain version (:func:`aosoa_plain`) reads every operand through
 the same index map, then runs the plain body.  :data:`aosoa_launches`
 counts the AoSoA kernel launches per site function.
+
+Ensembles (a fleet's stage, :func:`repro_torch.core.api.launch_ensemble`:
+``plan.ensemble`` set, every operand and output with a leading member
+axis): the LB site functions run every member in one launch of
+``tdp_gathered_ensemble_launch`` (:func:`ensemble_execute`), the member on
+``blockIdx.y``, each member's operands at its own offset (each member
+contiguous, any distance between members) and its physics from row
+``blockIdx.y`` of a device table (:func:`phys_table`) built by the kernels'
+own ``make_phys``, so a member's ``fcoef``/``g3`` have the bits of its
+single launch.  The table is cached by content: it is rebuilt only when a
+member's values change, and the values are host arrays, so a launch reads
+nothing back from the card.  On CPU tensors the plain version runs each
+member in turn through :func:`fields_plain`.  A sweep of ``w`` or ``c``
+raises (the kernels compile D3Q19's tables in); the LM and example site
+functions and ``layout="aosoa"`` have no ensemble branch yet and raise
+``NotImplementedError``.  :data:`ensemble_launches` counts the ensemble
+launches per site function.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,6 +99,8 @@ launches = dict.fromkeys(_build.SITES + LM_SITES + _build.EXAMPLE_SITES
                          + ("reduce",), 0)
 #: AoSoA kernel launches of this executor, by site function
 aosoa_launches = dict.fromkeys(launches, 0)
+#: ensemble kernel launches of this executor, by site function
+ensemble_launches = dict.fromkeys(_build.SITES, 0)
 #: the channels ``mamba``'s chunk stage copies at a time: the AoSoA width
 #: must be a multiple of it
 MAMBA_AOSOA_ALIGN = 4
@@ -487,9 +507,11 @@ def _lm_execute(plan, site, vvl, fields, out):
 
 
 def cuda_execute(plan, fields, out=None):
-    """Registry executor entry (``takes_fields=True`` — see
-    :mod:`repro_torch.core.registry`)."""
+    """Registry executor entry (``takes_fields=True``,
+    ``takes_ensemble=True`` — see :mod:`repro_torch.core.registry`)."""
     site = cuda_site(plan)
+    if plan.ensemble is not None:
+        return ensemble_execute(plan, site, fields, out, launch=_ensemble_launch)
     if plan.layout == "aosoa":
         return aosoa_execute(plan, site, fields, out)
     vvl = cuda_vvl(plan.target.vvl)
@@ -745,3 +767,148 @@ def aosoa_execute(plan, site, fields, out=None, *, windowed=False,
     for o, v in zip(out, outs):
         o.copy_(v)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# ensembles: every member in one launch
+# ---------------------------------------------------------------------------
+
+#: device tables of member physics, by (device, the members' six scalars)
+_phys_tables: dict = {}
+_PHYS_TABLES_MAX = 64
+
+
+def check_ensemble(plan, site: str) -> None:
+    """The ensemble branch takes the LB site functions under SoA, each swept
+    const a physics scalar (one per member); ``w``/``c`` are compiled in."""
+    what = f"kernel {plan.name!r}"
+    if site not in _build.SITE_ID:
+        raise NotImplementedError(
+            f"{what}: the CUDA site function {site!r} has no ensemble branch "
+            f"(ROADMAP A5: ensembles of the LM and example site functions)")
+    if plan.layout != "soa":
+        raise NotImplementedError(
+            f"{what}: an ensemble under layout={plan.layout!r} is not ported "
+            f"(ROADMAP A5: AoSoA fleets)")
+    for k, v in plan.ensemble.consts.items():
+        if k in ("w", "c"):
+            raise ValueError(
+                f"{what}: const {k!r} is swept per member, but the CUDA "
+                f"kernels compile D3Q19's {k!r} in; sweep the physics "
+                f"scalars {tuple(PHYS_DEFAULTS)} only")
+        if k not in PHYS_DEFAULTS or v.shape[1:] != ():
+            raise ValueError(
+                f"{what}: swept const {k!r} of member shape {v.shape[1:]}; "
+                f"the CUDA site functions take one scalar a member of "
+                f"{tuple(PHYS_DEFAULTS)}")
+
+
+def member_phys(plan) -> np.ndarray:
+    """``(batch, 6)`` float32: each member's six physics scalars in the C
+    entries' order, a swept const's row or the shared value."""
+    B = plan.ensemble.batch
+    vals = np.empty((B, len(PHYS_DEFAULTS)), np.float32)
+    for j, (k, v) in enumerate(PHYS_DEFAULTS.items()):
+        if k in plan.ensemble.consts:
+            vals[:, j] = plan.ensemble.consts[k].reshape(B)
+        else:
+            vals[:, j] = float(plan.consts.get(k, v))
+    return vals
+
+
+def _phys_rows_lib():
+    fn = _build.load("tdp_gathered").tdp_phys_rows
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = None
+    return fn
+
+
+def phys_table(plan, device) -> torch.Tensor:
+    """The ``(batch, 8)`` float32 table of ``tdp::Phys`` rows on ``device``
+    that an ensemble launch reads: :func:`member_phys` through the C
+    ``make_phys_rows``, built once per content and device."""
+    vals = member_phys(plan)
+    key = (str(device), vals.tobytes())
+    table = _phys_tables.get(key)
+    if table is None:
+        rows = np.empty((vals.shape[0], 8), np.float32)
+        _phys_rows_lib()(vals.shape[0], vals.ctypes.data, rows.ctypes.data)
+        table = torch.from_numpy(rows).to(device)
+        if len(_phys_tables) >= _PHYS_TABLES_MAX:
+            _phys_tables.pop(next(iter(_phys_tables)))
+        _phys_tables[key] = table
+    return table
+
+
+def check_members(tensors, what: str) -> None:
+    """Each ensemble operand holds its members contiguously, one after
+    another at a non-negative distance (gaps allowed)."""
+    for i, x in enumerate(tensors):
+        if not x[0].is_contiguous() or (x.shape[0] > 1
+                                        and x.stride(0) < x[0].numel()):
+            raise ValueError(
+                f"{what}: ensemble operand {i} of shape {tuple(x.shape)} and "
+                f"strides {x.stride()} does not hold each member "
+                f"contiguously, members apart")
+
+
+def stride_arrays(ins, outs):
+    """``(const long long in_stride[5], long long out_stride[2])``: the
+    member strides, in elements."""
+    in_s = (ctypes.c_longlong * 5)(*[x.stride(0) for x in ins])
+    out_s = (ctypes.c_longlong * 2)(*[o.stride(0) for o in outs])
+    return in_s, out_s
+
+
+def _ensemble_lib():
+    fn = _build.load("tdp_gathered").tdp_gathered_ensemble_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ensemble_launch(plan, site, vvl, fields, outs, geom, table, stream):
+    in_arr, out_arr = pointer_arrays(fields, outs)
+    in_s, out_s = stride_arrays(fields, outs)
+    rc = _ensemble_lib()(_build.SITE_ID[site], vvl, plan.ensemble.batch,
+                         in_arr, out_arr, in_s, out_s, *geom,
+                         table.data_ptr(), stream)
+    _build.check(rc, f"tdp_gathered ensemble {site}")
+    ensemble_launches[site] += 1
+
+
+def ensemble_execute(plan, site, fields, out=None, *, launch):
+    """An ensemble launch of an LB site function: on CUDA tensors one
+    ``launch(plan, site, vvl, fields, outs, geom, table, stream)`` for
+    every member, on CPU tensors each member in turn through
+    :func:`fields_plain`.  ``fields``/``out`` carry a leading member axis;
+    returns ``(batch, ncomp_o, n)`` outputs."""
+    from repro_torch.core.api import member_by_member
+
+    check_ensemble(plan, site)
+    vvl = cuda_vvl(plan.target.vvl)
+    x0 = fields[0]
+    if x0.device.type == "cpu":
+        return member_by_member(plan, fields, out, fields_plain)
+    if x0.device.type != "cuda":
+        raise ValueError(f"the CUDA executors run on CUDA or CPU tensors, "
+                         f"got {x0.device}")
+    what = f"kernel {plan.name!r} (ensemble)"
+    check_members(fields, what)
+    geom = lb_geometry(plan, [x[0] for x in fields])
+    n = geom[0] * geom[1] * geom[2]
+    B = plan.ensemble.batch
+    outs = (tuple(out) if out is not None else
+            tuple(torch.empty((B, c, n), dtype=x0.dtype, device=x0.device)
+                  for c in plan.out_ncomp))
+    check_members(outs, f"{what} (out)")
+    check_cuda_tensors([o[0] for o in outs], [(c, n) for c in plan.out_ncomp],
+                       f"{what} (out)")
+    table = phys_table(plan, x0.device)
+    with torch.cuda.device(x0.device):
+        launch(plan, site, vvl, fields, outs, geom, table,
+               _build.stream_handle(x0.device))
+    return outs

@@ -36,6 +36,14 @@ reference's do.  ``fused`` keeps its tile: the same shared-memory φ array,
 filled from the AoSoA planes, so ``plane_block`` and
 :func:`tile_smem_bytes` keep their meaning.  :data:`aosoa_launches`
 counts those launches.
+
+Ensembles (a fleet's stage): every member in one launch of
+``tdp_windowed_ensemble_launch``, the member on ``blockIdx.y``, ``fused`` in
+the same tiles, each member's physics from the table of
+:func:`~repro_torch.kernels.tdp_pointwise.phys_table`
+(:func:`~repro_torch.kernels.tdp_pointwise.ensemble_execute`; on CPU tensors
+each member in turn through the plain version).
+:data:`ensemble_launches` counts them.
 """
 from __future__ import annotations
 
@@ -46,13 +54,16 @@ import torch
 from . import _build
 from .lb_collision import cuda_vvl
 from .tdp_pointwise import (alloc_outputs, aosoa_execute, aosoa_plane_sites,
-                            cuda_site, fields_plain, lb_geometry, phys_args,
-                            pointer_arrays)
+                            cuda_site, ensemble_execute, fields_plain,
+                            lb_geometry, phys_args, pointer_arrays,
+                            stride_arrays)
 
 #: kernel launches of this executor, by site function
 launches = dict.fromkeys(_build.SITES, 0)
 #: AoSoA kernel launches of this executor, by site function
 aosoa_launches = dict.fromkeys(_build.SITES, 0)
+#: ensemble kernel launches of this executor, by site function
+ensemble_launches = dict.fromkeys(_build.SITES, 0)
 
 #: x-planes of a ``fused`` tile when ``Target.tuning`` sets none: the
 #: fastest at 128³ on the H100 (PERF.md §6), by 0.5 % over 4
@@ -105,6 +116,9 @@ def windowed_execute(plan, fields, out=None):
             f"{plan.name!r} was launched with shape {plan.shape}")
     site = cuda_site(plan)
     p = plane_block(plan)
+    if plan.ensemble is not None:
+        return ensemble_execute(plan, site, fields, out,
+                                launch=_ensemble_launch)
     if plan.layout == "aosoa":
         return aosoa_execute(plan, site, fields, out, windowed=True,
                              launch=_aosoa_launch)
@@ -150,3 +164,23 @@ def _aosoa_launch(plan, site, ops, n, geom):
     _build.check(rc, f"tdp_windowed AoSoA {site}")
     aosoa_launches[site] += 1
     return outs
+
+
+def _ensemble_lib():
+    fn = _build.load("tdp_windowed").tdp_windowed_ensemble_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ensemble_launch(plan, site, vvl, fields, outs, geom, table, stream):
+    """One launch of the windowed ensemble kernel of ``site``."""
+    in_arr, out_arr = pointer_arrays(fields, outs)
+    in_s, out_s = stride_arrays(fields, outs)
+    rc = _ensemble_lib()(_build.SITE_ID[site], vvl, plane_block(plan),
+                         plan.ensemble.batch, in_arr, out_arr, in_s, out_s,
+                         *geom, table.data_ptr(), stream)
+    _build.check(rc, f"tdp_windowed ensemble {site}")
+    ensemble_launches[site] += 1

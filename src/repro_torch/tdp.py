@@ -46,7 +46,8 @@ C-vs-CUDA switch      ``Target("torch")`` (plain PyTorch: the CPU build and
 §V reductions         :func:`reduce`: the site body mapped over the
                       lattice, then summed or max/min over the sites
 host step glue        :func:`tdp.program` — multi-launch step graphs with
-                      ping-pong fields
+                      ping-pong fields; ``compiled.vmap(B)`` — fleets of
+                      ``B`` members, one ensemble launch a stage
 MPI halo exchange     ``program.compile(mesh=...)``: slab, pencil and block
                       decompositions over ``torch.distributed``
                       (:func:`exchange_ghosts`, :func:`exchange_stats`;
@@ -62,14 +63,16 @@ Entry points that allocate run on the card unless the caller passes
 where its tensors lie (the ``"cuda"`` executors run their plain versions on
 CPU tensors).
 
-Not ported yet, with its ROADMAP item (queue A): ``fleet``,
-``FleetProgram``, ``FleetDriver``, ``Ticket``, ``health``,
-``HealthPolicy``, ``HealthError``, ``Diagnosis``, ``faults``,
-``InjectedFault``, ``ProgramState`` and ``BatchedConst`` (item 5,
-ensembles and resilience).  The reference's ``xla_executor`` is
+Ensembles and resilience (``tdp.fleet``): :class:`ProgramState`,
+:class:`BatchedConst`, :class:`FleetProgram` (``CompiledProgram.vmap``: one
+ensemble launch a stage), :class:`FleetDriver`, :class:`Ticket`,
+:class:`HealthPolicy`, :class:`HealthError`, :class:`Diagnosis`, the
+``health`` and ``faults`` modules and :class:`InjectedFault`; checkpoints
+through ``repro_torch.checkpoint``.  The reference's ``xla_executor`` is
 :func:`torch_executor` here.
 """
 from repro_torch.core import costmodel  # noqa: F401  (module: tdp.costmodel)
+from repro_torch.core import faults, fleet, health  # noqa: F401  (modules)
 from repro_torch.core.api import (  # noqa: F401
     LaunchPlan,
     WindowVmemError,
@@ -98,6 +101,9 @@ from repro_torch.core.costmodel import (  # noqa: F401
     roofline_seconds,
 )
 from repro_torch.core.execute import launch_stencil, reduce, site_kernel  # noqa: F401
+from repro_torch.core.faults import InjectedFault  # noqa: F401
+from repro_torch.core.fleet import FleetDriver, FleetProgram, Ticket  # noqa: F401
+from repro_torch.core.health import Diagnosis, HealthError, HealthPolicy  # noqa: F401
 from repro_torch.core.field import Field, field_like  # noqa: F401
 from repro_torch.core.lattice import (  # noqa: F401
     D3Q19_VELOCITIES,
@@ -115,6 +121,7 @@ from repro_torch.core.layout import (  # noqa: F401
     soa_to_aosoa,
 )
 from repro_torch.core.memory import (  # noqa: F401
+    BatchedConst,
     TargetConst,
     copy_constant_to_target,
     copy_from_target,
@@ -149,7 +156,7 @@ from repro_torch.core.registry import (  # noqa: F401
     unregister_executor,
 )
 from repro_torch.core.spec import FieldSpec, KernelSpec, field, kernel  # noqa: F401
-from repro_torch.core.state import validate_field  # noqa: F401
+from repro_torch.core.state import ProgramState, validate_field  # noqa: F401
 from repro_torch.core.target import (  # noqa: F401
     CUDA_VVLS,
     Target,
@@ -182,5 +189,8 @@ __all__ = [
     "copy_from_target", "copy_to_target_masked", "copy_from_target_masked",
     "sync_target", "target_free", "target_malloc", "target_malloc_like",
     "validate_field",
+    "ProgramState", "BatchedConst", "FleetProgram", "FleetDriver", "Ticket",
+    "HealthPolicy", "HealthError", "Diagnosis", "InjectedFault",
+    "fleet", "health", "faults",
     "LAYOUTS", "aosoa_nblocks", "aosoa_to_soa", "soa_to_aosoa",
 ]

@@ -219,6 +219,89 @@ extern "C" int host_windowed_aosoa(int site, int W, int plane_block,
                             plane_block};
   return tdp::dispatch_site_aosoa<WindowedAosoaLoop>(site, w, stream);
 }
+
+// The ensemble launchers (a fleet's stage): tdp_gathered.cu's
+// EnsembleLaunch member by member (blockIdx.y), thread by thread, and
+// tdp_windowed.cu's, whose fused runs in tiles, block by block.
+namespace {
+template <class Site, int VVL>
+struct EnsembleLoop {
+  static int run(const tdp::EnsembleIO& e, void*) {
+    if (const int rc = tdp::check_geometry(e.io, Site::RADIUS)) return rc;
+    for (int m = 0; m < e.B; ++m) {
+      const tdp::FieldIO io = tdp::member_io(e, m);
+      for (int64_t t = 0, nt = tdp::field_threads<VVL>(io); t < nt; ++t)
+        tdp::field_thread<Site, VVL>(io, t);
+    }
+    return 0;
+  }
+};
+
+struct WindowedEnsembleArgs {
+  tdp::EnsembleIO e;
+  int plane_block;
+};
+
+template <class Site, int VVL>
+struct WindowedEnsembleLoop {
+  static int run(const WindowedEnsembleArgs& a, void* stream) {
+    if (const int rc = tdp::check_geometry(a.e.io, Site::RADIUS)) return rc;
+    if constexpr (std::is_same_v<Site, tdp::FusedSite>) {
+      const int P = a.plane_block;
+      if (const int rc = tdp::check_tile(P)) return rc;
+      std::vector<float> phi(tdp::tile_smem_bytes(P) / sizeof(float));
+      for (int m = 0; m < a.e.B; ++m) {
+        const tdp::FieldIO io = tdp::member_io(a.e, m);
+        for (int64_t b = 0, nb = tdp::tile_blocks(io, P); b < nb; ++b) {
+          std::fill(phi.begin(), phi.end(), NAN);
+          for (int t = 0; t < tdp::tile_threads<VVL>(); ++t)
+            tdp::fused_tile_phi<VVL>(io, P, b, t, phi.data());
+          for (int t = 0; t < tdp::tile_threads<VVL>(); ++t)
+            tdp::fused_tile_collide<VVL>(io, P, b, t, phi.data());
+        }
+      }
+      return 0;
+    } else {
+      return EnsembleLoop<Site, VVL>::run(a.e, stream);
+    }
+  }
+};
+}  // namespace
+
+extern "C" int host_gathered_ensemble(int site, int vvl, int B, const void* const* in,
+                                      void* const* out, const long long* in_stride,
+                                      const long long* out_stride, int X, int Y, int Z,
+                                      int hx, int hy, int hz, const void* phys,
+                                      void* stream) {
+  if (const int rc = tdp::check_ensemble(B)) return rc;
+  const tdp::EnsembleIO e = tdp::make_ensemble_io(B, in, out, in_stride, out_stride, X,
+                                                  Y, Z, hx, hy, hz, phys);
+  return tdp::dispatch_site<EnsembleLoop>(site, vvl, e, stream);
+}
+
+extern "C" int host_windowed_ensemble(int site, int vvl, int plane_block, int B,
+                                      const void* const* in, void* const* out,
+                                      const long long* in_stride,
+                                      const long long* out_stride, int X, int Y, int Z,
+                                      int hx, int hy, int hz, const void* phys,
+                                      void* stream) {
+  if (const int rc = tdp::check_ensemble(B)) return rc;
+  const WindowedEnsembleArgs a{tdp::make_ensemble_io(B, in, out, in_stride, out_stride,
+                                                     X, Y, Z, hx, hy, hz, phys),
+                               plane_block};
+  return tdp::dispatch_site<WindowedEnsembleLoop>(site, vvl, a, stream);
+}
+
+// tdp_gathered.cu's tdp_phys_rows, and one make_phys row as a single launch
+// builds it from its float arguments
+extern "C" void host_phys_rows(int B, const float* consts, void* rows) {
+  tdp::make_phys_rows(B, consts, static_cast<tdp::Phys*>(rows));
+}
+
+extern "C" void host_make_phys(float A, float B, float kappa, float tau,
+                               float tau_phi, float gamma, void* row) {
+  *static_cast<tdp::Phys*>(row) = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
+}
 """
 
 
@@ -258,6 +341,20 @@ def host_lib(tmp_path_factory):
     so.host_aosoa_index.argtypes = [ctypes.c_int] * 4
     so.host_aosoa_index.restype = ctypes.c_longlong
     so.host_windowed_aosoa.restype = ctypes.c_int
+    so.host_gathered_ensemble.argtypes = ([ctypes.c_int] * 3
+                                          + [ctypes.c_void_p] * 4
+                                          + [ctypes.c_int] * 6
+                                          + [ctypes.c_void_p] * 2)
+    so.host_windowed_ensemble.argtypes = ([ctypes.c_int] * 4
+                                          + [ctypes.c_void_p] * 4
+                                          + [ctypes.c_int] * 6
+                                          + [ctypes.c_void_p] * 2)
+    so.host_gathered_ensemble.restype = ctypes.c_int
+    so.host_windowed_ensemble.restype = ctypes.c_int
+    so.host_phys_rows.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
+    so.host_phys_rows.restype = None
+    so.host_make_phys.argtypes = [ctypes.c_float] * 6 + [ctypes.c_void_p]
+    so.host_make_phys.restype = None
     return so
 
 
@@ -1115,3 +1212,184 @@ def test_example_reduce_nan_and_blocks(example_lib):
     m = re.search(r"constexpr int EX_BLOCK = (\d+);.*?EX_RED_SITES = (\d+);",
                   text, re.S)
     assert int(m.group(1)) * int(m.group(2)) == RED_BLOCK_SITES
+
+
+# ---------------------------------------------------------------------------
+# ensembles: EnsembleIO, member_io and the ensemble launchers
+# ---------------------------------------------------------------------------
+
+#: each member's (tau, tau_phi): a sweep of both, so every member's physics
+#: row differs
+ENSEMBLE_TAUS = ((0.8, 1.2), (0.9, 0.933), (1.0, 1.067))
+GAP = 13                   # floats of NaN between members
+
+
+def _member_plan(name, windowed, shape, halo, taus, vvl=1):
+    spec = tst.SPECS[name]
+    phys = dict(PHYS, tau=taus[0], tau_phi=taus[1])
+    tgt = Target("cuda_windowed" if windowed else "cuda", vvl=vvl)
+    return launch_plan(spec, tgt, lattice=Lattice(shape), halo=halo,
+                       consts=tprog.collision_consts(**phys)
+                       if spec.consts else {})
+
+
+def _ensemble_plan(name, windowed, shape, halo, vvl=1):
+    from repro_torch.core.api import Ensemble
+    spec = tst.SPECS[name]
+    plan = _plan(name, windowed, shape, halo, vvl)
+    if not spec.consts:
+        return plan.with_consts(plan.consts, ensemble=Ensemble(
+            len(ENSEMBLE_TAUS), {}))
+    taus = np.array(ENSEMBLE_TAUS, np.float32)
+    return plan.with_consts(plan.consts, ensemble=Ensemble(
+        len(taus), {"tau": taus[:, 0], "tau_phi": taus[:, 1]}))
+
+
+def _gapped(tensors):
+    """``(B, ncomp, *dims)`` views of buffers with ``GAP`` NaN floats after
+    each member, holding ``tensors`` (or NaN when ``tensors`` are shapes)."""
+    out = []
+    for t in tensors:
+        shape = tuple(t.shape) if isinstance(t, torch.Tensor) else tuple(t)
+        per = int(np.prod(shape[1:]))
+        buf = torch.full((shape[0], per + GAP), float("nan"))
+        view = buf[:, :per].view(shape)
+        if isinstance(t, torch.Tensor):
+            view.copy_(t)
+        out.append((buf, view))
+    return out
+
+
+def _ensemble_host_run(host_lib, name, windowed, shape, halo, members_xs,
+                       vvl, plane_block=tdp_windowed.DEFAULT_PLANE_BLOCK):
+    """(rc, outputs (B, ncomp, n), output buffers) of the ensemble harness;
+    operands and outputs gapped with NaN, the physics table from
+    ``tdp_pointwise.phys_table`` through the harness's make_phys_rows."""
+    from repro_torch.kernels import tdp_pointwise as tpw
+    spec = tst.SPECS[name]
+    B = len(members_xs)
+    n = int(np.prod(shape))
+    ins = [v for _, v in _gapped([torch.stack(list(xs))
+                                  for xs in zip(*members_xs)])]
+    obufs = _gapped([(B, c, n) for c in spec.out])
+    outs = [v for _, v in obufs]
+    plan = _ensemble_plan(name, windowed, shape, halo, vvl)
+    orig = tpw._phys_rows_lib
+    tpw._phys_rows_lib = lambda: host_lib.host_phys_rows
+    try:
+        table = tpw.phys_table(plan, "cpu")
+    finally:
+        tpw._phys_rows_lib = orig
+    in_arr, out_arr = pointer_arrays(ins, outs)
+    in_s, out_s = tpw.stride_arrays(ins, outs)
+    geom = ((*shape, *halo) if spec.has_stencil else (1, 1, n, 0, 0, 0))
+    site = _build.SITE_ID[name]
+    if windowed:
+        rc = host_lib.host_windowed_ensemble(site, vvl, plane_block, B,
+                                             in_arr, out_arr, in_s, out_s,
+                                             *geom, table.data_ptr(), None)
+    else:
+        rc = host_lib.host_gathered_ensemble(site, vvl, B, in_arr, out_arr,
+                                             in_s, out_s, *geom,
+                                             table.data_ptr(), None)
+    return rc, outs, [b for b, _ in obufs]
+
+
+def _check_ensemble(host_lib, name, windowed, shape, halo, seed, vvls,
+                    plane_blocks=(None,)):
+    """Each member bit-equal to the single harness at its own physics, the
+    gaps between output members untouched, each member held to its plain
+    version."""
+    spec = tst.SPECS[name]
+    B = len(ENSEMBLE_TAUS)
+    members_xs = [_fields(spec, shape, halo, seed + m) for m in range(B)]
+    for vvl in vvls:
+        for p in plane_blocks:
+            kw = {} if p is None else {"plane_block": p}
+            rc, outs, bufs = _ensemble_host_run(host_lib, name, windowed,
+                                                shape, halo, members_xs, vvl,
+                                                **kw)
+            what = f"{name} {shape} halo={halo} vvl={vvl} P={p}"
+            assert rc == 0, what
+            for b in bufs:
+                per = b.shape[1] - GAP
+                assert b[:, per:].isnan().all(), what
+            for m, xs in enumerate(members_xs):
+                taus = ENSEMBLE_TAUS[m] if spec.consts else (PHYS["tau"],
+                                                             PHYS["tau_phi"])
+                mplan = _member_plan(name, windowed, shape, halo, taus, vvl)
+                single = tuple(torch.full((c, int(np.prod(shape))),
+                                          float("nan")) for c in spec.out)
+                ins, outp = pointer_arrays(xs, single)
+                geom = ((*shape, *halo) if spec.has_stencil
+                        else (1, 1, int(np.prod(shape)), 0, 0, 0))
+                args = (*geom, *phys_args(mplan.consts), None)
+                if windowed:
+                    rc1 = host_lib.host_windowed(
+                        _build.SITE_ID[name], vvl,
+                        p or tdp_windowed.DEFAULT_PLANE_BLOCK, ins, outp,
+                        *args)
+                else:
+                    rc1 = host_lib.host_gathered(_build.SITE_ID[name], vvl,
+                                                 ins, outp, *args)
+                assert rc1 == 0
+                for got, want in zip(outs, single):
+                    assert torch.equal(got[m], want), f"{what} member {m}"
+                _assert_matches(name, tuple(o[m] for o in outs),
+                                fields_plain(mplan, xs), f"{what} member {m}")
+
+
+@pytest.mark.parametrize("name,windowed", _CASES)
+def test_ensemble_members_match_single_launches(host_lib, name, windowed):
+    """host_gathered_ensemble / host_windowed_ensemble: three members laid
+    out with NaN gaps, a distinct physics row each, every VVL — each member
+    the single harness's bits."""
+    _check_ensemble(host_lib, name, windowed, SHAPE, (0, 0, 0),
+                    _build.SITE_ID[name], VVLS,
+                    plane_blocks=(1, 3) if windowed and name == "fused"
+                    else (None,))
+
+
+@pytest.mark.parametrize("name,windowed", [("fused", True), ("fused", False),
+                                           ("fused_two", True),
+                                           ("stream", False)])
+def test_ensemble_on_ragged_tiles_and_ghost_planes(host_lib, name, windowed):
+    """A size that cuts every tile, and caller ghost planes."""
+    _check_ensemble(host_lib, name, windowed, RAGGED, (0, 0, 0), 5, (1, 4))
+    _check_ensemble(host_lib, name, windowed, RAGGED, (2, 0, 2), 6, (2,))
+
+
+def test_phys_rows_are_the_single_launchs_bits(host_lib):
+    """The table the wrapper builds for a sweep (``phys_table``, through
+    make_phys_rows) holds, row by row, the bits make_phys gives a single
+    launch from its float arguments: fcoef and g3 included."""
+    from repro_torch.core.api import Ensemble
+    from repro_torch.kernels import tdp_pointwise as tpw
+    taus = np.array([0.8, 0.933, 1.067, 1.2, 0.7001, 1.9999], np.float32)
+    plan = _plan("collide", False, SHAPE, (0, 0, 0))
+    plan = plan.with_consts(plan.consts, ensemble=Ensemble(
+        len(taus), {"tau": taus[::-1].copy(), "tau_phi": taus}))
+    orig = tpw._phys_rows_lib
+    tpw._phys_rows_lib = lambda: host_lib.host_phys_rows
+    try:
+        table = tpw.phys_table(plan, "cpu")
+        assert tpw.phys_table(plan, "cpu") is table   # cached by content
+    finally:
+        tpw._phys_rows_lib = orig
+    for m in range(len(taus)):
+        row = np.empty(8, np.float32)
+        host_lib.host_make_phys(*phys_args(plan.member_plan(m).consts),
+                                row.ctypes.data)
+        assert table[m].numpy().tobytes() == row.tobytes(), m
+
+
+def test_ensemble_codes(host_lib):
+    null = (ctypes.c_void_p * 5)()
+    outs = (ctypes.c_void_p * 2)()
+    strides = (ctypes.c_longlong * 5)()
+    for B in (0, 65536):
+        rc = host_lib.host_gathered_ensemble(0, 1, B, null, outs, strides,
+                                             strides, *SHAPE, 0, 0, 0, None,
+                                             None)
+        assert rc == -9
+    assert "65535" in _build._ERRORS[-9]

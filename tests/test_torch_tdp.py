@@ -44,10 +44,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 BACKENDS = ("torch", "cuda")          # "cuda" on CPU tensors: the plain body
 VVLS = (1, 2, 4, 8)
 
-#: names of the reference's surface that wait for a later slice (ROADMAP A4-A5)
-NOT_PORTED = ("fleet", "FleetProgram", "FleetDriver", "Ticket", "health",
-              "faults", "HealthPolicy", "HealthError", "Diagnosis",
-              "InjectedFault", "ProgramState", "BatchedConst")
+#: the reference's ensemble and resilience names (ROADMAP A5, the last of
+#: its surface to be ported)
+FLEET_NAMES = ("fleet", "FleetProgram", "FleetDriver", "Ticket", "health",
+               "faults", "HealthPolicy", "HealthError", "Diagnosis",
+               "InjectedFault", "ProgramState", "BatchedConst")
 
 
 @jcore.site_kernel
@@ -717,10 +718,12 @@ class TestSurface:
     def test_exports_and_what_waits(self):
         for name in tdp.__all__:
             assert hasattr(tdp, name), name
-        for name in NOT_PORTED:
-            assert not hasattr(tdp, name), name
-            assert name in tdp.__doc__, name
-        missing = set(jtdp.__all__) - set(tdp.__all__) - set(NOT_PORTED)
+        for name in FLEET_NAMES:
+            assert name in tdp.__all__ and name in tdp.__doc__, name
+        for mod in ("fleet", "health", "faults"):
+            assert getattr(tdp, mod).__name__ == f"repro_torch.core.{mod}"
+        assert "Not ported yet" not in tdp.__doc__
+        missing = set(jtdp.__all__) - set(tdp.__all__)
         assert missing == {"xla_executor"}
         # the plane_block axis of a windowed launch: the divisors of its
         # x-plane count, the reference's candidates where both tiles fit
@@ -740,8 +743,10 @@ class TestSurface:
 
     def test_core_exports_the_references_names(self):
         from repro_torch import core
-        missing = set(jcore.__all__) - set(core.__all__) - set(NOT_PORTED)
+        missing = set(jcore.__all__) - set(core.__all__)
         assert missing == set(), missing
+        for name in FLEET_NAMES:
+            assert getattr(core, name) is getattr(tdp, name), name
         assert core.tdp_launch is tdp.launch
         assert core.plane_block_candidates is tdp.plane_block_candidates
         for name in ("exchange_ghosts", "exchange_stats"):
@@ -758,6 +763,7 @@ class TestSurface:
                 "from repro_torch import tdp; import repro_torch.core.memory; "
                 "import repro_torch.examples.quickstart, "
                 "repro_torch.examples.lb_spinodal, repro_torch.lb.baseline, "
+                "repro_torch.examples.lb_fleet, repro_torch.checkpoint, "
                 "repro_torch.configs.ludwig_lb, "
                 "repro_torch.kernels.example_sites; "
                 "assert sys.modules.get('jax') is None, 'jax imported'; "
