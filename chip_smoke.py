@@ -151,16 +151,43 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    bit-equal to an uninterrupted run; a snapshot's seconds); a row per
    ensemble entry at 64 × 32³ (printed as one ``{"fleet": ...}`` line).
 
+9. training (``training_phase``): the four kernel ``Function``s of
+   ``kernels/ops.py`` (``_RMSNormFn``, ``_GatedActFn``, ``_FlashFn``,
+   ``_MambaScanFn``) at the training path's full-width shapes
+   (``TRAIN_GRAD_SHAPES``), each output and every input's gradient held to
+   the plain version's at ``LM_TOL``, kernel 4's log-sum-exp to the plain
+   ``logsumexp`` (and its output with the store bit-equal to the one
+   without), each timed forward, forward + backward and plain; gemma2-2b
+   at full width and depth through ``launch.train`` (``TRAIN_ARGS``: 6
+   steps of 8 × 256 tokens in two microbatches on the ``"cuda"`` context),
+   the loss falling (the mean of the last 3 steps below that of the first
+   3, as the reference's trainer test holds it), then one more step under ``torch.profiler`` (device
+   ms by the port's kernels, matrix products and the rest; the share in
+   the plain backward passes), then the same first step on the plain
+   path (``--backend torch``), one after the other, step 1's loss, global
+   gradient norm and worst leaf's gradient norm held at ``TRAIN_TOL``; a resume (gemma2's smoke config on
+   the kernels: 3 steps, a checkpoint, a fresh trainer runs to 6) held bit
+   for bit to 6 uninterrupted steps; falcon-mamba-7b at full width cut to
+   ``FALCON_LAYERS`` layers, 3 steps, step 1 held to the plain path; step
+   ms, tokens/s and peak memory (printed as one ``{"training": ...}``
+   line); each path counted, the kernel rows of the kernels line naming
+   their ``Function`` and carrying its checks and times.  ``python3
+   chip_smoke.py --only training`` runs phases 1, 2 and 9 alone (no
+   kernels line).
+
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
 Long output goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
+import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -381,6 +408,65 @@ ATTN_VIEW_CASES = [(2, 8, 4, 300, 300, 256, True, 100, 50.0),
 EARLIER_LM_MS = {"flash_attention.local": 8.664, "flash_attention.attn": 8.786,
                  "flash_attention.causal": 8.614,
                  "tdp_gathered.mamba": 2 * 4.768}
+
+
+#: Phase 9, training.  The kernel Functions' gradients are checked at the
+#: training path's full-width shapes: rmsnorm at a microbatch's 1024 tokens
+#: of gemma2-2b (d 2304) and falcon-mamba-7b (d 4096), GeGLU at gemma2's
+#: FFN width, flash at a microbatch of 4 × 256 tokens (Dh 256, GQA 8/4),
+#: the mamba scan at falcon-mamba-7b's d_inner and d_state.
+TRAIN_GRAD_SHAPES = {"rmsnorm": [(1024, 2304), (1024, 4096)],
+                     "gated": (1024, 9216),
+                     "flash_attention": (4, 8, 4, 256, 256),
+                     "mamba": (4, 256, 8192, 16)}
+#: CUDA-event repetitions of each Function's timings
+GRAD_REPS = 10
+#: gemma2-2b's run through launch.train: 8 × 256 tokens a step in two
+#: microbatches, a warmup of 2 steps (the default 50 would keep the rate near
+#: 0 over a 6-step run), no checkpoint (one would be 31 GB), every step
+#: logged.
+TRAIN_WARMUP = 2
+TRAIN_ARGS = ["--arch", "gemma2-2b", "--seq-len", "256", "--global-batch",
+              "8", "--grad-accum", "2", "--warmup", str(TRAIN_WARMUP),
+              "--ckpt-every", "0", "--log-every", "1"]
+TRAIN_STEPS = 6
+#: Step 1 on the kernels against step 1 on the plain path (backend "torch")
+#: on the card, same weights and batch, relative: the loss (one float32
+#: reduction after 26 layers, each kernel within LM_TOL of its plain
+#: twin), the global gradient norm (the norm of 2.6e9 gradients through
+#: the same layers' backward passes) and, leaf by leaf, each parameter's
+#: gradient norm (the worst leaf is held: a wrong gradient on a few small
+#: leaves barely moves the global norm).  Set from gemma2-2b's readings
+#: (7.4e-8, 3.4e-6 and 5.2e-6 on an H100 80GB HBM3 at 700 W) with room of
+#: about 15×.
+TRAIN_TOL = {"loss": 1e-6, "grad_norm": 5e-5, "leaf_grad_norm": 8e-5}
+#: the resume check (gemma2's smoke config: a full-width checkpoint would
+#: be 31 GB): a checkpoint at step 3, a fresh trainer runs to 6
+RESUME_STEPS = (3, 6)
+#: falcon-mamba-7b at full width, cut to 4 of its 64 layers (0.95e9
+#: parameters; the whole model's weights, gradients and moments would be
+#: 116 GB)
+FALCON_LAYERS, FALCON_STEPS = 4, 3
+#: the kernels each training path launches, and how often a layer's
+#: forward does (two norms, one MLP, one attention; one norm, one scan)
+TRAIN_NEEDS = {"gemma2-2b": {("tdp_gathered", "rmsnorm"): 2,
+                             ("tdp_gathered", "gated"): 1,
+                             ("flash_attention", "flash_attention"): 1},
+               "falcon-mamba-7b": {("tdp_gathered", "rmsnorm"): 1,
+                                   ("tdp_gathered", "mamba"): 1}}
+#: the port's kernels by name in a profiler trace, and what else counts as
+#: a matrix product (cuBLAS / CUTLASS kernel names)
+TRAIN_KERNEL_NAMES = {"rmsnorm": ("rms_tiled_kernel", "rms_few_kernel"),
+                      "gated": ("ew_kernel",), "mamba": ("mamba_kernel",),
+                      "flash_attention": ("flash_fwd_kernel",)}
+GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma")
+#: the autograd nodes of the four kernel Functions (their plain backward)
+BACKWARD_NODES = ("_RMSNormFnBackward", "_GatedActFnBackward",
+                  "_MambaScanFnBackward", "_FlashFnBackward")
+#: the Function each LM kernel row runs under when a gradient is wanted
+ROW_FUNCTIONS = {"rmsnorm": "_RMSNormFn", "gated": "_GatedActFn",
+                 "act": "_GatedActFn", "mamba": "_MambaScanFn",
+                 "flash_attention": "_FlashFn"}
 
 
 def log(msg: str) -> None:
@@ -2484,7 +2570,439 @@ def fleet_phase(drive, by_path, make_inputs, prepare, lb_plan, lb_cases,
     return rows, out
 
 
-def main() -> int:
+def train_run(argv, drive, path):
+    """``launch.train``'s run (the function its ``main`` calls) as one
+    counted path; returns (trainer, history, peak device GB)."""
+    from repro_torch.launch import train as train_mod
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, hist = drive(path, lambda: train_mod.train(
+        train_mod.parse_args(argv)))
+    return trainer, hist, torch.cuda.max_memory_allocated() / 1e9
+
+
+def profile_train_step(trainer) -> dict:
+    """One more training step under ``torch.profiler``: device ms by the
+    port's kernels, matrix products and the rest, and the share of the
+    step's device time inside the four ``Function``s' plain backward
+    passes (the device time of their autograd nodes' subtrees)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_steps(1)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    split = {k: 0.0 for k in ("rmsnorm", "gated", "mamba", "flash_attention",
+                              "gemm", "rest")}
+    for name, us in by_name.items():
+        split[next((k for k, ks in TRAIN_KERNEL_NAMES.items()
+                    if any(s in name for s in ks)),
+                   "gemm" if any(s in name.lower() for s in GEMM_NAMES)
+                   else "rest")] += us
+    busy = sum(by_name.values())
+    bwd_nodes = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CPU
+                 and any(e.name.endswith(f) for f in BACKWARD_NODES)]
+    # count each node's subtree once: skip nodes inside another one
+    ids = {id(e) for e in bwd_nodes}
+
+    def nested(e):
+        p = e.cpu_parent
+        while p is not None:
+            if id(p) in ids:
+                return True
+            p = p.cpu_parent
+        return False
+    bwd_us = {f: 0.0 for f in BACKWARD_NODES}
+    for e in bwd_nodes:
+        if not nested(e):
+            f = next(f for f in BACKWARD_NODES if e.name.endswith(f))
+            bwd_us[f] += e.device_time_total
+    return {"device_ms": busy / 1e3,
+            "device_ms_by_part": {k: v / 1e3 for k, v in split.items()},
+            "plain_backward_ms": {k: v / 1e3 for k, v in bwd_us.items()},
+            "plain_backward_share": (sum(bwd_us.values()) / busy
+                                     if busy else None),
+            "kernels_traced": len(kernels),
+            "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:15]}}
+
+
+def grad_check(name, kernel_fn, plain_fn, inputs, problems, *, extra=None):
+    """One kernel ``Function`` at a training shape: its output and the
+    gradients of every input through it against the plain version's
+    (``LM_TOL``), then timed: the kernel's forward alone, forward +
+    backward through the ``Function``, and the plain version's forward +
+    backward (CUDA events, median of ``GRAD_REPS``)."""
+    g = torch.Generator(device=inputs[0].device).manual_seed(17)
+    out_k, out_p = kernel_fn(*inputs), plain_fn(*inputs)
+    if out_k.grad_fn is None:
+        problems.append(f"phase 9 {name}: the kernel output has no grad_fn")
+    dy = torch.randn(out_p.shape, device=out_p.device, generator=g)
+    gk = torch.autograd.grad(out_k, inputs, dy)
+    gp = torch.autograd.grad(out_p, inputs, dy)
+    torch.cuda.synchronize()
+    out_err = max_abs((out_k.detach(),), (out_p.detach(),))
+    grad_err = max_abs(gk, gp)
+    ok = all(torch.isfinite(a).all() and torch.allclose(a, b, **LM_TOL)
+             for a, b in zip((out_k.detach(), *gk), (out_p.detach(), *gp)))
+    if not ok:
+        problems.append(f"phase 9 {name}: max |kernel - plain| output "
+                        f"{out_err}, gradients {grad_err}")
+    del out_k, out_p, gk, gp
+    plain_in = [x.detach() for x in inputs]
+    fwd_ms = time_ms(lambda: kernel_fn(*plain_in), reps=GRAD_REPS)
+    fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        kernel_fn(*inputs), inputs, dy), reps=GRAD_REPS)
+    plain_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        plain_fn(*inputs), inputs, dy), reps=GRAD_REPS)
+    res = {"shape": [list(x.shape) for x in inputs], "output_max_abs_err":
+           out_err, "grad_max_abs_err": grad_err, "fwd_ms": fwd_ms,
+           "fwd_bwd_ms": fwd_bwd_ms, "bwd_ms": fwd_bwd_ms - fwd_ms,
+           "plain_fwd_bwd_ms": plain_fwd_bwd_ms, **(extra or {})}
+    log(f"phase 9: {name} {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def training_grad_checks(problems, device="cuda") -> dict:
+    """The four kernel ``Function``s at the training path's full-width
+    shapes (``TRAIN_GRAD_SHAPES``), and kernel 4's log-sum-exp against the
+    plain ``logsumexp``."""
+    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.models.ssm import _chunked_scan
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def leaf(*shape, scale=1.0):
+        return (scale * torch.randn(shape, device=dev, generator=g)
+                ).requires_grad_()
+    out = {}
+    for tokens, d in TRAIN_GRAD_SHAPES["rmsnorm"]:
+        x, w = leaf(tokens, d), leaf(d, scale=0.1)
+        out[f"rmsnorm ({tokens}, {d})"] = grad_check(
+            f"_RMSNormFn ({tokens}, {d})",
+            lambda x, w: ops.rmsnorm(x, w, target="cuda", scale_offset=1.0,
+                                     device=dev),
+            lambda x, w: ref.rmsnorm_ref(x, w, scale_offset=1.0), [x, w],
+            problems)
+    tokens, f = TRAIN_GRAD_SHAPES["gated"]
+    u, v = leaf(tokens, f), leaf(tokens, f)
+    out[f"gated geglu ({tokens}, {f})"] = grad_check(
+        f"_GatedActFn geglu ({tokens}, {f})",
+        lambda u, v: ops.gated_act(u, v, kind="geglu", target="cuda",
+                                   device=dev),
+        lambda u, v: ref.gated_act_ref(u, v, kind="geglu"), [u, v], problems)
+    del x, w, u, v
+    b, hq, hkv, s, dh = TRAIN_GRAD_SHAPES["flash_attention"]
+    q, k, v = leaf(b, hq, s, dh), leaf(b, hkv, s, dh), leaf(b, hkv, s, dh)
+    for variant, window in (("local", 4096), ("attn", 0)):
+        kw = dict(causal=True, window=window, softcap=50.0)
+        o, lse = flash_attention.flash_attention(
+            q.detach(), k.detach(), v.detach(), return_lse=True, **kw)
+        _, want = ref.attention_ref(q.detach(), k.detach(), v.detach(),
+                                    return_lse=True, **kw)
+        lse_err = float((lse - want).abs().max())
+        if not torch.allclose(lse, want, **LM_TOL):
+            problems.append(f"phase 9 flash {variant}: lse differs by "
+                            f"{lse_err}")
+        o2 = flash_attention.flash_attention(q.detach(), k.detach(),
+                                             v.detach(), **kw)
+        if not torch.equal(o, o2):
+            problems.append(f"phase 9 flash {variant}: the output with the "
+                            f"lse store differs from the one without")
+        plain_in = [q.detach(), k.detach(), v.detach()]
+        lse_ms = time_ms(lambda kw=kw: flash_attention.flash_attention(
+            *plain_in, return_lse=True, **kw), reps=GRAD_REPS)
+        out[f"flash_attention {variant} {[b, hq, hkv, s, dh]}"] = grad_check(
+            f"_FlashFn {variant}",
+            lambda q, k, v, kw=kw: ops.flash_attention(
+                q, k, v, target="cuda", device=dev, **kw),
+            lambda q, k, v, kw=kw: ref.attention_ref(q, k, v, **kw),
+            [q, k, v], problems,
+            extra={"lse_max_abs_err": lse_err, "fwd_lse_ms": lse_ms})
+        del o, o2, lse, want
+    del q, k, v
+    bsz, length, di, n = TRAIN_GRAD_SHAPES["mamba"]
+    x = leaf(bsz, length, di)
+    dt = torch.nn.functional.softplus(
+        torch.randn(bsz, length, di, device=dev, generator=g) - 2.0
+    ).requires_grad_()
+    bm, cm = leaf(bsz, length, n), leaf(bsz, length, n)
+    a = (-torch.exp(0.5 * torch.randn(di, n, device=dev, generator=g))
+         ).requires_grad_()
+    dsk = leaf(di)
+    out[f"mamba ({bsz}, {length}, {di}, {n})"] = grad_check(
+        "_MambaScanFn",
+        lambda *xs: ops.mamba_scan(*xs, target="cuda", device=dev,
+                                   chunk=128)[0],
+        lambda *xs: _chunked_scan(*xs, chunk=128)[0],
+        [x, dt, bm, cm, a, dsk], problems)
+    return out
+
+
+def train_cfg_cut(arch: str, n_layers: int):
+    """``arch`` at full width with its first ``n_layers`` layers."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               layer_program=cfg.layer_program[:n_layers])
+
+
+def trainer_for(cfg, backend, ckpt_dir, steps, *, ckpt_every=0, seq_len=256,
+                batch=8, accum=2, device="cuda"):
+    """A ``Trainer`` the way ``launch.train`` builds one (its flags'
+    defaults, ``TRAIN_WARMUP``), for a config the CLI cannot name."""
+    from repro_torch.data import SyntheticConfig
+    from repro_torch.models.context import ExecContext
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig, TrainHParams
+    return Trainer(
+        cfg, None, SyntheticConfig(cfg.vocab_size, seq_len, batch, seed=0),
+        AdamWConfig(), TrainHParams(warmup_steps=TRAIN_WARMUP,
+                                    total_steps=steps, grad_accum=accum),
+        TrainerConfig(ckpt_dir=str(ckpt_dir), ckpt_every=ckpt_every,
+                      log_every=1, log=log),
+        ctx=ExecContext(backend=backend, remat="block"), device=device)
+
+
+def leaf_names(tree, prefix="") -> list[str]:
+    """The paths of ``tree``'s leaves, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k],
+                                                            f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+@contextlib.contextmanager
+def first_step_leaf_norms():
+    """Yields a dict that gets, on the host, the name and norm of every
+    gradient leaf the first train step inside the block hands to AdamW
+    (``runtime.steps`` looks ``adamw_update`` up at each step): a run keeps
+    no gradients, and two full-width runs do not fit on the card
+    together."""
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime import steps
+    adamw_update, store = steps.adamw_update, {}
+
+    def update(params, grads, state, cfg, **kw):
+        if not store:
+            store["names"] = leaf_names(grads)
+            store["norms"] = torch.stack([
+                torch.linalg.vector_norm(g.float())
+                for g in tree_leaves(grads)]).tolist()
+        return adamw_update(params, grads, state, cfg, **kw)
+    steps.adamw_update = update
+    try:
+        yield store
+    finally:
+        steps.adamw_update = adamw_update
+
+
+def hold_to_oracle(what, kern_hist, plain_hist, kern_leaves, plain_leaves,
+                   problems) -> dict:
+    """Step 1 on the kernels against the plain path at ``TRAIN_TOL``: the
+    loss, the global gradient norm and the worst leaf's gradient norm."""
+    k, p = kern_hist[0], plain_hist[0]
+    res = {key: {"kernels": k[key], "plain": p[key],
+                 "rel_diff": abs(k[key] - p[key]) / abs(p[key])}
+           for key in ("loss", "grad_norm")}
+    if kern_leaves["names"] != plain_leaves["names"]:
+        problems.append(f"phase 9 {what}: the two runs' gradient trees "
+                        f"differ")
+        return res
+    rel = [abs(a - b) / b if b else abs(a)
+           for a, b in zip(kern_leaves["norms"], plain_leaves["norms"])]
+    worst = int(np.argmax(rel))
+    res["leaf_grad_norm"] = {
+        "leaves": len(rel), "worst_leaf": kern_leaves["names"][worst],
+        "kernels": kern_leaves["norms"][worst],
+        "plain": plain_leaves["norms"][worst], "rel_diff": rel[worst],
+        "rel_diff_median": float(np.median(rel))}
+    finite = all(math.isfinite(x) for x in
+                 (k["loss"], k["grad_norm"], *kern_leaves["norms"]))
+    for key, rtol in TRAIN_TOL.items():
+        if not (finite and res[key]["rel_diff"] <= rtol):
+            problems.append(f"phase 9 {what}: step-1 {key} "
+                            f"{res[key]['kernels']} on the kernels, "
+                            f"{res[key]['plain']} on the plain path (rtol "
+                            f"{rtol})")
+    return res
+
+
+def training_phase(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 9: training on the card (see the module docstring)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {"tolerance": {"grads": LM_TOL, "step1_vs_plain": TRAIN_TOL}}
+    out["functions"] = training_grad_checks(problems, device)
+
+    # gemma2-2b at full width and depth through launch.train, then the
+    # same first step on the plain path, one after the other
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = TRAIN_ARGS + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", tmp,
+                         "--device", device]
+    path = f"gemma2-2b train {TRAIN_STEPS} steps (cuda)"
+    with first_step_leaf_norms() as leaves:
+        trainer, hist, peak_gb = train_run(argv, drive, path)
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    tokens = trainer.data_cfg.global_batch * trainer.data_cfg.seq_len
+    gemma = {"params": trainer.cfg.num_params(), "steps": len(hist),
+             "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+             "step_ms": [h["ms"] for h in hist],
+             "step_ms_median_2_to_6": step_ms,
+             "tokens_per_s": tokens / step_ms * 1e3,
+             "peak_memory_gb": peak_gb, "launches": {
+                 f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    half = TRAIN_STEPS // 2
+    if len(hist) != TRAIN_STEPS or not (np.mean(losses[half:])
+                                        < np.mean(losses[:half])):
+        problems.append(f"phase 9 gemma2-2b: the loss did not fall over "
+                        f"{TRAIN_STEPS} steps (mean of the last {half} "
+                        f"against the first {half}): {losses}")
+    gemma_layers = trainer.cfg.n_layers
+    gemma["profile"] = profile_train_step(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    plain_path = "gemma2-2b train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves:
+        _, plain_hist, plain_gb = train_run(
+            TRAIN_ARGS + ["--steps", "1", "--backend", "torch", "--ckpt-dir",
+                          tmp + "_plain", "--device", device], drive,
+            plain_path)
+    gemma["plain_step1_ms"] = plain_hist[0]["ms"]
+    gemma["plain_peak_memory_gb"] = plain_gb
+    gemma["step1_vs_plain"] = hold_to_oracle("gemma2-2b", hist, plain_hist,
+                                             leaves, plain_leaves, problems)
+    out["gemma2-2b"] = gemma
+    torch.cuda.empty_cache()
+
+    # resume from a checkpoint: 3 steps, a fresh trainer on the directory
+    # runs to 6; against 6 uninterrupted steps at the same seed
+    from repro_torch import configs
+    small = configs.get_smoke("gemma2-2b")
+    a = trainer_for(small, "cuda", tmp + "_ab", RESUME_STEPS[1],
+                    ckpt_every=RESUME_STEPS[0], seq_len=64, device=device)
+    drive("gemma2 smoke train 3 steps (cuda)",
+          lambda: a.train_steps(RESUME_STEPS[0]))
+    a.ckpt.wait()
+    b = trainer_for(small, "cuda", tmp + "_ab", RESUME_STEPS[1],
+                    ckpt_every=RESUME_STEPS[0], seq_len=64, device=device)
+    drive("gemma2 smoke resume to 6 (cuda)", lambda: b.run(RESUME_STEPS[1]))
+    ref_run = trainer_for(small, "cuda", tmp + "_ref", RESUME_STEPS[1],
+                          ckpt_every=RESUME_STEPS[0], seq_len=64,
+                          device=device)
+    drive("gemma2 smoke train 6 steps (cuda)",
+          lambda: ref_run.run(RESUME_STEPS[1]))
+    from repro_torch.optim.tree import tree_leaves
+    diffs = [float((x - y).detach().abs().max()) for x, y in
+             zip(tree_leaves(ref_run.params), tree_leaves(b.params))]
+    out["resume"] = {"config": small.name, "steps": list(RESUME_STEPS),
+                     "restored_step": RESUME_STEPS[0],
+                     "final_step": b.step, "params_max_abs_diff": max(diffs),
+                     "bit_equal": max(diffs) == 0.0}
+    if b.step != RESUME_STEPS[1] or max(diffs) != 0.0:
+        problems.append(f"phase 9 resume: step {b.step}, parameters differ "
+                        f"from the uninterrupted run by {max(diffs)}")
+    del a, b, ref_run
+    torch.cuda.empty_cache()
+
+    # falcon-mamba-7b at full width, FALCON_LAYERS layers
+    fcfg = train_cfg_cut("falcon-mamba-7b", FALCON_LAYERS)
+    fpath = f"falcon-mamba-7b x{FALCON_LAYERS} train {FALCON_STEPS} steps (cuda)"
+    torch.cuda.reset_peak_memory_stats()
+    ft = trainer_for(fcfg, "cuda", tmp + "_fm", FALCON_STEPS, device=device)
+    with first_step_leaf_norms() as fleaves:
+        fhist = drive(fpath, lambda: ft.run(FALCON_STEPS))
+    falcon = {"layers": FALCON_LAYERS, "params": fcfg.num_params(),
+              "losses": [h["loss"] for h in fhist],
+              "grad_norms": [h["grad_norm"] for h in fhist],
+              "step_ms": [h["ms"] for h in fhist],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": {f"{k}.{s}": n
+                           for (k, s), n in by_path[fpath].items()}}
+    del ft
+    torch.cuda.empty_cache()
+    fp = trainer_for(fcfg, "torch", tmp + "_fm_plain", 1, device=device)
+    with first_step_leaf_norms() as fplain_leaves:
+        fplain = drive(f"falcon-mamba-7b x{FALCON_LAYERS} train step 1 "
+                       f"(torch)", lambda: fp.run(1))
+    falcon["step1_vs_plain"] = hold_to_oracle(
+        "falcon-mamba-7b", fhist, fplain, fleaves, fplain_leaves, problems)
+    del fp
+    torch.cuda.empty_cache()
+    out["falcon-mamba-7b"] = falcon
+
+    # every kernel of the path ran, as often as the forward and its remat
+    # recompute call it (each layer twice a microbatch, the final norm
+    # once); none on the plain path
+    for p, arch, steps, n_layers in (
+            (path, "gemma2-2b", TRAIN_STEPS, gemma_layers),
+            (fpath, "falcon-mamba-7b", FALCON_STEPS, FALCON_LAYERS)):
+        micro = steps * 2                              # --grad-accum 2
+        want = {e: micro * (2 * n * n_layers + (e[1] == "rmsnorm"))
+                for e, n in TRAIN_NEEDS[arch].items()}
+        if by_path[p] != want:
+            problems.append(f"phase 9 {p}: launches {by_path[p]}, expected "
+                            f"{want}")
+    for p in (plain_path,
+              f"falcon-mamba-7b x{FALCON_LAYERS} train step 1 (torch)"):
+        if by_path[p]:
+            problems.append(f"phase 9 {p}: the plain path launched "
+                            f"{by_path[p]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    for suffix in ("_plain", "_ab", "_ref", "_fm", "_fm_plain"):
+        shutil.rmtree(tmp + suffix, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 9: training {out['phase_s']:.1f} s")
+    return out
+
+
+def merge_training_launches(rows, by_path, training: dict) -> None:
+    """Add phase 9's paths to the LM kernel rows: their launches, the
+    Function each runs under, and the Function's checks and times."""
+    paths = [p for p in by_path if " train " in p or " resume " in p]
+    fn_results = training["functions"]
+    for row in rows:
+        kernel, _, rest = row["name"].partition(".")
+        site, _, variant = rest.partition(".")
+        key = (("flash_attention", "flash_attention")
+               if kernel == "flash_attention" else (kernel, site))
+        if kernel not in ("tdp_gathered", "flash_attention") or (
+                key[1] not in ROW_FUNCTIONS):
+            continue
+        row["function"] = ROW_FUNCTIONS[key[1]]
+        for p in paths:
+            n = by_path[p].get(key, 0)
+            if n:
+                row["launches"] += n
+                row["launches_by_path"][p] = n
+        # the Function's checks and times at the training shapes: on the
+        # site's first row, and on flash's local and global rows
+        prefix = (f"flash_attention {site} " if kernel == "flash_attention"
+                  else None if variant or site == "act" else site)
+        if prefix:
+            row["training"] = {k: v for k, v in fn_results.items()
+                               if k.startswith(prefix)}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("training",), default=None,
+                    help="run phases 1, 2 and this phase only (a partial "
+                         "run: no kernels line)")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
         return 1
@@ -2620,6 +3138,32 @@ def main() -> int:
             out[vvl] = time_ms(lambda p=p: tdp_pointwise.cuda_execute(p, xs))
         return out
 
+    by_path: dict = {}
+    all_entries = list(entries()) + lm_entries + cal_entries + ex_entries
+
+    def drive(path, fn):
+        """Run one path of the main path with every launch counter set to
+        0 just before and read just after."""
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[path] = {(k, s): counters[k][s]
+                         for k, s in all_entries + aosoa_entries + ens_entries
+                         if counters[k][s]}
+        return out
+
+    if only == "training":
+        training = training_phase(drive, by_path, problems)
+        print(json.dumps({"training": training}, default=str), flush=True)
+        (OUT_DIR / "chip_smoke_training.json").write_text(
+            json.dumps(training, indent=1, default=str))
+        for p in problems:
+            log(f"FAIL: {p}")
+        print(json.dumps({"ok": not problems, "only": only}), flush=True)
+        return 1 if problems else 0
+
     # -- 3. kernels against plain versions ----------------------------------
     max_err: dict = {}
     for kernel, site in entries():
@@ -2665,21 +3209,6 @@ def main() -> int:
             for r in (False, "one_launch", "two_launch")}
     st0 = sims[False].init_spinodal(seed=0, noise=0.05)
     obs0 = sims[False].observables(st0)
-    by_path: dict = {}
-    all_entries = list(entries()) + lm_entries + cal_entries + ex_entries
-
-    def drive(path, fn):
-        """Run one path of the main path with every launch counter set to
-        0 just before and read just after."""
-        for c in counters.values():
-            for k in c:
-                c[k] = 0
-        out = fn()
-        torch.cuda.synchronize()
-        by_path[path] = {(k, s): counters[k][s]
-                         for k, s in all_entries + aosoa_entries + ens_entries
-                         if counters[k][s]}
-        return out
 
     finals = {regime: drive(f"BinaryFluidSim fused={regime}",
                             lambda sim=sim: sim.run(st0, STEPS))
@@ -3063,6 +3592,19 @@ def main() -> int:
     print(json.dumps({"fleet": {k: record["fleet"][k] for k in (
         "phase_s", "bits", "throughput", "driver")}}, default=str),
         flush=True)
+
+    # -- 9. training -------------------------------------------------------------
+    record["training"] = training_phase(drive, by_path, problems)
+    merge_training_launches(rows, by_path, record["training"])
+    tr = record["training"]
+    print(json.dumps({"training": {
+        "phase_s": tr["phase_s"], "gemma2-2b": {k: v for k, v in tr[
+            "gemma2-2b"].items() if k != "profile"},
+        "gemma2-2b_profile": {k: tr["gemma2-2b"]["profile"][k] for k in (
+            "device_ms", "device_ms_by_part", "plain_backward_ms",
+            "plain_backward_share")},
+        "resume": tr["resume"], "falcon-mamba-7b": tr["falcon-mamba-7b"]}},
+        default=str), flush=True)
     record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))
@@ -3079,4 +3621,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

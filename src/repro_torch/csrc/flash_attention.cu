@@ -44,6 +44,10 @@
 // variants point at latency (~0.2 instructions a cycle a scheduler) as
 // what holds it there, not L2 or the masks (PERF.md §7).
 //
+// For the backward pass the kernel can also store each row's log-sum-exp,
+// m + log(l) from the running max and sum it holds at the end (one store a
+// row; a null pointer skips it, so serving does not pay for it).
+//
 // Each operand is addressed by (batch, head, row) strides in floats with
 // rows of Dh contiguous floats, 16-byte aligned, so the model's (B, S, H, Dh)
 // projections come in as transposed views, and o goes out in q's layout.
@@ -71,6 +75,7 @@ struct AttnIO {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // (B, Hq, Sq) contiguous, or null: no store
   int64_t sq[3], sk[3], sv[3], so[3];  // (batch, head, row) strides, floats
   int B, Hq, Hkv, Sq, Sk;
   Params p;
@@ -253,6 +258,15 @@ __global__ void __launch_bounds__(kThreads)
       if (q < io.Sq)
         store_o_row<T::NP, T::NT, T::W>(og + (int64_t)q * io.so[2], lane, o, nr, e, rs);
     }
+  // the quad of lanes 4·grp .. 4·grp + 3 holds the state of rows grp and
+  // grp + 8 (st[0], st[1]); its first lane stores their log-sum-exp
+  if (io.lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int nr = 0; nr < 2; ++nr) {
+      const int q = q0 + r0 + (lane >> 2) + 8 * nr;
+      if (q < io.Sq) io.lse[(int64_t)bh * io.Sq + q] = row_lse(st[nr]);
+    }
+  }
 }
 
 template <int DH>
@@ -274,10 +288,12 @@ int launch(const AttnIO& io, void* stream) {
 // q (B, Hq, Sq, Dh), k/v (B, Hkv, Sk, Dh), o (B, Hq, Sq, Dh): device pointers,
 // float32; strides[12] the (batch, head, row) strides of q, k, v and o in
 // floats, each a multiple of 4, rows of Dh contiguous floats, every pointer
-// 16-byte aligned.  Returns 0, a cudaError_t, ERR_BAD_HEAD_DIM (Dh not in
-// {16, 32, 64, 128, 256}) or ERR_BAD_GROUP (Hq not a multiple of Hkv).
+// 16-byte aligned.  lse: null, or a contiguous (B, Hq, Sq) float32 array
+// that receives each row's log-sum-exp (row_lse).  Returns 0, a
+// cudaError_t, ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 128, 256}) or
+// ERR_BAD_GROUP (Hq not a multiple of Hkv).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, const long long* strides, int B,
+                                      void* o, void* lse, const long long* strides, int B,
                                       int Hq, int Hkv, int Sq, int Sk, int Dh,
                                       float scale, float softcap, int causal,
                                       int window, void* stream) {
@@ -287,6 +303,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   io.k = static_cast<const float*>(k);
   io.v = static_cast<const float*>(v);
   io.o = static_cast<float*>(o);
+  io.lse = static_cast<float*>(lse);
   for (int i = 0; i < 3; ++i) {
     io.sq[i] = strides[i];
     io.sk[i] = strides[3 + i];

@@ -13,7 +13,8 @@
 //   p_j   = live_j ? exp(s_j - m') : 0   row_weight
 //   l'    = l*a + sum_j p_j              row_sum
 //   acc'  = acc*a + sum_j p_j v_j        (the caller's accumulator)
-// and at the end out = acc / l, or 0 for a row with no live key (row_out).
+// and at the end out = acc / l, or 0 for a row with no live key (row_out),
+// and the row's log-sum-exp m + log(l) (row_lse).
 // The softcap comes before the mask, as in the reference; masked keys never
 // enter the max, so a row stays at m = -inf until its first live key.
 //
@@ -97,6 +98,12 @@ __host__ __device__ __forceinline__ void row_sum(RowState& st, float alpha, floa
 
 __host__ __device__ __forceinline__ float row_out(const RowState& st, float acc) {
   return st.l > 0.0f ? acc / st.l : 0.0f;
+}
+
+// The row's log-sum-exp of its live logits, m + log(l), for the backward
+// pass; -1e30 for a row with no live key (the plain version's convention).
+__host__ __device__ __forceinline__ float row_lse(const RowState& st) {
+  return st.l > 0.0f ? st.m + logf(st.l) : -1e30f;
 }
 
 // ---------------------------------------------------------------------------

@@ -42,7 +42,7 @@ launches = {"flash_attention": 0}
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -83,15 +83,19 @@ def row_strides(name, x, device) -> list[int]:
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    scale=None):
+                    scale=None, return_lse=False):
     """Attention of ``q (B, Hq, Sq, Dh)`` over ``k, v (B, Hkv, Sk, Dh)``.
 
     ``window=0`` disables the sliding window, ``softcap=0`` the capping;
-    ``scale=None`` is ``Dh ** -0.5``."""
+    ``scale=None`` is ``Dh ** -0.5``.  ``return_lse``: also each row's
+    log-sum-exp of its live logits, ``(B, Hq, Sq)`` float32 (-1e30 for a
+    row with no live key), which the backward pass recomputes the
+    probabilities from; the kernel stores it as it finishes a row."""
     check_shapes(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap, scale=scale)
+                             softcap=softcap, scale=scale,
+                             return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
@@ -104,12 +108,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                for s in row_strides(name, x, q.device)]
     o = torch.empty_like(q)            # q's layout (a dense permutation kept)
     strides += row_strides("o", o, q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     scale = float(scale) if scale is not None else dh ** -0.5
     with torch.cuda.device(q.device):
         rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    None if lse is None else lse.data_ptr(),
                     (ctypes.c_longlong * 12)(*strides), b, hq, hkv, sq, sk, dh,
                     scale, float(softcap), int(bool(causal)), int(window),
                     _build.stream_handle(q.device))
     _build.check(rc, "flash_attention")
     launches["flash_attention"] += 1
-    return o
+    return (o, lse) if return_lse else o

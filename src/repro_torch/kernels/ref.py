@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the kernels.
 
 The lattice-Boltzmann collision, RMSNorm, the gated activations,
-attention and the Mamba selective scan.
+attention (whole-score, and the memory-bounded chunked version with its
+flash-style recompute backward) and the Mamba selective scan.
 """
 from __future__ import annotations
 
@@ -77,10 +78,12 @@ def gated_act_ref(u, v=None, *, kind="swiglu"):
 # ---------------------------------------------------------------------------
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
-                  kv_len=None):
+                  kv_len=None, return_lse=False):
     """Oracle attention: q (B,Hq,Sq,Dh), k/v (B,Hkv,Sk,Dh).  The whole
     (Sq, Sk) score matrix per head; softcap before the mask; rows with no
-    live key give zero."""
+    live key give zero.  ``return_lse``: also the rows' log-sum-exp of the
+    live logits, (B, Hq, Sq) float32, -1e30 for a row with no live key (the
+    convention of :func:`_chunk_fwd`)."""
     b, hq, sq, dh = q.shape
     _, hkv, sk, _ = k.shape
     group = hq // hkv
@@ -104,7 +107,157 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
     # rows with no live keys: softmax of all -1e30 is uniform; zero them.
     alive = mask.any(-1)[None, None, :, None]
     out = torch.einsum("bhqk,bhkd->bhqd", p, vr.float())
-    return torch.where(alive, out, torch.zeros_like(out)).to(q.dtype)
+    out = torch.where(alive, out, torch.zeros_like(out)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(alive[..., 0], torch.logsumexp(s, -1),
+                      torch.full_like(s[..., 0], -1e30))
+    return out, lse
+
+
+def _blk_scores(qblk, kr, i, bq, sk, *, causal, window, softcap, scale,
+                q_offset=0):
+    """(scores, mask) for one block of ``bq`` query rows, block ``i`` —
+    shared by the forward and the recompute backward.  Scores float32,
+    soft-capped, -1e30 where masked; ``q_offset`` shifts the query
+    positions (global position of row 0)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qblk.float(), kr.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = q_offset + i * bq + torch.arange(bq, device=qblk.device)
+    k_pos = torch.arange(sk, device=qblk.device)
+    mask = torch.ones((bq, sk), dtype=torch.bool, device=qblk.device)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return torch.where(mask[None, None], s, torch.full_like(s, -1e30)), mask
+
+
+def _pad_rows(x, npad):
+    """Pad axis 2 (the query rows) of ``x`` with ``npad`` zero rows."""
+    if not npad:
+        return x
+    pad = [0, 0] * (x.ndim - 3) + [0, npad]
+    return F.pad(x, pad)
+
+
+def _chunk_fwd(q, k, v, cfg):
+    """Returns (out, lse); lse is the per-row log-sum-exp (B, Hq, Sq),
+    -1e30 for a row with no live key.  ``cfg``: (causal, window, softcap,
+    scale, block_q, q_offset)."""
+    causal, window, softcap, scale, block_q, q_offset = cfg
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bq = min(block_q, sq)
+    npad = -(-sq // bq) * bq - sq
+    qp = _pad_rows(q, npad)
+    nblk = qp.shape[2] // bq
+    kr = torch.repeat_interleave(k, group, dim=1).float()
+    vr = torch.repeat_interleave(v, group, dim=1).float()
+    outs, lses = [], []
+    for i in range(nblk):
+        qblk = qp[:, :, i * bq:(i + 1) * bq]
+        s, mask = _blk_scores(qblk, kr, i, bq, sk, causal=causal,
+                              window=window, softcap=softcap, scale=scale,
+                              q_offset=q_offset)
+        m = s.amax(-1, keepdim=True)
+        m_safe = torch.where(m <= -1e29, torch.zeros_like(m), m)
+        pt = torch.exp(s - m_safe)
+        l = pt.sum(-1, keepdim=True)
+        alive = mask.any(-1)[None, None, :, None]
+        o = torch.einsum("bhqk,bhkd->bhqd", pt, vr) / torch.clamp_min(l, 1e-30)
+        lse = torch.where(alive[..., 0], m_safe[..., 0] + torch.log(
+            torch.clamp_min(l[..., 0], 1e-30)), torch.full_like(l[..., 0], -1e30))
+        outs.append(torch.where(alive, o, torch.zeros_like(o)).to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, 2)[:, :, :sq], torch.cat(lses, 2)[:, :, :sq]
+
+
+def _chunk_bwd(cfg, res, dout):
+    """Flash-style backward: recompute each query block's probabilities
+    from the saved log-sum-exp instead of keeping the S² probabilities.
+    ``res``: (q, k, v, out, lse).  Returns (dq, dk, dv)."""
+    causal, window, softcap, scale, block_q, q_offset = cfg
+    q, k, v, out, lse = res
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bq = min(block_q, sq)
+    npad = -(-sq // bq) * bq - sq
+    qp, outp, doutp = (_pad_rows(x, npad) for x in (q, out, dout))
+    lsep = _pad_rows(lse, npad)
+    nblk = qp.shape[2] // bq
+    kr = torch.repeat_interleave(k, group, dim=1).float()
+    vr = torch.repeat_interleave(v, group, dim=1).float()
+    # D_i = Σ_d dout·out per row — the softmax-jacobian diagonal term
+    dp_diag = (doutp.float() * outp.float()).sum(-1)
+    dkr = torch.zeros((b, hq, sk, dh), dtype=torch.float32, device=q.device)
+    dvr = torch.zeros_like(dkr)
+    dqs = []
+    for i in range(nblk):
+        rows = slice(i * bq, (i + 1) * bq)
+        qblk = qp[:, :, rows]
+        s, mask = _blk_scores(qblk, kr, i, bq, sk, causal=causal,
+                              window=window, softcap=softcap, scale=scale,
+                              q_offset=q_offset)
+        live = mask[None, None]
+        p = torch.exp(s - lsep[:, :, rows, None])       # normalised probs
+        p = torch.where(live, p, torch.zeros_like(p))
+        do = doutp[:, :, rows].float()
+        dvr = dvr + torch.einsum("bhqk,bhqd->bhkd", p, do)
+        dp = torch.einsum("bhqd,bhkd->bhqk", do, vr)
+        ds = p * (dp - dp_diag[:, :, rows, None])       # d(capped scores)
+        if softcap > 0:
+            # s here is post-cap; d(raw) = d(capped)·(1 - (s/c)²)
+            ds = ds * (1.0 - torch.square(
+                torch.where(live, s, torch.zeros_like(s)) / softcap))
+        ds = torch.where(live, ds, torch.zeros_like(ds))
+        dqs.append(torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale)
+        dkr = dkr + torch.einsum("bhqk,bhqd->bhkd", ds, qblk.float()) * scale
+    dq = torch.cat(dqs, 2)[:, :, :sq]
+    # fold grouped-query heads back onto their kv head
+    dk = dkr.reshape(b, hkv, group, sk, dh).sum(2)
+    dv = dvr.reshape(b, hkv, group, sk, dh).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """:func:`_chunk_fwd` with :func:`_chunk_bwd` as its backward; saves
+    q, k, v, the output and the log-sum-exp (``keep``).  A subclass with
+    another forward that returns (out, lse) passes them to ``keep`` and
+    inherits the backward (``ops._FlashFn``: kernel 4)."""
+
+    @staticmethod
+    def keep(ctx, q, k, v, cfg, out, lse):
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg):
+        return _ChunkedAttention.keep(ctx, q, k, v, cfg,
+                                      *_chunk_fwd(q, k, v, cfg))
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_chunk_bwd(ctx.cfg, ctx.saved_tensors, dout), None)
+
+
+def attention_chunked_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                          scale=None, block_q=512, q_offset=0):
+    """Memory-bounded oracle: the math of :func:`attention_ref`, with the
+    query axis processed in ``block_q`` blocks (live score buffer (B, H,
+    block_q, Sk), not (B, H, Sq, Sk)) and a backward that recomputes the
+    block probabilities from a saved log-sum-exp (flash-attention
+    backward) instead of saving them.  ``q_offset`` shifts the causal and
+    window masks for callers whose block holds global positions [offset,
+    offset + Sq)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    cfg = (bool(causal), int(window), float(softcap), float(scale),
+           int(block_q), int(q_offset))
+    return _ChunkedAttention.apply(q, k, v, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -15,16 +15,17 @@ from .context import ExecContext
 
 
 def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
-                rope=None, cache=None, length=None):
+                rope=None, cache=None, length=None, collect_cache=True):
     """Apply one block; returns (x, cache) — for attention the new cache
     ``{"k", "v"}`` (B, Hkv, S, dh) in full-sequence mode, the cache written
     in place in decode mode; for ``mamba1`` the new ``{"conv", "ssm"}``
-    state."""
+    state.  ``collect_cache=False`` (training) returns ``None`` for a
+    full-sequence cache and builds none."""
     if btype == "mamba1":
         h = layers.norm(bp["norm1"], x, cfg, ctx)
         out, new_cache = ssm.mamba1_mixer(bp["mixer"], h, cfg, ctx,
                                           cache=cache, length=length)
-        return x + out, new_cache
+        return x + out, (new_cache if collect_cache else None)
     if btype not in ("attn", "local") or cfg.mla is not None:
         raise NotImplementedError(
             f"block type {btype!r}{' with MLA' if cfg.mla else ''} is not "
@@ -37,8 +38,9 @@ def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
     if cache is None:
         out, (k, v) = attention.full_attention(
             bp["attn"], h, a, ctx, rope=rope, causal=True, window=window)
-        new_cache = {"k": k.transpose(1, 2).contiguous(),
-                     "v": v.transpose(1, 2).contiguous()}
+        new_cache = ({"k": k.transpose(1, 2).contiguous(),
+                      "v": v.transpose(1, 2).contiguous()}
+                     if collect_cache else None)
     else:
         out, new_cache = attention.decode_attention(
             bp["attn"], h, a, ctx, cache, length, rope=rope, window=window)

@@ -2,7 +2,8 @@
 
 The targetDP contract at framework scale: model code is written once and
 the :class:`ExecContext` decides how it runs.  The port has no mesh yet
-(ROADMAP, queue A), so the context holds the executor and the VVL only.
+(ROADMAP, queue A), so the context holds the executor, the VVL and the
+remat policy.
 """
 from __future__ import annotations
 
@@ -16,12 +17,19 @@ class ExecContext:
     everywhere — the oracle).  ``vvl``: sites per thread of the gathered
     executor's LM site functions.  The reference's default of 256 is the
     width of a Pallas chunk; on the card a thread covers 1, 2, 4 or 8
-    sites, and 1 is the coalesced mapping, so the port defaults to 1."""
+    sites, and 1 is the coalesced mapping, so the port defaults to 1.
+    ``remat``: ``"none"``, or ``"block"`` to recompute each layer's
+    forward in the backward pass (``torch.utils.checkpoint``) instead of
+    keeping its activations."""
 
     backend: str = "cuda"
     vvl: int = 1
+    remat: str = "none"
 
     def __post_init__(self):
         if self.backend not in ("cuda", "torch"):
             raise ValueError(f"backend must be 'cuda' or 'torch', got "
                              f"{self.backend!r}")
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"remat must be 'none' or 'block', got "
+                             f"{self.remat!r}")

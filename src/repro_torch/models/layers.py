@@ -4,7 +4,8 @@ Site-wise ops (norms, activations) route through the kernel layer
 (:mod:`repro_torch.kernels.ops`), single source and executor-switched by the
 :class:`~repro_torch.models.context.ExecContext`.  Matrix products stay as
 ``torch.matmul``, as the reference leaves them to XLA.  Port of
-``repro/models/layers.py`` (standard RoPE only: M-RoPE waits for its slice).
+``repro/models/layers.py`` (standard RoPE only: M-RoPE waits for its slice),
+with the training loss :func:`cross_entropy`.
 """
 from __future__ import annotations
 
@@ -104,3 +105,14 @@ def logits_from_hidden(params, x, cfg: ModelConfig):
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in float32; ``labels`` integer ids below
+    the vocabulary size; ``mask`` (optional) 1 = count."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -1,15 +1,19 @@
-"""Model-level forwards for serving: cache init, prefill, decode.
+"""Model-level forwards: the training loss, cache init, prefill, decode.
 
-Port of the serving half of ``repro/models/lm.py``.  Batch dict:
-``tokens (B, S)`` integer, optionally ``positions (B, S)`` (default
-``arange``).  The reference runs its layer program as ``lax.scan`` groups to
-keep its HLO small; PyTorch runs eagerly, so :func:`_apply_stack` is a plain
-loop over the layers.  The training loss, the encoder, the modality stubs
-and multi-token prediction wait for their slices (ROADMAP, queue A).
+Port of ``repro/models/lm.py``.  Batch dict: ``tokens (B, S)`` integer,
+optionally ``positions (B, S)`` (default ``arange``); for the loss
+``labels (B, S)`` integer and optionally ``loss_mask (B, S)``.  The
+reference runs its layer program as ``lax.scan`` groups to keep its HLO
+small; PyTorch runs eagerly, so :func:`_apply_stack` is a plain loop over
+the layers, each under ``torch.utils.checkpoint`` when ``ctx.remat ==
+"block"`` (the reference's ``jax.checkpoint`` of a scan unit).  The
+encoder, the modality stubs and multi-token prediction wait for their
+slices (ROADMAP, queue A).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks, layers
 from .config import ModelConfig, ssm_dims
@@ -44,15 +48,54 @@ def _rope_for(batch, cfg: ModelConfig, seq_len: int, *, positions=None):
 
 
 def _apply_stack(layer_params, program, x, cfg: ModelConfig,
-                 ctx: ExecContext, *, rope, caches=None, length=None):
-    """Run the whole layer program; returns (x, per-layer caches)."""
+                 ctx: ExecContext, *, rope, caches=None, length=None,
+                 collect_cache=True):
+    """Run the whole layer program; returns (x, per-layer caches).  With
+    ``collect_cache=False`` (training) no cache is built and the caches
+    are ``None``; each layer is then recomputed in the backward pass
+    when ``ctx.remat == "block"``."""
     caches_out = []
     for i, btype in enumerate(program):
-        x, c = blocks.apply_block(
-            btype, layer_params[i], x, cfg=cfg, ctx=ctx, rope=rope,
-            cache=None if caches is None else caches[i], length=length)
+        cache = None if caches is None else caches[i]
+        if not collect_cache and ctx.remat == "block":
+            def layer(x_in, bp, btype=btype):
+                return blocks.apply_block(btype, bp, x_in, cfg=cfg, ctx=ctx,
+                                          rope=rope, collect_cache=False)[0]
+            x, c = checkpoint(layer, x, layer_params[i],
+                              use_reentrant=False), None
+        else:
+            x, c = blocks.apply_block(
+                btype, layer_params[i], x, cfg=cfg, ctx=ctx, rope=rope,
+                cache=cache, length=length, collect_cache=collect_cache)
         caches_out.append(c)
-    return x, caches_out
+    return x, (caches_out if collect_cache else None)
+
+
+def forward_hidden(params, batch, cfg: ModelConfig, ctx: ExecContext):
+    """The final-normed hidden states (B, S, d) of a full-sequence pass
+    without caches (the reference also returns its encoder output, which
+    the port does not have)."""
+    seq_len = batch["tokens"].shape[1]
+    x = embed_inputs(params, batch, cfg, ctx)
+    rope = _rope_for(batch, cfg, seq_len)
+    x, _ = _apply_stack(params["layers"], cfg.layer_program, x, cfg, ctx,
+                        rope=rope, collect_cache=False)
+    return layers.norm(params["final_norm"], x, cfg, ctx)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ExecContext):
+    """Mean next-token cross-entropy of ``batch`` (``loss_mask`` honoured).
+    Returns (loss, {"ce", "loss"}).  Multi-token prediction raises
+    ``NotImplementedError`` (ROADMAP A7.4)."""
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-token prediction (mtp_depth="
+            f"{cfg.mtp_depth}) is not ported yet (ROADMAP A7.4)")
+    h = forward_hidden(params, batch, cfg, ctx)
+    logits = layers.logits_from_hidden(params, h, cfg)
+    loss = layers.cross_entropy(logits, batch["labels"],
+                                batch.get("loss_mask"))
+    return loss, {"ce": loss, "loss": loss}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

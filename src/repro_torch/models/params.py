@@ -110,13 +110,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _to_torch(tree, device, index=None):
+def _to_torch(tree, device, index=None, leaf=None):
+    """``tree``'s arrays as float32 tensors on ``device`` (slice ``index``
+    of each first); ``leaf`` converts an array itself instead."""
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, index) for k, v in tree.items()}
+        return {k: _to_torch(v, device, index, leaf) for k, v in tree.items()}
+    if leaf is not None:
+        return leaf(tree, index)
     a = np.asarray(tree)
     if index is not None:
         a = a[index]
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
+    """The port's per-layer structure from the reference's stacked scan
+    groups; ``convert(tree, index)`` turns a subtree (sliced at repeat
+    ``index``, or whole for ``None``) into the port's leaves."""
+    out = {"embed": convert(np_params["embed"], None)}
+    if "lm_head" in np_params:
+        out["lm_head"] = convert(np_params["lm_head"], None)
+    layers = [None] * cfg.n_layers
+    offset = 0
+    for g, (unit, k) in enumerate(plan_layer_groups(cfg.layer_program)):
+        for r in range(k):
+            for j in range(len(unit)):
+                layers[offset + r * len(unit) + j] = convert(
+                    np_params["groups"][g][j], r)
+        offset += k * len(unit)
+    out["layers"] = layers
+    out["final_norm"] = convert(np_params["final_norm"], None)
+    return out
+
+
+def trainable(params: dict) -> dict:
+    """Mark every parameter as requiring a gradient (a trainer's
+    parameters; serving's stay as they are).  Returns ``params``."""
+    from repro_torch.optim.tree import tree_map
+    tree_map(lambda p: p.requires_grad_(True), params)
+    return params
 
 
 def from_reference(np_params: dict, cfg: ModelConfig, device=None) -> dict:
@@ -131,20 +163,39 @@ def from_reference(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     repeat ``r`` of unit position ``j``."""
     device = resolve_device(device)
     _check_supported(cfg)
-    out = {"embed": _to_torch(np_params["embed"], device)}
-    if "lm_head" in np_params:
-        out["lm_head"] = _to_torch(np_params["lm_head"], device)
-    layers = [None] * cfg.n_layers
-    offset = 0
-    for g, (unit, k) in enumerate(plan_layer_groups(cfg.layer_program)):
-        for r in range(k):
-            for j in range(len(unit)):
-                layers[offset + r * len(unit) + j] = _to_torch(
-                    np_params["groups"][g][j], device, index=r)
-        offset += k * len(unit)
-    out["layers"] = layers
-    out["final_norm"] = _to_torch(np_params["final_norm"], device)
-    return out
+    return _unstack(np_params, cfg,
+                    lambda tree, r: _to_torch(tree, device, index=r))
+
+
+def from_reference_opt_state(np_state: dict, cfg: ModelConfig,
+                             device=None) -> dict:
+    """The port's AdamW state from the reference's ``{"m", "v", "step"}``
+    (leaves as numpy arrays or anything ``np.asarray`` takes), the moments
+    unstacked like :func:`from_reference`: float32 tensors, or
+    :class:`~repro_torch.optim.QTensor` (int8 codes, float32 scales; any
+    object with ``codes`` and ``scale``) for 8-bit moments; ``step`` a
+    0-d int32 tensor.  On ``device`` (``None``: the card)."""
+    from repro_torch.optim.quant import QTensor
+
+    device = resolve_device(device)
+    _check_supported(cfg)
+
+    def leaf(x, r):
+        if hasattr(x, "codes"):
+            return QTensor(*(leaf(np.asarray(getattr(x, f)), r)
+                             for f in ("codes", "scale")))
+        a = np.asarray(x)
+        a = a[r] if r is not None else a
+        dt = np.int8 if a.dtype == np.int8 else np.float32
+        return torch.from_numpy(np.array(a, dtype=dt)).to(device)
+
+    def convert(tree, r):
+        return _to_torch(tree, device, index=r, leaf=leaf)
+
+    return {"m": _unstack(np_state["m"], cfg, convert),
+            "v": _unstack(np_state["v"], cfg, convert),
+            "step": torch.tensor(int(np.asarray(np_state["step"])),
+                                 dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------

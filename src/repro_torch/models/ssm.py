@@ -64,7 +64,8 @@ def _mamba1_inner(p, xm, cfg: ModelConfig, ctx: ExecContext, *,
     if ctx.backend == "cuda":
         y, h_fin = ops.mamba_scan(xc, dt.to(xc.dtype), bmat, cmat, a,
                                   p["d_skip"].float(), target="cuda",
-                                  vvl=ctx.vvl, device=xc.device)
+                                  vvl=ctx.vvl, device=xc.device,
+                                  chunk=s.chunk)
     else:
         y, h_fin = _chunked_scan(xc, dt, bmat, cmat, a, p["d_skip"].float(),
                                  chunk=s.chunk)

@@ -1,6 +1,14 @@
-"""Serving steps: sampling, cache padding, prefill and decode steps.
+"""Train and serve steps.  Port of ``repro/runtime/steps.py``.
 
-Port of the serving half of ``repro/runtime/steps.py``.  ``jax.random``
+Training: :func:`build_train_step` assembles ``(params, opt_state, batch)
+-> (params, opt_state, metrics)`` from plain pieces — the global batch cut
+into ``grad_accum`` strided microbatches, their gradients accumulated in
+float32 (into ``.grad`` by ``backward()``, one leaf at a time), layer
+remat when ``ctx.remat == "block"``, and an in-place AdamW step on the
+schedule's learning rate.  The cross-pod compressed variant needs a pod
+axis and waits for sharded training (ROADMAP A7.7).
+
+Serving: sampling, cache padding, prefill and decode steps.  ``jax.random``
 keys become an explicit ``torch.Generator``; greedy sampling needs none.
 The caches are per-layer dicts: ``{"k", "v"}`` for attention, which the
 decode step writes in place, or ``{"conv", "ssm"}`` for Mamba-1, which it
@@ -8,12 +16,94 @@ replaces; ``length`` is a Python int.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.context import ExecContext
+from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
+from repro_torch.optim.tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class TrainHParams:
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    grad_accum: int = 1
+    compress_pod: bool = False   # raises: needs a pod mesh axis (A7.7)
+
+
+def _microbatch(batch: dict, n: int) -> dict:
+    """(B, ...) leaves → (n, B/n, ...) with microbatch rows **strided**:
+    microbatch j = rows {i·n + j} (the reference's cut, which keeps every
+    microbatch spread over a data-sharded batch).  ``positions3`` carries
+    the batch on dim 1 (M-RoPE's (3, B, S) layout)."""
+    def cut(x, bdim=0):
+        b = x.shape[bdim]
+        assert b % n == 0, f"global batch {b} not divisible by accum {n}"
+        shp = x.shape[:bdim] + (b // n, n) + x.shape[bdim + 1:]
+        return torch.movedim(x.reshape(shp), bdim + 1, 0)
+    return {k: cut(v, 1 if k == "positions3" else 0)
+            for k, v in batch.items()}
+
+
+def _grads_of(cfg: ModelConfig, ctx: ExecContext, hp: TrainHParams):
+    """(params, batch) → (loss, grads): the mean loss over the microbatches
+    and its gradient tree (float32, params' structure).  Each
+    microbatch's ``backward()`` adds into the leaves' ``.grad``, which are
+    cleared before and taken off after; with accumulation both are scaled
+    by 1 / grad_accum, as the reference's sums are."""
+    n = hp.grad_accum
+
+    def grads_of(params, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        mbs = [batch] if n == 1 else [
+            {k: v[j] for k, v in _microbatch(batch, n).items()}
+            for j in range(n)]
+        loss = None
+        for b in mbs:
+            lb = lm.loss_fn(params, b, cfg, ctx)[0]
+            lb.backward()
+            loss = lb.detach() if loss is None else loss + lb.detach()
+
+        def take(p):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            return g.float().mul_(1.0 / n) if n > 1 else g.float()
+        grads = tree_map(take, params)
+        return (loss * (1.0 / n) if n > 1 else loss), grads
+
+    return grads_of
+
+
+def build_train_step(cfg: ModelConfig, ctx: ExecContext,
+                     opt_cfg: AdamWConfig, hp: TrainHParams) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, {"loss", "grad_norm", "lr"})``; ``params`` (leaves that
+    require gradients) and the dense moments are updated in place."""
+    if hp.compress_pod:
+        raise NotImplementedError(
+            "compress_pod: the error-feedback int8 gradient reduction over a "
+            "pod mesh axis is not ported yet (ROADMAP A7.7)")
+    grads_of = _grads_of(cfg, ctx, hp)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grads_of(params, batch)
+        lr = warmup_cosine(opt_state["step"], peak_lr=hp.peak_lr,
+                           warmup_steps=hp.warmup_steps,
+                           total_steps=hp.total_steps)
+        params, opt_state, om = adamw_update(params, grads, opt_state,
+                                             opt_cfg, lr=lr)
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
 
 
 def sample_logits(logits, generator: torch.Generator | None = None, *,

@@ -344,6 +344,7 @@ void quad_reduce(float (&x)[32][2], Op op) {
 struct FlashArgs {
   const float *q, *k, *v;
   float* o;
+  float* lse;
   long long s[12];
   int B, Hq, Hkv, Sq, Sk;
   Params p;
@@ -460,6 +461,12 @@ int flash_host(const FlashArgs& a) {
                 store_o_row<T::NP, T::NT, T::W>(og + (long long)qi * a.s[11], l, o[w][l],
                                                 nr, e, st[w][o_src(l, e)][nr]);
             }
+      for (int w = 0; w < FLASH_WARPS && a.lse; ++w)  // lanes 4·grp: rows grp, grp + 8
+        for (int l = 0; l < 32; l += 4)
+          for (int nr = 0; nr < 2; ++nr) {
+            const int qi = q0 + 16 * w + l / 4 + 8 * nr;
+            if (qi < a.Sq) a.lse[(long long)bh * a.Sq + qi] = row_lse(st[w][l][nr]);
+          }
     }
   return 0;
 }
@@ -473,11 +480,11 @@ int flash_split(const FlashArgs& a, int split) {
 // The signature of flash_attention_launch, on host pointers, and the TF32
 // split to emulate: 1, or the kernel's 3 (any other value).
 extern "C" int host_flash(const float* q, const float* k, const float* v, float* o,
-                          const long long* strides, int B, int Hq, int Hkv, int Sq,
+                          float* lse, const long long* strides, int B, int Hq, int Hkv, int Sq,
                           int Sk, int Dh, float scale, float softcap, int causal,
                           int window, int split) {
   if (Hkv <= 0 || Hq % Hkv != 0) return -4;
-  FlashArgs a{q, k, v, o, {}, B, Hq, Hkv, Sq, Sk, Params{scale, softcap, causal, window, Sk}};
+  FlashArgs a{q, k, v, o, lse, {}, B, Hq, Hkv, Sq, Sk, Params{scale, softcap, causal, window, Sk}};
   std::copy(strides, strides + 12, a.s);
   switch (Dh) {
     case 16: return flash_split<16>(a, split);
@@ -545,7 +552,7 @@ def host_lib(tmp_path_factory):
     so.host_attention.restype = None
     so.host_key_range.argtypes = ([ctypes.c_int] * 6
                                   + [ctypes.POINTER(ctypes.c_int)] * 2)
-    so.host_flash.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    so.host_flash.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                               + [ctypes.c_float] * 2 + [ctypes.c_int] * 3)
     so.host_flash.restype = ctypes.c_int
     so.host_frag.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
@@ -800,14 +807,16 @@ def test_mamba_y_sums_lane_shares_in_shuffle_order(host_lib, nstate):
 
 
 def _flash(so, q, k, v, o, split, causal=True, window=0, softcap=0.0,
-           scale=None):
-    """``host_flash`` on torch tensors of any row-contiguous layout."""
+           scale=None, lse=None):
+    """``host_flash`` on torch tensors of any row-contiguous layout; ``lse``
+    a contiguous (B, Hq, Sq) tensor, or None (no store)."""
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*[x.stride(i) for x in (q, k, v, o)
                                          for i in range(3)])
     return so.host_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         o.data_ptr(), strides, b, hq, hkv, sq, sk, dh,
+                         o.data_ptr(), None if lse is None else lse.data_ptr(),
+                         strides, b, hq, hkv, sq, sk, dh,
                          dh ** -0.5 if scale is None else scale, softcap,
                          int(causal), window, split)
 
@@ -843,6 +852,24 @@ def test_flash_tile_matches_plain(host_lib, case):
     o = torch.full_like(q, float("nan"))
     assert _flash(host_lib, q, k, v, o, TF32_SPLIT, **kw) == 0
     torch.testing.assert_close(o, tref.attention_ref(q, k, v, **kw), **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(_FLASH))
+def test_flash_tile_lse_matches_plain(host_lib, case):
+    """The kernel's log-sum-exp store: every row's m + log(l) against the
+    plain ``logsumexp`` of its live logits, -1e30 for a row with no live
+    key; the output is the one without the store, bit for bit."""
+    from repro_torch.kernels.flash_attention import TF32_SPLIT
+    (b, hq, hkv, sq, sk, dh), kw = _FLASH[case]
+    q, k, v = (_rand(40, (b, hq, sq, dh)), _rand(41, (b, hkv, sk, dh)),
+               _rand(42, (b, hkv, sk, dh)))
+    o, o2 = (torch.full_like(q, float("nan")) for _ in range(2))
+    lse = torch.full((b, hq, sq), float("nan"))
+    assert _flash(host_lib, q, k, v, o, TF32_SPLIT, lse=lse, **kw) == 0
+    assert _flash(host_lib, q, k, v, o2, TF32_SPLIT, **kw) == 0
+    assert torch.equal(o, o2)
+    _, want = tref.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want, **TOL)
 
 
 def test_flash_tile_takes_transposed_views(host_lib):

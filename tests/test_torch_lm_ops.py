@@ -99,8 +99,14 @@ def test_flash_attention_fully_masked_rows_are_zero():
 
 def test_ops_refuse_unported_and_wrong_targets():
     q = torch.zeros(1, 2, 8, 16)
+    # the chunked oracle runs since its port; a shifted query block (the
+    # sequence-parallel caller) still raises
+    torch.testing.assert_close(
+        tops.flash_attention(q, q, q, impl="chunked", device="cpu"),
+        tops.flash_attention(q, q, q, device="cpu"))
     with pytest.raises(NotImplementedError, match="sequence"):
-        tops.flash_attention(q, q, q, impl="chunked", device="cpu")
+        tops.flash_attention(q, q, q, impl="chunked", q_offset=4,
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="sequence"):
         tops.flash_attention(q, q, q, q_offset=4, device="cpu")
     with pytest.raises(ValueError, match="'torch' or 'cuda'"):
