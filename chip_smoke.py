@@ -22,12 +22,18 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    shapes, the smoke shape (Dh 16), a ragged Sq = Sk = 1000, rows with no
    live key, the full-width gemma2 prefill shapes (``local`` and
    ``attn``), Sq and Sk that cut the query and key tiles at Dh 64 and 128,
-   a query tile with no live key, and (B, S, H, Dh) tensors seen as (B, H,
+   a query tile with no live key, the dense archs' full-width layers at Dh
+   128 without softcap (gemma3's window 1024 and global GQA 32/16,
+   qwen2-vl's 12/2, nemotron's 48/8, phi3's 40/10) and GQA group 6 over
+   ragged tiles, and (B, S, H, Dh) tensors seen as (B, H,
    S, Dh) (``ATTN_VIEW_CASES``); ``rmsnorm`` at VVL 1, 2, 4 and 8 at gemma2's and
-   falcon-mamba-7b's prefill and decode shapes and a ragged (37, 64), the
+   falcon-mamba-7b's prefill and decode shapes, a ragged (37, 64) and the
+   dense archs' prefills (d 5376, 1536, 5120), the
    ``gated``/``act`` site functions (all five kinds) at VVL 1, 2, 4 and 8
    at full width and on operands at a storage offset of one element (the
-   unaligned path, a ragged extent); the ``mamba`` site function
+   unaligned path, a ragged extent), and qwen2-vl's SwiGLU and nemotron's
+   squared ReLU at their prefills' sizes (``DENSE_EW_CHECKS``); the
+   ``mamba`` site function
    (``ops.mamba_scan``, every batch row in one launch) at VVL 1, 2, 4 and 8
    on the reference tests' shapes, a ragged 1000 channels, falcon-mamba-7b's
    full-width prefill shape (2, 4096, 8192, 16) and shapes that cut the
@@ -88,7 +94,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    ``MAMBA_PLAIN_REPS`` calls); ``rmsnorm`` also at the decode shapes
    (2304, 2), (4096, 2) and falcon-mamba-7b's prefill (4096, 8192); the
    ``rmsnorm``, ``gated``, ``act`` and ``mamba`` kernels also at VVL 2, 4
-   and 8 (``ms_by_vvl``);
+   and 8 (``ms_by_vvl``); the dense archs' shapes (``dense_rows``:
+   ``DENSE_RMS_ROWS``, ``DENSE_EW_ROWS``, ``DENSE_ATTN_ROWS``, kernel 4
+   beside ``scaled_dot_product_attention`` with ``is_causal`` or, for
+   gemma3's window, a boolean band mask);
    MLUPS per regime; prefill ms, decode ms per step and
    tokens/s of both serving paths, on the kernels and on the plain path;
    the calibration kernels at the calibration sizes beside ``torch.add``;
@@ -174,6 +183,26 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    their ``Function`` and carrying its checks and times.  ``python3
    chip_smoke.py --only training`` runs phases 1, 2 and 9 alone (no
    kernels line).
+
+10. the dense archs (``dense_archs_phase``): gemma3-27b (12 layers),
+   qwen2-vl-2b (whole; 256 vision slots a prompt on a 16 × 16 (t, h, w)
+   M-RoPE grid), phi3-medium-14b (10 layers) and nemotron-4-15b (8
+   layers) at full width from seeded random float32 weights
+   (``DENSE_SERVE``), each served through ``build_serve_steps`` on the
+   kernels (2 prompts of 4096 or 2048 tokens, 16 greedy decode steps), on
+   the plain path and warm, as phase 4 serves gemma2: logits within 1e-3,
+   greedy tokens equal, the launches of a prefill and of the decode steps
+   counted and held to ``dense_expected``, prefill ms, decode ms a step
+   and peak memory; gemma3 once more on ring caches for its local layers,
+   its tokens equal to the full caches'; training through
+   ``launch.train`` (``DENSE_TRAIN``): qwen2-vl-2b whole, 6 steps (the
+   loss falling), gemma3-27b one 5:1 group with 8-bit moments, 3 steps,
+   each with step 1 held to the plain path at ``TRAIN_TOL``; the LM
+   examples: ``train_lm`` at its 22m preset, 300 steps, then ``serve_lm``
+   from its checkpoint (the restore reported, the continuations following
+   the bigram table above chance); printed as one ``{"dense_archs": ...}``
+   line, the phase's paths merged into the LM kernel rows.  ``python3
+   chip_smoke.py --only dense`` runs phases 1, 2 and 10 alone.
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -369,7 +398,13 @@ MAMBA_CASES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 77, 1000, 16),
 #: rmsnorm checks, (tokens, d): gemma2-2b's prefill and decode, a ragged
 #: small case, falcon-mamba-7b's decode and prefill.
 RMS_CHECKS = [(SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64),
-              (SERVE_BATCH, 4096), (SERVE_BATCH * MAMBA_PROMPT, 4096)]
+              (SERVE_BATCH, 4096), (SERVE_BATCH * MAMBA_PROMPT, 4096),
+              # the dense archs' prefills: gemma3, qwen2-vl (2 × 4096
+              # tokens), phi3 (2 × 2048)
+              (8192, 5376), (8192, 1536), (4096, 5120)]
+#: the dense archs' MLP activations, (kind, gated, tokens, d_ff): qwen2-vl's
+#: SwiGLU and nemotron's ungated squared ReLU at their prefills' sizes
+DENSE_EW_CHECKS = [("swiglu", True, 8192, 8960), ("relu2", False, 4096, 24576)]
 #: Elements of the unaligned gated/act check: not a multiple of 4.
 UNALIGNED_N = 1_000_003
 #: Calls the mamba site function's plain version (a Python loop over 4096
@@ -395,6 +430,18 @@ ATTN_CASES = [(2, 4, 4, 128, 128, 32, c, 0, 0.0) for c in (True, False)] + [
     (1, 2, 2, 77, 300, 128, False, 0, 0.0),
     # query tiles 2 and 3 (rows 128..299) see no key: k > q - 30 >= 98, k < 40
     (1, 2, 2, 300, 40, 128, False, 30, 0.0),
+    # the dense archs at full width, Dh 128, no softcap: gemma3's local
+    # (window 1024: most key tiles of a row dead) and global layers (GQA
+    # 32/16), qwen2-vl (12/2: group 6), nemotron (48/8: group 6), phi3
+    # (40/10)
+    (2, 32, 16, 4096, 4096, 128, True, 1024, 0.0),
+    (2, 32, 16, 4096, 4096, 128, True, 0, 0.0),
+    (2, 12, 2, 4096, 4096, 128, True, 0, 0.0),
+    (2, 48, 8, 2048, 2048, 128, True, 0, 0.0),
+    (2, 40, 10, 2048, 2048, 128, True, 0, 0.0),
+    # GQA group 6 over ragged query and key tiles, with and without a window
+    (1, 12, 2, 300, 300, 128, True, 70, 0.0),
+    (1, 12, 2, 200, 333, 128, False, 0, 0.0),
 ]
 #: ATTN_CASES entries also run on (B, S, H, Dh) tensors seen as (B, H, S,
 #: Dh): the layout the model hands the kernel.
@@ -467,6 +514,43 @@ BACKWARD_NODES = ("_RMSNormFnBackward", "_GatedActFnBackward",
 ROW_FUNCTIONS = {"rmsnorm": "_RMSNormFn", "gated": "_GatedActFn",
                  "act": "_GatedActFn", "mamba": "_MambaScanFn",
                  "flash_attention": "_FlashFn"}
+
+
+#: Phase 5's rows of the dense archs' shapes: rmsnorm (suffix, d, tokens)
+#: at their prefills; the MLP activations (name, kind, gated, tokens, d_ff,
+#: float32 operations an element); kernel 4 (name, B, Hq, Hkv, S, window)
+#: at Dh 128, causal, no softcap.
+DENSE_RMS_ROWS = [(".gemma3_d5376", 5376, 8192), (".qwen2vl_d1536", 1536, 8192),
+                  (".phi3_d5120", 5120, 4096)]
+DENSE_EW_ROWS = [("tdp_gathered.gated.swiglu", "swiglu", True, 8192, 8960, 5),
+                 ("tdp_gathered.act.relu2", "relu2", False, 4096, 24576, 2)]
+DENSE_ATTN_ROWS = [("gemma3_local", 2, 32, 16, 4096, 1024),
+                   ("gemma3_attn", 2, 32, 16, 4096, 0),
+                   ("qwen2vl", 2, 12, 2, 4096, 0),
+                   ("nemotron", 2, 48, 8, 2048, 0),
+                   ("phi3", 2, 40, 10, 2048, 0)]
+#: Phase 10, the dense archs served at full width: (layers kept, prompt
+#: length), 2 prompts each.  gemma3-27b's 62 layers (108 GB of float32
+#: weights) exceed a card: 12 layers are two whole 5:1 groups (25.5 GB).
+#: phi3 (58.6 GB) and nemotron (62.6 GB) would fit whole, but the plain
+#: path's comparison and the time budget take 10 and 8 layers.
+DENSE_SERVE = {"gemma3-27b": (12, 4096), "qwen2-vl-2b": (28, 4096),
+               "phi3-medium-14b": (10, 2048), "nemotron-4-15b": (8, 2048)}
+#: qwen2-vl's vision stub: a 16 × 16 patch grid (256 slots) a prompt, the
+#: first prompt's at slot 0, the second's after 100 text tokens
+DENSE_GRID, DENSE_VISION_AT = (16, 16), (0, 100)
+#: Phase 10's training runs through launch.train, 8 × 256 tokens a step in
+#: two microbatches, layer remat: qwen2-vl-2b whole (24.7 GB of weights,
+#: gradients and moments), 6 steps; gemma3-27b at full width cut to one
+#: 5:1 group (3.89e9 parameters) with 8-bit moments, 3 steps.
+DENSE_TRAIN = {"qwen2-vl-2b": ([], 6),
+               "gemma3-27b": (["--layers", "6", "--quant-moments"], 3)}
+DENSE_TRAIN_ARGS = ["--seq-len", "256", "--global-batch", "8", "--grad-accum",
+                    "2", "--warmup", str(TRAIN_WARMUP), "--ckpt-every", "0",
+                    "--log-every", "1"]
+#: the LM examples: train_lm's 22m preset for its default 300 steps, then
+#: serve_lm from its checkpoint
+EXAMPLE_STEPS = 300
 
 
 def log(msg: str) -> None:
@@ -799,8 +883,23 @@ def lm_checks(problems: list, max_err: dict) -> None:
                 if not torch.allclose(got, want, **LM_TOL):
                     problems.append(f"{name} {kind} unaligned n={n} "
                                     f"vvl={vvl}: {e}")
-    log(f"phase 3: LM site functions max_abs_err={max_err}")
     del u, v, ub, vb
+    for kind, gated, ntok, nff in DENSE_EW_CHECKS:
+        name = "tdp_gathered.gated" if gated else "tdp_gathered.act"
+        u = 3.0 * torch.randn(ntok, nff, device=dev, generator=g)
+        v = torch.randn_like(u) if gated else None
+        want = ref.gated_act_ref(u, v, kind=kind)
+        for vvl in (1, 2, 4, 8):
+            got = ops.gated_act(u, v, kind=kind, vvl=vvl)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            max_err[name] = max(max_err.get(name, 0.0), e)
+            if not torch.allclose(got, want, **LM_TOL):
+                problems.append(f"{name} {kind} ({ntok}, {nff}) vvl={vvl}: "
+                                f"{e}")
+            del got
+        del u, v, want
+    log(f"phase 3: LM site functions max_abs_err={max_err}")
     torch.cuda.empty_cache()
 
     err = 0.0
@@ -830,27 +929,36 @@ def lm_checks(problems: list, max_err: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_run(params, cfg, backend: str, tokens, drive=None):
-    """Prefill + ``SERVE_DECODE`` greedy decode steps through
-    ``build_serve_steps``; returns tokens, the logits of every step, and
-    the host times (each ending in ``torch.cuda.synchronize()``).  With
-    ``drive``, the prefill and the decode steps each run as one counted
-    path of the main path."""
+def serve_run(params, cfg, backend: str, batch, drive=None, *,
+              local_ring=False, tag=""):
+    """Prefill ``batch`` + ``SERVE_DECODE`` greedy decode steps through
+    ``build_serve_steps`` (``local_ring``: window-sized ring caches for the
+    ``local`` layers); returns tokens, the logits of every step, and the
+    host times (each ending in ``torch.cuda.synchronize()``).  Under
+    M-RoPE the decode steps continue the prompt's positions, one past its
+    largest, in all three rows.  With ``drive``, the prefill and the decode
+    steps each run as one counted path of the main path, named with
+    ``tag``."""
     from repro_torch.models.context import ExecContext
     from repro_torch.runtime.steps import build_serve_steps
 
     pre, dec = build_serve_steps(cfg, ExecContext(backend=backend),
-                                 max_len=int(tokens.shape[1]) + SERVE_DECODE)
+                                 max_len=int(batch["tokens"].shape[1])
+                                 + SERVE_DECODE, local_ring=local_ring)
     drive = drive or (lambda path, fn: fn())
     out = {"tokens": [], "logits": []}
+    last3 = (batch["positions3"][:, :, -1:].amax(0, keepdim=True)
+             if "positions3" in batch else None)
 
     def prefill():
-        return pre(params, {"tokens": tokens})
+        return pre(params, batch)
 
     def decode(state):
         tok, caches, length = state
-        for _ in range(SERVE_DECODE):
-            tok, caches, length, logits = dec(params, tok, caches, length)
+        for i in range(SERVE_DECODE):
+            p3 = None if last3 is None else (last3 + 1 + i).expand(3, -1, -1)
+            tok, caches, length, logits = dec(params, tok, caches, length,
+                                              positions3=p3)
             out["tokens"].append(tok)
             out["logits"].append(logits[:, -1])
         return tok
@@ -858,13 +966,13 @@ def serve_run(params, cfg, backend: str, tokens, drive=None):
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok, caches, length, logits = drive(f"{cfg.name} prefill ({backend})",
-                                            prefill)
+        tok, caches, length, logits = drive(
+            f"{cfg.name}{tag} prefill ({backend})", prefill)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out["tokens"].append(tok)
         out["logits"].append(logits[:, -1])
-        drive(f"{cfg.name} decode x{SERVE_DECODE} ({backend})",
+        drive(f"{cfg.name}{tag} decode x{SERVE_DECODE} ({backend})",
               lambda: decode((tok, caches, length)))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -902,33 +1010,79 @@ def compare_serving(kern: dict, plain: dict, problems: list,
     return {"tolerance": SERVE_TOL, "steps": steps}
 
 
-def serve_model(arch: str, prompt_len: int, drive, problems: list) -> dict:
-    """Phase 4 for one model: built at full width from seeded random float32
-    weights, served through the kernels (counted), again through the plain
-    path (counted) and once more through the kernels, warm (timed); the
-    logits and tokens compared; weights and caches freed after."""
-    from repro_torch import configs
+def vision_inputs(cfg, b: int, s: int, dev) -> dict:
+    """The vision stub's inputs for ``b`` prompts of ``s`` tokens: a
+    ``DENSE_GRID`` of random patch embeddings a prompt, prompt r's at slot
+    ``DENSE_VISION_AT[r]``, and M-RoPE's (t, h, w) positions: text before
+    the grid at t = h = w = its index p, the grid's patch (i, j) at (p0, p0
+    + i, p0 + j), text after it from p0 + max(grid) on, all three rows
+    equal (Qwen2-VL's scheme; three rows that differ, so a wrong section
+    map shows)."""
+    gh, gw = DENSE_GRID
+    n = gh * gw
+    pos = np.zeros((3, b, s), np.int64)
+    slot = -np.ones((b, s), np.int64)
+    i, j = np.divmod(np.arange(n), gw)
+    for r in range(b):
+        st = DENSE_VISION_AT[r % len(DENSE_VISION_AT)]
+        pos[:, r, :st] = np.arange(st)
+        pos[0, r, st:st + n] = st
+        pos[1, r, st:st + n] = st + i
+        pos[2, r, st:st + n] = st + j
+        slot[r, st:st + n] = np.arange(n)
+        pos[:, r, st + n:] = st + max(gh, gw) + np.arange(s - st - n)
+    rng = np.random.default_rng(1)
+    return {"vision_embed": torch.from_numpy(rng.standard_normal(
+                (b, n, cfg.d_model), dtype=np.float32)).to(dev),
+            "vision_slot": torch.from_numpy(slot).to(dev),
+            "positions3": torch.from_numpy(pos).to(dev)}
+
+
+def serve_model(cfg, prompt_len: int, drive, problems: list, *,
+                ring: bool = False, device="cuda") -> dict:
+    """Phase 4 (and 10) for one model: built at full width from seeded
+    random float32 weights, served through the kernels (counted), again
+    through the plain path (counted) and once more through the kernels,
+    warm (timed); the logits and tokens compared; with ``ring``, served
+    once more on ring caches for the ``local`` layers (counted), its tokens
+    held to the first run's; weights and caches freed after."""
     from repro_torch.models import params as model_params
-    dev = torch.device("cuda")
-    cfg = configs.get_config(arch)
+    dev = torch.device(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mparams = model_params.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, prompt_len))).to(dev)
-    torch.cuda.reset_peak_memory_stats()
-    served = serve_run(mparams, cfg, "cuda", prompts, drive=drive)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, prompt_len))).to(dev)}
+    if cfg.vision_stub:
+        batch.update(vision_inputs(cfg, SERVE_BATCH, prompt_len, dev))
+    served = serve_run(mparams, cfg, "cuda", batch, drive=drive)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    plain_served = serve_run(mparams, cfg, "torch", prompts, drive=drive)
-    warm = serve_run(mparams, cfg, "cuda", prompts)
+    plain_served = serve_run(mparams, cfg, "torch", batch, drive=drive)
+    warm = serve_run(mparams, cfg, "cuda", batch)
     serving = compare_serving(served, plain_served, problems, cfg.name)
-    serving.update(params=cfg.num_params(), init_params_s=init_s,
-                   prompt=[SERVE_BATCH, prompt_len], decode_steps=SERVE_DECODE,
-                   peak_memory_gb_kernels=peak_gb)
-    for name, run in (("kernels_first_run", served), ("kernels_warm", warm),
-                      ("plain", plain_served)):
+    serving.update(params=cfg.num_params(), layers=cfg.n_layers,
+                   init_params_s=init_s, prompt=[SERVE_BATCH, prompt_len],
+                   decode_steps=SERVE_DECODE, peak_memory_gb_kernels=peak_gb)
+    runs = [("kernels_first_run", served), ("kernels_warm", warm),
+            ("plain", plain_served)]
+    if ring:
+        ringed = serve_run(mparams, cfg, "cuda", batch, drive=drive,
+                           local_ring=True, tag=" ring")
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(ringed["logits"], served["logits"]))
+        same = all(torch.equal(a, b) for a, b in zip(ringed["tokens"],
+                                                     served["tokens"]))
+        serving["ring_cache"] = {"tokens_equal": same,
+                                 "max_abs_logit_diff_vs_full": diff}
+        if not same:
+            problems.append(f"{cfg.name}: decode on ring caches gave other "
+                            f"tokens than on full caches")
+        runs.append(("kernels_ring", ringed))
+    for name, run in runs:
         serving[name] = {
             "prefill_ms": run["prefill_ms"],
             "prefill_tokens_per_s": SERVE_BATCH * prompt_len / run["prefill_ms"] * 1e3,
@@ -938,7 +1092,7 @@ def serve_model(arch: str, prompt_len: int, drive, problems: list) -> dict:
                                   zip(warm["tokens"], served["tokens"])):
         problems.append(f"{cfg.name}: the warm run's tokens differ from the "
                         f"first")
-    del mparams, served, plain_served, warm, prompts
+    del mparams, served, plain_served, warm, batch
     torch.cuda.empty_cache()
     print(json.dumps({"serving": {cfg.name: {k: v for k, v in serving.items()
                                              if k != "steps"}}}), flush=True)
@@ -2746,15 +2900,6 @@ def training_grad_checks(problems, device="cuda") -> dict:
     return out
 
 
-def train_cfg_cut(arch: str, n_layers: int):
-    """``arch`` at full width with its first ``n_layers`` layers."""
-    import dataclasses
-    from repro_torch import configs
-    cfg = configs.get_config(arch)
-    return dataclasses.replace(cfg, n_layers=n_layers,
-                               layer_program=cfg.layer_program[:n_layers])
-
-
 def trainer_for(cfg, backend, ckpt_dir, steps, *, ckpt_every=0, seq_len=256,
                 batch=8, accum=2, device="cuda"):
     """A ``Trainer`` the way ``launch.train`` builds one (its flags'
@@ -2817,8 +2962,7 @@ def hold_to_oracle(what, kern_hist, plain_hist, kern_leaves, plain_leaves,
                  "rel_diff": abs(k[key] - p[key]) / abs(p[key])}
            for key in ("loss", "grad_norm")}
     if kern_leaves["names"] != plain_leaves["names"]:
-        problems.append(f"phase 9 {what}: the two runs' gradient trees "
-                        f"differ")
+        problems.append(f"{what}: the two runs' gradient trees differ")
         return res
     rel = [abs(a - b) / b if b else abs(a)
            for a, b in zip(kern_leaves["norms"], plain_leaves["norms"])]
@@ -2832,7 +2976,7 @@ def hold_to_oracle(what, kern_hist, plain_hist, kern_leaves, plain_leaves,
                  (k["loss"], k["grad_norm"], *kern_leaves["norms"]))
     for key, rtol in TRAIN_TOL.items():
         if not (finite and res[key]["rel_diff"] <= rtol):
-            problems.append(f"phase 9 {what}: step-1 {key} "
+            problems.append(f"{what}: step-1 {key} "
                             f"{res[key]['kernels']} on the kernels, "
                             f"{res[key]['plain']} on the plain path (rtol "
                             f"{rtol})")
@@ -2882,7 +3026,8 @@ def training_phase(drive, by_path, problems, device="cuda") -> dict:
             plain_path)
     gemma["plain_step1_ms"] = plain_hist[0]["ms"]
     gemma["plain_peak_memory_gb"] = plain_gb
-    gemma["step1_vs_plain"] = hold_to_oracle("gemma2-2b", hist, plain_hist,
+    gemma["step1_vs_plain"] = hold_to_oracle("phase 9 gemma2-2b", hist,
+                                             plain_hist,
                                              leaves, plain_leaves, problems)
     out["gemma2-2b"] = gemma
     torch.cuda.empty_cache()
@@ -2918,7 +3063,8 @@ def training_phase(drive, by_path, problems, device="cuda") -> dict:
     torch.cuda.empty_cache()
 
     # falcon-mamba-7b at full width, FALCON_LAYERS layers
-    fcfg = train_cfg_cut("falcon-mamba-7b", FALCON_LAYERS)
+    fcfg = configs.first_layers(configs.get_config("falcon-mamba-7b"),
+                                FALCON_LAYERS)
     fpath = f"falcon-mamba-7b x{FALCON_LAYERS} train {FALCON_STEPS} steps (cuda)"
     torch.cuda.reset_peak_memory_stats()
     ft = trainer_for(fcfg, "cuda", tmp + "_fm", FALCON_STEPS, device=device)
@@ -2938,7 +3084,7 @@ def training_phase(drive, by_path, problems, device="cuda") -> dict:
         fplain = drive(f"falcon-mamba-7b x{FALCON_LAYERS} train step 1 "
                        f"(torch)", lambda: fp.run(1))
     falcon["step1_vs_plain"] = hold_to_oracle(
-        "falcon-mamba-7b", fhist, fplain, fleaves, fplain_leaves, problems)
+        "phase 9 falcon-mamba-7b", fhist, fplain, fleaves, fplain_leaves, problems)
     del fp
     torch.cuda.empty_cache()
     out["falcon-mamba-7b"] = falcon
@@ -2963,30 +3109,48 @@ def training_phase(drive, by_path, problems, device="cuda") -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     for suffix in ("_plain", "_ab", "_ref", "_fm", "_fm_plain"):
         shutil.rmtree(tmp + suffix, ignore_errors=True)
+    out["paths"] = [p for p in by_path if " train " in p or " resume " in p]
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 9: training {out['phase_s']:.1f} s")
     return out
 
 
-def merge_training_launches(rows, by_path, training: dict) -> None:
-    """Add phase 9's paths to the LM kernel rows: their launches, the
-    Function each runs under, and the Function's checks and times."""
-    paths = [p for p in by_path if " train " in p or " resume " in p]
-    fn_results = training["functions"]
+def lm_row_key(row):
+    """The launch counter entry of an LM kernel row, None for another."""
+    kernel, _, rest = row["name"].partition(".")
+    site = rest.partition(".")[0]
+    key = (("flash_attention", "flash_attention")
+           if kernel == "flash_attention" else (kernel, site))
+    if kernel not in ("tdp_gathered", "flash_attention") or (
+            key[1] not in ROW_FUNCTIONS):
+        return None
+    return key
+
+
+def merge_launches(rows, by_path, paths) -> None:
+    """Add the launches of ``paths`` to the LM kernel rows (phases 9 and 10
+    run after phase 5 counted the rows' launches)."""
     for row in rows:
-        kernel, _, rest = row["name"].partition(".")
-        site, _, variant = rest.partition(".")
-        key = (("flash_attention", "flash_attention")
-               if kernel == "flash_attention" else (kernel, site))
-        if kernel not in ("tdp_gathered", "flash_attention") or (
-                key[1] not in ROW_FUNCTIONS):
-            continue
-        row["function"] = ROW_FUNCTIONS[key[1]]
-        for p in paths:
+        key = lm_row_key(row)
+        for p in paths if key else ():
             n = by_path[p].get(key, 0)
             if n:
                 row["launches"] += n
                 row["launches_by_path"][p] = n
+
+
+def merge_training_launches(rows, by_path, training: dict) -> None:
+    """Add phase 9's paths to the LM kernel rows: their launches, the
+    Function each runs under, and the Function's checks and times."""
+    merge_launches(rows, by_path, training["paths"])
+    fn_results = training["functions"]
+    for row in rows:
+        key = lm_row_key(row)
+        if key is None:
+            continue
+        kernel, _, rest = row["name"].partition(".")
+        site, _, variant = rest.partition(".")
+        row["function"] = ROW_FUNCTIONS[key[1]]
         # the Function's checks and times at the training shapes: on the
         # site's first row, and on flash's local and global rows
         prefix = (f"flash_attention {site} " if kernel == "flash_attention"
@@ -2996,10 +3160,259 @@ def merge_training_launches(rows, by_path, training: dict) -> None:
                                if k.startswith(prefix)}
 
 
+def dense_rows(launches, launches_by_path, max_err, problems, record) -> list:
+    """Phase 5, the dense archs' shapes (``DENSE_*_ROWS``): each kernel held
+    to its plain version, then timed beside it, its bound and, where one
+    PyTorch call computes the same function, that call (``lm_row``):
+    ``F.rms_norm``; ``scaled_dot_product_attention`` (``enable_gqa``),
+    ``is_causal`` for a global layer and a boolean band mask for gemma3's
+    window; none for SwiGLU (``silu(g) * u``: two calls) and squared ReLU
+    (``relu(x).square()``: two calls)."""
+    import torch.nn.functional as F
+    from repro_torch.core import Target
+    from repro_torch.core.api import launch_plan, torch_executor
+    from repro_torch.kernels import flash_attention, lm, ref, tdp_pointwise
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+
+    def pointwise_row(name, spec, xs, consts, nbytes, flops):
+        plan = launch_plan(spec, Target("cuda", vvl=1), consts=consts)
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_F32_PER_S * 1e3
+        kernel = ".".join(name.split(".")[:2])
+        row = lm_row(
+            name, KERNELS[kernel], ("tdp_gathered", kernel.split(".")[1]),
+            lambda: tdp_pointwise.cuda_execute(plan, xs),
+            lambda: torch_executor(plan, xs),
+            lm_library_call(name, xs, consts),
+            (t_b, "bytes") if t_b >= t_o else (t_o, "operations"),
+            launches, launches_by_path, max_err, problems, record,
+            max_err_key=kernel)
+        row["shape"] = list(xs[0].shape)
+        row["ms_by_vvl"] = {vvl: time_ms(lambda p=launch_plan(
+            spec, Target("cuda", vvl=vvl), consts=consts):
+            tdp_pointwise.cuda_execute(p, xs)) for vvl in (1, 2, 4, 8)}
+        log(f"phase 5: {name} ms by VVL {row['ms_by_vvl']}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+
+    for suffix, d, ntok in DENSE_RMS_ROWS:
+        pointwise_row("tdp_gathered.rmsnorm" + suffix, lm.rmsnorm_spec(d),
+                      [torch.randn(d, ntok, device=dev, generator=g)],
+                      {"weight": torch.randn(d, device=dev, generator=g),
+                       "eps": 1e-6, "scale_offset": 1.0},
+                      8 * d * ntok + 4 * d, 5 * d * ntok)
+    for name, kind, gated, ntok, nff, ops_per in DENSE_EW_ROWS:
+        n = ntok * nff
+        xs = [3.0 * torch.randn(1, n, device=dev, generator=g)]
+        if gated:
+            xs.append(torch.randn(1, n, device=dev, generator=g))
+        pointwise_row(name, lm.gated_act_spec(kind, gated), xs, {},
+                      4 * n * (len(xs) + 1), ops_per * n)
+        rows[-1]["shape"] = [ntok, nff]
+        del xs
+    dh = 128
+    for tag, b, hq, hkv, sq, window in DENSE_ATTN_ROWS:
+        q = torch.randn(b, hq, sq, dh, device=dev, generator=g)
+        k, v = (torch.randn(b, hkv, sq, dh, device=dev, generator=g)
+                for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=0.0)
+        if window:
+            i = torch.arange(sq, device=dev)
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            lib = ((lambda q=q, k=k, v=v, band=band:
+                    F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                   enable_gqa=True)),
+                   (lambda o: (o,)))
+        else:
+            lib = ((lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)), (lambda o: (o,)))
+        shape = (b, hq, hkv, sq, sq, dh, True, window)
+        name = f"flash_attention.{tag}"
+        rows.append(lm_row(
+            name, KERNELS["flash_attention"],
+            ("flash_attention", "flash_attention"),
+            lambda q=q, k=k, v=v, kw=kw: flash_attention.flash_attention(
+                q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: ref.attention_ref(q, k, v, **kw),
+            lib, attn_bound(*shape, split=flash_attention.TF32_SPLIT),
+            launches, launches_by_path, max_err, problems, record,
+            max_err_key="flash_attention"))
+        rows[-1]["shape"] = [b, hq, hkv, sq, dh, window]
+        record.setdefault("bound_fp32_ms", {})[name] = attn_bound(*shape)[0]
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dense_expected(cfg) -> tuple[dict, dict]:
+    """The launches of one prefill and of ``SERVE_DECODE`` decode steps on
+    the kernels: per layer a flash attention (prefill only: decode attends
+    in plain PyTorch), the MLP's ``gated`` (or ungated ``act``) and, under
+    RMSNorm, two norms, plus the final norm.  LayerNorm and qk-norm are
+    plain PyTorch, as in the reference."""
+    n = cfg.n_layers
+    mlp = ("tdp_gathered", "gated" if cfg.act in ("swiglu", "geglu")
+           else "act")
+    pre = {("flash_attention", "flash_attention"): n, mlp: n}
+    dec = {mlp: n * SERVE_DECODE}
+    if cfg.norm == "rmsnorm":
+        pre[("tdp_gathered", "rmsnorm")] = 2 * n + 1
+        dec[("tdp_gathered", "rmsnorm")] = (2 * n + 1) * SERVE_DECODE
+    return pre, dec
+
+
+def dense_train(arch, drive, by_path, problems, device="cuda") -> dict:
+    """Phase 10, one training run through ``launch.train`` on the kernels
+    (``DENSE_TRAIN``), then its first step on the plain path, held at
+    ``TRAIN_TOL``; the loss falling over 6 steps or more; each path's
+    launches."""
+    import tempfile
+    extra, steps = DENSE_TRAIN[arch]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_")
+    base = ["--arch", arch, *extra, *DENSE_TRAIN_ARGS, "--device", device]
+    path = f"{arch} train {steps} steps (cuda)"
+    with first_step_leaf_norms() as leaves:
+        trainer, hist, peak_gb = train_run(
+            base + ["--steps", str(steps), "--ckpt-dir", tmp], drive, path)
+    cfg = trainer.cfg
+    tokens = trainer.data_cfg.global_batch * trainer.data_cfg.seq_len
+    del trainer
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "quant_moments": "--quant-moments" in extra, "steps": len(hist),
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist],
+           "step_ms_median_from_2": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+           "launches": {f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    half = steps // 2
+    if len(hist) != steps or (steps >= 6 and not np.mean(losses[half:])
+                              < np.mean(losses[:half])):
+        problems.append(f"phase 10 {arch}: {len(hist)} of {steps} steps, or "
+                        f"the loss did not fall: {losses}")
+    plain_path = f"{arch} train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves:
+        _, plain_hist, plain_gb = train_run(
+            base + ["--steps", "1", "--backend", "torch", "--ckpt-dir",
+                    tmp + "_plain"], drive, plain_path)
+    out["plain_step1_ms"] = plain_hist[0]["ms"]
+    out["plain_peak_memory_gb"] = plain_gb
+    out["step1_vs_plain"] = hold_to_oracle(f"phase 10 {arch}", hist,
+                                           plain_hist, leaves, plain_leaves,
+                                           problems)
+    # each layer's forward twice a microbatch (remat), the final norm once
+    micro = steps * 2
+    mlp = "gated" if cfg.act in ("swiglu", "geglu") else "act"
+    want = {("flash_attention", "flash_attention"): micro * 2 * cfg.n_layers,
+            ("tdp_gathered", mlp): micro * 2 * cfg.n_layers,
+            ("tdp_gathered", "rmsnorm"): micro * (4 * cfg.n_layers + 1)}
+    if by_path[path] != want:
+        problems.append(f"phase 10 {path}: launches {by_path[path]}, "
+                        f"expected {want}")
+    if by_path[plain_path]:
+        problems.append(f"phase 10 {plain_path}: the plain path launched "
+                        f"{by_path[plain_path]}")
+    for d in (tmp, tmp + "_plain"):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_run(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 10, the LM examples: ``train_lm`` at its 22m preset for
+    ``EXAMPLE_STEPS`` steps (the loss must fall: its own check), then
+    ``serve_lm`` from its checkpoint (the restore reported, the share of
+    continuations that follow the bigram table above chance); their
+    printed lines go to the log."""
+    import io
+    import tempfile
+    from repro_torch.examples import serve_lm, train_lm
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    out, text = {}, io.StringIO()
+    train_path = f"train_lm 22m {EXAMPLE_STEPS} steps"
+    with contextlib.redirect_stdout(text):
+        t0 = time.perf_counter()
+        try:
+            _, hist = drive(train_path, lambda: train_lm.run(
+                train_lm.parse_args(["--steps", str(EXAMPLE_STEPS),
+                                     "--ckpt-dir", tmp, "--device",
+                                     device])))
+        except RuntimeError as e:          # train_lm's loss check
+            problems.append(f"phase 10 train_lm: {e}")
+            hist = []
+        out["train_s"] = time.perf_counter() - t0
+        res = drive("serve_lm 22m", lambda: serve_lm.run(
+            serve_lm.parse_args(["--ckpt-dir", tmp, "--device", device])))
+    log(text.getvalue())
+    out.update(losses={h["step"]: h["loss"] for h in hist},
+               step_ms_median=(statistics.median(h["ms"] for h in hist)
+                               if hist else None), serve=res,
+               share=res["ok"] / res["total"],
+               lift=res["ok"] / res["total"] / res["chance"])
+    if not res["trained"] or "restored trained weights" not in text.getvalue():
+        problems.append("phase 10 serve_lm: it did not restore train_lm's "
+                        "checkpoint")
+    if not res["ok"] / res["total"] > res["chance"]:
+        problems.append(f"phase 10 serve_lm: {res['ok']}/{res['total']} "
+                        f"continuations follow the bigram table, not above "
+                        f"chance {res['chance']}")
+    # the 22m model: global attention, RMSNorm, SwiGLU on the kernels
+    want = {("flash_attention", "flash_attention"), ("tdp_gathered", "rmsnorm"),
+            ("tdp_gathered", "gated")}
+    for p in (train_path, "serve_lm 22m"):
+        if set(by_path[p]) != want:
+            problems.append(f"phase 10 {p}: launches {by_path[p]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def dense_archs_phase(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 10 (see the module docstring)."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    out = {"serving": {}, "training": {}}
+    for arch, (n_layers, prompt) in DENSE_SERVE.items():
+        cfg = configs.first_layers(configs.get_config(arch), n_layers)
+        out["serving"][arch] = serve_model(cfg, prompt, drive, problems,
+                                           ring=arch == "gemma3-27b",
+                                           device=device)
+        pre, dec = dense_expected(cfg)
+        runs = ["", " ring"] if arch == "gemma3-27b" else [""]
+        for tag in runs:
+            for p, want in ((f"{cfg.name}{tag} prefill (cuda)", pre),
+                            (f"{cfg.name}{tag} decode x{SERVE_DECODE} (cuda)",
+                             dec)):
+                if by_path.get(p) != want:
+                    problems.append(f"phase 10 {p}: launches "
+                                    f"{by_path.get(p)}, expected {want}")
+        for p in (f"{cfg.name} prefill (torch)",
+                  f"{cfg.name} decode x{SERVE_DECODE} (torch)"):
+            if by_path.get(p):
+                problems.append(f"phase 10 {p}: the plain path launched "
+                                f"{by_path[p]}")
+        out["serving"][arch]["launches"] = {
+            p: {f"{k}.{s}": n for (k, s), n in by_path[p].items()}
+            for p in by_path if p.startswith(cfg.name + " ")}
+    for arch in DENSE_TRAIN:
+        out["training"][arch] = dense_train(arch, drive, by_path, problems,
+                                            device)
+    out["examples"] = examples_run(drive, by_path, problems, device)
+    out["paths"] = [p for p in by_path if p.startswith(tuple(
+        f"{n} " for n in ("gemma3-27b", "qwen2-vl-2b", "phi3-medium-14b",
+                          "nemotron-4-15b", "train_lm", "serve_lm")))]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: dense archs {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("training",), default=None,
+    ap.add_argument("--only", choices=("training", "dense"), default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
     only = ap.parse_args(argv).only
@@ -3154,11 +3567,13 @@ def main(argv=None) -> int:
                          if counters[k][s]}
         return out
 
-    if only == "training":
-        training = training_phase(drive, by_path, problems)
-        print(json.dumps({"training": training}, default=str), flush=True)
-        (OUT_DIR / "chip_smoke_training.json").write_text(
-            json.dumps(training, indent=1, default=str))
+    if only is not None:
+        phase = (training_phase if only == "training"
+                 else dense_archs_phase)(drive, by_path, problems)
+        key = "training" if only == "training" else "dense_archs"
+        print(json.dumps({key: phase}, default=str), flush=True)
+        (OUT_DIR / f"chip_smoke_{only}.json").write_text(
+            json.dumps(phase, indent=1, default=str))
         for p in problems:
             log(f"FAIL: {p}")
         print(json.dumps({"ok": not problems, "only": only}), flush=True)
@@ -3284,8 +3699,8 @@ def main(argv=None) -> int:
 
     # gemma2-2b, then falcon-mamba-7b, served at full width
     cfg = configs.get_config("gemma2-2b")
-    record["serving"] = {"gemma2-2b": serve_model("gemma2-2b", SERVE_PROMPT,
-                                                  drive, problems)}
+    record["serving"] = {"gemma2-2b": serve_model(cfg, SERVE_PROMPT, drive,
+                                                  problems)}
     h = torch.randn(SERVE_BATCH * SERVE_PROMPT, cfg.d_ff, device=dev)
     act_out = drive("ops.gated_act ungated gelu",
                     lambda: ops.gated_act(h, None, kind="gelu"))
@@ -3295,7 +3710,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mcfg = configs.get_config("falcon-mamba-7b")
     record["serving"]["falcon-mamba-7b"] = serve_model(
-        "falcon-mamba-7b", MAMBA_PROMPT, drive, problems)
+        mcfg, MAMBA_PROMPT, drive, problems)
     g_layers, m_layers = cfg.n_layers, mcfg.n_layers
     decode = f"decode x{SERVE_DECODE}"
     expected = {
@@ -3511,6 +3926,7 @@ def main(argv=None) -> int:
             f"{record['bound_fp32_ms'][name]:.4f} ms")
         torch.cuda.empty_cache()
     del q, k, v
+    rows += dense_rows(launches, launches_by_path, max_err, problems, record)
 
     # the mamba site function at falcon-mamba-7b's full-width prefill shape:
     # one launch = one layer, both batch rows
@@ -3605,6 +4021,12 @@ def main(argv=None) -> int:
             "plain_backward_share")},
         "resume": tr["resume"], "falcon-mamba-7b": tr["falcon-mamba-7b"]}},
         default=str), flush=True)
+
+    # -- 10. the dense archs -------------------------------------------------------
+    record["dense_archs"] = dense_archs_phase(drive, by_path, problems)
+    merge_launches(rows, by_path, record["dense_archs"]["paths"])
+    print(json.dumps({"dense_archs": record["dense_archs"]}, default=str),
+          flush=True)
     record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))

@@ -4,19 +4,26 @@ One module per architecture exports ``CONFIG`` (the exact public
 configuration, sources cited in-module) and ``SMOKE`` (a reduced
 same-family config for CPU tests).  Only the archs whose blocks the port
 runs are registered; the rest of the reference's registry
-(``repro/configs``) waits for its slices (ROADMAP, queue A, LM stack).
+(``repro/configs``: MoE, MLA, Mamba-2 and whisper) waits for its slices
+(ROADMAP, queue A, LM stack).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("gemma2_2b", "falcon_mamba_7b")
+ARCHS = ("gemma3_27b", "nemotron_4_15b", "phi3_medium_14b", "gemma2_2b",
+         "falcon_mamba_7b", "qwen2_vl_2b")
 
 # brief ids ↔ module names
-ALIASES = {"gemma2-2b": "gemma2_2b",
-           "falcon-mamba-7b": "falcon_mamba_7b"}
+ALIASES = {"gemma3-27b": "gemma3_27b",
+           "nemotron-4-15b": "nemotron_4_15b",
+           "phi3-medium-14b": "phi3_medium_14b",
+           "gemma2-2b": "gemma2_2b",
+           "falcon-mamba-7b": "falcon_mamba_7b",
+           "qwen2-vl-2b": "qwen2_vl_2b"}
 
 
 def _module(arch: str):
@@ -33,3 +40,14 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def first_layers(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` at full width with only its first ``n_layers`` layers (a
+    depth that fits one card; cut at a whole period of the layer program
+    to keep every block type in its ratio)."""
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name}: n_layers must be in 1..{cfg.n_layers}, "
+                         f"got {n_layers}")
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               layer_program=cfg.layer_program[:n_layers])

@@ -5,7 +5,9 @@ for falcon-mamba, the recurrent SSM state).
         --prompt-len 4608 --gen 16
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --batch 2 \\
         --prompt-len 4096 --gen 16
-    python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch gemma3-27b --layers 12 \\
+        --batch 2 --prompt-len 4096 --gen 16
+    python -m repro_torch.launch.serve --arch qwen2-vl-2b --smoke --device cpu
 
 Runs on the card (``--device cuda``, the default; it raises without one)
 through the hand-written kernels; ``--device cpu`` runs the plain PyTorch
@@ -14,7 +16,11 @@ Weights are random, from ``--seed``; prompts are random token ids.  Prints
 the prefill time, the decode time per step, tokens/s (host clock around work
 that ends in ``torch.cuda.synchronize()`` on the card) and the sampled
 continuations.  ``--gen`` counts the generated tokens: the prefill's and
-``--gen - 1`` decode steps.
+``--gen - 1`` decode steps.  ``--layers N`` keeps the first N layers at
+full width (gemma3-27b's 62 float32 layers exceed one card).  As in the
+reference's launcher, the vision stub (qwen2-vl) gets 8 random patches in
+the first ``min(4, prompt)`` slots, and M-RoPE's three position rows are
+each ``arange(prompt)``.
 """
 from __future__ import annotations
 
@@ -22,10 +28,32 @@ import argparse
 import time
 
 
+def stub_inputs(cfg, b: int, s: int, rng, device) -> dict:
+    """The reference launcher's extra inputs for ``b`` prompts of ``s``
+    tokens: for the vision stub 8 random patches (from ``rng``) in the first
+    ``min(4, s)`` slots; for M-RoPE each of the three position rows
+    ``arange(s)``."""
+    import numpy as np
+    import torch
+    out = {}
+    if cfg.vision_stub:
+        slot = -np.ones((b, s), np.int64)
+        slot[:, :min(4, s)] = np.arange(min(4, s))
+        out["vision_embed"] = torch.from_numpy(rng.normal(
+            size=(b, 8, cfg.d_model)).astype(np.float32)).to(device)
+        out["vision_slot"] = torch.from_numpy(slot).to(device)
+    if cfg.pos_embed == "mrope":
+        out["positions3"] = torch.arange(s, device=device)[None, None].repeat(
+            3, b, 1)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers (0: all)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -45,6 +73,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     backend = "cuda" if dev.type == "cuda" else "torch"
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
+    if args.layers:
+        cfg = C.first_layers(cfg, args.layers)
     ctx = ExecContext(backend=backend)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = params_lib.init_params(cfg, gen, dev)
@@ -53,6 +83,7 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (b, s))).to(dev)}
+    batch.update(stub_inputs(cfg, b, s, rng, dev))
 
     def sync():
         if dev.type == "cuda":

@@ -5,12 +5,17 @@
         --seq-len 256 --global-batch 8 --grad-accum 2
     # the reduced config on the CPU (the kernels' plain versions)
     python -m repro_torch.launch.train --arch gemma2-2b --smoke --device cpu
+    # gemma3-27b at full width, one 5:1 group, 8-bit moments
+    python -m repro_torch.launch.train --arch gemma3-27b --layers 6 \\
+        --quant-moments --steps 3 --seq-len 256 --global-batch 8 \\
+        --grad-accum 2 --ckpt-every 0
 
 The reference's flags (``repro/launch/train.py``) plus ``--device``
 (default the card; it raises without one), ``--backend`` (``cuda``, the
-hand-written kernels, or ``torch``, the plain versions), ``--log-every``
-and ``--ckpt-every 0`` (no checkpoint at all: gemma2-2b's final one is
-31 GB of parameters and moments).  Checkpoints go to a fresh directory
+hand-written kernels, or ``torch``, the plain versions), ``--log-every``,
+``--layers N`` (the first N layers at full width) and ``--ckpt-every 0``
+(no checkpoint at all: gemma2-2b's final one is 31 GB of parameters and
+moments).  Checkpoints go to a fresh directory
 under the temporary directory unless ``--ckpt-dir`` names one; a run
 resumes only from a directory it is given, and only a checkpoint of its
 own ``--arch`` and ``--seed`` (``Trainer.restore_latest`` raises on
@@ -33,6 +38,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers (0: all)")
     ap.add_argument("--mesh", default="none",
                     choices=("none", "single", "multi", "test"))
     ap.add_argument("--steps", type=int, default=100)
@@ -67,6 +74,8 @@ def train(args: argparse.Namespace):
     from repro_torch.runtime import Trainer, TrainerConfig, TrainHParams
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
+    if args.layers:
+        cfg = C.first_layers(cfg, args.layers)
     data = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                            global_batch=args.global_batch, seed=args.seed)
     hp = TrainHParams(peak_lr=args.peak_lr, warmup_steps=args.warmup,

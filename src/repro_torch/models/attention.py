@@ -1,4 +1,4 @@
-"""Attention: GQA, sliding window, softcap, KV cache.  Port of
+"""Attention: GQA, sliding window, softcap, qk-norm, KV cache.  Port of
 ``repro/models/attention.py``, single device.
 
 Two execution paths, one weight layout:
@@ -10,10 +10,10 @@ Two execution paths, one weight layout:
   cache in plain PyTorch (as in the reference, no kernel), with the
   ring-buffer branch for window-sized caches of ``local`` layers.
 
-The reference's sequence-sharded and sequence-parallel branches, the
-qk-norm (gemma3) and cross-attention wait for their slices (ROADMAP, queue
-A).  Cache layout per layer: ``{"k": (B, Hkv, S_max, Dh), "v": ...}``.  A
-decode step writes its key and value into the cache tensors **in place**
+The reference's sequence-sharded and sequence-parallel branches and
+cross-attention wait for their slices (ROADMAP, queue A).  Cache layout
+per layer: ``{"k": (B, Hkv, S_max, Dh), "v": ...}``.  A decode step writes
+its key and value into the cache tensors **in place**
 (the reference updates functionally): at full width a copy of every
 layer's cache per step would move the whole cache each token.
 """
@@ -33,14 +33,25 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(b, s, n_heads, head_dim)
 
 
+def _qk_normalize(p, q, k):
+    """Per-head RMSNorm of q and k (gemma3): float32, eps 1e-6, the (1 + w)
+    scale.  Plain PyTorch, as the reference computes it inline: routing it
+    through ``ops.rmsnorm`` would change the eps."""
+    def nrm(w, t):
+        tf = t.float()
+        inv = torch.rsqrt((tf * tf).mean(-1, keepdim=True) + 1e-6)
+        return (tf * inv * (1.0 + w.float())).to(t.dtype)
+    return nrm(p["q_norm"], q), nrm(p["k_norm"], k)
+
+
 def project_qkv(p, x, a: AttnConfig, ctx: ExecContext, rope=None):
-    """x: (B, S, D) → q (B,S,H,dh), k/v (B,S,Hkv,dh), rope applied."""
-    if a.qk_norm:
-        raise NotImplementedError(
-            "qk-norm (gemma3) is not ported yet (ROADMAP, queue A, LM stack)")
+    """x: (B, S, D) → q (B,S,H,dh), k/v (B,S,Hkv,dh), qk-norm then rope
+    applied."""
     q = _split_heads(x @ p["wq"], a.n_heads, a.head_dim)
     k = _split_heads(x @ p["wk"], a.n_kv_heads, a.head_dim)
     v = _split_heads(x @ p["wv"], a.n_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q, k = _qk_normalize(p, q, k)
     if rope is not None:
         cos, sin = rope
         q = layers.apply_rope(q, cos, sin)

@@ -15,12 +15,15 @@ from .context import ExecContext
 
 
 def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
-                rope=None, cache=None, length=None, collect_cache=True):
+                rope=None, rope_local=None, cache=None, length=None,
+                collect_cache=True):
     """Apply one block; returns (x, cache) — for attention the new cache
     ``{"k", "v"}`` (B, Hkv, S, dh) in full-sequence mode, the cache written
     in place in decode mode; for ``mamba1`` the new ``{"conv", "ssm"}``
-    state.  ``collect_cache=False`` (training) returns ``None`` for a
-    full-sequence cache and builds none."""
+    state.  ``rope_local`` is the ``local`` layers' table where the arch
+    gives them their own theta (gemma3).  ``collect_cache=False``
+    (training) returns ``None`` for a full-sequence cache and builds
+    none."""
     if btype == "mamba1":
         h = layers.norm(bp["norm1"], x, cfg, ctx)
         out, new_cache = ssm.mamba1_mixer(bp["mixer"], h, cfg, ctx,
@@ -33,6 +36,8 @@ def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
             f"mamba1 blocks run (ROADMAP, queue A, LM stack)")
     a = cfg.attn
     window = a.window if btype == "local" else 0
+    if btype == "local" and rope_local is not None:
+        rope = rope_local
 
     h = layers.norm(bp["norm1"], x, cfg, ctx)
     if cache is None:

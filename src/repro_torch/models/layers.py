@@ -4,8 +4,8 @@ Site-wise ops (norms, activations) route through the kernel layer
 (:mod:`repro_torch.kernels.ops`), single source and executor-switched by the
 :class:`~repro_torch.models.context.ExecContext`.  Matrix products stay as
 ``torch.matmul``, as the reference leaves them to XLA.  Port of
-``repro/models/layers.py`` (standard RoPE only: M-RoPE waits for its slice),
-with the training loss :func:`cross_entropy`.
+``repro/models/layers.py`` (RMSNorm and LayerNorm, standard RoPE and
+M-RoPE), with the training loss :func:`cross_entropy`.
 """
 from __future__ import annotations
 
@@ -29,29 +29,50 @@ def rmsnorm(w, x, ctx: ExecContext, *, scale_offset: float = 1.0):
     return y.reshape(shp)
 
 
+def layernorm(w, x):
+    """LayerNorm without a bias, with the (1 + w) scale, in float32 at eps
+    1e-5 (plain PyTorch, as in the reference: no kernel computes it)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + 1e-5) * (1.0 + w.float())
+    return y.to(x.dtype)
+
+
 def norm(w, x, cfg: ModelConfig, ctx: ExecContext):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} (whisper's layernorm) is not ported yet "
-            f"(ROADMAP, queue A, LM stack)")
-    return rmsnorm(w, x, ctx)
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(w, x, ctx)
+    return layernorm(w, x)
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (standard)
+# rotary position embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
                 mrope_sections=None):
-    """cos/sin tables for ``positions: (B, S)`` integers, each ``(B, S,
-    head_dim // 2)`` in float32."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet (ROADMAP, queue A, LM stack)")
+    """cos/sin tables, each ``(B, S, head_dim // 2)`` in float32.
+
+    ``positions``: ``(B, S)`` integers, or ``(3, B, S)`` (t, h, w) for
+    M-RoPE.  Under M-RoPE a ``(B, S)`` input stands for all three
+    components, and frequency ``i`` reads the component of its section
+    (``mrope_sections`` frequencies for t, then h, then w); without it a
+    ``(3, B, S)`` input means its first component."""
     half = head_dim // 2
     inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                              device=positions.device) / half))
-    ang = positions.float()[..., None] * inv_freq                 # (B,S,half)
+    if mrope_sections is None:
+        if positions.dim() == 3:
+            positions = positions[0]
+        ang = positions.float()[..., None] * inv_freq             # (B,S,half)
+    else:
+        if positions.dim() != 3:
+            positions = positions[None].expand(3, *positions.shape)
+        sec_id = torch.repeat_interleave(
+            torch.arange(3, device=positions.device),
+            torch.tensor(mrope_sections, device=positions.device))
+        pos_per_freq = positions.float()[sec_id]                  # (half,B,S)
+        ang = torch.movedim(pos_per_freq, 0, -1) * inv_freq       # (B,S,half)
     return torch.cos(ang), torch.sin(ang)
 
 

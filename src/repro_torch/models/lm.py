@@ -1,14 +1,16 @@
 """Model-level forwards: the training loss, cache init, prefill, decode.
 
 Port of ``repro/models/lm.py``.  Batch dict: ``tokens (B, S)`` integer,
-optionally ``positions (B, S)`` (default ``arange``); for the loss
-``labels (B, S)`` integer and optionally ``loss_mask (B, S)``.  The
-reference runs its layer program as ``lax.scan`` groups to keep its HLO
-small; PyTorch runs eagerly, so :func:`_apply_stack` is a plain loop over
-the layers, each under ``torch.utils.checkpoint`` when ``ctx.remat ==
-"block"`` (the reference's ``jax.checkpoint`` of a scan unit).  The
-encoder, the modality stubs and multi-token prediction wait for their
-slices (ROADMAP, queue A).
+optionally ``positions (B, S)`` (default ``arange``); under M-RoPE
+(qwen2-vl) optionally ``positions3 (3, B, S)`` (t, h, w), and for the
+vision stub ``vision_embed (B, P, D)`` with ``vision_slot (B, S)``
+(-1 = text); for the loss ``labels (B, S)`` integer and optionally
+``loss_mask (B, S)``.  The reference runs its layer program as
+``lax.scan`` groups to keep its HLO small; PyTorch runs eagerly, so
+:func:`_apply_stack` is a plain loop over the layers, each under
+``torch.utils.checkpoint`` when ``ctx.remat == "block"`` (the reference's
+``jax.checkpoint`` of a scan unit).  The encoder, learned positions and
+multi-token prediction wait for their slices (ROADMAP, queue A).
 """
 from __future__ import annotations
 
@@ -21,35 +23,56 @@ from .context import ExecContext
 
 
 def embed_inputs(params, batch, cfg: ModelConfig, ctx: ExecContext):
-    if cfg.vision_stub or cfg.pos_embed == "learned":
+    """Token embeddings; with the vision stub, each slot ``vision_slot >=
+    0`` takes patch ``vision_slot`` of ``vision_embed`` instead."""
+    if cfg.pos_embed == "learned":
         raise NotImplementedError(
-            f"{cfg.name}: the vision stub and learned position embeddings "
-            f"are not ported yet (ROADMAP, queue A, LM stack)")
-    return layers.embed_tokens(params, batch["tokens"], cfg)
+            f"{cfg.name}: learned position embeddings (whisper) are not "
+            f"ported yet (ROADMAP A7.6)")
+    x = layers.embed_tokens(params, batch["tokens"], cfg)
+    if cfg.vision_stub and "vision_embed" in batch:
+        slot = batch["vision_slot"]                       # (B,S), -1 = text
+        patches = batch["vision_embed"].to(x.dtype)       # (B,P,D)
+        idx = torch.clamp_min(slot, 0).long()[..., None].expand(
+            *slot.shape, patches.shape[-1])
+        take = torch.gather(patches, 1, idx)
+        x = torch.where((slot >= 0)[..., None], take, x)
+    return x
 
 
 def _rope_for(batch, cfg: ModelConfig, seq_len: int, *, positions=None):
-    """The cos/sin table for the arch; None when unused."""
+    """``(global, local)`` cos/sin tables for the arch, ``None`` where
+    unused: the local one (the ``local`` layers' own theta, gemma3) only
+    when the config sets ``rope_theta_local`` and has ``local`` layers.
+    Under M-RoPE the positions are the batch's ``positions3`` when it has
+    them."""
     a = cfg.attn
     if a is None or cfg.pos_embed not in ("rope", "mrope"):
-        return None
-    if cfg.pos_embed == "mrope" or a.rope_theta_local:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) and a separate local-layer theta (gemma3) are "
-            "not ported yet (ROADMAP, queue A, LM stack)")
+        return None, None
     if positions is None:
-        positions = batch.get("positions")
+        if cfg.pos_embed == "mrope" and "positions3" in batch:
+            positions = batch["positions3"]
+        else:
+            positions = batch.get("positions")
         if positions is None:
             tokens = batch["tokens"]
             positions = torch.arange(seq_len, dtype=torch.int32,
                                      device=tokens.device)[None].expand(
                                          tokens.shape[0], seq_len)
-    return layers.rope_tables(positions, a.head_dim, a.rope_theta)
+    sections = a.mrope_sections if cfg.pos_embed == "mrope" else None
+    rope = layers.rope_tables(positions, a.head_dim, a.rope_theta,
+                              mrope_sections=sections)
+    rope_local = None
+    if a.rope_theta_local and "local" in cfg.layer_program:
+        rope_local = layers.rope_tables(positions, a.head_dim,
+                                        a.rope_theta_local,
+                                        mrope_sections=sections)
+    return rope, rope_local
 
 
 def _apply_stack(layer_params, program, x, cfg: ModelConfig,
-                 ctx: ExecContext, *, rope, caches=None, length=None,
-                 collect_cache=True):
+                 ctx: ExecContext, *, rope, rope_local=None, caches=None,
+                 length=None, collect_cache=True):
     """Run the whole layer program; returns (x, per-layer caches).  With
     ``collect_cache=False`` (training) no cache is built and the caches
     are ``None``; each layer is then recomputed in the backward pass
@@ -60,13 +83,15 @@ def _apply_stack(layer_params, program, x, cfg: ModelConfig,
         if not collect_cache and ctx.remat == "block":
             def layer(x_in, bp, btype=btype):
                 return blocks.apply_block(btype, bp, x_in, cfg=cfg, ctx=ctx,
-                                          rope=rope, collect_cache=False)[0]
+                                          rope=rope, rope_local=rope_local,
+                                          collect_cache=False)[0]
             x, c = checkpoint(layer, x, layer_params[i],
                               use_reentrant=False), None
         else:
             x, c = blocks.apply_block(
                 btype, layer_params[i], x, cfg=cfg, ctx=ctx, rope=rope,
-                cache=cache, length=length, collect_cache=collect_cache)
+                rope_local=rope_local, cache=cache, length=length,
+                collect_cache=collect_cache)
         caches_out.append(c)
     return x, (caches_out if collect_cache else None)
 
@@ -77,9 +102,9 @@ def forward_hidden(params, batch, cfg: ModelConfig, ctx: ExecContext):
     the port does not have)."""
     seq_len = batch["tokens"].shape[1]
     x = embed_inputs(params, batch, cfg, ctx)
-    rope = _rope_for(batch, cfg, seq_len)
+    rope, rope_local = _rope_for(batch, cfg, seq_len)
     x, _ = _apply_stack(params["layers"], cfg.layer_program, x, cfg, ctx,
-                        rope=rope, collect_cache=False)
+                        rope=rope, rope_local=rope_local, collect_cache=False)
     return layers.norm(params["final_norm"], x, cfg, ctx)
 
 
@@ -135,23 +160,30 @@ def prefill(params, batch, cfg: ModelConfig, ctx: ExecContext):
     :func:`repro_torch.runtime.steps._pad_caches`)."""
     seq_len = batch["tokens"].shape[1]
     x = embed_inputs(params, batch, cfg, ctx)
-    rope = _rope_for(batch, cfg, seq_len)
+    rope, rope_local = _rope_for(batch, cfg, seq_len)
     x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
-                             ctx, rope=rope)
+                             ctx, rope=rope, rope_local=rope_local)
     h = layers.norm(params["final_norm"], x[:, -1:], cfg, ctx)
     return layers.logits_from_hidden(params, h, cfg), caches
 
 
 def decode_step(params, token, caches, length: int, cfg: ModelConfig,
-                ctx: ExecContext):
+                ctx: ExecContext, *, positions3=None):
     """One-token decode.  token: (B, 1) integer; length: current cache fill
-    (a Python int).  Returns (logits (B, 1, V), caches written in place)."""
+    (a Python int); ``positions3``: the token's M-RoPE positions (3, B, 1),
+    default ``length`` in all three.  Returns (logits (B, 1, V), caches
+    written in place)."""
     batch = {"tokens": token}
     x = embed_inputs(params, batch, cfg, ctx)
     b = token.shape[0]
-    pos = torch.full((b, 1), length, dtype=torch.int32, device=token.device)
-    rope = _rope_for(batch, cfg, 1, positions=pos)
+    if positions3 is not None:
+        pos = positions3
+    else:
+        pos = torch.full((b, 1), length, dtype=torch.int32,
+                         device=token.device)
+    rope, rope_local = _rope_for(batch, cfg, 1, positions=pos)
     x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
-                             ctx, rope=rope, caches=caches, length=length)
+                             ctx, rope=rope, rope_local=rope_local,
+                             caches=caches, length=length)
     h = layers.norm(params["final_norm"], x, cfg, ctx)
     return layers.logits_from_hidden(params, h, cfg), caches

@@ -3,7 +3,8 @@
 The port's parameters are plain dictionaries::
 
     {"embed": (padded_vocab, d), "final_norm": (d,),
-     "layers": [{"norm1": (d,), "attn": {"wq", "wk", "wv", "wo"},
+     "layers": [{"norm1": (d,), "attn": {"wq", "wk", "wv", "wo",
+                                         "q_norm"?, "k_norm"?},
                  "norm2": (d,), "mlp": {"w_up", "w_gate"?, "w_down"}}, ...]}
 
 one entry of ``"layers"`` per layer of ``cfg.layer_program``, with the leaf
@@ -12,9 +13,10 @@ names and shapes of ``repro/models/params.py``; a ``mamba1`` layer is
 "w_dt", "dt_bias", "a_log", "d_skip", "w_out"}}``.  The reference stacks
 each leaf per scan group (``groups[i][position]`` with a leading repeat
 axis); :func:`from_reference` unstacks that into the per-layer list.  Only
-``attn``/``local`` blocks with a dense MLP and ``mamba1`` blocks, with tied
-or untied embeddings, are supported; other block types raise
-``NotImplementedError``.
+``attn``/``local`` blocks with a dense MLP (qk-norm's ``q_norm``/``k_norm``,
+``(head_dim,)``, where the config has it) and ``mamba1`` blocks, with tied
+or untied embeddings, are supported; other block types and learned
+position embeddings raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,8 +44,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"rest waits for its slice (ROADMAP, queue A, LM stack)")
     if cfg.pos_embed == "learned":
         raise NotImplementedError(
-            f"{cfg.name}: learned position embeddings are not ported yet "
-            f"(ROADMAP, queue A, LM stack)")
+            f"{cfg.name}: learned position embeddings (whisper) are not "
+            f"ported yet (ROADMAP A7.6)")
 
 
 def _dense(gen, shape, device, fan_in=None):
@@ -58,6 +60,9 @@ def _block_params(cfg: ModelConfig, gen, device) -> dict:
             "wk": _dense(gen, (d, a.n_kv_heads * a.head_dim), device),
             "wv": _dense(gen, (d, a.n_kv_heads * a.head_dim), device),
             "wo": _dense(gen, (a.n_heads * a.head_dim, d), device)}
+    if a.qk_norm:
+        attn["q_norm"] = torch.zeros(a.head_dim, device=device)
+        attn["k_norm"] = torch.zeros(a.head_dim, device=device)
     mlp = {"w_up": _dense(gen, (d, f), device)}
     if cfg.act in ("swiglu", "geglu"):
         mlp["w_gate"] = _dense(gen, (d, f), device)

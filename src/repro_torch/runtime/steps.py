@@ -12,7 +12,9 @@ Serving: sampling, cache padding, prefill and decode steps.  ``jax.random``
 keys become an explicit ``torch.Generator``; greedy sampling needs none.
 The caches are per-layer dicts: ``{"k", "v"}`` for attention, which the
 decode step writes in place, or ``{"conv", "ssm"}`` for Mamba-1, which it
-replaces; ``length`` is a Python int.
+replaces; ``length`` is a Python int.  With ``local_ring=True`` the
+sliding-window layers keep window-sized ring caches after the prefill
+(the reference's ``init_cache(local_ring=True)`` layout).
 """
 from __future__ import annotations
 
@@ -133,27 +135,59 @@ def _pad_caches(caches, cfg: ModelConfig, max_len: int):
     return [{k: pad(k, v) for k, v in c.items()} for c in caches]
 
 
+def _ring_caches(caches, cfg: ModelConfig, length: int):
+    """Each ``local`` layer's cache cut to ``min(extent, window)`` slots,
+    the decode step's ring buffer: position p of the last ones written
+    sits at slot p mod slots, where :func:`lm.decode_step` looks for it.
+    The other layers' caches are returned as they are."""
+    w = cfg.attn.window if cfg.attn is not None else 0
+    out = []
+    for btype, c in zip(cfg.layer_program, caches):
+        if btype != "local" or w <= 0:
+            out.append(c)
+            continue
+        slots = min(c["k"].shape[2], w)
+        pos = torch.arange(max(length - slots, 0), length,
+                           device=c["k"].device)
+        ring = {}
+        for name in ("k", "v"):
+            t = c[name]
+            r = t.new_zeros(t.shape[0], t.shape[1], slots, t.shape[3])
+            r[:, :, pos % slots] = t[:, :, pos]
+            ring[name] = r
+        out.append(ring)
+    return out
+
+
 def build_serve_steps(cfg: ModelConfig, ctx: ExecContext, *, max_len: int,
-                      temperature: float = 0.0, top_k: int = 0):
+                      temperature: float = 0.0, top_k: int = 0,
+                      local_ring: bool = False):
     """Returns (prefill_step, decode_step).
 
     prefill_step(params, batch, generator) -> (token, caches, length, logits)
-    decode_step(params, token, caches, length, generator)
+    decode_step(params, token, caches, length, generator, positions3=None)
         -> (next_token, caches, length + 1, logits)
 
     The last slot, the encoder output in the reference, is the step's
     logits (B, 1, V) here: the port has no encoder, and a caller that
-    checks or scores the tokens needs them."""
+    checks or scores the tokens needs them.  ``positions3`` (3, B, 1): the
+    token's M-RoPE positions (default ``length`` in all three).
+    ``local_ring``: the ``local`` layers' caches become window-sized ring
+    buffers after the prefill (:func:`_ring_caches`)."""
     def prefill_step(params, batch, generator=None):
         logits, caches = lm.prefill(params, batch, cfg, ctx)
+        length = int(batch["tokens"].shape[1])
         caches = _pad_caches(caches, cfg, max_len)
+        if local_ring:
+            caches = _ring_caches(caches, cfg, length)
         tok = sample_logits(logits, generator, temperature=temperature,
                             top_k=top_k)
-        return tok, caches, int(batch["tokens"].shape[1]), logits
+        return tok, caches, length, logits
 
-    def decode_step(params, token, caches, length, generator=None):
+    def decode_step(params, token, caches, length, generator=None,
+                    positions3=None):
         logits, caches = lm.decode_step(params, token, caches, length, cfg,
-                                        ctx)
+                                        ctx, positions3=positions3)
         tok = sample_logits(logits, generator, temperature=temperature,
                             top_k=top_k)
         return tok, caches, length + 1, logits

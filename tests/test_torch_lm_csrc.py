@@ -587,7 +587,11 @@ def _at_offset(t, offset):
 RMS_CASES = [(d, n) for d in (64, 100, 2304) for n in (1, 2, 3, 37, 64, 130)]
 
 
-@pytest.mark.parametrize("d,n", RMS_CASES + [(2304, 9)])
+#: the dense archs' widths: qwen2-vl 1536, phi3 5120, gemma3 5376
+DENSE_RMS_CASES = [(d, n) for d in (1536, 5120, 5376) for n in (3, 37)]
+
+
+@pytest.mark.parametrize("d,n", RMS_CASES + [(2304, 9)] + DENSE_RMS_CASES)
 def test_rmsnorm_site_matches_plain(host_lib, d, n):
     x, w = _rand(0, (d, n)), _rand(1, (d,))
     want = tref.rmsnorm_ref(x.T, w, scale_offset=1.0).T
@@ -623,6 +627,27 @@ def test_gated_and_act_sites_match_plain(host_lib, kind, gated):
                                  1 if moved == "out" else 0)
                 assert _lm(host_lib, site, act, vvl, uu, vv, None, out) == 0
                 torch.testing.assert_close(out, want, **TOL)
+
+
+@pytest.mark.parametrize("kind,gated,n", [
+    ("swiglu", True, 2 * 8960 + 3),      # qwen2-vl's FFN, ragged
+    ("swiglu", True, 17920 + 1),         # phi3's
+    ("relu2", False, 24576 + 5),         # nemotron's, ungated
+    ("geglu", True, 21504 + 7)])         # gemma3's
+def test_dense_arch_mlp_widths(host_lib, kind, gated, n):
+    """The dense archs' MLP activations at their FFN widths plus a ragged
+    tail, every VVL, aligned and with ``out`` at a storage offset of one
+    element."""
+    act = _build.LM_ACT_ID[tlm.ACT_OF_KIND[kind]]
+    u = _rand(20, (1, n), 3.0)
+    v = _rand(21, (1, n)) if gated else None
+    want = tref.gated_act_ref(u, v, kind=kind)
+    for offset in (0, 1):
+        for vvl in (1, 2, 4, 8):
+            out = _at_offset(torch.full((1, n), float("nan")), offset)
+            assert _lm(host_lib, "gated" if gated else "act", act, vvl, u, v,
+                       None, out) == 0
+            torch.testing.assert_close(out, want, **TOL)
 
 
 def _mamba(so, nstate, vvl, fields, b, c, y, h, rows=1):
@@ -838,6 +863,14 @@ _FLASH = {
     "window_softcap_dh128": ((1, 2, 1, 100, 100, 128),
                              dict(causal=True, window=33, softcap=50.0)),
     "gqa_dh256": ((1, 4, 2, 70, 70, 256), dict(causal=True, softcap=50.0)),
+    # the dense archs' head mapping and masks at Dh 128 with no softcap:
+    # GQA group 6 (qwen2-vl 12/2, nemotron 48/8) over ragged query and key
+    # tiles, and a window far narrower than the keys (gemma3's local
+    # layers: most key tiles of a row dead)
+    "gqa6_causal_dh128": ((1, 12, 2, 140, 140, 128), dict(causal=True)),
+    "gqa6_noncausal_dh128": ((1, 6, 1, 70, 45, 128), dict(causal=False)),
+    "narrow_window_dh128": ((1, 4, 2, 200, 200, 128),
+                            dict(causal=True, window=40)),
 }
 
 

@@ -25,7 +25,7 @@ from repro.runtime import steps as jsteps
 from repro_torch import configs as TC
 from repro_torch.models import lm as tlm
 from repro_torch.models import params as tparams
-from repro_torch.models.config import SSMConfig, plan_layer_groups
+from repro_torch.models.config import MLAConfig, SSMConfig, plan_layer_groups
 from repro_torch.models.context import ExecContext
 from repro_torch.runtime import steps as tsteps
 
@@ -217,24 +217,27 @@ def test_serve_cli_smoke_on_cpu(capsys):
 
 def test_unported_blocks_and_features_raise():
     import dataclasses
-    from repro_torch.models import blocks, layers
+    from repro_torch.models import blocks
     cfg = TC.get_smoke("gemma2_2b")
-    with pytest.raises(NotImplementedError, match="attn/local"):
-        blocks.apply_block("mamba2", {}, torch.zeros(1, 2, cfg.d_model),
-                           cfg=cfg, ctx=ExecContext())
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        layers.rope_tables(torch.zeros(1, 2), 16, 1e4, mrope_sections=(2, 3, 3))
+    for btype in ("mamba2", "xattn", "attn_moe"):
+        with pytest.raises(NotImplementedError, match="attn/local"):
+            blocks.apply_block(btype, {}, torch.zeros(1, 2, cfg.d_model),
+                               cfg=cfg, ctx=ExecContext())
+    with pytest.raises(NotImplementedError, match="mla=True"):
+        tparams.init_params(dataclasses.replace(cfg, mla=MLAConfig()),
+                            torch.Generator(), "cpu")
     hybrid = dataclasses.replace(cfg, layer_program=("attn", "mamba2") * 2,
                                  ssm=SSMConfig(kind="mamba2"))
     with pytest.raises(NotImplementedError, match="only attn/local"):
         tparams.init_params(hybrid, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="local-layer theta"):
-        tlm._rope_for({"tokens": torch.zeros(1, 2, dtype=torch.long)},
-                      dataclasses.replace(cfg, attn=dataclasses.replace(
-                          cfg.attn, rope_theta_local=1e4)), 2)
-    with pytest.raises(NotImplementedError, match="layernorm"):
-        layers.norm(torch.zeros(cfg.d_model), torch.zeros(1, cfg.d_model),
-                    dataclasses.replace(cfg, norm="layernorm"), ExecContext())
+    # learned position embeddings (whisper's) wait for the encoder slice
+    learned = dataclasses.replace(cfg, pos_embed="learned")
+    with pytest.raises(NotImplementedError, match="learned position"):
+        tparams.init_params(learned, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="learned position"):
+        tlm.embed_inputs({"embed": torch.zeros(cfg.padded_vocab, cfg.d_model)},
+                         {"tokens": torch.zeros(1, 2, dtype=torch.long)},
+                         learned, ExecContext())
     with pytest.raises(KeyError, match="not yet ported"):
         TC.get_config("zamba2-2.7b")
     with pytest.raises(ValueError, match="backend"):

@@ -3,9 +3,13 @@
     python3 tools/profile_serve.py [--arch gemma2-2b] [--batch 2] \
         [--prompt-len 4608] [--decode 16] [--src DIR] [--tag NAME]
     python3 tools/profile_serve.py --arch falcon-mamba-7b   # prompt 4096
+    python3 tools/profile_serve.py --arch gemma3-27b  # 12 layers, 4096
 
-Builds ``--arch`` (gemma2-2b by default, or falcon-mamba-7b) at full width
-with seeded random float32 weights, serves
+Builds ``--arch`` (gemma2-2b by default, or any arch of the port's
+registry) at full width with seeded random float32 weights, at
+``--layers`` (default: all, or ``chip_smoke.py`` phase 10's cut of gemma3,
+phi3 and nemotron), with the reference launcher's vision-stub and M-RoPE
+inputs (``launch.serve.stub_inputs``) where the arch reads them, serves
 ``--batch`` random prompts once to warm up, then traces the prefill and the
 ``--decode`` greedy decode steps with ``torch.profiler`` (two traces).  For
 each it reports the host wall time (ending in ``torch.cuda.synchronize()``),
@@ -35,7 +39,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_KERNELS = ("flash_fwd_kernel", "ew_kernel", "rms_tiled_kernel",
                 "rms_few_kernel", "mamba_kernel")
 #: the prompt length each arch is served at by default (chip_smoke.py's)
-DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096}
+DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096,
+                  "gemma3-27b": 4096, "qwen2-vl-2b": 4096,
+                  "phi3-medium-14b": 2048, "nemotron-4-15b": 2048}
+#: the layers kept by default (chip_smoke.py phase 10's cut; 0 = all)
+DEFAULT_LAYERS = {"gemma3-27b": 12, "phi3-medium-14b": 10,
+                  "nemotron-4-15b": 8}
 
 
 def summarize(prof, wall_s: float, per: int) -> dict:
@@ -69,12 +78,15 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="gemma2-2b", choices=sorted(DEFAULT_PROMPT))
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--decode", type=int, default=16)
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
     if args.prompt_len is None:
         args.prompt_len = DEFAULT_PROMPT[args.arch]
+    if args.layers is None:
+        args.layers = DEFAULT_LAYERS.get(args.arch, 0)
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device is available", file=sys.stderr)
         return 1
@@ -97,10 +109,16 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = configs.get_config(args.arch)
+    if args.layers:
+        cfg = configs.first_layers(cfg, args.layers)
     params = model_params.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)}
+    if cfg.vision_stub or cfg.pos_embed == "mrope":
+        from repro_torch.launch.serve import stub_inputs
+        batch.update(stub_inputs(cfg, args.batch, args.prompt_len, rng, dev))
     pre, dec = build_serve_steps(cfg, ExecContext(backend="cuda"),
                                  max_len=args.prompt_len + args.decode)
 
@@ -120,16 +138,17 @@ def main(argv=None) -> int:
         return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     with torch.inference_mode():
-        tok, caches, length, _ = pre(params, {"tokens": prompts})   # warm-up
+        tok, caches, length, _ = pre(params, batch)   # warm-up
         decode_all(tok, caches, length)
         with trace() as p_pre:
             (tok, caches, length, _), t_pre = timed(
-                lambda: pre(params, {"tokens": prompts}))
+                lambda: pre(params, batch))
         with trace() as p_dec:
             _, t_dec = timed(lambda: decode_all(tok, caches, length))
     traced = {"prefill": (p_pre, t_pre), "decode": (p_dec, t_dec)}
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "src": str(src), "tag": args.tag, "arch": args.arch,
+              "layers": cfg.n_layers,
               "batch": args.batch, "prompt_len": args.prompt_len,
               "decode_steps": args.decode,
               "prefill": summarize(*traced["prefill"], per=1),
