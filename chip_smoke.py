@@ -25,14 +25,17 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    a query tile with no live key, the dense archs' full-width layers at Dh
    128 without softcap (gemma3's window 1024 and global GQA 32/16,
    qwen2-vl's 12/2, nemotron's 48/8, phi3's 40/10) and GQA group 6 over
-   ragged tiles, and (B, S, H, Dh) tensors seen as (B, H,
+   ragged tiles, granite-moe-1b-a400m's layer at Dh 64 (GQA 16/8, 2 ×
+   4096), and (B, S, H, Dh) tensors seen as (B, H,
    S, Dh) (``ATTN_VIEW_CASES``); ``rmsnorm`` at VVL 1, 2, 4 and 8 at gemma2's and
    falcon-mamba-7b's prefill and decode shapes, a ragged (37, 64) and the
-   dense archs' prefills (d 5376, 1536, 5120), the
+   dense archs' prefills (d 5376, 1536, 5120), granite's prefill, decode
+   and training step (d 1024), the
    ``gated``/``act`` site functions (all five kinds) at VVL 1, 2, 4 and 8
    at full width and on operands at a storage offset of one element (the
    unaligned path, a ragged extent), and qwen2-vl's SwiGLU and nemotron's
-   squared ReLU at their prefills' sizes (``DENSE_EW_CHECKS``); the
+   squared ReLU at their prefills' sizes and granite's SwiGLU over its
+   prefill's packed expert rows (81 920, 512) (``DENSE_EW_CHECKS``); the
    ``mamba`` site function
    (``ops.mamba_scan``, every batch row in one launch) at VVL 1, 2, 4 and 8
    on the reference tests' shapes, a ragged 1000 channels, falcon-mamba-7b's
@@ -97,7 +100,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    and 8 (``ms_by_vvl``); the dense archs' shapes (``dense_rows``:
    ``DENSE_RMS_ROWS``, ``DENSE_EW_ROWS``, ``DENSE_ATTN_ROWS``, kernel 4
    beside ``scaled_dot_product_attention`` with ``is_causal`` or, for
-   gemma3's window, a boolean band mask);
+   gemma3's window, a boolean band mask) and granite's (``MOE_*_ROWS``:
+   rmsnorm at (1024, 8192) beside ``F.rms_norm``, SwiGLU over the packed
+   expert rows (81 920, 512), kernel 4 at (2, 16 / 8, 4096, Dh 64) beside
+   SDPA);
    MLUPS per regime; prefill ms, decode ms per step and
    tokens/s of both serving paths, on the kernels and on the plain path;
    the calibration kernels at the calibration sizes beside ``torch.add``;
@@ -204,6 +210,32 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    line, the phase's paths merged into the LM kernel rows.  ``python3
    chip_smoke.py --only dense`` runs phases 1, 2 and 10 alone.
 
+11. Mixture-of-Experts (``moe_phase``): granite-moe-1b-a400m (24
+   ``attn_moe`` layers, 32 experts of 512, top 8) whole at full width
+   from seeded random float32 weights.  One MoE layer alone on 8192
+   tokens: ``backend="cuda"`` against ``"torch"`` (``LM_TOL``), ``ragged``
+   against ``capacity`` at the dropless factor E/K
+   (``MOE_DROPLESS_TOL``), the choices dropped at the config's 1.25, each
+   timed; the model served through ``build_serve_steps`` (2 prompts of
+   4096 tokens, 16 greedy steps) on the kernels, on the plain path and
+   warm, with every ``models.moe._route`` call's experts and margins
+   recorded on both paths (``recorded_routes``): a route that differs is
+   reported with the plain path's margin (the gap between its k-th and
+   (k+1)-th router probability) and is a fault at ``MOE_ROUTE_MARGIN`` or
+   more; logits are held at 1e-3 and tokens to equality on the sequences
+   whose routes and kept choices agree so far (``RouteHold``), and on
+   every sequence once more with the kernels run on the plain path's
+   routes (``forced_routes``); the
+   choices dropped in the prefill counted by layer; launches of a prefill
+   and of the decode steps held to ``dense_expected``; training through
+   ``launch.train`` (``MOE_TRAIN_ARGS``: 6 steps of 8 × 256 tokens in one
+   microbatch), step 1's batch at a lower loss through the trained
+   weights, step 1's routes recorded and held the same way and step 1 held to the plain path at ``TRAIN_TOL`` (the loss
+   alone where a near-tie route differs); printed as one ``{"moe": ...}``
+   line, the phase's paths merged into the LM kernel rows.  ``python3
+   chip_smoke.py --only moe`` runs phases 1, 2 and 11 alone, with phase
+   5's rows at granite's shapes counting this phase's paths.
+
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
 Long output goes to ``chiprun_out/chip_smoke.json``.
@@ -211,6 +243,7 @@ Long output goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -401,10 +434,15 @@ RMS_CHECKS = [(SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64),
               (SERVE_BATCH, 4096), (SERVE_BATCH * MAMBA_PROMPT, 4096),
               # the dense archs' prefills: gemma3, qwen2-vl (2 × 4096
               # tokens), phi3 (2 × 2048)
-              (8192, 5376), (8192, 1536), (4096, 5120)]
+              (8192, 5376), (8192, 1536), (4096, 5120),
+              # granite-moe-1b-a400m's prefill, decode and training step
+              (8192, 1024), (2, 1024), (2048, 1024)]
 #: the dense archs' MLP activations, (kind, gated, tokens, d_ff): qwen2-vl's
 #: SwiGLU and nemotron's ungated squared ReLU at their prefills' sizes
-DENSE_EW_CHECKS = [("swiglu", True, 8192, 8960), ("relu2", False, 4096, 24576)]
+DENSE_EW_CHECKS = [("swiglu", True, 8192, 8960), ("relu2", False, 4096, 24576),
+                   # granite's SwiGLU over the packed expert rows (32
+                   # experts × 2560 slots) of its 2 × 4096-token prefill
+                   ("swiglu", True, 81920, 512)]
 #: Elements of the unaligned gated/act check: not a multiple of 4.
 UNALIGNED_N = 1_000_003
 #: Calls the mamba site function's plain version (a Python loop over 4096
@@ -442,6 +480,8 @@ ATTN_CASES = [(2, 4, 4, 128, 128, 32, c, 0, 0.0) for c in (True, False)] + [
     # GQA group 6 over ragged query and key tiles, with and without a window
     (1, 12, 2, 300, 300, 128, True, 70, 0.0),
     (1, 12, 2, 200, 333, 128, False, 0, 0.0),
+    # granite-moe-1b-a400m at full width: Dh 64 (64-key tiles), GQA 16/8
+    (2, 16, 8, 4096, 4096, 64, True, 0, 0.0),
 ]
 #: ATTN_CASES entries also run on (B, S, H, Dh) tensors seen as (B, H, S,
 #: Dh): the layout the model hands the kernel.
@@ -518,17 +558,24 @@ ROW_FUNCTIONS = {"rmsnorm": "_RMSNormFn", "gated": "_GatedActFn",
 
 #: Phase 5's rows of the dense archs' shapes: rmsnorm (suffix, d, tokens)
 #: at their prefills; the MLP activations (name, kind, gated, tokens, d_ff,
-#: float32 operations an element); kernel 4 (name, B, Hq, Hkv, S, window)
-#: at Dh 128, causal, no softcap.
+#: float32 operations an element); kernel 4 (name, B, Hq, Hkv, S, window,
+#: Dh), causal, no softcap.
 DENSE_RMS_ROWS = [(".gemma3_d5376", 5376, 8192), (".qwen2vl_d1536", 1536, 8192),
                   (".phi3_d5120", 5120, 4096)]
 DENSE_EW_ROWS = [("tdp_gathered.gated.swiglu", "swiglu", True, 8192, 8960, 5),
                  ("tdp_gathered.act.relu2", "relu2", False, 4096, 24576, 2)]
-DENSE_ATTN_ROWS = [("gemma3_local", 2, 32, 16, 4096, 1024),
-                   ("gemma3_attn", 2, 32, 16, 4096, 0),
-                   ("qwen2vl", 2, 12, 2, 4096, 0),
-                   ("nemotron", 2, 48, 8, 2048, 0),
-                   ("phi3", 2, 40, 10, 2048, 0)]
+DENSE_ATTN_ROWS = [("gemma3_local", 2, 32, 16, 4096, 1024, 128),
+                   ("gemma3_attn", 2, 32, 16, 4096, 0, 128),
+                   ("qwen2vl", 2, 12, 2, 4096, 0, 128),
+                   ("nemotron", 2, 48, 8, 2048, 0, 128),
+                   ("phi3", 2, 40, 10, 2048, 0, 128)]
+#: The same rows at granite-moe-1b-a400m's prefill (phase 11): rmsnorm at d
+#: 1024 over 2 × 4096 tokens, SwiGLU over the packed expert rows (32
+#: experts × 2560 slots of 512), kernel 4 at Dh 64, GQA 16/8.
+MOE_RMS_ROWS = [(".granite_d1024", 1024, 8192)]
+MOE_EW_ROWS = [("tdp_gathered.gated.granite_experts", "swiglu", True, 81920,
+                512, 5)]
+MOE_ATTN_ROWS = [("granite", 2, 16, 8, 4096, 0, 64)]
 #: Phase 10, the dense archs served at full width: (layers kept, prompt
 #: length), 2 prompts each.  gemma3-27b's 62 layers (108 GB of float32
 #: weights) exceed a card: 12 layers are two whole 5:1 groups (25.5 GB).
@@ -551,6 +598,21 @@ DENSE_TRAIN_ARGS = ["--seq-len", "256", "--global-batch", "8", "--grad-accum",
 #: the LM examples: train_lm's 22m preset for its default 300 steps, then
 #: serve_lm from its checkpoint
 EXAMPLE_STEPS = 300
+#: Phase 11, granite-moe-1b-a400m whole at full width (24 attn_moe layers,
+#: 32 experts of 512, top 8; 1.33e9 float32 parameters): 2 prompts of 4096
+#: tokens served, then 6 training steps of 8 × 256 tokens in one
+#: microbatch (2048 tokens: 640 slots an expert, 20 480 packed rows).
+MOE_ARCH, MOE_PROMPT, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 4096, 6
+MOE_TRAIN_ARGS = ["--arch", MOE_ARCH, "--seq-len", "256", "--global-batch",
+                  "8", "--grad-accum", "1", "--warmup", str(TRAIN_WARMUP),
+                  "--ckpt-every", "0", "--log-every", "1"]
+#: A route may differ between the kernels and the plain path only where the
+#: plain path's k-th and (k+1)-th router probabilities lie closer than this
+#: (the paths differ by float32 rounding: rmsnorm by up to 3.8e-6).
+MOE_ROUTE_MARGIN = 1e-5
+#: ragged (dropless) against capacity at the dropless factor E/K, one MoE
+#: layer on the kernels: the same products in other GEMM shapes
+MOE_DROPLESS_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def log(msg: str) -> None:
@@ -3160,8 +3222,11 @@ def merge_training_launches(rows, by_path, training: dict) -> None:
                                if k.startswith(prefix)}
 
 
-def dense_rows(launches, launches_by_path, max_err, problems, record) -> list:
-    """Phase 5, the dense archs' shapes (``DENSE_*_ROWS``): each kernel held
+def dense_rows(launches, launches_by_path, max_err, problems, record, *,
+               rms_rows=DENSE_RMS_ROWS, ew_rows=DENSE_EW_ROWS,
+               attn_rows=DENSE_ATTN_ROWS) -> list:
+    """Phase 5, the dense archs' shapes (``DENSE_*_ROWS``, or granite's
+    ``MOE_*_ROWS``): each kernel held
     to its plain version, then timed beside it, its bound and, where one
     PyTorch call computes the same function, that call (``lm_row``):
     ``F.rms_norm``; ``scaled_dot_product_attention`` (``enable_gqa``),
@@ -3197,13 +3262,13 @@ def dense_rows(launches, launches_by_path, max_err, problems, record) -> list:
         rows.append(row)
         torch.cuda.empty_cache()
 
-    for suffix, d, ntok in DENSE_RMS_ROWS:
+    for suffix, d, ntok in rms_rows:
         pointwise_row("tdp_gathered.rmsnorm" + suffix, lm.rmsnorm_spec(d),
                       [torch.randn(d, ntok, device=dev, generator=g)],
                       {"weight": torch.randn(d, device=dev, generator=g),
                        "eps": 1e-6, "scale_offset": 1.0},
                       8 * d * ntok + 4 * d, 5 * d * ntok)
-    for name, kind, gated, ntok, nff, ops_per in DENSE_EW_ROWS:
+    for name, kind, gated, ntok, nff, ops_per in ew_rows:
         n = ntok * nff
         xs = [3.0 * torch.randn(1, n, device=dev, generator=g)]
         if gated:
@@ -3212,8 +3277,7 @@ def dense_rows(launches, launches_by_path, max_err, problems, record) -> list:
                       4 * n * (len(xs) + 1), ops_per * n)
         rows[-1]["shape"] = [ntok, nff]
         del xs
-    dh = 128
-    for tag, b, hq, hkv, sq, window in DENSE_ATTN_ROWS:
+    for tag, b, hq, hkv, sq, window, dh in attn_rows:
         q = torch.randn(b, hq, sq, dh, device=dev, generator=g)
         k, v = (torch.randn(b, hkv, sq, dh, device=dev, generator=g)
                 for _ in range(2))
@@ -3409,10 +3473,379 @@ def dense_archs_phase(drive, by_path, problems, device="cuda") -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_routes(limit=None):
+    """Yields a list that gets, for each of the first ``limit`` (all:
+    ``None``) calls of ``models.moe._route``, its experts (T, K) and each
+    row's margin, the gap between its k-th and (k+1)-th router probability
+    (T,), on the card, in call order."""
+    from repro_torch.models import moe
+    route, calls = moe._route, []
+
+    def wrapped(x2, w, cfg_moe):
+        out = route(x2, w, cfg_moe)
+        if limit is None or len(calls) < limit:
+            top = torch.topk(out[2].detach(), cfg_moe.top_k + 1, dim=-1).values
+            calls.append((out[1].detach().clone(), top[:, -2] - top[:, -1]))
+        return out
+    moe._route = wrapped
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+@contextlib.contextmanager
+def forced_routes(calls):
+    """Inside the block, call i of ``models.moe._route`` returns the
+    experts of ``calls[i]`` (another run's, from ``recorded_routes``) with
+    this run's router probabilities at them as the weights, renormalised
+    as ``_route`` does: two paths compared with their routing held equal."""
+    from repro_torch.models import moe
+    route, done = moe._route, [0]
+
+    def wrapped(x2, w, cfg_moe):
+        _, _, probs = route(x2, w, cfg_moe)
+        top_e = calls[done[0]][0]
+        done[0] += 1
+        top_w = probs.gather(-1, top_e.long())
+        if cfg_moe.router_scale:
+            top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+        return top_w, top_e, probs
+    moe._route = wrapped
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def kept_by_expert(top_e, moe_cfg) -> torch.Tensor:
+    """(T, E) flags: the (token, expert) choices the capacity path keeps
+    (each expert's first ``cap`` choosing tokens in token order; the order
+    of a token's K choices does not matter)."""
+    from repro_torch.models import moe
+    t, k = top_e.shape
+    flat = top_e.reshape(-1).long()
+    onehot = torch.nn.functional.one_hot(flat, moe_cfg.num_experts)
+    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+    kept = torch.zeros(t, moe_cfg.num_experts, dtype=torch.bool,
+                       device=top_e.device)
+    kept[torch.arange(t, device=top_e.device).repeat_interleave(k), flat] = (
+        pos < moe.capacity(t, moe_cfg))
+    return kept
+
+
+class RouteHold:
+    """Routes of the kernels against the plain path's, call by call, for
+    ``nseq`` sequences: a sequence stays alive while its routes and its
+    kept choices agree in every call so far; a route that differs in a
+    live sequence is reported with the plain path's margin, and one at a
+    margin of ``MOE_ROUTE_MARGIN`` or more is a fault."""
+
+    def __init__(self, moe_cfg, nseq: int, what: str):
+        self.moe_cfg, self.what = moe_cfg, what
+        self.alive = torch.ones(nseq, dtype=torch.bool)
+        self.routes = 0
+        self.differing: list[dict] = []
+
+    def call(self, i, kern, plain) -> None:
+        (ke, _), (pe, margin) = kern, plain
+        differ = (ke.sort(-1).values != pe.sort(-1).values).any(-1)
+        parted = differ | (kept_by_expert(ke, self.moe_cfg)
+                           != kept_by_expert(pe, self.moe_cfg)).any(-1)
+        per_seq = ke.shape[0] // self.alive.numel()
+        live = self.alive.repeat_interleave(per_seq).to(differ.device)
+        self.routes += int(live.sum()) * ke.shape[1]
+        for r in (differ & live).nonzero().flatten().tolist():
+            self.differing.append({"call": i, "row": r,
+                                   "margin": float(margin[r])})
+        self.alive &= ~parted.reshape(-1, per_seq).any(-1).cpu()
+
+    def report(self, problems) -> dict:
+        bad = [d for d in self.differing if d["margin"] >= MOE_ROUTE_MARGIN]
+        if bad:
+            problems.append(f"{self.what}: {len(bad)} routes differ from the "
+                            f"plain path at a margin of {MOE_ROUTE_MARGIN} or "
+                            f"more: {bad[:5]}")
+        return {"routes_compared": self.routes,
+                "differing_routes": len(self.differing),
+                "differing": self.differing[:50],
+                "largest_margin_of_a_differing_route": max(
+                    (d["margin"] for d in self.differing), default=None),
+                "sequences_alive": int(self.alive.sum())}
+
+
+def moe_serve(cfg, drive, problems, device="cuda") -> dict:
+    """Phase 11, serving: granite whole from seeded random float32
+    weights, ``SERVE_BATCH`` prompts of ``MOE_PROMPT`` tokens and
+    ``SERVE_DECODE`` greedy steps through ``build_serve_steps`` on the
+    kernels (counted, routes recorded), on the plain path (the same), on
+    the kernels with the plain path's routes (``forced_routes``) and on the
+    kernels warm (timed).  The first run's logits held at ``SERVE_TOL`` and
+    its tokens to equality on the sequences whose routes and kept choices
+    agree so far (``RouteHold``; a token that differs at a near tie of the
+    logits parts its sequence, as in ``compare_serving``); the run on the
+    plain path's routes held to the plain path on every sequence
+    (``compare_serving``)."""
+    from repro_torch.models import params as model_params
+    dev = torch.device(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mparams = model_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, MOE_PROMPT))).to(dev)}
+    with recorded_routes() as kern_routes:
+        served = serve_run(mparams, cfg, "cuda", batch, drive=drive)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with recorded_routes() as plain_routes:
+        plain = serve_run(mparams, cfg, "torch", batch, drive=drive)
+    with forced_routes(plain_routes):
+        forced = serve_run(mparams, cfg, "cuda", batch)
+    warm = serve_run(mparams, cfg, "cuda", batch)
+    n = cfg.n_layers
+    hold = RouteHold(cfg.moe, SERVE_BATCH, f"phase 11 {cfg.name} serving")
+    if len(kern_routes) != len(plain_routes) or len(kern_routes) != n * (
+            1 + SERVE_DECODE):
+        problems.append(f"phase 11: {len(kern_routes)} and "
+                        f"{len(plain_routes)} routed calls, expected "
+                        f"{n * (1 + SERVE_DECODE)}")
+    steps = []
+    for i, (lk, lp, tk, tp) in enumerate(zip(served["logits"], plain["logits"],
+                                             served["tokens"], plain["tokens"])):
+        for c in range(i * n, min((i + 1) * n, len(kern_routes),
+                                  len(plain_routes))):
+            hold.call(c, kern_routes[c], plain_routes[c])
+        ok = hold.alive.to(dev)
+        top2 = torch.topk(lp.float(), 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        tol = SERVE_TOL["atol"] + SERVE_TOL["rtol"] * float(lp.abs().max())
+        same = (tk == tp).reshape(-1)
+        diff_all = float((lk - lp).abs().max())
+        diff = float((lk - lp)[ok].abs().max()) if ok.any() else None
+        steps.append({"step": i, "sequences_compared": int(ok.sum()),
+                      "max_abs_logit_diff": diff,
+                      "max_abs_logit_diff_all_sequences": diff_all,
+                      "min_top2_margin": float(margin.min()),
+                      "tokens_equal": bool(same.all())})
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            problems.append(f"phase 11 {cfg.name} step {i}: non-finite logits")
+        if ok.any() and not torch.allclose(lk[ok], lp[ok], **SERVE_TOL):
+            problems.append(f"phase 11 {cfg.name} step {i}: logits differ by "
+                            f"{diff}")
+        if bool((~same & ok & (margin > 2 * tol)).any()):
+            problems.append(f"phase 11 {cfg.name} step {i}: greedy tokens "
+                            f"differ where the margin exceeds {2 * tol}")
+        hold.alive &= same.cpu()
+    # choices the capacity path dropped in the kernels' prefill, by layer
+    dropped = [e.numel() - int(kept_by_expert(e, cfg.moe).sum())
+               for e, _ in kern_routes[:n]]
+    out = {"tolerance": SERVE_TOL, "steps": steps,
+           "routes": hold.report(problems), "params": cfg.num_params(),
+           "prefill_dropped_choices_by_layer": dropped,
+           "prefill_choices_per_layer": SERVE_BATCH * MOE_PROMPT
+           * cfg.moe.top_k,
+           "layers": n, "prompt": [SERVE_BATCH, MOE_PROMPT],
+           "decode_steps": SERVE_DECODE, "peak_memory_gb_kernels": peak_gb}
+    out["with_the_plain_routes"] = compare_serving(
+        forced, plain, problems, f"phase 11 {cfg.name} on the plain path's "
+        f"routes")
+    for name, run in (("kernels_first_run", served), ("kernels_warm", warm),
+                      ("plain", plain)):
+        out[name] = {
+            "prefill_ms": run["prefill_ms"],
+            "prefill_tokens_per_s": SERVE_BATCH * MOE_PROMPT
+            / run["prefill_ms"] * 1e3,
+            "decode_ms_per_step": run["decode_ms_per_step"],
+            "decode_tokens_per_s": SERVE_BATCH / run["decode_ms_per_step"]
+            * 1e3}
+    if not all(torch.equal(a, b) for a, b in zip(warm["tokens"],
+                                                 served["tokens"])):
+        problems.append(f"phase 11 {cfg.name}: the warm run's tokens differ "
+                        f"from the first")
+    del mparams, served, plain, forced, warm, batch, kern_routes, plain_routes
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer(cfg, problems, device="cuda") -> dict:
+    """Phase 11, one MoE layer alone at full width on 8192 tokens of unit
+    variance (an ``rmsnorm`` output's scale): ``backend="cuda"`` against
+    ``"torch"`` at the config's capacity (``LM_TOL``), its dropped choices
+    counted; ``ragged`` against ``capacity`` at the dropless factor E/K
+    (``MOE_DROPLESS_TOL``); each timed (CUDA events; ``ragged`` by wall
+    clock: it copies its group sizes to the host)."""
+    from repro_torch.models import moe
+    from repro_torch.models import params as model_params
+    from repro_torch.models.context import ExecContext
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(21)
+    p = model_params._moe_params(cfg, g, dev)
+    x = torch.randn(1, SERVE_BATCH * MOE_PROMPT, cfg.d_model, device=dev,
+                    generator=g)
+    t, mo = x.shape[1], cfg.moe
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+
+    def run(backend, impl="capacity", c=cfg):
+        return moe.moe_mlp(p, x, c, ExecContext(backend=backend,
+                                                moe_impl=impl))
+    with torch.inference_mode():
+        kern, plain = run("cuda"), run("torch")
+        ragged, packed = run("cuda", "ragged", dropless), run("cuda", c=dropless)
+        _, top_e, _ = moe._route(x[0], p["router"], mo)
+        torch.cuda.synchronize()
+        cap = moe.capacity(t, mo)
+        load = torch.bincount(top_e.reshape(-1).long(), minlength=mo.num_experts)
+        out = {"tokens": t, "capacity": cap,
+               "dropped_choices": int((load - cap).clamp_min(0).sum()),
+               "choices": t * mo.top_k, "largest_load": int(load.max()),
+               "kernels_vs_plain_max_abs": float((kern - plain).abs().max()),
+               "ragged_vs_capacity_dropless_max_abs":
+                   float((ragged - packed).abs().max()),
+               "ms_kernels": time_ms(lambda: run("cuda"), reps=5, warmup=1,
+                                     hold=SHORT_HOLD),
+               "ms_plain": time_ms(lambda: run("torch"), reps=5, warmup=1,
+                                   hold=SHORT_HOLD),
+               "ms_ragged_dropless_wall": wall_ms(
+                   lambda: run("cuda", "ragged", dropless))}
+    out["dropped_share"] = out["dropped_choices"] / out["choices"]
+    if not (torch.isfinite(kern).all() and torch.allclose(kern, plain,
+                                                          **LM_TOL)):
+        problems.append(f"phase 11 MoE layer: kernels and plain differ by "
+                        f"{out['kernels_vs_plain_max_abs']}")
+    if not torch.allclose(ragged, packed, **MOE_DROPLESS_TOL):
+        problems.append(f"phase 11 MoE layer: ragged and dropless capacity "
+                        f"differ by {out['ragged_vs_capacity_dropless_max_abs']}")
+    log(f"phase 11: MoE layer {out}")
+    del p, x, kern, plain, ragged, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 11, training granite whole through ``launch.train``
+    (``MOE_TRAIN_ARGS``) on the kernels, then its first step on the plain
+    path; step 1's routes (the first forward's) recorded on both and held
+    by ``RouteHold``; step 1 held at ``TRAIN_TOL`` (where a near-tie route
+    differs, only the loss is held and the rest reported); the loss of
+    step 1's batch lower through the trained weights; each path's
+    launches."""
+    import tempfile
+    from repro_torch import configs
+    cfg = configs.get_config(MOE_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    base = MOE_TRAIN_ARGS + ["--device", device]
+    path = f"{MOE_ARCH} train {MOE_TRAIN_STEPS} steps (cuda)"
+    with first_step_leaf_norms() as leaves, \
+            recorded_routes(limit=cfg.n_layers) as kern_routes:
+        trainer, hist, peak_gb = train_run(
+            base + ["--steps", str(MOE_TRAIN_STEPS), "--ckpt-dir", tmp],
+            drive, path)
+    tokens = trainer.data_cfg.global_batch * trainer.data_cfg.seq_len
+    # step 1's batch once more, through the trained weights: the batches of
+    # a bigram stream over 49 155 tokens share little, so their losses
+    # scatter by ~0.02 from step to step, more than 6 steps move them
+    with torch.no_grad():
+        from repro_torch.models import lm
+        loss_again = float(lm.loss_fn(trainer.params, trainer.loader(0), cfg,
+                                      trainer.ctx)[0])
+    del trainer
+    torch.cuda.empty_cache()
+    plain_path = f"{MOE_ARCH} train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves, \
+            recorded_routes(limit=cfg.n_layers) as plain_routes:
+        _, plain_hist, plain_gb = train_run(
+            base + ["--steps", "1", "--backend", "torch", "--ckpt-dir",
+                    tmp + "_plain"], drive, plain_path)
+    hold = RouteHold(cfg.moe, 1, f"phase 11 {MOE_ARCH} training step 1")
+    for c, (a, b) in enumerate(zip(kern_routes, plain_routes)):
+        hold.call(c, a, b)
+    routes = hold.report(problems)
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "steps": len(hist), "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist],
+           "step1_batch_loss_after_training": loss_again,
+           "step_ms_median_from_2": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+           "plain_step1_ms": plain_hist[0]["ms"],
+           "plain_peak_memory_gb": plain_gb, "step1_routes": routes,
+           "launches": {f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    if len(hist) != MOE_TRAIN_STEPS or not loss_again < losses[0]:
+        problems.append(f"phase 11 training: {len(hist)} of "
+                        f"{MOE_TRAIN_STEPS} steps, or step 1's batch has a "
+                        f"loss of {loss_again} after them, not below "
+                        f"{losses[0]}")
+    if routes["differing_routes"]:
+        # a near-tie route moves its token's gradient: the loss is held,
+        # the norms reported beside the routes that differ
+        held: list = []
+        out["step1_vs_plain"] = hold_to_oracle(
+            f"phase 11 {MOE_ARCH}", hist, plain_hist, leaves, plain_leaves,
+            held)
+        loss = out["step1_vs_plain"]["loss"]
+        if not (math.isfinite(loss["kernels"])
+                and loss["rel_diff"] <= TRAIN_TOL["loss"]):
+            problems.append(f"phase 11 {MOE_ARCH}: step-1 loss {loss}")
+        out["step1_vs_plain"]["not_held"] = held
+    else:
+        out["step1_vs_plain"] = hold_to_oracle(
+            f"phase 11 {MOE_ARCH}", hist, plain_hist, leaves, plain_leaves,
+            problems)
+    n = cfg.n_layers
+    want = {("flash_attention", "flash_attention"): MOE_TRAIN_STEPS * 2 * n,
+            ("tdp_gathered", "gated"): MOE_TRAIN_STEPS * 2 * n,
+            ("tdp_gathered", "rmsnorm"): MOE_TRAIN_STEPS * (4 * n + 1)}
+    if by_path[path] != want:
+        problems.append(f"phase 11 {path}: launches {by_path[path]}, "
+                        f"expected {want}")
+    if by_path[plain_path]:
+        problems.append(f"phase 11 {plain_path}: the plain path launched "
+                        f"{by_path[plain_path]}")
+    for d in (tmp, tmp + "_plain"):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 11 (see the module docstring)."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    out = {"layer": moe_layer(cfg, problems, device)}
+    out["serving"] = moe_serve(cfg, drive, problems, device)
+    pre, dec = dense_expected(cfg)
+    for p, want in ((f"{cfg.name} prefill (cuda)", pre),
+                    (f"{cfg.name} decode x{SERVE_DECODE} (cuda)", dec)):
+        if by_path.get(p) != want:
+            problems.append(f"phase 11 {p}: launches {by_path.get(p)}, "
+                            f"expected {want}")
+    for p in (f"{cfg.name} prefill (torch)",
+              f"{cfg.name} decode x{SERVE_DECODE} (torch)"):
+        if by_path.get(p):
+            problems.append(f"phase 11 {p}: the plain path launched "
+                            f"{by_path[p]}")
+    out["serving"]["launches_per_decode_step"] = {
+        f"{k}.{s}": n / SERVE_DECODE
+        for (k, s), n in by_path[f"{cfg.name} decode x{SERVE_DECODE} (cuda)"
+                                 ].items()}
+    out["training"] = moe_train(drive, by_path, problems, device)
+    out["paths"] = [p for p in by_path
+                    if p.startswith((cfg.name + " ", MOE_ARCH + " "))]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: MoE {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("training", "dense"), default=None,
+    ap.add_argument("--only", choices=("training", "dense", "moe"),
+                    default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
     only = ap.parse_args(argv).only
@@ -3568,9 +4001,20 @@ def main(argv=None) -> int:
         return out
 
     if only is not None:
-        phase = (training_phase if only == "training"
-                 else dense_archs_phase)(drive, by_path, problems)
-        key = "training" if only == "training" else "dense_archs"
+        phase = {"training": training_phase, "dense": dense_archs_phase,
+                 "moe": moe_phase}[only](drive, by_path, problems)
+        key = {"training": "training", "dense": "dense_archs",
+               "moe": "moe"}[only]
+        if only == "moe":
+            # phase 5's rows at granite's shapes, counting this phase's paths
+            launches = {e: sum(p.get(e, 0) for p in by_path.values())
+                        for e in lm_entries}
+            launches_by_path = {e: {path: p[e] for path, p in by_path.items()
+                                    if e in p} for e in lm_entries}
+            phase["rows"] = dense_rows(
+                launches, launches_by_path, {}, problems, record,
+                rms_rows=MOE_RMS_ROWS, ew_rows=MOE_EW_ROWS,
+                attn_rows=MOE_ATTN_ROWS)
         print(json.dumps({key: phase}, default=str), flush=True)
         (OUT_DIR / f"chip_smoke_{only}.json").write_text(
             json.dumps(phase, indent=1, default=str))
@@ -3927,6 +4371,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     del q, k, v
     rows += dense_rows(launches, launches_by_path, max_err, problems, record)
+    rows += dense_rows(launches, launches_by_path, max_err, problems, record,
+                       rms_rows=MOE_RMS_ROWS, ew_rows=MOE_EW_ROWS,
+                       attn_rows=MOE_ATTN_ROWS)
 
     # the mamba site function at falcon-mamba-7b's full-width prefill shape:
     # one launch = one layer, both batch rows
@@ -4027,6 +4474,11 @@ def main(argv=None) -> int:
     merge_launches(rows, by_path, record["dense_archs"]["paths"])
     print(json.dumps({"dense_archs": record["dense_archs"]}, default=str),
           flush=True)
+
+    # -- 11. Mixture-of-Experts: granite-moe-1b-a400m whole ----------------------
+    record["moe"] = moe_phase(drive, by_path, problems)
+    merge_launches(rows, by_path, record["moe"]["paths"])
+    print(json.dumps({"moe": record["moe"]}, default=str), flush=True)
     record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))

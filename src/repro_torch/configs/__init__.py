@@ -4,8 +4,8 @@ One module per architecture exports ``CONFIG`` (the exact public
 configuration, sources cited in-module) and ``SMOKE`` (a reduced
 same-family config for CPU tests).  Only the archs whose blocks the port
 runs are registered; the rest of the reference's registry
-(``repro/configs``: MoE, MLA, Mamba-2 and whisper) waits for its slices
-(ROADMAP, queue A, LM stack).
+(``repro/configs``: deepseek-v3's MLA, zamba2's Mamba-2 and whisper) waits
+for its slices (ROADMAP, queue A, LM stack).
 """
 from __future__ import annotations
 
@@ -14,11 +14,12 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("gemma3_27b", "nemotron_4_15b", "phi3_medium_14b", "gemma2_2b",
-         "falcon_mamba_7b", "qwen2_vl_2b")
+ARCHS = ("granite_moe_1b_a400m", "gemma3_27b", "nemotron_4_15b",
+         "phi3_medium_14b", "gemma2_2b", "falcon_mamba_7b", "qwen2_vl_2b")
 
 # brief ids ↔ module names
-ALIASES = {"gemma3-27b": "gemma3_27b",
+ALIASES = {"granite-moe-1b-a400m": "granite_moe_1b_a400m",
+           "gemma3-27b": "gemma3_27b",
            "nemotron-4-15b": "nemotron_4_15b",
            "phi3-medium-14b": "phi3_medium_14b",
            "gemma2-2b": "gemma2_2b",

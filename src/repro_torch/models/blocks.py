@@ -1,17 +1,31 @@
 """Block-level forward: one dispatch for prefill and decode.
 
-Port of ``repro/models/blocks.py`` for the dense attention blocks, ``attn``
-(global causal attention + MLP) and ``local`` (sliding-window causal
-attention + MLP), and the ``mamba1`` block (norm, Mamba-1 mixer, residual;
-no MLP).  The presence of ``cache`` selects decode over full-sequence mode.
-Every other block type (MoE, MLA, Mamba-2, cross-attention, encoder,
-shared) raises ``NotImplementedError`` until its slice (ROADMAP, queue A).
+Port of ``repro/models/blocks.py`` for the attention blocks, ``attn``
+(global causal attention + MLP), ``local`` (sliding-window causal
+attention + MLP), ``attn_dense`` (``attn`` with a dense MLP: the MoE
+models' leading dense layers) and ``attn_moe`` (global attention + the MoE
+MLP of :mod:`repro_torch.models.moe`, dispatched on ``ctx.moe_impl``), and
+the ``mamba1`` block (norm, Mamba-1 mixer, residual; no MLP).  The
+presence of ``cache`` selects decode over full-sequence mode.  Every other
+block type (Mamba-2, cross-attention, encoder, shared) and MLA raise
+``NotImplementedError`` until their slices (ROADMAP, queue A).
 """
 from __future__ import annotations
 
-from . import attention, layers, ssm
+from . import attention, layers, moe, ssm
 from .config import ModelConfig
 from .context import ExecContext
+
+#: the attention block types the port runs (standard attention only)
+ATTN_BLOCKS = ("attn", "local", "attn_dense", "attn_moe")
+
+
+def _mlp_for(btype, bp, x, cfg: ModelConfig, ctx: ExecContext):
+    if btype == "attn_moe":
+        if ctx.moe_impl == "a2a":
+            return moe.moe_a2a(bp["mlp"], x, cfg, ctx)
+        return moe.moe_mlp(bp["mlp"], x, cfg, ctx)
+    return layers.mlp(bp["mlp"], x, cfg, ctx)
 
 
 def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
@@ -29,11 +43,15 @@ def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
         out, new_cache = ssm.mamba1_mixer(bp["mixer"], h, cfg, ctx,
                                           cache=cache, length=length)
         return x + out, (new_cache if collect_cache else None)
-    if btype not in ("attn", "local") or cfg.mla is not None:
+    if btype not in ATTN_BLOCKS:
         raise NotImplementedError(
-            f"block type {btype!r}{' with MLA' if cfg.mla else ''} is not "
-            f"ported yet: only attn/local blocks with standard attention and "
-            f"mamba1 blocks run (ROADMAP, queue A, LM stack)")
+            f"block type {btype!r} is not ported yet: only "
+            f"attn/local/attn_dense/attn_moe blocks with standard attention "
+            f"and mamba1 blocks run (ROADMAP, queue A, LM stack)")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"block type {btype!r} with MLA (multi-head latent attention, "
+            f"deepseek-v3) is not ported yet (ROADMAP A7.4)")
     a = cfg.attn
     window = a.window if btype == "local" else 0
     if btype == "local" and rope_local is not None:
@@ -52,5 +70,5 @@ def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
     x = x + out
 
     h = layers.norm(bp["norm2"], x, cfg, ctx)
-    x = x + layers.mlp(bp["mlp"], h, cfg, ctx)
+    x = x + _mlp_for(btype, bp, h, cfg, ctx)
     return x, new_cache

@@ -2,8 +2,8 @@
 
 The targetDP contract at framework scale: model code is written once and
 the :class:`ExecContext` decides how it runs.  The port has no mesh yet
-(ROADMAP, queue A), so the context holds the executor, the VVL and the
-remat policy.
+(ROADMAP, queue A), so the context holds the executor, the VVL, the
+remat policy and the MoE dispatch.
 """
 from __future__ import annotations
 
@@ -20,11 +20,17 @@ class ExecContext:
     sites, and 1 is the coalesced mapping, so the port defaults to 1.
     ``remat``: ``"none"``, or ``"block"`` to recompute each layer's
     forward in the backward pass (``torch.utils.checkpoint``) instead of
-    keeping its activations."""
+    keeping its activations.  ``moe_impl``: the MoE dispatch of
+    :mod:`repro_torch.models.moe`, ``"capacity"`` (tokens packed into
+    ``(E, cap, D)``, batched GEMMs, overflow dropped), ``"ragged"``
+    (dropless, a per-expert loop) or ``"a2a"`` (all-to-all expert
+    parallelism; with no mesh it is ``"capacity"``, as in the
+    reference)."""
 
     backend: str = "cuda"
     vvl: int = 1
     remat: str = "none"
+    moe_impl: str = "capacity"
 
     def __post_init__(self):
         if self.backend not in ("cuda", "torch"):
@@ -33,3 +39,6 @@ class ExecContext:
         if self.remat not in ("none", "block"):
             raise ValueError(f"remat must be 'none' or 'block', got "
                              f"{self.remat!r}")
+        if self.moe_impl not in ("capacity", "ragged", "a2a"):
+            raise ValueError(f"moe_impl must be 'capacity', 'ragged' or "
+                             f"'a2a', got {self.moe_impl!r}")

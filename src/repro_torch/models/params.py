@@ -8,15 +8,21 @@ The port's parameters are plain dictionaries::
                  "norm2": (d,), "mlp": {"w_up", "w_gate"?, "w_down"}}, ...]}
 
 one entry of ``"layers"`` per layer of ``cfg.layer_program``, with the leaf
-names and shapes of ``repro/models/params.py``; a ``mamba1`` layer is
+names and shapes of ``repro/models/params.py``.  An ``attn_moe`` layer's
+``"mlp"`` is the MoE's ``{"router": (d, E), "w_up": (E, d, fe), "w_gate"?:
+(E, d, fe), "w_down": (E, fe, d), "shared"?: {"w_up", "w_gate"?,
+"w_down"}}`` (the shared experts a dense MLP of width ``fe·num_shared``);
+an ``attn_dense`` layer is an ``attn`` layer.  A ``mamba1`` layer is
 ``{"norm1": (d,), "mixer": {"w_xm", "w_z", "conv_w", "conv_b", "w_x",
 "w_dt", "dt_bias", "a_log", "d_skip", "w_out"}}``.  The reference stacks
 each leaf per scan group (``groups[i][position]`` with a leading repeat
-axis); :func:`from_reference` unstacks that into the per-layer list.  Only
-``attn``/``local`` blocks with a dense MLP (qk-norm's ``q_norm``/``k_norm``,
-``(head_dim,)``, where the config has it) and ``mamba1`` blocks, with tied
-or untied embeddings, are supported; other block types and learned
-position embeddings raise ``NotImplementedError``.
+axis: an expert leaf is ``(k, E, d, fe)``); :func:`from_reference`
+unstacks that into the per-layer list.  ``attn``/``local``/``attn_dense``/
+``attn_moe`` blocks with standard attention (qk-norm's ``q_norm``/
+``k_norm``, ``(head_dim,)``, where the config has it) and ``mamba1``
+blocks, with tied or untied embeddings, are supported; other block types,
+MLA, the encoder, multi-token prediction and learned position embeddings
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,15 +36,15 @@ from repro_torch.kernels.ops import resolve_device
 from .config import ModelConfig, plan_layer_groups, ssm_dims
 
 #: block types whose parameters the port builds
-SUPPORTED_BLOCKS = ("attn", "local", "mamba1")
+SUPPORTED_BLOCKS = ("attn", "local", "attn_dense", "attn_moe", "mamba1")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     other = sorted(set(cfg.layer_program) - set(SUPPORTED_BLOCKS))
     if other or cfg.mla is not None or cfg.is_encdec or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: only attn/local blocks with a dense MLP and mamba1 "
-            f"blocks are ported "
+            f"{cfg.name}: only attn/local/attn_dense/attn_moe blocks with "
+            f"standard attention and mamba1 blocks are ported "
             f"(found block types {other}, mla={cfg.mla is not None}, "
             f"encoder={cfg.is_encdec}, mtp_depth={cfg.mtp_depth}); the "
             f"rest waits for its slice (ROADMAP, queue A, LM stack)")
@@ -54,8 +60,33 @@ def _dense(gen, shape, device, fan_in=None):
     return torch.randn(shape, generator=gen, device=device) * scale
 
 
-def _block_params(cfg: ModelConfig, gen, device) -> dict:
-    a, d, f = cfg.attn, cfg.d_model, cfg.d_ff
+def _mlp_params(cfg: ModelConfig, gen, device, d_ff=None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    mlp = {"w_up": _dense(gen, (d, f), device)}
+    if cfg.act in ("swiglu", "geglu"):
+        mlp["w_gate"] = _dense(gen, (d, f), device)
+    mlp["w_down"] = _dense(gen, (f, d), device)
+    return mlp
+
+
+def _moe_params(cfg: ModelConfig, gen, device) -> dict:
+    """The router (d, E); each expert's up/gate (E, d, fe) and down (E, fe,
+    d), ~ N(0, 1/fan_in) over the expert's own fan-in; the shared experts
+    a dense MLP of width ``fe·num_shared``."""
+    mo, d = cfg.moe, cfg.d_model
+    e, fe = mo.num_experts, mo.d_expert
+    p = {"router": _dense(gen, (d, e), device),
+         "w_up": _dense(gen, (e, d, fe), device, fan_in=d)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = _dense(gen, (e, d, fe), device, fan_in=d)
+    p["w_down"] = _dense(gen, (e, fe, d), device, fan_in=fe)
+    if mo.num_shared:
+        p["shared"] = _mlp_params(cfg, gen, device, d_ff=fe * mo.num_shared)
+    return p
+
+
+def _block_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
+    a, d = cfg.attn, cfg.d_model
     attn = {"wq": _dense(gen, (d, a.n_heads * a.head_dim), device),
             "wk": _dense(gen, (d, a.n_kv_heads * a.head_dim), device),
             "wv": _dense(gen, (d, a.n_kv_heads * a.head_dim), device),
@@ -63,10 +94,8 @@ def _block_params(cfg: ModelConfig, gen, device) -> dict:
     if a.qk_norm:
         attn["q_norm"] = torch.zeros(a.head_dim, device=device)
         attn["k_norm"] = torch.zeros(a.head_dim, device=device)
-    mlp = {"w_up": _dense(gen, (d, f), device)}
-    if cfg.act in ("swiglu", "geglu"):
-        mlp["w_gate"] = _dense(gen, (d, f), device)
-    mlp["w_down"] = _dense(gen, (f, d), device)
+    mlp = (_moe_params(cfg, gen, device) if btype == "attn_moe"
+           else _mlp_params(cfg, gen, device))
     return {"norm1": torch.zeros(d, device=device), "attn": attn,
             "norm2": torch.zeros(d, device=device), "mlp": mlp}
 
@@ -98,8 +127,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``device``): projections ~ N(0, 1/fan_in), the embedding ~ N(0, 0.02²),
     norm weights 0 (the ``(1 + w)`` convention), the Mamba-1 mixer as
     :func:`_mamba1_params`.  The same distributions as the reference's
-    ``init_params``; not the same numbers (a ``torch.Generator`` is not a
-    JAX key)."""
+    ``init_params``, the MoE's as :func:`_moe_params`; not the same
+    numbers (a ``torch.Generator`` is not a JAX key)."""
     _check_supported(cfg)
     d = cfg.d_model
     params = {"embed": _dense(generator, (cfg.padded_vocab, d), device,
@@ -109,7 +138,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["layers"] = [
         {"norm1": torch.zeros(d, device=device),
          "mixer": _mamba1_params(cfg, generator, device)}
-        if btype == "mamba1" else _block_params(cfg, generator, device)
+        if btype == "mamba1" else _block_params(cfg, generator, device, btype)
         for btype in cfg.layer_program]
     params["final_norm"] = torch.zeros(d, device=device)
     return params

@@ -219,13 +219,21 @@ def test_unported_blocks_and_features_raise():
     import dataclasses
     from repro_torch.models import blocks
     cfg = TC.get_smoke("gemma2_2b")
-    for btype in ("mamba2", "xattn", "attn_moe"):
+    for btype in ("mamba2", "xattn"):
         with pytest.raises(NotImplementedError, match="attn/local"):
             blocks.apply_block(btype, {}, torch.zeros(1, 2, cfg.d_model),
                                cfg=cfg, ctx=ExecContext())
     with pytest.raises(NotImplementedError, match="mla=True"):
         tparams.init_params(dataclasses.replace(cfg, mla=MLAConfig()),
                             torch.Generator(), "cpu")
+    # MLA (deepseek-v3's attention) waits for A7.4, in every attention block
+    for btype in ("attn", "attn_moe"):
+        with pytest.raises(NotImplementedError, match="A7.4"):
+            blocks.apply_block(btype, {}, torch.zeros(1, 2, cfg.d_model),
+                               cfg=dataclasses.replace(cfg, mla=MLAConfig()),
+                               ctx=ExecContext())
+    with pytest.raises(KeyError, match="not yet ported"):
+        TC.get_config("deepseek-v3-671b")
     hybrid = dataclasses.replace(cfg, layer_program=("attn", "mamba2") * 2,
                                  ssm=SSMConfig(kind="mamba2"))
     with pytest.raises(NotImplementedError, match="only attn/local"):

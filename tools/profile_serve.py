@@ -4,6 +4,7 @@
         [--prompt-len 4608] [--decode 16] [--src DIR] [--tag NAME]
     python3 tools/profile_serve.py --arch falcon-mamba-7b   # prompt 4096
     python3 tools/profile_serve.py --arch gemma3-27b  # 12 layers, 4096
+    python3 tools/profile_serve.py --arch granite-moe-1b-a400m  # whole, 4096
 
 Builds ``--arch`` (gemma2-2b by default, or any arch of the port's
 registry) at full width with seeded random float32 weights, at
@@ -17,7 +18,13 @@ the device time summed over kernels, the device's busy share of the wall
 time and of the traced span, and the device time per kernel name, split
 into the port's own CUDA kernels (``flash_fwd_kernel``, ``ew_kernel``,
 ``rms_tiled_kernel``, ``rms_few_kernel``, ``mamba_kernel``) and PyTorch's (matrix products, copies, the plain decode
-attention, the Mamba glue).  Needs one CUDA card; prints the card's name and
+attention, the Mamba glue).  For a MoE arch the traces also split the MoE
+layers' device time (``moe_ms_by_part``, per layer): ``route`` (router
+product, softmax, top-k), ``dispatch`` (the stable sort, the pack's gather
+and the unpack), ``bmm`` (the three batched expert products), ``gated``
+(kernel 2a's SwiGLU over the packed rows) and ``combine`` (the weighted
+sum over the K choices), from ``record_function`` ranges put around
+``models.moe``'s functions for the traced runs only.  Needs one CUDA card; prints the card's name and
 power limit first and writes the full table to
 ``chiprun_out/profile_serve_<arch>[_<tag>].json``.  ``--src`` may point at
 another checkout's ``src`` (one unpacked with ``git archive``), so two
@@ -41,7 +48,8 @@ PORT_KERNELS = ("flash_fwd_kernel", "ew_kernel", "rms_tiled_kernel",
 #: the prompt length each arch is served at by default (chip_smoke.py's)
 DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096,
                   "gemma3-27b": 4096, "qwen2-vl-2b": 4096,
-                  "phi3-medium-14b": 2048, "nemotron-4-15b": 2048}
+                  "phi3-medium-14b": 2048, "nemotron-4-15b": 2048,
+                  "granite-moe-1b-a400m": 4096}
 #: the layers kept by default (chip_smoke.py phase 10's cut; 0 = all)
 DEFAULT_LAYERS = {"gemma3-27b": 12, "phi3-medium-14b": 10,
                   "nemotron-4-15b": 8}
@@ -50,8 +58,7 @@ DEFAULT_LAYERS = {"gemma3-27b": 12, "phi3-medium-14b": 10,
 def summarize(prof, wall_s: float, per: int) -> dict:
     """Device time by kernel name (per ``per`` units of work) and the busy
     shares of one trace."""
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -71,6 +78,70 @@ def summarize(prof, wall_s: float, per: int) -> dict:
         "by_kernel_ms": {k: v / 1e3 / per for k, v in
                          sorted(by_name.items(), key=lambda kv: -kv[1])},
     }
+
+
+#: ``models.moe`` functions traced as ranges, and the part each range's
+#: device time goes to (the experts range: its products to ``bmm``, its
+#: gated range to ``gated``, the rest to ``dispatch``)
+MOE_RANGES = {"_route": "route", "_apply_experts_capacity": "dispatch",
+              "grouped_matmul": "bmm", "_act": "gated", "_combine": "combine"}
+#: matrix products by kernel name (cuBLAS / CUTLASS)
+GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma")
+
+
+def moe_ranges(moe):
+    """Wraps ``MOE_RANGES``' functions of the module ``moe`` in
+    ``record_function`` ranges named ``moe.<part>``; returns a function
+    that restores them."""
+    from torch.profiler import record_function
+    saved = {name: getattr(moe, name) for name in MOE_RANGES}
+
+    def ranged(fn, label):
+        def inner(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return inner
+    for name, part in MOE_RANGES.items():
+        setattr(moe, name, ranged(saved[name], f"moe.{part}"))
+    return lambda: [setattr(moe, n, f) for n, f in saved.items()]
+
+
+def device_kernels(prof) -> list:
+    """The trace's device kernels: its device events but the ``moe.*``
+    ranges' own (a ``record_function`` range also leaves an event on the
+    device timeline, spanning its kernels and the gaps between them)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("moe.")]
+
+
+def moe_split(prof, per: int) -> dict:
+    """Device ms (per ``per`` units of work) of the kernels inside the
+    ``moe.*`` ranges on the device timeline, each kernel given to its
+    innermost range's part, a matrix product inside the experts' range to
+    ``bmm`` (the ranges nest: ``gated`` inside the experts')."""
+    import bisect
+    ranges = sorted((e.time_range.start, e.time_range.end,
+                     e.name[len("moe."):]) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name.startswith("moe."))
+    starts = [r[0] for r in ranges]
+    parts = {p: 0.0 for p in dict.fromkeys(MOE_RANGES.values())}
+    for k in device_kernels(prof):
+        t0, t1 = k.time_range.start, k.time_range.end
+        i = bisect.bisect_right(starts, t0) - 1
+        # the innermost range holding the kernel is the last to start
+        # before it, or the one before that (the ranges nest two deep)
+        for j in (i, i - 1):
+            if j >= 0 and ranges[j][0] <= t0 and t1 <= ranges[j][1]:
+                part = ranges[j][2]
+                break
+        else:
+            continue
+        if part == "dispatch" and any(s in k.name.lower() for s in GEMM_NAMES):
+            part = "bmm"
+        parts[part] += k.time_range.elapsed_us()
+    return {k: v / 1e3 / per for k, v in parts.items()}
 
 
 def main(argv=None) -> int:
@@ -137,14 +208,20 @@ def main(argv=None) -> int:
     def trace():
         return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
+    is_moe = "attn_moe" in cfg.layer_program
     with torch.inference_mode():
         tok, caches, length, _ = pre(params, batch)   # warm-up
         decode_all(tok, caches, length)
+        if is_moe:
+            from repro_torch.models import moe
+            restore = moe_ranges(moe)
         with trace() as p_pre:
             (tok, caches, length, _), t_pre = timed(
                 lambda: pre(params, batch))
         with trace() as p_dec:
             _, t_dec = timed(lambda: decode_all(tok, caches, length))
+        if is_moe:
+            restore()
     traced = {"prefill": (p_pre, t_pre), "decode": (p_dec, t_dec)}
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "src": str(src), "tag": args.tag, "arch": args.arch,
@@ -153,6 +230,11 @@ def main(argv=None) -> int:
               "decode_steps": args.decode,
               "prefill": summarize(*traced["prefill"], per=1),
               "decode_per_step": summarize(*traced["decode"], per=args.decode)}
+    if is_moe:
+        n_moe = cfg.layer_program.count("attn_moe")
+        result["prefill"]["moe_ms_by_part"] = moe_split(p_pre, per=n_moe)
+        result["decode_per_step"]["moe_ms_by_part"] = moe_split(
+            p_dec, per=args.decode * n_moe)
     for phase in ("prefill", "decode_per_step"):
         row = result[phase]
         top = dict(list(row["by_kernel_ms"].items())[:8])
