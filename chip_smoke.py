@@ -26,17 +26,18 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    128 without softcap (gemma3's window 1024 and global GQA 32/16,
    qwen2-vl's 12/2, nemotron's 48/8, phi3's 40/10) and GQA group 6 over
    ragged tiles, granite-moe-1b-a400m's layer at Dh 64 (GQA 16/8, 2 ×
-   4096), and (B, S, H, Dh) tensors seen as (B, H,
+   4096), zamba2's shared block at Dh 80 over ragged tiles, with a window
+   and softcap and with GQA, and (B, S, H, Dh) tensors seen as (B, H,
    S, Dh) (``ATTN_VIEW_CASES``); ``rmsnorm`` at VVL 1, 2, 4 and 8 at gemma2's and
    falcon-mamba-7b's prefill and decode shapes, a ragged (37, 64) and the
-   dense archs' prefills (d 5376, 1536, 5120), granite's prefill, decode
-   and training step (d 1024), the
+   dense archs' prefills (d 5376, 1536, 5120), granite's and zamba2's
+   prefill, decode and training step (d 1024, 2560), the
    ``gated``/``act`` site functions (all five kinds) at VVL 1, 2, 4 and 8
    at full width and on operands at a storage offset of one element (the
    unaligned path, a ragged extent), and qwen2-vl's SwiGLU and nemotron's
    squared ReLU at their prefills' sizes and granite's SwiGLU over its
-   prefill's packed expert rows (81 920, 512) (``DENSE_EW_CHECKS``); the
-   ``mamba`` site function
+   prefill's packed expert rows (81 920, 512) and zamba2's GeGLU (8192,
+   10 240) (``DENSE_EW_CHECKS``); the ``mamba`` site function
    (``ops.mamba_scan``, every batch row in one launch) at VVL 1, 2, 4 and 8
    on the reference tests' shapes, a ragged 1000 channels, falcon-mamba-7b's
    full-width prefill shape (2, 4096, 8192, 16) and shapes that cut the
@@ -103,7 +104,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    gemma3's window, a boolean band mask) and granite's (``MOE_*_ROWS``:
    rmsnorm at (1024, 8192) beside ``F.rms_norm``, SwiGLU over the packed
    expert rows (81 920, 512), kernel 4 at (2, 16 / 8, 4096, Dh 64) beside
-   SDPA);
+   SDPA) and zamba2's (``SSD_*_ROWS``: rmsnorm at (2560, 8192), GeGLU at
+   (8192, 10 240), kernel 4 at (2, 32 / 32, 4096, Dh 80) beside SDPA and
+   beside the route that would pad q, k, v to Dh 128, timed for the
+   record);
    MLUPS per regime; prefill ms, decode ms per step and
    tokens/s of both serving paths, on the kernels and on the plain path;
    the calibration kernels at the calibration sizes beside ``torch.add``;
@@ -235,6 +239,23 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    line, the phase's paths merged into the LM kernel rows.  ``python3
    chip_smoke.py --only moe`` runs phases 1, 2 and 11 alone, with phase
    5's rows at granite's shapes counting this phase's paths.
+
+12. Mamba-2 SSD and the weight-tied block (``ssd_phase``): zamba2-2.7b
+   whole at full width (45 ``mamba2`` layers, one ``shared_attn`` block
+   run at 9 positions, Dh 80; 1.98e9 float32 parameters) from seeded
+   random weights, served through ``build_serve_steps`` (2 prompts of 4096
+   tokens, 16 greedy steps) on the kernels, on the plain path and warm
+   (``serve_model``): logits within 1e-3, tokens equal, the launches of a
+   prefill (64 rmsnorm, 9 GeGLU, 9 kernel 4) and of a decode step (64
+   rmsnorm, 9 GeGLU) held to ``ssd_expected``; then trained through
+   ``launch.train`` (``SSD_TRAIN_ARGS``: 6 steps of 8 × 256 tokens in one
+   microbatch, block remat, dense AdamW), the tied block one set of tensors
+   in the parameters and both moments, step 1's batch at a lower loss
+   through the trained weights, step 1 held to the plain path at
+   ``TRAIN_TOL``, the launches held, the peak memory; printed as one
+   ``{"ssd": ...}`` line, the phase's paths merged into the LM kernel rows.
+   ``python3 chip_smoke.py --only ssd`` runs phases 1, 2 and 12 alone,
+   with phase 5's rows at zamba2's shapes counting this phase's paths.
 
 Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
@@ -436,13 +457,17 @@ RMS_CHECKS = [(SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64),
               # tokens), phi3 (2 × 2048)
               (8192, 5376), (8192, 1536), (4096, 5120),
               # granite-moe-1b-a400m's prefill, decode and training step
-              (8192, 1024), (2, 1024), (2048, 1024)]
+              (8192, 1024), (2, 1024), (2048, 1024),
+              # zamba2-2.7b's
+              (8192, 2560), (2, 2560), (2048, 2560)]
 #: the dense archs' MLP activations, (kind, gated, tokens, d_ff): qwen2-vl's
 #: SwiGLU and nemotron's ungated squared ReLU at their prefills' sizes
 DENSE_EW_CHECKS = [("swiglu", True, 8192, 8960), ("relu2", False, 4096, 24576),
                    # granite's SwiGLU over the packed expert rows (32
                    # experts × 2560 slots) of its 2 × 4096-token prefill
-                   ("swiglu", True, 81920, 512)]
+                   ("swiglu", True, 81920, 512),
+                   # zamba2's shared block's GeGLU at its prefill
+                   ("geglu", True, 8192, 10240)]
 #: Elements of the unaligned gated/act check: not a multiple of 4.
 UNALIGNED_N = 1_000_003
 #: Calls the mamba site function's plain version (a Python loop over 4096
@@ -482,11 +507,17 @@ ATTN_CASES = [(2, 4, 4, 128, 128, 32, c, 0, 0.0) for c in (True, False)] + [
     (1, 12, 2, 200, 333, 128, False, 0, 0.0),
     # granite-moe-1b-a400m at full width: Dh 64 (64-key tiles), GQA 16/8
     (2, 16, 8, 4096, 4096, 64, True, 0, 0.0),
+    # zamba2's shared block at Dh 80 (V pairs of 16 dimensions): ragged
+    # query and key tiles, a window with a softcap, GQA
+    (1, 4, 4, 300, 300, 80, True, 0, 0.0),
+    (1, 4, 2, 200, 333, 80, False, 50, 30.0),
+    (2, 6, 3, 130, 130, 80, True, 37, 0.0),
 ]
 #: ATTN_CASES entries also run on (B, S, H, Dh) tensors seen as (B, H, S,
 #: Dh): the layout the model hands the kernel.
 ATTN_VIEW_CASES = [(2, 8, 4, 300, 300, 256, True, 100, 50.0),
-                   (1, 4, 2, 130, 130, 128, True, 0, 0.0)]
+                   (1, 4, 2, 130, 130, 128, True, 0, 0.0),
+                   (1, 4, 4, 130, 130, 80, True, 0, 0.0)]
 #: Per-launch ms of the LM kernels this PR redesigns, before it (PERF.md §6:
 #: this script's phase 5 on an NVIDIA H100 80GB HBM3 at 700 W): flash at
 #: gemma2-2b's prefill shape, and the mamba site function at falcon-mamba-7b's
@@ -598,6 +629,35 @@ DENSE_TRAIN_ARGS = ["--seq-len", "256", "--global-batch", "8", "--grad-accum",
 #: the LM examples: train_lm's 22m preset for its default 300 steps, then
 #: serve_lm from its checkpoint
 EXAMPLE_STEPS = 300
+#: Phase 12, zamba2-2.7b whole at full width (45 ``mamba2`` layers and 9
+#: uses of one weight-tied attention block at Dh 80; 1.98e9 float32
+#: parameters): 2 prompts of 4096 tokens served, 16 greedy steps, then 6
+#: training steps of 8 × 256 tokens in one microbatch, block remat, dense
+#: AdamW (31.7 GB of parameters, gradients and moments).
+SSD_ARCH, SSD_PROMPT, SSD_TRAIN_STEPS = "zamba2-2.7b", 4096, 6
+SSD_TRAIN_ARGS = ["--arch", SSD_ARCH, "--seq-len", "256", "--global-batch",
+                  "8", "--grad-accum", "1", "--warmup", str(TRAIN_WARMUP),
+                  "--ckpt-every", "0", "--log-every", "1"]
+#: Phase 5's rows at zamba2's prefill (2 × 4096 tokens): rmsnorm at d 2560,
+#: GeGLU at (8192, 10 240), kernel 4 at Dh 80 with 32 / 32 heads, causal;
+#: beside kernel 4's row, for the record, the route that pads q, k and v to
+#: ``SSD_PAD_DH`` (no path takes it)
+SSD_RMS_ROWS = [(".zamba2_d2560", 2560, 8192)]
+SSD_EW_ROWS = [("tdp_gathered.gated.zamba2_geglu", "geglu", True, 8192,
+                10240, 10)]
+SSD_ATTN_ROWS = [("zamba2", 2, 32, 32, 4096, 0, 80)]
+SSD_PAD_DH = 128
+#: Step 1's leaves in phase 12: the SSD's ``a_log``, ``dt_bias`` and
+#: conv-bias gradients sum over every token, step and state with heavy
+#: cancellation, so their norms move by ~1e-4 when the norms' outputs move
+#: by a float32 rounding (the plain path itself is bit for bit
+#: reproducible).  A leaf whose move from the plain path exceeds
+#: ``TRAIN_TOL["leaf_grad_norm"]`` is held at this many times its move
+#: when the plain path's RMSNorm outputs are rounded once more
+#: (``rounded_rmsnorm``): the kernel's rounding (≤ 1.5 ulp from the plain
+#: version) against a correct rounding (≤ 0.5 ulp from exact), plus the
+#: other kernels' share.
+SSD_LEAF_FLOOR = 4
 #: Phase 11, granite-moe-1b-a400m whole at full width (24 attn_moe layers,
 #: 32 experts of 512, top 8; 1.33e9 float32 parameters): 2 prompts of 4096
 #: tokens served, then 6 training steps of 8 × 256 tokens in one
@@ -3841,10 +3901,264 @@ def moe_phase(drive, by_path, problems, device="cuda") -> dict:
     return out
 
 
+def ssd_expected(cfg) -> tuple[dict, dict, dict]:
+    """zamba2's launches on the kernels: one prefill, ``SERVE_DECODE``
+    decode steps, one training step (one microbatch, each layer's forward
+    twice under remat, the final norm once).  A ``mamba2`` layer's norm is
+    kernel 2a's rmsnorm (its SSD, convolutions and gated norm are plain
+    PyTorch, as in the reference); a ``shared_attn`` position is an
+    ``attn`` block: two norms, the GeGLU and (prefill only) kernel 4."""
+    n_m = cfg.layer_program.count("mamba2")
+    n_s = cfg.layer_program.count("shared_attn")
+    rms = n_m + 2 * n_s
+    pre = {("flash_attention", "flash_attention"): n_s,
+           ("tdp_gathered", "gated"): n_s, ("tdp_gathered", "rmsnorm"): rms + 1}
+    dec = {("tdp_gathered", "gated"): n_s * SERVE_DECODE,
+           ("tdp_gathered", "rmsnorm"): (rms + 1) * SERVE_DECODE}
+    train = {("flash_attention", "flash_attention"): 2 * n_s,
+             ("tdp_gathered", "gated"): 2 * n_s,
+             ("tdp_gathered", "rmsnorm"): 2 * rms + 1}
+    return pre, dec, train
+
+
+@contextlib.contextmanager
+def rounded_rmsnorm():
+    """``ops.rmsnorm`` (every RMSNorm of the models) computed in float64
+    and rounded to the input's dtype once: the plain version's result
+    moved by up to a rounding, as the kernel's is (≤ 1.5 float32 ulp from
+    the plain version at phase 5's rows)."""
+    from repro_torch.kernels import ops
+    rmsnorm = ops.rmsnorm
+
+    def rounded(x, weight, *, eps=1e-6, scale_offset=0.0, **_):
+        xd = x.double()
+        inv = torch.rsqrt((xd * xd).mean(-1, keepdim=True) + eps)
+        return (xd * inv * (weight.double() + scale_offset)).to(x.dtype)
+    ops.rmsnorm = rounded
+    try:
+        yield
+    finally:
+        ops.rmsnorm = rmsnorm
+
+
+def hold_leaves_to_floor(what, kern_hist, plain_hist, kern_leaves,
+                         plain_leaves, floor_leaves, problems) -> dict:
+    """``hold_to_oracle`` (step 1's loss and global gradient norm at
+    ``TRAIN_TOL``), with each leaf's gradient norm held at
+    ``TRAIN_TOL["leaf_grad_norm"]`` or, where that leaf moves more than it
+    under a rounding of the norms' outputs (``floor_leaves``: the plain
+    path with ``rounded_rmsnorm``), at ``SSD_LEAF_FLOOR`` times its move
+    there."""
+    held: list = []
+    res = hold_to_oracle(what, kern_hist, plain_hist, kern_leaves,
+                         plain_leaves, held)
+    problems += [p for p in held if "leaf_grad_norm" not in p]
+    if "leaf_grad_norm" not in res:
+        problems += held
+        return res
+    if floor_leaves.get("names") != plain_leaves["names"]:
+        problems.append(f"{what}: the rounded-norms run's gradient tree "
+                        f"differs")
+        return res
+
+    def rel(a, b):
+        return abs(a - b) / b if b else abs(a)
+    kern = [rel(a, b) for a, b in zip(kern_leaves["norms"],
+                                      plain_leaves["norms"])]
+    floor = [rel(a, b) for a, b in zip(floor_leaves["norms"],
+                                       plain_leaves["norms"])]
+    bars = [max(TRAIN_TOL["leaf_grad_norm"], SSD_LEAF_FLOOR * f)
+            for f in floor]
+    over = [i for i, (k, b) in enumerate(zip(kern, bars))
+            if not (math.isfinite(k) and k <= b)]
+    worst = int(np.argmax([k / b for k, b in zip(kern, bars)]))
+    res["leaf_grad_norm"].update(
+        floor_rel_diff_worst=max(floor),
+        floor_rel_diff_median=float(np.median(floor)),
+        leaves_above_train_tol=sum(k > TRAIN_TOL["leaf_grad_norm"]
+                                   for k in kern),
+        worst_vs_bar={"leaf": kern_leaves["names"][worst],
+                      "rel_diff": kern[worst], "floor": floor[worst],
+                      "bar": bars[worst]})
+    for i in over:
+        problems.append(f"{what}: step-1 gradient norm of "
+                        f"{kern_leaves['names'][i]} {kern[i]} from the plain "
+                        f"path's, over {bars[i]} (its floor {floor[i]})")
+    return res
+
+
+def ssd_train(cfg, drive, by_path, problems, device="cuda") -> dict:
+    """Phase 12, training zamba2 whole through ``launch.train``
+    (``SSD_TRAIN_ARGS``) on the kernels, then its first step on the plain
+    path, held at ``TRAIN_TOL``; the tied block one set of tensors in the
+    parameters and both moments (the unique elements ``count_params``);
+    step 1's batch at a lower loss through the trained weights; each
+    path's launches and the peak memory; the plain path's step 1 run once
+    more (for the record: deterministic) and once with its norms rounded
+    once more (``rounded_rmsnorm``), each leaf's floor for
+    ``hold_leaves_to_floor``."""
+    import tempfile
+    from repro_torch.models import lm
+    from repro_torch.optim.tree import tree_leaves
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssd_")
+    base = SSD_TRAIN_ARGS + ["--device", device]
+    path = f"{SSD_ARCH} train {SSD_TRAIN_STEPS} steps (cuda)"
+    with first_step_leaf_norms() as leaves:
+        trainer, hist, peak_gb = train_run(
+            base + ["--steps", str(SSD_TRAIN_STEPS), "--ckpt-dir", tmp],
+            drive, path)
+    tokens = trainer.data_cfg.global_batch * trainer.data_cfg.seq_len
+    shared_at = [i for i, b in enumerate(cfg.layer_program)
+                 if b == "shared_attn"]
+    tie = {}
+    for name, tree in (("params", trainer.params),
+                       ("m", trainer.opt_state["m"]),
+                       ("v", trainer.opt_state["v"])):
+        ts = tree_leaves(tree)
+        tie[name] = {"tensors": len(ts), "unique": len({id(t) for t in ts}),
+                     "elements": sum(t.numel() for t in ts),
+                     "shared_positions_empty": all(
+                         tree["layers"][i] == {} for i in shared_at)}
+        if (tie[name]["unique"] != len(ts)
+                or tie[name]["elements"] != cfg.num_params()
+                or not tie[name]["shared_positions_empty"]):
+            problems.append(f"phase 12: the tied block in {name}: "
+                            f"{tie[name]}, {cfg.num_params()} parameters")
+    with torch.no_grad():
+        loss_again = float(lm.loss_fn(trainer.params, trainer.loader(0), cfg,
+                                      trainer.ctx)[0])
+    del trainer
+    torch.cuda.empty_cache()
+    plain_path = f"{SSD_ARCH} train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves:
+        _, plain_hist, plain_gb = train_run(
+            base + ["--steps", "1", "--backend", "torch", "--ckpt-dir",
+                    tmp + "_plain"], drive, plain_path)
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "steps": len(hist), "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist],
+           "step1_batch_loss_after_training": loss_again,
+           "step_ms_median_from_2": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+           "plain_step1_ms": plain_hist[0]["ms"],
+           "plain_peak_memory_gb": plain_gb, "tied_block": tie,
+           "launches": {f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    if len(hist) != SSD_TRAIN_STEPS or not loss_again < losses[0]:
+        problems.append(f"phase 12 training: {len(hist)} of "
+                        f"{SSD_TRAIN_STEPS} steps, or step 1's batch has a "
+                        f"loss of {loss_again} after them, not below "
+                        f"{losses[0]}")
+    # the plain path's step 1 once more (bit for bit the same, for the
+    # record), and with its RMSNorm outputs rounded once more: each leaf's
+    # rounding floor
+    with first_step_leaf_norms() as again_leaves:
+        _, again_hist, _ = train_run(
+            base + ["--steps", "1", "--backend", "torch", "--ckpt-dir",
+                    tmp + "_again"], drive, plain_path + " again")
+    out["plain_step1_again"] = hold_to_oracle("", again_hist, plain_hist,
+                                              again_leaves, plain_leaves, [])
+    with first_step_leaf_norms() as floor_leaves, rounded_rmsnorm():
+        _, floor_hist, _ = train_run(
+            base + ["--steps", "1", "--backend", "torch", "--ckpt-dir",
+                    tmp + "_floor"], drive, plain_path + " rounded norms")
+    out["step1_vs_plain"] = hold_leaves_to_floor(
+        f"phase 12 {SSD_ARCH}", hist, plain_hist, leaves, plain_leaves,
+        floor_leaves, problems)
+    want = {k: n * SSD_TRAIN_STEPS for k, n in ssd_expected(cfg)[2].items()}
+    if by_path[path] != want:
+        problems.append(f"phase 12 {path}: launches {by_path[path]}, "
+                        f"expected {want}")
+    for p in (plain_path, plain_path + " again",
+              plain_path + " rounded norms"):
+        if by_path[p]:
+            problems.append(f"phase 12 {p}: the plain path launched "
+                            f"{by_path[p]}")
+    for d in (tmp, tmp + "_plain", tmp + "_again", tmp + "_floor"):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_rows(launches, launches_by_path, max_err, problems, record) -> list:
+    """Phase 5 at zamba2's prefill (``SSD_*_ROWS``, through
+    ``dense_rows``), and beside kernel 4's Dh 80 row the route that pads
+    q, k and v with zeros to ``SSD_PAD_DH`` (the scale kept at Dh 80's)
+    and slices the output: held to the plain version and timed, for the
+    record; no path takes it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    rows = dense_rows(launches, launches_by_path, max_err, problems, record,
+                      rms_rows=SSD_RMS_ROWS, ew_rows=SSD_EW_ROWS,
+                      attn_rows=SSD_ATTN_ROWS)
+    tag, b, hq, hkv, s, window, dh = SSD_ATTN_ROWS[0]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = torch.randn(b, hq, s, dh, device=dev, generator=g)
+    k, v = (torch.randn(b, hkv, s, dh, device=dev, generator=g)
+            for _ in range(2))
+
+    def padded():
+        def pad(t):
+            return F.pad(t, (0, SSD_PAD_DH - dh))
+        return flash_attention.flash_attention(
+            pad(q), pad(k), pad(v), causal=True, window=window,
+            scale=dh ** -0.5)[..., :dh]
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    got = padded()
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    if not torch.allclose(got, want, **LM_TOL):
+        problems.append(f"flash_attention padded to {SSD_PAD_DH}: max "
+                        f"|padded - plain| = {err}")
+    del got, want
+    torch.cuda.empty_cache()
+    row = next(r for r in rows if r["name"] == f"flash_attention.{tag}")
+    row["padded_route"] = {
+        "head_dim": SSD_PAD_DH, "ms": time_ms(padded), "max_abs_err": err,
+        "bound_ms": attn_bound(b, hq, hkv, s, s, SSD_PAD_DH, True, window,
+                               split=flash_attention.TF32_SPLIT)[0]}
+    log(f"phase 5: flash_attention.{tag} padded to {SSD_PAD_DH}: "
+        f"{row['padded_route']}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_phase(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 12 (see the module docstring)."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(SSD_ARCH)
+    out = {"serving": serve_model(cfg, SSD_PROMPT, drive, problems,
+                                  device=device)}
+    pre, dec, _ = ssd_expected(cfg)
+    for p, want in ((f"{cfg.name} prefill (cuda)", pre),
+                    (f"{cfg.name} decode x{SERVE_DECODE} (cuda)", dec)):
+        if by_path.get(p) != want:
+            problems.append(f"phase 12 {p}: launches {by_path.get(p)}, "
+                            f"expected {want}")
+    for p in (f"{cfg.name} prefill (torch)",
+              f"{cfg.name} decode x{SERVE_DECODE} (torch)"):
+        if by_path.get(p):
+            problems.append(f"phase 12 {p}: the plain path launched "
+                            f"{by_path[p]}")
+    out["serving"]["launches"] = {
+        p: {f"{k}.{s}": n for (k, s), n in by_path[p].items()}
+        for p in by_path if p.startswith(cfg.name + " ")}
+    out["training"] = ssd_train(cfg, drive, by_path, problems, device)
+    out["paths"] = [p for p in by_path if p.startswith(cfg.name + " ")]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: zamba2 {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("training", "dense", "moe"),
+    ap.add_argument("--only", choices=("training", "dense", "moe", "ssd"),
                     default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
@@ -4002,19 +4316,25 @@ def main(argv=None) -> int:
 
     if only is not None:
         phase = {"training": training_phase, "dense": dense_archs_phase,
-                 "moe": moe_phase}[only](drive, by_path, problems)
+                 "moe": moe_phase, "ssd": ssd_phase}[only](drive, by_path,
+                                                          problems)
         key = {"training": "training", "dense": "dense_archs",
-               "moe": "moe"}[only]
-        if only == "moe":
-            # phase 5's rows at granite's shapes, counting this phase's paths
+               "moe": "moe", "ssd": "ssd"}[only]
+        if only in ("moe", "ssd"):
+            # phase 5's rows at the model's shapes, counting this phase's
+            # paths
             launches = {e: sum(p.get(e, 0) for p in by_path.values())
                         for e in lm_entries}
             launches_by_path = {e: {path: p[e] for path, p in by_path.items()
                                     if e in p} for e in lm_entries}
-            phase["rows"] = dense_rows(
-                launches, launches_by_path, {}, problems, record,
-                rms_rows=MOE_RMS_ROWS, ew_rows=MOE_EW_ROWS,
-                attn_rows=MOE_ATTN_ROWS)
+            if only == "moe":
+                phase["rows"] = dense_rows(
+                    launches, launches_by_path, {}, problems, record,
+                    rms_rows=MOE_RMS_ROWS, ew_rows=MOE_EW_ROWS,
+                    attn_rows=MOE_ATTN_ROWS)
+            else:
+                phase["rows"] = ssd_rows(launches, launches_by_path, {},
+                                         problems, record)
         print(json.dumps({key: phase}, default=str), flush=True)
         (OUT_DIR / f"chip_smoke_{only}.json").write_text(
             json.dumps(phase, indent=1, default=str))
@@ -4374,6 +4694,7 @@ def main(argv=None) -> int:
     rows += dense_rows(launches, launches_by_path, max_err, problems, record,
                        rms_rows=MOE_RMS_ROWS, ew_rows=MOE_EW_ROWS,
                        attn_rows=MOE_ATTN_ROWS)
+    rows += ssd_rows(launches, launches_by_path, max_err, problems, record)
 
     # the mamba site function at falcon-mamba-7b's full-width prefill shape:
     # one launch = one layer, both batch rows
@@ -4479,6 +4800,11 @@ def main(argv=None) -> int:
     record["moe"] = moe_phase(drive, by_path, problems)
     merge_launches(rows, by_path, record["moe"]["paths"])
     print(json.dumps({"moe": record["moe"]}, default=str), flush=True)
+
+    # -- 12. Mamba-2 SSD and the tied block: zamba2-2.7b whole --------------------
+    record["ssd"] = ssd_phase(drive, by_path, problems)
+    merge_launches(rows, by_path, record["ssd"]["paths"])
+    print(json.dumps({"ssd": record["ssd"]}, default=str), flush=True)
     record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))

@@ -129,13 +129,15 @@ __host__ __device__ __forceinline__ float row_lse(const RowState& st) {
 //   8·j + 2·tig and tig + 4 is 8·j + 2·tig + 1 (pv_key), so Pᵀ's B fragment
 //   of rows 8·nr .. 8·nr + 7 is S's C fragment as it is (b_i = c_{2·nr+i});
 //   A's row s of m-tile t of pair p is dimension pv_dim(p, t, s) = W·p +
-//   (W/8)·(s % 8) + 2·t + s / 8 (W = min(Dh, 32) dimensions a pair), so a
-//   lane reads V at dimensions W·p + (W/8)·grp .. + W/8 - 1 of its two keys.
+//   (W/8)·(s % 8) + 2·t + s / 8 (W dimensions a pair: 32 where 32 divides
+//   Dh, else 16, so the pairs cover Dh exactly: Dh 80 is five pairs of
+//   16), so a lane reads V at dimensions W·p + (W/8)·grp .. + W/8 - 1 of
+//   its two keys.
 //   A lane's Oᵀ registers then hold query rows 8·nr + 2·tig + (i & 1), not
 //   its softmax rows grp and grp + 8: the factors of those rows come from
 //   lane o_src(lane, e) = 4·(2·tig + e) by a shuffle.
-// Row strides: Q and K rows ≡ 16 floats mod 32 and V rows ≡ 4 mod 32, so
-// each quarter-warp's 16-byte loads hit 32 distinct banks.
+// Row strides: Q and K rows ≡ 16 floats mod 32 and V rows Dh + 4 floats,
+// so each quarter-warp's 16-byte loads hit 32 distinct banks.
 
 // A block of FLASH_WARPS warps takes FLASH_BQ query rows; a tile holds BK
 // keys (32 at Dh >= 128, 64 below).  One stage of K and one of V: K of tile
@@ -152,9 +154,12 @@ struct FlashTile {
   static constexpr int SV = DH + 4;                        // V row stride
   static constexpr int NJ = BK / 8;                        // S fragments
   static constexpr int NKP = DH / 16;                      // Q·Kᵀ k-step pairs
-  static constexpr int W = DH < 32 ? DH : 32;              // dims of a V pair
+  static constexpr int W = DH % 32 == 0 ? 32 : 16;         // dims of a V pair
   static constexpr int NP = DH / W;                        // V pairs
   static constexpr int NT = W / 16;                        // m-tiles a pair
+  // the k-step pairs and the V pairs cover every dimension (Dh 80: W 16,
+  // NP 5; a W of 32 there would leave O's last 16 dimensions unwritten)
+  static_assert(DH % 16 == 0 && DH % W == 0, "head_dim: a multiple of 16");
   static constexpr int K = FLASH_BQ * SQK;                 // K's offset (Q first)
   static constexpr int V = K + BK * SQK;                   // V's offset
   static constexpr size_t SMEM = (size_t)(V + BK * SV) * sizeof(float);

@@ -4,11 +4,13 @@ Port of ``repro/models/blocks.py`` for the attention blocks, ``attn``
 (global causal attention + MLP), ``local`` (sliding-window causal
 attention + MLP), ``attn_dense`` (``attn`` with a dense MLP: the MoE
 models' leading dense layers) and ``attn_moe`` (global attention + the MoE
-MLP of :mod:`repro_torch.models.moe`, dispatched on ``ctx.moe_impl``), and
-the ``mamba1`` block (norm, Mamba-1 mixer, residual; no MLP).  The
-presence of ``cache`` selects decode over full-sequence mode.  Every other
-block type (Mamba-2, cross-attention, encoder, shared) and MLA raise
-``NotImplementedError`` until their slices (ROADMAP, queue A).
+MLP of :mod:`repro_torch.models.moe`, dispatched on ``ctx.moe_impl``),
+``shared_attn`` (an ``attn`` block on the one weight-tied ``shared``
+parameter set, zamba2), and the ``mamba1`` and ``mamba2`` blocks (norm,
+Mamba mixer, residual; no MLP).  The presence of ``cache`` selects decode
+over full-sequence mode.  The other block types (cross-attention, encoder)
+and MLA raise ``NotImplementedError`` until their slices (ROADMAP, queue
+A).
 """
 from __future__ import annotations
 
@@ -29,25 +31,31 @@ def _mlp_for(btype, bp, x, cfg: ModelConfig, ctx: ExecContext):
 
 
 def apply_block(btype: str, bp, x, *, cfg: ModelConfig, ctx: ExecContext,
-                rope=None, rope_local=None, cache=None, length=None,
-                collect_cache=True):
+                shared=None, rope=None, rope_local=None, cache=None,
+                length=None, collect_cache=True):
     """Apply one block; returns (x, cache) — for attention the new cache
     ``{"k", "v"}`` (B, Hkv, S, dh) in full-sequence mode, the cache written
     in place in decode mode; for ``mamba1`` the new ``{"conv", "ssm"}``
-    state.  ``rope_local`` is the ``local`` layers' table where the arch
-    gives them their own theta (gemma3).  ``collect_cache=False``
-    (training) returns ``None`` for a full-sequence cache and builds
-    none."""
-    if btype == "mamba1":
+    state, for ``mamba2`` the new ``{"conv", "conv_bc", "ssm"}``.  A
+    ``shared_attn`` block runs the ``attn`` path on ``shared`` (the tied
+    block's parameters; its own ``bp`` is ``{}``).  ``rope_local`` is the
+    ``local`` layers' table where the arch gives them their own theta
+    (gemma3).  ``collect_cache=False`` (training) returns ``None`` for a
+    full-sequence cache and builds none."""
+    if btype == "shared_attn":
+        bp, btype = shared, "attn"
+    if btype in ("mamba1", "mamba2"):
+        mixer = ssm.mamba1_mixer if btype == "mamba1" else ssm.mamba2_mixer
         h = layers.norm(bp["norm1"], x, cfg, ctx)
-        out, new_cache = ssm.mamba1_mixer(bp["mixer"], h, cfg, ctx,
-                                          cache=cache, length=length)
+        out, new_cache = mixer(bp["mixer"], h, cfg, ctx, cache=cache,
+                               length=length)
         return x + out, (new_cache if collect_cache else None)
     if btype not in ATTN_BLOCKS:
         raise NotImplementedError(
             f"block type {btype!r} is not ported yet: only "
-            f"attn/local/attn_dense/attn_moe blocks with standard attention "
-            f"and mamba1 blocks run (ROADMAP, queue A, LM stack)")
+            f"attn/local/attn_dense/attn_moe/shared_attn blocks with "
+            f"standard attention and mamba1/mamba2 blocks run (ROADMAP, "
+            f"queue A, LM stack)")
     if cfg.mla is not None:
         raise NotImplementedError(
             f"block type {btype!r} with MLA (multi-head latent attention, "

@@ -19,9 +19,9 @@ Block types:
   ``xattn``        decoder block with self- + cross-attention (whisper)
   ``enc``          bidirectional encoder block (whisper encoder)
 
-Only ``attn``, ``local`` and ``mamba1`` blocks run in the port so far
-(:mod:`repro_torch.models.blocks`); the MLA, MoE, Mamba-2 and encoder
-configs are kept as dataclasses for the later slices (ROADMAP, queue A).
+The ``xattn`` and ``enc`` blocks do not run in the port yet
+(:mod:`repro_torch.models.blocks`); the MLA and encoder configs are kept
+as dataclasses for the later slices (ROADMAP, queue A).
 """
 from __future__ import annotations
 

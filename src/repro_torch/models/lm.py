@@ -9,8 +9,11 @@ vision stub ``vision_embed (B, P, D)`` with ``vision_slot (B, S)``
 ``lax.scan`` groups to keep its HLO small; PyTorch runs eagerly, so
 :func:`_apply_stack` is a plain loop over the layers, each under
 ``torch.utils.checkpoint`` when ``ctx.remat == "block"`` (the reference's
-``jax.checkpoint`` of a scan unit).  The encoder, learned positions and
-multi-token prediction wait for their slices (ROADMAP, queue A).
+``jax.checkpoint`` of a scan unit).  Every layer gets the tied
+``params["shared_block"]`` (zamba2's ``shared_attn`` positions read it), so
+the gradients of all its uses add into its one set of tensors.  The
+encoder, learned positions and multi-token prediction wait for their
+slices (ROADMAP, queue A).
 """
 from __future__ import annotations
 
@@ -71,9 +74,11 @@ def _rope_for(batch, cfg: ModelConfig, seq_len: int, *, positions=None):
 
 
 def _apply_stack(layer_params, program, x, cfg: ModelConfig,
-                 ctx: ExecContext, *, rope, rope_local=None, caches=None,
-                 length=None, collect_cache=True):
-    """Run the whole layer program; returns (x, per-layer caches).  With
+                 ctx: ExecContext, *, rope, rope_local=None, shared=None,
+                 caches=None, length=None, collect_cache=True):
+    """Run the whole layer program; returns (x, per-layer caches).
+    ``shared``: the tied block's parameters, handed to every layer (and,
+    under remat, to its recompute as an argument of the checkpoint).  With
     ``collect_cache=False`` (training) no cache is built and the caches
     are ``None``; each layer is then recomputed in the backward pass
     when ``ctx.remat == "block"``."""
@@ -81,16 +86,17 @@ def _apply_stack(layer_params, program, x, cfg: ModelConfig,
     for i, btype in enumerate(program):
         cache = None if caches is None else caches[i]
         if not collect_cache and ctx.remat == "block":
-            def layer(x_in, bp, btype=btype):
+            def layer(x_in, bp, sh, btype=btype):
                 return blocks.apply_block(btype, bp, x_in, cfg=cfg, ctx=ctx,
-                                          rope=rope, rope_local=rope_local,
+                                          shared=sh, rope=rope,
+                                          rope_local=rope_local,
                                           collect_cache=False)[0]
-            x, c = checkpoint(layer, x, layer_params[i],
+            x, c = checkpoint(layer, x, layer_params[i], shared,
                               use_reentrant=False), None
         else:
             x, c = blocks.apply_block(
-                btype, layer_params[i], x, cfg=cfg, ctx=ctx, rope=rope,
-                rope_local=rope_local, cache=cache, length=length,
+                btype, layer_params[i], x, cfg=cfg, ctx=ctx, shared=shared,
+                rope=rope, rope_local=rope_local, cache=cache, length=length,
                 collect_cache=collect_cache)
         caches_out.append(c)
     return x, (caches_out if collect_cache else None)
@@ -104,7 +110,9 @@ def forward_hidden(params, batch, cfg: ModelConfig, ctx: ExecContext):
     x = embed_inputs(params, batch, cfg, ctx)
     rope, rope_local = _rope_for(batch, cfg, seq_len)
     x, _ = _apply_stack(params["layers"], cfg.layer_program, x, cfg, ctx,
-                        rope=rope, rope_local=rope_local, collect_cache=False)
+                        rope=rope, rope_local=rope_local,
+                        shared=params.get("shared_block"),
+                        collect_cache=False)
     return layers.norm(params["final_norm"], x, cfg, ctx)
 
 
@@ -126,8 +134,10 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx: ExecContext):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.float32, device="cuda", local_ring: bool = False):
     """Zeroed per-layer caches: ``{"k", "v"}: (B, Hkv, S, dh)`` for an
-    attention layer, ``{"conv": (B, d_conv-1, di), "ssm": (B, di, N)
-    float32}`` for a ``mamba1`` layer.
+    attention layer (a ``shared_attn`` position too: the weights are tied,
+    the caches are not), ``{"conv": (B, d_conv-1, di), "ssm": (B, di, N)
+    float32}`` for a ``mamba1`` layer, ``{"conv", "conv_bc": (B, d_conv-1,
+    2·G·N), "ssm": (B, H, P, N) float32}`` for a ``mamba2`` layer.
 
     ``local_ring``: sliding-window (``local``) layers allocate only
     ``window`` slots, written modulo the window at decode time (ring
@@ -135,13 +145,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     a = cfg.attn
     out = []
     for btype in cfg.layer_program:
-        if btype == "mamba1":
+        if btype in ("mamba1", "mamba2"):
             s, di, _ = ssm_dims(cfg)
-            out.append({"conv": torch.zeros((batch, s.d_conv - 1, di),
-                                            dtype=dtype, device=device),
-                        "ssm": torch.zeros((batch, di, s.d_state),
-                                           dtype=torch.float32,
-                                           device=device)})
+            c = {"conv": torch.zeros((batch, s.d_conv - 1, di), dtype=dtype,
+                                     device=device)}
+            if btype == "mamba1":
+                c["ssm"] = torch.zeros((batch, di, s.d_state),
+                                       dtype=torch.float32, device=device)
+            else:
+                c["conv_bc"] = torch.zeros(
+                    (batch, s.d_conv - 1, 2 * s.n_groups * s.d_state),
+                    dtype=dtype, device=device)
+                c["ssm"] = torch.zeros(
+                    (batch, di // s.head_dim, s.head_dim, s.d_state),
+                    dtype=torch.float32, device=device)
+            out.append(c)
             continue
         blen = max_len
         if local_ring and btype == "local" and a.window > 0:
@@ -162,7 +180,8 @@ def prefill(params, batch, cfg: ModelConfig, ctx: ExecContext):
     x = embed_inputs(params, batch, cfg, ctx)
     rope, rope_local = _rope_for(batch, cfg, seq_len)
     x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
-                             ctx, rope=rope, rope_local=rope_local)
+                             ctx, rope=rope, rope_local=rope_local,
+                             shared=params.get("shared_block"))
     h = layers.norm(params["final_norm"], x[:, -1:], cfg, ctx)
     return layers.logits_from_hidden(params, h, cfg), caches
 
@@ -184,6 +203,7 @@ def decode_step(params, token, caches, length: int, cfg: ModelConfig,
     rope, rope_local = _rope_for(batch, cfg, 1, positions=pos)
     x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
                              ctx, rope=rope, rope_local=rope_local,
+                             shared=params.get("shared_block"),
                              caches=caches, length=length)
     h = layers.norm(params["final_norm"], x, cfg, ctx)
     return layers.logits_from_hidden(params, h, cfg), caches

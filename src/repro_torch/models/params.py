@@ -14,13 +14,20 @@ names and shapes of ``repro/models/params.py``.  An ``attn_moe`` layer's
 "w_down"}}`` (the shared experts a dense MLP of width ``fe·num_shared``);
 an ``attn_dense`` layer is an ``attn`` layer.  A ``mamba1`` layer is
 ``{"norm1": (d,), "mixer": {"w_xm", "w_z", "conv_w", "conv_b", "w_x",
-"w_dt", "dt_bias", "a_log", "d_skip", "w_out"}}``.  The reference stacks
+"w_dt", "dt_bias", "a_log", "d_skip", "w_out"}}``; a ``mamba2`` layer is
+``{"norm1": (d,), "mixer": {"w_xm", "w_z", "w_B", "w_C", "w_dtin",
+"conv_w", "conv_b", "conv_w_bc", "conv_b_bc", "dt_bias", "a_log",
+"d_skip", "out_norm", "w_out"}}``.  A ``shared_attn`` layer is ``{}``: its
+weights are the one ``params["shared_block"]`` (an ``attn`` block), tied
+across every ``shared_attn`` position, so the tree, the optimiser's
+moments and a checkpoint hold them once.  The reference stacks
 each leaf per scan group (``groups[i][position]`` with a leading repeat
 axis: an expert leaf is ``(k, E, d, fe)``); :func:`from_reference`
 unstacks that into the per-layer list.  ``attn``/``local``/``attn_dense``/
 ``attn_moe`` blocks with standard attention (qk-norm's ``q_norm``/
-``k_norm``, ``(head_dim,)``, where the config has it) and ``mamba1``
-blocks, with tied or untied embeddings, are supported; other block types,
+``k_norm``, ``(head_dim,)``, where the config has it), ``mamba1``,
+``mamba2`` and ``shared_attn`` blocks, with tied or untied embeddings, are
+supported; other block types,
 MLA, the encoder, multi-token prediction and learned position embeddings
 raise ``NotImplementedError``.
 """
@@ -36,16 +43,17 @@ from repro_torch.kernels.ops import resolve_device
 from .config import ModelConfig, plan_layer_groups, ssm_dims
 
 #: block types whose parameters the port builds
-SUPPORTED_BLOCKS = ("attn", "local", "attn_dense", "attn_moe", "mamba1")
+SUPPORTED_BLOCKS = ("attn", "local", "attn_dense", "attn_moe", "mamba1",
+                    "mamba2", "shared_attn")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     other = sorted(set(cfg.layer_program) - set(SUPPORTED_BLOCKS))
     if other or cfg.mla is not None or cfg.is_encdec or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: only attn/local/attn_dense/attn_moe blocks with "
-            f"standard attention and mamba1 blocks are ported "
-            f"(found block types {other}, mla={cfg.mla is not None}, "
+            f"{cfg.name}: only attn/local/attn_dense/attn_moe/shared_attn "
+            f"blocks with standard attention and mamba1/mamba2 blocks are "
+            f"ported (found block types {other}, mla={cfg.mla is not None}, "
             f"encoder={cfg.is_encdec}, mtp_depth={cfg.mtp_depth}); the "
             f"rest waits for its slice (ROADMAP, queue A, LM stack)")
     if cfg.pos_embed == "learned":
@@ -121,25 +129,66 @@ def _mamba1_params(cfg: ModelConfig, gen, device) -> dict:
             "w_out": _dense(gen, (di, d), device)}
 
 
+def _mamba2_params(cfg: ModelConfig, gen, device) -> dict:
+    """The Mamba-2 mixer: split projections (x, gate, B, C, dt input),
+    the depthwise convs (fan-in ``d_conv``), ``dt_bias`` 0, ``a_log =
+    log(linspace(1, 16, H))`` per head, ``d_skip`` 1 and the gated norm's
+    ``out_norm`` 0."""
+    s, di, _ = ssm_dims(cfg)
+    d, gn = cfg.d_model, s.n_groups * s.d_state
+    heads = di // s.head_dim
+    return {"w_xm": _dense(gen, (d, di), device),
+            "w_z": _dense(gen, (d, di), device),
+            "w_B": _dense(gen, (d, gn), device),
+            "w_C": _dense(gen, (d, gn), device),
+            "w_dtin": _dense(gen, (d, heads), device),
+            "conv_w": _dense(gen, (s.d_conv, di), device, fan_in=s.d_conv),
+            "conv_b": torch.zeros(di, device=device),
+            "conv_w_bc": _dense(gen, (s.d_conv, 2 * gn), device,
+                                fan_in=s.d_conv),
+            "conv_b_bc": torch.zeros(2 * gn, device=device),
+            "dt_bias": torch.zeros(heads, device=device),
+            "a_log": torch.log(torch.linspace(1.0, 16.0, heads,
+                                              device=device)),
+            "d_skip": torch.ones(heads, device=device),
+            "out_norm": torch.zeros(di, device=device),
+            "w_out": _dense(gen, (di, d), device)}
+
+
+def _layer_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
+    if btype == "shared_attn":
+        return {}
+    if btype in ("mamba1", "mamba2"):
+        mixer = _mamba1_params if btype == "mamba1" else _mamba2_params
+        return {"norm1": torch.zeros(cfg.d_model, device=device),
+                "mixer": mixer(cfg, gen, device)}
+    return _block_params(cfg, gen, device, btype)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random float32 parameters from ``generator`` (whose device must be
     ``device``): projections ~ N(0, 1/fan_in), the embedding ~ N(0, 0.02²),
-    norm weights 0 (the ``(1 + w)`` convention), the Mamba-1 mixer as
-    :func:`_mamba1_params`.  The same distributions as the reference's
-    ``init_params``, the MoE's as :func:`_moe_params`; not the same
-    numbers (a ``torch.Generator`` is not a JAX key)."""
+    norm weights 0 (the ``(1 + w)`` convention), the Mamba mixers as
+    :func:`_mamba1_params` and :func:`_mamba2_params`, and one
+    ``"shared_block"`` (an ``attn`` block) where the program has
+    ``shared_attn`` positions, built at the first of them.  The same
+    distributions as the reference's ``init_params``, the MoE's as
+    :func:`_moe_params`; not the same numbers (a ``torch.Generator`` is
+    not a JAX key)."""
     _check_supported(cfg)
     d = cfg.d_model
     params = {"embed": _dense(generator, (cfg.padded_vocab, d), device,
                               fan_in=1) * 0.02}
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense(generator, (d, cfg.padded_vocab), device)
-    params["layers"] = [
-        {"norm1": torch.zeros(d, device=device),
-         "mixer": _mamba1_params(cfg, generator, device)}
-        if btype == "mamba1" else _block_params(cfg, generator, device, btype)
-        for btype in cfg.layer_program]
+    layers = []
+    for btype in cfg.layer_program:
+        if btype == "shared_attn" and "shared_block" not in params:
+            params["shared_block"] = _block_params(cfg, generator, device,
+                                                   "attn")
+        layers.append(_layer_params(cfg, generator, device, btype))
+    params["layers"] = layers
     params["final_norm"] = torch.zeros(d, device=device)
     return params
 
@@ -160,10 +209,13 @@ def _to_torch(tree, device, index=None, leaf=None):
 def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
     """The port's per-layer structure from the reference's stacked scan
     groups; ``convert(tree, index)`` turns a subtree (sliced at repeat
-    ``index``, or whole for ``None``) into the port's leaves."""
+    ``index``, or whole for ``None``) into the port's leaves.  The tied
+    ``shared_block`` (unstacked in the reference too) is carried once; its
+    positions' entries are the reference's ``{}``."""
     out = {"embed": convert(np_params["embed"], None)}
-    if "lm_head" in np_params:
-        out["lm_head"] = convert(np_params["lm_head"], None)
+    for key in ("lm_head", "shared_block"):
+        if key in np_params:
+            out[key] = convert(np_params[key], None)
     layers = [None] * cfg.n_layers
     offset = 0
     for g, (unit, k) in enumerate(plan_layer_groups(cfg.layer_program)):
@@ -175,6 +227,19 @@ def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
     out["layers"] = layers
     out["final_norm"] = convert(np_params["final_norm"], None)
     return out
+
+
+def weight_decay_mask(params: dict) -> dict:
+    """Which leaves AdamW decays, as the reference's trainer does: its
+    rule is "two or more dimensions", and it stacks every layer's leaves
+    along a repeat axis, so each per-layer leaf decays, norm weights and
+    vectors included.  The port's per-layer leaves are unstacked: True for
+    every leaf under ``"layers"``; elsewhere (the embedding, the head,
+    the tied ``shared_block``, unstacked in the reference too, the final
+    norm) two or more dimensions."""
+    from repro_torch.optim.tree import tree_map
+    return {k: tree_map(lambda p: True if k == "layers" else p.ndim >= 2, v)
+            for k, v in params.items()}
 
 
 def trainable(params: dict) -> dict:

@@ -53,11 +53,13 @@ def adamw_init(params, cfg: AdamWConfig):
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig, *,
-                 lr: Optional[torch.Tensor] = None):
+                 lr: Optional[torch.Tensor] = None, decay=None):
     """One AdamW step, in place on ``params`` and the dense moments.
     Returns ``(params, state, metrics)``: the same parameter tensors, the
     state with its new step (and new ``QTensor`` moments), and
-    ``{"grad_norm": the norm before clipping, "lr"}``."""
+    ``{"grad_norm": the norm before clipping, "lr"}``.  ``decay``: a tree
+    of bools twin to ``params``, the leaves weight decay applies to;
+    ``None`` is the reference's rule, leaves of two or more dimensions."""
     with torch.no_grad():
         step = state["step"] + 1
         dev = step.device
@@ -71,8 +73,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *,
         c1 = 1.0 - cfg.b1 ** step.float()
         c2 = 1.0 - cfg.b2 ** step.float()
 
-        def upd(p, g, m, v):
-            decay_ok = p.ndim >= 2              # decay matrices only
+        def upd(p, g, m, v, decay_ok):
             g = g.float()
             if scale is not None:
                 g = g * scale
@@ -100,8 +101,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *,
         flat_g = tree_leaves(grads)
         flat_m = tree_leaves(state["m"])
         flat_v = tree_leaves(state["v"])
-        out = [upd(p, g, m, v) for p, g, m, v in
-               zip(flat_p, flat_g, flat_m, flat_v)]
+        flat_d = ([p.ndim >= 2 for p in flat_p] if decay is None
+                  else tree_leaves(decay))
+        out = [upd(*leaf) for leaf in
+               zip(flat_p, flat_g, flat_m, flat_v, flat_d)]
         it_m = iter([o[0] for o in out])
         it_v = iter([o[1] for o in out])
         new_state = {"m": tree_map(lambda _: next(it_m), params),

@@ -5,7 +5,8 @@ Training: :func:`build_train_step` assembles ``(params, opt_state, batch)
 into ``grad_accum`` strided microbatches, their gradients accumulated in
 float32 (into ``.grad`` by ``backward()``, one leaf at a time), layer
 remat when ``ctx.remat == "block"``, and an in-place AdamW step on the
-schedule's learning rate.  The cross-pod compressed variant needs a pod
+schedule's learning rate, decaying the leaves the reference decays
+(:func:`repro_torch.models.params.weight_decay_mask`).  The cross-pod compressed variant needs a pod
 axis and waits for sharded training (ROADMAP A7.7).
 
 Serving: sampling, cache padding, prefill and decode steps.  ``jax.random``
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import weight_decay_mask
 from repro_torch.models.context import ExecContext
 from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
 from repro_torch.optim.tree import tree_leaves, tree_map
@@ -101,8 +103,9 @@ def build_train_step(cfg: ModelConfig, ctx: ExecContext,
         lr = warmup_cosine(opt_state["step"], peak_lr=hp.peak_lr,
                            warmup_steps=hp.warmup_steps,
                            total_steps=hp.total_steps)
-        params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             opt_cfg, lr=lr)
+        params, opt_state, om = adamw_update(
+            params, grads, opt_state, opt_cfg, lr=lr,
+            decay=weight_decay_mask(params))
         return params, opt_state, {"loss": loss, **om}
 
     return train_step

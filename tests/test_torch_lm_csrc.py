@@ -490,6 +490,7 @@ extern "C" int host_flash(const float* q, const float* k, const float* v, float*
     case 16: return flash_split<16>(a, split);
     case 32: return flash_split<32>(a, split);
     case 64: return flash_split<64>(a, split);
+    case 80: return flash_split<80>(a, split);
     case 128: return flash_split<128>(a, split);
     case 256: return flash_split<256>(a, split);
     default: return -3;
@@ -871,6 +872,12 @@ _FLASH = {
     "gqa6_noncausal_dh128": ((1, 6, 1, 70, 45, 128), dict(causal=False)),
     "narrow_window_dh128": ((1, 4, 2, 200, 200, 128),
                             dict(causal=True, window=40)),
+    # zamba2's shared block at Dh 80 (V pairs of 16 dimensions): Hq = Hkv
+    # over ragged query and key tiles, and a window with a softcap
+    "causal_ragged_dh80": ((1, 3, 3, 150, 150, 80), dict(causal=True)),
+    "noncausal_ragged_dh80": ((1, 2, 2, 77, 140, 80), dict(causal=False)),
+    "window_softcap_dh80": ((1, 4, 2, 130, 130, 80),
+                            dict(causal=True, window=37, softcap=30.0)),
 }
 
 

@@ -25,7 +25,7 @@ from repro.runtime import steps as jsteps
 from repro_torch import configs as TC
 from repro_torch.models import lm as tlm
 from repro_torch.models import params as tparams
-from repro_torch.models.config import MLAConfig, SSMConfig, plan_layer_groups
+from repro_torch.models.config import MLAConfig, plan_layer_groups
 from repro_torch.models.context import ExecContext
 from repro_torch.runtime import steps as tsteps
 
@@ -219,7 +219,7 @@ def test_unported_blocks_and_features_raise():
     import dataclasses
     from repro_torch.models import blocks
     cfg = TC.get_smoke("gemma2_2b")
-    for btype in ("mamba2", "xattn"):
+    for btype in ("enc", "xattn"):
         with pytest.raises(NotImplementedError, match="attn/local"):
             blocks.apply_block(btype, {}, torch.zeros(1, 2, cfg.d_model),
                                cfg=cfg, ctx=ExecContext())
@@ -234,8 +234,7 @@ def test_unported_blocks_and_features_raise():
                                ctx=ExecContext())
     with pytest.raises(KeyError, match="not yet ported"):
         TC.get_config("deepseek-v3-671b")
-    hybrid = dataclasses.replace(cfg, layer_program=("attn", "mamba2") * 2,
-                                 ssm=SSMConfig(kind="mamba2"))
+    hybrid = dataclasses.replace(cfg, layer_program=("attn", "xattn") * 2)
     with pytest.raises(NotImplementedError, match="only attn/local"):
         tparams.init_params(hybrid, torch.Generator(), "cpu")
     # learned position embeddings (whisper's) wait for the encoder slice
@@ -247,6 +246,6 @@ def test_unported_blocks_and_features_raise():
                          {"tokens": torch.zeros(1, 2, dtype=torch.long)},
                          learned, ExecContext())
     with pytest.raises(KeyError, match="not yet ported"):
-        TC.get_config("zamba2-2.7b")
+        TC.get_config("whisper-medium")
     with pytest.raises(ValueError, match="backend"):
         ExecContext(backend="xla")

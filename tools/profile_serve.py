@@ -5,6 +5,7 @@
     python3 tools/profile_serve.py --arch falcon-mamba-7b   # prompt 4096
     python3 tools/profile_serve.py --arch gemma3-27b  # 12 layers, 4096
     python3 tools/profile_serve.py --arch granite-moe-1b-a400m  # whole, 4096
+    python3 tools/profile_serve.py --arch zamba2-2.7b  # whole, 4096
 
 Builds ``--arch`` (gemma2-2b by default, or any arch of the port's
 registry) at full width with seeded random float32 weights, at
@@ -24,7 +25,15 @@ product, softmax, top-k), ``dispatch`` (the stable sort, the pack's gather
 and the unpack), ``bmm`` (the three batched expert products), ``gated``
 (kernel 2a's SwiGLU over the packed rows) and ``combine`` (the weighted
 sum over the K choices), from ``record_function`` ranges put around
-``models.moe``'s functions for the traced runs only.  Needs one CUDA card; prints the card's name and
+``models.moe``'s functions for the traced runs only.  For an arch with
+``mamba2`` layers (zamba2) they split a Mamba-2 mixer's device time the
+same way (``mamba2_ms_by_part``, per ``mamba2`` layer): ``in_proj`` (the
+x, gate, B, C and dt projections), ``conv`` (both causal convolutions),
+``ssd_intra`` (the chunks' decay-masked Q×Q products), ``ssd_inter`` (the
+chunk-boundary states and their outputs), ``gated_norm`` and
+``out_proj_and_glue`` (the rest of the mixer: the out-projection, the
+softplus, silu and reshapes), from ranges around ``models.ssm``'s
+functions.  Needs one CUDA card; prints the card's name and
 power limit first and writes the full table to
 ``chiprun_out/profile_serve_<arch>[_<tag>].json``.  ``--src`` may point at
 another checkout's ``src`` (one unpacked with ``git archive``), so two
@@ -49,7 +58,7 @@ PORT_KERNELS = ("flash_fwd_kernel", "ew_kernel", "rms_tiled_kernel",
 DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096,
                   "gemma3-27b": 4096, "qwen2-vl-2b": 4096,
                   "phi3-medium-14b": 2048, "nemotron-4-15b": 2048,
-                  "granite-moe-1b-a400m": 4096}
+                  "granite-moe-1b-a400m": 4096, "zamba2-2.7b": 4096}
 #: the layers kept by default (chip_smoke.py phase 10's cut; 0 = all)
 DEFAULT_LAYERS = {"gemma3-27b": 12, "phi3-medium-14b": 10,
                   "nemotron-4-15b": 8}
@@ -80,60 +89,72 @@ def summarize(prof, wall_s: float, per: int) -> dict:
     }
 
 
-#: ``models.moe`` functions traced as ranges, and the part each range's
-#: device time goes to (the experts range: its products to ``bmm``, its
-#: gated range to ``gated``, the rest to ``dispatch``)
-MOE_RANGES = {"_route": "route", "_apply_experts_capacity": "dispatch",
-              "grouped_matmul": "bmm", "_act": "gated", "_combine": "combine"}
+#: functions traced as ranges, by module (``models.moe``, ``models.ssm``)
+#: and range prefix, and the part each range's device time goes to: for
+#: the MoE the experts range's products to ``bmm``, its gated range to
+#: ``gated``, the rest to ``dispatch``; for a Mamba-2 mixer what no inner
+#: range holds to ``out_proj_and_glue``
+RANGES = {"moe": {"_route": "route", "_apply_experts_capacity": "dispatch",
+                  "grouped_matmul": "bmm", "_act": "gated",
+                  "_combine": "combine"},
+          "ssd": {"mamba2_mixer": "out_proj_and_glue",
+                  "_mamba2_project": "in_proj", "_causal_conv": "conv",
+                  "_ssd_intra": "ssd_intra", "_ssd_inter": "ssd_inter",
+                  "_gated_rmsnorm": "gated_norm"}}
 #: matrix products by kernel name (cuBLAS / CUTLASS)
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma")
+#: ranges searched back from a kernel for the one holding it
+LOOK_BACK = 8
 
 
-def moe_ranges(moe):
-    """Wraps ``MOE_RANGES``' functions of the module ``moe`` in
-    ``record_function`` ranges named ``moe.<part>``; returns a function
-    that restores them."""
+def traced_ranges(module, prefix: str):
+    """Wraps ``RANGES[prefix]``' functions of ``module`` in
+    ``record_function`` ranges named ``<prefix>.<part>``; returns a
+    function that restores them."""
     from torch.profiler import record_function
-    saved = {name: getattr(moe, name) for name in MOE_RANGES}
+    table = RANGES[prefix]
+    saved = {name: getattr(module, name) for name in table}
 
     def ranged(fn, label):
         def inner(*a, **kw):
             with record_function(label):
                 return fn(*a, **kw)
         return inner
-    for name, part in MOE_RANGES.items():
-        setattr(moe, name, ranged(saved[name], f"moe.{part}"))
-    return lambda: [setattr(moe, n, f) for n, f in saved.items()]
+    for name, part in table.items():
+        setattr(module, name, ranged(saved[name], f"{prefix}.{part}"))
+    return lambda: [setattr(module, n, f) for n, f in saved.items()]
 
 
 def device_kernels(prof) -> list:
-    """The trace's device kernels: its device events but the ``moe.*``
+    """The trace's device kernels: its device events but the traced
     ranges' own (a ``record_function`` range also leaves an event on the
     device timeline, spanning its kernels and the gaps between them)."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith("moe.")]
+            and not e.name.startswith(tuple(f"{p}." for p in RANGES))]
 
 
-def moe_split(prof, per: int) -> dict:
+def range_split(prof, per: int, prefix: str) -> dict:
     """Device ms (per ``per`` units of work) of the kernels inside the
-    ``moe.*`` ranges on the device timeline, each kernel given to its
-    innermost range's part, a matrix product inside the experts' range to
-    ``bmm`` (the ranges nest: ``gated`` inside the experts')."""
+    ``<prefix>.*`` ranges on the device timeline, each kernel given to its
+    innermost range's part (the ranges nest two deep: the MoE's ``gated``
+    inside the experts', a mixer's parts inside the mixer's), a matrix
+    product inside the MoE experts' range to ``bmm``.  The innermost range
+    holding a kernel is the latest to start before it that also ends
+    after it; a mixer runs six inner ranges, so the search looks back
+    ``LOOK_BACK`` ranges."""
     import bisect
     ranges = sorted((e.time_range.start, e.time_range.end,
-                     e.name[len("moe."):]) for e in prof.events()
+                     e.name[len(prefix) + 1:]) for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.name.startswith("moe."))
+                    and e.name.startswith(prefix + "."))
     starts = [r[0] for r in ranges]
-    parts = {p: 0.0 for p in dict.fromkeys(MOE_RANGES.values())}
+    parts = {p: 0.0 for p in dict.fromkeys(RANGES[prefix].values())}
     for k in device_kernels(prof):
         t0, t1 = k.time_range.start, k.time_range.end
         i = bisect.bisect_right(starts, t0) - 1
-        # the innermost range holding the kernel is the last to start
-        # before it, or the one before that (the ranges nest two deep)
-        for j in (i, i - 1):
-            if j >= 0 and ranges[j][0] <= t0 and t1 <= ranges[j][1]:
+        for j in range(i, max(i - LOOK_BACK, -1), -1):
+            if ranges[j][0] <= t0 and t1 <= ranges[j][1]:
                 part = ranges[j][2]
                 break
         else:
@@ -208,19 +229,24 @@ def main(argv=None) -> int:
     def trace():
         return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-    is_moe = "attn_moe" in cfg.layer_program
+    from repro_torch.models import moe, ssm
+    # (range prefix, module, the result's key, the layers it is per)
+    split = [(prefix, module, key, cfg.layer_program.count(btype))
+             for prefix, module, key, btype in (
+                 ("moe", moe, "moe_ms_by_part", "attn_moe"),
+                 ("ssd", ssm, "mamba2_ms_by_part", "mamba2"))
+             if btype in cfg.layer_program]
     with torch.inference_mode():
         tok, caches, length, _ = pre(params, batch)   # warm-up
         decode_all(tok, caches, length)
-        if is_moe:
-            from repro_torch.models import moe
-            restore = moe_ranges(moe)
+        restores = [traced_ranges(module, prefix)
+                    for prefix, module, _, _ in split]
         with trace() as p_pre:
             (tok, caches, length, _), t_pre = timed(
                 lambda: pre(params, batch))
         with trace() as p_dec:
             _, t_dec = timed(lambda: decode_all(tok, caches, length))
-        if is_moe:
+        for restore in restores:
             restore()
     traced = {"prefill": (p_pre, t_pre), "decode": (p_dec, t_dec)}
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -230,11 +256,10 @@ def main(argv=None) -> int:
               "decode_steps": args.decode,
               "prefill": summarize(*traced["prefill"], per=1),
               "decode_per_step": summarize(*traced["decode"], per=args.decode)}
-    if is_moe:
-        n_moe = cfg.layer_program.count("attn_moe")
-        result["prefill"]["moe_ms_by_part"] = moe_split(p_pre, per=n_moe)
-        result["decode_per_step"]["moe_ms_by_part"] = moe_split(
-            p_dec, per=args.decode * n_moe)
+    for prefix, _, key, n in split:
+        result["prefill"][key] = range_split(p_pre, n, prefix)
+        result["decode_per_step"][key] = range_split(p_dec, args.decode * n,
+                                                     prefix)
     for phase in ("prefill", "decode_per_step"):
         row = result[phase]
         top = dict(list(row["by_kernel_ms"].items())[:8])

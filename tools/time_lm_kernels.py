@@ -1,7 +1,7 @@
 """Time the LM kernels (rmsnorm, gated, act, mamba, flash) on one card.
 
     python3 tools/time_lm_kernels.py [--src DIR] [--tag NAME] \
-        [--kernels rmsnorm,gated,act,mamba,flash]
+        [--kernels rmsnorm,gated,act,mamba,flash,flash80]
 
 Builds the CUDA sources of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``) and, on seeded random float32 inputs,
@@ -25,7 +25,13 @@ written once, at 3.35 TB/s):
   4608, 4608, 256), its local (window 4096, softcap 50), global (softcap
   50) and plain causal layers, the last beside
   ``scaled_dot_product_attention``; bounds: float32 on the CUDA cores and
-  TF32 on the tensor cores (one TF32 product and 3xTF32).
+  TF32 on the tensor cores (one TF32 product and 3xTF32);
+* ``flash80``: ``flash_attention`` at zamba2-2.7b's shared block (2, 32,
+  32, 4096, 4096, Dh 80), causal, beside SDPA and beside the route that
+  pads q, k and v with zeros to Dh 128 and slices the output (timed for
+  the record: no path of the port takes it).  A version of the package
+  without the Dh 80 instantiation raises; leave ``flash80`` out of
+  ``--kernels`` for it.
 
 ``--src`` may point at another checkout's ``src`` (one unpacked with ``git
 archive``), so two versions of the kernels compare within one call: run
@@ -63,7 +69,10 @@ MAMBA_SHAPE = (2, 4096, 8192, 16)
 #: gemma2-2b's prefill attention: (B, Hq, Hkv, S, Dh), window, softcap
 ATTN_SHAPE = (2, 8, 4, 4608, 256)
 ATTN_VARIANTS = {"local": (4096, 50.0), "attn": (0, 50.0), "causal": (0, 0.0)}
-KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash")
+#: zamba2-2.7b's shared attention: (B, Hq, Hkv, S, Dh), causal, and the
+#: head_dim the padded route pads to
+ATTN80_SHAPE, PAD_DH = (2, 32, 32, 4096, 80), 128
+KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash", "flash80")
 
 
 def main(argv=None) -> int:
@@ -231,6 +240,50 @@ def main(argv=None) -> int:
             del want
             torch.cuda.empty_cache()
         del q, k, v
+
+    if "flash80" in todo:
+        b, hq, hkv, s_len, dh = ATTN80_SHAPE
+        q = torch.randn(b, hq, s_len, dh, device=dev, generator=g)
+        k, v = (torch.randn(b, hkv, s_len, dh, device=dev, generator=g)
+                for _ in range(2))
+
+        def call():
+            return flash_attention.flash_attention(q, k, v, causal=True)
+
+        def padded():
+            def pad(t):
+                return F.pad(t, (0, PAD_DH - dh))
+            return flash_attention.flash_attention(
+                pad(q), pad(k), pad(v), causal=True,
+                scale=dh ** -0.5)[..., :dh]
+        want = ref.attention_ref(q, k, v, causal=True)
+        out = {"name": "flash zamba2 (Dh 80)",
+               "shape": [b, hq, hkv, s_len, s_len, dh],
+               "plain_ms": time_ms(lambda: ref.attention_ref(
+                   q, k, v, causal=True), reps=5),
+               "bound_tf32x3_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                             True, 0, split=3)[0],
+               "bound_fp32_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                           True, 0)[0],
+               "padded_bound_tf32x3_ms": attn_bound(
+                   b, hq, hkv, s_len, s_len, PAD_DH, True, 0, split=3)[0]}
+        for key, fn in (("max_abs_err", call),
+                        ("padded_max_abs_err", padded)):
+            got = fn()
+            torch.cuda.synchronize()
+            out[key] = float((got - want).abs().max())
+            if not torch.allclose(got, want, **LM_TOL):
+                problems.append(f"flash Dh 80 ({key}): max |kernel - plain| "
+                                f"= {out[key]}")
+            del got
+        out["ms"] = time_ms(call)
+        out["padded_ms"] = time_ms(padded)
+        out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        print(json.dumps(out), file=sys.stderr, flush=True)
+        rows.append(out)
+        del q, k, v, want
+        torch.cuda.empty_cache()
     result = {"tag": args.tag, "src": str(src), "nvidia_smi": smi,
               "device": torch.cuda.get_device_name(0), "build_s": build_s,
               "ptxas": ptxas, "rows": rows, "problems": problems}
