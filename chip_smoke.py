@@ -26,18 +26,21 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    128 without softcap (gemma3's window 1024 and global GQA 32/16,
    qwen2-vl's 12/2, nemotron's 48/8, phi3's 40/10) and GQA group 6 over
    ragged tiles, granite-moe-1b-a400m's layer at Dh 64 (GQA 16/8, 2 ×
-   4096), zamba2's shared block at Dh 80 over ragged tiles, with a window
-   and softcap and with GQA, and (B, S, H, Dh) tensors seen as (B, H,
+   4096), zamba2's shared block at Dh 80 and deepseek-v3's MLA at Dh 192
+   over ragged tiles, with a window and softcap and with GQA, and (B, S,
+   H, Dh) tensors seen as (B, H,
    S, Dh) (``ATTN_VIEW_CASES``); ``rmsnorm`` at VVL 1, 2, 4 and 8 at gemma2's and
    falcon-mamba-7b's prefill and decode shapes, a ragged (37, 64) and the
-   dense archs' prefills (d 5376, 1536, 5120), granite's and zamba2's
-   prefill, decode and training step (d 1024, 2560), the
+   dense archs' prefills (d 5376, 1536, 5120), granite's, zamba2's and
+   deepseek-v3's prefill, decode and training step (d 1024, 2560, 7168),
+   the
    ``gated``/``act`` site functions (all five kinds) at VVL 1, 2, 4 and 8
    at full width and on operands at a storage offset of one element (the
    unaligned path, a ragged extent), and qwen2-vl's SwiGLU and nemotron's
    squared ReLU at their prefills' sizes and granite's SwiGLU over its
-   prefill's packed expert rows (81 920, 512) and zamba2's GeGLU (8192,
-   10 240) (``DENSE_EW_CHECKS``); the ``mamba`` site function
+   prefill's packed expert rows (81 920, 512), zamba2's GeGLU (8192,
+   10 240) and deepseek-v3's SwiGLU (8192, 18 432) and (81 920, 2048)
+   (``DENSE_EW_CHECKS``); the ``mamba`` site function
    (``ops.mamba_scan``, every batch row in one launch) at VVL 1, 2, 4 and 8
    on the reference tests' shapes, a ragged 1000 channels, falcon-mamba-7b's
    full-width prefill shape (2, 4096, 8192, 16) and shapes that cut the
@@ -107,7 +110,12 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    SDPA) and zamba2's (``SSD_*_ROWS``: rmsnorm at (2560, 8192), GeGLU at
    (8192, 10 240), kernel 4 at (2, 32 / 32, 4096, Dh 80) beside SDPA and
    beside the route that would pad q, k, v to Dh 128, timed for the
-   record);
+   record) and deepseek-v3's (``mla_rows``: rmsnorm at (7168, 8192),
+   SwiGLU over the dense FFN (8192, 18 432) and the packed expert rows
+   (81 920, 2048), kernel 4 at (2, 128 / 128, 4096, Dh 192) on V padded
+   from 128, held to the chunked plain version and beside SDPA in float32
+   on the same padded inputs, the V pad and the output slice timed, and
+   kernel 4 raising ``ValueError`` at Dh 96);
    MLUPS per regime; prefill ms, decode ms per step and
    tokens/s of both serving paths, on the kernels and on the plain path;
    the calibration kernels at the calibration sizes beside ``torch.add``;
@@ -257,7 +265,28 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    ``python3 chip_smoke.py --only ssd`` runs phases 1, 2 and 12 alone,
    with phase 5's rows at zamba2's shapes counting this phase's paths.
 
-Prints the kernels line and, last, ``{"ok": true, "device": {...}}``; exits
+13. Multi-head Latent Attention and multi-token prediction
+   (``mla_phase``): deepseek-v3-671b at full width from seeded random
+   float32 weights, served at its first 4 layers (3 ``attn_dense`` + 1
+   ``attn_moe`` of 256 experts, top 8, one shared; 15.11e9 parameters)
+   without the MTP module, which serving never reads, through
+   ``build_serve_steps`` (2 prompts of 4096 tokens, 16 greedy steps) as
+   phase 11 serves granite (``moe_serve``: routes recorded and held by
+   ``RouteHold``, logits at 1e-3, tokens equal), the plain path on the
+   chunked attention oracle; the launches of a prefill (9 rmsnorm, 5
+   SwiGLU, 4 kernel 4) and of a decode step (9 rmsnorm, 5 SwiGLU) held to
+   ``deepseek_expected``; then trained at its first 3 layers and its MTP
+   module (an ``attn_dense`` block at that cut; 4.29e9 parameters) through
+   ``launch.train`` (``MLA_TRAIN_ARGS``: 3 steps of 8 × 256 tokens in two
+   microbatches, block remat, 8-bit moments), step 1's loss, ``ce``,
+   ``mtp``, gradient norm and worst leaf held to the plain path at
+   ``TRAIN_TOL``, the launches held; printed as one ``{"mla": ...}`` line,
+   the phase's paths merged into the LM kernel rows.  ``python3
+   chip_smoke.py --only mla`` runs phases 1, 2, phase 5's rows at
+   deepseek's shapes (before the weights) and 13 alone.
+
+Prints the kernels line (none under ``--only``) and, last, ``{"ok": true,
+"device": {...}}``; exits
 non-zero, printing no result, when anything fails or no card is present.
 Long output goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -459,7 +488,9 @@ RMS_CHECKS = [(SERVE_BATCH * SERVE_PROMPT, 2304), (SERVE_BATCH, 2304), (37, 64),
               # granite-moe-1b-a400m's prefill, decode and training step
               (8192, 1024), (2, 1024), (2048, 1024),
               # zamba2-2.7b's
-              (8192, 2560), (2, 2560), (2048, 2560)]
+              (8192, 2560), (2, 2560), (2048, 2560),
+              # deepseek-v3-671b's prefill, decode and training microbatch
+              (8192, 7168), (2, 7168), (1024, 7168)]
 #: the dense archs' MLP activations, (kind, gated, tokens, d_ff): qwen2-vl's
 #: SwiGLU and nemotron's ungated squared ReLU at their prefills' sizes
 DENSE_EW_CHECKS = [("swiglu", True, 8192, 8960), ("relu2", False, 4096, 24576),
@@ -467,7 +498,10 @@ DENSE_EW_CHECKS = [("swiglu", True, 8192, 8960), ("relu2", False, 4096, 24576),
                    # experts × 2560 slots) of its 2 × 4096-token prefill
                    ("swiglu", True, 81920, 512),
                    # zamba2's shared block's GeGLU at its prefill
-                   ("geglu", True, 8192, 10240)]
+                   ("geglu", True, 8192, 10240),
+                   # deepseek-v3's dense FFN and packed expert rows (256
+                   # experts × 320 slots) at its prefill
+                   ("swiglu", True, 8192, 18432), ("swiglu", True, 81920, 2048)]
 #: Elements of the unaligned gated/act check: not a multiple of 4.
 UNALIGNED_N = 1_000_003
 #: Calls the mamba site function's plain version (a Python loop over 4096
@@ -512,12 +546,18 @@ ATTN_CASES = [(2, 4, 4, 128, 128, 32, c, 0, 0.0) for c in (True, False)] + [
     (1, 4, 4, 300, 300, 80, True, 0, 0.0),
     (1, 4, 2, 200, 333, 80, False, 50, 30.0),
     (2, 6, 3, 130, 130, 80, True, 37, 0.0),
+    # deepseek-v3's MLA at Dh 192 (six V pairs of 32): ragged query and key
+    # tiles, causal and not, a window with a softcap
+    (1, 4, 4, 300, 300, 192, True, 0, 0.0),
+    (1, 4, 4, 200, 333, 192, False, 0, 0.0),
+    (1, 2, 2, 130, 130, 192, True, 50, 30.0),
 ]
 #: ATTN_CASES entries also run on (B, S, H, Dh) tensors seen as (B, H, S,
 #: Dh): the layout the model hands the kernel.
 ATTN_VIEW_CASES = [(2, 8, 4, 300, 300, 256, True, 100, 50.0),
                    (1, 4, 2, 130, 130, 128, True, 0, 0.0),
-                   (1, 4, 4, 130, 130, 80, True, 0, 0.0)]
+                   (1, 4, 4, 130, 130, 80, True, 0, 0.0),
+                   (1, 4, 4, 130, 130, 192, True, 0, 0.0)]
 #: Per-launch ms of the LM kernels this PR redesigns, before it (PERF.md §6:
 #: this script's phase 5 on an NVIDIA H100 80GB HBM3 at 700 W): flash at
 #: gemma2-2b's prefill shape, and the mamba site function at falcon-mamba-7b's
@@ -673,6 +713,36 @@ MOE_ROUTE_MARGIN = 1e-5
 #: ragged (dropless) against capacity at the dropless factor E/K, one MoE
 #: layer on the kernels: the same products in other GEMM shapes
 MOE_DROPLESS_TOL = dict(rtol=1e-5, atol=1e-5)
+#: Phase 13, deepseek-v3-671b at full width.  Served at its first 4 layers
+#: (3 ``attn_dense`` + 1 ``attn_moe``: every block type; 256 experts of
+#: 2048, top 8, one shared expert; 15.11e9 float32 parameters, 60.4 GB)
+#: without the MTP module, which serving never reads: 2 prompts of 4096
+#: tokens, 16 greedy steps, the plain path on the chunked attention oracle
+#: (the whole-score one would hold three (2, 128, 4096, 4096) float32
+#: tensors, 17.2 GB each).  Trained at its first 3 layers with the MTP
+#: module (an ``attn_dense`` block at that cut; 4.29e9 parameters)
+#: through ``launch.train``: 3 steps of 8 × 256 tokens in two
+#: microbatches, block remat, 8-bit moments (dense AdamW would need 68.6
+#: GB before activations).
+MLA_ARCH, MLA_SERVE_LAYERS, MLA_PROMPT = "deepseek-v3-671b", 4, 4096
+MLA_TRAIN_STEPS, MLA_TRAIN_ACCUM = 3, 2
+MLA_TRAIN_ARGS = ["--arch", MLA_ARCH, "--layers", "3", "--quant-moments",
+                  "--seq-len", "256", "--global-batch", "8", "--grad-accum",
+                  str(MLA_TRAIN_ACCUM), "--warmup", str(TRAIN_WARMUP),
+                  "--ckpt-every", "0", "--log-every", "1"]
+#: Phase 5's rows at deepseek-v3's prefill (2 × 4096 tokens): rmsnorm at d
+#: 7168; SwiGLU over the dense FFN (8192, 18 432) and the packed experts
+#: (256 experts × 320 slots at capacity 1.25, 2048); kernel 4 at (B, Hq,
+#: Hkv, S, Dh) with V carrying ``MLA_V_DIM`` of its Dh dimensions (the rest
+#: zero, as the model pads it)
+MLA_RMS_ROWS = [(".deepseek_d7168", 7168, 8192)]
+MLA_EW_ROWS = [("tdp_gathered.gated.deepseek_dense", "swiglu", True, 8192,
+                18432, 5),
+               ("tdp_gathered.gated.deepseek_experts", "swiglu", True,
+                81920, 2048, 5)]
+MLA_ATTN, MLA_V_DIM = ("deepseek", 2, 128, 128, 4096, 192), 128
+#: a head_dim kernel 4 is not instantiated for: it must raise
+MLA_BAD_DH = 96
 
 
 def log(msg: str) -> None:
@@ -1052,7 +1122,7 @@ def lm_checks(problems: list, max_err: dict) -> None:
 
 
 def serve_run(params, cfg, backend: str, batch, drive=None, *,
-              local_ring=False, tag=""):
+              local_ring=False, tag="", attn_impl="ref"):
     """Prefill ``batch`` + ``SERVE_DECODE`` greedy decode steps through
     ``build_serve_steps`` (``local_ring``: window-sized ring caches for the
     ``local`` layers); returns tokens, the logits of every step, and the
@@ -1060,11 +1130,13 @@ def serve_run(params, cfg, backend: str, batch, drive=None, *,
     M-RoPE the decode steps continue the prompt's positions, one past its
     largest, in all three rows.  With ``drive``, the prefill and the decode
     steps each run as one counted path of the main path, named with
-    ``tag``."""
+    ``tag``.  ``attn_impl``: the plain attention's oracle
+    (``ExecContext.attn_impl``)."""
     from repro_torch.models.context import ExecContext
     from repro_torch.runtime.steps import build_serve_steps
 
-    pre, dec = build_serve_steps(cfg, ExecContext(backend=backend),
+    pre, dec = build_serve_steps(cfg, ExecContext(backend=backend,
+                                                  attn_impl=attn_impl),
                                  max_len=int(batch["tokens"].shape[1])
                                  + SERVE_DECODE, local_ring=local_ring)
     drive = drive or (lambda path, fn: fn())
@@ -3635,9 +3707,11 @@ class RouteHold:
                 "sequences_alive": int(self.alive.sum())}
 
 
-def moe_serve(cfg, drive, problems, device="cuda") -> dict:
-    """Phase 11, serving: granite whole from seeded random float32
-    weights, ``SERVE_BATCH`` prompts of ``MOE_PROMPT`` tokens and
+def moe_serve(cfg, drive, problems, device="cuda", *, prompt=MOE_PROMPT,
+              phase="phase 11", plain_attn_impl="ref") -> dict:
+    """Phase 11, serving (and phase 13's, ``phase`` naming it): the model
+    (granite whole, deepseek-v3's cut) from seeded random float32 weights,
+    ``SERVE_BATCH`` prompts of ``prompt`` tokens and
     ``SERVE_DECODE`` greedy steps through ``build_serve_steps`` on the
     kernels (counted, routes recorded), on the plain path (the same), on
     the kernels with the plain path's routes (``forced_routes``) and on the
@@ -3646,7 +3720,8 @@ def moe_serve(cfg, drive, problems, device="cuda") -> dict:
     agree so far (``RouteHold``; a token that differs at a near tie of the
     logits parts its sequence, as in ``compare_serving``); the run on the
     plain path's routes held to the plain path on every sequence
-    (``compare_serving``)."""
+    (``compare_serving``).  ``plain_attn_impl``: the plain path's attention
+    oracle (``ExecContext.attn_impl``)."""
     from repro_torch.models import params as model_params
     dev = torch.device(device)
     torch.cuda.empty_cache()
@@ -3654,20 +3729,21 @@ def moe_serve(cfg, drive, problems, device="cuda") -> dict:
     mparams = model_params.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, MOE_PROMPT))).to(dev)}
+        0, cfg.vocab_size, (SERVE_BATCH, prompt))).to(dev)}
     with recorded_routes() as kern_routes:
         served = serve_run(mparams, cfg, "cuda", batch, drive=drive)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with recorded_routes() as plain_routes:
-        plain = serve_run(mparams, cfg, "torch", batch, drive=drive)
+        plain = serve_run(mparams, cfg, "torch", batch, drive=drive,
+                          attn_impl=plain_attn_impl)
     with forced_routes(plain_routes):
         forced = serve_run(mparams, cfg, "cuda", batch)
     warm = serve_run(mparams, cfg, "cuda", batch)
-    n = cfg.n_layers
-    hold = RouteHold(cfg.moe, SERVE_BATCH, f"phase 11 {cfg.name} serving")
+    n = cfg.layer_program.count("attn_moe")     # routed calls a forward
+    hold = RouteHold(cfg.moe, SERVE_BATCH, f"{phase} {cfg.name} serving")
     if len(kern_routes) != len(plain_routes) or len(kern_routes) != n * (
             1 + SERVE_DECODE):
-        problems.append(f"phase 11: {len(kern_routes)} and "
+        problems.append(f"{phase}: {len(kern_routes)} and "
                         f"{len(plain_routes)} routed calls, expected "
                         f"{n * (1 + SERVE_DECODE)}")
     steps = []
@@ -3689,39 +3765,40 @@ def moe_serve(cfg, drive, problems, device="cuda") -> dict:
                       "min_top2_margin": float(margin.min()),
                       "tokens_equal": bool(same.all())})
         if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-            problems.append(f"phase 11 {cfg.name} step {i}: non-finite logits")
+            problems.append(f"{phase} {cfg.name} step {i}: non-finite logits")
         if ok.any() and not torch.allclose(lk[ok], lp[ok], **SERVE_TOL):
-            problems.append(f"phase 11 {cfg.name} step {i}: logits differ by "
+            problems.append(f"{phase} {cfg.name} step {i}: logits differ by "
                             f"{diff}")
         if bool((~same & ok & (margin > 2 * tol)).any()):
-            problems.append(f"phase 11 {cfg.name} step {i}: greedy tokens "
+            problems.append(f"{phase} {cfg.name} step {i}: greedy tokens "
                             f"differ where the margin exceeds {2 * tol}")
         hold.alive &= same.cpu()
-    # choices the capacity path dropped in the kernels' prefill, by layer
+    # choices the capacity path dropped in the kernels' prefill, by MoE
+    # layer
     dropped = [e.numel() - int(kept_by_expert(e, cfg.moe).sum())
                for e, _ in kern_routes[:n]]
     out = {"tolerance": SERVE_TOL, "steps": steps,
            "routes": hold.report(problems), "params": cfg.num_params(),
            "prefill_dropped_choices_by_layer": dropped,
-           "prefill_choices_per_layer": SERVE_BATCH * MOE_PROMPT
+           "prefill_choices_per_layer": SERVE_BATCH * prompt
            * cfg.moe.top_k,
-           "layers": n, "prompt": [SERVE_BATCH, MOE_PROMPT],
+           "layers": cfg.n_layers, "prompt": [SERVE_BATCH, prompt],
            "decode_steps": SERVE_DECODE, "peak_memory_gb_kernels": peak_gb}
     out["with_the_plain_routes"] = compare_serving(
-        forced, plain, problems, f"phase 11 {cfg.name} on the plain path's "
+        forced, plain, problems, f"{phase} {cfg.name} on the plain path's "
         f"routes")
     for name, run in (("kernels_first_run", served), ("kernels_warm", warm),
                       ("plain", plain)):
         out[name] = {
             "prefill_ms": run["prefill_ms"],
-            "prefill_tokens_per_s": SERVE_BATCH * MOE_PROMPT
+            "prefill_tokens_per_s": SERVE_BATCH * prompt
             / run["prefill_ms"] * 1e3,
             "decode_ms_per_step": run["decode_ms_per_step"],
             "decode_tokens_per_s": SERVE_BATCH / run["decode_ms_per_step"]
             * 1e3}
     if not all(torch.equal(a, b) for a, b in zip(warm["tokens"],
                                                  served["tokens"])):
-        problems.append(f"phase 11 {cfg.name}: the warm run's tokens differ "
+        problems.append(f"{phase} {cfg.name}: the warm run's tokens differ "
                         f"from the first")
     del mparams, served, plain, forced, warm, batch, kern_routes, plain_routes
     torch.cuda.empty_cache()
@@ -4155,10 +4232,228 @@ def ssd_phase(drive, by_path, problems, device="cuda") -> dict:
     return out
 
 
+def deepseek_expected(cfg, accum: int = 1) -> tuple[dict, dict, dict]:
+    """deepseek-v3's launches on the kernels at ``cfg``'s cut: one prefill,
+    ``SERVE_DECODE`` decode steps and one training step of ``accum``
+    microbatches.  A layer runs its two norms, kernel 4 (full-sequence
+    passes only: decode attends over the latent cache in plain PyTorch, as
+    the reference does) and SwiGLU: once in an ``attn_dense`` layer, twice
+    in an ``attn_moe`` one with a shared expert (the packed experts', the
+    shared expert's); MLA's latent norms are plain PyTorch, as in the
+    reference.  A training microbatch runs each layer's forward twice
+    (block remat), the final norm once and each MTP module once, without
+    remat (as the reference): its norm and its block, the program's last
+    type."""
+    flash, gated, rms = (("flash_attention", "flash_attention"),
+                         ("tdp_gathered", "gated"), ("tdp_gathered", "rmsnorm"))
+
+    def swiglus(btype):
+        return 1 + (cfg.moe.num_shared > 0) if btype == "attn_moe" else 1
+    n, m = cfg.n_layers, cfg.mtp_depth
+    g = sum(swiglus(b) for b in cfg.layer_program)
+    pre = {flash: n, gated: g, rms: 2 * n + 1}
+    dec = {gated: g * SERVE_DECODE, rms: (2 * n + 1) * SERVE_DECODE}
+    train = {flash: accum * (2 * n + m),
+             gated: accum * (2 * g + m * swiglus(cfg.layer_program[-1])),
+             rms: accum * (4 * n + 1 + 3 * m)}
+    return pre, dec, train
+
+
+def mla_rows(launches, launches_by_path, max_err, problems, record) -> list:
+    """Phase 5 at deepseek-v3's prefill (``MLA_*``), before any weights of
+    phase 13 are allocated: rmsnorm and SwiGLU through ``dense_rows``;
+    kernel 4 at Dh 192 (``MLA_ATTN``) on q, k and V zero-padded from
+    ``MLA_V_DIM``, causal, held to the chunked plain version
+    (``ref.attention_chunked_ref``: the whole-score one would hold three
+    17.2 GB tensors) and timed beside it, beside
+    ``scaled_dot_product_attention`` in float32 on the same padded inputs
+    and beside its bounds,
+    the 3xTF32 one with V padded and with V at its own width; the V pad
+    copy and the output slice at the model's (B, S, H, ·) layouts timed;
+    kernel 4 raising ``ValueError`` at a head_dim it is not instantiated
+    for (``MLA_BAD_DH``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    rows = dense_rows(launches, launches_by_path, max_err, problems, record,
+                      rms_rows=MLA_RMS_ROWS, ew_rows=MLA_EW_ROWS,
+                      attn_rows=[])
+    tag, b, hq, hkv, s, dh = MLA_ATTN
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randn(b, hq, s, dh, device=dev, generator=g)
+    k = torch.randn(b, hkv, s, dh, device=dev, generator=g)
+    v = F.pad(torch.randn(b, hkv, s, MLA_V_DIM, device=dev, generator=g),
+              (0, dh - MLA_V_DIM))
+    lib = ((lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+           (lambda o: (o,)))
+    name = f"flash_attention.{tag}"
+    shape = (b, hq, hkv, s, s, dh, True, 0)
+    row = lm_row(
+        name, KERNELS["flash_attention"], ("flash_attention", "flash_attention"),
+        lambda: flash_attention.flash_attention(q, k, v, causal=True),
+        lambda: ref.attention_chunked_ref(q, k, v, causal=True), lib,
+        attn_bound(*shape, split=flash_attention.TF32_SPLIT),
+        launches, launches_by_path, max_err, problems, record,
+        max_err_key="flash_attention", plain_reps=3)
+    o = flash_attention.flash_attention(q, k, v, causal=True)
+    pad_zero = bool((o[..., MLA_V_DIM:] == 0).all())
+    if not pad_zero:
+        problems.append(f"{name}: the padded dimensions of O are not 0")
+    del o
+    pairs = b * hq * attn_live_pairs(s, s, True, 0)
+    row.update(shape=[b, hq, hkv, s, dh], v_dim=MLA_V_DIM,
+               padded_dims_of_o_zero=pad_zero,
+               bound_v_unpadded_ms=flash_attention.TF32_SPLIT * pairs
+               * (2 * dh + 2 * MLA_V_DIM) / PEAK_TF32_PER_S * 1e3)
+    record.setdefault("bound_fp32_ms", {})[name] = attn_bound(*shape)[0]
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    # the pad and the slice at the model's layouts: V (B, S, H, 128) to
+    # (B, S, H, 192); O's (B, S, H, 192) to the (B, S, H·128) rows of wo
+    vm = torch.randn(b, s, hkv, MLA_V_DIM, device=dev, generator=g)
+    om = torch.randn(b, s, hq, dh, device=dev, generator=g)
+    row["v_pad_ms"] = time_ms(lambda: F.pad(vm, (0, dh - MLA_V_DIM)))
+    row["o_slice_ms"] = time_ms(
+        lambda: om[..., :MLA_V_DIM].reshape(b, s, -1).contiguous())
+    row["v_pad_bound_ms"] = (4 * b * s * hkv * (MLA_V_DIM + dh)
+                             / PEAK_BYTES_PER_S * 1e3)
+    row["o_slice_bound_ms"] = (4 * b * s * hq * 2 * MLA_V_DIM
+                               / PEAK_BYTES_PER_S * 1e3)
+    del vm, om
+    x = torch.zeros(1, 1, 8, MLA_BAD_DH, device=dev)
+    try:
+        flash_attention.flash_attention(x, x, x)
+        problems.append(f"flash_attention at head_dim {MLA_BAD_DH}: no "
+                        f"ValueError")
+        row["raises_outside_head_dims"] = False
+    except ValueError:
+        row["raises_outside_head_dims"] = True
+    torch.cuda.empty_cache()
+    log(f"phase 5: {name} {row}")
+    return rows + [row]
+
+
+def mla_train(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 13, training: deepseek-v3 at full width cut to its first 3
+    layers and its MTP module through ``launch.train``
+    (``MLA_TRAIN_ARGS``) on the kernels, then its first step on the plain
+    path: step 1's loss, ``ce``, ``mtp``, global gradient norm and worst
+    leaf held at ``TRAIN_TOL``; each path's
+    launches, step ms, tokens/s and peak memory; step 1's batch's loss
+    through the trained weights, reported (its microbatches' mean, as the
+    step computes it: without a loss mask the reference's MTP term is the
+    sum over a microbatch's rows of their mean, so it scales with the
+    rows; at 8-bit moments 3 steps need not lower it)."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.runtime.steps import _microbatch
+    cfg = configs.first_layers(configs.get_config(MLA_ARCH), 3)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mla_")
+    base = MLA_TRAIN_ARGS + ["--device", device]
+    path = f"{MLA_ARCH} train {MLA_TRAIN_STEPS} steps (cuda)"
+    with first_step_leaf_norms() as leaves:
+        trainer, hist, peak_gb = train_run(
+            base + ["--steps", str(MLA_TRAIN_STEPS), "--ckpt-dir", tmp],
+            drive, path)
+    tokens = trainer.data_cfg.global_batch * trainer.data_cfg.seq_len
+    mbs = _microbatch(trainer.loader(0), MLA_TRAIN_ACCUM)
+    with torch.no_grad():
+        loss_again = statistics.mean(
+            float(lm.loss_fn(trainer.params, {k: v[j] for k, v in mbs.items()},
+                             cfg, trainer.ctx)[0])
+            for j in range(MLA_TRAIN_ACCUM))
+    del trainer, mbs
+    torch.cuda.empty_cache()
+    plain_path = f"{MLA_ARCH} train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves:
+        _, plain_hist, plain_gb = train_run(
+            base + ["--steps", "1", "--backend", "torch", "--ckpt-dir",
+                    tmp + "_plain"], drive, plain_path)
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    out = {"layers": cfg.n_layers, "mtp_depth": cfg.mtp_depth,
+           "mtp_block": cfg.layer_program[-1], "params": cfg.num_params(),
+           "steps": len(hist), "losses": losses,
+           "ce": [h["ce"] for h in hist], "mtp": [h["mtp"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist],
+           "step1_batch_loss_after_training": loss_again,
+           "step_ms_median_from_2": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+           "plain_step1_ms": plain_hist[0]["ms"],
+           "plain_peak_memory_gb": plain_gb,
+           "launches": {f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    if len(hist) != MLA_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses + [loss_again]):
+        problems.append(f"phase 13 training: {len(hist)} of "
+                        f"{MLA_TRAIN_STEPS} steps, losses {losses}, step 1's "
+                        f"batch after them {loss_again}")
+    parts = {}
+    for key in ("ce", "mtp"):
+        k, p = hist[0][key], plain_hist[0][key]
+        parts[key] = {"kernels": k, "plain": p, "rel_diff": abs(k - p) / p}
+        if not (math.isfinite(k) and parts[key]["rel_diff"]
+                <= TRAIN_TOL["loss"]):
+            problems.append(f"phase 13 {MLA_ARCH}: step-1 {key} {k} on the "
+                            f"kernels, {p} on the plain path")
+    out["step1_vs_plain"] = hold_to_oracle(f"phase 13 {MLA_ARCH}", hist,
+                                           plain_hist, leaves, plain_leaves,
+                                           problems)
+    out["step1_vs_plain"].update(parts)
+    want = {k: n * MLA_TRAIN_STEPS for k, n in deepseek_expected(
+        cfg, MLA_TRAIN_ACCUM)[2].items()}
+    if by_path[path] != want:
+        problems.append(f"phase 13 {path}: launches {by_path[path]}, "
+                        f"expected {want}")
+    if by_path[plain_path]:
+        problems.append(f"phase 13 {plain_path}: the plain path launched "
+                        f"{by_path[plain_path]}")
+    for d in (tmp, tmp + "_plain"):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_phase(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 13 (see the module docstring)."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.first_layers(
+        configs.get_config(MLA_ARCH), MLA_SERVE_LAYERS), mtp_depth=0)
+    # what earlier phases leave allocated counts in the serving peak
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    out = {"serving": moe_serve(cfg, drive, problems, device,
+                                prompt=MLA_PROMPT, phase="phase 13",
+                                plain_attn_impl="chunked")}
+    out["serving"]["allocated_gb_before"] = allocated_gb
+    pre, dec, _ = deepseek_expected(cfg)
+    for p, want in ((f"{cfg.name} prefill (cuda)", pre),
+                    (f"{cfg.name} decode x{SERVE_DECODE} (cuda)", dec)):
+        if by_path.get(p) != want:
+            problems.append(f"phase 13 {p}: launches {by_path.get(p)}, "
+                            f"expected {want}")
+    for p in (f"{cfg.name} prefill (torch)",
+              f"{cfg.name} decode x{SERVE_DECODE} (torch)"):
+        if by_path.get(p):
+            problems.append(f"phase 13 {p}: the plain path launched "
+                            f"{by_path[p]}")
+    out["serving"]["launches"] = {
+        p: {f"{k}.{s}": n for (k, s), n in by_path[p].items()}
+        for p in by_path if p.startswith(cfg.name + " ")}
+    log(f"phase 13: serving {json.dumps(out['serving'], default=str)}")
+    out["training"] = mla_train(drive, by_path, problems, device)
+    out["paths"] = [p for p in by_path if p.startswith(cfg.name + " ")]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: deepseek-v3 {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("training", "dense", "moe", "ssd"),
+    ap.add_argument("--only", choices=("training", "dense", "moe", "ssd",
+                                       "mla"),
                     default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
@@ -4315,11 +4610,21 @@ def main(argv=None) -> int:
         return out
 
     if only is not None:
+        if only == "mla":
+            # phase 5's rows at deepseek's shapes, before its weights; the
+            # phase's launches merged after it
+            launches = {e: 0 for e in lm_entries}
+            launches_by_path = {e: {} for e in lm_entries}
+            mla_kernel_rows = mla_rows(launches, launches_by_path, {},
+                                       problems, record)
         phase = {"training": training_phase, "dense": dense_archs_phase,
-                 "moe": moe_phase, "ssd": ssd_phase}[only](drive, by_path,
-                                                          problems)
+                 "moe": moe_phase, "ssd": ssd_phase,
+                 "mla": mla_phase}[only](drive, by_path, problems)
         key = {"training": "training", "dense": "dense_archs",
-               "moe": "moe", "ssd": "ssd"}[only]
+               "moe": "moe", "ssd": "ssd", "mla": "mla"}[only]
+        if only == "mla":
+            merge_launches(mla_kernel_rows, by_path, phase["paths"])
+            phase["rows"] = mla_kernel_rows
         if only in ("moe", "ssd"):
             # phase 5's rows at the model's shapes, counting this phase's
             # paths
@@ -4340,8 +4645,12 @@ def main(argv=None) -> int:
             json.dumps(phase, indent=1, default=str))
         for p in problems:
             log(f"FAIL: {p}")
-        print(json.dumps({"ok": not problems, "only": only}), flush=True)
-        return 1 if problems else 0
+        if problems:
+            return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 3. kernels against plain versions ----------------------------------
     max_err: dict = {}
@@ -4695,6 +5004,7 @@ def main(argv=None) -> int:
                        rms_rows=MOE_RMS_ROWS, ew_rows=MOE_EW_ROWS,
                        attn_rows=MOE_ATTN_ROWS)
     rows += ssd_rows(launches, launches_by_path, max_err, problems, record)
+    rows += mla_rows(launches, launches_by_path, max_err, problems, record)
 
     # the mamba site function at falcon-mamba-7b's full-width prefill shape:
     # one launch = one layer, both batch rows
@@ -4767,6 +5077,10 @@ def main(argv=None) -> int:
         mlups[str(regime)] = nsites * STEPS / (time.perf_counter() - t) / 1e6
     record["mlups_128cubed_20_steps"] = mlups
     print(json.dumps({"mlups_128cubed_20_steps": mlups}), flush=True)
+    # no later phase runs the 128³ LB state: its memory goes back to the
+    # LM phases (deepseek's serving peaks near the card's size)
+    del sims, st0
+    torch.cuda.empty_cache()
 
     # -- 8. fleets -------------------------------------------------------------
     fleet_rows, record["fleet"] = fleet_phase(
@@ -4805,6 +5119,11 @@ def main(argv=None) -> int:
     record["ssd"] = ssd_phase(drive, by_path, problems)
     merge_launches(rows, by_path, record["ssd"]["paths"])
     print(json.dumps({"ssd": record["ssd"]}, default=str), flush=True)
+
+    # -- 13. MLA and MTP: deepseek-v3-671b at full width ------------------------
+    record["mla"] = mla_phase(drive, by_path, problems)
+    merge_launches(rows, by_path, record["mla"]["paths"])
+    print(json.dumps({"mla": record["mla"]}, default=str), flush=True)
     record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))

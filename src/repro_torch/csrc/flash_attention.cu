@@ -38,7 +38,10 @@
 // (zero-filled rows, live()), not padded.  Query tiles run last first, so
 // the longest causal rows start first.  Shared memory at Dh 256: 207 KB
 // (one block, two warps a scheduler, 246 registers, no spill); at Dh 80
-// (zamba2: V pairs of 16 dimensions, see FlashTile) 82 944 B.
+// (zamba2: V pairs of 16 dimensions, see FlashTile) 82 944 B; at Dh 192
+// (deepseek-v3's MLA: q·k over 128 + 64 dimensions, V zero-padded from 128
+// by the caller) BK 32, Q and K rows of 208 floats, V rows of 196, six V
+// pairs of 32, 158 208 B, and 96 O registers a lane.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): 4.99 ms local,
 // 5.17 ms global at gemma2-2b's prefill, ~5x its 3xTF32 bound; scratch
@@ -291,7 +294,7 @@ int launch(const AttnIO& io, void* stream) {
 // floats, each a multiple of 4, rows of Dh contiguous floats, every pointer
 // 16-byte aligned.  lse: null, or a contiguous (B, Hq, Sq) float32 array
 // that receives each row's log-sum-exp (row_lse).  Returns 0, a
-// cudaError_t, ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 80, 128, 256}) or
+// cudaError_t, ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 80, 128, 192, 256}) or
 // ERR_BAD_GROUP (Hq not a multiple of Hkv).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, void* lse, const long long* strides, int B,
@@ -319,6 +322,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 64: return launch<64>(io, stream);
     case 80: return launch<80>(io, stream);
     case 128: return launch<128>(io, stream);
+    case 192: return launch<192>(io, stream);
     case 256: return launch<256>(io, stream);
     default: return ERR_BAD_HEAD_DIM;
   }

@@ -60,7 +60,7 @@ MAMBA_NSTATES = (8, 16)
 
 #: ``ERR_*`` return codes of the C entries (cudaError_t values are >= 0).
 _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
-           -3: "head_dim not instantiated (16, 32, 64, 128, 256)",
+           -3: "head_dim not instantiated (16, 32, 64, 80, 128, 192, 256)",
            -4: "Hq is not a multiple of Hkv",
            -5: f"d_state not instantiated {MAMBA_NSTATES}",
            -6: "a stencil radius exceeds a periodic extent or the ghost "

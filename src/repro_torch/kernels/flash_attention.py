@@ -28,8 +28,9 @@ import torch
 from . import _build
 from .ref import attention_ref
 
-#: head dims the kernel is instantiated for (80: zamba2's shared block)
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: head dims the kernel is instantiated for (80: zamba2's shared block;
+#: 192: deepseek-v3's MLA, q·k over 128 + 64 dimensions, V padded to 192)
+HEAD_DIMS = (16, 32, 64, 80, 128, 192, 256)
 
 #: TF32 products the kernel runs per product of float32 operands (3xTF32;
 #: one TF32 product misses the reference's bar of 2e-4)

@@ -8,6 +8,8 @@ for falcon-mamba, the recurrent SSM state).
     python -m repro_torch.launch.serve --arch gemma3-27b --layers 12 \\
         --batch 2 --prompt-len 4096 --gen 16
     python -m repro_torch.launch.serve --arch qwen2-vl-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 4 \\
+        --batch 2 --prompt-len 4096 --gen 16
 
 Runs on the card (``--device cuda``, the default; it raises without one)
 through the hand-written kernels; ``--device cpu`` runs the plain PyTorch
@@ -17,7 +19,10 @@ the prefill time, the decode time per step, tokens/s (host clock around work
 that ends in ``torch.cuda.synchronize()`` on the card) and the sampled
 continuations.  ``--gen`` counts the generated tokens: the prefill's and
 ``--gen - 1`` decode steps.  ``--layers N`` keeps the first N layers at
-full width (gemma3-27b's 62 float32 layers exceed one card).  As in the
+full width (gemma3-27b's 62 float32 layers exceed one card; deepseek-v3's
+first 4 are 60.4 GB).  A config's multi-token prediction modules are not
+built: serving never reads them (11.6e9 parameters at deepseek's 4-layer
+cut, whose MTP block is an ``attn_moe`` one).  As in the
 reference's launcher, the vision stub (qwen2-vl) gets 8 random patches in
 the first ``min(4, prompt)`` slots, and M-RoPE's three position rows are
 each ``arange(prompt)``.
@@ -25,6 +30,7 @@ each ``arange(prompt)``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 
@@ -75,6 +81,7 @@ def main(argv=None):
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     if args.layers:
         cfg = C.first_layers(cfg, args.layers)
+    cfg = dataclasses.replace(cfg, mtp_depth=0)
     ctx = ExecContext(backend=backend)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = params_lib.init_params(cfg, gen, dev)

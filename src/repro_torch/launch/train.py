@@ -9,11 +9,17 @@
     python -m repro_torch.launch.train --arch gemma3-27b --layers 6 \\
         --quant-moments --steps 3 --seq-len 256 --global-batch 8 \\
         --grad-accum 2 --ckpt-every 0
+    # deepseek-v3-671b at full width, 3 layers and its MTP block
+    python -m repro_torch.launch.train --arch deepseek-v3-671b --layers 3 \\
+        --quant-moments --steps 3 --seq-len 256 --global-batch 8 \\
+        --grad-accum 2 --ckpt-every 0
 
 The reference's flags (``repro/launch/train.py``) plus ``--device``
 (default the card; it raises without one), ``--backend`` (``cuda``, the
 hand-written kernels, or ``torch``, the plain versions), ``--log-every``,
-``--layers N`` (the first N layers at full width) and ``--ckpt-every 0``
+``--layers N`` (the first N layers at full width; a config's multi-token
+prediction modules stay, their block the cut program's last type) and
+``--ckpt-every 0``
 (no checkpoint at all: gemma2-2b's final one is 31 GB of parameters and
 moments).  Checkpoints go to a fresh directory
 under the temporary directory unless ``--ckpt-dir`` names one; a run

@@ -5,7 +5,7 @@ Two execution paths, one weight layout:
 
 * **prefill** — :func:`full_attention` through ``ops.flash_attention``: the
   hand-written CUDA kernel under ``ctx.backend == "cuda"``, the plain oracle
-  under ``"torch"``;
+  of ``ctx.attn_impl`` under ``"torch"``;
 * **decode** — :func:`decode_attention`: single-token attention over the
   cache in plain PyTorch (as in the reference, no kernel), with the
   ring-buffer branch for window-sized caches of ``local`` layers.
@@ -71,7 +71,8 @@ def full_attention(p, x, a: AttnConfig, ctx: ExecContext, *, rope=None,
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             softcap=a.softcap, scale=a.scale,
-                            target=ctx.backend, device=x.device)
+                            target=ctx.backend, device=x.device,
+                            impl=ctx.attn_impl)
     b, s = x.shape[:2]
     out = o.transpose(1, 2).reshape(b, s, a.n_heads * a.head_dim)
     return out @ p["wo"], (k, v)

@@ -20,8 +20,8 @@ Block types:
   ``enc``          bidirectional encoder block (whisper encoder)
 
 The ``xattn`` and ``enc`` blocks do not run in the port yet
-(:mod:`repro_torch.models.blocks`); the MLA and encoder configs are kept
-as dataclasses for the later slices (ROADMAP, queue A).
+(:mod:`repro_torch.models.blocks`); the encoder config is kept as a
+dataclass for that slice (ROADMAP, queue A).
 """
 from __future__ import annotations
 

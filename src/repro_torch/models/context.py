@@ -3,7 +3,7 @@
 The targetDP contract at framework scale: model code is written once and
 the :class:`ExecContext` decides how it runs.  The port has no mesh yet
 (ROADMAP, queue A), so the context holds the executor, the VVL, the
-remat policy and the MoE dispatch.
+remat policy, the MoE dispatch and the plain attention's oracle.
 """
 from __future__ import annotations
 
@@ -25,12 +25,17 @@ class ExecContext:
     ``(E, cap, D)``, batched GEMMs, overflow dropped), ``"ragged"``
     (dropless, a per-expert loop) or ``"a2a"`` (all-to-all expert
     parallelism; with no mesh it is ``"capacity"``, as in the
-    reference)."""
+    reference).  ``attn_impl``: the plain attention under ``"torch"``,
+    ``"ref"`` (the whole (B, H, Sq, Sk) score tensor at once) or
+    ``"chunked"`` (a block of query rows at a time, with a recompute
+    backward: the oracle at lengths where the whole scores do not fit);
+    the ``"cuda"`` backend runs kernel 4 under either."""
 
     backend: str = "cuda"
     vvl: int = 1
     remat: str = "none"
     moe_impl: str = "capacity"
+    attn_impl: str = "ref"
 
     def __post_init__(self):
         if self.backend not in ("cuda", "torch"):
@@ -42,3 +47,6 @@ class ExecContext:
         if self.moe_impl not in ("capacity", "ragged", "a2a"):
             raise ValueError(f"moe_impl must be 'capacity', 'ragged' or "
                              f"'a2a', got {self.moe_impl!r}")
+        if self.attn_impl not in ("ref", "chunked"):
+            raise ValueError(f"attn_impl must be 'ref' or 'chunked', got "
+                             f"{self.attn_impl!r}")

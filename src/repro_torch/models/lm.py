@@ -11,9 +11,9 @@ vision stub ``vision_embed (B, P, D)`` with ``vision_slot (B, S)``
 ``torch.utils.checkpoint`` when ``ctx.remat == "block"`` (the reference's
 ``jax.checkpoint`` of a scan unit).  Every layer gets the tied
 ``params["shared_block"]`` (zamba2's ``shared_attn`` positions read it), so
-the gradients of all its uses add into its one set of tensors.  The
-encoder, learned positions and multi-token prediction wait for their
-slices (ROADMAP, queue A).
+the gradients of all its uses add into its one set of tensors.  The loss
+adds DeepSeek's multi-token prediction where the config has it.  The
+encoder and learned positions wait for their slice (ROADMAP, queue A).
 """
 from __future__ import annotations
 
@@ -48,7 +48,8 @@ def _rope_for(batch, cfg: ModelConfig, seq_len: int, *, positions=None):
     unused: the local one (the ``local`` layers' own theta, gemma3) only
     when the config sets ``rope_theta_local`` and has ``local`` layers.
     Under M-RoPE the positions are the batch's ``positions3`` when it has
-    them."""
+    them.  Under MLA the tables are at the rope head dim (only the shared
+    rope key and the queries' rope part rotate)."""
     a = cfg.attn
     if a is None or cfg.pos_embed not in ("rope", "mrope"):
         return None, None
@@ -62,12 +63,13 @@ def _rope_for(batch, cfg: ModelConfig, seq_len: int, *, positions=None):
             positions = torch.arange(seq_len, dtype=torch.int32,
                                      device=tokens.device)[None].expand(
                                          tokens.shape[0], seq_len)
+    head_dim = cfg.mla.rope_head_dim if cfg.mla is not None else a.head_dim
     sections = a.mrope_sections if cfg.pos_embed == "mrope" else None
-    rope = layers.rope_tables(positions, a.head_dim, a.rope_theta,
+    rope = layers.rope_tables(positions, head_dim, a.rope_theta,
                               mrope_sections=sections)
     rope_local = None
     if a.rope_theta_local and "local" in cfg.layer_program:
-        rope_local = layers.rope_tables(positions, a.head_dim,
+        rope_local = layers.rope_tables(positions, head_dim,
                                         a.rope_theta_local,
                                         mrope_sections=sections)
     return rope, rope_local
@@ -116,19 +118,47 @@ def forward_hidden(params, batch, cfg: ModelConfig, ctx: ExecContext):
     return layers.norm(params["final_norm"], x, cfg, ctx)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, ctx: ExecContext):
-    """Mean next-token cross-entropy of ``batch`` (``loss_mask`` honoured).
-    Returns (loss, {"ce", "loss"}).  Multi-token prediction raises
-    ``NotImplementedError`` (ROADMAP A7.4)."""
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction (mtp_depth="
-            f"{cfg.mtp_depth}) is not ported yet (ROADMAP A7.4)")
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ExecContext, *,
+            mtp_weight: float = 0.3):
+    """Mean next-token cross-entropy of ``batch`` (``loss_mask``
+    honoured).  Returns (loss, {"ce", "loss"}).
+
+    With ``cfg.mtp_depth`` and ``params["mtp"]``, DeepSeek's multi-token
+    prediction as the reference computes it: module m (from 1) maps the
+    RMS-normed hidden states of the one before (the final-normed ones for
+    the first) and the embeddings of the tokens m ahead (``torch.roll``),
+    concatenated, through its ``proj`` and its block (the program's last
+    type, no remat) to logits for the labels m ahead, the wrapped tail
+    masked; ``loss = ce + mtp_weight · mtp`` with ``mtp`` the mean of the
+    modules' cross-entropies, and the metrics get ``"mtp"`` too."""
     h = forward_hidden(params, batch, cfg, ctx)
     logits = layers.logits_from_hidden(params, h, cfg)
-    loss = layers.cross_entropy(logits, batch["labels"],
-                                batch.get("loss_mask"))
-    return loss, {"ce": loss, "loss": loss}
+    mask = batch.get("loss_mask")
+    loss = layers.cross_entropy(logits, batch["labels"], mask)
+    metrics = {"ce": loss}
+    if cfg.mtp_depth and "mtp" in params:
+        s = batch["labels"].shape[1]
+        rope, rope_local = _rope_for(batch, cfg, s)
+        hm, total = h, 0.0
+        for m, mp in enumerate(params["mtp"], start=1):
+            emb_next = layers.embed_tokens(
+                params, torch.roll(batch["tokens"], -m, dims=1), cfg)
+            cat = torch.cat([layers.rmsnorm(mp["norm"], hm, ctx), emb_next],
+                            dim=-1)
+            hm, _ = blocks.apply_block(
+                cfg.layer_program[-1], mp["block"], cat @ mp["proj"],
+                cfg=cfg, ctx=ctx, shared=params.get("shared_block"),
+                rope=rope, rope_local=rope_local, collect_cache=False)
+            logits_m = layers.logits_from_hidden(params, hm, cfg)
+            labels_m = torch.roll(batch["labels"], -m, dims=1)
+            keep = (torch.arange(s, device=h.device) < s - m)[None].float()
+            if mask is not None:
+                keep = keep * mask
+            total = total + layers.cross_entropy(logits_m, labels_m, keep)
+        loss = loss + mtp_weight * total / cfg.mtp_depth
+        metrics["mtp"] = total / cfg.mtp_depth
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -141,7 +171,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     ``local_ring``: sliding-window (``local``) layers allocate only
     ``window`` slots, written modulo the window at decode time (ring
-    buffer)."""
+    buffer).  Under MLA every attention layer gets the latent cache
+    ``{"c_kv": (B, S, R), "k_rope": (B, S, rope_dim)}``."""
     a = cfg.attn
     out = []
     for btype in cfg.layer_program:
@@ -160,6 +191,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                     (batch, di // s.head_dim, s.head_dim, s.d_state),
                     dtype=torch.float32, device=device)
             out.append(c)
+            continue
+        if cfg.mla is not None:
+            m = cfg.mla
+            out.append({"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                             dtype=dtype, device=device),
+                        "k_rope": torch.zeros((batch, max_len,
+                                               m.rope_head_dim),
+                                              dtype=dtype, device=device)})
             continue
         blen = max_len
         if local_ring and btype == "local" and a.window > 0:

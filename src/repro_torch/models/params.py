@@ -17,19 +17,25 @@ an ``attn_dense`` layer is an ``attn`` layer.  A ``mamba1`` layer is
 "w_dt", "dt_bias", "a_log", "d_skip", "w_out"}}``; a ``mamba2`` layer is
 ``{"norm1": (d,), "mixer": {"w_xm", "w_z", "w_B", "w_C", "w_dtin",
 "conv_w", "conv_b", "conv_w_bc", "conv_b_bc", "dt_bias", "a_log",
-"d_skip", "out_norm", "w_out"}}``.  A ``shared_attn`` layer is ``{}``: its
-weights are the one ``params["shared_block"]`` (an ``attn`` block), tied
+"d_skip", "out_norm", "w_out"}}``.  Under MLA (deepseek-v3) a layer's
+``"attn"`` is ``{"w_dq": (d, q_lora), "q_norm": (q_lora,), "w_uq": (q_lora,
+H·(nope + rope)), "w_dkv": (d, R), "kv_norm": (R,), "w_kr": (d, rope),
+"w_uk": (R, H·nope), "w_uv": (R, H·v), "wo": (H·v, d)}``, and
+``params["mtp"]`` holds the ``mtp_depth`` multi-token-prediction modules,
+each ``{"proj": (2d, d), "block": <a layer of the program's last type>,
+"norm": (d,)}`` (unstacked in the reference too).  A ``shared_attn``
+layer is ``{}``: its weights are the one ``params["shared_block"]`` (an
+``attn`` block), tied
 across every ``shared_attn`` position, so the tree, the optimiser's
 moments and a checkpoint hold them once.  The reference stacks
 each leaf per scan group (``groups[i][position]`` with a leading repeat
 axis: an expert leaf is ``(k, E, d, fe)``); :func:`from_reference`
 unstacks that into the per-layer list.  ``attn``/``local``/``attn_dense``/
 ``attn_moe`` blocks with standard attention (qk-norm's ``q_norm``/
-``k_norm``, ``(head_dim,)``, where the config has it), ``mamba1``,
-``mamba2`` and ``shared_attn`` blocks, with tied or untied embeddings, are
-supported; other block types,
-MLA, the encoder, multi-token prediction and learned position embeddings
-raise ``NotImplementedError``.
+``k_norm``, ``(head_dim,)``, where the config has it) or MLA, ``mamba1``,
+``mamba2`` and ``shared_attn`` blocks, with tied or untied embeddings and
+multi-token prediction, are supported; other block types, the encoder and
+learned position embeddings raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,13 +55,12 @@ SUPPORTED_BLOCKS = ("attn", "local", "attn_dense", "attn_moe", "mamba1",
 
 def _check_supported(cfg: ModelConfig) -> None:
     other = sorted(set(cfg.layer_program) - set(SUPPORTED_BLOCKS))
-    if other or cfg.mla is not None or cfg.is_encdec or cfg.mtp_depth:
+    if other or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: only attn/local/attn_dense/attn_moe/shared_attn "
-            f"blocks with standard attention and mamba1/mamba2 blocks are "
-            f"ported (found block types {other}, mla={cfg.mla is not None}, "
-            f"encoder={cfg.is_encdec}, mtp_depth={cfg.mtp_depth}); the "
-            f"rest waits for its slice (ROADMAP, queue A, LM stack)")
+            f"and mamba1/mamba2 blocks are ported (found block types "
+            f"{other}, encoder={cfg.is_encdec}); the rest waits for its "
+            f"slice (ROADMAP, queue A, LM stack)")
     if cfg.pos_embed == "learned":
         raise NotImplementedError(
             f"{cfg.name}: learned position embeddings (whisper) are not "
@@ -93,7 +98,30 @@ def _moe_params(cfg: ModelConfig, gen, device) -> dict:
     return p
 
 
-def _block_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
+def _mla_params(cfg: ModelConfig, gen, device) -> dict:
+    """MLA's projections in the reference's order: the query's down (d,
+    q_lora) and up (q_lora, H·(nope + rope)) projections with the norm
+    between, the latent's down projection (d, R) and norm, the shared rope
+    key (d, rope), the latent's key and value up-projections (R, H·nope),
+    (R, H·v) and the output (H·v, d); the up-projections over their rank's
+    fan-in."""
+    m, h, d = cfg.mla, cfg.attn.n_heads, cfg.d_model
+    qk = m.nope_head_dim + m.rope_head_dim
+    p = {"w_dq": _dense(gen, (d, m.q_lora_rank), device),
+         "q_norm": torch.zeros(m.q_lora_rank, device=device)}
+    p["w_uq"] = _dense(gen, (m.q_lora_rank, h * qk), device)
+    p["w_dkv"] = _dense(gen, (d, m.kv_lora_rank), device)
+    p["kv_norm"] = torch.zeros(m.kv_lora_rank, device=device)
+    p["w_kr"] = _dense(gen, (d, m.rope_head_dim), device)
+    p["w_uk"] = _dense(gen, (m.kv_lora_rank, h * m.nope_head_dim), device)
+    p["w_uv"] = _dense(gen, (m.kv_lora_rank, h * m.v_head_dim), device)
+    p["wo"] = _dense(gen, (h * m.v_head_dim, d), device)
+    return p
+
+
+def _attn_params(cfg: ModelConfig, gen, device) -> dict:
+    if cfg.mla is not None:
+        return _mla_params(cfg, gen, device)
     a, d = cfg.attn, cfg.d_model
     attn = {"wq": _dense(gen, (d, a.n_heads * a.head_dim), device),
             "wk": _dense(gen, (d, a.n_kv_heads * a.head_dim), device),
@@ -102,6 +130,12 @@ def _block_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
     if a.qk_norm:
         attn["q_norm"] = torch.zeros(a.head_dim, device=device)
         attn["k_norm"] = torch.zeros(a.head_dim, device=device)
+    return attn
+
+
+def _block_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
+    d = cfg.d_model
+    attn = _attn_params(cfg, gen, device)
     mlp = (_moe_params(cfg, gen, device) if btype == "attn_moe"
            else _mlp_params(cfg, gen, device))
     return {"norm1": torch.zeros(d, device=device), "attn": attn,
@@ -175,7 +209,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``shared_attn`` positions, built at the first of them.  The same
     distributions as the reference's ``init_params``, the MoE's as
     :func:`_moe_params`; not the same numbers (a ``torch.Generator`` is
-    not a JAX key)."""
+    not a JAX key).  With ``cfg.mtp_depth``, ``params["mtp"]`` gets that
+    many modules after the layers, each its block (the program's last
+    type, as the reference builds it) and then its ``proj``
+    ~ N(0, 1/2d)."""
     _check_supported(cfg)
     d = cfg.d_model
     params = {"embed": _dense(generator, (cfg.padded_vocab, d), device,
@@ -190,6 +227,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers.append(_layer_params(cfg, generator, device, btype))
     params["layers"] = layers
     params["final_norm"] = torch.zeros(d, device=device)
+    if cfg.mtp_depth:
+        params["mtp"] = []
+        for _ in range(cfg.mtp_depth):
+            block = _layer_params(cfg, generator, device,
+                                  cfg.layer_program[-1])
+            params["mtp"].append({
+                "proj": _dense(generator, (2 * d, d), device),
+                "block": block, "norm": torch.zeros(d, device=device)})
     return params
 
 
@@ -211,7 +256,9 @@ def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
     groups; ``convert(tree, index)`` turns a subtree (sliced at repeat
     ``index``, or whole for ``None``) into the port's leaves.  The tied
     ``shared_block`` (unstacked in the reference too) is carried once; its
-    positions' entries are the reference's ``{}``."""
+    positions' entries are the reference's ``{}``.  The multi-token
+    prediction modules (``mtp``, a list, unstacked in the reference) are
+    carried as they are."""
     out = {"embed": convert(np_params["embed"], None)}
     for key in ("lm_head", "shared_block"):
         if key in np_params:
@@ -226,6 +273,8 @@ def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
         offset += k * len(unit)
     out["layers"] = layers
     out["final_norm"] = convert(np_params["final_norm"], None)
+    if "mtp" in np_params:
+        out["mtp"] = [convert(m, None) for m in np_params["mtp"]]
     return out
 
 
@@ -235,8 +284,8 @@ def weight_decay_mask(params: dict) -> dict:
     along a repeat axis, so each per-layer leaf decays, norm weights and
     vectors included.  The port's per-layer leaves are unstacked: True for
     every leaf under ``"layers"``; elsewhere (the embedding, the head,
-    the tied ``shared_block``, unstacked in the reference too, the final
-    norm) two or more dimensions."""
+    the tied ``shared_block`` and the ``mtp`` modules, unstacked in the
+    reference too, the final norm) two or more dimensions."""
     from repro_torch.optim.tree import tree_map
     return {k: tree_map(lambda p: True if k == "layers" else p.ndim >= 2, v)
             for k, v in params.items()}

@@ -6,16 +6,19 @@ into ``grad_accum`` strided microbatches, their gradients accumulated in
 float32 (into ``.grad`` by ``backward()``, one leaf at a time), layer
 remat when ``ctx.remat == "block"``, and an in-place AdamW step on the
 schedule's learning rate, decaying the leaves the reference decays
-(:func:`repro_torch.models.params.weight_decay_mask`).  The cross-pod compressed variant needs a pod
-axis and waits for sharded training (ROADMAP A7.7).
+(:func:`repro_torch.models.params.weight_decay_mask`); the loss carries
+multi-token prediction at ``mtp_weight`` where the config has it.  The
+cross-pod compressed variant needs a pod axis and waits for sharded
+training (ROADMAP A7.7).
 
 Serving: sampling, cache padding, prefill and decode steps.  ``jax.random``
 keys become an explicit ``torch.Generator``; greedy sampling needs none.
-The caches are per-layer dicts: ``{"k", "v"}`` for attention, which the
-decode step writes in place, or ``{"conv", "ssm"}`` for Mamba-1, which it
-replaces; ``length`` is a Python int.  With ``local_ring=True`` the
-sliding-window layers keep window-sized ring caches after the prefill
-(the reference's ``init_cache(local_ring=True)`` layout).
+The caches are per-layer dicts: ``{"k", "v"}`` for attention and
+``{"c_kv", "k_rope"}`` for MLA, which the decode step writes in place, or
+``{"conv", "ssm"}`` for Mamba-1, which it replaces; ``length`` is a
+Python int.  With ``local_ring=True`` the sliding-window layers keep
+window-sized ring caches after the prefill (the reference's
+``init_cache(local_ring=True)`` layout).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ class TrainHParams:
     warmup_steps: int = 100
     total_steps: int = 10_000
     grad_accum: int = 1
+    mtp_weight: float = 0.3      # multi-token prediction's share of the loss
     compress_pod: bool = False   # raises: needs a pod mesh axis (A7.7)
 
 
@@ -56,33 +60,50 @@ def _microbatch(batch: dict, n: int) -> dict:
             for k, v in batch.items()}
 
 
-def _grads_of(cfg: ModelConfig, ctx: ExecContext, hp: TrainHParams):
-    """(params, batch) → (loss, grads): the mean loss over the microbatches
-    and its gradient tree (float32, params' structure).  Each
-    microbatch's ``backward()`` adds into the leaves' ``.grad``, which are
-    cleared before and taken off after; with accumulation both are scaled
-    by 1 / grad_accum, as the reference's sums are."""
+def _metrics_and_grads(cfg: ModelConfig, ctx: ExecContext,
+                       hp: TrainHParams):
+    """(params, batch) → (metrics, grads): the loss function's metrics
+    (``"loss"``, ``"ce"`` and, under multi-token prediction, ``"mtp"``),
+    each the mean over the microbatches, and the loss's gradient tree
+    (float32, params' structure).  Each microbatch's ``backward()`` adds
+    into the leaves' ``.grad``, which are cleared before and taken off
+    after; with accumulation both are scaled by 1 / grad_accum, as the
+    reference's sums are."""
     n = hp.grad_accum
 
-    def grads_of(params, batch):
+    def metrics_and_grads(params, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.grad = None
         mbs = [batch] if n == 1 else [
             {k: v[j] for k, v in _microbatch(batch, n).items()}
             for j in range(n)]
-        loss = None
+        sums: dict = {}
         for b in mbs:
-            lb = lm.loss_fn(params, b, cfg, ctx)[0]
+            lb, mb = lm.loss_fn(params, b, cfg, ctx, mtp_weight=hp.mtp_weight)
             lb.backward()
-            loss = lb.detach() if loss is None else loss + lb.detach()
+            for k, v in mb.items():
+                sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
 
         def take(p):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             p.grad = None
             return g.float().mul_(1.0 / n) if n > 1 else g.float()
         grads = tree_map(take, params)
-        return (loss * (1.0 / n) if n > 1 else loss), grads
+        return ({k: v * (1.0 / n) if n > 1 else v for k, v in sums.items()},
+                grads)
+
+    return metrics_and_grads
+
+
+def _grads_of(cfg: ModelConfig, ctx: ExecContext, hp: TrainHParams):
+    """(params, batch) → (loss, grads): :func:`_metrics_and_grads`' mean
+    loss and gradient tree."""
+    metrics_and_grads = _metrics_and_grads(cfg, ctx, hp)
+
+    def grads_of(params, batch):
+        metrics, grads = metrics_and_grads(params, batch)
+        return metrics["loss"], grads
 
     return grads_of
 
@@ -90,23 +111,25 @@ def _grads_of(cfg: ModelConfig, ctx: ExecContext, hp: TrainHParams):
 def build_train_step(cfg: ModelConfig, ctx: ExecContext,
                      opt_cfg: AdamWConfig, hp: TrainHParams) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
-    opt_state, {"loss", "grad_norm", "lr"})``; ``params`` (leaves that
-    require gradients) and the dense moments are updated in place."""
+    opt_state, {"loss", "ce", "mtp"?, "grad_norm", "lr"})``; ``params``
+    (leaves that require gradients) and the dense moments are updated in
+    place.  ``ce`` and ``mtp`` (under multi-token prediction) are the
+    loss's parts, an addition to the reference's metrics."""
     if hp.compress_pod:
         raise NotImplementedError(
             "compress_pod: the error-feedback int8 gradient reduction over a "
             "pod mesh axis is not ported yet (ROADMAP A7.7)")
-    grads_of = _grads_of(cfg, ctx, hp)
+    metrics_and_grads = _metrics_and_grads(cfg, ctx, hp)
 
     def train_step(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
+        metrics, grads = metrics_and_grads(params, batch)
         lr = warmup_cosine(opt_state["step"], peak_lr=hp.peak_lr,
                            warmup_steps=hp.warmup_steps,
                            total_steps=hp.total_steps)
         params, opt_state, om = adamw_update(
             params, grads, opt_state, opt_cfg, lr=lr,
             decay=weight_decay_mask(params))
-        return params, opt_state, {"loss": loss, **om}
+        return params, opt_state, {**metrics, **om}
 
     return train_step
 
@@ -128,13 +151,17 @@ def sample_logits(logits, generator: torch.Generator | None = None, *,
 
 
 def _pad_caches(caches, cfg: ModelConfig, max_len: int):
-    """Grow every sequence-extent leaf (``k``/``v``: (B, Hkv, S, dh)) to
-    ``max_len``, zero-filled; the fixed-size ``conv``/``ssm`` state stays
-    as it is."""
+    """Grow every sequence-extent leaf (``k``/``v``: (B, Hkv, S, dh), and
+    MLA's ``c_kv``/``k_rope``: (B, S, ·)) to ``max_len``, zero-filled; the
+    fixed-size ``conv``/``ssm`` state stays as it is."""
+    seq_dim = {"k": 2, "v": 2, "c_kv": 1, "k_rope": 1}
+
     def pad(name, t):
-        if name not in ("k", "v") or t.shape[2] >= max_len:
+        if name not in seq_dim or t.shape[seq_dim[name]] >= max_len:
             return t
-        return F.pad(t, (0, 0, 0, max_len - t.shape[2]))
+        grow = [0, 0] * (t.dim() - 1 - seq_dim[name]) + [
+            0, max_len - t.shape[seq_dim[name]]]
+        return F.pad(t, grow)
     return [{k: pad(k, v) for k, v in c.items()} for c in caches]
 
 

@@ -52,8 +52,9 @@ class Trainer:
     ``ExecContext(backend="cuda", remat="block")``: the hand-written
     kernels, with their gradients, and layer remat.  ``device`` defaults
     to the card and raises without one; on the CPU the kernels' plain
-    versions run.  ``metrics_history`` gets ``{"step", "loss", "grad_norm",
-    "lr", "ms"}`` every ``log_every`` steps (``ms``: the step's wall time,
+    versions run.  ``metrics_history`` gets ``{"step", "loss", "ce",
+    "mtp"?, "grad_norm", "lr", "ms"}`` every ``log_every`` steps (``mtp``
+    under multi-token prediction) (``ms``: the step's wall time,
     to the host's read of its loss)."""
 
     def __init__(self, cfg: ModelConfig, mesh, data_cfg: SyntheticConfig,

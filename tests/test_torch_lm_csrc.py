@@ -492,6 +492,7 @@ extern "C" int host_flash(const float* q, const float* k, const float* v, float*
     case 64: return flash_split<64>(a, split);
     case 80: return flash_split<80>(a, split);
     case 128: return flash_split<128>(a, split);
+    case 192: return flash_split<192>(a, split);
     case 256: return flash_split<256>(a, split);
     default: return -3;
   }
@@ -878,7 +879,28 @@ _FLASH = {
     "noncausal_ragged_dh80": ((1, 2, 2, 77, 140, 80), dict(causal=False)),
     "window_softcap_dh80": ((1, 4, 2, 130, 130, 80),
                             dict(causal=True, window=37, softcap=30.0)),
+    # deepseek-v3's MLA at Dh 192 (six V pairs of 32, 158 208 B of shared
+    # memory): Hq = Hkv over ragged query and key tiles, and V zero-padded
+    # from 128 to 192 dimensions as the model hands it (the padded
+    # dimensions of O exactly 0)
+    "causal_ragged_dh192": ((1, 2, 2, 150, 150, 192), dict(causal=True)),
+    "noncausal_ragged_dh192": ((1, 2, 2, 77, 140, 192), dict(causal=False)),
+    "v_padded_dh192": ((1, 2, 2, 140, 140, 192),
+                       dict(causal=True, scale=192 ** -0.5)),
 }
+#: the cases whose V carries data in its first ``V_PADDED`` dimensions only
+V_PADDED = {"v_padded_dh192": 128}
+
+
+def _flash_inputs(case, seeds):
+    """q, k, v of a ``_FLASH`` case from ``seeds``; V zero past its first
+    ``V_PADDED[case]`` dimensions where the case pads it."""
+    (b, hq, hkv, sq, sk, dh), _ = _FLASH[case]
+    q, k, v = (_rand(seeds[0], (b, hq, sq, dh)), _rand(seeds[1], (b, hkv, sk, dh)),
+               _rand(seeds[2], (b, hkv, sk, dh)))
+    if case in V_PADDED:
+        v[..., V_PADDED[case]:] = 0.0
+    return q, k, v
 
 
 @pytest.mark.parametrize("case", sorted(_FLASH))
@@ -886,12 +908,14 @@ def test_flash_tile_matches_plain(host_lib, case):
     """The kernel's tile, 3xTF32 (its default), run lane by lane through the
     emulated mma against ``attention_ref`` at the reference's bar."""
     from repro_torch.kernels.flash_attention import TF32_SPLIT
-    (b, hq, hkv, sq, sk, dh), kw = _FLASH[case]
-    q, k, v = (_rand(40, (b, hq, sq, dh)), _rand(41, (b, hkv, sk, dh)),
-               _rand(42, (b, hkv, sk, dh)))
+    _, kw = _FLASH[case]
+    q, k, v = _flash_inputs(case, (40, 41, 42))
     o = torch.full_like(q, float("nan"))
     assert _flash(host_lib, q, k, v, o, TF32_SPLIT, **kw) == 0
     torch.testing.assert_close(o, tref.attention_ref(q, k, v, **kw), **TOL)
+    if case in V_PADDED:
+        assert torch.equal(o[..., V_PADDED[case]:],
+                           torch.zeros_like(o[..., V_PADDED[case]:]))
 
 
 @pytest.mark.parametrize("case", sorted(_FLASH))
@@ -900,9 +924,8 @@ def test_flash_tile_lse_matches_plain(host_lib, case):
     plain ``logsumexp`` of its live logits, -1e30 for a row with no live
     key; the output is the one without the store, bit for bit."""
     from repro_torch.kernels.flash_attention import TF32_SPLIT
-    (b, hq, hkv, sq, sk, dh), kw = _FLASH[case]
-    q, k, v = (_rand(40, (b, hq, sq, dh)), _rand(41, (b, hkv, sk, dh)),
-               _rand(42, (b, hkv, sk, dh)))
+    (b, hq, _, sq, _, _), kw = _FLASH[case]
+    q, k, v = _flash_inputs(case, (40, 41, 42))
     o, o2 = (torch.full_like(q, float("nan")) for _ in range(2))
     lse = torch.full((b, hq, sq), float("nan"))
     assert _flash(host_lib, q, k, v, o, TF32_SPLIT, lse=lse, **kw) == 0

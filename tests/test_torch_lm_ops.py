@@ -186,7 +186,7 @@ class TestCudaSiteChecks:
                                                scale_offset=0.0))
 
     def test_head_dims(self):
-        assert tfa.HEAD_DIMS == (16, 32, 64, 80, 128, 256)
+        assert tfa.HEAD_DIMS == (16, 32, 64, 80, 128, 192, 256)
 
     def test_lm_site_on_cpu_runs_the_plain_body(self):
         x = torch.from_numpy(_rand(10, (1, 50)))

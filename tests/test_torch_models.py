@@ -25,7 +25,7 @@ from repro.runtime import steps as jsteps
 from repro_torch import configs as TC
 from repro_torch.models import lm as tlm
 from repro_torch.models import params as tparams
-from repro_torch.models.config import MLAConfig, plan_layer_groups
+from repro_torch.models.config import plan_layer_groups
 from repro_torch.models.context import ExecContext
 from repro_torch.runtime import steps as tsteps
 
@@ -223,17 +223,6 @@ def test_unported_blocks_and_features_raise():
         with pytest.raises(NotImplementedError, match="attn/local"):
             blocks.apply_block(btype, {}, torch.zeros(1, 2, cfg.d_model),
                                cfg=cfg, ctx=ExecContext())
-    with pytest.raises(NotImplementedError, match="mla=True"):
-        tparams.init_params(dataclasses.replace(cfg, mla=MLAConfig()),
-                            torch.Generator(), "cpu")
-    # MLA (deepseek-v3's attention) waits for A7.4, in every attention block
-    for btype in ("attn", "attn_moe"):
-        with pytest.raises(NotImplementedError, match="A7.4"):
-            blocks.apply_block(btype, {}, torch.zeros(1, 2, cfg.d_model),
-                               cfg=dataclasses.replace(cfg, mla=MLAConfig()),
-                               ctx=ExecContext())
-    with pytest.raises(KeyError, match="not yet ported"):
-        TC.get_config("deepseek-v3-671b")
     hybrid = dataclasses.replace(cfg, layer_program=("attn", "xattn") * 2)
     with pytest.raises(NotImplementedError, match="only attn/local"):
         tparams.init_params(hybrid, torch.Generator(), "cpu")

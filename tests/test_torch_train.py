@@ -193,15 +193,6 @@ def test_bad_remat_raises():
         ExecContext(remat="layer")
 
 
-def test_mtp_raises():
-    cfg = TC.get_smoke("gemma2_2b")
-    params = tparams.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = _tbatch(_batch(cfg, 1, 4, seed=0))
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        lm.loss_fn(params, batch, dataclasses.replace(cfg, mtp_depth=1),
-                   ExecContext())
-
-
 # ---------------------------------------------------------------------------
 # optimiser state across, and one train step
 # ---------------------------------------------------------------------------

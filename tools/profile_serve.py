@@ -6,11 +6,14 @@
     python3 tools/profile_serve.py --arch gemma3-27b  # 12 layers, 4096
     python3 tools/profile_serve.py --arch granite-moe-1b-a400m  # whole, 4096
     python3 tools/profile_serve.py --arch zamba2-2.7b  # whole, 4096
+    python3 tools/profile_serve.py --arch deepseek-v3-671b  # 4 layers, 4096
 
 Builds ``--arch`` (gemma2-2b by default, or any arch of the port's
 registry) at full width with seeded random float32 weights, at
-``--layers`` (default: all, or ``chip_smoke.py`` phase 10's cut of gemma3,
-phi3 and nemotron), with the reference launcher's vision-stub and M-RoPE
+``--layers`` (default: all, or ``chip_smoke.py``'s cut of gemma3, phi3 and
+nemotron (phase 10) and deepseek-v3 (phase 13: 4 layers); a config's
+multi-token prediction modules are not built, as serving never reads
+them), with the reference launcher's vision-stub and M-RoPE
 inputs (``launch.serve.stub_inputs``) where the arch reads them, serves
 ``--batch`` random prompts once to warm up, then traces the prefill and the
 ``--decode`` greedy decode steps with ``torch.profiler`` (two traces).  For
@@ -33,7 +36,17 @@ x, gate, B, C and dt projections), ``conv`` (both causal convolutions),
 chunk-boundary states and their outputs), ``gated_norm`` and
 ``out_proj_and_glue`` (the rest of the mixer: the out-projection, the
 softplus, silu and reshapes), from ranges around ``models.ssm``'s
-functions.  Needs one CUDA card; prints the card's name and
+functions.  Under MLA (deepseek-v3) they split each layer's attention
+(``mla_ms_by_part``, per layer): ``q_down_up`` (the query's down and up
+projections), ``latent_norms`` (the query's and the latent's RMSNorms),
+``kv_down_rope`` (the latent's and the shared rope key's projections, the
+key's rotation), ``kv_expand`` (``w_uk``/``w_uv`` and the per-head keys),
+``v_pad``, ``kernel4`` (the attention), ``rope_cat_slice_wo`` (the rest of
+the expanded path: the query's rotation and concatenation, the output's
+slice and ``wo``), ``absorbed`` (decode's attention over the latent cache)
+and ``decode_glue_wo`` (the rest of a decode step: the cache writes and
+``wo``), from ranges around ``models.mla``'s functions.  Needs one CUDA
+card; prints the card's name and
 power limit first and writes the full table to
 ``chiprun_out/profile_serve_<arch>[_<tag>].json``.  ``--src`` may point at
 another checkout's ``src`` (one unpacked with ``git archive``), so two
@@ -42,6 +55,7 @@ versions compare within one call, run in turns.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -58,10 +72,12 @@ PORT_KERNELS = ("flash_fwd_kernel", "ew_kernel", "rms_tiled_kernel",
 DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096,
                   "gemma3-27b": 4096, "qwen2-vl-2b": 4096,
                   "phi3-medium-14b": 2048, "nemotron-4-15b": 2048,
-                  "granite-moe-1b-a400m": 4096, "zamba2-2.7b": 4096}
-#: the layers kept by default (chip_smoke.py phase 10's cut; 0 = all)
+                  "granite-moe-1b-a400m": 4096, "zamba2-2.7b": 4096,
+                  "deepseek-v3-671b": 4096}
+#: the layers kept by default (chip_smoke.py's cuts, phases 10 and 13; 0 =
+#: all)
 DEFAULT_LAYERS = {"gemma3-27b": 12, "phi3-medium-14b": 10,
-                  "nemotron-4-15b": 8}
+                  "nemotron-4-15b": 8, "deepseek-v3-671b": 4}
 
 
 def summarize(prof, wall_s: float, per: int) -> dict:
@@ -100,11 +116,17 @@ RANGES = {"moe": {"_route": "route", "_apply_experts_capacity": "dispatch",
           "ssd": {"mamba2_mixer": "out_proj_and_glue",
                   "_mamba2_project": "in_proj", "_causal_conv": "conv",
                   "_ssd_intra": "ssd_intra", "_ssd_inter": "ssd_inter",
-                  "_gated_rmsnorm": "gated_norm"}}
+                  "_gated_rmsnorm": "gated_norm"},
+          "mla": {"mla_full": "rope_cat_slice_wo",
+                  "mla_decode": "decode_glue_wo", "_project_q": "q_down_up",
+                  "_rms": "latent_norms", "_latent_kv": "kv_down_rope",
+                  "_expand_kv": "kv_expand", "_pad_v": "v_pad",
+                  "_attend": "kernel4", "_absorbed": "absorbed"}}
 #: matrix products by kernel name (cuBLAS / CUTLASS)
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma")
-#: ranges searched back from a kernel for the one holding it
-LOOK_BACK = 8
+#: ranges searched back from a kernel for the one holding it (the
+#: expanded MLA path runs seven inner ranges)
+LOOK_BACK = 10
 
 
 def traced_ranges(module, prefix: str):
@@ -141,8 +163,8 @@ def range_split(prof, per: int, prefix: str) -> dict:
     inside the experts', a mixer's parts inside the mixer's), a matrix
     product inside the MoE experts' range to ``bmm``.  The innermost range
     holding a kernel is the latest to start before it that also ends
-    after it; a mixer runs six inner ranges, so the search looks back
-    ``LOOK_BACK`` ranges."""
+    after it; a mixer runs six inner ranges and MLA's expanded path seven,
+    so the search looks back ``LOOK_BACK`` ranges."""
     import bisect
     ranges = sorted((e.time_range.start, e.time_range.end,
                      e.name[len(prefix) + 1:]) for e in prof.events()
@@ -203,6 +225,7 @@ def main(argv=None) -> int:
     cfg = configs.get_config(args.arch)
     if args.layers:
         cfg = configs.first_layers(cfg, args.layers)
+    cfg = dataclasses.replace(cfg, mtp_depth=0)
     params = model_params.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
@@ -236,6 +259,9 @@ def main(argv=None) -> int:
                  ("moe", moe, "moe_ms_by_part", "attn_moe"),
                  ("ssd", ssm, "mamba2_ms_by_part", "mamba2"))
              if btype in cfg.layer_program]
+    if cfg.mla is not None:
+        from repro_torch.models import mla
+        split.append(("mla", mla, "mla_ms_by_part", cfg.n_layers))
     with torch.inference_mode():
         tok, caches, length, _ = pre(params, batch)   # warm-up
         decode_all(tok, caches, length)

@@ -1,7 +1,7 @@
 """Time the LM kernels (rmsnorm, gated, act, mamba, flash) on one card.
 
     python3 tools/time_lm_kernels.py [--src DIR] [--tag NAME] \
-        [--kernels rmsnorm,gated,act,mamba,flash,flash80]
+        [--kernels rmsnorm,gated,act,mamba,flash,flash80,flash192]
 
 Builds the CUDA sources of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``) and, on seeded random float32 inputs,
@@ -32,6 +32,15 @@ written once, at 3.35 TB/s):
   the record: no path of the port takes it).  A version of the package
   without the Dh 80 instantiation raises; leave ``flash80`` out of
   ``--kernels`` for it.
+* ``flash192``: ``flash_attention`` at deepseek-v3-671b's MLA prefill (2,
+  128, 128, 4096, Dh 192), causal, V zero-padded from 128 as the model
+  pads it, held to the chunked plain version (the whole-score one would
+  hold three 17.2 GB tensors), beside SDPA in float32 on the same padded
+  inputs, beside the
+  3xTF32 bounds with V padded and unpadded, and the V pad copy and the
+  output slice at the model's (B, S, H, ·) layouts timed.  A version of
+  the package without the Dh 192 instantiation raises; leave ``flash192``
+  out of ``--kernels`` for it.
 
 ``--src`` may point at another checkout's ``src`` (one unpacked with ``git
 archive``), so two versions of the kernels compare within one call: run
@@ -54,8 +63,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (LM_TOL, PEAK_BYTES_PER_S,  # noqa: E402
-                        PEAK_SFU_PER_S, attn_bound, nvidia_smi, ptxas_report,
-                        time_ms)
+                        PEAK_SFU_PER_S, PEAK_TF32_PER_S, attn_bound,
+                        nvidia_smi, ptxas_report, time_ms)
 
 VVLS = (1, 2, 4, 8)
 #: rmsnorm shapes (d, tokens) of the two serving paths
@@ -72,7 +81,10 @@ ATTN_VARIANTS = {"local": (4096, 50.0), "attn": (0, 50.0), "causal": (0, 0.0)}
 #: zamba2-2.7b's shared attention: (B, Hq, Hkv, S, Dh), causal, and the
 #: head_dim the padded route pads to
 ATTN80_SHAPE, PAD_DH = (2, 32, 32, 4096, 80), 128
-KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash", "flash80")
+#: deepseek-v3-671b's MLA prefill: (B, Hq, Hkv, S, Dh) and V's own width
+ATTN192_SHAPE, V192 = (2, 128, 128, 4096, 192), 128
+KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash", "flash80",
+           "flash192")
 
 
 def main(argv=None) -> int:
@@ -283,6 +295,52 @@ def main(argv=None) -> int:
         print(json.dumps(out), file=sys.stderr, flush=True)
         rows.append(out)
         del q, k, v, want
+        torch.cuda.empty_cache()
+    if "flash192" in todo:
+        b, hq, hkv, s_len, dh = ATTN192_SHAPE
+        q = torch.randn(b, hq, s_len, dh, device=dev, generator=g)
+        k = torch.randn(b, hkv, s_len, dh, device=dev, generator=g)
+        v = F.pad(torch.randn(b, hkv, s_len, V192, device=dev, generator=g),
+                  (0, dh - V192))
+
+        def call():
+            return flash_attention.flash_attention(q, k, v, causal=True)
+        want = ref.attention_chunked_ref(q, k, v, causal=True)
+        got = call()
+        torch.cuda.synchronize()
+        pairs = b * hq * s_len * (s_len + 1) // 2
+        out = {"name": "flash deepseek (Dh 192, V padded from 128)",
+               "shape": [b, hq, hkv, s_len, s_len, dh], "v_dim": V192,
+               "max_abs_err": float((got - want).abs().max()),
+               "padded_dims_of_o_zero": bool((got[..., V192:] == 0).all()),
+               "plain_ms": time_ms(lambda: ref.attention_chunked_ref(
+                   q, k, v, causal=True), reps=3, warmup=1),
+               "bound_tf32x3_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                             True, 0, split=3)[0],
+               "bound_tf32x3_v_unpadded_ms": 3 * pairs * (2 * dh + 2 * V192)
+               / PEAK_TF32_PER_S * 1e3,
+               "bound_fp32_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                           True, 0)[0]}
+        if not (torch.allclose(got, want, **LM_TOL)
+                and out["padded_dims_of_o_zero"]):
+            problems.append(f"flash Dh 192: max |kernel - plain| = "
+                            f"{out['max_abs_err']}, padded dimensions of O "
+                            f"zero: {out['padded_dims_of_o_zero']}")
+        del got, want
+        torch.cuda.empty_cache()
+        out["ms"] = time_ms(call)
+        out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        del q, k, v
+        torch.cuda.empty_cache()
+        vm = torch.randn(b, s_len, hkv, V192, device=dev, generator=g)
+        om = torch.randn(b, s_len, hq, dh, device=dev, generator=g)
+        out["v_pad_ms"] = time_ms(lambda: F.pad(vm, (0, dh - V192)))
+        out["o_slice_ms"] = time_ms(
+            lambda: om[..., :V192].reshape(b, s_len, -1).contiguous())
+        print(json.dumps(out), file=sys.stderr, flush=True)
+        rows.append(out)
+        del vm, om
         torch.cuda.empty_cache()
     result = {"tag": args.tag, "src": str(src), "nvidia_smi": smi,
               "device": torch.cuda.get_device_name(0), "build_s": build_s,
