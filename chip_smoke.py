@@ -217,8 +217,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    loss falling), gemma3-27b one 5:1 group with 8-bit moments, 3 steps,
    each with step 1 held to the plain path at ``TRAIN_TOL``; the LM
    examples: ``train_lm`` at its 22m preset, 300 steps, then ``serve_lm``
-   from its checkpoint (the restore reported, the continuations following
-   the bigram table above chance); printed as one ``{"dense_archs": ...}``
+   from its checkpoint (the restore reported, the probability its served
+   logits put on the bigram table's successors ``SERVE_LM_Z`` standard
+   errors above chance); printed as one ``{"dense_archs": ...}``
    line, the phase's paths merged into the LM kernel rows.  ``python3
    chip_smoke.py --only dense`` runs phases 1, 2 and 10 alone.
 
@@ -284,6 +285,32 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    the phase's paths merged into the LM kernel rows.  ``python3
    chip_smoke.py --only mla`` runs phases 1, 2, phase 5's rows at
    deepseek's shapes (before the weights) and 13 alone.
+
+14. the encoder, cross-attention and learned positions
+   (``whisper_phase``): whisper-medium whole at full width (24 ``enc`` +
+   24 ``xattn`` layers, Dh 64; 793 073 664 float32 parameters) from
+   seeded random weights, served through ``build_serve_steps`` (4
+   requests of 1500 random audio frames and a 432-token prompt, 16 greedy
+   steps: to whisper's trained context of 448) on the kernels, on the
+   plain path and warm (``serve_model``): logits within 1e-3, tokens
+   equal, the launches of a prefill (72 kernel 4: 24 encoder, 24 causal
+   self, 24 cross; 48 GELU) and of a decode step (24 GELU) held to
+   ``whisper_expected``, then once more under the profiler (the device's
+   busy share of the prefill and of the decode steps); then trained
+   through ``runtime.steps.build_train_step`` (``WHISPER_TRAIN_*``: 4
+   steps of 8 × 448 tokens and 8 × 1500 frames in two microbatches,
+   block remat, dense AdamW), step 1's batch at a lower loss through the
+   trained weights, step 1 held to the plain path at ``TRAIN_TOL`` leaf by
+   leaf (the encoder's and both position tables' among them), the
+   launches held, ms a step, tokens/s and peak memory; printed as one
+   ``{"whisper": ...}`` line, the phase's paths merged into the LM kernel
+   rows.  Phase 5's rows at whisper's shapes (``whisper_rows``): kernel 4
+   at the encoder's (4, 16 / 16, 1500 × 1500), non-causal, the decoder's
+   (4, 16 / 16, 432 × 432), causal, and the cross-attention's (4, 16 / 16,
+   432 × 1500), non-causal, each beside SDPA; the GELU at (6000, 4096) and
+   (1728, 4096) beside ``F.gelu(approximate="tanh")``.  ``python3
+   chip_smoke.py --only whisper`` runs phases 1, 2, those rows and 14
+   alone.
 
 Prints the kernels line (none under ``--only``) and, last, ``{"ok": true,
 "device": {...}}``; exits
@@ -669,6 +696,13 @@ DENSE_TRAIN_ARGS = ["--seq-len", "256", "--global-batch", "8", "--grad-accum",
 #: the LM examples: train_lm's 22m preset for its default 300 steps, then
 #: serve_lm from its checkpoint
 EXAMPLE_STEPS = 300
+#: serve_lm's served probability on the bigram table's successors must lie
+#: this many standard errors above chance.  After 300 steps the 22m model
+#: is 0.15 nats better than uniform (loss 8.86 against 9.01), so its greedy
+#: continuations follow the table by luck (1 or 0 of 256 tokens, chance
+#: 0.25): the probability its logits put on the successors measures what
+#: it learned.
+SERVE_LM_Z = 3
 #: Phase 12, zamba2-2.7b whole at full width (45 ``mamba2`` layers and 9
 #: uses of one weight-tied attention block at Dh 80; 1.98e9 float32
 #: parameters): 2 prompts of 4096 tokens served, 16 greedy steps, then 6
@@ -743,6 +777,32 @@ MLA_EW_ROWS = [("tdp_gathered.gated.deepseek_dense", "swiglu", True, 8192,
 MLA_ATTN, MLA_V_DIM = ("deepseek", 2, 128, 128, 4096, 192), 128
 #: a head_dim kernel 4 is not instantiated for: it must raise
 MLA_BAD_DH = 96
+#: Phase 14, whisper-medium whole at full width (24 ``enc`` + 24 ``xattn``
+#: layers, d 1024, 16 heads of 64, 793 073 664 float32 parameters): 4
+#: requests of 1500 random audio frames and a 432-token prompt served, 16
+#: greedy steps (to position 447: whisper's trained decoder context of
+#: 448); trained on 8 × 448 tokens (and 8 × 1500 frames) a step in two
+#: microbatches, block remat, dense AdamW, through
+#: ``runtime.steps.build_train_step`` (``launch.train`` refuses an
+#: encoder–decoder arch: its synthetic stream carries no frames), the
+#: successor stream's tokens with frames drawn from the step's seed.
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT = "whisper-medium", 4, 432
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_ACCUM = 8, 448, 2
+WHISPER_TRAIN_STEPS = 4
+#: Phase 5's rows at whisper's prefill (4 × 432 tokens, 4 × 1500 frames):
+#: kernel 4 at its three attentions (tag, B, Hq, Hkv, Sq, Sk, causal) at
+#: Dh 64 — the encoder's self-attention, the decoder's causal
+#: self-attention and its cross-attention onto the frames — beside
+#: ``scaled_dot_product_attention`` (``is_causal`` only for the causal
+#: one); the ungated GELU over the encoder's and the decoder's MLP rows
+#: (name, kind, gated, tokens, d_ff, float32 operations an element)
+WHISPER_ATTN_ROWS = [("whisper_encoder", 4, 16, 16, 1500, 1500, False),
+                     ("whisper_decoder", 4, 16, 16, 432, 432, True),
+                     ("whisper_cross", 4, 16, 16, 432, 1500, False)]
+WHISPER_EW_ROWS = [("tdp_gathered.act.gelu_whisper_encoder", "gelu", False,
+                    6000, 4096, 9),
+                   ("tdp_gathered.act.gelu_whisper_decoder", "gelu", False,
+                    1728, 4096, 9)]
 
 
 def log(msg: str) -> None:
@@ -989,7 +1049,7 @@ def lm_library_call(name: str, xs, consts):
         return ((lambda: F.rms_norm(x.T, (x.shape[0],), weight=w1,
                                     eps=consts["eps"])),
                 (lambda o: (o.T,)))
-    if name == "tdp_gathered.act":
+    if name == "tdp_gathered.act" or name.startswith("tdp_gathered.act.gelu"):
         return ((lambda: F.gelu(xs[0], approximate="tanh")),
                 (lambda o: (o,)))
     return None
@@ -1232,14 +1292,58 @@ def vision_inputs(cfg, b: int, s: int, dev) -> dict:
             "positions3": torch.from_numpy(pos).to(dev)}
 
 
+def serve_busy(params, cfg, batch) -> dict:
+    """One more warm run on the kernels, its prefill and its
+    ``SERVE_DECODE`` decode steps each traced by ``torch.profiler``: the
+    host wall ms (ending in ``torch.cuda.synchronize()``), the device ms
+    (its kernels summed; one stream) and the device's busy share of the
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.context import ExecContext
+    from repro_torch.runtime.steps import build_serve_steps
+    pre, dec = build_serve_steps(cfg, ExecContext(backend="cuda"),
+                                 max_len=int(batch["tokens"].shape[1])
+                                 + SERVE_DECODE)
+    out = {}
+
+    def traced(name, fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        out[name] = {"wall_ms": wall_ms, "device_ms": us / 1e3,
+                     "device_busy_share": us / 1e3 / wall_ms}
+        return res
+
+    def decode(tok, caches, length):
+        for _ in range(SERVE_DECODE):
+            tok, caches, length, _ = dec(params, tok, caches, length)
+        return tok
+
+    with torch.inference_mode():
+        tok, caches, length, _ = traced("prefill", lambda: pre(params, batch))
+        traced(f"decode x{SERVE_DECODE}",
+               lambda: decode(tok, caches, length))
+    return out
+
+
 def serve_model(cfg, prompt_len: int, drive, problems: list, *,
-                ring: bool = False, device="cuda") -> dict:
-    """Phase 4 (and 10) for one model: built at full width from seeded
-    random float32 weights, served through the kernels (counted), again
-    through the plain path (counted) and once more through the kernels,
-    warm (timed); the logits and tokens compared; with ``ring``, served
-    once more on ring caches for the ``local`` layers (counted), its tokens
-    held to the first run's; weights and caches freed after."""
+                ring: bool = False, device="cuda", batch_size=SERVE_BATCH,
+                busy: bool = False) -> dict:
+    """Phase 4 (and 10, 12, 14) for one model: built at full width from
+    seeded random float32 weights, served through the kernels (counted),
+    again through the plain path (counted) and once more through the
+    kernels, warm (timed); the logits and tokens compared; with ``ring``,
+    served once more on ring caches for the ``local`` layers (counted), its
+    tokens held to the first run's; with ``busy``, once more under the
+    profiler (``serve_busy``); weights and caches freed after.
+    ``batch_size`` prompts of ``prompt_len`` random token ids, for an
+    encoder–decoder model each with ``n_frames`` random audio frames."""
     from repro_torch.models import params as model_params
     dev = torch.device(device)
     torch.cuda.empty_cache()
@@ -1249,17 +1353,22 @@ def serve_model(cfg, prompt_len: int, drive, problems: list, *,
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, prompt_len))).to(dev)}
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch_size, prompt_len))).to(dev)}
+    if cfg.is_encdec:
+        batch["audio_embed"] = torch.from_numpy(rng.standard_normal(
+            (batch_size, cfg.encoder.n_frames, cfg.d_model),
+            dtype=np.float32)).to(dev)
     if cfg.vision_stub:
-        batch.update(vision_inputs(cfg, SERVE_BATCH, prompt_len, dev))
+        batch.update(vision_inputs(cfg, batch_size, prompt_len, dev))
     served = serve_run(mparams, cfg, "cuda", batch, drive=drive)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     plain_served = serve_run(mparams, cfg, "torch", batch, drive=drive)
     warm = serve_run(mparams, cfg, "cuda", batch)
     serving = compare_serving(served, plain_served, problems, cfg.name)
     serving.update(params=cfg.num_params(), layers=cfg.n_layers,
-                   init_params_s=init_s, prompt=[SERVE_BATCH, prompt_len],
+                   init_params_s=init_s, prompt=[batch_size, prompt_len],
                    decode_steps=SERVE_DECODE, peak_memory_gb_kernels=peak_gb)
     runs = [("kernels_first_run", served), ("kernels_warm", warm),
             ("plain", plain_served)]
@@ -1279,13 +1388,15 @@ def serve_model(cfg, prompt_len: int, drive, problems: list, *,
     for name, run in runs:
         serving[name] = {
             "prefill_ms": run["prefill_ms"],
-            "prefill_tokens_per_s": SERVE_BATCH * prompt_len / run["prefill_ms"] * 1e3,
+            "prefill_tokens_per_s": batch_size * prompt_len / run["prefill_ms"] * 1e3,
             "decode_ms_per_step": run["decode_ms_per_step"],
-            "decode_tokens_per_s": SERVE_BATCH / run["decode_ms_per_step"] * 1e3}
+            "decode_tokens_per_s": batch_size / run["decode_ms_per_step"] * 1e3}
     if warm["tokens"] and not all(torch.equal(a, b) for a, b in
                                   zip(warm["tokens"], served["tokens"])):
         problems.append(f"{cfg.name}: the warm run's tokens differ from the "
                         f"first")
+    if busy:
+        serving["device_busy"] = serve_busy(mparams, cfg, batch)
     del mparams, served, plain_served, warm, batch
     torch.cuda.empty_cache()
     print(json.dumps({"serving": {cfg.name: {k: v for k, v in serving.items()
@@ -3521,9 +3632,11 @@ def dense_train(arch, drive, by_path, problems, device="cuda") -> dict:
 def examples_run(drive, by_path, problems, device="cuda") -> dict:
     """Phase 10, the LM examples: ``train_lm`` at its 22m preset for
     ``EXAMPLE_STEPS`` steps (the loss must fall: its own check), then
-    ``serve_lm`` from its checkpoint (the restore reported, the share of
-    continuations that follow the bigram table above chance); their
-    printed lines go to the log."""
+    ``serve_lm`` from its checkpoint (the restore reported, the
+    probability its served logits put on the bigram table's successors
+    ``SERVE_LM_Z`` standard errors above chance; the share of greedy
+    continuations that follow the table reported); their printed lines go
+    to the log."""
     import io
     import tempfile
     from repro_torch.examples import serve_lm, train_lm
@@ -3548,13 +3661,16 @@ def examples_run(drive, by_path, problems, device="cuda") -> dict:
                step_ms_median=(statistics.median(h["ms"] for h in hist)
                                if hist else None), serve=res,
                share=res["ok"] / res["total"],
-               lift=res["ok"] / res["total"] / res["chance"])
+               lift=res["ok"] / res["total"] / res["chance"],
+               mass_lift=res["mass"] / res["chance"],
+               mass_z=(res["mass"] - res["chance"]) / res["mass_se"])
     if not res["trained"] or "restored trained weights" not in text.getvalue():
         problems.append("phase 10 serve_lm: it did not restore train_lm's "
                         "checkpoint")
-    if not res["ok"] / res["total"] > res["chance"]:
-        problems.append(f"phase 10 serve_lm: {res['ok']}/{res['total']} "
-                        f"continuations follow the bigram table, not above "
+    if not out["mass_z"] > SERVE_LM_Z:
+        problems.append(f"phase 10 serve_lm: probability {res['mass']} "
+                        f"± {res['mass_se']} on the bigram table's "
+                        f"successors, not {SERVE_LM_Z} standard errors above "
                         f"chance {res['chance']}")
     # the 22m model: global attention, RMSNorm, SwiGLU on the kernels
     want = {("flash_attention", "flash_attention"), ("tdp_gathered", "rmsnorm"),
@@ -4449,11 +4565,207 @@ def mla_phase(drive, by_path, problems, device="cuda") -> dict:
     return out
 
 
+def whisper_expected(cfg, accum: int = 1) -> tuple[dict, dict, dict]:
+    """whisper's launches on the kernels: one prefill, ``SERVE_DECODE``
+    decode steps, one training step of ``accum`` microbatches.  An ``enc``
+    layer runs kernel 4 (non-causal) and the GELU; an ``xattn`` layer
+    kernel 4 twice (causal self-attention, cross-attention) and the GELU;
+    decode attends in plain PyTorch (the self and cross caches), as the
+    reference does; LayerNorm is plain PyTorch, as in the reference.  A
+    training microbatch runs every layer's forward twice (block remat)."""
+    flash, act = ("flash_attention", "flash_attention"), ("tdp_gathered",
+                                                          "act")
+    n_e, n_d = cfg.encoder.n_layers, cfg.n_layers
+    pre = {flash: n_e + 2 * n_d, act: n_e + n_d}
+    dec = {act: n_d * SERVE_DECODE}
+    train = {k: 2 * accum * n for k, n in pre.items()}
+    return pre, dec, train
+
+
+def whisper_rows(launches, launches_by_path, max_err, problems,
+                 record) -> list:
+    """Phase 5 at whisper's prefill (``WHISPER_*_ROWS``): the GELU rows
+    through ``dense_rows`` (beside ``F.gelu(approximate="tanh")``), then
+    kernel 4 at each of the three attentions, held to ``attention_ref``,
+    timed beside it, its bound and ``scaled_dot_product_attention`` on the
+    same inputs (``is_causal`` for the causal one only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    rows = dense_rows(launches, launches_by_path, max_err, problems, record,
+                      rms_rows=[], ew_rows=WHISPER_EW_ROWS, attn_rows=[])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    dh = 64
+    for tag, b, hq, hkv, sq, sk, causal in WHISPER_ATTN_ROWS:
+        q = torch.randn(b, hq, sq, dh, device=dev, generator=g)
+        k, v = (torch.randn(b, hkv, sk, dh, device=dev, generator=g)
+                for _ in range(2))
+        lib = ((lambda q=q, k=k, v=v, causal=causal:
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)),
+               (lambda o: (o,)))
+        shape = (b, hq, hkv, sq, sk, dh, causal, 0)
+        name = f"flash_attention.{tag}"
+        rows.append(lm_row(
+            name, KERNELS["flash_attention"],
+            ("flash_attention", "flash_attention"),
+            lambda q=q, k=k, v=v, causal=causal:
+                flash_attention.flash_attention(q, k, v, causal=causal),
+            lambda q=q, k=k, v=v, causal=causal:
+                ref.attention_ref(q, k, v, causal=causal),
+            lib, attn_bound(*shape, split=flash_attention.TF32_SPLIT),
+            launches, launches_by_path, max_err, problems, record,
+            max_err_key="flash_attention"))
+        rows[-1]["shape"] = [b, hq, hkv, sq, sk, dh, causal]
+        record.setdefault("bound_fp32_ms", {})[name] = attn_bound(*shape)[0]
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def whisper_train(cfg, drive, by_path, problems, device="cuda") -> dict:
+    """Phase 14, training: whisper-medium whole through
+    ``runtime.steps.build_train_step`` (``WHISPER_TRAIN_*``: two strided
+    microbatches, block remat, dense AdamW) on the kernels, the batches
+    the successor stream's tokens and labels with random frames from the
+    step's seed; then its first step on the plain path from the same
+    weights: step 1's loss, global gradient norm and every leaf's gradient
+    norm (the encoder's and both position tables' among them) held at
+    ``TRAIN_TOL``; step 1's batch at a lower loss through the trained
+    weights; each path's launches, step ms, tokens/s and peak memory."""
+    from repro_torch.data import SyntheticConfig, make_batch_loader
+    from repro_torch.models import lm
+    from repro_torch.models import params as model_params
+    from repro_torch.models.context import ExecContext
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.steps import TrainHParams, build_train_step
+    dev = torch.device(device)
+    tokens = make_batch_loader(SyntheticConfig(
+        cfg.vocab_size, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH, seed=0),
+        device=dev)
+
+    def batch_for(step):
+        g = torch.Generator(device=dev).manual_seed(1000 + step)
+        return {**tokens(step), "audio_embed": torch.randn(
+            WHISPER_TRAIN_BATCH, cfg.encoder.n_frames, cfg.d_model,
+            device=dev, generator=g)}
+
+    def run(backend, steps, path):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model_params.trainable(model_params.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev))
+        opt_cfg = AdamWConfig()
+        opt = adamw_init(params, opt_cfg)
+        step = build_train_step(
+            cfg, ExecContext(backend=backend, remat="block"), opt_cfg,
+            TrainHParams(warmup_steps=TRAIN_WARMUP, total_steps=steps,
+                         grad_accum=WHISPER_TRAIN_ACCUM))
+        hist = []
+
+        def steps_all():
+            nonlocal params, opt
+            for i in range(steps):
+                batch = batch_for(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                hist.append({"ms": (time.perf_counter() - t0) * 1e3,
+                             **{k: float(v) for k, v in m.items()}})
+        drive(path, steps_all)
+        return params, hist, torch.cuda.max_memory_allocated() / 1e9
+
+    path = f"{cfg.name} train {WHISPER_TRAIN_STEPS} steps (cuda)"
+    with first_step_leaf_norms() as leaves:
+        params, hist, peak_gb = run("cuda", WHISPER_TRAIN_STEPS, path)
+    with torch.no_grad():
+        loss_again = float(lm.loss_fn(params, batch_for(0), cfg,
+                                      ExecContext(backend="cuda"))[0])
+    del params
+    plain_path = f"{cfg.name} train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves:
+        params, plain_hist, plain_gb = run("torch", 1, plain_path)
+    del params
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    names = leaves.get("names", [])
+    out = {"layers": [cfg.encoder.n_layers, cfg.n_layers],
+           "params": cfg.num_params(), "steps": len(hist),
+           "batch": [WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ,
+                     cfg.encoder.n_frames], "accum": WHISPER_TRAIN_ACCUM,
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist],
+           "step1_batch_loss_after_training": loss_again,
+           "step_ms_median_from_2": step_ms,
+           "tokens_per_s": (WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ
+                            / step_ms * 1e3),
+           "frames_per_s": (WHISPER_TRAIN_BATCH * cfg.encoder.n_frames
+                            / step_ms * 1e3),
+           "peak_memory_gb": peak_gb,
+           "plain_step1_ms": plain_hist[0]["ms"],
+           "plain_peak_memory_gb": plain_gb,
+           "leaves_held": {"all": len(names), "encoder": sum(
+               n.startswith("/encoder/") for n in names),
+               "pos_embed": [n for n in names if n.endswith("pos_embed")]},
+           "launches": {f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    if (len(hist) != WHISPER_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses) or not loss_again < losses[0]):
+        problems.append(f"phase 14 training: {len(hist)} of "
+                        f"{WHISPER_TRAIN_STEPS} steps, losses {losses}, step "
+                        f"1's batch after them {loss_again}")
+    if (out["leaves_held"]["encoder"] == 0
+            or len(out["leaves_held"]["pos_embed"]) != 2):
+        problems.append(f"phase 14 training: step 1's leaves {names}")
+    out["step1_vs_plain"] = hold_to_oracle(f"phase 14 {cfg.name}", hist,
+                                           plain_hist, leaves, plain_leaves,
+                                           problems)
+    want = {k: n * WHISPER_TRAIN_STEPS for k, n in whisper_expected(
+        cfg, WHISPER_TRAIN_ACCUM)[2].items()}
+    if by_path[path] != want:
+        problems.append(f"phase 14 {path}: launches {by_path[path]}, "
+                        f"expected {want}")
+    if by_path[plain_path]:
+        problems.append(f"phase 14 {plain_path}: the plain path launched "
+                        f"{by_path[plain_path]}")
+    return out
+
+
+def whisper_phase(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 14 (see the module docstring)."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(WHISPER_ARCH)
+    out = {"serving": serve_model(cfg, WHISPER_PROMPT, drive, problems,
+                                  device=device, batch_size=WHISPER_BATCH,
+                                  busy=True)}
+    pre, dec, _ = whisper_expected(cfg)
+    for p, want in ((f"{cfg.name} prefill (cuda)", pre),
+                    (f"{cfg.name} decode x{SERVE_DECODE} (cuda)", dec)):
+        if by_path.get(p) != want:
+            problems.append(f"phase 14 {p}: launches {by_path.get(p)}, "
+                            f"expected {want}")
+    for p in (f"{cfg.name} prefill (torch)",
+              f"{cfg.name} decode x{SERVE_DECODE} (torch)"):
+        if by_path.get(p):
+            problems.append(f"phase 14 {p}: the plain path launched "
+                            f"{by_path[p]}")
+    out["serving"]["launches"] = {
+        p: {f"{k}.{s}": n for (k, s), n in by_path[p].items()}
+        for p in by_path if p.startswith(cfg.name + " ")}
+    log(f"phase 14: serving {json.dumps(out['serving'], default=str)}")
+    out["training"] = whisper_train(cfg, drive, by_path, problems, device)
+    out["paths"] = [p for p in by_path if p.startswith(cfg.name + " ")]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: whisper-medium {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("training", "dense", "moe", "ssd",
-                                       "mla"),
+                                       "mla", "whisper"),
                     default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
@@ -4610,21 +4922,22 @@ def main(argv=None) -> int:
         return out
 
     if only is not None:
-        if only == "mla":
-            # phase 5's rows at deepseek's shapes, before its weights; the
+        if only in ("mla", "whisper"):
+            # phase 5's rows at the model's shapes, before its weights; the
             # phase's launches merged after it
             launches = {e: 0 for e in lm_entries}
             launches_by_path = {e: {} for e in lm_entries}
-            mla_kernel_rows = mla_rows(launches, launches_by_path, {},
-                                       problems, record)
+            early_rows = (mla_rows if only == "mla" else whisper_rows)(
+                launches, launches_by_path, {}, problems, record)
         phase = {"training": training_phase, "dense": dense_archs_phase,
-                 "moe": moe_phase, "ssd": ssd_phase,
-                 "mla": mla_phase}[only](drive, by_path, problems)
+                 "moe": moe_phase, "ssd": ssd_phase, "mla": mla_phase,
+                 "whisper": whisper_phase}[only](drive, by_path, problems)
         key = {"training": "training", "dense": "dense_archs",
-               "moe": "moe", "ssd": "ssd", "mla": "mla"}[only]
-        if only == "mla":
-            merge_launches(mla_kernel_rows, by_path, phase["paths"])
-            phase["rows"] = mla_kernel_rows
+               "moe": "moe", "ssd": "ssd", "mla": "mla",
+               "whisper": "whisper"}[only]
+        if only in ("mla", "whisper"):
+            merge_launches(early_rows, by_path, phase["paths"])
+            phase["rows"] = early_rows
         if only in ("moe", "ssd"):
             # phase 5's rows at the model's shapes, counting this phase's
             # paths
@@ -5005,6 +5318,8 @@ def main(argv=None) -> int:
                        attn_rows=MOE_ATTN_ROWS)
     rows += ssd_rows(launches, launches_by_path, max_err, problems, record)
     rows += mla_rows(launches, launches_by_path, max_err, problems, record)
+    rows += whisper_rows(launches, launches_by_path, max_err, problems,
+                         record)
 
     # the mamba site function at falcon-mamba-7b's full-width prefill shape:
     # one launch = one layer, both batch rows
@@ -5124,6 +5439,11 @@ def main(argv=None) -> int:
     record["mla"] = mla_phase(drive, by_path, problems)
     merge_launches(rows, by_path, record["mla"]["paths"])
     print(json.dumps({"mla": record["mla"]}, default=str), flush=True)
+
+    # -- 14. the encoder and cross-attention: whisper-medium whole ------------
+    record["whisper"] = whisper_phase(drive, by_path, problems)
+    merge_launches(rows, by_path, record["whisper"]["paths"])
+    print(json.dumps({"whisper": record["whisper"]}, default=str), flush=True)
     record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))

@@ -2,10 +2,8 @@
 
 One module per architecture exports ``CONFIG`` (the exact public
 configuration, sources cited in-module) and ``SMOKE`` (a reduced
-same-family config for CPU tests).  Only the archs whose blocks the port
-runs are registered; the rest of the reference's registry
-(``repro/configs``: whisper's encoder and learned positions) waits for its
-slice (ROADMAP, queue A, LM stack).
+same-family config for CPU tests).  Every arch of the reference's registry
+(``repro/configs``) is registered.
 """
 from __future__ import annotations
 
@@ -16,7 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCHS = ("granite_moe_1b_a400m", "gemma3_27b", "nemotron_4_15b",
          "phi3_medium_14b", "gemma2_2b", "falcon_mamba_7b", "qwen2_vl_2b",
-         "zamba2_2p7b", "deepseek_v3_671b")
+         "zamba2_2p7b", "deepseek_v3_671b", "whisper_medium")
 
 # brief ids ↔ module names
 ALIASES = {"granite-moe-1b-a400m": "granite_moe_1b_a400m",
@@ -27,7 +25,8 @@ ALIASES = {"granite-moe-1b-a400m": "granite_moe_1b_a400m",
            "falcon-mamba-7b": "falcon_mamba_7b",
            "qwen2-vl-2b": "qwen2_vl_2b",
            "zamba2-2.7b": "zamba2_2p7b",
-           "deepseek-v3-671b": "deepseek_v3_671b"}
+           "deepseek-v3-671b": "deepseek_v3_671b",
+           "whisper-medium": "whisper_medium"}
 
 
 def _module(arch: str):

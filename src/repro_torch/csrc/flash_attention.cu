@@ -21,9 +21,14 @@
 // operands and fp32 accumulators.  One TF32 product per product misses the
 // reference's bar of 2e-4 (measured once on the card: error up to 1.4e-3,
 // 3.38 ms for the local layer; PERF.md §6), so each operand is split into
-// a TF32 high part and the rest (3xTF32: error ~8e-6).  The online
-// softmax runs on the accumulator fragments (flash_attention.cuh: a row's
-// max and sum over its quad of lanes by two shuffles).  P·V runs transposed,
+// a TF32 high part and the rest (3xTF32: within 5.2e-6 of the plain
+// version at gemma2-2b's prefill).  The tensor core rounds its fp32
+// accumulation toward zero, so O takes each key tile's P·V from a fresh
+// fragment by a rounded add: chained into O over 1500 keys, the output
+// drifted 1.0e-5 toward zero against float64, 1.2e-6 so (whisper's
+// encoder shape; PERF.md §6).  The online softmax runs on the
+// accumulator fragments (flash_attention.cuh: a row's max and sum over its
+// quad of lanes by two shuffles).  P·V runs transposed,
 // Oᵀ += Vᵀ·Pᵀ, so S's C fragment is Pᵀ's B fragment as it is and P never
 // leaves registers.  The data behind each k slot and row of the fragments
 // is chosen so that a lane's Q, K and Vᵀ operands sit side by side: one
@@ -224,16 +229,28 @@ __global__ void __launch_bounds__(kThreads)
 
     tdp::cp_async_wait<1>();  // this tile's V landed
     __syncthreads();
-    // Oᵀ += Vᵀ·Pᵀ: Pᵀ's B fragments are S's C fragments as they are
+    // Oᵀ += Vᵀ·Pᵀ (Pᵀ's B fragments are S's C fragments as they are), a V
+    // pair at a time: the tile's products accumulate in a fresh fragment,
+    // which O then takes by one rounded add.  The tensor core rounds its
+    // fp32 accumulation toward zero, so a chain of mma into O itself over
+    // every key tile (3·Sk/8 of them a row) drifts O toward zero; this
+    // keeps each chain at the tile's 3·BK/8.
 #pragma unroll
-    for (int j = 0; j < T::NJ; ++j) {
-      Op pb[2][2];
+    for (int p = 0; p < T::NP; ++p) {
+      float c[T::NT][2][4];
 #pragma unroll
-      for (int nr = 0; nr < 2; ++nr)
+      for (int t = 0; t < T::NT; ++t)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) pb[nr][i] = split(s[j][2 * nr + i]);
+        for (int nr = 0; nr < 2; ++nr)
 #pragma unroll
-      for (int p = 0; p < T::NP; ++p) {
+          for (int i = 0; i < 4; ++i) c[t][nr][i] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < T::NJ; ++j) {
+        Op pb[2][2];
+#pragma unroll
+        for (int nr = 0; nr < 2; ++nr)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) pb[nr][i] = split(s[j][2 * nr + i]);
         float vf[T::NT][4];
         load_a_v<T::W>(Vs, T::SV, j, p, lane, vf);
 #pragma unroll
@@ -242,9 +259,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int i = 0; i < 4; ++i) va[i] = split(vf[t][i]);
 #pragma unroll
-          for (int nr = 0; nr < 2; ++nr) mma(o[p][t][nr], va, pb[nr]);
+          for (int nr = 0; nr < 2; ++nr) mma(c[t][nr], va, pb[nr]);
         }
       }
+#pragma unroll
+      for (int t = 0; t < T::NT; ++t)
+#pragma unroll
+        for (int nr = 0; nr < 2; ++nr)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[p][t][nr][i] += c[t][nr][i];
     }
     __syncthreads();  // every warp is done with this tile's V
     if (more) stage_rows<DH>(Vs, T::SV, vg, io.sv[2], kt + T::BK, T::BK, io.Sk, tid, kThreads);

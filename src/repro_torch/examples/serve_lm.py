@@ -7,7 +7,9 @@ steps of ``runtime/steps.py``.
 
 Uses the model ``train_lm`` trained when its checkpoint is under
 ``--ckpt-dir`` (so the continuations follow the synthetic bigram table,
-which the last line counts), otherwise random weights.  ``--preset`` names
+which the last lines count: the generated tokens that follow it, and the
+probability the served logits put on the table's successors of each
+step's previous token), otherwise random weights.  ``--preset`` names
 ``train_lm``'s preset (the reference serves its 22m preset only).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm [--gen 32]
@@ -39,8 +41,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def run(args: argparse.Namespace) -> dict:
     """Serve as ``args`` say; returns ``{"trained", "step", "ok",
-    "total", "chance", "prefill_ms", "decode_ms"}``: ``ok`` of ``total``
-    generated tokens follow the bigram table from their predecessor."""
+    "total", "chance", "mass", "mass_se", "prefill_ms", "decode_ms"}``:
+    ``ok`` of ``total`` generated tokens follow the bigram table from
+    their predecessor; ``mass`` is the mean over the ``total`` steps of
+    the probability the step's logits put on the predecessor's successors
+    (``chance`` under uniform logits), ``mass_se`` its standard error."""
     import torch
     from repro_torch.checkpoint import latest_step, restore_checkpoint
     from repro_torch.data import SyntheticConfig, batch_for_step
@@ -87,18 +92,19 @@ def run(args: argparse.Namespace) -> dict:
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        tok, caches, length, _ = prefill_step(params, batch, sample_gen)
+        tok, caches, length, logits = prefill_step(params, batch, sample_gen)
         sync()
         t_prefill = time.perf_counter() - t0
         print(f"[serve_lm] prefill {args.batch}×{args.prompt_len} tokens: "
               f"{t_prefill*1e3:.0f} ms "
               f"({args.batch*args.prompt_len/t_prefill:.0f} tok/s)")
-        outs = [tok]
+        outs, probs = [tok], [torch.softmax(logits[:, -1].float(), -1)]
         t1 = time.perf_counter()
         for _ in range(args.gen - 1):
-            tok, caches, length, _ = decode_step(params, tok, caches, length,
-                                                 sample_gen)
+            tok, caches, length, logits = decode_step(params, tok, caches,
+                                                      length, sample_gen)
             outs.append(tok)
+            probs.append(torch.softmax(logits[:, -1].float(), -1))
         sync()
         t_dec = time.perf_counter() - t1
     steps = max(args.gen - 1, 1)
@@ -107,28 +113,37 @@ def run(args: argparse.Namespace) -> dict:
           f"({(args.gen-1)*args.batch/t_dec:.0f} tok/s, "
           f"{t_dec/steps*1e3:.1f} ms/step)")
     gen_toks = torch.cat(outs, dim=1).cpu().numpy()
+    probs = torch.stack(probs, 1).cpu().numpy()            # (B, gen, V)
 
     # the continuations against the bigram table
     table = _successor_table(data)
     ok = total = 0
+    masses = []
     for r in range(args.batch):
         prev = prompts["tokens"][r, -1]
         for t in range(args.gen):
             total += 1
             if gen_toks[r, t] in table[prev]:
                 ok += 1
+            masses.append(float(probs[r, t, table[prev]].sum()))
             prev = gen_toks[r, t]
     chance = 8 / p["vocab"]
+    mass = float(np.mean(masses))
+    mass_se = float(np.std(masses, ddof=1) / np.sqrt(len(masses)))
     lift = (ok / total) / chance if total else 0.0
     print(f"[serve_lm] continuations following the bigram table: "
           f"{ok}/{total} ({ok/total:.1%}; chance {chance:.2%} → "
           f"{lift:.0f}× lift)"
           + ("" if trained else "  (random weights)"))
+    print(f"[serve_lm] probability on the bigram table's successors: "
+          f"{mass:.3e} ± {mass_se:.1e} (chance {chance:.3e} → "
+          f"{mass / chance:.3f}× lift)")
     for r in range(min(3, args.batch)):
         print(f"  req{r}: ...{prompts['tokens'][r, -4:].tolist()} → "
               f"{gen_toks[r, :10].tolist()}")
     return {"trained": trained, "step": step, "ok": ok, "total": total,
-            "chance": chance, "prefill_ms": t_prefill * 1e3,
+            "chance": chance, "mass": mass, "mass_se": mass_se,
+            "prefill_ms": t_prefill * 1e3,
             "decode_ms": t_dec * 1e3}
 
 

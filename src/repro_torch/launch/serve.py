@@ -10,6 +10,8 @@ for falcon-mamba, the recurrent SSM state).
     python -m repro_torch.launch.serve --arch qwen2-vl-2b --smoke --device cpu
     python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 4 \\
         --batch 2 --prompt-len 4096 --gen 16
+    python -m repro_torch.launch.serve --arch whisper-medium --batch 4 \\
+        --prompt-len 432 --gen 16
 
 Runs on the card (``--device cuda``, the default; it raises without one)
 through the hand-written kernels; ``--device cpu`` runs the plain PyTorch
@@ -23,9 +25,10 @@ full width (gemma3-27b's 62 float32 layers exceed one card; deepseek-v3's
 first 4 are 60.4 GB).  A config's multi-token prediction modules are not
 built: serving never reads them (11.6e9 parameters at deepseek's 4-layer
 cut, whose MTP block is an ``attn_moe`` one).  As in the
-reference's launcher, the vision stub (qwen2-vl) gets 8 random patches in
-the first ``min(4, prompt)`` slots, and M-RoPE's three position rows are
-each ``arange(prompt)``.
+reference's launcher, an encoder–decoder model (whisper) gets random audio
+frames ``(batch, n_frames, d)``, the vision stub (qwen2-vl) 8 random
+patches in the first ``min(4, prompt)`` slots, and M-RoPE's three position
+rows are each ``arange(prompt)``.
 """
 from __future__ import annotations
 
@@ -36,12 +39,17 @@ import time
 
 def stub_inputs(cfg, b: int, s: int, rng, device) -> dict:
     """The reference launcher's extra inputs for ``b`` prompts of ``s``
-    tokens: for the vision stub 8 random patches (from ``rng``) in the first
-    ``min(4, s)`` slots; for M-RoPE each of the three position rows
-    ``arange(s)``."""
+    tokens, drawn from ``rng`` in its order: for an encoder–decoder model
+    ``audio_embed``, ``(b, n_frames, d)`` standard normal frames; for the
+    vision stub 8 random patches in the first ``min(4, s)`` slots; for
+    M-RoPE each of the three position rows ``arange(s)``."""
     import numpy as np
     import torch
     out = {}
+    if cfg.is_encdec:
+        out["audio_embed"] = torch.from_numpy(rng.normal(
+            size=(b, cfg.encoder.n_frames, cfg.d_model)).astype(
+                np.float32)).to(device)
     if cfg.vision_stub:
         slot = -np.ones((b, s), np.int64)
         slot[:, :min(4, s)] = np.arange(min(4, s))

@@ -27,7 +27,10 @@ resumes only from a directory it is given, and only a checkpoint of its
 own ``--arch`` and ``--seed`` (``Trainer.restore_latest`` raises on
 another).  ``--mesh`` other than
 ``none`` and ``--compress-pod`` raise ``NotImplementedError`` (sharded
-training, ROADMAP A7.7).  Weights are random from ``--seed``; the data is
+training, ROADMAP A7.7).  An encoder–decoder arch (whisper-medium) raises
+``ValueError``: the synthetic stream carries no ``audio_embed`` (the
+reference's launcher dies on it with a ``KeyError``); train it through
+``runtime.steps.build_train_step`` on batches that carry frames.  Weights are random from ``--seed``; the data is
 the synthetic successor stream (``repro_torch.data``), whose loss falls.
 The restart loop is inside ``Trainer.run``: it reloads the newest
 checkpoint and resumes from the same step of the stateless stream.
@@ -80,6 +83,12 @@ def train(args: argparse.Namespace):
     from repro_torch.runtime import Trainer, TrainerConfig, TrainHParams
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder model trains on batches with "
+            f"'audio_embed' frames, and the synthetic token stream carries "
+            f"none; build the step with runtime.steps.build_train_step and "
+            f"feed it such batches")
     if args.layers:
         cfg = C.first_layers(cfg, args.layers)
     data = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,

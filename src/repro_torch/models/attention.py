@@ -5,17 +5,21 @@ Two execution paths, one weight layout:
 
 * **prefill** — :func:`full_attention` through ``ops.flash_attention``: the
   hand-written CUDA kernel under ``ctx.backend == "cuda"``, the plain oracle
-  of ``ctx.attn_impl`` under ``"torch"``;
+  of ``ctx.attn_impl`` under ``"torch"``; causal, or not (whisper's
+  encoder), and with ``kv_override`` cross-attention of the queries onto
+  keys and values projected elsewhere (the encoder's frames: Sq ≠ Sk);
 * **decode** — :func:`decode_attention`: single-token attention over the
   cache in plain PyTorch (as in the reference, no kernel), with the
-  ring-buffer branch for window-sized caches of ``local`` layers.
+  ring-buffer branch for window-sized caches of ``local`` layers and, with
+  ``cross=True``, over a fixed cross-attention cache that is read, never
+  written.
 
-The reference's sequence-sharded and sequence-parallel branches and
-cross-attention wait for their slices (ROADMAP, queue A).  Cache layout
-per layer: ``{"k": (B, Hkv, S_max, Dh), "v": ...}``.  A decode step writes
-its key and value into the cache tensors **in place**
-(the reference updates functionally): at full width a copy of every
-layer's cache per step would move the whole cache each token.
+The reference's sequence-sharded and sequence-parallel branches wait for
+their slice (ROADMAP A7.7).  Cache layout per layer: ``{"k": (B, Hkv,
+S_max, Dh), "v": ...}``.  A decode step writes its key and value into the
+cache tensors **in place** (the reference updates functionally): at full
+width a copy of every layer's cache per step would move the whole cache
+each token.
 """
 from __future__ import annotations
 
@@ -60,12 +64,19 @@ def project_qkv(p, x, a: AttnConfig, ctx: ExecContext, rope=None):
 
 
 def full_attention(p, x, a: AttnConfig, ctx: ExecContext, *, rope=None,
-                   causal=True, window=0):
-    """Full-sequence causal attention (prefill).
+                   causal=True, window=0, kv_override=None):
+    """Full-sequence attention (training, prefill, the encoder), causal or
+    not.  ``kv_override``: ``(k, v)``, each (B, Sk, Hkv, dh), already
+    projected (cross-attention): only ``q`` is projected from ``x``, with
+    no qk-norm and no rope (whisper's cross-attention has neither).
 
-    Returns (out (B,S,D), (k, v)) with k/v (B,S,Hkv,dh) so prefill can
+    Returns (out (B,S,D), (k, v)) with k/v (B,Sk,Hkv,dh) so prefill can
     seed the cache."""
-    q, k, v = project_qkv(p, x, a, ctx, rope=rope)
+    if kv_override is None:
+        q, k, v = project_qkv(p, x, a, ctx, rope=rope)
+    else:
+        q = _split_heads(x @ p["wq"], a.n_heads, a.head_dim)
+        k, v = kv_override
     # (B, H, S, dh) views of the (B, S, H, dh) projections: the kernel takes
     # them by strides and writes o in q's layout, so neither side copies
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -114,14 +125,23 @@ def _decode_scores_to_out(q, k, v, a: AttnConfig, length, window=0,
 
 
 def decode_attention(p, x, a: AttnConfig, ctx: ExecContext, cache, length, *,
-                     rope=None, window=0):
+                     rope=None, window=0, cross=False):
     """One-token attention step.
 
     x: (B, 1, D); cache: {"k","v"} (B, Hkv, S_max, dh), written in place at
     slot ``length`` (``length mod window`` for a window-sized ring cache);
-    ``length``: the cache fill before this token, a Python int.
-    Returns (out, cache)."""
+    ``length``: the cache fill before this token, a Python int.  With
+    ``cross``, the cache is a cross-attention one (the encoder's keys and
+    values): only ``q`` is projected (no rope), and it attends over every
+    slot of the cache, which is not written.  Returns (out, cache)."""
     b = x.shape[0]
+    if cross:
+        q = _split_heads(x @ p["wq"], a.n_heads, a.head_dim)
+        num, den, _ = _decode_scores_to_out(q.transpose(1, 2), cache["k"],
+                                            cache["v"], a, cache["k"].shape[2])
+        out = num / torch.clamp_min(den, 1e-30)
+        out = out.to(x.dtype).transpose(1, 2).reshape(b, 1, -1)
+        return out @ p["wo"], cache
     q, k_new, v_new = project_qkv(p, x, a, ctx, rope=rope)
     k_new = k_new.transpose(1, 2)                                # (B,Hkv,1,dh)
     v_new = v_new.transpose(1, 2)

@@ -19,9 +19,9 @@ Block types:
   ``xattn``        decoder block with self- + cross-attention (whisper)
   ``enc``          bidirectional encoder block (whisper encoder)
 
-The ``xattn`` and ``enc`` blocks do not run in the port yet
-(:mod:`repro_torch.models.blocks`); the encoder config is kept as a
-dataclass for that slice (ROADMAP, queue A).
+An encoder–decoder model (whisper) has an :class:`EncoderConfig`: its
+``enc`` stack runs over the stub frontend's frames, and every ``xattn``
+decoder block attends to its output.
 """
 from __future__ import annotations
 

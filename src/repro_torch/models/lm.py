@@ -1,10 +1,12 @@
 """Model-level forwards: the training loss, cache init, prefill, decode.
 
 Port of ``repro/models/lm.py``.  Batch dict: ``tokens (B, S)`` integer,
-optionally ``positions (B, S)`` (default ``arange``); under M-RoPE
-(qwen2-vl) optionally ``positions3 (3, B, S)`` (t, h, w), and for the
-vision stub ``vision_embed (B, P, D)`` with ``vision_slot (B, S)``
-(-1 = text); for the loss ``labels (B, S)`` integer and optionally
+optionally ``positions (B, S)`` (default ``arange``; the rope tables' or
+the learned table's rows); under M-RoPE (qwen2-vl) optionally
+``positions3 (3, B, S)`` (t, h, w), for the vision stub ``vision_embed
+(B, P, D)`` with ``vision_slot (B, S)`` (-1 = text), and for an
+encoder–decoder model (whisper) ``audio_embed (B, F, D)``, the stub
+frontend's frames; for the loss ``labels (B, S)`` integer and optionally
 ``loss_mask (B, S)``.  The reference runs its layer program as
 ``lax.scan`` groups to keep its HLO small; PyTorch runs eagerly, so
 :func:`_apply_stack` is a plain loop over the layers, each under
@@ -12,8 +14,10 @@ vision stub ``vision_embed (B, P, D)`` with ``vision_slot (B, S)``
 ``jax.checkpoint`` of a scan unit).  Every layer gets the tied
 ``params["shared_block"]`` (zamba2's ``shared_attn`` positions read it), so
 the gradients of all its uses add into its one set of tensors.  The loss
-adds DeepSeek's multi-token prediction where the config has it.  The
-encoder and learned positions wait for their slice (ROADMAP, queue A).
+adds DeepSeek's multi-token prediction where the config has it.  An
+encoder–decoder model runs :func:`encode` first and hands its output to
+every layer (to each checkpointed layer as an argument, so that its
+gradient reaches the encoder).
 """
 from __future__ import annotations
 
@@ -27,12 +31,11 @@ from .context import ExecContext
 
 def embed_inputs(params, batch, cfg: ModelConfig, ctx: ExecContext):
     """Token embeddings; with the vision stub, each slot ``vision_slot >=
-    0`` takes patch ``vision_slot`` of ``vision_embed`` instead."""
-    if cfg.pos_embed == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: learned position embeddings (whisper) are not "
-            f"ported yet (ROADMAP A7.6)")
-    x = layers.embed_tokens(params, batch["tokens"], cfg)
+    0`` takes patch ``vision_slot`` of ``vision_embed`` instead; with
+    learned positions, plus the row of ``params["pos_embed"]`` at each
+    token's position (``batch["positions"]``, default ``arange(S)``)."""
+    tokens = batch["tokens"]
+    x = layers.embed_tokens(params, tokens, cfg)
     if cfg.vision_stub and "vision_embed" in batch:
         slot = batch["vision_slot"]                       # (B,S), -1 = text
         patches = batch["vision_embed"].to(x.dtype)       # (B,P,D)
@@ -40,6 +43,11 @@ def embed_inputs(params, batch, cfg: ModelConfig, ctx: ExecContext):
             *slot.shape, patches.shape[-1])
         take = torch.gather(patches, 1, idx)
         x = torch.where((slot >= 0)[..., None], take, x)
+    if cfg.pos_embed == "learned":
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        x = x + params["pos_embed"][pos.long()].to(x.dtype)
     return x
 
 
@@ -77,43 +85,63 @@ def _rope_for(batch, cfg: ModelConfig, seq_len: int, *, positions=None):
 
 def _apply_stack(layer_params, program, x, cfg: ModelConfig,
                  ctx: ExecContext, *, rope, rope_local=None, shared=None,
-                 caches=None, length=None, collect_cache=True):
+                 enc_out=None, caches=None, length=None, collect_cache=True):
     """Run the whole layer program; returns (x, per-layer caches).
-    ``shared``: the tied block's parameters, handed to every layer (and,
-    under remat, to its recompute as an argument of the checkpoint).  With
-    ``collect_cache=False`` (training) no cache is built and the caches
-    are ``None``; each layer is then recomputed in the backward pass
-    when ``ctx.remat == "block"``."""
+    ``shared``: the tied block's parameters, and ``enc_out``: the
+    encoder's output, each handed to every layer (and, under remat, to its
+    recompute as an argument of the checkpoint).  With
+    ``collect_cache=False`` (training, the encoder) no cache is built and
+    the caches are ``None``; each layer is then recomputed in the backward
+    pass when ``ctx.remat == "block"``."""
     caches_out = []
     for i, btype in enumerate(program):
         cache = None if caches is None else caches[i]
         if not collect_cache and ctx.remat == "block":
-            def layer(x_in, bp, sh, btype=btype):
+            def layer(x_in, bp, sh, enc, btype=btype):
                 return blocks.apply_block(btype, bp, x_in, cfg=cfg, ctx=ctx,
                                           shared=sh, rope=rope,
-                                          rope_local=rope_local,
+                                          rope_local=rope_local, enc_out=enc,
                                           collect_cache=False)[0]
-            x, c = checkpoint(layer, x, layer_params[i], shared,
+            x, c = checkpoint(layer, x, layer_params[i], shared, enc_out,
                               use_reentrant=False), None
         else:
             x, c = blocks.apply_block(
                 btype, layer_params[i], x, cfg=cfg, ctx=ctx, shared=shared,
                 rope=rope, rope_local=rope_local, cache=cache, length=length,
-                collect_cache=collect_cache)
+                enc_out=enc_out, collect_cache=collect_cache)
         caches_out.append(c)
     return x, (caches_out if collect_cache else None)
 
 
+def encode(params, batch, cfg: ModelConfig, ctx: ExecContext):
+    """The encoder (whisper): ``batch["audio_embed"]`` (B, F, D) plus the
+    first F rows of ``params["encoder"]["pos_embed"]``, through the ``enc``
+    layers (non-causal self-attention + MLP, no cache; each checkpointed
+    under remat), then the encoder's final norm.  Returns (B, F, D)."""
+    enc = params["encoder"]
+    if "audio_embed" not in batch:
+        raise ValueError(f"{cfg.name}: an encoder-decoder batch needs "
+                         f"'audio_embed' (B, {cfg.encoder.n_frames}, "
+                         f"{cfg.d_model}), the stub frontend's frames")
+    x = batch["audio_embed"].to(params["embed"].dtype)
+    x = x + enc["pos_embed"][None, :x.shape[1]].to(x.dtype)
+    x, _ = _apply_stack(enc["layers"], ("enc",) * cfg.encoder.n_layers, x,
+                        cfg, ctx, rope=None, collect_cache=False)
+    return layers.norm(enc["final_norm"], x, cfg, ctx)
+
+
 def forward_hidden(params, batch, cfg: ModelConfig, ctx: ExecContext):
     """The final-normed hidden states (B, S, d) of a full-sequence pass
-    without caches (the reference also returns its encoder output, which
-    the port does not have)."""
+    without caches, the encoder run first where the model has one (the
+    reference also returns the encoder's output; no caller of the port
+    reads it)."""
     seq_len = batch["tokens"].shape[1]
     x = embed_inputs(params, batch, cfg, ctx)
     rope, rope_local = _rope_for(batch, cfg, seq_len)
+    enc_out = encode(params, batch, cfg, ctx) if cfg.is_encdec else None
     x, _ = _apply_stack(params["layers"], cfg.layer_program, x, cfg, ctx,
                         rope=rope, rope_local=rope_local,
-                        shared=params.get("shared_block"),
+                        shared=params.get("shared_block"), enc_out=enc_out,
                         collect_cache=False)
     return layers.norm(params["final_norm"], x, cfg, ctx)
 
@@ -167,7 +195,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     attention layer (a ``shared_attn`` position too: the weights are tied,
     the caches are not), ``{"conv": (B, d_conv-1, di), "ssm": (B, di, N)
     float32}`` for a ``mamba1`` layer, ``{"conv", "conv_bc": (B, d_conv-1,
-    2·G·N), "ssm": (B, H, P, N) float32}`` for a ``mamba2`` layer.
+    2·G·N), "ssm": (B, H, P, N) float32}`` for a ``mamba2`` layer,
+    ``{"self": {"k", "v"}, "xk", "xv": (B, Hkv, n_frames, dh)}`` for an
+    ``xattn`` layer.
 
     ``local_ring``: sliding-window (``local``) layers allocate only
     ``window`` slots, written modulo the window at decode time (ring
@@ -204,13 +234,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if local_ring and btype == "local" and a.window > 0:
             blen = min(max_len, a.window)
         shape = (batch, a.n_kv_heads, blen, a.head_dim)
-        out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+        c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if btype == "xattn":
+            xshape = (batch, a.n_kv_heads, cfg.encoder.n_frames, a.head_dim)
+            c = {"self": c,
+                 "xk": torch.zeros(xshape, dtype=dtype, device=device),
+                 "xv": torch.zeros(xshape, dtype=dtype, device=device)}
+        out.append(c)
     return out
 
 
 def prefill(params, batch, cfg: ModelConfig, ctx: ExecContext):
-    """Full forward that also builds the caches (KV, or the SSM state).
+    """Full forward that also builds the caches (KV, or the SSM state; an
+    ``xattn`` layer's cross keys and values from the encoder's output).
 
     Returns (last-token logits (B, 1, V), caches); the KV caches' sequence
     extent is the prompt length (pad them for a decode budget with
@@ -218,9 +255,11 @@ def prefill(params, batch, cfg: ModelConfig, ctx: ExecContext):
     seq_len = batch["tokens"].shape[1]
     x = embed_inputs(params, batch, cfg, ctx)
     rope, rope_local = _rope_for(batch, cfg, seq_len)
+    enc_out = encode(params, batch, cfg, ctx) if cfg.is_encdec else None
     x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
                              ctx, rope=rope, rope_local=rope_local,
-                             shared=params.get("shared_block"))
+                             shared=params.get("shared_block"),
+                             enc_out=enc_out)
     h = layers.norm(params["final_norm"], x[:, -1:], cfg, ctx)
     return layers.logits_from_hidden(params, h, cfg), caches
 
@@ -228,18 +267,20 @@ def prefill(params, batch, cfg: ModelConfig, ctx: ExecContext):
 def decode_step(params, token, caches, length: int, cfg: ModelConfig,
                 ctx: ExecContext, *, positions3=None):
     """One-token decode.  token: (B, 1) integer; length: current cache fill
-    (a Python int); ``positions3``: the token's M-RoPE positions (3, B, 1),
-    default ``length`` in all three.  Returns (logits (B, 1, V), caches
-    written in place)."""
-    batch = {"tokens": token}
-    x = embed_inputs(params, batch, cfg, ctx)
+    (a Python int), the token's position; ``positions3``: the token's
+    M-RoPE positions (3, B, 1), default ``length`` in all three.  Returns
+    (logits (B, 1, V), caches written in place).
+
+    Under learned positions the token gets the table's row ``length``, as
+    the prefill over the same tokens gives it; the reference's
+    ``decode_step`` adds row 0 to every decoded token (ROADMAP §C)."""
     b = token.shape[0]
-    if positions3 is not None:
-        pos = positions3
-    else:
-        pos = torch.full((b, 1), length, dtype=torch.int32,
-                         device=token.device)
-    rope, rope_local = _rope_for(batch, cfg, 1, positions=pos)
+    pos = torch.full((b, 1), length, dtype=torch.int32, device=token.device)
+    batch = {"tokens": token, "positions": pos}
+    x = embed_inputs(params, batch, cfg, ctx)
+    rope, rope_local = _rope_for(
+        batch, cfg, 1, positions=positions3 if positions3 is not None
+        else pos)
     x, caches = _apply_stack(params["layers"], cfg.layer_program, x, cfg,
                              ctx, rope=rope, rope_local=rope_local,
                              shared=params.get("shared_block"),

@@ -27,15 +27,22 @@ each ``{"proj": (2d, d), "block": <a layer of the program's last type>,
 layer is ``{}``: its weights are the one ``params["shared_block"]`` (an
 ``attn`` block), tied
 across every ``shared_attn`` position, so the tree, the optimiser's
-moments and a checkpoint hold them once.  The reference stacks
+moments and a checkpoint hold them once.  An ``xattn`` layer (whisper's
+decoder) is an ``attn`` layer with a second attention, ``"xattn"``
+(``wq``/``wk``/``wv``/``wo``, its keys and values projected from the
+encoder's output), and its norm ``"norm_x"`` (d,); an ``enc`` layer is an
+``attn`` layer.  Learned positions add ``params["pos_embed"]:
+(max_position, d)``, and an encoder–decoder model ``params["encoder"] =
+{"layers": [<enc layer>, ...], "final_norm": (d,), "pos_embed":
+(n_frames, d)}``.  The reference stacks
 each leaf per scan group (``groups[i][position]`` with a leading repeat
 axis: an expert leaf is ``(k, E, d, fe)``); :func:`from_reference`
 unstacks that into the per-layer list.  ``attn``/``local``/``attn_dense``/
 ``attn_moe`` blocks with standard attention (qk-norm's ``q_norm``/
 ``k_norm``, ``(head_dim,)``, where the config has it) or MLA, ``mamba1``,
-``mamba2`` and ``shared_attn`` blocks, with tied or untied embeddings and
-multi-token prediction, are supported; other block types, the encoder and
-learned position embeddings raise ``NotImplementedError``.
+``mamba2``, ``shared_attn``, ``xattn`` and ``enc`` blocks, with tied or
+untied embeddings, learned positions, an encoder and multi-token
+prediction: every block type of the registry.
 """
 from __future__ import annotations
 
@@ -47,25 +54,6 @@ import torch
 from repro_torch.kernels.ops import resolve_device
 
 from .config import ModelConfig, plan_layer_groups, ssm_dims
-
-#: block types whose parameters the port builds
-SUPPORTED_BLOCKS = ("attn", "local", "attn_dense", "attn_moe", "mamba1",
-                    "mamba2", "shared_attn")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    other = sorted(set(cfg.layer_program) - set(SUPPORTED_BLOCKS))
-    if other or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: only attn/local/attn_dense/attn_moe/shared_attn "
-            f"and mamba1/mamba2 blocks are ported (found block types "
-            f"{other}, encoder={cfg.is_encdec}); the rest waits for its "
-            f"slice (ROADMAP, queue A, LM stack)")
-    if cfg.pos_embed == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: learned position embeddings (whisper) are not "
-            f"ported yet (ROADMAP A7.6)")
-
 
 def _dense(gen, shape, device, fan_in=None):
     fan_in = fan_in if fan_in is not None else shape[0]
@@ -134,12 +122,19 @@ def _attn_params(cfg: ModelConfig, gen, device) -> dict:
 
 
 def _block_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
+    """An attention block in the reference's order: ``norm1``, ``attn``,
+    ``norm2``, for ``xattn`` the cross-attention and ``norm_x``, then the
+    MLP (the MoE's for ``attn_moe``)."""
     d = cfg.d_model
-    attn = _attn_params(cfg, gen, device)
-    mlp = (_moe_params(cfg, gen, device) if btype == "attn_moe"
-           else _mlp_params(cfg, gen, device))
-    return {"norm1": torch.zeros(d, device=device), "attn": attn,
-            "norm2": torch.zeros(d, device=device), "mlp": mlp}
+    p = {"norm1": torch.zeros(d, device=device),
+         "attn": _attn_params(cfg, gen, device),
+         "norm2": torch.zeros(d, device=device)}
+    if btype == "xattn":
+        p["xattn"] = _attn_params(cfg, gen, device)
+        p["norm_x"] = torch.zeros(d, device=device)
+    p["mlp"] = (_moe_params(cfg, gen, device) if btype == "attn_moe"
+                else _mlp_params(cfg, gen, device))
+    return p
 
 
 def _mamba1_params(cfg: ModelConfig, gen, device) -> dict:
@@ -202,23 +197,26 @@ def _layer_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random float32 parameters from ``generator`` (whose device must be
-    ``device``): projections ~ N(0, 1/fan_in), the embedding ~ N(0, 0.02²),
-    norm weights 0 (the ``(1 + w)`` convention), the Mamba mixers as
-    :func:`_mamba1_params` and :func:`_mamba2_params`, and one
-    ``"shared_block"`` (an ``attn`` block) where the program has
-    ``shared_attn`` positions, built at the first of them.  The same
-    distributions as the reference's ``init_params``, the MoE's as
-    :func:`_moe_params`; not the same numbers (a ``torch.Generator`` is
-    not a JAX key).  With ``cfg.mtp_depth``, ``params["mtp"]`` gets that
-    many modules after the layers, each its block (the program's last
-    type, as the reference builds it) and then its ``proj``
-    ~ N(0, 1/2d)."""
-    _check_supported(cfg)
+    ``device``): projections ~ N(0, 1/fan_in), the embedding and the
+    learned position tables ~ N(0, 0.02²), norm weights 0 (the ``(1 + w)``
+    convention), the Mamba mixers as :func:`_mamba1_params` and
+    :func:`_mamba2_params`, and one ``"shared_block"`` (an ``attn`` block)
+    where the program has ``shared_attn`` positions, built at the first of
+    them.  The same distributions as the reference's ``init_params``, the
+    MoE's as :func:`_moe_params`; not the same numbers (a
+    ``torch.Generator`` is not a JAX key).  An encoder–decoder model gets
+    ``params["encoder"]`` after the decoder's layers and final norm.  With
+    ``cfg.mtp_depth``, ``params["mtp"]`` gets that many modules after
+    them, each its block (the program's last type, as the reference
+    builds it) and then its ``proj`` ~ N(0, 1/2d)."""
     d = cfg.d_model
     params = {"embed": _dense(generator, (cfg.padded_vocab, d), device,
                               fan_in=1) * 0.02}
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense(generator, (d, cfg.padded_vocab), device)
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = _dense(generator, (cfg.max_position, d),
+                                     device, fan_in=1) * 0.02
     layers = []
     for btype in cfg.layer_program:
         if btype == "shared_attn" and "shared_block" not in params:
@@ -227,6 +225,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers.append(_layer_params(cfg, generator, device, btype))
     params["layers"] = layers
     params["final_norm"] = torch.zeros(d, device=device)
+    if cfg.is_encdec:
+        enc = cfg.encoder
+        params["encoder"] = {
+            "layers": [_block_params(cfg, generator, device, "enc")
+                       for _ in range(enc.n_layers)],
+            "final_norm": torch.zeros(d, device=device),
+            "pos_embed": _dense(generator, (enc.n_frames, d), device,
+                                fan_in=1) * 0.02}
     if cfg.mtp_depth:
         params["mtp"] = []
         for _ in range(cfg.mtp_depth):
@@ -258,9 +264,10 @@ def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
     ``shared_block`` (unstacked in the reference too) is carried once; its
     positions' entries are the reference's ``{}``.  The multi-token
     prediction modules (``mtp``, a list, unstacked in the reference) are
-    carried as they are."""
+    carried as they are; the encoder's one scan group (its ``enc`` layers
+    stacked) is unstacked the same way."""
     out = {"embed": convert(np_params["embed"], None)}
-    for key in ("lm_head", "shared_block"):
+    for key in ("lm_head", "pos_embed", "shared_block"):
         if key in np_params:
             out[key] = convert(np_params[key], None)
     layers = [None] * cfg.n_layers
@@ -273,6 +280,14 @@ def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
         offset += k * len(unit)
     out["layers"] = layers
     out["final_norm"] = convert(np_params["final_norm"], None)
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        (stacked,), = enc["groups"]
+        out["encoder"] = {
+            "layers": [convert(stacked, r)
+                       for r in range(cfg.encoder.n_layers)],
+            "final_norm": convert(enc["final_norm"], None),
+            "pos_embed": convert(enc["pos_embed"], None)}
     if "mtp" in np_params:
         out["mtp"] = [convert(m, None) for m in np_params["mtp"]]
     return out
@@ -283,12 +298,18 @@ def weight_decay_mask(params: dict) -> dict:
     rule is "two or more dimensions", and it stacks every layer's leaves
     along a repeat axis, so each per-layer leaf decays, norm weights and
     vectors included.  The port's per-layer leaves are unstacked: True for
-    every leaf under ``"layers"``; elsewhere (the embedding, the head,
-    the tied ``shared_block`` and the ``mtp`` modules, unstacked in the
-    reference too, the final norm) two or more dimensions."""
+    every leaf under ``"layers"``, the decoder's and the encoder's;
+    elsewhere (the embedding, the head, both position tables, the tied
+    ``shared_block`` and the ``mtp`` modules, unstacked in the reference
+    too, the final norms) two or more dimensions."""
     from repro_torch.optim.tree import tree_map
-    return {k: tree_map(lambda p: True if k == "layers" else p.ndim >= 2, v)
-            for k, v in params.items()}
+
+    def mask(tree):
+        return {k: (tree_map(lambda p: True, v) if k == "layers"
+                    else mask(v) if k == "encoder"
+                    else tree_map(lambda p: p.ndim >= 2, v))
+                for k, v in tree.items()}
+    return mask(params)
 
 
 def trainable(params: dict) -> dict:
@@ -310,7 +331,6 @@ def from_reference(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     to a leading extent ``k``: layer ``offset + r·len(unit) + j`` is
     repeat ``r`` of unit position ``j``."""
     device = resolve_device(device)
-    _check_supported(cfg)
     return _unstack(np_params, cfg,
                     lambda tree, r: _to_torch(tree, device, index=r))
 
@@ -326,7 +346,6 @@ def from_reference_opt_state(np_state: dict, cfg: ModelConfig,
     from repro_torch.optim.quant import QTensor
 
     device = resolve_device(device)
-    _check_supported(cfg)
 
     def leaf(x, r):
         if hasattr(x, "codes"):

@@ -14,9 +14,12 @@ training (ROADMAP A7.7).
 Serving: sampling, cache padding, prefill and decode steps.  ``jax.random``
 keys become an explicit ``torch.Generator``; greedy sampling needs none.
 The caches are per-layer dicts: ``{"k", "v"}`` for attention and
-``{"c_kv", "k_rope"}`` for MLA, which the decode step writes in place, or
-``{"conv", "ssm"}`` for Mamba-1, which it replaces; ``length`` is a
-Python int.  With ``local_ring=True`` the sliding-window layers keep
+``{"c_kv", "k_rope"}`` for MLA, which the decode step writes in place,
+``{"self": {"k", "v"}, "xk", "xv"}`` for whisper's ``xattn`` layers (the
+cross keys and values fixed at the prefill), or ``{"conv", "ssm"}`` for
+Mamba-1, which it replaces; ``length`` is a Python int.  Batches of an
+encoder–decoder model carry ``audio_embed (B, F, D)``, cut into
+microbatches with the rest.  With ``local_ring=True`` the sliding-window layers keep
 window-sized ring caches after the prefill (the reference's
 ``init_cache(local_ring=True)`` layout).
 """
@@ -152,8 +155,10 @@ def sample_logits(logits, generator: torch.Generator | None = None, *,
 
 def _pad_caches(caches, cfg: ModelConfig, max_len: int):
     """Grow every sequence-extent leaf (``k``/``v``: (B, Hkv, S, dh), and
-    MLA's ``c_kv``/``k_rope``: (B, S, ·)) to ``max_len``, zero-filled; the
-    fixed-size ``conv``/``ssm`` state stays as it is."""
+    MLA's ``c_kv``/``k_rope``: (B, S, ·)) to ``max_len``, zero-filled, at
+    any depth of a layer's dict (an ``xattn`` layer's ``self``); the
+    fixed-size ``conv``/``ssm`` state and the cross keys and values
+    ``xk``/``xv`` (the encoder's frames) stay as they are."""
     seq_dim = {"k": 2, "v": 2, "c_kv": 1, "k_rope": 1}
 
     def pad(name, t):
@@ -162,7 +167,11 @@ def _pad_caches(caches, cfg: ModelConfig, max_len: int):
         grow = [0, 0] * (t.dim() - 1 - seq_dim[name]) + [
             0, max_len - t.shape[seq_dim[name]]]
         return F.pad(t, grow)
-    return [{k: pad(k, v) for k, v in c.items()} for c in caches]
+
+    def walk(c):
+        return {k: walk(v) if isinstance(v, dict) else pad(k, v)
+                for k, v in c.items()}
+    return [walk(c) for c in caches]
 
 
 def _ring_caches(caches, cfg: ModelConfig, length: int):
@@ -199,8 +208,9 @@ def build_serve_steps(cfg: ModelConfig, ctx: ExecContext, *, max_len: int,
         -> (next_token, caches, length + 1, logits)
 
     The last slot, the encoder output in the reference, is the step's
-    logits (B, 1, V) here: the port has no encoder, and a caller that
-    checks or scores the tokens needs them.  ``positions3`` (3, B, 1): the
+    logits (B, 1, V) here: the encoder's output lives on in the ``xattn``
+    caches' ``xk``/``xv``, and a caller that checks or scores the tokens
+    needs the logits.  ``positions3`` (3, B, 1): the
     token's M-RoPE positions (default ``length`` in all three).
     ``local_ring``: the ``local`` layers' caches become window-sized ring
     buffers after the prefill (:func:`_ring_caches`)."""

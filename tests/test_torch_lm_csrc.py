@@ -279,10 +279,17 @@ extern "C" void host_attention(const float* q, const float* k, const float* v,
 namespace {
 using namespace tdp::attn;
 
+// x rounded to float toward zero, as the tensor core rounds its fp32
+// accumulation (it truncates where an FPU rounds to nearest).
+float round_toward_zero(double x) {
+  const float f = (float)x;
+  return std::fabs((double)f) > std::fabs(x) ? std::nextafter(f, 0.0f) : f;
+}
+
 // One warp's mma.sync.m16n8k8, emulated: each lane's registers placed by the
 // fragment maps, each operand's top 19 bits (what the tensor core reads of
 // a TF32 operand), the products summed in double onto the accumulator,
-// rounded to float once.
+// rounded to float once, toward zero.
 void emu_mma(float (&d)[32][4], const uint32_t (&a)[32][4], const uint32_t (&b)[32][2]) {
   double A[16][8], B[8][8];
   for (int l = 0; l < 32; ++l) {
@@ -303,7 +310,7 @@ void emu_mma(float (&d)[32][4], const uint32_t (&a)[32][4], const uint32_t (&b)[
       frag_c(l, i, r, c);
       double acc = d[l][i];
       for (int k = 0; k < 8; ++k) acc += A[r][k] * B[k][c];
-      d[l][i] = (float)acc;
+      d[l][i] = round_toward_zero(acc);
     }
 }
 
@@ -427,26 +434,27 @@ int flash_host(const FlashArgs& a) {
             frag_rescale<T::NP, T::NT>(o[w][l], f);
           }
         }
-        for (int w = 0; w < FLASH_WARPS; ++w)  // Oᵀ += Vᵀ·Pᵀ
-          for (int j = 0; j < T::NJ; ++j) {
-            float pb[2][32][2];
-            for (int l = 0; l < 32; ++l)
-              for (int nr = 0; nr < 2; ++nr)
-                for (int i = 0; i < 2; ++i) pb[nr][l][i] = s[w][l][j][2 * nr + i];
-            for (int p = 0; p < T::NP; ++p) {
+        for (int w = 0; w < FLASH_WARPS; ++w)  // Oᵀ += Vᵀ·Pᵀ, a pair at a time
+          for (int p = 0; p < T::NP; ++p) {
+            // the tile's products in a fresh fragment, then one add into O
+            float c[T::NT][2][32][4] = {};
+            for (int j = 0; j < T::NJ; ++j) {
+              float pb[2][32][2];
+              for (int l = 0; l < 32; ++l)
+                for (int nr = 0; nr < 2; ++nr)
+                  for (int i = 0; i < 2; ++i) pb[nr][l][i] = s[w][l][j][2 * nr + i];
               float vf[32][T::NT][4];
               for (int l = 0; l < 32; ++l) load_a_v<T::W>(Vs, T::SV, j, p, l, vf[l]);
               for (int t = 0; t < T::NT; ++t) {
                 float va[32][4];
                 for (int l = 0; l < 32; ++l) std::copy(vf[l][t], vf[l][t] + 4, va[l]);
-                for (int nr = 0; nr < 2; ++nr) {
-                  float d[32][4];
-                  for (int l = 0; l < 32; ++l) std::copy(o[w][l][p][t][nr], o[w][l][p][t][nr] + 4, d[l]);
-                  emu_mma_split<SPLIT>(d, va, pb[nr]);
-                  for (int l = 0; l < 32; ++l) std::copy(d[l], d[l] + 4, o[w][l][p][t][nr]);
-                }
+                for (int nr = 0; nr < 2; ++nr) emu_mma_split<SPLIT>(c[t][nr], va, pb[nr]);
               }
             }
+            for (int t = 0; t < T::NT; ++t)
+              for (int nr = 0; nr < 2; ++nr)
+                for (int l = 0; l < 32; ++l)
+                  for (int i = 0; i < 4; ++i) o[w][l][p][t][nr][i] += c[t][nr][l][i];
           }
         if (more)  // every warp is done with V: the next tile's V
           for (int t = 0; t < NT; ++t)
@@ -887,6 +895,12 @@ _FLASH = {
     "noncausal_ragged_dh192": ((1, 2, 2, 77, 140, 192), dict(causal=False)),
     "v_padded_dh192": ((1, 2, 2, 140, 140, 192),
                        dict(causal=True, scale=192 ** -0.5)),
+    # whisper-medium's shapes at Dh 64 (64-key tiles), scaled down in the
+    # heads: non-causal, Sq ≠ Sk, the keys 1500 or ≡ 1500 mod 64 (a tail
+    # of 28 keys), the queries 1500 (a last tile of 92 rows) or 92 (the
+    # decoder's prompt against the encoder's frames: one partial tile)
+    "whisper_frames_dh64": ((1, 2, 2, 1500, 348, 64), dict(causal=False)),
+    "whisper_cross_dh64": ((2, 2, 2, 92, 1500, 64), dict(causal=False)),
 }
 #: the cases whose V carries data in its first ``V_PADDED`` dimensions only
 V_PADDED = {"v_padded_dh192": 128}
@@ -901,6 +915,12 @@ def _flash_inputs(case, seeds):
     if case in V_PADDED:
         v[..., V_PADDED[case]:] = 0.0
     return q, k, v
+
+
+#: |signed drift| of the tile's output toward zero against float64 over
+#: 1500 keys, relative to Σ|o|: a few roundings of the last tile's chain;
+#: chaining P·V into O over every tile drifts 10× that and more
+DRIFT_BAR = 3e-6
 
 
 @pytest.mark.parametrize("case", sorted(_FLASH))
@@ -933,6 +953,27 @@ def test_flash_tile_lse_matches_plain(host_lib, case):
     assert torch.equal(o, o2)
     _, want = tref.attention_ref(q, k, v, return_lse=True, **kw)
     torch.testing.assert_close(lse, want, **TOL)
+
+
+def test_flash_tile_does_not_drift_over_long_keys(host_lib):
+    """Over 1500 keys (whisper's frames: 24 key tiles, 562 mma a row of
+    P·V) the tile's output does not drift toward zero against attention
+    in float64, though the emulated tensor core rounds every accumulation
+    toward zero as the card's does: each key tile's P·V sums in a fresh
+    fragment (24 mma a chain) and O takes it by a rounded add.  Chained
+    into O over every tile, the drift was 1.0e-5 on the card (PERF.md
+    §6)."""
+    from repro_torch.kernels.flash_attention import TF32_SPLIT
+    b, h, sq, sk, dh = 1, 2, 128, 1500, 64
+    q, k, v = (_rand(60, (b, h, sq, dh)), _rand(61, (b, h, sk, dh)),
+               _rand(62, (b, h, sk, dh)))
+    o = torch.full_like(q, float("nan"))
+    assert _flash(host_lib, q, k, v, o, TF32_SPLIT, causal=False) == 0
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * dh ** -0.5
+    want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+    drift = float(((o.double() - want) * want.sign()).sum()
+                  / want.abs().sum())
+    assert abs(drift) < DRIFT_BAR, drift
 
 
 def test_flash_tile_takes_transposed_views(host_lib):

@@ -216,25 +216,23 @@ def test_serve_cli_smoke_on_cpu(capsys):
 
 
 def test_unported_blocks_and_features_raise():
+    """Every block type of the registry runs (whisper's ``enc`` and
+    ``xattn`` and learned positions since their slice); what still
+    raises: a name that is no block type, an ``xattn`` block outside
+    decode without the encoder's output, an arch the registry lacks, an
+    executor the context lacks."""
     import dataclasses
     from repro_torch.models import blocks
     cfg = TC.get_smoke("gemma2_2b")
-    for btype in ("enc", "xattn"):
-        with pytest.raises(NotImplementedError, match="attn/local"):
-            blocks.apply_block(btype, {}, torch.zeros(1, 2, cfg.d_model),
-                               cfg=cfg, ctx=ExecContext())
+    with pytest.raises(NotImplementedError, match="unknown block type"):
+        blocks.apply_block("conv", {}, torch.zeros(1, 2, cfg.d_model),
+                           cfg=cfg, ctx=ExecContext())
     hybrid = dataclasses.replace(cfg, layer_program=("attn", "xattn") * 2)
-    with pytest.raises(NotImplementedError, match="only attn/local"):
-        tparams.init_params(hybrid, torch.Generator(), "cpu")
-    # learned position embeddings (whisper's) wait for the encoder slice
-    learned = dataclasses.replace(cfg, pos_embed="learned")
-    with pytest.raises(NotImplementedError, match="learned position"):
-        tparams.init_params(learned, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="learned position"):
-        tlm.embed_inputs({"embed": torch.zeros(cfg.padded_vocab, cfg.d_model)},
-                         {"tokens": torch.zeros(1, 2, dtype=torch.long)},
-                         learned, ExecContext())
+    params = tparams.init_params(hybrid, torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="enc_out"):
+        tlm.prefill(params, {"tokens": torch.zeros(1, 2, dtype=torch.long)},
+                    hybrid, ExecContext())
     with pytest.raises(KeyError, match="not yet ported"):
-        TC.get_config("whisper-medium")
+        TC.get_config("whisper-large")
     with pytest.raises(ValueError, match="backend"):
         ExecContext(backend="xla")

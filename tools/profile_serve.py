@@ -7,15 +7,16 @@
     python3 tools/profile_serve.py --arch granite-moe-1b-a400m  # whole, 4096
     python3 tools/profile_serve.py --arch zamba2-2.7b  # whole, 4096
     python3 tools/profile_serve.py --arch deepseek-v3-671b  # 4 layers, 4096
+    python3 tools/profile_serve.py --arch whisper-medium --batch 4  # 432
 
 Builds ``--arch`` (gemma2-2b by default, or any arch of the port's
 registry) at full width with seeded random float32 weights, at
 ``--layers`` (default: all, or ``chip_smoke.py``'s cut of gemma3, phi3 and
 nemotron (phase 10) and deepseek-v3 (phase 13: 4 layers); a config's
 multi-token prediction modules are not built, as serving never reads
-them), with the reference launcher's vision-stub and M-RoPE
-inputs (``launch.serve.stub_inputs``) where the arch reads them, serves
-``--batch`` random prompts once to warm up, then traces the prefill and the
+them), with the reference launcher's audio frames, vision-stub and
+M-RoPE inputs (``launch.serve.stub_inputs``) where the arch reads them,
+serves ``--batch`` random prompts once to warm up, then traces the prefill and the
 ``--decode`` greedy decode steps with ``torch.profiler`` (two traces).  For
 each it reports the host wall time (ending in ``torch.cuda.synchronize()``),
 the device time summed over kernels, the device's busy share of the wall
@@ -73,7 +74,7 @@ DEFAULT_PROMPT = {"gemma2-2b": 4608, "falcon-mamba-7b": 4096,
                   "gemma3-27b": 4096, "qwen2-vl-2b": 4096,
                   "phi3-medium-14b": 2048, "nemotron-4-15b": 2048,
                   "granite-moe-1b-a400m": 4096, "zamba2-2.7b": 4096,
-                  "deepseek-v3-671b": 4096}
+                  "deepseek-v3-671b": 4096, "whisper-medium": 432}
 #: the layers kept by default (chip_smoke.py's cuts, phases 10 and 13; 0 =
 #: all)
 DEFAULT_LAYERS = {"gemma3-27b": 12, "phi3-medium-14b": 10,
@@ -231,7 +232,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)}
-    if cfg.vision_stub or cfg.pos_embed == "mrope":
+    if cfg.vision_stub or cfg.pos_embed == "mrope" or cfg.is_encdec:
         from repro_torch.launch.serve import stub_inputs
         batch.update(stub_inputs(cfg, args.batch, args.prompt_len, rng, dev))
     pre, dec = build_serve_steps(cfg, ExecContext(backend="cuda"),

@@ -1,7 +1,7 @@
 """Time the LM kernels (rmsnorm, gated, act, mamba, flash) on one card.
 
     python3 tools/time_lm_kernels.py [--src DIR] [--tag NAME] \
-        [--kernels rmsnorm,gated,act,mamba,flash,flash80,flash192]
+        [--kernels rmsnorm,gated,act,mamba,flash,flash80,flash192,flash64w]
 
 Builds the CUDA sources of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``) and, on seeded random float32 inputs,
@@ -41,6 +41,11 @@ written once, at 3.35 TB/s):
   output slice at the model's (B, S, H, ·) layouts timed.  A version of
   the package without the Dh 192 instantiation raises; leave ``flash192``
   out of ``--kernels`` for it.
+* ``flash64w``: ``flash_attention`` at whisper-medium's three attentions
+  at Dh 64 (``chip_smoke.WHISPER_ATTN_ROWS``: the encoder's (4, 16 / 16,
+  1500 × 1500) and the cross-attention's (4, 16 / 16, 432 × 1500), not
+  causal, the decoder's (4, 16 / 16, 432 × 432), causal), each beside
+  SDPA (``is_causal`` for the causal one only).
 
 ``--src`` may point at another checkout's ``src`` (one unpacked with ``git
 archive``), so two versions of the kernels compare within one call: run
@@ -63,8 +68,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (LM_TOL, PEAK_BYTES_PER_S,  # noqa: E402
-                        PEAK_SFU_PER_S, PEAK_TF32_PER_S, attn_bound,
-                        nvidia_smi, ptxas_report, time_ms)
+                        PEAK_SFU_PER_S, PEAK_TF32_PER_S, WHISPER_ATTN_ROWS,
+                        attn_bound, nvidia_smi, ptxas_report, time_ms)
 
 VVLS = (1, 2, 4, 8)
 #: rmsnorm shapes (d, tokens) of the two serving paths
@@ -84,7 +89,7 @@ ATTN80_SHAPE, PAD_DH = (2, 32, 32, 4096, 80), 128
 #: deepseek-v3-671b's MLA prefill: (B, Hq, Hkv, S, Dh) and V's own width
 ATTN192_SHAPE, V192 = (2, 128, 128, 4096, 192), 128
 KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash", "flash80",
-           "flash192")
+           "flash192", "flash64w")
 
 
 def main(argv=None) -> int:
@@ -342,6 +347,34 @@ def main(argv=None) -> int:
         rows.append(out)
         del vm, om
         torch.cuda.empty_cache()
+    if "flash64w" in todo:
+        for tag, b, hq, hkv, sq, sk, causal in WHISPER_ATTN_ROWS:
+            q = torch.randn(b, hq, sq, 64, device=dev, generator=g)
+            k, v = (torch.randn(b, hkv, sk, 64, device=dev, generator=g)
+                    for _ in range(2))
+
+            def call(causal=causal):
+                return flash_attention.flash_attention(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            got = call()
+            torch.cuda.synchronize()
+            out = {"name": f"flash {tag}", "shape": [b, hq, hkv, sq, sk, 64],
+                   "causal": causal,
+                   "max_abs_err": float((got - want).abs().max()),
+                   "bound_tf32x3_ms": attn_bound(b, hq, hkv, sq, sk, 64,
+                                                 causal, 0, split=3)[0]}
+            if not torch.allclose(got, want, **LM_TOL):
+                problems.append(f"flash {tag}: max |kernel - plain| = "
+                                f"{out['max_abs_err']}")
+            del got, want
+            out["ms"] = time_ms(call)
+            out["library_ms"] = time_ms(
+                lambda causal=causal: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal))
+            print(json.dumps(out), file=sys.stderr, flush=True)
+            rows.append(out)
+            del q, k, v
+            torch.cuda.empty_cache()
     result = {"tag": args.tag, "src": str(src), "nvidia_smi": smi,
               "device": torch.cuda.get_device_name(0), "build_s": build_s,
               "ptxas": ptxas, "rows": rows, "problems": problems}
