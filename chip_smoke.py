@@ -202,7 +202,7 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    chip_smoke.py --only training`` runs phases 1, 2 and 9 alone (no
    kernels line).
 
-10. the dense archs (``dense_archs_phase``): gemma3-27b (12 layers),
+10. the dense archs (``dense_archs_phase``): gemma3-27b (6 layers),
    qwen2-vl-2b (whole; 256 vision slots a prompt on a 16 × 16 (t, h, w)
    M-RoPE grid), phi3-medium-14b (10 layers) and nemotron-4-15b (8
    layers) at full width from seeded random float32 weights
@@ -311,6 +311,46 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    (1728, 4096) beside ``F.gelu(approximate="tanh")``.  ``python3
    chip_smoke.py --only whisper`` runs phases 1, 2, those rows and 14
    alone.
+
+15. bfloat16 parameters and caches (``bf16_phase``, ROADMAP A7.1): the
+   bfloat16 kernels first named on the card — bfloat16 into ``mamba``, an
+   LB kernel and kernel 4 at Dh 64 raise (``NotImplementedError`` /
+   ``ValueError``, A7.1b); gemma3-27b cut to 12 layers from seeded
+   bfloat16 weights served on the kernels and on the plain path, and the
+   same weights upcast to float32 on the float32 kernels: the kernels'
+   bfloat16 logits no further from the float32 run than
+   ``BF16_VS_F32_RATIO`` × the plain path's; gemma3-27b whole (62 layers,
+   54.0 GB of bfloat16 weights) served on the kernels with ring caches for
+   the local layers (2 × 4096 prompts, 16 greedy steps; launches held to
+   ``dense_expected``; once more under the profiler: the busy share) and
+   on the plain path (``attn_impl="chunked"``), the logits within
+   ``BF16_SERVE_BAR`` of the plain path's largest, greedy tokens equal
+   wherever the plain path's top-2 margin exceeds the logits' distance
+   (the exceptions counted); gemma2-2b whole trained through
+   ``Trainer(param_dtype="bfloat16")`` (``BF16_TRAIN_*``: 8 × 256 tokens
+   in two microbatches, layer remat), the loss falling, step 1 held to the
+   plain path at ``BF16_TRAIN_TOL`` leaf by leaf with the floor of
+   ``hold_leaves_to_floor`` (``BF16_LEAF_FLOOR``), ms a step, tokens/s,
+   the peak, one step under the profiler (``profile_train_step``); a
+   bfloat16 checkpoint (gemma2 SMOKE on the plain path, its Dh 16 having
+   no bfloat16 kernel 4; 3 steps) restored bit for bit.  The control of
+   these bars is the plain path with P rounded to bfloat16, as SDPA and
+   FlashAttention compute it (``p_rounded_attention``): it must fail step
+   1's loss bar and, at 12 layers, the hold of every kernel call on the
+   served model's own activations (``held_calls``), which the kernels
+   pass; the float32 run must fail the 12-layer logits bar.  Then
+   phase 5's rows in bfloat16 through ``dense_rows`` (``BF16_*_ROWS``:
+   rmsnorm, GeGLU and GELU at gemma3's and gemma2's shapes, kernel 4 at
+   gemma3's local and global layers, Dh 128, and gemma2's, Dh 256, softcap
+   50), each held to its plain version on the same bfloat16 inputs
+   (``bf16_close``: within one bfloat16 step, at most ``BF16_SHARE_BAR``
+   of the elements apart) against a control that must fail that bar
+   (``bf16_control``, ``p_rounded_attention``), timed beside it, its bound
+   (kernel 4's at ``BF16_ATTN_PER_FLOP``), the library call in bfloat16
+   (``F.rms_norm``, SDPA, which rounds P to bfloat16; recorded, not held)
+   and its registers and spills; their launches are the phase's.  Printed
+   as one ``{"bf16": ...}`` line.  ``python3 chip_smoke.py --only bf16``
+   runs phases 1, 2 and 15 alone.
 
 Prints the kernels line (none under ``--only``) and, last, ``{"ok": true,
 "device": {...}}``; exits
@@ -676,10 +716,12 @@ MOE_EW_ROWS = [("tdp_gathered.gated.granite_experts", "swiglu", True, 81920,
 MOE_ATTN_ROWS = [("granite", 2, 16, 8, 4096, 0, 64)]
 #: Phase 10, the dense archs served at full width: (layers kept, prompt
 #: length), 2 prompts each.  gemma3-27b's 62 layers (108 GB of float32
-#: weights) exceed a card: 12 layers are two whole 5:1 groups (25.5 GB).
-#: phi3 (58.6 GB) and nemotron (62.6 GB) would fit whole, but the plain
-#: path's comparison and the time budget take 10 and 8 layers.
-DENSE_SERVE = {"gemma3-27b": (12, 4096), "qwen2-vl-2b": (28, 4096),
+#: weights) exceed a card: 6 layers are one whole 5:1 group (15.5 GB; the
+#: time budget took it down from 12 when phase 15 served the model whole
+#: in bfloat16).  phi3 (58.6 GB) and nemotron (62.6 GB) would fit whole,
+#: but the plain path's comparison and the time budget take 10 and 8
+#: layers.
+DENSE_SERVE = {"gemma3-27b": (6, 4096), "qwen2-vl-2b": (28, 4096),
                "phi3-medium-14b": (10, 2048), "nemotron-4-15b": (8, 2048)}
 #: qwen2-vl's vision stub: a 16 × 16 patch grid (256 slots) a prompt, the
 #: first prompt's at slot 0, the second's after 100 text tokens
@@ -805,6 +847,78 @@ WHISPER_EW_ROWS = [("tdp_gathered.act.gelu_whisper_encoder", "gelu", False,
                     1728, 4096, 9)]
 
 
+#: Phase 15 (bfloat16).  gemma3-27b whole (62 layers): 2 prompts of 4096
+#: tokens, ring caches for the local layers; and cut to 12 layers (two 5:1
+#: groups) for the float32 comparison.
+BF16_ARCH, BF16_PROMPT, BF16_CMP_LAYERS = "gemma3-27b", 4096, 12
+#: the kernels' bfloat16 logits against the plain path's, by depth: at each
+#: step at most this share of the plain path's largest |logit|.  At 12
+#: layers between the kernels' largest reading (0.00190) and the float32
+#: run's (0.00259), which must fail it; at 62 layers 1.28 x the kernels'
+#: (0.00977).  The plain path with P rounded to bfloat16 lands at the
+#: kernels' distance at both depths (0.00167, 0.0100): the model's own
+#: bfloat16 rounding hides a one-rounding change, which the rows and the
+#: per-call holds (``held_calls``) reject instead (PERF.md §6)
+BF16_SERVE_BAR = {12: 0.0022, 62: 0.0125}
+#: decode steps traced for the whole model's busy share (each step of 62
+#: layers adds some 3 s of trace processing)
+BF16_BUSY_STEPS = 4
+#: at 12 layers: the kernels' bfloat16 distance from the float32 kernels
+#: on the same (upcast) weights, at most this times the plain path's
+BF16_VS_F32_RATIO = 1.5
+#: gemma2-2b whole trained in bfloat16 through the Trainer: steps, then
+#: (seq_len, global batch, microbatches)
+BF16_TRAIN_ARCH, BF16_TRAIN_STEPS, BF16_TRAIN_SHAPE = "gemma2-2b", 6, (256, 8, 2)
+#: step 1 on the kernels against the plain path, both in bfloat16: the
+#: loss between the kernels' reading (2.8e-5) and the control's (the plain
+#: path with P rounded to bfloat16, 9.1e-5), which must fail it; the
+#: gradient norm and the worst leaf a few times the kernels' (1.4e-5,
+#: 1.2e-3), where the control reads no more (1.8e-6, 1.6e-3)
+BF16_TRAIN_TOL = {"loss": 5e-5, "grad_norm": 5e-5, "leaf_grad_norm": 3e-3}
+#: a leaf whose move exceeds the leaf bar is held at this many times its
+#: move under the plain path with its norms rounded once more
+#: (``rounded_rmsnorm``), as phase 12's ``SSD_LEAF_FLOOR``
+BF16_LEAF_FLOOR = 4
+#: below this, bfloat16 outputs are held absolutely (float32's own error
+#: where a result cancels: gelu's tail)
+BF16_ATOL = 1e-5
+#: a bfloat16 kernel row: every element within one bfloat16 step of the
+#: plain version and at most this share of them on another bfloat16 value.
+#: A kernel that computes the plain version's float32 result up to a few
+#: ulps rounds it to the same value but where it lies that close to a
+#: rounding boundary (the rows: at most 7.0e-4 apart); a function one
+#: rounding away (P rounded to bfloat16, 1 + w rounded, an activation in
+#: bfloat16 arithmetic) moves 17.6-49 % of them (SDPA 40 %)
+BF16_SHARE_BAR = 0.01
+#: Phase 15's rows in bfloat16, as phase 5's (``dense_rows``): rmsnorm
+#: (suffix, d, tokens) at gemma3's prefill and decode and gemma2's
+#: prefill; GeGLU and GELU (name, kind, gated, tokens, d_ff, operations an
+#: element) at gemma3's and gemma2's; kernel 4 (tag, B, Hq, Hkv, S,
+#: window, Dh, softcap), causal: gemma3's local and global layers and
+#: gemma2's
+BF16_RMS_ROWS = [(".bf16_gemma3_d5376", 5376, 8192),
+                 (".bf16_gemma3_decode", 5376, 2),
+                 (".bf16_gemma2_d2304", 2304, 9216)]
+BF16_EW_ROWS = [("tdp_gathered.gated.bf16_gemma3_geglu", "geglu", True, 8192,
+                 21504, 10),
+                ("tdp_gathered.gated.bf16_gemma2_geglu", "geglu", True, 9216,
+                 9216, 10),
+                ("tdp_gathered.act.bf16_gemma2_gelu", "gelu", False, 9216,
+                 9216, 9)]
+BF16_ATTN_ROWS = [("bf16_gemma3_local", 2, 32, 16, 4096, 1024, 128, 0.0),
+                  ("bf16_gemma3_attn", 2, 32, 16, 4096, 0, 128, 0.0),
+                  ("bf16_gemma2_local", 2, 8, 4, 4608, 4096, 256, 50.0),
+                  ("bf16_gemma2_attn", 2, 8, 4, 4608, 0, 256, 50.0)]
+#: bfloat16 peak of the tensor cores, dense (data sheet)
+PEAK_BF16_PER_S = 989e12
+#: kernel 4's bound in bfloat16: seconds an operation of (q·k, p·v).  q·k
+#: on bfloat16 operands is exact in one bfloat16 ``mma``; p·v keeps P in
+#: float32 (the reference casts P to V's float32 copy), at the cheaper
+#: float32-faithful split: three bfloat16 pieces of P or two TF32 halves
+BF16_ATTN_PER_FLOP = (1 / PEAK_BF16_PER_S,
+                      min(3 / PEAK_BF16_PER_S, 2 / PEAK_TF32_PER_S))
+
+
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -828,7 +942,8 @@ def ptxas_report(logs: dict) -> list[dict]:
                 if lib == "flash_attention":
                     dh = re.search(r"flash_fwd_kernelILi(\d+)E", name)
                     entry = {"lib": lib, "site": "flash_attention",
-                             "head_dim": int(dh.group(1)) if dh else None}
+                             "head_dim": int(dh.group(1)) if dh else None,
+                             "dtype": "bf16" if "bf16" in name else "f32"}
                 elif lib == "tdp_gathered_example":
                     site = re.search(r"ex\d+(\w+?)Site", name)
                     vvl = re.search(r"Li(\d+)E", name)
@@ -845,7 +960,8 @@ def ptxas_report(logs: dict) -> list[dict]:
                 elif lib == "tdp_gathered_lm":
                     m = re.search(r"lm\d+(\w+?)Site(?:ILi(\d+)EE)?ELi(\d+)E",
                                   name)
-                    entry = {"lib": lib}
+                    entry = {"lib": lib,
+                             "dtype": "bf16" if "bf16" in name else "f32"}
                     # rmsnorm has two mappings: tiled (per VVL) and few-token
                     if "rms_few" in name:
                         entry.update({"site": "rmsnorm", "mapping": "few"})
@@ -1022,16 +1138,19 @@ def attn_live_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def attn_bound(b, hq, hkv, sq, sk, dh, causal, window, *,
-               split=None) -> tuple[float, str]:
-    """4·Dh operations per live pair (q·k and p·v): against the float32
-    peak of the CUDA cores, or with ``split`` as that many TF32 products on
-    the tensor cores (3 for 3xTF32); q/k/v read and o written once against
-    the memory rate."""
-    flops = 4 * dh * b * hq * attn_live_pairs(sq, sk, causal, window)
-    nbytes = 4 * dh * (2 * b * hq * sq + 2 * b * hkv * sk)
-    t_ops = (flops / PEAK_F32_PER_S if split is None
-             else split * flops / PEAK_TF32_PER_S) * 1e3
+def attn_bound(b, hq, hkv, sq, sk, dh, causal, window, *, split=None,
+               elem_bytes=4, per_flop=None) -> tuple[float, str]:
+    """2·Dh operations per live pair for q·k and as many for p·v: against
+    the float32 peak of the CUDA cores, with ``split`` as that many TF32
+    products on the tensor cores (3 for 3xTF32), or at ``per_flop``
+    (seconds an operation of q·k, of p·v); q/k/v read and o written once,
+    ``elem_bytes`` an element, against the memory rate."""
+    flops = 2 * dh * b * hq * attn_live_pairs(sq, sk, causal, window)
+    if per_flop is None:
+        c = 1 / PEAK_F32_PER_S if split is None else split / PEAK_TF32_PER_S
+        per_flop = (c, c)
+    nbytes = elem_bytes * dh * (2 * b * hq * sq + 2 * b * hkv * sk)
+    t_ops = flops * sum(per_flop) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1193,6 +1312,7 @@ def serve_run(params, cfg, backend: str, batch, drive=None, *,
     ``tag``.  ``attn_impl``: the plain attention's oracle
     (``ExecContext.attn_impl``)."""
     from repro_torch.models.context import ExecContext
+    from repro_torch.optim.tree import tree_leaves
     from repro_torch.runtime.steps import build_serve_steps
 
     pre, dec = build_serve_steps(cfg, ExecContext(backend=backend,
@@ -1226,6 +1346,8 @@ def serve_run(params, cfg, backend: str, batch, drive=None, *,
         t1 = time.perf_counter()
         out["tokens"].append(tok)
         out["logits"].append(logits[:, -1])
+        out["cache_dtypes"] = sorted({str(t.dtype)
+                                      for t in tree_leaves(caches)})
         drive(f"{cfg.name}{tag} decode x{SERVE_DECODE} ({backend})",
               lambda: decode((tok, caches, length)))
         torch.cuda.synchronize()
@@ -1292,9 +1414,9 @@ def vision_inputs(cfg, b: int, s: int, dev) -> dict:
             "positions3": torch.from_numpy(pos).to(dev)}
 
 
-def serve_busy(params, cfg, batch) -> dict:
-    """One more warm run on the kernels, its prefill and its
-    ``SERVE_DECODE`` decode steps each traced by ``torch.profiler``: the
+def serve_busy(params, cfg, batch, steps=SERVE_DECODE) -> dict:
+    """One more warm run on the kernels, its prefill and its ``steps``
+    decode steps each traced by ``torch.profiler``: the
     host wall ms (ending in ``torch.cuda.synchronize()``), the device ms
     (its kernels summed; one stream) and the device's busy share of the
     wall time."""
@@ -1321,13 +1443,13 @@ def serve_busy(params, cfg, batch) -> dict:
         return res
 
     def decode(tok, caches, length):
-        for _ in range(SERVE_DECODE):
+        for _ in range(steps):
             tok, caches, length, _ = dec(params, tok, caches, length)
         return tok
 
     with torch.inference_mode():
         tok, caches, length, _ = traced("prefill", lambda: pre(params, batch))
-        traced(f"decode x{SERVE_DECODE}",
+        traced(f"decode x{steps}",
                lambda: decode(tok, caches, length))
     return out
 
@@ -1406,42 +1528,73 @@ def serve_model(cfg, prompt_len: int, drive, problems: list, *,
 
 def lm_row(name, kernel_info, launch_key, kern, plain, lib, bound_ms_by,
            launches, launches_by_path, max_err, problems, record, *,
-           max_err_key=None, plain_reps=20, plain_wall=False) -> dict:
+           max_err_key=None, plain_reps=20, plain_wall=False, close=None,
+           readings=None, control=None, hold_library=True,
+           hold=HOLD_CYCLES) -> dict:
     """Phase 5 for one LM kernel: held to its plain version (and the library
     call to the plain version), then timed beside both and its bound; the
     plain version over ``plain_reps`` launches, by device time or, with
-    ``plain_wall``, by wall clock (``plain_timing`` in the row)."""
-    got, want = kern(), plain()
-    got = (got,) if isinstance(got, torch.Tensor) else tuple(got)
-    want = (want,) if isinstance(want, torch.Tensor) else tuple(want)
+    ``plain_wall``, by wall clock (``plain_timing`` in the row).  ``close``
+    (got, want) → bool holds each output, by default finite and within
+    ``LM_TOL``; ``readings`` (got, want) → dict is recorded for the kernel,
+    the library call and ``control``: another function on the same inputs,
+    which must fail ``close``.  ``hold_library=False`` records the library
+    call's distance without holding it.  ``hold``: ``time_ms``'s spin."""
+    def as_tuple(out):
+        return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+    def held(outs, want):
+        return all(close(a, b) for a, b in zip(outs, want))
+
+    def measure(outs, want):
+        if readings is None:
+            return {}
+        rs = [readings(a, b) for a, b in zip(outs, want)]
+        return {k: max(r[k] for r in rs) for k in rs[0]}
+    close = close or (lambda a, b: bool(torch.isfinite(a).all()
+                                        and torch.allclose(a, b, **LM_TOL)))
+    got, want = as_tuple(kern()), as_tuple(plain())
     torch.cuda.synchronize()
     err = max_abs(got, want)
-    if not all(torch.isfinite(a).all() and torch.allclose(a, b, **LM_TOL)
-               for a, b in zip(got, want)):
-        problems.append(f"{name} full width: max |kernel - plain| = {err}")
+    check = {"max_abs_err": err, **measure(got, want)}
+    if not held(got, want):
+        problems.append(f"{name} full width: max |kernel - plain| = {err} "
+                        f"{check}")
     key = max_err_key or name
     max_err[key] = max(max_err.get(key, 0.0), err)
+    del got
     library_ms = lib_err = None
     if lib is not None:
         lib_out = lib[1](lib[0]())
         torch.cuda.synchronize()
         lib_err = max_abs(lib_out, want)
-        if not all(torch.allclose(a, b, **LM_TOL) for a, b in zip(lib_out, want)):
+        check["library"] = {"max_abs_err": lib_err, **measure(lib_out, want),
+                            "held": held(lib_out, want)}
+        if hold_library and not check["library"]["held"]:
             problems.append(f"library call for {name}: max |library - plain| "
                             f"= {lib_err}")
         del lib_out
-    del got, want
+    if control is not None:
+        ctl = as_tuple(control())
+        check["control"] = {"max_abs_err": max_abs(ctl, want),
+                            **measure(ctl, want), "held": held(ctl, want)}
+        if check["control"]["held"]:
+            problems.append(f"{name}: the control passes the bar the kernel "
+                            f"is held to ({check['control']})")
+        del ctl
+    del want
     torch.cuda.empty_cache()
-    ms = time_ms(kern)
+    ms = time_ms(kern, hold=hold)
     plain_ms = (wall_ms(plain, reps=plain_reps) if plain_wall else
-                time_ms(plain, reps=plain_reps, warmup=min(3, plain_reps)))
+                time_ms(plain, reps=plain_reps, warmup=min(3, plain_reps),
+                        hold=hold))
     if lib is not None:
-        library_ms = time_ms(lib[0])
+        library_ms = time_ms(lib[0], hold=hold)
     b_ms, b_by = bound_ms_by
     record.setdefault("checks_full_width", {})[name] = {
-        "max_abs_err": err, "library_max_abs_err": lib_err}
+        **check, "library_max_abs_err": lib_err}
     log(f"phase 5: {name} ms={ms:.4f} plain={plain_ms:.4f} library={library_ms}"
-        f" bound={b_ms:.4f} err={err} library_err={lib_err}")
+        f" bound={b_ms:.4f} {json.dumps(check)}")
     return {"name": name, "route": "cuda", **kernel_info,
             "launches": launches[launch_key],
             "launches_by_path": launches_by_path[launch_key],
@@ -3206,9 +3359,10 @@ def training_grad_checks(problems, device="cuda") -> dict:
 
 
 def trainer_for(cfg, backend, ckpt_dir, steps, *, ckpt_every=0, seq_len=256,
-                batch=8, accum=2, device="cuda"):
+                batch=8, accum=2, device="cuda", param_dtype="float32"):
     """A ``Trainer`` the way ``launch.train`` builds one (its flags'
-    defaults, ``TRAIN_WARMUP``), for a config the CLI cannot name."""
+    defaults, ``TRAIN_WARMUP``), for a config the CLI cannot name or a
+    ``param_dtype`` it does not take."""
     from repro_torch.data import SyntheticConfig
     from repro_torch.models.context import ExecContext
     from repro_torch.optim import AdamWConfig
@@ -3218,7 +3372,7 @@ def trainer_for(cfg, backend, ckpt_dir, steps, *, ckpt_every=0, seq_len=256,
         AdamWConfig(), TrainHParams(warmup_steps=TRAIN_WARMUP,
                                     total_steps=steps, grad_accum=accum),
         TrainerConfig(ckpt_dir=str(ckpt_dir), ckpt_every=ckpt_every,
-                      log_every=1, log=log),
+                      log_every=1, log=log, param_dtype=param_dtype),
         ctx=ExecContext(backend=backend, remat="block"), device=device)
 
 
@@ -3259,8 +3413,8 @@ def first_step_leaf_norms():
 
 
 def hold_to_oracle(what, kern_hist, plain_hist, kern_leaves, plain_leaves,
-                   problems) -> dict:
-    """Step 1 on the kernels against the plain path at ``TRAIN_TOL``: the
+                   problems, tol=TRAIN_TOL) -> dict:
+    """Step 1 on the kernels against the plain path at ``tol``: the
     loss, the global gradient norm and the worst leaf's gradient norm."""
     k, p = kern_hist[0], plain_hist[0]
     res = {key: {"kernels": k[key], "plain": p[key],
@@ -3279,7 +3433,7 @@ def hold_to_oracle(what, kern_hist, plain_hist, kern_leaves, plain_leaves,
         "rel_diff_median": float(np.median(rel))}
     finite = all(math.isfinite(x) for x in
                  (k["loss"], k["grad_norm"], *kern_leaves["norms"]))
-    for key, rtol in TRAIN_TOL.items():
+    for key, rtol in tol.items():
         if not (finite and res[key]["rel_diff"] <= rtol):
             problems.append(f"{what}: step-1 {key} "
                             f"{res[key]['kernels']} on the kernels, "
@@ -3467,7 +3621,7 @@ def merge_training_launches(rows, by_path, training: dict) -> None:
 
 def dense_rows(launches, launches_by_path, max_err, problems, record, *,
                rms_rows=DENSE_RMS_ROWS, ew_rows=DENSE_EW_ROWS,
-               attn_rows=DENSE_ATTN_ROWS) -> list:
+               attn_rows=DENSE_ATTN_ROWS, dtype=torch.float32) -> list:
     """Phase 5, the dense archs' shapes (``DENSE_*_ROWS``, or granite's
     ``MOE_*_ROWS``): each kernel held
     to its plain version, then timed beside it, its bound and, where one
@@ -3475,16 +3629,29 @@ def dense_rows(launches, launches_by_path, max_err, problems, record, *,
     ``F.rms_norm``; ``scaled_dot_product_attention`` (``enable_gqa``),
     ``is_causal`` for a global layer and a boolean band mask for gemma3's
     window; none for SwiGLU (``silu(g) * u``: two calls) and squared ReLU
-    (``relu(x).square()``: two calls)."""
+    (``relu(x).square()``: two calls).  An attention row may end in a
+    softcap (no SDPA then).  In bfloat16 (phase 15's ``BF16_*_ROWS``) the
+    inputs are rounded to it, each row is held by ``bf16_close`` against a
+    control that must fail it (``bf16_control``), the library call, which
+    rounds otherwise, is recorded but not held, the bounds count 2 bytes
+    an element and kernel 4's work at ``BF16_ATTN_PER_FLOP``, and the
+    timings take the short spin (``SHORT_HOLD``) and no VVL sweep."""
     import torch.nn.functional as F
     from repro_torch.core import Target
     from repro_torch.core.api import launch_plan, torch_executor
     from repro_torch.kernels import flash_attention, lm, ref, tdp_pointwise
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
+    bf = dtype == torch.bfloat16
+    esize = torch.finfo(dtype).bits // 8
+    hold = (dict(close=bf16_close, readings=bf16_readings,
+                 hold_library=False, hold=SHORT_HOLD) if bf else {})
     rows = []
 
-    def pointwise_row(name, spec, xs, consts, nbytes, flops):
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+
+    def pointwise_row(name, spec, xs, consts, nbytes, flops, control):
         plan = launch_plan(spec, Target("cuda", vvl=1), consts=consts)
         t_b = nbytes / PEAK_BYTES_PER_S * 1e3
         t_o = flops / PEAK_F32_PER_S * 1e3
@@ -3496,36 +3663,38 @@ def dense_rows(launches, launches_by_path, max_err, problems, record, *,
             lm_library_call(name, xs, consts),
             (t_b, "bytes") if t_b >= t_o else (t_o, "operations"),
             launches, launches_by_path, max_err, problems, record,
-            max_err_key=kernel)
+            max_err_key=kernel, control=control if bf else None, **hold)
         row["shape"] = list(xs[0].shape)
-        row["ms_by_vvl"] = {vvl: time_ms(lambda p=launch_plan(
-            spec, Target("cuda", vvl=vvl), consts=consts):
-            tdp_pointwise.cuda_execute(p, xs)) for vvl in (1, 2, 4, 8)}
-        log(f"phase 5: {name} ms by VVL {row['ms_by_vvl']}")
+        if not bf:
+            row["ms_by_vvl"] = {vvl: time_ms(lambda p=launch_plan(
+                spec, Target("cuda", vvl=vvl), consts=consts):
+                tdp_pointwise.cuda_execute(p, xs)) for vvl in (1, 2, 4, 8)}
+            log(f"phase 5: {name} ms by VVL {row['ms_by_vvl']}")
         rows.append(row)
         torch.cuda.empty_cache()
 
     for suffix, d, ntok in rms_rows:
+        x, w = randn(d, ntok), randn(d)
         pointwise_row("tdp_gathered.rmsnorm" + suffix, lm.rmsnorm_spec(d),
-                      [torch.randn(d, ntok, device=dev, generator=g)],
-                      {"weight": torch.randn(d, device=dev, generator=g),
-                       "eps": 1e-6, "scale_offset": 1.0},
-                      8 * d * ntok + 4 * d, 5 * d * ntok)
+                      [x], {"weight": w, "eps": 1e-6, "scale_offset": 1.0},
+                      esize * (2 * d * ntok + d), 5 * d * ntok,
+                      lambda x=x, w=w: bf16_control("rmsnorm", x, w))
+        del x
     for name, kind, gated, ntok, nff, ops_per in ew_rows:
         n = ntok * nff
-        xs = [3.0 * torch.randn(1, n, device=dev, generator=g)]
-        if gated:
-            xs.append(torch.randn(1, n, device=dev, generator=g))
+        xs = [randn(1, n, scale=3.0)] + ([randn(1, n)] if gated else [])
         pointwise_row(name, lm.gated_act_spec(kind, gated), xs, {},
-                      4 * n * (len(xs) + 1), ops_per * n)
+                      esize * n * (len(xs) + 1), ops_per * n,
+                      lambda xs=xs, kind=kind: bf16_control(kind, *xs))
         rows[-1]["shape"] = [ntok, nff]
         del xs
-    for tag, b, hq, hkv, sq, window, dh in attn_rows:
-        q = torch.randn(b, hq, sq, dh, device=dev, generator=g)
-        k, v = (torch.randn(b, hkv, sq, dh, device=dev, generator=g)
-                for _ in range(2))
-        kw = dict(causal=True, window=window, softcap=0.0)
-        if window:
+    for tag, b, hq, hkv, sq, window, dh, *cap in attn_rows:
+        q = randn(b, hq, sq, dh)
+        k, v = randn(b, hkv, sq, dh), randn(b, hkv, sq, dh)
+        kw = dict(causal=True, window=window, softcap=cap[0] if cap else 0.0)
+        if kw["softcap"]:
+            lib = None
+        elif window:
             i = torch.arange(sq, device=dev)
             band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
             lib = ((lambda q=q, k=k, v=v, band=band:
@@ -3543,13 +3712,19 @@ def dense_rows(launches, launches_by_path, max_err, problems, record, *,
             lambda q=q, k=k, v=v, kw=kw: flash_attention.flash_attention(
                 q, k, v, **kw),
             lambda q=q, k=k, v=v, kw=kw: ref.attention_ref(q, k, v, **kw),
-            lib, attn_bound(*shape, split=flash_attention.TF32_SPLIT),
+            lib, attn_bound(*shape, elem_bytes=2, per_flop=BF16_ATTN_PER_FLOP)
+            if bf else attn_bound(*shape, split=flash_attention.TF32_SPLIT),
             launches, launches_by_path, max_err, problems, record,
-            max_err_key="flash_attention"))
-        rows[-1]["shape"] = [b, hq, hkv, sq, dh, window]
-        record.setdefault("bound_fp32_ms", {})[name] = attn_bound(*shape)[0]
+            max_err_key="flash_attention",
+            control=(lambda q=q, k=k, v=v, kw=kw: p_rounded_attention(
+                q, k, v, **kw)) if bf else None, **hold))
+        rows[-1]["shape"] = [b, hq, hkv, sq, dh, window, *cap]
+        if not bf:
+            record.setdefault("bound_fp32_ms", {})[name] = attn_bound(*shape)[0]
         del q, k, v, lib
         torch.cuda.empty_cache()
+    for row in rows:
+        row["dtype"] = str(dtype).removeprefix("torch.")
     return rows
 
 
@@ -4135,16 +4310,17 @@ def rounded_rmsnorm():
 
 
 def hold_leaves_to_floor(what, kern_hist, plain_hist, kern_leaves,
-                         plain_leaves, floor_leaves, problems) -> dict:
+                         plain_leaves, floor_leaves, problems, *,
+                         tol=TRAIN_TOL, floor_factor=SSD_LEAF_FLOOR) -> dict:
     """``hold_to_oracle`` (step 1's loss and global gradient norm at
-    ``TRAIN_TOL``), with each leaf's gradient norm held at
-    ``TRAIN_TOL["leaf_grad_norm"]`` or, where that leaf moves more than it
+    ``tol``), with each leaf's gradient norm held at
+    ``tol["leaf_grad_norm"]`` or, where that leaf moves more than it
     under a rounding of the norms' outputs (``floor_leaves``: the plain
-    path with ``rounded_rmsnorm``), at ``SSD_LEAF_FLOOR`` times its move
+    path with ``rounded_rmsnorm``), at ``floor_factor`` times its move
     there."""
     held: list = []
     res = hold_to_oracle(what, kern_hist, plain_hist, kern_leaves,
-                         plain_leaves, held)
+                         plain_leaves, held, tol)
     problems += [p for p in held if "leaf_grad_norm" not in p]
     if "leaf_grad_norm" not in res:
         problems += held
@@ -4160,16 +4336,14 @@ def hold_leaves_to_floor(what, kern_hist, plain_hist, kern_leaves,
                                       plain_leaves["norms"])]
     floor = [rel(a, b) for a, b in zip(floor_leaves["norms"],
                                        plain_leaves["norms"])]
-    bars = [max(TRAIN_TOL["leaf_grad_norm"], SSD_LEAF_FLOOR * f)
-            for f in floor]
+    bars = [max(tol["leaf_grad_norm"], floor_factor * f) for f in floor]
     over = [i for i, (k, b) in enumerate(zip(kern, bars))
             if not (math.isfinite(k) and k <= b)]
     worst = int(np.argmax([k / b for k, b in zip(kern, bars)]))
     res["leaf_grad_norm"].update(
         floor_rel_diff_worst=max(floor),
         floor_rel_diff_median=float(np.median(floor)),
-        leaves_above_train_tol=sum(k > TRAIN_TOL["leaf_grad_norm"]
-                                   for k in kern),
+        leaves_above_train_tol=sum(k > tol["leaf_grad_norm"] for k in kern),
         worst_vs_bar={"leaf": kern_leaves["names"][worst],
                       "rel_diff": kern[worst], "floor": floor[worst],
                       "bar": bars[worst]})
@@ -4761,11 +4935,514 @@ def whisper_phase(drive, by_path, problems, device="cuda") -> dict:
     return out
 
 
+def bf16_readings(got, want) -> dict:
+    """bfloat16 ``got`` against ``want``: the largest distance in bfloat16
+    steps (the spacing at ``want``, 2^-7 of its binade, or ``BF16_ATOL``
+    where that is smaller) and the share of elements on another value."""
+    g, w = got.float(), want.float()
+    exp = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    step = torch.exp2(exp - 7).clamp_min(BF16_ATOL)
+    return {"max_bf16_steps": float(((g - w).abs() / step).max()),
+            "share_apart": float((g != w).float().mean())}
+
+
+def bf16_close(got, want) -> bool:
+    """bfloat16 ``got`` finite, every element within one bfloat16 step of
+    ``want`` and at most ``BF16_SHARE_BAR`` of them apart: a kernel and its
+    plain version compute float32 results a few ulps apart, which land on
+    the same bfloat16 value but near a rounding boundary."""
+    r = bf16_readings(got, want)
+    return bool(got.dtype == want.dtype == torch.bfloat16
+                and torch.isfinite(got).all() and r["max_bf16_steps"] <= 1
+                and r["share_apart"] <= BF16_SHARE_BAR)
+
+
+def bf16_control(kind, x, y=None):
+    """The control of a bfloat16 kernel 2a row: its function one rounding
+    away, which ``bf16_close`` must reject — RMSNorm of ``x (d, tokens)``
+    scaled by ``1 + w`` rounded to bfloat16 (as ``F.rms_norm`` takes it),
+    or the activation computed in bfloat16 arithmetic, its product with
+    ``y`` rounded once more (as eager bfloat16 PyTorch computes it)."""
+    from repro_torch.kernels import ref
+    if kind == "rmsnorm":
+        w1 = (y.float() + 1.0).to(torch.bfloat16)
+        return ref.rmsnorm_ref(x.T, w1).T
+    if kind in ("gelu", "geglu"):
+        c = math.sqrt(2 / math.pi)
+        a = 0.5 * x * (1 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+    elif kind in ("silu", "swiglu"):
+        a = x * torch.sigmoid(x)
+    else:
+        raise ValueError(f"no bfloat16 control for {kind!r}")
+    return a if y is None else a * y
+
+
+def p_rounded_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        scale=None, block=512):
+    """``ref.attention_ref`` with P rounded to bfloat16 before P·V, as SDPA
+    and FlashAttention compute in bfloat16 where the reference keeps P in
+    float32: the control of kernel 4's bfloat16 bars.  ``block`` query
+    rows at a time, so that its scores fit beside gemma3's weights."""
+    hq, sq, dh = q.shape[1:]
+    group = hq // k.shape[1]
+    scale = dh ** -0.5 if scale is None else scale
+    kr, vr = (t.repeat_interleave(group, 1).float() for t in (k, v))
+    kpos = torch.arange(k.shape[2], device=q.device)
+    outs = []
+    for i in range(0, sq, block):
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i:i + block].float(),
+                         kr) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        qpos = torch.arange(i, i + s.shape[2], device=q.device)[:, None]
+        live = torch.ones_like(s[0, 0], dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window > 0:
+            live &= kpos > qpos - window
+        p = torch.softmax(s.masked_fill(~live, -1e30), -1)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd",
+                                 p.to(torch.bfloat16).float(), vr))
+    return torch.cat(outs, 2).to(q.dtype)
+
+
+@contextlib.contextmanager
+def held_calls(attention=None):
+    """Yields a dict that gets, for each of ``ops.flash_attention``,
+    ``ops.rmsnorm`` and ``ops.gated_act`` called in the block, its calls,
+    the worst ``bf16_readings`` of its output against the plain version's
+    (``target="torch"``, attention ``"chunked"``) on the same inputs, and
+    whether ``bf16_close`` held at every call: a served model's kernels held
+    on its own activations, layer by layer.  ``attention`` (q, k, v, **kw)
+    computes the attention the block runs in place of the op: phase 15's
+    control, ``p_rounded_attention``, which must fail the hold."""
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n)
+             for n in ("flash_attention", "rmsnorm", "gated_act")}
+    store: dict = {}
+
+    def wrap(name):
+        op = saved[name]
+
+        def held(*args, **kw):
+            if name == "flash_attention" and attention is not None:
+                out = attention(*args, **{k: kw[k] for k in (
+                    "causal", "window", "softcap", "scale") if k in kw})
+            else:
+                out = op(*args, **kw)
+            plain = dict(kw, target="torch")
+            if name == "flash_attention":
+                plain["impl"] = "chunked"
+            with torch.no_grad():
+                want = op(*args, **plain)
+                got = out.detach()
+            st = store.setdefault(name, {"calls": 0, "close": True,
+                                         "max_bf16_steps": 0.0,
+                                         "share_apart": 0.0})
+            st["calls"] += 1
+            st["close"] &= bf16_close(got, want)
+            for k, v in bf16_readings(got, want).items():
+                st[k] = max(st[k], v)
+            return out
+        return held
+    for n in saved:
+        setattr(ops, n, wrap(n))
+    try:
+        yield store
+    finally:
+        for n, f in saved.items():
+            setattr(ops, n, f)
+
+
+def bf16_named_raises(problems) -> dict:
+    """bfloat16 where the port has no bfloat16 kernel yet (A7.1b), on the
+    card: ``mamba`` and an LB kernel raise ``NotImplementedError``, kernel 4
+    at Dh 64 ``ValueError``, each naming A7.1b; no launch."""
+    from repro_torch.kernels import flash_attention, lb_collision, ops
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    out = {}
+    z = torch.zeros
+    cases = {
+        "mamba": (NotImplementedError, lambda: ops.mamba_scan(
+            z(1, 8, 64, dtype=bf, device=dev), z(1, 8, 64, dtype=bf, device=dev),
+            z(1, 8, 16, dtype=bf, device=dev), z(1, 8, 16, dtype=bf, device=dev),
+            z(64, 16, dtype=bf, device=dev), z(64, dtype=bf, device=dev))),
+        "lb_collision": (NotImplementedError, lambda: lb_collision.lb_collision(
+            *(z(c, 64, dtype=bf, device=dev) for c in (19, 19, 1, 3, 1)))),
+        "flash_attention_dh64": (ValueError, lambda: flash_attention.flash_attention(
+            *(z(1, 2, 8, 64, dtype=bf, device=dev) for _ in range(3))))}
+    for name, (exc, fn) in cases.items():
+        try:
+            fn()
+            out[name] = "no error"
+        except exc as e:
+            out[name] = f"{type(e).__name__}: {e}"
+        if "A7.1b" not in out[name]:
+            problems.append(f"phase 15: bfloat16 into {name} gave "
+                            f"{out[name]!r}, not the named A7.1b error")
+    return out
+
+
+def logits_distance(a: dict, b: dict) -> float:
+    """The largest |logit| difference of two served runs over the steps
+    while their greedy tokens agree (the prefill's always)."""
+    d = 0.0
+    for la, lb, ta, tb in zip(a["logits"], b["logits"], a["tokens"],
+                              b["tokens"]):
+        d = max(d, float((la.float() - lb.float()).abs().max()))
+        if not torch.equal(ta, tb):
+            break
+    return d
+
+
+def bf16_compare(kern: dict, plain: dict, problems: list, what: str,
+                 layers: int) -> dict:
+    """Each step's logits within ``BF16_SERVE_BAR[layers]`` of the plain
+    path's largest |logit|; greedy tokens equal wherever the plain path's
+    top-2 margin exceeds the step's logits distance, the exceptions
+    (near-ties the distance covers) counted; the comparison stops where the
+    streams part."""
+    bar = BF16_SERVE_BAR[layers]
+    steps, near_ties = [], 0
+    for i, (lk, lp, tk, tp) in enumerate(zip(kern["logits"], plain["logits"],
+                                             kern["tokens"], plain["tokens"])):
+        d = lk.float() - lp.float()
+        diff = float(d.abs().max())
+        scale = float(lp.float().abs().max())
+        top2 = torch.topk(lp.float(), 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu()
+        same = (tk.cpu() == tp.cpu()).reshape(-1)
+        near_ties += int((~same & (margin <= diff)).sum())
+        steps.append({"step": i, "max_abs_logit_diff": diff,
+                      "rms_logit_diff": float(d.square().mean().sqrt()),
+                      "max_abs_logit": scale, "rel": diff / scale,
+                      "min_top2_margin": float(margin.min()),
+                      "tokens_equal": bool(same.all())})
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            problems.append(f"{what} step {i}: non-finite logits")
+        if diff > bar * scale:
+            problems.append(f"{what} step {i}: logits differ by {diff}, over "
+                            f"{bar} of {scale}")
+        if bool((~same & (margin > diff)).any()):
+            problems.append(f"{what} step {i}: greedy tokens differ where the "
+                            f"margin exceeds the logits' distance {diff}")
+        if not bool(same.all()):
+            break
+    return {"bar": bar, "max_rel": max(st["rel"] for st in steps),
+            "near_tie_exceptions": near_ties, "steps": steps}
+
+
+def bf16_serve(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 15's serving (see the module docstring): gemma3 at
+    ``BF16_CMP_LAYERS`` layers against the float32 kernels, each kernel
+    call held to its plain version on the model's own activations
+    (``held_calls``) and a control (the plain path with P rounded to
+    bfloat16) shown to fail that hold; then whole; each path's launches
+    held to ``dense_expected``.  The float32 run must fail the 12-layer
+    logits bar; the P-rounded control's logits are recorded beside the
+    kernels' at both depths (they land at the model's own bfloat16 noise,
+    PERF.md §6)."""
+    from repro_torch import configs
+    from repro_torch.models import params as model_params
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    t_serve = time.perf_counter()
+    dev, bf = torch.device(device), torch.bfloat16
+    full = configs.get_config(BF16_ARCH)
+    cut = configs.first_layers(full, BF16_CMP_LAYERS)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, full.vocab_size, (SERVE_BATCH, BF16_PROMPT))).to(dev)}
+    out = {}
+    tags = {cut.n_layers: f" bf16 x{cut.n_layers}", full.n_layers: " bf16"}
+
+    def control(params, cfg):
+        with held_calls(attention=p_rounded_attention) as held:
+            return serve_run(params, cfg, "torch", batch,
+                             local_ring=True), held
+
+    # the cut model: bfloat16 kernels (each call held) and plain path, the
+    # control, then the same values upcast to float32 on the float32
+    # kernels
+    torch.cuda.empty_cache()
+    p16 = model_params.init_params(
+        cut, torch.Generator(device=dev).manual_seed(1), dev, bf)
+    with held_calls() as held:
+        k16 = serve_run(p16, cut, "cuda", batch, drive, local_ring=True,
+                        tag=tags[cut.n_layers])
+    pl16 = serve_run(p16, cut, "torch", batch, drive, local_ring=True,
+                     tag=tags[cut.n_layers], attn_impl="chunked")
+    ctl16, ctl_held = control(p16, cut)
+    p32 = tree_map(lambda t: t.float(), p16)
+    del p16
+    k32 = serve_run(p32, cut, "cuda", batch, local_ring=True)
+    del p32
+    torch.cuda.empty_cache()
+    kern_d, plain_d = logits_distance(k16, k32), logits_distance(pl16, k32)
+    f32_fails: list = []
+    out[f"x{cut.n_layers}_vs_float32"] = {
+        "layers": cut.n_layers, "kernels_bf16_vs_f32": kern_d,
+        "plain_bf16_vs_f32": plain_d, "ratio": kern_d / plain_d,
+        "bar": BF16_VS_F32_RATIO,
+        "kernels_vs_plain": bf16_compare(
+            k16, pl16, problems, f"phase 15 {cut.name} x{cut.n_layers}",
+            cut.n_layers),
+        "float32_vs_plain": bf16_compare(k32, pl16, f32_fails, "float32",
+                                         cut.n_layers),
+        "control_vs_plain": bf16_compare(ctl16, pl16, [], "control",
+                                         cut.n_layers),
+        "calls_held": held, "control_calls_held": ctl_held}
+    if not f32_fails:
+        problems.append(f"phase 15 {cut.name} x{cut.n_layers}: the float32 "
+                        f"run passes the bfloat16 logits bar "
+                        f"{BF16_SERVE_BAR[cut.n_layers]}")
+    if not (set(held) == {"flash_attention", "rmsnorm", "gated_act"}
+            and all(h["close"] for h in held.values())):
+        problems.append(f"phase 15 {cut.name} x{cut.n_layers}: a kernel "
+                        f"call of the served model is not within the "
+                        f"bfloat16 bar of its plain version: {held}")
+    if ctl_held.get("flash_attention", {}).get("close", True):
+        problems.append(f"phase 15 {cut.name} x{cut.n_layers}: the control "
+                        f"(P rounded to bfloat16) passes the per-call hold: "
+                        f"{ctl_held}")
+    if not kern_d <= BF16_VS_F32_RATIO * plain_d:
+        problems.append(f"phase 15 {cut.name} x{cut.n_layers}: the kernels' "
+                        f"bfloat16 logits are {kern_d} from the float32 "
+                        f"run, over {BF16_VS_F32_RATIO} x the plain path's "
+                        f"{plain_d}")
+    del k16, pl16, k32, ctl16
+    log(f"phase 15: x{cut.n_layers} served "
+        f"{time.perf_counter() - t_serve:.1f} s")
+
+    # whole: 62 layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_params.init_params(
+        full, torch.Generator(device=dev).manual_seed(0), dev, bf)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) / 1e9
+    kern = serve_run(params, full, "cuda", batch, drive, local_ring=True,
+                     tag=tags[full.n_layers])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    plain = serve_run(params, full, "torch", batch, drive, local_ring=True,
+                      tag=tags[full.n_layers], attn_impl="chunked")
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 15: whole served {time.perf_counter() - t_serve:.1f} s")
+    ctl, _ = control(params, full)
+    log(f"phase 15: whole control {time.perf_counter() - t_serve:.1f} s")
+    busy = serve_busy(params, full, batch, steps=BF16_BUSY_STEPS)
+    log(f"phase 15: whole busy {time.perf_counter() - t_serve:.1f} s")
+    cache_dtypes = kern["cache_dtypes"]
+    del params
+    torch.cuda.empty_cache()
+    out["whole"] = {
+        "layers": full.n_layers, "params": full.num_params(),
+        "weights_gb": weights_gb, "init_params_s": init_s,
+        "prompt": [SERVE_BATCH, BF16_PROMPT], "decode_steps": SERVE_DECODE,
+        "prefill_ms": kern["prefill_ms"],
+        "prefill_tokens_per_s":
+            SERVE_BATCH * BF16_PROMPT / kern["prefill_ms"] * 1e3,
+        "decode_ms_per_step": kern["decode_ms_per_step"],
+        "plain_prefill_ms": plain["prefill_ms"],
+        "plain_decode_ms_per_step": plain["decode_ms_per_step"],
+        "peak_memory_gb_kernels": peak_gb,
+        "peak_memory_gb_plain": plain_peak_gb, "device_busy": busy,
+        "cache_dtypes": cache_dtypes,
+        "kernels_vs_plain": bf16_compare(kern, plain, problems,
+                                         f"phase 15 {full.name}",
+                                         full.n_layers),
+        "control_vs_plain": bf16_compare(ctl, plain, [], "control",
+                                         full.n_layers)}
+    if cache_dtypes != ["torch.bfloat16"]:
+        problems.append(f"phase 15 {full.name}: caches of {cache_dtypes}")
+    for c in (cut, full):
+        pre, dec = dense_expected(c)
+        name = f"{c.name}{tags[c.n_layers]}"
+        for p, want in ((f"{name} prefill (cuda)", pre),
+                        (f"{name} decode x{SERVE_DECODE} (cuda)", dec)):
+            if by_path.get(p) != want:
+                problems.append(f"phase 15 {p}: launches {by_path.get(p)}, "
+                                f"expected {want}")
+        for p in (f"{name} prefill (torch)",
+                  f"{name} decode x{SERVE_DECODE} (torch)"):
+            if by_path.get(p):
+                problems.append(f"phase 15 {p}: the plain path launched "
+                                f"{by_path[p]}")
+    return out
+
+
+def bf16_train(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 15's training (see the module docstring): gemma2-2b whole
+    through ``Trainer(param_dtype="bfloat16")`` on the kernels, step 1 on
+    the plain path, on the plain path with its norms rounded once more
+    (each leaf's floor) and with P rounded to bfloat16 (the control, which
+    must fail step 1's bars), then a bfloat16 checkpoint of gemma2's smoke model
+    restored."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.optim.tree import tree_leaves
+    t_train = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    cfg = configs.get_config(BF16_TRAIN_ARCH)
+    seq, gbatch, accum = BF16_TRAIN_SHAPE
+
+    def run(backend, steps, path, suffix, profile=False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer_for(cfg, backend, tmp + suffix, steps, seq_len=seq,
+                         batch=gbatch, accum=accum, device=device,
+                         param_dtype="bfloat16")
+        dtypes = sorted({str(p.dtype) for p in tree_leaves(tr.params)})
+        hist = list(drive(path, lambda: tr.run(steps)))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = profile_train_step(tr) if profile else None   # one more step
+        del tr
+        return hist, peak, dtypes, prof
+
+    path = f"{cfg.name} bf16 train {BF16_TRAIN_STEPS} steps (cuda)"
+    with first_step_leaf_norms() as leaves:
+        hist, peak_gb, dtypes, prof = run("cuda", BF16_TRAIN_STEPS, path, "",
+                                          profile=True)
+    log(f"phase 15: trained on the kernels {time.perf_counter() - t_train:.1f} s")
+    plain_path = f"{cfg.name} bf16 train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves:
+        plain_hist, plain_gb, _, _ = run("torch", 1, plain_path, "_plain")
+    with first_step_leaf_norms() as floor_leaves, rounded_rmsnorm():
+        run("torch", 1, plain_path + " rounded norms", "_floor")
+    with first_step_leaf_norms() as ctl_leaves, held_calls(
+            attention=p_rounded_attention):
+        ctl_hist = run("torch", 1, plain_path + " P rounded", "_ctl")[0]
+    log(f"phase 15: trained {time.perf_counter() - t_train:.1f} s")
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "param_dtypes": dtypes, "steps": len(hist), "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist],
+           "step_ms_median_from_2": step_ms,
+           "tokens_per_s": seq * gbatch / step_ms * 1e3,
+           "peak_memory_gb": peak_gb, "plain_step1_ms": plain_hist[0]["ms"],
+           "plain_peak_memory_gb": plain_gb, "tolerance": BF16_TRAIN_TOL,
+           "profile": prof,
+           "launches": {f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    out["step1_vs_plain"] = hold_leaves_to_floor(
+        f"phase 15 {cfg.name} bf16", hist, plain_hist, leaves, plain_leaves,
+        floor_leaves, problems, tol=BF16_TRAIN_TOL,
+        floor_factor=BF16_LEAF_FLOOR)
+    ctl_fails: list = []
+    out["control_step1_vs_plain"] = hold_leaves_to_floor(
+        "control", ctl_hist, plain_hist, ctl_leaves, plain_leaves,
+        floor_leaves, ctl_fails, tol=BF16_TRAIN_TOL,
+        floor_factor=BF16_LEAF_FLOOR)
+    out["control_step1_vs_plain"]["fails"] = ctl_fails[:3]
+    if not ctl_fails:
+        problems.append(f"phase 15 {cfg.name} bf16: the control (P rounded "
+                        f"to bfloat16) passes step 1's bars")
+    half = BF16_TRAIN_STEPS // 2
+    if dtypes != ["torch.bfloat16"] or len(hist) != BF16_TRAIN_STEPS or not (
+            np.mean(losses[half:]) < np.mean(losses[:half])):
+        problems.append(f"phase 15 {cfg.name} bf16 training: parameters "
+                        f"{dtypes}, {len(hist)} of {BF16_TRAIN_STEPS} steps, "
+                        f"or the loss did not fall: {losses}")
+    micro = BF16_TRAIN_STEPS * accum
+    want = {e: micro * (2 * n * cfg.n_layers + (e[1] == "rmsnorm"))
+            for e, n in TRAIN_NEEDS[BF16_TRAIN_ARCH].items()}
+    if by_path[path] != want:
+        problems.append(f"phase 15 {path}: launches {by_path[path]}, "
+                        f"expected {want}")
+    for p in (plain_path, plain_path + " rounded norms",
+              plain_path + " P rounded"):
+        if by_path[p]:
+            problems.append(f"phase 15 {p}: the plain path launched "
+                            f"{by_path[p]}")
+
+    # a bfloat16 checkpoint (raw bytes) of the smoke model on the card,
+    # written and restored bit for bit; on the plain path, as its head dim
+    # (16) has no bfloat16 kernel 4 (A7.1b)
+    small = configs.get_smoke(BF16_TRAIN_ARCH)
+    a = trainer_for(small, "torch", tmp + "_ckpt", 3, ckpt_every=3,
+                    seq_len=64, device=device, param_dtype="bfloat16")
+    drive(f"{small.name} bf16 smoke train 3 steps (torch)", lambda: a.run(3))
+    a.ckpt.wait()
+    b = trainer_for(small, "torch", tmp + "_ckpt", 3, ckpt_every=3,
+                    seq_len=64, device=device, param_dtype="bfloat16")
+    restored = b.restore_latest()
+    same = restored and b.step == 3 and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(
+            tree_leaves({"p": a.params, "m": a.opt_state["m"],
+                         "v": a.opt_state["v"]}),
+            tree_leaves({"p": b.params, "m": b.opt_state["m"],
+                         "v": b.opt_state["v"]})))
+    out["checkpoint"] = {"config": small.name, "step": b.step,
+                         "bit_equal": bool(same)}
+    if not same:
+        problems.append(f"phase 15: the bfloat16 checkpoint of {small.name} "
+                        f"was not restored bit for bit (step {b.step})")
+    del a, b
+    for suffix in ("", "_plain", "_floor", "_ctl", "_ckpt"):
+        shutil.rmtree(tmp + suffix, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_phase(drive, by_path, problems, device="cuda", ptxas=()) -> dict:
+    """Phase 15 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    before = set(by_path)
+    out = {"named_raises": bf16_named_raises(problems)}
+    # the ungated GELU (no model of the phase has one) through its entry
+    # point, at gemma2's MLP activations
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=device).manual_seed(16)
+    h = torch.randn(SERVE_BATCH * SERVE_PROMPT, 9216, device=device,
+                    generator=g).to(torch.bfloat16)
+    act = drive("ops.gated_act ungated gelu bf16",
+                lambda: ops.gated_act(h, None, kind="gelu", device=device))
+    if not (act.dtype == torch.bfloat16
+            and bf16_close(act, ref.gated_act_ref(h, kind="gelu"))):
+        problems.append("phase 15 ops.gated_act ungated gelu: bfloat16 kernel "
+                        "and plain version disagree")
+    del h, act
+    out["serving"] = bf16_serve(drive, by_path, problems, device)
+    log(f"phase 15: serving {json.dumps(out['serving'], default=str)}")
+    out["training"] = bf16_train(drive, by_path, problems, device)
+    out["paths"] = [p for p in by_path if p not in before]
+    entries = [("tdp_gathered", s) for s in ("rmsnorm", "gated", "act")] + [
+        ("flash_attention", "flash_attention")]
+    launches = {e: sum(by_path[p].get(e, 0) for p in out["paths"])
+                for e in entries}
+    launches_by_path = {e: {p: by_path[p][e] for p in out["paths"]
+                            if by_path[p].get(e)} for e in entries}
+    for e, n in launches.items():
+        if not n:
+            problems.append(f"phase 15: {e[0]}.{e[1]} was not launched in "
+                            f"bfloat16 on the main path")
+    out["rows"] = dense_rows(launches, launches_by_path, {}, problems, out,
+                             rms_rows=BF16_RMS_ROWS, ew_rows=BF16_EW_ROWS,
+                             attn_rows=BF16_ATTN_ROWS, dtype=torch.bfloat16)
+    for row in out["rows"]:     # registers and spills in bfloat16, VVL 1
+        attn = row["name"].startswith("flash_attention")
+        site = "flash_attention" if attn else row["name"].split(".")[1]
+        dh = row["shape"][4] if attn else None
+        row["ptxas"] = [
+            {k: r.get(k) for k in ("mapping", "act", "vvl", "head_dim",
+                                   "registers", "spill_stores", "spill_loads")}
+            for r in ptxas if r.get("dtype") == "bf16"
+            and r.get("site") == site and r.get("head_dim") == dh
+            and r.get("vvl") in (None, 1)]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: bfloat16 {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("training", "dense", "moe", "ssd",
-                                       "mla", "whisper"),
+                                       "mla", "whisper", "bf16"),
                     default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
@@ -4931,10 +5608,12 @@ def main(argv=None) -> int:
                 launches, launches_by_path, {}, problems, record)
         phase = {"training": training_phase, "dense": dense_archs_phase,
                  "moe": moe_phase, "ssd": ssd_phase, "mla": mla_phase,
-                 "whisper": whisper_phase}[only](drive, by_path, problems)
+                 "whisper": whisper_phase,
+                 "bf16": lambda *a: bf16_phase(*a, ptxas=ptxas)}[only](
+                     drive, by_path, problems)
         key = {"training": "training", "dense": "dense_archs",
                "moe": "moe", "ssd": "ssd", "mla": "mla",
-               "whisper": "whisper"}[only]
+               "whisper": "whisper", "bf16": "bf16"}[only]
         if only in ("mla", "whisper"):
             merge_launches(early_rows, by_path, phase["paths"])
             phase["rows"] = early_rows
@@ -5444,6 +6123,11 @@ def main(argv=None) -> int:
     record["whisper"] = whisper_phase(drive, by_path, problems)
     merge_launches(rows, by_path, record["whisper"]["paths"])
     print(json.dumps({"whisper": record["whisper"]}, default=str), flush=True)
+
+    # -- 15. bfloat16 parameters and caches --------------------------------------
+    record["bf16"] = bf16_phase(drive, by_path, problems, ptxas=ptxas)
+    rows += record["bf16"]["rows"]
+    print(json.dumps({"bf16": record["bf16"]}, default=str), flush=True)
     record["kernels"] = rows
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))

@@ -57,9 +57,23 @@
 // m + log(l) from the running max and sum it holds at the end (one store a
 // row; a null pointer skips it, so serving does not pay for it).
 //
-// Each operand is addressed by (batch, head, row) strides in floats with
-// rows of Dh contiguous floats, 16-byte aligned, so the model's (B, S, H, Dh)
-// projections come in as transposed views, and o goes out in q's layout.
+// Each operand is addressed by (batch, head, row) strides in elements with
+// rows of Dh contiguous elements, 16-byte aligned, so the model's (B, S, H,
+// Dh) projections come in as transposed views, and o goes out in q's layout.
+//
+// bfloat16 (A7.1; Dh 128 and 256, gemma3 and gemma2): q, k, v and o in
+// bfloat16, the tile, the softmax state and lse in float32, as the
+// reference's kernel computes (its operands cast to float32, p kept in
+// float32 for P·V: src/repro/kernels/flash_attention.py:57-59, :80).  A
+// bfloat16 value is exact in TF32, so S = Q·Kᵀ is one TF32 product with
+// float32 accumulation (3xTF32's small terms are 0) and P·V two (P's high
+// and low parts against V), where float32 takes three each; P is never
+// rounded to bfloat16 (SDPA and FlashAttention round it: another
+// function).  A bfloat16 row is staged by 16-byte loads widened into the
+// float32 tile (stage16), synchronously: the float32 kernel's cp.async
+// overlap of the next tile is lost, the simple first version.  Bound: the
+// same live pairs at 3 TF32 products a pair-dimension where float32 takes
+// 6; q, k, v, o move half the bytes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,13 +93,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int ERR_BAD_HEAD_DIM = -3;
 constexpr int ERR_BAD_GROUP = -4;
 
+template <class T>
 struct AttnIO {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
   float* lse;  // (B, Hq, Sq) contiguous, or null: no store
-  int64_t sq[3], sk[3], sv[3], so[3];  // (batch, head, row) strides, floats
+  int64_t sq[3], sk[3], sv[3], so[3];  // (batch, head, row) strides, elements
   int B, Hq, Hkv, Sq, Sk;
   Params p;
 };
@@ -105,16 +120,21 @@ using Op = Tf32<3>;
 
 __device__ __forceinline__ Op split(float x) { return tdp::attn::tf32_split<3>(x); }
 
-// d += a·b in 3xTF32: the small terms first, then hi·hi.
+// d += a·b in 3xTF32: the small terms first, then hi·hi.  A_EXACT /
+// B_EXACT: that operand holds bfloat16 values, exact in TF32 (lo = 0), and
+// its small term, a product with 0, is skipped.
+template <bool A_EXACT = false, bool B_EXACT = false>
 __device__ __forceinline__ void mma(float (&d)[4], const Op (&a)[4], const Op (&b)[2]) {
-  mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
-  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  if (!A_EXACT) mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  if (!B_EXACT) mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
   mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
 }
 
-template <int DH>
+template <int DH, class Store>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __grid_constant__ AttnIO io) {
+    flash_fwd_kernel(const __grid_constant__ AttnIO<Store> io) {
+  // bfloat16 operands (Q, K, V) are exact in TF32; P is float32
+  constexpr bool kExact = sizeof(Store) == 2;
   using T = tdp::attn::FlashTile<DH>;
   using namespace tdp::attn;
   extern __shared__ float4 smem4[];
@@ -127,10 +147,10 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / io.Hq, h = bh % io.Hq;
   const int hk = h / (io.Hq / io.Hkv);
   const int q0 = (int)(gridDim.x - 1 - blockIdx.x) * kBQ;
-  const float* qg = io.q + b * io.sq[0] + h * io.sq[1];
-  const float* kg = io.k + b * io.sk[0] + hk * io.sk[1];
-  const float* vg = io.v + b * io.sv[0] + hk * io.sv[1];
-  float* og = io.o + b * io.so[0] + h * io.so[1];
+  const Store* qg = io.q + b * io.sq[0] + h * io.sq[1];
+  const Store* kg = io.k + b * io.sk[0] + hk * io.sk[1];
+  const Store* vg = io.v + b * io.sv[0] + hk * io.sv[1];
+  Store* og = io.o + b * io.so[0] + h * io.so[1];
 
   // copy groups, in order: Q with K of the first tile, V of the first tile;
   // then per tile K, V of the next (empty past the last), so "all but the
@@ -190,7 +210,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const Op bb[2] = {split(bf[hh][0]), split(bf[hh][1])};
-          mma(s2[hh][j], a[hh], bb);
+          mma<kExact, kExact>(s2[hh][j], a[hh], bb);
         }
       }
     }
@@ -259,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int i = 0; i < 4; ++i) va[i] = split(vf[t][i]);
 #pragma unroll
-          for (int nr = 0; nr < 2; ++nr) mma(c[t][nr], va, pb[nr]);
+          for (int nr = 0; nr < 2; ++nr) mma<kExact, false>(c[t][nr], va, pb[nr]);
         }
       }
 #pragma unroll
@@ -296,40 +316,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DH>
-int launch(const AttnIO& io, void* stream) {
+template <int DH, class T>
+int launch(const AttnIO<T>& io, void* stream) {
   if (io.Sq == 0 || io.B * io.Hq == 0) return 0;
   // above 48 KB of shared memory only after opting in (per device, so per call)
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)tdp::attn::FlashTile<DH>::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((io.Sq + kBQ - 1) / kBQ), (unsigned)(io.B * io.Hq));
-  flash_fwd_kernel<DH>
+  flash_fwd_kernel<DH, T>
       <<<grid, kThreads, tdp::attn::FlashTile<DH>::SMEM, (cudaStream_t)stream>>>(io);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q (B, Hq, Sq, Dh), k/v (B, Hkv, Sk, Dh), o (B, Hq, Sq, Dh): device pointers,
-// float32; strides[12] the (batch, head, row) strides of q, k, v and o in
-// floats, each a multiple of 4, rows of Dh contiguous floats, every pointer
-// 16-byte aligned.  lse: null, or a contiguous (B, Hq, Sq) float32 array
-// that receives each row's log-sum-exp (row_lse).  Returns 0, a
-// cudaError_t, ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 80, 128, 192, 256}) or
-// ERR_BAD_GROUP (Hq not a multiple of Hkv).
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, void* lse, const long long* strides, int B,
-                                      int Hq, int Hkv, int Sq, int Sk, int Dh,
-                                      float scale, float softcap, int causal,
-                                      int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return ERR_BAD_GROUP;
-  AttnIO io{};
-  io.q = static_cast<const float*>(q);
-  io.k = static_cast<const float*>(k);
-  io.v = static_cast<const float*>(v);
-  io.o = static_cast<float*>(o);
+template <class T>
+AttnIO<T> attn_io(const void* q, const void* k, const void* v, void* o, void* lse,
+                  const long long* strides, int B, int Hq, int Hkv, int Sq, int Sk,
+                  float scale, float softcap, int causal, int window) {
+  AttnIO<T> io{};
+  io.q = static_cast<const T*>(q);
+  io.k = static_cast<const T*>(k);
+  io.v = static_cast<const T*>(v);
+  io.o = static_cast<T*>(o);
   io.lse = static_cast<float*>(lse);
   for (int i = 0; i < 3; ++i) {
     io.sq[i] = strides[i];
@@ -339,6 +348,36 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
   io.B = B, io.Hq = Hq, io.Hkv = Hkv, io.Sq = Sq, io.Sk = Sk;
   io.p = Params{scale, softcap, causal, window, Sk};
+  return io;
+}
+
+}  // namespace
+
+// q (B, Hq, Sq, Dh), k/v (B, Hkv, Sk, Dh), o (B, Hq, Sq, Dh): device pointers
+// of the storage type `dtype` (tdp::DTYPE_F32, or DTYPE_BF16 at Dh 128 and
+// 256); strides[12] the (batch, head, row) strides of q, k, v and o in
+// elements, each a multiple of 16 bytes, rows of Dh contiguous elements,
+// every pointer 16-byte aligned.  lse: null, or a contiguous (B, Hq, Sq)
+// float32 array that receives each row's log-sum-exp (row_lse).  Returns 0,
+// a cudaError_t, ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 80, 128, 192, 256}
+// for float32, {128, 256} for bfloat16), ERR_BAD_GROUP (Hq not a multiple of
+// Hkv) or tdp::ERR_BAD_DTYPE.
+extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      const long long* strides, int B, int Hq, int Hkv,
+                                      int Sq, int Sk, int Dh, float scale, float softcap,
+                                      int causal, int window, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return ERR_BAD_GROUP;
+  if (dtype == tdp::DTYPE_BF16) {
+    const auto io = attn_io<tdp::bf16>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk,
+                                       scale, softcap, causal, window);
+    if (Dh == 128) return launch<128>(io, stream);
+    if (Dh == 256) return launch<256>(io, stream);
+    return ERR_BAD_HEAD_DIM;
+  }
+  if (dtype != tdp::DTYPE_F32) return tdp::ERR_BAD_DTYPE;
+  const auto io = attn_io<float>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk, scale,
+                                 softcap, causal, window);
   switch (Dh) {
     case 16: return launch<16>(io, stream);
     case 32: return launch<32>(io, stream);

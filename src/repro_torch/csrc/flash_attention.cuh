@@ -24,6 +24,13 @@
 // update applied to a warp's S fragment.  All are __host__ __device__, so
 // the tests' harness runs a tile lane by lane through a host emulation of
 // the mma.
+//
+// Storage: q, k, v and o are float32 or bfloat16 (bf16.cuh), one type for
+// the four.  The tile always holds float32: a bfloat16 row is widened as it
+// is staged (stage_rows), so every fragment load and product below is the
+// float32 code's, and o is rounded to bfloat16 once, as it is stored
+// (st_row).  A bfloat16 value is exact in TF32, so 3xTF32's small term of a
+// bfloat16 operand is 0 (flash_attention.cu skips those products).
 #pragma once
 
 #include <math.h>
@@ -31,6 +38,7 @@
 #include <string.h>
 
 #include "async_copy.cuh"  // tdp::copy16, zero16, ld_shared
+#include "bf16.cuh"         // tdp::bf16, pack_bf16x2, unpack_bf16x2
 
 #if !defined(__CUDACC__)
 #define __host__
@@ -269,22 +277,61 @@ __host__ __device__ __forceinline__ void st_row(float* p, const float (&v)[N]) {
 #endif
 }
 
+// p[0, N) = v rounded to bfloat16 (global memory, aligned to 2·N bytes).
+template <int N>
+__host__ __device__ __forceinline__ void st_row(bf16* p, const float (&v)[N]) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (N == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v[0], v[1]),
+                                              pack_bf16x2(v[2], v[3]));
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v[0], v[1]);
+#else
+  for (int i = 0; i < N; ++i) p[i] = from_f32<bf16>(v[i]);
+#endif
+}
+
+// dst (shared) = 16 bytes of src as floats: a float32 row's 4 by cp.async
+// (copy16); a bfloat16 row's 8 by one 16-byte load, widened and stored as
+// two float4, synchronously.
+__host__ __device__ __forceinline__ void stage16(float* dst, const float* src) {
+  copy16(dst, src);
+}
+
+__host__ __device__ __forceinline__ void stage16(float* dst, const bf16* src) {
+#if defined(__CUDA_ARCH__)
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(src));
+  float4 a, b;
+  unpack_bf16x2(w.x, a.x, a.y);
+  unpack_bf16x2(w.y, a.z, a.w);
+  unpack_bf16x2(w.z, b.x, b.y);
+  unpack_bf16x2(w.w, b.z, b.w);
+  reinterpret_cast<float4*>(dst)[0] = a;
+  reinterpret_cast<float4*>(dst)[1] = b;
+#else
+  for (int i = 0; i < 8; ++i) dst[i] = to_f32(src[i]);
+#endif
+}
+
 // Thread tid of nthreads stages rows r_begin .. r_begin + nrows - 1 of a
-// matrix whose rows (DH contiguous floats, 16-byte aligned) lie ld floats
-// apart into dst (row stride st) by 16-byte copies; rows from `limit` on
-// (the ragged tail of Sq or Sk) are zero-filled, so a dead key's V row
-// adds 0·0 and never NaN.
-template <int DH>
-__host__ __device__ __forceinline__ void stage_rows(float* dst, int st, const float* src,
+// matrix whose rows (DH contiguous values of type T, 16-byte aligned) lie
+// ld values apart into dst (float32, row stride st) by 16-byte pieces
+// (stage16); rows from `limit` on (the ragged tail of Sq or Sk) are
+// zero-filled, so a dead key's V row adds 0·0 and never NaN.
+template <int DH, class T>
+__host__ __device__ __forceinline__ void stage_rows(float* dst, int st, const T* src,
                                                     int64_t ld, int r_begin, int nrows,
                                                     int limit, int tid, int nthreads) {
-  constexpr int D4 = DH / 4;
-  for (int i = tid; i < nrows * D4; i += nthreads) {
-    const int r = i / D4, c = 4 * (i % D4);
-    if (r_begin + r < limit)
-      copy16(dst + r * st + c, src + (int64_t)(r_begin + r) * ld + c);
-    else
+  constexpr int E = 16 / (int)sizeof(T);  // values of a 16-byte piece
+  constexpr int DE = DH / E;
+  for (int i = tid; i < nrows * DE; i += nthreads) {
+    const int r = i / DE, c = E * (i % DE);
+    if (r_begin + r < limit) {
+      stage16(dst + r * st + c, src + (int64_t)(r_begin + r) * ld + c);
+    } else {
       zero16(dst + r * st + c);
+      if constexpr (E == 8) zero16(dst + r * st + c + 4);
+    }
   }
 }
 
@@ -411,8 +458,8 @@ __host__ __device__ __forceinline__ void frag_rescale(float (&o)[NP][NT][2][4],
 // Query row 8·nr + 2·tig + e of a warp's Oᵀ registers, divided by the row's
 // sum (rs, from o_src): dimensions pv_dim(p, t, grp) and pv_dim(p, t, grp +
 // 8) — W·p + (W/8)·grp + 0 .. W/8 - 1 — of every pair p in one store each.
-template <int NP, int NT, int W>
-__host__ __device__ __forceinline__ void store_o_row(float* orow, int lane,
+template <int NP, int NT, int W, class T>
+__host__ __device__ __forceinline__ void store_o_row(T* orow, int lane,
                                                      const float (&o)[NP][NT][2][4],
                                                      int nr, int e, const RowState& rs) {
 #pragma unroll

@@ -83,6 +83,16 @@
 //            multiple of MAMBA_AOSOA_ALIGN = 4: a copy then never straddles
 //            two blocks.
 //
+// Storage (rmsnorm, gated, act): float32 or bfloat16 (bf16.cuh), one type
+// for x/u, v, the weight and out, a template parameter of every piece and a
+// runtime code of the C entry.  A bfloat16 value is loaded as float32, the
+// arithmetic is the float32 code's, and each result is rounded to bfloat16
+// once (to nearest even), as the reference's site bodies do; the weight
+// enters as float32 before scale_offset is added (src/repro/kernels/lm.py:58).
+// Where the float32 code moves 16 bytes (4 elements), the bfloat16 code
+// moves the same elements in 8.  mamba and the AoSoA launches take float32
+// only.
+//
 // The activation (silu, gelu with the tanh approximation, relu^2) is a
 // template parameter.  Arithmetic keeps the plain version's order where it
 // is elementwise (x * rsqrt(mean(x*x) + eps) * (w + offset); u * sigmoid(u);
@@ -96,23 +106,90 @@
 #include <cstdint>
 
 #include "async_copy.cuh"  // tdp::copy16, copy4, cp_async_*, ld_shared
+#include "bf16.cuh"         // tdp::bf16, ldg(const bf16*), store_f32
 #include "lb_sites.cuh"     // tdp::ldg, load_row, store_row, ERR_*, dispatch_vvl
 
 namespace tdp {
+
+// Rows of V bfloat16 values as float32 (lb_sites.cuh's load_row/store_row
+// for float): one V·2-byte access where vec (aligned to it, nv == V), else
+// the first nv as scalars (and the rest 0 on a load).
+template <int V>
+__host__ __device__ __forceinline__ bool vec_aligned(const bf16* p) {
+  constexpr uintptr_t kAlign = V >= 8 ? 16 : 2 * V;
+  return ((uintptr_t)p & (kAlign - 1)) == 0;
+}
+
+template <int V>
+__host__ __device__ __forceinline__ void load_row(const bf16* p, bool vec, int nv,
+                                                  float (&r)[V]) {
+#if defined(__CUDA_ARCH__)
+  if (V > 1 && vec) {
+    if constexpr (V == 2) {
+      unpack_bf16x2(__ldg(reinterpret_cast<const unsigned*>(p)), r[0], r[1]);
+    } else if constexpr (V == 4) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+      unpack_bf16x2(w.x, r[0], r[1]);
+      unpack_bf16x2(w.y, r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < V / 8; ++h) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(p) + h);
+        unpack_bf16x2(w.x, r[8 * h], r[8 * h + 1]);
+        unpack_bf16x2(w.y, r[8 * h + 2], r[8 * h + 3]);
+        unpack_bf16x2(w.z, r[8 * h + 4], r[8 * h + 5]);
+        unpack_bf16x2(w.w, r[8 * h + 6], r[8 * h + 7]);
+      }
+    }
+    return;
+  }
+#endif
+#pragma unroll
+  for (int l = 0; l < V; ++l) r[l] = l < nv ? ldg(p + l) : 0.0f;
+}
+
+template <int V>
+__host__ __device__ __forceinline__ void store_row(bf16* p, bool vec, int nv,
+                                                   const float (&r)[V]) {
+#if defined(__CUDA_ARCH__)
+  if (V > 1 && vec) {
+    if constexpr (V == 2) {
+      *reinterpret_cast<unsigned*>(p) = pack_bf16x2(r[0], r[1]);
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(r[0], r[1]),
+                                                pack_bf16x2(r[2], r[3]));
+    } else {
+#pragma unroll
+      for (int h = 0; h < V / 8; ++h)
+        reinterpret_cast<uint4*>(p)[h] = make_uint4(
+            pack_bf16x2(r[8 * h], r[8 * h + 1]), pack_bf16x2(r[8 * h + 2], r[8 * h + 3]),
+            pack_bf16x2(r[8 * h + 4], r[8 * h + 5]), pack_bf16x2(r[8 * h + 6], r[8 * h + 7]));
+    }
+    return;
+  }
+#endif
+#pragma unroll
+  for (int l = 0; l < V; ++l)
+    if (l < nv) p[l] = from_f32<bf16>(r[l]);
+}
+
 namespace lm {
 
 enum SiteId : int { SITE_RMSNORM = 0, SITE_GATED = 1, SITE_ACT = 2 };
 enum ActId : int { ACT_SILU = 0, ACT_GELU_TANH = 1, ACT_RELU2 = 2 };
 
-// Operands of one launch: x/u is in[0], v is in[1]; out is (ncomp, n).
-struct LmIO {
-  const float* in[2];
-  float* out;
-  const float* weight;  // rmsnorm: ncomp floats
+// Operands of one launch in storage type T: x/u is in[0], v is in[1]; out
+// is (ncomp, n).
+template <class T>
+struct LmIOT {
+  const T* in[2];
+  T* out;
+  const T* weight;  // rmsnorm: ncomp values
   int64_t n;
   int ncomp;
   float eps, scale_offset;
 };
+using LmIO = LmIOT<float>;
 
 template <int ACT>
 __host__ __device__ __forceinline__ float act(float u) {
@@ -151,16 +228,16 @@ __host__ __device__ __forceinline__ int64_t ew_blocks(int64_t n) {
 }
 
 // Thread `tid` of block `block`: VVL groups of 4 elements (see the header).
-template <class Site, int VVL>
-__host__ __device__ __forceinline__ void ew_thread(const LmIO& io, int64_t block,
+template <class Site, int VVL, class T>
+__host__ __device__ __forceinline__ void ew_thread(const LmIOT<T>& io, int64_t block,
                                                    int tid) {
   constexpr int kTile = EW_BLOCK * 4 * VVL;
   const int64_t base = block * kTile;  // a multiple of 4: keeps alignment
   if (base >= io.n) return;
   const int left = io.n - base < kTile ? (int)(io.n - base) : kTile;
-  const float* u = io.in[0] + base;
-  const float* v = Site::kGated ? io.in[1] + base : nullptr;
-  float* o = io.out + base;
+  const T* u = io.in[0] + base;
+  const T* v = Site::kGated ? io.in[1] + base : nullptr;
+  T* o = io.out + base;
   const bool vec = vec_aligned<4>(u) && vec_aligned<4>(o) &&
                    (!Site::kGated || vec_aligned<4>(v));
   if (vec) {
@@ -184,7 +261,7 @@ __host__ __device__ __forceinline__ void ew_thread(const LmIO& io, int64_t block
       store_row<4>(o + 4 * g, true, 4, r);
     }
     const int t = 4 * n4 + tid;  // the ragged tail of the last block
-    if (t < left) o[t] = Site::op(ldg(u + t), Site::kGated ? ldg(v + t) : 0.0f);
+    if (t < left) store_f32(o + t, Site::op(ldg(u + t), Site::kGated ? ldg(v + t) : 0.0f));
     return;
   }
   float a[4 * VVL], b[4 * VVL];
@@ -198,7 +275,7 @@ __host__ __device__ __forceinline__ void ew_thread(const LmIO& io, int64_t block
 #pragma unroll
   for (int k = 0; k < 4 * VVL; ++k) {
     const int i = k * EW_BLOCK + tid;
-    if (i < left) o[i] = Site::op(a[k], b[k]);
+    if (i < left) store_f32(o + i, Site::op(a[k], b[k]));
   }
 }
 
@@ -220,7 +297,8 @@ __host__ __device__ constexpr int rms_unroll() {
   return VVL >= 16 ? 1 : 16 / VVL;
 }
 
-__host__ __device__ __forceinline__ float rms_inv(float ss, const LmIO& io) {
+template <class T>
+__host__ __device__ __forceinline__ float rms_inv(float ss, const LmIOT<T>& io) {
   return 1.0f / sqrtf(ss / (float)io.ncomp + io.eps);
 }
 
@@ -230,19 +308,20 @@ __host__ __device__ __forceinline__ int64_t rms_tiled_blocks(int64_t n) {
 }
 
 // What lane `lane` of a tiled block covers: tokens s0 + [0, nv) of row 0.
+template <class T>
 struct RmsLane {
-  const float* x;
-  float* o;
+  const T* x;
+  T* o;
   int nv;
   bool vec;
 };
 
-template <int VVL>
-__host__ __device__ __forceinline__ RmsLane rms_lane(const LmIO& io,
-                                                     int64_t block, int lane) {
+template <int VVL, class T>
+__host__ __device__ __forceinline__ RmsLane<T> rms_lane(const LmIOT<T>& io,
+                                                        int64_t block, int lane) {
   const int64_t s0 = block * (32 * VVL) + (int64_t)lane * VVL;
   const int64_t left = io.n - s0;
-  RmsLane r;
+  RmsLane<T> r;
   r.x = io.in[0] + s0;
   r.o = io.out + s0;
   r.nv = left <= 0 ? 0 : left < VVL ? (int)left : VVL;
@@ -253,19 +332,19 @@ __host__ __device__ __forceinline__ RmsLane rms_lane(const LmIO& io,
 
 // Tiled, phase 1: thread `tid` (warp w, lane l) sums the squares of its
 // tokens over the components w, w + RMS_WARPS, ... into red[w][l·VVL + i].
-template <int VVL>
-__host__ __device__ __forceinline__ void rms_tiled_partial(const LmIO& io,
+template <int VVL, class T>
+__host__ __device__ __forceinline__ void rms_tiled_partial(const LmIOT<T>& io,
                                                            int64_t block,
                                                            int tid, float* red) {
   constexpr int U = rms_unroll<VVL>();
   const int w = tid / 32, lane = tid % 32;
-  const RmsLane L = rms_lane<VVL>(io, block, lane);
+  const RmsLane<T> L = rms_lane<VVL>(io, block, lane);
   float ss[VVL];
 #pragma unroll
   for (int i = 0; i < VVL; ++i) ss[i] = 0.0f;
   if (L.nv > 0) {
     const int64_t stride = (int64_t)RMS_WARPS * io.n;
-    const float* p = L.x + (int64_t)w * io.n;
+    const T* p = L.x + (int64_t)w * io.n;
     int c = w;
     for (; c + (U - 1) * RMS_WARPS < io.ncomp; c += U * RMS_WARPS) {
       float r[U][VVL];
@@ -288,8 +367,8 @@ __host__ __device__ __forceinline__ void rms_tiled_partial(const LmIO& io,
 }
 
 // Tiled, phase 2: thread t < 32·VVL adds token t's partials in warp order.
-template <int VVL>
-__host__ __device__ __forceinline__ void rms_tiled_combine(const LmIO& io, int tid,
+template <int VVL, class T>
+__host__ __device__ __forceinline__ void rms_tiled_combine(const LmIOT<T>& io, int tid,
                                                            const float* red,
                                                            float* inv) {
   if (tid >= 32 * VVL) return;
@@ -299,20 +378,20 @@ __host__ __device__ __forceinline__ void rms_tiled_combine(const LmIO& io, int t
 }
 
 // Tiled, phase 3: thread `tid` scales its tokens over its components.
-template <int VVL>
-__host__ __device__ __forceinline__ void rms_tiled_scale(const LmIO& io,
+template <int VVL, class T>
+__host__ __device__ __forceinline__ void rms_tiled_scale(const LmIOT<T>& io,
                                                          int64_t block, int tid,
                                                          const float* inv) {
   constexpr int U = rms_unroll<VVL>();
   const int w = tid / 32, lane = tid % 32;
-  const RmsLane L = rms_lane<VVL>(io, block, lane);
+  const RmsLane<T> L = rms_lane<VVL>(io, block, lane);
   if (L.nv == 0) return;
   float iv[VVL];
 #pragma unroll
   for (int i = 0; i < VVL; ++i) iv[i] = inv[lane * VVL + i];
   const int64_t stride = (int64_t)RMS_WARPS * io.n;
-  const float* p = L.x + (int64_t)w * io.n;
-  float* q = L.o + (int64_t)w * io.n;
+  const T* p = L.x + (int64_t)w * io.n;
+  T* q = L.o + (int64_t)w * io.n;
   int c = w;
   for (; c + (U - 1) * RMS_WARPS < io.ncomp; c += U * RMS_WARPS) {
     float r[U][VVL], wt[U];
@@ -348,20 +427,21 @@ __host__ __device__ __forceinline__ int rms_few_group(int64_t n) {
 
 // Few tokens, phase 1: thread `tid` sums the squares of elements tid,
 // tid + n·J, ... (4 loaded before they are added) into red[tid].
-__host__ __device__ __forceinline__ void rms_few_partial(const LmIO& io, int J,
+template <class T>
+__host__ __device__ __forceinline__ void rms_few_partial(const LmIOT<T>& io, int J,
                                                          int tid, float* red) {
-  const int64_t T = io.n * J, total = io.n * io.ncomp;
-  const float* x = io.in[0];
+  const int64_t nt = io.n * J, total = io.n * io.ncomp;
+  const T* x = io.in[0];
   float ss = 0.0f;
   int64_t i = tid;
-  for (; i + 3 * T < total; i += 4 * T) {
+  for (; i + 3 * nt < total; i += 4 * nt) {
     float r[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) r[k] = ldg(x + i + k * T);
+    for (int k = 0; k < 4; ++k) r[k] = ldg(x + i + k * nt);
 #pragma unroll
     for (int k = 0; k < 4; ++k) ss += r[k] * r[k];
   }
-  for (; i < total; i += T) {
+  for (; i < total; i += nt) {
     const float r = ldg(x + i);
     ss += r * r;
   }
@@ -370,20 +450,22 @@ __host__ __device__ __forceinline__ void rms_few_partial(const LmIO& io, int J,
 
 // Few tokens, tree step h (J/2, ..., 1): thread j·n + s with j < h adds the
 // partial of thread (j + h)·n + s.
-__host__ __device__ __forceinline__ void rms_few_tree(const LmIO& io, int h,
+template <class T>
+__host__ __device__ __forceinline__ void rms_few_tree(const LmIOT<T>& io, int h,
                                                       int tid, float* red) {
   if (tid < h * io.n) red[tid] += red[tid + h * io.n];
 }
 
 // Few tokens, phase 3: thread `tid` scales the elements it summed; red[s]
 // holds token s's sum of squares.
-__host__ __device__ __forceinline__ void rms_few_scale(const LmIO& io, int J,
+template <class T>
+__host__ __device__ __forceinline__ void rms_few_scale(const LmIOT<T>& io, int J,
                                                        int tid, const float* red) {
-  const int64_t T = io.n * J, total = io.n * io.ncomp;
+  const int64_t nt = io.n * J, total = io.n * io.ncomp;
   const float inv = rms_inv(red[tid % io.n], io);
   int c = (int)(tid / io.n);
-  for (int64_t i = tid; i < total; i += T, c += J)
-    io.out[i] = ldg(io.in[0] + i) * inv * (ldg(io.weight + c) + io.scale_offset);
+  for (int64_t i = tid; i < total; i += nt, c += J)
+    store_f32(io.out + i, ldg(io.in[0] + i) * inv * (ldg(io.weight + c) + io.scale_offset));
 }
 
 // AoSoA rmsnorm (see the header): the tokens a block covers.
@@ -744,8 +826,8 @@ __host__ __device__ __forceinline__ void mamba_final(const MambaIO& io, int row,
 // host-side dispatch: (site id, act id, VVL) -> Launch<Site, VVL>::run(io, stream)
 // ---------------------------------------------------------------------------
 
-template <template <class, int> class Launch, template <int> class Site>
-int dispatch_act(int act_id, int vvl, const LmIO& io, void* stream) {
+template <template <class, int> class Launch, template <int> class Site, class IO>
+int dispatch_act(int act_id, int vvl, const IO& io, void* stream) {
   switch (act_id) {
     case ACT_SILU: return tdp::dispatch_vvl<Launch, Site<ACT_SILU>>(vvl, io, stream);
     case ACT_GELU_TANH: return tdp::dispatch_vvl<Launch, Site<ACT_GELU_TANH>>(vvl, io, stream);
@@ -774,8 +856,8 @@ int dispatch_mamba_aosoa(int nstate, const MambaIO& io, void* stream) {
   }
 }
 
-template <template <class, int> class Launch>
-int dispatch_site(int site, int act_id, int vvl, const LmIO& io, void* stream) {
+template <template <class, int> class Launch, class IO>
+int dispatch_site(int site, int act_id, int vvl, const IO& io, void* stream) {
   switch (site) {
     case SITE_RMSNORM: return tdp::dispatch_vvl<Launch, RmsnormSite>(vvl, io, stream);
     case SITE_GATED: return dispatch_act<Launch, GatedSite>(act_id, vvl, io, stream);

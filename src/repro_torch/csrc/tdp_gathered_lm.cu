@@ -49,6 +49,13 @@
 // (3.3x and 2.5x its 0.257 ms bound), against 2 x 4.768 ms before; 2 or 8
 // lanes a channel were slower at their best VVL (0.778 and 0.755 ms).
 //
+// Storage: rmsnorm, gated and act take float32 or bfloat16 (the entry's
+// dtype code, one type for every operand); a bfloat16 launch loads each
+// value as float32, runs the float32 arithmetic and rounds each result to
+// bfloat16 once (lm_sites.cuh).  Its bytes are half the float32 launch's:
+// rmsnorm and act 4 an element, gated 6.  The mamba and AoSoA entries take
+// float32 only.
+//
 // The AoSoA branch (Target(layout="aosoa"), W = Target.vvl; mappings in
 // lm_sites.cuh): tdp_gathered_rmsnorm_aosoa_launch (rms_aosoa_kernel, one
 // block per W tokens or per 512 of them) and tdp_gathered_mamba_aosoa_launch
@@ -66,16 +73,17 @@
 namespace {
 
 using tdp::lm::LmIO;
+using tdp::lm::LmIOT;
 
-template <class Site, int VVL>
+template <class Site, int VVL, class T>
 __global__ void __launch_bounds__(tdp::lm::EW_BLOCK)
-    ew_kernel(const __grid_constant__ LmIO io) {
+    ew_kernel(const __grid_constant__ LmIOT<T> io) {
   tdp::lm::ew_thread<Site, VVL>(io, blockIdx.x, threadIdx.x);
 }
 
-template <class Site, int VVL>
+template <class Site, int VVL, class T>
 __global__ void __launch_bounds__(tdp::lm::RMS_THREADS)
-    rms_tiled_kernel(const __grid_constant__ LmIO io) {
+    rms_tiled_kernel(const __grid_constant__ LmIOT<T> io) {
   __shared__ float red[tdp::lm::RMS_WARPS * 32 * VVL];
   __shared__ float inv[32 * VVL];
   tdp::lm::rms_tiled_partial<VVL>(io, blockIdx.x, threadIdx.x, red);
@@ -85,8 +93,9 @@ __global__ void __launch_bounds__(tdp::lm::RMS_THREADS)
   tdp::lm::rms_tiled_scale<VVL>(io, blockIdx.x, threadIdx.x, inv);
 }
 
+template <class T>
 __global__ void __launch_bounds__(tdp::lm::RMS_FEW_THREADS)
-    rms_few_kernel(const __grid_constant__ LmIO io, int group) {
+    rms_few_kernel(const __grid_constant__ LmIOT<T> io, int group) {
   __shared__ float red[tdp::lm::RMS_FEW_THREADS];
   tdp::lm::rms_few_partial(io, group, threadIdx.x, red);
   __syncthreads();
@@ -176,46 +185,63 @@ struct MambaAosoaLaunch {
 // the elementwise kernel.
 template <class Site, int VVL>
 struct Launch {
-  static int run(const LmIO& io, void* stream) {
+  template <class T>
+  static int run(const LmIOT<T>& io, void* stream) {
     if (io.n <= 0) return 0;
     const cudaStream_t s = (cudaStream_t)stream;
     if constexpr (std::is_same<Site, tdp::lm::RmsnormSite>::value) {
       if (io.n < tdp::lm::RMS_FEW) {
         const int group = tdp::lm::rms_few_group(io.n);
-        rms_few_kernel<<<1, (unsigned)(io.n * group), 0, s>>>(io, group);
+        rms_few_kernel<T><<<1, (unsigned)(io.n * group), 0, s>>>(io, group);
       } else {
-        rms_tiled_kernel<Site, VVL>
+        rms_tiled_kernel<Site, VVL, T>
             <<<(unsigned)tdp::lm::rms_tiled_blocks<VVL>(io.n), tdp::lm::RMS_THREADS,
                0, s>>>(io);
       }
     } else {
-      ew_kernel<Site, VVL>
+      ew_kernel<Site, VVL, T>
           <<<(unsigned)tdp::lm::ew_blocks<VVL>(io.n), tdp::lm::EW_BLOCK, 0, s>>>(io);
     }
     return (int)cudaGetLastError();
   }
 };
 
-}  // namespace
-
-// x (and v for the gated site), out: device pointers, float32, contiguous
-// (ncomp, n); weight: ncomp floats (rmsnorm) or null.  Returns 0, a
-// cudaError_t, or tdp::ERR_BAD_SITE / tdp::ERR_BAD_VVL.
-extern "C" int tdp_gathered_lm_launch(int site, int act, int vvl, const void* x,
-                                      const void* v, const void* weight,
-                                      void* out, long long n, int ncomp,
-                                      float eps, float scale_offset,
-                                      void* stream) {
-  tdp::lm::LmIO io{};
-  io.in[0] = static_cast<const float*>(x);
-  io.in[1] = static_cast<const float*>(v);
-  io.out = static_cast<float*>(out);
-  io.weight = static_cast<const float*>(weight);
+template <class T>
+int lm_launch(int site, int act, int vvl, const void* x, const void* v,
+              const void* weight, void* out, long long n, int ncomp, float eps,
+              float scale_offset, void* stream) {
+  LmIOT<T> io{};
+  io.in[0] = static_cast<const T*>(x);
+  io.in[1] = static_cast<const T*>(v);
+  io.out = static_cast<T*>(out);
+  io.weight = static_cast<const T*>(weight);
   io.n = n;
   io.ncomp = ncomp;
   io.eps = eps;
   io.scale_offset = scale_offset;
   return tdp::lm::dispatch_site<Launch>(site, act, vvl, io, stream);
+}
+
+}  // namespace
+
+// x (and v for the gated site), out: device pointers, contiguous (ncomp, n),
+// of the storage type `dtype` (tdp::DTYPE_F32 or DTYPE_BF16); weight: ncomp
+// values of the same type (rmsnorm) or null.  Returns 0, a cudaError_t, or
+// tdp::ERR_BAD_SITE / ERR_BAD_VVL / ERR_BAD_DTYPE.
+extern "C" int tdp_gathered_lm_launch(int site, int act, int vvl, int dtype,
+                                      const void* x, const void* v,
+                                      const void* weight, void* out, long long n,
+                                      int ncomp, float eps, float scale_offset,
+                                      void* stream) {
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return lm_launch<float>(site, act, vvl, x, v, weight, out, n, ncomp, eps,
+                              scale_offset, stream);
+    case tdp::DTYPE_BF16:
+      return lm_launch<tdp::bf16>(site, act, vvl, x, v, weight, out, n, ncomp, eps,
+                                  scale_offset, stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }
 
 // The selective scan of `rows` batch rows.  x, dt, y: (rows·L, n); a: (N,

@@ -55,12 +55,19 @@ REDUCE_OPS = ("sum", "max", "min")
 REDUCE_OP_ID = {name: i for i, name in enumerate(REDUCE_OPS)}
 REDUCE_MAX_BLOCKS = 1024
 
+#: Storage types of the C entries that take a dtype code
+#: (``tdp_gathered_lm_launch``, ``flash_attention_launch``), in the order of
+#: the C enum ``tdp::DtypeId`` (``csrc/bf16.cuh``), by torch dtype name.
+DTYPES = ("float32", "bfloat16")
+DTYPE_ID = {name: i for i, name in enumerate(DTYPES)}
+
 #: The d_state values the ``mamba`` site function is instantiated for.
 MAMBA_NSTATES = (8, 16)
 
 #: ``ERR_*`` return codes of the C entries (cudaError_t values are >= 0).
 _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
-           -3: "head_dim not instantiated (16, 32, 64, 80, 128, 192, 256)",
+           -3: "head_dim not instantiated (16, 32, 64, 80, 128, 192, 256; "
+               "bfloat16 128, 256)",
            -4: "Hq is not a multiple of Hkv",
            -5: f"d_state not instantiated {MAMBA_NSTATES}",
            -6: "a stencil radius exceeds a periodic extent or the ghost "
@@ -68,7 +75,8 @@ _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
            -7: "plane_block must be positive and its tile fit the 227 KB a "
                "block may hold",
            -8: f"reduction op not in {REDUCE_OPS}",
-           -9: "the ensemble extent must be in 1..65535 (blockIdx.y)"}
+           -9: "the ensemble extent must be in 1..65535 (blockIdx.y)",
+           -10: f"storage type not in {DTYPES}"}
 
 
 def _nvcc() -> str:
@@ -146,6 +154,11 @@ def check(rc: int, what: str) -> None:
     if rc in _ERRORS:
         raise ValueError(f"{what}: {_ERRORS[rc]}")
     raise RuntimeError(f"{what}: the launch failed with cudaError_t {rc}")
+
+
+def dtype_id(dtype) -> int:
+    """The C entries' code of a torch dtype (:data:`DTYPE_ID`)."""
+    return DTYPE_ID[str(dtype).removeprefix("torch.")]
 
 
 def stream_handle(device) -> int:

@@ -11,13 +11,17 @@ masks the ragged tail itself (the Pallas wrapper pads), and skips key
 tiles that are wholly dead under the causal mask or the window.
 
 The kernel takes each operand by its (batch, head, row) strides: any
-layout whose rows are ``Dh`` contiguous float32 values, 16-byte aligned —
-a contiguous tensor, or the ``(B, S, H, Dh)`` projections of a model
+layout whose rows are ``Dh`` contiguous values, 16-byte aligned — a
+contiguous tensor, or the ``(B, S, H, Dh)`` projections of a model
 transposed to ``(B, H, S, Dh)`` with no copy; the output takes ``q``'s
-layout.  CUDA tensors launch the kernel (float32, head_dim in
-:data:`HEAD_DIMS`) or raise ``ValueError`` on any other; CPU tensors run
-the plain version :func:`repro_torch.kernels.ref.attention_ref`.
-:data:`launches` counts kernel launches.
+layout.  CUDA tensors launch the kernel (float32 at a head_dim in
+:data:`HEAD_DIMS`, bfloat16 at one in :data:`BF16_HEAD_DIMS`; q, k, v and
+the output of one dtype, ``lse`` float32) or raise ``ValueError`` on any
+other; CPU tensors run the plain version
+:func:`repro_torch.kernels.ref.attention_ref`.  In bfloat16 the kernel
+widens each value to float32 as it stages it and rounds the output once:
+the scores, the probabilities and the softmax state stay float32, as the
+reference's kernel keeps them.  :data:`launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -32,8 +36,13 @@ from .ref import attention_ref
 #: 192: deepseek-v3's MLA, q·k over 128 + 64 dimensions, V padded to 192)
 HEAD_DIMS = (16, 32, 64, 80, 128, 192, 256)
 
+#: head dims the kernel takes bfloat16 operands at (gemma3 128, gemma2 256;
+#: the rest wait for ROADMAP A7.1b)
+BF16_HEAD_DIMS = (128, 256)
+
 #: TF32 products the kernel runs per product of float32 operands (3xTF32;
-#: one TF32 product misses the reference's bar of 2e-4)
+#: one TF32 product misses the reference's bar of 2e-4).  Of bfloat16
+#: operands, exact in TF32, Q·Kᵀ takes one and P·V two (P stays float32).
 TF32_SPLIT = 3
 
 #: kernel launches of the CUDA wrapper
@@ -43,7 +52,8 @@ launches = {"flash_attention": 0}
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -65,21 +75,22 @@ def check_shapes(q, k, v):
         raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq} % {k.shape[1]}")
 
 
-def row_strides(name, x, device) -> list[int]:
-    """The (batch, head, row) strides of ``x`` in floats, as the kernel takes
-    them; ``ValueError`` unless ``x`` is float32 on ``device`` with rows of
-    contiguous floats, 16-byte aligned (a dimension of extent 1 has no
-    stride to check and gets 0)."""
+def row_strides(name, x, device, dtype=torch.float32) -> list[int]:
+    """The (batch, head, row) strides of ``x`` in elements, as the kernel
+    takes them; ``ValueError`` unless ``x`` is a ``dtype`` tensor (float32
+    or bfloat16) on ``device`` with rows of contiguous elements, 16-byte
+    aligned (a dimension of extent 1 has no stride to check and gets 0)."""
     strides = [x.stride(i) if x.shape[i] > 1 else 0 for i in range(3)]
-    if (x.device != device or x.dtype != torch.float32
+    per16 = 16 // dtype.itemsize
+    if (x.device != device or x.dtype != dtype
             or (x.shape[3] > 1 and x.stride(3) != 1)
-            or any(s % 4 for s in strides) or x.data_ptr() % 16):
+            or any(s % per16 for s in strides) or x.data_ptr() % 16):
         raise ValueError(
-            f"flash_attention: {name} must be a float32 tensor on {device} "
+            f"flash_attention: {name} must be a {dtype} tensor on {device} "
             f"whose rows are contiguous and 16-byte aligned (strides a "
-            f"multiple of 4 floats); got {x.dtype} on {x.device}, strides "
-            f"{tuple(x.stride())}, data pointer {x.data_ptr()} mod 16 = "
-            f"{x.data_ptr() % 16}")
+            f"multiple of {per16} elements); got {x.dtype} on {x.device}, "
+            f"strides {tuple(x.stride())}, data pointer {x.data_ptr()} mod "
+            f"16 = {x.data_ptr() % 16}")
     return strides
 
 
@@ -102,18 +113,23 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                          f"{q.device}")
     b, hq, sq, dh = (int(s) for s in q.shape)
     hkv, sk = int(k.shape[1]), int(k.shape[2])
-    if dh not in HEAD_DIMS:
+    dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    dims = BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
+    if dh not in dims:
         raise ValueError(f"flash_attention: the CUDA kernel is instantiated "
-                         f"for head_dim in {HEAD_DIMS}, got {dh}")
+                         f"for {dtype} at head_dim in {dims}, got {dh}"
+                         + (" (bfloat16 at other head dims: ROADMAP A7.1b)"
+                            if dtype == torch.bfloat16 else ""))
     strides = [s for name, x in (("q", q), ("k", k), ("v", v))
-               for s in row_strides(name, x, q.device)]
+               for s in row_strides(name, x, q.device, dtype)]
     o = torch.empty_like(q)            # q's layout (a dense permutation kept)
-    strides += row_strides("o", o, q.device)
+    strides += row_strides("o", o, q.device, dtype)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     scale = float(scale) if scale is not None else dh ** -0.5
     with torch.cuda.device(q.device):
-        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        rc = _lib()(_build.dtype_id(dtype), q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(),
                     None if lse is None else lse.data_ptr(),
                     (ctypes.c_longlong * 12)(*strides), b, hq, hkv, sq, sk, dh,
                     scale, float(softcap), int(bool(causal)), int(window),

@@ -130,19 +130,35 @@ def cuda_vvl(vvl: int | None) -> int:
     return vvl
 
 
-def check_cuda_tensors(tensors, shapes, what: str) -> None:
+def check_cuda_tensors(tensors, shapes, what: str,
+                       dtypes=(torch.float32,)) -> None:
     """Device, dtype, shape and contiguity checks before a C entry gets the
-    pointers."""
-    dev = tensors[0].device
+    pointers: every operand contiguous, on operand 0's device and of its
+    dtype, one of ``dtypes``."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
     for i, (x, shape) in enumerate(zip(tensors, shapes)):
-        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+        if (x.device != dev or x.dtype not in dtypes or x.dtype != dt
+                or not x.is_contiguous()):
             raise ValueError(
-                f"{what}: operand {i} must be a contiguous float32 tensor on "
-                f"{dev}; got {x.dtype} on {x.device}, contiguous="
-                f"{x.is_contiguous()}")
+                f"{what}: operand {i} must be a contiguous {names} tensor on "
+                f"{dev} of operand 0's dtype {dt}; got {x.dtype} on "
+                f"{x.device}, contiguous={x.is_contiguous()}")
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{what}: operand {i} has shape "
                              f"{tuple(x.shape)}, expected {tuple(shape)}")
+
+
+def refuse_bf16(tensors, what: str) -> None:
+    """``NotImplementedError`` for a bfloat16 operand of a kernel that takes
+    float32 only (the LB and example site functions, ``mamba``, the AoSoA
+    and ensemble launches: ROADMAP A7.1b).  Nothing is upcast behind the
+    caller's back."""
+    if any(isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+           for t in tensors):
+        raise NotImplementedError(
+            f"{what}: bfloat16 operands are not ported for this kernel yet "
+            f"(ROADMAP A7.1b); it takes float32")
 
 
 def _lib():
@@ -176,6 +192,7 @@ def lb_collision(f, g, phi, gradphi, del2phi, *, vvl: int | None = None,
                          f"{f.device}")
     n = int(f.shape[-1])
     ins = (f, g, phi, gradphi, del2phi)
+    refuse_bf16(ins, "lb_collision")
     check_cuda_tensors(ins, [(NVEL, n), (NVEL, n), (1, n), (NDIM, n), (1, n)],
                        "lb_collision")
     fo, go = torch.empty_like(f), torch.empty_like(g)

@@ -26,7 +26,10 @@ requires a gradient (``_RMSNormFn``, ``_GatedActFn``, ``_MambaScanFn``,
 reference has no backward kernel: its Pallas calls have no ``custom_vjp``
 and its flash backward is plain jnp).  On CPU tensors the forward is the
 plain version, so the backward runs there too.  Under ``"torch"`` the ops
-are plain PyTorch and autograd follows them as they are.
+are plain PyTorch and autograd follows them as they are.  On bfloat16
+inputs the backward recomputes the plain version on them (its float32
+casts are the reference's) and returns each gradient in its input's
+dtype; flash's in float32 from the kernel's float32 ``lse``, rounded once.
 """
 from __future__ import annotations
 

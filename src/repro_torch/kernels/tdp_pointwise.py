@@ -86,11 +86,15 @@ import torch.nn.functional as F
 from repro_torch.core.layout import aosoa_gather, aosoa_to_soa, soa_to_aosoa
 
 from . import _build
-from .lb_collision import PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts, cuda_vvl
+from .lb_collision import (PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts,
+                           cuda_vvl, refuse_bf16)
 
 #: The LM site functions: those of the shared LM entry, and the selective
 #: scan with its own.
 LM_SITES = _build.LM_SITES + ("mamba",)
+#: the storage types of the shared LM entry's SoA launches (rmsnorm, gated,
+#: act); every other launch of this executor takes float32 only
+LM_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches of this executor, by site function; ``"reduce"`` counts
 #: the one-pass map-and-reduce of an example site function
@@ -317,7 +321,7 @@ def _lib():
 def _lm_lib():
     fn = _build.load("tdp_gathered_lm").tdp_gathered_lm_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
                        + [ctypes.c_longlong, ctypes.c_int]
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -475,11 +479,12 @@ def _mamba_execute(plan, vvl, fields, out):
 
 
 def _lm_execute(plan, site, vvl, fields, out):
-    """Launch an LM site function on CUDA tensors."""
+    """Launch an LM site function on CUDA tensors: float32 or bfloat16, one
+    dtype for every operand (the weight too) and the output."""
     x0 = fields[0]
     ncomp, n = (int(s) for s in x0.shape)
     check_cuda_tensors(fields, [(ncomp, n)] * len(fields),
-                       f"kernel {plan.name!r}")
+                       f"kernel {plan.name!r}", LM_DTYPES)
     weight = None
     if site == "rmsnorm":
         weight = plan.consts["weight"]
@@ -488,14 +493,16 @@ def _lm_execute(plan, site, vvl, fields, out):
                              f"tensor on {x0.device} for the CUDA site "
                              f"function, got {type(weight).__name__}")
         check_cuda_tensors([x0, weight], [(ncomp, n), (ncomp,)],
-                           f"kernel {plan.name!r} (x, weight)")
+                           f"kernel {plan.name!r} (x, weight)", LM_DTYPES)
     outs = alloc_outputs(plan, x0, n, out)
-    check_cuda_tensors(outs, [(c, n) for c in plan.out_ncomp],
-                       f"kernel {plan.name!r} (out)")
+    check_cuda_tensors([x0, *outs],
+                       [(ncomp, n)] + [(c, n) for c in plan.out_ncomp],
+                       f"kernel {plan.name!r} (x, out)", LM_DTYPES)
     act = _build.LM_ACT_ID.get(getattr(plan.kernel, "__cuda_act__", None), 0)
     with torch.cuda.device(x0.device):
         rc = _lm_lib()(
-            _build.LM_SITE_ID[site], act, vvl, x0.data_ptr(),
+            _build.LM_SITE_ID[site], act, vvl, _build.dtype_id(x0.dtype),
+            x0.data_ptr(),
             fields[1].data_ptr() if len(fields) > 1 else None,
             None if weight is None else weight.data_ptr(), outs[0].data_ptr(),
             n, ncomp, float(plan.consts.get("eps", 0.0)),
@@ -510,6 +517,12 @@ def cuda_execute(plan, fields, out=None):
     """Registry executor entry (``takes_fields=True``,
     ``takes_ensemble=True`` — see :mod:`repro_torch.core.registry`)."""
     site = cuda_site(plan)
+    if fields[0].device.type == "cuda" and (
+            site not in _build.LM_SITE_ID or plan.ensemble is not None
+            or plan.layout == "aosoa"):
+        refuse_bf16([*fields, *plan.consts.values()],
+                    f"kernel {plan.name!r} ({site!r}, layout "
+                    f"{plan.layout!r}{', ensemble' if plan.ensemble else ''})")
     if plan.ensemble is not None:
         return ensemble_execute(plan, site, fields, out, launch=_ensemble_launch)
     if plan.layout == "aosoa":
@@ -700,9 +713,9 @@ def _aosoa_launch(plan, site, ops, n, geom):
             # kernel over the padded blocks is the AoSoA kernel
             act = _build.LM_ACT_ID[plan.kernel.__cuda_act__]
             rc = _lm_lib()(
-                _build.LM_SITE_ID[site], act, 1, x0.data_ptr(),
-                ops[1].data_ptr() if len(ops) > 1 else None, None,
-                outs[0].data_ptr(), x0.numel(), 1, 0.0, 0.0, stream)
+                _build.LM_SITE_ID[site], act, 1, _build.DTYPE_ID["float32"],
+                x0.data_ptr(), ops[1].data_ptr() if len(ops) > 1 else None,
+                None, outs[0].data_ptr(), x0.numel(), 1, 0.0, 0.0, stream)
         else:
             in_arr, out_arr = pointer_arrays(ops, outs)
             rc = _aosoa_lib()(_build.SITE_ID[site], W, in_arr, out_arr, *geom,

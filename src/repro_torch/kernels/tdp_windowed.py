@@ -52,7 +52,7 @@ import ctypes
 import torch
 
 from . import _build
-from .lb_collision import cuda_vvl
+from .lb_collision import cuda_vvl, refuse_bf16
 from .tdp_pointwise import (alloc_outputs, aosoa_execute, aosoa_plane_sites,
                             cuda_site, ensemble_execute, fields_plain,
                             lb_geometry, phys_args, pointer_arrays,
@@ -116,6 +116,8 @@ def windowed_execute(plan, fields, out=None):
             f"{plan.name!r} was launched with shape {plan.shape}")
     site = cuda_site(plan)
     p = plane_block(plan)
+    if fields[0].device.type == "cuda":
+        refuse_bf16(fields, f"kernel {plan.name!r} on 'cuda_windowed'")
     if plan.ensemble is not None:
         return ensemble_execute(plan, site, fields, out,
                                 launch=_ensemble_launch)

@@ -190,8 +190,10 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx: ExecContext, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.float32, device="cuda", local_ring: bool = False):
-    """Zeroed per-layer caches: ``{"k", "v"}: (B, Hkv, S, dh)`` for an
+               dtype=torch.bfloat16, device="cuda", local_ring: bool = False):
+    """Zeroed per-layer caches of ``dtype`` (the reference's default,
+    bfloat16; the SSM states float32 whatever it is): ``{"k", "v"}: (B,
+    Hkv, S, dh)`` for an
     attention layer (a ``shared_attn`` position too: the weights are tied,
     the caches are not), ``{"conv": (B, d_conv-1, di), "ssm": (B, di, N)
     float32}`` for a ``mamba1`` layer, ``{"conv", "conv_bc": (B, d_conv-1,

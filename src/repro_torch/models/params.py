@@ -195,9 +195,12 @@ def _layer_params(cfg: ModelConfig, gen, device, btype: str) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> dict:
-    """Random float32 parameters from ``generator`` (whose device must be
-    ``device``): projections ~ N(0, 1/fan_in), the embedding and the
+                device="cuda", dtype=torch.float32) -> dict:
+    """Random parameters of ``dtype`` from ``generator`` (whose device must
+    be ``device``), each leaf drawn in float32 and cast to ``dtype`` as the
+    reference's ``init_params(cfg, key, dtype)`` casts it (a layer at a
+    time, so no float32 copy of the whole model is ever live):
+    projections ~ N(0, 1/fan_in), the embedding and the
     learned position tables ~ N(0, 0.02²), norm weights 0 (the ``(1 + w)``
     convention), the Mamba mixers as :func:`_mamba1_params` and
     :func:`_mamba2_params`, and one ``"shared_block"`` (an ``attn`` block)
@@ -209,52 +212,65 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``cfg.mtp_depth``, ``params["mtp"]`` gets that many modules after
     them, each its block (the program's last type, as the reference
     builds it) and then its ``proj`` ~ N(0, 1/2d)."""
+    def cast(tree):          # keeps the dicts' order, as built
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.to(dtype)
+
     d = cfg.d_model
-    params = {"embed": _dense(generator, (cfg.padded_vocab, d), device,
-                              fan_in=1) * 0.02}
+    params = {"embed": cast(_dense(generator, (cfg.padded_vocab, d), device,
+                                   fan_in=1) * 0.02)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = _dense(generator, (d, cfg.padded_vocab), device)
+        params["lm_head"] = cast(_dense(generator, (d, cfg.padded_vocab),
+                                        device))
     if cfg.pos_embed == "learned":
-        params["pos_embed"] = _dense(generator, (cfg.max_position, d),
-                                     device, fan_in=1) * 0.02
+        params["pos_embed"] = cast(_dense(generator, (cfg.max_position, d),
+                                          device, fan_in=1) * 0.02)
     layers = []
     for btype in cfg.layer_program:
         if btype == "shared_attn" and "shared_block" not in params:
-            params["shared_block"] = _block_params(cfg, generator, device,
-                                                   "attn")
-        layers.append(_layer_params(cfg, generator, device, btype))
+            params["shared_block"] = cast(_block_params(cfg, generator,
+                                                        device, "attn"))
+        layers.append(cast(_layer_params(cfg, generator, device, btype)))
     params["layers"] = layers
-    params["final_norm"] = torch.zeros(d, device=device)
+    params["final_norm"] = torch.zeros(d, dtype=dtype, device=device)
     if cfg.is_encdec:
         enc = cfg.encoder
         params["encoder"] = {
-            "layers": [_block_params(cfg, generator, device, "enc")
+            "layers": [cast(_block_params(cfg, generator, device, "enc"))
                        for _ in range(enc.n_layers)],
-            "final_norm": torch.zeros(d, device=device),
-            "pos_embed": _dense(generator, (enc.n_frames, d), device,
-                                fan_in=1) * 0.02}
+            "final_norm": torch.zeros(d, dtype=dtype, device=device),
+            "pos_embed": cast(_dense(generator, (enc.n_frames, d), device,
+                                     fan_in=1) * 0.02)}
     if cfg.mtp_depth:
         params["mtp"] = []
         for _ in range(cfg.mtp_depth):
             block = _layer_params(cfg, generator, device,
                                   cfg.layer_program[-1])
-            params["mtp"].append({
+            params["mtp"].append(cast({
                 "proj": _dense(generator, (2 * d, d), device),
-                "block": block, "norm": torch.zeros(d, device=device)})
+                "block": block, "norm": torch.zeros(d, device=device)}))
     return params
 
 
-def _to_torch(tree, device, index=None, leaf=None):
-    """``tree``'s arrays as float32 tensors on ``device`` (slice ``index``
-    of each first); ``leaf`` converts an array itself instead."""
+def _to_torch(tree, device, index=None, leaf=None, dtype=None):
+    """``tree``'s arrays as tensors on ``device`` (slice ``index`` of each
+    first), each of ``dtype`` or, with ``None``, of its own: float32, or
+    bfloat16 for a leaf whose ``dtype.name`` is ``"bfloat16"`` (carried
+    through float32, which holds every bfloat16 value exactly; numpy
+    casts it because the caller's process registered the type).  ``leaf``
+    converts an array itself instead."""
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, index, leaf) for k, v in tree.items()}
+        return {k: _to_torch(v, device, index, leaf, dtype)
+                for k, v in tree.items()}
     if leaf is not None:
         return leaf(tree, index)
     a = np.asarray(tree)
     if index is not None:
         a = a[index]
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    want = dtype or (torch.bfloat16 if a.dtype.name == "bfloat16"
+                     else torch.float32)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, want)
 
 
 def _unstack(np_params: dict, cfg: ModelConfig, convert) -> dict:
@@ -320,11 +336,13 @@ def trainable(params: dict) -> dict:
     return params
 
 
-def from_reference(np_params: dict, cfg: ModelConfig, device=None) -> dict:
+def from_reference(np_params: dict, cfg: ModelConfig, device=None,
+                   dtype=None) -> dict:
     """The port's parameters from the JAX package's ``init_params`` pytree
     (leaves as numpy arrays or anything ``np.asarray`` takes), on
     ``device`` (``None``: the card, ``RuntimeError`` where none is
-    present).
+    present), each leaf of ``dtype`` or, with ``None``, of its own dtype
+    (float32 or bfloat16, bit for bit).
 
     The reference stores each scan group ``(unit, k)`` of
     :func:`plan_layer_groups` as ``groups[g][j]`` with every leaf stacked
@@ -332,7 +350,8 @@ def from_reference(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     repeat ``r`` of unit position ``j``."""
     device = resolve_device(device)
     return _unstack(np_params, cfg,
-                    lambda tree, r: _to_torch(tree, device, index=r))
+                    lambda tree, r: _to_torch(tree, device, index=r,
+                                              dtype=dtype))
 
 
 def from_reference_opt_state(np_state: dict, cfg: ModelConfig,

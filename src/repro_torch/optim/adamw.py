@@ -91,7 +91,13 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *,
             del den
             if cfg.weight_decay > 0 and decay_ok:
                 upd_.add_(cfg.weight_decay * p.float())
-            p.sub_((lr * upd_).to(p.dtype))
+            # one rounding to the leaf's dtype, as the reference's
+            # (p.f32 - lr·step).astype(p.dtype); in place in float32
+            upd_.mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(upd_)
+            else:
+                p.copy_(p.float().sub_(upd_))
             if quant:
                 m = quantize_blockwise(m, cfg.quant_block)
                 v = quantize_blockwise(v, cfg.quant_block)

@@ -3,7 +3,8 @@
 Training: :func:`build_train_step` assembles ``(params, opt_state, batch)
 -> (params, opt_state, metrics)`` from plain pieces — the global batch cut
 into ``grad_accum`` strided microbatches, their gradients accumulated in
-float32 (into ``.grad`` by ``backward()``, one leaf at a time), layer
+float32 (each microbatch's ``.grad``, in the leaf's dtype, moved into a
+float32 sum one leaf at a time, as the reference's scan adds them), layer
 remat when ``ctx.remat == "block"``, and an in-place AdamW step on the
 schedule's learning rate, decaying the leaves the reference decays
 (:func:`repro_torch.models.params.weight_decay_mask`); the loss carries
@@ -68,10 +69,12 @@ def _metrics_and_grads(cfg: ModelConfig, ctx: ExecContext,
     """(params, batch) → (metrics, grads): the loss function's metrics
     (``"loss"``, ``"ce"`` and, under multi-token prediction, ``"mtp"``),
     each the mean over the microbatches, and the loss's gradient tree
-    (float32, params' structure).  Each microbatch's ``backward()`` adds
-    into the leaves' ``.grad``, which are cleared before and taken off
-    after; with accumulation both are scaled by 1 / grad_accum, as the
-    reference's sums are."""
+    (params' structure).  Each microbatch's ``backward()`` writes the
+    leaves' ``.grad`` (cleared before); with one microbatch that is the
+    gradient, in the leaf's dtype, as the reference's; with accumulation
+    each microbatch's ``.grad`` is moved into a float32 sum and cleared
+    before the next, and the sums and metrics are scaled by 1 /
+    grad_accum, as the reference's are."""
     n = hp.grad_accum
 
     def metrics_and_grads(params, batch):
@@ -82,17 +85,29 @@ def _metrics_and_grads(cfg: ModelConfig, ctx: ExecContext,
             {k: v[j] for k, v in _microbatch(batch, n).items()}
             for j in range(n)]
         sums: dict = {}
+        acc = [None] * len(leaves)
         for b in mbs:
             lb, mb = lm.loss_fn(params, b, cfg, ctx, mtp_weight=hp.mtp_weight)
             lb.backward()
             for k, v in mb.items():
                 sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
+            if n > 1:
+                for i, p in enumerate(leaves):
+                    if p.grad is not None:
+                        acc[i] = (p.grad.float() if acc[i] is None
+                                  else acc[i].add_(p.grad))
+                        p.grad = None
 
-        def take(p):
+        def take(p, a):
+            if n > 1:
+                return (a.mul_(1.0 / n) if a is not None else
+                        torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device))
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             p.grad = None
-            return g.float().mul_(1.0 / n) if n > 1 else g.float()
-        grads = tree_map(take, params)
+            return g
+        it = iter(acc)
+        grads = tree_map(lambda p: take(p, next(it)), params)
         return ({k: v * (1.0 / n) if n > 1 else v for k, v in sums.items()},
                 grads)
 

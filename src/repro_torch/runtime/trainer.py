@@ -9,7 +9,9 @@
 The Trainer is process-shaped (no globals): tests drive it with tiny
 configs, inject failures, kill and resurrect it, and check bit-exact
 continuation.  Sharded and FSDP training (the reference's ``mesh``) wait
-for ROADMAP A7.7; float32 parameters only (A7.1).
+for ROADMAP A7.7.  ``TrainerConfig.param_dtype`` is ``"float32"`` (the
+default) or ``"bfloat16"``: the parameters' dtype, the moments float32
+either way.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from .steps import TrainHParams, build_train_step
 @dataclass
 class TrainerConfig:
     """``ckpt_every``: steps between checkpoints; 0 writes none (neither
-    periodic nor final)."""
+    periodic nor final).  ``param_dtype``: one of :data:`PARAM_DTYPES`."""
     ckpt_dir: str
     ckpt_every: int = 50
     keep: int = 3
@@ -45,6 +47,10 @@ class TrainerConfig:
     param_dtype: str = "float32"
     max_restarts: int = 3
     log: Callable[[str], None] = print
+
+
+#: the parameter dtypes the trainer builds, by ``TrainerConfig.param_dtype``
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Trainer:
@@ -64,10 +70,9 @@ class Trainer:
             raise NotImplementedError(
                 "Trainer(mesh=...): sharded and FSDP training are not ported "
                 "yet (ROADMAP A7.7); pass mesh=None for one device")
-        if tc.param_dtype != "float32":
-            raise NotImplementedError(
-                f"param_dtype {tc.param_dtype!r}: the port trains float32 "
-                f"parameters only (ROADMAP A7.1)")
+        if tc.param_dtype not in PARAM_DTYPES:
+            raise ValueError(f"param_dtype must be one of "
+                             f"{sorted(PARAM_DTYPES)}, got {tc.param_dtype!r}")
         self.cfg = cfg
         self.mesh = None
         self.data_cfg = data_cfg
@@ -89,8 +94,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def _build(self):
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        self.params = params_lib.trainable(
-            params_lib.init_params(self.cfg, gen, self.device))
+        self.params = params_lib.trainable(params_lib.init_params(
+            self.cfg, gen, self.device, PARAM_DTYPES[self.tc.param_dtype]))
         self.opt_state = adamw_init(self.params, self.opt_cfg)
         self.step = 0
         self.loader = make_batch_loader(self.data_cfg, device=self.device)

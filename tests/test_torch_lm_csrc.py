@@ -59,7 +59,8 @@ using namespace tdp::lm;
 // barrier of the kernel is the end of a loop over the block's threads.
 template <class Site, int VVL>
 struct LmLoop {
-  static int run(const LmIO& io, void*) {
+  template <class T>
+  static int run(const LmIOT<T>& io, void*) {
     if (io.n <= 0) return 0;
     if constexpr (std::is_same<Site, RmsnormSite>::value) {
       if (io.n < RMS_FEW) {
@@ -87,19 +88,35 @@ struct LmLoop {
 };
 }  // namespace
 
-extern "C" int host_lm(int site, int act, int vvl, const void* x, const void* v,
-                       const void* weight, void* out, long long n, int ncomp,
-                       float eps, float scale_offset, void* stream) {
-  tdp::lm::LmIO io{};
-  io.in[0] = static_cast<const float*>(x);
-  io.in[1] = static_cast<const float*>(v);
-  io.out = static_cast<float*>(out);
-  io.weight = static_cast<const float*>(weight);
+template <class T>
+int host_lm_t(int site, int act, int vvl, const void* x, const void* v,
+              const void* weight, void* out, long long n, int ncomp, float eps,
+              float scale_offset, void* stream) {
+  tdp::lm::LmIOT<T> io{};
+  io.in[0] = static_cast<const T*>(x);
+  io.in[1] = static_cast<const T*>(v);
+  io.out = static_cast<T*>(out);
+  io.weight = static_cast<const T*>(weight);
   io.n = n;
   io.ncomp = ncomp;
   io.eps = eps;
   io.scale_offset = scale_offset;
   return tdp::lm::dispatch_site<LmLoop>(site, act, vvl, io, stream);
+}
+
+// tdp_gathered_lm_launch's signature, dtype code and all.
+extern "C" int host_lm(int site, int act, int vvl, int dtype, const void* x,
+                       const void* v, const void* weight, void* out, long long n,
+                       int ncomp, float eps, float scale_offset, void* stream) {
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return host_lm_t<float>(site, act, vvl, x, v, weight, out, n, ncomp, eps,
+                              scale_offset, stream);
+    case tdp::DTYPE_BF16:
+      return host_lm_t<tdp::bf16>(site, act, vvl, x, v, weight, out, n, ncomp, eps,
+                                  scale_offset, stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }
 
 namespace {
@@ -348,21 +365,24 @@ void quad_reduce(float (&x)[32][2], Op op) {
   }
 }
 
+template <class Store>
 struct FlashArgs {
-  const float *q, *k, *v;
-  float* o;
+  const Store *q, *k, *v;
+  Store* o;
   float* lse;
   long long s[12];
   int B, Hq, Hkv, Sq, Sk;
   Params p;
 };
 
-// flash_fwd_kernel<DH, SPLIT> of flash_attention.cu, block by block (query
-// tiles last first, as the grid runs them), each phase over all the block's
-// threads or a warp's lanes (shuffles read the partner's value of the step
-// before), shared memory filled with NaN.
-template <int DH, int SPLIT>
-int flash_host(const FlashArgs& a) {
+// flash_fwd_kernel<DH, Store> of flash_attention.cu at a TF32 split of
+// SPLIT, block by block (query tiles last first, as the grid runs them),
+// each phase over all the block's threads or a warp's lanes (shuffles read
+// the partner's value of the step before), shared memory filled with NaN.
+// A bfloat16 operand's small term is 0 (exact in TF32), so emulating the
+// three products of 3xTF32 gives the kernel's skipped-product result.
+template <int DH, int SPLIT, class Store>
+int flash_host(const FlashArgs<Store>& a) {
   using T = FlashTile<DH>;
   constexpr int NT = FLASH_THREADS;
   std::vector<float> smem(T::V + T::BK * T::SV);
@@ -377,10 +397,10 @@ int flash_host(const FlashArgs& a) {
     for (int bx = 0; bx < nqt; ++bx) {
       const int b = bh / a.Hq, h = bh % a.Hq, hk = h / (a.Hq / a.Hkv);
       const int q0 = (nqt - 1 - bx) * FLASH_BQ;
-      const float* qg = a.q + b * a.s[0] + h * a.s[1];
-      const float* kg = a.k + b * a.s[3] + hk * a.s[4];
-      const float* vg = a.v + b * a.s[6] + hk * a.s[7];
-      float* og = a.o + b * a.s[9] + h * a.s[10];
+      const Store* qg = a.q + b * a.s[0] + h * a.s[1];
+      const Store* kg = a.k + b * a.s[3] + hk * a.s[4];
+      const Store* vg = a.v + b * a.s[6] + hk * a.s[7];
+      Store* og = a.o + b * a.s[9] + h * a.s[10];
       std::fill(smem.begin(), smem.end(), NAN);
       int lo, hi;
       key_range(a.p, q0, std::min(q0 + FLASH_BQ, a.Sq) - 1, T::BK, lo, hi);
@@ -479,21 +499,41 @@ int flash_host(const FlashArgs& a) {
   return 0;
 }
 
-template <int DH>
-int flash_split(const FlashArgs& a, int split) {
+template <int DH, class Store>
+int flash_split(const FlashArgs<Store>& a, int split) {
   return split == 1 ? flash_host<DH, 1>(a) : flash_host<DH, 3>(a);
+}
+
+template <class Store>
+FlashArgs<Store> flash_args(const void* q, const void* k, const void* v, void* o,
+                            float* lse, const long long* strides, int B, int Hq,
+                            int Hkv, int Sq, int Sk, float scale, float softcap,
+                            int causal, int window) {
+  FlashArgs<Store> a{static_cast<const Store*>(q), static_cast<const Store*>(k),
+                     static_cast<const Store*>(v), static_cast<Store*>(o), lse, {},
+                     B, Hq, Hkv, Sq, Sk, Params{scale, softcap, causal, window, Sk}};
+  std::copy(strides, strides + 12, a.s);
+  return a;
 }
 }  // namespace
 
 // The signature of flash_attention_launch, on host pointers, and the TF32
 // split to emulate: 1, or the kernel's 3 (any other value).
-extern "C" int host_flash(const float* q, const float* k, const float* v, float* o,
+extern "C" int host_flash(int dtype, const void* q, const void* k, const void* v, void* o,
                           float* lse, const long long* strides, int B, int Hq, int Hkv, int Sq,
                           int Sk, int Dh, float scale, float softcap, int causal,
                           int window, int split) {
   if (Hkv <= 0 || Hq % Hkv != 0) return -4;
-  FlashArgs a{q, k, v, o, lse, {}, B, Hq, Hkv, Sq, Sk, Params{scale, softcap, causal, window, Sk}};
-  std::copy(strides, strides + 12, a.s);
+  if (dtype == tdp::DTYPE_BF16) {
+    const auto a = flash_args<tdp::bf16>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk,
+                                         scale, softcap, causal, window);
+    if (Dh == 128) return flash_split<128>(a, split);
+    if (Dh == 256) return flash_split<256>(a, split);
+    return -3;
+  }
+  if (dtype != tdp::DTYPE_F32) return tdp::ERR_BAD_DTYPE;
+  const auto a = flash_args<float>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk, scale,
+                                   softcap, causal, window);
   switch (Dh) {
     case 16: return flash_split<16>(a, split);
     case 32: return flash_split<32>(a, split);
@@ -542,7 +582,7 @@ def host_lib(tmp_path_factory):
                     "-Wno-unknown-pragmas", f"-I{_build.CSRC}", "-o",
                     str(lib), str(src)], check=True, timeout=300)
     so = ctypes.CDLL(str(lib))
-    so.host_lm.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    so.host_lm.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
                            + [ctypes.c_longlong, ctypes.c_int]
                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     so.host_lm.restype = ctypes.c_int
@@ -562,7 +602,8 @@ def host_lib(tmp_path_factory):
     so.host_attention.restype = None
     so.host_key_range.argtypes = ([ctypes.c_int] * 6
                                   + [ctypes.POINTER(ctypes.c_int)] * 2)
-    so.host_flash.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    so.host_flash.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                              + [ctypes.c_int] * 6
                               + [ctypes.c_float] * 2 + [ctypes.c_int] * 3)
     so.host_flash.restype = ctypes.c_int
     so.host_frag.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
@@ -577,7 +618,8 @@ def _rand(seed, shape, scale=1.0):
 
 def _lm(so, site, act, vvl, x, v, w, out, eps=1e-6, scale_offset=0.0):
     ncomp, n = x.shape
-    return so.host_lm(_build.LM_SITE_ID[site], act, vvl, x.data_ptr(),
+    return so.host_lm(_build.LM_SITE_ID[site], act, vvl,
+                      _build.dtype_id(x.dtype), x.data_ptr(),
                       None if v is None else v.data_ptr(),
                       None if w is None else w.data_ptr(), out.data_ptr(), n,
                       ncomp, eps, scale_offset, None)
@@ -706,8 +748,8 @@ def test_bad_lm_site_act_and_vvl_codes(host_lib):
     x = torch.zeros(1, 8)
     assert _lm(host_lib, "gated", 7, 1, x, x, None, x) == -1
     assert _lm(host_lib, "rmsnorm", 0, 3, x, None, torch.zeros(1), x) == -2
-    assert host_lib.host_lm(9, 0, 1, x.data_ptr(), None, None, x.data_ptr(), 8,
-                            1, 0.0, 0.0, None) == -1
+    assert host_lib.host_lm(9, 0, 1, 0, x.data_ptr(), None, None, x.data_ptr(),
+                            8, 1, 0.0, 0.0, None) == -1
 
 
 _ATTN = {
@@ -849,7 +891,8 @@ def _flash(so, q, k, v, o, split, causal=True, window=0, softcap=0.0,
     hkv, sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*[x.stride(i) for x in (q, k, v, o)
                                          for i in range(3)])
-    return so.host_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    return so.host_flash(_build.dtype_id(q.dtype), q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(),
                          o.data_ptr(), None if lse is None else lse.data_ptr(),
                          strides, b, hq, hkv, sq, sk, dh,
                          dh ** -0.5 if scale is None else scale, softcap,
@@ -1192,3 +1235,187 @@ def test_aosoa_lm_codes(host_lib):
     assert (f"constexpr int MAMBA_AOSOA_ALIGN = {tpw.MAMBA_AOSOA_ALIGN};"
             in text)
     assert f"constexpr int MAMBA_AOSOA_VVL = {tpw.MAMBA_AOSOA_VVL};" in text
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 storage (bf16.cuh; rmsnorm, gated, act and the attention tile)
+# ---------------------------------------------------------------------------
+
+#: below this, outputs are held absolutely: float32's own error where a
+#: result cancels (gelu's tail, 0.5·u·(1 + tanh(·)) at u ≪ 0) is ~1e-7·|u|
+BF16_ATOL = 1e-5
+
+
+def assert_within_bf16_step(got, want):
+    """``got`` within one bfloat16 step of ``want`` (both bfloat16), or
+    :data:`BF16_ATOL`: the kernel and the plain version round float32
+    results that differ in their last bits, so a result near a rounding
+    boundary may land one step (2^-8 relative, the spacing at ``want``)
+    apart, never more."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    exp = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    bar = torch.exp2(exp - 7).clamp_min(BF16_ATOL)
+    diff = (g - w).abs()
+    assert bool((diff <= bar).all()), float((diff / bar).max())
+
+
+def _bf16(seed, shape, scale=1.0):
+    return _rand(seed, shape, scale).to(torch.bfloat16)
+
+
+def _at_offset_like(t, offset):
+    """:func:`_at_offset` in ``t``'s dtype."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].reshape(t.shape)
+
+
+@pytest.mark.parametrize("d,n", [(64, 1), (100, 3), (2304, 2), (2304, 37),
+                                 (2304, 130), (5376, 37)])
+def test_rmsnorm_site_bf16(host_lib, d, n):
+    """bfloat16 x and weight through both mappings (few tokens below 32,
+    tiled from 32) at every VVL, aligned and at a storage offset of one
+    element (the scalar rows), against the plain bfloat16 version: within
+    one bfloat16 step of its output (the sum of squares runs in another
+    order, then both round once)."""
+    x, w = _bf16(0, (d, n), 2.0), _bf16(1, (d,), 0.5)
+    want = tref.rmsnorm_ref(x.T, w, scale_offset=1.0).T
+    for vvl in (1, 2, 4, 8):
+        for offset in (0, 1):
+            out = _at_offset_like(torch.full((d, n), float("nan"),
+                                             dtype=torch.bfloat16), offset)
+            assert _lm(host_lib, "rmsnorm", 0, vvl, _at_offset_like(x, offset),
+                       None, w, out, scale_offset=1.0) == 0
+            assert_within_bf16_step(out, want)
+
+
+def test_rmsnorm_bf16_adds_offset_to_the_float_weight(host_lib):
+    """The weight enters as float32 before ``scale_offset`` is added, as the
+    reference's body does, never as a bfloat16-rounded ``1 + w``.  With
+    small weights (~2^-9) the two round to other bfloat16 outputs at many
+    elements; the kernel's output is the first's wherever they part (but
+    for the rare last-bit ties of its own sum order), in both mappings."""
+    d, n = 256, 40
+    x = _bf16(5, (d, n))
+    w = (_rand(6, (d,)) * 2.0 ** -9).to(torch.bfloat16)
+    want = tref.rmsnorm_ref(x.T, w, scale_offset=1.0).T
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).mean(0, keepdim=True) + 1e-6)
+    rounded = (xf * inv * (w.float() + 1.0).to(torch.bfloat16).float()[:, None]
+               ).to(torch.bfloat16)
+    parted = want != rounded
+    assert int(parted.sum()) > 100
+    for n_ in (3, n):                     # few-token and tiled
+        out = torch.full((d, n_), float("nan"), dtype=torch.bfloat16)
+        assert _lm(host_lib, "rmsnorm", 0, 1, x[:, :n_].contiguous(), None, w,
+                   out, scale_offset=1.0) == 0
+        p = parted[:, :n_]
+        assert int((out[p] != want[:, :n_][p]).sum()) <= int(p.sum()) // 20
+
+
+@pytest.mark.parametrize("kind", tlm.GATED_KINDS)
+@pytest.mark.parametrize("gated", [True, False])
+def test_gated_and_act_sites_bf16(host_lib, kind, gated):
+    """Every activation in bfloat16 at every VVL over a ragged extent and
+    several blocks, aligned (8-byte groups of 4) and with each operand at a
+    storage offset of one element (scalars): within one bfloat16 step of
+    the plain bfloat16 version."""
+    act = _build.LM_ACT_ID[tlm.ACT_OF_KIND[kind]]
+    site = "gated" if gated else "act"
+    for n in (8 * 37 + 5, 3 * 8192 + 4 * 5 + 3):
+        u = _bf16(2, (1, n), 3.0)
+        v = _bf16(3, (1, n)) if gated else None
+        want = tref.gated_act_ref(u, v, kind=kind)
+        for moved in (None, "u", "v", "out"):
+            if moved == "v" and not gated:
+                continue
+            uu = _at_offset_like(u, 1) if moved == "u" else u
+            vv = _at_offset_like(v, 1) if moved == "v" else v
+            for vvl in (1, 2, 4, 8):
+                out = _at_offset_like(torch.full((1, n), float("nan"),
+                                                 dtype=torch.bfloat16),
+                                      1 if moved == "out" else 0)
+                assert _lm(host_lib, site, act, vvl, uu, vv, None, out) == 0
+                assert_within_bf16_step(out, want)
+
+
+def test_bad_dtype_codes(host_lib):
+    """A storage code outside ``_build.DTYPES`` is ``ERR_BAD_DTYPE`` (-10)
+    at both entries, and bfloat16 attention at a head dim outside
+    ``BF16_HEAD_DIMS`` is ``ERR_BAD_HEAD_DIM``; the codes are the
+    sources'."""
+    from repro_torch.kernels.flash_attention import BF16_HEAD_DIMS
+    x = torch.zeros(1, 8)
+    assert host_lib.host_lm(1, 0, 1, 2, x.data_ptr(), x.data_ptr(), None,
+                            x.data_ptr(), 8, 1, 0.0, 0.0, None) == -10
+    q = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16)
+    assert _flash(host_lib, q, q, q, q.clone(), 3) == -3
+    src = (_build.CSRC / "bf16.cuh").read_text()
+    assert re.findall(r"DTYPE_(\w+) = (\d+)", src) == [
+        ("F32", "0"), ("BF16", "1")] and tuple(_build.DTYPES) == (
+            "float32", "bfloat16")
+    assert "ERR_BAD_DTYPE = -10" in src
+    fa = (_build.CSRC / "flash_attention.cu").read_text()
+    assert tuple(int(h) for h in re.findall(
+        r"if \(Dh == (\d+)\) return launch<", fa)) == BF16_HEAD_DIMS
+    with pytest.raises(ValueError, match="storage type"):
+        _build.check(-10, "x")
+
+
+#: kernel 4 in bfloat16: gemma3's local and global layers (Dh 128: GQA 2,
+#: a window narrower than the keys) and gemma2's (Dh 256, softcap 50),
+#: scaled down in the rows, over ragged query and key tiles
+_FLASH_BF16 = {
+    "gemma3_local_dh128": ((1, 4, 2, 200, 200, 128),
+                           dict(causal=True, window=40)),
+    "gemma3_global_dh128": ((2, 4, 2, 140, 140, 128), dict(causal=True)),
+    "gemma2_softcap_dh256": ((1, 4, 2, 150, 150, 256),
+                             dict(causal=True, window=64, softcap=50.0)),
+    "noncausal_ragged_dh256": ((1, 2, 1, 77, 140, 256), dict(causal=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FLASH_BF16))
+def test_flash_tile_bf16(host_lib, case):
+    """bfloat16 q, k, v through the kernel's tile (staged to float32, the
+    products and the softmax in float32, o rounded once) against the plain
+    version on the same bfloat16 inputs: within one bfloat16 step of its
+    output; the log-sum-exp (float32) at the float32 bar."""
+    (b, hq, hkv, sq, sk, dh), kw = _FLASH_BF16[case]
+    q, k, v = (_bf16(70, (b, hq, sq, dh)), _bf16(71, (b, hkv, sk, dh)),
+               _bf16(72, (b, hkv, sk, dh)))
+    o = torch.full_like(q, float("nan"))
+    lse = torch.full((b, hq, sq), float("nan"))
+    assert _flash(host_lib, q, k, v, o, 3, lse=lse, **kw) == 0
+    want, want_lse = tref.attention_ref(q, k, v, return_lse=True, **kw)
+    assert_within_bf16_step(o, want)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+def test_flash_tile_bf16_takes_transposed_views(host_lib):
+    """bfloat16 (B, S, H, Dh) projections seen as (B, H, S, Dh), o in q's
+    layout: strides in elements, as the wrapper hands them."""
+    b, hq, hkv, s, dh = 2, 4, 2, 70, 128
+    q = _bf16(73, (b, s, hq, dh)).transpose(1, 2)
+    k = _bf16(74, (b, s, hkv, dh)).transpose(1, 2)
+    v = _bf16(75, (b, s, hkv, dh)).transpose(1, 2)
+    o = torch.full((b, s, hq, dh), float("nan"),
+                   dtype=torch.bfloat16).transpose(1, 2)
+    assert _flash(host_lib, q, k, v, o, 3, causal=True, softcap=30.0) == 0
+    assert_within_bf16_step(o, tref.attention_ref(q, k, v, causal=True,
+                                                  softcap=30.0))
+
+
+def test_flash_row_strides_bf16():
+    """bfloat16 strides in elements, multiples of 8 (16 bytes); a float32
+    tensor where bfloat16 is asked for, or rows 4 elements apart, raise."""
+    from repro_torch.kernels.flash_attention import row_strides
+    cpu, bf = torch.device("cpu"), torch.bfloat16
+    q = torch.zeros(2, 3, 5, 16, dtype=bf)
+    assert row_strides("q", q, cpu, bf) == [240, 80, 16]
+    for x in (torch.zeros(2, 3, 5, 16),
+              torch.zeros(2, 3, 5, 20, dtype=bf)[..., :16]):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            row_strides("q", x, cpu, bf)

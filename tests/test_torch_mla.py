@@ -409,7 +409,7 @@ def test_mla_caches_init_and_pad():
     their sequence dimension, zero-filled."""
     cfg_j, cfg = JC.get_smoke(ARCH), TC.get_smoke(ARCH)
     want = jlm.init_cache(None, cfg_j, 3, 20, dtype=jnp.float32)
-    got = tlm.init_cache(cfg, 3, 20, device="cpu")
+    got = tlm.init_cache(cfg, 3, 20, dtype=torch.float32, device="cpu")
     flat = [c for unit in want for c in unit]
     assert len(got) == cfg.n_layers
     for layer in got:

@@ -181,8 +181,9 @@ def test_ring_cache_decode_matches_jax(smoke):
     b, n = 2, 12
     toks = _tokens(cfg_t, b, n, seed=7)
     jc = jlm.init_cache(None, cfg_j, b, n, dtype=jnp.float32, local_ring=True)
-    ring = tlm.init_cache(cfg_t, b, n, device="cpu", local_ring=True)
-    full = tlm.init_cache(cfg_t, b, n, device="cpu")
+    ring = tlm.init_cache(cfg_t, b, n, dtype=torch.float32, device="cpu",
+                          local_ring=True)
+    full = tlm.init_cache(cfg_t, b, n, dtype=torch.float32, device="cpu")
     assert ring[0]["k"].shape[2] == cfg_t.attn.window
     assert ring[1]["k"].shape[2] == n
     ctx = ExecContext(backend="cuda")

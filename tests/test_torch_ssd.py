@@ -288,7 +288,7 @@ def test_from_reference_carries_the_tie():
 def test_init_cache_matches_reference():
     cfg_j, cfg_t = JC.get_smoke(ARCH), TC.get_smoke(ARCH)
     want = jlm.init_cache(None, cfg_j, 3, 20, dtype=jnp.float32)
-    got = tlm.init_cache(cfg_t, 3, 20, device="cpu")
+    got = tlm.init_cache(cfg_t, 3, 20, dtype=torch.float32, device="cpu")
     assert len(got) == cfg_t.n_layers == 6
     for layer in range(5):
         assert set(got[layer]) == {"conv", "conv_bc", "ssm"}

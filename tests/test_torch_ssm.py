@@ -213,7 +213,7 @@ def test_init_cache_matches_reference():
     cfg_t = TC.get_smoke("falcon-mamba-7b")
     want = jlm.init_cache(None, JC.get_smoke("falcon_mamba_7b"), 3, 20,
                           dtype=jnp.float32)
-    got = tmlm.init_cache(cfg_t, 3, 20, device="cpu")
+    got = tmlm.init_cache(cfg_t, 3, 20, dtype=torch.float32, device="cpu")
     assert len(got) == cfg_t.n_layers
     for k in ("conv", "ssm"):
         assert tuple(got[0][k].shape) == tuple(want[0][0][k].shape[1:])

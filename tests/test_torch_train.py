@@ -22,8 +22,9 @@ carried across by ``params.from_reference`` /
   bit, a dead peer triggers the restart loop, the straggler monitor and
   the heartbeat (whose files the reference's ``Heartbeat`` reads);
 * ``launch.train`` on the smoke config, and the ``NotImplementedError`` of
-  what is not ported: a mesh, ``compress_pod``, multi-token prediction,
-  non-float32 parameters.
+  what is not ported: a mesh, ``compress_pod``, multi-token prediction;
+  a ``param_dtype`` other than float32 and bfloat16 raises ``ValueError``
+  (bfloat16 training: ``tests/test_torch_bf16.py``).
 
 The reference's trainer and steps are jitted once per module (fixtures).
 """
@@ -324,9 +325,9 @@ def test_trainer_defaults_and_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="A7.7"):
         Trainer(TINY, None, DATA, AdamWConfig(),
                 TrainHParams(compress_pod=True), tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7.1"):
+    with pytest.raises(ValueError, match="param_dtype"):
         Trainer(TINY, None, DATA, AdamWConfig(), hp,
-                TrainerConfig(ckpt_dir=str(tmp_path), param_dtype="bfloat16"),
+                TrainerConfig(ckpt_dir=str(tmp_path), param_dtype="float16"),
                 device="cpu")
 
 

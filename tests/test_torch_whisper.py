@@ -392,7 +392,7 @@ def test_pad_caches_grows_the_nested_self_cache():
     assert not padded[0]["self"]["v"][:, :, 5:].any()
     assert padded[0]["xk"] is caches[0]["xk"]
     assert padded[0]["xv"] is caches[0]["xv"]
-    got = tlm.init_cache(cfg, 3, 20, device="cpu")
+    got = tlm.init_cache(cfg, 3, 20, dtype=torch.float32, device="cpu")
     want = _flat_caches(jlm.init_cache(None, JC.get_smoke(ARCH), 3, 20,
                                        dtype=jnp.float32))
     assert len(got) == len(want) == cfg.n_layers

@@ -1,7 +1,8 @@
 """Time the LM kernels (rmsnorm, gated, act, mamba, flash) on one card.
 
     python3 tools/time_lm_kernels.py [--src DIR] [--tag NAME] \
-        [--kernels rmsnorm,gated,act,mamba,flash,flash80,flash192,flash64w]
+        [--kernels rmsnorm,gated,act,mamba,flash,flash128,flash80,flash192,
+                   flash64w]
 
 Builds the CUDA sources of the ``repro_torch`` package under ``--src``
 (default: this checkout's ``src``) and, on seeded random float32 inputs,
@@ -26,6 +27,10 @@ written once, at 3.35 TB/s):
   50) and plain causal layers, the last beside
   ``scaled_dot_product_attention``; bounds: float32 on the CUDA cores and
   TF32 on the tensor cores (one TF32 product and 3xTF32);
+* ``flash128``: ``flash_attention`` at gemma3-27b's prefill (2, 32 / 16,
+  4096, Dh 128), causal, no softcap: its local layers (window 1024) and
+  its global ones, each beside SDPA (a band mask for the window,
+  ``is_causal`` for the global);
 * ``flash80``: ``flash_attention`` at zamba2-2.7b's shared block (2, 32,
   32, 4096, 4096, Dh 80), causal, beside SDPA and beside the route that
   pads q, k and v with zeros to Dh 128 and slices the output (timed for
@@ -88,8 +93,10 @@ ATTN_VARIANTS = {"local": (4096, 50.0), "attn": (0, 50.0), "causal": (0, 0.0)}
 ATTN80_SHAPE, PAD_DH = (2, 32, 32, 4096, 80), 128
 #: deepseek-v3-671b's MLA prefill: (B, Hq, Hkv, S, Dh) and V's own width
 ATTN192_SHAPE, V192 = (2, 128, 128, 4096, 192), 128
-KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash", "flash80",
-           "flash192", "flash64w")
+#: gemma3-27b's prefill attention: (B, Hq, Hkv, S, Dh), its local window
+ATTN128_SHAPE, WINDOW128 = (2, 32, 16, 4096, 128), 1024
+KERNELS = ("rmsnorm", "gated", "act", "mamba", "flash", "flash128",
+           "flash80", "flash192", "flash64w")
 
 
 def main(argv=None) -> int:
@@ -257,6 +264,41 @@ def main(argv=None) -> int:
             del want
             torch.cuda.empty_cache()
         del q, k, v
+
+    if "flash128" in todo:
+        b, hq, hkv, s_len, dh = ATTN128_SHAPE
+        q = torch.randn(b, hq, s_len, dh, device=dev, generator=g)
+        k, v = (torch.randn(b, hkv, s_len, dh, device=dev, generator=g)
+                for _ in range(2))
+        i = torch.arange(s_len, device=dev)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - WINDOW128)
+        for variant, window in (("local", WINDOW128), ("global", 0)):
+            want = ref.attention_ref(q, k, v, causal=True, window=window)
+
+            def call(window=window):
+                return flash_attention.flash_attention(q, k, v, causal=True,
+                                                       window=window)
+            got = call()
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            if not torch.allclose(got, want, **LM_TOL):
+                problems.append(f"flash gemma3 {variant}: max |kernel - "
+                                f"plain| = {e}")
+            del got, want
+            lib = ((lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True)) if window else
+                (lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)))
+            out = {"name": f"flash gemma3 {variant} (Dh 128)",
+                   "shape": [b, hq, hkv, s_len, s_len, dh], "window": window,
+                   "max_abs_err": e, "ms": time_ms(call),
+                   "library_ms": time_ms(lib),
+                   "bound_tf32x3_ms": attn_bound(b, hq, hkv, s_len, s_len, dh,
+                                                 True, window, split=3)[0]}
+            print(json.dumps(out), file=sys.stderr, flush=True)
+            rows.append(out)
+            torch.cuda.empty_cache()
+        del q, k, v, band
 
     if "flash80" in todo:
         b, hq, hkv, s_len, dh = ATTN80_SHAPE
