@@ -313,9 +313,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    alone.
 
 15. bfloat16 parameters and caches (``bf16_phase``, ROADMAP A7.1): the
-   bfloat16 kernels first named on the card — bfloat16 into ``mamba``, an
-   LB kernel and kernel 4 at Dh 64 raise (``NotImplementedError`` /
-   ``ValueError``, A7.1b); gemma3-27b cut to 12 layers from seeded
+   bfloat16 refusals first named on the card — bfloat16 into the AoSoA
+   ``mamba`` launch and an LB kernel raise ``NotImplementedError`` (A7.1c),
+   kernel 4 at a head dim it is not instantiated for (48) ``ValueError``;
+   gemma3-27b cut to 12 layers from seeded
    bfloat16 weights served on the kernels and on the plain path, and the
    same weights upcast to float32 on the float32 kernels: the kernels'
    bfloat16 logits no further from the float32 run than
@@ -351,6 +352,34 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    and its registers and spills; their launches are the phase's.  Printed
    as one ``{"bf16": ...}`` line.  ``python3 chip_smoke.py --only bf16``
    runs phases 1, 2 and 15 alone.
+
+16. bfloat16 for the Mamba, MoE, MLA and whisper families
+   (``bf16_families_phase``, ROADMAP A7.1b), each family from seeded
+   bfloat16 weights at full width (``BF16F_SERVE``): falcon-mamba-7b (held
+   at 8 layers, then served whole, 64 layers), zamba2-2.7b, granite-moe-
+   1b-a400m and whisper-medium whole, deepseek-v3-671b at phase 13's 4 of
+   61 layers; each served on the kernels with every kernel call held to
+   its plain version on the model's own activations (``held_calls``: the
+   ``mamba`` scan, kernel 4 and kernel 2a) and its logits to the plain
+   path's within ``BF16F_SERVE_BAR`` of the largest (the plain scan fed dt
+   rounded as the kernels take it, ``dt_rounded_scan``), greedy tokens
+   equal wherever the margin exceeds the distance; prefill ms, decode ms a
+   step, the busy share (``serve_busy``) and the peak; each path's
+   launches held to the family's float32 count.  falcon-mamba-7b cut to
+   ``BF16F_TRAIN_LAYERS`` trained through ``Trainer(param_dtype=
+   "bfloat16")`` (``BF16F_TRAIN_STEPS`` steps of 8 × 256 tokens in two
+   microbatches), step 1 held to the plain path at ``BF16_TRAIN_TOL`` leaf
+   by leaf with the floor of ``hold_leaves_to_floor``.  Then the rows in
+   bfloat16 (``bf16_family_rows``): the ``mamba`` site function at
+   falcon-mamba-7b's layer (2, 4096, 8192, 16) at every VVL, kernel 4 at
+   granite's, whisper's three, zamba2's and deepseek's attentions
+   (``BF16F_ATTN_ROWS``), each held to its plain version by ``bf16_close``
+   against a control that must fail it (the scan's state rounded to
+   bfloat16 each step, ``mamba_state_rounded``; ``p_rounded_attention``),
+   timed beside it, its bound and SDPA in bfloat16 (recorded, not held),
+   with its registers and spills.  Printed as one ``{"bf16_families":
+   ...}`` line.  ``python3 chip_smoke.py --only bf16_families`` runs phases
+   1, 2 and 16 alone.
 
 Prints the kernels line (none under ``--only``) and, last, ``{"ok": true,
 "device": {...}}``; exits
@@ -509,12 +538,21 @@ PARAMS = dict(A=0.125, B=0.125, kappa=0.02)
 PHYS = dict(A=0.125, B=0.11, kappa=0.02, tau=0.9, tau_phi=1.1, gamma=0.8)
 GRID = (128, 128, 128)
 STEPS = 20
-#: Clock cycles the spin kernel of time_ms() holds the stream: about a second
-#: at the H100's clocks, longer than the host takes to enqueue 20 launches of
-#: any function time_ms() times.  The mamba site function's plain version (a
+#: The most clock cycles the spin kernel of time_ms() holds the stream: about
+#: a second at the H100's clocks, longer than the host takes to enqueue 20
+#: launches of any function time_ms() times.  The mamba site function's plain version (a
 #: Python loop of some 33 000 PyTorch calls per launch) is host-bound and is
 #: timed by wall_ms() instead.
 HOLD_CYCLES = 2_000_000_000
+#: time_ms()'s spin is sized from the warm-up: HOLD_MARGIN times the
+#: longest a warm-up call took to return, for every timed call, at the
+#: H100's boost clock (a lower clock spins longer), and never under
+#: HOLD_FLOOR cycles (~10 ms).
+HOLD_MARGIN = 3
+HOLD_FLOOR = 20_000_000
+SPIN_CLOCK_HZ = 1.98e9
+#: time_ms()'s timed loops, and those timed again under the full hold
+TIMED = {"calls": 0, "retimed": 0}
 #: The hold for the tdp surface's rows: about 0.1 s, longer than 20 launches
 #: of any of them take to enqueue (the AoS collision is ~40 PyTorch calls).
 SHORT_HOLD = 200_000_000
@@ -918,9 +956,77 @@ PEAK_BF16_PER_S = 989e12
 BF16_ATTN_PER_FLOP = (1 / PEAK_BF16_PER_S,
                       min(3 / PEAK_BF16_PER_S, 2 / PEAK_TF32_PER_S))
 
+#: the bfloat16 scan's absolute floor: its y sums N products h·c that can
+#: be far larger than y, so near y = 0 the float32 results of the kernel
+#: and its plain version lie a float32 error of those products apart (up to
+#: ~1e-4), more than ``BF16_ATOL``; the float32 scan's row is held at
+#: ``LM_TOL``'s atol, which this is
+BF16_SCAN_ATOL = LM_TOL["atol"]
+#: Phase 16 (bfloat16 for the Mamba, MoE, MLA and whisper families,
+#: A7.1b), each family from seeded bfloat16 weights at full width: (arch,
+#: layers served on the kernels, layers at which every kernel call and the
+#: logits are held to the plain path, prompts, prompt tokens); None is the
+#: model's own depth.  falcon-mamba's plain scan takes 0.93 s a layer, so
+#: it is held at 8 of its 64 layers; zamba2 at 12 of 54 (two uses of the
+#: tied block), where its bfloat16 roundings have not yet spread its
+#: logits by a sixth as at 54; deepseek is served at phase 13's 4 of 61
+#: (its first MoE layer among them)
+BF16F_SERVE = [("falcon-mamba-7b", None, 8, SERVE_BATCH, MAMBA_PROMPT),
+               ("zamba2-2.7b", None, 12, SERVE_BATCH, SSD_PROMPT),
+               ("granite-moe-1b-a400m", None, None, SERVE_BATCH, MOE_PROMPT),
+               ("deepseek-v3-671b", MLA_SERVE_LAYERS, MLA_SERVE_LAYERS,
+                SERVE_BATCH, MLA_PROMPT),
+               ("whisper-medium", None, None, WHISPER_BATCH, WHISPER_PROMPT)]
+#: the kernels' bfloat16 logits against the plain path's at the held
+#: depth, at each step a share of the plain path's largest |logit|: 1.4 ×
+#: the kernels' largest reading (falcon-mamba × 8 0.0193, zamba2 × 12
+#: 0.0537, granite 0.0601, deepseek × 4 0.0566, whisper 0.0119).  A
+#: rounding placed elsewhere on the plain path lands as far (P rounded to
+#: bfloat16: 0.0172 / 0.0449 / 0.0556 / 0.0119; falcon-mamba's dt not
+#: rounded: 0.0212): these models' own bfloat16 noise hides it end to end,
+#: as phase 15 found, so the per-call holds (``held_calls``) and the rows
+#: are what reject such a kernel (PERF.md §6)
+BF16F_SERVE_BAR = {"falcon-mamba-7b": 0.027, "zamba2-2.7b": 0.075,
+                   "granite-moe-1b-a400m": 0.085, "deepseek-v3-671b": 0.08,
+                   "whisper-medium": 0.017}
+#: falcon-mamba-7b trained in bfloat16 at its first layers: arch, layers,
+#: steps (8 × 256 tokens in two microbatches, ``BF16_TRAIN_SHAPE``)
+BF16F_TRAIN_ARCH, BF16F_TRAIN_LAYERS, BF16F_TRAIN_STEPS = (
+    "falcon-mamba-7b", 4, 4)
+#: the bfloat16 ``mamba`` row: falcon-mamba-7b's layer (batch, L, d_inner,
+#: d_state), both rows in one launch
+BF16F_MAMBA = (SERVE_BATCH, MAMBA_PROMPT, 8192, 16)
+#: kernel 4's bfloat16 rows (tag, B, Hq, Hkv, Sq, Sk, Dh, causal): granite's
+#: layer, whisper's encoder, decoder and cross attentions, zamba2's shared
+#: block, deepseek's MLA
+BF16F_ATTN_ROWS = [("bf16_granite", 2, 16, 8, 4096, 4096, 64, True),
+                   ("bf16_whisper_encoder", 4, 16, 16, 1500, 1500, 64, False),
+                   ("bf16_whisper_decoder", 4, 16, 16, 432, 432, 64, True),
+                   ("bf16_whisper_cross", 4, 16, 16, 432, 1500, 64, False),
+                   ("bf16_zamba2", 2, 32, 32, 4096, 4096, 80, True),
+                   ("bf16_deepseek", 2, 128, 128, 4096, 4096, 192, True)]
+#: launches of the plain version timed a row (deepseek's takes ~0.1 s)
+BF16F_ATTN_PLAIN_REPS = 5
+#: kernel 4's bfloat16 checks at every head dim: (B, Hq, Hkv, Sq, Sk,
+#: keywords) — ragged tiles with GQA, a window with a softcap, non-causal
+#: Sq ≠ Sk
+BF16F_ATTN_CHECKS = [(2, 4, 2, 300, 300, dict(causal=True)),
+                     (1, 4, 1, 200, 200, dict(causal=True, window=64,
+                                              softcap=30.0)),
+                     (1, 2, 2, 92, 348, dict(causal=False))]
+#: the bfloat16 scan's checks (batch, L, d_inner, d_state): ragged chunks
+#: and channel blocks, n a multiple of 8 (16-byte copies) and not
+BF16F_MAMBA_CHECKS = [(1, 77, 1000, 16), (3, 45, 301, 8), (2, 64, 256, 16)]
+
+
+#: the script's start: every log line carries the seconds since it, which
+#: is how the phases' shares of the time limit are read
+T_START = time.perf_counter()
+
 
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", file=sys.stderr,
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1011,19 +1117,39 @@ def time_ms(fn, reps: int = 20, warmup: int = 3,
     A spin kernel holds the stream while the host enqueues every launch, so
     the events bracket device work only and not the Python dispatch of the
     wrapper (which, on an idle card, would otherwise land between an event
-    and its kernel)."""
+    and its kernel).  The spin lasts ``HOLD_MARGIN`` times the longest
+    time a warm-up call took to return (the host's time a call, or more
+    where it waited on the card) for all ``reps`` calls, at least
+    ``HOLD_FLOOR`` and at most ``hold`` cycles.  If the host took longer to
+    enqueue them than the spin can have lasted (at the boost clock), the
+    launches are timed again under the full ``hold``."""
+    host_s = 0.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_s = max(host_s, time.perf_counter() - t0)
     torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(hold)
-    events[0].record()
-    for i in range(reps):
-        fn()
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b)
-                             for a, b in zip(events, events[1:]))
+    cycles = hold
+    if warmup:
+        cycles = min(hold, max(HOLD_FLOOR, int(
+            HOLD_MARGIN * reps * host_s * SPIN_CLOCK_HZ)))
+    while True:
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(reps + 1)]
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        events[0].record()
+        for i in range(reps):
+            fn()
+            events[i + 1].record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        TIMED["calls"] += 1
+        if cycles >= hold or enqueue_s < cycles / SPIN_CLOCK_HZ:
+            return statistics.median(a.elapsed_time(b)
+                                     for a, b in zip(events, events[1:]))
+        TIMED["retimed"] += 1
+        cycles = hold
 
 
 def wall_ms(fn, reps: int = 3, warmup: int = 1) -> float:
@@ -4935,23 +5061,23 @@ def whisper_phase(drive, by_path, problems, device="cuda") -> dict:
     return out
 
 
-def bf16_readings(got, want) -> dict:
+def bf16_readings(got, want, atol=BF16_ATOL) -> dict:
     """bfloat16 ``got`` against ``want``: the largest distance in bfloat16
-    steps (the spacing at ``want``, 2^-7 of its binade, or ``BF16_ATOL``
-    where that is smaller) and the share of elements on another value."""
+    steps (the spacing at ``want``, 2^-7 of its binade, or ``atol`` where
+    that is smaller) and the share of elements on another value."""
     g, w = got.float(), want.float()
     exp = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
-    step = torch.exp2(exp - 7).clamp_min(BF16_ATOL)
+    step = torch.exp2(exp - 7).clamp_min(atol)
     return {"max_bf16_steps": float(((g - w).abs() / step).max()),
             "share_apart": float((g != w).float().mean())}
 
 
-def bf16_close(got, want) -> bool:
+def bf16_close(got, want, atol=BF16_ATOL) -> bool:
     """bfloat16 ``got`` finite, every element within one bfloat16 step of
-    ``want`` and at most ``BF16_SHARE_BAR`` of them apart: a kernel and its
-    plain version compute float32 results a few ulps apart, which land on
-    the same bfloat16 value but near a rounding boundary."""
-    r = bf16_readings(got, want)
+    ``want`` (or ``atol``) and at most ``BF16_SHARE_BAR`` of them apart: a
+    kernel and its plain version compute float32 results a few ulps apart,
+    which land on the same bfloat16 value but near a rounding boundary."""
+    r = bf16_readings(got, want, atol)
     return bool(got.dtype == want.dtype == torch.bfloat16
                 and torch.isfinite(got).all() and r["max_bf16_steps"] <= 1
                 and r["share_apart"] <= BF16_SHARE_BAR)
@@ -5009,16 +5135,18 @@ def p_rounded_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 @contextlib.contextmanager
 def held_calls(attention=None):
     """Yields a dict that gets, for each of ``ops.flash_attention``,
-    ``ops.rmsnorm`` and ``ops.gated_act`` called in the block, its calls,
-    the worst ``bf16_readings`` of its output against the plain version's
-    (``target="torch"``, attention ``"chunked"``) on the same inputs, and
-    whether ``bf16_close`` held at every call: a served model's kernels held
-    on its own activations, layer by layer.  ``attention`` (q, k, v, **kw)
-    computes the attention the block runs in place of the op: phase 15's
-    control, ``p_rounded_attention``, which must fail the hold."""
+    ``ops.rmsnorm``, ``ops.gated_act`` and ``ops.mamba_scan`` called in the
+    block, its calls, the worst ``bf16_readings`` of its bfloat16 output
+    against the plain version's (``target="torch"``, attention
+    ``"chunked"``) on the same inputs, and whether ``bf16_mixed_close``
+    held at every call (the scan's float32 state at ``LM_TOL``): a served
+    model's kernels held on its own activations, layer by layer.
+    ``attention`` (q, k, v, **kw) computes the attention the block runs in
+    place of the op: phase 15's control, ``p_rounded_attention``, which
+    must fail the hold."""
     from repro_torch.kernels import ops
-    saved = {n: getattr(ops, n)
-             for n in ("flash_attention", "rmsnorm", "gated_act")}
+    saved = {n: getattr(ops, n) for n in ("flash_attention", "rmsnorm",
+                                          "gated_act", "mamba_scan")}
     store: dict = {}
 
     def wrap(name):
@@ -5034,15 +5162,19 @@ def held_calls(attention=None):
             if name == "flash_attention":
                 plain["impl"] = "chunked"
             with torch.no_grad():
-                want = op(*args, **plain)
-                got = out.detach()
+                wants = op(*args, **plain)
+            gots, wants = ((out, wants) if name == "mamba_scan"
+                           else ((out,), (wants,)))
             st = store.setdefault(name, {"calls": 0, "close": True,
                                          "max_bf16_steps": 0.0,
                                          "share_apart": 0.0})
             st["calls"] += 1
-            st["close"] &= bf16_close(got, want)
-            for k, v in bf16_readings(got, want).items():
-                st[k] = max(st[k], v)
+            atol = BF16_SCAN_ATOL if name == "mamba_scan" else BF16_ATOL
+            for got, want in zip(gots, wants):
+                got = got.detach()
+                st["close"] &= bf16_mixed_close(got, want, atol)
+                for k, v in bf16_mixed_readings(got, want, atol).items():
+                    st[k] = max(st[k], v)
             return out
         return held
     for n in saved:
@@ -5055,31 +5187,38 @@ def held_calls(attention=None):
 
 
 def bf16_named_raises(problems) -> dict:
-    """bfloat16 where the port has no bfloat16 kernel yet (A7.1b), on the
-    card: ``mamba`` and an LB kernel raise ``NotImplementedError``, kernel 4
-    at Dh 64 ``ValueError``, each naming A7.1b; no launch."""
+    """bfloat16 where the port has no bfloat16 kernel yet (A7.1c), on the
+    card: the AoSoA ``mamba`` launch and an LB kernel raise
+    ``NotImplementedError`` naming A7.1c, kernel 4 at a head dim it is not
+    instantiated for (48) ``ValueError``; no launch."""
+    from repro_torch.core import Target
     from repro_torch.kernels import flash_attention, lb_collision, ops
     dev, bf = torch.device("cuda"), torch.bfloat16
     out = {}
     z = torch.zeros
     cases = {
-        "mamba": (NotImplementedError, lambda: ops.mamba_scan(
+        "mamba_aosoa": (NotImplementedError, "A7.1c", lambda: ops.mamba_scan(
             z(1, 8, 64, dtype=bf, device=dev), z(1, 8, 64, dtype=bf, device=dev),
             z(1, 8, 16, dtype=bf, device=dev), z(1, 8, 16, dtype=bf, device=dev),
-            z(64, 16, dtype=bf, device=dev), z(64, dtype=bf, device=dev))),
-        "lb_collision": (NotImplementedError, lambda: lb_collision.lb_collision(
-            *(z(c, 64, dtype=bf, device=dev) for c in (19, 19, 1, 3, 1)))),
-        "flash_attention_dh64": (ValueError, lambda: flash_attention.flash_attention(
-            *(z(1, 2, 8, 64, dtype=bf, device=dev) for _ in range(3))))}
-    for name, (exc, fn) in cases.items():
+            z(64, 16, device=dev), z(64, device=dev),
+            target=Target("cuda", vvl=16, layout="aosoa"))),
+        "lb_collision": (NotImplementedError, "A7.1c",
+                         lambda: lb_collision.lb_collision(
+                             *(z(c, 64, dtype=bf, device=dev)
+                               for c in (19, 19, 1, 3, 1)))),
+        "flash_attention_dh48": (ValueError, "head_dim",
+                                 lambda: flash_attention.flash_attention(
+                                     *(z(1, 2, 8, 48, dtype=bf, device=dev)
+                                       for _ in range(3))))}
+    for name, (exc, word, fn) in cases.items():
         try:
             fn()
             out[name] = "no error"
         except exc as e:
             out[name] = f"{type(e).__name__}: {e}"
-        if "A7.1b" not in out[name]:
+        if word not in out[name]:
             problems.append(f"phase 15: bfloat16 into {name} gave "
-                            f"{out[name]!r}, not the named A7.1b error")
+                            f"{out[name]!r}, not the named error")
     return out
 
 
@@ -5096,25 +5235,27 @@ def logits_distance(a: dict, b: dict) -> float:
 
 
 def bf16_compare(kern: dict, plain: dict, problems: list, what: str,
-                 layers: int) -> dict:
-    """Each step's logits within ``BF16_SERVE_BAR[layers]`` of the plain
-    path's largest |logit|; greedy tokens equal wherever the plain path's
-    top-2 margin exceeds the step's logits distance, the exceptions
-    (near-ties the distance covers) counted; the comparison stops where the
-    streams part."""
-    bar = BF16_SERVE_BAR[layers]
+                 layers: int, bar=None) -> dict:
+    """Each step's logits within ``bar`` (by default
+    ``BF16_SERVE_BAR[layers]``) of the plain path's largest |logit|;
+    greedy tokens equal wherever the plain path's top-2 margin exceeds the
+    step's logits distance, the exceptions (near-ties the distance covers)
+    counted; the comparison stops where the streams part."""
+    bar = BF16_SERVE_BAR[layers] if bar is None else bar
     steps, near_ties = [], 0
     for i, (lk, lp, tk, tp) in enumerate(zip(kern["logits"], plain["logits"],
                                              kern["tokens"], plain["tokens"])):
-        d = lk.float() - lp.float()
+        # padded vocab entries carry ±1e30 in both: left out
+        real = lp.float().abs() < 1e29
+        d = torch.where(real, lk.float() - lp.float(), 0.0)
         diff = float(d.abs().max())
-        scale = float(lp.float().abs().max())
+        scale = float(lp.float().abs().masked_fill(~real, 0.0).max())
         top2 = torch.topk(lp.float(), 2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).cpu()
         same = (tk.cpu() == tp.cpu()).reshape(-1)
         near_ties += int((~same & (margin <= diff)).sum())
         steps.append({"step": i, "max_abs_logit_diff": diff,
-                      "rms_logit_diff": float(d.square().mean().sqrt()),
+                      "rms_logit_diff": float(d[real].square().mean().sqrt()),
                       "max_abs_logit": scale, "rel": diff / scale,
                       "min_top2_margin": float(margin.min()),
                       "tokens_equal": bool(same.all())})
@@ -5360,8 +5501,7 @@ def bf16_train(drive, by_path, problems, device="cuda") -> dict:
                             f"{by_path[p]}")
 
     # a bfloat16 checkpoint (raw bytes) of the smoke model on the card,
-    # written and restored bit for bit; on the plain path, as its head dim
-    # (16) has no bfloat16 kernel 4 (A7.1b)
+    # written and restored bit for bit, on the plain path
     small = configs.get_smoke(BF16_TRAIN_ARCH)
     a = trainer_for(small, "torch", tmp + "_ckpt", 3, ckpt_every=3,
                     seq_len=64, device=device, param_dtype="bfloat16")
@@ -5438,11 +5578,480 @@ def bf16_phase(drive, by_path, problems, device="cuda", ptxas=()) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def dt_rounded_scan():
+    """The plain path's selective scan (``models.ssm._chunked_scan``) fed
+    dt rounded to x's bfloat16, as the ``"cuda"`` route hands dt to the
+    ``mamba`` site function (the reference's Pallas scan rounds it, its
+    ``"xla"`` scan does not: falcon-mamba's smoke logits 2.9e-2 apart).
+    Phase 16's plain path then computes the kernels' function; float32 is
+    unchanged (the rounding is a no-op)."""
+    from repro_torch.models import ssm
+    scan = ssm._chunked_scan
+
+    def rounded(x, dt, *args, **kw):
+        return scan(x, dt.to(x.dtype), *args, **kw)
+    ssm._chunked_scan = rounded
+    try:
+        yield
+    finally:
+        ssm._chunked_scan = scan
+
+
+def mamba_state_rounded(x, dt, a, d, b, c, batch, length):
+    """The control of the bfloat16 ``mamba`` row: the plain body
+    (``kernels.lm.mamba_scan_spec``) with its state rounded to bfloat16
+    after every step, which ``bf16_close`` must reject."""
+    xf, dtf, bf_, cf = x.float(), dt.float(), b.float(), c.float()
+    ys, hs = [], []
+    for r in range(batch):
+        h = torch.zeros(a.shape[0], x.shape[1], device=x.device)
+        for t in range(r * length, (r + 1) * length):
+            h = (h * torch.exp(dtf[t][None, :] * a)
+                 + (dtf[t] * xf[t])[None, :] * bf_[t][:, None]).to(
+                     torch.bfloat16).float()
+            ys.append((h * cf[t][:, None]).sum(0) + d[0] * xf[t])
+        hs.append(h)
+    return torch.stack(ys).to(torch.bfloat16), torch.cat(hs)
+
+
+def bf16_mixed_close(got, want, atol=BF16_ATOL) -> bool:
+    """``bf16_close`` for a bfloat16 output, ``LM_TOL`` for a float32 one
+    (the scan's final state)."""
+    if want.dtype == torch.bfloat16:
+        return bf16_close(got, want, atol)
+    return bool(got.dtype == want.dtype and torch.isfinite(got).all()
+                and torch.allclose(got, want, **LM_TOL))
+
+
+def bf16_mixed_readings(got, want, atol=BF16_ATOL) -> dict:
+    """``bf16_readings`` of a bfloat16 output; a float32 one reads 0."""
+    if want.dtype == torch.bfloat16:
+        return bf16_readings(got, want, atol)
+    return {"max_bf16_steps": 0.0, "share_apart": 0.0}
+
+
+def scan_close(got, want) -> bool:
+    """``bf16_mixed_close`` at the scan's absolute floor
+    ``BF16_SCAN_ATOL``."""
+    return bf16_mixed_close(got, want, BF16_SCAN_ATOL)
+
+
+def scan_readings(got, want) -> dict:
+    """``bf16_mixed_readings`` at ``BF16_SCAN_ATOL``."""
+    return bf16_mixed_readings(got, want, BF16_SCAN_ATOL)
+
+
+def falcon_expected(cfg) -> tuple[dict, dict, dict]:
+    """falcon-mamba's launches on the kernels: one prefill (per layer the
+    norm and the scan, the final norm), ``SERVE_DECODE`` decode steps (the
+    norms; the O(1) state update is plain PyTorch, as in the reference)
+    and one training microbatch (each layer's forward twice under block
+    remat, the final norm once)."""
+    rms, mamba = ("tdp_gathered", "rmsnorm"), ("tdp_gathered", "mamba")
+    n = cfg.n_layers
+    return ({rms: n + 1, mamba: n}, {rms: (n + 1) * SERVE_DECODE},
+            {rms: 2 * n + 1, mamba: 2 * n})
+
+
+def bf16_family_expected(cfg) -> tuple[dict, dict]:
+    """The launches of one prefill and ``SERVE_DECODE`` decode steps on the
+    kernels, as the family's float32 phase holds them."""
+    if "mamba1" in cfg.layer_program:
+        return falcon_expected(cfg)[:2]
+    if "mamba2" in cfg.layer_program:
+        return ssd_expected(cfg)[:2]
+    if cfg.mla is not None:
+        return deepseek_expected(cfg)[:2]
+    if cfg.is_encdec:
+        return whisper_expected(cfg)[:2]
+    return dense_expected(cfg)
+
+
+def bf16_family_serve(arch, layers, held_layers, nprompts, prompt, drive,
+                      by_path, problems, device="cuda") -> dict:
+    """Phase 16's serving of one family (see the module docstring): at
+    ``held_layers`` every kernel call on the kernels' run held to its plain
+    version on the model's own activations (``held_calls``) and the logits
+    to the plain path's (``BF16F_SERVE_BAR``); at ``layers`` (the model's
+    own depth when None) served on the kernels, timed, the peak and the
+    busy share; each path's launches held to the family's float32 count."""
+    from repro_torch import configs
+    from repro_torch.models import params as model_params
+    from repro_torch.optim.tree import tree_leaves
+    t0 = time.perf_counter()
+    dev, bf = torch.device(device), torch.bfloat16
+    full = configs.get_config(arch)
+    if full.mtp_depth:
+        # serving never reads the MTP module
+        full = dataclasses.replace(full, mtp_depth=0)
+    cfgs = {}
+    for d in {layers, held_layers}:
+        cfgs[d] = full if d is None else dataclasses.replace(
+            configs.first_layers(full, d), mtp_depth=0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, full.vocab_size, (nprompts, prompt))).to(dev)}
+    if full.is_encdec:
+        batch["audio_embed"] = torch.from_numpy(rng.standard_normal(
+            (nprompts, full.encoder.n_frames, full.d_model),
+            dtype=np.float32)).to(dev).to(bf)
+    plain_impl = "chunked" if full.attn is not None else "ref"
+    out = {"arch": arch, "prompt": [nprompts, prompt],
+           "decode_steps": SERVE_DECODE}
+    paths = []
+
+    def params_for(cfg):
+        torch.cuda.empty_cache()
+        return model_params.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev, bf)
+
+    def tag_of(d):
+        return f" bf16 x{d}" if d is not None else " bf16"
+
+    # the held depth: every kernel call held, the logits to the plain path
+    cut, tag = cfgs[held_layers], tag_of(held_layers)
+    p = params_for(cut)
+    with held_calls() as held:
+        kern = serve_run(p, cut, "cuda", batch, drive, tag=tag)
+    with dt_rounded_scan():
+        plain = serve_run(p, cut, "torch", batch, drive, tag=tag,
+                          attn_impl=plain_impl)
+    paths += [f"{cut.name}{tag} prefill", f"{cut.name}{tag} decode"
+              f" x{SERVE_DECODE}"]
+    # the control, one rounding placed elsewhere on the plain path: P
+    # rounded to bfloat16 in every attention (phase 15's), or, for the
+    # Mamba-1 family (no attention), dt not rounded (the reference's
+    # "xla" scan)
+    if cut.attn is not None:
+        with held_calls(attention=p_rounded_attention):
+            ctl = serve_run(p, cut, "torch", batch, attn_impl=plain_impl)
+    else:
+        ctl = serve_run(p, cut, "torch", batch, attn_impl=plain_impl)
+    bar = BF16F_SERVE_BAR[arch]
+    out["held"] = {
+        "layers": cut.n_layers, "calls_held": held,
+        "kernels_vs_plain": bf16_compare(kern, plain, problems,
+                                         f"phase 16 {cut.name}{tag}",
+                                         cut.n_layers, bar=bar),
+        "control_vs_plain": bf16_compare(ctl, plain, [], "control",
+                                         cut.n_layers, bar=bar)}
+    want_calls = {"flash_attention"} if cut.attn is not None else set()
+    want_calls |= {"mamba_scan"} if "mamba1" in cut.layer_program else set()
+    if not (want_calls <= set(held)
+            and all(h["close"] for h in held.values())):
+        problems.append(f"phase 16 {cut.name}{tag}: a kernel call of the "
+                        f"served model is not within the bfloat16 bar of "
+                        f"its plain version: {held}")
+    del kern, plain, ctl
+    # the served depth: timed, the peak, the busy share
+    cfg = cfgs[layers]
+    if cfg is not cut:
+        del p
+        tag = tag_of(layers)
+        torch.cuda.reset_peak_memory_stats()
+        p = params_for(cfg)
+        kern = serve_run(p, cfg, "cuda", batch, drive, tag=tag)
+        paths += [f"{cfg.name}{tag} prefill", f"{cfg.name}{tag} decode"
+                  f" x{SERVE_DECODE}"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        kern = serve_run(p, cfg, "cuda", batch)      # warm, timed
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy = serve_busy(p, cfg, batch, steps=BF16_BUSY_STEPS)
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(p)) / 1e9
+    del p
+    torch.cuda.empty_cache()
+    out.update({
+        "layers": cfg.n_layers, "params": cfg.num_params(),
+        "weights_gb": weights_gb, "prefill_ms": kern["prefill_ms"],
+        "prefill_tokens_per_s": nprompts * prompt / kern["prefill_ms"] * 1e3,
+        "decode_ms_per_step": kern["decode_ms_per_step"],
+        "peak_memory_gb": peak_gb, "device_busy": busy,
+        "cache_dtypes": kern["cache_dtypes"]})
+    if not all(torch.isfinite(lg).all() for lg in kern["logits"]):
+        problems.append(f"phase 16 {cfg.name}: non-finite logits")
+    for c, t in {(cut, tag_of(held_layers)), (cfg, tag_of(layers))}:
+        pre, dec = bf16_family_expected(c)
+        for pth, want in ((f"{c.name}{t} prefill (cuda)", pre),
+                          (f"{c.name}{t} decode x{SERVE_DECODE} (cuda)",
+                           dec)):
+            if by_path.get(pth) != want:
+                problems.append(f"phase 16 {pth}: launches "
+                                f"{by_path.get(pth)}, expected {want}")
+    for pth in (f"{paths[0]} (torch)", f"{paths[1]} (torch)"):
+        if by_path.get(pth):
+            problems.append(f"phase 16 {pth}: the plain path launched "
+                            f"{by_path[pth]}")
+    out["serve_s"] = time.perf_counter() - t0
+    log(f"phase 16: {arch} served {out['serve_s']:.1f} s")
+    return out
+
+
+def bf16_family_train(drive, by_path, problems, device="cuda") -> dict:
+    """Phase 16's training: falcon-mamba-7b cut to ``BF16F_TRAIN_LAYERS``
+    through ``Trainer(param_dtype="bfloat16")`` on the kernels (the
+    ``mamba`` site function's first gradient: its plain-recompute
+    backward), then step 1 on the plain path (the scan fed dt rounded as
+    the kernels take it, ``dt_rounded_scan``) and with its norms rounded
+    once more (each leaf's floor), held at ``BF16_TRAIN_TOL``."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.optim.tree import tree_leaves
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16f_")
+    cfg = configs.first_layers(configs.get_config(BF16F_TRAIN_ARCH),
+                               BF16F_TRAIN_LAYERS)
+    seq, gbatch, accum = BF16_TRAIN_SHAPE
+
+    def run(backend, steps, path, suffix):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer_for(cfg, backend, tmp + suffix, steps, seq_len=seq,
+                         batch=gbatch, accum=accum, device=device,
+                         param_dtype="bfloat16")
+        dtypes = sorted({str(q.dtype) for q in tree_leaves(tr.params)})
+        hist = list(drive(path, lambda: tr.run(steps)))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del tr
+        return hist, peak, dtypes
+
+    path = f"{cfg.name} bf16 train {BF16F_TRAIN_STEPS} steps (cuda)"
+    with first_step_leaf_norms() as leaves:
+        hist, peak_gb, dtypes = run("cuda", BF16F_TRAIN_STEPS, path, "")
+    plain_path = f"{cfg.name} bf16 train step 1 (torch)"
+    with first_step_leaf_norms() as plain_leaves, dt_rounded_scan():
+        plain_hist, plain_gb, _ = run("torch", 1, plain_path, "_plain")
+    with first_step_leaf_norms() as floor_leaves, dt_rounded_scan(), \
+            rounded_rmsnorm():
+        run("torch", 1, plain_path + " rounded norms", "_floor")
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "param_dtypes": dtypes, "steps": len(hist), "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": [h["ms"] for h in hist],
+           "step_ms_median_from_2": step_ms,
+           "tokens_per_s": seq * gbatch / step_ms * 1e3,
+           "peak_memory_gb": peak_gb, "plain_step1_ms": plain_hist[0]["ms"],
+           "plain_peak_memory_gb": plain_gb, "tolerance": BF16_TRAIN_TOL,
+           "launches": {f"{k}.{s}": n for (k, s), n in by_path[path].items()}}
+    out["step1_vs_plain"] = hold_leaves_to_floor(
+        f"phase 16 {cfg.name} bf16", hist, plain_hist, leaves, plain_leaves,
+        floor_leaves, problems, tol=BF16_TRAIN_TOL,
+        floor_factor=BF16_LEAF_FLOOR)
+    if dtypes != ["torch.bfloat16"] or len(hist) != BF16F_TRAIN_STEPS or not (
+            all(math.isfinite(x) for x in losses)):
+        problems.append(f"phase 16 {cfg.name} bf16 training: parameters "
+                        f"{dtypes}, {len(hist)} of {BF16F_TRAIN_STEPS} "
+                        f"steps, losses {losses}")
+    micro = BF16F_TRAIN_STEPS * accum
+    want = {e: micro * n for e, n in falcon_expected(cfg)[2].items()}
+    if by_path[path] != want:
+        problems.append(f"phase 16 {path}: launches {by_path[path]}, "
+                        f"expected {want}")
+    for pth in (plain_path, plain_path + " rounded norms"):
+        if by_path[pth]:
+            problems.append(f"phase 16 {pth}: the plain path launched "
+                            f"{by_path[pth]}")
+    for suffix in ("", "_plain", "_floor"):
+        shutil.rmtree(tmp + suffix, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["train_s"] = time.perf_counter() - t0
+    log(f"phase 16: trained {out['train_s']:.1f} s")
+    return out
+
+
+def bf16_family_rows(launches, launches_by_path, problems, record,
+                     ptxas, device="cuda") -> list:
+    """Phase 16's rows in bfloat16: the ``mamba`` site function at
+    falcon-mamba-7b's layer and kernel 4 at ``BF16F_ATTN_ROWS``, each held
+    to its plain version on the same bfloat16 inputs (``bf16_close``;
+    the scan's float32 state at ``LM_TOL``) against a control that must
+    fail that bar (the state rounded to bfloat16 each step;
+    ``p_rounded_attention``), timed beside it (the scan at every VVL), its
+    bound and the bfloat16 library call where one exists (SDPA; recorded,
+    not held), with its registers and spills."""
+    import torch.nn.functional as F
+    from repro_torch.core import Target
+    from repro_torch.core.api import launch_plan, torch_executor
+    from repro_torch.kernels import flash_attention, lm, ref, tdp_pointwise
+    dev, bf = torch.device(device), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    # the scan: x, dt (softplus, rounded), b, c bfloat16; a, d float32
+    batch, length, n, nstate = BF16F_MAMBA
+    nr = batch * length
+    xs = [torch.randn(nr, n, device=dev, generator=g).to(bf),
+          F.softplus(torch.randn(nr, n, device=dev, generator=g)).to(bf),
+          -torch.exp(torch.randn(nstate, n, device=dev, generator=g)),
+          torch.ones(1, n, device=dev)]
+    consts = {"b": torch.randn(nr, nstate, device=dev, generator=g).to(bf),
+              "c": torch.randn(nr, nstate, device=dev, generator=g).to(bf)}
+    spec = lm.mamba_scan_spec(length, nstate, batch)
+    plan = launch_plan(spec, Target("cuda", vvl=1), consts=consts)
+    # x, dt read and y written (2 bytes); a, d read (4); b, c read (2) and h
+    # written (4) a row; the exponentials on the SFUs as in float32
+    nbytes = (2 * 3 * nr * n + 4 * (nstate * n + n)
+              + batch * (4 * nstate * n + 2 * 2 * length * nstate))
+    bounds = [(nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+              (nr * n * nstate / PEAK_SFU_PER_S * 1e3, "operations"),
+              ((6 * nstate + 3) * nr * n / PEAK_F32_PER_S * 1e3,
+               "operations")]
+    rows.append(lm_row(
+        "tdp_gathered.mamba.bf16_falcon", KERNELS["tdp_gathered.mamba"],
+        ("tdp_gathered", "mamba"),
+        lambda: tdp_pointwise.cuda_execute(plan, xs),
+        lambda: torch_executor(plan, xs), None, max(bounds),
+        launches, launches_by_path, {}, problems, record,
+        max_err_key="tdp_gathered.mamba.bf16", plain_reps=MAMBA_PLAIN_REPS,
+        plain_wall=True, close=scan_close, readings=scan_readings,
+        control=lambda: mamba_state_rounded(*xs, consts["b"], consts["c"],
+                                            batch, length),
+        hold=SHORT_HOLD))
+    rows[-1]["shape"] = [batch, length, n, nstate]
+    rows[-1]["ms_by_vvl"] = {vvl: time_ms(lambda p=launch_plan(
+        spec, Target("cuda", vvl=vvl), consts=consts):
+        tdp_pointwise.cuda_execute(p, xs), hold=SHORT_HOLD)
+        for vvl in (1, 2, 4, 8)}
+    log(f"phase 16: mamba bf16 ms by VVL {rows[-1]['ms_by_vvl']}")
+    del xs, consts, plan
+    torch.cuda.empty_cache()
+    for tag, b, hq, hkv, sq, sk, dh, causal in BF16F_ATTN_ROWS:
+        q = torch.randn(b, hq, sq, dh, device=dev, generator=g).to(bf)
+        k, v = (torch.randn(b, hkv, sk, dh, device=dev, generator=g).to(bf)
+                for _ in range(2))
+        lib = ((lambda q=q, k=k, v=v, causal=causal:
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                               enable_gqa=True)),
+               (lambda o: (o,)))
+        shape = (b, hq, hkv, sq, sk, dh, causal, 0)
+        name = f"flash_attention.{tag}"
+        rows.append(lm_row(
+            name, KERNELS["flash_attention"],
+            ("flash_attention", "flash_attention"),
+            lambda q=q, k=k, v=v, causal=causal:
+                flash_attention.flash_attention(q, k, v, causal=causal),
+            lambda q=q, k=k, v=v, causal=causal: ref.attention_chunked_ref(
+                q, k, v, causal=causal, block_q=512),
+            lib, attn_bound(*shape, elem_bytes=2,
+                            per_flop=BF16_ATTN_PER_FLOP),
+            launches, launches_by_path, {}, problems, record,
+            max_err_key="flash_attention.bf16",
+            plain_reps=BF16F_ATTN_PLAIN_REPS, close=bf16_close,
+            readings=bf16_readings, hold_library=False, hold=SHORT_HOLD,
+            control=lambda q=q, k=k, v=v, causal=causal: p_rounded_attention(
+                q, k, v, causal=causal)))
+        rows[-1]["shape"] = [b, hq, hkv, sq, sk, dh, causal]
+        rows[-1]["plain"] = "attention_chunked_ref(block_q=512)"
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+    for row in rows:
+        row["dtype"] = "bfloat16"
+        attn = row["name"].startswith("flash_attention")
+        site = "flash_attention" if attn else "mamba"
+        dh = row["shape"][5] if attn else None
+        row["ptxas"] = [
+            {k: r.get(k) for k in ("mapping", "nstate", "vvl", "head_dim",
+                                   "registers", "spill_stores",
+                                   "spill_loads")}
+            for r in ptxas if r.get("dtype") == "bf16"
+            and r.get("site") == site and r.get("head_dim") == dh
+            and (attn or r.get("nstate") == BF16F_MAMBA[3])]
+    return rows
+
+
+def bf16_family_checks(problems, device="cuda") -> dict:
+    """Phase 16's checks before the models: kernel 4 in bfloat16 at every
+    head dim it is instantiated for (``BF16F_ATTN_CHECKS``: ragged query and
+    key tiles, GQA, a window and softcap, non-causal Sq ≠ Sk) and the
+    ``mamba`` site function in bfloat16 at every VVL over ragged shapes
+    (``BF16F_MAMBA_CHECKS``; n not a multiple of 8 stages x and dt a value
+    at a time), each held to its plain version by ``bf16_mixed_close``;
+    the worst ``bf16_readings`` recorded."""
+    from repro_torch.kernels import flash_attention, ops, ref
+    dev, bf = torch.device(device), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(161)
+    out = {"flash_attention": {}, "mamba": {}}
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(bf)
+    for dh in flash_attention.HEAD_DIMS:
+        worst = {"max_bf16_steps": 0.0, "share_apart": 0.0}
+        for b, hq, hkv, sq, sk, kw in BF16F_ATTN_CHECKS:
+            q, k, v = randn(b, hq, sq, dh), randn(b, hkv, sk, dh), randn(
+                b, hkv, sk, dh)
+            got = flash_attention.flash_attention(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
+            if not bf16_close(got, want):
+                problems.append(f"phase 16: kernel 4 in bfloat16 at Dh {dh} "
+                                f"{(b, hq, hkv, sq, sk, kw)}: "
+                                f"{bf16_readings(got, want)}")
+            for key, val in bf16_readings(got, want).items():
+                worst[key] = max(worst[key], val)
+        out["flash_attention"][dh] = worst
+    for b, length, n, nstate in BF16F_MAMBA_CHECKS:
+        x, dt = randn(b, length, n), torch.nn.functional.softplus(
+            randn(b, length, n).float()).to(bf)
+        bb, cc = randn(b, length, nstate), randn(b, length, nstate)
+        a = -torch.exp(torch.randn(n, nstate, device=dev, generator=g))
+        d = torch.randn(n, device=dev, generator=g)
+        want = ops.mamba_scan(x, dt, bb, cc, a, d, target="torch",
+                              device=dev)
+        worst = {"max_bf16_steps": 0.0, "share_apart": 0.0}
+        for vvl in (1, 2, 4, 8):
+            got = ops.mamba_scan(x, dt, bb, cc, a, d, vvl=vvl, device=dev)
+            for gg, ww in zip(got, want):
+                if not scan_close(gg, ww):
+                    problems.append(f"phase 16: mamba in bfloat16 "
+                                    f"{(b, length, n, nstate)} vvl={vvl}: "
+                                    f"{scan_readings(gg, ww)}")
+            for key, val in scan_readings(got[0], want[0]).items():
+                worst[key] = max(worst[key], val)
+        out["mamba"][str((b, length, n, nstate))] = worst
+    log(f"phase 16: checks {json.dumps(out)}")
+    return out
+
+
+def bf16_families_phase(drive, by_path, problems, device="cuda",
+                        ptxas=()) -> dict:
+    """Phase 16 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    before = set(by_path)
+    out = {"checks": bf16_family_checks(problems, device), "serving": {}}
+    for arch, layers, held_layers, nprompts, prompt in BF16F_SERVE:
+        out["serving"][arch] = bf16_family_serve(
+            arch, layers, held_layers, nprompts, prompt, drive, by_path,
+            problems, device)
+        log(f"phase 16: {arch} "
+            f"{json.dumps(out['serving'][arch], default=str)}")
+    out["training"] = bf16_family_train(drive, by_path, problems, device)
+    out["paths"] = [p for p in by_path if p not in before]
+    entries = [("tdp_gathered", "mamba"),
+               ("flash_attention", "flash_attention")]
+    launches = {e: sum(by_path[p].get(e, 0) for p in out["paths"])
+                for e in entries}
+    launches_by_path = {e: {p: by_path[p][e] for p in out["paths"]
+                            if by_path[p].get(e)} for e in entries}
+    for e, n in launches.items():
+        if not n:
+            problems.append(f"phase 16: {e[0]}.{e[1]} was not launched in "
+                            f"bfloat16 on the main path")
+    out["rows"] = bf16_family_rows(launches, launches_by_path, problems, out,
+                                   ptxas, device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: bfloat16 families {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("training", "dense", "moe", "ssd",
-                                       "mla", "whisper", "bf16"),
+                                       "mla", "whisper", "bf16",
+                                       "bf16_families"),
                     default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
@@ -5482,10 +6091,12 @@ def main(argv=None) -> int:
     logs = {name: p.with_name(f"{name}.log") for name, p in libs.items()}
     ptxas = ptxas_report(logs)
     record["build_s"] = build_s
+    record["build_s_by_source"] = dict(_build.BUILD_SECONDS)
     record["ptxas"] = ptxas
     spills = [r for r in ptxas if r.get("spill_stores") or r.get("spill_loads")]
-    print(json.dumps({"build_s": round(build_s, 3), "kernels_compiled":
-                      len(ptxas), "spilling": spills}), flush=True)
+    print(json.dumps({"build_s": round(build_s, 3), "build_s_by_source": {
+        k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()},
+        "kernels_compiled": len(ptxas), "spilling": spills}), flush=True)
 
     counters = {"exchange": importlib.import_module(
                     "repro_torch.core.program").collectives,
@@ -5609,11 +6220,13 @@ def main(argv=None) -> int:
         phase = {"training": training_phase, "dense": dense_archs_phase,
                  "moe": moe_phase, "ssd": ssd_phase, "mla": mla_phase,
                  "whisper": whisper_phase,
-                 "bf16": lambda *a: bf16_phase(*a, ptxas=ptxas)}[only](
-                     drive, by_path, problems)
+                 "bf16": lambda *a: bf16_phase(*a, ptxas=ptxas),
+                 "bf16_families": lambda *a: bf16_families_phase(
+                     *a, ptxas=ptxas)}[only](drive, by_path, problems)
         key = {"training": "training", "dense": "dense_archs",
                "moe": "moe", "ssd": "ssd", "mla": "mla",
-               "whisper": "whisper", "bf16": "bf16"}[only]
+               "whisper": "whisper", "bf16": "bf16",
+               "bf16_families": "bf16_families"}[only]
         if only in ("mla", "whisper"):
             merge_launches(early_rows, by_path, phase["paths"])
             phase["rows"] = early_rows
@@ -5635,6 +6248,7 @@ def main(argv=None) -> int:
         print(json.dumps({key: phase}, default=str), flush=True)
         (OUT_DIR / f"chip_smoke_{only}.json").write_text(
             json.dumps(phase, indent=1, default=str))
+        log(f"time_ms: {TIMED}")
         for p in problems:
             log(f"FAIL: {p}")
         if problems:
@@ -6128,7 +6742,16 @@ def main(argv=None) -> int:
     record["bf16"] = bf16_phase(drive, by_path, problems, ptxas=ptxas)
     rows += record["bf16"]["rows"]
     print(json.dumps({"bf16": record["bf16"]}, default=str), flush=True)
+
+    # -- 16. bfloat16 for the Mamba, MoE, MLA and whisper families ----------
+    record["bf16_families"] = bf16_families_phase(drive, by_path, problems,
+                                                  ptxas=ptxas)
+    rows += record["bf16_families"]["rows"]
+    print(json.dumps({"bf16_families": record["bf16_families"]},
+                     default=str), flush=True)
     record["kernels"] = rows
+    record["time_ms_loops"] = TIMED
+    log(f"time_ms: {TIMED}")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=str))
 

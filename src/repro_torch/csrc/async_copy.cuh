@@ -12,6 +12,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 
 #if !defined(__CUDACC__)
 #define __host__
@@ -25,14 +26,15 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
-// dst (shared) = src[0, 4); both 16-byte aligned.
-__host__ __device__ __forceinline__ void copy16(float* dst, const float* src) {
+// dst (shared) = the 16 bytes at src (4 float32 or 8 bfloat16 values); both
+// 16-byte aligned.
+__host__ __device__ __forceinline__ void copy16(void* dst, const void* src) {
 #if defined(__CUDA_ARCH__)
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
                : "memory");
 #else
-  for (int i = 0; i < 4; ++i) dst[i] = src[i];
+  memcpy(dst, src, 16);
 #endif
 }
 

@@ -1,8 +1,8 @@
 // bf16.cuh — bfloat16 as a storage type, for nvcc and for the host compiler.
 //
-// The kernels that take bfloat16 operands (lm_sites.cuh's rmsnorm, gated and
-// act; flash_attention.cuh) load each value as float32, compute in float32
-// as the TPU kernels do (src/repro/kernels/lm.py:55-59, :90-96;
+// The kernels that take bfloat16 operands (lm_sites.cuh's rmsnorm, gated,
+// act and mamba; flash_attention.cuh) load each value as float32, compute in
+// float32 as the TPU kernels do (src/repro/kernels/lm.py:55-59, :90-96;
 // src/repro/kernels/flash_attention.py:57-59) and round each result to
 // bfloat16 once, to nearest with ties to even (torch's and XLA's rounding).
 // The type is the value's 16 bits, no arithmetic: the same code runs on the
@@ -94,6 +94,24 @@ __host__ __device__ __forceinline__ float ldg(const bf16* p) {
 #else
   return to_f32(*p);
 #endif
+}
+
+// r = p[0, N) of shared memory, widened to float32 (N 1, 2 or 4; p aligned
+// to 2·N bytes): one 4- or 8-byte load on the card.
+template <int N>
+__host__ __device__ __forceinline__ void ld_shared(const bf16* p, float (&r)[N]) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (N == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    unpack_bf16x2(w.x, r[0], r[1]);
+    unpack_bf16x2(w.y, r[2], r[3]);
+    return;
+  } else if constexpr (N == 2) {
+    unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p), r[0], r[1]);
+    return;
+  }
+#endif
+  for (int i = 0; i < N; ++i) r[i] = to_f32(p[i]);
 }
 
 // *p = x in p's storage type.

@@ -61,7 +61,8 @@
 // rows of Dh contiguous elements, 16-byte aligned, so the model's (B, S, H,
 // Dh) projections come in as transposed views, and o goes out in q's layout.
 //
-// bfloat16 (A7.1; Dh 128 and 256, gemma3 and gemma2): q, k, v and o in
+// bfloat16 (A7.1 at Dh 128 and 256, A7.1b at every other head dim of the
+// float32 kernel; one instantiation a head dim and type): q, k, v and o in
 // bfloat16, the tile, the softmax state and lse in float32, as the
 // reference's kernel computes (its operands cast to float32, p kept in
 // float32 for P·V: src/repro/kernels/flash_attention.py:57-59, :80).  A
@@ -351,33 +352,9 @@ AttnIO<T> attn_io(const void* q, const void* k, const void* v, void* o, void* ls
   return io;
 }
 
-}  // namespace
-
-// q (B, Hq, Sq, Dh), k/v (B, Hkv, Sk, Dh), o (B, Hq, Sq, Dh): device pointers
-// of the storage type `dtype` (tdp::DTYPE_F32, or DTYPE_BF16 at Dh 128 and
-// 256); strides[12] the (batch, head, row) strides of q, k, v and o in
-// elements, each a multiple of 16 bytes, rows of Dh contiguous elements,
-// every pointer 16-byte aligned.  lse: null, or a contiguous (B, Hq, Sq)
-// float32 array that receives each row's log-sum-exp (row_lse).  Returns 0,
-// a cudaError_t, ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 80, 128, 192, 256}
-// for float32, {128, 256} for bfloat16), ERR_BAD_GROUP (Hq not a multiple of
-// Hkv) or tdp::ERR_BAD_DTYPE.
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* o, void* lse,
-                                      const long long* strides, int B, int Hq, int Hkv,
-                                      int Sq, int Sk, int Dh, float scale, float softcap,
-                                      int causal, int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return ERR_BAD_GROUP;
-  if (dtype == tdp::DTYPE_BF16) {
-    const auto io = attn_io<tdp::bf16>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk,
-                                       scale, softcap, causal, window);
-    if (Dh == 128) return launch<128>(io, stream);
-    if (Dh == 256) return launch<256>(io, stream);
-    return ERR_BAD_HEAD_DIM;
-  }
-  if (dtype != tdp::DTYPE_F32) return tdp::ERR_BAD_DTYPE;
-  const auto io = attn_io<float>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk, scale,
-                                 softcap, causal, window);
+// (head dim) -> launch<DH>(io, stream), io in either storage type
+template <class T>
+int dispatch_head_dim(int Dh, const AttnIO<T>& io, void* stream) {
   switch (Dh) {
     case 16: return launch<16>(io, stream);
     case 32: return launch<32>(io, stream);
@@ -387,5 +364,34 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     case 192: return launch<192>(io, stream);
     case 256: return launch<256>(io, stream);
     default: return ERR_BAD_HEAD_DIM;
+  }
+}
+
+}  // namespace
+
+// q (B, Hq, Sq, Dh), k/v (B, Hkv, Sk, Dh), o (B, Hq, Sq, Dh): device pointers
+// of the storage type `dtype` (tdp::DTYPE_F32 or DTYPE_BF16); strides[12] the (batch, head, row) strides of q, k, v and o in
+// elements, each a multiple of 16 bytes, rows of Dh contiguous elements,
+// every pointer 16-byte aligned.  lse: null, or a contiguous (B, Hq, Sq)
+// float32 array that receives each row's log-sum-exp (row_lse).  Returns 0,
+// a cudaError_t, ERR_BAD_HEAD_DIM (Dh not in {16, 32, 64, 80, 128, 192,
+// 256}), ERR_BAD_GROUP (Hq not a multiple of Hkv) or tdp::ERR_BAD_DTYPE.
+extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      const long long* strides, int B, int Hq, int Hkv,
+                                      int Sq, int Sk, int Dh, float scale, float softcap,
+                                      int causal, int window, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return ERR_BAD_GROUP;
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return dispatch_head_dim(Dh, attn_io<float>(q, k, v, o, lse, strides, B, Hq, Hkv,
+                                                  Sq, Sk, scale, softcap, causal, window),
+                               stream);
+    case tdp::DTYPE_BF16:
+      return dispatch_head_dim(Dh, attn_io<tdp::bf16>(q, k, v, o, lse, strides, B, Hq,
+                                                      Hkv, Sq, Sk, scale, softcap, causal,
+                                                      window),
+                               stream);
+    default: return tdp::ERR_BAD_DTYPE;
   }
 }

@@ -90,8 +90,18 @@
 // once (to nearest even), as the reference's site bodies do; the weight
 // enters as float32 before scale_offset is added (src/repro/kernels/lm.py:58).
 // Where the float32 code moves 16 bytes (4 elements), the bfloat16 code
-// moves the same elements in 8.  mamba and the AoSoA launches take float32
-// only.
+// moves the same elements in 8.
+//
+// Storage (mamba): x, dt, b, c and y float32 or bfloat16, one type for the
+// five; a, d and the final state h float32 in either case, as the
+// reference's site takes and returns them (src/repro/kernels/lm.py:120-137:
+// every operand widened to float32, y returned in x's dtype, h_final
+// float32).  A bfloat16 chunk is staged raw, by the same cp.async copies (8
+// values a 16-byte copy where n % 8 == 0 and the pointers are aligned),
+// into a stage of half the bytes, and each value is widened to float32 as a
+// lane reads it from shared memory; the recurrence, exp(dt·a) and the sum
+// over states are the float32 code's, and y is rounded to bfloat16 once.
+// The AoSoA launches take float32 only.
 //
 // The activation (silu, gelu with the tanh approximation, relu^2) is a
 // template parameter.  Arithmetic keeps the plain version's order where it
@@ -580,31 +590,34 @@ constexpr int MAMBA_LANES = 4;       // lanes sharing one channel's N states
 constexpr int MAMBA_ROUNDS = 2;      // shuffle rounds over them: log2(MAMBA_LANES)
 constexpr int MAMBA_THREADS = 128;   // threads of a block
 constexpr int MAMBA_GROUPS = MAMBA_THREADS / MAMBA_LANES;  // lane groups
-constexpr int MAMBA_TILE = 1024;     // floats of x (and of dt) a chunk stages
+constexpr int MAMBA_TILE = 1024;     // values of x (and of dt) a chunk stages
 constexpr float MAMBA_LOG2E = 1.4426950408889634f;
 constexpr int MAMBA_AOSOA_VVL = 2;    // channels of a lane group under AoSoA
 constexpr int MAMBA_AOSOA_ALIGN = 4;  // W must be a multiple of it
 
 // Operands of one mamba launch: `rows` batch rows, row r's operands at
-// r·L·n (x, dt, y), r·L·N (b, c) and r·N·n (h) floats from the pointers.
-struct MambaIO {
-  const float* x;   // (rows·L, n)
-  const float* dt;  // (rows·L, n)
+// r·L·n (x, dt, y), r·L·N (b, c) and r·N·n (h) elements from the pointers.
+// x, dt, b, c and y in storage type T; a, d and h float32.
+template <class T>
+struct MambaIOT {
+  const T* x;       // (rows·L, n)
+  const T* dt;      // (rows·L, n)
   const float* a;   // (N, n)
   const float* d;   // (1, n)
-  const float* b;   // (rows·L, N)
-  const float* c;   // (rows·L, N)
-  float* y;         // (rows·L, n)
+  const T* b;       // (rows·L, N)
+  const T* c;       // (rows·L, N)
+  T* y;             // (rows·L, n)
   float* h;         // (rows·N, n): each row's state after its last step
   int64_t L, n;
   int rows;
   AosoaMap map;     // the AoSoA launch's blocks (unused under SoA)
 };
+using MambaIO = MambaIOT<float>;
 
 // Offset of component k (of K) of channel ch in a field: SoA k·n + ch, AoSoA
 // the index map.
-template <bool AOSOA>
-__host__ __device__ __forceinline__ int64_t mamba_at(const MambaIO& io, int64_t K,
+template <bool AOSOA, class T>
+__host__ __device__ __forceinline__ int64_t mamba_at(const MambaIOT<T>& io, int64_t K,
                                                      int64_t k, int64_t ch) {
   if constexpr (AOSOA) return aosoa_index(io.map, (int)ch, (int)K, (int)k);
   return k * io.n + ch;
@@ -617,14 +630,15 @@ struct MambaSite {
 };
 
 // A block's tile: C channels, T steps a chunk; one stage of shared memory
-// holds x[T][C], dt[T][C], b[T][N] and c[T][N] from float X, DT, B, CC.
+// holds x[T][C], dt[T][C], b[T][N] and c[T][N] from element X, DT, B, CC
+// (elements of the storage type: float32 or bfloat16, staged as stored).
 template <int N, int VVL>
 struct MambaTile {
   static constexpr int S = N / MAMBA_LANES;     // states of a lane
   static constexpr int C = MAMBA_GROUPS * VVL;  // channels of a block
   static constexpr int T = MAMBA_TILE / C;      // steps of a chunk
   static constexpr int X = 0, DT = T * C, B = 2 * T * C, CC = 2 * T * C + T * N;
-  static constexpr int FLOATS = 2 * T * C + 2 * T * N;  // one stage
+  static constexpr int ELEMS = 2 * T * C + 2 * T * N;  // one stage
 };
 
 // Lane g of a group holds states mamba_state(g, 0 .. S-1) of its channels.
@@ -673,8 +687,8 @@ __host__ __device__ __forceinline__ float fast_exp2(float x) {
 #endif
 }
 
-template <int N, int VVL, bool AOSOA = false>
-__host__ __device__ __forceinline__ void mamba_lane_init(const MambaIO& io,
+template <int N, int VVL, bool AOSOA = false, class T>
+__host__ __device__ __forceinline__ void mamba_lane_init(const MambaIOT<T>& io,
                                                          int64_t blk, int tid,
                                                          MambaLane<N, VVL>& ln) {
   constexpr int S = MambaTile<N, VVL>::S;
@@ -695,24 +709,39 @@ __host__ __device__ __forceinline__ void mamba_lane_init(const MambaIO& io,
   }
 }
 
+// One element of the stage: a 4-byte cp.async for float32; for bfloat16 an
+// ordinary load and store (cp.async copies 4, 8 or 16 bytes), the unaligned
+// fallback only.
+__host__ __device__ __forceinline__ void mamba_copy1(float* dst, const float* src) {
+  copy4(dst, src);
+}
+__host__ __device__ __forceinline__ void mamba_copy1(bf16* dst, const bf16* src) {
+  *dst = *src;
+}
+
 // Thread `tid` copies its share of chunk q of row `row` into the stage at
-// buf: the chunk's live steps of x and dt over the block's live channels
-// (16-byte copies where n % 4 == 0 and x, dt are 16-byte aligned, else
-// 4-byte ones), and of b and c, T·N contiguous floats each.  Slots past the
+// buf, in the storage type: the chunk's live steps of x and dt over the
+// block's live channels (16-byte copies of E = 16 / sizeof(T) channels where
+// n % E == 0 and x, dt are 16-byte aligned, else one element at a time), and
+// of b and c, T·N contiguous elements each (16-byte copies where b and c are
+// aligned: a row of N >= 8 is a whole number of them).  Slots past the
 // ragged last block or chunk are left as they were: no live lane reads them.
-// Under AoSoA the x and dt copies go through the index map (16-byte copies
-// of 4 channels, which W % 4 == 0 keeps inside one block).
-template <int N, int VVL, bool AOSOA = false>
-__host__ __device__ __forceinline__ void mamba_stage(const MambaIO& io, int row,
+// Under AoSoA (float32) the x and dt copies go through the index map
+// (16-byte copies of 4 channels, which W % 4 == 0 keeps inside one block).
+template <int N, int VVL, bool AOSOA = false, class T>
+__host__ __device__ __forceinline__ void mamba_stage(const MambaIOT<T>& io, int row,
                                                      int64_t blk, int64_t q, int tid,
-                                                     float* buf) {
+                                                     T* buf) {
   using Tl = MambaTile<N, VVL>;
+  constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte copy
+  static_assert(N % E == 0, "a b/c row is whole 16-byte copies");
   const int64_t t0 = q * Tl::T;
   const int steps = io.L - t0 < Tl::T ? (int)(io.L - t0) : Tl::T;
   const int64_t c0 = blk * Tl::C;
   const int cl = io.n - c0 < Tl::C ? (int)(io.n - c0) : Tl::C;
   const int64_t base = ((int64_t)row * io.L + t0) * io.n + c0;
   if constexpr (AOSOA) {
+    static_assert(sizeof(T) == 4, "the AoSoA scan takes float32");
     const int64_t K = (int64_t)io.rows * io.L, k0 = (int64_t)row * io.L + t0;
     const bool vec = aligned16(io.x) && aligned16(io.dt);
     const int width = vec ? 4 : 1;
@@ -729,10 +758,10 @@ __host__ __device__ __forceinline__ void mamba_stage(const MambaIO& io, int row,
         copy4(buf + Tl::DT + t * Tl::C + c, io.dt + off);
       }
     }
-  } else if (io.n % 4 == 0 && aligned16(io.x) && aligned16(io.dt)) {
-    constexpr int C4 = Tl::C / 4;
-    for (int i = tid; i < steps * C4; i += MAMBA_THREADS) {
-      const int t = i / C4, c = 4 * (i % C4);
+  } else if (io.n % E == 0 && aligned16(io.x) && aligned16(io.dt)) {
+    constexpr int CE = Tl::C / E;
+    for (int i = tid; i < steps * CE; i += MAMBA_THREADS) {
+      const int t = i / CE, c = E * (i % CE);
       if (c >= cl) continue;
       copy16(buf + Tl::X + t * Tl::C + c, io.x + base + t * io.n + c);
       copy16(buf + Tl::DT + t * Tl::C + c, io.dt + base + t * io.n + c);
@@ -741,21 +770,21 @@ __host__ __device__ __forceinline__ void mamba_stage(const MambaIO& io, int row,
     for (int i = tid; i < steps * Tl::C; i += MAMBA_THREADS) {
       const int t = i / Tl::C, c = i % Tl::C;
       if (c >= cl) continue;
-      copy4(buf + Tl::X + i, io.x + base + t * io.n + c);
-      copy4(buf + Tl::DT + i, io.dt + base + t * io.n + c);
+      mamba_copy1(buf + Tl::X + i, io.x + base + t * io.n + c);
+      mamba_copy1(buf + Tl::DT + i, io.dt + base + t * io.n + c);
     }
   }
   const int64_t bbase = ((int64_t)row * io.L + t0) * N;
   const int nb = steps * N;
   if (aligned16(io.b) && aligned16(io.c)) {
-    for (int i = 4 * tid; i < nb; i += 4 * MAMBA_THREADS) {
+    for (int i = E * tid; i < nb; i += E * MAMBA_THREADS) {
       copy16(buf + Tl::B + i, io.b + bbase + i);
       copy16(buf + Tl::CC + i, io.c + bbase + i);
     }
   } else {
     for (int i = tid; i < nb; i += MAMBA_THREADS) {
-      copy4(buf + Tl::B + i, io.b + bbase + i);
-      copy4(buf + Tl::CC + i, io.c + bbase + i);
+      mamba_copy1(buf + Tl::B + i, io.b + bbase + i);
+      mamba_copy1(buf + Tl::CC + i, io.c + bbase + i);
     }
   }
 }
@@ -764,15 +793,15 @@ __host__ __device__ __forceinline__ void mamba_stage(const MambaIO& io, int row,
 // states, h = h·exp(dt·a) + (dt·x)·b — the plain body's order
 // (kernels/lm.py:mamba_site) — and returns its share of y, Σ h·c over its
 // states in state order.
-template <int N, int VVL>
-__host__ __device__ __forceinline__ float mamba_partial(const float* buf, int s,
+template <int N, int VVL, class T>
+__host__ __device__ __forceinline__ float mamba_partial(const T* buf, int s,
                                                         int v, int tid,
                                                         MambaLane<N, VVL>& ln) {
   using Tl = MambaTile<N, VVL>;
   constexpr int S = Tl::S;
   const int j = tid / MAMBA_LANES, g = tid % MAMBA_LANES;
   const int slot = s * Tl::C + mamba_slot(j, v);
-  const float xv = buf[Tl::X + slot], dtv = buf[Tl::DT + slot];
+  const float xv = to_f32(buf[Tl::X + slot]), dtv = to_f32(buf[Tl::DT + slot]);
   const float dx = dtv * xv;
   float bt[S], ct[S];
   ld_shared<S>(buf + Tl::B + s * N + mamba_state<N>(g, 0), bt);
@@ -788,8 +817,8 @@ __host__ __device__ __forceinline__ float mamba_partial(const float* buf, int s,
 
 // y of step s (chunk q), slot v, from the group's summed share: the group's
 // lane 0 writes y = Σ_k h·c + d·x for a live channel.
-template <int N, int VVL, bool AOSOA = false>
-__host__ __device__ __forceinline__ void mamba_out(const MambaIO& io, const float* buf,
+template <int N, int VVL, bool AOSOA = false, class T>
+__host__ __device__ __forceinline__ void mamba_out(const MambaIOT<T>& io, const T* buf,
                                                    int row, int64_t blk, int64_t q,
                                                    int s, int v, int tid,
                                                    const MambaLane<N, VVL>& ln,
@@ -798,15 +827,16 @@ __host__ __device__ __forceinline__ void mamba_out(const MambaIO& io, const floa
   const int j = tid / MAMBA_LANES;
   const int64_t ch = blk * Tl::C + mamba_slot(j, v);
   if (tid % MAMBA_LANES != 0 || ch >= io.n) return;
-  const float xv = buf[Tl::X + s * Tl::C + mamba_slot(j, v)];
+  const float xv = to_f32(buf[Tl::X + s * Tl::C + mamba_slot(j, v)]);
   const int64_t k = (int64_t)row * io.L + q * Tl::T + s;
-  // AoSoA: step k of the channel lies k·W past its step 0
-  io.y[AOSOA ? ln.y0[v] + k * io.map.W : k * io.n + ch] = sum + ln.d[v] * xv;
+  // AoSoA: step k of the channel lies k·W past its step 0; y rounded to the
+  // storage type once
+  store_f32(io.y + (AOSOA ? ln.y0[v] + k * io.map.W : k * io.n + ch), sum + ln.d[v] * xv);
 }
 
 // The final state of each live channel's states.
-template <int N, int VVL, bool AOSOA = false>
-__host__ __device__ __forceinline__ void mamba_final(const MambaIO& io, int row,
+template <int N, int VVL, bool AOSOA = false, class T>
+__host__ __device__ __forceinline__ void mamba_final(const MambaIOT<T>& io, int row,
                                                      int64_t blk, int tid,
                                                      const MambaLane<N, VVL>& ln) {
   constexpr int S = MambaTile<N, VVL>::S;
@@ -836,9 +866,10 @@ int dispatch_act(int act_id, int vvl, const IO& io, void* stream) {
   }
 }
 
-// (d_state, VVL) -> Launch<MambaSite<N>, VVL>::run(io, stream)
-template <template <class, int> class Launch>
-int dispatch_mamba(int nstate, int vvl, const MambaIO& io, void* stream) {
+// (d_state, VVL) -> Launch<MambaSite<N>, VVL>::run(io, stream), io in either
+// storage type
+template <template <class, int> class Launch, class IO>
+int dispatch_mamba(int nstate, int vvl, const IO& io, void* stream) {
   switch (nstate) {
     case 8: return tdp::dispatch_vvl<Launch, MambaSite<8>>(vvl, io, stream);
     case 16: return tdp::dispatch_vvl<Launch, MambaSite<16>>(vvl, io, stream);

@@ -40,6 +40,16 @@
 
 #include "lb_sites.cuh"
 
+// The library is built as three translation units compiled in parallel
+// (kernels/_build.py UNITS) and linked: TDP_UNIT 1 compiles the SoA
+// entry, 2 the AoSoA entry, 3 the ensemble entries; unset, all of them.
+// Each unit instantiates only the kernels its entries launch.
+#ifndef TDP_UNIT
+#define TDP_UNIT_HAS(k) 1
+#else
+#define TDP_UNIT_HAS(k) (TDP_UNIT == (k))
+#endif
+
 namespace {
 
 constexpr int kBlock = 128;
@@ -100,6 +110,7 @@ struct EnsembleLaunch {
 
 }  // namespace
 
+#if TDP_UNIT_HAS(1)
 // in[i] / out[k]: device pointers of the site function's fields and outputs
 // (float32, contiguous): a stencil field (ncomp, X+2hx, Y+2hy, Z+2hz), a
 // pointwise field and an output (ncomp, X*Y*Z).  Returns 0, a cudaError_t,
@@ -122,7 +133,9 @@ extern "C" int tdp_gathered_launch(int site, int vvl, const void* const* in,
   io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
   return tdp::dispatch_site<Launch>(site, vvl, io, stream);
 }
+#endif  // TDP_UNIT_HAS(1)
 
+#if TDP_UNIT_HAS(2)
 // The AoSoA launch: in[i] is field i's AoSoA buffer, blocks of W sites over
 // a pointwise field's X*Y*Z sites or a stencil field's flat extended grid
 // (x-planes of `plane` sites); out[k] is AoSoA over the interior.  W >= 1.
@@ -150,7 +163,9 @@ extern "C" int tdp_gathered_aosoa_launch(int site, int W, const void* const* in,
   a.soa_out = false;
   return tdp::dispatch_site_aosoa<AosoaLaunch>(site, a, stream);
 }
+#endif  // TDP_UNIT_HAS(2)
 
+#if TDP_UNIT_HAS(3)
 // The ensemble launch: B members (1 <= B <= 65535) of the single launch's
 // operands, member m's at in[i] + m*in_stride[i] and out[k] +
 // m*out_stride[k] (elements), its physics row m of `phys` (B tdp::Phys rows
@@ -173,3 +188,4 @@ extern "C" int tdp_gathered_ensemble_launch(int site, int vvl, int B,
 extern "C" void tdp_phys_rows(int B, const float* consts, void* rows) {
   tdp::make_phys_rows(B, consts, static_cast<tdp::Phys*>(rows));
 }
+#endif  // TDP_UNIT_HAS(3)

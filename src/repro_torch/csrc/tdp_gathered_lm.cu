@@ -53,8 +53,16 @@
 // dtype code, one type for every operand); a bfloat16 launch loads each
 // value as float32, runs the float32 arithmetic and rounds each result to
 // bfloat16 once (lm_sites.cuh).  Its bytes are half the float32 launch's:
-// rmsnorm and act 4 an element, gated 6.  The mamba and AoSoA entries take
-// float32 only.
+// rmsnorm and act 4 an element, gated 6.  The mamba entry takes a dtype code
+// too: x, dt, b, c and y in it, a, d and h float32 (the reference's site
+// widens every operand and returns h_final in float32).  A bfloat16 scan
+// stages its chunks raw by cp.async, one chunk ahead as the float32 scan
+// does, and widens each value as a lane reads it: x and dt are 6 bytes a
+// (step, channel) against 12, but the bound stays the SFUs' (L·n·N
+// exponentials), so the bfloat16 scan is expected at about the float32
+// time.  Widening as the chunk is staged (as kernel 4's bfloat16 route
+// does) would make the staging loads synchronous, a memory latency a
+// chunk on the chain.  The AoSoA entries take float32 only.
 //
 // The AoSoA branch (Target(layout="aosoa"), W = Target.vvl; mappings in
 // lm_sites.cuh): tdp_gathered_rmsnorm_aosoa_launch (rms_aosoa_kernel, one
@@ -118,14 +126,15 @@ __global__ void __launch_bounds__(tdp::lm::RMS_THREADS)
 }
 
 // Block (blockIdx.x, row blockIdx.y): the lanes' states in registers, the
-// chunks of the row's steps through two stages of shared memory.
-template <class Site, int VVL, bool AOSOA = false>
+// chunks of the row's steps through two stages of shared memory, in the
+// storage type T.
+template <class Site, int VVL, bool AOSOA = false, class T = float>
 __global__ void __launch_bounds__(tdp::lm::MAMBA_THREADS)
-    mamba_kernel(const __grid_constant__ tdp::lm::MambaIO io) {
+    mamba_kernel(const __grid_constant__ tdp::lm::MambaIOT<T> io) {
   using namespace tdp::lm;
   constexpr int N = Site::kN;
   using Tl = MambaTile<N, VVL>;
-  __shared__ __align__(16) float smem[2][Tl::FLOATS];
+  __shared__ __align__(16) T smem[2][Tl::ELEMS];
   const int row = blockIdx.y, tid = threadIdx.x;
   const int64_t blk = blockIdx.x;
   MambaLane<N, VVL> ln;
@@ -139,7 +148,7 @@ __global__ void __launch_bounds__(tdp::lm::MAMBA_THREADS)
     tdp::cp_async_commit();
     tdp::cp_async_wait<1>();  // chunk q has landed (this thread's copies)
     __syncthreads();          // ... and every thread's
-    const float* buf = smem[q & 1];
+    const T* buf = smem[q & 1];
     const int steps = io.L - q * Tl::T < Tl::T ? (int)(io.L - q * Tl::T) : Tl::T;
 #pragma unroll 4
     for (int s = 0; s < steps; ++s) {
@@ -159,11 +168,12 @@ __global__ void __launch_bounds__(tdp::lm::MAMBA_THREADS)
 
 template <class Site, int VVL>
 struct MambaLaunch {
-  static int run(const tdp::lm::MambaIO& io, void* stream) {
+  template <class T>
+  static int run(const tdp::lm::MambaIOT<T>& io, void* stream) {
     if (io.n == 0 || io.L == 0 || io.rows == 0) return 0;
     const dim3 grid((unsigned)tdp::lm::mamba_blocks<Site::kN, VVL>(io.n),
                     (unsigned)io.rows);
-    mamba_kernel<Site, VVL>
+    mamba_kernel<Site, VVL, false, T>
         <<<grid, tdp::lm::MAMBA_THREADS, 0, (cudaStream_t)stream>>>(io);
     return (int)cudaGetLastError();
   }
@@ -244,29 +254,49 @@ extern "C" int tdp_gathered_lm_launch(int site, int act, int vvl, int dtype,
   }
 }
 
-// The selective scan of `rows` batch rows.  x, dt, y: (rows·L, n); a: (N,
-// n); d: (1, n); b, c: (rows·L, N); h: (rows·N, n) — device pointers,
-// float32, contiguous.  Returns 0, a cudaError_t, tdp::ERR_BAD_VVL or
-// tdp::lm::ERR_BAD_NSTATE (N not in {8, 16}).
-extern "C" int tdp_gathered_mamba_launch(int nstate, int vvl, const void* x,
-                                         const void* dt, const void* a,
-                                         const void* d, const void* b,
-                                         const void* c, void* y, void* h,
-                                         long long L, long long n, int rows,
-                                         void* stream) {
-  tdp::lm::MambaIO io{};
-  io.x = static_cast<const float*>(x);
-  io.dt = static_cast<const float*>(dt);
+namespace {
+
+template <class T>
+int mamba_launch(int nstate, int vvl, const void* x, const void* dt, const void* a,
+                 const void* d, const void* b, const void* c, void* y, void* h,
+                 long long L, long long n, int rows, void* stream) {
+  tdp::lm::MambaIOT<T> io{};
+  io.x = static_cast<const T*>(x);
+  io.dt = static_cast<const T*>(dt);
   io.a = static_cast<const float*>(a);
   io.d = static_cast<const float*>(d);
-  io.b = static_cast<const float*>(b);
-  io.c = static_cast<const float*>(c);
-  io.y = static_cast<float*>(y);
+  io.b = static_cast<const T*>(b);
+  io.c = static_cast<const T*>(c);
+  io.y = static_cast<T*>(y);
   io.h = static_cast<float*>(h);
   io.L = L;
   io.n = n;
   io.rows = rows;
   return tdp::lm::dispatch_mamba<MambaLaunch>(nstate, vvl, io, stream);
+}
+
+}  // namespace
+
+// The selective scan of `rows` batch rows.  x, dt, y: (rows·L, n); b, c:
+// (rows·L, N), of the storage type `dtype` (tdp::DTYPE_F32 or DTYPE_BF16);
+// a: (N, n), d: (1, n), h: (rows·N, n), float32 — device pointers,
+// contiguous.  Returns 0, a cudaError_t, tdp::ERR_BAD_VVL,
+// tdp::lm::ERR_BAD_NSTATE (N not in {8, 16}) or tdp::ERR_BAD_DTYPE.
+extern "C" int tdp_gathered_mamba_launch(int nstate, int vvl, int dtype, const void* x,
+                                         const void* dt, const void* a,
+                                         const void* d, const void* b,
+                                         const void* c, void* y, void* h,
+                                         long long L, long long n, int rows,
+                                         void* stream) {
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return mamba_launch<float>(nstate, vvl, x, dt, a, d, b, c, y, h, L, n, rows,
+                                 stream);
+    case tdp::DTYPE_BF16:
+      return mamba_launch<tdp::bf16>(nstate, vvl, x, dt, a, d, b, c, y, h, L, n, rows,
+                                     stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }
 
 // rmsnorm over AoSoA: x, out (ceil(n / W), ncomp, W) blocks of W >= 1 tokens,

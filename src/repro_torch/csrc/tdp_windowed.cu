@@ -48,6 +48,16 @@
 
 #include "lb_sites.cuh"
 
+// The library is built as three translation units compiled in parallel
+// (kernels/_build.py UNITS) and linked: TDP_UNIT 1 compiles the SoA
+// entry, 2 the AoSoA entry, 3 the ensemble entries; unset, all of them.
+// Each unit instantiates only the kernels its entries launch.
+#ifndef TDP_UNIT
+#define TDP_UNIT_HAS(k) 1
+#else
+#define TDP_UNIT_HAS(k) (TDP_UNIT == (k))
+#endif
+
 namespace {
 
 constexpr int kBlock = 128;
@@ -195,6 +205,7 @@ struct AosoaLaunch {
 
 }  // namespace
 
+#if TDP_UNIT_HAS(1)
 // in[i]: the (ncomp, X+2hx, Y+2hy, Z+2hz) array of stencil field i or the
 // (ncomp, X*Y*Z) array of a pointwise one; out[k]: (ncomp, X*Y*Z).
 // float32, contiguous.  plane_block: the x-depth of fused's tiles.
@@ -219,7 +230,9 @@ extern "C" int tdp_windowed_launch(int site, int vvl, int plane_block,
   a.plane_block = plane_block;
   return tdp::dispatch_site<Launch>(site, vvl, a, stream);
 }
+#endif  // TDP_UNIT_HAS(1)
 
+#if TDP_UNIT_HAS(2)
 // The AoSoA launch: in[i] is field i's AoSoA buffer, blocks of W sites, each
 // x-plane in whole blocks: a pointwise field's planes of Y*Z sites (W must
 // divide Y*Z), a stencil field's extended planes padded to `plane` sites (a
@@ -251,7 +264,9 @@ extern "C" int tdp_windowed_aosoa_launch(int site, int W, int plane_block,
   w.plane_block = plane_block;
   return tdp::dispatch_site_aosoa<AosoaLaunch>(site, w, stream);
 }
+#endif  // TDP_UNIT_HAS(2)
 
+#if TDP_UNIT_HAS(3)
 // The ensemble launch: B members (1 <= B <= 65535) of the single launch's
 // operands, member m's at in[i] + m*in_stride[i] and out[k] +
 // m*out_stride[k] (elements), its physics row m of `phys` (B tdp::Phys rows
@@ -269,3 +284,4 @@ extern "C" int tdp_windowed_ensemble_launch(int site, int vvl, int plane_block, 
                                plane_block};
   return tdp::dispatch_site<EnsembleLaunch>(site, vvl, a, stream);
 }
+#endif  // TDP_UNIT_HAS(3)

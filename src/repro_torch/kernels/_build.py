@@ -7,6 +7,9 @@ interface, loaded with :mod:`ctypes`::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
+The two LB sources (:data:`UNITS`) are compiled as three objects each, one
+``nvcc -c -DTDP_UNIT=k`` a unit, and linked with ``nvcc -shared``.
+
 Output goes to ``build/repro_torch/<digest>/`` at the repository root,
 keyed by a hash of every source and the flags, so an edited source always
 rebuilds.  ``<name>.log`` beside each library keeps ``ptxas``'s register,
@@ -20,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -28,6 +32,14 @@ SOURCES = ("tdp_gathered", "tdp_windowed", "lb_collision", "tdp_gathered_lm",
            "flash_attention", "calibrate", "tdp_gathered_example")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: The flags of one unit's object (``-c``; the link adds ``-shared``).
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
+LINK_FLAGS = (*NVCC_FLAGS[:2], "-shared")
+#: Sources compiled as several translation units, ``-DTDP_UNIT=k`` for k in
+#: 1..n (each groups its entry points by it), in parallel with the other
+#: sources, and linked into one library: their SoA, AoSoA and ensemble
+#: kernels are most of the build's time.
+UNITS = {"tdp_gathered": 3, "tdp_windowed": 3}
 
 #: Site functions in the order of the C enum ``tdp::SiteId``.
 SITES = ("stream", "grad6", "moment", "collide", "fused", "phi_stream",
@@ -64,10 +76,13 @@ DTYPE_ID = {name: i for i, name in enumerate(DTYPES)}
 #: The d_state values the ``mamba`` site function is instantiated for.
 MAMBA_NSTATES = (8, 16)
 
+#: Wall seconds of each ``nvcc`` of the last :func:`build` that compiled,
+#: from the start of all of them to the end of each.
+BUILD_SECONDS: dict[str, float] = {}
+
 #: ``ERR_*`` return codes of the C entries (cudaError_t values are >= 0).
 _ERRORS = {-1: "unknown site function", -2: "VVL not in {1, 2, 4, 8}",
-           -3: "head_dim not instantiated (16, 32, 64, 80, 128, 192, 256; "
-               "bfloat16 128, 256)",
+           -3: "head_dim not instantiated (16, 32, 64, 80, 128, 192, 256)",
            -4: "Hq is not a multiple of Hkv",
            -5: f"d_state not instantiated {MAMBA_NSTATES}",
            -6: "a stencil radius exceeds a periodic extent or the ghost "
@@ -100,7 +115,8 @@ def build_dir() -> Path:
 
 def build() -> dict[str, Path]:
     """Compile every source that is not built yet, in parallel; return
-    ``{name: library path}``."""
+    ``{name: library path}``.  A source of :data:`UNITS` is compiled as its
+    units, each an object of its own, and linked once they are all done."""
     out = build_dir()
     libs = {name: out / f"lib{name}.so" for name in SOURCES}
     todo = [name for name in SOURCES if not libs[name].exists()]
@@ -109,31 +125,74 @@ def build() -> dict[str, Path]:
     nvcc = _nvcc()
     out.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}"
-    procs = []
+    t0 = time.perf_counter()
+    jobs = []            # (source, unit or step, log path, process), in order
+    left, failed, built = {}, [], set()
+
+    def lib_tmp(name):
+        return out / f"lib{name}.so.{tag}"
+
+    def objects(name):
+        # nvcc takes a file's kind from its suffix: ".o" last
+        return [out / f"{name}.{k}.{tag}.o" for k in range(1, UNITS[name] + 1)]
+
+    def start(name, cmd, what):
+        log = out / f"{name}.log.{what}.{tag}"
+        with open(log, "w") as f:
+            jobs.append((name, what, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT)))
+
     try:
         for name in todo:
-            log = open(out / f"{name}.log.{tag}", "w")
-            tmp = out / f"lib{name}.so.{tag}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs.append((name, tmp, log,
-                          subprocess.Popen(cmd, stdout=log,
-                                           stderr=subprocess.STDOUT)))
-        failed = []
-        for name, tmp, log, proc in procs:
-            proc.wait()
-            log.close()
-            os.replace(log.name, out / f"{name}.log")
-            if proc.returncode:
-                failed.append(name)
-                tmp.unlink(missing_ok=True)
+            src = str(CSRC / f"{name}.cu")
+            if name in UNITS:
+                for k, obj in enumerate(objects(name), 1):
+                    start(name, [nvcc, *COMPILE_FLAGS, f"-DTDP_UNIT={k}", "-c",
+                                 "-o", str(obj), src], f"unit{k}")
+                left[name] = UNITS[name]
             else:
-                os.replace(tmp, libs[name])
+                start(name, [nvcc, *NVCC_FLAGS, "-o", str(lib_tmp(name)), src],
+                      "nvcc")
+                left[name] = 1
+        done, linked = set(), set()
+        while len(done) < len(jobs):
+            for i, (name, what, _, proc) in enumerate(list(jobs)):
+                if i in done or proc.poll() is None:
+                    continue
+                done.add(i)
+                if name in UNITS:
+                    BUILD_SECONDS[f"{name}.{what}"] = time.perf_counter() - t0
+                if proc.returncode and name not in failed:
+                    failed.append(name)
+                left[name] -= 1
+                if left[name] or name in failed:
+                    continue
+                if name in UNITS and name not in linked:
+                    linked.add(name)
+                    left[name] = 1
+                    start(name, [nvcc, *LINK_FLAGS, "-o", str(lib_tmp(name)),
+                                 *map(str, objects(name))], "link")
+                else:
+                    built.add(name)
+                    BUILD_SECONDS[name] = time.perf_counter() - t0
+            time.sleep(0.1)
     finally:
-        for _, _, log, proc in procs:
+        for *_, proc in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-            log.close()
+        for name in todo:
+            logs = [log for n, _, log, _ in jobs if n == name]
+            (out / f"{name}.log").write_text(
+                "".join(log.read_text() for log in logs if log.exists()))
+            for log in logs:
+                log.unlink(missing_ok=True)
+            for obj in objects(name) if name in UNITS else ():
+                obj.unlink(missing_ok=True)
+            if name in built:
+                os.replace(lib_tmp(name), libs[name])
+            else:
+                lib_tmp(name).unlink(missing_ok=True)
     if failed:
         report = "\n".join(f"--- {n}.cu ---\n{(out / f'{n}.log').read_text()}"
                            for n in failed)

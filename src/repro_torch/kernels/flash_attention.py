@@ -14,11 +14,10 @@ The kernel takes each operand by its (batch, head, row) strides: any
 layout whose rows are ``Dh`` contiguous values, 16-byte aligned — a
 contiguous tensor, or the ``(B, S, H, Dh)`` projections of a model
 transposed to ``(B, H, S, Dh)`` with no copy; the output takes ``q``'s
-layout.  CUDA tensors launch the kernel (float32 at a head_dim in
-:data:`HEAD_DIMS`, bfloat16 at one in :data:`BF16_HEAD_DIMS`; q, k, v and
-the output of one dtype, ``lse`` float32) or raise ``ValueError`` on any
-other; CPU tensors run the plain version
-:func:`repro_torch.kernels.ref.attention_ref`.  In bfloat16 the kernel
+layout.  CUDA tensors launch the kernel (float32 or bfloat16 at a
+head_dim in :data:`HEAD_DIMS`; q, k, v and the output of one dtype,
+``lse`` float32) or raise ``ValueError`` on any other; CPU tensors run
+the plain version :func:`repro_torch.kernels.ref.attention_ref`.  In bfloat16 the kernel
 widens each value to float32 as it stages it and rounds the output once:
 the scores, the probabilities and the softmax state stay float32, as the
 reference's kernel keeps them.  :data:`launches` counts kernel launches.
@@ -35,10 +34,6 @@ from .ref import attention_ref
 #: head dims the kernel is instantiated for (80: zamba2's shared block;
 #: 192: deepseek-v3's MLA, q·k over 128 + 64 dimensions, V padded to 192)
 HEAD_DIMS = (16, 32, 64, 80, 128, 192, 256)
-
-#: head dims the kernel takes bfloat16 operands at (gemma3 128, gemma2 256;
-#: the rest wait for ROADMAP A7.1b)
-BF16_HEAD_DIMS = (128, 256)
 
 #: TF32 products the kernel runs per product of float32 operands (3xTF32;
 #: one TF32 product misses the reference's bar of 2e-4).  Of bfloat16
@@ -114,12 +109,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     b, hq, sq, dh = (int(s) for s in q.shape)
     hkv, sk = int(k.shape[1]), int(k.shape[2])
     dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
-    dims = BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
-    if dh not in dims:
+    if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the CUDA kernel is instantiated "
-                         f"for {dtype} at head_dim in {dims}, got {dh}"
-                         + (" (bfloat16 at other head dims: ROADMAP A7.1b)"
-                            if dtype == torch.bfloat16 else ""))
+                         f"at head_dim in {HEAD_DIMS}, got {dh}")
     strides = [s for name, x in (("q", q), ("k", k), ("v", v))
                for s in row_strides(name, x, q.device, dtype)]
     o = torch.empty_like(q)            # q's layout (a dense permutation kept)

@@ -151,14 +151,14 @@ def check_cuda_tensors(tensors, shapes, what: str,
 
 def refuse_bf16(tensors, what: str) -> None:
     """``NotImplementedError`` for a bfloat16 operand of a kernel that takes
-    float32 only (the LB and example site functions, ``mamba``, the AoSoA
-    and ensemble launches: ROADMAP A7.1b).  Nothing is upcast behind the
-    caller's back."""
+    float32 only (the LB and example site functions, the AoSoA and ensemble
+    launches: ROADMAP A7.1c).  Nothing is upcast behind the caller's
+    back."""
     if any(isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
            for t in tensors):
         raise NotImplementedError(
             f"{what}: bfloat16 operands are not ported for this kernel yet "
-            f"(ROADMAP A7.1b); it takes float32")
+            f"(ROADMAP A7.1c); it takes float32")
 
 
 def _lib():

@@ -172,7 +172,10 @@ def mamba_scan(x, dt, b, c, a, d, *, target=None, vvl=None, device=None,
 
     Shapes: ``x``/``dt`` ``(batch, L, d_inner)``, ``b``/``c``
     ``(batch, L, N)``, ``a`` ``(d_inner, N)``, ``d`` ``(d_inner,)``.
-    Returns ``(y (batch, L, d_inner), h_final (batch, d_inner, N))``.  The
+    Returns ``(y (batch, L, d_inner), h_final (batch, d_inner, N))``: y in
+    x's dtype, h_final float32.  ``x``, ``dt``, ``b`` and ``c`` are float32
+    or bfloat16 (one dtype), ``a`` and ``d`` float32, as the model passes
+    them (the reference's site widens each to float32).  The
     ``"cuda"`` site function takes d_state 8 or 16 and raises
     ``ValueError`` for any other.  ``chunk``: the time chunk of the plain
     chunked scan (``models.ssm._chunked_scan``) that the backward pass

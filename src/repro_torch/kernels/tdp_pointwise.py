@@ -92,8 +92,9 @@ from .lb_collision import (PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts
 #: The LM site functions: those of the shared LM entry, and the selective
 #: scan with its own.
 LM_SITES = _build.LM_SITES + ("mamba",)
-#: the storage types of the shared LM entry's SoA launches (rmsnorm, gated,
-#: act); every other launch of this executor takes float32 only
+#: the storage types of the LM site functions' SoA launches (rmsnorm,
+#: gated, act; mamba's x, dt, b, c and y); every other launch of this
+#: executor takes float32 only
 LM_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches of this executor, by site function; ``"reduce"`` counts
@@ -300,12 +301,14 @@ def pointer_arrays(ins, outs):
     return in_arr, out_arr
 
 
-def alloc_outputs(plan, like, n, out):
-    """Fresh ``(ncomp_o, n)`` outputs, or the caller's ``out`` buffers."""
+def alloc_outputs(plan, like, n, out, dtypes=None):
+    """Fresh ``(ncomp_o, n)`` outputs, or the caller's ``out`` buffers;
+    each of ``like``'s dtype, or of ``dtypes`` (one an output)."""
     if out is not None:
         return tuple(out)
-    return tuple(torch.empty((c, n), dtype=like.dtype, device=like.device)
-                 for c in plan.out_ncomp)
+    dtypes = dtypes or (like.dtype,) * len(plan.out_ncomp)
+    return tuple(torch.empty((c, n), dtype=dt, device=like.device)
+                 for c, dt in zip(plan.out_ncomp, dtypes))
 
 
 def _lib():
@@ -331,7 +334,7 @@ def _lm_lib():
 def _mamba_lib():
     fn = _build.load("tdp_gathered_lm").tdp_gathered_mamba_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
                        + [ctypes.c_longlong] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -454,22 +457,30 @@ def example_reduce(plan, op: str, fields) -> torch.Tensor:
 
 def _mamba_execute(plan, vvl, fields, out):
     """Launch the selective scan on CUDA tensors: every batch row in one
-    launch."""
+    launch.  x, dt, b, c and y float32 or bfloat16 (one dtype for the five),
+    a, d and the final state h float32, as the plain body takes and gives
+    them."""
     x0 = fields[0]
     rows, nstate_rows = plan.out_ncomp
     batch = mamba_batch(plan)
     nstate, length = nstate_rows // batch, rows // batch
     n = int(x0.shape[-1])
     b, c = plan.consts["b"], plan.consts["c"]
-    check_cuda_tensors([*fields, b, c],
-                       [(rows, n), (rows, n), (nstate, n), (1, n),
-                        (rows, nstate), (rows, nstate)],
-                       f"kernel {plan.name!r} (x, dt, a, d, b, c)")
-    outs = alloc_outputs(plan, x0, n, out)
-    check_cuda_tensors(outs, [(rows, n), (nstate_rows, n)],
-                       f"kernel {plan.name!r} (out)")
+    what = f"kernel {plan.name!r}"
+    check_cuda_tensors([x0, fields[1], b, c],
+                       [(rows, n), (rows, n), (rows, nstate), (rows, nstate)],
+                       f"{what} (x, dt, b, c)", LM_DTYPES)
+    check_cuda_tensors(fields[2:], [(nstate, n), (1, n)], f"{what} (a, d)")
+    outs = alloc_outputs(plan, x0, n, out, (x0.dtype, torch.float32))
+    check_cuda_tensors([x0, outs[0]], [(rows, n)] * 2, f"{what} (x, y)",
+                       LM_DTYPES)
+    check_cuda_tensors(outs[1:], [(nstate_rows, n)], f"{what} (h)")
+    if fields[2].device != x0.device:
+        raise ValueError(f"{what}: a and d must lie on {x0.device}, got "
+                         f"{fields[2].device}")
     with torch.cuda.device(x0.device):
-        rc = _mamba_lib()(nstate, vvl, *[t.data_ptr() for t in fields],
+        rc = _mamba_lib()(nstate, vvl, _build.dtype_id(x0.dtype),
+                          *[t.data_ptr() for t in fields],
                           b.data_ptr(), c.data_ptr(), outs[0].data_ptr(),
                           outs[1].data_ptr(), length, n, batch,
                           _build.stream_handle(x0.device))
@@ -513,16 +524,23 @@ def _lm_execute(plan, site, vvl, fields, out):
     return outs
 
 
+def refuse_unported_bf16(plan, site, tensors) -> None:
+    """``NotImplementedError`` (``lb_collision.refuse_bf16``) for a
+    bfloat16 operand of a launch with no bfloat16 kernel: the LB and
+    example site functions, and every AoSoA and ensemble launch.  The LM
+    site functions (``mamba`` too) take bfloat16 under SoA."""
+    if (site not in (*_build.LM_SITE_ID, "mamba")
+            or plan.ensemble is not None or plan.layout == "aosoa"):
+        refuse_bf16(tensors, f"kernel {plan.name!r} ({site!r}, layout "
+                    f"{plan.layout!r}{', ensemble' if plan.ensemble else ''})")
+
+
 def cuda_execute(plan, fields, out=None):
     """Registry executor entry (``takes_fields=True``,
     ``takes_ensemble=True`` — see :mod:`repro_torch.core.registry`)."""
     site = cuda_site(plan)
-    if fields[0].device.type == "cuda" and (
-            site not in _build.LM_SITE_ID or plan.ensemble is not None
-            or plan.layout == "aosoa"):
-        refuse_bf16([*fields, *plan.consts.values()],
-                    f"kernel {plan.name!r} ({site!r}, layout "
-                    f"{plan.layout!r}{', ensemble' if plan.ensemble else ''})")
+    if fields[0].device.type == "cuda":
+        refuse_unported_bf16(plan, site, [*fields, *plan.consts.values()])
     if plan.ensemble is not None:
         return ensemble_execute(plan, site, fields, out, launch=_ensemble_launch)
     if plan.layout == "aosoa":

@@ -35,6 +35,16 @@ from .config import ModelConfig, ssm_dims
 from .context import ExecContext
 
 
+def _silu(x):
+    """SiLU as the reference rounds it: ``jax.nn.silu`` of a bfloat16 array
+    is ``x · (1 / (1 + exp(−x)))`` with every op rounded to bfloat16
+    (``F.silu`` computes in float32 and rounds once, a bfloat16 step apart
+    on about a third of the values).  float32 goes through ``F.silu``."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def _causal_conv(x, w, b, *, state=None):
     """Depthwise causal conv of kernel size k.  x: (B, L, C); w: (k, C);
     b: (C,).  With ``state`` (B, k-1, C) the conv continues from a
@@ -57,7 +67,7 @@ def _mamba1_inner(p, xm, cfg: ModelConfig, ctx: ExecContext, *,
     s, _, dtr = ssm_dims(cfg)
     n = s.d_state
     xc, new_conv = _causal_conv(xm, p["conv_w"], p["conv_b"], state=conv_state)
-    xc = F.silu(xc)
+    xc = _silu(xc)
     xdbl = xc @ p["w_x"]                               # (B, L, dtr + 2N)
     dt_r, bmat, cmat = torch.split(xdbl, [dtr, n, n], dim=-1)
     dt = F.softplus(dt_r @ p["w_dt"] + p["dt_bias"].float())
@@ -137,7 +147,7 @@ def mamba1_mixer(p, x, cfg: ModelConfig, ctx: ExecContext, *, cache=None,
                                        ssm_state=cache["ssm"], decode=True)
     else:
         y, new_conv, h = _mamba1_inner(p, xm, cfg, ctx)
-    out = (y * F.silu(z)) @ p["w_out"]
+    out = (y * _silu(z)) @ p["w_out"]
     return out, {"conv": new_conv, "ssm": h}
 
 
@@ -263,7 +273,7 @@ def mamba2_mixer(p, x, cfg: ModelConfig, ctx: ExecContext, *, cache=None,
     bcc, new_conv_bc = _causal_conv(
         bc, p["conv_w_bc"], p["conv_b_bc"],
         state=None if cache is None else cache["conv_bc"])
-    xc, bcc = F.silu(xc), F.silu(bcc)
+    xc, bcc = _silu(xc), _silu(bcc)
     bmat = bcc[..., :g * n].reshape(b, L, g, n)
     cmat = bcc[..., g * n:].reshape(b, L, g, n)
     dt = F.softplus(dt_in.float() + p["dt_bias"].float())     # (B, L, H)

@@ -125,20 +125,28 @@ namespace {
 // kernel's barriers), on two stages of shared memory filled with NaN; per
 // step and channel slot, the lanes' shares of y summed in the kernel's
 // shuffle rounds, each lane adding its partner's value of the round before.
+template <class T>
+T nan_of();
+template <>
+float nan_of<float>() { return NAN; }
+template <>
+tdp::bf16 nan_of<tdp::bf16>() { return tdp::bf16{0x7fc0}; }
+
 template <class Site, int VVL, bool AOSOA>
 struct MambaLoopT {
-  static int run(const MambaIO& io, void*) {
+  template <class T>
+  static int run(const MambaIOT<T>& io, void*) {
     constexpr int N = Site::kN;
     using Tl = MambaTile<N, VVL>;
     if (io.n == 0 || io.L == 0 || io.rows == 0) return 0;
     const int64_t nq = mamba_chunks<N, VVL>(io.L);
-    std::vector<float> smem(2 * Tl::FLOATS);
+    std::vector<T> smem(2 * Tl::ELEMS);
     std::vector<MambaLane<N, VVL>> lanes(MAMBA_THREADS);
     float p[MAMBA_THREADS], sum[MAMBA_THREADS];
     for (int row = 0; row < io.rows; ++row)
       for (int64_t blk = 0, nb = mamba_blocks<N, VVL>(io.n); blk < nb; ++blk) {
-        std::fill(smem.begin(), smem.end(), NAN);
-        float* stage[2] = {smem.data(), smem.data() + Tl::FLOATS};
+        std::fill(smem.begin(), smem.end(), nan_of<T>());
+        T* stage[2] = {smem.data(), smem.data() + Tl::ELEMS};
         for (int t = 0; t < MAMBA_THREADS; ++t)
           mamba_lane_init<N, VVL, AOSOA>(io, blk, t, lanes[t]);
         for (int t = 0; t < MAMBA_THREADS; ++t)
@@ -147,7 +155,7 @@ struct MambaLoopT {
           if (q + 1 < nq)
             for (int t = 0; t < MAMBA_THREADS; ++t)
               mamba_stage<N, VVL, AOSOA>(io, row, blk, q + 1, t, stage[(q + 1) & 1]);
-          const float* buf = stage[q & 1];
+          const T* buf = stage[q & 1];
           const int steps = io.L - q * Tl::T < Tl::T ? (int)(io.L - q * Tl::T) : Tl::T;
           for (int s = 0; s < steps; ++s)
             for (int v = 0; v < VVL; ++v) {
@@ -224,23 +232,38 @@ extern "C" int host_mamba_aosoa(int nstate, int W, const void* x, const void* dt
   return tdp::lm::dispatch_mamba_aosoa<MambaAosoaLoop>(nstate, io, nullptr);
 }
 
-extern "C" int host_mamba(int nstate, int vvl, const void* x, const void* dt,
-                          const void* a, const void* d, const void* b,
-                          const void* c, void* y, void* h, long long L,
-                          long long n, int rows, void* stream) {
-  tdp::lm::MambaIO io{};
-  io.x = static_cast<const float*>(x);
-  io.dt = static_cast<const float*>(dt);
+template <class T>
+int host_mamba_t(int nstate, int vvl, const void* x, const void* dt, const void* a,
+                 const void* d, const void* b, const void* c, void* y, void* h,
+                 long long L, long long n, int rows, void* stream) {
+  tdp::lm::MambaIOT<T> io{};
+  io.x = static_cast<const T*>(x);
+  io.dt = static_cast<const T*>(dt);
   io.a = static_cast<const float*>(a);
   io.d = static_cast<const float*>(d);
-  io.b = static_cast<const float*>(b);
-  io.c = static_cast<const float*>(c);
-  io.y = static_cast<float*>(y);
+  io.b = static_cast<const T*>(b);
+  io.c = static_cast<const T*>(c);
+  io.y = static_cast<T*>(y);
   io.h = static_cast<float*>(h);
   io.L = L;
   io.n = n;
   io.rows = rows;
   return tdp::lm::dispatch_mamba<MambaLoop>(nstate, vvl, io, stream);
+}
+
+// tdp_gathered_mamba_launch's signature, dtype code and all.
+extern "C" int host_mamba(int nstate, int vvl, int dtype, const void* x, const void* dt,
+                          const void* a, const void* d, const void* b,
+                          const void* c, void* y, void* h, long long L,
+                          long long n, int rows, void* stream) {
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return host_mamba_t<float>(nstate, vvl, x, dt, a, d, b, c, y, h, L, n, rows, stream);
+    case tdp::DTYPE_BF16:
+      return host_mamba_t<tdp::bf16>(nstate, vvl, x, dt, a, d, b, c, y, h, L, n, rows,
+                                     stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }
 
 extern "C" void host_attention(const float* q, const float* k, const float* v,
@@ -515,25 +538,8 @@ FlashArgs<Store> flash_args(const void* q, const void* k, const void* v, void* o
   std::copy(strides, strides + 12, a.s);
   return a;
 }
-}  // namespace
-
-// The signature of flash_attention_launch, on host pointers, and the TF32
-// split to emulate: 1, or the kernel's 3 (any other value).
-extern "C" int host_flash(int dtype, const void* q, const void* k, const void* v, void* o,
-                          float* lse, const long long* strides, int B, int Hq, int Hkv, int Sq,
-                          int Sk, int Dh, float scale, float softcap, int causal,
-                          int window, int split) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return -4;
-  if (dtype == tdp::DTYPE_BF16) {
-    const auto a = flash_args<tdp::bf16>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk,
-                                         scale, softcap, causal, window);
-    if (Dh == 128) return flash_split<128>(a, split);
-    if (Dh == 256) return flash_split<256>(a, split);
-    return -3;
-  }
-  if (dtype != tdp::DTYPE_F32) return tdp::ERR_BAD_DTYPE;
-  const auto a = flash_args<float>(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk, scale,
-                                   softcap, causal, window);
+template <class Store>
+int flash_head_dim(int Dh, const FlashArgs<Store>& a, int split) {
   switch (Dh) {
     case 16: return flash_split<16>(a, split);
     case 32: return flash_split<32>(a, split);
@@ -543,6 +549,29 @@ extern "C" int host_flash(int dtype, const void* q, const void* k, const void* v
     case 192: return flash_split<192>(a, split);
     case 256: return flash_split<256>(a, split);
     default: return -3;
+  }
+}
+
+}  // namespace
+
+// The signature of flash_attention_launch, on host pointers, and the TF32
+// split to emulate: 1, or the kernel's 3 (any other value).
+extern "C" int host_flash(int dtype, const void* q, const void* k, const void* v, void* o,
+                          float* lse, const long long* strides, int B, int Hq, int Hkv, int Sq,
+                          int Sk, int Dh, float scale, float softcap, int causal,
+                          int window, int split) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return -4;
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return flash_head_dim(Dh, flash_args<float>(q, k, v, o, lse, strides, B, Hq, Hkv,
+                                                  Sq, Sk, scale, softcap, causal, window),
+                            split);
+    case tdp::DTYPE_BF16:
+      return flash_head_dim(Dh, flash_args<tdp::bf16>(q, k, v, o, lse, strides, B, Hq,
+                                                      Hkv, Sq, Sk, scale, softcap, causal,
+                                                      window),
+                            split);
+    default: return tdp::ERR_BAD_DTYPE;
   }
 }
 
@@ -586,7 +615,7 @@ def host_lib(tmp_path_factory):
                            + [ctypes.c_longlong, ctypes.c_int]
                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     so.host_lm.restype = ctypes.c_int
-    so.host_mamba.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+    so.host_mamba.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
                               + [ctypes.c_longlong] * 2
                               + [ctypes.c_int, ctypes.c_void_p])
     so.host_mamba.restype = ctypes.c_int
@@ -702,11 +731,15 @@ def test_dense_arch_mlp_widths(host_lib, kind, gated, n):
             torch.testing.assert_close(out, want, **TOL)
 
 
-def _mamba(so, nstate, vvl, fields, b, c, y, h, rows=1):
+def _mamba(so, nstate, vvl, fields, b, c, y, h, rows=1, dtype=None):
+    """``host_mamba`` on torch tensors; ``dtype`` a storage name to pass
+    in place of x's code (an unknown one: its error)."""
     x, dt, a, d = fields
     length, n = x.shape[0] // rows, x.shape[1]
-    return so.host_mamba(nstate, vvl, *[t.data_ptr() for t in (x, dt, a, d, b,
-                                                                c, y, h)],
+    code = (_build.DTYPE_ID.get(dtype, 7) if dtype is not None
+            else _build.dtype_id(x.dtype))
+    return so.host_mamba(nstate, vvl, code,
+                         *[t.data_ptr() for t in (x, dt, a, d, b, c, y, h)],
                          length, n, rows, None)
 
 
@@ -1343,14 +1376,20 @@ def test_gated_and_act_sites_bf16(host_lib, kind, gated):
 
 def test_bad_dtype_codes(host_lib):
     """A storage code outside ``_build.DTYPES`` is ``ERR_BAD_DTYPE`` (-10)
-    at both entries, and bfloat16 attention at a head dim outside
-    ``BF16_HEAD_DIMS`` is ``ERR_BAD_HEAD_DIM``; the codes are the
+    at the three entries that take one, and bfloat16 attention at a head
+    dim outside ``HEAD_DIMS`` (48) is ``ERR_BAD_HEAD_DIM``: the bfloat16
+    launch dispatches on the float32 launch's head dims; the codes are the
     sources'."""
-    from repro_torch.kernels.flash_attention import BF16_HEAD_DIMS
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     x = torch.zeros(1, 8)
     assert host_lib.host_lm(1, 0, 1, 2, x.data_ptr(), x.data_ptr(), None,
                             x.data_ptr(), 8, 1, 0.0, 0.0, None) == -10
-    q = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16)
+    f = [torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(8, 8),
+         torch.zeros(1, 8)]
+    bc, out = torch.zeros(4, 8), [torch.zeros(4, 8), torch.zeros(8, 8)]
+    assert _mamba(host_lib, 8, 1, f, bc, bc, *out, dtype="int8") == -10
+    assert 48 not in HEAD_DIMS
+    q = torch.zeros(1, 1, 4, 48, dtype=torch.bfloat16)
     assert _flash(host_lib, q, q, q, q.clone(), 3) == -3
     src = (_build.CSRC / "bf16.cuh").read_text()
     assert re.findall(r"DTYPE_(\w+) = (\d+)", src) == [
@@ -1358,10 +1397,41 @@ def test_bad_dtype_codes(host_lib):
             "float32", "bfloat16")
     assert "ERR_BAD_DTYPE = -10" in src
     fa = (_build.CSRC / "flash_attention.cu").read_text()
-    assert tuple(int(h) for h in re.findall(
-        r"if \(Dh == (\d+)\) return launch<", fa)) == BF16_HEAD_DIMS
+    assert "dispatch_head_dim(Dh, attn_io<float>" in fa
+    assert "dispatch_head_dim(Dh, attn_io<tdp::bf16>" in fa
+    lm = (_build.CSRC / "tdp_gathered_lm.cu").read_text()
+    assert "mamba_launch<tdp::bf16>(" in lm
     with pytest.raises(ValueError, match="storage type"):
         _build.check(-10, "x")
+
+
+def test_unported_bf16_launches_raise():
+    """The bfloat16 refusals that remain (ROADMAP A7.1c), by the rule the
+    card's executor applies to its operands: the AoSoA ``mamba`` and
+    ``rmsnorm`` launches and an LB site function raise a named
+    ``NotImplementedError``; ``mamba`` and the other LM sites under SoA, and
+    float32 anywhere, pass."""
+    from repro_torch.core import Target
+    from repro_torch.core.api import launch_plan
+    bf = torch.bfloat16
+    spec = tlm.mamba_scan_spec(4, 8)
+    xs = [torch.zeros(4, 16, dtype=bf), torch.zeros(4, 16, dtype=bf),
+          torch.zeros(8, 16), torch.zeros(1, 16)]
+    consts = {"b": torch.zeros(4, 8, dtype=bf), "c": torch.zeros(4, 8, dtype=bf)}
+    aosoa = launch_plan(spec, Target("cuda", layout="aosoa", vvl=8),
+                        consts=consts)
+    with pytest.raises(NotImplementedError, match="A7.1c"):
+        tpw.refuse_unported_bf16(aosoa, "mamba", [*xs, *consts.values()])
+    rms = launch_plan(tlm.rmsnorm_spec(16), Target("cuda", layout="aosoa",
+                                                   vvl=8),
+                      consts={"weight": torch.zeros(16, dtype=bf)})
+    with pytest.raises(NotImplementedError, match="A7.1c"):
+        tpw.refuse_unported_bf16(rms, "rmsnorm", [torch.zeros(16, 4, dtype=bf)])
+    with pytest.raises(NotImplementedError, match="A7.1c"):
+        tpw.refuse_unported_bf16(aosoa, "collide", [torch.zeros(3, dtype=bf)])
+    soa = launch_plan(spec, Target("cuda"), consts=consts)
+    tpw.refuse_unported_bf16(soa, "mamba", [*xs, *consts.values()])
+    tpw.refuse_unported_bf16(aosoa, "mamba", [x.float() for x in xs])
 
 
 #: kernel 4 in bfloat16: gemma3's local and global layers (Dh 128: GQA 2,
@@ -1374,6 +1444,18 @@ _FLASH_BF16 = {
     "gemma2_softcap_dh256": ((1, 4, 2, 150, 150, 256),
                              dict(causal=True, window=64, softcap=50.0)),
     "noncausal_ragged_dh256": ((1, 2, 1, 77, 140, 256), dict(causal=False)),
+    # the other head dims (A7.1b): the smoke models' Dh 16 and 32 with a
+    # window and softcap, granite's Dh 64 (GQA 2) and whisper's three
+    # attentions at Dh 64 (non-causal Sq ≠ Sk, a tail of 28 keys), zamba2's
+    # Dh 80 (V pairs of 16) and deepseek's Dh 192, ragged
+    "mqa_window_softcap_dh16": ((1, 4, 1, 100, 100, 16),
+                                dict(causal=True, window=40, softcap=5.0)),
+    "gqa_causal_dh32": ((2, 4, 2, 70, 70, 32), dict(causal=True)),
+    "granite_gqa_dh64": ((1, 4, 2, 140, 140, 64), dict(causal=True)),
+    "whisper_frames_dh64": ((1, 2, 2, 150, 92, 64), dict(causal=False)),
+    "whisper_cross_dh64": ((1, 2, 2, 92, 348, 64), dict(causal=False)),
+    "zamba2_causal_dh80": ((1, 3, 3, 150, 150, 80), dict(causal=True)),
+    "deepseek_causal_dh192": ((1, 2, 2, 150, 150, 192), dict(causal=True)),
 }
 
 
@@ -1392,6 +1474,64 @@ def test_flash_tile_bf16(host_lib, case):
     want, want_lse = tref.attention_ref(q, k, v, return_lse=True, **kw)
     assert_within_bf16_step(o, want)
     torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+def test_flash_tile_bf16_v_padded_dh192(host_lib):
+    """deepseek's MLA in bfloat16: V zero-padded from 128 to 192 in
+    bfloat16, as ``models/mla.py`` pads it; O's padded dimensions exactly
+    0, its first 128 within one bfloat16 step of the plain version."""
+    b, h, s_, dh = 1, 2, 140, 192
+    q, k, v = (_bf16(76, (b, h, s_, dh)), _bf16(77, (b, h, s_, dh)),
+               _bf16(78, (b, h, s_, dh)))
+    v[..., 128:] = 0
+    o = torch.full_like(q, float("nan"))
+    assert _flash(host_lib, q, k, v, o, 3, causal=True) == 0
+    assert torch.equal(o[..., 128:], torch.zeros_like(o[..., 128:]))
+    assert_within_bf16_step(o, tref.attention_ref(q, k, v, causal=True))
+
+
+def _mamba_bf16_inputs(seed, rows, length, n, nstate):
+    """The scan's operands as the model hands them in bfloat16: x, dt (after
+    the softplus, rounded), b and c bfloat16; a (negative) and d float32."""
+    x = _bf16(seed, (rows * length, n))
+    dt = torch.nn.functional.softplus(_rand(seed + 1, (rows * length, n)))
+    a = -torch.exp(_rand(seed + 2, (nstate, n)))
+    b = _bf16(seed + 4, (rows * length, nstate))
+    c = _bf16(seed + 5, (rows * length, nstate))
+    return x, dt.to(torch.bfloat16), a, _rand(seed + 3, (1, n)), b, c
+
+
+@pytest.mark.parametrize("nstate", _build.MAMBA_NSTATES)
+@pytest.mark.parametrize("n", [304, 300])
+def test_mamba_site_bf16(host_lib, nstate, n):
+    """The scan in bfloat16 (x, dt, b, c and y bfloat16; a, d and h
+    float32) over 2 rows of 45 steps (a ragged last chunk at every VVL),
+    n = 304 staging x and dt by 16-byte copies of 8 values, n = 300 (not a
+    multiple of 8) one value at a time, and b, c at a storage offset of one
+    element (their scalar path).  Staged raw and widened as read, the scan
+    is the float32 scan of the widened values with y rounded once: bit for
+    bit against the float32 launch, y within one bfloat16 step of the plain
+    body on the bfloat16 inputs and h at the float32 bar."""
+    rows, length = 2, 45
+    x, dt, a, d, b, c = _mamba_bf16_inputs(60, rows, length, n, nstate)
+    want_y, want_h = tlm.mamba_scan_spec(length, nstate, rows).fn(
+        x, dt, a, d, b=b, c=c)
+    assert want_y.dtype == torch.bfloat16 and want_h.dtype == torch.float32
+    for vvl in (1, 2, 4, 8):
+        y32 = torch.full((rows * length, n), float("nan"))
+        h32 = torch.full((rows * nstate, n), float("nan"))
+        assert _mamba(host_lib, nstate, vvl, (x.float(), dt.float(), a, d),
+                      b.float(), c.float(), y32, h32, rows=rows) == 0
+        for bb, cc in ((b, c), (_at_offset_like(b, 1), _at_offset_like(c, 1))):
+            y = torch.full((rows * length, n), float("nan"),
+                           dtype=torch.bfloat16)
+            h = torch.full((rows * nstate, n), float("nan"))
+            assert _mamba(host_lib, nstate, vvl, (x, dt, a, d), bb, cc, y, h,
+                          rows=rows) == 0
+            assert torch.equal(y, y32.to(torch.bfloat16)), vvl
+            assert torch.equal(h, h32), vvl
+            assert_within_bf16_step(y, want_y)
+            torch.testing.assert_close(h, want_h, **TOL)
 
 
 def test_flash_tile_bf16_takes_transposed_views(host_lib):
