@@ -2,10 +2,10 @@
 // their host stand-ins.
 //
 // On the card copy16 issues a 16-byte cp.async that bypasses L1 (.cg),
-// copy4 a 4-byte one through it (.ca), and cp_async_commit /
-// cp_async_wait<N> close a group of copies and wait until at most N groups
-// are in flight; the block's __syncthreads after the wait makes the tile
-// visible to every thread.  Compiled for the host (the tests' harnesses),
+// copy8 and copy4 an 8- and a 4-byte one through it (.ca), and
+// cp_async_commit / cp_async_wait<N> close a group of copies and wait
+// until at most N groups are in flight; the block's __syncthreads after
+// the wait makes the tile visible to every thread.  Compiled for the host (the tests' harnesses),
 // the same calls copy at once and the group calls do nothing, so a harness
 // that runs a kernel's phases in order sees what the kernel's barriers
 // guarantee.
@@ -35,6 +35,18 @@ __host__ __device__ __forceinline__ void copy16(void* dst, const void* src) {
                : "memory");
 #else
   memcpy(dst, src, 16);
+#endif
+}
+
+// dst (shared) = the 8 bytes at src (4 bfloat16 values); both 8-byte
+// aligned.  cp.async copies 8 bytes through L1 only (.ca).
+__host__ __device__ __forceinline__ void copy8(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
+               : "memory");
+#else
+  memcpy(dst, src, 8);
 #endif
 }
 

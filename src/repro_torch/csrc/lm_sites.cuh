@@ -79,9 +79,9 @@
 //            k·W + ch % W (K the component count).  The scan is the SoA one
 //            at MAMBA_AOSOA_VVL channels a lane group; only the chunk stage,
 //            the loads of a and the stores of y and h take the index map.
-//            The stage copies 4 channels at a time (16 bytes), so W must be a
-//            multiple of MAMBA_AOSOA_ALIGN = 4: a copy then never straddles
-//            two blocks.
+//            The stage copies 4 channels at a time (16 bytes of float32, 8
+//            of bfloat16), so W must be a multiple of MAMBA_AOSOA_ALIGN = 4:
+//            a copy then never straddles two blocks, in either type.
 //
 // Storage (rmsnorm, gated, act): float32 or bfloat16 (bf16.cuh), one type
 // for x/u, v, the weight and out, a template parameter of every piece and a
@@ -101,7 +101,9 @@
 // into a stage of half the bytes, and each value is widened to float32 as a
 // lane reads it from shared memory; the recurrence, exp(dt·a) and the sum
 // over states are the float32 code's, and y is rounded to bfloat16 once.
-// The AoSoA launches take float32 only.
+// The AoSoA launches take the same types: rmsnorm's pieces are templated on
+// the storage type as the tiled ones are, gated/act run ew_kernel, and the
+// AoSoA scan stages a bfloat16 block's 4 channels by one 8-byte copy.
 //
 // The activation (silu, gelu with the tanh approximation, relu^2) is a
 // template parameter.  Arithmetic keeps the plain version's order where it
@@ -199,7 +201,6 @@ struct LmIOT {
   int ncomp;
   float eps, scale_offset;
 };
-using LmIO = LmIOT<float>;
 
 template <int ACT>
 __host__ __device__ __forceinline__ float act(float u) {
@@ -483,7 +484,8 @@ __host__ __device__ __forceinline__ int rms_aosoa_width(const AosoaMap& m) {
   return m.W < RMS_THREADS ? m.W : RMS_THREADS;
 }
 
-__host__ __device__ __forceinline__ int64_t rms_aosoa_blocks(const LmIO& io,
+template <class T>
+__host__ __device__ __forceinline__ int64_t rms_aosoa_blocks(const LmIOT<T>& io,
                                                              const AosoaMap& m) {
   const int wc = rms_aosoa_width(m);
   return (io.n + m.W - 1) / m.W * ((m.W + wc - 1) / wc);
@@ -496,7 +498,8 @@ struct RmsAosoaThread {
   int g, G, wc;
 };
 
-__host__ __device__ __forceinline__ RmsAosoaThread rms_aosoa_thread(const LmIO& io,
+template <class T>
+__host__ __device__ __forceinline__ RmsAosoaThread rms_aosoa_thread(const LmIOT<T>& io,
                                                                     const AosoaMap& m,
                                                                     int64_t block,
                                                                     int tid) {
@@ -515,7 +518,8 @@ __host__ __device__ __forceinline__ RmsAosoaThread rms_aosoa_thread(const LmIO& 
 // Phase 1: red[tid] = the sum of squares over components g, g + G, ...,
 // in that order, rms_unroll<1>() rows loaded before they are added (as the
 // tiled SoA kernel does at VVL 1).
-__host__ __device__ __forceinline__ void rms_aosoa_partial(const LmIO& io,
+template <class T>
+__host__ __device__ __forceinline__ void rms_aosoa_partial(const LmIOT<T>& io,
                                                            const AosoaMap& m,
                                                            int64_t block, int tid,
                                                            float* red) {
@@ -524,7 +528,7 @@ __host__ __device__ __forceinline__ void rms_aosoa_partial(const LmIO& io,
   float ss = 0.0f;
   if (r.base >= 0) {
     const int64_t step = (int64_t)r.G * m.W;
-    const float* p = io.in[0] + r.base + (int64_t)r.g * m.W;
+    const T* p = io.in[0] + r.base + (int64_t)r.g * m.W;
     int c = r.g;
     for (; c + (U - 1) * r.G < io.ncomp; c += U * r.G, p += U * step) {
       float v[U];
@@ -542,7 +546,8 @@ __host__ __device__ __forceinline__ void rms_aosoa_partial(const LmIO& io,
 }
 
 // Phase 2: thread t < wc adds token t's partials in group order.
-__host__ __device__ __forceinline__ void rms_aosoa_combine(const LmIO& io,
+template <class T>
+__host__ __device__ __forceinline__ void rms_aosoa_combine(const LmIOT<T>& io,
                                                            const AosoaMap& m, int tid,
                                                            const float* red,
                                                            float* inv) {
@@ -553,8 +558,10 @@ __host__ __device__ __forceinline__ void rms_aosoa_combine(const LmIO& io,
   inv[tid] = rms_inv(ss, io);
 }
 
-// Phase 3: the thread scales its token over its components.
-__host__ __device__ __forceinline__ void rms_aosoa_scale(const LmIO& io,
+// Phase 3: the thread scales its token over its components, each result
+// rounded to the storage type once.
+template <class T>
+__host__ __device__ __forceinline__ void rms_aosoa_scale(const LmIOT<T>& io,
                                                          const AosoaMap& m,
                                                          int64_t block, int tid,
                                                          const float* inv) {
@@ -573,10 +580,10 @@ __host__ __device__ __forceinline__ void rms_aosoa_scale(const LmIO& io,
       wt[k] = ldg(io.weight + c + k * r.G) + io.scale_offset;
     }
 #pragma unroll
-    for (int k = 0; k < U; ++k) io.out[i + k * step] = v[k] * iv * wt[k];
+    for (int k = 0; k < U; ++k) store_f32(io.out + i + k * step, v[k] * iv * wt[k]);
   }
   for (; c < io.ncomp; c += r.G, i += step)
-    io.out[i] = ldg(io.in[0] + i) * iv * (ldg(io.weight + c) + io.scale_offset);
+    store_f32(io.out + i, ldg(io.in[0] + i) * iv * (ldg(io.weight + c) + io.scale_offset));
 }
 
 // ---------------------------------------------------------------------------
@@ -612,7 +619,6 @@ struct MambaIOT {
   int rows;
   AosoaMap map;     // the AoSoA launch's blocks (unused under SoA)
 };
-using MambaIO = MambaIOT<float>;
 
 // Offset of component k (of K) of channel ch in a field: SoA k·n + ch, AoSoA
 // the index map.
@@ -719,6 +725,19 @@ __host__ __device__ __forceinline__ void mamba_copy1(bf16* dst, const bf16* src)
   *dst = *src;
 }
 
+// MAMBA_AOSOA_ALIGN = 4 channels of an AoSoA block in one cp.async: 16 bytes
+// of float32, 8 of bfloat16; `p` aligned to that size.
+__host__ __device__ __forceinline__ void mamba_copy_group(float* dst, const float* src) {
+  copy16(dst, src);
+}
+__host__ __device__ __forceinline__ void mamba_copy_group(bf16* dst, const bf16* src) {
+  copy8(dst, src);
+}
+template <class T>
+__host__ __device__ __forceinline__ bool mamba_group_aligned(const T* p) {
+  return ((uintptr_t)p & (MAMBA_AOSOA_ALIGN * sizeof(T) - 1)) == 0;
+}
+
 // Thread `tid` copies its share of chunk q of row `row` into the stage at
 // buf, in the storage type: the chunk's live steps of x and dt over the
 // block's live channels (16-byte copies of E = 16 / sizeof(T) channels where
@@ -726,8 +745,10 @@ __host__ __device__ __forceinline__ void mamba_copy1(bf16* dst, const bf16* src)
 // of b and c, T·N contiguous elements each (16-byte copies where b and c are
 // aligned: a row of N >= 8 is a whole number of them).  Slots past the
 // ragged last block or chunk are left as they were: no live lane reads them.
-// Under AoSoA (float32) the x and dt copies go through the index map
-// (16-byte copies of 4 channels, which W % 4 == 0 keeps inside one block).
+// Under AoSoA the x and dt copies go through the index map, a group of
+// MAMBA_AOSOA_ALIGN = 4 channels a copy (16 bytes of float32, 8 of
+// bfloat16), which W % 4 == 0 keeps inside one block; one element at a time
+// where x or dt is not aligned to a group.
 template <int N, int VVL, bool AOSOA = false, class T>
 __host__ __device__ __forceinline__ void mamba_stage(const MambaIOT<T>& io, int row,
                                                      int64_t blk, int64_t q, int tid,
@@ -741,21 +762,20 @@ __host__ __device__ __forceinline__ void mamba_stage(const MambaIOT<T>& io, int 
   const int cl = io.n - c0 < Tl::C ? (int)(io.n - c0) : Tl::C;
   const int64_t base = ((int64_t)row * io.L + t0) * io.n + c0;
   if constexpr (AOSOA) {
-    static_assert(sizeof(T) == 4, "the AoSoA scan takes float32");
     const int64_t K = (int64_t)io.rows * io.L, k0 = (int64_t)row * io.L + t0;
-    const bool vec = aligned16(io.x) && aligned16(io.dt);
-    const int width = vec ? 4 : 1;
+    const bool vec = mamba_group_aligned(io.x) && mamba_group_aligned(io.dt);
+    const int width = vec ? MAMBA_AOSOA_ALIGN : 1;
     const int CW = Tl::C / width;
     for (int i = tid; i < steps * CW; i += MAMBA_THREADS) {
       const int t = i / CW, c = width * (i % CW);
       if (c >= cl) continue;
       const int64_t off = mamba_at<true>(io, K, k0 + t, c0 + c);
       if (vec) {
-        copy16(buf + Tl::X + t * Tl::C + c, io.x + off);
-        copy16(buf + Tl::DT + t * Tl::C + c, io.dt + off);
+        mamba_copy_group(buf + Tl::X + t * Tl::C + c, io.x + off);
+        mamba_copy_group(buf + Tl::DT + t * Tl::C + c, io.dt + off);
       } else {
-        copy4(buf + Tl::X + t * Tl::C + c, io.x + off);
-        copy4(buf + Tl::DT + t * Tl::C + c, io.dt + off);
+        mamba_copy1(buf + Tl::X + t * Tl::C + c, io.x + off);
+        mamba_copy1(buf + Tl::DT + t * Tl::C + c, io.dt + off);
       }
     }
   } else if (io.n % E == 0 && aligned16(io.x) && aligned16(io.dt)) {
@@ -877,9 +897,10 @@ int dispatch_mamba(int nstate, int vvl, const IO& io, void* stream) {
   }
 }
 
-// (d_state) -> Launch<MambaSite<N>>::run(io, stream): the AoSoA scan
-template <template <class> class Launch>
-int dispatch_mamba_aosoa(int nstate, const MambaIO& io, void* stream) {
+// (d_state) -> Launch<MambaSite<N>>::run(io, stream): the AoSoA scan, io in
+// either storage type
+template <template <class> class Launch, class IO>
+int dispatch_mamba_aosoa(int nstate, const IO& io, void* stream) {
   switch (nstate) {
     case 8: return Launch<MambaSite<8>>::run(io, stream);
     case 16: return Launch<MambaSite<16>>::run(io, stream);

@@ -40,10 +40,13 @@
 
 #include "lb_sites.cuh"
 
-// The library is built as three translation units compiled in parallel
-// (kernels/_build.py UNITS) and linked: TDP_UNIT 1 compiles the SoA
-// entry, 2 the AoSoA entry, 3 the ensemble entries; unset, all of them.
-// Each unit instantiates only the kernels its entries launch.
+// The library is built as nine translation units compiled in parallel
+// (kernels/_build.py UNITS) and linked: TDP_UNIT 1-4 compile the SoA
+// kernels at VVL 1, 2, 4 and 8 (unit 1 also the SoA entry), 5 the AoSoA
+// entry, 6-9 the ensemble kernels at VVL 1, 2, 4 and 8 (unit 6 also the
+// ensemble entries); unset, all of them.  Each unit instantiates only the
+// kernels it launches: the SoA and ensemble kernels of one VVL are a
+// quarter of their entry's, so no unit is the build's long pole alone.
 #ifndef TDP_UNIT
 #define TDP_UNIT_HAS(k) 1
 #else
@@ -108,7 +111,77 @@ struct EnsembleLaunch {
   }
 };
 
+// L<Site, V> at the one VVL V: tdp::dispatch_site instantiates no other
+// VVL's kernels through it.
+template <template <class, int> class L, int V>
+struct AtVvl {
+  template <class Site, int VVL>
+  struct Launch {
+    template <class IO>
+    static int run(const IO& io, void* stream) {
+      if constexpr (VVL == V) {
+        return L<Site, VVL>::run(io, stream);
+      } else {
+        return tdp::ERR_BAD_VVL;
+      }
+    }
+  };
+};
+
+// An unknown site before an unknown VVL, as tdp::dispatch_site reports them.
+constexpr int bad_site_or_vvl(int site) {
+  return site < tdp::SITE_STREAM || site > tdp::SITE_FUSED_TWO ? tdp::ERR_BAD_SITE
+                                                               : tdp::ERR_BAD_VVL;
+}
+
 }  // namespace
+
+// The SoA and ensemble launches at one VVL V: every unit declares them, and
+// the unit of that VVL alone instantiates them (extern template: no other
+// unit compiles their kernels).
+namespace tdp_gathered_units {
+template <int V>
+int soa(int site, const tdp::FieldIO& io, void* stream) {
+  return tdp::dispatch_site<AtVvl<Launch, V>::template Launch>(site, V, io, stream);
+}
+template <int V>
+int ensemble(int site, const tdp::EnsembleIO& e, void* stream) {
+  return tdp::dispatch_site<AtVvl<EnsembleLaunch, V>::template Launch>(site, V, e,
+                                                                       stream);
+}
+extern template int soa<1>(int, const tdp::FieldIO&, void*);
+extern template int soa<2>(int, const tdp::FieldIO&, void*);
+extern template int soa<4>(int, const tdp::FieldIO&, void*);
+extern template int soa<8>(int, const tdp::FieldIO&, void*);
+extern template int ensemble<1>(int, const tdp::EnsembleIO&, void*);
+extern template int ensemble<2>(int, const tdp::EnsembleIO&, void*);
+extern template int ensemble<4>(int, const tdp::EnsembleIO&, void*);
+extern template int ensemble<8>(int, const tdp::EnsembleIO&, void*);
+#if TDP_UNIT_HAS(1)
+template int soa<1>(int, const tdp::FieldIO&, void*);
+#endif
+#if TDP_UNIT_HAS(2)
+template int soa<2>(int, const tdp::FieldIO&, void*);
+#endif
+#if TDP_UNIT_HAS(3)
+template int soa<4>(int, const tdp::FieldIO&, void*);
+#endif
+#if TDP_UNIT_HAS(4)
+template int soa<8>(int, const tdp::FieldIO&, void*);
+#endif
+#if TDP_UNIT_HAS(6)
+template int ensemble<1>(int, const tdp::EnsembleIO&, void*);
+#endif
+#if TDP_UNIT_HAS(7)
+template int ensemble<2>(int, const tdp::EnsembleIO&, void*);
+#endif
+#if TDP_UNIT_HAS(8)
+template int ensemble<4>(int, const tdp::EnsembleIO&, void*);
+#endif
+#if TDP_UNIT_HAS(9)
+template int ensemble<8>(int, const tdp::EnsembleIO&, void*);
+#endif
+}  // namespace tdp_gathered_units
 
 #if TDP_UNIT_HAS(1)
 // in[i] / out[k]: device pointers of the site function's fields and outputs
@@ -131,11 +204,17 @@ extern "C" int tdp_gathered_launch(int site, int vvl, const void* const* in,
   io.hz = hz;
   io.n = (int64_t)X * Y * Z;
   io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
-  return tdp::dispatch_site<Launch>(site, vvl, io, stream);
+  switch (vvl) {
+    case 1: return tdp_gathered_units::soa<1>(site, io, stream);
+    case 2: return tdp_gathered_units::soa<2>(site, io, stream);
+    case 4: return tdp_gathered_units::soa<4>(site, io, stream);
+    case 8: return tdp_gathered_units::soa<8>(site, io, stream);
+    default: return bad_site_or_vvl(site);
+  }
 }
 #endif  // TDP_UNIT_HAS(1)
 
-#if TDP_UNIT_HAS(2)
+#if TDP_UNIT_HAS(5)
 // The AoSoA launch: in[i] is field i's AoSoA buffer, blocks of W sites over
 // a pointwise field's X*Y*Z sites or a stencil field's flat extended grid
 // (x-planes of `plane` sites); out[k] is AoSoA over the interior.  W >= 1.
@@ -163,9 +242,9 @@ extern "C" int tdp_gathered_aosoa_launch(int site, int W, const void* const* in,
   a.soa_out = false;
   return tdp::dispatch_site_aosoa<AosoaLaunch>(site, a, stream);
 }
-#endif  // TDP_UNIT_HAS(2)
+#endif  // TDP_UNIT_HAS(5)
 
-#if TDP_UNIT_HAS(3)
+#if TDP_UNIT_HAS(6)
 // The ensemble launch: B members (1 <= B <= 65535) of the single launch's
 // operands, member m's at in[i] + m*in_stride[i] and out[k] +
 // m*out_stride[k] (elements), its physics row m of `phys` (B tdp::Phys rows
@@ -180,7 +259,13 @@ extern "C" int tdp_gathered_ensemble_launch(int site, int vvl, int B,
   if (const int rc = tdp::check_ensemble(B)) return rc;
   const tdp::EnsembleIO e = tdp::make_ensemble_io(B, in, out, in_stride, out_stride, X,
                                                   Y, Z, hx, hy, hz, phys);
-  return tdp::dispatch_site<EnsembleLaunch>(site, vvl, e, stream);
+  switch (vvl) {
+    case 1: return tdp_gathered_units::ensemble<1>(site, e, stream);
+    case 2: return tdp_gathered_units::ensemble<2>(site, e, stream);
+    case 4: return tdp_gathered_units::ensemble<4>(site, e, stream);
+    case 8: return tdp_gathered_units::ensemble<8>(site, e, stream);
+    default: return bad_site_or_vvl(site);
+  }
 }
 
 // The host side of an ensemble's physics table: rows[m] = make_phys of
@@ -188,4 +273,4 @@ extern "C" int tdp_gathered_ensemble_launch(int site, int vvl, int B,
 extern "C" void tdp_phys_rows(int B, const float* consts, void* rows) {
   tdp::make_phys_rows(B, consts, static_cast<tdp::Phys*>(rows));
 }
-#endif  // TDP_UNIT_HAS(3)
+#endif  // TDP_UNIT_HAS(6)

@@ -62,7 +62,11 @@
 // exponentials), so the bfloat16 scan is expected at about the float32
 // time.  Widening as the chunk is staged (as kernel 4's bfloat16 route
 // does) would make the staging loads synchronous, a memory latency a
-// chunk on the chain.  The AoSoA entries take float32 only.
+// chunk on the chain.  The AoSoA entries take the same dtype codes: the
+// AoSoA rmsnorm and scan are templated on the storage type as their SoA
+// twins are, and a bfloat16 AoSoA scan stages a block's 4 channels by one
+// 8-byte cp.async (16 bytes in float32), so W % 4 stays the only rule on
+// the width.
 //
 // The AoSoA branch (Target(layout="aosoa"), W = Target.vvl; mappings in
 // lm_sites.cuh): tdp_gathered_rmsnorm_aosoa_launch (rms_aosoa_kernel, one
@@ -80,7 +84,6 @@
 
 namespace {
 
-using tdp::lm::LmIO;
 using tdp::lm::LmIOT;
 
 template <class Site, int VVL, class T>
@@ -114,8 +117,9 @@ __global__ void __launch_bounds__(tdp::lm::RMS_FEW_THREADS)
   tdp::lm::rms_few_scale(io, group, threadIdx.x, red);
 }
 
+template <class T>
 __global__ void __launch_bounds__(tdp::lm::RMS_THREADS)
-    rms_aosoa_kernel(const __grid_constant__ LmIO io, const tdp::AosoaMap m) {
+    rms_aosoa_kernel(const __grid_constant__ LmIOT<T> io, const tdp::AosoaMap m) {
   __shared__ float red[tdp::lm::RMS_THREADS];
   __shared__ float inv[tdp::lm::RMS_THREADS];
   tdp::lm::rms_aosoa_partial(io, m, blockIdx.x, threadIdx.x, red);
@@ -181,11 +185,12 @@ struct MambaLaunch {
 
 template <class Site>
 struct MambaAosoaLaunch {
-  static int run(const tdp::lm::MambaIO& io, void* stream) {
+  template <class T>
+  static int run(const tdp::lm::MambaIOT<T>& io, void* stream) {
     constexpr int V = tdp::lm::MAMBA_AOSOA_VVL;
     if (io.n == 0 || io.L == 0 || io.rows == 0) return 0;
     const dim3 grid((unsigned)tdp::lm::mamba_blocks<Site::kN, V>(io.n), (unsigned)io.rows);
-    mamba_kernel<Site, V, true>
+    mamba_kernel<Site, V, true, T>
         <<<grid, tdp::lm::MAMBA_THREADS, 0, (cudaStream_t)stream>>>(io);
     return (int)cudaGetLastError();
   }
@@ -299,51 +304,88 @@ extern "C" int tdp_gathered_mamba_launch(int nstate, int vvl, int dtype, const v
   }
 }
 
-// rmsnorm over AoSoA: x, out (ceil(n / W), ncomp, W) blocks of W >= 1 tokens,
-// weight ncomp floats.  Returns 0, a cudaError_t or tdp::ERR_BAD_VVL (W < 1).
-extern "C" int tdp_gathered_rmsnorm_aosoa_launch(int W, const void* x, const void* weight,
-                                                 void* out, long long n, int ncomp,
-                                                 float eps, float scale_offset,
-                                                 void* stream) {
-  if (W < 1) return tdp::ERR_BAD_VVL;
-  tdp::lm::LmIO io{};
-  io.in[0] = static_cast<const float*>(x);
-  io.out = static_cast<float*>(out);
-  io.weight = static_cast<const float*>(weight);
+namespace {
+
+template <class T>
+int rmsnorm_aosoa_launch(int W, const void* x, const void* weight, void* out,
+                         long long n, int ncomp, float eps, float scale_offset,
+                         void* stream) {
+  LmIOT<T> io{};
+  io.in[0] = static_cast<const T*>(x);
+  io.out = static_cast<T*>(out);
+  io.weight = static_cast<const T*>(weight);
   io.n = n;
   io.ncomp = ncomp;
   io.eps = eps;
   io.scale_offset = scale_offset;
   if (n <= 0) return 0;
   const tdp::AosoaMap m = tdp::make_aosoa_map(W);
-  rms_aosoa_kernel<<<(unsigned)tdp::lm::rms_aosoa_blocks(io, m), tdp::lm::RMS_THREADS, 0,
-                     (cudaStream_t)stream>>>(io, m);
+  rms_aosoa_kernel<T><<<(unsigned)tdp::lm::rms_aosoa_blocks(io, m), tdp::lm::RMS_THREADS,
+                        0, (cudaStream_t)stream>>>(io, m);
   return (int)cudaGetLastError();
 }
 
-// The selective scan over AoSoA: x, dt, y (ceil(n / W), rows·L, W); a (.., N,
-// W); d (.., 1, W); h (.., rows·N, W); b, c (rows·L, N) as under SoA.
-// Returns 0, a cudaError_t, tdp::ERR_BAD_VVL (W not a positive multiple of
-// 4) or tdp::lm::ERR_BAD_NSTATE.
-extern "C" int tdp_gathered_mamba_aosoa_launch(int nstate, int W, const void* x,
-                                               const void* dt, const void* a,
-                                               const void* d, const void* b,
-                                               const void* c, void* y, void* h,
-                                               long long L, long long n, int rows,
-                                               void* stream) {
-  if (W < 1 || W % tdp::lm::MAMBA_AOSOA_ALIGN) return tdp::ERR_BAD_VVL;
-  tdp::lm::MambaIO io{};
-  io.x = static_cast<const float*>(x);
-  io.dt = static_cast<const float*>(dt);
+template <class T>
+int mamba_aosoa_launch(int nstate, int W, const void* x, const void* dt, const void* a,
+                       const void* d, const void* b, const void* c, void* y, void* h,
+                       long long L, long long n, int rows, void* stream) {
+  tdp::lm::MambaIOT<T> io{};
+  io.x = static_cast<const T*>(x);
+  io.dt = static_cast<const T*>(dt);
   io.a = static_cast<const float*>(a);
   io.d = static_cast<const float*>(d);
-  io.b = static_cast<const float*>(b);
-  io.c = static_cast<const float*>(c);
-  io.y = static_cast<float*>(y);
+  io.b = static_cast<const T*>(b);
+  io.c = static_cast<const T*>(c);
+  io.y = static_cast<T*>(y);
   io.h = static_cast<float*>(h);
   io.L = L;
   io.n = n;
   io.rows = rows;
   io.map = tdp::make_aosoa_map(W);
   return tdp::lm::dispatch_mamba_aosoa<MambaAosoaLaunch>(nstate, io, stream);
+}
+
+}  // namespace
+
+// rmsnorm over AoSoA: x, out (ceil(n / W), ncomp, W) blocks of W >= 1 tokens,
+// weight ncomp values, all of the storage type `dtype` (tdp::DTYPE_F32 or
+// DTYPE_BF16).  Returns 0, a cudaError_t, tdp::ERR_BAD_VVL (W < 1) or
+// tdp::ERR_BAD_DTYPE.
+extern "C" int tdp_gathered_rmsnorm_aosoa_launch(int W, int dtype, const void* x,
+                                                 const void* weight, void* out,
+                                                 long long n, int ncomp, float eps,
+                                                 float scale_offset, void* stream) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return rmsnorm_aosoa_launch<float>(W, x, weight, out, n, ncomp, eps, scale_offset,
+                                         stream);
+    case tdp::DTYPE_BF16:
+      return rmsnorm_aosoa_launch<tdp::bf16>(W, x, weight, out, n, ncomp, eps,
+                                             scale_offset, stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
+}
+
+// The selective scan over AoSoA: x, dt, y (ceil(n / W), rows·L, W); a (.., N,
+// W); d (.., 1, W); h (.., rows·N, W); b, c (rows·L, N) as under SoA.  x, dt,
+// b, c and y of the storage type `dtype`, a, d and h float32, as under SoA.
+// Returns 0, a cudaError_t, tdp::ERR_BAD_VVL (W not a positive multiple of
+// 4), tdp::lm::ERR_BAD_NSTATE or tdp::ERR_BAD_DTYPE.
+extern "C" int tdp_gathered_mamba_aosoa_launch(int nstate, int W, int dtype,
+                                               const void* x, const void* dt,
+                                               const void* a, const void* d,
+                                               const void* b, const void* c, void* y,
+                                               void* h, long long L, long long n,
+                                               int rows, void* stream) {
+  if (W < 1 || W % tdp::lm::MAMBA_AOSOA_ALIGN) return tdp::ERR_BAD_VVL;
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return mamba_aosoa_launch<float>(nstate, W, x, dt, a, d, b, c, y, h, L, n, rows,
+                                       stream);
+    case tdp::DTYPE_BF16:
+      return mamba_aosoa_launch<tdp::bf16>(nstate, W, x, dt, a, d, b, c, y, h, L, n,
+                                           rows, stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }

@@ -7,8 +7,10 @@ interface, loaded with :mod:`ctypes`::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
-The two LB sources (:data:`UNITS`) are compiled as three objects each, one
-``nvcc -c -DTDP_UNIT=k`` a unit, and linked with ``nvcc -shared``.
+The two LB sources (:data:`UNITS`) are compiled as several objects each
+(``tdp_windowed`` three, ``tdp_gathered`` nine: its SoA and ensemble
+kernels one unit a VVL), one ``nvcc -c -DTDP_UNIT=k`` a unit, and linked
+with ``nvcc -shared``.
 
 Output goes to ``build/repro_torch/<digest>/`` at the repository root,
 keyed by a hash of every source and the flags, so an edited source always
@@ -38,8 +40,9 @@ LINK_FLAGS = (*NVCC_FLAGS[:2], "-shared")
 #: Sources compiled as several translation units, ``-DTDP_UNIT=k`` for k in
 #: 1..n (each groups its entry points by it), in parallel with the other
 #: sources, and linked into one library: their SoA, AoSoA and ensemble
-#: kernels are most of the build's time.
-UNITS = {"tdp_gathered": 3, "tdp_windowed": 3}
+#: kernels are most of the build's time.  ``tdp_gathered``'s SoA and
+#: ensemble kernels are split further, one unit a VVL.
+UNITS = {"tdp_gathered": 9, "tdp_windowed": 3}
 
 #: Site functions in the order of the C enum ``tdp::SiteId``.
 SITES = ("stream", "grad6", "moment", "collide", "fused", "phi_stream",

@@ -339,9 +339,14 @@ class _FlashFn(_ref._ChunkedAttention):
     """Kernel 4 with its log-sum-exp output as the forward of
     ``_ChunkedAttention``, whose backward it inherits: the flash-style
     recompute ``_chunk_bwd`` (one query block's probabilities at a time,
-    from the saved log-sum-exp).  Saves q, k, v, the output and the
-    log-sum-exp (B, Hq, Sq).  ``cfg``: (causal, window, softcap, scale,
-    block_q, q_offset)."""
+    from the saved log-sum-exp), rounding where the plain version's
+    autograd rounds (``as_plain``: the softmax jacobian's diagonal term
+    summed over the probabilities, not from the output, which bfloat16
+    rounds; each query head's dk and dv rounded before a group's sum).
+    Saves q, k, v, the output and the log-sum-exp (B, Hq, Sq).  ``cfg``:
+    (causal, window, softcap, scale, block_q, q_offset)."""
+
+    as_plain = True
 
     @staticmethod
     def forward(ctx, q, k, v, cfg):

@@ -175,10 +175,20 @@ def _chunk_fwd(q, k, v, cfg):
     return torch.cat(outs, 2)[:, :, :sq], torch.cat(lses, 2)[:, :, :sq]
 
 
-def _chunk_bwd(cfg, res, dout):
+def _chunk_bwd(cfg, res, dout, as_plain=False):
     """Flash-style backward: recompute each query block's probabilities
     from the saved log-sum-exp instead of keeping the S² probabilities.
-    ``res``: (q, k, v, out, lse).  Returns (dq, dk, dv)."""
+    ``res``: (q, k, v, out, lse).  Returns (dq, dk, dv).  As the
+    reference computes it: the softmax jacobian's diagonal term D_i is
+    Σ_d dout·out, and a grouped-query kv head's dk and dv sum its query
+    heads' in float32.  ``as_plain`` rounds where the autograd of
+    :func:`attention_ref` (the plain version) rounds, which matters in
+    bfloat16: D_i is Σ_k p·dp over the row's probabilities in float32
+    (bfloat16's rounding of ``out`` moves Σ_d dout·out by 2^-9 of
+    |dout|·|out|, which dp − D cancels down to, and doubles dq's and dk's
+    distance from the exact gradient), and each query head's dk and dv is
+    rounded to k's dtype before the group's sum (``repeat_interleave``'s
+    backward).  ``ops._FlashFn`` takes it."""
     causal, window, softcap, scale, block_q, q_offset = cfg
     q, k, v, out, lse = res
     b, hq, sq, dh = q.shape
@@ -192,7 +202,7 @@ def _chunk_bwd(cfg, res, dout):
     kr = torch.repeat_interleave(k, group, dim=1).float()
     vr = torch.repeat_interleave(v, group, dim=1).float()
     # D_i = Σ_d dout·out per row — the softmax-jacobian diagonal term
-    dp_diag = (doutp.float() * outp.float()).sum(-1)
+    dp_diag = None if as_plain else (doutp.float() * outp.float()).sum(-1)
     dkr = torch.zeros((b, hq, sk, dh), dtype=torch.float32, device=q.device)
     dvr = torch.zeros_like(dkr)
     dqs = []
@@ -208,7 +218,9 @@ def _chunk_bwd(cfg, res, dout):
         do = doutp[:, :, rows].float()
         dvr = dvr + torch.einsum("bhqk,bhqd->bhkd", p, do)
         dp = torch.einsum("bhqd,bhkd->bhqk", do, vr)
-        ds = p * (dp - dp_diag[:, :, rows, None])       # d(capped scores)
+        diag = ((p * dp).sum(-1, keepdim=True) if as_plain
+                else dp_diag[:, :, rows, None])
+        ds = p * (dp - diag)                            # d(capped scores)
         if softcap > 0:
             # s here is post-cap; d(raw) = d(capped)·(1 - (s/c)²)
             ds = ds * (1.0 - torch.square(
@@ -218,6 +230,8 @@ def _chunk_bwd(cfg, res, dout):
         dkr = dkr + torch.einsum("bhqk,bhqd->bhkd", ds, qblk.float()) * scale
     dq = torch.cat(dqs, 2)[:, :, :sq]
     # fold grouped-query heads back onto their kv head
+    if as_plain:
+        dkr, dvr = dkr.to(k.dtype), dvr.to(v.dtype)
     dk = dkr.reshape(b, hkv, group, sk, dh).sum(2)
     dv = dvr.reshape(b, hkv, group, sk, dh).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -227,12 +241,15 @@ class _ChunkedAttention(torch.autograd.Function):
     """:func:`_chunk_fwd` with :func:`_chunk_bwd` as its backward; saves
     q, k, v, the output and the log-sum-exp (``keep``).  A subclass with
     another forward that returns (out, lse) passes them to ``keep`` and
-    inherits the backward (``ops._FlashFn``: kernel 4)."""
+    inherits the backward (``ops._FlashFn``: kernel 4); its ``as_plain``
+    is :func:`_chunk_bwd`'s."""
 
-    @staticmethod
-    def keep(ctx, q, k, v, cfg, out, lse):
+    as_plain = False
+
+    @classmethod
+    def keep(cls, ctx, q, k, v, cfg, out, lse):
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.as_plain = cfg, cls.as_plain
         return out
 
     @staticmethod
@@ -242,7 +259,8 @@ class _ChunkedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        return (*_chunk_bwd(ctx.cfg, ctx.saved_tensors, dout), None)
+        return (*_chunk_bwd(ctx.cfg, ctx.saved_tensors, dout,
+                            ctx.as_plain), None)
 
 
 def attention_chunked_ref(q, k, v, *, causal=True, window=0, softcap=0.0,

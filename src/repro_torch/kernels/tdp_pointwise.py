@@ -53,10 +53,12 @@ come back SoA through :func:`~repro_torch.core.layout.aosoa_to_soa`, as in
 the reference.  ``gated``/``act`` are elementwise and every operand shares
 one layout, so their AoSoA kernel is ``ew_kernel`` run over the padded
 blocks.  ``mamba`` needs ``W`` a multiple of 4 (its chunk stage copies 4
-channels at a time, and a copy may not straddle two blocks).  On CPU
-tensors the plain version (:func:`aosoa_plain`) reads every operand through
-the same index map, then runs the plain body.  :data:`aosoa_launches`
-counts the AoSoA kernel launches per site function.
+channels at a time, and a copy may not straddle two blocks).  The LM site
+functions take bfloat16 under AoSoA as under SoA (``mamba``'s ``a``, ``d``
+and final state float32).  On CPU tensors the plain version
+(:func:`aosoa_plain`) reads every operand through the same index map, then
+runs the plain body.  :data:`aosoa_launches` counts the AoSoA kernel
+launches per site function.
 
 Ensembles (a fleet's stage, :func:`repro_torch.core.api.launch_ensemble`:
 ``plan.ensemble`` set, every operand and output with a leading member
@@ -92,9 +94,9 @@ from .lb_collision import (PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts
 #: The LM site functions: those of the shared LM entry, and the selective
 #: scan with its own.
 LM_SITES = _build.LM_SITES + ("mamba",)
-#: the storage types of the LM site functions' SoA launches (rmsnorm,
-#: gated, act; mamba's x, dt, b, c and y); every other launch of this
-#: executor takes float32 only
+#: the storage types of the LM site functions' launches, SoA and AoSoA
+#: (rmsnorm, gated, act; mamba's x, dt, b, c and y); every other launch of
+#: this executor takes float32 only
 LM_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches of this executor, by site function; ``"reduce"`` counts
@@ -527,12 +529,12 @@ def _lm_execute(plan, site, vvl, fields, out):
 def refuse_unported_bf16(plan, site, tensors) -> None:
     """``NotImplementedError`` (``lb_collision.refuse_bf16``) for a
     bfloat16 operand of a launch with no bfloat16 kernel: the LB and
-    example site functions, and every AoSoA and ensemble launch.  The LM
-    site functions (``mamba`` too) take bfloat16 under SoA."""
-    if (site not in (*_build.LM_SITE_ID, "mamba")
-            or plan.ensemble is not None or plan.layout == "aosoa"):
+    example site functions, and every ensemble launch.  The LM site
+    functions (``mamba`` too) take bfloat16 under SoA and AoSoA."""
+    if site not in LM_SITES or plan.ensemble is not None:
+        ens = ", an ensemble (ROADMAP A5)" if plan.ensemble else ""
         refuse_bf16(tensors, f"kernel {plan.name!r} ({site!r}, layout "
-                    f"{plan.layout!r}{', ensemble' if plan.ensemble else ''})")
+                    f"{plan.layout!r}{ens})")
 
 
 def cuda_execute(plan, fields, out=None):
@@ -669,7 +671,7 @@ def _example_aosoa_lib():
 def _rmsnorm_aosoa_lib():
     fn = _build.load("tdp_gathered_lm").tdp_gathered_rmsnorm_aosoa_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
                        + [ctypes.c_longlong, ctypes.c_int]
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -679,7 +681,7 @@ def _rmsnorm_aosoa_lib():
 def _mamba_aosoa_lib():
     fn = _build.load("tdp_gathered_lm").tdp_gathered_mamba_aosoa_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
                        + [ctypes.c_longlong] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -688,11 +690,15 @@ def _mamba_aosoa_lib():
 
 def _aosoa_launch(plan, site, ops, n, geom):
     """Launch the AoSoA kernel of ``site`` on the card's AoSoA operands;
-    returns its AoSoA outputs."""
+    returns its AoSoA outputs: of operand 0's dtype, but ``mamba``'s final
+    state, float32 as under SoA."""
     W = plan.vvl
     x0 = ops[0]
-    outs = tuple(torch.empty((-(-n // W), c, W), dtype=x0.dtype,
-                             device=x0.device) for c in plan.out_ncomp)
+    dtypes = ((x0.dtype, torch.float32) if site == "mamba"
+              else (x0.dtype,) * len(plan.out_ncomp))
+    outs = tuple(torch.empty((-(-n // W), c, W), dtype=dt, device=x0.device)
+                 for c, dt in zip(plan.out_ncomp, dtypes))
+    dtype = _build.dtype_id(x0.dtype)
     stream = _build.stream_handle(x0.device)
     with torch.cuda.device(x0.device):
         if site == "mamba":
@@ -700,10 +706,11 @@ def _aosoa_launch(plan, site, ops, n, geom):
             batch = mamba_batch(plan)
             b, c = plan.consts["b"], plan.consts["c"]
             nstate = nstate_rows // batch
-            check_cuda_tensors([b, c], [(rows, nstate)] * 2,
-                               f"kernel {plan.name!r} (b, c)")
+            check_cuda_tensors([x0, b, c], [tuple(x0.shape)]
+                               + [(rows, nstate)] * 2,
+                               f"kernel {plan.name!r} (x, b, c)", LM_DTYPES)
             rc = _mamba_aosoa_lib()(
-                nstate, W, *[t.data_ptr() for t in ops], b.data_ptr(),
+                nstate, W, dtype, *[t.data_ptr() for t in ops], b.data_ptr(),
                 c.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
                 rows // batch, n, batch, stream)
         elif site in _build.EXAMPLE_SITE_ID:
@@ -721,17 +728,18 @@ def _aosoa_launch(plan, site, ops, n, geom):
                                  f"{type(weight).__name__}")
             check_cuda_tensors([x0, weight], [tuple(x0.shape),
                                               (int(x0.shape[1]),)],
-                               f"kernel {plan.name!r} (x, weight)")
+                               f"kernel {plan.name!r} (x, weight)", LM_DTYPES)
             rc = _rmsnorm_aosoa_lib()(
-                W, x0.data_ptr(), weight.data_ptr(), outs[0].data_ptr(), n,
-                int(x0.shape[1]), float(plan.consts.get("eps", 0.0)),
+                W, dtype, x0.data_ptr(), weight.data_ptr(),
+                outs[0].data_ptr(), n, int(x0.shape[1]),
+                float(plan.consts.get("eps", 0.0)),
                 float(plan.consts.get("scale_offset", 0.0)), stream)
         elif site in _build.LM_SITE_ID:
             # gated/act: every operand in one layout, so the elementwise
             # kernel over the padded blocks is the AoSoA kernel
             act = _build.LM_ACT_ID[plan.kernel.__cuda_act__]
             rc = _lm_lib()(
-                _build.LM_SITE_ID[site], act, 1, _build.DTYPE_ID["float32"],
+                _build.LM_SITE_ID[site], act, 1, dtype,
                 x0.data_ptr(), ops[1].data_ptr() if len(ops) > 1 else None,
                 None, outs[0].data_ptr(), x0.numel(), 1, 0.0, 0.0, stream)
         else:
@@ -743,6 +751,23 @@ def _aosoa_launch(plan, site, ops, n, geom):
     _build.check(rc, f"tdp_gathered AoSoA {site}")
     aosoa_launches[site] += 1
     return outs
+
+
+def check_aosoa_operands(plan, site, ops) -> None:
+    """The AoSoA operands on the card: contiguous, on one device, of one
+    dtype (float32, or for the LM site functions bfloat16 too), but
+    ``mamba``'s ``a`` and ``d``, float32 whatever x's dtype."""
+    what = f"kernel {plan.name!r}"
+    shapes = [tuple(a.shape) for a in ops]
+    if site == "mamba":
+        check_cuda_tensors(ops[:2], shapes[:2], f"{what} (x, dt)", LM_DTYPES)
+        check_cuda_tensors(ops[2:], shapes[2:], f"{what} (a, d)")
+        if ops[2].device != ops[0].device:
+            raise ValueError(f"{what}: a and d must lie on {ops[0].device}, "
+                             f"got {ops[2].device}")
+    else:
+        check_cuda_tensors(ops, shapes, what, LM_DTYPES
+                           if site in _build.LM_SITE_ID else (torch.float32,))
 
 
 def aosoa_sites(plan, fields) -> int:
@@ -788,8 +813,7 @@ def aosoa_execute(plan, site, fields, out=None, *, windowed=False,
     if not on_card:
         outs = aosoa_plain(plan, ops, n, windowed)
     else:
-        check_cuda_tensors(ops, [tuple(a.shape) for a in ops],
-                           f"kernel {plan.name!r}")
+        check_aosoa_operands(plan, site, ops)
         outs = (launch or _aosoa_launch)(plan, site, ops, n, geom)
         if not windowed:
             outs = tuple(aosoa_to_soa(o, n) for o in outs)

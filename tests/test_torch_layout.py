@@ -16,7 +16,9 @@ Pinned here, on the CPU (inputs from numpy with a seed):
   reference's at ``rtol=2e-4, atol=2e-5``, and every LB regime is bit-
   identical across layouts;
 * ``rmsnorm``, ``gated_act`` and ``mamba_scan`` are bit-identical across
-  layouts and held to ``repro.kernels.ref``;
+  layouts and held to ``repro.kernels.ref``, in float32 and in bfloat16
+  (there held to the reference's Pallas executor under AoSoA in interpret
+  mode, within one bfloat16 step);
 * the named ``ValueError``s, the doubled ``hbm_bytes_estimate`` and its
   byte term in ``costmodel.predict``, and the tuner's layout axis.
 """
@@ -28,6 +30,7 @@ import torch
 from repro import core as jcore
 from repro.core import layout as jlayout
 from repro.core.api import launch as jlaunch
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import (FieldSpec, KernelSpec, Lattice, Stencil, Target,
                               aosoa_nblocks, aosoa_to_soa, as_target,
@@ -298,6 +301,35 @@ def _targets(backend, vvl):
     return Target(backend), Target(backend, vvl=vvl, layout="aosoa")
 
 
+#: below this, bfloat16 outputs are held absolutely (float32's own error
+#: where a result cancels: gelu's tail)
+BF16_ATOL = 1e-5
+BF = torch.bfloat16
+
+
+def assert_within_bf16_step(got, want):
+    """``got`` within one bfloat16 step of ``want`` (the spacing at
+    ``want``, 2^-8 relative) or :data:`BF16_ATOL`: two float32 results a
+    few ulps apart round to neighbouring bfloat16 values at most."""
+    g = torch.as_tensor(np.asarray(got, np.float32))
+    w = torch.as_tensor(np.asarray(want, np.float32))
+    assert torch.isfinite(g).all()
+    exp = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    bar = torch.exp2(exp - 7).clamp_min(BF16_ATOL)
+    assert bool(((g - w).abs() <= bar).all()), float(((g - w).abs() / bar).max())
+
+
+def _bf16(rng, shape, scale=1.0):
+    """Seeded values rounded to bfloat16 once: (torch, jax) twins."""
+    t = torch.from_numpy(_f32(rng, shape, scale)).to(BF)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _jtarget(vvl):
+    """The reference's Pallas executor in interpret mode under AoSoA."""
+    return jcore.Target("pallas_interpret", vvl=vvl, layout="aosoa")
+
+
 class TestLMKernels:
     @pytest.mark.parametrize("backend", BACKENDS)
     def test_rmsnorm_layouts_identical(self, backend):
@@ -345,6 +377,64 @@ class TestLMKernels:
                                    rtol=2e-4, atol=2e-4)
         np.testing.assert_allclose(got["aosoa"][1].numpy(), np.asarray(h_ref),
                                    rtol=2e-4, atol=2e-4)
+
+    # bfloat16 under AoSoA: bit for bit the bfloat16 SoA launch (the AoSoA
+    # plain version reads the same values through the index map) and within
+    # one bfloat16 step of the reference's Pallas executor under AoSoA in
+    # interpret mode (its mamba h is bfloat16 there, the port's float32:
+    # ROADMAP §C)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_rmsnorm_bf16_layouts_identical(self, backend):
+        rng = _rng(17)
+        (x, xj), (w, wj) = _bf16(rng, (100, 64), 2.0), _bf16(rng, (64,), 0.5)
+        outs = [ops.rmsnorm(x, w, scale_offset=1.0, target=t, device="cpu")
+                for t in _targets(backend, 32)]
+        assert outs[1].dtype == BF and torch.equal(outs[0], outs[1])
+        want = jops.rmsnorm(xj, wj, scale_offset=1.0, target=_jtarget(32))
+        assert_within_bf16_step(outs[1].float(), want)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    @pytest.mark.parametrize("kind", ["swiglu", "geglu", "relu2"])
+    @pytest.mark.parametrize("gated", [True, False])
+    def test_gated_act_bf16_layouts_identical(self, backend, kind, gated):
+        rng = _rng(18)
+        u, uj = _bf16(rng, (33, 48), 3.0)
+        v, vj = _bf16(rng, (33, 48)) if gated else (None, None)
+        outs = [ops.gated_act(u, v, kind=kind, device="cpu", target=t)
+                for t in _targets(backend, 96)]
+        assert outs[1].dtype == BF and torch.equal(outs[0], outs[1])
+        want = jops.gated_act(uj, vj, kind=kind, target=_jtarget(96))
+        assert_within_bf16_step(outs[1].float(), want)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    @pytest.mark.parametrize("W", [16, 12])
+    def test_mamba_scan_bf16_layouts_identical(self, backend, W):
+        """x, dt, b, c bfloat16, a and d float32; W 12 puts a bfloat16
+        block's channels at 8-byte (not 16-byte) offsets, as the card's
+        stage copies them."""
+        rng = _rng(19)
+        batch, length, d_inner, n = 2, 24, 48, 8
+        x, xj = _bf16(rng, (batch, length, d_inner))
+        dt = torch.nn.functional.softplus(
+            torch.from_numpy(_f32(rng, (batch, length, d_inner)))).to(BF)
+        dtj = jnp.asarray(dt.float().numpy()).astype(jnp.bfloat16)
+        (b, bj), (c, cj) = (_bf16(rng, (batch, length, n)),
+                            _bf16(rng, (batch, length, n)))
+        a = -np.exp(_f32(rng, (d_inner, n)))
+        d = _f32(rng, (d_inner,))
+        got = {t.layout: ops.mamba_scan(x, dt, b, c, torch.from_numpy(a),
+                                        torch.from_numpy(d), device="cpu",
+                                        target=t)
+               for t in _targets(backend, W)}
+        y, h = got["aosoa"]
+        assert y.dtype == BF and h.dtype == torch.float32
+        for u, v in zip(got["soa"], got["aosoa"]):
+            assert torch.equal(u, v)
+        yj, hj = jops.mamba_scan(xj, dtj, bj, cj, jnp.asarray(a),
+                                 jnp.asarray(d), target=_jtarget(W))
+        assert_within_bf16_step(y.float(), yj)
+        assert_within_bf16_step(h, hj)
 
 
 # ---------------------------------------------------------------------------

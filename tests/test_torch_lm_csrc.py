@@ -186,14 +186,13 @@ struct MambaAosoaLoop : MambaLoopT<Site, MAMBA_AOSOA_VVL, true> {};
 
 // tdp_gathered_rmsnorm_aosoa_launch: block by block, each phase over all
 // the block's threads before the next, on NaN-filled shared arrays.
-extern "C" int host_rmsnorm_aosoa(int W, const void* x, const void* weight, void* out,
-                                  long long n, int ncomp, float eps,
-                                  float scale_offset) {
-  if (W < 1) return tdp::ERR_BAD_VVL;
-  tdp::lm::LmIO io{};
-  io.in[0] = static_cast<const float*>(x);
-  io.out = static_cast<float*>(out);
-  io.weight = static_cast<const float*>(weight);
+template <class T>
+int host_rmsnorm_aosoa_t(int W, const void* x, const void* weight, void* out,
+                         long long n, int ncomp, float eps, float scale_offset) {
+  tdp::lm::LmIOT<T> io{};
+  io.in[0] = static_cast<const T*>(x);
+  io.out = static_cast<T*>(out);
+  io.weight = static_cast<const T*>(weight);
   io.n = n;
   io.ncomp = ncomp;
   io.eps = eps;
@@ -211,25 +210,56 @@ extern "C" int host_rmsnorm_aosoa(int W, const void* x, const void* weight, void
   return 0;
 }
 
-extern "C" int host_mamba_aosoa(int nstate, int W, const void* x, const void* dt,
-                                const void* a, const void* d, const void* b,
-                                const void* c, void* y, void* h, long long L,
-                                long long n, int rows) {
-  if (W < 1 || W % MAMBA_AOSOA_ALIGN) return tdp::ERR_BAD_VVL;
-  tdp::lm::MambaIO io{};
-  io.x = static_cast<const float*>(x);
-  io.dt = static_cast<const float*>(dt);
+// tdp_gathered_rmsnorm_aosoa_launch's signature, dtype code and all.
+extern "C" int host_rmsnorm_aosoa(int W, int dtype, const void* x, const void* weight,
+                                  void* out, long long n, int ncomp, float eps,
+                                  float scale_offset) {
+  if (W < 1) return tdp::ERR_BAD_VVL;
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return host_rmsnorm_aosoa_t<float>(W, x, weight, out, n, ncomp, eps, scale_offset);
+    case tdp::DTYPE_BF16:
+      return host_rmsnorm_aosoa_t<tdp::bf16>(W, x, weight, out, n, ncomp, eps,
+                                             scale_offset);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
+}
+
+template <class T>
+int host_mamba_aosoa_t(int nstate, int W, const void* x, const void* dt, const void* a,
+                       const void* d, const void* b, const void* c, void* y, void* h,
+                       long long L, long long n, int rows) {
+  tdp::lm::MambaIOT<T> io{};
+  io.x = static_cast<const T*>(x);
+  io.dt = static_cast<const T*>(dt);
   io.a = static_cast<const float*>(a);
   io.d = static_cast<const float*>(d);
-  io.b = static_cast<const float*>(b);
-  io.c = static_cast<const float*>(c);
-  io.y = static_cast<float*>(y);
+  io.b = static_cast<const T*>(b);
+  io.c = static_cast<const T*>(c);
+  io.y = static_cast<T*>(y);
   io.h = static_cast<float*>(h);
   io.L = L;
   io.n = n;
   io.rows = rows;
   io.map = tdp::make_aosoa_map(W);
   return tdp::lm::dispatch_mamba_aosoa<MambaAosoaLoop>(nstate, io, nullptr);
+}
+
+// tdp_gathered_mamba_aosoa_launch's signature (without the stream), dtype
+// code and all.
+extern "C" int host_mamba_aosoa(int nstate, int W, int dtype, const void* x,
+                                const void* dt, const void* a, const void* d,
+                                const void* b, const void* c, void* y, void* h,
+                                long long L, long long n, int rows) {
+  if (W < 1 || W % MAMBA_AOSOA_ALIGN) return tdp::ERR_BAD_VVL;
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return host_mamba_aosoa_t<float>(nstate, W, x, dt, a, d, b, c, y, h, L, n, rows);
+    case tdp::DTYPE_BF16:
+      return host_mamba_aosoa_t<tdp::bf16>(nstate, W, x, dt, a, d, b, c, y, h, L, n,
+                                           rows);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }
 
 template <class T>
@@ -619,11 +649,11 @@ def host_lib(tmp_path_factory):
                               + [ctypes.c_longlong] * 2
                               + [ctypes.c_int, ctypes.c_void_p])
     so.host_mamba.restype = ctypes.c_int
-    so.host_rmsnorm_aosoa.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+    so.host_rmsnorm_aosoa.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
                                       + [ctypes.c_longlong, ctypes.c_int]
                                       + [ctypes.c_float] * 2)
     so.host_rmsnorm_aosoa.restype = ctypes.c_int
-    so.host_mamba_aosoa.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+    so.host_mamba_aosoa.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
                                     + [ctypes.c_longlong] * 2 + [ctypes.c_int])
     so.host_mamba_aosoa.restype = ctypes.c_int
     so.host_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -1175,8 +1205,8 @@ def _blocks(x, W):
     return y
 
 
-def _nan_blocks(ncomp, n, W):
-    return torch.full((-(-n // W), ncomp, W), float("nan"))
+def _nan_blocks(ncomp, n, W, dtype=torch.float32):
+    return torch.full((-(-n // W), ncomp, W), float("nan"), dtype=dtype)
 
 
 def _pads_untouched(o, n):
@@ -1197,7 +1227,7 @@ def test_rmsnorm_aosoa_matches_plain(host_lib, d, n):
                scale_offset=1.0) == 0
     for W in (1, 7, 32, 96, 600):
         xb, out = _blocks(x, W), _nan_blocks(d, n, W)
-        assert host_lib.host_rmsnorm_aosoa(W, xb.data_ptr(), w.data_ptr(),
+        assert host_lib.host_rmsnorm_aosoa(W, 0, xb.data_ptr(), w.data_ptr(),
                                            out.data_ptr(), n, d, 1e-6,
                                            1.0) == 0
         got = aosoa_to_soa(out, n)
@@ -1247,8 +1277,8 @@ def test_mamba_aosoa_matches_plain(host_lib, nstate, rows):
         ops = [_blocks(t, W) for t in (x, dt, a, d)]
         y, h = _nan_blocks(rows * length, n, W), _nan_blocks(rows * nstate, n, W)
         assert host_lib.host_mamba_aosoa(
-            nstate, W, *[t.data_ptr() for t in (*ops, b, c, y, h)], length, n,
-            rows) == 0
+            nstate, W, 0, *[t.data_ptr() for t in (*ops, b, c, y, h)], length,
+            n, rows) == 0
         assert _pads_untouched(y, n) and _pads_untouched(h, n), W
         ys, hs = aosoa_to_soa(y, n), aosoa_to_soa(h, n)
         torch.testing.assert_close(ys, want_y, **TOL)
@@ -1258,12 +1288,12 @@ def test_mamba_aosoa_matches_plain(host_lib, nstate, rows):
 
 def test_aosoa_lm_codes(host_lib):
     x = torch.zeros(64)
-    assert host_lib.host_rmsnorm_aosoa(0, x.data_ptr(), x.data_ptr(),
+    assert host_lib.host_rmsnorm_aosoa(0, 0, x.data_ptr(), x.data_ptr(),
                                        x.data_ptr(), 4, 4, 1e-6, 0.0) == -2
     ptrs = [x.data_ptr()] * 8
     for W in (0, 6):
-        assert host_lib.host_mamba_aosoa(8, W, *ptrs, 1, 4, 1) == -2
-    assert host_lib.host_mamba_aosoa(4, 8, *ptrs, 1, 4, 1) == -5
+        assert host_lib.host_mamba_aosoa(8, W, 0, *ptrs, 1, 4, 1) == -2
+    assert host_lib.host_mamba_aosoa(4, 8, 0, *ptrs, 1, 4, 1) == -5
     text = (_build.CSRC / "lm_sites.cuh").read_text()
     assert (f"constexpr int MAMBA_AOSOA_ALIGN = {tpw.MAMBA_AOSOA_ALIGN};"
             in text)
@@ -1406,13 +1436,13 @@ def test_bad_dtype_codes(host_lib):
 
 
 def test_unported_bf16_launches_raise():
-    """The bfloat16 refusals that remain (ROADMAP A7.1c), by the rule the
-    card's executor applies to its operands: the AoSoA ``mamba`` and
-    ``rmsnorm`` launches and an LB site function raise a named
-    ``NotImplementedError``; ``mamba`` and the other LM sites under SoA, and
-    float32 anywhere, pass."""
+    """The bfloat16 refusals that remain (ROADMAP A7.1c, A5), by the rule
+    the card's executor applies to its operands: an LB site function, an
+    example site function and an ensemble launch raise a named
+    ``NotImplementedError``; the LM site functions under SoA and AoSoA
+    (``mamba`` and ``rmsnorm`` here), and float32 anywhere, pass."""
     from repro_torch.core import Target
-    from repro_torch.core.api import launch_plan
+    from repro_torch.core.api import Ensemble, launch_plan
     bf = torch.bfloat16
     spec = tlm.mamba_scan_spec(4, 8)
     xs = [torch.zeros(4, 16, dtype=bf), torch.zeros(4, 16, dtype=bf),
@@ -1421,17 +1451,21 @@ def test_unported_bf16_launches_raise():
     aosoa = launch_plan(spec, Target("cuda", layout="aosoa", vvl=8),
                         consts=consts)
     with pytest.raises(NotImplementedError, match="A7.1c"):
-        tpw.refuse_unported_bf16(aosoa, "mamba", [*xs, *consts.values()])
+        tpw.refuse_unported_bf16(aosoa, "collide", [torch.zeros(3, dtype=bf)])
+    soa = launch_plan(spec, Target("cuda"), consts=consts)
+    with pytest.raises(NotImplementedError, match="A7.1c"):
+        tpw.refuse_unported_bf16(soa, "scale", [torch.zeros(1, 4, dtype=bf)])
     rms = launch_plan(tlm.rmsnorm_spec(16), Target("cuda", layout="aosoa",
                                                    vvl=8),
                       consts={"weight": torch.zeros(16, dtype=bf)})
-    with pytest.raises(NotImplementedError, match="A7.1c"):
-        tpw.refuse_unported_bf16(rms, "rmsnorm", [torch.zeros(16, 4, dtype=bf)])
-    with pytest.raises(NotImplementedError, match="A7.1c"):
-        tpw.refuse_unported_bf16(aosoa, "collide", [torch.zeros(3, dtype=bf)])
-    soa = launch_plan(spec, Target("cuda"), consts=consts)
+    fleet = rms.with_consts(rms.consts, ensemble=Ensemble(2, {}))
+    with pytest.raises(NotImplementedError, match="A5.*A7.1c"):
+        tpw.refuse_unported_bf16(fleet, "rmsnorm",
+                                 [torch.zeros(2, 16, 4, dtype=bf)])
+    tpw.refuse_unported_bf16(aosoa, "mamba", [*xs, *consts.values()])
+    tpw.refuse_unported_bf16(rms, "rmsnorm", [torch.zeros(16, 4, dtype=bf)])
     tpw.refuse_unported_bf16(soa, "mamba", [*xs, *consts.values()])
-    tpw.refuse_unported_bf16(aosoa, "mamba", [x.float() for x in xs])
+    tpw.refuse_unported_bf16(aosoa, "collide", [torch.zeros(3)])
 
 
 #: kernel 4 in bfloat16: gemma3's local and global layers (Dh 128: GQA 2,
