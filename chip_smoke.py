@@ -323,9 +323,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
 
 15. bfloat16 parameters and caches (``bf16_phase``, ROADMAP A7.1): the
    bfloat16 refusals first named on the card — bfloat16 into an example
-   site function (``scale``) and an LB kernel raise ``NotImplementedError``
-   (A7.1c), kernel 4 at a head dim it is not instantiated for (48)
-   ``ValueError``;
+   site function (``scale``) under AoSoA raises ``NotImplementedError``
+   (A7.1c.4), into an LB ensemble launch (A5), kernel 4 at a head dim it
+   is not instantiated for (48) ``ValueError``;
    gemma3-27b cut to 12 layers from seeded
    bfloat16 weights served on the kernels and on the plain path, and the
    same weights upcast to float32 on the float32 kernels: the kernels'
@@ -401,6 +401,28 @@ Needs one CUDA card and ``nvcc``; builds the kernels under
    with its registers and spills.  Printed as one ``{"bf16_families":
    ...}`` line.  ``python3 chip_smoke.py --only bf16_families`` runs phases
    1, 2 and 16 alone.
+
+17. bfloat16 in the LB and example kernels (``lb_bf16_phase``, ROADMAP
+   A7.1c.3): ``BinaryFluidSim(dtype=torch.bfloat16)`` at 128³, 20 steps, in
+   the unfused, ``one_launch`` and ``two_launch`` regimes through kernels
+   1, 2 and 3 (NaN-free, bfloat16 states), ``ops.lb_collision`` and
+   ``ops.lb_fused_step`` (windowed and gathered, bit-equal to each other)
+   on its state, ``tdp.launch`` of ``scale`` / ``saxpy`` / ``site_pos``
+   (a = ``LB_BF16_A``) and ``reduce``, each path counted; each regime held
+   to the plain path on the card at ``LB_BF16_CHECK_GRID``; MLUPS in
+   bfloat16 beside float32, in turns in this process.  Then a row per
+   bfloat16 kernel (``lb_bf16_rows``): every LB kernel × site function at
+   128³ and on phase 3's ragged lattice with ghost planes at VVL 1, 2, 4
+   and 8 (the windowed ``fused`` at plane_block 2 and 8), the example sites
+   at (3, 128³) at every VVL and ``reduce`` (sum within one bfloat16 step
+   of the float64 sum, max and min exact), each held to its plain version
+   on the same bfloat16 inputs (bit for bit expected, ``bf16_close``
+   held), timed beside it (the plain version over ``LB_BF16_PLAIN_REPS``
+   launches), its bfloat16 bound and library call (``nn.Conv3d``,
+   ``g.sum(0)``, ``torch.mul``, ``torch.add``, ``x.sum(-1)``: recorded, not
+   held) and its registers and spills; its launches are the phase's.
+   Printed as one ``{"lb_bf16": ...}`` line.  ``python3 chip_smoke.py
+   --only lb_bf16`` runs phases 1, 2 and 17 alone.
 
 Prints the kernels line (none under ``--only``) and, last, ``{"ok": true,
 "device": {...}}``; exits
@@ -1089,6 +1111,14 @@ BF16F_ATTN_CHECKS = [(2, 4, 2, 300, 300, dict(causal=True)),
 #: the bfloat16 scan's checks (batch, L, d_inner, d_state): ragged chunks
 #: and channel blocks, n a multiple of 8 (16-byte copies) and not
 BF16F_MAMBA_CHECKS = [(1, 77, 1000, 16), (3, 45, 301, 8), (2, 64, 256, 16)]
+#: Phase 17, bfloat16 in the LB and example kernels: the examples' a (not a
+#: bfloat16: its weak rounding shows), the lattice and steps at which each
+#: regime is held to the plain path on the card, and the timed launches of
+#: the plain versions (their bfloat16 bodies are long sequences of
+#: launches).
+LB_BF16_A = 0.1
+LB_BF16_CHECK_GRID, LB_BF16_CHECK_STEPS = (32, 32, 32), 10
+LB_BF16_PLAIN_REPS = 5
 
 
 #: the script's start: every log line carries the seconds since it, which
@@ -1129,7 +1159,8 @@ def ptxas_report(logs: dict) -> list[dict]:
                     entry = {"lib": lib, "site": site and site.group(1),
                              "vvl": int(vvl.group(1)) if vvl else None,
                              "mapping": "reduce" if op else "aosoa"
-                             if "aosoa" in name else "soa"}
+                             if "aosoa" in name else "soa",
+                             "dtype": "bf16" if "bf16" in name else "f32"}
                     if op:
                         entry["op"] = op.group(1).lower()
                 elif lib == "calibrate":
@@ -1158,7 +1189,8 @@ def ptxas_report(logs: dict) -> list[dict]:
                     vvl = re.search(r"Li(\d+)E", name)
                     entry = {"lib": lib,
                              "site": site.group(1) if site else "collide",
-                             "vvl": int(vvl.group(1)) if vvl else None}
+                             "vvl": int(vvl.group(1)) if vvl else None,
+                             "dtype": "bf16" if "bf16" in name else "f32"}
                     if "fused_tile_kernel" in name:
                         entry.update({"site": "Fused", "mapping": "tile"})
                     elif "fused_tile_ensemble_kernel" in name:
@@ -1297,7 +1329,7 @@ def library_call(site: str, prepared, n: int, batch: int | None = None):
     def conv(w, groups=1):
         m = torch.nn.Conv3d(w.shape[1] * groups, w.shape[0], 3, padding=1,
                             padding_mode="circular", bias=False,
-                            groups=groups).to(dev)
+                            groups=groups).to(dev, dtype=x.dtype)
         m.weight.data.copy_(torch.from_numpy(w))
         m.requires_grad_(False)
         return lambda: m(x if lead else x[None])
@@ -5510,24 +5542,27 @@ def held_calls(attention=None):
 
 
 def bf16_named_raises(problems) -> dict:
-    """bfloat16 where the port has no bfloat16 kernel yet (A7.1c), on the
-    card: an example site function (``scale``) and an LB kernel raise
-    ``NotImplementedError`` naming A7.1c, kernel 4 at a head dim it is not
-    instantiated for (48) ``ValueError``; no launch."""
-    from repro_torch.core import Target
-    from repro_torch.core.api import launch
-    from repro_torch.kernels import example_sites, flash_attention, lb_collision
+    """bfloat16 where the port has no bfloat16 kernel yet, on the card: an
+    example site function (``scale``) under AoSoA raises
+    ``NotImplementedError`` naming A7.1c.4, an LB ensemble launch one
+    naming A5, kernel 4 at a head dim it is not instantiated for (48)
+    ``ValueError``; no launch."""
+    from repro_torch.core import Lattice, Target
+    from repro_torch.core.api import launch, launch_ensemble
+    from repro_torch.kernels import example_sites, flash_attention
+    from repro_torch.lb import stencil
     dev, bf = torch.device("cuda"), torch.bfloat16
     out = {}
     z = torch.zeros
     cases = {
-        "example_scale": (NotImplementedError, "A7.1c", lambda: launch(
-            example_sites.SCALE_SPEC, Target("cuda"),
+        "example_scale_aosoa": (NotImplementedError, "A7.1c.4", lambda: launch(
+            example_sites.SCALE_SPEC, Target("cuda", layout="aosoa", vvl=8),
             z(3, 64, dtype=bf, device=dev), consts={"a": 2.0})),
-        "lb_collision": (NotImplementedError, "A7.1c",
-                         lambda: lb_collision.lb_collision(
-                             *(z(c, 64, dtype=bf, device=dev)
-                               for c in (19, 19, 1, 3, 1)))),
+        "lb_stream_ensemble": (NotImplementedError, "A5",
+                               lambda: launch_ensemble(
+                                   stencil.STREAM_SPEC, Target("cuda"),
+                                   z(2, 19, 64, dtype=bf, device=dev),
+                                   batch=2, lattice=Lattice((4, 4, 4)))),
         "flash_attention_dh48": (ValueError, "head_dim",
                                  lambda: flash_attention.flash_attention(
                                      *(z(1, 2, 8, 48, dtype=bf, device=dev)
@@ -6571,12 +6606,422 @@ def bf16_families_phase(drive, by_path, problems, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: bfloat16 in the LB and example kernels (ROADMAP A7.1c.3)
+# ---------------------------------------------------------------------------
+
+#: the CamelCase of each LB site function in the ptxas report
+LB_SITE_CC = {"stream": "Stream", "grad6": "Grad6", "moment": "Moment",
+              "collide": "Collide", "fused": "Fused", "phi_stream": "PhiStream",
+              "fused_two": "FusedTwo"}
+
+
+def lb_bf16_inputs(spec, shape, halo=(0, 0, 0), *, seed, device="cuda"):
+    """Phase 3's random fields in bfloat16 (f = 1/19 + 0.01·N, the rest
+    0.05·N), drawn in float32 and rounded."""
+    r = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    n_ext = int(np.prod([s + 2 * h for s, h in zip(shape, halo)]))
+    xs = []
+    for fs in spec.fields:
+        x = r.standard_normal((fs.ncomp, n if fs.stencil is None else n_ext),
+                              dtype=np.float32)
+        x = 1.0 / 19.0 + 0.01 * x if fs.name == "f" else 0.05 * x
+        xs.append(torch.from_numpy(x).to(device).to(torch.bfloat16))
+    return xs
+
+
+def lb_bf16_hold(what, got, want, problems) -> dict:
+    """bfloat16 kernel outputs against their plain version on the same
+    inputs: bit-equality expected (the kernels round as the plain bodies
+    do), held at ``bf16_close``."""
+    r = {"bit_equal": all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                          for g, w in zip(got, want)),
+         "max_abs_err": max_abs(got, want),
+         "share_apart": max(bf16_readings(g, w)["share_apart"]
+                            for g, w in zip(got, want))}
+    if not all(bf16_close(g, w) for g, w in zip(got, want)):
+        problems.append(f"phase 17: {what}: bfloat16 kernel and plain "
+                        f"version disagree {r}")
+    elif not r["bit_equal"]:
+        log(f"phase 17: {what} not bit-equal to the plain version: {r}")
+    return r
+
+
+def lb_bf16_ptxas(ptxas, lib, site) -> list:
+    """Registers and spills of the bfloat16 kernels of ``site`` in ``lib``
+    at VVL 1 (and the windowed fused's tile)."""
+    cc = "collide" if lib == "lb_collision" else (
+        site if lib == "tdp_gathered_example" else LB_SITE_CC[site])
+    return [{k: r.get(k) for k in ("mapping", "vvl", "op", "registers",
+                                   "spill_stores", "spill_loads")}
+            for r in ptxas if r.get("lib") == lib and r.get("dtype") == "bf16"
+            and str(r.get("site", "")).lower() == cc.lower()
+            and r.get("vvl") in (None, 1)]
+
+
+def lb_bf16_paths(drive, problems, out, device="cuda") -> None:
+    """Phase 17's main path in bfloat16, each path counted: the three LB
+    regimes at 128³, the ops entry points, the examples and reduce; the
+    regimes held to the plain path on the card at ``LB_BF16_CHECK_GRID``;
+    MLUPS beside this process's float32 MLUPS."""
+    from repro_torch.core import Target
+    from repro_torch.core.api import launch
+    from repro_torch.core.execute import reduce
+    from repro_torch.kernels import bf16 as kbf16
+    from repro_torch.kernels import example_sites as ex
+    from repro_torch.kernels import lb_collision, ops
+    from repro_torch.lb import stencil
+    from repro_torch.lb.params import LBParams
+    from repro_torch.lb.sim import BinaryFluidSim
+    bf = torch.bfloat16
+    params = LBParams(**PARAMS)
+    regimes = (False, "one_launch", "two_launch")
+    sims = {r: BinaryFluidSim(GRID, params, fused=r, dtype=bf, device=device)
+            for r in regimes}
+    st0 = sims[False].init_spinodal(seed=0, noise=0.05)
+    obs0 = sims[False].observables(st0)
+    finals = {str(r): drive(f"lb_bf16: BinaryFluidSim bf16 fused={r}",
+                            lambda sim=sim: sim.run(st0, STEPS))
+              for r, sim in sims.items()}
+    out["observables"] = {}
+    for r, st in finals.items():
+        obs = sims[False].observables(st)
+        out["observables"][r] = obs
+        if st.f.dtype != bf or obs["nan"]:
+            problems.append(f"phase 17 regime {r}: dtype {st.f.dtype}, NaN "
+                            f"{obs['nan']}")
+        out["observables"][r]["mass_drift"] = obs["mass"] - obs0["mass"]
+    fin = finals["two_launch"]
+    f2, g2 = fin.f.reshape(19, -1), fin.g.reshape(19, -1)
+    phi = kbf16.sum0(g2, keepdim=True)
+    grad, lap = stencil.gradients(phi.reshape(GRID))
+    fo, go = drive("lb_bf16: ops.lb_collision bf16", lambda: ops.lb_collision(
+        f2, g2, phi, grad.reshape(3, -1), lap.reshape(1, -1),
+        target="cuda", device=device, **params.as_kwargs()))
+    out["ops.lb_collision"] = lb_bf16_hold(
+        "ops.lb_collision", (fo, go), lb_collision.collision_site_kernel(
+            f2, g2, phi, grad.reshape(3, -1), lap.reshape(1, -1),
+            w=lb_collision.WEIGHTS, c=lb_collision.CV,
+            **params.as_kwargs()), problems)
+    for mode in ("one_launch", "two_launch"):
+        got = {tgt: drive(f"lb_bf16: ops.lb_fused_step {mode} {tgt}",
+                          lambda mode=mode, tgt=tgt: ops.lb_fused_step(
+                              f2, g2, grid_shape=GRID, mode=mode,
+                              target=Target(tgt), device=device,
+                              **params.as_kwargs()))
+               for tgt in ("cuda_windowed", "cuda")}
+        out[f"ops.lb_fused_step {mode}"] = lb_bf16_hold(
+            f"ops.lb_fused_step {mode} windowed vs gathered",
+            got["cuda_windowed"], got["cuda"], problems)
+    del fo, go, got, grad, lap, phi, f2, g2, fin
+    # the examples and reduce through their entry points
+    g = torch.Generator(device=device).manual_seed(17)
+    n = int(np.prod(GRID))
+    x, y = (torch.randn(TDP_NCOMP, n, device=device, generator=g).to(bf)
+            for _ in range(2))
+    specs = {s: dataclasses.replace(ex.SPECS[s], out=TDP_NCOMP)
+             for s in ex.SPECS}
+    ins = {"scale": [x], "saxpy": [x, y], "site_pos": [x]}
+    drive("lb_bf16: tdp.launch examples bf16", lambda: [launch(
+        specs[s], Target("cuda"), *ins[s],
+        consts={} if s == "site_pos" else {"a": LB_BF16_A}) for s in specs])
+    drive("lb_bf16: reduce bf16", lambda: [reduce(
+        specs["scale"], None, [x], consts={"a": 1.0}, op=op,
+        target=Target("cuda")) for op in ("sum", "max", "min")])
+    del x, y
+    # each regime held to the plain path on the card at a small size
+    out["vs_plain_small"] = {}
+    for r in regimes:
+        states = []
+        for backend in (None, "torch"):
+            sim = BinaryFluidSim(LB_BF16_CHECK_GRID, params, fused=r,
+                                 dtype=bf, backend=backend or (
+                                     ("cuda_windowed" if r else "cuda")),
+                                 device=device)
+            states.append(sim.run(sim.init_spinodal(seed=3, noise=0.05),
+                                  LB_BF16_CHECK_STEPS))
+        out["vs_plain_small"][str(r)] = lb_bf16_hold(
+            f"{LB_BF16_CHECK_GRID} regime {r} vs the plain path",
+            (states[0].f, states[0].g), (states[1].f, states[1].g), problems)
+    # MLUPS, bfloat16 beside float32, in turns in this process
+    mlups = {}
+    f32_sims = {r: BinaryFluidSim(GRID, params, fused=r, device=device)
+                for r in regimes}
+    f32_st0 = f32_sims[False].init_spinodal(seed=0, noise=0.05)
+    for dtype, ss, s0 in (("bf16", sims, st0), ("f32", f32_sims, f32_st0),
+                          ("bf16_again", sims, st0)):
+        for r, sim in ss.items():
+            sim.run(s0, 2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sim.run(s0, STEPS)
+            torch.cuda.synchronize()
+            mlups.setdefault(dtype, {})[str(r)] = (
+                n * STEPS / (time.perf_counter() - t) / 1e6)
+    out["mlups_128cubed_20_steps"] = mlups
+    log(f"phase 17: MLUPS {mlups}")
+
+
+def lb_bf16_rows(by_path, paths, problems, ptxas, device="cuda") -> list:
+    """Phase 17's rows: every LB kernel × site function and the example
+    sites and reduce in bfloat16 at 128³ (examples at (3, 128³)), each held
+    to its plain version on the same inputs (at VVL 1, 2, 4 and 8 on a
+    ragged lattice with ghost planes too), timed beside it, its bfloat16
+    bound and library call, with its registers and spills; launches from
+    the phase's paths."""
+    from repro_torch.core import Lattice, Target, field_view
+    from repro_torch.core.api import launch_plan, torch_executor
+    from repro_torch.core.execute import reduce
+    from repro_torch.core.target import CUDA_VVLS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import example_sites as ex
+    from repro_torch.kernels import lb_collision, tdp_pointwise, tdp_windowed
+    from repro_torch.lb import programs, stencil
+    bf = torch.bfloat16
+    consts = programs.collision_consts(dtype=bf, **PHYS)
+
+    def launches(key):
+        return {p: by_path[p][key] for p in paths if by_path[p].get(key)}
+
+    def plan_of(kernel, site, shape, halo=None, vvl=1, pb=None):
+        spec = stencil.SPECS[site]
+        tgt = Target("cuda_windowed" if kernel == "tdp_windowed" else "cuda",
+                     vvl=vvl)
+        if pb is not None:
+            tgt = tgt.with_tuning(plane_block=pb)
+        return launch_plan(spec, tgt, lattice=Lattice(shape)
+                           if spec.has_stencil else None,
+                           halo=halo if spec.has_stencil else None,
+                           consts=consts if spec.consts else {})
+
+    def execute(kernel, plan, prepared):
+        if kernel == "tdp_windowed":
+            return tdp_windowed.windowed_execute(plan, prepared)
+        return tdp_pointwise.cuda_execute(plan, prepared)
+
+    def prepare(spec, xs, shape, halo=(0, 0, 0)):
+        return tuple(x if s is None else field_view(x, shape, halo, s)
+                     for x, s in zip(xs, spec.stencils))
+
+    entries = ([("tdp_gathered", s) for s in _build.SITES]
+               + [("tdp_windowed", s) for s in STENCIL_SITES]
+               + [("lb_collision", "collide")])
+    nsites = int(np.prod(GRID))
+    rows = []
+    for kernel, site in entries:
+        spec = stencil.SPECS[site]
+        seed = 200 + _build.SITE_ID[site]
+        # the ragged lattice with ghost planes, every VVL
+        if kernel == "lb_collision":
+            n = nsites + 37
+            xs = lb_bf16_inputs(spec, (n,), (0,), seed=seed, device=device)
+            want = lb_collision.collision_site_kernel(
+                *xs, w=lb_collision.WEIGHTS, c=lb_collision.CV, **PHYS)
+            ragged = {v: lb_bf16_hold(
+                f"lb_collision.collide bf16 vvl={v} n={n}",
+                lb_collision.lb_collision(*xs, vvl=v, **PHYS), want, problems)
+                for v in CUDA_VVLS}
+        else:
+            shape, halo = ((LB_RAGGED, (2, 2, 2) if site == "fused"
+                            else (1, 1, 1)) if spec.has_stencil
+                           else ((nsites + 37,), (0,)))
+            xs = lb_bf16_inputs(spec, shape, halo, seed=seed, device=device)
+            prepared = prepare(spec, xs, shape, halo)
+            want = tdp_pointwise.fields_plain(plan_of(kernel, site, shape,
+                                                      halo), prepared)
+            pbs = ((2, 8) if (kernel, site) == ("tdp_windowed", "fused")
+                   else (None,))
+            ragged = {f"{v}/{pb}": lb_bf16_hold(
+                f"{kernel}.{site} bf16 vvl={v} plane_block={pb} "
+                f"shape={shape} halo={halo}",
+                execute(kernel, plan_of(kernel, site, shape, halo, v, pb),
+                        prepared), want, problems)
+                for v in CUDA_VVLS for pb in pbs}
+            del prepared
+        del xs, want
+        # 128³ at VVL 1, timed
+        shape = GRID if spec.has_stencil else (nsites,)
+        xs = lb_bf16_inputs(spec, shape, (0,) * len(shape), seed=seed + 50,
+                            device=device)
+        prepared = prepare(spec, xs, shape, (0,) * len(shape))
+        if kernel == "lb_collision":
+            def kern():
+                return lb_collision.lb_collision(*xs, **PHYS)
+
+            def plain():
+                return lb_collision.collision_site_kernel(
+                    *xs, w=lb_collision.WEIGHTS, c=lb_collision.CV, **PHYS)
+            lib = None
+        else:
+            plan = plan_of(kernel, site, shape)
+
+            def kern():
+                return execute(kernel, plan, prepared)
+
+            def plain():
+                return tdp_pointwise.fields_plain(plan, prepared)
+            lib = library_call(site, prepared, nsites)
+        name = f"{kernel}.{site}.bf16"
+        held = lb_bf16_hold(f"{name} 128^3", kern(), plain(), problems)
+        lib_readings = library_ms = None
+        if lib is not None:
+            lib_out = lib[1](lib[0]())
+            lib_readings = bf16_readings(lib_out[0], plain()[0])
+            library_ms = time_ms(lib[0])
+            del lib_out
+        t_bytes = BYTES_PER_SITE[site] // 2 * nsites / PEAK_BYTES_PER_S * 1e3
+        t_ops = FLOPS_PER_SITE[site] * nsites / PEAK_F32_PER_S * 1e3
+        key = (kernel, site)
+        row = {"name": name, "route": "cuda", **KERNELS[kernel],
+               "dtype": "bfloat16",
+               "launches": sum(launches(key).values()),
+               "launches_by_path": launches(key),
+               "max_abs_err": max([held["max_abs_err"]]
+                                  + [r["max_abs_err"] for r in ragged.values()]),
+               "ms": time_ms(kern),
+               "plain_ms": time_ms(plain, reps=LB_BF16_PLAIN_REPS, warmup=1),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms,
+               "library_vs_plain": lib_readings,
+               "bit_equal": held["bit_equal"] and all(
+                   r["bit_equal"] for r in ragged.values()),
+               "checks": {"128cubed": held, "ragged": ragged},
+               "ptxas": lb_bf16_ptxas(ptxas, kernel, site)}
+        if (kernel, site) == ("tdp_windowed", "fused"):
+            row["ms_by_plane_block"] = {pb: time_ms(lambda pb=pb: execute(
+                kernel, plan_of(kernel, site, shape, pb=pb), prepared))
+                for pb in (2, 8)}
+        rows.append(row)
+        log(f"phase 17: {name} ms={row['ms']:.4f} plain={row['plain_ms']:.4f}"
+            f" library={library_ms} bound={row['bound_ms']:.4f} "
+            f"bit_equal={row['bit_equal']} ptxas={row['ptxas']}")
+        del xs, prepared, lib
+        torch.cuda.empty_cache()
+
+    # the example sites at (3, 128³), every VVL, and reduce
+    g = torch.Generator(device=device).manual_seed(34)
+    x, y = (torch.randn(TDP_NCOMP, nsites, device=device, generator=g).to(bf)
+            for _ in range(2))
+    ins = {"scale": [x], "saxpy": [x, y], "site_pos": [x]}
+    a_bf = float(torch.tensor(LB_BF16_A).to(bf))
+    libs = {"scale": lambda: torch.mul(x, a_bf),
+            "saxpy": lambda: torch.add(y, x, alpha=a_bf), "site_pos": None}
+    for site in ex.SPECS:
+        spec = dataclasses.replace(ex.SPECS[site], out=TDP_NCOMP)
+        c = {} if site == "site_pos" else {"a": LB_BF16_A}
+        plans = {v: launch_plan(spec, Target("cuda", vvl=v), consts=c)
+                 for v in CUDA_VVLS}
+        xs = ins[site]
+
+        def kern(p=plans[1], xs=xs):
+            return tdp_pointwise.cuda_execute(p, xs)
+
+        def plain(p=plans[1], xs=xs):
+            return torch_executor(p, xs)
+
+        want = plain()
+        checks = {v: lb_bf16_hold(f"tdp_gathered.{site} bf16 vvl={v}",
+                                  tdp_pointwise.cuda_execute(p, xs), want,
+                                  problems) for v, p in plans.items()}
+        lib = libs[site]
+        key = ("tdp_gathered", site)
+        b_ms = (4 + 2 * (len(xs) - 1)) * TDP_NCOMP * nsites \
+            / PEAK_BYTES_PER_S * 1e3
+        row = {"name": f"tdp_gathered.{site}.bf16", "route": "cuda",
+               **KERNELS["tdp_gathered.example"], "dtype": "bfloat16",
+               "launches": sum(launches(key).values()),
+               "launches_by_path": launches(key),
+               "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+               "ms": time_ms(kern, hold=SHORT_HOLD),
+               "plain_ms": time_ms(plain, hold=SHORT_HOLD),
+               "bound_ms": b_ms, "bound_by": "bytes",
+               "library_ms": None if lib is None else time_ms(
+                   lib, hold=SHORT_HOLD),
+               "library_vs_plain": None if lib is None else bf16_readings(
+                   lib(), want[0]),
+               "bit_equal": all(r["bit_equal"] for r in checks.values()),
+               "ms_by_vvl": {v: time_ms(
+                   lambda p=p, xs=xs: tdp_pointwise.cuda_execute(p, xs),
+                   hold=SHORT_HOLD) for v, p in plans.items()},
+               "ptxas": lb_bf16_ptxas(ptxas, "tdp_gathered_example",
+                                      site.replace("_", ""))}
+        rows.append(row)
+        log(f"phase 17: {row['name']} ms={row['ms']:.4f} plain="
+            f"{row['plain_ms']:.4f} library={row['library_ms']} bound="
+            f"{b_ms:.4f} by VVL {row['ms_by_vvl']} bit_equal={row['bit_equal']}")
+        del want
+    spec = dataclasses.replace(ex.SCALE_SPEC, out=TDP_NCOMP)
+
+    def red(op, backend="cuda"):
+        return reduce(spec, None, [x], consts={"a": 1.0}, op=op,
+                      target=Target(backend))
+
+    # the sum accumulates in double and rounds once to bfloat16: within one
+    # bfloat16 step of the float64 sum of the plain map's values; max and
+    # min exact
+    sum64 = x.double().sum(-1)
+    checks = {}
+    for op in ("sum", "max", "min"):
+        got, want = red(op), red(op, "torch")
+        if op == "sum":
+            step = torch.exp2(torch.floor(torch.log2(sum64.abs())) - 7)
+            ok = got.dtype == bf and bool(
+                ((got.double() - sum64).abs() <= step).all())
+        else:
+            ok = torch.equal(got, want)
+        checks[op] = {"kernel": got.float().tolist(),
+                      "plain_route": want.float().tolist(),
+                      "float64_sum": sum64.tolist() if op == "sum" else None}
+        if not ok:
+            problems.append(f"phase 17: reduce({op}) bf16 of scale: {checks[op]}")
+    key = ("tdp_gathered", "reduce")
+    row = {"name": "tdp_gathered.reduce.bf16", "route": "cuda",
+           **KERNELS["tdp_gathered.reduce"], "dtype": "bfloat16",
+           "site": "scale", "op": "sum",
+           "launches": sum(launches(key).values()),
+           "launches_by_path": launches(key),
+           "max_abs_err": float((red("sum").double() - sum64).abs().max()),
+           "ms": time_ms(lambda: red("sum"), hold=SHORT_HOLD),
+           "plain_ms": time_ms(lambda: red("sum", "torch"), hold=SHORT_HOLD),
+           "bound_ms": 2 * TDP_NCOMP * nsites / PEAK_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "library_ms": time_ms(lambda: x.sum(-1), hold=SHORT_HOLD),
+           "checks": checks,
+           "ptxas": lb_bf16_ptxas(ptxas, "tdp_gathered_example", "scale")}
+    rows.append(row)
+    log(f"phase 17: {row['name']} ms={row['ms']:.4f} plain={row['plain_ms']:.4f}"
+        f" library={row['library_ms']:.4f} checks={checks}")
+    del x, y
+    torch.cuda.empty_cache()
+    for row in rows:
+        if not row["launches"]:
+            problems.append(f"phase 17: {row['name']} was not launched in "
+                            f"bfloat16 on the main path")
+    return rows
+
+
+def lb_bf16_phase(drive, by_path, problems, device="cuda", ptxas=()) -> dict:
+    """Phase 17 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    before = set(by_path)
+    out = {}
+    lb_bf16_paths(drive, problems, out, device)
+    out["paths"] = [p for p in by_path if p not in before]
+    out["rows"] = lb_bf16_rows(by_path, out["paths"], problems, ptxas, device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: bfloat16 LB and examples {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("training", "dense", "moe", "ssd",
                                        "mla", "whisper", "bf16",
-                                       "bf16_families", "aosoa_bf16"),
+                                       "bf16_families", "aosoa_bf16",
+                                       "lb_bf16"),
                     default=None,
                     help="run phases 1, 2 and this phase only (a partial "
                          "run: no kernels line)")
@@ -6749,13 +7194,14 @@ def main(argv=None) -> int:
                  "bf16_families": lambda *a: bf16_families_phase(
                      *a, ptxas=ptxas),
                  "aosoa_bf16": lambda *a: dict(zip(
-                     ("rows", "bf16"), aosoa_bf16(*a)))}[only](
+                     ("rows", "bf16"), aosoa_bf16(*a))),
+                 "lb_bf16": lambda *a: lb_bf16_phase(*a, ptxas=ptxas)}[only](
                          drive, by_path, problems)
         key = {"training": "training", "dense": "dense_archs",
                "moe": "moe", "ssd": "ssd", "mla": "mla",
                "whisper": "whisper", "bf16": "bf16",
                "bf16_families": "bf16_families",
-               "aosoa_bf16": "aosoa"}[only]
+               "aosoa_bf16": "aosoa", "lb_bf16": "lb_bf16"}[only]
         if only in ("mla", "whisper"):
             merge_launches(early_rows, by_path, phase["paths"])
             phase["rows"] = early_rows
@@ -7278,6 +7724,11 @@ def main(argv=None) -> int:
     rows += record["bf16_families"]["rows"]
     print(json.dumps({"bf16_families": record["bf16_families"]},
                      default=str), flush=True)
+
+    # -- 17. bfloat16 in the LB and example kernels --------------------------
+    record["lb_bf16"] = lb_bf16_phase(drive, by_path, problems, ptxas=ptxas)
+    rows += record["lb_bf16"]["rows"]
+    print(json.dumps({"lb_bf16": record["lb_bf16"]}, default=str), flush=True)
     record["kernels"] = rows
     record["time_ms_loops"] = TIMED
     log(f"time_ms: {TIMED}")

@@ -7,6 +7,15 @@
 // bfloat16 once, to nearest with ties to even (torch's and XLA's rounding).
 // The type is the value's 16 bits, no arithmetic: the same code runs on the
 // card and in the tests' host harnesses, which have no cuda_bf16.h.
+//
+// The LB and example site functions (lb_sites.cuh, example_sites.cuh) take
+// bfloat16 as the reference's bodies compute in it, op by op: their values
+// are `rbf` below, a bfloat16 held widened in a float32 register, whose +,
+// -, *, / compute in float32 (IEEE, never contracted into an FMA) and round
+// the result to bfloat16, as XLA's CPU backend runs a bfloat16 op (convert,
+// float32 op, convert).  A sum the reference takes in float32 (jnp.sum, a
+// contraction) accumulates in float32 (sum_add) and rounds once (sum_end).
+// The float32 instantiation of the same bodies is plain float arithmetic.
 #pragma once
 
 #include <stdint.h>
@@ -117,5 +126,134 @@ __host__ __device__ __forceinline__ void ld_shared(const bf16* p, float (&r)[N])
 // *p = x in p's storage type.
 __host__ __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __host__ __device__ __forceinline__ void store_f32(bf16* p, float x) { *p = from_f32<bf16>(x); }
+
+// ---------------------------------------------------------------------------
+// bfloat16 arithmetic (the LB and example site functions)
+// ---------------------------------------------------------------------------
+
+// float32 operations rounded to nearest, never contracted into an FMA.
+__host__ __device__ __forceinline__ float fadd_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+__host__ __device__ __forceinline__ float fsub_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+__host__ __device__ __forceinline__ float fmul_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+__host__ __device__ __forceinline__ float fdiv_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fdiv_rn(a, b);
+#else
+  return a / b;
+#endif
+}
+
+// x rounded to bfloat16 (nearest, ties to even), as float32: one cvt on the
+// card (a NaN comes out as the canonical NaN there, keeps its payload on the
+// host).
+__host__ __device__ __forceinline__ float round_bf16(float x) {
+#if defined(__CUDA_ARCH__)
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return __uint_as_float((unsigned)h << 16);
+#else
+  return to_f32(from_f32<bf16>(x));
+#endif
+}
+
+// A bfloat16 value held widened in a float32 register.  From a float it is
+// rounded (literals fold at compile time; the physics scalars arrive
+// rounded already); exact() wraps a value that is a bfloat16 already.
+struct rbf {
+  float v;
+  rbf() = default;
+  __host__ __device__ __forceinline__ rbf(float x) : v(to_f32(from_f32<bf16>(x))) {}
+  __host__ __device__ __forceinline__ static rbf exact(float x) {
+    rbf r;
+    r.v = x;
+    return r;
+  }
+};
+
+__host__ __device__ __forceinline__ rbf operator+(rbf a, rbf b) {
+  return rbf::exact(round_bf16(fadd_rn(a.v, b.v)));
+}
+__host__ __device__ __forceinline__ rbf operator-(rbf a, rbf b) {
+  return rbf::exact(round_bf16(fsub_rn(a.v, b.v)));
+}
+__host__ __device__ __forceinline__ rbf operator*(rbf a, rbf b) {
+  return rbf::exact(round_bf16(fmul_rn(a.v, b.v)));
+}
+__host__ __device__ __forceinline__ rbf operator/(rbf a, rbf b) {
+  return rbf::exact(round_bf16(fdiv_rn(a.v, b.v)));
+}
+__host__ __device__ __forceinline__ rbf operator-(rbf a) { return rbf::exact(-a.v); }
+
+// A value as float32, and a float32 that holds a value of V exactly as V.
+__host__ __device__ __forceinline__ float value_f32(float x) { return x; }
+__host__ __device__ __forceinline__ float value_f32(rbf x) { return x.v; }
+template <class V>
+__host__ __device__ __forceinline__ V as_value(float x);
+template <>
+__host__ __device__ __forceinline__ float as_value<float>(float x) {
+  return x;
+}
+template <>
+__host__ __device__ __forceinline__ rbf as_value<rbf>(float x) {
+  return rbf::exact(x);
+}
+
+// A sum of values V in a float32 accumulator: sum_add(acc, term), then
+// sum_end rounds it once into V.  For float the plain additions.
+template <class V>
+__host__ __device__ __forceinline__ float sum_add(float a, float b);
+template <>
+__host__ __device__ __forceinline__ float sum_add<float>(float a, float b) {
+  return a + b;
+}
+template <>
+__host__ __device__ __forceinline__ float sum_add<rbf>(float a, float b) {
+  return fadd_rn(a, b);
+}
+template <class V>
+__host__ __device__ __forceinline__ V sum_end(float a);
+template <>
+__host__ __device__ __forceinline__ float sum_end<float>(float a) {
+  return a;
+}
+template <>
+__host__ __device__ __forceinline__ rbf sum_end<rbf>(float a) {
+  return rbf::exact(round_bf16(a));
+}
+
+// The value type of a storage type: float for float, rbf for bf16.
+template <class T>
+struct value_of {
+  using type = float;
+};
+template <>
+struct value_of<bf16> {
+  using type = rbf;
+};
+template <class T>
+using value_t = typename value_of<T>::type;
+
+// A bfloat16 value stored: its 16 bits (it is one already).
+__host__ __device__ __forceinline__ void store_value(bf16* p, rbf x) {
+  *p = bf16{(uint16_t)(bits_from_f32(x.v) >> 16)};
+}
 
 }  // namespace tdp

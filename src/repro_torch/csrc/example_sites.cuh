@@ -53,6 +53,15 @@
 // are two roundings (__fmul_rn, __fadd_rn: no FMA contraction), so every
 // site function is bit-equal to its plain body.  Everything a thread runs
 // is __host__ __device__, so the tests run it with the host compiler.
+//
+// bfloat16 (ExampleIOT<tdp::bf16>, the SoA launch and the reduce): the
+// same site functions on tdp::rbf values (bf16.cuh), as the reference's
+// Pallas bodies compute in bfloat16: `a` rounded to bfloat16 (by the host:
+// a weak scalar), each * and + rounded (saxpy twice), site_pos's int32
+// index converted to float32 and then to bfloat16 before the add (PyTorch's
+// conversion); a row of VVL bfloat16 values moves as one 4-, 8- or 16-byte
+// access.  The reduce accumulates as in float32 (double for the sum) and
+// rounds the result to bfloat16 once.  The AoSoA launch takes float32 only.
 #pragma once
 
 #include <math.h>
@@ -74,16 +83,18 @@ constexpr int EX_RED_SITES = 8;                // sites of a component a reduce 
 constexpr int EX_RED_MAX_BLOCKS = 1024;        // reduce blocks per component group, at most
 
 // Operands of one launch: x is in[0], y' (saxpy) is in[1]; out is (ncomp, n)
-// (the (ncomp,) result of a reduce).  vec: the vector path, set by the
-// launcher.
-struct ExampleIO {
-  const float* in[2];
-  float* out;
+// (the (ncomp,) result of a reduce), all of storage type T.  vec: the
+// vector path, set by the launcher.
+template <class T>
+struct ExampleIOT {
+  const T* in[2];
+  T* out;
   int n;
   int ncomp;
   float a;
   bool vec;
 };
+using ExampleIO = ExampleIOT<float>;
 
 __host__ __device__ __forceinline__ float mul_rn(float a, float b) {
 #if defined(__CUDA_ARCH__)
@@ -101,24 +112,33 @@ __host__ __device__ __forceinline__ float add_rn(float a, float b) {
 #endif
 }
 
+// bfloat16: each operation rounded (bf16.cuh)
+__host__ __device__ __forceinline__ rbf mul_rn(rbf a, rbf b) { return a * b; }
+__host__ __device__ __forceinline__ rbf add_rn(rbf a, rbf b) { return a + b; }
+
 struct ScaleSite {
   static constexpr bool kTwo = false;
-  __host__ __device__ static float at(float x, float, float a, int) {
+  template <class V>
+  __host__ __device__ static V at(V x, V, V a, int) {
     return mul_rn(a, x);
   }
 };
 
 struct SaxpySite {
   static constexpr bool kTwo = true;
-  __host__ __device__ static float at(float x, float y, float a, int) {
+  template <class V>
+  __host__ __device__ static V at(V x, V y, V a, int) {
     return add_rn(mul_rn(a, x), y);
   }
 };
 
 struct SitePosSite {
   static constexpr bool kTwo = false;
-  __host__ __device__ static float at(float x, float, float, int s) {
-    return add_rn(x, (float)s);  // int -> float rounds to nearest, as torch
+  template <class V>
+  __host__ __device__ static V at(V x, V, V, int s) {
+    // int -> float rounds to nearest, as torch; in bfloat16 then to
+    // bfloat16 (V's constructor), as torch converts it
+    return add_rn(x, V((float)s));
   }
 };
 
@@ -131,28 +151,30 @@ __host__ __device__ constexpr int example_groups() {
   return VVL == 1 && !Site::kTwo ? 2 : 1;
 }
 
-template <class Site, int VVL>
-__host__ __device__ __forceinline__ int64_t example_threads(const ExampleIO& io) {
+template <class Site, int VVL, class T>
+__host__ __device__ __forceinline__ int64_t example_threads(const ExampleIOT<T>& io) {
   constexpr int G = example_groups<Site, VVL>();
   return (((int64_t)io.n + VVL - 1) / VVL + G - 1) / G;
 }
 
 // The vector path: every operand's component rows start on a VVL-float
 // boundary (a null operand passes).
-template <int VVL>
-__host__ __device__ __forceinline__ bool example_vec(const ExampleIO& io) {
-  return io.n % VVL == 0 && vec_aligned<VVL>(io.in[0]) &&
-         vec_aligned<VVL>(io.in[1]) && vec_aligned<VVL>(io.out);
+template <int VVL, class T>
+__host__ __device__ __forceinline__ bool example_vec(const ExampleIOT<T>& io) {
+  return io.n % VVL == 0 && vec_aligned<VVL, T>(io.in[0]) &&
+         vec_aligned<VVL, T>(io.in[1]) && vec_aligned<VVL, T>(io.out);
 }
 
 // Thread t: sites t·VVL ... t·VVL + VVL - 1 (and site t + T where it takes
 // two groups), each component.
-template <class Site, int VVL>
-__host__ __device__ __forceinline__ void example_thread(const ExampleIO& io,
+template <class Site, int VVL, class S>
+__host__ __device__ __forceinline__ void example_thread(const ExampleIOT<S>& io,
                                                         int64_t t) {
+  using V = value_t<S>;
   constexpr int G = example_groups<Site, VVL>();
   const int64_t T = example_threads<Site, VVL>(io);
   if (t >= T) return;
+  const V a = io.a;
   int64_t s0[G];
   int nv[G];
 #pragma unroll
@@ -161,7 +183,7 @@ __host__ __device__ __forceinline__ void example_thread(const ExampleIO& io,
     nv[u] = s0[u] >= io.n ? 0 : io.n - s0[u] < VVL ? (int)(io.n - s0[u]) : VVL;
   }
   for (int c0 = 0; c0 < io.ncomp; c0 += EX_CG) {
-    float x[EX_CG][G][VVL], y[EX_CG][G][VVL];
+    V x[EX_CG][G][VVL], y[EX_CG][G][VVL];
 #pragma unroll
     for (int k = 0; k < EX_CG; ++k) {
       if (c0 + k >= io.ncomp) break;
@@ -179,10 +201,10 @@ __host__ __device__ __forceinline__ void example_thread(const ExampleIO& io,
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         if (u > 0 && nv[u] == 0) continue;  // t < T: group 0 has sites
-        float r[VVL];
+        V r[VVL];
 #pragma unroll
         for (int v = 0; v < VVL; ++v)
-          r[v] = Site::at(x[k][u][v], Site::kTwo ? y[k][u][v] : 0.0f, io.a,
+          r[v] = Site::at(x[k][u][v], Site::kTwo ? y[k][u][v] : V(0.0f), a,
                           (int)(s0[u] + v));
         store_row<VVL>(io.out + (int64_t)(c0 + k) * io.n + s0[u], io.vec, nv[u], r);
       }
@@ -263,13 +285,15 @@ struct MinOp {
 };
 
 // Operands of one reduce launch: io.out is the (ncomp,) result.
-struct ReduceIO {
-  ExampleIO io;
+template <class T>
+struct ReduceIOT {
+  ExampleIOT<T> io;
   double* partial;  // (ncomp, blocks): each block's partial of its components
   unsigned* count;  // blocks done: 0 before a launch, 0 again after it
   int blocks;       // blocks per component group (gridDim.x)
   int op;           // ReduceOpId
 };
+using ReduceIO = ReduceIOT<float>;
 
 __host__ __device__ __forceinline__ int reduce_groups(int ncomp) {
   return (ncomp + EX_CG - 1) / EX_CG;
@@ -298,19 +322,21 @@ __host__ __device__ __forceinline__ int reduce_blocks(int n, int ncomp, int resi
 __host__ __device__ constexpr int red_xor(int i) { return 16 >> i; }
 
 // Thread tid of block (b, gy): its partial of each component of group gy.
-template <class Site, class Op, int VVL>
-__host__ __device__ __forceinline__ void reduce_thread(const ReduceIO& r, int b, int gy,
+template <class Site, class Op, int VVL, class S>
+__host__ __device__ __forceinline__ void reduce_thread(const ReduceIOT<S>& r, int b, int gy,
                                                        int tid,
                                                        typename Op::T (&acc)[EX_CG]) {
+  using V = value_t<S>;
   constexpr int U = reduce_unroll<VVL>();
-  const ExampleIO& io = r.io;
+  const ExampleIOT<S>& io = r.io;
+  const V a = io.a;
   const int c0 = gy * EX_CG;
   const int64_t stride = (int64_t)r.blocks * EX_BLOCK;
   const int64_t ng = ((int64_t)io.n + VVL - 1) / VVL;
 #pragma unroll
   for (int k = 0; k < EX_CG; ++k) acc[k] = Op::identity();
   for (int64_t g0 = (int64_t)b * EX_BLOCK + tid; g0 < ng; g0 += U * stride) {
-    float x[EX_CG][U][VVL], y[EX_CG][U][VVL];
+    V x[EX_CG][U][VVL], y[EX_CG][U][VVL];
 #pragma unroll
     for (int k = 0; k < EX_CG; ++k) {
       if (c0 + k >= io.ncomp) break;
@@ -332,9 +358,9 @@ __host__ __device__ __forceinline__ void reduce_thread(const ReduceIO& r, int b,
         for (int v = 0; v < VVL; ++v) {
           const int64_t s = (g0 + j * stride) * VVL + v;
           if (s < io.n)
-            acc[k] = Op::f(acc[k], (typename Op::T)Site::at(
-                                       x[k][j][v], Site::kTwo ? y[k][j][v] : 0.0f,
-                                       io.a, (int)s));
+            acc[k] = Op::f(acc[k], (typename Op::T)value_f32(Site::at(
+                                       x[k][j][v], Site::kTwo ? y[k][j][v] : V(0.0f),
+                                       a, (int)s)));
         }
       }
     }
@@ -362,8 +388,8 @@ __host__ __device__ __forceinline__ double ld_partial(const double* p) {
 
 // Thread tid of the last block: the blocks' partials of component c, blocks
 // tid, tid + EX_BLOCK, ... in that order.
-template <class Op>
-__host__ __device__ __forceinline__ typename Op::T final_thread(const ReduceIO& r, int c,
+template <class Op, class S>
+__host__ __device__ __forceinline__ typename Op::T final_thread(const ReduceIOT<S>& r, int c,
                                                                 int tid) {
   typename Op::T v = Op::identity();
   for (int b = tid; b < r.blocks; b += EX_BLOCK)
@@ -393,8 +419,8 @@ int dispatch_site(int site, int vvl, const IO& io, void* stream) {
 }
 
 // (op id) -> Launch<Site, VVL>::template go<Op>(r, stream), for the reduce
-template <class Launch>
-int dispatch_op(const ReduceIO& r, void* stream) {
+template <class Launch, class S>
+int dispatch_op(const ReduceIOT<S>& r, void* stream) {
   switch (r.op) {
     case RED_SUM: return Launch::template go<SumOp>(r, stream);
     case RED_MAX: return Launch::template go<MaxOp>(r, stream);

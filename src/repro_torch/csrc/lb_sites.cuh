@@ -32,9 +32,27 @@
 // the grad6 Laplacian order); FMA contraction still changes rounding, so
 // the card is held to tolerances, not to bit-identity.  Component strides
 // are 64-bit.
+//
+// Two arithmetics, one body: every site function is a template over its
+// values V, float for float32 fields and tdp::rbf (bf16.cuh) for bfloat16
+// ones, the storage type T of FieldIOT<T>.  In bfloat16 each operation
+// rounds as the reference's body does op by op (src/repro/kernels/
+// lb_collision.py:57-100, src/repro/lb/stencil.py:110-197): every +, -, *,
+// / rounded to bfloat16, no FMA; the sums the reference takes with jnp.sum
+// and its two contractions with c (rho, the momentum, c·u, c·F, u·u, u·F,
+// the gt sum, moment's phi) accumulated in float32 and rounded once
+// (sum_add / sum_end); the ascending-q phi of fused and phi_stream rounded
+// at every add, as the reference's `acc = acc + ...` is; the weights and
+// the literals rounded to bfloat16, the physics scalars by the host
+// (Phys).  So the bfloat16 kernels are bit-equal to the port's plain
+// bfloat16 versions.  In float32 V is float and the code is the float32
+// arithmetic it always was.  The AoSoA and ensemble launchers take float32
+// only.
 #pragma once
 
 #include <cstdint>
+
+#include "bf16.cuh"
 
 #if !defined(__CUDACC__)
 #define __host__
@@ -57,10 +75,11 @@ __host__ __device__ __forceinline__ float ldg(const float* p) {
 // rows of V consecutive floats: one vector load or store where aligned
 // ---------------------------------------------------------------------------
 
-// p is aligned for the V-float vector access (V 1, 2, 4; 8 is two float4).
-template <int V>
+// p is aligned for the vector access of V values of T (V 1, 2, 4; 8 floats
+// are two float4, 8 bfloat16 one 16-byte access).
+template <int V, class T = float>
 __host__ __device__ __forceinline__ bool vec_aligned(const void* p) {
-  constexpr uintptr_t kAlign = V >= 4 ? 16 : 4 * V;
+  constexpr uintptr_t kAlign = V * sizeof(T) >= 16 ? 16 : V * sizeof(T);
   return ((uintptr_t)p & (kAlign - 1)) == 0;
 }
 
@@ -112,6 +131,71 @@ __host__ __device__ __forceinline__ void store_row(float* p, bool vec, int nv,
 #pragma unroll
   for (int l = 0; l < V; ++l)
     if (l < nv) p[l] = r[l];
+}
+
+// The bfloat16 rows: V consecutive bfloat16 values as rbf, one 4-, 8- or
+// 16-byte access when vec (V 2, 4, 8), else the first nv as scalars and
+// the rest 0; and back.
+template <int V>
+__host__ __device__ __forceinline__ void load_row(const bf16* p, bool vec, int nv,
+                                                  rbf (&r)[V]) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (V > 1) {
+    if (vec) {
+      uint32_t w[V / 2];
+      if constexpr (V == 2) {
+        w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+      } else if constexpr (V == 4) {
+        const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+        w[0] = a.x;
+        w[1] = a.y;
+      } else {
+        const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+        w[0] = a.x;
+        w[1] = a.y;
+        w[2] = a.z;
+        w[3] = a.w;
+      }
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) {
+        float lo, hi;
+        unpack_bf16x2(w[h], lo, hi);
+        r[2 * h] = rbf::exact(lo);
+        r[2 * h + 1] = rbf::exact(hi);
+      }
+      return;
+    }
+  }
+#endif
+#pragma unroll
+  for (int l = 0; l < V; ++l) r[l] = rbf::exact(l < nv ? ldg(p + l) : 0.0f);
+}
+
+template <int V>
+__host__ __device__ __forceinline__ void store_row(bf16* p, bool vec, int nv,
+                                                   const rbf (&r)[V]) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (V > 1) {
+    if (vec) {
+      uint32_t w[V / 2];
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h)
+        w[h] = (bits_from_f32(r[2 * h].v) >> 16) |
+               (bits_from_f32(r[2 * h + 1].v) & 0xffff0000u);
+      if constexpr (V == 2) {
+        *reinterpret_cast<unsigned*>(p) = w[0];
+      } else if constexpr (V == 4) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+      } else {
+        *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      return;
+    }
+  }
+#endif
+#pragma unroll
+  for (int l = 0; l < V; ++l)
+    if (l < nv) store_value(p + l, r[l]);
 }
 
 constexpr int NVEL = 19;
@@ -199,6 +283,8 @@ __host__ __device__ __forceinline__ int st_radius(int st) {
 
 // The six physics scalars plus the two coefficients the plain version folds
 // in double precision before rounding to float: (1 - 1/(2 tau)) and 3 gamma.
+// A bfloat16 launch gets every one rounded to bfloat16 by the host, as the
+// reference rounds its weak scalars (kernels/tdp_pointwise.py: phys_row).
 struct Phys {
   float A, B, kappa, tau, tau_phi, gamma, fcoef, g3;
 };
@@ -220,36 +306,42 @@ inline void make_phys_rows(int B, const float* consts, Phys* rows) {
 }
 
 // sum_d c_qd v_d with the zero terms dropped and the unit products folded
-__host__ __device__ __forceinline__ float cdot(int q, const float (&v)[3]) {
+// (a contraction: in bfloat16 summed in float32 and rounded once)
+template <class V>
+__host__ __device__ __forceinline__ V cdot(int q, const V (&v)[3]) {
   float s = 0.0f;
   bool first = true;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     const int c = cv(q, d);
     if (c == 0) continue;
-    const float t = c > 0 ? v[d] : -v[d];
-    s = first ? t : s + t;
+    const float t = c > 0 ? value_f32(v[d]) : -value_f32(v[d]);
+    s = first ? t : sum_add<V>(s, t);
     first = false;
   }
-  return s;
+  return sum_end<V>(s);
 }
 
 // D3Q19 binary BGK collision of one site with the chemical potential
 // mu = -A phi + B phi^3 - kappa lap(phi) fused in and Guo forcing F = mu grad(phi)
 // (repro_torch.kernels.lb_collision.collision_site_kernel).
+template <class V>
 __host__ __device__ __forceinline__ void collide_core(
-    const float (&f)[NVEL], const float (&g)[NVEL], float phi,
-    const float (&grad)[3], float lap, const Phys& p, float (&fo)[NVEL],
-    float (&go)[NVEL]) {
-  const float mu = -p.A * phi + p.B * phi * phi * phi - p.kappa * lap;
-  float F[3];
+    const V (&f)[NVEL], const V (&g)[NVEL], V phi, const V (&grad)[3], V lap,
+    const Phys& p, V (&fo)[NVEL], V (&go)[NVEL]) {
+  // The scalars are read where used (a float makes a V; in bfloat16 they
+  // are bfloat16 values already).  Copied into locals first, they change
+  // nvcc's FMA contraction of the float32 kernels at VVL 2-8.
+  const V mu = -p.A * phi + p.B * phi * phi * phi - p.kappa * lap;
+  V F[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) F[d] = mu * grad[d];
 
-  float rho = f[0];
+  float rho_s = value_f32(f[0]);
 #pragma unroll
-  for (int q = 1; q < NVEL; ++q) rho += f[q];
-  float u[3];
+  for (int q = 1; q < NVEL; ++q) rho_s = sum_add<V>(rho_s, value_f32(f[q]));
+  const V rho = sum_end<V>(rho_s);
+  V u[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     float m = 0.0f;
@@ -258,30 +350,32 @@ __host__ __device__ __forceinline__ void collide_core(
     for (int q = 1; q < NVEL; ++q) {
       const int c = cv(q, d);
       if (c == 0) continue;
-      const float t = c > 0 ? f[q] : -f[q];
-      m = first ? t : m + t;
+      const float t = c > 0 ? value_f32(f[q]) : -value_f32(f[q]);
+      m = first ? t : sum_add<V>(m, t);
       first = false;
     }
-    u[d] = (m + 0.5f * F[d]) / rho;
+    u[d] = (sum_end<V>(m) + 0.5f * F[d]) / rho;
   }
-  const float usq = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-  const float uf = u[0] * F[0] + u[1] * F[1] + u[2] * F[2];
+  const V usq = sum_end<V>(sum_add<V>(
+      sum_add<V>(value_f32(u[0] * u[0]), value_f32(u[1] * u[1])), value_f32(u[2] * u[2])));
+  const V uf = sum_end<V>(sum_add<V>(
+      sum_add<V>(value_f32(u[0] * F[0]), value_f32(u[1] * F[1])), value_f32(u[2] * F[2])));
 
-  float gt[NVEL];
+  V gt[NVEL];
 #pragma unroll
   for (int q = 0; q < NVEL; ++q) {
-    const float w = wq(q);
-    const float cu = cdot(q, u);
-    const float cf = cdot(q, F);
-    const float feq = w * rho * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
-    const float fterm = p.fcoef * w * (3.0f * (cf - uf) + 9.0f * cu * cf);
+    const V w = wq(q);
+    const V cu = cdot(q, u);
+    const V cf = cdot(q, F);
+    const V feq = w * rho * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
+    const V fterm = p.fcoef * w * (3.0f * (cf - uf) + 9.0f * cu * cf);
     fo[q] = f[q] - (f[q] - feq) / p.tau + fterm;
     gt[q] = w * (p.g3 * mu + 3.0f * phi * cu);
   }
-  float gsum = gt[0];
+  float gsum = value_f32(gt[0]);
 #pragma unroll
-  for (int q = 1; q < NVEL; ++q) gsum += gt[q];
-  const float g0 = phi - (gsum - gt[0]);
+  for (int q = 1; q < NVEL; ++q) gsum = sum_add<V>(gsum, value_f32(gt[q]));
+  const V g0 = phi - (sum_end<V>(gsum) - gt[0]);
   go[0] = g[0] - (g[0] - g0) / p.tau_phi;
 #pragma unroll
   for (int q = 1; q < NVEL; ++q) go[q] = g[q] - (g[q] - gt[q]) / p.tau_phi;
@@ -289,9 +383,9 @@ __host__ __device__ __forceinline__ void collide_core(
 
 // grad(phi) and lap(phi) from phi at the 7 grad-star slots (centre, +x, -x,
 // +y, -y, +z, -z) in the plain version's accumulation order.
-__host__ __device__ __forceinline__ void grad6_from_p(const float (&p)[7],
-                                                      float (&grad)[3],
-                                                      float& lap) {
+template <class V>
+__host__ __device__ __forceinline__ void grad6_from_p(const V (&p)[7], V (&grad)[3],
+                                                      V& lap) {
   grad[0] = 0.5f * (p[1] - p[2]);
   grad[1] = 0.5f * (p[3] - p[4]);
   grad[2] = 0.5f * (p[5] - p[6]);
@@ -326,7 +420,8 @@ struct Grad6Site {
   __host__ __device__ static constexpr int stencil(int) { return ST_GRAD6; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys&) {
-    float p[7], grad[3], lap;
+    using V = typename Nb::V;
+    V p[7], grad[3], lap;
 #pragma unroll
     for (int k = 0; k < 7; ++k) p[k] = nb.at(0, k, 0, lane);
     grad6_from_p(p, grad, lap);
@@ -344,17 +439,18 @@ struct MomentSite {
   __host__ __device__ static constexpr int stencil(int) { return ST_POINT; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys&) {
-    float acc = nb.at(0, 0, 0, lane);
+    // jnp.sum: in bfloat16 summed in float32, rounded once
+    using V = typename Nb::V;
+    float acc = value_f32(nb.at(0, 0, 0, lane));
 #pragma unroll
-    for (int q = 1; q < NVEL; ++q) acc += nb.at(0, 0, q, lane);
-    nb.put(0, 0, lane, acc);
+    for (int q = 1; q < NVEL; ++q) acc = sum_add<V>(acc, value_f32(nb.at(0, 0, q, lane)));
+    nb.put(0, 0, lane, sum_end<V>(acc));
   }
 };
 
-template <class Nb>
-__host__ __device__ __forceinline__ void put_fg(const Nb& nb, int lane,
-                                                const float (&fo)[NVEL],
-                                                const float (&go)[NVEL]) {
+template <class Nb, class V>
+__host__ __device__ __forceinline__ void put_fg(const Nb& nb, int lane, const V (&fo)[NVEL],
+                                                const V (&go)[NVEL]) {
 #pragma unroll
   for (int q = 0; q < NVEL; ++q) {
     nb.put(0, q, lane, fo[q]);
@@ -372,7 +468,8 @@ struct CollideSite {  // fields: f, g, phi, gradphi, del2phi (all pointwise)
   __host__ __device__ static constexpr int stencil(int) { return ST_POINT; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys& p) {
-    float f[NVEL], g[NVEL], grad[3], fo[NVEL], go[NVEL];
+    using V = typename Nb::V;
+    V f[NVEL], g[NVEL], grad[3], fo[NVEL], go[NVEL];
 #pragma unroll
     for (int q = 0; q < NVEL; ++q) {
       f[q] = nb.at(0, 0, q, lane);
@@ -387,13 +484,11 @@ struct CollideSite {  // fields: f, g, phi, gradphi, del2phi (all pointwise)
 
 // The fused site function's tail: grad(phi) and lap(phi) from phi at the 7
 // grad-star slots, then the collision of the pulled f and g.
-template <class Nb>
+template <class Nb, class V>
 __host__ __device__ __forceinline__ void fused_tail(const Nb& nb, int lane,
-                                                    const float (&f)[NVEL],
-                                                    const float (&g)[NVEL],
-                                                    const float (&ph)[7],
-                                                    const Phys& p) {
-  float grad[3], lap, fo[NVEL], go[NVEL];
+                                                    const V (&f)[NVEL], const V (&g)[NVEL],
+                                                    const V (&ph)[7], const Phys& p) {
+  V grad[3], lap, fo[NVEL], go[NVEL];
   grad6_from_p(ph, grad, lap);
   collide_core(f, g, ph[0], grad, lap, p, fo, go);
   put_fg(nb, lane, fo, go);
@@ -409,7 +504,8 @@ struct FusedSite {  // fields: f (pull), g (fused_g, radius 2)
   }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys& p) {
-    float f[NVEL], g[NVEL], ph[7];
+    using V = typename Nb::V;
+    V f[NVEL], g[NVEL], ph[7];
 #pragma unroll
     for (int q = 0; q < NVEL; ++q) {
       f[q] = nb.at(0, pull_idx(q), q, lane);
@@ -422,7 +518,7 @@ struct FusedSite {  // fields: f (pull), g (fused_g, radius 2)
     for (int q = 1; q < NVEL; ++q) ph[0] = ph[0] + g[q];
 #pragma unroll
     for (int d = 1; d < 7; ++d) {
-      float acc = nb.at(1, fused_g_idx(d, 0), 0, lane);
+      V acc = nb.at(1, fused_g_idx(d, 0), 0, lane);
 #pragma unroll
       for (int q = 1; q < NVEL; ++q) acc = acc + nb.at(1, fused_g_idx(d, q), q, lane);
       ph[d] = acc;
@@ -439,7 +535,7 @@ struct PhiStreamSite {  // field: g (pull)
   __host__ __device__ static constexpr int stencil(int) { return ST_PULL; }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys&) {
-    float acc = nb.at(0, pull_idx(0), 0, lane);
+    typename Nb::V acc = nb.at(0, pull_idx(0), 0, lane);
 #pragma unroll
     for (int q = 1; q < NVEL; ++q) acc = acc + nb.at(0, pull_idx(q), q, lane);
     nb.put(0, 0, lane, acc);
@@ -456,7 +552,8 @@ struct FusedTwoSite {  // fields: f (pull), g (pull), phi_streamed (grad6)
   }
   template <class Nb>
   __host__ __device__ static void run(const Nb& nb, int lane, const Phys& p) {
-    float f[NVEL], g[NVEL], ph[7], grad[3], lap, fo[NVEL], go[NVEL];
+    using V = typename Nb::V;
+    V f[NVEL], g[NVEL], ph[7], grad[3], lap, fo[NVEL], go[NVEL];
 #pragma unroll
     for (int q = 0; q < NVEL; ++q) {
       f[q] = nb.at(0, pull_idx(q), q, lane);
@@ -478,14 +575,24 @@ struct FusedTwoSite {  // fields: f (pull), g (pull), phi_streamed (grad6)
 // caller's own (ncomp, X+2hx, Y+2hy, Z+2hz) array, read in place; a
 // pointwise field and every output are (ncomp, X*Y*Z) over the interior.
 // A launch with no stencil field passes (1, 1, n) and no ghost planes.
-struct FieldIO {
-  const float* in[MAX_IN];
-  float* out[MAX_OUT];
+// T is the storage type of every field and output (float or bf16).
+template <class T>
+struct FieldIOT {
+  const T* in[MAX_IN];
+  T* out[MAX_OUT];
   int X, Y, Z;
   int hx, hy, hz;
   int64_t n;
   Phys phys;
 };
+using FieldIO = FieldIOT<float>;
+
+// A field's value at p, as V (bfloat16 widened exactly), and a value stored.
+__host__ __device__ __forceinline__ float load_value(const float* p) { return ldg(p); }
+__host__ __device__ __forceinline__ rbf load_value(const bf16* p) {
+  return rbf::exact(ldg(p));
+}
+__host__ __device__ __forceinline__ void store_value(float* p, float x) { *p = x; }
 
 // Where site coordinate c + o lies along a dimension of interior extent s
 // stored with h ghost planes on each side: wrapped periodically when h == 0
@@ -497,9 +604,29 @@ __host__ __device__ __forceinline__ int wrap(int c, int o, int s, int h) {
   return v < 0 ? v + s : (v >= s ? v - s : v);
 }
 
+// The SoA C entries' operands as a FieldIOT<T>: in[i] / out[k] of storage
+// type T, the lattice and its ghost planes, and the host Phys at `phys`.
+template <class T>
+inline FieldIOT<T> make_field_io(const void* const* in, void* const* out, int X, int Y,
+                                 int Z, int hx, int hy, int hz, const void* phys) {
+  FieldIOT<T> io{};
+  for (int i = 0; i < MAX_IN; ++i) io.in[i] = static_cast<const T*>(in[i]);
+  for (int k = 0; k < MAX_OUT; ++k) io.out[k] = static_cast<T*>(out[k]);
+  io.X = X;
+  io.Y = Y;
+  io.Z = Z;
+  io.hx = hx;
+  io.hy = hy;
+  io.hz = hz;
+  io.n = (int64_t)X * Y * Z;
+  io.phys = *static_cast<const Phys*>(phys);
+  return io;
+}
+
 // 0, or ERR_GEOMETRY when a stencil of radius r cannot be served: r above a
 // periodic extent (h == 0), or fewer ghost planes than r (h > 0).
-inline int check_geometry(const FieldIO& io, int r) {
+template <class T>
+inline int check_geometry(const FieldIOT<T>& io, int r) {
   const int s[3] = {io.X, io.Y, io.Z}, h[3] = {io.hx, io.hy, io.hz};
   for (int d = 0; d < 3; ++d)
     if (r && (h[d] ? h[d] < r : r > s[d])) return ERR_GEOMETRY;
@@ -514,15 +641,16 @@ inline int check_geometry(const FieldIO& io, int r) {
 // from the stencil tables.  Offsets within one component are 32-bit (the
 // wrapper checks that a component of an extended field has fewer than 2^31
 // elements).
-template <class Site, int VVL>
+template <class Site, int VVL, class T = float>
 struct FieldNb {
   static constexpr int R = Site::RADIUS;
-  const FieldIO& io;
+  using V = value_t<T>;
+  const FieldIOT<T>& io;
   int64_t site0;  // flat interior index of lane 0
   int64_t cs;     // component stride of a stencil field
   int ox[2 * R + 1], oy[2 * R + 1], oz[2 * R + VVL];
 
-  __host__ __device__ __forceinline__ FieldNb(const FieldIO& io_, int x, int y, int z0)
+  __host__ __device__ __forceinline__ FieldNb(const FieldIOT<T>& io_, int x, int y, int z0)
       : io(io_), site0(((int64_t)x * io_.Y + y) * io_.Z + z0), cs(0) {
     if constexpr (R > 0) {
       const int ze = io.Z + 2 * io.hz, yze = (io.Y + 2 * io.hy) * ze;
@@ -536,14 +664,15 @@ struct FieldNb {
       for (int k = 0; k < 2 * R + VVL; ++k) oz[k] = wrap(z0, k - R, io.Z, io.hz);
     }
   }
-  __host__ __device__ __forceinline__ float at(int f, int slot, int c, int lane) const {
+  __host__ __device__ __forceinline__ V at(int f, int slot, int c, int lane) const {
     const int st = Site::stencil(f);
-    if (st == ST_POINT) return ldg(io.in[f] + (int64_t)c * io.n + site0 + lane);
-    return ldg(io.in[f] + c * cs + (ox[st_off(st, slot, 0) + R] + oy[st_off(st, slot, 1) + R]
-                                    + oz[lane + st_off(st, slot, 2) + R]));
+    if (st == ST_POINT) return load_value(io.in[f] + (int64_t)c * io.n + site0 + lane);
+    return load_value(io.in[f] + c * cs +
+                      (ox[st_off(st, slot, 0) + R] + oy[st_off(st, slot, 1) + R] +
+                       oz[lane + st_off(st, slot, 2) + R]));
   }
-  __host__ __device__ __forceinline__ void put(int k, int c, int lane, float v) const {
-    io.out[k][(int64_t)c * io.n + site0 + lane] = v;
+  __host__ __device__ __forceinline__ void put(int k, int c, int lane, V v) const {
+    store_value(io.out[k] + ((int64_t)c * io.n + site0 + lane), v);
   }
 };
 
@@ -552,8 +681,8 @@ struct FieldNb {
 // row is masked.  A site function with no stencil field takes the sites as
 // one flat row.  The thread count is below 2^31 (the wrapper bounds a
 // component of a field), so the index arithmetic is 32-bit.
-template <class Site, int VVL>
-__host__ __device__ __forceinline__ void field_thread(const FieldIO& io, int64_t t64) {
+template <class Site, int VVL, class T>
+__host__ __device__ __forceinline__ void field_thread(const FieldIOT<T>& io, int64_t t64) {
   const int nzb = (io.Z + VVL - 1) / VVL;
   if (t64 >= (int64_t)io.X * io.Y * nzb) return;
   const int t = (int)t64;
@@ -565,14 +694,14 @@ __host__ __device__ __forceinline__ void field_thread(const FieldIO& io, int64_t
     z0 = (t % nzb) * VVL;
     zend = io.Z;
   }
-  const FieldNb<Site, VVL> nb(io, x, y, z0);
+  const FieldNb<Site, VVL, T> nb(io, x, y, z0);
 #pragma unroll
   for (int l = 0; l < VVL; ++l)
     if (z0 + l < zend) Site::run(nb, l, io.phys);
 }
 
-template <int VVL>
-__host__ __device__ __forceinline__ int64_t field_threads(const FieldIO& io) {
+template <int VVL, class T>
+__host__ __device__ __forceinline__ int64_t field_threads(const FieldIOT<T>& io) {
   return (int64_t)io.X * io.Y * ((io.Z + VVL - 1) / VVL);
 }
 
@@ -700,6 +829,7 @@ struct AosoaIO {
 template <class Site>
 struct AosoaNb {
   static constexpr int R = Site::RADIUS;
+  using V = float;
   const AosoaIO& a;
   int site;  // flat interior index
   int ox[2 * R + 1], oy[2 * R + 1], oz[2 * R + 1];
@@ -765,7 +895,9 @@ __host__ __device__ __forceinline__ void aosoa_thread(const AosoaIO& a, int64_t 
 
 constexpr int TILE_Y = 8, TILE_Z = 32;
 constexpr int RIM_Y = TILE_Y + 2, RIM_Z = TILE_Z + 2;
-// Shared memory a block may hold on the H100 (227 KB).
+// Shared memory a block may hold on the H100 (227 KB).  phi is staged as
+// float32 in both arithmetics (a bfloat16 launch stages its bfloat16 phi
+// widened), so the tile's bytes do not depend on the dtype.
 constexpr int64_t SMEM_LIMIT = 232448;
 
 template <int VVL>
@@ -782,27 +914,33 @@ inline int check_tile(int P) {
 
 // The tile phases run over SoA fields (FieldIO, read in place by FieldNb)
 // or AoSoA ones (AosoaIO, one site a thread: VVL 1); these pick the pieces.
-__host__ __device__ __forceinline__ const FieldIO& field_io(const FieldIO& io) { return io; }
+template <class T>
+__host__ __device__ __forceinline__ const FieldIOT<T>& field_io(const FieldIOT<T>& io) {
+  return io;
+}
 __host__ __device__ __forceinline__ const FieldIO& field_io(const AosoaIO& a) { return a.io; }
 
 // Flat-index stride of an x-plane of a stencil field.
-__host__ __device__ __forceinline__ int tile_plane(const FieldIO& io) {
+template <class T>
+__host__ __device__ __forceinline__ int tile_plane(const FieldIOT<T>& io) {
   return (io.Y + 2 * io.hy) * (io.Z + 2 * io.hz);
 }
 __host__ __device__ __forceinline__ int tile_plane(const AosoaIO& a) { return a.plane; }
 
 // Component q of g (19 components, component stride cs under SoA) at flat
 // index e.
-__host__ __device__ __forceinline__ float tile_g(const FieldIO&, const float* g, int64_t cs,
-                                                 int e, int q) {
-  return ldg(g + q * cs + e);
+template <class T>
+__host__ __device__ __forceinline__ value_t<T> tile_g(const FieldIOT<T>&, const T* g,
+                                                      int64_t cs, int e, int q) {
+  return load_value(g + q * cs + e);
 }
 __host__ __device__ __forceinline__ float tile_g(const AosoaIO& a, const float* g, int64_t,
                                                  int e, int q) {
   return ldg(g + aosoa_index(a.map, e, NVEL, q));
 }
 
-__host__ __device__ inline int64_t tile_blocks(const FieldIO& io, int P) {
+template <class T>
+__host__ __device__ inline int64_t tile_blocks(const FieldIOT<T>& io, int P) {
   return (int64_t)((io.X + P - 1) / P) * ((io.Y + TILE_Y - 1) / TILE_Y) *
          ((io.Z + TILE_Z - 1) / TILE_Z);
 }
@@ -813,7 +951,8 @@ struct TileCorner {
   int x0, y0, z0;
 };
 
-__host__ __device__ inline TileCorner tile_corner(const FieldIO& io, int P, int64_t b) {
+template <class T>
+__host__ __device__ inline TileCorner tile_corner(const FieldIOT<T>& io, int P, int64_t b) {
   const int nz = (io.Z + TILE_Z - 1) / TILE_Z, ny = (io.Y + TILE_Y - 1) / TILE_Y;
   const int bz = (int)(b % nz);
   b /= nz;
@@ -832,8 +971,10 @@ struct TileSite {
 // The tile's accessor of f and g: FieldNb over SoA fields, AosoaNb over
 // AoSoA ones.
 template <class IO, int VVL>
-struct TileNb {
-  using type = FieldNb<TileSite, VVL>;
+struct TileNb;
+template <class T, int VVL>
+struct TileNb<FieldIOT<T>, VVL> {
+  using type = FieldNb<TileSite, VVL, T>;
 };
 template <>
 struct TileNb<AosoaIO, 1> {
@@ -848,9 +989,9 @@ template <int VVL, class IO>
 __host__ __device__ __forceinline__ void fused_tile_phi(const IO& lay, int P,
                                                         int64_t block, int tid,
                                                         float* phi) {
-  const FieldIO& io = field_io(lay);
+  const auto& io = field_io(lay);
   const TileCorner t = tile_corner(io, P, block);
-  const float* g = io.in[1];
+  const auto* g = io.in[1];
   const int ze = io.Z + 2 * io.hz, yze = tile_plane(lay);
   const int64_t cs = (int64_t)(io.X + 2 * io.hx) * yze;
   const int nbox = (P + 2) * RIM_Y * RIM_Z;
@@ -866,11 +1007,11 @@ __host__ __device__ __forceinline__ void fused_tile_phi(const IO& lay, int P,
       iy[o + 1] = wrap(y, o, io.Y, io.hy) * ze;
       iz[o + 1] = wrap(z, o, io.Z, io.hz);
     }
-    float acc = tile_g(lay, g, cs, ix[1] + iy[1] + iz[1], 0);
+    auto acc = tile_g(lay, g, cs, ix[1] + iy[1] + iz[1], 0);
 #pragma unroll
     for (int q = 1; q < NVEL; ++q)
       acc = acc + tile_g(lay, g, cs, ix[1 - cv(q, 0)] + iy[1 - cv(q, 1)] + iz[1 - cv(q, 2)], q);
-    phi[s] = acc;
+    phi[s] = value_f32(acc);
   }
 }
 
@@ -882,19 +1023,23 @@ __host__ __device__ __forceinline__ void fused_tile_collide(const IO& lay, int P
                                                             const float* phi) {
   constexpr int ZT = TILE_Z / VVL;
   constexpr int PX = RIM_Y * RIM_Z;
-  const FieldIO& io = field_io(lay);
+  using Nb = typename TileNb<IO, VVL>::type;
+  using V = typename Nb::V;
+  const auto& io = field_io(lay);
   const TileCorner t = tile_corner(io, P, block);
   const int j = tid / ZT, zl = (tid % ZT) * VVL;
   const int y = t.y0 + j, z0 = t.z0 + zl;
   if (y >= io.Y || z0 >= io.Z) return;
   for (int i = 0; i < P && t.x0 + i < io.X; ++i) {
-    const typename TileNb<IO, VVL>::type nb(lay, t.x0 + i, y, z0);
+    const Nb nb(lay, t.x0 + i, y, z0);
 #pragma unroll
     for (int l = 0; l < VVL; ++l) {
       if (z0 + l >= io.Z) break;
       const float* c = phi + ((i + 1) * RIM_Y + j + 1) * RIM_Z + zl + l + 1;
-      const float ph[7] = {c[0], c[PX], c[-PX], c[RIM_Z], c[-RIM_Z], c[1], c[-1]};
-      float f[NVEL], g[NVEL];
+      const V ph[7] = {as_value<V>(c[0]),      as_value<V>(c[PX]),    as_value<V>(c[-PX]),
+                       as_value<V>(c[RIM_Z]), as_value<V>(c[-RIM_Z]), as_value<V>(c[1]),
+                       as_value<V>(c[-1])};
+      V f[NVEL], g[NVEL];
 #pragma unroll
       for (int q = 0; q < NVEL; ++q) {
         f[q] = nb.at(0, pull_idx(q), q, l);

@@ -16,7 +16,13 @@
 //
 // Bound on the H100 (3.35 TB/s): device-memory bytes, each input read once
 // and each output written once: collide 324, moment 80, stream 152,
-// phi_stream 80, grad6 20, fused_two 308, fused 304 bytes/site.  The
+// phi_stream 80, grad6 20, fused_two 308, fused 304 bytes/site in float32,
+// half of each in bfloat16.
+//
+// bfloat16 (the dtype code DTYPE_BF16, bf16.cuh): the same site functions
+// instantiated for FieldIOT<tdp::bf16>, every operand and output bfloat16,
+// each operation rounded as the reference's body rounds it (lb_sites.cuh);
+// the AoSoA and ensemble entries take float32 only.  The
 // kernel issues one load per (offset, component) a site function names (19
 // for stream, 7·19 for fused's g); neighbouring threads read neighbouring
 // addresses, and reuse between neighbouring sites is left to L1/L2.
@@ -38,15 +44,18 @@
 // single launch computes.  Bound: B times the single launch's bytes.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "lb_sites.cuh"
 
-// The library is built as nine translation units compiled in parallel
-// (kernels/_build.py UNITS) and linked: TDP_UNIT 1-4 compile the SoA
-// kernels at VVL 1, 2, 4 and 8 (unit 1 also the SoA entry), 5 the AoSoA
-// entry, 6-9 the ensemble kernels at VVL 1, 2, 4 and 8 (unit 6 also the
-// ensemble entries); unset, all of them.  Each unit instantiates only the
-// kernels it launches: the SoA and ensemble kernels of one VVL are a
-// quarter of their entry's, so no unit is the build's long pole alone.
+// The library is built as seventeen translation units compiled in
+// parallel (kernels/_build.py UNITS) and linked: TDP_UNIT 1-4 compile the
+// float32 SoA kernels at VVL 1, 2, 4 and 8 (unit 1 also the SoA entry), 5
+// the AoSoA entry, 6-9 the ensemble kernels at VVL 1, 2, 4 and 8 (unit 6
+// also the ensemble entries), 10-13 the bfloat16 SoA kernels of every site
+// function but the two fused ones at VVL 1, 2, 4 and 8, and 14-17 those of
+// fused and fused_two; unset, all of them.  Each unit instantiates only the
+// kernels it launches, so no unit is the build's long pole alone.
 #ifndef TDP_UNIT
 #define TDP_UNIT_HAS(k) 1
 #else
@@ -57,20 +66,21 @@ namespace {
 
 constexpr int kBlock = 128;
 
-template <class Site, int VVL>
+template <class Site, int VVL, class T>
 __global__ void __launch_bounds__(kBlock)
-    field_kernel(const __grid_constant__ tdp::FieldIO io) {
+    field_kernel(const __grid_constant__ tdp::FieldIOT<T> io) {
   tdp::field_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 template <class Site, int VVL>
 struct Launch {
-  static int run(const tdp::FieldIO& io, void* stream) {
+  template <class T>
+  static int run(const tdp::FieldIOT<T>& io, void* stream) {
     if (const int rc = tdp::check_geometry(io, Site::RADIUS)) return rc;
     const int64_t threads = tdp::field_threads<VVL>(io);
     if (threads == 0) return 0;
     const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
-    field_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(io);
+    field_kernel<Site, VVL, T><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(io);
     return (int)cudaGetLastError();
   }
 };
@@ -111,15 +121,23 @@ struct EnsembleLaunch {
   }
 };
 
-// L<Site, V> at the one VVL V: tdp::dispatch_site instantiates no other
-// VVL's kernels through it.
-template <template <class, int> class L, int V>
+// The part of the bfloat16 SoA kernels of one VVL a site function's kernel
+// is compiled in: 1 for the two fused site functions, 0 for the rest.
+template <class Site>
+constexpr int site_part() {
+  return std::is_same_v<Site, tdp::FusedSite> || std::is_same_v<Site, tdp::FusedTwoSite>;
+}
+
+// L<Site, V> at the one VVL V, and of part P of the site functions (every
+// one when P < 0): tdp::dispatch_site instantiates no other kernels
+// through it.
+template <template <class, int> class L, int V, int P = -1>
 struct AtVvl {
   template <class Site, int VVL>
   struct Launch {
     template <class IO>
     static int run(const IO& io, void* stream) {
-      if constexpr (VVL == V) {
+      if constexpr (VVL == V && (P < 0 || site_part<Site>() == P)) {
         return L<Site, VVL>::run(io, stream);
       } else {
         return tdp::ERR_BAD_VVL;
@@ -136,38 +154,71 @@ constexpr int bad_site_or_vvl(int site) {
 
 }  // namespace
 
-// The SoA and ensemble launches at one VVL V: every unit declares them, and
-// the unit of that VVL alone instantiates them (extern template: no other
-// unit compiles their kernels).
+// The SoA and ensemble launches at one VVL V (the SoA ones at one storage
+// type T and part P of the site functions): every unit declares them, and
+// one unit alone instantiates each (extern template: no other unit compiles
+// their kernels).
 namespace tdp_gathered_units {
-template <int V>
-int soa(int site, const tdp::FieldIO& io, void* stream) {
-  return tdp::dispatch_site<AtVvl<Launch, V>::template Launch>(site, V, io, stream);
+template <int V, class T, int P = -1>
+int soa(int site, const tdp::FieldIOT<T>& io, void* stream) {
+  return tdp::dispatch_site<AtVvl<Launch, V, P>::template Launch>(site, V, io, stream);
 }
 template <int V>
 int ensemble(int site, const tdp::EnsembleIO& e, void* stream) {
   return tdp::dispatch_site<AtVvl<EnsembleLaunch, V>::template Launch>(site, V, e,
                                                                        stream);
 }
-extern template int soa<1>(int, const tdp::FieldIO&, void*);
-extern template int soa<2>(int, const tdp::FieldIO&, void*);
-extern template int soa<4>(int, const tdp::FieldIO&, void*);
-extern template int soa<8>(int, const tdp::FieldIO&, void*);
+extern template int soa<1, float>(int, const tdp::FieldIO&, void*);
+extern template int soa<2, float>(int, const tdp::FieldIO&, void*);
+extern template int soa<4, float>(int, const tdp::FieldIO&, void*);
+extern template int soa<8, float>(int, const tdp::FieldIO&, void*);
+extern template int soa<1, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa<2, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa<4, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa<8, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa<1, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa<2, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa<4, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa<8, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
 extern template int ensemble<1>(int, const tdp::EnsembleIO&, void*);
 extern template int ensemble<2>(int, const tdp::EnsembleIO&, void*);
 extern template int ensemble<4>(int, const tdp::EnsembleIO&, void*);
 extern template int ensemble<8>(int, const tdp::EnsembleIO&, void*);
 #if TDP_UNIT_HAS(1)
-template int soa<1>(int, const tdp::FieldIO&, void*);
+template int soa<1, float>(int, const tdp::FieldIO&, void*);
 #endif
 #if TDP_UNIT_HAS(2)
-template int soa<2>(int, const tdp::FieldIO&, void*);
+template int soa<2, float>(int, const tdp::FieldIO&, void*);
 #endif
 #if TDP_UNIT_HAS(3)
-template int soa<4>(int, const tdp::FieldIO&, void*);
+template int soa<4, float>(int, const tdp::FieldIO&, void*);
 #endif
 #if TDP_UNIT_HAS(4)
-template int soa<8>(int, const tdp::FieldIO&, void*);
+template int soa<8, float>(int, const tdp::FieldIO&, void*);
+#endif
+#if TDP_UNIT_HAS(10)
+template int soa<1, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(11)
+template int soa<2, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(12)
+template int soa<4, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(13)
+template int soa<8, tdp::bf16, 0>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(14)
+template int soa<1, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(15)
+template int soa<2, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(16)
+template int soa<4, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(17)
+template int soa<8, tdp::bf16, 1>(int, const tdp::FieldIOT<tdp::bf16>&, void*);
 #endif
 #if TDP_UNIT_HAS(6)
 template int ensemble<1>(int, const tdp::EnsembleIO&, void*);
@@ -184,32 +235,41 @@ template int ensemble<8>(int, const tdp::EnsembleIO&, void*);
 }  // namespace tdp_gathered_units
 
 #if TDP_UNIT_HAS(1)
-// in[i] / out[k]: device pointers of the site function's fields and outputs
-// (float32, contiguous): a stencil field (ncomp, X+2hx, Y+2hy, Z+2hz), a
-// pointwise field and an output (ncomp, X*Y*Z).  Returns 0, a cudaError_t,
-// or tdp::ERR_BAD_SITE / ERR_BAD_VVL / ERR_GEOMETRY.
-extern "C" int tdp_gathered_launch(int site, int vvl, const void* const* in,
-                                   void* const* out, int X, int Y, int Z,
-                                   int hx, int hy, int hz, float A, float B,
-                                   float kappa, float tau, float tau_phi,
-                                   float gamma, void* stream) {
-  tdp::FieldIO io{};
-  for (int i = 0; i < tdp::MAX_IN; ++i) io.in[i] = static_cast<const float*>(in[i]);
-  for (int k = 0; k < tdp::MAX_OUT; ++k) io.out[k] = static_cast<float*>(out[k]);
-  io.X = X;
-  io.Y = Y;
-  io.Z = Z;
-  io.hx = hx;
-  io.hy = hy;
-  io.hz = hz;
-  io.n = (int64_t)X * Y * Z;
-  io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
+namespace {
+// The SoA launch at part P of the site functions (every one when P < 0).
+template <class T, int P>
+int soa_launch(int site, int vvl, const tdp::FieldIOT<T>& io, void* stream) {
   switch (vvl) {
-    case 1: return tdp_gathered_units::soa<1>(site, io, stream);
-    case 2: return tdp_gathered_units::soa<2>(site, io, stream);
-    case 4: return tdp_gathered_units::soa<4>(site, io, stream);
-    case 8: return tdp_gathered_units::soa<8>(site, io, stream);
+    case 1: return tdp_gathered_units::soa<1, T, P>(site, io, stream);
+    case 2: return tdp_gathered_units::soa<2, T, P>(site, io, stream);
+    case 4: return tdp_gathered_units::soa<4, T, P>(site, io, stream);
+    case 8: return tdp_gathered_units::soa<8, T, P>(site, io, stream);
     default: return bad_site_or_vvl(site);
+  }
+}
+}  // namespace
+
+// in[i] / out[k]: device pointers of the site function's fields and outputs
+// (contiguous, of the storage type `dtype`, tdp::DtypeId): a stencil field
+// (ncomp, X+2hx, Y+2hy, Z+2hz), a pointwise field and an output (ncomp,
+// X*Y*Z).  phys: one host tdp::Phys (8 floats; for bfloat16 every one
+// rounded to bfloat16).  Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE /
+// ERR_BAD_VVL / ERR_GEOMETRY / ERR_BAD_DTYPE.
+extern "C" int tdp_gathered_launch(int site, int vvl, int dtype, const void* const* in,
+                                   void* const* out, int X, int Y, int Z, int hx, int hy,
+                                   int hz, const void* phys, void* stream) {
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return soa_launch<float, -1>(
+          site, vvl, tdp::make_field_io<float>(in, out, X, Y, Z, hx, hy, hz, phys), stream);
+    case tdp::DTYPE_BF16: {
+      const tdp::FieldIOT<tdp::bf16> io =
+          tdp::make_field_io<tdp::bf16>(in, out, X, Y, Z, hx, hy, hz, phys);
+      return site == tdp::SITE_FUSED || site == tdp::SITE_FUSED_TWO
+                 ? soa_launch<tdp::bf16, 1>(site, vvl, io, stream)
+                 : soa_launch<tdp::bf16, 0>(site, vvl, io, stream);
+    }
+    default: return tdp::ERR_BAD_DTYPE;
   }
 }
 #endif  // TDP_UNIT_HAS(1)

@@ -23,6 +23,12 @@
 // flight: a thread that stored component c before it loaded c + 1 had one
 // access in flight; here it has every component's, one vector access each.
 //
+// bfloat16 (the dtype code DTYPE_BF16 of the SoA and reduce entries):
+// the same kernels on ExampleIOT<tdp::bf16>, 4 bytes per (site, component)
+// for scale and site_pos, 6 for saxpy, and the reduce's 2 or 4; each
+// operation rounded as the reference's bfloat16 body rounds it
+// (example_sites.cuh).
+//
 // The AoSoA branch (tdp_gathered_example_aosoa_launch; the reference's
 // _run_pallas :96-170): operands and output in blocks of W sites, 4 lanes
 // of a block a thread (one float4 per component) where W is a multiple of
@@ -47,21 +53,22 @@ using tdp::ex::EX_BLOCK;
 using tdp::ex::EX_CG;
 using tdp::ex::EX_WARPS;
 
-template <class Site, int VVL>
+template <class Site, int VVL, class T>
 __global__ void __launch_bounds__(EX_BLOCK)
-    example_kernel(const __grid_constant__ tdp::ex::ExampleIO io) {
+    example_kernel(const __grid_constant__ tdp::ex::ExampleIOT<T> io) {
   tdp::ex::example_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 template <class Site, int VVL>
 struct Launch {
-  static int run(const tdp::ex::ExampleIO& io, void* stream) {
+  template <class T>
+  static int run(const tdp::ex::ExampleIOT<T>& io, void* stream) {
     const int64_t threads = tdp::ex::example_threads<Site, VVL>(io);
     if (threads == 0 || io.ncomp <= 0) return 0;
-    tdp::ex::ExampleIO k = io;
+    tdp::ex::ExampleIOT<T> k = io;
     k.vec = tdp::ex::example_vec<VVL>(io);
     const unsigned blocks = (unsigned)((threads + EX_BLOCK - 1) / EX_BLOCK);
-    example_kernel<Site, VVL><<<blocks, EX_BLOCK, 0, (cudaStream_t)stream>>>(k);
+    example_kernel<Site, VVL, T><<<blocks, EX_BLOCK, 0, (cudaStream_t)stream>>>(k);
     return (int)cudaGetLastError();
   }
 };
@@ -100,9 +107,9 @@ __device__ __forceinline__ typename Op::T warp_reduce(typename Op::T v) {
 // warps' by shuffles, the block's in warp order, stored; the last block to
 // finish combines every block's partials of each component in block order
 // and writes the result.
-template <class Site, class Op, int VVL>
+template <class Site, class Op, int VVL, class S>
 __global__ void __launch_bounds__(EX_BLOCK)
-    example_reduce_kernel(const __grid_constant__ tdp::ex::ReduceIO r) {
+    example_reduce_kernel(const __grid_constant__ tdp::ex::ReduceIOT<S> r) {
   using T = typename Op::T;
   __shared__ T red[EX_CG * EX_WARPS];
   __shared__ bool last;
@@ -130,7 +137,7 @@ __global__ void __launch_bounds__(EX_BLOCK)
     const T v = warp_reduce<Op>(tdp::ex::final_thread<Op>(r, c, tid));
     if (lane == 0) red[warp] = v;
     __syncthreads();
-    if (tid == 0) r.io.out[c] = (float)tdp::ex::block_combine<Op>(red, 0);
+    if (tid == 0) tdp::store_f32(r.io.out + c, (float)tdp::ex::block_combine<Op>(red, 0));
     __syncthreads();
   }
   if (tid == 0) *r.count = 0;
@@ -138,53 +145,74 @@ __global__ void __launch_bounds__(EX_BLOCK)
 
 template <class Site, int VVL>
 struct ReduceLaunch {
-  template <class Op>
-  static int go(const tdp::ex::ReduceIO& r, void* stream) {
+  template <class Op, class S>
+  static int go(const tdp::ex::ReduceIOT<S>& r, void* stream) {
     static int per_sm = -1;  // resident blocks an SM holds of this kernel
     if (per_sm < 0) {
       const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, example_reduce_kernel<Site, Op, VVL>, EX_BLOCK, 0);
+          &per_sm, example_reduce_kernel<Site, Op, VVL, S>, EX_BLOCK, 0);
       if (e != cudaSuccess) return (int)e;
     }
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    tdp::ex::ReduceIO k = r;
+    tdp::ex::ReduceIOT<S> k = r;
     k.io.vec = tdp::ex::example_vec<VVL>(r.io);
     k.blocks = tdp::ex::reduce_blocks<VVL>(r.io.n, r.io.ncomp, sms * per_sm);
     const dim3 grid(k.blocks, tdp::ex::reduce_groups(r.io.ncomp));
-    example_reduce_kernel<Site, Op, VVL><<<grid, EX_BLOCK, 0, (cudaStream_t)stream>>>(k);
+    example_reduce_kernel<Site, Op, VVL, S><<<grid, EX_BLOCK, 0, (cudaStream_t)stream>>>(k);
     return (int)cudaGetLastError();
   }
 
-  static int run(const tdp::ex::ReduceIO& r, void* stream) {
+  template <class S>
+  static int run(const tdp::ex::ReduceIOT<S>& r, void* stream) {
     if (r.io.ncomp <= 0) return 0;
     return tdp::ex::dispatch_op<ReduceLaunch>(r, stream);
   }
 };
 
-tdp::ex::ExampleIO example_io(const void* x, const void* y, void* out, int n,
-                              int ncomp, float a) {
-  tdp::ex::ExampleIO io{};
-  io.in[0] = static_cast<const float*>(x);
-  io.in[1] = static_cast<const float*>(y);
-  io.out = static_cast<float*>(out);
+template <class T = float>
+tdp::ex::ExampleIOT<T> example_io(const void* x, const void* y, void* out, int n,
+                                  int ncomp, float a) {
+  tdp::ex::ExampleIOT<T> io{};
+  io.in[0] = static_cast<const T*>(x);
+  io.in[1] = static_cast<const T*>(y);
+  io.out = static_cast<T*>(out);
   io.n = n;
   io.ncomp = ncomp;
   io.a = a;
   return io;
 }
 
+template <class T>
+tdp::ex::ReduceIOT<T> reduce_io(int op, const void* x, const void* y, void* out,
+                                void* partial, void* count, int n, int ncomp, float a) {
+  tdp::ex::ReduceIOT<T> r{};
+  r.io = example_io<T>(x, y, out, n, ncomp, a);
+  r.partial = static_cast<double*>(partial);
+  r.count = static_cast<unsigned*>(count);
+  r.op = op;
+  return r;
+}
+
 }  // namespace
 
-// x, y (saxpy only; null otherwise), out: device pointers, float32,
-// contiguous (ncomp, n).  Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE /
-// tdp::ERR_BAD_VVL.
-extern "C" int tdp_gathered_example_launch(int site, int vvl, const void* x,
-                                           const void* y, void* out, int n,
-                                           int ncomp, float a, void* stream) {
-  return tdp::ex::dispatch_site<Launch>(site, vvl, example_io(x, y, out, n, ncomp, a),
-                                        stream);
+// x, y (saxpy only; null otherwise), out: device pointers, contiguous (ncomp,
+// n), of the storage type `dtype` (tdp::DtypeId); a: for bfloat16 rounded
+// to bfloat16 by the caller.  Returns 0, a cudaError_t, or
+// tdp::ERR_BAD_SITE / ERR_BAD_VVL / ERR_BAD_DTYPE.
+extern "C" int tdp_gathered_example_launch(int site, int vvl, int dtype, const void* x,
+                                           const void* y, void* out, int n, int ncomp,
+                                           float a, void* stream) {
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return tdp::ex::dispatch_site<Launch>(site, vvl,
+                                            example_io<float>(x, y, out, n, ncomp, a), stream);
+    case tdp::DTYPE_BF16:
+      return tdp::ex::dispatch_site<Launch>(
+          site, vvl, example_io<tdp::bf16>(x, y, out, n, ncomp, a), stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }
 
 // The AoSoA launch: x, y, out are (ceil(n / W), ncomp, W) blocks of W >= 1
@@ -201,18 +229,23 @@ extern "C" int tdp_gathered_example_aosoa_launch(int site, int W, const void* x,
 }
 
 // The reduce: op (tdp::ex::ReduceOpId) over the n sites of the site function
-// on x, y (as above) into out, ncomp floats.  partial: ncomp ·
-// EX_RED_MAX_BLOCKS doubles of scratch; count: one unsigned at 0, left at 0.
-// Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE / ERR_BAD_VVL / ERR_BAD_OP.
-extern "C" int tdp_gathered_example_reduce_launch(int site, int op, int vvl,
+// on x, y (as above) into out, ncomp values of the storage type `dtype`.
+// partial: ncomp · EX_RED_MAX_BLOCKS doubles of scratch; count: one
+// unsigned at 0, left at 0.  Returns 0, a cudaError_t, or
+// tdp::ERR_BAD_SITE / ERR_BAD_VVL / ERR_BAD_OP / ERR_BAD_DTYPE.
+extern "C" int tdp_gathered_example_reduce_launch(int site, int op, int vvl, int dtype,
                                                   const void* x, const void* y,
                                                   void* out, void* partial,
                                                   void* count, int n, int ncomp,
                                                   float a, void* stream) {
-  tdp::ex::ReduceIO r{};
-  r.io = example_io(x, y, out, n, ncomp, a);
-  r.partial = static_cast<double*>(partial);
-  r.count = static_cast<unsigned*>(count);
-  r.op = op;
-  return tdp::ex::dispatch_site<ReduceLaunch>(site, vvl, r, stream);
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return tdp::ex::dispatch_site<ReduceLaunch>(
+          site, vvl, reduce_io<float>(op, x, y, out, partial, count, n, ncomp, a), stream);
+    case tdp::DTYPE_BF16:
+      return tdp::ex::dispatch_site<ReduceLaunch>(
+          site, vvl, reduce_io<tdp::bf16>(op, x, y, out, partial, count, n, ncomp, a),
+          stream);
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }

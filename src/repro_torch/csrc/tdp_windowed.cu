@@ -20,7 +20,13 @@
 //
 // Bound on the H100 (3.35 TB/s): device-memory bytes, each input read once
 // and each output written once: fused 304, fused_two 308, stream 152,
-// phi_stream 80, grad6 20 bytes/site.  The untiled fused read g at 133
+// phi_stream 80, grad6 20 bytes/site in float32, half of each in bfloat16.
+//
+// bfloat16 (the dtype code DTYPE_BF16): the SoA entry's kernels
+// instantiated for FieldIOT<tdp::bf16> (lb_sites.cuh), fused's tile
+// included, whose shared-memory phi stays float32 (the bfloat16 phi
+// widened), so plane_block's limit is the float32 one; the AoSoA and
+// ensemble entries take float32 only.  The untiled fused read g at 133
 // (slot, component) addresses a site; the tile reads it at 19 a site of
 // tile and rim ((P+2)·10·34 / (P·8·32) of the tile's sites) plus 19 in
 // phase 2, and its rims are shared in L2 by blocks in flight together.
@@ -48,10 +54,12 @@
 
 #include "lb_sites.cuh"
 
-// The library is built as three translation units compiled in parallel
+// The library is built as seven translation units compiled in parallel
 // (kernels/_build.py UNITS) and linked: TDP_UNIT 1 compiles the SoA
-// entry, 2 the AoSoA entry, 3 the ensemble entries; unset, all of them.
-// Each unit instantiates only the kernels its entries launch.
+// entry and its float32 kernels, 2 the AoSoA entry, 3 the ensemble
+// entries, 4-7 the SoA entry's bfloat16 kernels at VVL 1, 2, 4 and 8;
+// unset, all of them.  Each unit instantiates only the kernels it
+// launches.
 #ifndef TDP_UNIT
 #define TDP_UNIT_HAS(k) 1
 #else
@@ -62,19 +70,21 @@ namespace {
 
 constexpr int kBlock = 128;
 
+template <class T>
 struct WindowedArgs {
-  tdp::FieldIO io;
+  tdp::FieldIOT<T> io;
   int plane_block;
 };
 
-template <class Site, int VVL>
+template <class Site, int VVL, class T>
 __global__ void __launch_bounds__(kBlock)
-    field_kernel(const __grid_constant__ tdp::FieldIO io) {
+    field_kernel(const __grid_constant__ tdp::FieldIOT<T> io) {
   tdp::field_thread<Site, VVL>(io, (int64_t)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 // 16 warps an SM at least: at most 128 registers a thread.
-// IO: tdp::FieldIO (SoA fields, VVL sites a thread) or tdp::AosoaIO (VVL 1).
+// IO: tdp::FieldIOT<T> (SoA fields, VVL sites a thread) or tdp::AosoaIO
+// (VVL 1).
 template <int VVL, class IO>
 __global__ void __launch_bounds__(tdp::tile_threads<VVL>(), 512 / tdp::tile_threads<VVL>())
     fused_tile_kernel(const __grid_constant__ IO io, int P) {
@@ -105,7 +115,8 @@ int launch_tiled(const IO& io, int P, void* stream) {
 
 template <class Site, int VVL>
 struct Launch {
-  static int run(const WindowedArgs& a, void* stream) {
+  template <class T>
+  static int run(const WindowedArgs<T>& a, void* stream) {
     if (const int rc = tdp::check_geometry(a.io, Site::RADIUS)) return rc;
     if constexpr (std::is_same_v<Site, tdp::FusedSite>) {
       return launch_tiled<VVL>(a.io, a.plane_block, stream);
@@ -113,10 +124,26 @@ struct Launch {
       const int64_t threads = tdp::field_threads<VVL>(a.io);
       if (threads == 0) return 0;
       const unsigned blocks = (unsigned)((threads + kBlock - 1) / kBlock);
-      field_kernel<Site, VVL><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a.io);
+      field_kernel<Site, VVL, T><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a.io);
       return (int)cudaGetLastError();
     }
   }
+};
+
+// Launch<Site, V> at the one VVL V (each bfloat16 unit compiles one VVL).
+template <int V>
+struct AtVvl {
+  template <class Site, int VVL>
+  struct At {
+    template <class A>
+    static int run(const A& a, void* stream) {
+      if constexpr (VVL == V) {
+        return Launch<Site, VVL>::run(a, stream);
+      } else {
+        return tdp::ERR_BAD_VVL;
+      }
+    }
+  };
 };
 
 struct WindowedEnsembleArgs {
@@ -205,30 +232,73 @@ struct AosoaLaunch {
 
 }  // namespace
 
+// The SoA launches: float32 at every VVL, bfloat16 at one VVL V.  Every
+// unit declares them, and one unit alone instantiates each (extern
+// template: no other unit compiles their kernels).
+namespace tdp_windowed_units {
+template <class T>
+int soa(int site, int vvl, int plane_block, const tdp::FieldIOT<T>& io, void* stream) {
+  return tdp::dispatch_site<Launch>(site, vvl, WindowedArgs<T>{io, plane_block}, stream);
+}
+template <int V>
+int soa_bf16(int site, int plane_block, const tdp::FieldIOT<tdp::bf16>& io, void* stream) {
+  return tdp::dispatch_site<AtVvl<V>::template At>(
+      site, V, WindowedArgs<tdp::bf16>{io, plane_block}, stream);
+}
+extern template int soa<float>(int, int, int, const tdp::FieldIO&, void*);
+extern template int soa_bf16<1>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa_bf16<2>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa_bf16<4>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+extern template int soa_bf16<8>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#if TDP_UNIT_HAS(1)
+template int soa<float>(int, int, int, const tdp::FieldIO&, void*);
+#endif
+#if TDP_UNIT_HAS(4)
+template int soa_bf16<1>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(5)
+template int soa_bf16<2>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(6)
+template int soa_bf16<4>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+#if TDP_UNIT_HAS(7)
+template int soa_bf16<8>(int, int, const tdp::FieldIOT<tdp::bf16>&, void*);
+#endif
+}  // namespace tdp_windowed_units
+
 #if TDP_UNIT_HAS(1)
 // in[i]: the (ncomp, X+2hx, Y+2hy, Z+2hz) array of stencil field i or the
-// (ncomp, X*Y*Z) array of a pointwise one; out[k]: (ncomp, X*Y*Z).
-// float32, contiguous.  plane_block: the x-depth of fused's tiles.
-// Returns 0, a cudaError_t, or tdp::ERR_BAD_SITE / ERR_BAD_VVL /
-// ERR_GEOMETRY / ERR_PLANE_BLOCK.
-extern "C" int tdp_windowed_launch(int site, int vvl, int plane_block,
-                                   const void* const* in, void* const* out,
-                                   int X, int Y, int Z, int hx, int hy, int hz,
-                                   float A, float B, float kappa, float tau,
-                                   float tau_phi, float gamma, void* stream) {
-  WindowedArgs a{};
-  for (int i = 0; i < tdp::MAX_IN; ++i) a.io.in[i] = static_cast<const float*>(in[i]);
-  for (int k = 0; k < tdp::MAX_OUT; ++k) a.io.out[k] = static_cast<float*>(out[k]);
-  a.io.X = X;
-  a.io.Y = Y;
-  a.io.Z = Z;
-  a.io.hx = hx;
-  a.io.hy = hy;
-  a.io.hz = hz;
-  a.io.n = (int64_t)X * Y * Z;
-  a.io.phys = tdp::make_phys(A, B, kappa, tau, tau_phi, gamma);
-  a.plane_block = plane_block;
-  return tdp::dispatch_site<Launch>(site, vvl, a, stream);
+// (ncomp, X*Y*Z) array of a pointwise one; out[k]: (ncomp, X*Y*Z);
+// contiguous, of the storage type `dtype` (tdp::DtypeId).  plane_block:
+// the x-depth of fused's tiles.  phys: one host tdp::Phys (bfloat16: every
+// value rounded to bfloat16).  Returns 0, a cudaError_t, or
+// tdp::ERR_BAD_SITE / ERR_BAD_VVL / ERR_GEOMETRY / ERR_PLANE_BLOCK /
+// ERR_BAD_DTYPE.
+extern "C" int tdp_windowed_launch(int site, int vvl, int plane_block, int dtype,
+                                   const void* const* in, void* const* out, int X, int Y,
+                                   int Z, int hx, int hy, int hz, const void* phys,
+                                   void* stream) {
+  switch (dtype) {
+    case tdp::DTYPE_F32:
+      return tdp_windowed_units::soa<float>(
+          site, vvl, plane_block,
+          tdp::make_field_io<float>(in, out, X, Y, Z, hx, hy, hz, phys), stream);
+    case tdp::DTYPE_BF16: {
+      const tdp::FieldIOT<tdp::bf16> io =
+          tdp::make_field_io<tdp::bf16>(in, out, X, Y, Z, hx, hy, hz, phys);
+      switch (vvl) {
+        case 1: return tdp_windowed_units::soa_bf16<1>(site, plane_block, io, stream);
+        case 2: return tdp_windowed_units::soa_bf16<2>(site, plane_block, io, stream);
+        case 4: return tdp_windowed_units::soa_bf16<4>(site, plane_block, io, stream);
+        case 8: return tdp_windowed_units::soa_bf16<8>(site, plane_block, io, stream);
+        default:
+          return site < tdp::SITE_STREAM || site > tdp::SITE_FUSED_TWO ? tdp::ERR_BAD_SITE
+                                                                       : tdp::ERR_BAD_VVL;
+      }
+    }
+    default: return tdp::ERR_BAD_DTYPE;
+  }
 }
 #endif  // TDP_UNIT_HAS(1)
 

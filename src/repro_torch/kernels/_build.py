@@ -8,9 +8,10 @@ interface, loaded with :mod:`ctypes`::
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 The two LB sources (:data:`UNITS`) are compiled as several objects each
-(``tdp_windowed`` three, ``tdp_gathered`` nine: its SoA and ensemble
-kernels one unit a VVL), one ``nvcc -c -DTDP_UNIT=k`` a unit, and linked
-with ``nvcc -shared``.
+(``tdp_windowed`` seven: its bfloat16 SoA kernels one unit a VVL;
+``tdp_gathered`` seventeen: its SoA and ensemble kernels one unit a VVL,
+the bfloat16 SoA ones two a VVL, the fused site functions apart), one
+``nvcc -c -DTDP_UNIT=k`` a unit, and linked with ``nvcc -shared``.
 
 Output goes to ``build/repro_torch/<digest>/`` at the repository root,
 keyed by a hash of every source and the flags, so an edited source always
@@ -41,8 +42,10 @@ LINK_FLAGS = (*NVCC_FLAGS[:2], "-shared")
 #: 1..n (each groups its entry points by it), in parallel with the other
 #: sources, and linked into one library: their SoA, AoSoA and ensemble
 #: kernels are most of the build's time.  ``tdp_gathered``'s SoA and
-#: ensemble kernels are split further, one unit a VVL.
-UNITS = {"tdp_gathered": 9, "tdp_windowed": 3}
+#: ensemble kernels are split further, one unit a VVL, its bfloat16 SoA
+#: kernels two a VVL (``fused`` and ``fused_two`` apart from the rest);
+#: ``tdp_windowed``'s bfloat16 SoA kernels one unit a VVL.
+UNITS = {"tdp_gathered": 17, "tdp_windowed": 7}
 
 #: Site functions in the order of the C enum ``tdp::SiteId``.
 SITES = ("stream", "grad6", "moment", "collide", "fused", "phi_stream",
@@ -70,9 +73,10 @@ REDUCE_OPS = ("sum", "max", "min")
 REDUCE_OP_ID = {name: i for i, name in enumerate(REDUCE_OPS)}
 REDUCE_MAX_BLOCKS = 1024
 
-#: Storage types of the C entries that take a dtype code
-#: (``tdp_gathered_lm_launch``, ``flash_attention_launch``), in the order of
-#: the C enum ``tdp::DtypeId`` (``csrc/bf16.cuh``), by torch dtype name.
+#: Storage types of the C entries that take a dtype code (the SoA entries of
+#: every site-function executor, ``lb_collision_launch``,
+#: ``flash_attention_launch``), in the order of the C enum ``tdp::DtypeId``
+#: (``csrc/bf16.cuh``), by torch dtype name.
 DTYPES = ("float32", "bfloat16")
 DTYPE_ID = {name: i for i, name in enumerate(DTYPES)}
 

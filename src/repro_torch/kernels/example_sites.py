@@ -14,25 +14,49 @@ runs; it names its CUDA twin in ``csrc/example_sites.cuh`` in
 ``__cuda_site__``, which ``"cuda"`` launches on CUDA tensors through
 ``csrc/tdp_gathered_example.cu``.  Both round alike: the twins are bit-equal
 to these bodies.
+
+In bfloat16 the bodies round as the reference's Pallas bodies do: a scalar
+``a`` is weak, rounded to bfloat16 before it multiplies
+(:func:`repro_torch.kernels.bf16.weak`), so ``saxpy`` rounds twice in
+bfloat16; an array ``a`` is an operand of its own dtype (a float32 one
+makes the arithmetic float32 until the store), as the reference's
+``_canonicalize_consts`` makes it; the result is stored in x's dtype; the
+``int32`` site index goes to bfloat16 before the add.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.core import FieldSpec, KernelSpec
+
+from . import bf16
+
+
+def _const(a, x):
+    """``a`` as a body over ``x`` takes it: a scalar weak in x's dtype, an
+    array a tensor of its own dtype (float64 as float32, as JAX without
+    x64 takes it)."""
+    if isinstance(a, (np.ndarray, torch.Tensor)):
+        a = torch.as_tensor(a, device=x.device)
+        return a.float() if a.dtype == torch.float64 else a
+    return bf16.weak(a, x.dtype)
 
 
 def scale_site(x, a=1.0):
     """``a · x``: the paper's example."""
-    return a * x
+    return (_const(a, x) * x).to(x.dtype)
 
 
 def saxpy_site(x, y, a=1.0):
     """``a · x + y``, two roundings (no fused multiply-add)."""
-    return a * x + y
+    return (_const(a, x) * x + y).to(x.dtype)
 
 
 def site_pos_site(x, site_idx):
     """``x + site index``: ``site_idx`` is the ``int32`` ``(nsites,)``
-    tensor a ``site_index=True`` launch passes last."""
+    tensor a ``site_index=True`` launch passes last (in bfloat16 rounded
+    to bfloat16 first, as PyTorch and the reference both convert it)."""
     return x + site_idx
 
 

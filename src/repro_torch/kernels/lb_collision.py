@@ -24,13 +24,14 @@ Two realisations of one function:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.core.target import CUDA_VVLS
 
-from . import _build
+from . import _build, bf16
 
 # index 0: rest; 1..6: axis vectors; 7..18: face diagonals.
 CV = np.array(
@@ -68,53 +69,72 @@ def collision_site_kernel(f, g, phi, gradphi, del2phi, *,
       w, c: TARGET_CONST weight vector (19,) and velocity set (19, 3).
       A, B, kappa, tau, tau_phi, gamma: scalar TARGET_CONSTs.
 
-    Returns ``(f', g')``, both (19, n).
+    Returns ``(f', g')``, both (19, n), in f's dtype.  In bfloat16 every op
+    rounds as the reference's body does op by op (:mod:`.bf16`): the
+    scalars rounded first, the sums and the two contractions with ``c`` in
+    float32, rounded once.
     """
     dt, dev = f.dtype, f.device
+    s = functools.partial(bf16.weak, dtype=dt)
+    bf = dt == torch.bfloat16
+    # the velocity set as the bfloat16 contractions take it: on the host,
+    # rounded as the body's c is
+    c_host = bf16.round_f64(torch.as_tensor(c).double().cpu().numpy()) if bf \
+        else None
     w = torch.as_tensor(w, dtype=dt, device=dev)[:, None]      # (19, 1)
     c = torch.as_tensor(c, dtype=dt, device=dev)               # (19, 3)
     phi_ = phi[0]
     d2 = del2phi[0]
 
-    mu = -A * phi_ + B * phi_ * phi_ * phi_ - kappa * d2
+    def cdot(x):                                               # (19, n)
+        if bf:
+            return bf16.contract(c_host, x)
+        return torch.einsum("qd,dv->qv", c, x)
+
+    mu = s(-A) * phi_ + s(B) * phi_ * phi_ * phi_ - s(kappa) * d2
     force = mu[None, :] * gradphi                              # (3, n)
 
-    rho = f.sum(0)
-    mom = torch.einsum("qd,qv->dv", c, f)
+    rho = bf16.sum0(f)
+    mom = (bf16.contract(c_host.T, f) if bf
+           else torch.einsum("qd,qv->dv", c, f))
     u = (mom + 0.5 * force) / rho[None, :]
 
-    cu = torch.einsum("qd,dv->qv", c, u)                       # (19, n)
-    usq = (u * u).sum(0)
+    cu = cdot(u)
+    usq = bf16.sum0(u * u)
     feq = w * rho[None, :] * (1.0 + 3.0 * cu + 4.5 * cu * cu
                               - 1.5 * usq[None, :])
 
-    cf = torch.einsum("qd,dv->qv", c, force)
-    uf = (u * force).sum(0)
-    fterm = (1.0 - 0.5 / tau) * w * (3.0 * (cf - uf[None, :]) + 9.0 * cu * cf)
-    f_out = f - (f - feq) / tau + fterm
+    cf = cdot(force)
+    uf = bf16.sum0(u * force)
+    fterm = s(1.0 - 0.5 / tau) * w * (3.0 * (cf - uf[None, :])
+                                      + 9.0 * cu * cf)
+    f_out = f - (f - feq) / s(tau) + fterm
 
-    gt = w * (3.0 * gamma * mu[None, :] + 3.0 * phi_[None, :] * cu)
-    g0 = phi_ - (gt.sum(0) - gt[0])                            # rest population
+    gt = w * (s(3.0 * gamma) * mu[None, :] + 3.0 * phi_[None, :] * cu)
+    g0 = phi_ - (bf16.sum0(gt) - gt[0])                        # rest population
     geq = torch.cat([g0[None, :], gt[1:]], dim=0)
-    g_out = g - (g - geq) / tau_phi
+    g_out = g - (g - geq) / s(tau_phi)
     return f_out, g_out
 
 
 collision_site_kernel.__cuda_site__ = "collide"
 
 
-def check_d3q19_consts(consts: dict, what: str) -> None:
+def check_d3q19_consts(consts: dict, what: str, dtype=torch.float32) -> None:
     """The CUDA kernels compile D3Q19's weights and velocities in; refuse
-    ``w``/``c`` consts that differ from them."""
+    ``w``/``c`` consts that differ from them as a launch in ``dtype`` takes
+    them (in bfloat16 rounded to bfloat16, as ``collision_consts`` gives
+    them)."""
     for name, table in (("w", WEIGHTS), ("c", CV)):
         if name not in consts:
             continue
+        want = (bf16.round_f64(table) if dtype == torch.bfloat16
+                else table.astype(np.float32))
         got = np.asarray(consts[name], dtype=np.float32)
-        if got.shape != table.shape or not np.array_equal(
-                got, table.astype(np.float32)):
+        if got.shape != table.shape or not np.array_equal(got, want):
             raise ValueError(
                 f"{what}: const {name!r} differs from the D3Q19 table the "
-                f"CUDA kernel is compiled with")
+                f"CUDA kernel is compiled with (in {dtype})")
 
 
 def cuda_vvl(vvl: int | None) -> int:
@@ -149,24 +169,45 @@ def check_cuda_tensors(tensors, shapes, what: str,
                              f"{tuple(x.shape)}, expected {tuple(shape)}")
 
 
-def refuse_bf16(tensors, what: str) -> None:
-    """``NotImplementedError`` for a bfloat16 operand of a kernel that takes
-    float32 only (the LB and example site functions, the AoSoA and ensemble
-    launches: ROADMAP A7.1c).  Nothing is upcast behind the caller's
-    back."""
+#: the storage types of the LB and example kernels' SoA launches
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def refuse_bf16(tensors, what: str, item: str) -> None:
+    """``NotImplementedError`` for a bfloat16 operand of a launch that takes
+    float32 only (the AoSoA launches of the LB and example site functions,
+    ROADMAP A7.1c.4; every ensemble launch, A5), naming the queue item
+    ``item``.  Nothing is upcast behind the caller's back."""
     if any(isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
            for t in tensors):
         raise NotImplementedError(
-            f"{what}: bfloat16 operands are not ported for this kernel yet "
-            f"(ROADMAP A7.1c); it takes float32")
+            f"{what}: bfloat16 operands are not ported for this launch yet "
+            f"(ROADMAP {item}); it takes float32")
+
+
+def phys_row(consts, dtype) -> np.ndarray:
+    """The ``tdp::Phys`` a single LB launch reads (``csrc/lb_sites.cuh``):
+    ``(A, B, kappa, tau, tau_phi, gamma, 1 - 1/(2 tau), 3 gamma)`` as 8
+    float32.  In float32 as the C ``make_phys`` builds it from the six
+    float32 scalars; in bfloat16 each of the eight rounded to bfloat16 from
+    its double, the values the plain body's weak scalars take."""
+    A, B, kappa, tau, tau_phi, gamma = (float(consts.get(k, v))
+                                        for k, v in PHYS_DEFAULTS.items())
+    if dtype == torch.bfloat16:
+        return bf16.round_f64([A, B, kappa, tau, tau_phi, gamma,
+                               1.0 - 0.5 / tau, 3.0 * gamma])
+    six = np.array([A, B, kappa, tau, tau_phi, gamma], np.float32)
+    return np.array([*six, 1.0 - 0.5 / float(six[3]), 3.0 * float(six[5])],
+                    np.float32)
 
 
 def _lib():
     lib = _build.load("lb_collision")
     fn = lib.lb_collision_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -177,6 +218,7 @@ def lb_collision(f, g, phi, gradphi, del2phi, *, vvl: int | None = None,
 
     CUDA tensors launch ``csrc/lb_collision.cu`` (``vvl`` sites per thread,
     ``None`` → 1) or raise; CPU tensors run :func:`collision_site_kernel`.
+    float32 or bfloat16, one dtype for every operand and the outputs.
     """
     unknown = sorted(set(phys) - set(PHYS_DEFAULTS))
     if unknown:
@@ -192,14 +234,14 @@ def lb_collision(f, g, phi, gradphi, del2phi, *, vvl: int | None = None,
                          f"{f.device}")
     n = int(f.shape[-1])
     ins = (f, g, phi, gradphi, del2phi)
-    refuse_bf16(ins, "lb_collision")
     check_cuda_tensors(ins, [(NVEL, n), (NVEL, n), (1, n), (NDIM, n), (1, n)],
-                       "lb_collision")
+                       "lb_collision", DTYPES)
     fo, go = torch.empty_like(f), torch.empty_like(g)
     fn = _lib()
+    row = phys_row(p, f.dtype)
     with torch.cuda.device(f.device):
         rc = fn(*(x.data_ptr() for x in ins), fo.data_ptr(), go.data_ptr(),
-                n, vvl, *(float(p[k]) for k in PHYS_DEFAULTS),
+                n, vvl, _build.dtype_id(f.dtype), row.ctypes.data,
                 _build.stream_handle(f.device))
     _build.check(rc, "lb_collision")
     launches["collide"] += 1

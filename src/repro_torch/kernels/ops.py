@@ -33,7 +33,6 @@ dtype; flash's in float32 from the kernel's float32 ``lse``, rounded once.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core import Target, as_target
@@ -97,7 +96,7 @@ def lb_fused_step(f, g, *, grid_shape, halo=0, mode="one_launch",
     shape = tuple(int(s) for s in grid_shape)
     h = _normalize_halo(halo, len(shape))
     prog = _lbp.fused_program(
-        mode, _lbp.collision_consts(dtype=np.float32, **phys))
+        mode, _lbp.collision_consts(dtype=_lbp.consts_dtype(f.dtype), **phys))
     ext = tuple(s + 2 * hh for s, hh in zip(shape, h))
     out = prog.execute(t, {"f": f.reshape(_lb.NVEL, *ext),
                            "g": g.reshape(_lb.NVEL, *ext)},

@@ -6,9 +6,12 @@ flash-style recompute backward) and the Mamba selective scan.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from . import bf16 as _bf16
 from .lb_collision import CV, WEIGHTS
 
 
@@ -18,30 +21,48 @@ def lb_collision_ref(f, g, phi, gradphi, del2phi, *,
     """Oracle over full SoA tensors ``(ncomp, nsites)``; mirrors
     :func:`repro_torch.kernels.lb_collision.collision_site_kernel` — written
     independently but keeping the site kernel's association order
-    (``cu * cu``, not ``cu ** 2``; ``φ·φ·φ``)."""
+    (``cu * cu``, not ``cu ** 2``; ``φ·φ·φ``) and, in bfloat16, its
+    rounding points (:mod:`repro_torch.kernels.bf16`: weak scalars, sums
+    and the contractions with c in float32, rounded once)."""
     dt, dev = f.dtype, f.device
+    k = functools.partial(_bf16.weak, dtype=dt)
     w = torch.as_tensor(WEIGHTS, dtype=dt, device=dev)[:, None]
-    c = torch.as_tensor(CV, dtype=dt, device=dev)
+    if dt == torch.bfloat16:
+        cv = _bf16.round_f64(CV)
+
+        def along_q(x):                    # Σ_q c_qd x_q → (3, n)
+            return _bf16.contract(cv.T, x)
+
+        def along_d(x):                    # Σ_d c_qd x_d → (19, n)
+            return _bf16.contract(cv, x)
+    else:
+        c = torch.as_tensor(CV, dtype=dt, device=dev)
+
+        def along_q(x):
+            return torch.einsum("qd,qv->dv", c, x)
+
+        def along_d(x):
+            return torch.einsum("qd,dv->qv", c, x)
     phi_ = phi[0]
-    mu = -A * phi_ + B * phi_ * phi_ * phi_ - kappa * del2phi[0]
+    mu = k(-A) * phi_ + k(B) * phi_ * phi_ * phi_ - k(kappa) * del2phi[0]
     force = mu[None, :] * gradphi
 
-    rho = f.sum(0)
-    u = (torch.einsum("qd,qv->dv", c, f) + 0.5 * force) / rho[None, :]
-    cu = torch.einsum("qd,dv->qv", c, u)
-    usq = (u * u).sum(0)
+    rho = _bf16.sum0(f)
+    u = (along_q(f) + 0.5 * force) / rho[None, :]
+    cu = along_d(u)
+    usq = _bf16.sum0(u * u)
     feq = w * rho[None, :] * (1.0 + 3.0 * cu + 4.5 * cu * cu
                               - 1.5 * usq[None, :])
-    cf = torch.einsum("qd,dv->qv", c, force)
-    uf = (u * force).sum(0)
-    fterm = (1.0 - 0.5 / tau) * w * (3.0 * (cf - uf[None, :])
-                                     + 9.0 * cu * cf)
-    f_out = f - (f - feq) / tau + fterm
+    cf = along_d(force)
+    uf = _bf16.sum0(u * force)
+    fterm = k(1.0 - 0.5 / tau) * w * (3.0 * (cf - uf[None, :])
+                                      + 9.0 * cu * cf)
+    f_out = f - (f - feq) / k(tau) + fterm
 
-    gt = w * (3.0 * gamma * mu[None, :] + 3.0 * phi_[None, :] * cu)
-    g0 = phi_ - (gt.sum(0) - gt[0])
+    gt = w * (k(3.0 * gamma) * mu[None, :] + 3.0 * phi_[None, :] * cu)
+    g0 = phi_ - (_bf16.sum0(gt) - gt[0])
     geq = torch.cat([g0[None, :], gt[1:]], dim=0)
-    g_out = g - (g - geq) / tau_phi
+    g_out = g - (g - geq) / k(tau_phi)
     return f_out, g_out
 
 

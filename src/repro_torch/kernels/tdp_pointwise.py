@@ -88,15 +88,17 @@ import torch.nn.functional as F
 from repro_torch.core.layout import aosoa_gather, aosoa_to_soa, soa_to_aosoa
 
 from . import _build
-from .lb_collision import (PHYS_DEFAULTS, check_cuda_tensors, check_d3q19_consts,
-                           cuda_vvl, refuse_bf16)
+from . import bf16
+from .lb_collision import (DTYPES, PHYS_DEFAULTS, check_cuda_tensors,
+                           check_d3q19_consts, cuda_vvl, phys_row, refuse_bf16)
 
 #: The LM site functions: those of the shared LM entry, and the selective
 #: scan with its own.
 LM_SITES = _build.LM_SITES + ("mamba",)
 #: the storage types of the LM site functions' launches, SoA and AoSoA
-#: (rmsnorm, gated, act; mamba's x, dt, b, c and y); every other launch of
-#: this executor takes float32 only
+#: (rmsnorm, gated, act; mamba's x, dt, b, c and y); the LB and example site
+#: functions take them under SoA (``DTYPES``), their AoSoA and every
+#: ensemble launch float32 only
 LM_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches of this executor, by site function; ``"reduce"`` counts
@@ -211,10 +213,10 @@ def _check_example(site: str, plan) -> None:
                          f"const 'a' as a scalar, got {type(a).__name__}")
 
 
-def cuda_site(plan) -> str:
+def cuda_site(plan, dtype=torch.float32) -> str:
     """The C site function behind ``plan``'s kernel, checked against the
-    plan's field roles and consts; ``NotImplementedError`` if the body has
-    none."""
+    plan's field roles and consts (the D3Q19 tables as a launch in
+    ``dtype`` takes them); ``NotImplementedError`` if the body has none."""
     site = getattr(plan.kernel, "__cuda_site__", None)
     if site is None:
         raise NotImplementedError(
@@ -240,12 +242,13 @@ def cuda_site(plan) -> str:
     if site in LM_SITES:
         _check_lm_consts(site, plan)
     else:
-        check_d3q19_consts(plan.consts, f"kernel {plan.name!r}")
+        check_d3q19_consts(plan.consts, f"kernel {plan.name!r}", dtype)
     return site
 
 
 def phys_args(consts) -> list[float]:
-    """The six physics scalars, in the C entries' order."""
+    """The six physics scalars, in the order of the C entries that take
+    them (AoSoA; the SoA entries take :func:`~.lb_collision.phys_row`)."""
     return [float(consts.get(k, v)) for k, v in PHYS_DEFAULTS.items()]
 
 
@@ -261,7 +264,7 @@ def lb_geometry(plan, fields) -> tuple[int, ...]:
             raise ValueError(f"kernel {plan.name!r}: {n} sites is 2^31 or "
                              f"more")
         check_cuda_tensors(fields, [(c, n) for c, _ in plan._fields()],
-                           f"kernel {plan.name!r}")
+                           f"kernel {plan.name!r}", DTYPES)
         return (1, 1, n, 0, 0, 0)
     if plan.shape is None or len(plan.shape) != 3:
         raise ValueError(f"kernel {plan.name!r}: the D3Q19 site functions "
@@ -274,7 +277,7 @@ def lb_geometry(plan, fields) -> tuple[int, ...]:
     n = plan.shape[0] * plan.shape[1] * plan.shape[2]
     check_cuda_tensors(fields, [(c, n) if s is None else (c, *ext)
                                 for c, s in plan._fields()],
-                       f"kernel {plan.name!r}")
+                       f"kernel {plan.name!r}", DTYPES)
     return (*plan.shape, *halo)
 
 
@@ -316,9 +319,8 @@ def alloc_outputs(plan, like, n, out, dtypes=None):
 def _lib():
     fn = _build.load("tdp_gathered").tdp_gathered_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p] + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -346,10 +348,16 @@ def _mamba_lib():
 def _example_lib():
     fn = _build.load("tdp_gathered_example").tdp_gathered_example_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def example_a(plan, dtype) -> float:
+    """The scalar ``a`` an example launch passes: in bfloat16 rounded as
+    the plain body's weak scalar is."""
+    return float(bf16.weak(plan.consts.get("a", 1.0), dtype))
 
 
 def _example_shape(plan, site, fields) -> tuple[int, int]:
@@ -361,7 +369,7 @@ def _example_shape(plan, site, fields) -> tuple[int, int]:
     if n >= 2 ** 31:
         raise ValueError(f"{what}: {n} sites is 2^31 or more: site indices "
                          f"are 32-bit")
-    check_cuda_tensors(fields, [(ncomp, n)] * len(fields), what)
+    check_cuda_tensors(fields, [(ncomp, n)] * len(fields), what, DTYPES)
     if tuple(plan.out_ncomp) != (ncomp,):
         raise ValueError(f"{what}: the CUDA site function {site!r} gives "
                          f"{ncomp} component(s), the plan {plan.out_ncomp}")
@@ -374,12 +382,12 @@ def _example_execute(plan, site, vvl, fields, out):
     x0 = fields[0]
     ncomp, n = _example_shape(plan, site, fields)
     outs = alloc_outputs(plan, x0, n, out)
-    check_cuda_tensors(outs, [(ncomp, n)], f"{what} (out)")
+    check_cuda_tensors([x0, *outs], [(ncomp, n)] * 2, f"{what} (out)", DTYPES)
     with torch.cuda.device(x0.device):
         rc = _example_lib()(
-            _build.EXAMPLE_SITE_ID[site], vvl, x0.data_ptr(),
-            fields[1].data_ptr() if len(fields) > 1 else None,
-            outs[0].data_ptr(), n, ncomp, float(plan.consts.get("a", 1.0)),
+            _build.EXAMPLE_SITE_ID[site], vvl, _build.dtype_id(x0.dtype),
+            x0.data_ptr(), fields[1].data_ptr() if len(fields) > 1 else None,
+            outs[0].data_ptr(), n, ncomp, example_a(plan, x0.dtype),
             _build.stream_handle(x0.device))
     _build.check(rc, f"tdp_gathered_example {site}")
     launches[site] += 1
@@ -389,7 +397,7 @@ def _example_execute(plan, site, vvl, fields, out):
 def _example_reduce_lib():
     fn = _build.load("tdp_gathered_example").tdp_gathered_example_reduce_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -425,8 +433,9 @@ def example_reduce(plan, op: str, fields) -> torch.Tensor:
     example site function of a SoA ``plan`` on CUDA ``fields``: the
     ``(ncomp,)`` result, from one launch of
     ``tdp_gathered_example_reduce_launch``, which maps and reduces in one
-    pass and writes only the result.  Its plain version is ``reduce(...,
-    target="torch")``."""
+    pass and writes only the result (in the fields' dtype, float32 or
+    bfloat16: a bfloat16 sum accumulated in double and rounded once).  Its
+    plain version is ``reduce(..., target="torch")``."""
     site = cuda_site(plan)
     what = f"kernel {plan.name!r}"
     if site not in _build.EXAMPLE_SITE_ID or plan.layout != "soa":
@@ -448,10 +457,11 @@ def example_reduce(plan, op: str, fields) -> torch.Tensor:
     with torch.cuda.device(x0.device):
         rc = _example_reduce_lib()(
             _build.EXAMPLE_SITE_ID[site], _build.REDUCE_OP_ID[op], vvl,
-            x0.data_ptr(), fields[1].data_ptr() if len(fields) > 1 else None,
+            _build.dtype_id(x0.dtype), x0.data_ptr(),
+            fields[1].data_ptr() if len(fields) > 1 else None,
             out.data_ptr(), partial.data_ptr(),
             _reduce_counter(x0.device, stream).data_ptr(), n, ncomp,
-            float(plan.consts.get("a", 1.0)), stream)
+            example_a(plan, x0.dtype), stream)
     _build.check(rc, f"tdp_gathered_example reduce {op} of {site}")
     launches["reduce"] += 1
     return out
@@ -528,19 +538,23 @@ def _lm_execute(plan, site, vvl, fields, out):
 
 def refuse_unported_bf16(plan, site, tensors) -> None:
     """``NotImplementedError`` (``lb_collision.refuse_bf16``) for a
-    bfloat16 operand of a launch with no bfloat16 kernel: the LB and
-    example site functions, and every ensemble launch.  The LM site
-    functions (``mamba`` too) take bfloat16 under SoA and AoSoA."""
-    if site not in LM_SITES or plan.ensemble is not None:
-        ens = ", an ensemble (ROADMAP A5)" if plan.ensemble else ""
-        refuse_bf16(tensors, f"kernel {plan.name!r} ({site!r}, layout "
-                    f"{plan.layout!r}{ens})")
+    bfloat16 operand of a launch with no bfloat16 kernel: every ensemble
+    launch (ROADMAP A5) and the AoSoA launches of the LB and example site
+    functions (A7.1c.4).  Their SoA launches take bfloat16, and the LM
+    site functions (``mamba`` too) take it under SoA and AoSoA."""
+    what = f"kernel {plan.name!r} ({site!r}, layout {plan.layout!r}"
+    if plan.ensemble is not None:
+        refuse_bf16(tensors, f"{what}, an ensemble)", "A5: bfloat16 "
+                    "ensembles")
+    elif plan.layout == "aosoa" and site not in LM_SITES:
+        refuse_bf16(tensors, f"{what})", "A7.1c.4: AoSoA LB and example "
+                    "launches in bfloat16")
 
 
 def cuda_execute(plan, fields, out=None):
     """Registry executor entry (``takes_fields=True``,
     ``takes_ensemble=True`` — see :mod:`repro_torch.core.registry`)."""
-    site = cuda_site(plan)
+    site = cuda_site(plan, fields[0].dtype)
     if fields[0].device.type == "cuda":
         refuse_unported_bf16(plan, site, [*fields, *plan.consts.values()])
     if plan.ensemble is not None:
@@ -563,10 +577,14 @@ def cuda_execute(plan, fields, out=None):
     geom = lb_geometry(plan, fields)
     n = geom[0] * geom[1] * geom[2]
     outs = alloc_outputs(plan, x0, n, out)
+    check_cuda_tensors([x0, *outs], [tuple(x0.shape)] + [
+        (c, n) for c in plan.out_ncomp], f"kernel {plan.name!r} (out)", DTYPES)
     in_arr, out_arr = pointer_arrays(fields, outs)
+    row = phys_row(plan.consts, x0.dtype)
     with torch.cuda.device(x0.device):
-        rc = _lib()(_build.SITE_ID[site], vvl, in_arr, out_arr, *geom,
-                    *phys_args(plan.consts), _build.stream_handle(x0.device))
+        rc = _lib()(_build.SITE_ID[site], vvl, _build.dtype_id(x0.dtype),
+                    in_arr, out_arr, *geom, row.ctypes.data,
+                    _build.stream_handle(x0.device))
     _build.check(rc, f"tdp_gathered {site}")
     launches[site] += 1
     return outs

@@ -52,11 +52,11 @@ import ctypes
 import torch
 
 from . import _build
-from .lb_collision import cuda_vvl, refuse_bf16
+from .lb_collision import DTYPES, check_cuda_tensors, cuda_vvl, phys_row
 from .tdp_pointwise import (alloc_outputs, aosoa_execute, aosoa_plane_sites,
                             cuda_site, ensemble_execute, fields_plain,
                             lb_geometry, phys_args, pointer_arrays,
-                            stride_arrays)
+                            refuse_unported_bf16, stride_arrays)
 
 #: kernel launches of this executor, by site function
 launches = dict.fromkeys(_build.SITES, 0)
@@ -84,7 +84,9 @@ def plane_block(plan) -> int:
 def tile_smem_bytes(plan) -> int:
     """Shared memory of one block of ``plan``'s kernel: the ``fused`` tile's
     φ over ``plane_block + 2`` x-planes by ``(8 + 2) × (32 + 2)`` sites,
-    float32; 0 for the other site functions, which stage nothing."""
+    float32 whatever the fields' dtype (a bfloat16 launch stages its
+    bfloat16 φ widened); 0 for the other site functions, which stage
+    nothing."""
     if getattr(plan.kernel, "__cuda_site__", None) != "fused":
         return 0
     ty, tz = TILE_YZ
@@ -100,9 +102,8 @@ def windowed_plain(plan, fields, out=None):
 def _lib():
     fn = _build.load("tdp_windowed").tdp_windowed_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] * 6 + [ctypes.c_float] * 6
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -114,10 +115,10 @@ def windowed_execute(plan, fields, out=None):
         raise ValueError(
             f"executor 'cuda_windowed' needs a 3-D lattice; kernel "
             f"{plan.name!r} was launched with shape {plan.shape}")
-    site = cuda_site(plan)
+    site = cuda_site(plan, fields[0].dtype)
     p = plane_block(plan)
     if fields[0].device.type == "cuda":
-        refuse_bf16(fields, f"kernel {plan.name!r} on 'cuda_windowed'")
+        refuse_unported_bf16(plan, site, fields)
     if plan.ensemble is not None:
         return ensemble_execute(plan, site, fields, out,
                                 launch=_ensemble_launch)
@@ -132,11 +133,16 @@ def windowed_execute(plan, fields, out=None):
         raise ValueError(f"executor 'cuda_windowed' runs on CUDA or CPU "
                          f"tensors, got {x0.device}")
     geom = lb_geometry(plan, fields)
-    outs = alloc_outputs(plan, x0, geom[0] * geom[1] * geom[2], out)
+    n = geom[0] * geom[1] * geom[2]
+    outs = alloc_outputs(plan, x0, n, out)
+    check_cuda_tensors([x0, *outs], [tuple(x0.shape)] + [
+        (c, n) for c in plan.out_ncomp], f"kernel {plan.name!r} (out)", DTYPES)
     in_arr, out_arr = pointer_arrays(fields, outs)
+    row = phys_row(plan.consts, x0.dtype)
     with torch.cuda.device(x0.device):
-        rc = _lib()(_build.SITE_ID[site], vvl, p, in_arr, out_arr, *geom,
-                    *phys_args(plan.consts), _build.stream_handle(x0.device))
+        rc = _lib()(_build.SITE_ID[site], vvl, p, _build.dtype_id(x0.dtype),
+                    in_arr, out_arr, *geom, row.ctypes.data,
+                    _build.stream_handle(x0.device))
     _build.check(rc, f"tdp_windowed {site}")
     launches[site] += 1
     return outs

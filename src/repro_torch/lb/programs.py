@@ -24,8 +24,10 @@ populations):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import Program, TargetConst, program, stage
+from repro_torch.kernels import bf16
 from repro_torch.kernels.lb_collision import CV, WEIGHTS
 
 from .stencil import (
@@ -45,9 +47,26 @@ def collision_consts(dtype=np.float32, **phys) -> dict:
     """The collision stages' ``TARGET_CONST`` bindings: weight vector and
     velocity set (content-hashed :class:`TargetConst`\\ s) plus the
     physical scalars (``A``, ``B``, ``kappa``, ``tau``, ``tau_phi``,
-    ``gamma``)."""
+    ``gamma``).  ``dtype`` is a numpy dtype or ``torch.bfloat16``, whose
+    tables are float32 arrays of the bfloat16-rounded values (numpy has no
+    bfloat16; the bodies take them in bfloat16 exactly)."""
+    if dtype == torch.bfloat16:
+        return dict(w=TargetConst(bf16.round_f64(WEIGHTS)),
+                    c=TargetConst(bf16.round_f64(CV)), **phys)
     return dict(w=TargetConst(np.asarray(WEIGHTS, dtype=dtype)),
                 c=TargetConst(np.asarray(CV, dtype=dtype)), **phys)
+
+
+#: the state dtypes the LB programs run in
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def consts_dtype(dtype):
+    """The ``collision_consts`` dtype of a state in ``dtype`` (one of
+    :data:`DTYPES`, else ``ValueError``)."""
+    if dtype not in DTYPES:
+        raise ValueError(f"the LB programs run in {DTYPES}, got {dtype}")
+    return np.float32 if dtype == torch.float32 else dtype
 
 
 def _collide_stages(consts, writes):

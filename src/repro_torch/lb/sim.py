@@ -34,6 +34,15 @@ the plain versions).  A ``target`` with ``layout="aosoa"`` runs every regime
 on AoSoA operands (its ``vvl`` the block width; on ``"cuda_windowed"`` a
 divisor of the grid's ``Y·Z``).
 
+dtype: ``torch.float32`` (default) or ``torch.bfloat16`` (anything else
+raises ``ValueError``).  In bfloat16 the state, the collision constants and
+every launch are bfloat16, each op rounded as the reference's Pallas
+bodies round it (ROADMAP A7.1c.3): the SoA kernels of ``"cuda"`` and
+``"cuda_windowed"`` on the card, the plain bodies on the CPU; on the card
+an AoSoA target or a fleet raises ``NotImplementedError`` in bfloat16.  The fused and
+unfused regimes' φ round differently in bfloat16 (ascending-q adds against
+one float32 sum), so their trajectories differ by more than float32's.
+
 Decompositions: with a ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh`;
 or the target's hint), mesh axis *k* of ``shard_axis`` shards grid dim *k*
 (slab, pencil or block) and each rank holds and steps its own block of the
@@ -75,11 +84,19 @@ class LBState:
 def from_reference(f, g, params: dict, *, device=None):
     """The port's ``(LBState, LBParams)`` from the reference's state:
     ``f``/``g`` as numpy ``(19, X, Y, Z)`` arrays and its ``LBParams`` as a
-    plain dict (``dataclasses.asdict``).  The bits are kept as they are."""
+    plain dict (``dataclasses.asdict``).  The bits are kept as they are
+    (a bfloat16 array, numpy's ``ml_dtypes`` type, by its 16 bits)."""
     dev = resolve_device(device)
-    state = LBState(torch.tensor(np.asarray(f), device=dev),
-                    torch.tensor(np.asarray(g), device=dev))
+    state = LBState(_tensor_of(f, dev), _tensor_of(g, dev))
     return state, LBParams(**params)
+
+
+def _tensor_of(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
 
 
 class BinaryFluidSim:
@@ -96,7 +113,8 @@ class BinaryFluidSim:
                  backend: str | None = None, vvl: int | None = None,
                  mesh=None, shard_axis: str | tuple[str, ...] | None = None,
                  overlap: bool | None = None,
-                 fused: bool | str = False, device=None):
+                 fused: bool | str = False, device=None,
+                 dtype=torch.float32):
         self.grid_shape = tuple(int(s) for s in grid_shape)
         self.params = params or LBParams()
         self.device = resolve_device(device)
@@ -138,8 +156,11 @@ class BinaryFluidSim:
                 f"launches — pass fused='one_launch' or 'two_launch'")
         self.backend = target.executor
         self.vvl = target.vvl
+        #: the state's dtype: float32, or bfloat16 (every op rounded as the
+        #: reference's Pallas bodies round it)
+        self.dtype = dtype
 
-        consts = lbp.collision_consts(dtype=np.float32,
+        consts = lbp.collision_consts(dtype=lbp.consts_dtype(dtype),
                                       **self.params.as_kwargs())
         kw = dict(grid_shape=self.grid_shape, mesh=mesh,
                   shard_axis=shard_axis, overlap=overlap)
@@ -183,10 +204,12 @@ class BinaryFluidSim:
     def _equilibrium_state(self, phi0: np.ndarray) -> LBState:
         phi0 = phi0[self._block()]
         w = WEIGHTS.reshape(NVEL, 1, 1, 1)
-        f0 = (w * self.params.rho0 * np.ones_like(phi0)[None]).astype(np.float32)
-        g0 = (w * phi0[None]).astype(np.float32)
-        return LBState(torch.from_numpy(f0).to(self.device),
-                       torch.from_numpy(g0).to(self.device))
+        # float64 → the state's dtype as numpy (float32) and ml_dtypes
+        # (bfloat16: through float32) round it in the reference
+        f0 = torch.from_numpy(w * self.params.rho0 * np.ones_like(phi0)[None])
+        g0 = torch.from_numpy(w * phi0[None])
+        return LBState(f0.to(self.dtype).to(self.device),
+                       g0.to(self.dtype).to(self.device))
 
     def _coords(self, rank: int | None = None) -> tuple[int, ...]:
         """The mesh coordinate of ``rank`` (this rank's by default) along

@@ -36,6 +36,7 @@ from repro_torch.core import (
     as_target,
     launch,
 )
+from repro_torch.kernels import bf16
 from repro_torch.kernels.lb_collision import CV, NVEL, collision_site_kernel
 
 _CVI = CV.astype(int)
@@ -155,8 +156,11 @@ def fused_two_site_kernel(f_nb, g_nb, phis_nb, *, w=None, c=None, A=0.0625,
 
 
 def phi_moment_site_kernel(g):
-    """Order-parameter moment φ = Σ_q g_q, ``g (19, n)`` → ``(1, n)``."""
-    return g.sum(0, keepdim=True)
+    """Order-parameter moment φ = Σ_q g_q, ``g (19, n)`` → ``(1, n)``; in
+    bfloat16 summed in float32 and rounded once, as the reference's
+    ``jnp.sum`` (where ``phi_at`` and ``streamed_phi_site_kernel`` round at
+    every add: the fused and unfused regimes' φ differ in bfloat16)."""
+    return bf16.sum0(g, keepdim=True)
 
 
 for _fn, _site in ((stream_site_kernel, "stream"),

@@ -1436,11 +1436,12 @@ def test_bad_dtype_codes(host_lib):
 
 
 def test_unported_bf16_launches_raise():
-    """The bfloat16 refusals that remain (ROADMAP A7.1c, A5), by the rule
-    the card's executor applies to its operands: an LB site function, an
-    example site function and an ensemble launch raise a named
-    ``NotImplementedError``; the LM site functions under SoA and AoSoA
-    (``mamba`` and ``rmsnorm`` here), and float32 anywhere, pass."""
+    """The bfloat16 refusals that remain (ROADMAP A7.1c.4, A5), by the rule
+    the card's executor applies to its operands: an LB site function under
+    AoSoA and an ensemble launch raise a named ``NotImplementedError``; the
+    LB and example site functions under SoA, the LM site functions under
+    SoA and AoSoA (``mamba`` and ``rmsnorm`` here), and float32 anywhere,
+    pass."""
     from repro_torch.core import Target
     from repro_torch.core.api import Ensemble, launch_plan
     bf = torch.bfloat16
@@ -1450,16 +1451,18 @@ def test_unported_bf16_launches_raise():
     consts = {"b": torch.zeros(4, 8, dtype=bf), "c": torch.zeros(4, 8, dtype=bf)}
     aosoa = launch_plan(spec, Target("cuda", layout="aosoa", vvl=8),
                         consts=consts)
-    with pytest.raises(NotImplementedError, match="A7.1c"):
+    with pytest.raises(NotImplementedError, match="A7.1c.4"):
         tpw.refuse_unported_bf16(aosoa, "collide", [torch.zeros(3, dtype=bf)])
+    with pytest.raises(NotImplementedError, match="A7.1c.4"):
+        tpw.refuse_unported_bf16(aosoa, "scale", [torch.zeros(1, 4, dtype=bf)])
     soa = launch_plan(spec, Target("cuda"), consts=consts)
-    with pytest.raises(NotImplementedError, match="A7.1c"):
-        tpw.refuse_unported_bf16(soa, "scale", [torch.zeros(1, 4, dtype=bf)])
+    tpw.refuse_unported_bf16(soa, "scale", [torch.zeros(1, 4, dtype=bf)])
+    tpw.refuse_unported_bf16(soa, "collide", [torch.zeros(3, dtype=bf)])
     rms = launch_plan(tlm.rmsnorm_spec(16), Target("cuda", layout="aosoa",
                                                    vvl=8),
                       consts={"weight": torch.zeros(16, dtype=bf)})
     fleet = rms.with_consts(rms.consts, ensemble=Ensemble(2, {}))
-    with pytest.raises(NotImplementedError, match="A5.*A7.1c"):
+    with pytest.raises(NotImplementedError, match="A5"):
         tpw.refuse_unported_bf16(fleet, "rmsnorm",
                                  [torch.zeros(2, 16, 4, dtype=bf)])
     tpw.refuse_unported_bf16(aosoa, "mamba", [*xs, *consts.values()])

@@ -17,7 +17,10 @@ Builds the CUDA sources of the ``repro_torch`` package under ``--src``
   windowed ``fused`` also at each ``plane_block`` (``ms_by_plane_block``);
 
 beside the bound (bytes: each input read once, each output written once, at
-3.35 TB/s).  The operands are prepared by the package's own prologue for
+3.35 TB/s).  Each row also carries a digest of the kernel's output bits at
+every VVL and ``plane_block`` (``digests``), and ``lb_collision.cu``'s
+kernel is checked, digested and timed the same way on 128³ + 37 sites, so
+two checkouts' float32 kernels can be held to the same bits.  The operands are prepared by the package's own prologue for
 each executor's declared contract, so ``--src`` may point at another
 checkout's ``src`` (one unpacked with ``git archive``) whose executors take
 gathered stacks or halo-extended grids: run the script once per version, in
@@ -29,6 +32,7 @@ when a kernel disagrees with its plain version or no card is present.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import sys
@@ -104,6 +108,12 @@ def main(argv=None) -> int:
             xs.append(torch.from_numpy(x).to(dev))
         return xs
 
+    def digest(outs) -> str:
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().view(torch.int32).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     tiled = "plane_block" in get_executor_entry("cuda_windowed").tunables
     rows = []
     for exe, run in (("cuda", tdp_pointwise.cuda_execute),
@@ -128,6 +138,7 @@ def main(argv=None) -> int:
             want = plain(exe, launch_plan(spec, target(1, None), lattice=lat,
                                           consts=consts), prepared)
             err = 0.0
+            digests = {}
             for vvl in VVLS:
                 for pb in pbs:
                     plan = launch_plan(spec, target(vvl, pb), lattice=lat,
@@ -137,6 +148,7 @@ def main(argv=None) -> int:
                     compare(site, got, want, f"{exe}.{site} vvl={vvl} "
                             f"plane_block={pb}", problems)
                     err = max(err, max_abs(got, want))
+                    digests[f"{vvl}/{pb}"] = digest(got)
                     del got
             del want
             ms_by_pb = {}
@@ -152,11 +164,36 @@ def main(argv=None) -> int:
             row = {"name": f"{exe}.{site}", "ms": ms_by_pb.pop("None"),
                    "ms_by_plane_block": ms_by_pb or None,
                    "launch_ms": launch_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "max_abs_err": err}
+                   "bound_by": b_by, "max_abs_err": err, "digests": digests}
             rows.append(row)
             print(json.dumps(row), file=sys.stderr, flush=True)
             del xs, prepared
             torch.cuda.empty_cache()
+    # kernel 3 on a ragged site count
+    from repro_torch.kernels import lb_collision
+    n = nsites + 37
+    r = np.random.default_rng(_build.SITE_ID["collide"])
+    xs = []
+    for fs in stencil.SPECS["collide"].fields:
+        x = r.standard_normal((fs.ncomp, n), dtype=np.float32)
+        x = 1.0 / 19.0 + 0.01 * x if fs.name == "f" else 0.05 * x
+        xs.append(torch.from_numpy(x).to(dev))
+    want = lb_collision.collision_site_kernel(
+        *xs, w=lb_collision.WEIGHTS, c=lb_collision.CV, **PHYS)
+    digests, err = {}, 0.0
+    for vvl in VVLS:
+        got = lb_collision.lb_collision(*xs, vvl=vvl, **PHYS)
+        torch.cuda.synchronize()
+        compare("collide", got, want, f"lb_collision vvl={vvl}", problems)
+        err = max(err, max_abs(got, want))
+        digests[f"{vvl}/None"] = digest(got)
+    b_ms, b_by = bound("collide", n)
+    rows.append({"name": "lb_collision.collide", "n": n,
+                 "ms": time_ms(lambda: lb_collision.lb_collision(*xs, **PHYS)),
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                 "digests": digests})
+    print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+    del xs, want
     result = {"tag": args.tag, "src": str(src), "nvidia_smi": smi,
               "device": torch.cuda.get_device_name(0), "grid": grid,
               "build_s": build_s, "ptxas": ptxas, "rows": rows,
